@@ -1,0 +1,384 @@
+"""Paged KV pool for continuous VLM decode: host-side page accounting.
+
+The port's copy of ``lumen_tpu/models/vlm/paged_kv.py``. The allocator is
+framework-free and copied whole -- its sharing and exact-grant paths
+(``admit_shared``, ``admit_exact``, copy-on-write ``grow``) serve the
+prefix cache and spill tier of later slices; only the pool sizing reads
+device memory through ``torch.cuda.mem_get_info`` instead of the JAX
+metrics surface.
+
+The slot-era continuous scheduler gave every decode row a contiguous
+``max_seq`` KV region, so an 8-slot pool paid ``8 x max_seq`` of HBM no
+matter how short the generations were, and admission needed a same-shape
+bucket. Here KV lives in fixed-size PAGES drawn from one shared pool
+(device arrays: ``[num_pages, kv_heads, page_size, head_dim]`` per layer,
+see ``generate.Generator.init_pool``); each sequence owns a BLOCK TABLE of
+page ids that grows a page at a time as decode crosses page boundaries and
+is returned to the free list at retire. Long and short generations share
+the pool, and a request admits the moment a slot and its prompt's pages
+are free — the Ragged Paged Attention recipe (PAPERS.md, arxiv 2604.15464)
+with the O(1)-per-step cache discipline of arxiv 2603.09555 kept portable:
+the same block tables drive the CUDA kernel on the card and the plain
+PyTorch gather on the CPU (``ops.attention.paged_attention``).
+
+This module is the HOST half: the free list, per-slot block tables, and
+the allocated/freed/live accounting the bench asserts balances at drain.
+Device-side page contents are owned by the scheduler's pool dict and only
+ever addressed through these tables.
+
+Page 0 is reserved as the DUMP page: unused block-table entries point at
+it so device-side scatters always have a safe target (free rows and the
+padded tail of a prompt scatter write garbage there; nothing ever reads
+it back — attention masks by per-row length).
+
+Pages are REFCOUNTED so block tables can share physical pages: the prefix
+cache attaches a hot prompt prefix to a new row as a block-table copy
+(``admit_shared``), every holder — rows, the prefix cache, parked spill
+records — owns one reference, and a page returns to the free list only
+when its last reference drops. Accounting is reference-granular: every
+reference grant is one ``allocated_total`` tick and every drop one
+``freed_total`` tick, so the balance-at-drain invariant (live == 0,
+allocated == freed) survives sharing unchanged. Appending into a shared
+page is a copy-on-write: ``grow`` swaps a fresh page into the frontier
+slot and hands the (old, new) pair back so the caller can device-copy the
+contents — by construction the engine never hits this (shared prefixes
+are page-aligned and at least the prompt's last token always prefills
+into a private page), but the allocator stays safe for any caller.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+#: default tokens per KV page: small enough that the per-page waste
+#: (< page tokens per row) stays small against prompts in the hundreds.
+DEFAULT_PAGE_SIZE = 16
+
+#: fraction of free device memory the pool may claim when sized from it.
+DEFAULT_HEADROOM_FRACTION = 0.6
+
+
+class PoolExhausted(RuntimeError):
+    """Raised by :meth:`PagedKVPool.grow` callers that cannot free pages
+    (the scheduler catches this and preempts a row instead)."""
+
+
+@dataclass
+class PageStats:
+    pages_total: int
+    page_size: int
+    pages_free: int
+    pages_live: int
+    allocated_total: int  # cumulative reference grants since boot
+    freed_total: int  # cumulative reference drops since boot
+    pages_held: int = 0  # physical pages out of the free list
+    pages_shared: int = 0  # physical pages with more than one reference
+
+
+class PagedKVPool:
+    """Free-list page allocator with per-slot block tables.
+
+    NOT thread-safe: the continuous scheduler owns it from its single
+    loop thread. ``block_tables`` is the numpy source of truth shipped to
+    the device programs each dispatch (a [slots, max_pages] int32 is a
+    few hundred bytes — re-uploading per block is noise next to a decode
+    step).
+    """
+
+    def __init__(self, pages_total: int, page_size: int, slots: int, max_pages: int):
+        if pages_total < 2:
+            raise ValueError(f"pages_total must be >= 2 (page 0 is the dump page), got {pages_total}")
+        self.pages_total = pages_total
+        self.page_size = page_size
+        self.max_pages = max_pages
+        # LIFO free list: hot pages are reused first (their HBM lines are
+        # the most recently touched). Page 0 is never in the list.
+        self._free = list(range(pages_total - 1, 0, -1))
+        self._owned: dict[int, list[int]] = {}  # slot -> owned page ids
+        # page id -> outstanding references, for every page out of the
+        # free list. A slot's grant, a prefix-cache entry and a parked
+        # spill record each hold ONE reference; the page is physically
+        # freed when the count hits zero.
+        self._ref: dict[int, int] = {}
+        # slot -> how many LEADING pages of its grant were attached from
+        # a shared prefix (never written by this row; the spill tier must
+        # not export them and decode never lands a write in them).
+        self._shared: dict[int, int] = {}
+        self.block_tables = np.zeros((slots, max_pages), np.int32)
+        self.allocated_total = 0
+        self.freed_total = 0
+
+    # -- queries -----------------------------------------------------------
+
+    @property
+    def pages_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_live(self) -> int:
+        return self.allocated_total - self.freed_total
+
+    def pages_for(self, tokens: int) -> int:
+        """Pages needed to hold ``tokens`` KV slots."""
+        return max(1, -(-int(tokens) // self.page_size))
+
+    def row_capacity(self) -> int:
+        """Max tokens one row's block table can address."""
+        return self.max_pages * self.page_size
+
+    def fits(self, tokens: int) -> bool:
+        """Feasibility: could ``tokens`` EVER fit (full pool, one row)?
+        Admission must reject what can never run; mid-flight shortage is
+        handled by preemption instead."""
+        return tokens <= self.row_capacity() and self.pages_for(tokens) <= self.pages_total - 1
+
+    def can_admit(self, tokens: int, shared_pages: int = 0) -> bool:
+        """Are enough pages free RIGHT NOW for a prompt of ``tokens``
+        (plus the first decode write)? ``shared_pages`` leading pages
+        attached from the prefix cache need no fresh grant."""
+        return self.pages_for(tokens + 1) - shared_pages <= len(self._free)
+
+    def refcount(self, page: int) -> int:
+        """Outstanding references on ``page`` (0 = free / dump page)."""
+        return self._ref.get(page, 0)
+
+    def shared_prefix_len(self, slot: int) -> int:
+        """How many leading pages of the slot's grant are attached shared
+        prefix (read-only for this row)."""
+        return self._shared.get(slot, 0)
+
+    # -- transitions -------------------------------------------------------
+
+    def _pop_fresh(self, n: int) -> list[int]:
+        """Pop ``n`` fresh pages (one reference each, counted)."""
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        self.allocated_total += n
+        return pages
+
+    def incref(self, pages: list[int]) -> None:
+        """Take one additional reference on each page (a new holder —
+        a sharing row, the prefix cache, or a parked spill record).
+        Reference-granular accounting: each grant is an allocation."""
+        for p in pages:
+            ref = self._ref.get(p)
+            if not ref:
+                raise RuntimeError(f"incref of free page {p} (allocator bug)")
+            self._ref[p] = ref + 1
+        self.allocated_total += len(pages)
+
+    def decref(self, pages: list[int]) -> int:
+        """Drop one reference per page; pages reaching zero return to the
+        free list. Returns how many pages were physically freed."""
+        freed = 0
+        for p in pages:
+            ref = self._ref.get(p)
+            if not ref:
+                raise RuntimeError(f"decref of free page {p} (double free)")
+            if ref > 1:
+                self._ref[p] = ref - 1
+            else:
+                del self._ref[p]
+                self._free.append(p)
+                freed += 1
+        self.freed_total += len(pages)
+        return freed
+
+    def _install(self, slot: int, pages: list[int], shared: int) -> np.ndarray:
+        row = np.zeros((self.max_pages,), np.int32)
+        row[: len(pages)] = pages
+        self.block_tables[slot] = row
+        self._owned[slot] = pages
+        if shared:
+            self._shared[slot] = shared
+        return self.block_tables[slot]
+
+    def admit(self, slot: int, prompt_tokens: int) -> np.ndarray:
+        """Grant pages covering ``prompt_tokens`` + the first decode write
+        and install the slot's block table row. Returns the row (view)."""
+        if slot in self._owned:
+            raise RuntimeError(f"slot {slot} already owns pages (allocator bug)")
+        need = self.pages_for(prompt_tokens + 1)
+        if need > len(self._free):
+            raise PoolExhausted(f"need {need} pages, {len(self._free)} free")
+        return self._install(slot, self._pop_fresh(need), 0)
+
+    def admit_shared(
+        self, slot: int, shared_pages: list[int], prompt_tokens: int
+    ) -> np.ndarray:
+        """Prefix-cache hit admission: attach ``shared_pages`` (one new
+        reference each — their contents are the page-aligned prompt
+        prefix, already resident) as the row's leading pages and grant
+        fresh pages for the rest of the prompt + the first decode write.
+        The shared prefix is strictly shorter than the prompt (the hit
+        path caps coverage at ``prompt_tokens - 1``), so the write
+        frontier always lands in a private page and the row never
+        mutates shared contents."""
+        if slot in self._owned:
+            raise RuntimeError(f"slot {slot} already owns pages (allocator bug)")
+        if len(shared_pages) * self.page_size > prompt_tokens:
+            raise ValueError("shared prefix covers the whole prompt (hit-path bug)")
+        need = self.pages_for(prompt_tokens + 1)
+        fresh_need = need - len(shared_pages)
+        if fresh_need < 1:
+            raise ValueError("shared prefix leaves no private frontier page")
+        if fresh_need > len(self._free):
+            raise PoolExhausted(f"need {fresh_need} pages, {len(self._free)} free")
+        self.incref(shared_pages)
+        pages = list(shared_pages) + self._pop_fresh(fresh_need)
+        return self._install(slot, pages, len(shared_pages))
+
+    def owned_pages(self, slot: int) -> list[int]:
+        """The slot's owned page ids in block-table order (grant order) —
+        the spill tier exports page contents in exactly this order so a
+        resume can re-install them into a fresh grant positionally."""
+        return list(self._owned.get(slot, ()))
+
+    def admit_exact(
+        self, slot: int, n_pages: int, shared_pages: list[int] | None = None
+    ) -> np.ndarray:
+        """Grant exactly ``n_pages`` fresh pages and install the slot's
+        block table row — the resume half of the spill tier, where the
+        page count is the victim's exported PRIVATE grant, not a prompt
+        length. ``shared_pages`` (a spilled row's shared prefix, kept
+        alive by the spill record's reference) are re-attached ahead of
+        the fresh grant. Returns the row (view); same accounting as
+        :meth:`admit`."""
+        shared = list(shared_pages or ())
+        if slot in self._owned:
+            raise RuntimeError(f"slot {slot} already owns pages (allocator bug)")
+        if not 1 <= n_pages <= self.max_pages - len(shared):
+            raise ValueError(
+                f"resume grant of {n_pages} pages outside [1, {self.max_pages - len(shared)}]"
+            )
+        if n_pages > len(self._free):
+            raise PoolExhausted(f"need {n_pages} pages, {len(self._free)} free")
+        self.incref(shared)
+        pages = shared + self._pop_fresh(n_pages)
+        return self._install(slot, pages, len(shared))
+
+    def grow(self, slot: int, tokens: int, cow_out: list | None = None) -> bool:
+        """Ensure the slot's pages cover ``tokens`` KV slots; allocate as
+        needed. False when the free list runs dry mid-growth (partial
+        grants stand — accounting stays balanced; the caller preempts a
+        row and retries). ``tokens`` beyond the block table's reach clamp
+        to ``row_capacity()`` — the decode program clamps its writes the
+        same way, so a full row keeps overwriting its last slot instead
+        of the allocator indexing past the table.
+
+        Copy-on-write: growth means the caller is about to APPEND into
+        the current frontier page; if that page is shared (refcount > 1),
+        it is swapped for a fresh private page first and the ``(old,
+        new)`` id pair appended to ``cow_out`` so the caller can
+        device-copy the contents before writing. The engine's page-
+        aligned prefix sharing never triggers this (the frontier is
+        always private by construction) — a trigger with no ``cow_out``
+        to report through is therefore an allocator-contract bug."""
+        pages = self._owned[slot]
+        need = min(self.pages_for(tokens), self.max_pages)
+        if need > len(pages) and pages and self._ref.get(pages[-1], 0) > 1:
+            if not self._free:
+                return False
+            old = pages[-1]
+            new = self._pop_fresh(1)[0]
+            pages[-1] = new
+            self.block_tables[slot, len(pages) - 1] = new
+            self.decref([old])
+            if self._shared.get(slot, 0) >= len(pages):
+                self._shared[slot] = len(pages) - 1
+            if cow_out is None:
+                raise RuntimeError(
+                    f"copy-on-write of shared frontier page {old} with no "
+                    "copy sink (allocator-contract bug)"
+                )
+            cow_out.append((old, new))
+        while len(pages) < need:
+            if not self._free:
+                return False
+            page = self._pop_fresh(1)[0]
+            self.block_tables[slot, len(pages)] = page
+            pages.append(page)
+        return True
+
+    def release(self, slot: int) -> int:
+        """Drop a retired slot's reference on each of its pages (last
+        holder returns them to the free list); the block-table row resets
+        to the dump page. Returns the reference count dropped."""
+        pages = self._owned.pop(slot, [])
+        self._shared.pop(slot, None)
+        self.block_tables[slot] = 0
+        # Reversed: the row's FIRST page ends on top of the LIFO free
+        # list, preserving the pre-refcount reuse order exactly.
+        self.decref(list(reversed(pages)))
+        return len(pages)
+
+    def stats(self) -> PageStats:
+        return PageStats(
+            pages_total=self.pages_total,
+            page_size=self.page_size,
+            pages_free=len(self._free),
+            pages_live=self.pages_live,
+            allocated_total=self.allocated_total,
+            freed_total=self.freed_total,
+            pages_held=len(self._ref),
+            pages_shared=sum(1 for r in self._ref.values() if r > 1),
+        )
+
+
+def page_bytes(cfg, page_size: int, dtype_bytes: int) -> int:
+    """HBM cost of ONE page id across every decoder layer (each page id
+    indexes a [page_size, head_dim] K and V tile in all layers)."""
+    d = cfg.decoder
+    return 2 * d.layers * d.kv_heads * page_size * d.dim_per_head * dtype_bytes
+
+
+def resolve_pool_pages(
+    cfg,
+    page_size: int,
+    slots: int,
+    max_seq: int,
+    dtype_bytes: int = 2,
+    device=None,
+) -> int:
+    """Pool size in pages: ``LUMEN_VLM_KV_PAGES`` pins it; otherwise size
+    against the card's free memory (``torch.cuda.mem_get_info``),
+    claiming ``LUMEN_VLM_KV_HEADROOM`` of it. A CPU device falls back to
+    the slot-era footprint -- ``slots`` full-length rows -- so tests
+    behave as the contiguous pool did memory-wise while still getting
+    page sharing."""
+    import torch
+
+    from ...utils.env import env_float, env_int
+
+    maxp = -(-max_seq // page_size)
+    # Floor: every slot can hold at least one modest row (1/4 max_seq)
+    # concurrently; below that the pool thrashes on preemption.
+    floor = slots * max(1, maxp // 4) + 1
+    fallback = slots * maxp + 1
+    explicit = env_int("LUMEN_VLM_KV_PAGES", None, minimum=2)
+    if explicit is not None:
+        return max(explicit, 2)
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type != "cuda":
+        return fallback
+    frac = env_float(
+        "LUMEN_VLM_KV_HEADROOM", DEFAULT_HEADROOM_FRACTION, minimum=0.05, maximum=0.95
+    )
+    per_page = page_bytes(cfg, page_size, dtype_bytes)
+    headroom, _ = torch.cuda.mem_get_info(dev)
+    pages = int(headroom * frac) // max(per_page, 1)
+    # Cap at what block tables can even address (slots x max_pages) — a
+    # bigger pool than addressable is pure waste.
+    cap = slots * maxp + 1
+    sized = max(floor, min(pages, cap))
+    logger.info(
+        "VLM paged-KV pool: %d pages x %d tokens (%.1f MB of %.1f MB headroom, cap %d)",
+        sized, page_size, sized * per_page / 1e6, headroom / 1e6, cap,
+    )
+    return sized
