@@ -8,30 +8,43 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   the build of every CUDA kernel of the serving path (one ``nvcc`` per
-   source, all started together).
+   the build of all five CUDA kernels (one ``nvcc`` per source, all
+   started together).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases,
    with times for the kernel, the plain version, the card's bound and
    one PyTorch library call computing the same function (a yardstick
-   only; the port never calls it).
+   only; the port never calls it). Times are device time per call from
+   ``torch.profiler``, checked against lost events (``device_ms``); one
+   w8a16 call is also timed with the host's launch path (CUDA events).
+   The verify-window kernel at W = 1 must equal the single-token kernel
+   bit for bit, and w8a16 rows must not depend on the row count (the
+   greedy identity of speculation).
 3. reference: a small fp32 VLM served on the card (kernels) and on the
-   CPU (plain versions) gives the same greedy tokens.
+   CPU (plain versions) gives the same greedy tokens, and so does the
+   card with speculative decoding (``LUMEN_VLM_SPEC_K=4``).
 4. serving path at full width: ``VLMConfig()`` (Qwen2-0.5B decoder +
    1024/64 ViT, seeded random weights, bf16) behind ``VLMManager`` on the
    paged continuous engine; concurrent caption requests, streaming and
    late-arriving ones included. Launch counts are zeroed just before and
-   read just after: every kernel must have run. Greedy determinism is
-   checked by repeating a request.
+   read just after: every kernel of the path must have run. Greedy
+   determinism is checked by repeating a request.
+5. the int8 speculative path at full width: phase 4 with
+   ``quantize="int8"`` and ``LUMEN_VLM_SPEC_K=4`` on templated prompts;
+   the w8a16 and verify-window kernels must run, verify turns must be
+   taken, every decoder projection must hold int8 weights.
 
-The last two lines are the kernel table (JSON) and the device line the
-harness reads; the card's name and power limit precede them.
+Every run drives all five phases. The last two lines are the kernel
+table (JSON) and the device line the harness reads; the card's name and
+power limit precede them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -55,7 +68,43 @@ SOURCES = {
     "flash_attention": ("lumen_tpu_torch/csrc/flash_attention.cu", "lumen_tpu/ops/attention.py:173"),
     "flash_attention_cache": ("lumen_tpu_torch/csrc/flash_attention_cache.cu", "lumen_tpu/ops/attention.py:315"),
     "paged_attention": ("lumen_tpu_torch/csrc/paged_attention.cu", "lumen_tpu/ops/attention.py:676"),
+    "paged_attention_varq": ("lumen_tpu_torch/csrc/paged_attention_varq.cu", "lumen_tpu/ops/attention.py:849"),
+    "w8a16_matmul": ("lumen_tpu_torch/csrc/w8a16_matmul.cu", "lumen_tpu/ops/quant_matmul.py:76"),
 }
+
+#: the kernels each serving phase must launch: phase 4 the bf16 path
+#: (single-token paged decode), phase 5 the int8 speculative path.
+PHASE4_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention")
+PHASE5_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention_varq", "w8a16_matmul")
+
+#: (K, N) of the decoder's projections (Qwen2-0.5B), the w8a16 shapes.
+Q8_SHAPES = {
+    "q_proj/o_proj": (896, 896),
+    "k_proj/v_proj": (896, 128),
+    "gate_proj/up_proj": (896, 4864),
+    "down_proj": (4864, 896),
+}
+
+
+def all_kernels() -> tuple:
+    from lumen_tpu_torch.ops import attention, quant_matmul
+
+    return attention.KERNELS + quant_matmul.KERNELS
+
+
+@contextlib.contextmanager
+def env(**values: str):
+    """Set environment knobs for the engines built inside; restore after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def log(msg: str) -> None:
@@ -86,6 +135,57 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(
+    fn, iters: int, args: list | None = None, *, floor_ms: float, launches: int | None = None,
+    strict: bool = True, warmup: int = 3,
+) -> float | None:
+    """Device time of one call: the summed duration of the kernels (and
+    copies) ``iters`` calls put on the card, from ``torch.profiler``, over
+    ``iters``. Unlike ``cuda_ms`` it leaves out the host's launch path,
+    which is longer than a small kernel. ``args``: argument tuples cycled
+    call by call -- copies of the weights larger than the 50 MB L2 in all,
+    so every launch reads its weights from device memory, as a decode
+    step's layers do.
+
+    The profiler can lose events: on the H100 machine (torch 2.11) a
+    session came back with none at all, and one that loses some reads too
+    low. A session counts only if every kernel in it ran a multiple of
+    ``iters`` times (a call launches the same kernels each time), exactly
+    ``launches`` kernels per call when given, and the time per call is not
+    below ``floor_ms``, the call's bound. Otherwise it is profiled again, up
+    to three times; then the run fails, or, with ``strict=False``, the
+    reading is None: not valid, and never printed as a time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    args = args or [()]
+    for i in range(warmup):
+        fn(*args[i % len(args)])
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*args[i % len(args)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {e.key: e.count for e in events}
+        ms = sum(e.self_device_time_total for e in events) / iters / 1e3
+        if not events:
+            fault = "no device events"
+        elif any(c % iters for c in counts.values()):
+            fault = f"kernel counts {sorted(counts.values())} not multiples of {iters} calls"
+        elif launches is not None and sum(counts.values()) != launches * iters:
+            fault = f"{sum(counts.values())} kernels for {iters} calls of {launches}"
+        elif ms < floor_ms:
+            fault = f"{ms:.5f} ms a call, below the {floor_ms:.5f} ms bound"
+        else:
+            return ms
+        log(f"torch.profiler session {attempt + 1} of 3 not valid: {fault}")
+    if strict:
+        raise AssertionError(f"torch.profiler gave no valid session in three: {fault}")
+    return None
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -142,10 +242,10 @@ def check_kernels(seed: int) -> dict:
     bms, by = bound(nb, fl, "bfloat16")
     rows["flash_attention"] = dict(
         max_abs_err=max(errs),
-        ms=cuda_ms(lambda: A.flash_attention(q, k, v), 50),
-        plain_ms=cuda_ms(lambda: A.attention_reference(q, k, v), 20),
+        ms=device_ms(lambda: A.flash_attention(q, k, v), 50, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.attention_reference(q, k, v), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
     )
 
     # flash_attention_cache: the chunk lane's two chunks of a caption
@@ -174,10 +274,10 @@ def check_kernels(seed: int) -> dict:
     mask = ((slots[None, :] < 256) & (slots[None, :] <= torch.arange(256, device=dev)[:, None]))[None, None]
     rows["flash_attention_cache"] = dict(
         max_abs_err=max(errs),
-        ms=cuda_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50),
-        plain_ms=cuda_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20),
+        ms=device_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50, floor_ms=bms),
     )
 
     # paged_attention: 8 decode rows over a 1025-page pool, ragged
@@ -203,18 +303,156 @@ def check_kernels(seed: int) -> dict:
     bms, by = bound(nb, 4 * 14 * 64 * total, "bfloat16")
     rows["paged_attention"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100),
-        plain_ms=cuda_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20),
+        ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None,
     )
     for name, row in rows.items():
         log(
             f"kernel {name}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"kernel {row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), library "
             + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
         )
     return rows
+
+
+def check_varq(seed: int) -> dict:
+    """paged_attention_varq: 8 rows over the 1025-page pool at W = 1, 5
+    (the smoke drive's K = 4) and 16 (K = 15, the most the engine takes);
+    ragged lengths, windows crossing page boundaries, tables padded with
+    the dump page and stale ids. W = 1 must equal the single-token kernel
+    bit for bit."""
+    import torch
+
+    from lumen_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    bf16 = torch.bfloat16
+    pages, page, maxp = 1025, 16, 34
+    kp = torch.randn((pages, 2, page, 64), generator=gen, device=dev).to(bf16)
+    vp = torch.randn((pages, 2, page, 64), generator=gen, device=dev).to(bf16)
+    lens = [1, 16, 15, 300, 333, 129, 62, 500]  # 15 + W and 62 + W cross a page edge
+    kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+    errs = []
+    cases = {}
+    for w in (1, 5, 16):
+        perm = torch.randperm(pages - 1, generator=gen, device=dev)[: 8 * maxp].reshape(8, maxp) + 1
+        bt = perm.to(torch.int32)
+        for r, n in enumerate(lens):
+            if r % 2:
+                bt[r, -(-(n + w - 1) // page):] = 0  # dump page past the window's last page
+        q = torch.randn((8, w, 14, 64), generator=gen, device=dev).to(bf16)
+        out = A.paged_attention_varq_kernel(q, kp, vp, bt, kl)
+        ref = A.paged_attention_varq_reference(q.float(), kp.float(), vp.float(), bt, kl)
+        errs.append(max_err(out, ref))
+        if w == 1:
+            single = A.paged_attention_kernel(q[:, 0].contiguous(), kp, vp, bt, kl)
+            if not torch.equal(out[:, 0], single):
+                raise AssertionError("paged_attention_varq at W = 1 differs from paged_attention")
+        cases[w] = (q, bt)
+    torch.cuda.synchronize()
+    log("kernel paged_attention_varq: W = 1 equals paged_attention bit for bit")
+    w = 5
+    q, bt = cases[w]
+    live = sum(n + w - 1 for n in lens)  # K/V slots some window slot reads
+    seen = sum(n + t for n in lens for t in range(w))  # (slot, key) pairs
+    nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * 2 * 64 * 2
+    bms, by = bound(nb, 4 * 14 * 64 * seen, "bfloat16")
+    row = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+        bound_ms=bms, bound_by=by, library_ms=None, shape="8 rows, W=5, 14/2 heads",
+    )
+    log(
+        f"kernel paged_attention_varq (W=5): max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
+        f"kernel {row['ms']:.4f} ms on the device, "
+        f"plain {row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
+        f"{nb} B / 3.35 TB/s vs {4 * 14 * 64 * seen} flop / 989 TFLOP/s), library none"
+    )
+    return row
+
+
+def check_w8a16(seed: int) -> dict:
+    """w8a16_matmul at every projection shape of the int8 decoder: rows 1,
+    3, 8 (decode), 40 (a W = 5 verify window over 8 slots) and 64 (the
+    routing limit) against the plain version; the first 8 rows of a
+    40-row call must equal an 8-row call bit for bit. Times at 8 and 40
+    rows, with weights cycled past the L2 as a decode step finds them.
+    Returns the gate_proj row at 8 rows (the largest weight) for the
+    kernel table, the other shapes under ``shapes``."""
+    import torch
+
+    from lumen_tpu_torch.ops import quant_matmul as QM
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    bf16 = torch.bfloat16
+    x40 = None
+    try:  # the yardstick call exists on the card's torch only if it has a CUDA kernel
+        probe = torch.zeros((8, 64), device=dev, dtype=bf16)
+        torch._weight_int8pack_mm(probe, torch.zeros((64, 64), device=dev, dtype=torch.int8),
+                                  torch.ones(64, device=dev, dtype=bf16))
+        int8pack = True
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"w8a16 library yardstick: torch._weight_int8pack_mm has no CUDA kernel here ({type(e).__name__})")
+        int8pack = False
+    shapes = {}
+    errs = []
+    for name, (k, n) in Q8_SHAPES.items():
+        copies = max(2, -(-64 * 2**20 // (k * n)))  # int8 copies > 64 MB: past the 50 MB L2
+        qs = [torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8) for _ in range(copies)]
+        scales = [torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4 for _ in range(copies)]
+        q, scale = qs[0], scales[0]
+        for rows in (1, 3, 8, 40, 64):
+            x = torch.randn((rows, k), generator=gen, device=dev).to(bf16)
+            out = QM.w8a16_matmul(x, q, scale)
+            errs.append(max_err(out, QM.w8a16_reference(x.float(), q, scale)))
+            if rows == 40:
+                x40 = x
+        head = QM.w8a16_matmul(x40[:8].contiguous(), q, scale)
+        if not torch.equal(QM.w8a16_matmul(x40, q, scale)[:8], head):
+            raise AssertionError(f"w8a16_matmul {name}: rows of a 40-row call differ from an 8-row call")
+        for rows in (8, 40):
+            x = torch.randn((rows, k), generator=gen, device=dev).to(bf16)
+            args = list(zip([x] * copies, qs, scales))
+            nb = rows * k * 2 + k * n + n * 4 + rows * n * 2
+            fl = 2 * rows * k * n
+            bms, by = bound(nb, fl, "bfloat16")
+            wbf = [(x, qq.to(bf16)) for qq in qs]
+            bf16_bound, _ = bound(nb + k * n, fl, "bfloat16")  # the yardstick reads bf16 weights
+            packs = [(x, qq.T.contiguous(), ss.to(bf16)) for qq, ss in zip(qs, scales)] if int8pack else None
+            shapes[f"{name} {rows}x{k}x{n}"] = dict(
+                ms=device_ms(QM.w8a16_matmul, 100, args, floor_ms=bms, launches=1),
+                plain_ms=device_ms(QM.w8a16_reference, 20, args, floor_ms=bms),
+                bound_ms=bms, bound_by=by, bound_formula=f"{nb} B / 3.35 TB/s vs {fl} flop / 989 TFLOP/s",
+                library_ms=device_ms(torch._weight_int8pack_mm, 100, packs, floor_ms=bms) if packs else None,
+                bf16_matmul_ms=device_ms(torch.matmul, 100, wbf, floor_ms=bf16_bound, strict=False),
+            )
+            if (name, rows) == ("gate_proj/up_proj", 8):
+                # Once: a call's cost with the host's launch path (CUDA
+                # events), which sets the price at decode sizes.
+                call_ms = cuda_ms(lambda: QM.w8a16_matmul(*args[0]), 100)
+                log(f"kernel w8a16_matmul {name} 8x{k}x{n}: {call_ms:.4f} ms a call, launch path included")
+            del wbf, packs
+        del qs, scales
+    torch.cuda.synchronize()
+    log("kernel w8a16_matmul: rows 1/3/8/40/64 at every projection shape within tolerance; "
+        "the first 8 rows of a 40-row call equal an 8-row call bit for bit")
+    for shape, r in shapes.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        yard = "not valid" if r["bf16_matmul_ms"] is None else f"{r['bf16_matmul_ms']:.4f} ms"
+        log(f"kernel w8a16_matmul {shape}: kernel {r['ms']:.4f} ms on the device, "
+            f"plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_formula']}), "
+            f"library (_weight_int8pack_mm) {lib}, yardstick bf16 torch.matmul {yard}")
+    main = dict(shapes["gate_proj/up_proj 8x896x4864"], max_abs_err=max(errs), shape="gate_proj 8x896x4864")
+    main["shapes"] = shapes
+    return main
 
 
 # -- shared: a word-level tokenizer with the HF tokenizers interface --------
@@ -254,7 +492,10 @@ class WordTokenizer:
 
 def check_reference(seed: int) -> None:
     """A small fp32 VLM (head_dim 64, so every kernel takes it) served on
-    the card and on the CPU from the same weights: same greedy tokens."""
+    the card and on the CPU from the same weights: same greedy tokens; and
+    on the card with speculative decoding (K = 4): the same tokens again,
+    through verify turns (in fp32 QDense would take its matmul branch, so
+    the w8a16 kernel is held in phase 2)."""
     import dataclasses
 
     import numpy as np
@@ -277,46 +518,82 @@ def check_reference(seed: int) -> None:
     rng = np.random.default_rng(seed)
     pixels = [rng.integers(0, 256, (256, 256, 3), np.uint8) for _ in range(2)]
     msgs = [[ChatMessage("user", f"describe picture {i} briefly")] for i in range(2)]
+    from lumen_tpu_torch.ops.attention import PAGED_VARQ
+
     outs = {}
-    for device in ("cuda:0", "cpu"):
-        mgr = VLMManager(
-            cfg, model.state_dict(), tok, device=device, dtype="float32", max_seq=256,
-            max_new_cap=24, prefill_buckets=(16, 32), pool_pages=33, prefill_chunk=32,
-        )
+    for run, device, spec in (("card", "cuda:0", "0"), ("cpu", "cpu", "0"), ("card+spec", "cuda:0", "4")):
+        with env(LUMEN_VLM_SPEC_K=spec, LUMEN_VLM_SPEC_MIN_RATE="0"):
+            mgr = VLMManager(
+                cfg, model.state_dict(), tok, device=device, dtype="float32", max_seq=256,
+                max_new_cap=24, prefill_buckets=(16, 32), pool_pages=33, prefill_chunk=32,
+            )
         try:
-            outs[device] = [mgr.generate(m, p, max_new_tokens=24).tokens for m, p in zip(msgs, pixels)]
+            PAGED_VARQ.launches = 0
+            outs[run] = [mgr.generate(m, p, max_new_tokens=24).tokens for m, p in zip(msgs, pixels)]
+            if spec != "0":
+                eng = mgr.engine
+                if eng.spec_turns == 0 or PAGED_VARQ.launches == 0:
+                    raise AssertionError(
+                        f"speculative run took {eng.spec_turns} verify turns, "
+                        f"{PAGED_VARQ.launches} verify-window launches"
+                    )
+                log(f"reference: spec K=4 took {eng.spec_turns} verify turns, "
+                    f"{eng.spec_accepted}/{eng.spec_proposed} drafted tokens accepted, "
+                    f"{PAGED_VARQ.launches} paged_attention_varq launches")
         finally:
             mgr.close()
-    if outs["cuda:0"] != outs["cpu"]:
-        raise AssertionError(f"card and CPU disagree: {outs}")
-    log(f"reference: small fp32 VLM, card == CPU greedy tokens ({[len(t) for t in outs['cpu']]} tokens)")
+    if not outs["card"] == outs["cpu"] == outs["card+spec"]:
+        raise AssertionError(f"card, CPU and card with speculation disagree: {outs}")
+    log(f"reference: small fp32 VLM, card == CPU == card with speculation, greedy tokens "
+        f"({[len(t) for t in outs['cpu']]} tokens)")
 
 
-# -- phase 4: the serving path at full width --------------------------------
+# -- phases 4 and 5: the serving path at full width -------------------------
 
 
-def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
-    """Phase 4; returns each kernel's launch count during the drive.
-    ``cfg``/``device`` let the CPU tests rehearse the drive at a small
-    configuration (it then stops at the launch-count check)."""
+def drive_serving(
+    seed: int, card: str, cfg=None, device: str = "cuda:0", quantize: str | None = None,
+    spec_k: int = 0, kernels: tuple = PHASE4_KERNELS,
+) -> dict:
+    """Phase 4 (defaults) or phase 5 (``quantize="int8"``, ``spec_k=4``):
+    10 caption requests, 8 at once and 2 after decoding started, three of
+    them streaming. Returns the drive's numbers, with every kernel's launch
+    count during the drive under ``launches``. ``cfg``/``device`` let the
+    CPU tests rehearse the drive at a small configuration (it then stops
+    at the launch-count check: plain paths launch nothing)."""
     import numpy as np
     import torch
 
     from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager, VLMModel, init_random_
-    from lumen_tpu_torch.ops.attention import KERNELS
+    from lumen_tpu_torch.ops.quant import QDense
 
+    label = f"phase {5 if quantize or spec_k else 4}"
     cfg = cfg or VLMConfig()
     t0 = time.perf_counter()
     with torch.device(device):
         model = VLMModel(cfg)
     init_random_(model, seed)
     state = model.to(torch.bfloat16).state_dict()
+    del model
     tok = WordTokenizer(cfg.decoder.vocab_size, {})
-    mgr = VLMManager(
-        cfg, state, tok, device=device, dtype="bfloat16", max_seq=2048,
-        gen_slots=8, gen_block=8, page_size=16, pool_pages=8 * 2048 // 16 + 1, prefill_chunk=256,
-    )
-    log(f"serving: VLMConfig() built in {time.perf_counter() - t0:.1f} s, kv {mgr.kv_layout()}")
+    with env(LUMEN_VLM_SPEC_K=str(spec_k), LUMEN_VLM_SPEC_MIN_RATE="0"):
+        mgr = VLMManager(
+            cfg, state, tok, device=device, dtype="bfloat16", max_seq=2048,
+            gen_slots=8, gen_block=8, page_size=16, pool_pages=8 * 2048 // 16 + 1, prefill_chunk=256,
+            quantize=quantize,
+        )
+    del state  # the int8 model must not sit beside a bf16 copy of its projections
+    log(f"{label}: VLMConfig() (quantize={quantize}, spec K={spec_k}) built in "
+        f"{time.perf_counter() - t0:.1f} s, kv {mgr.kv_layout()}")
+    if quantize:
+        dec = mgr.model.decoder
+        qd = [m for m in dec.modules() if isinstance(m, QDense)]
+        linear = [n for n, m in dec.named_modules() if isinstance(m, torch.nn.Linear)]
+        if len(qd) != 7 * cfg.decoder.layers or linear or any(m.q.dtype != torch.int8 for m in qd):
+            raise AssertionError(f"int8 decoder: {len(qd)} QDense, float projections {linear[:3]}")
+        if any(m.scale.dtype != torch.float32 for m in qd):
+            raise AssertionError("int8 decoder: a scale lost its fp32")
+        log(f"{label}: all {len(qd)} decoder projections hold int8 q and fp32 scale")
     rng = np.random.default_rng(seed)
     size = cfg.vision.image_size
     on_card = torch.device(device).type == "cuda"
@@ -327,8 +604,13 @@ def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dic
 
     def request(i: int):
         pixels = rng.integers(0, 256, (size, size, 3), np.uint8)
-        return [ChatMessage("user", f"Describe image {i} in one detailed sentence.")], pixels, 32 + 4 * (i % 9)
+        if spec_k:  # templated traffic: the repeated phrase prompt lookup serves
+            text = f"Caption image {i}: a red car on a wet road, a red car on a wet road, a red car on a wet road."
+        else:
+            text = f"Describe image {i} in one detailed sentence."
+        return [ChatMessage("user", text)], pixels, 32 + 4 * (i % 9)
 
+    all_k = all_kernels()
     try:
         # Warm-up (cuBLAS handles, allocator), not counted.
         m, p, _ = request(99)
@@ -354,7 +636,10 @@ def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dic
             except BaseException as e:  # noqa: BLE001 - reported below, fails the run
                 errors.append(e)
 
-        for k in KERNELS:
+        eng = mgr.engine
+        turns0, prop0, acc0 = eng.spec_turns, eng.spec_proposed, eng.spec_accepted
+        blocks0 = eng.blocks_run
+        for k in all_k:
             k.launches = 0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -365,9 +650,9 @@ def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dic
             t.start()
         # Late admissions: wait until decoding has started.
         deadline = time.perf_counter() + 300
-        while mgr.engine.blocks_run == 0 and time.perf_counter() < deadline and not errors:
+        while eng.blocks_run == blocks0 and time.perf_counter() < deadline and not errors:
             time.sleep(0.005)
-        if mgr.engine.blocks_run == 0:
+        if eng.blocks_run == blocks0:
             raise AssertionError("decoding never started")
         late = [threading.Thread(target=run, args=(i, i in stream_ids)) for i in (8, 9)]
         for t in late:
@@ -375,8 +660,9 @@ def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dic
         for t in threads + late:
             t.join(timeout=600)
         wall = time.perf_counter() - t_start
-        launches = {k.name: k.launches for k in KERNELS}
+        launches = {k.name: k.launches for k in all_k}
         peak = torch.cuda.max_memory_allocated() if on_card else 0
+        turns, prop, acc = eng.spec_turns - turns0, eng.spec_proposed - prop0, eng.spec_accepted - acc0
         if errors:
             raise errors[0]
         if len(results) != 10:
@@ -386,27 +672,35 @@ def drive_serving(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dic
                 raise AssertionError(f"request {i}: {r['n']} tokens for a budget of {r['budget']}")
             if r["tokens"] is not None and not all(0 <= t < cfg.decoder.vocab_size for t in r["tokens"]):
                 raise AssertionError(f"request {i}: token id out of range")
-        missing = [name for name, n in launches.items() if n == 0]
+        if spec_k and (turns == 0 or prop == 0):
+            raise AssertionError(f"speculation never verified: {turns} verify turns, {prop} proposals")
+        missing = [name for name in kernels if launches[name] == 0]
         if missing:
             raise AssertionError(f"serving path never launched: {missing} (launches {launches})")
         total = sum(r["n"] for r in results.values())
         ttfts = sorted(r["ttft_ms"] for r in results.values() if r.get("ttft_ms") is not None)
-        log(f"serving: 10 requests (8 at once, 2 after decoding started; {len(stream_ids)} streaming), "
+        log(f"{label}: 10 requests (8 at once, 2 after decoding started; {len(stream_ids)} streaming), "
             f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tok/s aggregate [{card}]")
-        log(f"serving: ttft_ms of streams {ttfts} [{card}]")
-        log(f"serving: peak device memory {peak / 2**30:.3f} GiB [{card}]")
-        log(f"serving: launches {json.dumps(launches)}; engine blocks {mgr.engine.blocks_run}, "
-            f"chunks {mgr.engine.chunks_run}, preemptions {mgr.engine.preemptions}")
+        log(f"{label}: ttft_ms of streams {ttfts} [{card}]")
+        log(f"{label}: peak device memory {peak / 2**30:.3f} GiB [{card}]")
+        if spec_k:
+            log(f"{label}: {turns} verify turns, {acc}/{prop} drafted tokens accepted "
+                f"(rate {acc / prop:.3f})")
+        log(f"{label}: launches {json.dumps(launches)}; decode turns {eng.blocks_run - blocks0}, "
+            f"chunks {eng.chunks_run}, preemptions {eng.preemptions}")
         # Greedy determinism: request 0 again, alone.
         m, p, n = reqs[0]
         again = mgr.generate(m, p, max_new_tokens=n).tokens
         if again != results[0]["tokens"]:
             raise AssertionError("greedy request repeated gave different tokens")
-        log("serving: greedy repeat gives identical tokens")
-        stats = mgr.engine.kv.stats()
+        log(f"{label}: greedy repeat gives identical tokens")
+        stats = eng.kv.stats()
         if stats.pages_live != 0:
             raise AssertionError(f"pages still live after drain: {stats}")
-        return launches
+        return dict(
+            launches=launches, tokens=total, wall_s=wall, tok_s=total / wall, ttft_ms=ttfts,
+            peak_gib=peak / 2**30, spec_turns=turns, spec_proposed=prop, spec_accepted=acc,
+        )
     finally:
         mgr.close()
 
@@ -424,14 +718,14 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from lumen_tpu_torch.ops.attention import KERNELS
     from lumen_tpu_torch.ops.cuda_build import build_all
 
+    kernels = all_kernels()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    logs = build_all(KERNELS)
+    logs = build_all(kernels)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -439,16 +733,27 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     rows = check_kernels(args.seed)
+    rows["paged_attention_varq"] = check_varq(args.seed)
+    rows["w8a16_matmul"] = check_w8a16(args.seed)
     check_reference(args.seed)
-    launches = drive_serving(args.seed, card)
+    drives = {4: drive_serving(args.seed, card)}
+    drives[5] = drive_serving(args.seed, card, quantize="int8", spec_k=4, kernels=PHASE5_KERNELS)
+    a, b = drives[4], drives[5]
+    log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
+        f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
+        f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
 
     table = []
-    for k in KERNELS:
+    for k in kernels:
         source, replaces = SOURCES[k.name]
         row = rows[k.name]
+        # Each kernel's launches come from the drive of the path it serves:
+        # phase 4 for the bf16 path's kernels, phase 5 for the int8 /
+        # speculative path's own.
+        phase = 4 if k.name in PHASE4_KERNELS else 5
         table.append(dict(
             name=k.name, route="cuda", source=source, replaces=replaces,
-            launches=launches[k.name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            launches=drives[phase]["launches"][k.name], max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))

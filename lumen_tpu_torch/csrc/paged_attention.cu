@@ -6,22 +6,10 @@
 // paged_attention_kernel (body _paged_decode_kernel, :617). Inputs keep
 // its layout: q [B, H, D], k/v pages [P, KVH, page, D], block_tables
 // [B, MAXP] int32, kv_lens [B] int32 (the just-written token included).
-// Slots at or past kv_lens[b] are masked; pages past the row's live
-// count are never read, so stale block-table entries (the dump page 0)
-// cost nothing.
+// The kernel is the page walk of paged_walk.cuh with a window of one
+// token: one block of 128 threads per (row, KV head), online softmax over
+// 128-token chunks, live slots only.
 //
-// Design: one block of 128 threads per (row, KV head). The block keeps
-// the GQA group's query heads (up to 8 -- the TPU version padded the
-// group to 8 for its sublane tiling; here padding rows are simply idle)
-// in shared memory and walks the row's live tokens 128 at a time:
-//   A. each thread scores one token against every head of the group,
-//      reading its K row straight from its page with 16-byte loads;
-//   B. one warp per two heads folds the chunk into a running max/sum
-//      (online softmax), so the row length is not capped by any scratch
-//      -- the TPU kernel's maxp * page <= 8192 VMEM cap (:967) has no
-//      counterpart;
-//   C. the chunk's V rows, staged in shared memory with coalesced loads,
-//      are accumulated into the [group, D] output, 16 threads per head.
 // The TPU kernel used a single-pass softmax over the assembled row (to
 // stay bitwise equal to its XLA reference); the online form here agrees
 // with the plain PyTorch version within the tolerance chip_smoke.py
@@ -33,167 +21,12 @@
 // and the 16-block grid's latency dominate, not bandwidth. Splitting a
 // long row over several blocks (split-K with a second combine pass) is
 // the step that fills the 132 SMs once rows grow.
-#include "common.cuh"
-
-namespace lumen {
-
-constexpr int kPagedThreads = 128;
-constexpr int kPagedGroupMax = 8;  // query heads per KV head
-constexpr int kPagedChunk = kPagedThreads;  // tokens per pass: one per thread
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kPagedThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-                        const int* __restrict__ kv_lens, T* __restrict__ o, int heads,
-                        int kv_heads, int page, int maxp, float scale) {
-  constexpr int G = kPagedGroupMax;
-  constexpr int TPH = kPagedThreads / G;  // output threads per head (16)
-  constexpr int DPT = D / TPH;            // output dims per thread
-  __shared__ float sQ[G][D];
-  __shared__ float sS[G][kPagedChunk];
-  __shared__ float sV[kPagedChunk][D];
-  __shared__ float sM[G], sL[G], sAlpha[G];
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / kv_heads;
-  const int kvh = blockIdx.x % kv_heads;
-  const int group = heads / kv_heads;
-  const int len = kv_lens[b];
-  const int* row_bt = block_tables + (size_t)b * maxp;
-  const size_t page_stride = (size_t)kv_heads * page * D;  // one page id, all KV heads
-  const size_t head_off = (size_t)kvh * page * D;
-
-  for (int idx = tid; idx < G * D; idx += kPagedThreads) {
-    const int g = idx / D, d = idx % D;
-    sQ[g][d] = g < group ? to_f(q[((size_t)b * heads + kvh * group + g) * D + d]) : 0.f;
-  }
-  if (tid < G) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-  const int og = tid / TPH, ot = tid % TPH;
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int base = 0; base < len; base += kPagedChunk) {
-    // A. scores of this thread's token for every head of the group.
-    const int tok = base + tid;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    if (tok < len) {
-      const int pid = row_bt[tok / page];
-      const T* krow = k_pages + pid * page_stride + head_off + (size_t)(tok % page) * D;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 8) {
-        float kf[8];
-        load8(krow + d0, kf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] = fmaf(sQ[g][d0 + e], kf[e], s[g]);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) sS[g][tid] = tok < len ? s[g] * scale : kNegInf;
-    // V rows of the chunk, coalesced: neighbouring threads, neighbouring
-    // dims. Dead slots load zeros so p == 0 never meets a stale NaN.
-    for (int idx = tid; idx < kPagedChunk * D; idx += kPagedThreads) {
-      const int j = idx / D, d = idx % D;
-      const int tj = base + j;
-      float val = 0.f;
-      if (tj < len) {
-        const int pid = row_bt[tj / page];
-        val = to_f(v_pages[pid * page_stride + head_off + (size_t)(tj % page) * D + d]);
-      }
-      sV[j][d] = val;
-    }
-    __syncthreads();
-
-    // B. online softmax update, one warp per two heads.
-    const int warp = tid / 32, lane = tid % 32;
-    for (int g = warp * 2; g < warp * 2 + 2; ++g) {
-      float cmax = kNegInf;
-      for (int j = lane; j < kPagedChunk; j += 32) cmax = fmaxf(cmax, sS[g][j]);
-      cmax = warp_max(cmax);
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, cmax);
-      float psum = 0.f;
-      for (int j = lane; j < kPagedChunk; j += 32) {
-        const float p = expf(sS[g][j] - m_new);
-        sS[g][j] = p;
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sAlpha[g] = alpha;
-        sL[g] = alpha * sL[g] + psum;
-        sM[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // C. acc[og] = alpha * acc + P[og] @ V over the chunk's live slots.
-    const float alpha = sAlpha[og];
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    const int n = len - base < kPagedChunk ? len - base : kPagedChunk;
-    for (int j = 0; j < n; ++j) {
-      const float p = sS[og][j];
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, sV[j][i * TPH + ot], acc[i]);
-    }
-    __syncthreads();  // sS / sV are rewritten by the next chunk
-  }
-
-  if (og < group) {
-    const float denom = sL[og];
-#pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      o[((size_t)b * heads + kvh * group + og) * D + i * TPH + ot] = from_f<T>(acc[i] / denom);
-  }
-}
-
-template <typename T, int D>
-static void launch(const void* q, const void* kp, const void* vp, const int* bt, const int* lens,
-                   void* o, int batch, int heads, int kv_heads, int page, int maxp, float scale,
-                   cudaStream_t stream) {
-  paged_decode_kernel<T, D><<<batch * kv_heads, kPagedThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, lens,
-      static_cast<T*>(o), heads, kv_heads, page, maxp, scale);
-}
-
-template <typename T>
-static int dispatch_d(const void* q, const void* kp, const void* vp, const int* bt,
-                      const int* lens, void* o, int batch, int heads, int kv_heads, int page,
-                      int maxp, int d, float scale, cudaStream_t stream) {
-  if (heads % kv_heads != 0 || heads / kv_heads > kPagedGroupMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // head_dim 64: the only one the repository's models use (128 would
-  // need 64 KB of fp32 V staging, i.e. dynamic shared memory).
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<T, 64>(q, kp, vp, bt, lens, o, batch, heads, kv_heads, page, maxp, scale, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace lumen
+#include "paged_walk.cuh"
 
 extern "C" int lumen_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                      const int* block_tables, const int* kv_lens, void* o,
                                      int batch, int heads, int kv_heads, int page, int maxp,
                                      int head_dim, int dtype, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lumen::kBFloat16)
-    return lumen::dispatch_d<__nv_bfloat16>(q, k_pages, v_pages, block_tables, kv_lens, o, batch,
-                                            heads, kv_heads, page, maxp, head_dim, scale, s);
-  if (dtype == lumen::kFloat32)
-    return lumen::dispatch_d<float>(q, k_pages, v_pages, block_tables, kv_lens, o, batch, heads,
-                                    kv_heads, page, maxp, head_dim, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return lumen::paged_walk_dispatch(q, k_pages, v_pages, block_tables, kv_lens, o, batch, 1,
+                                    heads, kv_heads, page, maxp, head_dim, dtype, scale, stream);
 }

@@ -16,12 +16,18 @@
   the pool runs dry mid-decode the newest row is preempted and restarts
   from its prompt when that is invisible (greedy, or nothing streamed
   yet; the stream's delivered watermark is kept so nothing is sent
-  twice), else it fails with the retryable :class:`PreemptionShed`.
+  twice), else it fails with the retryable :class:`PreemptionShed`;
+- with ``LUMEN_VLM_SPEC_K`` > 0, SPECULATIVE DECODING: a host n-gram
+  drafter (prompt lookup over the row's prompt and output) proposes up to
+  K tokens per greedy row, and one verify forward over a K+1 window
+  accepts the ones the model would have emitted itself. Acceptance below
+  ``LUMEN_VLM_SPEC_MIN_RATE`` after 64 proposals turns it off for the
+  engine's lifetime. The knobs are the JAX engine's own.
 
 Not ported yet: the KV spill tier (preempted rows resume without
 re-prefill), disaggregated-serving migration, the prefix KV cache,
-speculative decoding, telemetry, trace spans and fleet gauges. The
-engine's counters are plain attributes.
+telemetry, trace spans and fleet gauges. The engine's counters are plain
+attributes.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ...utils.env import env_int
+from ...utils.env import env_float, env_int
 from .paged_kv import DEFAULT_PAGE_SIZE, PagedKVPool
 
 logger = logging.getLogger(__name__)
@@ -77,6 +83,9 @@ class _Request:
     cancelled: bool = False
     #: carried across preemption so a restarted stream never re-delivers.
     delivered: int = 0
+    #: speculative decoding tally of this request (response metadata).
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def key(self) -> tuple:
@@ -106,6 +115,10 @@ class _Slot:
     prompt_len: int = 0
     seq: int = 0  # admission order; preemption evicts the newest first
     tokens: list = field(default_factory=list)
+    #: host mirrors for the n-gram drafter (speculative decoding only):
+    #: the live TEXT prompt ids and the sampled-but-not-emitted token.
+    text_toks: "list | None" = None
+    pending_tok: "int | None" = None
 
 
 @dataclass
@@ -165,6 +178,15 @@ class ContinuousScheduler:
         self.preempt_redone = 0
         self.preempt_failed = 0
         self._block_s_ewma = 0.0
+        # Speculative decoding: K = 0 (default) builds no drafter and
+        # never runs the verify program.
+        self.spec_k = env_int("LUMEN_VLM_SPEC_K", 0, minimum=0, maximum=15)
+        self.spec_ngram = env_int("LUMEN_VLM_SPEC_NGRAM", 3, minimum=1, maximum=8)
+        self.spec_min_rate = env_float("LUMEN_VLM_SPEC_MIN_RATE", 0.2, minimum=0.0, maximum=1.0)
+        self.spec_turns = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_disabled = False
         self._thread = threading.Thread(target=self._loop, name=f"vlm-continuous-{name}", daemon=True)
         self._thread.start()
 
@@ -356,10 +378,22 @@ class ContinuousScheduler:
             self.kv.release(slot)
             raise
         self._admit_seq += 1
+        slot_state = _Slot(request=req, prompt_len=n, seq=self._admit_seq)
+        if self._spec_active():
+            slot_state.text_toks = self._text_toks(req)
+            slot_state.pending_tok = int(tok0[0])
         with self._cond:
-            self._slots[slot] = _Slot(request=req, prompt_len=n, seq=self._admit_seq)
+            self._slots[slot] = slot_state
         self.admitted += 1
         return slot
+
+    def _text_toks(self, req: _Request) -> list[int]:
+        """Host copy of the live text prompt ids (drafter context)."""
+        ids = req.prompt_ids[0].tolist()
+        pad = self.gen.cfg.pad_token_id
+        while ids and ids[-1] == pad:
+            ids.pop()
+        return ids
 
     def _admit_group(self, reqs: list[_Request]) -> None:
         """One batched prefill for the group, then per-row admission. The
@@ -493,26 +527,79 @@ class ContinuousScheduler:
         )
         return per_tok * max(remaining, self.block)
 
-    def _row_need(self, slot: _Slot) -> int:
-        """KV tokens a row needs covered before the next block, clamped to
-        its own budget and to what a block table can address."""
+    def _row_need(self, slot: _Slot, horizon: int | None = None) -> int:
+        """KV tokens a row needs covered before the next block (or a
+        verify turn's ``horizon`` of window writes), clamped to its own
+        budget and to what a block table can address."""
         return min(
-            slot.prompt_len + len(slot.tokens) + self.block,
+            slot.prompt_len + len(slot.tokens) + (horizon or self.block),
             slot.prompt_len + slot.request.max_new + 1,
             self.kv.row_capacity(),
         )
 
-    def _ensure_growth(self) -> None:
-        """Every live row's pages must cover the next block's writes;
-        preempt the newest rows until the free list can grow the rest."""
+    def _ensure_growth(self, horizon: int | None = None) -> None:
+        """Every live row's pages must cover the next block's (or verify
+        window's) writes; preempt the newest rows until the free list can
+        grow the rest."""
         for idx in sorted(self._slots, key=lambda i: self._slots[i].seq):
             slot = self._slots.get(idx)
             if slot is None:
                 continue
-            need = self._row_need(slot)
+            need = self._row_need(slot, horizon)
             while not self.kv.grow(idx, need):
                 if not self._preempt_newest(protect=idx):
                     raise RuntimeError("paged pool cannot grow a lone row (feasibility bug)")
+
+    # -- speculative decoding ---------------------------------------------
+
+    def _spec_active(self) -> bool:
+        return self.spec_k > 0 and not self.spec_disabled
+
+    def _draft_row(self, slot: _Slot) -> list[int]:
+        """Prompt-lookup draft for one row: the longest recent n-gram
+        (``spec_ngram`` down to 1) whose suffix matches the row's tail is
+        replayed for up to ``spec_k`` tokens. No draft model -- the prompt
+        plus the row's own output is the drafter, which is what templated
+        and repetitive captions pay off on. Greedy rows only: verification
+        is token identity against argmax."""
+        if slot.request.do_sample or slot.pending_tok is None or slot.text_toks is None:
+            return []
+        ctx = slot.text_toks + slot.tokens + [slot.pending_tok]
+        for n in range(min(self.spec_ngram, len(ctx) - 1), 0, -1):
+            pat = ctx[-n:]
+            # EARLIEST occurrence: on cycling text every match continues
+            # alike, and the earliest has the most room before the tail.
+            for start in range(len(ctx) - n):
+                if ctx[start : start + n] == pat:
+                    return ctx[start + n : start + n + self.spec_k]
+        return []
+
+    def _spec_try_disable(self) -> None:
+        """Permanent auto-off once acceptance is below
+        ``LUMEN_VLM_SPEC_MIN_RATE`` after a fair sample (64 proposals):
+        every verify turn would be overhead with nothing to show for it."""
+        if self.spec_disabled or self.spec_proposed < 64:
+            return
+        if self.spec_accepted < self.spec_min_rate * self.spec_proposed:
+            self.spec_disabled = True
+            logger.warning(
+                "speculative decoding disabled: acceptance %d/%d below floor %.2f",
+                self.spec_accepted, self.spec_proposed, self.spec_min_rate,
+            )
+
+    def _spec_plan(self) -> tuple[int, dict[int, list[int]]]:
+        """The verify window and the drafts for this turn: width 0 (a plain
+        block) unless some row drafted AND every live row's window fits its
+        table -- the verify program's position clamp must never engage on
+        a live row (it would overwrite history). ``_run_block`` ships a
+        table prefix that covers each window's end."""
+        if not self._spec_active():
+            return 0, {}
+        cap = self.kv.row_capacity()
+        if any(s.prompt_len + len(s.tokens) + self.spec_k + 1 > cap for s in self._slots.values()):
+            return 0, {}
+        drafts = {i: d for i, s in self._slots.items() if (d := self._draft_row(s))}
+        return (self.spec_k + 1 if drafts else 0), drafts
 
     def _run_block(self) -> None:
         cancelled = [i for i, s in self._slots.items() if s.request.cancelled]
@@ -524,35 +611,72 @@ class ContinuousScheduler:
             _retire(slot.request, slot.tokens, eos=False)
         if not self._slots:
             return
-        self._ensure_growth()
+        width, drafts = self._spec_plan()
+        self._ensure_growth(horizon=width or None)
+        # Growth may have preempted a drafted row; verify only helps if a
+        # surviving row still carries a draft.
+        drafts = {i: d for i, d in drafts.items() if i in self._slots}
+        if not drafts:
+            width = 0
         t0 = time.perf_counter()
         # Ship only a power-of-2 prefix of the block tables covering the
         # longest live row: the plain CPU gather reads every entry it is
-        # given, and the kernel's grid needs no more.
-        maxp_live = max(self.kv.pages_for(self._row_need(s)) for s in self._slots.values())
+        # given, and the kernel's grid needs no more. A verify window
+        # writes all ``width`` positions even past the row's budget (onto
+        # the dump page), so the prefix covers the uncapped window end:
+        # ``_spec_plan`` keeps that within the table, and the verify
+        # program's clamp never moves a live window onto its history.
+        if width:
+            ends = (s.prompt_len + len(s.tokens) + width for s in self._slots.values())
+        else:
+            ends = (self._row_need(s) for s in self._slots.values())
+        maxp_live = max(self.kv.pages_for(e) for e in ends)
         bucket = 1
         while bucket < maxp_live:
             bucket *= 2
         bucket = min(bucket, self.kv.max_pages)
         tables = torch.from_numpy(np.ascontiguousarray(self.kv.block_tables[:, :bucket]))
-        toks = self.gen.step_block(
-            self.pool, tables.to(self.gen.device), self._rng, block=self.block
-        )
+        tables = tables.to(self.gen.device)
+        if width:
+            draft = np.zeros((self.n_slots, width), np.int32)
+            ql = np.ones((self.n_slots,), np.int32)
+            for i, d in drafts.items():
+                draft[i, 1 : 1 + len(d)] = d
+                ql[i] = 1 + len(d)
+            toks = self.gen.verify(
+                self.pool, tables, self._rng, torch.from_numpy(draft), torch.from_numpy(ql), width
+            )
+            self.spec_turns += 1
+        else:
+            toks = self.gen.step_block(self.pool, tables, self._rng, block=self.block)
         self.blocks_run += 1
-        # One device->host transfer for everything the bookkeeping needs.
-        host = torch.cat(
-            [toks, self.pool["n_gen"][:, None], self.pool["done"][:, None].int(),
-             self.pool["eos"][:, None].int()],
-            dim=1,
-        ).cpu().numpy()
-        toks_np, n_gen = host[:, : self.block], host[:, self.block]
-        done, eos = host[:, self.block + 1], host[:, self.block + 2]
+        # One device->host transfer for everything the bookkeeping needs
+        # (cur_tok rides along only when speculation is configured).
+        cols = [toks, self.pool["n_gen"][:, None], self.pool["done"][:, None].int(),
+                self.pool["eos"][:, None].int()]
+        if self.spec_k > 0:
+            cols.append(self.pool["cur_tok"][:, None])
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        n = toks.shape[1]
+        toks_np, n_gen = host[:, :n], host[:, n]
+        done, eos = host[:, n + 1], host[:, n + 2]
         dt = time.perf_counter() - t0
         self._block_s_ewma = dt if self._block_s_ewma == 0.0 else 0.8 * self._block_s_ewma + 0.2 * dt
         for idx in list(self._slots):
             slot = self._slots[idx]
             req = slot.request
             new = int(n_gen[idx]) - len(slot.tokens)
+            if width and ql[idx] > 1:
+                # A verify turn's first emission is the pending token, not
+                # a draft: acceptance counts only the drafted tail.
+                prop = int(ql[idx]) - 1
+                acc = max(min(new - 1, prop), 0)
+                self.spec_proposed += prop
+                self.spec_accepted += acc
+                req.spec_proposed += prop
+                req.spec_accepted += acc
+            if self.spec_k > 0:
+                slot.pending_tok = int(host[idx, n + 3])
             if new > 0:
                 slot.tokens.extend(int(t) for t in toks_np[idx, :new])
                 if req.stream_q is not None:
@@ -564,3 +688,5 @@ class ContinuousScheduler:
                     del self._slots[idx]
                 self.kv.release(idx)
                 _retire(req, slot.tokens, bool(eos[idx]))
+        if width:
+            self._spec_try_disable()

@@ -13,10 +13,14 @@ and temperature > 0; repetition penalty over the prompt and the tokens
 emitted so far). Random numbers come from ``torch.Generator``s, so a
 sampled continuation differs from the JAX one; greedy output does not.
 
+Speculative decoding's verify program (:meth:`Generator.verify`) runs a
+W-token window per row through one decode forward and accepts the drafted
+tokens the model would have emitted itself.
+
 Not ported yet: the fused ``while_loop`` generate and the one-request
 stream path (the continuous engine replaces both in serving), and the
-programs of the spill tier, the prefix cache and speculative decoding
-(``_export_row``, ``_resume``, ``_seed_prefix``, ``_verify``).
+programs of the spill tier and the prefix cache (``_export_row``,
+``_resume``, ``_seed_prefix``).
 """
 
 from __future__ import annotations
@@ -219,3 +223,61 @@ class Generator:
             pool["cur_tok"] = nxt
             pool["cur_len"] += active.int()
         return torch.stack(out, dim=1)
+
+    @torch.no_grad()
+    def verify(self, pool, block_tables, generator, draft, q_lens, width: int) -> torch.Tensor:
+        """Speculative verify (JAX ``_verify_impl``): ONE decode forward
+        over a ``width``-token window per row (width = K + 1), then an
+        accept scan whose emission semantics mirror :meth:`step_block`.
+        ``draft`` [B, width]: column 0 is overwritten with the row's pending
+        ``cur_tok``, columns 1.. are the drafter's proposals; ``q_lens``
+        [B] in 1..width caps how many window slots a row may consume (a
+        row with no draft runs q_len 1, the plain one-token step). Window
+        slot t attends over exactly the KV a sequential step at that
+        position would see, so greedy output is token-identical to
+        non-speculative decode; rejected slots' K/V land above the row's
+        final ``cur_len``, where the length mask hides them until real
+        tokens overwrite them. The pool is updated in place. Returns the
+        emitted tokens [B, width] (pad past a row's accepted run)."""
+        cfg = self.cfg
+        b = pool["cur_tok"].shape[0]
+        capacity = block_tables.shape[1] * pool["caches"][0]["k"].shape[2]
+        dev = self.device
+        rows = torch.arange(b, device=dev)
+        toks_in = draft.to(device=dev, dtype=torch.int32).clone()
+        toks_in[:, 0] = pool["cur_tok"]
+        q_lens = q_lens.to(dev)
+        # Like step_block's clamp: the scheduler never dispatches a live
+        # row whose window would cross its block table's capacity.
+        pos0 = torch.clamp(pool["cur_len"], max=capacity - width)
+        positions = pos0[:, None] + torch.arange(width, device=dev, dtype=pos0.dtype)[None, :]
+        embeds = self.model.embed_tokens(toks_in.long()).to(self.cache_dtype)
+        logits, _ = self.model.decode_paged(
+            embeds, positions, pool["caches"], block_tables, pos0, pos0 + 1
+        )
+        any_sample = bool(pool["sampling"].any())
+        cur_tok, cur_len = pool["cur_tok"], pool["cur_len"]
+        seen, n_gen = pool["seen"], pool["n_gen"]
+        eos, done = pool["eos"], pool["done"]
+        accepting = torch.ones((b,), dtype=torch.bool, device=dev)
+        toks_out = torch.full((b, width), cfg.pad_token_id, dtype=torch.int32, device=dev)
+        for t in range(width):
+            step_active = ~done & accepting
+            toks_out[:, t] = torch.where(step_active, cur_tok, cfg.pad_token_id)
+            n_gen = n_gen + step_active.int()
+            seen[rows, cur_tok.long()] |= step_active
+            eos = eos | (step_active & (cur_tok == cfg.eos_token_id))
+            done = done | eos | (n_gen >= pool["max_new"])
+            nxt = self._sample_next(
+                logits[:, t], seen, pool["temperature"], pool["top_p"],
+                pool["do_sample"], pool["rep"], generator, any_sample,
+            ).int()
+            cur_len = cur_len + step_active.int()
+            if t + 1 < width:
+                # Slot t+1 survives only if its drafted token IS what the
+                # model just chose: then its logits are exactly the
+                # sequential step's.
+                accepting = step_active & ~done & (t + 1 < q_lens) & (toks_in[:, t + 1] == nxt)
+            cur_tok = torch.where(step_active, nxt, cur_tok)
+        pool.update(cur_tok=cur_tok, cur_len=cur_len, n_gen=n_gen, eos=eos, done=done)
+        return toks_out

@@ -6,16 +6,20 @@ and decoded pixels; the manager renders and tokenizes the prompt, runs
 the prepare step on the device (normalize -> vision tower -> token embed
 -> image-token splice), and submits the request to the continuous
 scheduler. Prompt lengths are padded to buckets, as in the JAX package.
+``quantize="int8"`` serves the decoder's projections weight-only int8
+(the pinned ``int8`` route of the JAX manager).
 
 Not ported yet: loading a checkpoint directory (safetensors, tokenizer
 files, ``model_info.json``), host image decode (the caller passes
 ``[image_size, image_size, 3]`` uint8 pixels), the result cache and
-quarantine gate, the coalescing scheduler, the int8 route, replica
-fleets and the gRPC service above this layer.
+quarantine gate, the coalescing scheduler, the int8 route's warm-up A/B
+(``LUMEN_VLM_Q8_ROUTE=auto``) and its verdict file, replica fleets and
+the gRPC service above this layer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass, field
@@ -28,6 +32,7 @@ from ...runtime.policy import get_policy, resolve_device
 from ...utils.env import env_int
 from .chat import ChatMessage, VlmTokenizer
 from .continuous import ContinuousScheduler, _Request
+from .convert import quantize_decoder_int8
 from .generate import Generator
 from .modeling import VLMConfig, VLMModel, merge_image_embeddings
 from .paged_kv import DEFAULT_PAGE_SIZE, resolve_pool_pages
@@ -60,7 +65,11 @@ class VLMManager:
     explicitly; None sizes it from the card's free memory (the whole
     slot-era footprint on the CPU). ``page_size`` / ``prefill_chunk``
     default to ``LUMEN_VLM_PAGE_SIZE`` / ``LUMEN_VLM_PREFILL_CHUNK`` (16
-    / 256), the JAX engine's knobs.
+    / 256), the JAX engine's knobs. ``quantize="int8"`` casts the
+    ``state_dict`` with the policy, then quantizes the decoder's
+    projections (``convert.quantize_decoder_int8``) and serves them as
+    ``QDense``; the vision tower is cast, never quantized. Speculative
+    decoding is the engine's, set by ``LUMEN_VLM_SPEC_K``.
     """
 
     def __init__(
@@ -79,16 +88,30 @@ class VLMManager:
         pool_pages: int | None = None,
         prefill_chunk: int | None = None,
         name: str = "vlm",
+        quantize: str | None = None,
     ):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         self.device = resolve_device(device)
         self.policy = get_policy(dtype)
+        self.quantize = quantize
+        state = dict(state_dict)
+        if quantize:
+            cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, weight_quant=quantize))
+            # Cast first so the int8 grid comes from the weights serving
+            # would otherwise stream; the replaced float weights are not
+            # kept (the int8 model holds no bf16 copy of its projections).
+            param = self.policy.param_dtype
+            state = quantize_decoder_int8({k: v.to(param) if v.is_floating_point() else v for k, v in state.items()})
         self.cfg = cfg
         self.max_seq = max_seq
         self.max_new_cap = max_new_cap
         self.tokenizer = tokenizer if isinstance(tokenizer, VlmTokenizer) else VlmTokenizer(tokenizer)
         with torch.device("meta"):
             model = VLMModel(cfg)
-        model.load_state_dict(dict(state_dict), strict=True, assign=True)
+        model.load_state_dict(state, strict=True, assign=True)
+        del state
+        # QDense keeps q int8 and scale fp32 through this cast.
         self.model = model.to(device=self.device, dtype=self.policy.param_dtype).eval()
         compute = self.policy.compute_dtype
         self.compute_dtype = compute
@@ -246,6 +269,7 @@ class VLMManager:
             "do_sample": do_sample,
             "generation_time_ms": round(dt_ms, 2),
             "tokens_per_second": round(n_gen / max(dt_ms / 1e3, 1e-9), 2),
+            **_spec_meta(req),
         }
         return GenerationResult(
             text=text.strip(), tokens=tokens, finish_reason=finish,
@@ -323,7 +347,16 @@ class VLMManager:
             meta["tokens_per_second"] = round(len(tokens) / max(dt_ms / 1e3, 1e-9), 2)
         if first_emit_s is not None:
             meta["ttft_ms"] = round((first_emit_s - t0) * 1e3, 2)
+        meta.update(_spec_meta(req))
         yield GenerationChunk(text="", tokens=[], is_final=True, metadata=meta)
+
+
+def _spec_meta(req: _Request) -> dict:
+    """``spec_accept_rate`` of a request that had speculative proposals
+    (JAX ``_reuse_meta``); nothing otherwise."""
+    if req.spec_proposed > 0:
+        return {"spec_accept_rate": round(req.spec_accepted / req.spec_proposed, 3)}
+    return {}
 
 
 def _truncate_on_stop(text: str, stop_sequences: Sequence[str] | None) -> tuple[str, bool]:

@@ -11,8 +11,10 @@ JAX programs donated them) and returned for the same call shape.
 
 Submodule and parameter names follow the Flax tree (``layers.0.attn.
 q_proj``, ``input_norm``, ``embed_tokens``, ...) so ``convert.py`` maps
-one onto the other by name. Not ported yet: the MoE FFN, the
-speculative verify-window branch and the int8 ``QDense`` projections.
+one onto the other by name. With ``DecoderConfig.weight_quant="int8"``
+the seven projections of every layer (and an untied lm_head) are
+``QDense`` modules holding ``q``/``scale`` in the JAX layout. Not ported
+yet: the MoE FFN.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.attention import attention, attention_cached, paged_attention, repeat_kv
+from ...ops.quant import QDense
 from ..clip.modeling import Block, PatchEmbed
 
 
@@ -41,6 +44,14 @@ class DecoderConfig:
     rms_norm_eps: float = 1e-6
     max_position_embeddings: int = 32768
     tie_word_embeddings: bool = True
+    # Weight-only int8 for the attention + MLP projections (per output
+    # channel scales): decode at small batch streams the weights, so int8
+    # halves the dominant traffic. Embeddings, norms and a tied lm_head
+    # stay in the policy dtype. Set by the serving layer
+    # (``VLMManager(quantize="int8")``), not by checkpoints.
+    weight_quant: str | None = None  # None | "int8"
+    #: int8 execution mode; only "dequant" is ported ("dynamic" raises).
+    weight_quant_kernel: str = "dequant"
 
     @property
     def dim_per_head(self) -> int:
@@ -162,6 +173,16 @@ def init_paged_kv_cache(cfg: VLMConfig, pages: int, page_size: int, dtype=torch.
 # -- modules ----------------------------------------------------------------
 
 
+def _dense(cfg: DecoderConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
+    """Dense factory for the decoder projections: honors ``weight_quant``
+    (JAX ``_dense``)."""
+    if cfg.weight_quant == "int8":
+        return QDense(in_features, out_features, bias=bias, kernel_mode=cfg.weight_quant_kernel)
+    if cfg.weight_quant is not None:
+        raise ValueError(f"weight_quant must be None or 'int8', got {cfg.weight_quant!r}")
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float):
         super().__init__()
@@ -190,10 +211,10 @@ class DecoderAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         dh = cfg.dim_per_head
-        self.q_proj = nn.Linear(cfg.hidden_size, cfg.heads * dh)
-        self.k_proj = nn.Linear(cfg.hidden_size, cfg.kv_heads * dh)
-        self.v_proj = nn.Linear(cfg.hidden_size, cfg.kv_heads * dh)
-        self.o_proj = nn.Linear(cfg.heads * dh, cfg.hidden_size, bias=False)
+        self.q_proj = _dense(cfg, cfg.hidden_size, cfg.heads * dh, True)
+        self.k_proj = _dense(cfg, cfg.hidden_size, cfg.kv_heads * dh, True)
+        self.v_proj = _dense(cfg, cfg.hidden_size, cfg.kv_heads * dh, True)
+        self.o_proj = _dense(cfg, cfg.heads * dh, cfg.hidden_size, False)
 
     def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None):
         """``x`` [B, S, hidden]. With a contiguous cache, new K/V are
@@ -201,9 +222,12 @@ class DecoderAttention(nn.Module):
         by the batch, a [B] tensor for one decode token per row) and
         attention runs against the whole buffer masked to
         ``kv_valid_len`` [B]. With ``block_tables`` [B, max_pages] the
-        cache is the paged pool: the row's one new token lands in the
-        page + slot its table maps ``cache_offset`` to, and attention is
-        the paged decode kernel over the row's pages only."""
+        cache is the paged pool: token t of a row lands in the page + slot
+        its table maps ``cache_offset + t`` to, and attention is the paged
+        kernel over the row's pages only -- one decode token (s == 1), or
+        the speculative verify window (s > 1), where ``kv_valid_len``
+        stays the t = 0 visibility and slot t sees ``kv_valid_len + t``
+        keys."""
         c = self.cfg
         b, s, _ = x.shape
         dh = c.dim_per_head
@@ -215,20 +239,23 @@ class DecoderAttention(nn.Module):
         n_rep = c.heads // c.kv_heads
 
         if block_tables is not None:
-            if s != 1:
-                raise NotImplementedError("the paged verify window (s > 1) is not ported yet")
             page = cache["k"].shape[2]
-            off = cache_offset.long()  # [B] write position
-            rows = torch.arange(b, device=x.device)
+            off = cache_offset.long()[:, None] + torch.arange(s, device=x.device)  # [B, S]
+            rows = torch.arange(b, device=x.device)[:, None]
             page_idx = block_tables.long()[rows, off // page]
             slot = off % page
             # In place (JAX donated the pool). Rows own their frontier
             # pages exclusively; free rows all dump into page 0.
-            cache["k"][page_idx, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-            cache["v"][page_idx, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-            out = paged_attention(
-                q[:, :, 0].contiguous(), cache["k"], cache["v"], block_tables, kv_valid_len
-            )[:, :, None, :]
+            cache["k"][page_idx, :, slot] = k.transpose(1, 2).to(cache["k"].dtype)
+            cache["v"][page_idx, :, slot] = v.transpose(1, 2).to(cache["v"].dtype)
+            if s == 1:
+                out = paged_attention(
+                    q[:, :, 0].contiguous(), cache["k"], cache["v"], block_tables, kv_valid_len
+                )[:, :, None, :]
+            else:
+                out = paged_attention(
+                    q.transpose(1, 2).contiguous(), cache["k"], cache["v"], block_tables, kv_valid_len
+                ).transpose(1, 2)
         elif cache is not None:
             if isinstance(cache_offset, int):
                 # Prefill: one contiguous segment at a shared offset.
@@ -262,9 +289,9 @@ class DecoderAttention(nn.Module):
 class SwiGLU(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.gate_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, False)
+        self.up_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, False)
+        self.down_proj = _dense(cfg, cfg.intermediate_size, cfg.hidden_size, False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -297,8 +324,7 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = (
-            None if cfg.tie_word_embeddings
-            else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+            None if cfg.tie_word_embeddings else _dense(cfg, cfg.hidden_size, cfg.vocab_size, False)
         )
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -359,7 +385,8 @@ class VLMModel(nn.Module):
         return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len)
 
     def decode_paged(self, embeds, positions, caches, block_tables, cache_offset, kv_valid_len):
-        """Single-token decode against the paged KV pool."""
+        """Decode against the paged KV pool: one token per row, or a
+        speculative verify window of ``embeds.shape[1]`` tokens per row."""
         return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len, block_tables)
 
     def forward(self, input_ids, pixel_values=None):

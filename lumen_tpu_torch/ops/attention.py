@@ -1,4 +1,4 @@
-"""Attention ops of the VLM path: plain PyTorch versions and the three
+"""Attention ops of the VLM path: plain PyTorch versions and the four
 hand-written Hopper kernels that replace the JAX package's Pallas ones.
 
 Layouts are the JAX package's (``lumen_tpu/ops/attention.py``): ``q/k/v``
@@ -6,13 +6,14 @@ Layouts are the JAX package's (``lumen_tpu/ops/attention.py``): ``q/k/v``
 head_dim]`` addressed through ``[batch, max_pages]`` int32 block tables.
 
 Each kernel wrapper (:func:`flash_attention`, :func:`flash_attention_cache`,
-:func:`paged_attention_kernel`) runs its plain version when handed CPU
-tensors and launches its CUDA kernel (``lumen_tpu_torch/csrc``) when
-handed CUDA tensors -- there is no fallback and no switch: a CUDA tensor
-the kernel does not take raises. The plain versions twin the JAX
-references (``attention_reference``, ``_decode_masked``,
-``paged_attention_reference``); the CPU tests hold them against JAX, and
-``chip_smoke.py`` holds the kernels against them on the card.
+:func:`paged_attention_kernel`, :func:`paged_attention_varq_kernel`) runs
+its plain version when handed CPU tensors and launches its CUDA kernel
+(``lumen_tpu_torch/csrc``) when handed CUDA tensors -- there is no
+fallback and no switch: a CUDA tensor the kernel does not take raises.
+The plain versions twin the JAX references (``attention_reference``,
+``_decode_masked``, ``paged_attention_reference``,
+``paged_attention_varq_reference``); the CPU tests hold them against JAX,
+and ``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -43,8 +44,12 @@ PAGED = CudaKernel(
     "paged_attention", "paged_attention", "lumen_paged_attention",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
+PAGED_VARQ = CudaKernel(
+    "paged_attention_varq", "paged_attention_varq", "lumen_paged_attention_varq",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+)
 #: every kernel of this module, for builds and launch counts.
-KERNELS = (FLASH, FLASH_CACHE, PAGED)
+KERNELS = (FLASH, FLASH_CACHE, PAGED, PAGED_VARQ)
 
 
 def _scale(scale: float | None, d: int) -> float:
@@ -143,6 +148,38 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, kv_lens, scale=
     return out[:, :, :g].reshape(b, h, d).to(q.dtype)
 
 
+def paged_attention_varq_reference(q, k_pages, v_pages, block_tables, kv_lens, scale=None):
+    """Plain paged attention over a W-token verify window per row (twin of
+    the JAX ``paged_attention_varq_reference``): the same gather, the
+    window folded into the query rows ([W * Gp, S] logits per row and KV
+    head), window slot ``t`` sees ``kv_lens[b] + t`` keys, one
+    max/exp/sum/div softmax. ``q`` [B, W, H, dh]; returns [B, W, H, dh]."""
+    b, w, h, d = q.shape
+    _, kv_heads, page, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    g = h // kv_heads
+    gp = _q_group_pad(g)
+    bt = block_tables.long()
+    k = k_pages[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, maxp * page, d).float()
+    v = v_pages[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, maxp * page, d).float()
+    qg = q.reshape(b, w, kv_heads, g, d).float()
+    if gp != g:
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, gp - g))
+    qg = qg.permute(0, 2, 1, 3, 4).reshape(b, kv_heads, w * gp, d)
+    s = torch.matmul(qg, k.transpose(-1, -2)) * _scale(scale, d)  # [B, kvh, W*Gp, S]
+    t = torch.arange(w * gp, device=q.device) // gp  # window slot per folded row
+    live = (
+        torch.arange(maxp * page, device=q.device)[None, None, :]
+        < kv_lens.long()[:, None, None] + t[None, :, None]
+    )  # [B, W*Gp, S]
+    s = torch.where(live[:, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    wgt = p / p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(wgt, v).reshape(b, kv_heads, w, gp, d)[:, :, :, :g]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, w, h, d).to(q.dtype)
+
+
 # -- kernel wrappers ---------------------------------------------------------
 
 
@@ -208,29 +245,58 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=Non
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables, kv_lens, scale)
     b, h, d = q.shape
-    _, kv_heads, page, _ = k_pages.shape
-    if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
-        raise ValueError(f"paged_attention: q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
-    if h % kv_heads or h // kv_heads > 8 or d != 64:
-        raise ValueError(f"paged_attention: heads {h}/{kv_heads} (group <= 8), head_dim {d} (kernel takes 64)")
-    block_tables = block_tables.to(torch.int32).contiguous()
-    kv_lens = kv_lens.to(torch.int32).contiguous()
-    if block_tables.dim() != 2 or block_tables.shape[0] != b or kv_lens.shape != (b,):
-        raise ValueError("paged_attention: block_tables must be [B, MAXP] and kv_lens [B]")
-    _check_cuda(
-        "paged_attention",
-        {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-         "block_tables": block_tables, "kv_lens": kv_lens},
-        q.dtype,
-    )
+    block_tables, kv_lens = _paged_operands("paged_attention", q, k_pages, v_pages, block_tables, kv_lens)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         PAGED.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), b, h, kv_heads, page,
+            kv_lens.data_ptr(), out.data_ptr(), b, h, k_pages.shape[1], k_pages.shape[2],
             block_tables.shape[1], d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
         )
     return out
+
+
+def paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=None):
+    """Paged attention over a W-token verify window per row (JAX
+    ``paged_attention_varq_kernel``): the CUDA kernel on CUDA tensors,
+    :func:`paged_attention_varq_reference` on CPU tensors. ``q`` [B, W, H,
+    dh], position-ordered; ``kv_lens`` [B] is the t = 0 visibility."""
+    if q.device.type == "cpu":
+        return paged_attention_varq_reference(q, k_pages, v_pages, block_tables, kv_lens, scale)
+    b, w, h, d = q.shape
+    block_tables, kv_lens = _paged_operands(
+        "paged_attention_varq", q, k_pages, v_pages, block_tables, kv_lens
+    )
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        PAGED_VARQ.launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), b, w, h, k_pages.shape[1], k_pages.shape[2],
+            block_tables.shape[1], d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+        )
+    return out
+
+
+def _paged_operands(name: str, q, k_pages, v_pages, block_tables, kv_lens):
+    """Checks shared by the two paged kernels (``q`` [B, (W,) H, dh]);
+    returns the int32 block tables and lengths the kernels read."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    kv_heads = k_pages.shape[1]
+    if v_pages.shape != k_pages.shape or k_pages.dim() != 4 or k_pages.shape[3] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
+    if h % kv_heads or h // kv_heads > 8 or d != 64:
+        raise ValueError(f"{name}: heads {h}/{kv_heads} (group <= 8), head_dim {d} (kernel takes 64)")
+    block_tables = block_tables.to(torch.int32).contiguous()
+    kv_lens = kv_lens.to(torch.int32).contiguous()
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or kv_lens.shape != (b,):
+        raise ValueError(f"{name}: block_tables must be [B, MAXP] and kv_lens [B]")
+    _check_cuda(
+        name,
+        {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+         "block_tables": block_tables, "kv_lens": kv_lens},
+        q.dtype,
+    )
+    return block_tables, kv_lens
 
 
 # -- dispatch used by the models ---------------------------------------------
@@ -276,9 +342,10 @@ def repeat_kv(x, n_rep: int):
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, kv_lens, scale=None):
-    """Paged decode dispatch (JAX ``paged_attention``, single-token form).
-    The verify-window form (4-D ``q``, speculative decoding) is not ported
-    yet and is refused."""
-    if q.dim() != 3:
-        raise NotImplementedError("paged_attention: only single-token decode ([B, H, dh]) is ported")
+    """Paged decode dispatch (JAX ``paged_attention``): a 3-D ``q`` [B, H,
+    dh] is one decode token per row; a 4-D ``q`` [B, W, H, dh] is the
+    speculative verify window, where ``kv_lens`` stays the t = 0
+    visibility and slot t sees ``kv_lens + t`` keys."""
+    if q.dim() == 4:
+        return paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale)
     return paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale)

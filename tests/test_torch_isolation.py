@@ -109,3 +109,48 @@ def test_chip_smoke_serving_drive_rehearses_on_cpu():
     )
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.drive_serving(0, "cpu", cfg=cfg, device="cpu")
+
+
+def test_int8_and_speculation_modules_are_checked():
+    """The second slice's modules are among those the import check loads."""
+    mods = _port_modules()
+    for mod in ("lumen_tpu_torch.ops.quant", "lumen_tpu_torch.ops.quant_matmul"):
+        assert mod in mods
+    from lumen_tpu_torch.ops import attention, quant_matmul
+
+    names = {k.name for k in attention.KERNELS + quant_matmul.KERNELS}
+    import chip_smoke
+
+    assert names == set(chip_smoke.SOURCES)  # the smoke builds and reports all five kernels
+    for name, (source, replaces) in chip_smoke.SOURCES.items():
+        assert (ROOT / source).is_file(), name
+        assert replaces.split(":")[0] in (ROOT / source).read_text(), name
+
+
+def test_chip_smoke_int8_speculative_drive_rehearses_on_cpu():
+    """Phase 5 of chip_smoke.py (int8 projections, LUMEN_VLM_SPEC_K=4,
+    templated prompts) runs on the CPU at a small configuration: every
+    projection is int8, verify turns are taken, and it stops at the
+    launch-count gate, which the plain paths cannot pass."""
+    import dataclasses
+    import os
+
+    import chip_smoke
+    from lumen_tpu_torch.models.vlm import VLMConfig
+
+    base = VLMConfig()
+    cfg = dataclasses.replace(
+        base,
+        decoder=dataclasses.replace(
+            base.decoder, hidden_size=128, layers=2, heads=4, kv_heads=2,
+            intermediate_size=256, vocab_size=4096,
+        ),
+        vision=dataclasses.replace(base.vision, width=64, layers=1, heads=1),
+        image_token_id=4000, bos_token_id=1, eos_token_id=2, pad_token_id=0,
+    )
+    before = os.environ.get("LUMEN_VLM_SPEC_K")
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.drive_serving(
+            0, "cpu", cfg=cfg, device="cpu", quantize="int8", spec_k=4, kernels=chip_smoke.PHASE5_KERNELS
+        )
+    assert os.environ.get("LUMEN_VLM_SPEC_K") == before  # the knob is restored

@@ -183,16 +183,22 @@ class TestPagedAttention:
             assert tatt._q_group_pad(g) == jatt._q_group_pad(g)
 
     def test_verify_window_not_ported(self):
-        q = torch.zeros(1, 2, 4, 8)
-        with pytest.raises(NotImplementedError):
-            tatt.paged_attention(q, torch.zeros(2, 2, 4, 8), torch.zeros(2, 2, 4, 8),
-                                 torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
+        """The verify window (4-D ``q``) was refused before it was ported;
+        now ``paged_attention`` dispatches it to the varq path."""
+        rng = np.random.default_rng(3)
+        q = rng.standard_normal((1, 2, 4, 8)).astype(np.float32)
+        kp, vp = (rng.standard_normal((2, 2, 4, 8)).astype(np.float32) for _ in range(2))
+        bt, kl = np.zeros((1, 1), np.int32), np.ones(1, np.int32)
+        got = tatt.paged_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(kl))
+        assert got.shape == (1, 2, 4, 8)
+        want = jatt.paged_attention_varq_reference(*(jnp.asarray(x) for x in (q, kp, vp, bt, kl)))
+        _close(got, want)
 
 
 class TestKernelPlumbing:
     def test_every_kernel_has_a_source(self):
         names = {k.name for k in tatt.KERNELS}
-        assert names == {"flash_attention", "flash_attention_cache", "paged_attention"}
+        assert names == {"flash_attention", "flash_attention_cache", "paged_attention", "paged_attention_varq"}
         for k in tatt.KERNELS:
             text = k.source_path.read_text()
             assert f'extern "C" int {k.symbol}(' in text
