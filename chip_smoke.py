@@ -9,17 +9,22 @@ Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of all five CUDA kernels (one ``nvcc`` per source, all
-   started together).
+   started together), with each kernel function's registers, shared
+   memory and spills from ptxas (the bf16 flash tile must not spill) and
+   its count of tensor-core instructions (HMMA) from ``cuobjdump -sass``
+   (the bf16 flash kernels must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
-   same seeded inputs, at the serving path's shapes plus ragged cases,
-   with times for the kernel, the plain version, the card's bound and
-   one PyTorch library call computing the same function (a yardstick
-   only; the port never calls it). Times are device time per call from
-   ``torch.profiler``, checked against lost events (``device_ms``); one
-   w8a16 call is also timed with the host's launch path (CUDA events).
-   The verify-window kernel at W = 1 must equal the single-token kernel
-   bit for bit, and w8a16 rows must not depend on the row count (the
-   greedy identity of speculation).
+   same seeded inputs, at the serving path's shapes plus ragged cases
+   (for the flash kernels: lengths and ``kv_valid`` on either side of the
+   64-key tile, causal diagonals crossing a tile, two-row batches, and the
+   fp32 instance), with times for the kernel, the plain version, the
+   card's bound and one PyTorch library call computing the same function
+   (a yardstick only; the port never calls it). Times are device time per
+   call from ``torch.profiler``, checked against lost events
+   (``device_ms``); one w8a16 call is also timed with the host's launch
+   path (CUDA events). The verify-window kernel at W = 1 must equal the
+   single-token kernel bit for bit, and w8a16 rows must not depend on the
+   row count (the greedy identity of speculation).
 3. reference: a small fp32 VLM served on the card (kernels) and on the
    CPU (plain versions) gives the same greedy tokens, and so does the
    card with speculative decoding (``LUMEN_VLM_SPEC_K=4``).
@@ -45,6 +50,8 @@ import argparse
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -209,6 +216,19 @@ def max_err(out, ref) -> float:
 # -- phase 2: kernels vs plain ------------------------------------------------
 
 
+def flash_tile_shape() -> dict:
+    """Block shape of the bf16 flash tile, from the constants of
+    ``csrc/flash_tile_bf16.cuh``: query rows (16 per row group), threads
+    (a warp per row group and key part) and dynamic shared memory (the
+    K/V ring and the Q/O rows, rows of 64 + 8 bf16)."""
+    text = (ROOT / "lumen_tpu_torch" / "csrc" / "flash_tile_bf16.cuh").read_text()
+    c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
+         for n in ("kFlashWarps", "kFlashSplit", "kFlashStages")}
+    rows = 16 * c["kFlashWarps"]
+    return dict(rows=rows, threads=32 * c["kFlashWarps"] * c["kFlashSplit"],
+                smem=(2 * c["kFlashStages"] * 64 + rows) * (64 + 8) * 2)
+
+
 def check_kernels(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
@@ -219,6 +239,7 @@ def check_kernels(seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     bf16 = torch.bfloat16
+    tile = flash_tile_shape()
 
     def rnd(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -229,10 +250,14 @@ def check_kernels(seed: int) -> dict:
     rows = {}
 
     # flash_attention: the vision tower's [1, 12, 256, 64] bidirectional
-    # call, then causal cases with lengths off the 64/32 tiles.
+    # call, a non-causal length off the 64-key tile, causal cases with
+    # lengths off the tiles, and the fp32 instance (FMA tile) on one.
     errs = []
-    for b, h, sq, sk, causal in ((1, 12, 256, 256, False), (2, 14, 77, 77, True), (1, 14, 50, 130, True)):
-        q, k, v = rnd(b, h, sq, 64), rnd(b, h, sk, 64), rnd(b, h, sk, 64)
+    for b, h, sq, sk, causal, dt in (
+        (1, 12, 256, 256, False, bf16), (1, 12, 100, 100, False, bf16), (2, 14, 77, 77, True, bf16),
+        (1, 14, 50, 130, True, bf16), (1, 14, 50, 130, True, torch.float32),
+    ):
+        q, k, v = rnd(b, h, sq, 64, dtype=dt), rnd(b, h, sk, 64, dtype=dt), rnd(b, h, sk, 64, dtype=dt)
         out = A.flash_attention(q, k, v, causal=causal)
         ref = A.attention_reference(*f32(q, k, v), causal=causal)
         errs.append(max_err(out, ref))
@@ -246,39 +271,72 @@ def check_kernels(seed: int) -> dict:
         plain_ms=device_ms(lambda: A.attention_reference(q, k, v), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by,
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
+        blocks=-(-256 // tile["rows"]) * 12,
     )
 
-    # flash_attention_cache: the chunk lane's two chunks of a caption
-    # prompt (265 live tokens, bucket span 319) against its 832-slot
-    # scratch, and a ragged two-row batch.
+    # flash_attention_cache against the 832-slot scratch: the chunk lane's
+    # two chunks of a caption prompt (265 live tokens, bucket span 319), a
+    # ragged two-row batch, kv_valid on either side of the 64-key tile, a
+    # causal diagonal crossing a tile mid-warp, two rows with different
+    # offsets, and the fp32 instance (FMA tile) on chunk 2.
     errs = []
     cases = (
-        (1, 256, [0], [256]),
-        (1, 63, [256], [265]),
-        (2, 256, [0, 256], [256, 300]),
+        (1, 256, [0], [256], bf16),
+        (1, 63, [256], [265], bf16),
+        (2, 256, [0, 256], [256, 300], bf16),
+        (1, 48, [15], [63], bf16),
+        (1, 48, [16], [64], bf16),
+        (1, 48, [17], [65], bf16),
+        (1, 48, [79], [127], bf16),
+        (1, 64, [100], [164], bf16),
+        (2, 63, [256, 37], [265, 100], bf16),
+        (1, 63, [256], [265], torch.float32),
     )
-    for b, sq, offs, valid in cases:
-        q, k, v = rnd(b, 14, sq, 64), rnd(b, 14, 832, 64), rnd(b, 14, 832, 64)
+    for b, sq, offs, valid, dt in cases:
+        q, k, v = rnd(b, 14, sq, 64, dtype=dt), rnd(b, 14, 832, 64, dtype=dt), rnd(b, 14, 832, 64, dtype=dt)
         qo = torch.tensor(offs, device=dev, dtype=torch.int32)
         kv = torch.tensor(valid, device=dev, dtype=torch.int32)
         out = A.flash_attention_cache(q, k, v, qo, kv)
         ref = A._decode_masked(*f32(q, k, v), qo, kv)
         errs.append(max_err(out, ref))
-    q, k, v = rnd(1, 14, 256, 64), rnd(1, 14, 832, 64), rnd(1, 14, 832, 64)
-    qo = torch.tensor([0], device=dev, dtype=torch.int32)
-    kv = torch.tensor([256], device=dev, dtype=torch.int32)
-    pairs = 256 * 257 // 2  # visible (query, key) pairs of the first chunk
-    nb = 2 * q.numel() * 2 + 2 * 14 * 256 * 64 * 2  # q, out, live K/V slots
-    bms, by = bound(nb, 4 * 14 * 64 * pairs, "bfloat16")
-    slots = torch.arange(832, device=dev)
-    mask = ((slots[None, :] < 256) & (slots[None, :] <= torch.arange(256, device=dev)[:, None]))[None, None]
-    rows["flash_attention_cache"] = dict(
-        max_abs_err=max(errs),
-        ms=device_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50, floor_ms=bms, launches=1),
-        plain_ms=device_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20, floor_ms=bms),
-        bound_ms=bms, bound_by=by,
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50, floor_ms=bms),
-    )
+
+    def chunk(q, k, v, off: int, live: int) -> dict:
+        """A prompt chunk ``q`` at offset ``off`` against the scratch
+        ``k``/``v`` with ``live`` slots: kernel, plain, bound, and SDPA
+        with the bool mask of the same function."""
+        sq = q.shape[2]
+        qo = torch.tensor([off], device=dev, dtype=torch.int32)
+        kv = torch.tensor([live], device=dev, dtype=torch.int32)
+        pairs = sum(min(live, off + i + 1) for i in range(sq))  # visible (query, key) pairs
+        nb = 2 * q.numel() * 2 + 2 * 14 * live * 64 * 2  # q, out, live K/V slots
+        bms, by = bound(nb, 4 * 14 * 64 * pairs, "bfloat16")
+        slots = torch.arange(832, device=dev)
+        rows_abs = off + torch.arange(sq, device=dev)
+        mask = ((slots[None, :] < live) & (slots[None, :] <= rows_abs[:, None]))[None, None]
+        return dict(
+            ms=device_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50, floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20, floor_ms=bms),
+            bound_ms=bms, bound_by=by,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50, floor_ms=bms),
+            blocks=-(-sq // tile["rows"]) * 14,
+        )
+
+    k, v = rnd(1, 14, 832, 64), rnd(1, 14, 832, 64)
+    c2 = chunk(rnd(1, 14, 63, 64), k, v, 256, 265)
+    log(f"kernel flash_attention_cache chunk 2 (q [1,14,63,64], q_off 256, kv_valid 265): "
+        f"kernel {c2['ms']:.4f} ms on the device ({c2['blocks']} blocks), plain {c2['plain_ms']:.4f} ms, "
+        f"bound {c2['bound_ms']:.5f} ms ({c2['bound_by']}), library (SDPA, bool mask) {c2['library_ms']:.4f} ms")
+    q = rnd(1, 14, 256, 64)
+    c1 = chunk(q, k, v, 0, 256)
+    # A stricter yardstick, printed only: SDPA is_causal on the 256 live
+    # keys alone (it never sees the dead slots; the masked call above is
+    # the one that computes the kernel's function).
+    k256, v256 = k[:, :, :256].contiguous(), v[:, :, :256].contiguous()
+    causal_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k256, v256, is_causal=True), 50,
+                          floor_ms=c1["bound_ms"])
+    log(f"kernel flash_attention_cache chunk 1: yardstick SDPA is_causal on the 256 live keys "
+        f"{causal_ms:.4f} ms (printed only; the table's library call is SDPA with the bool mask)")
+    rows["flash_attention_cache"] = dict(c1, max_abs_err=max(errs))
 
     # paged_attention: 8 decode rows over a 1025-page pool, ragged
     # lengths (one token, exactly one page, partial last pages, a long
@@ -308,13 +366,76 @@ def check_kernels(seed: int) -> dict:
         bound_ms=bms, bound_by=by, library_ms=None,
     )
     for name, row in rows.items():
+        blocks = (f" ({row['blocks']} blocks of {tile['rows']} query rows, {tile['threads']} threads, "
+                  f"{tile['smem']} B dynamic shared memory)") if "blocks" in row else ""
         log(
             f"kernel {name}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
-            f"kernel {row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"kernel {row['ms']:.4f} ms on the device{blocks}, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), library "
             + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
         )
     return rows
+
+
+def kernel_name(mangled: str) -> str:
+    """The unqualified name in an Itanium-mangled symbol:
+    ``_ZN5lumen27flash_attention_bf16_kernelILi64EE...`` ->
+    ``flash_attention_bf16_kernel``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[i:])) is not None:
+        n = int(m[0])
+        name = mangled[i + len(m[0]):i + len(m[0]) + n]
+        i += len(m[0]) + n
+    return name
+
+
+def ptxas_report(logs: dict) -> list[dict]:
+    """Registers, shared memory and spills of every kernel function, from
+    the ``-Xptxas -v`` logs of the build (one entry per library)."""
+    report = []
+    for lib, text in logs.items():
+        func, spill = None, (0, 0)
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                func = kernel_name(line.split("'")[1])
+            elif "spill stores" in line:
+                n = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+                spill = (int(n[0]), int(n[1]))
+            elif "Used" in line and "registers" in line and func:
+                smem = re.search(r"(\d+) bytes smem", line)
+                report.append(dict(lib=lib, func=func, registers=int(re.search(r"Used (\d+) registers", line)[1]),
+                                   smem=int(smem[1]) if smem else 0, spill_stores=spill[0], spill_loads=spill[1]))
+                func, spill = None, (0, 0)
+    return report
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(path):
+        import triton
+
+        path = str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    return path
+
+
+def hmma_counts(kernels) -> dict:
+    """HMMA (tensor-core matrix multiply) instructions per kernel function
+    in each library's SASS, from ``cuobjdump -sass``."""
+    tool = cuobjdump()
+    counts = {}
+    for k in kernels:
+        sass = subprocess.run([tool, "-sass", str(k.library_path())], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                func = kernel_name(line.split("Function :")[1].strip())
+                counts[func] = 0
+            elif func and "HMMA" in line:
+                counts[func] += 1
+    return counts
 
 
 def check_varq(seed: int) -> dict:
@@ -727,10 +848,18 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build_all(kernels)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    for r in ptxas_report(logs):
+        log(f"  ptxas {r['lib']}: {r['func']}: {r['registers']} registers, {r['smem']} B smem, "
+            f"{r['spill_stores']} / {r['spill_loads']} B spill stores / loads")
+        if "bf16" in r["func"] and r["spill_stores"] + r["spill_loads"]:
+            raise AssertionError(f"{r['func']} spills: the bf16 flash tile must stay in registers")
+    flash = [k for k in kernels if k.name in ("flash_attention", "flash_attention_cache")]
+    hmma = hmma_counts(flash)
+    log("sass (cuobjdump -sass), HMMA instructions: "
+        + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
+    bf16_funcs = [f for f in hmma if "bf16" in f]
+    if len(bf16_funcs) != 2 or any(hmma[f] == 0 for f in bf16_funcs):
+        raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
 
     rows = check_kernels(args.seed)
     rows["paged_attention_varq"] = check_varq(args.seed)

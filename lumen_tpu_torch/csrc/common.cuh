@@ -1,11 +1,14 @@
 // Shared pieces of the port's hand-written Hopper kernels: element
 // conversion between the storage type (bf16 or fp32) and the fp32 the
 // kernels accumulate in, the finite "minus infinity" the JAX reference
-// masks with, and warp reductions.
+// masks with, warp reductions, and the tensor-core building blocks
+// (mma.sync m16n8k16 bf16, ldmatrix, cp.async) of the bf16 flash tile and
+// w8a16_matmul.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace lumen {
 
@@ -61,5 +64,60 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dtype codes shared with the Python wrappers (ops/attention.py).
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+
+// -- tensor cores -------------------------------------------------------------
+// Fragment coordinates of mma.sync m16n8k16 for lane l: gid = l / 4 (row
+// of A/C, column of B), tig = l % 4 (pair of k of A/B, pair of columns of
+// C). A: a0 (gid, 2tig..+1), a1 (gid+8, 2tig..), a2 (gid, 2tig+8..), a3
+// (gid+8, 2tig+8..); B: b0 (k 2tig..+1, n gid), b1 (k 2tig+8..+9, n gid);
+// C: c0/c1 (gid, 2tig..+1), c2/c3 (gid+8, 2tig..+1).
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// c += a @ b, bf16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, which lands in r[i] with the
+// thread holding (row gid, columns 2tig..+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// The same, transposed: the thread holds (rows 2tig..+1, column gid) --
+// a B fragment from a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// 16 bytes global -> shared without passing through registers (L2 only).
+// With live == false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most n committed groups of this thread are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
 
 }  // namespace lumen

@@ -13,57 +13,80 @@
 // block_live skip). The JAX dispatch's min_flash_q / min-seq gates have
 // no counterpart: every multi-token call on a CUDA tensor runs this.
 //
-// Bound and design: see flash_tile.cuh. On the main path a 256-token
-// chunk of 14 heads launches 4 x 14 = 56 blocks per decoder layer.
-#include "flash_tile.cuh"
+// bf16 runs the tensor-core tile (flash_tile_bf16.cuh: design, and what
+// bounds it), fp32 the FMA tile (flash_tile_fp32.cuh). On the serving
+// path a caption prompt's two chunks are q [1, 14, 256, 64] (q_off 0,
+// 256 live keys) and q [1, 14, 63, 64] (q_off 256, 265 live) against the
+// 832-slot scratch; the bound of the first is 0.00055 ms of bytes (q, o
+// and the live K/V slots once each at 3.35 TB/s). What limits the tile is
+// latency: up to four dependent 64-key tiles a block (five for the
+// second chunk) and the launch.
+#include "flash_tile_bf16.cuh"
+#include "flash_tile_fp32.cuh"
 
 namespace lumen {
 
-template <typename T, int D>
+// One block a launch is all the tile needs of an SM (minimum 1): ptxas
+// then has no reason to squeeze registers for a second block.
+template <int D>
+__global__ void __launch_bounds__(kFlashMmaThreads, 1)
+    flash_attention_cache_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                      const __nv_bfloat16* __restrict__ k,
+                                      const __nv_bfloat16* __restrict__ v,
+                                      const int* __restrict__ q_offsets,
+                                      const int* __restrict__ kv_valid,
+                                      __nv_bfloat16* __restrict__ o, int heads, int sq, int sk,
+                                      float scale) {
+  const size_t bh = blockIdx.y;
+  const int b = static_cast<int>(bh / heads);
+  const int q0 = blockIdx.x * kFlashMmaRows;
+  flash_tile_bf16<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
+                     q0, q_offsets[b], kv_valid[b], true, scale);
+}
+
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
-    flash_attention_cache_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                 const T* __restrict__ v, const int* __restrict__ q_offsets,
-                                 const int* __restrict__ kv_valid, T* __restrict__ o, int heads,
-                                 int sq, int sk, float scale) {
+    flash_attention_cache_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const int* __restrict__ q_offsets,
+                                      const int* __restrict__ kv_valid, float* __restrict__ o,
+                                      int heads, int sq, int sk, float scale) {
   const size_t bh = blockIdx.y;
   const int b = static_cast<int>(bh / heads);
   const int q0 = blockIdx.x * kFlashBQ;
-  flash_tile<T, D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
-                   q0, q_offsets[b], kv_valid[b], true, scale);
-}
-
-template <typename T, int D>
-static void launch(const void* q, const void* k, const void* v, const int* q_offsets,
-                   const int* kv_valid, void* o, int batch, int heads, int sq, int sk,
-                   float scale, cudaStream_t stream) {
-  const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch * heads);
-  flash_attention_cache_kernel<T, D><<<grid, kFlashThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_offsets,
-      kv_valid, static_cast<T*>(o), heads, sq, sk, scale);
-}
-
-template <typename T>
-static int dispatch_d(const void* q, const void* k, const void* v, const int* q_offsets,
-                      const int* kv_valid, void* o, int batch, int heads, int sq, int sk, int d,
-                      float scale, cudaStream_t stream) {
-  // head_dim 64: the only one the repository's models use.
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<T, 64>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk, scale, stream);
-  return static_cast<int>(cudaGetLastError());
+  flash_tile_fp32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
+                     q0, q_offsets[b], kv_valid[b], true, scale);
 }
 
 }  // namespace lumen
 
+// Plain C entry point (loaded through ctypes). Returns the launch's
+// cudaGetLastError() code, 0 on success. head_dim 64 only: the one the
+// repository's models use.
 extern "C" int lumen_flash_attention_cache(const void* q, const void* k, const void* v,
                                            const int* q_offsets, const int* kv_valid, void* o,
                                            int batch, int heads, int sq, int sk, int head_dim,
                                            int dtype, float scale, void* stream) {
+  using namespace lumen;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lumen::kBFloat16)
-    return lumen::dispatch_d<__nv_bfloat16>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk,
-                                            head_dim, scale, s);
-  if (dtype == lumen::kFloat32)
-    return lumen::dispatch_d<float>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk,
-                                    head_dim, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBFloat16) {
+    constexpr int smem = flash_bf16_smem_bytes<64>();  // past the 48 KB default: opt in
+    const cudaError_t rc = cudaFuncSetAttribute(flash_attention_cache_bf16_kernel<64>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const dim3 grid((sq + kFlashMmaRows - 1) / kFlashMmaRows, batch * heads);
+    flash_attention_cache_bf16_kernel<64><<<grid, kFlashMmaThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), q_offsets, kv_valid,
+        static_cast<__nv_bfloat16*>(o), heads, sq, sk, scale);
+  } else if (dtype == kFloat32) {
+    const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch * heads);
+    flash_attention_cache_fp32_kernel<64><<<grid, kFlashThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        q_offsets, kv_valid, static_cast<float*>(o), heads, sq, sk, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

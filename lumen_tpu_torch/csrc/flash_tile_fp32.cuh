@@ -1,32 +1,27 @@
-// One thread block of online-softmax attention: 64 query rows of one
-// (batch, head) against that head's keys, 32 keys per tile. Shared by
-// flash_attention.cu (vision tower) and flash_attention_cache.cu
-// (prefill against the contiguous KV scratch); they differ only in where
-// the mask's two numbers come from.
+// The fp32 instance of the flash tile: one thread block of online-softmax
+// attention, 64 query rows of one (batch, head) against that head's keys,
+// 32 keys per tile, products on the fp32 FMA units. Shared by
+// flash_attention.cu and flash_attention_cache.cu; the bf16 instance, the
+// one the serving path runs, is the tensor-core tile of
+// flash_tile_bf16.cuh.
 //
-// Replaces the body of the Pallas kernels _flash_kernel and
-// _flash_cache_kernel (lumen_tpu/ops/attention.py:97,249). The Pallas
-// grid's sequential key axis, which carried the running max/sum/output
-// in VMEM scratch from one grid step to the next, is the loop over key
-// tiles inside this block (Hopper blocks run in no order, so nothing can
-// carry between blocks).
+// Why fp32 stays on FMA: fp32 runs only the small reference VLM (phase 3
+// of chip_smoke.py), whose greedy tokens on the card must equal the
+// CPU's. That needs fp32 scores and probabilities; the tensor cores take
+// at best TF32 (10-bit mantissa) for fp32 operands, which would round Q,
+// K, P and V. Speed does not matter there.
 //
-// Layout: 256 threads, four per query row (the four are neighbouring
-// lanes of one warp, so row reductions are two shuffles). Each thread
-// keeps its row's scaled query in registers and scores every fourth key
-// of the tile; for P @ V it owns every fourth output dimension. K and V
-// tiles are staged in shared memory as fp32 (padded rows: no bank
-// conflicts between the four key rows read at once), the tile's
-// probabilities in a [64][33] shared matrix.
+// Replaces, like the bf16 tile, the body of the Pallas kernels
+// _flash_kernel and _flash_cache_kernel (lumen_tpu/ops/attention.py:97,
+// 249): the Pallas grid's sequential key axis is the loop over key tiles
+// inside this block.
 //
-// What bounds it on the H100: at the main path's shapes (S <= ~1k,
-// head_dim 64) the work is small -- the vision tower's 12 heads x 256
-// tokens are 0.2 GFLOP a layer -- and this first version runs the
-// products on the fp32 FMA units, not the tensor cores, so it is bound
-// by FMA issue rate (67 TFLOP/s fp32 peak), far above the 989 TFLOP/s
-// bf16 tensor-core bound used in PERF.md. Moving QK^T and PV onto
-// mma.sync/wgmma tiles is the next step; the masking and tile skipping
-// stay as they are.
+// Layout: 256 threads, four per query row (neighbouring lanes of one
+// warp, so row reductions are two shuffles). Each thread keeps its row's
+// scaled query in registers and scores every fourth key of the tile; for
+// P @ V it owns every fourth output dimension. K and V tiles are staged
+// in shared memory (padded rows: no bank conflicts between the four key
+// rows read at once), the tile's probabilities in a [64][33] matrix.
 #pragma once
 
 #include "common.cuh"
@@ -41,11 +36,12 @@ constexpr int kFlashThreads = kFlashBQ * kFlashTPR;
 // q/o: this (b, h)'s [sq, D] slice; k/v: its [sk, D] slice.
 // Key j is visible to query i iff j < kv_valid and (not causal or
 // j <= q_off + i) -- the mask of both JAX kernels.
-template <typename T, int D>
-__device__ __forceinline__ void flash_tile(const T* __restrict__ q, const T* __restrict__ k,
-                                           const T* __restrict__ v, T* __restrict__ o, int sq,
-                                           int sk, int q0, int q_off, int kv_valid, bool causal,
-                                           float scale) {
+template <int D>
+__device__ __forceinline__ void flash_tile_fp32(const float* __restrict__ q,
+                                                const float* __restrict__ k,
+                                                const float* __restrict__ v, float* __restrict__ o,
+                                                int sq, int sk, int q0, int q_off, int kv_valid,
+                                                bool causal, float scale) {
   constexpr int BQ = kFlashBQ, BK = kFlashBK, TPR = kFlashTPR;
   constexpr int KPT = BK / TPR;  // keys scored per thread per tile
   constexpr int DPT = D / TPR;   // output dims owned per thread
@@ -62,7 +58,7 @@ __device__ __forceinline__ void flash_tile(const T* __restrict__ q, const T* __r
 
   float qreg[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qreg[d] = row_valid ? to_f(q[(size_t)qi * D + d]) * scale : 0.f;
+  for (int d = 0; d < D; ++d) qreg[d] = row_valid ? q[(size_t)qi * D + d] * scale : 0.f;
 
   // Keys past this bound are masked for every row of the block: the
   // live slots, and for causal blocks the diagonal of the block's last
@@ -85,8 +81,8 @@ __device__ __forceinline__ void flash_tile(const T* __restrict__ q, const T* __r
       const int kp = kb + j;
       float kk = 0.f, vv = 0.f;
       if (kp < sk) {
-        kk = to_f(k[(size_t)kp * D + d]);
-        vv = to_f(v[(size_t)kp * D + d]);
+        kk = k[(size_t)kp * D + d];
+        vv = v[(size_t)kp * D + d];
       }
       sK[j][d] = kk;
       sV[j][d] = vv;
@@ -135,7 +131,7 @@ __device__ __forceinline__ void flash_tile(const T* __restrict__ q, const T* __r
   if (row_valid) {
     const float denom = fmaxf(l, 1e-20f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) o[(size_t)qi * D + i * TPR + t] = from_f<T>(acc[i] / denom);
+    for (int i = 0; i < DPT; ++i) o[(size_t)qi * D + i * TPR + t] = acc[i] / denom;
   }
 }
 

@@ -33,8 +33,6 @@
 //
 // Left for the redesign: split-K across blocks (down_proj at 8 rows is
 // 14 blocks on 132 SMs), a deeper cp.async / TMA pipeline, wgmma.
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace lumen {
@@ -48,18 +46,8 @@ constexpr int kQmWStride = kQmCols + 16;   // bytes; +16 B keeps B-fragment read
 constexpr int kQmXVecs = kQmRows * kQmDepth / 8 / kQmThreads;   // 16-byte loads per thread (2)
 constexpr int kQmWVecs = kQmDepth * kQmCols / 16 / kQmThreads;  // 16-byte loads per thread (4)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// pack_bf16 and mma_bf16_16816 (the fragment layout is noted beside them)
+// live in common.cuh, shared with the bf16 flash tile.
 
 __global__ void __launch_bounds__(kQmThreads)
     w8a16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
