@@ -22,9 +22,14 @@ Phases (any failure exits non-zero):
    (a yardstick only; the port never calls it). Times are device time per
    call from ``torch.profiler``, checked against lost events
    (``device_ms``); one w8a16 call is also timed with the host's launch
-   path (CUDA events). The verify-window kernel at W = 1 must equal the
-   single-token kernel bit for bit, and w8a16 rows must not depend on the
-   row count (the greedy identity of speculation).
+   path (CUDA events). The paged kernels are also checked at the edges of
+   their 64-key span and on a 2048-token row, in both dtypes. Bitwise,
+   the greedy identity of speculation leans on: the verify-window kernel
+   at W = 1 equals the single-token kernel, a paged row's output does not
+   depend on its table's width (32 vs 128 pages), and w8a16 rows do not
+   depend on the row count (8 of 40, 1 of 64). The kernel lines print
+   the span and its blocks and workspace, and each w8a16 shape's K split,
+   blocks and ring.
 3. reference: a small fp32 VLM served on the card (kernels) and on the
    CPU (plain versions) gives the same greedy tokens, and so does the
    card with speculative decoding (``LUMEN_VLM_SPEC_K=4``).
@@ -342,25 +347,51 @@ def check_kernels(seed: int) -> dict:
     # lengths (one token, exactly one page, partial last pages, a long
     # row), tables padded with the dump page and stale page ids.
     pages = 1025
+    span = A.paged_walk_constants()["span"]
     kp, vp = rnd(pages, 2, 16, 64), rnd(pages, 2, 16, 64)
     lens = [1, 16, 17, 300, 333, 129, 64, 500]
-    maxp = 32
-    perm = torch.randperm(pages - 1, generator=gen, device=dev)[: 8 * maxp].reshape(8, maxp) + 1
-    bt = perm.to(torch.int32)
-    for r, n in enumerate(lens):
-        live = -(-n // 16)
-        if r % 2:
-            bt[r, live:] = 0  # dump page
+
+    def table(row_lens: list[int], maxp: int):
+        perm = torch.randperm(pages - 1, generator=gen, device=dev)[: len(row_lens) * maxp]
+        bt = (perm.reshape(len(row_lens), maxp) + 1).to(torch.int32)
+        for r, n in enumerate(row_lens):
+            if r % 2:
+                bt[r, -(-n // 16):] = 0  # dump page
+        return bt
+
+    bt = table(lens, 32)
     kl = torch.tensor(lens, device=dev, dtype=torch.int32)
     q = rnd(8, 14, 64)
     out = A.paged_attention_kernel(q, kp, vp, bt, kl)
-    ref = A.paged_attention_reference(*f32(q, kp, vp), bt, kl)
-    err = max_err(out, ref)
+    errs = [max_err(out, A.paged_attention_reference(*f32(q, kp, vp), bt, kl))]
+    # The span's edges and a 2048-token row (maxp 128), in both dtypes.
+    edge = [span - 1, span, span + 1, 2048]
+    bt_edge = table(edge, 128)
+    kl_edge = torch.tensor(edge, device=dev, dtype=torch.int32)
+    for dt in (bf16, torch.float32):
+        qe = rnd(4, 14, 64, dtype=dt)
+        kpe, vpe = kp.to(dt), vp.to(dt)
+        out_e = A.paged_attention_kernel(qe, kpe, vpe, bt_edge, kl_edge)
+        errs.append(max_err(out_e, A.paged_attention_reference(*f32(qe, kpe, vpe), bt_edge, kl_edge)))
+    # Bitwise: a row's output does not depend on the table's width (a
+    # decode step's page bucket vs a verify turn's).
+    bt_wide = torch.zeros((8, 128), device=dev, dtype=torch.int32)
+    bt_wide[:, :32] = bt
+    if not torch.equal(A.paged_attention_kernel(q, kp, vp, bt_wide, kl), out):
+        raise AssertionError("paged_attention: a row's output changed with the table padded from 32 to 128 pages")
+    torch.cuda.synchronize()
+    grid = A.paged_grid(8 * 2, 32, 16)
+    working = 2 * sum(-(-n // span) for n in lens)
+    ws_bytes = A.paged_workspace_bytes(8 * 2, 32, 16, 64)
+    log(f"kernel paged_attention: lengths {span - 1}/{span}/{span + 1}/2048 (maxp 128) in bf16 and fp32 within "
+        f"tolerance; rows bitwise equal with tables of 32 and 128 pages; span {span} key positions, "
+        f"{working} working blocks of a {grid[0]}x{grid[1]} grid (128 threads), workspace {ws_bytes} B "
+        f"at q [8,14,64], maxp 32")
     total = sum(lens)
     nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * total * 2 * 64 * 2
     bms, by = bound(nb, 4 * 14 * 64 * total, "bfloat16")
     rows["paged_attention"] = dict(
-        max_abs_err=err,
+        max_abs_err=max(errs),
         ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
         plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -488,9 +519,13 @@ def check_varq(seed: int) -> dict:
         plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None, shape="8 rows, W=5, 14/2 heads",
     )
+    span = A.paged_walk_constants()["span"]
+    grid = A.paged_grid(8 * 2 * w, maxp, page)
+    working = 2 * sum(-(-(n + t) // span) for n in lens for t in range(w))
     log(
         f"kernel paged_attention_varq (W=5): max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
-        f"kernel {row['ms']:.4f} ms on the device, "
+        f"kernel {row['ms']:.4f} ms on the device ({working} working blocks of a {grid[0]}x{grid[1]} grid, "
+        f"span {span}, workspace {A.paged_workspace_bytes(8 * 2 * w, maxp, page, 64)} B), "
         f"plain {row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
         f"{nb} B / 3.35 TB/s vs {4 * 14 * 64 * seen} flop / 989 TFLOP/s), library none"
     )
@@ -513,7 +548,7 @@ def check_w8a16(seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
     bf16 = torch.bfloat16
-    x40 = None
+    x40 = x64 = None
     try:  # the yardstick call exists on the card's torch only if it has a CUDA kernel
         probe = torch.zeros((8, 64), device=dev, dtype=bf16)
         torch._weight_int8pack_mm(probe, torch.zeros((64, 64), device=dev, dtype=torch.int8),
@@ -525,6 +560,10 @@ def check_w8a16(seed: int) -> dict:
     shapes = {}
     errs = []
     for name, (k, n) in Q8_SHAPES.items():
+        parts = QM.w8a16_parts(k, n)
+        lib_parts = QM.W8A16.query("lumen_w8a16_parts", k, n)
+        if lib_parts != parts:
+            raise AssertionError(f"w8a16_matmul {name}: the library splits K in {lib_parts}, the mirror in {parts}")
         copies = max(2, -(-64 * 2**20 // (k * n)))  # int8 copies > 64 MB: past the 50 MB L2
         qs = [torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8) for _ in range(copies)]
         scales = [torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4 for _ in range(copies)]
@@ -535,9 +574,13 @@ def check_w8a16(seed: int) -> dict:
             errs.append(max_err(out, QM.w8a16_reference(x.float(), q, scale)))
             if rows == 40:
                 x40 = x
+            if rows == 64:
+                x64 = x
         head = QM.w8a16_matmul(x40[:8].contiguous(), q, scale)
         if not torch.equal(QM.w8a16_matmul(x40, q, scale)[:8], head):
             raise AssertionError(f"w8a16_matmul {name}: rows of a 40-row call differ from an 8-row call")
+        if not torch.equal(QM.w8a16_matmul(x64, q, scale)[:1], QM.w8a16_matmul(x64[:1].contiguous(), q, scale)):
+            raise AssertionError(f"w8a16_matmul {name}: the first row of a 64-row call differs from a 1-row call")
         for rows in (8, 40):
             x = torch.randn((rows, k), generator=gen, device=dev).to(bf16)
             args = list(zip([x] * copies, qs, scales))
@@ -548,6 +591,7 @@ def check_w8a16(seed: int) -> dict:
             bf16_bound, _ = bound(nb + k * n, fl, "bfloat16")  # the yardstick reads bf16 weights
             packs = [(x, qq.T.contiguous(), ss.to(bf16)) for qq, ss in zip(qs, scales)] if int8pack else None
             shapes[f"{name} {rows}x{k}x{n}"] = dict(
+                parts=parts, blocks=QM.w8a16_grid(rows, k, n),
                 ms=device_ms(QM.w8a16_matmul, 100, args, floor_ms=bms, launches=1),
                 plain_ms=device_ms(QM.w8a16_reference, 20, args, floor_ms=bms),
                 bound_ms=bms, bound_by=by, bound_formula=f"{nb} B / 3.35 TB/s vs {fl} flop / 989 TFLOP/s",
@@ -563,11 +607,17 @@ def check_w8a16(seed: int) -> dict:
         del qs, scales
     torch.cuda.synchronize()
     log("kernel w8a16_matmul: rows 1/3/8/40/64 at every projection shape within tolerance; "
-        "the first 8 rows of a 40-row call equal an 8-row call bit for bit")
+        "the first 8 rows of a 40-row call equal an 8-row call and the first row of a 64-row call "
+        "a 1-row call, bit for bit")
+    c = QM.w8a16_constants()
     for shape, r in shapes.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         yard = "not valid" if r["bf16_matmul_ms"] is None else f"{r['bf16_matmul_ms']:.4f} ms"
-        log(f"kernel w8a16_matmul {shape}: kernel {r['ms']:.4f} ms on the device, "
+        tiles, parts, z, rt = r["blocks"]
+        log(f"kernel w8a16_matmul {shape}: kernel {r['ms']:.4f} ms on the device "
+            f"(K split in {parts}, {tiles * parts * z} blocks = {tiles} column tiles x {parts} parts x {z}, "
+            f"{rt} row tile(s) a block, {c['stages'] if rt == 1 else c['stages_wide']} x {c['depth']}-deep "
+            f"stages, no workspace), "
             f"plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_formula']}), "
             f"library (_weight_int8pack_mm) {lib}, yardstick bf16 torch.matmul {yard}")

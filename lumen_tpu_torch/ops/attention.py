@@ -19,11 +19,14 @@ and ``chip_smoke.py`` holds the kernels against them on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import re
+import threading
 
 import torch
 
-from .cuda_build import CudaKernel
+from .cuda_build import CSRC, CudaKernel
 
 NEG_INF = -1e30
 
@@ -42,11 +45,11 @@ FLASH_CACHE = CudaKernel(
 )
 PAGED = CudaKernel(
     "paged_attention", "paged_attention", "lumen_paged_attention",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 PAGED_VARQ = CudaKernel(
     "paged_attention_varq", "paged_attention_varq", "lumen_paged_attention_varq",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 #: every kernel of this module, for builds and launch counts.
 KERNELS = (FLASH, FLASH_CACHE, PAGED, PAGED_VARQ)
@@ -238,6 +241,53 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
     return out
 
 
+@functools.cache
+def paged_walk_constants() -> dict[str, int]:
+    """The split walk's compile-time constants, read from
+    ``csrc/paged_walk.cuh``: ``span`` key positions a block (aligned to
+    absolute positions), ``group_max`` query heads a KV head."""
+    text = (CSRC / "paged_walk.cuh").read_text()
+    c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1]) for n in ("kPagedSpan", "kPagedGroupMax")}
+    return {"span": c["kPagedSpan"], "group_max": c["kPagedGroupMax"]}
+
+
+def paged_grid(slots: int, maxp: int, page: int) -> tuple[int, int]:
+    """Blocks of a split-walk launch: (spans of the table, row x KV head x
+    window slot) -- the span count covers ``maxp * page`` key positions."""
+    span = paged_walk_constants()["span"]
+    return -(-maxp * page // span), slots
+
+
+def paged_workspace_bytes(slots: int, maxp: int, page: int, head_dim: int) -> int:
+    """fp32 workspace of a launch: one partial (m and l of each head slot
+    of the group, then its [head_dim] accumulator) per block of the grid."""
+    spans, _ = paged_grid(slots, maxp, page)
+    return slots * spans * paged_walk_constants()["group_max"] * (head_dim + 2) * 4
+
+
+#: per (device, stream): the int32 counters of the spans' merge, one per
+#: (row, KV head, window slot). Zeroed once when made; every launch leaves
+#: them at zero, so a call costs one kernel and no memset. Launches on one
+#: stream run in order, so they never share a counter at the same time.
+_PAGED_COUNTERS: dict[tuple, torch.Tensor] = {}
+_PAGED_COUNTERS_LOCK = threading.Lock()
+
+
+def _paged_scratch(q, slots: int, maxp: int, page: int):
+    """The workspace (``torch.empty``) and the stream's counters for a
+    split-walk launch with ``slots`` (row, KV head, window slot) triples."""
+    ws = torch.empty(
+        paged_workspace_bytes(slots, maxp, page, q.shape[-1]) // 4, dtype=torch.float32, device=q.device
+    )
+    key = (q.device.index, _stream(q))
+    with _PAGED_COUNTERS_LOCK:
+        counters = _PAGED_COUNTERS.get(key)
+        if counters is None or counters.numel() < slots:
+            counters = torch.zeros(max(slots, 4096), dtype=torch.int32, device=q.device)
+            _PAGED_COUNTERS[key] = counters
+    return ws, counters
+
+
 def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=None):
     """Ragged paged decode attention (JAX ``paged_attention_kernel``): the
     CUDA kernel on CUDA tensors, :func:`paged_attention_reference` on CPU
@@ -246,12 +296,14 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=Non
         return paged_attention_reference(q, k_pages, v_pages, block_tables, kv_lens, scale)
     b, h, d = q.shape
     block_tables, kv_lens = _paged_operands("paged_attention", q, k_pages, v_pages, block_tables, kv_lens)
+    kv_heads, page, maxp = k_pages.shape[1], k_pages.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        ws, counters = _paged_scratch(q, b * kv_heads, maxp, page)
         PAGED.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), b, h, k_pages.shape[1], k_pages.shape[2],
-            block_tables.shape[1], d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h,
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
         )
     return out
 
@@ -267,12 +319,14 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scal
     block_tables, kv_lens = _paged_operands(
         "paged_attention_varq", q, k_pages, v_pages, block_tables, kv_lens
     )
+    kv_heads, page, maxp = k_pages.shape[1], k_pages.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        ws, counters = _paged_scratch(q, b * kv_heads * w, maxp, page)
         PAGED_VARQ.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), b, w, h, k_pages.shape[1], k_pages.shape[2],
-            block_tables.shape[1], d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, w, h,
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
         )
     return out
 

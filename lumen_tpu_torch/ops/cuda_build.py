@@ -47,6 +47,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
     @property
@@ -78,12 +79,21 @@ class CudaKernel:
                 build = self.start_build()
                 if build is not None:
                     _finish_build(self, build)
-                lib = ctypes.CDLL(str(self.library_path()))
-                fn = getattr(lib, self.symbol)
+                self._lib = ctypes.CDLL(str(self.library_path()))
+                fn = getattr(self._lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
             return self._fn
+
+    def query(self, symbol: str, *args: int) -> int:
+        """Call another ``int f(int, ...)`` the library exports (a
+        kernel's launch geometry, for reports); launches nothing."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise on a non-zero CUDA error code

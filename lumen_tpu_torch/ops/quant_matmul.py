@@ -16,10 +16,12 @@ not ported (the port has no mesh yet).
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 
 import torch
 
-from .cuda_build import CudaKernel
+from .cuda_build import CSRC, CudaKernel
 
 #: Max rows routed to the kernel: decode and verify-window shapes (JAX
 #: ``MAX_PALLAS_ROWS``). Larger row counts (prefill chunks) are a plain
@@ -34,6 +36,45 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 W8A16 = CudaKernel("w8a16_matmul", "w8a16_matmul", "lumen_w8a16_matmul", [_P, _P, _P, _P, _I, _I, _I, _P])
 #: every kernel of this module, for builds and launch counts.
 KERNELS = (W8A16,)
+
+
+@functools.cache
+def w8a16_constants() -> dict[str, int]:
+    """The kernel's compile-time constants (``kQm*`` of
+    ``csrc/w8a16_matmul.cu``): rows, max_row_tiles, cols, depth, stages
+    (one row tile a block), stages_wide (more), max_parts, target_blocks,
+    max_blocks."""
+    text = (CSRC / "w8a16_matmul.cu").read_text()
+    names = dict(rows="kQmRows", max_row_tiles="kQmMaxRowTiles", cols="kQmCols", depth="kQmDepth",
+                 stages="kQmStages", stages_wide="kQmStagesWide", max_parts="kQmMaxParts",
+                 target_blocks="kQmTargetBlocks", max_blocks="kQmMaxBlocks")
+    return {key: int(re.search(rf"constexpr int {c} = (\d+);", text)[1]) for key, c in names.items()}
+
+
+def w8a16_parts(k: int, n: int) -> int:
+    """K parts the kernel cuts a [K, N] weight into (``qm_parts``): the
+    largest power of two <= max_parts that is at most K's 64-deep chunks
+    and brings the N / 64 column tiles to target_blocks. A function of K
+    and N alone, so a row's bits never depend on the call's row count."""
+    c = w8a16_constants()
+    chunks = -(-k // c["depth"])
+    want = -(-c["target_blocks"] // (n // c["cols"]))
+    parts = 1
+    while parts * 2 <= min(c["max_parts"], chunks, want):
+        parts *= 2
+    return parts
+
+
+def w8a16_grid(m: int, k: int, n: int) -> tuple[int, int, int, int]:
+    """A launch (``qm_block_row_tiles``): (column tiles, K parts = the
+    cluster, blocks along the rows, row tiles a block). A block takes one
+    16-row tile unless that makes more than max_blocks blocks; then every
+    row tile of the call. Rows never share arithmetic, so this choice,
+    unlike the K split, may follow M."""
+    c = w8a16_constants()
+    tiles, parts, row_tiles = n // c["cols"], w8a16_parts(k, n), -(-m // c["rows"])
+    rt = 1 if tiles * parts * row_tiles <= c["max_blocks"] else row_tiles
+    return tiles, parts, -(-row_tiles // rt), rt
 
 
 def w8a16_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -69,6 +110,8 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     rows = x2.shape[0]
+    if not 1 <= rows <= MAX_KERNEL_ROWS:
+        raise ValueError(f"w8a16_matmul: {rows} rows (the kernel takes 1 to {MAX_KERNEL_ROWS})")
     y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     for arg, t in (("x", x2), ("q", q), ("scale", scale)):
         if t.device != x.device:

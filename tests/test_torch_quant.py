@@ -112,6 +112,75 @@ class TestW8A16:
         assert kernel.launches == 0  # nothing on the CPU launches it
 
 
+#: (K, N) of the decoder's projections (Qwen2-0.5B), as chip_smoke.Q8_SHAPES.
+QWEN_PROJECTIONS = {"q_proj/o_proj": (896, 896), "k_proj/v_proj": (896, 128),
+                    "gate_proj/up_proj": (896, 4864), "down_proj": (4864, 896)}
+
+
+def split_k_emulation(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic (``csrc/w8a16_matmul.cu``) on the CPU: rows
+    in zero-padded 16-row tiles; K cut into ``w8a16_parts(K, N)`` parts of
+    whole 64-deep chunks, each part an fp32 sum of 16-deep products in K
+    order (one ``mma.sync`` k-step each); the parts added in part order;
+    scale in fp32; one rounding to bf16. ``x`` holds bf16 values."""
+    m, k = x.shape
+    n = q.shape[1]
+    c = tqm.w8a16_constants()
+    parts = tqm.w8a16_parts(k, n)
+    chunks = -(-k // c["depth"])
+    qf = q.float()
+    out = torch.empty(m, n, dtype=torch.bfloat16)
+    for m0 in range(0, m, c["rows"]):
+        xt = torch.zeros(c["rows"], k)
+        xt[: min(c["rows"], m - m0)] = x[m0:m0 + c["rows"]].float()
+        total = None
+        for p in range(parts):
+            k0, k1 = p * chunks // parts * c["depth"], min((p + 1) * chunks // parts * c["depth"], k)
+            acc = torch.zeros(c["rows"], n)
+            for kb in range(k0, k1, 16):
+                acc = acc + xt[:, kb:kb + 16] @ qf[kb:kb + 16]
+            total = acc if total is None else total + acc
+        out[m0:m0 + c["rows"]] = (total * scale)[: min(c["rows"], m - m0)].bfloat16()
+    return out
+
+
+class TestW8A16Split:
+    def test_split_is_a_function_of_k_and_n(self):
+        """The K split of each projection shape, and its blocks: enough to
+        fill the H100's 132 SMs where the shape allows it, at most 528."""
+        want = {"q_proj/o_proj": 8, "k_proj/v_proj": 8, "gate_proj/up_proj": 4, "down_proj": 8}
+        for name, (k, n) in QWEN_PROJECTIONS.items():
+            assert tqm.w8a16_parts(k, n) == want[name], name
+            assert tqm.w8a16_grid(8, k, n) == (n // 64, want[name], 1, 1)
+            for rows in (1, 40, 64):
+                tiles, parts, z, rt = tqm.w8a16_grid(rows, k, n)
+                assert (tiles, parts) == (n // 64, want[name])  # the split never follows M
+                assert z * rt * 16 >= rows and tiles * parts * z <= 528
+        # gate/up at 40 rows: every row tile in one block (304 blocks, not 912)
+        assert tqm.w8a16_grid(40, 896, 4864) == (76, 4, 1, 3)
+        assert tqm.w8a16_grid(40, 4864, 896) == (14, 8, 3, 1)
+
+    @pytest.mark.parametrize("name", list(QWEN_PROJECTIONS))
+    def test_emulation_against_jax(self, name):
+        """The split-K emulation against the JAX package's dequant product
+        (``QDense``'s XLA branch, fp32) within chip_smoke.py's 1e-2 +
+        1e-2|ref|, and row r's bits the same in calls of 1, 8, 40 and 64
+        rows."""
+        k, n = QWEN_PROJECTIONS[name]
+        rng = np.random.default_rng(k + n)
+        x = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)).bfloat16().float()
+        q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        scale = (rng.random(n) * 1e-3 + 1e-4).astype(np.float32)
+        got = split_k_emulation(x, _t(q), _t(scale))
+        want = np.asarray(JQDense(n, use_bias=False).apply(
+            {"params": {"q": jnp.asarray(q), "scale": jnp.asarray(scale)}}, jnp.asarray(x.numpy())))
+        diff = np.abs(got.float().numpy() - want)
+        assert np.isfinite(got.float().numpy()).all()
+        assert (diff <= 1e-2 + 1e-2 * np.abs(want)).all(), f"max |diff| {diff.max():.3e}"
+        for rows in (1, 8, 40):
+            assert torch.equal(split_k_emulation(x[:rows], _t(q), _t(scale)), got[:rows]), rows
+
+
 class TestQDense:
     @pytest.mark.parametrize("bias", [True, False])
     def test_matches_jax_qdense(self, bias):
