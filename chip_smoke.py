@@ -43,10 +43,26 @@ Phases (any failure exits non-zero):
    ``quantize="int8"`` and ``LUMEN_VLM_SPEC_K=4`` on templated prompts;
    the w8a16 and verify-window kernels must run, verify turns must be
    taken, every decoder projection must hold int8 weights.
+6. the main path as users reach it, at full width: a ``VLMConfig()``
+   model directory (seeded bf16 weights under the HF/FastVLM names,
+   ``config.json``, a WordLevel ``tokenizer.json`` of all 151936 ids, a
+   chat template, ``model_info.json``) written to a temporary directory,
+   served by the port's ``serve()`` (``lumen_tpu_torch/serving/server.py``)
+   from a deployment YAML that names the service in its JAX form. Over
+   real gRPC: 10 ``vlm_generate_stream`` requests, 8 in flight at once,
+   each with its own 1600x1200 JPEG (decoded and letterboxed by the
+   server), then ``vlm_generate``, ``GetCapabilities``, ``Health`` and a
+   malformed image (``INVALID_ARGUMENT``). Request 0 must equal a
+   ``VLMManager`` built directly from the same weights on the same canvas;
+   the bf16 path's three kernels must have run. Then a second server with
+   ``quantize: int8`` and ``LUMEN_VLM_SPEC_K=4`` answers 4 templated
+   requests, which must launch the w8a16 and verify-window kernels.
 
-Every run drives all five phases. The last two lines are the kernel
-table (JSON) and the device line the harness reads; the card's name and
-power limit precede them.
+Every run drives all six phases. The kernel table's launch counts are
+phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
+for the other two). The last two lines are the kernel table (JSON) and
+the device line the harness reads; the card's name and power limit
+precede them.
 """
 
 from __future__ import annotations
@@ -88,6 +104,9 @@ SOURCES = {
 #: (single-token paged decode), phase 5 the int8 speculative path.
 PHASE4_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention")
 PHASE5_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention_varq", "w8a16_matmul")
+#: phase 6 holds its bf16 server to PHASE4_KERNELS and its int8 + speculation
+#: server to these
+PHASE6_INT8_KERNELS = ("paged_attention_varq", "w8a16_matmul")
 
 #: (K, N) of the decoder's projections (Qwen2-0.5B), the w8a16 shapes.
 Q8_SHAPES = {
@@ -876,6 +895,333 @@ def drive_serving(
         mgr.close()
 
 
+# -- phase 6: the gRPC server from a model directory ---------------------------
+
+#: words the phase-6 tokenizer knows besides its ``w<id>`` filler tokens
+WORDS = ("user", "assistant", "describe", "this", "photo", "in", "one", "detailed", "sentence", "caption",
+         "image", "a", "red", "car", "on", "wet", "road")
+
+CHAT_TEMPLATE = (
+    "{% for m in messages %}<|im_start|>{{ m.role }}\n{{ m.content }}<|im_end|>\n{% endfor %}"
+    "{% if add_generation_prompt %}<|im_start|>assistant\n{% endif %}"
+)
+
+
+def hf_config(cfg) -> dict:
+    """``config.json`` (LLaVA-style ``text_config`` + ``vision_config``) that
+    ``VLMConfig.from_hf`` reads back as ``cfg``."""
+    d, v = cfg.decoder, cfg.vision
+    return {
+        "text_config": {
+            "hidden_size": d.hidden_size, "num_hidden_layers": d.layers, "num_attention_heads": d.heads,
+            "num_key_value_heads": d.kv_heads, "intermediate_size": d.intermediate_size,
+            "vocab_size": d.vocab_size, "head_dim": d.head_dim, "rope_theta": d.rope_theta,
+            "rms_norm_eps": d.rms_norm_eps, "max_position_embeddings": d.max_position_embeddings,
+            "tie_word_embeddings": d.tie_word_embeddings, "bos_token_id": cfg.bos_token_id,
+            "eos_token_id": cfg.eos_token_id, "pad_token_id": cfg.pad_token_id,
+        },
+        "vision_config": {
+            "image_size": v.image_size, "patch_size": v.patch_size, "hidden_size": v.width,
+            "num_hidden_layers": v.layers, "num_attention_heads": v.heads,
+            "image_mean": list(v.mean), "image_std": list(v.std),
+        },
+        "image_token_index": cfg.image_token_id,
+    }
+
+
+def write_tokenizer(path: Path, cfg) -> None:
+    """A ``tokenizers`` WordLevel vocabulary of all ``vocab_size`` ids: the
+    config's special ids as special tokens, ``WORDS`` at ids 1000 on,
+    ``w<id>`` for the rest, so every id the model can emit decodes and
+    distinct non-special ids decode to distinct words."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers
+
+    vocab_size = cfg.decoder.vocab_size
+    names = {cfg.bos_token_id: "<|endoftext|>", cfg.eos_token_id: "<|im_end|>", cfg.image_token_id: "<image>"}
+    names.setdefault(cfg.pad_token_id, "<pad>")
+    names[next(i for i in range(vocab_size - 1, 0, -1) if i not in names)] = "<|im_start|>"
+    special = list(names.values())
+    names[next(i for i in range(3, vocab_size) if i not in names)] = "<unk>"
+    for k, word in enumerate(WORDS):
+        names[1000 + k] = word
+    vocab = {names.get(i, f"w{i}"): i for i in range(vocab_size)}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens([AddedToken(s, special=True) for s in special])
+    tok.save(str(path))
+
+
+def write_model_dir(root: Path, name: str, cfg, state) -> Path:
+    """A model directory as the loader reads one: ``model.safetensors``
+    under the HF/FastVLM names ``convert_vlm_checkpoint`` reads,
+    ``config.json``, ``tokenizer.json``, ``tokenizer_config.json`` with a
+    chat template, and ``model_info.json``."""
+    from safetensors.torch import save_file
+
+    from lumen_tpu_torch.models.vlm.convert import export_hf_checkpoint
+
+    model_dir = root / "models" / name
+    model_dir.mkdir(parents=True)
+    save_file({k: v.cpu() for k, v in export_hf_checkpoint(state).items()}, str(model_dir / "model.safetensors"))
+    (model_dir / "config.json").write_text(json.dumps(hf_config(cfg)))
+    write_tokenizer(model_dir / "tokenizer.json", cfg)
+    (model_dir / "tokenizer_config.json").write_text(json.dumps({"chat_template": CHAT_TEMPLATE}))
+    (model_dir / "model_info.json").write_text(json.dumps({
+        "name": name, "version": "1.0.0", "description": "seeded random weights for chip_smoke.py",
+        "model_type": "vlm", "source": {"format": "custom", "repo_id": f"LumilioPhotos/{name}"},
+        "runtimes": {"jax": {"available": True, "files": ["model.safetensors"]}},
+    }))
+    return model_dir
+
+
+def deployment_yaml(path: Path, cache_dir: Path, model: str, quantize: str | None) -> Path:
+    """A single-service deployment naming the service in its JAX form, which
+    the port's loader maps onto its own class."""
+    settings = {"dtype": "bfloat16", "batch_size": 8}
+    if quantize:
+        settings["quantize"] = quantize
+    import yaml
+
+    path.write_text(yaml.safe_dump({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(cache_dir)},
+        "deployment": {"mode": "single", "service": "vlm"},
+        "server": {"port": 50051, "host": "127.0.0.1"},
+        "services": {"vlm": {
+            "enabled": True, "package": "lumen_tpu.models.vlm",
+            "import_info": {"registry_class": "lumen_tpu.serving.services.vlm_service.VlmService"},
+            "backend_settings": settings,
+            "models": {"vlm": {"model": model, "runtime": "jax"}},
+        }},
+    }))
+    return path
+
+
+def photo_jpeg(seed: int, width: int = 1600, height: int = 1200) -> bytes:
+    """A seeded photo-sized JPEG (smooth gradients plus noise), not of the
+    canvas size, so the server's letterbox resize runs."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    base = np.stack([x / width, y / height, (x + y) / (width + height)], -1) * rng.uniform(80, 200, 3)
+    img = np.clip(base + rng.normal(0, 12, (height, width, 3)), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def grpc_call(stub, task: str, payload: bytes, meta: dict, timeout: float = 600) -> dict:
+    """One Infer stream: its deltas, the final body (or error code) and the
+    client-side time to the first delta."""
+    from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
+
+    req = pb.InferRequest(correlation_id="c", task=task, payload=payload, payload_mime="image/jpeg",
+                          meta={k: str(v) for k, v in meta.items()})
+    t0 = time.perf_counter()
+    deltas, first, last = [], None, None
+    for resp in stub.Infer(iter([req]), timeout=timeout):
+        if not resp.is_final:
+            first = first or time.perf_counter()
+            deltas.append(resp.result)
+        last = resp
+    if last is None:
+        raise AssertionError(f"{task}: the stream ended without a final message")
+    out = dict(deltas=deltas, ttft_ms=None if first is None else (first - t0) * 1e3, s=time.perf_counter() - t0,
+               code=last.error.code if last.HasField("error") else 0, mime=last.result_mime)
+    if not out["code"]:
+        out["body"] = json.loads(last.result)
+    return out
+
+
+def boot_server(yaml_path: Path, device: str):
+    """``serve()`` in process on an OS-assigned port; returns the handle,
+    a stub and the seconds from the call to the first ``Health`` that
+    answers ok."""
+    import grpc
+    from google.protobuf import empty_pb2
+
+    from lumen_tpu_torch.core.config import load_config
+    from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+    from lumen_tpu_torch.serving.server import serve
+
+    t0 = time.perf_counter()
+    handle = serve(load_config(str(yaml_path)), port_override=0, skip_download=True, device=device)
+    channel = grpc.insecure_channel(f"127.0.0.1:{handle.port}")
+    stub = InferenceStub(channel)
+    while True:
+        try:
+            stub.Health(empty_pb2.Empty(), timeout=10)
+            break
+        except grpc.RpcError:
+            if time.perf_counter() - t0 > 300:
+                raise
+            time.sleep(0.05)
+    return handle, channel, stub, time.perf_counter() - t0
+
+
+def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
+    """Phase 6: a full-width model directory served over real gRPC by the
+    port's ``serve()``; bf16, then int8 with speculation. ``cfg``/``device``
+    let the CPU tests rehearse it at a small configuration (it then stops at
+    the launch-count check)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from google.protobuf import empty_pb2
+
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager, VLMModel, init_random_
+    from lumen_tpu_torch.models.vlm.chat import VlmTokenizer
+    from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
+    from lumen_tpu_torch.utils.host_decode import vlm_canvas
+    from lumen_tpu_torch.utils.metrics import metrics
+
+    cfg = cfg or VLMConfig()
+    on_card = torch.device(device).type == "cuda"
+    if VLMConfig.from_hf(hf_config(cfg)) != cfg:
+        raise AssertionError("config.json does not read back as the served configuration")
+    all_k = all_kernels()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        with torch.device(device):
+            model = VLMModel(cfg)
+        init_random_(model, seed + 6)
+        state = model.to(torch.bfloat16).state_dict()
+        del model
+        model_dir = write_model_dir(root / "cache", "SmokeVLM", cfg, state)
+        state = {k: v.cpu() for k, v in state.items()}  # for the direct manager; off the card meanwhile
+        mb = sum(f.stat().st_size for f in model_dir.iterdir()) / 2**20
+        log(f"phase 6: model directory of VLMConfig() (seeded bf16 weights, HF names) written in "
+            f"{time.perf_counter() - t0:.1f} s, {mb:.0f} MiB: {sorted(f.name for f in model_dir.iterdir())}")
+        prompt = json.dumps([{"role": "user", "content": "describe this photo in one detailed sentence"}])
+        photos = [photo_jpeg(seed * 100 + i) for i in range(12)]
+
+        # -- bf16 server: 10 streams, 8 in flight at once -----------------
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with env(LUMEN_VLM_SPEC_K="0"):
+            handle, channel, stub, load_s = boot_server(
+                deployment_yaml(root / "bf16.yaml", root / "cache", "SmokeVLM", None), device)
+        try:
+            mgr = handle.services["vlm"].manager
+            log(f"phase 6: bf16 server up in {load_s:.2f} s (serve() to the first Health ok), port "
+                f"{handle.port}, {type(handle.services['vlm']).__module__}, kv {mgr.kv_layout()}")
+            budgets = [32 + 4 * i for i in range(10)]
+            for k in all_k:
+                k.launches = 0
+            t_start = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                streams = list(pool.map(lambda i: grpc_call(
+                    stub, "vlm_generate_stream", photos[i], {"messages": prompt, "max_new_tokens": budgets[i]}),
+                    range(10)))
+            wall = time.perf_counter() - t_start
+            unary = grpc_call(stub, "vlm_generate", photos[10], {"messages": prompt, "max_new_tokens": 16})
+            launches = {k.name: k.launches for k in all_k}
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            caps = stub.GetCapabilities(empty_pb2.Empty(), timeout=30)
+            stub.Health(empty_pb2.Empty(), timeout=30)
+            bad = grpc_call(stub, "vlm_generate_stream", b"\xff\xd8 not a jpeg", {"messages": prompt})
+            for i, r in enumerate(streams + [unary]):
+                if r["code"] or "text_generation" not in r["mime"]:
+                    raise AssertionError(f"request {i}: no TextGenerationV1 final (code {r['code']}, {r['mime']})")
+                body, budget = r["body"], (budgets + [16])[i]
+                if not 1 <= body["generated_tokens"] <= budget:
+                    raise AssertionError(f"request {i}: {body['generated_tokens']} tokens for a budget of {budget}")
+                if i < 10 and b"".join(r["deltas"]).decode() != body["text"]:
+                    raise AssertionError(f"stream {i}: deltas do not join to the final text")
+            if bad["code"] != pb.ERROR_CODE_INVALID_ARGUMENT:
+                raise AssertionError(f"a malformed image answered code {bad['code']}, not INVALID_ARGUMENT")
+            if {t.name for t in caps.tasks} != {"vlm_generate", "vlm_generate_stream"} or caps.runtime != (
+                    "torch-cuda" if on_card else "torch-cpu"):
+                raise AssertionError(f"capabilities: {[t.name for t in caps.tasks]}, runtime {caps.runtime}")
+            missing = [n for n in PHASE4_KERNELS if launches[n] == 0]
+            if missing:
+                raise AssertionError(f"the bf16 server never launched: {missing} (launches {launches})")
+            tokens = sum(r["body"]["generated_tokens"] for r in streams)
+            ttfts = [round(r["ttft_ms"], 2) for r in streams]
+            log(f"phase 6: 10 vlm_generate_stream over gRPC (8 in flight, 1600x1200 JPEG each), {tokens} tokens "
+                f"in {wall:.3f} s = {tokens / wall:.1f} tok/s aggregate [{card}]")
+            log(f"phase 6: client-side ttft_ms (first delta) {ttfts}; server ttft_ms "
+                f"{[r['body']['metadata'].get('ttft_ms') for r in streams]} [{card}]")
+            log(f"phase 6: vlm_generate {unary['body']['generated_tokens']} tokens in {unary['s']:.3f} s; "
+                f"GetCapabilities {caps.runtime} {sorted(t.name for t in caps.tasks)}; Health ok; malformed "
+                f"image INVALID_ARGUMENT")
+            log(f"phase 6: peak device memory {peak / 2**30:.3f} GiB [{card}]")
+            log(f"phase 6: bf16 launches {json.dumps(launches)}")
+            decode_ms = []
+            for _ in range(5):
+                t = time.perf_counter()
+                vlm_canvas(photos[0], cfg.vision.image_size)
+                decode_ms.append((time.perf_counter() - t) * 1e3)
+            gap = [r["ttft_ms"] - r["body"]["metadata"]["ttft_ms"] for r in streams]
+            task = metrics.snapshot()["tasks"]["vlm_generate_stream"]
+            log(f"phase 6: service layer: host decode + letterbox of one 1600x1200 JPEG "
+                f"{sorted(decode_ms)[2]:.1f} ms (median of 5, idle server); client ttft - server ttft "
+                f"{min(gap):.1f}..{max(gap):.1f} ms (gRPC, dispatch, parse; the decode is inside the server's); server-side "
+                f"vlm_generate_stream latency p50 {task['p50_ms']:.0f} ms (histogram bucket) over "
+                f"{task['count']} streams [{card}]")
+        finally:
+            channel.close()
+            handle.stop(grace=1.0)
+        out.update(load_s=load_s, tokens=tokens, wall_s=wall, tok_s=tokens / wall, ttft_ms=ttfts,
+                   peak_gib=peak / 2**30, launches=launches)
+
+        # -- loading is lossless: request 0 on a manager built from `state` --
+        direct = VLMManager(cfg, state, VlmTokenizer.from_model_dir(str(model_dir)), device=device,
+                            dtype="bfloat16", gen_slots=8, gen_block=8)
+        try:
+            r = direct.generate([ChatMessage("user", "describe this photo in one detailed sentence")],
+                                vlm_canvas(photos[0], cfg.vision.image_size), max_new_tokens=budgets[0])
+            want = direct.tokenizer.decode(r.tokens)
+        finally:
+            direct.close()
+        got = streams[0]["body"]
+        if (got["generated_tokens"], got["text"]) != (len(r.tokens), want):
+            raise AssertionError(f"request 0 over gRPC differs from the direct manager: "
+                                 f"{got['generated_tokens']} tokens {got['text'][:80]!r} vs {len(r.tokens)} {want[:80]!r}")
+        log(f"phase 6: request 0 == a direct VLMManager on the same weights and canvas ({len(r.tokens)} tokens)")
+        del state
+
+        # -- int8 server with speculation: 4 templated requests ---------------
+        if on_card:
+            torch.cuda.empty_cache()
+        with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0"):
+            handle, channel, stub, load8_s = boot_server(
+                deployment_yaml(root / "int8.yaml", root / "cache", "SmokeVLM", "int8"), device)
+        try:
+            eng = handle.services["vlm"].manager.engine
+            templated = json.dumps([{"role": "user", "content":
+                                     "caption this image : a red car on a wet road , a red car on a wet road ."}])
+            for k in all_k:
+                k.launches = 0
+            turns0 = eng.spec_turns
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                q8 = list(pool.map(lambda i: grpc_call(
+                    stub, "vlm_generate_stream", photos[11 - i % 2], {"messages": templated, "max_new_tokens": 48}),
+                    range(4)))
+            launches8 = {k.name: k.launches for k in all_k}
+            if any(r["code"] for r in q8):
+                raise AssertionError(f"int8 server: codes {[r['code'] for r in q8]}")
+            missing = [n for n in PHASE6_INT8_KERNELS if launches8[n] == 0]
+            if missing or eng.spec_turns == turns0:
+                raise AssertionError(f"the int8 server never launched {missing} "
+                                     f"({eng.spec_turns - turns0} verify turns; launches {launches8})")
+            log(f"phase 6: int8 + spec K=4 server up in {load8_s:.2f} s; 4 templated streams, "
+                f"{sum(r['body']['generated_tokens'] for r in q8)} tokens, {eng.spec_turns - turns0} verify turns; "
+                f"launches {json.dumps(launches8)}")
+        finally:
+            channel.close()
+            handle.stop(grace=1.0)
+        out.update(load8_s=load8_s, launches8=launches8)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -921,18 +1267,21 @@ def main() -> int:
     log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
         f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
         f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
+    grpc_drive = drive_grpc(args.seed, card)
+    log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
+        f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
+        f"peak GiB {grpc_drive['peak_gib']:.3f}")
 
     table = []
     for k in kernels:
         source, replaces = SOURCES[k.name]
         row = rows[k.name]
-        # Each kernel's launches come from the drive of the path it serves:
-        # phase 4 for the bf16 path's kernels, phase 5 for the int8 /
-        # speculative path's own.
-        phase = 4 if k.name in PHASE4_KERNELS else 5
+        # Launches come from phase 6, the main path: the bf16 server for the
+        # bf16 path's kernels, the int8 + speculation server for the others.
+        launches = grpc_drive["launches" if k.name in PHASE4_KERNELS else "launches8"][k.name]
         table.append(dict(
             name=k.name, route="cuda", source=source, replaces=replaces,
-            launches=drives[phase]["launches"][k.name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))

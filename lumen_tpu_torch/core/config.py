@@ -1,0 +1,322 @@
+"""Unified configuration schema + loader for all lumen-tpu services.
+
+YAML surface is compatible with the reference's config schema
+(``packages/lumen-resources/src/lumen_resources/lumen_config.py:13-257``):
+``metadata / deployment / server / services.<name>.{enabled, package,
+import_info, backend_settings, models}``. Existing Lumen config files load
+unchanged. Differences, all additive:
+
+- ``runtime`` gains the value ``"jax"`` (the native runtime here). ``torch``
+  and ``onnx`` remain accepted: their checkpoints are converted to jnp
+  pytrees at load time. ``rknn`` is accepted but unsupported at run time.
+- ``backend_settings`` gains TPU fields (``dtype``, ``mesh``,
+  ``max_batch_latency_ms``, ``batch_buckets``) next to the reference's
+  ``device`` / ``batch_size`` / ``onnx_providers`` (the last is accepted and
+  ignored, for config-file compatibility).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Literal
+
+import yaml
+from pydantic import BaseModel, ConfigDict, Field, field_validator, model_validator
+
+from .exceptions import ConfigError
+
+_SERVICE_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*$")
+
+
+class Metadata(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    version: str = Field(pattern=r"^\d+\.\d+\.\d+$")
+    region: Literal["cn", "other"]
+    cache_dir: str
+
+    @property
+    def cache_path(self) -> str:
+        return os.path.expanduser(self.cache_dir)
+
+
+class Deployment(BaseModel):
+    """Single service or multi-service hub.
+
+    The reference models this as two discriminated pydantic classes
+    (``Deployment``/``Deployment1``); a single class with a cross-field
+    validator expresses the same contract.
+    """
+
+    model_config = ConfigDict(extra="forbid")
+
+    mode: Literal["single", "hub"]
+    service: str | None = Field(None, pattern=_SERVICE_NAME_RE.pattern)
+    services: list[str] | None = None
+
+    @model_validator(mode="after")
+    def _check_mode_fields(self) -> "Deployment":
+        if self.mode == "single" and not self.service:
+            raise ValueError("deployment.service is required when mode=single")
+        if self.mode == "hub" and not self.services:
+            raise ValueError("deployment.services is required when mode=hub")
+        if self.services:
+            for s in self.services:
+                if not _SERVICE_NAME_RE.match(s):
+                    raise ValueError(f"invalid service name: {s!r}")
+        return self
+
+
+class Mdns(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    enabled: bool = False
+    # Optional: the server falls back to "lumen-tpu" when unset (the
+    # reference accepts enabled=true with no name, so we must too).
+    service_name: str | None = Field(None, pattern=r"^[a-z][a-z0-9-]*$")
+
+
+class Server(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    port: int = Field(ge=1024, le=65535)
+    host: str = "0.0.0.0"
+    mdns: Mdns | None = None
+
+
+class ImportInfo(BaseModel):
+    """Dotted paths used by the hub to dynamically load a service.
+
+    Same role as the reference's ``ImportInfo``
+    (``lumen_config.py:130-155``); patterns relaxed only enough to accept
+    both ``lumen_clip.*`` (reference packages) and ``lumen_tpu.*`` paths.
+    """
+
+    model_config = ConfigDict(extra="forbid")
+
+    registry_class: str = Field(pattern=r"^[a-z_][a-zA-Z0-9_.]*\.[A-Z][a-zA-Z0-9]*$")
+    add_to_server: str = Field(
+        default="lumen_tpu_torch.serving.proto.ml_service_pb2_grpc.add_InferenceServicer_to_server",
+        pattern=r"^[a-z_][a-zA-Z0-9_.]*\.add_[A-Za-z0-9_]+_to_server$",
+    )
+
+
+Runtime = Literal["jax", "torch", "onnx", "rknn"]
+
+
+class ModelConfig(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    model: str
+    runtime: Runtime = "jax"
+    rknn_device: str | None = Field(None, pattern=r"^rk\d+$")
+    dataset: str | None = None
+    precision: str | None = None
+
+    @model_validator(mode="after")
+    def _rknn_device_required(self) -> "ModelConfig":
+        if self.runtime == "rknn" and not self.rknn_device:
+            raise ValueError("rknn_device is required when runtime=rknn")
+        return self
+
+
+class MeshConfig(BaseModel):
+    """Logical device-mesh request for a service.
+
+    ``axes`` maps axis name -> size; ``-1`` means "all remaining devices".
+    Axis names follow the framework-wide convention in
+    ``lumen_tpu.parallel.sharding``: ``data``/``model``/``seq``.
+    """
+
+    model_config = ConfigDict(extra="forbid")
+
+    axes: dict[str, int] = Field(default_factory=lambda: {"data": -1})
+
+    @field_validator("axes")
+    @classmethod
+    def _nonempty(cls, v: dict[str, int]) -> dict[str, int]:
+        if not v:
+            raise ValueError("mesh.axes must be non-empty")
+        if sum(1 for s in v.values() if s == -1) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        for name, size in v.items():
+            if size == 0 or size < -1:
+                raise ValueError(f"invalid mesh axis size {name}={size}")
+        return v
+
+
+class BackendSettings(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    device: str | None = None
+    batch_size: int = Field(8, ge=1)
+    # Accepted for reference-config compatibility; ignored by the jax runtime.
+    onnx_providers: list[Any] | None = None
+
+    # --- TPU-native knobs ---
+    dtype: Literal["bfloat16", "float32", "float16"] = "bfloat16"
+    mesh: MeshConfig | None = None
+    max_batch_latency_ms: float = Field(5.0, ge=0)
+    # Static-shape bucket ladder. The unit is family-specific: request
+    # batch sizes for CLIP/face, detection side-lengths (px) for OCR,
+    # prompt lengths (tokens) for the VLM — each service's from_config
+    # documents its interpretation.
+    batch_buckets: list[int] | None = None
+    # Compile every batch bucket at startup instead of on first request.
+    warmup: bool = False
+    # VLM decode scheduling: "continuous" (the default) runs the paged-KV
+    # continuous-batching engine — requests admit/retire at step
+    # granularity into a shared page pool, no queueing behind long
+    # generations; "coalesce" groups same-shape concurrent requests into
+    # one fused-loop program (lowest dispatch overhead, best for
+    # same-shaped bursts). LUMEN_VLM_SCHEDULER overrides either at boot.
+    # Other services ignore this.
+    scheduler: Literal["coalesce", "continuous"] = "continuous"
+    # Continuous scheduler only: decode steps per compiled block (one host
+    # dispatch per block; larger amortizes dispatch, smaller admits and
+    # retires rows sooner). Ignored by "coalesce".
+    decode_block: int = Field(8, ge=1)
+    # VLM only: weight-only int8 for the decoder's attention + MLP
+    # projections (per-channel scales). Halves the dominant HBM traffic of
+    # bandwidth-bound decode; embeddings/norms/MoE banks stay full
+    # precision. Other services ignore this.
+    quantize: Literal["int8"] | None = None
+
+
+class ServiceConfig(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    enabled: bool
+    package: str = Field(pattern=r"^[a-z][a-z0-9_.]*$")
+    import_info: ImportInfo
+    backend_settings: BackendSettings = Field(default_factory=BackendSettings)
+    models: dict[str, ModelConfig]
+
+    @field_validator("models")
+    @classmethod
+    def _nonempty_models(cls, v: dict[str, ModelConfig]) -> dict[str, ModelConfig]:
+        if not v:
+            raise ValueError("services.*.models must contain at least one model")
+        return v
+
+
+class LumenConfig(BaseModel):
+    model_config = ConfigDict(extra="forbid")
+
+    metadata: Metadata
+    deployment: Deployment
+    server: Server
+    services: dict[str, ServiceConfig]
+
+    @model_validator(mode="after")
+    def _deployment_refs_exist(self) -> "LumenConfig":
+        names = set(self.services)
+        wanted: list[str] = []
+        if self.deployment.mode == "single" and self.deployment.service:
+            wanted = [self.deployment.service]
+        elif self.deployment.services:
+            wanted = list(self.deployment.services)
+        missing = [w for w in wanted if w not in names]
+        if missing:
+            raise ValueError(f"deployment references undefined services: {missing}")
+        return self
+
+    def enabled_services(self) -> dict[str, ServiceConfig]:
+        """Services selected by the deployment block AND marked enabled."""
+        if self.deployment.mode == "single":
+            sel = [self.deployment.service]
+        else:
+            sel = list(self.deployment.services or [])
+        return {n: self.services[n] for n in sel if self.services[n].enabled}
+
+
+def _load_raw(path: str) -> dict[str, Any]:
+    try:
+        with open(os.path.expanduser(path), "r", encoding="utf-8") as f:
+            raw = yaml.safe_load(f)
+    except FileNotFoundError as e:
+        raise ConfigError(f"config file not found: {path}") from e
+    except yaml.YAMLError as e:
+        raise ConfigError(f"config file is not valid YAML: {path}", detail=str(e)) from e
+    if not isinstance(raw, dict):
+        raise ConfigError(f"config root must be a mapping, got {type(raw).__name__}")
+    return raw
+
+
+def load_config(path: str) -> LumenConfig:
+    """Load + strictly validate a YAML config file.
+
+    Production entry point, same role as the reference's
+    ``load_and_validate_config()``
+    (``lumen_resources/lumen_config_validator.py:244-270``).
+    """
+    return validate_config_dict(_load_raw(path))
+
+
+def load_config_loose(path: str) -> tuple[LumenConfig, list[str]]:
+    """File-path variant of :func:`validate_config_loose` with the same
+    error wrapping as :func:`load_config` (missing files and bad YAML are
+    ``ConfigError``, not raw tracebacks)."""
+    return validate_config_loose(_load_raw(path))
+
+
+def validate_config_dict(raw: dict[str, Any]) -> LumenConfig:
+    try:
+        return LumenConfig.model_validate(raw)
+    except Exception as e:  # pydantic.ValidationError
+        raise ConfigError("config validation failed", detail=str(e)) from e
+
+
+def validate_config_loose(raw: dict[str, Any]) -> tuple[LumenConfig, list[str]]:
+    """Lenient validation: unknown fields are dropped with a warning
+    instead of failing, everything else still validates strictly.
+
+    Reference analog: the Draft7 jsonschema "flexible" mode next to strict
+    pydantic (``lumen_resources/lumen_config_validator.py:19-270``), used
+    for development configs and forward-compat fields. Returns the
+    validated config plus the list of ignored-field warnings.
+    """
+    import copy
+
+    raw = copy.deepcopy(raw)
+    warnings: list[str] = []
+    # Each pass strips every unknown-field error pydantic reports; nested
+    # models can reveal further extras once parents parse, so iterate (the
+    # bound is paranoid — one level of reveal per pass).
+    for _ in range(20):
+        try:
+            return LumenConfig.model_validate(raw), warnings
+        except Exception as e:
+            errors = getattr(e, "errors", None)
+            extras = [
+                err for err in (errors() if callable(errors) else [])
+                if err.get("type") == "extra_forbidden"
+            ]
+            if not extras:
+                raise ConfigError("config validation failed", detail=str(e)) from e
+            for err in extras:
+                loc = err["loc"]
+                node: Any = raw
+                try:
+                    for key in loc[:-1]:
+                        node = node[key]
+                    node.pop(loc[-1], None)
+                except (KeyError, IndexError, TypeError):
+                    raise ConfigError(
+                        "config validation failed", detail=str(e)
+                    ) from e
+                warnings.append(
+                    "ignored unknown field " + ".".join(str(k) for k in loc)
+                )
+    raise ConfigError("config validation failed", detail="loose-mode did not converge")
+
+
+def config_json_schema() -> dict[str, Any]:
+    """JSON Schema derived from the pydantic models.
+
+    The reference maintains a hand-written ``config-schema.yaml`` validated
+    with jsonschema Draft7 alongside the pydantic models; generating the
+    schema from the single source of truth removes that duplication.
+    """
+    return LumenConfig.model_json_schema()

@@ -1,25 +1,32 @@
 """VLM manager: caption/chat generation on the paged continuous engine
 (the Model Manager layer of ``lumen_tpu/models/vlm/manager.py``).
 
-The caller hands in a configuration, a ``state_dict``, a tokenizer object
-and decoded pixels; the manager renders and tokenizes the prompt, runs
-the prepare step on the device (normalize -> vision tower -> token embed
--> image-token splice), and submits the request to the continuous
-scheduler. Prompt lengths are padded to buckets, as in the JAX package.
-``quantize="int8"`` serves the decoder's projections weight-only int8
-(the pinned ``int8`` route of the JAX manager).
+``VLMManager.from_model_dir`` loads a model directory as the JAX manager
+does (``model_info.json``, ``config.json`` or the manifest's
+``extra_metadata`` fallback, safetensors or torch checkpoints under
+HF/FastVLM or native names, ``tokenizer.json`` and the chat template of
+``tokenizer_config.json``); the constructor takes a configuration, a
+``state_dict`` and a tokenizer object directly. A request carries its
+image as encoded bytes (``image_bytes=``, decoded and letterboxed on the
+host in the caller's thread) or as decoded pixels (``pixels``). The
+manager renders and tokenizes the prompt, runs the prepare step on the
+device (normalize -> vision tower -> token embed -> image-token splice),
+and submits the request to the continuous scheduler. Prompt lengths are
+padded to buckets, as in the JAX package. ``quantize="int8"`` serves the
+decoder's projections weight-only int8 (the pinned ``int8`` route of the
+JAX manager).
 
-Not ported yet: loading a checkpoint directory (safetensors, tokenizer
-files, ``model_info.json``), host image decode (the caller passes
-``[image_size, image_size, 3]`` uint8 pixels), the result cache and
-quarantine gate, the coalescing scheduler, the int8 route's warm-up A/B
-(``LUMEN_VLM_Q8_ROUTE=auto``) and its verdict file, replica fleets and
-the gRPC service above this layer.
+Not ported yet: the result cache and quarantine gate, the coalescing
+scheduler, the int8 route's warm-up A/B (``LUMEN_VLM_Q8_ROUTE=auto``) and
+its verdict file, replica fleets, the ONNX vision-graph backend, and the
+process-parallel decode pool.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -28,11 +35,14 @@ from typing import Any, Iterator, Mapping, Sequence
 import numpy as np
 import torch
 
+from ...core.model_info import ModelInfo, load_model_info
 from ...runtime.policy import get_policy, resolve_device
+from ...runtime.weights import load_state_dict
 from ...utils.env import env_int
+from ...utils.host_decode import vlm_canvas
 from .chat import ChatMessage, VlmTokenizer
 from .continuous import ContinuousScheduler, _Request
-from .convert import quantize_decoder_int8
+from .convert import convert_vlm_checkpoint, quantize_decoder_int8
 from .generate import Generator
 from .modeling import VLMConfig, VLMModel, merge_image_embeddings
 from .paged_kv import DEFAULT_PAGE_SIZE, resolve_pool_pages
@@ -69,7 +79,8 @@ class VLMManager:
     ``state_dict`` with the policy, then quantizes the decoder's
     projections (``convert.quantize_decoder_int8``) and serves them as
     ``QDense``; the vision tower is cast, never quantized. Speculative
-    decoding is the engine's, set by ``LUMEN_VLM_SPEC_K``.
+    decoding is the engine's, set by ``LUMEN_VLM_SPEC_K``. ``name`` is the
+    model id the service reports.
     """
 
     def __init__(
@@ -95,6 +106,10 @@ class VLMManager:
         self.device = resolve_device(device)
         self.policy = get_policy(dtype)
         self.quantize = quantize
+        # The JAX manager's decode route name: int8 when quantized, else bf16.
+        self.quant_route = "int8" if quantize else "bf16"
+        self.model_id = name
+        self.gen_slots = gen_slots
         state = dict(state_dict)
         if quantize:
             cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, weight_quant=quantize))
@@ -115,7 +130,7 @@ class VLMManager:
         self.model = model.to(device=self.device, dtype=self.policy.param_dtype).eval()
         compute = self.policy.compute_dtype
         self.compute_dtype = compute
-        v = cfg.vision.num_tokens
+        v = self.vision_tokens = cfg.vision.num_tokens
         # A prompt bucket is usable only if prompt + vision tokens + the
         # decode budget fit a row.
         self.prefill_buckets = [b for b in sorted(prefill_buckets) if b - 1 + v + max_new_cap + 1 <= max_seq]
@@ -144,13 +159,55 @@ class VLMManager:
         self._std = torch.tensor(cfg.vision.std, dtype=torch.float32, device=self.device)
         self._seed_lock = threading.Lock()
         self._seed = 0
+        self._initialized = True
+
+    @classmethod
+    def from_model_dir(
+        cls,
+        model_dir: str,
+        device: "str | torch.device | None" = None,
+        dtype: str = "bfloat16",
+        max_seq: int = 2048,
+        max_new_cap: int = 512,
+        prefill_buckets: Sequence[int] = DEFAULT_PREFILL_BUCKETS,
+        gen_slots: int = 8,
+        gen_block: int = 8,
+        quantize: str | None = None,
+        **engine_kw,
+    ) -> "VLMManager":
+        """Serve the model directory ``model_dir`` (the JAX manager's
+        loading order, ``manager.py:207-357``): ``model_info.json``, the
+        configuration from ``config.json`` or the manifest's
+        ``extra_metadata``, the checkpoint (``convert_vlm_checkpoint``;
+        tensors keep their stored dtype until the policy cast), then the
+        tokenizer and chat template. ``engine_kw`` passes ``page_size``,
+        ``pool_pages`` and ``prefill_chunk`` through."""
+        info = load_model_info(model_dir)
+        cfg = build_config(model_dir, info)
+        state = convert_vlm_checkpoint(
+            load_state_dict(model_dir), tie_word_embeddings=cfg.decoder.tie_word_embeddings
+        )
+        mgr = cls(
+            cfg, state, VlmTokenizer.from_model_dir(model_dir), device=device, dtype=dtype,
+            max_seq=max_seq, max_new_cap=max_new_cap, prefill_buckets=prefill_buckets,
+            gen_slots=gen_slots, gen_block=gen_block, name=info.name, quantize=quantize, **engine_kw,
+        )
+        mgr.info = info
+        return mgr
 
     def close(self) -> None:
         self.engine.close()
+        self._initialized = False
 
     def kv_layout(self) -> str:
         kv = self.engine.kv
         return f"paged(page={kv.page_size},pages={kv.pages_total},slots={self.engine.n_slots})"
+
+    def topology(self) -> dict[str, str]:
+        """Device topology for the capability ``extra``: one replica on
+        one device (replica fleets are not ported yet)."""
+        count = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        return {"device": str(self.device), "device_count": str(count), "replicas": "1"}
 
     # -- prompt prep -------------------------------------------------------
 
@@ -219,8 +276,12 @@ class VLMManager:
 
     def _make_gen_request(
         self, messages, pixels, max_new_tokens, temperature, top_p, do_sample,
-        repetition_penalty, add_generation_prompt,
+        repetition_penalty, add_generation_prompt, image_bytes=None,
     ) -> tuple[_Request, int]:
+        if image_bytes and pixels is not None:
+            raise ValueError("pass an image as pixels or as image_bytes, not both")
+        if image_bytes:  # ValueError when the bytes do not decode
+            pixels = vlm_canvas(image_bytes, self.cfg.vision.image_size)
         embeds, positions, lengths, prompt_ids, n_input, n_live = self._prepare_inputs(
             messages, pixels, add_generation_prompt
         )
@@ -245,14 +306,16 @@ class VLMManager:
         repetition_penalty: float = 1.0,
         stop_sequences: Sequence[str] | None = None,
         add_generation_prompt: bool = True,
+        image_bytes: bytes | None = None,
     ) -> GenerationResult:
         """Generate a caption/chat completion for ``messages`` and, when
-        given, one image as decoded ``[image_size, image_size, 3]`` uint8
-        pixels."""
+        given, one image: decoded ``[image_size, image_size, 3]`` uint8
+        ``pixels``, or encoded ``image_bytes`` (JPEG, PNG, ...; the JAX
+        manager's argument)."""
         t0 = time.perf_counter()
         req, n_input = self._make_gen_request(
             messages, pixels, max_new_tokens, temperature, top_p, do_sample,
-            repetition_penalty, add_generation_prompt,
+            repetition_penalty, add_generation_prompt, image_bytes,
         )
         row_tokens, n_gen, stopped_eos = self.engine.submit(req).result()
         tokens = [int(t) for t in row_tokens[:n_gen]]
@@ -287,6 +350,7 @@ class VLMManager:
         repetition_penalty: float = 1.0,
         stop_sequences: Sequence[str] | None = None,
         add_generation_prompt: bool = True,
+        image_bytes: bytes | None = None,
     ) -> Iterator[GenerationChunk]:
         """Incremental generation: yields text deltas as tokens arrive,
         then a final chunk whose metadata carries ``ttft_ms`` and
@@ -297,7 +361,7 @@ class VLMManager:
         holdback = max((len(s) for s in stop_sequences), default=1) - 1 if stop_sequences else 0
         req, n_input = self._make_gen_request(
             messages, pixels, max_new_tokens, temperature, top_p, do_sample,
-            repetition_penalty, add_generation_prompt,
+            repetition_penalty, add_generation_prompt, image_bytes,
         )
         tokens: list[int] = []
         emitted = ""
@@ -367,3 +431,44 @@ def _truncate_on_stop(text: str, stop_sequences: Sequence[str] | None) -> tuple[
     if not hits:
         return text, False
     return text[: min(hits)], True
+
+
+def build_config(model_dir: str, info: ModelInfo) -> VLMConfig:
+    """``config.json`` of the model directory, else the ``model_info.json``
+    ``extra_metadata`` fallback (JAX ``VLMManager._build_config``)."""
+    cfg_path = os.path.join(model_dir, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path, "r", encoding="utf-8") as f:
+            return VLMConfig.from_hf(json.load(f))
+    meta = info.extra_metadata or {}
+    if "generation_config" not in meta:
+        raise FileNotFoundError(f"no config.json or generation_config metadata in {model_dir}")
+    gen = dict(meta["generation_config"])
+    kv = dict(meta.get("kv_cache_config", {}))
+    vis = dict(meta.get("vision_config", {}))
+    text_cfg = {
+        "vocab_size": gen.get("vocab_size"),
+        "bos_token_id": gen.get("bos_token_id"),
+        "eos_token_id": gen.get("eos_token_id"),
+        "pad_token_id": gen.get("pad_token_id"),
+        "max_position_embeddings": gen.get("max_position_embeddings"),
+        "hidden_size": kv.get("hidden_size"),
+        "num_hidden_layers": kv.get("num_hidden_layers"),
+        "num_attention_heads": kv.get("num_attention_heads"),
+        "num_key_value_heads": kv.get("num_key_value_heads"),
+        "head_dim": kv.get("head_dim"),
+    }
+    vision_cfg = {
+        "image_size": vis.get("image_size"),
+        "patch_size": vis.get("patch_size"),
+        "image_mean": vis.get("mean"),
+        "image_std": vis.get("std"),
+    }
+    raw = {
+        # Absent manifest keys fall through to from_hf's defaults.
+        "text_config": {k: v for k, v in text_cfg.items() if v is not None},
+        "vision_config": {k: v for k, v in vision_cfg.items() if v is not None},
+    }
+    if gen.get("image_token_index") is not None:
+        raw["image_token_index"] = gen["image_token_index"]
+    return VLMConfig.from_hf(raw)

@@ -1,0 +1,962 @@
+"""Shared gRPC servicer base for every model service.
+
+Implements, once, the per-service plumbing the reference repeats in each
+package's ``*_service.py`` (e.g.
+``packages/lumen-clip/src/lumen_clip/general_clip/clip_service.py:208-414``):
+
+- ``Infer`` loop with chunked-payload reassembly keyed by ``correlation_id``
+  (``seq``/``total``/``offset`` contract),
+- handler dispatch through a :class:`~lumen_tpu.serving.registry.TaskRegistry`,
+- unified error mapping to wire ``Error`` records,
+- ``GetCapabilities`` / ``StreamCapabilities`` / ``Health``.
+
+Additionally supports **true server-side streaming**: a task handler may
+return an iterator of ``(bytes, mime, meta)`` chunks, which are forwarded as
+incremental ``InferResponse`` messages (the reference collects VLM "stream"
+chunks into one response, ``fastvlm_service.py:492-506``).
+
+**Bulk streaming lane** (high-occupancy serving): a stream whose requests
+carry ``meta["bulk"] == "1"`` is treated as MANY tagged items on one
+stream. Items are fanned into the task handlers CONCURRENTLY (a shared
+bounded executor, ``LUMEN_BULK_WORKERS``) — so N images on one stream
+coalesce into full micro-batches instead of arriving one at a time — and
+tagged responses stream back as each item settles, out of order. Per-item
+semantics are exactly the unary ones (each item runs the full
+``_dispatch``: breaker gate, payload limit, deadline, cache/coalesce,
+quarantine, error mapping), and a client disconnect mid-stream cancels the
+not-yet-started remainder of the fan-out. This amortizes stream setup,
+admission and context bookkeeping that BENCH_r05 showed costing more than
+the device call itself (77 rps through gRPC vs 9k images/s on-device).
+
+**Multi-tenant QoS** (:mod:`lumen_tpu.utils.qos`): every dispatch resolves
+a ``(tenant, lane)`` identity — tenant from the ``lumen-tenant`` gRPC
+request-metadata key (or a ``tenant`` request-meta field), lane from an
+explicit ``priority`` meta or the bulk lane's auto-tag — gates it through
+the per-tenant token buckets (``LUMEN_QOS_TENANT_RPS``; sheds answer
+RESOURCE_EXHAUSTED-style with a ``lumen-retry-after-ms`` hint in O(1),
+before payload/cache/decode work), and carries the identity on a
+contextvar into the batcher's weighted-fair admission queue.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Iterator
+
+import grpc
+from google.protobuf import empty_pb2
+
+from ..utils import deadline as request_deadline, request_notes
+from ..utils import disagg
+from ..utils import qos as request_qos
+from ..utils import tensorwire
+from ..utils import trace as request_trace
+from ..utils.deadline import DeadlineExpired, PoisonInput, QueueFull, WatchdogTimeout
+from ..utils.env import env_int
+from ..utils.metrics import metrics
+from .proto import ml_service_pb2 as pb
+from .proto.ml_service_pb2_grpc import InferenceServicer
+from .registry import TaskRegistry
+
+logger = logging.getLogger(__name__)
+
+
+#: request-meta key that switches a stream onto the bulk fan-out lane
+BULK_META = "bulk"
+
+
+def bulk_workers() -> int:
+    """``LUMEN_BULK_WORKERS``: concurrent per-item dispatches a bulk
+    stream may hold in flight, process-wide (default
+    ``max(8, min(cpu*2, 16))`` — workers mostly BLOCK on batcher futures
+    (decode runs on the decode pool, the device call on the batcher), so
+    they are waiters, not CPU burners: the floor keeps enough of them to
+    fill a device batch even on small hosts)."""
+    n = env_int("LUMEN_BULK_WORKERS", 0, minimum=0)
+    if n > 0:
+        return n
+    return max(8, min((os.cpu_count() or 4) * 2, 16))
+
+
+_bulk_pool: ThreadPoolExecutor | None = None
+_bulk_pool_lock = threading.Lock()
+
+
+def _get_bulk_pool() -> ThreadPoolExecutor:
+    """Process-wide executor for bulk-stream item dispatch (lazily sized
+    from the env; shared across services so total fan-out concurrency is
+    bounded no matter how many bulk streams are open)."""
+    global _bulk_pool
+    if _bulk_pool is None:
+        with _bulk_pool_lock:
+            if _bulk_pool is None:
+                _bulk_pool = ThreadPoolExecutor(
+                    bulk_workers(), thread_name_prefix="bulk-infer"
+                )
+    return _bulk_pool
+
+
+#: LUMEN_RPC_TRIM (default on): request-path micro-trims — response-proto
+#: reuse on the real-gRPC direct lane (the server serializes each yielded
+#: message before pulling the next, so one scratch proto per thread
+#: replaces an allocation + map copy per response). Read once at import;
+#: the bench A/Bs the serialize span by toggling the module flag.
+RPC_TRIM = env_int("LUMEN_RPC_TRIM", 1) != 0
+
+_proto_scratch = threading.local()
+
+
+def _response_chunk_bytes() -> int:
+    """LUMEN_RESPONSE_CHUNK_BYTES, clamped to [1 MB, 60 MB]; malformed
+    values fall back to the 48 MB default (degrade, not crash — with the
+    shared parser's one-shot warning)."""
+    return env_int(
+        "LUMEN_RESPONSE_CHUNK_BYTES",
+        48 * 1024 * 1024,
+        minimum=1 << 20,
+        maximum=60 * 1024 * 1024,
+    )
+
+
+def reassemble_result(responses) -> tuple[bytes, str, dict[str, str]]:
+    """Client-side inverse of the server's chunked unary response: join
+    ``seq``/``total``/``offset`` chunks back into (result, mime, meta).
+    Works on single-message responses too. Raises :class:`ServiceError`
+    on a wire error or an incomplete stream (missing chunks / cut short
+    before ``is_final``) — truncated bytes must never pass as a result."""
+    parts: dict[int, bytes] = {}
+    mime, meta = "", {}
+    total = 0
+    for r in responses:
+        # code 0 is ERROR_CODE_UNSPECIFIED but the field being SET at all
+        # means failure (matching the server's _error emission).
+        if r.HasField("error") and (r.error.code or r.error.message):
+            raise ServiceError(r.error.code, r.error.message, r.error.detail)
+        parts[r.seq] = r.result
+        total = max(total, r.total)
+        mime = r.result_mime or mime
+        if r.meta:  # convert only populated maps (once per response at most)
+            meta = dict(r.meta)
+    if total and len(parts) < total:
+        raise ServiceError(
+            0,
+            f"incomplete chunked response: {len(parts)} of {total} chunks",
+        )
+    return b"".join(parts[i] for i in sorted(parts)), mime, meta
+
+
+class ServiceError(Exception):
+    """Error with a wire error-code; raised by task handlers."""
+
+    def __init__(self, code: int, message: str, detail: str = ""):
+        super().__init__(message)
+        self.code = code
+        self.detail = detail
+
+
+class InvalidArgument(ServiceError):
+    def __init__(self, message: str, detail: str = ""):
+        super().__init__(pb.ERROR_CODE_INVALID_ARGUMENT, message, detail)
+
+
+class Unavailable(ServiceError):
+    def __init__(self, message: str, detail: str = ""):
+        super().__init__(pb.ERROR_CODE_UNAVAILABLE, message, detail)
+
+
+class ResourceExhausted(ServiceError):
+    """Load shed by admission control. The wire enum has no dedicated
+    RESOURCE_EXHAUSTED value, so this rides UNAVAILABLE with an explicit
+    retry hint — retryable-with-backoff is exactly the client contract."""
+
+    def __init__(self, message: str, detail: str = ""):
+        super().__init__(
+            pb.ERROR_CODE_UNAVAILABLE,
+            message,
+            detail or "server overloaded; retry with exponential backoff",
+        )
+
+
+class DeadlineExceeded(ServiceError):
+    def __init__(self, message: str, detail: str = ""):
+        super().__init__(pb.ERROR_CODE_DEADLINE_EXCEEDED, message, detail)
+
+
+def first_meta_key(meta: dict[str, str], *keys: str) -> str | None:
+    """First present key among ``keys`` — shared alias resolution so every
+    service treats reference-client meta names (e.g. the face service's
+    ``detection_confidence_threshold`` for our ``conf_threshold``) with the
+    same precedence rule: our name first, then the reference aliases."""
+    for key in keys:
+        if key in meta:
+            return key
+    return None
+
+
+@dataclass
+class _Assembly:
+    task: str = ""
+    payload_mime: str = ""
+    meta: dict[str, str] = field(default_factory=dict)
+    chunks: dict[int, bytes] = field(default_factory=dict)
+    total: int = 0
+    #: first-chunk arrival instant — the request trace back-dates to here
+    #: so the ``rpc.recv`` span covers chunked-payload reassembly.
+    t0: float = field(default_factory=time.perf_counter)
+
+    def add(self, req: pb.InferRequest) -> None:
+        if not self.task:
+            self.task = req.task
+            self.payload_mime = req.payload_mime
+        if req.meta:
+            self.meta.update(dict(req.meta))
+        self.chunks[req.seq] = req.payload
+        if req.total:
+            self.total = req.total
+
+    @property
+    def complete(self) -> bool:
+        # total==0 (single-chunk fast path) or all declared chunks present.
+        if self.total == 0:
+            return True
+        return len(self.chunks) >= self.total
+
+    def payload(self) -> bytes:
+        if len(self.chunks) == 1:
+            # The overwhelmingly common single-chunk request: hand the
+            # buffer straight through — no sort, no join, no copy.
+            return next(iter(self.chunks.values()))
+        return b"".join(self.chunks[i] for i in sorted(self.chunks))
+
+
+class BaseService(InferenceServicer):
+    """Subclasses populate ``self.registry`` and implement ``capability()``."""
+
+    #: Per-service circuit breaker (attached by the server after
+    #: construction; None = no breaker, the default for tests and
+    #: hand-built services). When set, ``_dispatch`` gates every request
+    #: through it and records request outcomes.
+    breaker = None
+
+    def __init__(self, registry: TaskRegistry):
+        self.registry = registry
+
+    # -- to override ------------------------------------------------------
+
+    def capability(self) -> pb.Capability:
+        raise NotImplementedError
+
+    def healthy(self) -> bool:
+        return True
+
+    def replica_states(self) -> dict:
+        """Per-replica health states keyed by dispatcher name, e.g.
+        ``{"clip-image": {"r0": "serving", "r1": "down"}}``. Populated by
+        services whose managers run a replica fleet
+        (:mod:`lumen_tpu.runtime.fleet`); ``{}`` means single-replica.
+        Surfaces in ``Health`` trailing metadata (``lumen-replica-status``)
+        next to the breaker/quarantine keys."""
+        return {}
+
+    def _record_outcome(self, e: BaseException | None) -> None:
+        """One source of truth for breaker accounting (shared by the unary
+        and streaming dispatch paths). ``None`` = success. Backend-health
+        verdicts: :class:`WatchdogTimeout` and INTERNAL-class crashes
+        count toward tripping; :class:`PoisonInput` is the payload's fault
+        (telemetry only); overload/deadline/client errors are *neutral* —
+        no verdict either way, but they release a half-open probe slot so
+        a probe that was itself shed cannot pin the breaker."""
+        if self.breaker is None:
+            return
+        if e is None:
+            self.breaker.record_success()
+        elif isinstance(e, WatchdogTimeout):
+            self.breaker.record_failure()
+        elif isinstance(e, PoisonInput):
+            self.breaker.record_poison()
+        elif isinstance(e, (QueueFull, DeadlineExpired, ServiceError)):
+            self.breaker.record_neutral()
+        else:
+            self.breaker.record_failure()
+
+    def status(self) -> str:
+        """One-word state for the hub's per-service health report:
+        ``healthy``, ``unhealthy`` (unexpected — fails hub health),
+        ``degraded``/``recovering`` (known-broken with background recovery
+        — reported, but healthy siblings keep the hub serving), or
+        ``breaker_open``/``breaker_half_open`` (fast-failing after repeated
+        backend failures — reported like degraded: siblings keep the hub
+        up, but a hub that is ALL broken still fails health)."""
+        if self.breaker is not None:
+            state = self.breaker.state()
+            if state != "closed":
+                return f"breaker_{state}"
+        return "healthy" if self.healthy() else "unhealthy"
+
+    # -- Inference rpc implementation ------------------------------------
+
+    def Infer(self, request_iterator, context) -> Iterator[pb.InferResponse]:
+        buffers: dict[str, _Assembly] = {}
+        it = iter(request_iterator)
+        # Response-proto reuse is safe ONLY when each yielded message is
+        # serialized before the next is produced — true for the real gRPC
+        # server (it serializes per yield), NOT for in-process callers
+        # that collect responses into a list (tests, the bulk fan-out).
+        reuse = RPC_TRIM and isinstance(context, grpc.ServicerContext)
+        for req in it:
+            cid = req.correlation_id
+            asm = buffers.setdefault(cid, _Assembly())
+            asm.add(req)
+            if not asm.complete:
+                continue
+            del buffers[cid]
+            if asm.meta.get(BULK_META) == "1":
+                # Bulk lane: this and every further item on the stream fan
+                # out concurrently; responses come back tagged, unordered.
+                yield from self._bulk_infer(cid, asm, it, buffers, context)
+                return
+            yield from self._dispatch(cid, asm, context, reuse=reuse)
+
+    def _bulk_infer(
+        self,
+        first_cid: str,
+        first_asm: _Assembly,
+        request_iter,
+        buffers: dict[str, _Assembly],
+        context,
+    ) -> Iterator[pb.InferResponse]:
+        """Concurrent fan-out for a bulk stream.
+
+        A reader thread keeps draining the request iterator (so item k+1
+        is being reassembled while item k runs), every completed assembly
+        is dispatched on the shared bulk executor, and this generator
+        streams each item's responses back the moment its dispatch
+        settles. ``stop`` is the cancellation latch: it is set when the
+        client disconnects (the reader's iterator raises, or gRPC closes
+        this generator mid-yield) and makes queued-but-unstarted items
+        no-ops while already-running ones finish and are discarded."""
+        out: queue.Queue = queue.Queue()
+        stop = threading.Event()
+        lock = threading.Lock()
+        state = {"submitted": 0, "settled": 0, "eof": False}
+        # PENDING futures only: settled ones are discarded on drain so a
+        # long stream's retained memory is the backpressure window, not
+        # every buffered response list since the stream began.
+        pending: set = set()
+        pool = _get_bulk_pool()
+        # Request-path trim: the stream's gRPC request metadata (where the
+        # tenant id lives) is identical for every item — resolve it ONCE
+        # instead of scanning the metadata tuple per item (BENCH_r05
+        # attribution charges that per-item bookkeeping to rpc overhead).
+        stream_tenant = self._invocation_meta(context, request_qos.TENANT_META_KEY)
+        # Backpressure: bound items submitted-but-unsettled so a 100k-item
+        # stream cannot buffer every payload in the executor queue at once
+        # (the unary path was naturally one-at-a-time; this restores gRPC
+        # flow control — the reader pauses, the transport window fills,
+        # the client stops sending). A few windows per worker keeps the
+        # pool fed without holding the whole stream in RAM.
+        window = threading.Semaphore(bulk_workers() * 4)
+
+        def run_one(cid: str, asm: _Assembly):
+            if stop.is_set():
+                return None
+            return list(self._dispatch(cid, asm, context, tenant=stream_tenant))
+
+        def submit(cid: str, asm: _Assembly) -> bool:
+            while not window.acquire(timeout=0.1):
+                if stop.is_set():
+                    return False  # abandoned stream: stop buffering
+            with lock:
+                state["submitted"] += 1
+            fut = pool.submit(run_one, cid, asm)
+            with lock:
+                pending.add(fut)
+            fut.add_done_callback(lambda f, c=cid: out.put((c, f)))
+            return True
+
+        submit(first_cid, first_asm)
+
+        def reader() -> None:
+            try:
+                for req in request_iter:
+                    if stop.is_set():
+                        break
+                    cid = req.correlation_id
+                    asm = buffers.setdefault(cid, _Assembly())
+                    asm.add(req)
+                    if not asm.complete:
+                        continue
+                    del buffers[cid]
+                    if not submit(cid, asm):
+                        break
+            except Exception:  # noqa: BLE001 - client hung up mid-stream
+                stop.set()
+            finally:
+                with lock:
+                    state["eof"] = True
+                out.put(None)  # wake the drain loop for the exit check
+
+        threading.Thread(target=reader, name="bulk-reader", daemon=True).start()
+        try:
+            while True:
+                with lock:
+                    if state["eof"] and state["settled"] >= state["submitted"]:
+                        break
+                got = out.get()
+                if got is None:
+                    continue
+                cid, fut = got
+                with lock:
+                    state["settled"] += 1
+                    pending.discard(fut)
+                window.release()  # free a backpressure slot for the reader
+                if fut.cancelled() or stop.is_set():
+                    continue
+                err = fut.exception()
+                if err is not None:
+                    # _dispatch maps its own errors; anything escaping it
+                    # is infrastructure failure — isolate to this item.
+                    logger.exception("bulk item %s failed", cid, exc_info=err)
+                    metrics.count("bulk_item_crashes")
+                    yield self._error(
+                        cid, pb.ERROR_CODE_INTERNAL, f"{type(err).__name__}: {err}"
+                    )
+                    continue
+                responses = fut.result()
+                if responses:
+                    yield from responses
+        finally:
+            # Client gone (GeneratorExit) or stream complete: nothing may
+            # keep burning device time on answers nobody reads. cancel()
+            # kills queued-unstarted items; running ones see `stop`.
+            stop.set()
+            with lock:
+                remaining = list(pending)
+            for fut in remaining:
+                fut.cancel()
+
+    @staticmethod
+    def _context_deadline(context) -> float | None:
+        """Absolute monotonic deadline from a gRPC context, or None when the
+        client set no deadline (or the context is a test stub without
+        ``time_remaining``)."""
+        tr = getattr(context, "time_remaining", None)
+        if not callable(tr):
+            return None
+        try:
+            rem = tr()
+        except Exception:  # noqa: BLE001 - a stub context must not break dispatch
+            return None
+        return None if rem is None else time.monotonic() + rem
+
+    @staticmethod
+    def _invocation_meta(context, wanted: str) -> str | None:
+        """One gRPC request-metadata value by key (None on stub contexts
+        or absent keys) — shared by the trace-id and tenant-id reads."""
+        md = getattr(context, "invocation_metadata", None)
+        if not callable(md):
+            return None
+        try:
+            for item in md() or ():
+                key = getattr(item, "key", None)
+                value = getattr(item, "value", None)
+                if key is None and isinstance(item, (tuple, list)) and len(item) == 2:
+                    key, value = item
+                if key == wanted and value:
+                    return str(value)
+        except Exception:  # noqa: BLE001 - metadata must never break dispatch
+            return None
+        return None
+
+    @classmethod
+    def _trace_id_from(cls, context) -> str | None:
+        """Client-propagated trace id from the ``lumen-trace`` gRPC
+        request metadata key (None on stub contexts or untraced callers)
+        — lets a client stitch its side of the request into ``/traces``."""
+        return cls._invocation_meta(context, request_trace.TRACE_META_KEY)
+
+    @classmethod
+    def _qos_identity(
+        cls, asm: _Assembly, context, tenant: str | None = None
+    ) -> tuple[str, str]:
+        """Resolve the request's ``(tenant, lane)``. Tenant: the
+        ``lumen-tenant`` gRPC request-metadata key, else a ``tenant``
+        request-meta field (in-process/stub callers), else ``default``.
+        Lane: an explicit ``priority`` meta (``interactive``/``bulk``)
+        wins; otherwise the bulk streaming lane auto-tags ``bulk`` and
+        everything else is interactive. ``tenant`` short-circuits the
+        metadata scan when the caller already resolved it (the bulk lane
+        resolves once per STREAM — the metadata is stream-constant)."""
+        tenant = (
+            tenant
+            or cls._invocation_meta(context, request_qos.TENANT_META_KEY)
+            or asm.meta.get("tenant")
+            or request_qos.DEFAULT_TENANT
+        )
+        explicit = asm.meta.get("priority")
+        if explicit in request_qos.LANES:
+            lane = explicit
+        elif asm.meta.get(BULK_META) == "1":
+            lane = request_qos.LANE_BULK
+        else:
+            lane = request_qos.LANE_INTERACTIVE
+        return tenant, lane
+
+    def _dispatch(
+        self, cid: str, asm: _Assembly, context=None,
+        tenant: str | None = None, reuse: bool = False,
+    ) -> Iterator[pb.InferResponse]:
+        """Trace-lifecycle wrapper around :meth:`_dispatch_inner`. With
+        tracing off (``LUMEN_TRACE_SAMPLE=0``, the default) the cost is
+        one cached env check; with it on, the request gets a contextvar-
+        propagated :class:`~lumen_tpu.utils.trace.Trace` back-dated to
+        the first chunk's arrival (the ``rpc.recv`` span), every error
+        response marks the trace errored (tail sampling always retains
+        those), and the finished trace lands in the process recorder."""
+        tr = None
+        if request_trace.enabled():
+            tr = request_trace.begin_request(
+                asm.task, trace_id=self._trace_id_from(context), t0=asm.t0
+            )
+        if tr is None:
+            yield from self._dispatch_inner(cid, asm, context, tenant, reuse)
+            return
+        tr.add_span("rpc.recv", asm.t0, time.perf_counter())
+        token = request_trace.activate(tr)
+        try:
+            for resp in self._dispatch_inner(cid, asm, context, tenant, reuse):
+                if resp.HasField("error"):
+                    tr.set_error(resp.error.message or "error")
+                yield resp
+        except BaseException as e:
+            # Includes GeneratorExit: a client that hung up mid-stream
+            # leaves an errored (always-retained) trace behind.
+            tr.set_error(f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            request_trace.deactivate(token)
+            request_trace.finish_request(tr)
+
+    def _dispatch_inner(
+        self, cid: str, asm: _Assembly, context=None,
+        tenant: str | None = None, reuse: bool = False,
+    ) -> Iterator[pb.InferResponse]:
+        task = self.registry.get(asm.task)
+        if task is None:
+            yield self._error(
+                cid,
+                pb.ERROR_CODE_INVALID_ARGUMENT,
+                f"unknown task {asm.task!r}",
+                f"supported: {self.registry.task_names()}",
+            )
+            return
+        # Circuit-breaker gate: an open breaker sheds HERE — before the
+        # payload is even assembled into the model path, before deadline
+        # and admission accounting, in O(1) — with the same retryable
+        # UNAVAILABLE shape a DegradedService answers, plus a retry-after
+        # hint and a ``breaker_open`` meta note so clients can tell
+        # shed-by-breaker (backend broken, back off hard) from
+        # shed-by-queue (overload, back off briefly).
+        if self.breaker is not None:
+            tr = request_trace.current_trace()
+            bspan = tr.begin("breaker") if tr is not None else None
+            admitted, retry_after = self.breaker.allow()
+            if bspan is not None:
+                bspan.end(admitted="1" if admitted else "0")
+            if not admitted:
+                metrics.count("breaker_sheds")
+                metrics.count_error(asm.task)
+                yield self._error(
+                    cid,
+                    pb.ERROR_CODE_UNAVAILABLE,
+                    f"circuit breaker open for service "
+                    f"{self.registry.service_name!r}; request shed",
+                    f"backend failing repeatedly; retry after ~{retry_after:.1f}s",
+                    meta={
+                        "breaker_open": "1",
+                        request_qos.RETRY_AFTER_META: request_qos.retry_after_ms(
+                            retry_after
+                        ),
+                    },
+                )
+                return
+        # Per-tenant quota gate: a tenant over its token-bucket rate
+        # (LUMEN_QOS_TENANT_RPS / LUMEN_QOS_RPS_<TENANT>) is shed HERE —
+        # before payload assembly, cache lookups, the decode pool and the
+        # admission queue, in O(1) (~10µs, same order as a breaker shed) —
+        # with the RESOURCE_EXHAUSTED shape plus a ``lumen-retry-after-ms``
+        # hint saying exactly when the next token lands.
+        tenant, lane = self._qos_identity(asm, context, tenant)
+        admitted, retry_after = request_qos.get_quota().gate(tenant)
+        if not admitted:
+            err = ResourceExhausted(
+                f"tenant {tenant!r} over its request-rate quota; "
+                f"{asm.task!r} shed",
+                f"per-tenant quota exceeded; retry after ~{retry_after:.2f}s",
+            )
+            # A quota shed says nothing about backend health, but it may
+            # hold the half-open probe slot — release it (neutral).
+            self._record_outcome(err)
+            metrics.count_error(asm.task)
+            yield self._error(
+                cid,
+                err.code,
+                str(err),
+                err.detail,
+                meta={
+                    "qos_shed": "1",
+                    request_qos.RETRY_AFTER_META: request_qos.retry_after_ms(
+                        retry_after
+                    ),
+                },
+            )
+            return
+        payload = asm.payload()
+        if len(payload) > task.max_payload_bytes:
+            # Past the breaker gate but before the handler: this request
+            # may hold the half-open probe slot, and a client error is no
+            # verdict on backend health — release the slot (neutral), or
+            # the breaker keeps shedding for a full reset window.
+            self._record_outcome(InvalidArgument("payload exceeds limit"))
+            yield self._error(
+                cid,
+                pb.ERROR_CODE_INVALID_ARGUMENT,
+                f"payload exceeds limit ({len(payload)} > {task.max_payload_bytes} bytes)",
+            )
+            return
+        # tensor/raw gate: a pre-decoded tensor payload is validated
+        # against the task's ADVERTISED input spec (capability extra
+        # ``tensor_input:<task>``) right here — before the handler, the
+        # cache, the decode pool and the batcher. A mismatch is a client
+        # error with a precise message: it is never cached, never
+        # quarantined, and releases a held half-open probe slot exactly
+        # like the payload-limit gate above.
+        if asm.payload_mime == tensorwire.TENSOR_MIME:
+            if task.tensor_spec is None:
+                self._record_outcome(InvalidArgument("tensor input unsupported"))
+                metrics.count_error(asm.task)
+                yield self._error(
+                    cid,
+                    pb.ERROR_CODE_INVALID_ARGUMENT,
+                    f"task {asm.task!r} does not accept tensor/raw payloads",
+                    "tasks with a tensor_input:* capability key do",
+                )
+                return
+            try:
+                tensorwire.validate_tensor_meta(
+                    asm.meta, len(payload), task.tensor_spec
+                )
+            except ValueError as e:
+                self._record_outcome(InvalidArgument(str(e)))
+                metrics.count_error(asm.task)
+                yield self._error(cid, pb.ERROR_CODE_INVALID_ARGUMENT, str(e))
+                return
+        # Deadline propagation (L2 -> L4): expired requests are answered
+        # without touching the model, and the remaining budget rides a
+        # contextvar so the micro-batcher can drop entries that expire
+        # while queued — before the device call burns a batch slot.
+        deadline = self._context_deadline(context)
+        if deadline is not None and time.monotonic() >= deadline:
+            # Same probe-release rule as the payload gate above: an
+            # expired deadline says nothing about backend health.
+            self._record_outcome(DeadlineExpired("expired before dispatch"))
+            metrics.count("deadline_drops")
+            metrics.count_error(asm.task)
+            yield self._error(
+                cid,
+                pb.ERROR_CODE_DEADLINE_EXCEEDED,
+                f"deadline expired before dispatch of {asm.task!r}",
+            )
+            return
+        t0 = time.perf_counter()
+        # The token scope covers streaming output too: a lazy handler's
+        # body runs inside _stream_out's iteration, and its batcher
+        # submits must still see the request deadline.
+        token = request_deadline.set_deadline(deadline)
+        # QoS identity scope: the batcher's weighted-fair admission queue
+        # (and the result cache's per-tenant accounting) read the tenant
+        # and priority lane from this contextvar — no signature in
+        # between grows a parameter, same pattern as the deadline.
+        qos_token = request_qos.activate(tenant, lane)
+        # Cache-note scope: the result cache (layers below, in the manager)
+        # marks hit/coalesce here; unary responses surface the marks as
+        # trailing ``cache_hit`` / ``cache_coalesced`` meta. A hit is
+        # decided on the raw payload bytes before the decode pool and the
+        # batcher, so it is answered without touching deadline or
+        # admission accounting (no shed, no deadline_drop, no batch slot).
+        notes_token = request_notes.begin_notes()
+        # Decode-owner scope (disaggregated prefill/decode): the front
+        # tier's ``lumen-decode-owner`` metadata rides down to the VLM
+        # manager's request construction — same contextvar pattern as the
+        # deadline. Gated on disagg.enabled() (server boot with a
+        # federation attached) so unconfigured hosts never even scan
+        # request metadata for the key.
+        owner_token = (
+            disagg.activate(self._invocation_meta(context, disagg.DECODE_OWNER_META))
+            if disagg.enabled()
+            else None
+        )
+        try:
+            try:
+                out = task.handler(payload, asm.payload_mime, asm.meta)
+            except ServiceError as e:
+                self._record_outcome(e)
+                metrics.count_error(asm.task)
+                yield self._error(cid, e.code, str(e), e.detail)
+                return
+            except (QueueFull, DeadlineExpired, PoisonInput, WatchdogTimeout) as e:
+                self._record_outcome(e)
+                metrics.count_error(asm.task)
+                yield self._overload_error(cid, asm.task, e)
+                return
+            except Exception as e:  # noqa: BLE001 - handler crash -> INTERNAL
+                self._record_outcome(e)
+                logger.exception("task %s failed", asm.task)
+                metrics.count_error(asm.task)
+                yield self._error(cid, pb.ERROR_CODE_INTERNAL, f"{type(e).__name__}: {e}")
+                return
+            if isinstance(out, tuple):
+                self._record_outcome(None)
+                result, mime, meta = out
+                meta = dict(meta)
+                lat_ms = (time.perf_counter() - t0) * 1e3
+                metrics.observe(asm.task, lat_ms)
+                meta["lat_ms"] = f"{lat_ms:.2f}"
+                marks = request_notes.current()
+                if marks.get("hit"):
+                    meta["cache_hit"] = "1"
+                if marks.get("coalesced"):
+                    meta["cache_coalesced"] = "1"
+                if marks.get("peer_hit"):
+                    # Served from a PEER host's cache via the federation
+                    # lookup: no device work anywhere in the fleet.
+                    meta["cache_peer_hit"] = "1"
+                tr = request_trace.current_trace()
+                ser = None
+                if tr is not None:
+                    # Echo the id so the client can join its span with
+                    # ours; the span covers protobuf construction AND the
+                    # consumer-side sends (the generator resumes per chunk).
+                    meta[request_trace.TRACE_RESPONSE_META] = tr.trace_id
+                    ser = tr.begin("serialize", {"bytes": len(result)})
+                yield from self._chunked_response(cid, result, mime, meta, reuse)
+                if ser is not None:
+                    ser.end()
+            else:
+                # Streaming handler: iterator of (bytes, mime, meta) chunks.
+                yield from self._stream_out(cid, asm.task, out, t0)
+        finally:
+            if owner_token is not None:
+                disagg.deactivate(owner_token)
+            request_notes.end_notes(notes_token)
+            request_qos.deactivate(qos_token)
+            request_deadline.reset(token)
+
+    #: Split unary results larger than this into seq/total/offset chunks
+    #: (the proto carries the fields on InferResponse for exactly this,
+    #: reference ``ml_service.proto:60-73``). Clamped under the 64 MB
+    #: gRPC message cap (``server.GRPC_OPTIONS``) with protobuf headroom;
+    #: a malformed override degrades to the default instead of crashing
+    #: the import (same policy as LUMEN_FLASH_BLOCK_Q/K).
+    RESPONSE_CHUNK_BYTES = _response_chunk_bytes()
+
+    def _chunked_response(
+        self, cid: str, result: bytes, mime: str, meta: dict[str, str],
+        reuse: bool = False,
+    ) -> Iterator[pb.InferResponse]:
+        """One message when the result fits; otherwise seq/total/offset
+        chunks with ``is_final`` on the last. meta rides every chunk so a
+        client reading only the final message still sees it, and early
+        readers (progress UIs) see it too.
+
+        ``reuse=True`` (the ``LUMEN_RPC_TRIM`` request-path trim, set only
+        on the real-gRPC direct lane where each yield is serialized before
+        the next message is built) recycles one thread-local scratch proto
+        instead of allocating per response; on the multi-chunk path the
+        meta map is populated ONCE and only result/seq/offset mutate per
+        chunk."""
+        size = self.RESPONSE_CHUNK_BYTES
+        if reuse:
+            resp = getattr(_proto_scratch, "resp", None)
+            if resp is None:
+                resp = _proto_scratch.resp = pb.InferResponse()
+            resp.Clear()
+            resp.correlation_id = cid
+            resp.result_mime = mime
+            for k, v in meta.items():
+                resp.meta[k] = v
+            if len(result) <= size:
+                resp.is_final = True
+                resp.result = result
+                resp.total = 1
+                yield resp
+                return
+            n = (len(result) + size - 1) // size
+            resp.total = n
+            for i in range(n):
+                off = i * size
+                resp.is_final = i == n - 1
+                resp.result = result[off : off + size]
+                resp.seq = i
+                resp.offset = off
+                yield resp
+            return
+        if len(result) <= size:
+            yield pb.InferResponse(
+                correlation_id=cid,
+                is_final=True,
+                result=result,
+                meta=meta,
+                result_mime=mime,
+                seq=0,
+                total=1,
+            )
+            return
+        n = (len(result) + size - 1) // size
+        for i in range(n):
+            off = i * size
+            yield pb.InferResponse(
+                correlation_id=cid,
+                is_final=(i == n - 1),
+                result=result[off : off + size],
+                meta=meta,
+                result_mime=mime,
+                seq=i,
+                total=n,
+                offset=off,
+            )
+
+    def _stream_out(self, cid: str, task_name: str, chunks, t0: float) -> Iterator[pb.InferResponse]:
+        seq = 0
+        pending: tuple[bytes, str, dict[str, str]] | None = None
+        try:
+            for chunk in chunks:
+                if pending is not None:
+                    result, mime, meta = pending
+                    yield pb.InferResponse(
+                        correlation_id=cid,
+                        is_final=False,
+                        result=result,
+                        meta=meta,
+                        result_mime=mime,
+                        seq=seq,
+                    )
+                    seq += 1
+                pending = chunk
+        except ServiceError as e:
+            self._record_outcome(e)
+            metrics.count_error(task_name)
+            yield self._error(cid, e.code, str(e), e.detail)
+            return
+        except (QueueFull, DeadlineExpired, PoisonInput, WatchdogTimeout) as e:
+            self._record_outcome(e)
+            metrics.count_error(task_name)
+            yield self._overload_error(cid, task_name, e)
+            return
+        except Exception as e:  # noqa: BLE001
+            self._record_outcome(e)
+            logger.exception("streaming task %s failed", task_name)
+            metrics.count_error(task_name)
+            yield self._error(cid, pb.ERROR_CODE_INTERNAL, f"{type(e).__name__}: {e}")
+            return
+        if pending is None:
+            # INTERNAL-class backend symptom: must reach the breaker like
+            # any other crash (count toward tripping / resolve a probe).
+            self._record_outcome(RuntimeError("streaming handler yielded no chunks"))
+            metrics.count_error(task_name)
+            yield self._error(cid, pb.ERROR_CODE_INTERNAL, "streaming handler yielded no chunks")
+            return
+        self._record_outcome(None)
+        result, mime, meta = pending
+        meta = dict(meta)
+        lat_ms = (time.perf_counter() - t0) * 1e3
+        metrics.observe(task_name, lat_ms)
+        meta["lat_ms"] = f"{lat_ms:.2f}"
+        tr = request_trace.current_trace()
+        if tr is not None:
+            meta[request_trace.TRACE_RESPONSE_META] = tr.trace_id
+        yield pb.InferResponse(
+            correlation_id=cid,
+            is_final=True,
+            result=result,
+            meta=meta,
+            result_mime=mime,
+            seq=seq,
+            total=seq + 1,
+        )
+
+    @classmethod
+    def _overload_error(cls, cid: str, task_name: str, e: Exception) -> pb.InferResponse:
+        """One source of truth for the overload/containment exceptions'
+        wire mapping: a batcher :class:`QueueFull` is a
+        :class:`ResourceExhausted` (UNAVAILABLE + backoff hint), a
+        :class:`DeadlineExpired` is a :class:`DeadlineExceeded`, a
+        :class:`PoisonInput` is an :class:`InvalidArgument` (the PAYLOAD is
+        broken — retrying it is pointless; the message names the bisection
+        isolation or quarantine verdict, and the response meta carries
+        ``quarantined`` when the quarantine registry flagged it), and a
+        :class:`WatchdogTimeout` is an :class:`Unavailable` (backend
+        stalled; the breaker/recovery path is already on it). A
+        :class:`QueueFull` that carries the batcher's drain-time estimate
+        surfaces it as the ``lumen-retry-after-ms`` response-meta hint —
+        the same key quota and breaker sheds use — so every shed tells
+        the client when to come back."""
+        meta = None
+        if isinstance(e, QueueFull):
+            err: ServiceError = ResourceExhausted(f"{task_name}: {e}")
+            hint = getattr(e, "retry_after_s", None)
+            if hint is not None:
+                meta = {
+                    request_qos.RETRY_AFTER_META: request_qos.retry_after_ms(hint)
+                }
+        elif isinstance(e, PoisonInput):
+            err = InvalidArgument(
+                f"{task_name}: {e}",
+                "this payload repeatedly fails its batch; fix the input "
+                "instead of retrying",
+            )
+            if request_notes.current().get("quarantined"):
+                meta = {"quarantined": "1"}
+        elif isinstance(e, WatchdogTimeout):
+            err = Unavailable(
+                f"{task_name}: {e}",
+                "backend stalled past its watchdog budget; retry after the "
+                "service reloads",
+            )
+        else:
+            err = DeadlineExceeded(f"{task_name}: {e}")
+        return cls._error(cid, err.code, str(err), err.detail, meta=meta)
+
+    @staticmethod
+    def _error(
+        cid: str,
+        code: int,
+        message: str,
+        detail: str = "",
+        meta: dict[str, str] | None = None,
+    ) -> pb.InferResponse:
+        return pb.InferResponse(
+            correlation_id=cid,
+            is_final=True,
+            error=pb.Error(code=code, message=message, detail=detail),
+            meta=meta or None,
+        )
+
+    # -- capability / health rpcs ----------------------------------------
+
+    def GetCapabilities(self, request, context) -> pb.Capability:
+        return self.capability()
+
+    def StreamCapabilities(self, request, context) -> Iterator[pb.Capability]:
+        yield self.capability()
+
+    def Health(self, request, context):
+        if not self.healthy():
+            context.abort(grpc.StatusCode.UNAVAILABLE, "service unhealthy")
+        return empty_pb2.Empty()

@@ -1,0 +1,842 @@
+"""Multi-tenant QoS: weighted-fair admission, priority lanes, per-tenant quotas.
+
+At millions-of-users scale the single global admission queue was the last
+unguarded failure mode in the serving stack: one tenant's bulk re-index
+convoy — made *cheaper* to emit by the bulk streaming lane — fills the
+FIFO ahead of every interactive user, and ``QueueFull`` sheds
+indiscriminately. The device never overloads first; the *queue policy*
+does. This module is the fix, in three mechanisms (all host-side, all
+O(1) per request, deliberately jax-free so the serving base class and the
+client can import it):
+
+- **weighted-fair queuing** — :class:`WFQAdmissionQueue` is a drop-in for
+  the :class:`queue.Queue` the micro-batcher admits through, but pops by
+  *virtual-time WFQ* over per-``(tenant, lane)`` sub-queues instead of
+  arrival order. Each flow's entries carry virtual finish tags
+  (``max(V, last_tag) + 1/weight``); the pop takes the smallest head tag
+  and advances ``V``. Tenants share service in proportion to their
+  weights regardless of how fast they submit: a flooding tenant only ever
+  stretches its OWN backlog. FIFO order is preserved within a flow, and
+  with a single (default) tenant the schedule degenerates to exactly the
+  old FIFO — which is why the WFQ queue can be the default
+  (``LUMEN_QOS=0`` restores the plain queue).
+- **priority lanes** — ``interactive`` > ``bulk``. A lane is part of the
+  flow key; the bulk lane's weight is scaled down by
+  ``LUMEN_QOS_BULK_SHARE`` (default 0.25), so bulk traffic — the bulk
+  streaming lane and the ingest pipeline auto-tag it — fills idle
+  capacity without displacing interactive requests. Under sustained
+  pressure the **brownout ladder** degrades bulk first: at
+  ``LUMEN_QOS_BROWNOUT_PCT`` queue occupancy the bulk share shrinks by
+  ``LUMEN_QOS_BROWNOUT_FACTOR``; at ``LUMEN_QOS_BULK_SHED_PCT`` bulk
+  admissions shed outright (``QueueFull`` with a retry hint) while
+  interactive requests keep the remaining headroom — overload degrades
+  bulk throughput gracefully instead of wedging everyone.
+- **per-tenant token buckets** — :class:`TenantQuota` gates requests at
+  the gRPC dispatch layer, BEFORE payload assembly, cache lookups and the
+  decode pool: a rejection costs two dict lookups and a float refill
+  (~10µs, same order as a breaker shed). ``LUMEN_QOS_TENANT_RPS`` sets
+  the default refill rate (0 = unlimited, the default),
+  ``LUMEN_QOS_TENANT_BURST`` the bucket depth, and
+  ``LUMEN_QOS_RPS_<TENANT>`` / ``LUMEN_QOS_WEIGHT_<TENANT>`` override
+  rate and WFQ weight per tenant. Sheds answer RESOURCE_EXHAUSTED-style
+  with the ``lumen-retry-after-ms`` response-meta hint, which the shared
+  client retry helper uses as its backoff floor.
+
+Tenant identity rides the ``lumen-tenant`` gRPC request-metadata key (or
+a ``tenant`` request-meta field for in-process/stub callers); unlabeled
+traffic is the ``default`` tenant. Like the request deadline, the
+identity crosses layers on a contextvar (:func:`activate` /
+:func:`current_tenant`), so no signature between the gRPC handler and the
+batcher submit grows a parameter.
+
+The result cache joins in from the side: cache keys are tenant-scoped for
+non-default tenants and the RAM tier evicts fair-share-first (see
+:mod:`lumen_tpu.runtime.result_cache`), so one tenant's churn cannot
+evict another's hot set.
+
+Chaos-tested by ``bench.py --phase qos`` (tenant-A bulk flood vs
+interactive tenants B/C: interactive p95 must stay within 2x of its
+isolated baseline) and the ``tenant_flood`` fault point
+(:mod:`lumen_tpu.testing.faults`) which forces a tenant's quota to read
+as exhausted.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import functools
+import logging
+import os
+import queue as _stdlib_queue
+import re
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Callable, Iterator
+
+from .deadline import QueueFull
+from .env import env_float
+from .metrics import metrics
+
+logger = logging.getLogger(__name__)
+
+#: tenant id for unlabeled traffic
+DEFAULT_TENANT = "default"
+#: the two priority lanes (interactive outweighs bulk)
+LANE_INTERACTIVE = "interactive"
+LANE_BULK = "bulk"
+LANES = (LANE_INTERACTIVE, LANE_BULK)
+
+#: gRPC request-metadata key carrying the tenant id
+TENANT_META_KEY = "lumen-tenant"
+#: response-meta key carrying the server's retry hint on a shed
+RETRY_AFTER_META = "lumen-retry-after-ms"
+
+
+def retry_after_ms(seconds: float) -> str:
+    """Format a retry hint for the ``lumen-retry-after-ms`` response-meta
+    value: whole milliseconds, floored at 1 — the client drops a hint of
+    ``<= 0``, so a sub-millisecond window must still round up to a real
+    backoff floor. Every shed site (breaker, quota, QueueFull) emits
+    through this one formatter so the contract can't drift per-site."""
+    return str(max(1, int(seconds * 1000)))
+
+QOS_ENV = "LUMEN_QOS"
+TENANT_RPS_ENV = "LUMEN_QOS_TENANT_RPS"
+TENANT_BURST_ENV = "LUMEN_QOS_TENANT_BURST"
+BULK_SHARE_ENV = "LUMEN_QOS_BULK_SHARE"
+BROWNOUT_PCT_ENV = "LUMEN_QOS_BROWNOUT_PCT"
+BROWNOUT_FACTOR_ENV = "LUMEN_QOS_BROWNOUT_FACTOR"
+BULK_SHED_PCT_ENV = "LUMEN_QOS_BULK_SHED_PCT"
+
+#: fault point consulted by the quota gate: armed (optionally @matched on
+#: the tenant id), the tenant's bucket reads as exhausted — deterministic
+#: tenant-flood injection without generating real traffic.
+TENANT_FLOOD_POINT = "tenant_flood"
+
+
+def wfq_enabled() -> bool:
+    """``LUMEN_QOS`` (default on): tenant-aware WFQ admission in front of
+    every micro-batcher. ``0`` restores the single FIFO queue."""
+    return os.environ.get(QOS_ENV, "1") != "0"
+
+
+#: raw-env-string -> parsed-value memo for the knobs read on EVERY
+#: admission (weights, shares, brownout thresholds). Re-parsing a float
+#: and clamping it per enqueue is avoidable work on the hottest path;
+#: keying on the raw string keeps live-env-change semantics exactly
+#: (a changed value is a miss and re-parses). Reads/writes are single
+#: dict ops (GIL-atomic); stale overwrites are idempotent.
+_env_memo: dict[str, tuple[str | None, float | None]] = {}
+
+
+def _memo_float(
+    name: str,
+    default: float | None,
+    minimum: float | None = None,
+    maximum: float | None = None,
+) -> float | None:
+    raw = os.environ.get(name)
+    hit = _env_memo.get(name)
+    if hit is not None and hit[0] == raw:
+        return hit[1]
+    val = env_float(name, default, minimum=minimum, maximum=maximum)
+    if len(_env_memo) >= 4096:
+        # Per-tenant knob names are derived from client-supplied tenant
+        # ids; an id spray must not grow the memo without bound.
+        _env_memo.clear()
+    _env_memo[name] = (raw, val)
+    return val
+
+
+def bulk_share() -> float:
+    """``LUMEN_QOS_BULK_SHARE``: WFQ weight multiplier for the bulk lane
+    (default 0.25 — four interactive requests are served for every bulk
+    one when both are backlogged)."""
+    return _memo_float(BULK_SHARE_ENV, 0.25, minimum=0.001, maximum=1.0)
+
+
+def brownout_pct() -> float:
+    """``LUMEN_QOS_BROWNOUT_PCT``: queue occupancy (percent of
+    ``max_queue``) where the brownout ladder's first rung engages and the
+    bulk share shrinks (default 50)."""
+    return _memo_float(BROWNOUT_PCT_ENV, 50.0, minimum=1.0, maximum=100.0)
+
+
+def brownout_factor() -> float:
+    """``LUMEN_QOS_BROWNOUT_FACTOR``: how much the bulk share shrinks
+    under brownout (default 8 — a browned-out bulk lane gets 1/8th of its
+    normal share)."""
+    return _memo_float(BROWNOUT_FACTOR_ENV, 8.0, minimum=1.0)
+
+
+def bulk_shed_pct() -> float:
+    """``LUMEN_QOS_BULK_SHED_PCT``: queue occupancy where bulk admissions
+    shed outright (default 85) — the remaining headroom is reserved for
+    interactive traffic, which still sheds at 100 like before."""
+    return _memo_float(BULK_SHED_PCT_ENV, 85.0, minimum=1.0, maximum=100.0)
+
+
+_warned_brownout = False
+
+
+def _warn_brownout_unbounded() -> None:
+    """One-shot: brownout knobs are set but the admission queue is
+    unbounded, so occupancy always reads 0% and the ladder's rungs can
+    never engage — a silently inert protection is worse than a loud one."""
+    global _warned_brownout
+    if _warned_brownout:
+        return
+    if not any(
+        os.environ.get(k)
+        for k in (BROWNOUT_PCT_ENV, BROWNOUT_FACTOR_ENV, BULK_SHED_PCT_ENV)
+    ):
+        return
+    _warned_brownout = True
+    logger.warning(
+        "brownout knobs (LUMEN_QOS_BROWNOUT_PCT / LUMEN_QOS_BULK_SHED_PCT) "
+        "set but the admission queue is "
+        "unbounded (LUMEN_BATCH_QUEUE_DEPTH unset/0): occupancy reads 0% "
+        "and the brownout ladder never engages; set a queue depth to arm it"
+    )
+
+
+_ENV_SAFE = re.compile(r"[^A-Z0-9]+")
+
+
+@functools.lru_cache(maxsize=1024)
+def tenant_env_suffix(tenant: str) -> str:
+    """Env-name fragment for a per-tenant override knob: uppercased, every
+    non-alphanumeric run collapsed to ``_`` (tenant ``team-a`` reads
+    ``LUMEN_QOS_RPS_TEAM_A``). Memoized — this runs per admission and per
+    quota gate; the cache bound caps an id-spraying client's footprint."""
+    return _ENV_SAFE.sub("_", tenant.upper())
+
+
+def tenant_weight(tenant: str) -> float:
+    """WFQ weight for ``tenant``: ``LUMEN_QOS_WEIGHT_<TENANT>`` override,
+    default 1.0 (equal shares)."""
+    w = _memo_float(f"LUMEN_QOS_WEIGHT_{tenant_env_suffix(tenant)}", 1.0, minimum=0.001)
+    return w if w and w > 0 else 1.0
+
+
+def tenant_rps(tenant: str) -> float:
+    """Token-bucket refill rate for ``tenant``:
+    ``LUMEN_QOS_RPS_<TENANT>`` override, else the
+    ``LUMEN_QOS_TENANT_RPS`` default (0/unset = unlimited)."""
+    override = _memo_float(f"LUMEN_QOS_RPS_{tenant_env_suffix(tenant)}", None, minimum=0.0)
+    if override is not None:
+        return override
+    return _memo_float(TENANT_RPS_ENV, 0.0, minimum=0.0)
+
+
+def tenant_burst(rps: float) -> float:
+    """Bucket depth: ``LUMEN_QOS_TENANT_BURST`` when set, else 2x the
+    refill rate (floored at 1 — a limited tenant can always send at least
+    one request after idling)."""
+    burst = _memo_float(TENANT_BURST_ENV, 0.0, minimum=0.0)
+    if burst and burst > 0:
+        return max(1.0, burst)
+    return max(1.0, 2.0 * rps)
+
+
+# -- request context ----------------------------------------------------------
+
+_qos_ctx: contextvars.ContextVar[tuple[str, str] | None] = contextvars.ContextVar(
+    "lumen_request_qos", default=None
+)
+
+
+def activate(tenant: str | None, lane: str | None = None) -> contextvars.Token:
+    """Install the request's QoS identity for the current context; the
+    batcher's WFQ put and the result cache's tenant accounting read it
+    from here. ``None`` INHERITS the ambient value for that slot (so
+    ingest's ``qos_context(None, LANE_BULK)`` re-lanes a tenant-scoped
+    caller's work without erasing the tenant — outside any scope the
+    ambient is the default/interactive pair anyway). Returns the token
+    for :func:`deactivate`."""
+    ambient_tenant, ambient_lane = current_qos()
+    t = tenant or ambient_tenant
+    ln = lane if lane in LANES else ambient_lane
+    return _qos_ctx.set((t, ln))
+
+
+def deactivate(token: contextvars.Token) -> None:
+    _qos_ctx.reset(token)
+
+
+def current_qos() -> tuple[str, str]:
+    """The ambient ``(tenant, lane)`` (defaults outside a request scope)."""
+    ctx = _qos_ctx.get()
+    return ctx if ctx is not None else (DEFAULT_TENANT, LANE_INTERACTIVE)
+
+
+def current_tenant() -> str:
+    return current_qos()[0]
+
+
+def current_lane() -> str:
+    return current_qos()[1]
+
+
+class qos_context:
+    """``with qos_context("team-a", LANE_BULK): ...`` — scoped identity for
+    in-process callers (ingest pipeline, benches, tests)."""
+
+    def __init__(self, tenant: str | None, lane: str | None = None):
+        self.tenant, self.lane = tenant, lane
+        self._token: contextvars.Token | None = None
+
+    def __enter__(self) -> "qos_context":
+        self._token = activate(self.tenant, self.lane)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._token is not None:
+            deactivate(self._token)
+
+
+# -- weighted-fair admission queue -------------------------------------------
+
+
+class _Flow:
+    """One ``(tenant, lane)`` sub-queue: FIFO entries, each stamped with
+    its virtual finish tag at enqueue time."""
+
+    __slots__ = ("tenant", "lane", "entries", "last_tag")
+
+    def __init__(self, tenant: str, lane: str):
+        self.tenant = tenant
+        self.lane = lane
+        self.entries: deque[tuple[float, object]] = deque()
+        self.last_tag = 0.0
+
+
+#: bound on per-tenant stat cardinality in the gauges (an id-spraying
+#: client must not grow the metrics payload without limit)
+_MAX_TENANT_STATS = 64
+
+
+class WFQAdmissionQueue:
+    """Virtual-time weighted-fair queue, API-compatible with the subset of
+    :class:`queue.Queue` the micro-batcher uses (``put`` / ``get`` /
+    ``get_nowait`` / ``qsize`` plus the ``None`` close sentinel).
+
+    **Schedule.** Enqueue stamps the entry with
+    ``tag = max(V, flow.last_tag) + 1/weight`` where ``V`` is the queue's
+    virtual time; dequeue pops the smallest head tag across flows and
+    advances ``V`` to it. Weights: the tenant's
+    (``LUMEN_QOS_WEIGHT_<TENANT>``, default 1.0) times the lane share
+    (1.0 interactive, ``LUMEN_QOS_BULK_SHARE`` bulk, shrunk further by the
+    brownout ladder). With one flow the schedule is plain FIFO; within a
+    flow it always is.
+
+    **Sentinel.** ``put(None)`` (the batcher's close signal) is *latched*,
+    not queued: ``get`` returns it only once every sub-queue is empty —
+    the documented close contract ("the sentinel lands after any
+    already-submitted item") holds by construction rather than by
+    enqueue order.
+
+    **Brownout.** When ``max_queue`` is known (>0), occupancy drives the
+    bulk lane's degradation: past ``LUMEN_QOS_BROWNOUT_PCT`` its weight
+    shrinks by ``LUMEN_QOS_BROWNOUT_FACTOR``; past
+    ``LUMEN_QOS_BULK_SHED_PCT`` bulk puts raise :class:`QueueFull`
+    (tagged ``lane="bulk"``) so interactive traffic keeps the remaining
+    headroom. Interactive admission is untouched — it sheds only at the
+    batcher's own full-queue check, exactly as before.
+
+    Flows are scanned linearly at pop time: tenant cardinality per batcher
+    is tens, not thousands, and a linear scan beats heap rebuilds when
+    brownout re-weights a lane mid-backlog.
+    """
+
+    def __init__(self, name: str = "wfq", max_queue: int = 0):
+        self.name = name
+        self.max_queue = max(0, max_queue)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._flows: dict[tuple[str, str], _Flow] = {}
+        self._vtime = 0.0
+        self._total = 0
+        self._sentinel = False
+        self.stats = {"admitted": 0, "dispatched": 0, "shed_bulk": 0, "brownouts": 0}
+        self._tenant_admits: dict[str, int] = {}
+        self._tenant_sheds: dict[str, int] = {}
+        self._last_rung = 0  # last observed brownout level (event edges)
+        #: controller floor on the ladder (None = occupancy-only): the
+        #: autopilot descends/ascends the ladder from SLO burn by pinning
+        #: this; occupancy can still push the effective rung HIGHER (a
+        #: genuinely full queue must brown out even if burn looks fine).
+        self._forced_rung: int | None = None
+        if self.max_queue <= 0:
+            _warn_brownout_unbounded()
+        _register_queue(self)
+
+    # -- occupancy / brownout ---------------------------------------------
+
+    def qsize(self) -> int:
+        with self._lock:
+            return self._total
+
+    def _occupancy_locked(self) -> float:
+        if self.max_queue <= 0:
+            return 0.0
+        return 100.0 * self._total / self.max_queue
+
+    def brownout_level(self) -> int:
+        """0 = normal, 1 = bulk share shrunk, 2 = bulk shedding
+        (occupancy-derived; :meth:`effective_rung` folds the forced floor
+        in — that is what admissions actually use)."""
+        with self._lock:
+            return self._brownout_locked()
+
+    def _brownout_locked(self) -> int:
+        occ = self._occupancy_locked()
+        if occ >= bulk_shed_pct():
+            return 2
+        if occ >= brownout_pct():
+            return 1
+        return 0
+
+    def _effective_locked(self) -> int:
+        forced = self._forced_rung
+        level = self._brownout_locked()
+        return level if forced is None else max(level, forced)
+
+    def effective_rung(self) -> int:
+        """The rung the NEXT admission will be judged by: the occupancy
+        ladder with the controller's forced floor folded in. This is the
+        single value the autopilot, ``/stats`` readers and the ladder
+        itself must agree on (the ``brownout_rung`` gauge field)."""
+        with self._lock:
+            return self._effective_locked()
+
+    def force_rung(self, level: int | None) -> None:
+        """Pin the ladder's FLOOR to ``level`` (clamped 0-2); ``None`` (or
+        0) returns control to occupancy alone. The autopilot's brownout
+        loop actuates through here so descents driven by SLO burn use the
+        exact same shed/share mechanics as occupancy-driven ones."""
+        with self._cv:
+            if level is None or level <= 0:
+                self._forced_rung = None
+            else:
+                self._forced_rung = min(2, int(level))
+
+    def _bump(self, table: dict[str, int], tenant: str) -> None:
+        if tenant not in table and len(table) >= _MAX_TENANT_STATS:
+            tenant = "_other"
+        table[tenant] = table.get(tenant, 0) + 1
+
+    # -- queue API ---------------------------------------------------------
+
+    def put(self, entry, block: bool = True, timeout: float | None = None) -> None:
+        """Enqueue under the ambient QoS identity. Raises
+        :class:`QueueFull` for a bulk-lane entry while the brownout
+        ladder's shed rung is engaged. (``block``/``timeout`` accepted for
+        queue.Queue signature parity; admission is never capacity-blocked
+        here — the batcher's own depth check sheds first.)"""
+        if entry is None:
+            with self._cv:
+                self._sentinel = True
+                self._cv.notify_all()
+            return
+        tenant, lane = current_qos()
+        # Resolve every env-derived input BEFORE taking the lock: the
+        # knob reads (memoized, but still dict lookups) must not
+        # serialize concurrent admitters on the queue's condition lock.
+        weight = tenant_weight(tenant)
+        if lane == LANE_BULK:
+            weight *= bulk_share()
+        shed_pct, brown_pct = bulk_shed_pct(), brownout_pct()
+        brown_factor = brownout_factor()
+        shed_at: tuple[float, int] | None = None
+        rung_change: tuple[int, int] | None = None
+        with self._cv:
+            occ = self._occupancy_locked()
+            level = 2 if occ >= shed_pct else (1 if occ >= brown_pct else 0)
+            forced = self._forced_rung
+            if forced is not None and forced > level:
+                level = forced
+            if level != self._last_rung:
+                rung_change = (self._last_rung, level)
+                self._last_rung = level
+            if lane == LANE_BULK and level >= 2:
+                # Decision only under the lock; the counter bumps (which
+                # take the process-global metrics lock) and the message
+                # formatting happen outside — a flood fires this on every
+                # bulk put, and the shed path must not serialize
+                # concurrent admitters or the collector's get() behind
+                # metrics contention.
+                self.stats["shed_bulk"] += 1
+                self._bump(self._tenant_sheds, tenant)
+                shed_at = (occ, self._total)
+            else:
+                if lane == LANE_BULK and level == 1:
+                    self.stats["brownouts"] += 1
+                if lane == LANE_BULK and level >= 1:
+                    weight /= brown_factor
+                flow = self._flows.get((tenant, lane))
+                if flow is None:
+                    flow = self._flows[(tenant, lane)] = _Flow(tenant, lane)
+                tag = max(self._vtime, flow.last_tag) + 1.0 / max(weight, 1e-9)
+                flow.last_tag = tag
+                flow.entries.append((tag, entry))
+                self._total += 1
+                self.stats["admitted"] += 1
+                self._bump(self._tenant_admits, tenant)
+                self._cv.notify()
+        if rung_change is not None:
+            # Rung EDGES only (0->1->2 and back), outside the lock: the
+            # flight recorder tells the brownout story in a handful of
+            # events, while the per-put level itself stays a gauge.
+            from . import telemetry
+
+            old, new = rung_change
+            via = (
+                f"autopilot floor {forced}" if forced is not None and new == forced
+                else f"{occ:.0f}% queue occupancy"
+            )
+            telemetry.record_event(
+                "brownout", self.name,
+                f"brownout rung {old} -> {new} at {via}",
+            )
+        if shed_at is not None:
+            occ, waiting = shed_at
+            metrics.count("qos_bulk_sheds")
+            metrics.count(f"qos_bulk_sheds:{self.name}")
+            e = QueueFull(
+                f"{self.name}: bulk lane browned out at "
+                f"{occ:.0f}% queue occupancy "
+                f"({waiting} waiting); interactive traffic keeps "
+                "the remaining headroom"
+            )
+            e.lane = LANE_BULK
+            e.tenant = tenant
+            raise e
+
+    def _pop_locked(self):
+        """Smallest-head-tag pop; caller holds the lock and has checked
+        ``self._total > 0``."""
+        best_key = None
+        best_tag = None
+        for key, flow in self._flows.items():
+            if not flow.entries:
+                continue
+            tag = flow.entries[0][0]
+            if best_tag is None or tag < best_tag:
+                best_tag, best_key = tag, key
+        flow = self._flows[best_key]
+        tag, entry = flow.entries.popleft()
+        self._vtime = max(self._vtime, tag)
+        self._total -= 1
+        self.stats["dispatched"] += 1
+        if not flow.entries and flow.last_tag <= self._vtime:
+            # A drained flow whose tags can no longer influence the
+            # schedule is dropped — tenant churn must not grow the flow
+            # table without bound.
+            del self._flows[best_key]
+        return entry
+
+    def get(self, block: bool = True, timeout: float | None = None):
+        """Pop the WFQ-next entry; returns the ``None`` sentinel only when
+        every sub-queue is empty. Raises :class:`queue.Empty` on timeout
+        (or immediately when ``block`` is false), like the stdlib queue."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while True:
+                if self._total:
+                    return self._pop_locked()
+                if self._sentinel:
+                    self._sentinel = False
+                    return None
+                if not block:
+                    raise _stdlib_queue.Empty
+                if deadline is None:
+                    self._cv.wait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise _stdlib_queue.Empty
+                    self._cv.wait(timeout=remaining)
+
+    def get_nowait(self):
+        return self.get(block=False)
+
+    # -- telemetry ---------------------------------------------------------
+
+    def gauges(self) -> dict:
+        with self._lock:
+            out = {
+                **self.stats,
+                "queued": self._total,
+                "brownout": self._brownout_locked(),
+                # The rung admissions are ACTUALLY judged by (occupancy
+                # ladder + the autopilot's forced floor) — the one value
+                # the controller, dashboards and the ladder share.
+                "brownout_rung": self._effective_locked(),
+                "forced_rung": -1 if self._forced_rung is None else self._forced_rung,
+                "occupancy_pct": round(self._occupancy_locked(), 1),
+            }
+            lane_totals = {LANE_INTERACTIVE: 0, LANE_BULK: 0}
+            per_tenant: dict[str, int] = {}
+            for (tenant, lane), flow in self._flows.items():
+                n = len(flow.entries)
+                lane_totals[lane] = lane_totals.get(lane, 0) + n
+                # Same 64-id cardinality cap as the admit/shed tables: the
+                # flow table itself is bounded by queue depth, but the
+                # gauge payload must stay bounded even when the queue is
+                # unbounded and an id-spraying client parks one item per
+                # fabricated tenant.
+                if tenant not in per_tenant and len(per_tenant) >= _MAX_TENANT_STATS:
+                    tenant = "_other"
+                per_tenant[tenant] = per_tenant.get(tenant, 0) + n
+            out["queued_interactive"] = lane_totals[LANE_INTERACTIVE]
+            out["queued_bulk"] = lane_totals[LANE_BULK]
+            for tenant, n in sorted(per_tenant.items()):
+                out[f"queued:{tenant}"] = n
+            for tenant, n in sorted(self._tenant_admits.items()):
+                out[f"admitted:{tenant}"] = n
+            for tenant, n in sorted(self._tenant_sheds.items()):
+                out[f"shed:{tenant}"] = n
+        return out
+
+
+# -- per-tenant token buckets -------------------------------------------------
+
+
+class _Bucket:
+    __slots__ = ("tokens", "last")
+
+    def __init__(self, tokens: float, last: float):
+        self.tokens = tokens
+        self.last = last
+
+
+class TenantQuota:
+    """Per-tenant token buckets gating the gRPC dispatch layer.
+
+    ``gate(tenant)`` refills the tenant's bucket from its resolved rate
+    (``LUMEN_QOS_RPS_<TENANT>`` else ``LUMEN_QOS_TENANT_RPS``; 0 =
+    unlimited, the default) and spends one token, answering
+    ``(admitted, retry_after_s)`` — the hint is exactly when the next
+    token lands, so a shed client backs off proportionally instead of
+    stampeding. O(1): two env/dict lookups and a float multiply; the
+    whole point is that a quota rejection costs ~10µs, not a decode or a
+    batch slot. An unlimited tenant bypasses the shared lock entirely and
+    keeps no per-tenant state — admit/shed accounting exists only for
+    rate-limited traffic, so the unconfigured default adds zero contention
+    to the dispatch path. The ``tenant_flood`` fault point forces a
+    tenant's bucket to read empty for deterministic chaos tests."""
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._buckets: dict[str, _Bucket] = {}
+        self.stats: dict[str, dict[str, int]] = {}
+        ref = weakref.ref(self)
+
+        def _gauges() -> dict:
+            q = ref()
+            return {} if q is None else q.gauges()
+
+        self._gauge_fn = _gauges
+        metrics.register_gauges("qos-quota", _gauges)
+
+    def _capped_locked(self, tenant: str) -> str:
+        """Accounting identity for ``tenant``, bounded at
+        ``_MAX_TENANT_STATS`` distinct ids: an id-spraying client must not
+        grow the bucket table, the stats dict, the gauge payload, or the
+        metrics counter registry — overflow ids collapse onto the shared
+        ``_other`` identity (and hence one shared bucket, which
+        collectively rate-limits the spray). Caller holds the lock."""
+        if tenant in self._buckets or tenant in self.stats:
+            return tenant
+        if (
+            len(self._buckets) >= _MAX_TENANT_STATS
+            or len(self.stats) >= _MAX_TENANT_STATS
+        ):
+            return "_other"
+        return tenant
+
+    def gate(self, tenant: str) -> tuple[bool, float]:
+        """Admit or shed one request for ``tenant``. Returns
+        ``(admitted, retry_after_s)``; the hint is meaningful only when
+        shed. An unlimited tenant (no resolved rate, no armed flood — the
+        default deployment) returns on a lock-free fast path with no
+        per-tenant state: the gate sits on EVERY service's dispatch path,
+        including all bulk fan-out workers, and an unconfigured quota must
+        not become a process-wide serialization point just for telemetry.
+        Rate-limited tenants take ONE acquisition of the shared lock —
+        identity capping, the bucket update and the stat bump share a
+        single critical section (metrics counters land outside it)."""
+        from ..testing.faults import faults  # free when disarmed
+
+        rate = tenant_rps(tenant)
+        flood = faults.fires(TENANT_FLOOD_POINT, tenant)
+        if rate <= 0 and not flood:
+            return True, 0.0
+        if flood and rate <= 0:
+            rate = 1.0  # armed flood on an unlimited tenant: 1s hint
+        burst = tenant_burst(rate)
+        now = self._clock()
+        with self._lock:
+            tenant = self._capped_locked(tenant)
+            bucket = self._buckets.get(tenant)
+            if bucket is None:
+                bucket = self._buckets[tenant] = _Bucket(burst, now)
+            else:
+                bucket.tokens = min(
+                    burst, bucket.tokens + (now - bucket.last) * rate
+                )
+                bucket.last = now
+            if flood:
+                bucket.tokens = 0.0
+            if bucket.tokens >= 1.0:
+                bucket.tokens -= 1.0
+                admitted = True
+                retry_after = 0.0
+            else:
+                admitted = False
+                retry_after = (1.0 - bucket.tokens) / rate
+            self.stats.setdefault(tenant, {"admits": 0, "sheds": 0})[
+                "admits" if admitted else "sheds"
+            ] += 1
+        if not admitted:
+            metrics.count("qos_quota_sheds")
+            metrics.count(f"qos_quota_sheds:{tenant}")
+            from . import telemetry
+
+            telemetry.record_event(
+                "qos_shed", tenant,
+                f"tenant over its request-rate quota; next token in "
+                f"{retry_after:.2f}s",
+                min_interval_s=1.0,
+            )
+        return admitted, retry_after
+
+    def active(self) -> bool:
+        return bool(self.stats)
+
+    def stats_snapshot(self) -> dict[str, dict[str, int]]:
+        """Point-in-time copy of the per-tenant admit/shed totals, taken
+        under the lock — request threads insert first-seen tenants
+        concurrently, and iterating the live dict would intermittently
+        blow up a metrics scrape with 'dict changed size'."""
+        with self._lock:
+            return {tenant: dict(s) for tenant, s in self.stats.items()}
+
+    def gauges(self) -> dict:
+        with self._lock:
+            tokens = {t: b.tokens for t, b in self._buckets.items()}
+        out: dict[str, float] = {}
+        for tenant, s in sorted(self.stats_snapshot().items()):
+            out[f"admits:{tenant}"] = s["admits"]
+            out[f"sheds:{tenant}"] = s["sheds"]
+        for tenant, tok in sorted(tokens.items()):
+            out[f"tokens:{tenant}"] = round(tok, 2)
+        return out
+
+    def close(self) -> None:
+        metrics.unregister_gauges("qos-quota", self._gauge_fn)
+
+
+# -- process-wide state -------------------------------------------------------
+
+_quota: TenantQuota | None = None
+_quota_lock = threading.Lock()
+
+#: live WFQ queues by batcher name (weakrefs: the metrics/status surface
+#: must not pin a closed batcher's queue)
+_wfq_registry: dict[str, "weakref.ref[WFQAdmissionQueue]"] = {}
+_wfq_lock = threading.Lock()
+
+
+def _register_queue(q: WFQAdmissionQueue) -> None:
+    with _wfq_lock:
+        _wfq_registry[q.name] = weakref.ref(q)
+
+
+def _live_queues() -> Iterator[WFQAdmissionQueue]:
+    with _wfq_lock:
+        refs = list(_wfq_registry.items())
+    for name, ref in refs:
+        q = ref()
+        if q is None:
+            with _wfq_lock:
+                if _wfq_registry.get(name) is ref:
+                    del _wfq_registry[name]
+            continue
+        yield q
+
+
+def live_queues() -> list[WFQAdmissionQueue]:
+    """Every live WFQ admission queue in the process — the autopilot's
+    brownout loop actuates the whole set (one ladder policy per process,
+    applied per queue so new batchers pick the floor up on the next
+    tick)."""
+    return list(_live_queues())
+
+
+def get_quota() -> TenantQuota:
+    """The process-wide quota gate (lazily built)."""
+    global _quota
+    if _quota is None:
+        with _quota_lock:
+            if _quota is None:
+                _quota = TenantQuota()
+    return _quota
+
+
+def reset_quota() -> None:
+    """Drop the shared quota state (tests); the next :func:`get_quota`
+    rebuilds from the current env."""
+    global _quota
+    with _quota_lock:
+        q, _quota = _quota, None
+    if q is not None:
+        q.close()
+
+
+def status() -> dict:
+    """Compact live QoS state for the hub's ``lumen-qos-status`` Health
+    trailing metadata: per-admission-queue occupancy/brownout and the
+    quota gate's per-tenant admit/shed totals. ``{}`` when nothing QoS has
+    happened yet (the key is then omitted)."""
+    out: dict = {}
+    queues = {}
+    for q in _live_queues():
+        queues[q.name] = {
+            "queued": q.qsize(),
+            "brownout": q.brownout_level(),
+            "rung": q.effective_rung(),
+            "shed_bulk": q.stats["shed_bulk"],
+        }
+    if queues:
+        out["wfq"] = queues
+    with _quota_lock:
+        quota = _quota
+    if quota is not None and quota.active():
+        out["quota"] = dict(sorted(quota.stats_snapshot().items()))
+    return out
+
+
+def service_extra(*prefixes: str) -> str:
+    """One-line QoS summary for a service's capability ``extra["qos"]``:
+    whether WFQ admission is on, the lane order, and the brownout level of
+    this service's admission queues (batcher names led by any of
+    ``prefixes`` — a clip+bioclip hub passes both manager prefixes)."""
+    import json
+
+    brown = {
+        q.name: q.brownout_level()
+        for q in _live_queues()
+        if any(q.name.startswith(p) for p in prefixes)
+    }
+    out = {
+        "wfq": "on" if wfq_enabled() else "off",
+        "lanes": f"{LANE_INTERACTIVE}>{LANE_BULK}",
+    }
+    if brown:
+        out["brownout"] = max(brown.values())
+    return json.dumps(out, sort_keys=True, separators=(",", ":"))

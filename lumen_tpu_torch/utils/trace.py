@@ -1,0 +1,508 @@
+"""Request-scoped tracing: per-stage latency attribution for the serving path.
+
+BENCH_r05 measured the device sustaining ~9k img/s/chip while gRPC c10
+delivers 77 rps — ROADMAP item 3 says the remaining ~10x lives in the
+host/request path, but the metrics registry only records ONE end-to-end
+histogram per task. Nobody can say whether a slow request spent its time
+in the admission queue, the decode pool, the batch collect window, the
+device call, or response serialization. This module is the measurement
+layer that makes that legible:
+
+- a :class:`Trace` rides the request on a :mod:`contextvars` variable
+  (same cross-layer pattern as ``utils/deadline.py`` and
+  ``utils/request_notes.py``); every stage the request crosses appends a
+  :class:`Span` (name, start, duration, begin/end thread);
+- contextvars do NOT cross threads, so thread-hopping components (the
+  pipelined micro-batcher, the decode pool, the ingest consumer) carry
+  explicit :class:`SpanHandle` objects attached to their work units —
+  a span can *begin* on the gRPC handler thread and *end* on the batch
+  collector or fetch worker, and records both thread names;
+- finished traces land in a bounded ring with **tail sampling**: errored
+  traces and the slowest-N are always retained, the rest are kept with
+  probability ``LUMEN_TRACE_SAMPLE``; sampled-out traces leave no
+  residue (every span still feeds the per-stage latency histograms);
+- the retained set exports as JSON (``GET /traces`` on the metrics
+  sidecar) and as Chrome trace-event JSON (``GET /traces/perfetto``,
+  loadable in Perfetto/chrome://tracing next to a ``jax.profiler`` dump);
+- each span also feeds a ``stage:{task}/{span}`` latency histogram in
+  the process metrics registry, so ``bench.py --phase attribution`` can
+  print a per-stage time-budget table without parsing traces.
+
+**Overhead contract**: with ``LUMEN_TRACE_SAMPLE=0`` (the default) the
+per-request cost is one cached env check plus contextvar reads that
+return ``None`` — tier-1 asserts <2µs/request so the layer can stay
+wired into the hot path permanently. With sampling on, every request is
+traced (spans are appended under a per-trace lock) and the *retention*
+decision happens at the tail.
+
+Deliberately jax-free and dependency-light (stdlib + ``utils.metrics``):
+imported by the serving base class, the logger, and the example client —
+none of which may drag in a backend. ``lumen_tpu.runtime.trace`` is the
+canonical façade for runtime-side consumers (the batcher, decode pool,
+result cache and ingest pipeline, which already live behind the
+jax-importing runtime package ``__init__``).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import heapq
+import os
+import random
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Iterator
+
+from .env import env_int
+from .metrics import metrics
+
+TRACE_SAMPLE_ENV = "LUMEN_TRACE_SAMPLE"
+TRACE_RING_ENV = "LUMEN_TRACE_RING"
+TRACE_SLOW_ENV = "LUMEN_TRACE_SLOW_N"
+
+#: gRPC metadata key carrying the client's trace id (client → server
+#: propagation; the server's trace adopts the id so both sides join up).
+TRACE_META_KEY = "lumen-trace"
+
+#: response-meta key echoing the request's trace id back to the caller.
+TRACE_RESPONSE_META = "trace_id"
+
+# The per-request env probe reads os.environ's BACKING DICT directly:
+# ``os._Environ.get`` resolves a missing key by raising-and-catching
+# KeyError internally, which costs over a microsecond on a loaded 1-core
+# host — most of the <2µs disabled-path budget for the same answer every
+# time. The backing dict is the store ``os.environ[...]`` (and pytest's
+# monkeypatch.setenv) mutate, so visibility semantics are unchanged:
+# a mid-process flip is seen on the very next request. Falls back to the
+# public API if the CPython internals ever move.
+try:
+    _env_data = os.environ._data
+    _env_key = os.environ.encodekey(TRACE_SAMPLE_ENV)
+except AttributeError:  # pragma: no cover - non-CPython / API drift
+    _env_data = None
+    _env_key = TRACE_SAMPLE_ENV
+
+
+def _raw_sample():
+    data = _env_data
+    if data is not None:
+        return data.get(_env_key)
+    return os.environ.get(TRACE_SAMPLE_ENV)
+
+
+# (raw env value, parsed rate) — re-parsed only when the raw value
+# changes, so the disabled-path check stays a dict lookup + compare.
+_rate_cache: tuple = (b"\x00unset", 0.0)
+
+
+def sample_rate() -> float:
+    """``LUMEN_TRACE_SAMPLE``: 0 (default) disables tracing entirely; a
+    value in (0, 1] traces every request and *retains* that fraction of
+    non-error, non-slowest traces in the ring (tail sampling). Malformed
+    values read as 0 (off) — tracing must degrade, not crash serving."""
+    global _rate_cache
+    raw = _raw_sample()
+    cached_raw, cached = _rate_cache
+    if raw == cached_raw:
+        return cached
+    try:
+        text = os.fsdecode(raw) if raw is not None else None
+        rate = min(1.0, max(0.0, float(text))) if text else 0.0
+    except ValueError:
+        rate = 0.0
+    _rate_cache = (raw, rate)
+    return rate
+
+
+def enabled() -> bool:
+    return sample_rate() > 0.0
+
+
+def trace_ring() -> int:
+    """``LUMEN_TRACE_RING``: capacity of the sampled-trace ring buffer
+    (unset/malformed -> 256; floor 1)."""
+    return env_int(TRACE_RING_ENV, 256, minimum=1)
+
+
+def trace_slow_n() -> int:
+    """``LUMEN_TRACE_SLOW_N``: how many slowest traces are always
+    retained regardless of sampling (unset/malformed -> 16; 0 disables
+    the slowest-N lane)."""
+    return env_int(TRACE_SLOW_ENV, 16, minimum=0)
+
+
+def new_trace_id() -> str:
+    return os.urandom(8).hex()
+
+
+class SpanHandle:
+    """One in-progress span. ``end()`` is idempotent and may run on a
+    DIFFERENT thread than ``begin`` — that is the point: the handle is
+    what crosses the batcher/decode-pool/ingest thread boundaries that a
+    contextvar cannot."""
+
+    __slots__ = ("trace", "name", "t0", "begin_thread", "meta", "_done")
+
+    def __init__(self, trace: "Trace", name: str, meta: dict | None = None):
+        self.trace = trace
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.begin_thread = threading.current_thread().name
+        self.meta = meta
+        self._done = False
+
+    def end(self, error: str | None = None, **meta: Any) -> None:
+        if self._done:
+            return
+        self._done = True
+        t1 = time.perf_counter()
+        m = dict(self.meta) if self.meta else {}
+        if meta:
+            m.update(meta)
+        if error:
+            m["error"] = error
+        self.trace._append(
+            self.name, self.t0, t1, self.begin_thread,
+            threading.current_thread().name, m or None,
+        )
+
+
+class Trace:
+    """All spans one request (or one ingest batch) crossed.
+
+    Span timestamps are ``time.perf_counter()`` instants, stored relative
+    to ``t0`` in the exported record; ``epoch0`` anchors the record on
+    the wall clock for Perfetto. Thread-safe: spans are appended under a
+    lock because the batcher fetch worker, the decode pool and the
+    request thread all write concurrently."""
+
+    __slots__ = (
+        "trace_id", "task", "t0", "epoch0", "spans", "error", "_lock",
+    )
+
+    def __init__(self, task: str, trace_id: str | None = None, t0: float | None = None):
+        self.trace_id = trace_id or new_trace_id()
+        self.task = task
+        now = time.perf_counter()
+        self.t0 = now if t0 is None else t0
+        # Anchor the wall clock at the (possibly back-dated) t0.
+        self.epoch0 = time.time() - (now - self.t0)
+        self.spans: list[tuple] = []  # (name, t0, t1, begin_thread, end_thread, meta)
+        self.error: str | None = None
+        self._lock = threading.Lock()
+
+    # -- span recording ----------------------------------------------------
+
+    def begin(self, name: str, meta: dict | None = None) -> SpanHandle:
+        return SpanHandle(self, name, meta)
+
+    @contextmanager
+    def span(self, name: str, **meta: Any) -> Iterator[SpanHandle]:
+        h = self.begin(name, meta or None)
+        try:
+            yield h
+        finally:
+            h.end()
+
+    def add_span(
+        self, name: str, t0: float, t1: float, meta: dict | None = None
+    ) -> None:
+        """Record a span with explicit ``perf_counter`` bounds (e.g. the
+        gRPC receive/reassembly window, whose start predates the trace
+        object)."""
+        thread = threading.current_thread().name
+        self._append(name, t0, t1, thread, thread, meta)
+
+    def _append(
+        self, name: str, t0: float, t1: float,
+        begin_thread: str, end_thread: str, meta: dict | None,
+    ) -> None:
+        with self._lock:
+            self.spans.append((name, t0, t1, begin_thread, end_thread, meta))
+
+    def set_error(self, message: str) -> None:
+        # First error wins: the root cause, not the last symptom.
+        if self.error is None:
+            self.error = message
+
+    # -- export ------------------------------------------------------------
+
+    def to_record(self, t_end: float | None = None) -> dict:
+        with self._lock:
+            spans = list(self.spans)
+        if t_end is None:
+            # A trace's duration is its SPAN ENVELOPE (first-chunk arrival
+            # to the last instrumented stage's end): post-response
+            # bookkeeping — generator teardown, the recorder call itself,
+            # a preemption between them — is not part of the request and
+            # must not show up as unattributed time in the stage budget.
+            t_end = max((s[2] for s in spans), default=time.perf_counter())
+            t_end = max(t_end, self.t0)
+        out_spans = []
+        for name, s0, s1, bt, et, meta in spans:
+            span: dict[str, Any] = {
+                "name": name,
+                "start_ms": round((s0 - self.t0) * 1e3, 3),
+                "dur_ms": round((s1 - s0) * 1e3, 3),
+                "begin_thread": bt,
+                "end_thread": et,
+            }
+            if meta:
+                span["meta"] = meta
+            out_spans.append(span)
+        out_spans.sort(key=lambda s: s["start_ms"])
+        rec = {
+            "trace_id": self.trace_id,
+            "task": self.task,
+            "start_unix_ms": round(self.epoch0 * 1e3, 3),
+            "duration_ms": round((t_end - self.t0) * 1e3, 3),
+            "spans": out_spans,
+        }
+        if self.error:
+            rec["error"] = self.error
+        return rec
+
+
+# -- contextvar propagation --------------------------------------------------
+
+_current: contextvars.ContextVar[Trace | None] = contextvars.ContextVar(
+    "lumen_trace", default=None
+)
+
+
+def current_trace() -> Trace | None:
+    """The active request's trace, or None (tracing off / outside a
+    request). THE hot-path check: one contextvar read."""
+    return _current.get()
+
+
+def activate(trace: Trace) -> contextvars.Token:
+    return _current.set(trace)
+
+
+def deactivate(token: contextvars.Token) -> None:
+    _current.reset(token)
+
+
+@contextmanager
+def span(name: str, **meta: Any) -> Iterator[SpanHandle | None]:
+    """Span on the current trace; no-op (yields None) when untraced."""
+    tr = _current.get()
+    if tr is None:
+        yield None
+        return
+    h = tr.begin(name, meta or None)
+    try:
+        yield h
+    finally:
+        h.end()
+
+
+# -- recorder (tail-sampling ring + export) ----------------------------------
+
+
+class TraceRecorder:
+    """Bounded retention of finished traces with tail sampling.
+
+    Three lanes, all bounded:
+
+    - **errors** — a trace that finished with an error is always kept
+      (deque, ``capacity // 4`` floor 8);
+    - **slowest-N** — a min-heap of the N largest durations seen, so the
+      tail a percentile hides is always inspectable;
+    - **sampled** — everything else survives with probability
+      ``LUMEN_TRACE_SAMPLE`` (ring of ``LUMEN_TRACE_RING``).
+
+    A sampled-out trace leaves no residue here (its spans already fed the
+    per-stage histograms in :mod:`lumen_tpu.utils.metrics` — aggregates
+    are kept for every request, bodies only for the interesting ones)."""
+
+    def __init__(self, capacity: int | None = None, slow_n: int | None = None):
+        self.capacity = trace_ring() if capacity is None else max(1, capacity)
+        self.slow_n = trace_slow_n() if slow_n is None else max(0, slow_n)
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._sampled: deque[dict] = deque(maxlen=self.capacity)
+        self._errors: deque[dict] = deque(maxlen=max(8, self.capacity // 4))
+        self._slow: list[tuple[float, int, dict]] = []  # min-heap
+        self._rng = random.Random()
+        self.counters = {"finished": 0, "retained": 0, "sampled_out": 0}
+
+    # -- ingestion ---------------------------------------------------------
+
+    def finish(self, trace: Trace, error: str | None = None) -> dict:
+        """Close out a trace: feed the per-stage histograms (always) and
+        decide retention (tail sampling). Returns the exported record."""
+        if error:
+            trace.set_error(error)
+        record = trace.to_record()
+        task = record["task"]
+        for s in record["spans"]:
+            metrics.observe(f"stage:{task}/{s['name']}", s["dur_ms"])
+        metrics.observe(f"stage:{task}/_total", record["duration_ms"])
+        dur = record["duration_ms"]
+        with self._lock:
+            self._seq += 1
+            record["seq"] = self._seq
+            self.counters["finished"] += 1
+            retained = False
+            if record.get("error"):
+                self._errors.append(record)
+                retained = True
+            if self.slow_n > 0:
+                heapq.heappush(self._slow, (dur, record["seq"], record))
+                if len(self._slow) > self.slow_n:
+                    evicted = heapq.heappop(self._slow)
+                    retained = retained or evicted[1] != record["seq"]
+                else:
+                    retained = True
+            if self._rng.random() < sample_rate():
+                self._sampled.append(record)
+                retained = True
+            self.counters["retained" if retained else "sampled_out"] += 1
+        return record
+
+    def clear(self) -> None:
+        with self._lock:
+            self._sampled.clear()
+            self._errors.clear()
+            self._slow.clear()
+            self.counters = {k: 0 for k in self.counters}
+
+    # -- export ------------------------------------------------------------
+
+    def traces(self) -> list[dict]:
+        """Union of all three retention lanes, deduped, oldest first."""
+        with self._lock:
+            by_seq: dict[int, dict] = {}
+            for rec in self._sampled:
+                by_seq[rec["seq"]] = rec
+            for rec in self._errors:
+                by_seq[rec["seq"]] = rec
+            for _, seq, rec in self._slow:
+                by_seq[seq] = rec
+        return [by_seq[k] for k in sorted(by_seq)]
+
+    def slowest(self) -> dict | None:
+        with self._lock:
+            if not self._slow:
+                return None
+            return max(self._slow)[2]
+
+    def export(self) -> dict:
+        return {
+            "enabled": enabled(),
+            "sample_rate": sample_rate(),
+            "counters": dict(self.counters),
+            "traces": self.traces(),
+        }
+
+    def perfetto(self, records: list[dict] | None = None) -> dict:
+        """Chrome trace-event JSON for the retained traces — loadable in
+        Perfetto / chrome://tracing next to a ``jax.profiler`` dump."""
+        if records is None:
+            records = self.traces()
+        return perfetto_export(records)
+
+
+def perfetto_export(records: list[dict]) -> dict:
+    """Render trace records as Chrome trace-event format: one complete
+    ("X") event per span on the tid of its *begin* thread (the end thread
+    rides in ``args`` — a queue-style span legitimately ends elsewhere),
+    plus one envelope event per request and thread-name metadata."""
+    events: list[dict] = []
+    tids: dict[str, int] = {}
+
+    def tid_for(thread: str) -> int:
+        if thread not in tids:
+            tids[thread] = len(tids) + 1
+        return tids[thread]
+
+    for rec in records:
+        base_us = rec["start_unix_ms"] * 1e3
+        args = {"trace_id": rec["trace_id"]}
+        if rec.get("error"):
+            args["error"] = rec["error"]
+        req_thread = (
+            rec["spans"][0]["begin_thread"] if rec.get("spans") else "request"
+        )
+        events.append({
+            "name": f"request:{rec['task']}",
+            "cat": rec["task"],
+            "ph": "X",
+            "ts": base_us,
+            "dur": rec["duration_ms"] * 1e3,
+            "pid": 1,
+            "tid": tid_for(req_thread),
+            "args": args,
+        })
+        for s in rec["spans"]:
+            sargs: dict[str, Any] = {
+                "trace_id": rec["trace_id"],
+                "end_thread": s["end_thread"],
+            }
+            if s.get("meta"):
+                sargs.update({str(k): str(v) for k, v in s["meta"].items()})
+            events.append({
+                "name": s["name"],
+                "cat": rec["task"],
+                "ph": "X",
+                "ts": base_us + s["start_ms"] * 1e3,
+                "dur": s["dur_ms"] * 1e3,
+                "pid": 1,
+                "tid": tid_for(s["begin_thread"]),
+                "args": sargs,
+            })
+    for thread, tid in tids.items():
+        events.append({
+            "name": "thread_name",
+            "ph": "M",
+            "pid": 1,
+            "tid": tid,
+            "args": {"name": thread},
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+_recorder: TraceRecorder | None = None
+_recorder_lock = threading.Lock()
+
+
+def get_recorder() -> TraceRecorder:
+    """The process-wide recorder (lazily built from the env)."""
+    global _recorder
+    if _recorder is None:
+        with _recorder_lock:
+            if _recorder is None:
+                _recorder = TraceRecorder()
+    return _recorder
+
+
+def reset_recorder() -> None:
+    """Drop the shared recorder (tests); the next :func:`get_recorder`
+    rebuilds it from the current env."""
+    global _recorder
+    with _recorder_lock:
+        _recorder = None
+
+
+# -- request-level helpers (the serving layer's whole API) -------------------
+
+
+def begin_request(
+    task: str, trace_id: str | None = None, t0: float | None = None
+) -> Trace | None:
+    """Start a trace for one request, or None when tracing is off — the
+    ONE per-request check on the disabled path. ``t0`` back-dates the
+    trace start (e.g. to the first request chunk's arrival)."""
+    if not enabled():
+        return None
+    return Trace(task, trace_id=trace_id, t0=t0)
+
+
+def finish_request(trace: Trace | None, error: str | None = None) -> None:
+    """Close a request trace into the recorder; no-op for None."""
+    if trace is not None:
+        get_recorder().finish(trace, error=error)

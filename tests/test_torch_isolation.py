@@ -73,6 +73,30 @@ def test_entry_points_default_to_the_card():
         VLMManager(VLMConfig.tiny(), state, tokenizer=object())
 
 
+def test_server_defaults_to_the_card(tmp_path):
+    """``serve()`` without a device serves on ``cuda:0``: without a card it
+    raises before it loads or binds anything (``device="cpu"``, the CLI's
+    ``--device cpu``, serves on the CPU)."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.serving import server
+
+    if torch.cuda.is_available():
+        assert server.resolve_device().type == "cuda"
+        return
+    config = validate_config_dict({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(tmp_path)},
+        "deployment": {"mode": "single", "service": "vlm"},
+        "server": {"port": 50997, "host": "127.0.0.1"},
+        "services": {"vlm": {
+            "enabled": True, "package": "lumen_tpu.models.vlm",
+            "import_info": {"registry_class": "lumen_tpu.serving.services.vlm_service.VlmService"},
+            "models": {"vlm": {"model": "Missing", "runtime": "jax"}},
+        }},
+    })
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.serve(config, port_override=0, skip_download=True)
+
+
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
     lonely = tmp_path / "alone"
     lonely.mkdir()
@@ -154,3 +178,26 @@ def test_chip_smoke_int8_speculative_drive_rehearses_on_cpu():
             0, "cpu", cfg=cfg, device="cpu", quantize="int8", spec_k=4, kernels=chip_smoke.PHASE5_KERNELS
         )
     assert os.environ.get("LUMEN_VLM_SPEC_K") == before  # the knob is restored
+
+
+def test_chip_smoke_grpc_drive_rehearses_on_cpu():
+    """Phase 6 of chip_smoke.py (a model directory served by ``serve()``,
+    driven over real gRPC) runs on the CPU at a small configuration up to
+    its launch-count gate, which the plain paths cannot pass."""
+    import dataclasses
+
+    import chip_smoke
+    from lumen_tpu_torch.models.vlm import VLMConfig
+
+    base = VLMConfig()
+    cfg = dataclasses.replace(
+        base,
+        decoder=dataclasses.replace(
+            base.decoder, hidden_size=128, layers=2, heads=4, kv_heads=2,
+            intermediate_size=256, vocab_size=4096,
+        ),
+        vision=dataclasses.replace(base.vision, width=64, layers=1, heads=1),
+        image_token_id=4000, bos_token_id=1, eos_token_id=2, pad_token_id=0,
+    )
+    with pytest.raises(AssertionError, match="bf16 server never launched"):
+        chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu")
