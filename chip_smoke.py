@@ -57,12 +57,28 @@ Phases (any failure exits non-zero):
    the bf16 path's three kernels must have run. Then a second server with
    ``quantize: int8`` and ``LUMEN_VLM_SPEC_K=4`` answers 4 templated
    requests, which must launch the w8a16 and verify-window kernels.
+7. the JAX server's default serving path: phase 6's model directory
+   behind one bf16 ``serve()`` with the spill tier at its default, the
+   result cache, breaker and quarantine, the metrics sidecar and a 64 MiB
+   prefix cache (``LUMEN_VLM_PREFIX_BYTES``), on a KV pool pinned small
+   enough that rows must preempt. Over gRPC: (a) 6 greedy and 2 sampled
+   streams, which must preempt, spill and resume with no stream failed,
+   the greedy answers equal to themselves rerun alone and to phase 6's;
+   (b) one photo asked three questions, cold and then in two waves: prefix
+   hits, fewer prefill chunks, equal answers, ``prefix_hit`` in the
+   metadata; (c) a ``vlm_generate`` sent twice: the second ``cached``,
+   equal, with no kernel launch; (d) ``/metrics.json`` lists the ``vlm_*``
+   counters, the ``vlm-continuous:*`` gauges and the ``vlm.ttft``
+   histogram, and ``Health`` carries ``lumen-breaker-status``. Then a
+   spill round trip at the full-width pool shapes: export a row, resume
+   it into another grant, export again: byte-equal payloads. The path's
+   three kernels must run in (a)-(b).
 
-Every run drives all six phases. The kernel table's launch counts are
+Every run drives all seven phases. The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
-for the other two). The last two lines are the kernel table (JSON) and
-the device line the harness reads; the card's name and power limit
-precede them.
+for the other two); phase 7 prints its own. The last two lines are the
+kernel table (JSON) and the device line the harness reads; the card's
+name and power limit precede them.
 """
 
 from __future__ import annotations
@@ -1036,7 +1052,7 @@ def grpc_call(stub, task: str, payload: bytes, meta: dict, timeout: float = 600)
     return out
 
 
-def boot_server(yaml_path: Path, device: str):
+def boot_server(yaml_path: Path, device: str, metrics_port: int | None = None):
     """``serve()`` in process on an OS-assigned port; returns the handle,
     a stub and the seconds from the call to the first ``Health`` that
     answers ok."""
@@ -1048,7 +1064,8 @@ def boot_server(yaml_path: Path, device: str):
     from lumen_tpu_torch.serving.server import serve
 
     t0 = time.perf_counter()
-    handle = serve(load_config(str(yaml_path)), port_override=0, skip_download=True, device=device)
+    handle = serve(load_config(str(yaml_path)), port_override=0, skip_download=True, device=device,
+                   metrics_port=metrics_port)
     channel = grpc.insecure_channel(f"127.0.0.1:{handle.port}")
     stub = InferenceStub(channel)
     while True:
@@ -1062,11 +1079,13 @@ def boot_server(yaml_path: Path, device: str):
     return handle, channel, stub, time.perf_counter() - t0
 
 
-def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
+def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0", root: Path | None = None) -> dict:
     """Phase 6: a full-width model directory served over real gRPC by the
     port's ``serve()``; bf16, then int8 with speculation. ``cfg``/``device``
     let the CPU tests rehearse it at a small configuration (it then stops at
-    the launch-count check)."""
+    the launch-count check). The model directory goes under ``root`` (a
+    temporary directory of its own when None), where phase 7 reads it
+    again; the returned dict carries what phase 7 holds its answers to."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1085,8 +1104,9 @@ def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
         raise AssertionError("config.json does not read back as the served configuration")
     all_k = all_kernels()
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-") as tmp:
-        root = Path(tmp)
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-")))
         t0 = time.perf_counter()
         with torch.device(device):
             model = VLMModel(cfg)
@@ -1170,7 +1190,8 @@ def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
             channel.close()
             handle.stop(grace=1.0)
         out.update(load_s=load_s, tokens=tokens, wall_s=wall, tok_s=tokens / wall, ttft_ms=ttfts,
-                   peak_gib=peak / 2**30, launches=launches)
+                   peak_gib=peak / 2**30, launches=launches, model_dir=model_dir, photos=photos, prompt=prompt,
+                   budgets=budgets, streams=[r["body"] for r in streams], unary=unary["body"])
 
         # -- loading is lossless: request 0 on a manager built from `state` --
         direct = VLMManager(cfg, state, VlmTokenizer.from_model_dir(str(model_dir)), device=device,
@@ -1222,6 +1243,289 @@ def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0") -> dict:
     return out
 
 
+# -- phase 7: the JAX server's default serving path -----------------------------
+
+#: phase 7's prefix-cache budget (``LUMEN_VLM_PREFIX_BYTES``)
+PHASE7_PREFIX_BYTES = 64 << 20
+#: the questions phase 7 asks of one photo (prefix reuse)
+QUESTIONS = ("describe this photo in one detailed sentence", "caption this image in one sentence",
+             "describe a red car on a wet road")
+
+
+def http_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+        return json.load(resp)
+
+
+def check_spill_roundtrip(gen, n_pages: int, seed: int) -> dict:
+    """A spill round trip at the pool shapes ``gen`` serves, on a pool of
+    its own: export a row of ``n_pages`` random pages (one device-to-host
+    copy), resume it into another slot through a disjoint page grant,
+    export it from there, and require the two packed payloads to be
+    byte-equal (the first one also equal to the source pages). Returns the
+    payload size and the export and resume times (host clock, around a
+    synchronize)."""
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.vlm import migration
+
+    on_card = gen.device.type == "cuda"
+    pages = 4 * n_pages + 1
+    pool = gen.init_pool(8, pages=pages, page_size=16)
+    g = torch.Generator(device=gen.device)
+    g.manual_seed(seed)
+    for layer in pool["caches"]:
+        for name in ("k", "v"):
+            layer[name].copy_(torch.randn(layer[name].shape, generator=g, device=gen.device))
+    pool["seen"][3] = torch.rand(pool["seen"].shape[1], generator=g, device=gen.device) < 0.01
+    pool["cur_tok"][3], pool["cur_len"][3], pool["n_gen"][3] = 1234, n_pages * 16 - 5, 40
+    n_pad = 1 << (n_pages - 1).bit_length()
+    perm = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(seed)).numpy() + 1
+    src, dst = np.zeros(n_pad, np.int32), np.zeros(n_pad, np.int32)
+    src[:n_pages], dst[:n_pages] = perm[:n_pages], perm[n_pages : 2 * n_pages]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def leaves(host):
+        return [layer[name] for layer in host["pages"] for name in ("k", "v")] + [host["seen"]]
+
+    sync()
+    t0 = time.perf_counter()
+    first = gen.export_row(pool, 3, src)
+    t1 = time.perf_counter()
+    gen.resume(pool, 5, first["pages"], dst, first["seen"], first["cur_tok"], first["cur_len"],
+               first["n_gen"], 68, 0.7, 1.0, True, 1.0)
+    sync()
+    t2 = time.perf_counter()
+    second = gen.export_row(pool, 5, dst)
+    blob_a, _ = migration.pack_payload(leaves(first))
+    blob_b, _ = migration.pack_payload(leaves(second))
+    scalars = lambda h: (h["cur_tok"], h["cur_len"], h["n_gen"])  # noqa: E731
+    if blob_a != blob_b or scalars(first) != scalars(second):
+        raise AssertionError("spill round trip: the second export differs from the first")
+    ids = torch.as_tensor(src[:n_pages], dtype=torch.long, device=gen.device)
+    k0 = pool["caches"][0]["k"].index_select(0, ids).cpu()
+    if not torch.equal(k0.view(torch.int16), torch.from_numpy(first["pages"][0]["k"][:n_pages].view(np.int16))):
+        raise AssertionError("spill round trip: the export differs from the pool's pages")
+    if not (pool["sampling"][5] and bool(pool["do_sample"][5])):
+        raise AssertionError("spill round trip: the resumed row lost its sampling state")
+    return dict(nbytes=len(blob_a), export_ms=(t1 - t0) * 1e3, resume_ms=(t2 - t1) * 1e3, n_pad=n_pad)
+
+
+def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str = "cuda:0") -> dict:
+    """Phase 7: phase 6's model directory behind one bf16 ``serve()`` with
+    the JAX server's defaults (spill tier, result cache, breaker,
+    quarantine) plus the metrics sidecar and a 64 MiB prefix cache, on a
+    KV pool pinned small enough that 8 requests must preempt. Drives, over
+    gRPC: (a) pressure: 6 of phase 6's greedy streams and 2 sampled ones;
+    (b) prefix reuse: one photo, three questions, cold and then in two
+    waves; (c) the result cache: one ``vlm_generate`` twice; (d) the
+    sidecar's ``/metrics.json`` and ``/stats`` and ``Health``. Every check
+    raises. Launch counts are zeroed before (a) and read after (b); (c)'s
+    second answer must launch nothing."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+    import torch
+    from google.protobuf import empty_pb2
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    all_k = all_kernels()
+    photos, prompt = phase6["photos"], phase6["prompt"]
+    # Live positions of phase 6's prompt: its text tokens, with the image
+    # token expanded to the vision tokens.
+    from lumen_tpu_torch.models.vlm import VLMConfig
+
+    cfg = VLMConfig.from_hf(json.loads((phase6["model_dir"] / "config.json").read_text()))
+    live = phase6["streams"][0]["input_tokens"] - 1 + cfg.vision.num_tokens
+    per_row = -(-(live + 1) // 16)
+    budgets = [96 + 8 * i for i in range(6)] + [128, 128]
+    longest = -(-(live + max(budgets) + 1) // 16)
+    # Room for two rows' prompts and half a third: the chunk lane admits
+    # one prompt every two decode blocks and page gating admits a row only
+    # onto free pages, so pressure comes from two or three admitted rows
+    # outgrowing the pool (a row grows by 6-9 pages). One row alone fits.
+    pin = max(2 * per_row + per_row // 2, longest + 2) + 1
+    if on_card:
+        torch.cuda.empty_cache()
+    # A fresh process-wide result cache, as a new server process has: phase
+    # 6's server answered (c)'s request in this process already.
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+
+    reset_result_cache()
+    with env(LUMEN_VLM_SPEC_K="0", LUMEN_VLM_KV_PAGES=str(pin), LUMEN_VLM_PREFIX_BYTES=str(PHASE7_PREFIX_BYTES)):
+        handle, channel, stub, load_s = boot_server(
+            deployment_yaml(root / "defaults.yaml", root / "cache", "SmokeVLM", None), device, metrics_port=0)
+    try:
+        mgr = handle.services["vlm"].manager
+        eng = mgr.engine
+        mport = handle.metrics_server.port
+        log(f"phase 7: server with the default serving path up in {load_s:.2f} s, kv {mgr.kv_layout()} "
+            f"({live} live prompt positions = {per_row} pages a row; pool pinned at {pin}), spill budget "
+            f"{eng._spill_budget >> 20} MiB, prefix budget {PHASE7_PREFIX_BYTES >> 20} MiB, sidecar port {mport}")
+        if eng.prefix is None or eng._spill_budget <= 0:
+            raise AssertionError("phase 7: the prefix cache or the spill tier is off")
+
+        def drop_prefixes():
+            """Empty the prefix cache with the engine idle, so the next
+            request prefills cold."""
+            while eng.load():
+                time.sleep(0.01)
+            with eng._cond:  # the idle loop waits on it
+                eng.prefix.clear()
+
+        def stream(photo: bytes, budget: int, extra: dict | None = None, messages: str = prompt) -> dict:
+            return grpc_call(stub, "vlm_generate_stream", photo,
+                             {"messages": messages, "max_new_tokens": budget, **(extra or {})})
+
+        # -- (a) pressure: 6 greedy streams of phase 6 and 2 sampled ones --
+        # Budgets past phase 6's: the chunk lane admits one prompt every two
+        # turns, so rows must live long enough to meet in the pool.
+        greedy = list(range(6))
+        jobs = [(photos[i], budgets[i], None) for i in greedy]
+        jobs += [(photos[i], budgets[i], {"do_sample": "true", "temperature": 0.7}) for i in (6, 7)]
+        for k in all_k:
+            k.launches = 0
+        pre0, res0 = eng.preemptions, eng.spill_resumes
+        t_start = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            streams = list(pool.map(lambda job: stream(*job), jobs))
+        wall = time.perf_counter() - t_start
+        failed = [(i, r["code"]) for i, r in enumerate(streams) if r["code"]]
+        if failed:
+            raise AssertionError(f"phase 7 (a): streams failed under pressure with the spill tier on: {failed}")
+        for i, r in enumerate(streams):
+            if b"".join(r["deltas"]).decode() != r["body"]["text"]:
+                raise AssertionError(f"phase 7 (a): stream {i}'s deltas do not join to its final text")
+        preempted, resumed = eng.preemptions - pre0, eng.spill_resumes - res0
+        if preempted <= 0 or resumed <= 0:
+            raise AssertionError(f"phase 7 (a): {preempted} preemptions, {resumed} spill resumes: no pressure")
+        # Greedy answers under pressure: equal to the same request alone on
+        # this server (cold, no pressure), and, over phase 6's shorter
+        # budget, to phase 6's answer (each id decodes to one word).
+        for i in greedy:
+            drop_prefixes()
+            alone = stream(*jobs[i])
+            got = (streams[i]["body"]["text"], streams[i]["body"]["generated_tokens"])
+            if alone["code"] or (alone["body"]["text"], alone["body"]["generated_tokens"]) != got:
+                raise AssertionError(f"phase 7 (a): greedy stream {i} under pressure differs from it alone")
+            ref = phase6["streams"][i]
+            words, ref_words = got[0].split(), ref["text"].split()
+            eos6 = ref["generated_tokens"] < phase6["budgets"][i]
+            if words[: len(ref_words)] != ref_words or (eos6 and got[1] != ref["generated_tokens"]):
+                raise AssertionError(f"phase 7 (a): greedy stream {i} differs from phase 6's unpressured answer")
+        g = eng.gauges()
+        path = ("shm arena" if g.get("spill_arena_segments") else "") + (
+            f"{' and ' if g.get('spill_arena_segments') else ''}host arrays ({g['spill_fallbacks']} fallbacks)"
+            if g["spill_fallbacks"] else "")
+        tokens = sum(r["body"]["generated_tokens"] for r in streams)
+        ttfts = [round(r["ttft_ms"], 2) for r in streams]
+        log(f"phase 7 (a): 8 streams (6 greedy, 2 sampled at 0.7), {tokens} tokens in {wall:.3f} s = "
+            f"{tokens / wall:.1f} tok/s; {preempted} preemptions, {g['spilled']} spills, {resumed} resumes, "
+            f"{g['preempt_redone']} redone, {g['preempt_failed']} shed; spill path: {path}; the 6 greedy "
+            f"streams equal themselves alone and phase 6's unpressured answers over its budgets [{card}]")
+
+        # -- (b) prefix reuse: one photo, three questions --------------------
+        def ask(q: str) -> dict:
+            r = stream(photos[8], 24, messages=json.dumps([{"role": "user", "content": q}]))
+            if r["code"]:
+                raise AssertionError(f"phase 7 (b): {q!r} failed with code {r['code']}")
+            return r["body"]
+
+        chunks0 = eng.chunks_run
+        cold = []
+        for q in QUESTIONS:
+            drop_prefixes()
+            cold.append(ask(q))
+        cold_chunks = eng.chunks_run - chunks0
+        drop_prefixes()
+        hits0, chunks0 = eng.prefix_hits, eng.chunks_run
+        wave1 = [ask(QUESTIONS[0])]
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            wave2 = list(pool.map(ask, QUESTIONS[1:]))
+        warm_chunks, hits = eng.chunks_run - chunks0, eng.prefix_hits - hits0
+        launches = {k.name: k.launches for k in all_k}
+        warm = wave1 + wave2
+        if hits <= 0 or warm_chunks >= cold_chunks:
+            raise AssertionError(f"phase 7 (b): {hits} prefix hits, {warm_chunks} chunks warm vs {cold_chunks} cold")
+        if any("prefix_hit" not in b["metadata"] for b in warm) or not all(
+                b["metadata"]["prefix_hit"] > 0 for b in wave2):
+            raise AssertionError(f"phase 7 (b): prefix_hit metadata {[b['metadata'].get('prefix_hit') for b in warm]}")
+        if [(b["text"], b["generated_tokens"]) for b in warm] != [(b["text"], b["generated_tokens"]) for b in cold]:
+            raise AssertionError("phase 7 (b): prefix-hit answers differ from the cold answers")
+        log(f"phase 7 (b): one photo, {len(QUESTIONS)} questions: cold {cold_chunks} prefill chunks; two waves "
+            f"{warm_chunks} chunks, {hits} prefix hits (prefix_hit "
+            f"{[b['metadata']['prefix_hit'] for b in warm]}), answers equal to the cold ones")
+        missing = [n for n in PHASE4_KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"phase 7 never launched: {missing} (launches {launches})")
+        log(f"phase 7: launches over (a) and (b) {json.dumps(launches)}")
+
+        # -- (c) the result cache: one vlm_generate twice ---------------------
+        meta = {"messages": prompt, "max_new_tokens": 16}
+        first = grpc_call(stub, "vlm_generate", photos[10], meta)
+        for k in all_k:
+            k.launches = 0
+        second = grpc_call(stub, "vlm_generate", photos[10], meta)
+        again = {k.name: k.launches for k in all_k}
+        if first["code"] or second["code"] or "cached" in first["body"]["metadata"]:
+            raise AssertionError(f"phase 7 (c): codes {first['code']}/{second['code']}")
+        if second["body"]["metadata"].get("cached") is not True or any(again.values()):
+            raise AssertionError(f"phase 7 (c): second answer not from the result cache (launches {again})")
+        if (second["body"]["text"], first["body"]["text"]) != (first["body"]["text"], phase6["unary"]["text"]):
+            raise AssertionError("phase 7 (c): the cached answer differs from the computed one or phase 6's")
+        log(f"phase 7 (c): vlm_generate computed in {first['s'] * 1e3:.1f} ms, answered again from the result "
+            f"cache in {second['s'] * 1e3:.2f} ms with no kernel launch (client side, over gRPC) [{card}]")
+
+        # -- (d) operations: the sidecar and Health ----------------------------
+        snap = http_json(mport, "/metrics.json")
+        stats = http_json(mport, "/stats?window=900")
+        need = {"vlm_paged_preemptions", "vlm_spills", "vlm_spill_resumes", "vlm_prefix_hits", "vlm_prefix_misses"}
+        counters = snap.get("counters", {})
+        gauges = snap.get("gauges", {}).get("vlm-continuous:SmokeVLM", {})
+        if not need <= set(counters) or not gauges or "vlm.ttft" not in snap["tasks"]:
+            raise AssertionError(f"phase 7 (d): /metrics.json lacks {sorted(need - set(counters))}, "
+                                 f"gauges {bool(gauges)}, vlm.ttft {'vlm.ttft' in snap['tasks']}")
+        _, call = stub.Health.with_call(empty_pb2.Empty(), timeout=30)
+        trailing = dict(call.trailing_metadata())
+        if json.loads(trailing.get("lumen-breaker-status", "{}")) != {"vlm": "closed"}:
+            raise AssertionError(f"phase 7 (d): Health trailer {trailing}")
+        ttft = stats["tasks"]["vlm.ttft"]
+        server = sorted(r["body"]["metadata"]["ttft_ms"] for r in streams)
+        pct = lambda q: server[min(len(server) - 1, int(q * len(server)))]  # noqa: E731
+        log(f"phase 7 (d): /metrics.json: {len([c for c in counters if c.startswith('vlm_')])} vlm_* counters "
+            f"({', '.join(f'{c} {counters[c]}' for c in sorted(need))}), {len(gauges)} vlm-continuous:SmokeVLM "
+            f"gauges; Health trailer lumen-breaker-status {trailing['lumen-breaker-status']}, "
+            f"lumen-quarantine-size {trailing.get('lumen-quarantine-size')}")
+        log(f"phase 7 (d): TTFT of (a)'s 8 streams, server p50 {pct(0.5):.1f} ms p95 {pct(0.95):.1f} ms (the "
+            f"vlm.ttft observations, exact), client {sorted(ttfts)}; the sidecar's vlm.ttft histogram (every "
+            f"stream of this process, phases 6-7: {ttft['count']}) p50 {ttft['p50_ms']} ms p95 "
+            f"{ttft['p95_ms']} ms (bucket bounds) [{card}]")
+
+        # -- spill round trip at the full-width pool shapes ---------------------
+        rt = check_spill_roundtrip(eng.gen, per_row + 5, seed + 7)
+        log(f"phase 7: spill round trip of a {per_row + 5}-page row (padded to {rt['n_pad']}): export, resume "
+            f"into another grant, export again: payloads byte-equal ({rt['nbytes']} B); export "
+            f"{rt['export_ms']:.2f} ms, resume {rt['resume_ms']:.2f} ms (host clock) [{card}]")
+        while eng.load():
+            time.sleep(0.01)
+        stats_kv = eng.kv.stats()
+        if stats_kv.pages_live != len(set(eng.prefix.held_pages())) or eng._spill_ledger:
+            raise AssertionError(f"phase 7: pages or spill records left after drain: {stats_kv}, "
+                                 f"{len(eng._spill_ledger)} spill records")
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    return dict(load_s=load_s, launches=launches, preempted=preempted, resumed=resumed, prefix_hits=hits,
+                wall_s=wall, tokens=tokens, cached_ms=second["s"] * 1e3, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1267,10 +1571,18 @@ def main() -> int:
     log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
         f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
         f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
-    grpc_drive = drive_grpc(args.seed, card)
-    log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
-        f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
-        f"peak GiB {grpc_drive['peak_gib']:.3f}")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-") as tmp:
+        grpc_drive = drive_grpc(args.seed, card, root=Path(tmp))
+        log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
+            f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
+            f"peak GiB {grpc_drive['peak_gib']:.3f}")
+        defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
+    log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
+        f"{defaults['preempted']} preemptions, "
+        f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
+        f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
 
     table = []
     for k in kernels:

@@ -13,10 +13,26 @@
   through the CHUNKED PREFILL LANE, one chunk per scheduler turn, so a
   long prompt never stalls in-flight decode blocks;
 - rows retire on EOS / their own budget without stopping the others; if
-  the pool runs dry mid-decode the newest row is preempted and restarts
-  from its prompt when that is invisible (greedy, or nothing streamed
-  yet; the stream's delivered watermark is kept so nothing is sent
-  twice), else it fails with the retryable :class:`PreemptionShed`;
+  the pool runs dry mid-decode the newest row is PREEMPTED: its live KV
+  pages and exact decode state go to a host SPILL TIER (one device-to-
+  host copy, packed as a ``migration.pack_payload`` blob into an
+  shm-arena lease, ``utils/shm_arena.py``, or kept as host arrays when
+  the arena denies) and re-admission scatters them into a fresh grant --
+  no re-prefill, greedy resume token-identical, a sampled mid-stream row
+  resumes its own draw. The tier is bounded (``LUMEN_VLM_SPILL_BYTES``,
+  default 256 MiB, 0 disables; ``LUMEN_VLM_SPILL_MAX`` entries, default
+  32); any spill or resume failure (arena, crc, the ``kv_spill`` /
+  ``kv_resume`` fault points) degrades to requeue-and-redo for rows whose
+  restart is invisible (greedy, or nothing streamed yet; the stream's
+  delivered watermark is kept so nothing is sent twice) and to the typed
+  retryable :class:`~lumen_tpu_torch.utils.deadline.PreemptionShed`, with
+  the engine's drain estimate, for sampled mid-stream rows. Leases and
+  pages balance at drain;
+- with ``LUMEN_VLM_PREFIX_BYTES`` set, a content-addressed PREFIX KV
+  CACHE (``prefix_cache.py``): a prompt whose page-aligned prefix is
+  cached attaches those pages by reference (copy-on-write block tables)
+  and prefills only the uncovered suffix, on a scratch seeded from the
+  pool pages;
 - with ``LUMEN_VLM_SPEC_K`` > 0, SPECULATIVE DECODING: a host n-gram
   drafter (prompt lookup over the row's prompt and output) proposes up to
   K tokens per greedy row, and one verify forward over a K+1 window
@@ -24,10 +40,13 @@
   ``LUMEN_VLM_SPEC_MIN_RATE`` after 64 proposals turns it off for the
   engine's lifetime. The knobs are the JAX engine's own.
 
-Not ported yet: the KV spill tier (preempted rows resume without
-re-prefill), disaggregated-serving migration, the prefix KV cache,
-telemetry, trace spans and fleet gauges. The engine's counters are plain
-attributes.
+Telemetry is the JAX engine's: the ``vlm-continuous:{name}`` gauge
+provider, the ``vlm_*`` counters, the ``device:{name}`` duty meter and
+``batch_items:{name}`` arrivals, ``vlm_spill`` / ``vlm_resume``
+flight-recorder events, and a ``batch.device`` span per decode block on
+every active request's trace. Not ported yet: disaggregated-serving
+migration (``submit_migrated``, the ``migrator`` hook); its gauges read
+0 so the keys match the JAX engine's.
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ import os
 import queue as queue_mod
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -45,20 +65,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...testing.faults import KV_RESUME, KV_SPILL, faults
+from ...utils import telemetry
+from ...utils.deadline import PreemptionShed
 from ...utils.env import env_float, env_int
-from .paged_kv import DEFAULT_PAGE_SIZE, PagedKVPool
+from ...utils.metrics import metrics
+from ...utils.shm_arena import ShmArena
+from ...utils.telemetry import record_event
+from ...utils.trace import current_trace
+from . import migration
+from .paged_kv import DEFAULT_PAGE_SIZE, PagedKVPool, PoolExhausted, page_bytes
+from .prefix_cache import PrefixCache, chunk_keys, prefix_cache_enabled
+
+__all__ = ["ContinuousScheduler", "PreemptionShed"]
 
 logger = logging.getLogger(__name__)
 
 _STREAM_END = object()
-
-
-class PreemptionShed(RuntimeError):
-    """A sampled row that had already streamed tokens was preempted by
-    KV pool exhaustion and cannot restart without splicing draws; the
-    caller may retry after ``retry_after_s``."""
-
-    retry_after_s: float = 0.5
 
 
 @dataclass
@@ -81,8 +104,22 @@ class _Request:
     future: Future = field(default_factory=Future)
     stream_q: "queue_mod.SimpleQueue | None" = None
     cancelled: bool = False
-    #: carried across preemption so a restarted stream never re-delivers.
+    #: the submitter's trace: decode blocks land ``batch.device`` spans on it.
+    trace: object = None
+    #: carried across preemption so a resumed stream never re-delivers.
     delivered: int = 0
+    #: parked :class:`_SpillRecord` while the request waits, preempted, at
+    #: the queue head for pages to free; None on the normal path.
+    spill: "_SpillRecord | None" = None
+    #: [L] int64 content identity of the merged prompt (token ids, vision
+    #: positions replaced by image-digest ints), the prefix cache's key
+    #: material; None when the cache is off.
+    prefix_content: "np.ndarray | None" = None
+    #: the prefix cache's chain keys over ``prefix_content``, computed once.
+    prefix_keys: "list | None" = None
+    #: fraction of the prompt served from shared prefix pages, set at
+    #: admission when the cache is on (None = cache off).
+    prefix_hit: "float | None" = None
     #: speculative decoding tally of this request (response metadata).
     spec_proposed: int = 0
     spec_accepted: int = 0
@@ -132,6 +169,45 @@ class _PrefillJob:
     length: int = 0  # live prompt tokens
     last_logits: object = None  # logits of the most recent chunk
     last_off: int = 0
+    #: shared prefix pages seeded into the scratch; the JOB holds one
+    #: reference on each until admission or cancellation.
+    shared: list = field(default_factory=list)
+
+
+@dataclass
+class _SpillRecord:
+    """Everything needed to resume a preempted row WITHOUT re-prefill (the
+    JAX engine's record).
+
+    The payload leaves are, in order, each layer's K and V page stack
+    ``[n_pad, kvh, page, dh]`` (padded to a power of two with dump-page
+    garbage) and the row's ``seen`` mask ``[V]``: the flatten order of the
+    JAX engine's payload tree, in the same dtypes (bf16 as
+    ``ml_dtypes.bfloat16``), so ``nbytes`` and the budget decisions match
+    and a blob packed by one package unpacks in the other. The payload
+    lives out of line: a :func:`~.migration.pack_payload` blob in an
+    shm-arena lease when the arena had room (``crc`` over the blob catches
+    a torn lease at resume), else the host arrays themselves. The decode
+    scalars are exact state: ``cur_tok`` is the sampled but not yet
+    emitted next token. Unlike the JAX record it holds no random state:
+    a row's decode draws come from the engine's stream, and its own
+    generator served only its first token."""
+
+    n_pages: int            # live pages exported -- the resume grant size
+    n_pad: int              # power-of-2 padded page count in the payload
+    nbytes: int             # payload bytes -- ledger budget accounting
+    crc: int                # crc32 over the lease's blob (0 = host arrays)
+    cur_tok: int            # pending next token (sampled, not yet emitted)
+    cur_len: int            # prompt + generated KV length
+    n_gen: int              # tokens generated so far (== len(tokens))
+    prompt_len: int = 0
+    tokens: list = field(default_factory=list)
+    lease: object = None    # ArenaSlot when the shm path won
+    arrays: "list | None" = None  # host-array payload otherwise
+    #: shared prefix pages the row held at spill time. NOT exported: they
+    #: stay resident in the pool under one reference held by the RECORD,
+    #: and resume re-attaches them ahead of the fresh grant.
+    shared_pages: list = field(default_factory=list)
 
 
 class ContinuousScheduler:
@@ -151,6 +227,9 @@ class ContinuousScheduler:
     ):
         self.gen = generator
         self.name = name
+        # The MicroBatcher's duty meter name: capacity readers see engine
+        # families through the same sensor.
+        telemetry.set_capacity(f"device:{self.name}", 1.0, union=True)
         self.n_slots = slots
         self.block = block
         self.page_size = page_size
@@ -175,9 +254,29 @@ class ContinuousScheduler:
         self.admitted = 0
         self.preemptions = 0
         self.chunks_run = 0
-        self.preempt_redone = 0
-        self.preempt_failed = 0
-        self._block_s_ewma = 0.0
+        # -- KV spill tier: bounded by payload bytes (also the shm arena's
+        # budget, so the lease path and the host-array fallback draw on one
+        # pool) and by entries. LUMEN_VLM_SPILL_BYTES=0 turns it off.
+        self._spill_budget = env_int("LUMEN_VLM_SPILL_BYTES", 256 << 20, minimum=0)
+        self._spill_max = env_int("LUMEN_VLM_SPILL_MAX", 32, minimum=0)
+        self._spill_arena: ShmArena | None = None  # created on first spill
+        self._spill_ledger: dict[int, _SpillRecord] = {}  # id(req) -> record
+        self._spill_bytes_live = 0
+        self.spills = 0
+        self.spill_resumes = 0
+        self.spill_fallbacks = 0  # arena denied -> host-array payload
+        self.spill_denied = 0     # ledger full/disabled -> no spill attempt
+        self.preempt_redone = 0   # victim restarted from the prompt
+        self.preempt_failed = 0   # victim shed with the typed retryable error
+        # -- copy-on-write prefix KV reuse: off (None) unless
+        # LUMEN_VLM_PREFIX_BYTES grants a budget.
+        self.prefix: PrefixCache | None = None
+        if prefix_cache_enabled():
+            dtype_bytes = torch.finfo(generator.cache_dtype).bits // 8
+            self.prefix = PrefixCache(self.kv, page_bytes(generator.cfg, self.page_size, dtype_bytes))
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_pages = 0  # shared pages attached across all hits
         # Speculative decoding: K = 0 (default) builds no drafter and
         # never runs the verify program.
         self.spec_k = env_int("LUMEN_VLM_SPEC_K", 0, minimum=0, maximum=15)
@@ -187,8 +286,84 @@ class ContinuousScheduler:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_disabled = False
+        # Per-token decode pace (EWMA over block wall time): the
+        # PreemptionShed retry hint.
+        self._block_s_ewma = 0.0
+        self._preempt_log_t = 0.0  # 1/s warning throttle
+        # Decode-block occupancy: active rows summed over blocks.
+        self._occ_rows = 0
+        self._occ_blocks = 0
         self._thread = threading.Thread(target=self._loop, name=f"vlm-continuous-{name}", daemon=True)
         self._thread.start()
+        ref = weakref.ref(self)  # the registry must not pin the pool
+
+        def _gauges() -> dict:
+            s = ref()
+            return {} if s is None else s.gauges()
+
+        self._gauge_fn = _gauges
+        metrics.register_gauges(f"vlm-continuous:{self.name}", _gauges)
+
+    def gauges(self) -> dict:
+        """The ``vlm-continuous:{name}`` gauges, key for key the JAX
+        engine's: resumed + redone + failed add up to preempted once parked
+        spills drain, and spill entries/bytes return to 0."""
+        stats = self.kv.stats()
+        out = {
+            "blocks_run": self.blocks_run,
+            "admitted": self.admitted,
+            "preempted": self.preemptions,
+            "prefill_chunks_run": self.chunks_run,
+            "prefill_lane_depth": len(self._prefill_jobs),
+            "slots_total": self.n_slots,
+            "slots_live": len(self._slots),
+            "queue_depth": len(self._pending),
+            "page_size": stats.page_size,
+            "pages_total": stats.pages_total,
+            "pages_free": stats.pages_free,
+            "pages_live": stats.pages_live,
+            "pages_allocated_total": stats.allocated_total,
+            "pages_freed_total": stats.freed_total,
+            "pages_fill_pct": round(100.0 * stats.pages_live / max(stats.pages_total - 1, 1), 1),
+            "spill_entries": len(self._spill_ledger),
+            "spill_bytes": self._spill_bytes_live,
+            "spill_bytes_budget": self._spill_budget,
+            "spill_max_entries": self._spill_max,
+            "spilled": self.spills,
+            "spill_resumed": self.spill_resumes,
+            "spill_fallbacks": self.spill_fallbacks,
+            "spill_denied": self.spill_denied,
+            "preempt_redone": self.preempt_redone,
+            "preempt_failed": self.preempt_failed,
+            # Disaggregated-serving migration is not ported: its counters
+            # keep the JAX engine's gauge keys, at 0.
+            "migrated_out": 0,
+            "migrate_out_failed": 0,
+            "migrated_in": 0,
+            "migrate_in_rejected": 0,
+        }
+        if self._spill_arena is not None:
+            arena = self._spill_arena.stats()
+            out["spill_arena_segments"] = arena["segments"]
+            out["spill_arena_bytes"] = arena["bytes"]
+            out["spill_arena_live"] = arena["live"]
+            out["spill_arena_denied"] = arena["denied"]
+        if self.prefix is not None:
+            out.update(self.prefix.gauges())
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_misses"] = self.prefix_misses
+            out["prefix_hit_pages"] = self.prefix_hit_pages
+            out["pages_shared"] = stats.pages_shared
+        if self.spec_k > 0:
+            out["spec_k"] = self.spec_k
+            out["spec_turns"] = self.spec_turns
+            out["spec_proposed"] = self.spec_proposed
+            out["spec_accepted"] = self.spec_accepted
+            out["spec_accept_rate"] = round(self.spec_accepted / max(self.spec_proposed, 1), 3)
+            out["spec_disabled"] = int(self.spec_disabled)
+        if self._occ_blocks:
+            out["occupancy_pct_mean"] = round(100.0 * self._occ_rows / (self._occ_blocks * self.n_slots), 1)
+        return out
 
     # -- public API --------------------------------------------------------
 
@@ -200,13 +375,17 @@ class ContinuousScheduler:
             raise ValueError(
                 f"request needs {need} KV tokens but the paged pool holds at most "
                 f"{min(self.kv.row_capacity(), (self.kv.pages_total - 1) * self.kv.page_size)} "
-                "per row; raise the pool size or lower max_new_tokens"
+                "per row; raise LUMEN_VLM_KV_PAGES or lower max_new_tokens"
             )
+        if req.trace is None:
+            req.trace = current_trace()
         with self._cond:
             if self._closed:
                 raise RuntimeError("continuous scheduler is closed")
             self._pending.append(req)
             self._cond.notify()
+        # Arrivals under the batcher's ``batch_items:{name}`` key.
+        telemetry.count(f"batch_items:{self.name}")
         return req.future
 
     def submit_stream(self, req: _Request):
@@ -245,7 +424,15 @@ class ContinuousScheduler:
             jobs, self._prefill_jobs = list(self._prefill_jobs), deque()
         err = RuntimeError("continuous scheduler closed")
         for req in pending + [s.request for s in live] + [j.request for j in jobs]:
+            self._drop_spill(req)
             _fail(req, err)
+        for job in jobs:
+            self._drop_job_hold(job)
+        if self.prefix is not None:
+            self.prefix.clear()
+        if self._spill_arena is not None:
+            self._spill_arena.close()
+        metrics.unregister_gauges(f"vlm-continuous:{self.name}", self._gauge_fn)
 
     # -- scheduler loop ----------------------------------------------------
 
@@ -280,12 +467,16 @@ class ContinuousScheduler:
                 if closed:
                     err = RuntimeError("continuous scheduler closed")
                     for req in admit:
+                        self._drop_spill(req)
                         _fail(req, err)
                     return
                 live = []
                 for req in admit:
                     if req.cancelled:
-                        _retire(req, [], eos=False)
+                        # A parked record's tokens are what the row
+                        # produced: deliver them and free the lease.
+                        rec = self._drop_spill(req)
+                        _retire(req, list(rec.tokens) if rec else [], eos=False)
                     else:
                         live.append(req)
                 # Page gating in arrival order; a finished chunk-lane job
@@ -294,25 +485,45 @@ class ContinuousScheduler:
                 placeable, deferred = [], []
                 budget = self.kv.pages_free - self._lane_reserved_pages()
                 for req in live:
-                    need = self.kv.pages_for(req.n_prompt + 1)
+                    if req.spill is not None:
+                        # A parked victim resumes into exactly its exported
+                        # grant; growth past it is _ensure_growth's job.
+                        need = req.spill.n_pages
+                    else:
+                        # A cached prefix needs no fresh grant; coverage is
+                        # re-checked at admission.
+                        covered = len(self._prefix_lookup(req, req.n_prompt))
+                        need = self.kv.pages_for(req.n_prompt + 1) - covered
+                    if need > budget and self.prefix is not None and not deferred:
+                        # Cached history yields to live admissions first.
+                        budget += self.prefix.reclaim(need - budget)
                     if deferred or need > budget:
                         deferred.append(req)
                     else:
                         budget -= need
                         placeable.append(req)
                 self._requeue_front(deferred)
-                direct = []
+                direct, hits = [], []
                 for req in placeable:
-                    if req.embeds.shape[1] > self.prefill_chunk:
+                    if req.spill is not None:
+                        self._resume_row(req)
+                    elif req.embeds.shape[1] > self.prefill_chunk:
                         self._prefill_jobs.append(self._start_chunk_job(req))
+                    elif self._prefix_lookup(req, req.n_prompt):
+                        hits.append(req)
                     else:
                         direct.append(req)
-                for group in self._admit_groups(direct):
+                # Admission units: prefix hits one by one (per-row
+                # coverage), misses in batched-prefill groups; a failure
+                # fails its unit only.
+                units = [(self._admit_prefix_hit, req, [req]) for req in hits]
+                units += [(self._admit_group, g, g) for g in self._admit_groups(direct)]
+                for admit_fn, arg, members in units:
                     try:
-                        self._admit_group(group)
-                    except Exception as e:  # noqa: BLE001 - fail ONE group
-                        logger.exception("admission of %d request(s) failed", len(group))
-                        for req in group:
+                        admit_fn(arg)
+                    except Exception as e:  # noqa: BLE001 - fail ONE unit
+                        logger.exception("admission of %d request(s) failed", len(members))
+                        for req in members:
                             _fail(req, e)
                 self._advance_prefill_lane()
                 if self._slots:
@@ -325,7 +536,10 @@ class ContinuousScheduler:
                 live, self._slots = list(self._slots.values()), {}
                 jobs, self._prefill_jobs = list(self._prefill_jobs), deque()
             for req in pending + [s.request for s in live] + [j.request for j in jobs]:
+                self._drop_spill(req)
                 _fail(req, RuntimeError(f"continuous scheduler died: {e!r}"))
+            for job in jobs:
+                self._drop_job_hold(job)
             if not isinstance(e, Exception):
                 raise
 
@@ -364,14 +578,55 @@ class ContinuousScheduler:
             torch.tensor([r.repetition_penalty for r in reqs], dtype=torch.float32, device=dev),
         )
 
-    def _install_row(self, req: _Request, caches1, tok0, seen1) -> int:
-        """Grant pages and write one prefilled row into a free slot."""
+    # -- prefix cache helpers -----------------------------------------------
+
+    def _prefix_keys(self, req: _Request, n: int) -> list[bytes]:
+        """Chain-hash keys over the request's live content identity,
+        computed once per request (page-aligned, so a requeue reuses
+        them)."""
+        if self.prefix is None or req.prefix_content is None:
+            return []
+        if req.prefix_keys is None:
+            req.prefix_keys = chunk_keys(np.asarray(req.prefix_content)[:n], self.page_size)
+        return req.prefix_keys
+
+    def _prefix_lookup(self, req: _Request, n: int) -> list[int]:
+        """Longest cached prefix for this request, capped one token short
+        of the prompt so the write frontier always lands in a private page
+        (``admit_shared``'s contract)."""
+        keys = self._prefix_keys(req, n)
+        if not keys:
+            return []
+        return self.prefix.lookup(keys)[: (n - 1) // self.page_size]
+
+    def _prefix_insert(self, req: _Request, slot: int, n: int) -> None:
+        """Record an installed row's full prompt pages (hit rows refresh
+        their shared entries and extend coverage with the fresh suffix)."""
+        keys = self._prefix_keys(req, n)
+        if not keys:
+            return
+        pages = self.kv.owned_pages(slot)[: len(keys)]
+        self.prefix.insert(keys[: len(pages)], pages)
+
+    def _install_row(self, req: _Request, caches1, tok0, seen1, shared_pages=None) -> int:
+        """Grant pages and write one prefilled row into a free slot.
+        ``shared_pages`` attaches a cached prefix ahead of the fresh grant:
+        the scatter then targets a table whose shared entries point at the
+        dump page, so the scratch's prefix segments (already resident in
+        the real pages) land harmlessly while the suffix fills the private
+        pages."""
         slot = self._free_slot()
         n = req.n_prompt
-        bt_row = self.kv.admit(slot, n)
+        shared = list(shared_pages or ())
+        if shared:
+            bt_row = self.kv.admit_shared(slot, shared, n)
+            bt_dev = bt_row.copy()
+            bt_dev[: len(shared)] = 0
+        else:
+            bt_row = bt_dev = self.kv.admit(slot, n)
         try:
             self.gen.admit(
-                self.pool, slot, caches1, tok0, seen1, n, bt_row, req.max_new,
+                self.pool, slot, caches1, tok0, seen1, n, bt_dev, req.max_new,
                 req.temperature, req.top_p, req.do_sample, req.repetition_penalty,
             )
         except Exception:
@@ -385,6 +640,17 @@ class ContinuousScheduler:
         with self._cond:
             self._slots[slot] = slot_state
         self.admitted += 1
+        if self.prefix is not None:
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_hit_pages += len(shared)
+                metrics.count("vlm_prefix_hits")
+                req.prefix_hit = len(shared) * self.page_size / max(n, 1)
+            else:
+                self.prefix_misses += 1
+                metrics.count("vlm_prefix_misses")
+                req.prefix_hit = 0.0
+            self._prefix_insert(req, slot, n)
         return slot
 
     def _text_toks(self, req: _Request) -> list[int]:
@@ -394,6 +660,45 @@ class ContinuousScheduler:
         while ids and ids[-1] == pad:
             ids.pop()
         return ids
+
+    def _seeded_scratch(self, pages: list[int], scratch_len: int):
+        """A prefill scratch whose first ``len(pages)`` page segments hold
+        the cached prefix KV (no decoder forward)."""
+        ids = np.zeros((scratch_len // self.page_size,), np.int32)
+        ids[: len(pages)] = pages
+        return self.gen.seed_prefix(self.gen.new_prefill_cache(scratch_len), self.pool["caches"], ids)
+
+    def _admit_prefix_hit(self, req: _Request) -> None:
+        """Admit one request whose prompt prefix is cached: attach the
+        shared pages by reference, seed a prefill scratch with their
+        contents, and run the decoder over the UNCOVERED SUFFIX only.
+        Coverage is re-resolved here (an eviction since the admission peek
+        shrinks it); losing the page race requeues, losing coverage
+        entirely admits as a plain batch of one."""
+        n = req.n_prompt
+        pages = self._prefix_lookup(req, n)
+        if not pages:
+            self._admit_group([req])
+            return
+        covered = len(pages) * self.page_size
+        span = int(req.embeds.shape[1])
+        caches = self._seeded_scratch(pages, self._admit_kv_len(span))
+        dev = self.gen.device
+        positions = torch.arange(covered, span, device=dev)[None, :]
+        logits = self.gen.prefill_chunk(
+            caches, req.embeds[:, covered:span], positions, covered,
+            torch.tensor([n], dtype=torch.int32, device=dev),
+        )
+        tok0, seen = self.gen.chunk_finish(
+            logits, torch.tensor([n - 1 - covered], device=dev), req.prompt_ids, req.length,
+            req.generator, *self._params([req]),
+        )
+        try:
+            self._install_row(req, caches, tok0, seen, shared_pages=pages)
+        except PoolExhausted:
+            # Same-turn eviction shrank coverage and the fresh need no
+            # longer fits: park at the queue head and retry next turn.
+            self._requeue_front([req])
 
     def _admit_group(self, reqs: list[_Request]) -> None:
         """One batched prefill for the group, then per-row admission. The
@@ -430,14 +735,31 @@ class ContinuousScheduler:
         job = self._prefill_jobs[0]
         if job.offset < job.length or job.request.cancelled:
             return 0
-        return self.kv.pages_for(job.length + 1)
+        return self.kv.pages_for(job.length + 1) - len(job.shared)
 
     def _start_chunk_job(self, req: _Request) -> _PrefillJob:
         scratch_len = self._admit_kv_len(int(req.embeds.shape[1]))
-        return _PrefillJob(
-            request=req, caches=self.gen.new_prefill_cache(scratch_len),
-            scratch_len=scratch_len, length=req.n_prompt,
-        )
+        job = _PrefillJob(request=req, scratch_len=scratch_len, length=req.n_prompt)
+        # Lane jobs reuse cached prefixes too: the scratch is seeded from
+        # the shared pages and chunking starts AFTER the covered span. The
+        # job holds its own reference on the pages so an eviction during
+        # the multi-turn chunk run cannot free them; _drop_job_hold
+        # releases it on every exit path.
+        hit = self._prefix_lookup(req, req.n_prompt)
+        if hit:
+            self.kv.incref(hit)
+            job.shared = list(hit)
+            job.caches = self._seeded_scratch(hit, scratch_len)
+            job.offset = len(hit) * self.page_size
+        else:
+            job.caches = self.gen.new_prefill_cache(scratch_len)
+        return job
+
+    def _drop_job_hold(self, job: _PrefillJob) -> None:
+        """Release a lane job's prefix-page hold (idempotent)."""
+        if job.shared:
+            self.kv.decref(job.shared)
+            job.shared = []
 
     def _advance_prefill_lane(self) -> None:
         """Run ONE chunk of the head lane job (decode blocks interleave
@@ -448,6 +770,7 @@ class ContinuousScheduler:
             req = job.request
             if req.cancelled:
                 self._prefill_jobs.popleft()
+                self._drop_job_hold(job)
                 _retire(req, [], eos=False)
                 continue
             dev = self.gen.device
@@ -463,8 +786,17 @@ class ContinuousScheduler:
                 job.offset = off + c
                 self.chunks_run += 1
                 return  # one chunk per turn
-            if not self.kv.can_admit(job.length):
-                return
+            # All live chunks ran: admit when pages allow. Shared prefix
+            # pages are granted by reference, so only the fresh suffix
+            # competes for the free list; cached history yields first.
+            if not self.kv.can_admit(job.length, shared_pages=len(job.shared)):
+                if self.prefix is None:
+                    return
+                short = self.kv.pages_for(job.length + 1) - len(job.shared) - self.kv.pages_free
+                if short <= 0 or not self.prefix.reclaim(short):
+                    return
+                if not self.kv.can_admit(job.length, shared_pages=len(job.shared)):
+                    return
             idx = torch.tensor([job.length - 1 - job.last_off], device=dev)
             tok0, seen = self.gen.chunk_finish(
                 job.last_logits, idx, req.prompt_ids, req.length, req.generator,
@@ -472,52 +804,186 @@ class ContinuousScheduler:
             )
             self._prefill_jobs.popleft()
             try:
-                self._install_row(req, job.caches, tok0, seen)
+                self._install_row(req, job.caches, tok0, seen, shared_pages=job.shared)
             except Exception as e:  # noqa: BLE001 - fail this request only
                 logger.exception("chunk-lane admission failed")
                 _fail(req, e)
+            finally:
+                self._drop_job_hold(job)
             return
 
     # -- decode blocks ------------------------------------------------------
 
     def _preempt_newest(self, protect: int) -> bool:
-        """Evict the newest live row (except ``protect``) to free pages.
-        A row whose restart is invisible (greedy, or sampled with nothing
-        streamed) is requeued at the head to redo from its prompt; a
-        sampled row that already streamed fails with
-        :class:`PreemptionShed` -- splicing a fresh draw onto delivered
-        tokens would emit a sequence no sampling run produced."""
+        """Evict the newest live row (except ``protect``): export its pages
+        and decode state into the spill tier and park it at the queue head
+        to RESUME (no re-prefill, token-identical), or, when the tier is
+        full, off, or the export fails, fall down the ladder:
+        requeue-and-redo for a row whose restart is invisible (greedy, or
+        nothing streamed yet; ``delivered`` is kept so a restarted stream
+        never re-sends its prefix), the typed retryable
+        :class:`PreemptionShed` for a sampled row that already streamed --
+        splicing a fresh draw onto delivered tokens would emit a sequence
+        no sampling run produced. Such rows are the last choice of
+        victim."""
         victims = [i for i in self._slots if i != protect]
         if not victims:
             return False
 
-        def redo_safe(req: _Request) -> bool:
+        def redo_safe(i: int) -> bool:
+            req = self._slots[i].request
             return not (req.do_sample and req.delivered > 0)
 
-        clean = [i for i in victims if redo_safe(self._slots[i].request)]
+        clean = [i for i in victims if redo_safe(i)]
         idx = max(clean or victims, key=lambda i: self._slots[i].seq)
+        record = spill_err = None
+        try:
+            # Export BEFORE the release, while the row still owns its
+            # pages; the export writes nothing, so a failure leaves every
+            # row intact.
+            record = self._spill_victim(idx)
+        except Exception as e:  # noqa: BLE001 - spill is best-effort
+            spill_err = e
+            logger.warning("KV spill of slot %d failed (%s); degrading", idx, e)
         self.pool["done"][idx] = True
         with self._cond:
             slot = self._slots.pop(idx)
         self.kv.release(idx)
         self.preemptions += 1
-        logger.warning("paged KV pool exhausted: preempting slot %d (%d tokens in)", idx, len(slot.tokens))
+        metrics.count("vlm_paged_preemptions")
+        now = time.monotonic()
+        if now - self._preempt_log_t >= 1.0:
+            # One line a second, not a flood, through a preemption storm.
+            self._preempt_log_t = now
+            logger.warning(
+                "paged KV pool exhausted: preempting slot %d (%d tokens in, %s)",
+                idx, len(slot.tokens),
+                "spilled for resume" if record is not None else "restarts from prompt",
+            )
         req = slot.request
-        if redo_safe(req):
+        if record is not None:
+            record.prompt_len = slot.prompt_len
+            record.tokens = slot.tokens
+            self._park_spill(req, record)
+        elif not (req.do_sample and req.delivered > 0):
             self.preempt_redone += 1
+            metrics.count("vlm_preempt_redone")
             self._requeue_front([req])
         else:
-            err = PreemptionShed(
-                "preempted by KV pool exhaustion mid-stream; a sampled stream "
-                "cannot restart without splicing draws -- retry after the pool drains"
-            )
-            err.retry_after_s = self._drain_estimate_s()
-            self.preempt_failed += 1
-            _fail(req, err)
+            self._fail_preempted(req, spill_err)
         return True
 
+    # -- KV spill tier -------------------------------------------------------
+
+    def _get_arena(self) -> ShmArena:
+        """Created on first use, so an engine that never preempts never
+        touches /dev/shm; its budget is the ledger's byte bound."""
+        if self._spill_arena is None:
+            tag = "".join(c if c.isalnum() else "-" for c in self.name)
+            self._spill_arena = ShmArena(name=f"vlmspill-{tag}", max_bytes=self._spill_budget)
+        return self._spill_arena
+
+    def _export_state(self, idx: int, n_shared: int) -> "tuple[_SpillRecord, list[int]]":
+        """THE export code path (the spill tier's, and later federation's
+        ``fed_kv_put``): gather slot ``idx``'s pages past its first
+        ``n_shared`` block-table entries (padded to a power of two with
+        the dump page) plus its exact decode scalars, in one device-to-
+        host copy (``Generator.export_row``). Returns ``(record,
+        shared_page_ids)`` with the payload as host arrays; the sink
+        decides where the bytes live. Writes nothing, so a failure leaves
+        the pool untouched."""
+        owned = self.kv.owned_pages(idx)
+        shared, private = owned[:n_shared], owned[n_shared:]
+        n_pad = 1
+        while n_pad < max(1, len(private)):
+            n_pad *= 2
+        ids = np.zeros((n_pad,), np.int32)
+        ids[: len(private)] = private
+        host = self.gen.export_row(self.pool, idx, ids)
+        leaves = [layer[name] for layer in host["pages"] for name in ("k", "v")] + [host["seen"]]
+        rec = _SpillRecord(
+            n_pages=len(private), n_pad=n_pad, nbytes=sum(int(a.nbytes) for a in leaves),
+            crc=0, cur_tok=host["cur_tok"], cur_len=host["cur_len"], n_gen=host["n_gen"], arrays=leaves,
+        )
+        return rec, shared
+
+    def _spill_victim(self, idx: int) -> "_SpillRecord | None":
+        """Export slot ``idx``'s live pages and decode state into a spill
+        record. ``None`` = tier off or ledger full (counted; the caller
+        degrades); raises on an export or pack failure (incl. the
+        ``kv_spill`` fault point). Runs BEFORE the caller releases the
+        pages."""
+        if self._spill_budget <= 0 or self._spill_max <= 0:
+            return None
+        if len(self._spill_ledger) >= self._spill_max:
+            self.spill_denied += 1
+            metrics.count("vlm_spill_denied")
+            return None
+        faults.check(KV_SPILL, f"{self.name}:{idx}")
+        # A row on a cached prefix does not export its shared pages: they
+        # stay resident under the cache's (and this record's) reference
+        # and re-attach on resume. Only the PRIVATE suffix goes to host.
+        rec, shared = self._export_state(idx, self.kv.shared_prefix_len(idx))
+        if self._spill_bytes_live + rec.nbytes > self._spill_budget:
+            self.spill_denied += 1
+            metrics.count("vlm_spill_denied")
+            return None
+        # Pack into the one migration blob and park it in the shm arena
+        # when the budget allows; else keep the host arrays -- the same
+        # bytes against the same ledger budget.
+        blob, crc = migration.pack_payload(rec.arrays)
+        got = self._get_arena().acquire(len(blob))
+        if got is not None:
+            np.frombuffer(got.buf, np.uint8, count=len(blob))[:] = np.frombuffer(blob, np.uint8)
+            rec.lease, rec.crc, rec.nbytes, rec.arrays = got, crc, len(blob), None
+        else:
+            self.spill_fallbacks += 1
+            metrics.count("vlm_spill_fallbacks")
+        # The record's hold on the shared prefix is taken LAST: every
+        # failure above returns first, so a record exists iff the incref
+        # happened and _drop_spill's decref balances it.
+        if shared:
+            self.kv.incref(shared)
+            rec.shared_pages = list(shared)
+        return rec
+
+    def _park_spill(self, req: _Request, record: _SpillRecord) -> None:
+        req.spill = record
+        self._spill_ledger[id(req)] = record
+        self._spill_bytes_live += record.nbytes
+        self.spills += 1
+        metrics.count("vlm_spills")
+        record_event(
+            "vlm_spill", self.name,
+            f"row spilled for resume: {record.n_pages} pages, {len(record.tokens)} tokens parked",
+            min_interval_s=1.0,
+            pages=record.n_pages, bytes=record.nbytes, entries=len(self._spill_ledger),
+        )
+        self._requeue_front([req])
+
+    def _drop_spill(self, req: _Request) -> "_SpillRecord | None":
+        """Detach and free a request's spill record (lease back to the
+        arena, bytes off the ledger). Idempotent: every retirement path
+        calls it, so accounting balances at drain."""
+        rec = req.spill
+        if rec is None:
+            return None
+        req.spill = None
+        self._spill_ledger.pop(id(req), None)
+        self._spill_bytes_live -= rec.nbytes
+        if rec.lease is not None:
+            rec.lease.release()
+            rec.lease = None
+        rec.arrays = None
+        if rec.shared_pages:
+            self.kv.decref(rec.shared_pages)
+            rec.shared_pages = []
+        return rec
+
     def _drain_estimate_s(self) -> float:
-        """Soonest retire at the engine's per-token pace (retry hint)."""
+        """Retry-after hint for :class:`PreemptionShed`: the soonest retire
+        (least remaining budget of a live row) at the engine's per-token
+        pace; half a second before the first block."""
         per_tok = self._block_s_ewma / max(self.block, 1)
         if per_tok <= 0.0:
             return 0.5
@@ -526,6 +992,98 @@ class ContinuousScheduler:
             default=self.block,
         )
         return per_tok * max(remaining, self.block)
+
+    def _fail_preempted(self, req: _Request, cause: "BaseException | None") -> None:
+        err = PreemptionShed(
+            "preempted by KV pool exhaustion mid-stream and the spill tier "
+            "could not park the row; a sampled stream cannot restart "
+            "without splicing draws -- retry after the pool drains"
+        )
+        err.retry_after_s = self._drain_estimate_s()
+        if cause is not None:
+            err.__cause__ = cause
+        self.preempt_failed += 1
+        metrics.count("vlm_preempt_failed")
+        _fail(req, err)
+
+    def _unpack_spill(self, rec: _SpillRecord) -> list:
+        """The record's payload leaves as host arrays. A lease is checked
+        against its crc (a torn or recycled lease becomes a clean
+        degradation, not corrupt tokens) and COPIED out: it recycles right
+        after resume."""
+        if rec.lease is None:
+            if rec.arrays is None:
+                raise RuntimeError("spill record has no payload (double resume?)")
+            return list(rec.arrays)
+        try:
+            leaves = migration.unpack_payload(rec.lease.buf[: rec.nbytes], rec.crc)
+        except ValueError as e:
+            raise RuntimeError(f"spill lease rejected: {e}") from None
+        return [leaf.copy() for leaf in leaves]
+
+    def _resume_row(self, req: _Request) -> None:
+        """Scatter a parked spill record into a fresh page grant and
+        re-install the row: zero re-prefill, greedy continuation
+        token-identical, sampled continuation on its own stream. A failure
+        anywhere degrades to the ladder (requeue-and-redo or the typed
+        shed)."""
+        rec: _SpillRecord = req.spill
+        slot = granted = None
+        try:
+            faults.check(KV_RESUME, f"{self.name}:resume")
+            leaves = self._unpack_spill(rec)
+            n_layers = (len(leaves) - 1) // 2
+            pages = [{"k": leaves[2 * i], "v": leaves[2 * i + 1]} for i in range(n_layers)]
+            slot = self._free_slot()
+            # Shared prefix pages re-attach by reference ahead of the
+            # fresh grant; the scatter rewrites only the PRIVATE suffix.
+            bt_row = self.kv.admit_exact(slot, rec.n_pages, shared_pages=rec.shared_pages or None)
+            granted = slot
+            base = len(rec.shared_pages)
+            ids = np.zeros((rec.n_pad,), np.int32)
+            ids[: rec.n_pages] = bt_row[base : base + rec.n_pages]
+            self.gen.resume(
+                self.pool, slot, pages, ids, leaves[-1], rec.cur_tok, rec.cur_len,
+                rec.n_gen, req.max_new, req.temperature, req.top_p,
+                req.do_sample, req.repetition_penalty,
+            )
+        except PoolExhausted:
+            # Lost a page race (lane reservation, same-turn admissions):
+            # keep the record parked and try again next turn.
+            self._requeue_front([req])
+            return
+        except Exception as e:  # noqa: BLE001 - degrade, never wedge the loop
+            if granted is not None:
+                self.kv.release(granted)
+            logger.warning("KV resume failed (%s); degrading", e)
+            self._drop_spill(req)
+            if not (req.do_sample and req.delivered > 0):
+                self.preempt_redone += 1
+                metrics.count("vlm_preempt_redone")
+                self._requeue_front([req])
+            else:
+                self._fail_preempted(req, e)
+            return
+        self._admit_seq += 1
+        slot_state = _Slot(request=req, prompt_len=rec.prompt_len, seq=self._admit_seq, tokens=rec.tokens)
+        if self._spec_active():
+            # The drafter's host mirrors: the prompt ids and the pending
+            # token the record carried.
+            slot_state.text_toks = self._text_toks(req)
+            slot_state.pending_tok = rec.cur_tok
+        with self._cond:
+            self._slots[slot] = slot_state
+        self.admitted += 1
+        self.spill_resumes += 1
+        metrics.count("vlm_spill_resumes")
+        self._drop_spill(req)
+        record_event(
+            "vlm_resume", self.name,
+            f"row resumed into slot {slot}: {rec.n_pages} pages re-installed, "
+            f"{len(rec.tokens)} tokens already out",
+            min_interval_s=1.0,
+            pages=rec.n_pages, tokens=len(rec.tokens),
+        )
 
     def _row_need(self, slot: _Slot, horizon: int | None = None) -> int:
         """KV tokens a row needs covered before the next block (or a
@@ -539,16 +1097,27 @@ class ContinuousScheduler:
 
     def _ensure_growth(self, horizon: int | None = None) -> None:
         """Every live row's pages must cover the next block's (or verify
-        window's) writes; preempt the newest rows until the free list can
-        grow the rest."""
+        window's) writes; cached prefixes yield first, then the newest rows
+        are preempted until the free list can grow the rest. Admission caps
+        prefix attachment one token short of the prompt, so the write
+        frontier is always private: a copy-on-write here means an allocator
+        invariant broke, and it raises."""
+        cow: list = []
         for idx in sorted(self._slots, key=lambda i: self._slots[i].seq):
             slot = self._slots.get(idx)
             if slot is None:
                 continue
             need = self._row_need(slot, horizon)
-            while not self.kv.grow(idx, need):
+            while not self.kv.grow(idx, need, cow):
+                if self.prefix is not None and self.prefix.reclaim(1):
+                    continue
                 if not self._preempt_newest(protect=idx):
                     raise RuntimeError("paged pool cannot grow a lone row (feasibility bug)")
+        if cow:
+            raise RuntimeError(
+                f"unexpected copy-on-write during decode growth: {cow} "
+                "(prefix attachment must leave the write frontier private)"
+            )
 
     # -- speculative decoding ---------------------------------------------
 
@@ -618,7 +1187,9 @@ class ContinuousScheduler:
         drafts = {i: d for i, d in drafts.items() if i in self._slots}
         if not drafts:
             width = 0
+        active = len(self._slots)
         t0 = time.perf_counter()
+        tm0 = time.monotonic()
         # Ship only a power-of-2 prefix of the block tables covering the
         # longest live row: the plain CPU gather reads every entry it is
         # given, and the kernel's grid needs no more. A verify window
@@ -650,6 +1221,8 @@ class ContinuousScheduler:
         else:
             toks = self.gen.step_block(self.pool, tables, self._rng, block=self.block)
         self.blocks_run += 1
+        self._occ_rows += active
+        self._occ_blocks += 1
         # One device->host transfer for everything the bookkeeping needs
         # (cur_tok rides along only when speculation is configured).
         cols = [toks, self.pool["n_gen"][:, None], self.pool["done"][:, None].int(),
@@ -660,11 +1233,21 @@ class ContinuousScheduler:
         n = toks.shape[1]
         toks_np, n_gen = host[:, :n], host[:, n]
         done, eos = host[:, n + 1], host[:, n + 2]
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
         self._block_s_ewma = dt if self._block_s_ewma == 0.0 else 0.8 * self._block_s_ewma + 0.2 * dt
+        telemetry.busy(f"device:{self.name}", tm0, time.monotonic())
+        span_meta = {
+            "step": self.blocks_run,
+            "rows": active,
+            "fill_pct": round(100.0 * active / self.n_slots, 1),
+            "block": self.block,
+        }
         for idx in list(self._slots):
             slot = self._slots[idx]
             req = slot.request
+            if req.trace is not None:
+                req.trace.add_span("batch.device", t0, t1, dict(span_meta))
             new = int(n_gen[idx]) - len(slot.tokens)
             if width and ql[idx] > 1:
                 # A verify turn's first emission is the pending token, not
@@ -675,6 +1258,8 @@ class ContinuousScheduler:
                 self.spec_accepted += acc
                 req.spec_proposed += prop
                 req.spec_accepted += acc
+                metrics.count("vlm_spec_proposed", prop)
+                metrics.count("vlm_spec_accepted", acc)
             if self.spec_k > 0:
                 slot.pending_tok = int(host[idx, n + 3])
             if new > 0:

@@ -17,10 +17,14 @@ Speculative decoding's verify program (:meth:`Generator.verify`) runs a
 W-token window per row through one decode forward and accepts the drafted
 tokens the model would have emitted itself.
 
+The spill tier's export and resume (:meth:`Generator.export_row`,
+:meth:`Generator.resume`) and the prefix cache's scratch seeding
+(:meth:`Generator.seed_prefix`) are plain indexing on the pool tensors.
+A row crosses between card and host in ONE copy each way: its leaves are
+viewed as bytes and concatenated on the side they start from.
+
 Not ported yet: the fused ``while_loop`` generate and the one-request
-stream path (the continuous engine replaces both in serving), and the
-programs of the spill tier and the prefix cache (``_export_row``,
-``_resume``, ``_seed_prefix``).
+stream path (the continuous engine replaces both in serving).
 """
 
 from __future__ import annotations
@@ -30,6 +34,25 @@ import torch
 
 from ...ops.sampling import apply_repetition_penalty, sample
 from .modeling import VLMConfig, VLMModel, init_kv_cache, init_paged_kv_cache
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype; bf16 is ``ml_dtypes.bfloat16``,
+    the dtype the JAX package's host arrays carry, so a spill payload has
+    the same bytes and leaf dtypes in both packages."""
+    if dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """Inverse of :func:`numpy_dtype`."""
+    dtype = np.dtype(dtype)
+    if dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), dtype)).dtype
 
 
 class Generator:
@@ -281,3 +304,95 @@ class Generator:
             cur_tok = torch.where(step_active, nxt, cur_tok)
         pool.update(cur_tok=cur_tok, cur_len=cur_len, n_gen=n_gen, eos=eos, done=done)
         return toks_out
+
+    # -- KV spill tier and prefix cache ----------------------------------------
+
+    @torch.no_grad()
+    def export_row(self, pool, slot: int, page_ids) -> dict:
+        """One decode row's spillable state on the host (JAX
+        ``_export_row_impl``): its KV pages ``page_ids`` (block-table
+        order, padded to a power of two with the dump page 0, whose
+        garbage the resume scatter writes straight back to page 0) as
+        per-layer ``{"k", "v"}`` arrays ``[n_pad, kvh, page, dh]``, the
+        ``seen`` mask ``[V]`` and the decode scalars ``cur_tok``,
+        ``cur_len``, ``n_gen``. Every leaf is viewed as bytes and
+        concatenated on the card, so the row reaches the host in one
+        device-to-host copy; ``.cpu()`` returns after the copy, so the
+        caller may hand the pages to another row at once."""
+        ids = torch.as_tensor(np.asarray(page_ids), dtype=torch.long, device=self.device)
+        pages = [layer[name].index_select(0, ids) for layer in pool["caches"] for name in ("k", "v")]
+        scalars = torch.stack([pool["cur_tok"][slot], pool["cur_len"][slot], pool["n_gen"][slot]]).int()
+        leaves = pages + [scalars, pool["seen"][slot]]
+        host = torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves]).cpu().numpy()
+        out, off = [], 0
+        for t in leaves:
+            n = t.numel() * t.element_size()
+            out.append(host[off : off + n].view(numpy_dtype(t.dtype)).reshape(tuple(t.shape)))
+            off += n
+        *pages_np, scalars_np, seen_np = out
+        layers = [{"k": pages_np[2 * i], "v": pages_np[2 * i + 1]} for i in range(len(pool["caches"]))]
+        cur_tok, cur_len, n_gen = (int(x) for x in scalars_np)
+        return dict(pages=layers, seen=seen_np, cur_tok=cur_tok, cur_len=cur_len, n_gen=n_gen)
+
+    @torch.no_grad()
+    def resume(
+        self, pool, slot: int, pages, page_ids, seen1, cur_tok: int, cur_len: int, n_gen: int,
+        max_new: int, temperature: float, top_p: float, do_sample: bool, rep: float,
+    ) -> None:
+        """Re-install a spilled row into ``slot`` (JAX ``_resume_impl``):
+        scatter the exported ``pages`` (host arrays, per-layer ``{"k",
+        "v"}``, the layout of :meth:`export_row`) into the fresh grant
+        ``page_ids`` and restore the decode scalars exactly. ``cur_tok`` is
+        the sampled but not yet emitted next token, so a greedy row goes
+        on token-identically and a sampled one carries on its own draw.
+        The host leaves reach the card in one copy. Pad entries of
+        ``page_ids`` all write the dump page 0, which is harmless only
+        because page 0 holds garbage: a live page id that repeats would
+        lose a page, so it raises. In place."""
+        ids = np.asarray(page_ids)
+        live = ids[ids != 0]
+        if np.unique(live).size != live.size:
+            raise ValueError(f"resume grant repeats a live page: {ids.tolist()}")
+        leaves = [layer[name] for layer in pages for name in ("k", "v")] + [np.asarray(seen1)]
+        buf = np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in leaves])
+        dev = torch.from_numpy(buf).to(self.device)
+        src, off = [], 0
+        for a in leaves:
+            src.append(dev[off : off + a.nbytes].view(torch_dtype(a.dtype)).reshape(a.shape))
+            off += a.nbytes
+        dst = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        targets = [layer[name] for layer in pool["caches"] for name in ("k", "v")]
+        for t, s in zip(targets, src[:-1]):
+            t[dst] = s.to(t.dtype)
+        pool["cur_tok"][slot] = int(cur_tok)
+        pool["cur_len"][slot] = int(cur_len)
+        pool["seen"][slot] = src[-1]
+        pool["n_gen"][slot] = int(n_gen)
+        pool["eos"][slot] = False
+        pool["done"][slot] = False
+        pool["max_new"][slot] = int(max_new)
+        pool["temperature"][slot] = float(temperature)
+        pool["top_p"][slot] = float(top_p)
+        pool["do_sample"][slot] = bool(do_sample)
+        pool["rep"][slot] = float(rep)
+        # The host mirror step_block reads to skip sampling: without it a
+        # resumed sampled row would decode greedily whenever no other live
+        # row samples.
+        pool["sampling"][slot] = bool(do_sample) and float(temperature) > 1e-6
+
+    @torch.no_grad()
+    def seed_prefix(self, caches, pool_caches, page_ids):
+        """Prefix-cache hit (JAX ``_seed_prefix_impl``): fill a chunked-
+        prefill scratch ``[1, kvh, Lb, dh]`` with the prefix KV gathered
+        from the pool pages ``page_ids`` (the row's shared pages padded to
+        ``Lb / page`` entries with the dump page 0), so only the uncovered
+        suffix runs through the decoder. Pad segments land where the suffix
+        chunk writes before it attends, or past the valid length. In
+        place; returns ``caches``."""
+        ids = torch.as_tensor(np.asarray(page_ids), dtype=torch.long, device=self.device)
+        for dst, src in zip(caches, pool_caches):
+            for name in ("k", "v"):
+                seg = src[name].index_select(0, ids)  # [nseg, kvh, page, dh]
+                nseg, kvh, page, dh = seg.shape
+                dst[name].copy_(seg.transpose(0, 1).reshape(1, kvh, nseg * page, dh))
+        return caches

@@ -16,15 +16,24 @@ padded to buckets, as in the JAX package. ``quantize="int8"`` serves the
 decoder's projections weight-only int8 (the pinned ``int8`` route of the
 JAX manager).
 
-Not ported yet: the result cache and quarantine gate, the coalescing
-scheduler, the int8 route's warm-up A/B (``LUMEN_VLM_Q8_ROUTE=auto``) and
-its verdict file, replica fleets, the ONNX vision-graph backend, and the
-process-parallel decode pool.
+Greedy ``generate`` calls go through the process's content-addressed
+result cache (``runtime/result_cache.py``, ``LUMEN_CACHE_BYTES``, default
+256 MiB) behind the quarantine gate, as in the JAX manager: a repeated
+request is answered without the vision tower, prefill or decode, marked
+``cached``. A manager built from a ``state_dict`` has no model revision
+to key the cache on and computes every request; ``from_model_dir`` gives
+it one. With ``LUMEN_VLM_PREFIX_BYTES`` set, each request carries its
+prompt's content identity for the engine's prefix KV cache.
+
+Not ported yet: the coalescing scheduler, the int8 route's warm-up A/B
+(``LUMEN_VLM_Q8_ROUTE=auto``) and its verdict file, replica fleets, the
+ONNX vision-graph backend, and the process-parallel decode pool.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import threading
@@ -37,9 +46,12 @@ import torch
 
 from ...core.model_info import ModelInfo, load_model_info
 from ...runtime.policy import get_policy, resolve_device
+from ...runtime.quarantine import guarded_key
+from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import load_state_dict
 from ...utils.env import env_int
-from ...utils.host_decode import vlm_canvas
+from ...utils.host_decode import DECODE_POLICY, vlm_canvas
+from ...utils.metrics import metrics
 from .chat import ChatMessage, VlmTokenizer
 from .continuous import ContinuousScheduler, _Request
 from .convert import convert_vlm_checkpoint, quantize_decoder_int8
@@ -109,6 +121,9 @@ class VLMManager:
         # The JAX manager's decode route name: int8 when quantized, else bf16.
         self.quant_route = "int8" if quantize else "bf16"
         self.model_id = name
+        #: ``model_info.json`` of a model directory (``from_model_dir``):
+        #: its version keys the result cache.
+        self.info: ModelInfo | None = None
         self.gen_slots = gen_slots
         state = dict(state_dict)
         if quantize:
@@ -290,8 +305,31 @@ class VLMManager:
             n_prompt=n_live, max_new=min(int(max_new_tokens), self.max_new_cap),
             temperature=float(temperature), top_p=float(top_p), do_sample=bool(do_sample),
             repetition_penalty=float(repetition_penalty), generator=self._next_generator(),
+            prefix_content=self._prefix_content(prompt_ids, n_input, _image_identity(image_bytes, pixels)),
         )
         return req, n_input
+
+    def _prefix_content(self, prompt_ids, n: int, image: bytes) -> "np.ndarray | None":
+        """Content identity of the POST-SPLICE sequence for the prefix KV
+        cache (JAX ``_prefix_content``): the text token ids, with the
+        ``<image>`` placeholder expanded to ``V`` int64s derived from the
+        image's sha256 digest (``(1<<62) | digest<<14 | position``, far
+        above any vocabulary id, so a text prefix never aliases a vision
+        prefix). ``image`` is the encoded bytes, or the decoded pixels'
+        bytes when the caller passed pixels. None when the engine was built
+        without the cache: no hashing on the hot path."""
+        if self.engine.prefix is None:
+            return None
+        ids = prompt_ids[0, :n].cpu().numpy().astype(np.int64)
+        if not image:
+            return ids
+        pos = np.where(ids == self.cfg.image_token_id)[0]
+        if pos.size == 0:
+            return ids
+        i = int(pos[0])
+        digest = int.from_bytes(hashlib.sha256(image).digest()[:6], "big")
+        vis = (1 << 62) + (digest << 14) + np.arange(self.cfg.vision.num_tokens, dtype=np.int64)
+        return np.concatenate([ids[:i], vis, ids[i + 1 :]])
 
     # -- generation --------------------------------------------------------
 
@@ -311,7 +349,59 @@ class VLMManager:
         """Generate a caption/chat completion for ``messages`` and, when
         given, one image: decoded ``[image_size, image_size, 3]`` uint8
         ``pixels``, or encoded ``image_bytes`` (JPEG, PNG, ...; the JAX
-        manager's argument)."""
+        manager's argument).
+
+        Greedy requests (``do_sample`` false, temperature <= 0) of a
+        manager with a model revision go through the result cache, keyed
+        on the image and the whole prompt and knob set, behind the
+        quarantine gate; concurrent identical requests share one
+        computation, and a hit replays the original result (its
+        ``generation_time_ms`` included) with ``cached: True``. Sampled
+        requests bypass the cache: they are meant to differ."""
+        args = (
+            messages, pixels, max_new_tokens, temperature, top_p, do_sample,
+            repetition_penalty, stop_sequences, add_generation_prompt, image_bytes,
+        )
+        if do_sample or temperature > 0.0 or self.info is None:
+            return self._generate_uncached(*args)
+        options = {
+            "messages": [(m.role, m.content) for m in messages],
+            "max_new_tokens": int(max_new_tokens),
+            "top_p": float(top_p),
+            "repetition_penalty": float(repetition_penalty),
+            "stop_sequences": list(stop_sequences) if stop_sequences else None,
+            "add_generation_prompt": bool(add_generation_prompt),
+        }
+
+        def clone(result: GenerationResult) -> GenerationResult:
+            return dataclasses.replace(
+                result, tokens=list(result.tokens), metadata={**result.metadata, "cached": True}
+            )
+
+        ns = self._cache_ns()
+        payload = _image_identity(image_bytes, pixels)
+        key = guarded_key(ns, options, payload)
+        return get_result_cache().get_or_compute(
+            ns, options, payload, lambda: self._generate_uncached(*args), clone=clone, key=key
+        )
+
+    def _cache_ns(self) -> str:
+        """Result-cache namespace (JAX ``_cache_ns``): model id and
+        revision, compute dtype, decode route and image-decode policy, plus
+        the device type -- kernels and plain versions round differently, so
+        a result from one must not answer for the other through the disk
+        tier."""
+        return make_namespace(
+            "vlm", "generate", self.model_id, self.info.version,
+            str(self.compute_dtype).removeprefix("torch."),
+            "int8" if self.quant_route == "int8" else "",
+            DECODE_POLICY, self.device.type,
+        )
+
+    def _generate_uncached(
+        self, messages, pixels, max_new_tokens, temperature, top_p, do_sample,
+        repetition_penalty, stop_sequences, add_generation_prompt, image_bytes,
+    ) -> GenerationResult:
         t0 = time.perf_counter()
         req, n_input = self._make_gen_request(
             messages, pixels, max_new_tokens, temperature, top_p, do_sample,
@@ -332,7 +422,7 @@ class VLMManager:
             "do_sample": do_sample,
             "generation_time_ms": round(dt_ms, 2),
             "tokens_per_second": round(n_gen / max(dt_ms / 1e3, 1e-9), 2),
-            **_spec_meta(req),
+            **_reuse_meta(req),
         }
         return GenerationResult(
             text=text.strip(), tokens=tokens, finish_reason=finish,
@@ -367,7 +457,16 @@ class VLMManager:
         emitted = ""
         finish = "length"
         final_text: str | None = None
+        # Time to the first emitted chunk and the stream's decode rate,
+        # observed at the source (the vlm.ttft / vlm.decode_tps histograms).
         first_emit_s: float | None = None
+
+        def note_first_emit() -> None:
+            nonlocal first_emit_s
+            if first_emit_s is None:
+                first_emit_s = time.perf_counter()
+                metrics.observe("vlm.ttft", (first_emit_s - t0) * 1e3)
+
         for tok in self.engine.submit_stream(req):
             tokens.append(tok)
             if tok == self.cfg.eos_token_id:
@@ -389,16 +488,14 @@ class VLMManager:
             delta = text[len(emitted) : max(len(text) - holdback, len(emitted))]
             if delta:
                 emitted += delta
-                if first_emit_s is None:
-                    first_emit_s = time.perf_counter()
+                note_first_emit()
                 yield GenerationChunk(text=delta, tokens=[tok])
         if final_text is None:
             final_text = self.tokenizer.decode(tokens)
         if final_text.startswith(emitted) and len(final_text) > len(emitted):
             tail = final_text[len(emitted) :]
             emitted = final_text
-            if first_emit_s is None:
-                first_emit_s = time.perf_counter()
+            note_first_emit()
             yield GenerationChunk(text=tail, tokens=[])
         dt_ms = (time.perf_counter() - t0) * 1e3
         meta = {
@@ -408,19 +505,37 @@ class VLMManager:
             "generation_time_ms": round(dt_ms, 2),
         }
         if tokens:
-            meta["tokens_per_second"] = round(len(tokens) / max(dt_ms / 1e3, 1e-9), 2)
+            tps = len(tokens) / max(dt_ms / 1e3, 1e-9)
+            # Histogram buckets are labelled in ms but this series carries
+            # tokens/s, as in the JAX manager.
+            metrics.observe("vlm.decode_tps", tps)
+            meta["tokens_per_second"] = round(tps, 2)
         if first_emit_s is not None:
             meta["ttft_ms"] = round((first_emit_s - t0) * 1e3, 2)
-        meta.update(_spec_meta(req))
+        meta.update(_reuse_meta(req))
         yield GenerationChunk(text="", tokens=[], is_final=True, metadata=meta)
 
 
-def _spec_meta(req: _Request) -> dict:
-    """``spec_accept_rate`` of a request that had speculative proposals
-    (JAX ``_reuse_meta``); nothing otherwise."""
+def _image_identity(image_bytes: bytes | None, pixels) -> bytes:
+    """The bytes that identify a request's image for the result and prefix
+    caches: the encoded bytes (the JAX manager's key), else the decoded
+    pixels' bytes, else none."""
+    if image_bytes:
+        return image_bytes
+    return b"" if pixels is None else np.ascontiguousarray(pixels).tobytes()
+
+
+def _reuse_meta(req: _Request) -> dict:
+    """Per-request prefix-reuse and speculation outcomes for the response
+    metadata (JAX ``_reuse_meta``): ``prefix_hit`` when the prefix cache is
+    on, ``spec_accept_rate`` when the request had proposals; nothing
+    otherwise."""
+    out: dict[str, Any] = {}
+    if req.prefix_hit is not None:
+        out["prefix_hit"] = round(req.prefix_hit, 3)
     if req.spec_proposed > 0:
-        return {"spec_accept_rate": round(req.spec_accepted / req.spec_proposed, 3)}
-    return {}
+        out["spec_accept_rate"] = round(req.spec_accepted / req.spec_proposed, 3)
+    return out
 
 
 def _truncate_on_stop(text: str, stop_sequences: Sequence[str] | None) -> tuple[str, bool]:

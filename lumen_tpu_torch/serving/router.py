@@ -34,13 +34,14 @@ Resilience semantics on top of the reference:
   bundles fire within one probe of the window turning bad.
 
 The port's copy of ``lumen_tpu/serving/router.py``: ``HubRouter`` and the
-module helpers it uses. Not ported yet, each with its own slice: the
-federation front tier (``FederationRouter``) and the reserved
-``fed_cache_lookup`` / ``fed_kv_put`` tasks it and disaggregated decode
-answer (peer result-cache reads, KV page migration), the result cache
-whose namespaces a hot-swap invalidates, and the quarantine and autopilot
-states on ``Health``. A reserved task name therefore routes like any
-other here: no service registers it, so it answers INVALID_ARGUMENT.
+module helpers it uses, with the JAX router's hot-swap invalidation of the
+result cache and its containment keys on ``Health``. Not ported yet, each
+with its own slice: the federation front tier (``FederationRouter``) and
+the reserved ``fed_cache_lookup`` / ``fed_kv_put`` tasks it and
+disaggregated decode answer (peer result-cache reads, KV page migration),
+and the autopilot state on ``Health``. A reserved task name therefore
+routes like any other here: no service registers it, so it answers
+INVALID_ARGUMENT.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import itertools
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from typing import Iterable, Iterator
@@ -211,12 +213,33 @@ class HubRouter(InferenceServicer):
                     self.services[name] = old
                 self._rebuild_routes()
                 raise
+        # Hot-swap cache invalidation: result-cache namespaces lead with the
+        # service family name, so dropping the prefix guarantees that the
+        # swapped-in model never serves a predecessor's results, even when
+        # id and revision match (the same model reloaded by recovery). The
+        # family is the registry name the managers key their namespaces
+        # with; the router key is a config alias that may differ. Any swap
+        # also drops the whole (rebuildable) ingest cache.
+        from ..runtime.result_cache import invalidate_namespace
+
+        prefixes = {getattr(svc.registry, "service_name", name), name, "ingest"}
+
+        def sweep() -> int:
+            return sum(invalidate_namespace(f"{p}/") for p in prefixes)
+
+        dropped = sweep()
         close = getattr(old, "close", None)
         if close is not None:
             try:
                 close()
             except Exception:  # noqa: BLE001 - best-effort teardown of the placeholder
                 logger.exception("closing replaced service %r failed", name)
+        # Sweep AGAIN once the old service is closed: a request that entered
+        # it after the first sweep holds a post-invalidation fence the store
+        # cannot reject, but it finished before close() returned.
+        dropped += sweep()
+        if dropped:
+            logger.info("hot-swap of %r invalidated %d cached result(s)", name, dropped)
 
     def _drain_response(self, first: pb.InferRequest) -> pb.InferResponse:
         """The drain-gate refusal: in-band UNAVAILABLE with a parseable
@@ -344,6 +367,19 @@ class HubRouter(InferenceServicer):
             if (breaker := getattr(svc, "breaker", None)) is not None
         }
 
+    @staticmethod
+    def _quarantine_size() -> int | None:
+        """Entries currently quarantined, read only when the quarantine
+        module is already loaded in this process (a service that never
+        gates on it reports nothing), as the JAX router does."""
+        mod = sys.modules.get(f"{__package__.rpartition('.')[0]}.runtime.quarantine")
+        if mod is None:
+            return None
+        try:
+            return len(mod.get_quarantine())
+        except Exception:  # noqa: BLE001 - health must never fail on telemetry
+            return None
+
     def _replica_states(self) -> dict[str, dict]:
         """Per-service replica-fleet states ({service: {dispatcher:
         {replica: state}}}); services without a fleet report nothing.
@@ -426,6 +462,9 @@ class HubRouter(InferenceServicer):
                 breakers = self._breaker_states()
                 if breakers:
                     trailing.append(("lumen-breaker-status", json.dumps(breakers)))
+                quarantined = self._quarantine_size()
+                if quarantined is not None:
+                    trailing.append(("lumen-quarantine-size", str(quarantined)))
                 replicas = self._replica_states()
                 if replicas:
                     # Per-replica fleet health next to the breaker/

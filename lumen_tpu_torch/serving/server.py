@@ -14,9 +14,13 @@ The device is ``cuda:0`` unless the caller asks for another
 back. A service that fails to load boots as a ``DegradedService`` and a
 background ``RecoveryManager`` retries it, as in the JAX server; a
 service the port does not have yet degrades the same way, with a "not
-ported yet" error. Not ported yet: the federation front tier and peer
-wiring, the autopilot, mDNS advertising, the metrics sidecar
-(``--metrics-port``) and the per-service circuit breakers.
+ported yet" error. Every live service gets its circuit breaker
+(``LUMEN_BREAKER_FAILURES``, default 6; ``LUMEN_BREAKER_RELOAD=1`` hands
+an opening breaker to recovery for a reload), the process's result cache
+and quarantine registry are built at boot, and ``--metrics-port`` starts
+the HTTP sidecar (``observability.py``) on loopback. Not ported yet: the
+federation front tier and peer wiring, the autopilot and mDNS
+advertising.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..runtime.policy import resolve_device
 from ..utils.env import env_float, env_int
 from ..utils.logger import setup_logging
 from .base_service import BaseService
+from .breaker import CircuitBreaker, breaker_failures
 from .loader import resolve
 from .resilience import DegradedService, RecoveryManager, expected_tasks_for
 from .router import HubRouter
@@ -131,14 +136,38 @@ def rebuild_service(config: LumenConfig, name: str, device, skip_download: bool 
     return build_one_service(config, name, device)
 
 
+def attach_breaker(recovery: RecoveryManager, name: str, svc: BaseService) -> BaseService:
+    """Give one live service its circuit breaker (JAX ``attach_breaker``):
+    none for a degraded placeholder, which already fast-fails, or when
+    ``LUMEN_BREAKER_FAILURES=0``. With ``LUMEN_BREAKER_RELOAD=1`` an opening
+    breaker hands the service to the RecoveryManager for a full reload;
+    without it the breaker sheds and half-open-probes, and a reload stays
+    an operator's decision."""
+    if isinstance(svc, DegradedService) or breaker_failures() == 0:
+        return svc
+    reload_on_open = os.environ.get("LUMEN_BREAKER_RELOAD") == "1"
+
+    def on_open() -> None:
+        if reload_on_open:
+            logger.warning("breaker for %r opened: handing to recovery for a reload", name)
+            recovery.register(name)
+
+    svc.breaker = CircuitBreaker(name, on_open=on_open)
+    return svc
+
+
 class ServerHandle:
     """A running gRPC server and its lifecycle (returned by ``serve``; the
     CLI blocks on ``wait``)."""
 
-    def __init__(self, server: grpc.Server, port: int, router: HubRouter, recovery: RecoveryManager | None):
+    def __init__(
+        self, server: grpc.Server, port: int, router: HubRouter, recovery: RecoveryManager | None,
+        metrics_server=None,
+    ):
         self.server = server
         self.port = port
         self.router = router
+        self.metrics_server = metrics_server
         # Live view: recovery hot-swaps promoted services into this dict
         # (it is the router's), so teardown closes what is actually running.
         self.services = router.services
@@ -180,6 +209,8 @@ class ServerHandle:
             # First: a recovery attempt finishing mid-shutdown would swap a
             # fresh service in after the close pass below already ran.
             self.recovery.stop()
+        if self.metrics_server:
+            self.metrics_server.stop()
         # Let in-flight RPCs drain first, then close the services so their
         # engine threads retire cleanly. grpc sets the stop event only
         # after aborting stragglers at t=grace, hence the margin.
@@ -205,10 +236,17 @@ def serve(
 ) -> ServerHandle:
     """Boot the server; ``device`` (default ``cuda:0``, raising without a
     card) reaches every service's ``from_config``. ``port_override=0``
-    binds an OS-assigned port (``handle.port``)."""
-    if metrics_port is not None:
-        raise NotImplementedError("the metrics sidecar is not ported to lumen_tpu_torch yet")
+    binds an OS-assigned port (``handle.port``); ``metrics_port`` starts
+    the HTTP sidecar on loopback (0: an OS-assigned port,
+    ``handle.metrics_server.port``)."""
+    from ..runtime.quarantine import get_quarantine
+    from ..runtime.result_cache import get_result_cache
+
     device = resolve_device(device)
+    # The process-wide result cache (LUMEN_CACHE_BYTES, LUMEN_CACHE_DIR) and
+    # quarantine registry, built from the environment before any request.
+    get_result_cache()
+    get_quarantine()
     failed: dict[str, str] = {}
     if not skip_download:
         failed = ensure_models(config)
@@ -217,9 +255,18 @@ def serve(
         logger.error("no enabled services selected by deployment config")
         raise SystemExit(1)
     router = HubRouter(services)
-    recovery = RecoveryManager(
-        router, rebuild=lambda n: rebuild_service(config, n, device, skip_download=skip_download)
-    )
+
+    def rebuild(n: str) -> BaseService:
+        # A recovered or reloaded service gets a fresh breaker: the swap
+        # replaces the instance whose breaker tripped.
+        svc = rebuild_service(config, n, device, skip_download=skip_download)
+        return attach_breaker(recovery, n, svc)
+
+    # Built on every boot: a breaker can hand a service over for reload at
+    # any point in the process's life.
+    recovery = RecoveryManager(router, rebuild=rebuild)
+    for name, svc in services.items():
+        attach_breaker(recovery, name, svc)
     degraded = sorted(n for n, s in services.items() if isinstance(s, DegradedService))
     if degraded:
         logger.warning(
@@ -248,10 +295,19 @@ def serve(
             raise SystemExit(1)
         logger.warning("port %d unavailable; bound %d instead", port, bound)
     server.start()
+    # The sidecar starts (and logs its endpoint) before the readiness line:
+    # a supervisor reads that line as "fully up". Loopback only: the
+    # profiler control must not be reachable from the network.
+    metrics_server = None
+    if metrics_port is not None:
+        from .observability import MetricsServer
+
+        metrics_server = MetricsServer(port=metrics_port, host="127.0.0.1")
+        metrics_server.start()
     logger.info("serving %d service(s) on %s:%d (%s): %s", len(services), host, bound, device, sorted(services))
     for name, svc in services.items():
         logger.info("  %s [%s] tasks: %s", name, svc.status(), svc.registry.task_names())
-    return ServerHandle(server, bound, router, recovery)
+    return ServerHandle(server, bound, router, recovery, metrics_server)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -271,11 +327,18 @@ def main(argv: list[str] | None = None) -> int:
         "--device", default=None,
         help="torch device to serve on (default cuda:0; 'cpu' for a run without a card)",
     )
+    parser.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="serve /metrics, /metrics.json, /traces and the profiler on this loopback port",
+    )
     args = parser.parse_args(argv)
 
     setup_logging(args.log_level)
     config = load_config(args.config)
-    handle = serve(config, port_override=args.port, skip_download=args.skip_download, device=args.device)
+    handle = serve(
+        config, port_override=args.port, skip_download=args.skip_download,
+        metrics_port=args.metrics_port, device=args.device,
+    )
 
     stop_event = threading.Event()
 

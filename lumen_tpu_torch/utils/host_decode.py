@@ -13,6 +13,12 @@ from __future__ import annotations
 
 import numpy as np
 
+#: result-cache namespace qualifier for the scaled-decode generation: decode
+#: resolution changes results, so disk-tier entries computed under one decode
+#: policy must not answer for another. The JAX package's value; bump both
+#: when the policy changes.
+DECODE_POLICY = "sd1"
+
 
 def probe_image_size(payload: bytes) -> tuple[int, int] | None:
     """Header-only (h, w) probe — no pixel decode. PIL reads just the

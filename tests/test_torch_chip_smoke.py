@@ -1,0 +1,49 @@
+"""Phases 6 and 7 of ``chip_smoke.py`` run to their end on the CPU.
+
+At a small configuration (the one of
+``tests/test_torch_isolation.py::test_chip_smoke_grpc_drive_rehearses_on_cpu``,
+whose vision tower keeps its 256 tokens, so prompts take the chunk lane
+in two chunks as on the card), with the launch-count gates emptied (the
+plain paths launch no kernel) and the result cache and breaker at their
+production defaults, phase 6 serves the model directory and
+phase 7 drives the default serving path over gRPC: preemptions under the
+pinned pool that all spill and resume, greedy answers equal alone and to
+phase 6's, prefix hits with fewer chunks than cold, a result-cache
+answer, the sidecar's metrics and the spill round trip.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import chip_smoke
+from lumen_tpu_torch.models.vlm import VLMConfig
+from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+from test_torch_spill import one_torch_thread  # noqa: F401 - an autouse fixture
+
+
+def test_chip_smoke_default_serving_drive_runs_on_cpu(tmp_path, monkeypatch):
+    base = VLMConfig()
+    cfg = dataclasses.replace(
+        base,
+        decoder=dataclasses.replace(
+            base.decoder, hidden_size=128, layers=2, heads=4, kv_heads=2,
+            intermediate_size=256, vocab_size=4096,
+        ),
+        vision=dataclasses.replace(base.vision, width=64, layers=1, heads=1),
+        image_token_id=4000, bos_token_id=1, eos_token_id=2, pad_token_id=0,
+    )
+    monkeypatch.setattr(chip_smoke, "PHASE4_KERNELS", ())
+    monkeypatch.setattr(chip_smoke, "PHASE6_INT8_KERNELS", ())
+    # The production defaults the suite's conftest turns off.
+    monkeypatch.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+    monkeypatch.setenv("LUMEN_BREAKER_FAILURES", "6")
+    try:
+        phase6 = chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu", root=tmp_path)
+        out = chip_smoke.drive_defaults(0, "cpu", tmp_path, phase6, device="cpu")
+    finally:
+        monkeypatch.undo()
+        reset_result_cache()  # the suite runs with the result cache off
+    assert out["preempted"] > 0 and out["resumed"] > 0
+    assert out["prefix_hits"] == 2
+    assert not any(out["launches"].values())  # plain paths on the CPU

@@ -28,6 +28,7 @@ from lumen_tpu.models.vlm import VLMManager as JVLMManager
 from lumen_tpu.utils.host_decode import _spec_vlm_canvas
 from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager, params_from_jax
 from lumen_tpu_torch.models.vlm.continuous import PreemptionShed, _Request, _Slot
+from lumen_tpu_torch.utils.deadline import QueueFull
 from test_vlm import make_vlm_model_dir, png_bytes
 
 LONG = " ".join(f"w{i}" for i in range(16, 36))  # bucket 32: span 35 > chunk 32
@@ -122,11 +123,14 @@ def test_concurrent_serving_matches_jax_manager(managers):
     assert stats.pages_live == 0 and stats.allocated_total == stats.freed_total
 
 
-def test_preemption_redoes_greedy_rows_token_identically(managers):
+def test_preemption_redoes_greedy_rows_token_identically(managers, monkeypatch):
     """A pool too small for four rows' growth preempts the newest rows;
-    greedy victims restart from their prompts and still answer exactly
-    what an unpressured engine answers."""
+    with the spill tier off (``LUMEN_VLM_SPILL_BYTES=0``) greedy victims
+    restart from their prompts and still answer exactly what an
+    unpressured engine answers (``tests/test_torch_spill.py`` holds the
+    default, spilling engine)."""
     _, tmgr, state, tok = managers
+    monkeypatch.setenv("LUMEN_VLM_SPILL_BYTES", "0")
     small = VLMManager(
         VLMConfig.tiny(), state, tok, device="cpu", dtype="float32", max_seq=128,
         max_new_cap=16, prefill_buckets=(16, 32), gen_slots=4, pool_pages=6, name="small",
@@ -155,17 +159,16 @@ def test_preemption_redoes_greedy_rows_token_identically(managers):
         small.close()
 
 
-def test_sampled_streamed_victim_is_shed(managers):
-    """A sampled row that already streamed tokens cannot restart: it
-    fails with the retryable PreemptionShed, and its pages return."""
-    _, tmgr, _, _ = managers
-    eng = tmgr.engine
-    req, _ = tmgr._make_gen_request(
+def _preempt_streamed_sampled_row(mgr):
+    """Install a sampled row that already streamed two tokens and preempt
+    it; returns ``(request, slot)``. The row is installed by hand while
+    the engine's lock is held: the idle loop thread waits on it and never
+    sees the row before the preemption."""
+    eng = mgr.engine
+    req, _ = mgr._make_gen_request(
         [ChatMessage("user", "a cat")], None, 4, 1.0, 1.0, True, 1.0, True
     )
     req.delivered = 2
-    # Install the row by hand while holding the engine's lock: the idle
-    # loop thread waits on it and never sees the row.
     with eng._cond:
         slot = eng._free_slot()
         eng.kv.admit(slot, req.n_prompt)
@@ -174,10 +177,53 @@ def test_sampled_streamed_victim_is_shed(managers):
             assert eng._preempt_newest(protect=-1)
         finally:
             eng._slots.pop(slot, None)
-    with pytest.raises(PreemptionShed) as err:
-        req.future.result(timeout=5)
-    assert err.value.retry_after_s > 0
-    assert eng.kv.owned_pages(slot) == []
+        eng._cond.notify()  # a spilled victim waits in the queue: wake the loop
+    return req, slot
+
+
+def test_sampled_streamed_victim_is_shed(managers, monkeypatch):
+    """With the spill tier off (``LUMEN_VLM_SPILL_BYTES=0``, as the JAX
+    engine's twin test pins it), a sampled row that already streamed
+    tokens cannot restart: it fails with the retryable PreemptionShed,
+    which is a QueueFull, and its pages return."""
+    _, _, state, tok = managers
+    monkeypatch.setenv("LUMEN_VLM_SPILL_BYTES", "0")
+    mgr = VLMManager(VLMConfig.tiny(), state, tok, device="cpu", dtype="float32", max_seq=128,
+                     max_new_cap=16, prefill_buckets=(16, 32), name="shed")
+    try:
+        req, slot = _preempt_streamed_sampled_row(mgr)
+        with pytest.raises(PreemptionShed) as err:
+            req.future.result(timeout=5)
+        assert isinstance(err.value, QueueFull)
+        assert err.value.retry_after_s > 0
+        assert mgr.engine.kv.owned_pages(slot) == []
+        assert mgr.engine.spills == 0 and mgr.engine.preempt_failed == 1
+    finally:
+        mgr.close()
+
+
+def test_sampled_streamed_victim_is_spilled(managers):
+    """The spilled twin: with the spill tier at its default the same
+    victim is exported to the host and resumes instead of failing; its
+    lease and pages balance once it retires."""
+    _, _, state, tok = managers
+    mgr = VLMManager(VLMConfig.tiny(), state, tok, device="cpu", dtype="float32", max_seq=128,
+                     max_new_cap=16, prefill_buckets=(16, 32), name="spilled")
+    try:
+        eng = mgr.engine
+        req, _ = _preempt_streamed_sampled_row(mgr)
+        tokens, n_gen, _ = req.future.result(timeout=60)
+        assert n_gen == len(tokens) <= 4
+        assert eng.spills == eng.spill_resumes == 1 and eng.preempt_failed == 0
+        deadline = time.monotonic() + 30
+        while eng._slots and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert not eng._spill_ledger and eng._spill_bytes_live == 0
+        assert eng._spill_arena is None or eng._spill_arena.live() == 0
+        stats = eng.kv.stats()
+        assert stats.pages_live == 0 and stats.allocated_total == stats.freed_total
+    finally:
+        mgr.close()
 
 
 def test_infeasible_request_fails_at_the_door(managers):

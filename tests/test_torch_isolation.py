@@ -58,6 +58,15 @@ def test_no_source_names_the_jax_package():
         assert not pattern.search(path.read_text()), path
 
 
+def test_no_source_looks_up_a_jax_package_module_by_name():
+    """A copied ``sys.modules.get("lumen_tpu....")`` (or ``import_module``)
+    names a JAX-package module as a string: no import check sees it, and in
+    the port it would quietly return None."""
+    pattern = re.compile(r"""(sys\.modules\b[^\n]*|import_module\()\s*f?["'](jax|jaxlib|flax|lumen_tpu)[."']""")
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+
+
 def test_entry_points_default_to_the_card():
     from lumen_tpu_torch.models.vlm import VLMConfig, VLMManager, VLMModel
     from lumen_tpu_torch.runtime.policy import resolve_device

@@ -95,11 +95,17 @@ def test_capabilities_aggregate_the_live_services_runtime(hub):
 
 
 def test_health_reports_degraded_services_in_trailing_metadata(hub):
+    """Service states ride Health; so does the quarantine size once the
+    quarantine registry is loaded in the process (as in the JAX router);
+    federation is not ported, so no fleet key."""
+    from lumen_tpu_torch.runtime.quarantine import get_quarantine
+
     stub, _, _ = hub
     _, call_ = stub.Health.with_call(empty_pb2.Empty(), timeout=30)
     trailing = dict(call_.trailing_metadata())
     assert json.loads(trailing["lumen-service-status"]) == {"broken": "degraded", "echo": "healthy"}
-    assert "lumen-fed-status" not in trailing and "lumen-quarantine-size" not in trailing
+    assert "lumen-fed-status" not in trailing
+    assert trailing["lumen-quarantine-size"] == str(len(get_quarantine()))
 
 
 def test_hot_swap_replaces_the_degraded_service(hub):
