@@ -16,8 +16,10 @@ Phases (any failure exits non-zero):
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
-   64-key tile, causal diagonals crossing a tile, two-row batches, and the
-   fp32 instance), with times for the kernel, the plain version, the
+   64-key tile, causal diagonals crossing a tile, two-row batches, the
+   fp32 instance, and phase 8's CLIP calls at the bulk batch of 64: the
+   vision tower's [64, 12, 50, 64] and the causal text tower's
+   [64, 8, 77, 64]), with times for the kernel, the plain version, the
    card's bound and one PyTorch library call computing the same function
    (a yardstick only; the port never calls it). Times are device time per
    call from ``torch.profiler``, checked against lost events
@@ -73,10 +75,29 @@ Phases (any failure exits non-zero):
    spill round trip at the full-width pool shapes: export a row, resume
    it into another grant, export again: byte-equal payloads. The path's
    three kernels must run in (a)-(b).
+8. CLIP embeddings and zero-shot labels as users reach them: a
+   ``CLIPConfig()`` model directory (OpenAI ViT-B/32 shapes, seeded bf16
+   weights under the HF ``CLIPModel`` names, a 49,408-id WordLevel
+   tokenizer whose EOT id is 49407, a dataset of 1,000 labels and no
+   ``.npy``, so the server embeds them at start-up through the causal text
+   tower) served by ``serve()`` with ``batch_size: 64`` and warm-up on.
+   Over gRPC: (a) 128 distinct 1600x1200 JPEGs through ``clip_image_embed``,
+   64 in flight, decoded by the decode pool in its default mode; (b) 32
+   ``clip_text_embed``; (c) 8 ``clip_classify`` (top 5) and 4
+   ``clip_scene_classify``; (d) photo 0 again (a result-cache answer, no
+   launch) and as a ``tensor/raw`` payload of its pixels, alone; (e) a
+   malformed image (``INVALID_ARGUMENT``); (f) a hub of ``clip`` + ``vlm``
+   (phase 6's directory): 4 caption streams while 32 photos embed. Every
+   embedding is finite and unit-norm and within ``CLIP_COSINE`` of a direct
+   ``CLIPModel`` on the card run with the plain attention (same weights,
+   same pixels); the hub's captions equal phase 6's; the flash kernel runs
+   in every block of both towers; after the hub stops, its batcher and
+   engine threads and the decode pool's workers are gone.
 
-Every run drives all seven phases. The kernel table's launch counts are
+Every run drives all eight phases. The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
-for the other two); phase 7 prints its own. The last two lines are the
+for the other two); phases 7 and 8 print their own, phase 8 beside the
+flash kernel's two CLIP rows (timed in phase 2). The last two lines are the
 kernel table (JSON) and the device line the harness reads; the card's
 name and power limit precede them.
 """
@@ -313,6 +334,25 @@ def check_kernels(seed: int) -> dict:
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
         blocks=-(-256 // tile["rows"]) * 12,
     )
+    # The CLIP towers' calls (phase 8) at the bulk batch: the ViT-B/32
+    # vision tower's 50 tokens, bidirectional, and the text tower's 77,
+    # causal. Bound: q, k, v and o once; SDPA on the same call.
+    for label, (b, h, s, causal) in CLIP_FLASH_SHAPES.items():
+        q, k, v = rnd(b, h, s, 64), rnd(b, h, s, 64), rnd(b, h, s, 64)
+        err = max_err(A.flash_attention(q, k, v, causal=causal), A.attention_reference(*f32(q, k, v), causal=causal))
+        pairs = s * (s + 1) // 2 if causal else s * s
+        bms, by = bound(4 * q.numel() * 2, 4 * b * h * pairs * 64, "bfloat16")
+        rows[f"flash_attention ({label})"] = dict(
+            max_abs_err=err,
+            ms=device_ms(lambda q=q, k=k, v=v, c=causal: A.flash_attention(q, k, v, causal=c), 50, floor_ms=bms,
+                         launches=1),
+            plain_ms=device_ms(lambda q=q, k=k, v=v, c=causal: A.attention_reference(q, k, v, causal=c), 20,
+                               floor_ms=bms),
+            bound_ms=bms, bound_by=by,
+            library_ms=device_ms(lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(q, k, v, is_causal=c),
+                                 50, floor_ms=bms),
+            blocks=-(-s // tile["rows"]) * b * h, shape=[b, h, s, 64],
+        )
 
     # flash_attention_cache against the 832-slot scratch: the chunk lane's
     # two chunks of a caption prompt (265 live tokens, bucket span 319), a
@@ -1029,12 +1069,12 @@ def photo_jpeg(seed: int, width: int = 1600, height: int = 1200) -> bytes:
     return buf.getvalue()
 
 
-def grpc_call(stub, task: str, payload: bytes, meta: dict, timeout: float = 600) -> dict:
-    """One Infer stream: its deltas, the final body (or error code) and the
-    client-side time to the first delta."""
+def grpc_call(stub, task: str, payload: bytes, meta: dict, timeout: float = 600, mime: str = "image/jpeg") -> dict:
+    """One Infer stream: its deltas, the final body (or error code), the
+    final's meta and the client-side time to the first delta."""
     from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
 
-    req = pb.InferRequest(correlation_id="c", task=task, payload=payload, payload_mime="image/jpeg",
+    req = pb.InferRequest(correlation_id="c", task=task, payload=bytes(payload), payload_mime=mime,
                           meta={k: str(v) for k, v in meta.items()})
     t0 = time.perf_counter()
     deltas, first, last = [], None, None
@@ -1046,7 +1086,7 @@ def grpc_call(stub, task: str, payload: bytes, meta: dict, timeout: float = 600)
     if last is None:
         raise AssertionError(f"{task}: the stream ended without a final message")
     out = dict(deltas=deltas, ttft_ms=None if first is None else (first - t0) * 1e3, s=time.perf_counter() - t0,
-               code=last.error.code if last.HasField("error") else 0, mime=last.result_mime)
+               code=last.error.code if last.HasField("error") else 0, mime=last.result_mime, meta=dict(last.meta))
     if not out["code"]:
         out["body"] = json.loads(last.result)
     return out
@@ -1526,6 +1566,518 @@ def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str =
                 wall_s=wall, tokens=tokens, cached_ms=second["s"] * 1e3, phase_s=time.perf_counter() - t_phase)
 
 
+# -- phase 8: CLIP embeddings and zero-shot labels over gRPC --------------------
+
+#: phase 8's tolerance: the cosine between an embedding the server answers
+#: (bf16, the flash kernel in every tower block) and the same input through
+#: a direct ``CLIPModel`` on the card with the plain attention (same
+#: weights, same decoded pixels or token ids), and between photo 0 alone
+#: and inside a full batch.
+CLIP_COSINE = 0.999
+#: the kernels phase 8 must launch: both CLIP towers' unmasked attention
+PHASE8_KERNELS = ("flash_attention",)
+#: the flash kernel's CLIP calls at the bulk batch of 64 (phase 2):
+#: ViT-B/32 vision tower q/k/v [64, 12, 50, 64], causal text tower [64, 8, 77, 64]
+CLIP_FLASH_SHAPES = {"CLIP vision": (64, 12, 50, False), "CLIP text, causal": (64, 8, 77, True)}
+#: words of the phase-8 vocabulary besides its label and filler tokens
+CLIP_WORDS = ("a", "photo", "of", "person", "animal", "vehicle", "food", "building", "nature", "an",
+              "object", "landscape", "cat", "dog", "red", "car", "on", "wet", "road", "in", "the", "snow")
+
+#: port ``state_dict`` name -> HF ``CLIPModel`` name (the inverse of the
+#: HF rules ``models/clip/convert.py`` reads)
+_CLIP_HF_NAMES = (
+    (r"vision\.patch_embed\.weight", "vision_model.embeddings.patch_embedding.weight"),
+    (r"vision\.class_embedding", "vision_model.embeddings.class_embedding"),
+    (r"vision\.position_embedding", "vision_model.embeddings.position_embedding.weight"),
+    (r"vision\.pre_ln\.(weight|bias)", r"vision_model.pre_layrnorm.\1"),
+    (r"vision\.post_ln\.(weight|bias)", r"vision_model.post_layernorm.\1"),
+    (r"vision\.projection\.weight", "visual_projection.weight"),
+    (r"text\.token_embedding\.weight", "text_model.embeddings.token_embedding.weight"),
+    (r"text\.position_embedding", "text_model.embeddings.position_embedding.weight"),
+    (r"text\.final_ln\.(weight|bias)", r"text_model.final_layer_norm.\1"),
+    (r"text\.projection\.weight", "text_projection.weight"),
+    (r"(vision|text)\.blocks\.(\d+)\.attn\.(\w+)\.(weight|bias)", r"\1_model.encoder.layers.\2.self_attn.\3.\4"),
+    (r"(vision|text)\.blocks\.(\d+)\.ln([12])\.(weight|bias)", r"\1_model.encoder.layers.\2.layer_norm\3.\4"),
+    (r"(vision|text)\.blocks\.(\d+)\.mlp\.(fc[12])\.(weight|bias)", r"\1_model.encoder.layers.\2.mlp.\3.\4"),
+    (r"logit_scale", "logit_scale"),
+)
+
+
+def clip_hf_state(state) -> dict:
+    """A port CLIP ``state_dict`` under the HF ``CLIPModel`` names; the
+    patch embedding goes back to an OIHW conv weight."""
+    out = {}
+    for key, t in state.items():
+        for pat, template in _CLIP_HF_NAMES:
+            if m := re.fullmatch(pat, key):
+                break
+        else:
+            raise KeyError(f"no HF name for {key!r}")
+        if key == "vision.patch_embed.weight":  # [W, P*P*C] (row, column, channel) -> OIHW
+            width, n = t.shape
+            p = int(round((n // 3) ** 0.5))
+            t = t.reshape(width, p, p, 3).permute(0, 3, 1, 2)
+        out[m.expand(template)] = t.contiguous()
+    return out
+
+
+def clip_hf_config(cfg) -> dict:
+    """``config.json`` that ``CLIPConfig.from_hf`` reads back as ``cfg``."""
+    v, t = cfg.vision, cfg.text
+    return {
+        "model_type": "clip", "projection_dim": cfg.embed_dim,
+        "vision_config": {
+            "hidden_size": v.width, "num_hidden_layers": v.layers, "num_attention_heads": v.heads,
+            "intermediate_size": 4 * v.width, "image_size": cfg.image_size, "patch_size": cfg.patch_size,
+            "hidden_act": cfg.hidden_act, "layer_norm_eps": cfg.layer_norm_eps,
+        },
+        "text_config": {
+            "hidden_size": t.width, "num_hidden_layers": t.layers, "num_attention_heads": t.heads,
+            "intermediate_size": 4 * t.width, "vocab_size": cfg.vocab_size,
+            "max_position_embeddings": cfg.context_length, "eos_token_id": cfg.eot_token_id,
+            "hidden_act": cfg.hidden_act,
+        },
+    }
+
+
+def clip_label(i: int) -> str:
+    return f"c{i}"
+
+
+def write_clip_tokenizer(path: Path, cfg, n_labels: int) -> None:
+    """A ``tokenizers`` WordLevel vocabulary of all ``vocab_size`` ids:
+    ``<|startoftext|>`` and ``<|endoftext|>`` (the EOT id, ``vocab_size - 1``)
+    at the top as in OpenAI CLIP's, ``CLIP_WORDS`` and the dataset's label
+    words below, ``w<id>`` for the rest; every text is wrapped in the two."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers
+    from tokenizers.processors import TemplateProcessing
+
+    bos, eot = cfg.vocab_size - 2, cfg.eot_token_id
+    names = {0: "<unk>", bos: "<|startoftext|>", eot: "<|endoftext|>"}
+    for k, word in enumerate(CLIP_WORDS + tuple(clip_label(i) for i in range(n_labels))):
+        names[1 + k] = word
+    vocab = {names.get(i, f"w{i}"): i for i in range(cfg.vocab_size)}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens([AddedToken(names[bos], special=True), AddedToken(names[eot], special=True)])
+    tok.post_processor = TemplateProcessing(
+        single=f"{names[bos]} $A {names[eot]}", special_tokens=[(names[bos], bos), (names[eot], eot)])
+    tok.save(str(path))
+
+
+def write_clip_model_dir(root: Path, name: str, cfg, state, n_labels: int) -> Path:
+    """A CLIP model directory as the loader reads one: ``model.safetensors``
+    under the HF names, ``config.json``, ``tokenizer.json`` and
+    ``model_info.json`` with a dataset of ``n_labels`` labels and no
+    ``.npy``, so the server embeds the labels at start-up."""
+    from safetensors.torch import save_file
+
+    model_dir = root / "models" / name
+    (model_dir / "datasets" / "smoke").mkdir(parents=True)
+    save_file({k: v.cpu() for k, v in clip_hf_state(state).items()}, str(model_dir / "model.safetensors"))
+    (model_dir / "config.json").write_text(json.dumps(clip_hf_config(cfg)))
+    write_clip_tokenizer(model_dir / "tokenizer.json", cfg, n_labels)
+    (model_dir / "datasets" / "smoke" / "labels.json").write_text(
+        json.dumps([clip_label(i) for i in range(n_labels)]))
+    (model_dir / "model_info.json").write_text(json.dumps({
+        "name": name, "version": "1.0.0", "description": "seeded random weights for chip_smoke.py",
+        "model_type": "clip", "embedding_dim": cfg.embed_dim,
+        "source": {"format": "huggingface", "repo_id": f"LumilioPhotos/{name}"},
+        "runtimes": {"jax": {"available": True, "files": ["model.safetensors"]}},
+        "datasets": {"Smoke1k": {"labels": "datasets/smoke/labels.json",
+                                 "embeddings": "datasets/smoke/embeddings.npy"}},
+    }))
+    return model_dir
+
+
+def hub_yaml(path: Path, cache_dir: Path, clip_model: str, batch_size: int, vlm_model: str | None = None) -> Path:
+    """A hub deployment: ``clip`` (bf16, the bulk batch, warm-up on), and
+    ``vlm`` beside it when ``vlm_model`` names one; services named in their
+    JAX form."""
+    import yaml
+
+    services = {"clip": {
+        "enabled": True, "package": "lumen_tpu.models.clip",
+        "import_info": {"registry_class": "lumen_tpu.serving.services.clip_service.ClipService"},
+        "backend_settings": {"dtype": "bfloat16", "batch_size": batch_size, "warmup": True},
+        "models": {"clip": {"model": clip_model, "runtime": "jax", "dataset": "Smoke1k"}},
+    }}
+    if vlm_model:
+        services["vlm"] = {
+            "enabled": True, "package": "lumen_tpu.models.vlm",
+            "import_info": {"registry_class": "lumen_tpu.serving.services.vlm_service.VlmService"},
+            "backend_settings": {"dtype": "bfloat16", "batch_size": 8},
+            "models": {"vlm": {"model": vlm_model, "runtime": "jax"}},
+        }
+    path.write_text(yaml.safe_dump({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(cache_dir)},
+        "deployment": {"mode": "hub", "services": sorted(services)},
+        "server": {"port": 50051, "host": "127.0.0.1"},
+        "services": services,
+    }))
+    return path
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Run the CLIP towers' attention through the plain version (on any
+    device) while inside: the reference the kernel's answers are held to."""
+    from lumen_tpu_torch.models.clip import modeling
+    from lumen_tpu_torch.ops.attention import attention_reference
+
+    kernel = modeling.attention
+    modeling.attention = lambda q, k, v, mask=None, causal=False, scale=None: attention_reference(
+        q, k, v, mask=mask, causal=causal, scale=scale)
+    try:
+        yield
+    finally:
+        modeling.attention = kernel
+
+
+def photo_batch(seed: int, n: int, width: int = 1600, height: int = 1200) -> list[bytes]:
+    """``n`` distinct seeded photo-sized JPEGs (one gradient, a per-photo
+    tint and a per-photo shift of one noise field), encoded in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    base = np.stack([x / width, y / height, (x + y) / (width + height)], -1)
+    noise = rng.normal(0, 12, (height, width, 3)).astype(np.float32)
+    tints = rng.uniform(60, 220, (n, 3)).astype(np.float32)
+    shifts = rng.integers(0, width, n)
+
+    def one(i: int) -> bytes:
+        img = np.clip(base * tints[i] + np.roll(noise, int(shifts[i]), axis=1), 0, 255).astype(np.uint8)
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        if not ok:
+            raise AssertionError("JPEG encode failed")
+        return buf.tobytes()
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def cosines(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def drive_clip(seed: int, card: str, root: Path, phase6: dict, cfg=None, device: str = "cuda:0",
+               n_photos: int = 128, in_flight: int = 64, batch_size: int = 64, n_labels: int = 1000) -> dict:
+    """Phase 8: a full-width CLIP model directory (``CLIPConfig()``, the
+    OpenAI ViT-B/32 shapes) served by ``serve()`` over real gRPC, then a
+    hub of ``clip`` + ``vlm`` (phase 6's directory under ``root``).
+    ``cfg``/``device`` and the counts let the CPU tests rehearse it small;
+    the launch-count gate (``PHASE8_KERNELS``) then fails unless emptied."""
+    import dataclasses
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from google.protobuf import empty_pb2
+
+    from lumen_tpu_torch.models.clip import SCENE_LABELS, CLIPConfig, CLIPModel, convert_clip_checkpoint
+    from lumen_tpu_torch.models.vlm.modeling import init_random_
+    from lumen_tpu_torch.ops import attention as A
+    from lumen_tpu_torch.runtime.decode_pool import get_decode_pool, shutdown_decode_pool
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize
+    from lumen_tpu_torch.utils.tensorwire import TENSOR_MIME, tensor_payload
+
+    t_phase = time.perf_counter()
+    cfg = cfg or dataclasses.replace(CLIPConfig(), eot_token_id=CLIPConfig().vocab_size - 1)
+    on_card = torch.device(device).type == "cuda"
+    if CLIPConfig.from_hf(clip_hf_config(cfg)) != cfg:
+        raise AssertionError("config.json does not read back as the served CLIP configuration")
+    with torch.device(device):
+        model = CLIPModel(cfg)
+    init_random_(model, seed + 8)
+    with torch.no_grad():
+        model.logit_scale.fill_(math.log(1 / 0.07))
+    state = model.to(torch.bfloat16).state_dict()
+    del model
+    model_dir = write_clip_model_dir(root / "cache", "SmokeCLIP", cfg, state, n_labels)
+    if any(not torch.equal(v.cpu(), state[k].cpu()) for k, v in
+           convert_clip_checkpoint({k: v.cpu() for k, v in clip_hf_state(state).items()}).items()):
+        raise AssertionError("the HF-named checkpoint does not convert back to the seeded weights")
+    mb = sum(f.stat().st_size for f in model_dir.rglob("*") if f.is_file()) / 2**20
+    photos = photo_batch(seed * 100 + 8, n_photos + 12 + 16)
+    extra, warm, photos = photos[n_photos:n_photos + 12], photos[n_photos + 12:], photos[:n_photos]
+    v, t = cfg.vision, cfg.text
+    log(f"phase 8: model directory of a CLIPConfig (vision {v.width}/{v.layers}/{v.heads} patch {cfg.patch_size} at "
+        f"{cfg.image_size} px, text {t.width}/{t.layers}/{t.heads} at {cfg.context_length} tokens, seeded bf16 "
+        f"weights, HF names, {cfg.vocab_size}-id tokenizer, {n_labels} labels, no .npy) written, {mb:.0f} MiB; "
+        f"{n_photos + 28} distinct 1600x1200 JPEGs")
+    size = cfg.image_size
+    # The direct model: the seeded weights on the card, the plain attention.
+    with torch.device(device):
+        direct = CLIPModel(cfg)
+    direct.load_state_dict(state, strict=True)
+    direct = direct.to(torch.bfloat16).eval().requires_grad_(False)
+    all_k = all_kernels()
+    flash = next(k for k in all_k if k.name == "flash_attention")
+    out: dict = {}
+
+    reset_result_cache()  # a fresh process-wide result cache, as a new server process has
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if on_card else 0  # the direct model and the seeded state
+    with env(LUMEN_GRPC_WORKERS=str(in_flight + 8)):
+        handle, channel, stub, load_s = boot_server(
+            hub_yaml(root / "clip.yaml", root / "cache", "SmokeCLIP", batch_size), device)
+    try:
+        svc = handle.services["clip"]
+        mgr = svc.managers["clip"]
+        ib, tb = mgr._image_batcher, mgr._text_batcher
+        pool = get_decode_pool()
+        log(f"phase 8: clip server up in {load_s:.2f} s (serve() to the first Health ok, {len(mgr._fleet_models)} "
+            f"replica(s), buckets {ib.buckets} warmed), label embeddings of {len(mgr.label_names)} labels at "
+            f"start-up in {mgr.label_embed_s * 1e3:.1f} ms through the causal text tower; decode pool "
+            f"{'process' if pool.process_mode else 'thread'} mode, {pool.procs} worker processes, "
+            f"{pool.workers} threads [{card}]")
+
+        def encode_plain(pixels=None, ids=None):
+            with plain_attention():
+                if pixels is not None:
+                    return mgr._encode_images(direct, torch.from_numpy(np.stack(pixels)).to(device)).cpu().numpy()
+                return mgr._encode_texts(direct, torch.from_numpy(ids).to(device)).cpu().numpy()
+
+        def expect_unit(vec, what):
+            vec = np.asarray(vec, np.float64)
+            if vec.shape != (cfg.embed_dim,) or not np.isfinite(vec).all() or abs(np.linalg.norm(vec) - 1) > 1e-3:
+                raise AssertionError(f"{what}: embedding of shape {vec.shape}, norm {np.linalg.norm(vec):.5f}")
+            return vec
+
+        # The first photos start the decode pool's workers (spawned at first
+        # use) and the fetch path's side stream and pinned buffers: a cold
+        # round of 16, timed apart from (a).
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as ex:
+            cold = list(ex.map(lambda p: grpc_call(stub, "clip_image_embed", p, {}), warm))
+        cold_s = time.perf_counter() - t0
+        if any(r["code"] for r in cold):
+            raise AssertionError(f"phase 8: the cold round answered codes {[r['code'] for r in cold]}")
+        log(f"phase 8: cold round (decode workers starting): 16 photos, 16 in flight, in {cold_s:.3f} s")
+
+        # -- (a) 128 photos over gRPC, 64 in flight ---------------------------
+        before = dict(ib.stats)
+        flash.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(in_flight) as ex:
+            embeds = list(ex.map(lambda p: grpc_call(stub, "clip_image_embed", p, {}), photos))
+        wall = time.perf_counter() - t0
+        vision_launches = flash.launches
+        batches = ib.stats["batches"] - before["batches"]
+        items = ib.stats["items"] - before["items"]
+        if any(r["code"] for r in embeds):
+            raise AssertionError(f"phase 8 (a): codes {sorted({r['code'] for r in embeds})}")
+        vecs = np.stack([expect_unit(r["body"]["vector"], f"photo {i}") for i, r in enumerate(embeds)])
+        pixels = [_spec_clip_resize(p, {"size": size}) for p in photos]
+        plain = np.concatenate([encode_plain(pixels[i:i + batch_size]) for i in range(0, n_photos, batch_size)])
+        cos_a = cosines(vecs, plain)
+        if cos_a.min() < CLIP_COSINE:
+            raise AssertionError(f"phase 8 (a): cosine to the plain path {cos_a.min():.6f} < {CLIP_COSINE}")
+        if on_card:
+            # The path ran pinned staging and the side-stream fetch.
+            staged = [b for ring in ib._arenas.values() for bufs in ring for b in bufs]
+            if not staged or not all(isinstance(b, torch.Tensor) and b.is_pinned() for b in staged) \
+                    or not ib._d2h_streams:
+                raise AssertionError("phase 8 (a): the image batcher staged without pinned memory or fetched "
+                                     "without its side stream")
+            batch = torch.from_numpy(np.stack(pixels[:batch_size])).to(device)
+            batch_ms = cuda_ms(lambda: mgr._encode_images(mgr.model, batch), 10)
+        else:
+            batch_ms = float("nan")
+        lat = sorted(r["s"] * 1e3 for r in embeds)
+        pct = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]  # noqa: E731
+        fill = items / max(batches * ib.buckets[-1], 1)
+        log(f"phase 8 (a): {n_photos} clip_image_embed over gRPC ({in_flight} in flight) in {wall:.3f} s = "
+            f"{n_photos / wall:.1f} images/s; client latency p50 {pct(0.5):.1f} ms p95 {pct(0.95):.1f} ms; "
+            f"{batches} image batches, mean fill {100 * fill:.1f}% of {ib.buckets[-1]}; cosine to a direct "
+            f"CLIPModel with the plain attention (same weights, same pixels) min {cos_a.min():.6f} "
+            f"(tol {CLIP_COSINE}); one batch of {batch_size} through the vision tower {batch_ms:.3f} ms on the "
+            f"device (CUDA events, launch path included: {batch_size / batch_ms * 1e3:.0f} images/s) [{card}]")
+
+        # -- (b) 32 texts -----------------------------------------------------
+        texts = [f"a photo of a {CLIP_WORDS[3 + i % 19]} in the {CLIP_WORDS[12 + i % 10]} {clip_label(i)}"
+                 for i in range(32)]
+        before_t = dict(tb.stats)
+        flash.launches = 0
+        with ThreadPoolExecutor(16) as ex:
+            tembeds = list(ex.map(lambda t: grpc_call(stub, "clip_text_embed", t.encode(), {}, mime="text/plain"),
+                                  texts))
+        text_launches = flash.launches
+        text_batches = tb.stats["batches"] - before_t["batches"]
+        if any(r["code"] for r in tembeds):
+            raise AssertionError(f"phase 8 (b): codes {sorted({r['code'] for r in tembeds})}")
+        tvecs = np.stack([expect_unit(r["body"]["vector"], f"text {i}") for i, r in enumerate(tembeds)])
+        cos_b = cosines(tvecs, encode_plain(ids=mgr.tokenizer.encode_batch(texts)))
+        if cos_b.min() < CLIP_COSINE:
+            raise AssertionError(f"phase 8 (b): cosine to the plain path {cos_b.min():.6f} < {CLIP_COSINE}")
+        log(f"phase 8 (b): 32 clip_text_embed in {text_batches} text batches; cosine to the plain path min "
+            f"{cos_b.min():.6f}")
+
+        # -- (c) 8 classify (top 5), 4 scene ------------------------------------
+        flash.launches = 0
+        before_c = dict(ib.stats)
+        with ThreadPoolExecutor(12) as ex:
+            labels = list(ex.map(lambda i: grpc_call(
+                stub, "clip_classify" if i < 8 else "clip_scene_classify", extra[i], {"top_k": 5} if i < 8 else {}),
+                range(12)))
+        classify_launches = flash.launches
+        if any(r["code"] for r in labels):
+            raise AssertionError(f"phase 8 (c): codes {[r['code'] for r in labels]}")
+        served = [np.asarray(grpc_call(stub, "clip_image_embed", p, {})["body"]["vector"]) for p in extra]
+        plain_c = encode_plain([_spec_clip_resize(p, {"size": size}) for p in extra])
+        exact = 0
+        for i, r in enumerate(labels):
+            got = [(x["label"], x["score"]) for x in r["body"]["labels"]]
+            matrix, names, temp = ((mgr._label_matrix, mgr.label_names, mgr.temperature()) if i < 8
+                                   else (mgr._scene_matrix, SCENE_LABELS, 1.0))
+            if len(got) != (5 if i < 8 else 3):
+                raise AssertionError(f"phase 8 (c): request {i} answered {len(got)} labels")
+            # The served labels are the served embedding's softmax top-k.
+            sims = matrix @ served[i].astype(np.float32)
+            probs = np.exp(sims * temp - (sims * temp).max())
+            probs /= probs.sum()
+            order = np.argsort(-probs)[:len(got)]
+            if [names[j] for j in order] != [g[0] for g in got] or not np.allclose(
+                    probs[order], [g[1] for g in got], atol=1e-5):
+                raise AssertionError(f"phase 8 (c): request {i}'s labels are not its embedding's top-k")
+            # Top-1 against the plain path: equal, unless the plain path's
+            # own top two lie within 2 * |served - plain| (the most the
+            # embeddings' difference can move a cosine score).
+            plain_sims = matrix @ plain_c[i]
+            top = np.argsort(-plain_sims)[:2]
+            delta = float(np.linalg.norm(served[i] - plain_c[i]))
+            if names[top[0]] == got[0][0]:
+                exact += 1
+            elif plain_sims[top[0]] - plain_sims[top[1]] > 2 * delta or \
+                    plain_sims[names.index(got[0][0])] < plain_sims[top[0]] - 2 * delta:
+                raise AssertionError(f"phase 8 (c): request {i}'s top-1 {got[0][0]} vs the plain path's "
+                                     f"{names[top[0]]}, margin {plain_sims[top[0]] - plain_sims[top[1]]:.5f}, "
+                                     f"2|delta| {2 * delta:.5f}")
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        log(f"phase 8 (c): 8 clip_classify (top 5 of {len(mgr.label_names)}) and 4 clip_scene_classify answered; "
+            f"labels are each embedding's softmax top-k; top-1 equal to the plain path's in {exact} of 12 (the "
+            f"others tie within 2|served - plain|)")
+        launches = {"vision (a)": vision_launches, "text (b)": text_launches, "classify (c)": classify_launches}
+        layers_v, layers_t = cfg.vision.layers, cfg.text.layers
+        need = {"vision (a)": layers_v * batches, "text (b)": layers_t * text_batches}
+        for name in PHASE8_KERNELS:
+            short = [k for k, n in need.items() if launches[k] < n or n == 0]
+            if short:
+                raise AssertionError(f"phase 8: {name} never launched enough in {short}: launches {launches}, "
+                                     f"needed {need} ({layers_v}/{layers_t} layers x batches)")
+        log(f"phase 8: flash_attention launches {json.dumps(launches)} (>= layers x batches: {json.dumps(need)}); "
+            f"classify batches {ib.stats['batches'] - before_c['batches']}")
+
+        # -- (d) photo 0 again, and as tensor/raw --------------------------------
+        flash.launches = 0
+        items0 = ib.stats["items"]
+        again = grpc_call(stub, "clip_image_embed", photos[0], {})
+        if again["code"] or again["meta"].get("cache_hit") != "1" or flash.launches or ib.stats["items"] != items0:
+            raise AssertionError(f"phase 8 (d): the repeat was not a cached answer (meta {again['meta']}, "
+                                 f"launches {flash.launches})")
+        if again["body"]["vector"] != embeds[0]["body"]["vector"]:
+            raise AssertionError("phase 8 (d): the cached answer differs from the computed one")
+        payload, tmeta = tensor_payload(pixels[0])
+        alone = grpc_call(stub, "clip_image_embed", payload, tmeta, mime=TENSOR_MIME)
+        if alone["code"]:
+            raise AssertionError(f"phase 8 (d): tensor/raw answered code {alone['code']}")
+        cos_d = float(cosines(expect_unit(alone["body"]["vector"], "tensor/raw"), vecs[0]))
+        if cos_d < CLIP_COSINE:
+            raise AssertionError(f"phase 8 (d): photo 0 alone vs in a full batch, cosine {cos_d:.6f}")
+        log(f"phase 8 (d): photo 0 again answered from the result cache in {again['s'] * 1e3:.2f} ms with no "
+            f"launch; photo 0 as tensor/raw ({size}x{size}x3 uint8) alone vs in a batch of "
+            f"{ib.buckets[-1]}: cosine {cos_d:.6f}")
+
+        # -- (e) a malformed image ---------------------------------------------------
+        bad = grpc_call(stub, "clip_image_embed", b"\xff\xd8 not a jpeg", {})
+        if bad["code"] != pb.ERROR_CODE_INVALID_ARGUMENT:
+            raise AssertionError(f"phase 8 (e): a malformed image answered code {bad['code']}")
+        caps = stub.GetCapabilities(empty_pb2.Empty(), timeout=30)
+        if caps.runtime != ("torch-cuda" if on_card else "torch-cpu") or {t.name for t in caps.tasks} != {
+                "clip_image_embed", "clip_text_embed", "clip_classify", "clip_scene_classify"}:
+            raise AssertionError(f"phase 8: capabilities {caps.runtime} {[t.name for t in caps.tasks]}")
+        decode_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            _spec_clip_resize(photos[0], {"size": size})
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+        log(f"phase 8 (e): malformed image INVALID_ARGUMENT; decode of one 1600x1200 JPEG to {size}x{size} "
+            f"{sorted(decode_ms)[2]:.2f} ms (median of 5, scaled decode + resize, one thread), pool queue wait "
+            f"p50 {pool.wait_ms_p50():.2f} ms; peak device memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+            f"held before the server booted: the direct model and the seeded state) [{card}]")
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    out.update(load_s=load_s, images_s=n_photos / wall, p50_ms=pct(0.5), p95_ms=pct(0.95), fill=fill, cold_s=cold_s,
+               batch_ms=batch_ms,
+               decode_ms=sorted(decode_ms)[2], peak_gib=peak / 2**30, label_s=mgr.label_embed_s,
+               launches=launches, cos_min=float(min(cos_a.min(), cos_b.min(), cos_d)))
+
+    # -- (f) a hub of clip + vlm: 4 caption streams while 32 photos embed -----------
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    with env(LUMEN_VLM_SPEC_K="0", LUMEN_GRPC_WORKERS=str(in_flight + 8)):
+        handle, channel, stub, hub_s = boot_server(
+            hub_yaml(root / "hub.yaml", root / "cache", "SmokeCLIP", batch_size, vlm_model="SmokeVLM"), device)
+    try:
+        caps = stub.GetCapabilities(empty_pb2.Empty(), timeout=30)
+        tasks = {t.name for t in caps.tasks}
+        if not {"clip_image_embed", "vlm_generate_stream"} <= tasks:
+            raise AssertionError(f"phase 8 (f): the hub serves {sorted(tasks)}")
+        n_vlm, n_img = 4, min(32, n_photos)
+
+        def job(i):
+            if i < n_vlm:
+                return grpc_call(stub, "vlm_generate_stream", phase6["photos"][i],
+                                 {"messages": phase6["prompt"], "max_new_tokens": phase6["budgets"][i]})
+            return grpc_call(stub, "clip_image_embed", photos[i - n_vlm], {})
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_vlm + n_img) as ex:
+            res = list(ex.map(job, range(n_vlm + n_img)))
+        hub_wall = time.perf_counter() - t0
+        if any(r["code"] for r in res):
+            raise AssertionError(f"phase 8 (f): codes {[r['code'] for r in res]}")
+        for i in range(n_vlm):
+            want = phase6["streams"][i]
+            if (res[i]["body"]["text"], res[i]["body"]["generated_tokens"]) != (want["text"], want["generated_tokens"]):
+                raise AssertionError(f"phase 8 (f): caption stream {i} in the hub differs from phase 6's")
+        cos_f = cosines(np.stack([r["body"]["vector"] for r in res[n_vlm:]]), vecs[:n_img])
+        if cos_f.min() < CLIP_COSINE:
+            raise AssertionError(f"phase 8 (f): hub embeddings vs (a)'s, cosine {cos_f.min():.6f}")
+        threads = [t.name for t in threading.enumerate()]
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    live = [t.name for t in threading.enumerate()
+            if t.name.startswith(("clip-image", "clip-text", "vlm-continuous"))]
+    pool = get_decode_pool()
+    procs = [w.proc for w in pool._workers_all]
+    shutdown_decode_pool()
+    alive = [p.pid for p in procs if p.poll() is None]
+    if live or alive:
+        raise AssertionError(f"phase 8 (f): after stop, threads {live} and decode workers {alive} still alive")
+    log(f"phase 8 (f): hub of clip + vlm up in {hub_s:.2f} s; 4 vlm_generate_stream beside 32 clip_image_embed "
+        f"in {hub_wall:.3f} s: captions equal to phase 6's, embeddings cosine min {cos_f.min():.6f} to (a)'s; "
+        f"stop retired {len([t for t in threads if t.startswith(('clip-', 'vlm-continuous'))])} batcher/engine "
+        f"threads and the decode pool's {len(procs)} worker processes [{card}]")
+    out.update(hub_s=hub_s, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1579,10 +2131,22 @@ def main() -> int:
             f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
             f"peak GiB {grpc_drive['peak_gib']:.3f}")
         defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
-    log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
-        f"{defaults['preempted']} preemptions, "
-        f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
-        f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
+        log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
+            f"{defaults['preempted']} preemptions, "
+            f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
+            f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
+        clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
+    log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
+        f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
+        f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
+        f"client p50 {clip['p50_ms']:.1f} ms p95 {clip['p95_ms']:.1f} ms, mean batch fill {100 * clip['fill']:.1f}%, "
+        f"decode {clip['decode_ms']:.2f} ms a photo, peak GiB {clip['peak_gib']:.3f}; cosine to the plain path min "
+        f"{clip['cos_min']:.6f}")
+    for label, key in (("CLIP vision", "vision (a)"), ("CLIP text, causal", "text (b)")):
+        row = rows[f"flash_attention ({label})"]
+        log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| "
+            f"{row['max_abs_err']:.3e}, phase-8 launches {clip['launches'][key]} [{card}]")
 
     table = []
     for k in kernels:

@@ -1,0 +1,580 @@
+"""CLIP model manager: embeddings + zero-shot classification on a torch
+device (the port of ``lumen_tpu/models/clip/manager.py``).
+
+Business-logic layer mirroring the reference's ``CLIPModelManager``
+(``packages/lumen-clip/src/lumen_clip/general_clip/clip_model.py:48-403``)
+and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
+
+- image/text encode are batched device calls (bucketed static shapes)
+  behind the port's micro-batchers, one per tower, built through the
+  replica fleet (one replica on one card: the plain batcher);
+- image bytes decode and resize on the shared decode pool
+  (``clip_resize``); normalisation runs on the device from uint8 pixels;
+- classification scores an embedding against a label-embedding matrix
+  (softmax mode for curated label sets; raw-cosine mode for huge
+  taxonomies, the BioCLIP behavior) on the host: a handler thread's
+  device matmul would queue on the default stream behind whole batches;
+- label embeddings load from the dataset's precomputed ``.npy`` or are
+  computed on startup through the text tower (``clip_model.py:145-172``).
+
+Not ported: the int8 route (``quantize="int8"``, the warm-up A/B of
+``_pick_quant_route``) and the ONNX graph towers (export-only model
+directories, ``clip_backend: graph``); both raise ``NotImplementedError``
+naming their ROADMAP items, and the service then boots degraded.
+"""
+
+from __future__ import annotations
+
+import copy
+import glob
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Literal
+
+import numpy as np
+import torch
+
+from ...core.model_info import ModelInfo, load_model_info
+from ...ops.image import IMAGENET_MEAN, IMAGENET_STD, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+from ...runtime.batcher import MicroBatcher, mesh_buckets, mesh_sharded, warmup_batcher
+from ...runtime.decode_pool import get_decode_pool
+from ...runtime.fleet import (
+    batcher_name,
+    build_fleet,
+    each_batcher,
+    plan_replicas,
+    replicate_all,
+    topology_extra,
+)
+from ...runtime.mesh import local_devices
+from ...runtime.policy import get_policy, resolve_device
+from ...runtime.quarantine import guarded_key
+from ...runtime.result_cache import get_result_cache, make_namespace
+from ...runtime.weights import WeightLoadError, load_state_dict
+from .convert import convert_clip_checkpoint
+from .modeling import CLIPConfig, CLIPModel, TowerConfig
+from .tokenizer import ClipTokenizer
+
+logger = logging.getLogger(__name__)
+
+# Scene-classify contract: the reference's 8 hardcoded prompts and its
+# label derivation (prompt minus "a photo of " minus "an ") are part of the
+# observable output (``clip_model.py:90-99`` builds them, ``:355-357``
+# derives the label), so clients see identical scene buckets on both
+# stacks. These short strings are wire-contract constants, like proto
+# field names.
+SCENE_PROMPTS = [
+    "a photo of a person",
+    "a photo of an animal",
+    "a photo of a vehicle",
+    "a photo of food",
+    "a photo of a building",
+    "a photo of nature",
+    "a photo of an object",
+    "a photo of a landscape",
+]
+SCENE_LABELS = [
+    p.replace("a photo of ", "").replace("an ", "") for p in SCENE_PROMPTS
+]
+DEFAULT_PROMPT_TEMPLATE = "a photo of a {}"
+
+#: what the ONNX-export CLIP directories need (ROADMAP queue A, face item)
+_GRAPH_NOT_PORTED = (
+    "the ONNX graph towers (export-only CLIP directories, clip_backend: graph) need the ONNX "
+    "bridge, which is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 4)"
+)
+
+
+@dataclass
+class ClassifyResult:
+    labels: list[tuple[str, float]]  # (label, score) best-first
+
+
+def _has_onnx_towers(model_dir: str) -> bool:
+    found = glob.glob(os.path.join(model_dir, "**", "*.onnx"), recursive=True)
+    names = [os.path.basename(p).lower() for p in found]
+    return any(n.startswith("vision") for n in names) and any(n.startswith("text") for n in names)
+
+
+def _fleet_devices(device: torch.device) -> list[torch.device]:
+    """The devices the replica plan partitions: the CPU alone, or every
+    local card starting at ``device``."""
+    if device.type != "cuda":
+        return [device]
+    devs = local_devices()
+    return devs[device.index:] + devs[: device.index]
+
+
+class CLIPManager:
+    """One loaded CLIP model + its datasets, ready to serve."""
+
+    def __init__(
+        self,
+        model_dir: str,
+        dataset: str | None = None,
+        dtype: str = "bfloat16",
+        batch_size: int = 8,
+        max_batch_latency_ms: float = 5.0,
+        mesh_axes: dict[str, int] | None = None,
+        classify_mode: Literal["softmax", "cosine"] = "softmax",
+        warmup: bool = False,
+        quantize: str | None = None,
+        name_prefix: str = "clip",
+        device: "str | torch.device | None" = None,
+    ):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if quantize == "int8":
+            raise NotImplementedError(
+                "CLIP quantize=int8 (the W8A8 tower blocks and the warm-up route A/B) is not "
+                "ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
+            )
+        # Batcher/gauge name scope: "clip" for the default manager, the
+        # config alias for siblings ("bioclip-image"/"bioclip-text"), so
+        # two managers in one service never collide on gauges or replica
+        # state keys.
+        self.name_prefix = name_prefix
+        self.model_dir = model_dir
+        self.dataset_name = dataset
+        self.classify_mode = classify_mode
+        self.policy = get_policy(dtype)
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.max_batch_latency_ms = max_batch_latency_ms
+        # Replica fleet (LUMEN_REPLICAS / LUMEN_REPLICAS_CLIP): the host's
+        # devices partition into N slices, one per replica; ``self.mesh``
+        # stays the primary (replica-0) slice, where label embedding runs.
+        self.fleet_plan = plan_replicas("clip", mesh_axes, devices=_fleet_devices(self.device))
+        self.mesh = self.fleet_plan.meshes[0]
+        self.warmup = warmup
+        self.info: ModelInfo = load_model_info(model_dir)
+        self.cfg = self._build_config(model_dir)
+        # Deployment override for the serving-side text pad length (e.g. a
+        # BERT-text model whose queries are known-short).
+        tsl = self.info.extra("text_serving_length")
+        if tsl:
+            import dataclasses
+
+            self.cfg = dataclasses.replace(self.cfg, text_serving_length=int(tsl))
+        self.model_id = self.info.name
+        #: serving route ("bf16"; the int8 route is not ported)
+        self.quant_route = "bf16"
+        self._initialized = False
+        self._image_batcher: MicroBatcher | None = None  # or ReplicaSet (fleet)
+        self._text_batcher: MicroBatcher | None = None
+        self._fleet_models: list[CLIPModel] | None = None  # one placement per replica
+        self.model: CLIPModel | None = None
+        self.label_names: list[str] = []
+        self._label_matrix: np.ndarray | None = None  # [L, D] unit-norm fp32
+        #: seconds the label embeddings took at start-up (loaded or computed)
+        self.label_embed_s: float | None = None
+        self._temperature = 100.0
+
+    # -- configuration ----------------------------------------------------
+
+    def _build_config(self, model_dir: str) -> CLIPConfig:
+        cfg_path = os.path.join(model_dir, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path, "r", encoding="utf-8") as f:
+                raw = json.load(f)
+            if "vision_config" in raw:
+                return CLIPConfig.from_hf(raw)
+        # openclip-style config (open_clip_config.json) — reference loader
+        # distinguishes the two the same way (resources/loader.py:186-204).
+        oc_path = os.path.join(model_dir, "open_clip_config.json")
+        if os.path.exists(oc_path):
+            with open(oc_path, "r", encoding="utf-8") as f:
+                raw = json.load(f).get("model_cfg", {})
+            v, t = raw.get("vision_cfg", {}), raw.get("text_cfg", {})
+            return CLIPConfig(
+                embed_dim=raw.get("embed_dim", 512),
+                image_size=v.get("image_size", 224),
+                patch_size=v.get("patch_size", 32),
+                vision=TowerConfig(v.get("width", 768), v.get("layers", 12), v.get("width", 768) // 64),
+                text=TowerConfig(t.get("width", 512), t.get("layers", 12), t.get("heads", 8)),
+                vocab_size=t.get("vocab_size", 49408),
+                context_length=t.get("context_length", 77),
+            )
+        if _has_onnx_towers(model_dir):
+            raise NotImplementedError(f"{model_dir} has no tower config: {_GRAPH_NOT_PORTED}")
+        raise FileNotFoundError(
+            f"no config.json / open_clip_config.json / onnx towers in {model_dir}"
+        )
+
+    @property
+    def norm_stats(self) -> tuple[tuple[float, ...], tuple[float, ...]]:
+        """Normalization stats; OpenAI-CLIP defaults unless the model name
+        suggests ImageNet stats (reference heuristic, loader.py:101-139)."""
+        name = self.info.name.lower()
+        if "bioclip" in name or "imagenet" in (self.info.extra("norm", "") or ""):
+            return IMAGENET_MEAN, IMAGENET_STD
+        return OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+
+    # -- initialization ---------------------------------------------------
+
+    def _load_state(self) -> dict[str, torch.Tensor]:
+        backend = str(self.info.extra("clip_backend", "auto") or "auto")
+        if backend == "graph":
+            raise NotImplementedError(f"clip_backend=graph: {_GRAPH_NOT_PORTED}")
+        logger.info("loading CLIP weights from %s", self.model_dir)
+        try:
+            return load_state_dict(self.model_dir)
+        except (FileNotFoundError, WeightLoadError):
+            if backend != "native" and _has_onnx_towers(self.model_dir):
+                raise NotImplementedError(
+                    f"{self.model_dir} has no native checkpoint: {_GRAPH_NOT_PORTED}"
+                ) from None
+            raise
+
+    def initialize(self) -> None:
+        if self._initialized:
+            return
+        model = CLIPModel(self.cfg)
+        model.load_state_dict(convert_clip_checkpoint(self._load_state()), strict=True)
+        model = model.to(dtype=self.policy.param_dtype).eval().requires_grad_(False)
+        # The exported temperature, read once (as the JAX package reads it:
+        # exp in fp32 of the policy-cast logit scale).
+        self._temperature = float(np.exp(np.float32(model.logit_scale.float().item())))
+        # Every replica gets its own copy of the weights on its device.
+        self._fleet_models = replicate_all(
+            lambda mesh: copy.deepcopy(model).to(mesh.device), self.fleet_plan,
+            primary=model.to(self.mesh.device),
+        )
+        self.model = self._fleet_models[0]
+        mean, std = self.norm_stats
+        compute_dtype = self.policy.compute_dtype
+        # Per-device normalisation constants, made once: a host->device
+        # copy inside the batched call would be a synchronous one.
+        stats = {
+            m.device: (torch.tensor(mean, device=m.device), torch.tensor(std, device=m.device))
+            for m in self.fleet_plan.meshes
+        }
+
+        @torch.inference_mode()
+        def encode_images(model, pixels_u8):
+            # pixels_u8: [B, S, S, 3] uint8 on the model's device;
+            # normalize + cast on the device.
+            mu, sigma = stats[pixels_u8.device]
+            x = (pixels_u8.float() / 255.0 - mu) / sigma
+            return model.encode_image(x.to(compute_dtype))  # fp32 unit-norm
+
+        @torch.inference_mode()
+        def encode_texts(model, ids):
+            return model.encode_text(ids.long())
+
+        self.tokenizer = ClipTokenizer.from_model_dir(self.model_dir, self.cfg.serving_text_length)
+        self._encode_images = encode_images
+        self._encode_texts = encode_texts
+
+        dp = self.mesh.shape.get("data", 1)
+        buckets = mesh_buckets(self.batch_size, dp)
+        pin = self.device.type == "cuda"
+
+        # Batcher fns DISPATCH and return the un-fetched device tensor: the
+        # MicroBatcher's fetch worker does the one device->host copy per
+        # batch, so the next batch stacks/copies/launches while this one
+        # computes. Each replica closes over ITS copy of the weights;
+        # build_fleet hands back the plain single batcher when the plan is
+        # one replica, a routed ReplicaSet otherwise. The closures double
+        # as the fleet's revive hook.
+        def build_image(rid, mesh):
+            model = self._fleet_models[rid or 0]
+            return MicroBatcher(
+                mesh_sharded(lambda pixels, n, _m=model: self._encode_images(_m, pixels), mesh),
+                max_batch=buckets[-1],
+                max_latency_ms=self.max_batch_latency_ms,
+                buckets=buckets,
+                name=batcher_name(f"{self.name_prefix}-image", rid),
+                replica=None if rid is None else f"r{rid}",
+                pin_memory=pin,
+            ).start()
+
+        def build_text(rid, mesh):
+            model = self._fleet_models[rid or 0]
+            return MicroBatcher(
+                mesh_sharded(lambda ids, n, _m=model: self._encode_texts(_m, ids), mesh),
+                max_batch=buckets[-1],
+                max_latency_ms=self.max_batch_latency_ms,
+                buckets=buckets,
+                name=batcher_name(f"{self.name_prefix}-text", rid),
+                replica=None if rid is None else f"r{rid}",
+                pin_memory=pin,
+            ).start()
+
+        self._image_batcher = build_fleet(self.fleet_plan, f"{self.name_prefix}-image", build_image)
+        self._text_batcher = build_fleet(self.fleet_plan, f"{self.name_prefix}-text", build_text)
+
+        self._load_label_embeddings()
+        if self.warmup:
+            self._warmup(buckets)
+        self._initialized = True
+        logger.info(
+            "CLIP ready: %s embed_dim=%d labels=%d on %s",
+            self.model_id,
+            self.cfg.embed_dim,
+            len(self.label_names),
+            self.device,
+        )
+
+    def _warmup(self, buckets: list[int]) -> None:
+        """Run every batch bucket once at startup so first requests don't
+        pay a bucket's first-call cost. Runs through the batchers' own
+        callables."""
+        t0 = time.perf_counter()
+        size = self.cfg.image_size
+        for b in each_batcher(self._image_batcher):
+            warmup_batcher(b, lambda n: np.zeros((n, size, size, 3), np.uint8))
+        for b in each_batcher(self._text_batcher):
+            warmup_batcher(
+                b, lambda n: np.zeros((n, self.cfg.serving_text_length), np.int32)
+            )
+        logger.info("warmup: %d bucket(s) run in %.1fs", len(buckets), time.perf_counter() - t0)
+
+    def close(self) -> None:
+        if self._image_batcher:
+            self._image_batcher.close()
+        if self._text_batcher:
+            self._text_batcher.close()
+        self._initialized = False
+
+    def topology(self) -> dict[str, str]:
+        """Device topology + replica layout for the capability ``extra``."""
+        return topology_extra(self.mesh, self._image_batcher, self._text_batcher)
+
+    # -- datasets ---------------------------------------------------------
+
+    def _load_label_embeddings(self) -> None:
+        if not self.dataset_name or not self.info.datasets:
+            return
+        ds = self.info.datasets.get(self.dataset_name)
+        if ds is None:
+            logger.warning("dataset %r not in model_info; classify disabled", self.dataset_name)
+            return
+        t0 = time.perf_counter()
+        labels_path = os.path.join(self.model_dir, ds.labels)
+        with open(labels_path, "r", encoding="utf-8") as f:
+            raw_labels = json.load(f)
+        self.label_names = [self._label_text(entry) for entry in raw_labels]
+        emb_path = os.path.join(self.model_dir, ds.embeddings)
+        if os.path.exists(emb_path):
+            mat = np.load(emb_path, mmap_mode="r")
+            mat = np.asarray(mat, np.float32)
+            # Axis-order autodetect (reference: bioclip_model.py:287-309).
+            if mat.shape[0] != len(self.label_names) and mat.shape[-1] == len(self.label_names):
+                mat = mat.T
+            if mat.shape[0] != len(self.label_names):
+                raise ValueError(
+                    f"label embedding shape {mat.shape} does not match "
+                    f"{len(self.label_names)} labels"
+                )
+        else:
+            logger.info("no precomputed label embeddings; encoding %d labels", len(self.label_names))
+            mat = self._compute_label_embeddings(self.label_names)
+        mat = mat / np.maximum(np.linalg.norm(mat, axis=-1, keepdims=True), 1e-12)
+        self._label_matrix = np.ascontiguousarray(mat, np.float32)
+        self.label_embed_s = time.perf_counter() - t0
+
+    @staticmethod
+    def _label_text(entry) -> str:
+        """Dataset label entries are either plain strings or BioCLIP-style
+        ``[[taxonomy...], common_name]`` pairs (reference name extraction,
+        ``bioclip_model.py:192-217``)."""
+        if isinstance(entry, str):
+            return entry
+        if isinstance(entry, (list, tuple)) and len(entry) == 2:
+            taxonomy, common = entry
+            if isinstance(common, str) and common:
+                return common
+            if isinstance(taxonomy, (list, tuple)) and taxonomy:
+                return str(taxonomy[-1])
+        return str(entry)
+
+    def _compute_label_embeddings(self, labels: list[str], template: str = DEFAULT_PROMPT_TEMPLATE) -> np.ndarray:
+        out = []
+        bs = max(self.batch_size, 16)
+        for i in range(0, len(labels), bs):
+            chunk = [template.format(l) for l in labels[i : i + bs]]
+            ids = torch.from_numpy(self.tokenizer.encode_batch(chunk)).to(self.mesh.device)
+            out.append(self._encode_texts(self.model, ids).cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    # -- inference API ----------------------------------------------------
+
+    def _cache_ns(self, task: str, *qualifiers: str) -> str:
+        """Result-cache namespace: qualified by the compute dtype (the JAX
+        package's names, ``bfloat16`` / ``float32``) and the quant route;
+        image tasks add the decode-policy qualifier."""
+        return make_namespace(
+            "clip", task, self.model_id, self.info.version,
+            str(self.policy.compute_dtype).removeprefix("torch."), self.quant_route,
+            *qualifiers,
+        )
+
+    def encode_image(self, image_bytes: bytes) -> np.ndarray:
+        """Single image bytes -> unit-norm fp32 embedding (batched under the
+        hood with concurrent callers). Content-addressed cache first: the
+        sha256 runs on the RAW bytes, so a hit (or a coalesced duplicate
+        in flight) skips decode pool AND batcher entirely. The same content
+        address is the poison-quarantine gate, and it rides the batcher
+        submit as the fingerprint bisection quarantines on. On a miss,
+        decode+resize run on the shared decode pool — the calling (gRPC
+        handler) thread only waits. Every hit returns a private copy."""
+        self._ensure_ready()
+        from ...ops.image import DECODE_POLICY
+
+        payload = bytes(image_bytes)
+        ns = self._cache_ns("image_embed", DECODE_POLICY)
+        key = guarded_key(ns, None, payload)
+        return get_result_cache().get_or_compute(
+            ns,
+            None,
+            payload,
+            lambda: self._encode_image_uncached(image_bytes, fingerprint=key),
+            clone=np.copy,
+            key=key,
+        )
+
+    def _encode_image_uncached(
+        self, image_bytes: bytes, fingerprint: str | None = None
+    ) -> np.ndarray:
+        # The "clip_resize" decode spec (scaled decode + square squash,
+        # lumen_tpu_torch.utils.host_decode) runs on the shared pool — in
+        # process mode a worker process writes into a shared-memory arena
+        # slot, and `decoded.array` is a view the batcher's collector
+        # stacks from; release() recycles the slot once the batcher has
+        # settled.
+        size = self.cfg.image_size
+        decoded = get_decode_pool().run_decode(
+            "clip_resize", image_bytes, {"size": size}
+        )
+        try:
+            vec = self._image_batcher(decoded.array, fingerprint=fingerprint)
+        finally:
+            decoded.release()
+        return self._check_vector(vec)
+
+    def tensor_input_shape(self) -> tuple[int, int, int]:
+        """The pre-decoded pixel tensor accepted on the ``tensor/raw`` wire
+        path: exactly what the ``clip_resize`` decode spec produces, so
+        tensor- and JPEG-path results are identical."""
+        size = self.cfg.image_size
+        return (size, size, 3)
+
+    def encode_image_tensor(self, pixels: np.ndarray, raw: bytes | None = None) -> np.ndarray:
+        """Pre-decoded tensor -> unit-norm embedding: the zero-decode
+        serving path (no decode pool, no resize). ``raw`` is the wire
+        payload backing ``pixels``; the result cache keys on sha256 of it
+        under a ``tensor``-qualified namespace."""
+        self._ensure_ready()
+        size = self.cfg.image_size
+        if pixels.dtype != np.uint8 or tuple(pixels.shape) != (size, size, 3):
+            raise ValueError(
+                f"tensor input must be uint8 of shape ({size}, {size}, 3); "
+                f"got {pixels.dtype} {tuple(pixels.shape)}"
+            )
+        payload = raw if raw is not None else pixels.tobytes()
+        ns = self._cache_ns("image_embed", "tensor")
+        key = guarded_key(ns, None, payload)
+        return get_result_cache().get_or_compute(
+            ns,
+            None,
+            payload,
+            lambda: self._check_vector(
+                self._image_batcher(np.ascontiguousarray(pixels), fingerprint=key)
+            ),
+            clone=np.copy,
+            key=key,
+        )
+
+    def encode_text(self, text: str) -> np.ndarray:
+        self._ensure_ready()
+        payload = text.encode("utf-8")
+        ns = self._cache_ns("text_embed")
+        key = guarded_key(ns, None, payload)
+        return get_result_cache().get_or_compute(
+            ns,
+            None,
+            payload,
+            lambda: self._encode_text_uncached(text, fingerprint=key),
+            clone=np.copy,
+            key=key,
+        )
+
+    def _encode_text_uncached(self, text: str, fingerprint: str | None = None) -> np.ndarray:
+        ids = self.tokenizer.encode_batch([text])[0]
+        vec = self._text_batcher(ids, fingerprint=fingerprint)
+        return self._check_vector(vec)
+
+    def classify_image(self, image_bytes: bytes, top_k: int = 5) -> ClassifyResult:
+        self._ensure_ready()
+        if self._label_matrix is None:
+            raise RuntimeError("no dataset loaded; classification unavailable")
+        vec = self.encode_image(image_bytes)
+        return self._classify_vector(vec, self.label_names, self._label_matrix, top_k)
+
+    def classify_scene(self, image_bytes: bytes, top_k: int = 3) -> ClassifyResult:
+        self._ensure_ready()
+        if not hasattr(self, "_scene_matrix"):
+            # The full prompts embed verbatim (template already baked in);
+            # labels are their reference-derived short forms.
+            mat = self._compute_label_embeddings(SCENE_PROMPTS, template="{}")
+            self._scene_matrix = mat / np.maximum(np.linalg.norm(mat, axis=-1, keepdims=True), 1e-12)
+        vec = self.encode_image(image_bytes)
+        # Reference scene scoring is a plain softmax over raw cosine
+        # similarities (``clip_model.py:344-350``) — no logit-scale
+        # temperature, unlike classify_image.
+        return self._classify_vector(
+            vec, SCENE_LABELS, self._scene_matrix, top_k, temperature=1.0
+        )
+
+    def _classify_vector(
+        self,
+        vec: np.ndarray,
+        names: list[str],
+        matrix: np.ndarray,
+        top_k: int,
+        temperature: float | None = None,
+    ) -> ClassifyResult:
+        sims = matrix @ np.asarray(vec, np.float32)  # cosine: both unit-norm
+        top_k = min(top_k, len(names))
+        idx = np.argpartition(-sims, top_k - 1)[:top_k]
+        idx = idx[np.argsort(-sims[idx])]
+        if self.classify_mode == "cosine" and temperature is None:
+            # Raw similarity scores (BioCLIP large-taxonomy behavior). An
+            # explicitly pinned temperature (the scene path's 1.0) always
+            # means softmax — even on a cosine-mode manager.
+            scores = sims[idx]
+        else:
+            # Temperature-scaled stable softmax over ALL labels
+            # (reference: clip_model.py:232-317).
+            if temperature is None:
+                temperature = self.temperature()
+            logits = sims * temperature
+            logits -= logits.max()
+            probs = np.exp(logits)
+            probs /= probs.sum()
+            scores = probs[idx]
+        return ClassifyResult(labels=[(names[i], float(s)) for i, s in zip(idx, scores)])
+
+    # -- utils ------------------------------------------------------------
+
+    def _ensure_ready(self) -> None:
+        if not self._initialized:
+            raise RuntimeError("CLIPManager.initialize() not called")
+
+    @staticmethod
+    def _check_vector(vec: np.ndarray) -> np.ndarray:
+        vec = np.asarray(vec, np.float32)
+        if not np.isfinite(vec).all():
+            raise ValueError("model produced non-finite embedding")
+        n = np.linalg.norm(vec)
+        if n < 1e-6:
+            raise ValueError("model produced zero-norm embedding")
+        return vec / n
+
+    def temperature(self) -> float:
+        """Exported logit scale (exp'd), read at initialisation."""
+        return self._temperature

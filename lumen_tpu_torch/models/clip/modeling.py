@@ -1,19 +1,124 @@
-"""The CLIP transformer pieces the VLM vision tower borrows (twin of the
-matching parts of ``lumen_tpu/models/clip/modeling.py``): ``_act``,
-``Attention``, ``Mlp``, the pre-LN ``Block`` and ``PatchEmbed``.
+"""CLIP in PyTorch: ViT image tower + causal text transformer, or the
+ChineseCLIP BERT text tower (twin of ``lumen_tpu/models/clip/modeling.py``).
 
-Submodule names follow the Flax parameter tree (``attn/q_proj``,
-``ln1``, ``mlp/fc1``, ...) so ``models/vlm/convert.py`` maps one onto
-the other by name. The CLIP towers themselves are not ported yet.
+Submodule names follow the Flax parameter tree (``attn/q_proj``, ``ln1``,
+``mlp/fc1``, ``blocks_<i>`` -> ``blocks.<i>``, ...), so
+``models/clip/convert.py`` maps one onto the other by name; the VLM vision
+tower borrows ``Block`` and ``PatchEmbed``. Images are channels-last
+``[B, H, W, 3]``, as in the JAX package.
+
+Every unmasked attention call (both CLIP towers) runs the port's
+``flash_attention`` kernel on CUDA tensors; the BERT tower's padded call
+passes a mask and runs the plain version, as the JAX ``attention`` sends
+masked calls to its XLA reference. Not ported: int8 tower blocks
+(``weight_quant="int8"``, the JAX ``QDense`` ``dynamic`` W8A8 mode) --
+a config asking for them raises.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ...ops.attention import attention
+
+
+@dataclass(frozen=True)
+class TowerConfig:
+    width: int
+    layers: int
+    heads: int
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int = 512
+    image_size: int = 224
+    patch_size: int = 32
+    vision: TowerConfig = field(default_factory=lambda: TowerConfig(768, 12, 12))
+    text: TowerConfig = field(default_factory=lambda: TowerConfig(512, 12, 8))
+    vocab_size: int = 49408
+    context_length: int = 77
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+    #: EOT/EOS token id for text pooling; None = argmax convention (OpenAI
+    #: CLIP's EOT is the highest vocab id, so argmax finds it).
+    eot_token_id: int | None = None
+    #: Text tower architecture: "clip" (causal pre-LN transformer, EOT
+    #: pooling) or "bert" (ChineseCLIP: bidirectional post-LN BERT with
+    #: padding mask, CLS pooling).
+    text_arch: str = "clip"
+    text_hidden_act: str | None = None  # None -> hidden_act ("gelu" for bert)
+    text_layer_norm_eps: float | None = None  # None -> layer_norm_eps
+    pad_token_id: int = 0  # bert padding-mask id ([PAD]=0 for BERT vocabs)
+    #: Serving-side text length cap (BERT checkpoints carry a 512-row
+    #: position table but queries are short; the tower slices positions
+    #: to the input's length, so the tokenizer/batcher pad to this).
+    text_serving_length: int | None = None
+    #: int8 tower blocks: not ported (see the module docstring).
+    weight_quant: str | None = None
+    weight_quant_kernel: str = "dynamic"
+
+    @property
+    def serving_text_length(self) -> int:
+        return min(self.text_serving_length or self.context_length, self.context_length)
+
+    @classmethod
+    def tiny(cls) -> "CLIPConfig":
+        """Small config for tests (fast CPU parity runs)."""
+        return cls(
+            embed_dim=32,
+            image_size=32,
+            patch_size=16,
+            vision=TowerConfig(64, 2, 4),
+            text=TowerConfig(48, 2, 4),
+            vocab_size=128,
+            context_length=16,
+        )
+
+    @classmethod
+    def from_hf(cls, cfg: dict[str, Any]) -> "CLIPConfig":
+        """Build from an HF ``CLIPConfig``-style dict (``config.json``).
+        ChineseCLIP (CN-CLIP) configs are recognized by their BERT-shaped
+        text_config and mapped to the ``bert`` text arch."""
+        v, t = cfg["vision_config"], cfg["text_config"]
+        is_cnclip = (
+            cfg.get("model_type") == "chinese_clip"
+            or t.get("model_type") == "chinese_clip_text_model"
+        )
+        is_bert = is_cnclip or "type_vocab_size" in t
+        return cls(
+            embed_dim=cfg.get("projection_dim", 512),
+            image_size=v.get("image_size", 224),
+            patch_size=v.get("patch_size", 32),
+            vision=TowerConfig(
+                v.get("hidden_size", 768),
+                v.get("num_hidden_layers", 12),
+                v.get("num_attention_heads", 12),
+            ),
+            text=TowerConfig(
+                t.get("hidden_size", 768 if is_bert else 512),
+                t.get("num_hidden_layers", 12),
+                t.get("num_attention_heads", 12 if is_bert else 8),
+            ),
+            vocab_size=t.get("vocab_size", 21128 if is_bert else 49408),
+            context_length=t.get("max_position_embeddings", 512 if is_bert else 77),
+            eot_token_id=t.get("eos_token_id"),
+            hidden_act=v.get("hidden_act", "quick_gelu"),
+            layer_norm_eps=v.get("layer_norm_eps", 1e-5),
+            text_arch="bert" if is_bert else "clip",
+            text_hidden_act=t.get("hidden_act", "gelu") if is_bert else None,
+            text_layer_norm_eps=t.get("layer_norm_eps", 1e-12) if is_bert else None,
+            pad_token_id=t.get("pad_token_id", 0),
+            # CN-CLIP's published context is 52 tokens; pad to that, not to
+            # the checkpoint's 512-row position table.
+            text_serving_length=52 if is_cnclip else None,
+        )
 
 
 def _act(name: str):
@@ -36,7 +141,7 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(width, width)
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False, mask: torch.Tensor | None = None) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.width // self.heads
 
@@ -44,7 +149,7 @@ class Attention(nn.Module):
             return t.reshape(b, s, self.heads, hd).transpose(1, 2).contiguous()
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
-        out = attention(q, k, v, causal=causal)
+        out = attention(q, k, v, mask=mask, causal=causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, self.width))
 
 
@@ -74,6 +179,23 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+class BertBlock(nn.Module):
+    """Post-LN residual block (BERT layout, ChineseCLIP's text encoder):
+    LayerNorm AFTER each residual add, bidirectional attention with a
+    padding mask."""
+
+    def __init__(self, width: int, heads: int, hidden_act: str, eps: float):
+        super().__init__()
+        self.attn = Attention(width, heads)
+        self.ln1 = nn.LayerNorm(width, eps=eps)
+        self.mlp = Mlp(width, hidden_act)
+        self.ln2 = nn.LayerNorm(width, eps=eps)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = self.ln1(x + self.attn(x, mask=mask))
+        return self.ln2(x + self.mlp(x))
+
+
 class PatchEmbed(nn.Module):
     """Non-overlapping patch embedding as reshape + matmul (JAX
     ``PatchEmbed``). Input ``[B, H, W, C]`` channels-last, as in the JAX
@@ -92,3 +214,134 @@ class PatchEmbed(nn.Module):
         x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, (h // p) * (w // p), p * p * c)
         return F.linear(x, self.weight, self.bias)
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        v = cfg.vision
+        self.patch_embed = PatchEmbed(v.width, cfg.patch_size)
+        self.class_embedding = nn.Parameter(torch.zeros(v.width))
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.position_embedding = nn.Parameter(torch.zeros(n_pos, v.width))
+        self.pre_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
+        self.blocks = nn.ModuleList(
+            Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps) for _ in range(v.layers)
+        )
+        self.post_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
+        self.projection = nn.Linear(v.width, cfg.embed_dim, bias=False)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] preprocessed floats -> [B, embed_dim] (unnormalized)."""
+        x = self.patch_embed(pixel_values)
+        cls_tok = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls_tok, x], dim=1) + self.position_embedding.to(x.dtype)
+        x = self.pre_ln(x)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.projection(self.post_ln(x[:, 0]))
+
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        t = cfg.text
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, t.width)
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
+        self.blocks = nn.ModuleList(
+            Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps) for _ in range(t.layers)
+        )
+        self.final_ln = nn.LayerNorm(t.width, eps=cfg.layer_norm_eps)
+        self.projection = nn.Linear(t.width, cfg.embed_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """[B, S] token ids (right-padded) -> [B, embed_dim] pooled at the
+        EOT position (the configured EOT id's first occurrence, or the
+        argmax of the ids: OpenAI CLIP's EOT is the highest id)."""
+        s = input_ids.shape[1]
+        x = self.token_embedding(input_ids)
+        x = x + self.position_embedding[:s].to(x.dtype)
+        for blk in self.blocks:
+            x = blk(x, causal=True)
+        x = self.final_ln(x)
+        eot_id = self.cfg.eot_token_id
+        if eot_id is not None:
+            eot = torch.argmax((input_ids == eot_id).int(), dim=-1)
+        else:
+            eot = torch.argmax(input_ids, dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+        return self.projection(pooled)
+
+
+class BertTextTower(nn.Module):
+    """ChineseCLIP text tower: BERT encoder + CLS pooling + projection."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        t = cfg.text
+        self.cfg = cfg
+        eps = cfg.text_layer_norm_eps or cfg.layer_norm_eps
+        act = cfg.text_hidden_act or "gelu"
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, t.width)
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
+        # Single-segment inputs: token type 0 everywhere (the table is kept
+        # 2-row for checkpoint parity).
+        self.token_type_embedding = nn.Parameter(torch.zeros(2, t.width))
+        self.embed_ln = nn.LayerNorm(t.width, eps=eps)
+        self.blocks = nn.ModuleList(BertBlock(t.width, t.heads, act, eps) for _ in range(t.layers))
+        self.projection = nn.Linear(t.width, cfg.embed_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        s = input_ids.shape[1]
+        x = self.word_embeddings(input_ids)
+        x = x + self.position_embedding[:s].to(x.dtype) + self.token_type_embedding[0].to(x.dtype)
+        x = self.embed_ln(x)
+        # Bidirectional with right-padding masked out: [B, 1, 1, S].
+        mask = (input_ids != self.cfg.pad_token_id)[:, None, None, :]
+        for blk in self.blocks:
+            x = blk(x, mask)
+        return self.projection(x[:, 0])  # [CLS]
+
+
+class CLIPModel(nn.Module):
+    """Dual-tower CLIP; ``logit_scale`` is the exported temperature (its
+    log)."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        if cfg.weight_quant is not None:
+            raise NotImplementedError(
+                f"CLIP weight_quant={cfg.weight_quant!r}: int8 tower blocks (QDense 'dynamic' W8A8) "
+                "are not ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
+            )
+        self.cfg = cfg
+        self.vision = VisionTower(cfg)
+        self.text = BertTextTower(cfg) if cfg.text_arch == "bert" else TextTower(cfg)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def encode_image(self, pixel_values: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+        return _maybe_normalize(self.vision(pixel_values), normalize)
+
+    def encode_text(self, input_ids: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+        return _maybe_normalize(self.text(input_ids), normalize)
+
+    def forward(self, pixel_values: torch.Tensor, input_ids: torch.Tensor) -> dict:
+        img = self.encode_image(pixel_values)
+        txt = self.encode_text(input_ids)
+        logits_per_image = torch.exp(self.logit_scale.float()) * img @ txt.T
+        return {
+            "image_embeds": img,
+            "text_embeds": txt,
+            "logits_per_image": logits_per_image,
+            "logits_per_text": logits_per_image.T,
+        }
+
+
+def _maybe_normalize(z: torch.Tensor, normalize: bool) -> torch.Tensor:
+    if not normalize:
+        return z
+    # fp32 norm regardless of compute dtype; unit-norm output is the
+    # backend contract.
+    z32 = z.float()
+    return z32 / torch.clamp(torch.linalg.vector_norm(z32, dim=-1, keepdim=True), min=1e-12)

@@ -356,10 +356,16 @@ def _paged_operands(name: str, q, k_pages, v_pages, block_tables, kv_lens):
 # -- dispatch used by the models ---------------------------------------------
 
 
-def attention(q, k, v, causal: bool = False, scale: float | None = None):
-    """Bidirectional or causal attention (JAX ``attention``). Every call on
-    CUDA tensors runs the flash kernel: the JAX min-seq gate existed for a
-    degenerate TPU grid and has no counterpart here."""
+def attention(q, k, v, mask=None, causal: bool = False, scale: float | None = None):
+    """Bidirectional or causal attention (JAX ``attention``). Every
+    unmasked call on CUDA tensors runs the flash kernel: the JAX min-seq
+    gate existed for a degenerate TPU grid and has no counterpart here. A
+    call with a ``mask`` (broadcastable to [B, H, Sq, Sk], True = keep;
+    the BERT text tower's padding mask) runs :func:`attention_reference`
+    on any device, as the JAX ``attention`` sends every masked call to its
+    XLA reference and never to Pallas."""
+    if mask is not None:
+        return attention_reference(q, k, v, mask=mask, causal=causal, scale=scale)
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 

@@ -1,0 +1,166 @@
+"""Device slices and axis conventions of the port (twin of
+``lumen_tpu/runtime/mesh.py``).
+
+The JAX package runs every model call under a ``jax.sharding.Mesh``. The
+port serves one replica on one torch device: a :class:`DeviceMesh` is the
+device list a replica owns and the resolved axis sizes the JAX mesh would
+have had over it, so the fleet and the capability surface read the same
+``shape`` mapping.
+
+Axis names are the JAX package's. :func:`resolve_axes` is its pure-Python
+resolver, unchanged. What the port does not run raises or says so:
+
+- a ``model``, ``seq``, ``stage`` or ``expert`` axis above 1 (tensor,
+  sequence, pipeline or expert parallelism) raises ``NotImplementedError``;
+  those wait for the port's parallel layer (ROADMAP queue A, item 10);
+- a ``data`` axis above 1 (one micro-batch spread over several devices)
+  degrades to 1 with a one-shot warning: the replica serves on its first
+  device. Several cards serve as several replicas, one a card
+  (``LUMEN_REPLICAS=max``, :mod:`lumen_tpu_torch.runtime.fleet`).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from typing import Sequence
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+DATA_AXIS = "data"
+
+
+_degrade_warned: set[str] = set()
+
+
+def resolve_axes(axes: dict[str, int], n_devices: int) -> dict[str, int]:
+    """Resolve a mesh request ({axis: size, one size may be -1}) against the
+    actual device count. The -1 axis absorbs all remaining devices.
+
+    A ``data`` axis that does not fit degrades to the largest size that
+    does (one-shot warning per request shape): ``data`` is the replica/
+    throughput axis, so ``{"data": 8}`` on a 4-chip host should serve 4
+    ways, not fail boot. When no exact cover exists under the requested
+    size (e.g. ``{"data": 3}`` on 8 devices) the resolved mesh may use
+    FEWER devices than the host has — :func:`build_mesh` slices the device
+    list to fit. Non-``data`` axes (tensor/sequence/expert parallelism)
+    still raise: silently shrinking a TP axis would change which
+    checkpoints even fit, and that IS an operator error."""
+    fixed = math.prod(s for s in axes.values() if s != -1)
+    degraded = False
+    if n_devices % fixed != 0:
+        others = math.prod(s for a, s in axes.items() if a != DATA_AXIS and s != -1)
+        dp = axes.get(DATA_AXIS, 0)
+        if dp > 0 and n_devices % others == 0:
+            # Prefer the exact cover (every device used); otherwise the
+            # largest dividing size <= the request (idle devices, warned).
+            slots = n_devices // others
+            new_dp = min(dp, slots)
+            while slots % new_dp:
+                new_dp -= 1
+            key = f"{sorted(axes.items())}@{n_devices}"
+            if key not in _degrade_warned:
+                _degrade_warned.add(key)
+                logger.warning(
+                    "mesh axes %s do not divide device count %d; degrading "
+                    "data axis %d -> %d",
+                    axes, n_devices, dp, new_dp,
+                )
+            axes = {**axes, DATA_AXIS: new_dp}
+            fixed = math.prod(s for s in axes.values() if s != -1)
+            degraded = True
+        if n_devices % fixed != 0:
+            raise ValueError(
+                f"mesh axes {axes} do not divide device count {n_devices} "
+                f"(fixed product {fixed})"
+            )
+    resolved = dict(axes)
+    for name, size in axes.items():
+        if size == -1:
+            resolved[name] = n_devices // fixed
+            break
+    used = math.prod(resolved.values())
+    if used != n_devices:
+        # Consistent degrade policy: an all-fixed request that covers
+        # FEWER devices than the host has (whether asked for directly,
+        # e.g. {"data": 4} on 8 chips, or produced by the data-axis
+        # degrade above) serves on the device prefix — build_mesh slices
+        # the list — instead of failing boot. Over-subscription or a
+        # non-sliceable remainder still raises.
+        if used < n_devices and n_devices % used == 0:
+            key = f"{sorted(resolved.items())}@{n_devices}"
+            if not degraded and key not in _degrade_warned:
+                _degrade_warned.add(key)
+                logger.warning(
+                    "mesh %s uses %d of %d device(s); serving on the prefix",
+                    resolved, used, n_devices,
+                )
+        else:
+            raise ValueError(
+                f"mesh {resolved} uses {used} devices, have {n_devices}"
+            )
+    return resolved
+
+
+class DeviceMesh:
+    """The devices one replica serves on, with the resolved axis sizes
+    (``shape``, as ``jax.sharding.Mesh.shape``). The port places a
+    replica's weights and batches on :attr:`device`."""
+
+    __slots__ = ("devices", "shape")
+
+    def __init__(self, devices: Sequence[torch.device], shape: dict[str, int]):
+        if not devices:
+            raise ValueError("a DeviceMesh needs at least one device")
+        self.devices = [torch.device(d) for d in devices]
+        self.shape = dict(shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({self.shape}, {[str(d) for d in self.devices]})"
+
+
+def local_devices() -> list[torch.device]:
+    """Every CUDA device this process can address (none without a card)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def build_mesh(
+    axes: dict[str, int] | None = None,
+    devices: Sequence[torch.device] | None = None,
+) -> DeviceMesh:
+    """A replica's device slice: by default every local CUDA device on one
+    ``data`` axis, as the JAX ``build_mesh``. Parallel axes the port does
+    not run raise; a ``data`` axis above 1 serves on the slice's first
+    device (module docstring)."""
+    devices = list(devices if devices is not None else local_devices())
+    if not devices:
+        raise RuntimeError("no device to build a mesh on (CUDA is not available)")
+    axes = axes or {DATA_AXIS: -1}
+    resolved = resolve_axes(axes, len(devices))
+    parallel = {a: s for a, s in resolved.items() if a != DATA_AXIS and s > 1}
+    if parallel:
+        raise NotImplementedError(
+            f"mesh axes {parallel}: tensor/sequence/pipeline/expert parallelism is not "
+            "ported to lumen_tpu_torch yet (ROADMAP queue A, item 10)"
+        )
+    used = math.prod(resolved.values())
+    devices = devices[:used]
+    if resolved.get(DATA_AXIS, 1) > 1:
+        key = f"data={resolved[DATA_AXIS]}"
+        if key not in _degrade_warned:
+            _degrade_warned.add(key)
+            logger.warning(
+                "mesh %s: a data axis over %d devices within one replica is not ported; "
+                "serving on %s (LUMEN_REPLICAS=max serves one replica per device)",
+                resolved, len(devices), devices[0],
+            )
+        resolved[DATA_AXIS] = 1
+        devices = devices[:1]
+    logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
+    return DeviceMesh(devices, resolved)

@@ -206,7 +206,7 @@ class MetricsRegistry:
                 if first:
                     import logging
 
-                    logging.getLogger("lumen_tpu.metrics").exception(
+                    logging.getLogger("lumen_tpu_torch.metrics").exception(
                         "gauge provider %r raised; skipping it in this and "
                         "future snapshots until it behaves", name,
                     )

@@ -47,3 +47,38 @@ def test_chip_smoke_default_serving_drive_runs_on_cpu(tmp_path, monkeypatch):
     assert out["preempted"] > 0 and out["resumed"] > 0
     assert out["prefix_hits"] == 2
     assert not any(out["launches"].values())  # plain paths on the CPU
+
+
+def test_chip_smoke_clip_drive_runs_on_cpu(tmp_path, monkeypatch):
+    """Phase 8 at a small configuration on the CPU: phase 6's small model
+    directory for the hub, then a tiny ``CLIPConfig`` (a 2,048-id
+    vocabulary, 100 labels) served over gRPC through (a)-(f), with the
+    launch-count gate emptied (the plain paths launch no kernel) and the
+    result cache at its production default."""
+    from lumen_tpu_torch.models.clip import CLIPConfig
+
+    base = VLMConfig()
+    cfg = dataclasses.replace(
+        base,
+        decoder=dataclasses.replace(
+            base.decoder, hidden_size=128, layers=2, heads=4, kv_heads=2,
+            intermediate_size=256, vocab_size=4096,
+        ),
+        vision=dataclasses.replace(base.vision, width=64, layers=1, heads=1),
+        image_token_id=4000, bos_token_id=1, eos_token_id=2, pad_token_id=0,
+    )
+    clip_cfg = dataclasses.replace(CLIPConfig.tiny(), vocab_size=2048, eot_token_id=2047)
+    for name in ("PHASE4_KERNELS", "PHASE6_INT8_KERNELS", "PHASE8_KERNELS"):
+        monkeypatch.setattr(chip_smoke, name, ())
+    monkeypatch.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+    monkeypatch.setenv("LUMEN_BREAKER_FAILURES", "6")
+    try:
+        phase6 = chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu", root=tmp_path)
+        out = chip_smoke.drive_clip(0, "cpu", tmp_path, phase6, cfg=clip_cfg, device="cpu", n_photos=16,
+                                    in_flight=8, batch_size=8, n_labels=100)
+    finally:
+        monkeypatch.undo()
+        reset_result_cache()
+    assert out["cos_min"] > 0.99999  # fp32 plain paths on both sides
+    assert not any(out["launches"].values())  # plain paths on the CPU
+    assert 0 < out["fill"] <= 1

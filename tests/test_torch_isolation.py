@@ -4,6 +4,7 @@ the card, and ``chip_smoke.py`` refuses to report without one."""
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import re
@@ -65,6 +66,44 @@ def test_no_source_looks_up_a_jax_package_module_by_name():
     pattern = re.compile(r"""(sys\.modules\b[^\n]*|import_module\()\s*f?["'](jax|jaxlib|flax|lumen_tpu)[."']""")
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def _code_strings(path: Path) -> list[tuple[int, str]]:
+    """Every string constant of a module that is not a docstring (f-string
+    parts included), with its line."""
+    tree = ast.parse(path.read_text())
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    return [
+        (node.lineno, node.value)
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings
+    ]
+
+
+def test_no_string_names_a_jax_package_module():
+    """A string naming ``lumen_tpu.<module>`` -- a copied subprocess
+    command (``python -c "from lumen_tpu.utils.host_decode import ..."``),
+    a registry path, a module lookup -- would start or load the JAX
+    package from the port, and no import check sees inside a string. The
+    one place allowed to name JAX-package paths is ``serving/loader.py``,
+    whose ``port_path`` maps a deployment's ``lumen_tpu.`` paths onto this
+    package. Docstrings may cite the reference."""
+    allowed = {PORT / "serving" / "loader.py"}
+    pattern = re.compile(r"(?<![\w.])lumen_tpu\.")
+    hits = [
+        f"{path.relative_to(ROOT)}:{line}: {text!r}"
+        for path in sorted(PORT.rglob("*.py")) if path not in allowed
+        for line, text in _code_strings(path) if pattern.search(text)
+    ]
+    assert hits == []
+    from lumen_tpu_torch.runtime import decode_pool
+
+    assert "lumen_tpu_torch.utils.host_decode" in decode_pool.WORKER_COMMAND
 
 
 def test_entry_points_default_to_the_card():
