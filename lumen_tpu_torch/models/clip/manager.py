@@ -15,18 +15,22 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   taxonomies, the BioCLIP behavior) on the host: a handler thread's
   device matmul would queue on the default stream behind whole batches;
 - label embeddings load from the dataset's precomputed ``.npy`` or are
-  computed on startup through the text tower (``clip_model.py:145-172``).
+  computed on startup through the text tower (``clip_model.py:145-172``);
+- export-only model directories (``vision.onnx`` + ``text.onnx``, e.g.
+  MobileCLIP2) and ``clip_backend: graph`` serve the exported towers on
+  the ONNX bridge (``graph.py``), in their exported precision.
 
-Not ported: the int8 route (``quantize="int8"``, the warm-up A/B of
-``_pick_quant_route``) and the ONNX graph towers (export-only model
-directories, ``clip_backend: graph``); both raise ``NotImplementedError``
-naming their ROADMAP items, and the service then boots degraded.
+Not ported: the int8 route (``quantize="int8"`` on a native checkpoint,
+the warm-up A/B of ``_pick_quant_route``); it raises
+``NotImplementedError`` naming its ROADMAP item, and the service then
+boots degraded. On graph towers ``quantize`` is ignored with the JAX
+package's warning.
 """
 
 from __future__ import annotations
 
 import copy
-import glob
+import dataclasses
 import json
 import logging
 import os
@@ -45,11 +49,11 @@ from ...runtime.fleet import (
     batcher_name,
     build_fleet,
     each_batcher,
+    fleet_devices,
     plan_replicas,
     replicate_all,
     topology_extra,
 )
-from ...runtime.mesh import local_devices
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
@@ -81,31 +85,9 @@ SCENE_LABELS = [
 ]
 DEFAULT_PROMPT_TEMPLATE = "a photo of a {}"
 
-#: what the ONNX-export CLIP directories need (ROADMAP queue A, face item)
-_GRAPH_NOT_PORTED = (
-    "the ONNX graph towers (export-only CLIP directories, clip_backend: graph) need the ONNX "
-    "bridge, which is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 4)"
-)
-
-
 @dataclass
 class ClassifyResult:
     labels: list[tuple[str, float]]  # (label, score) best-first
-
-
-def _has_onnx_towers(model_dir: str) -> bool:
-    found = glob.glob(os.path.join(model_dir, "**", "*.onnx"), recursive=True)
-    names = [os.path.basename(p).lower() for p in found]
-    return any(n.startswith("vision") for n in names) and any(n.startswith("text") for n in names)
-
-
-def _fleet_devices(device: torch.device) -> list[torch.device]:
-    """The devices the replica plan partitions: the CPU alone, or every
-    local card starting at ``device``."""
-    if device.type != "cuda":
-        return [device]
-    devs = local_devices()
-    return devs[device.index:] + devs[: device.index]
 
 
 class CLIPManager:
@@ -127,11 +109,7 @@ class CLIPManager:
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-        if quantize == "int8":
-            raise NotImplementedError(
-                "CLIP quantize=int8 (the W8A8 tower blocks and the warm-up route A/B) is not "
-                "ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
-            )
+        self.quantize = quantize
         # Batcher/gauge name scope: "clip" for the default manager, the
         # config alias for siblings ("bioclip-image"/"bioclip-text"), so
         # two managers in one service never collide on gauges or replica
@@ -147,17 +125,19 @@ class CLIPManager:
         # Replica fleet (LUMEN_REPLICAS / LUMEN_REPLICAS_CLIP): the host's
         # devices partition into N slices, one per replica; ``self.mesh``
         # stays the primary (replica-0) slice, where label embedding runs.
-        self.fleet_plan = plan_replicas("clip", mesh_axes, devices=_fleet_devices(self.device))
+        self.fleet_plan = plan_replicas("clip", mesh_axes, devices=fleet_devices(self.device))
         self.mesh = self.fleet_plan.meshes[0]
         self.warmup = warmup
         self.info: ModelInfo = load_model_info(model_dir)
+        # (vision, text) ClipTowerGraph when graph-served; the probed flag
+        # memoizes a negative probe so non-graph models scan the dir once.
+        self._graphs = None
+        self._graphs_probed = False
         self.cfg = self._build_config(model_dir)
         # Deployment override for the serving-side text pad length (e.g. a
         # BERT-text model whose queries are known-short).
         tsl = self.info.extra("text_serving_length")
         if tsl:
-            import dataclasses
-
             self.cfg = dataclasses.replace(self.cfg, text_serving_length=int(tsl))
         self.model_id = self.info.name
         #: serving route ("bf16"; the int8 route is not ported)
@@ -165,8 +145,10 @@ class CLIPManager:
         self._initialized = False
         self._image_batcher: MicroBatcher | None = None  # or ReplicaSet (fleet)
         self._text_batcher: MicroBatcher | None = None
-        self._fleet_models: list[CLIPModel] | None = None  # one placement per replica
-        self.model: CLIPModel | None = None
+        # One placement per replica: a CLIPModel, or the graph towers'
+        # {"vision": params, "text": params} on the replica's device.
+        self._fleet_models: list | None = None
+        self.model = None
         self.label_names: list[str] = []
         self._label_matrix: np.ndarray | None = None  # [L, D] unit-norm fp32
         #: seconds the label embeddings took at start-up (loaded or computed)
@@ -198,11 +180,39 @@ class CLIPManager:
                 vocab_size=t.get("vocab_size", 49408),
                 context_length=t.get("context_length", 77),
             )
-        if _has_onnx_towers(model_dir):
-            raise NotImplementedError(f"{model_dir} has no tower config: {_GRAPH_NOT_PORTED}")
+        # No tower config at all: an exported-ONNX repo (e.g. MobileCLIP2
+        # exports, the region=other default — the reference serves these as
+        # its primary dual-session path, ``onnxrt_backend.py:72-745``).
+        # Derive the serving shapes from the graphs themselves.
+        graphs = self._load_graphs(model_dir)
+        if graphs is not None:
+            vision_graph, text_graph = graphs
+            vshape = next(iter(vision_graph.module.input_shapes().values()), ())
+            size = vshape[-1] if len(vshape) == 4 and isinstance(vshape[-1], int) and vshape[-1] > 0 else 224
+            return CLIPConfig(
+                embed_dim=int(self.info.embedding_dim or 512),
+                image_size=int(size),
+                context_length=text_graph.context_length(77),
+            )
         raise FileNotFoundError(
             f"no config.json / open_clip_config.json / onnx towers in {model_dir}"
         )
+
+    def _load_graphs(self, model_dir: str):
+        """Probe for exported vision+text towers; memoized on self (both
+        outcomes, so a non-graph model scans the directory only once)."""
+        if self._graphs_probed:
+            return self._graphs
+        self._graphs_probed = True
+        from .graph import ClipTowerGraph, find_clip_onnx
+
+        found = find_clip_onnx(model_dir, precision=self.info.extra("precision"))
+        if "vision" in found and "text" in found:
+            self._graphs = (
+                ClipTowerGraph.from_path(found["vision"]),
+                ClipTowerGraph.from_path(found["text"]),
+            )
+        return self._graphs
 
     @property
     def norm_stats(self) -> tuple[tuple[float, ...], tuple[float, ...]]:
@@ -215,25 +225,45 @@ class CLIPManager:
 
     # -- initialization ---------------------------------------------------
 
-    def _load_state(self) -> dict[str, torch.Tensor]:
+    def _load_state(self) -> dict[str, torch.Tensor] | None:
+        """The native checkpoint, or None when the graph towers serve
+        (``clip_backend: graph``, or ``auto`` on a directory with towers
+        and no checkpoint)."""
         backend = str(self.info.extra("clip_backend", "auto") or "auto")
-        if backend == "graph":
-            raise NotImplementedError(f"clip_backend=graph: {_GRAPH_NOT_PORTED}")
-        logger.info("loading CLIP weights from %s", self.model_dir)
-        try:
-            return load_state_dict(self.model_dir)
-        except (FileNotFoundError, WeightLoadError):
-            if backend != "native" and _has_onnx_towers(self.model_dir):
-                raise NotImplementedError(
-                    f"{self.model_dir} has no native checkpoint: {_GRAPH_NOT_PORTED}"
-                ) from None
-            raise
+        state = None
+        if backend != "graph" and (self._graphs is None or backend == "native"):
+            # clip_backend=native must reach for a real checkpoint even when
+            # _build_config already derived a graph config (export-only dir).
+            try:
+                logger.info("loading CLIP weights from %s", self.model_dir)
+                state = load_state_dict(self.model_dir)
+            except (FileNotFoundError, WeightLoadError):
+                if backend == "native" or self._load_graphs(self.model_dir) is None:
+                    raise
+                logger.info("no native CLIP checkpoint; serving onnx towers")
+        if backend == "graph" and self._load_graphs(self.model_dir) is None:
+            raise FileNotFoundError(
+                f"clip_backend=graph but no vision/text onnx in {self.model_dir}"
+            )
+        if state is None and self.quantize:
+            # Covers EVERY graph-served route (export-only dirs probed at
+            # config build, clip_backend=graph, and the no-checkpoint
+            # fallback above): an operator who set int8 must not attribute
+            # full-precision ONNX numbers to the quantized path.
+            logger.warning(
+                "quantize=%s ignored: the ONNX graph path runs the exported "
+                "precision as-is", self.quantize,
+            )
+        if state is not None and self.quantize == "int8":
+            raise NotImplementedError(
+                "CLIP quantize=int8 (the W8A8 tower blocks and the warm-up route A/B) is not "
+                "ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
+            )
+        return state
 
-    def initialize(self) -> None:
-        if self._initialized:
-            return
+    def _place_native(self, state: dict[str, torch.Tensor]) -> None:
         model = CLIPModel(self.cfg)
-        model.load_state_dict(convert_clip_checkpoint(self._load_state()), strict=True)
+        model.load_state_dict(convert_clip_checkpoint(state), strict=True)
         model = model.to(dtype=self.policy.param_dtype).eval().requires_grad_(False)
         # The exported temperature, read once (as the JAX package reads it:
         # exp in fp32 of the policy-cast logit scale).
@@ -243,6 +273,54 @@ class CLIPManager:
             lambda mesh: copy.deepcopy(model).to(mesh.device), self.fleet_plan,
             primary=model.to(self.mesh.device),
         )
+
+    def _place_graphs(self) -> None:
+        """Graph towers: the exporter's own float32 weights on every
+        replica's device; serving shapes reconciled with the exports'
+        STATIC shapes even when a config.json supplied the cfg (a text
+        export built at 52 tokens cannot run 77-padded ids; the vision
+        export's input side fixes the resize target)."""
+        vision_graph, text_graph = self._graphs
+        vshape = next(iter(vision_graph.module.input_shapes().values()), ())
+        updates: dict = {}
+        if len(vshape) == 4 and isinstance(vshape[-1], int) and vshape[-1] > 0:
+            updates["image_size"] = int(vshape[-1])
+        updates["context_length"] = text_graph.context_length(self.cfg.context_length)
+        # A static export runs at exactly its built length — any pad cap
+        # (config- OR model_info-supplied) shorter than that would feed
+        # shapes the graph's fixed ops can't take.
+        updates["text_serving_length"] = None
+        # Every replica gets its copy BEFORE the host weights are released
+        # (there is nothing to re-place from afterwards).
+        self._fleet_models = replicate_all(
+            lambda mesh: {"vision": vision_graph.module.place(mesh.device),
+                          "text": text_graph.module.place(mesh.device)},
+            self.fleet_plan,
+        )
+        size = updates.get("image_size", self.cfg.image_size)
+        dim = vision_graph.probe_dim(np.zeros((1, 3, size, size), np.float32), self._fleet_models[0]["vision"])
+        if dim != self.cfg.embed_dim:
+            logger.info("graph towers emit %d-d embeddings (config said %d)", dim, self.cfg.embed_dim)
+            updates["embed_dim"] = dim
+        self.cfg = dataclasses.replace(self.cfg, **updates)
+        # The forwards only need the graph TOPOLOGY; drop the host-RAM
+        # weight copies now that the devices hold them.
+        vision_graph.module.release_weights()
+        text_graph.module.release_weights()
+        # ONNX exports don't ship the temperature (the reference session
+        # path's ``get_temperature`` is optional, ``base.py:254-270``):
+        # model_info ``extra.logit_scale``, else the CLIP-standard 100.
+        extra = self.info.extra("logit_scale")
+        self._temperature = float(np.exp(float(extra))) if extra is not None else 100.0
+
+    def initialize(self) -> None:
+        if self._initialized:
+            return
+        state = self._load_state()
+        if state is not None:
+            self._place_native(state)
+        else:
+            self._place_graphs()
         self.model = self._fleet_models[0]
         mean, std = self.norm_stats
         compute_dtype = self.policy.compute_dtype
@@ -253,17 +331,37 @@ class CLIPManager:
             for m in self.fleet_plan.meshes
         }
 
-        @torch.inference_mode()
-        def encode_images(model, pixels_u8):
-            # pixels_u8: [B, S, S, 3] uint8 on the model's device;
-            # normalize + cast on the device.
-            mu, sigma = stats[pixels_u8.device]
-            x = (pixels_u8.float() / 255.0 - mu) / sigma
-            return model.encode_image(x.to(compute_dtype))  # fp32 unit-norm
+        if state is not None:
 
-        @torch.inference_mode()
-        def encode_texts(model, ids):
-            return model.encode_text(ids.long())
+            @torch.inference_mode()
+            def encode_images(model, pixels_u8):
+                # pixels_u8: [B, S, S, 3] uint8 on the model's device;
+                # normalize + cast on the device.
+                mu, sigma = stats[pixels_u8.device]
+                x = (pixels_u8.float() / 255.0 - mu) / sigma
+                return model.encode_image(x.to(compute_dtype))  # fp32 unit-norm
+
+            @torch.inference_mode()
+            def encode_texts(model, ids):
+                return model.encode_text(ids.long())
+
+        else:
+            vision_graph, text_graph = self._graphs
+
+            # The towers run in their exported float32 and the embeddings
+            # are L2-normalized on the device, as the reference session
+            # path normalizes them (``onnxrt_backend.py:486-489``).
+            @torch.inference_mode()
+            def encode_images(params, pixels_u8):
+                mu, sigma = stats[pixels_u8.device]
+                x = (pixels_u8.float() / 255.0 - mu) / sigma
+                z = vision_graph(params["vision"], x.permute(0, 3, 1, 2)).float()
+                return z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True), min=1e-12)
+
+            @torch.inference_mode()
+            def encode_texts(params, ids):
+                z = text_graph(params["text"], ids.long()).float()
+                return z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True), min=1e-12)
 
         self.tokenizer = ClipTokenizer.from_model_dir(self.model_dir, self.cfg.serving_text_length)
         self._encode_images = encode_images
@@ -576,5 +674,7 @@ class CLIPManager:
         return vec / n
 
     def temperature(self) -> float:
-        """Exported logit scale (exp'd), read at initialisation."""
+        """Exported logit scale (exp'd), read at initialisation. Graph-served
+        towers carry no logit_scale param: model_info ``extra.logit_scale``,
+        then the CLIP-standard 100."""
         return self._temperature

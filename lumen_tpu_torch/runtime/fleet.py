@@ -256,6 +256,17 @@ def plan_replicas(
     return FleetPlan(family, replicas, meshes, policy, n, per, requested=want)
 
 
+def fleet_devices(device: torch.device) -> list[torch.device]:
+    """The devices a manager's replica plan partitions: the CPU alone, or
+    every local card starting at ``device``."""
+    from .mesh import local_devices
+
+    if device.type != "cuda":
+        return [device]
+    devs = local_devices()
+    return devs[device.index:] + devs[: device.index]
+
+
 def replicate_all(place: Callable[[Any], Any], plan: FleetPlan, primary: Any | None = None) -> list[Any]:
     """One placement per replica: ``place(mesh)`` puts a copy of the
     weights on that replica's device (a module moved there, in the port).

@@ -9,12 +9,15 @@ production defaults, phase 6 serves the model directory and
 phase 7 drives the default serving path over gRPC: preemptions under the
 pinned pool that all spill and resume, greedy answers equal alone and to
 phase 6's, prefix hits with fewer chunks than cold, a result-cache
-answer, the sidecar's metrics and the spill round trip.
+answer, the sidecar's metrics and the spill round trip. Phases 8 and 9
+run the same way at tiny widths (CLIP, then face and graph CLIP).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import pytest
 
 import chip_smoke
 from lumen_tpu_torch.models.vlm import VLMConfig
@@ -49,14 +52,17 @@ def test_chip_smoke_default_serving_drive_runs_on_cpu(tmp_path, monkeypatch):
     assert not any(out["launches"].values())  # plain paths on the CPU
 
 
-def test_chip_smoke_clip_drive_runs_on_cpu(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def clip_drive(tmp_path_factory):
     """Phase 8 at a small configuration on the CPU: phase 6's small model
     directory for the hub, then a tiny ``CLIPConfig`` (a 2,048-id
     vocabulary, 100 labels) served over gRPC through (a)-(f), with the
-    launch-count gate emptied (the plain paths launch no kernel) and the
-    result cache at its production default."""
+    launch-count gates emptied (the plain paths launch no kernel) and the
+    result cache at its production default; yields the directory and
+    phase 8's results, which phase 9 reads."""
     from lumen_tpu_torch.models.clip import CLIPConfig
 
+    root = tmp_path_factory.mktemp("chip_smoke_clip")
     base = VLMConfig()
     cfg = dataclasses.replace(
         base,
@@ -68,17 +74,41 @@ def test_chip_smoke_clip_drive_runs_on_cpu(tmp_path, monkeypatch):
         image_token_id=4000, bos_token_id=1, eos_token_id=2, pad_token_id=0,
     )
     clip_cfg = dataclasses.replace(CLIPConfig.tiny(), vocab_size=2048, eot_token_id=2047)
-    for name in ("PHASE4_KERNELS", "PHASE6_INT8_KERNELS", "PHASE8_KERNELS"):
-        monkeypatch.setattr(chip_smoke, name, ())
-    monkeypatch.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
-    monkeypatch.setenv("LUMEN_BREAKER_FAILURES", "6")
-    try:
-        phase6 = chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu", root=tmp_path)
-        out = chip_smoke.drive_clip(0, "cpu", tmp_path, phase6, cfg=clip_cfg, device="cpu", n_photos=16,
-                                    in_flight=8, batch_size=8, n_labels=100)
-    finally:
-        monkeypatch.undo()
-        reset_result_cache()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("PHASE4_KERNELS", "PHASE6_INT8_KERNELS", "PHASE8_KERNELS", "PHASE9_KERNELS"):
+            mp.setattr(chip_smoke, name, ())
+        mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+        mp.setenv("LUMEN_BREAKER_FAILURES", "6")
+        try:
+            phase6 = chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu", root=root)
+            out = chip_smoke.drive_clip(0, "cpu", root, phase6, cfg=clip_cfg, device="cpu", n_photos=16,
+                                        in_flight=8, batch_size=8, n_labels=100)
+            yield root, out
+        finally:
+            reset_result_cache()
+
+
+def test_chip_smoke_clip_drive_runs_on_cpu(clip_drive):
+    _, out = clip_drive
     assert out["cos_min"] > 0.99999  # fp32 plain paths on both sides
     assert not any(out["launches"].values())  # plain paths on the CPU
+    assert 0 < out["fill"] <= 1
+
+
+def test_chip_smoke_face_drive_runs_on_cpu(clip_drive):
+    """Phase 9 at small widths on the CPU, after phase 8: the stand-in
+    pack (a 640x640 detector of width 8, an IResNet of one block a stage)
+    held against the stand-ins run directly, native checkpoints against
+    the port's own CPU run, phase 8's tiny CLIP exported and served from
+    an export-only directory against phase 8's answers, and the hub."""
+    from lumen_tpu_torch.models.face import DetectorConfig, IResNetConfig
+
+    root, phase8 = clip_drive
+    out = chip_smoke.drive_face(0, "cpu", root, phase8, device="cpu", n_photos=8, in_flight=8, batch_size=8,
+                                det_width=8, rec_layers=(1, 1, 1, 1), rec_width=8,
+                                native_det=DetectorConfig(width=8, fpn_width=8),
+                                native_rec=IResNetConfig(layers=(1, 1, 1, 1), width=8))
+    assert out["faces"] > 0 and out["iou_min"] > 0.9999 and out["cos_min"] > 0.99999  # fp32 on both sides
+    assert out["clip_cos"] > 0.999  # phase 8's bf16 towers vs the fp32 export
+    assert out["hub_launches"] == 0  # plain paths on the CPU
     assert 0 < out["fill"] <= 1

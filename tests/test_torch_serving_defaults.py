@@ -23,6 +23,7 @@ default of 6 failures (the suite turns both off). Then:
 
 from __future__ import annotations
 
+import gc
 import json
 import socket
 import threading
@@ -34,13 +35,17 @@ import pytest
 from google.protobuf import empty_pb2
 
 from lumen_tpu.core.config import validate_config_dict as jax_config
+from lumen_tpu.runtime import quarantine as jquarantine
 from lumen_tpu.runtime import result_cache as jresult_cache
 from lumen_tpu.serving import server as jax_server
 from lumen_tpu.serving.proto import ml_service_pb2 as pb
 from lumen_tpu.serving.proto.ml_service_pb2_grpc import InferenceStub
+from lumen_tpu.utils import qos as jqos
 from lumen_tpu_torch.core.config import validate_config_dict as port_config
+from lumen_tpu_torch.runtime import quarantine as tquarantine
 from lumen_tpu_torch.runtime import result_cache as tresult_cache
 from lumen_tpu_torch.serving import server as port_server
+from lumen_tpu_torch.utils import qos as tqos
 from lumen_tpu_torch.utils.qos import RETRY_AFTER_META
 from test_torch_serving import deployment, infer
 from test_torch_spill import one_torch_thread  # noqa: F401 - an autouse fixture
@@ -55,9 +60,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def reset_process_state() -> None:
+    """Give both servers the process-wide state a fresh server process has,
+    so ``Health`` reports theirs alone. Each package keeps a registry of
+    live WFQ admission queues (``utils/qos.py``, weakly held; Health's
+    ``lumen-qos-status``) that holds the queue of every micro-batcher not
+    yet garbage-collected: a CLIP manager closed by an earlier test file on
+    the same worker (``tests/test_clip.py``, ``tests/test_host_lane.py``)
+    sits in a reference cycle until the collector runs, and its
+    ``clip-image``/``clip-text`` queues showed up on the JAX server's
+    Health only. Also dropped: both quarantine registries (Health's
+    ``lumen-quarantine-size``) and both tenant quotas. The breakers are
+    per service, built by each ``serve()``."""
+    gc.collect()
+    for quarantine, qos in ((jquarantine, jqos), (tquarantine, tqos)):
+        quarantine.reset_quarantine()
+        qos.reset_quota()
+
+
 def boot_both(tmp_path_factory, label: str, **env):
     """Both servers on one model directory, with ``env`` set while they are
     built; yields ``(jax stub, port stub, jax handle, port handle)``."""
+    reset_process_state()
     root = tmp_path_factory.mktemp(label)
     make_vlm_model_dir(root)
     raw = deployment(str(root))
