@@ -12,14 +12,18 @@ Phases (any failure exits non-zero):
    started together), with each kernel function's registers, shared
    memory and spills from ptxas (the bf16 flash tile must not spill) and
    its count of tensor-core instructions (HMMA) from ``cuobjdump -sass``
-   (the bf16 flash kernels must have some).
+   (the three bf16 flash kernels -- head_dim 64 and 16, and the cache
+   kernel -- must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
    64-key tile, causal diagonals crossing a tile, two-row batches, the
-   fp32 instance, and phase 8's CLIP calls at the bulk batch of 64: the
+   fp32 instance, phase 8's CLIP calls at the bulk batch of 64: the
    vision tower's [64, 12, 50, 64] and the causal text tower's
-   [64, 8, 77, 64]), with times for the kernel, the plain version, the
+   [64, 8, 77, 64], and phase 10's native OCR recognizer at head_dim 16:
+   [8, 4, 960, 16] and [32, 4, 1920, 16] in bf16, [2, 4, 240, 16] in fp32,
+   causal cases, and head_dims 32/80/128 refused), with times for the
+   kernel, the plain version, the
    card's bound and one PyTorch library call computing the same function
    (a yardstick only; the port never calls it). Times are device time per
    call from ``torch.profiler``, checked against lost events
@@ -118,10 +122,38 @@ Phases (any failure exits non-zero):
    flash kernel launched; after stop the batcher threads and decode
    workers are gone.
 
-Every run drives all nine phases. The kernel table's launch counts are
+10. OCR as users reach it, and the full tier: (a) the ``PP-OCRv5_mobile``
+   pack's stand-ins (``lumen_tpu_torch/testing/ocr_standins.py``: det,
+   rec and cls graphs at the published contracts, seeded, BN statistics
+   fit to synthetic pages and heads calibrated) exported to ONNX on the
+   CPU and served by ``serve()`` from the YAML block ``config_gen`` writes
+   for ``ocr`` (``batch_size: 8``, ``batch_buckets: [320, 640, 960]``): 64
+   distinct 1280x960 JPEG pages of text lines at 8 in flight, 8 of them
+   with ``use_angle_cls`` (a share of each page's lines turned 180
+   degrees), timed with TF32 convolutions and held to ``OcrReference``
+   (the stand-ins run directly in IEEE float32, the host steps written
+   from the reference's algorithm) up to ``OCR_TF32_*``, then held
+   strictly in IEEE float32 (every box at IoU >= ``OCR_IOU``, texts
+   equal), with ``tensor/raw`` pages and the classifier off; each page is
+   asked at thresholds in gaps of its reference's values; load time,
+   pages/s, client p50/p95, one detector call and one recognizer chunk
+   (CUDA events), host postprocess ms, syncs per forward, peak memory;
+   (b) native ``DBNetConfig()`` + ``SVTRConfig()`` + ``ClsConfig()``,
+   seeded and calibrated, written as native safetensors: bf16 on the
+   head_dim-16 flash kernel (4 launches a recognizer chunk, exactly)
+   against the port's plain path (logits within ``OCR_BF16_LOGIT_SHARE``,
+   texts equal wherever the margins allow), float32 against the port's
+   own CPU run; (c) the full tier: ocr, clip, face and vlm from one YAML
+   in ``generate_config``'s shape over phases 6, 8, 9 and 10 (a)'s
+   directories, every service healthy, each family answering as in its
+   own phase, the three bf16 path kernels launched, the threads and
+   decode workers gone after stop.
+
+Every run drives all ten phases. The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
-for the other two); phases 7-9 print their own, phase 8 beside the
-flash kernel's two CLIP rows (timed in phase 2). The last two lines are the
+for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-10
+print their own, phase 8 beside the flash kernel's two CLIP rows and
+phase 10 beside its two OCR rows (timed in phase 2). The last two lines are the
 kernel table (JSON) and the device line the harness reads; the card's
 name and power limit precede them.
 """
@@ -310,17 +342,17 @@ def max_err(out, ref) -> float:
 # -- phase 2: kernels vs plain ------------------------------------------------
 
 
-def flash_tile_shape() -> dict:
+def flash_tile_shape(head_dim: int = 64) -> dict:
     """Block shape of the bf16 flash tile, from the constants of
     ``csrc/flash_tile_bf16.cuh``: query rows (16 per row group), threads
     (a warp per row group and key part) and dynamic shared memory (the
-    K/V ring and the Q/O rows, rows of 64 + 8 bf16)."""
+    K/V ring and the Q/O rows, rows of head_dim + 8 bf16)."""
     text = (ROOT / "lumen_tpu_torch" / "csrc" / "flash_tile_bf16.cuh").read_text()
     c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
          for n in ("kFlashWarps", "kFlashSplit", "kFlashStages")}
     rows = 16 * c["kFlashWarps"]
     return dict(rows=rows, threads=32 * c["kFlashWarps"] * c["kFlashSplit"],
-                smem=(2 * c["kFlashStages"] * 64 + rows) * (64 + 8) * 2)
+                smem=(2 * c["kFlashStages"] * 64 + rows) * (head_dim + 8) * 2)
 
 
 def check_kernels(seed: int) -> dict:
@@ -386,6 +418,56 @@ def check_kernels(seed: int) -> dict:
                                  50, floor_ms=bms),
             blocks=-(-s // tile["rows"]) * b * h, shape=[b, h, s, 64],
         )
+
+    # The native OCR recognizer's calls at head_dim 16 (phase 10 (b)): the
+    # 320 and 640 width buckets' chunks in bf16, the 80 bucket's 240 tokens
+    # in fp32 (the FMA tile: a float32 recognizer), and causal cases (SVTR
+    # is bidirectional; the kernel takes both). Bound: the largest of q, k,
+    # v and o once at 3.35 TB/s, the FLOPs at 989 TFLOP/s, and one exp2 a
+    # (query, key) pair at EXP_PER_S, which sets it at head_dim 16.
+    errs = []
+    for b, h, s, causal, dt in ((2, 4, 240, False, torch.float32), (2, 4, 240, True, bf16),
+                                (1, 4, 100, True, torch.float32), (3, 4, 77, False, bf16)):
+        q, k, v = rnd(b, h, s, 16, dtype=dt), rnd(b, h, s, 16, dtype=dt), rnd(b, h, s, 16, dtype=dt)
+        errs.append(max_err(A.flash_attention(q, k, v, causal=causal),
+                            A.attention_reference(*f32(q, k, v), causal=causal)))
+        pairs = s * (s + 1) // 2 if causal else s * s
+        dtn = str(dt).removeprefix("torch.")
+        bms, by = bound(4 * q.numel() * q.element_size(), 4 * b * h * pairs * 16, dtn)
+        if b * h * pairs / EXP_PER_S * 1e3 > bms:
+            bms, by = b * h * pairs / EXP_PER_S * 1e3, "operations"
+        kms = device_ms(lambda q=q, k=k, v=v, c=causal: A.flash_attention(q, k, v, causal=c), 50, floor_ms=bms,
+                        launches=1)
+        lms = device_ms(lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(q, k, v, is_causal=c), 50,
+                        floor_ms=bms)
+        log(f"kernel flash_attention [{b},{h},{s},16] {dtn}{' causal' if causal else ''}: max|diff| {errs[-1]:.3e}, "
+            f"kernel {kms:.4f} ms on the device, bound {bms:.5f} ms ({by}), library (SDPA) {lms:.4f} ms")
+    for d in (32, 80, 128):
+        try:
+            A.flash_attention(*(rnd(1, 2, 8, d) for _ in range(3)))
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention took head_dim {d} on the card; its kernel is built for 16 and 64")
+    for label, (b, h, s) in OCR_FLASH_SHAPES.items():
+        q, k, v = rnd(b, h, s, 16), rnd(b, h, s, 16), rnd(b, h, s, 16)
+        err = max(max(errs), max_err(A.flash_attention(q, k, v), A.attention_reference(*f32(q, k, v))))
+        bms, by = bound(4 * q.numel() * 2, 4 * b * h * s * s * 16, "bfloat16")
+        exp_ms = b * h * s * s / EXP_PER_S * 1e3
+        if exp_ms > bms:
+            bms, by = exp_ms, "operations"
+        rows[f"flash_attention ({label})"] = dict(
+            max_abs_err=err,
+            ms=device_ms(lambda q=q, k=k, v=v: A.flash_attention(q, k, v), 50, floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda q=q, k=k, v=v: A.attention_reference(q, k, v), 10, floor_ms=bms),
+            bound_ms=bms, bound_by=by, bound_terms=dict(
+                bytes_ms=4 * q.numel() * 2 / HBM_BYTES_PER_S * 1e3,
+                flops_ms=4 * b * h * s * s * 16 / PEAK_FLOPS["bfloat16"] * 1e3, exp_ms=exp_ms),
+            library_ms=device_ms(lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
+            blocks=-(-s // tile["rows"]) * b * h, shape=[b, h, s, 16], smem=flash_tile_shape(16)["smem"],
+        )
+        log(f"kernel flash_attention {label} [{b},{h},{s},16]: bound terms (ms) "
+            f"{json.dumps({k: round(v, 5) for k, v in rows[f'flash_attention ({label})']['bound_terms'].items()})}; "
+            f"head_dims 32/80/128 raise")
 
     # flash_attention_cache against the 832-slot scratch: the chunk lane's
     # two chunks of a caption prompt (265 live tokens, bucket span 319), a
@@ -506,7 +588,7 @@ def check_kernels(seed: int) -> dict:
     )
     for name, row in rows.items():
         blocks = (f" ({row['blocks']} blocks of {tile['rows']} query rows, {tile['threads']} threads, "
-                  f"{tile['smem']} B dynamic shared memory)") if "blocks" in row else ""
+                  f"{row.get('smem', tile['smem'])} B dynamic shared memory)") if "blocks" in row else ""
         log(
             f"kernel {name}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
             f"kernel {row['ms']:.4f} ms on the device{blocks}, plain {row['plain_ms']:.4f} ms, "
@@ -517,16 +599,17 @@ def check_kernels(seed: int) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """The unqualified name in an Itanium-mangled symbol:
-    ``_ZN5lumen27flash_attention_bf16_kernelILi64EE...`` ->
-    ``flash_attention_bf16_kernel``."""
+    """The unqualified name in an Itanium-mangled symbol, with its integer
+    template argument: ``_ZN5lumen27flash_attention_bf16_kernelILi64EE...``
+    -> ``flash_attention_bf16_kernel<64>``."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[i:])) is not None:
         n = int(m[0])
         name = mangled[i + len(m[0]):i + len(m[0]) + n]
         i += len(m[0]) + n
-    return name
+    targ = re.match(r"ILi(\d+)E", mangled[i:])
+    return f"{name}<{targ[1]}>" if targ else name
 
 
 def ptxas_report(logs: dict) -> list[dict]:
@@ -887,7 +970,9 @@ def drive_serving(
             text = f"Caption image {i}: a red car on a wet road, a red car on a wet road, a red car on a wet road."
         else:
             text = f"Describe image {i} in one detailed sentence."
-        return [ChatMessage("user", text)], pixels, 32 + 4 * (i % 9)
+        # (budgets of 16-48 tokens: the drive's checks need decoding under
+        # way when the late requests arrive, not long answers)
+        return [ChatMessage("user", text)], pixels, 16 + 4 * (i % 9)
 
     all_k = all_kernels()
     try:
@@ -1752,12 +1837,14 @@ def hub_yaml(path: Path, cache_dir: Path, clip_model: str, batch_size: int, vlm_
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Run the CLIP towers' attention through the plain version (on any
+def plain_attention(modeling=None):
+    """Run a family's attention (the CLIP towers' unless ``modeling`` names
+    another family's modeling module) through the plain version (on any
     device) while inside: the reference the kernel's answers are held to."""
-    from lumen_tpu_torch.models.clip import modeling
     from lumen_tpu_torch.ops.attention import attention_reference
 
+    if modeling is None:
+        from lumen_tpu_torch.models.clip import modeling
     kernel = modeling.attention
     modeling.attention = lambda q, k, v, mask=None, causal=False, scale=None: attention_reference(
         q, k, v, mask=mask, causal=causal, scale=scale)
@@ -2802,6 +2889,8 @@ def drive_face(seed: int, card: str, root: Path, phase8: dict, device: str = "cu
                    p95_ms=pct(0.95), fill=fill, faces=n_faces, iou_min=worst, cos_min=cos_min, tf32=tf32,
                    peak_gib=peak)
         face_answers = {i: r["body"]["faces"] for i, r in enumerate(detected[:8])}
+        # what phase 10's hub holds its faces to
+        out.update(face_photos=photos[:8], face_thr=list(thr[:8]), face_answers=face_answers)
     finally:
         channel.close()
         handle.stop(grace=1.0)
@@ -2972,6 +3061,699 @@ def drive_face(seed: int, card: str, root: Path, phase8: dict, device: str = "cu
     out.update(hub_s=hub_s, hub_launches=hub_launches, phase_s=time.perf_counter() - t_phase)
     return out
 
+# -- phase 10: OCR over gRPC, and the full tier ----------------------------------------
+
+#: the kernels phase 10 (b) must launch (the native recognizer's mixing
+#: blocks, head_dim 16) and those of (c)'s full-tier hub
+PHASE10_KERNELS = ("flash_attention",)
+PHASE10_HUB_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention")
+#: the flash kernel's head_dim-16 calls of the native SVTR (width 64, 4
+#: heads): a chunk of 8 crops in the 320 bucket and 32 in the 640 bucket
+OCR_FLASH_SHAPES = {"SVTR 320 bucket": (8, 4, 960), "SVTR 640 bucket": (32, 4, 1920)}
+#: exponentials a second of the H100 SXM's special-function units: 16 a
+#: clock on each of 132 SMs at the 1.98 GHz boost clock (NVIDIA H100 data
+#: sheet and Hopper tuning guide); the third term of the head_dim-16 bound
+EXP_PER_S = 16 * 132 * 1.98e9
+#: (a)/(b) in IEEE float32: every box matches its reference at this IoU
+OCR_IOU = 0.999
+#: (a) with TF32 convolutions, as users run it: at least OCR_TF32_SHARE of
+#: the IEEE reference's boxes are served at IoU >= OCR_TF32_IOU, and at
+#: most 1 - OCR_TF32_SHARE of the served boxes match none. TF32 rounds
+#: the detector's map by about 1e-3 (phase 9's TF32 scores moved up to
+#: 6.55e-4), which moves pixels across the threshold at the lines' edges
+#: and so the contours' corners by a pixel or two.
+OCR_TF32_IOU, OCR_TF32_SHARE = 0.9, 0.95
+#: (b) bf16: the kernel path's CTC logits within this share of the plain
+#: path's largest |logit| (bf16 rounds each layer's output to 2**-9; the
+#: kernel and the plain attention round in different places)
+OCR_BF16_LOGIT_SHARE = 0.05
+
+
+def ocr_pages(seed: int, n: int, width: int = 1280, height: int = 960, rotated_share: float = 0.25):
+    """``n`` distinct seeded synthetic pages (dark text lines drawn with
+    ``cv2.putText`` on a light ground, a share of them turned 180 degrees)
+    as JPEG bytes, with their pixels as the server decodes them."""
+    import cv2
+    import numpy as np
+
+    from lumen_tpu_torch.testing.ocr_standins import synthetic_page
+    from lumen_tpu_torch.utils.host_decode import decode_image_bytes
+
+    out = []
+    for i in range(n):
+        page, _ = synthetic_page(seed + i, width, height, rotated_share=rotated_share)
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(page[:, :, ::-1]), [cv2.IMWRITE_JPEG_QUALITY, 92])
+        if not ok:
+            raise AssertionError("JPEG encode failed")
+        out.append((buf.tobytes(), decode_image_bytes(buf.tobytes(), color="rgb")))
+    return out
+
+
+def gap_between(values, center: float, half: float) -> tuple[float, float]:
+    """A threshold midway in the widest gap between ``values`` within
+    ``half`` of ``center`` (the interval's ends count as values), and the
+    gap: no rounding of a value by less than half the gap moves it across.
+    Phase 9's ``gap_threshold`` idea, for thresholds a request can set."""
+    import numpy as np
+
+    v = np.unique(np.asarray(values, np.float64).ravel())
+    pts = np.concatenate([[center - half], v[(v > center - half) & (v < center + half)], [center + half]])
+    k = int(np.argmax(np.diff(pts)))
+    return float((pts[k] + pts[k + 1]) / 2), float(pts[k + 1] - pts[k])
+
+
+def ref_quad_iou(a, b) -> float:
+    """IoU of two convex quads; two quads of no area (a box clipped flat
+    at the page's edge) count as equal when their corners are."""
+    import cv2
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    inter, _ = cv2.intersectConvexConvex(a, b)
+    union = cv2.contourArea(a) + cv2.contourArea(b) - inter
+    if union < 1e-9:
+        return float(np.abs(a - b).max() < 1e-3)
+    return float(inter / union)
+
+
+class OcrReference:
+    """The PP-OCR pipeline written from the reference's published steps
+    (``lumen_ocr/backends/onnxrt_backend.py:338-632``, with the JAX
+    package's letterbox buckets and rectangle unclip), not from the port:
+    the stand-in modules run directly on the card in IEEE float32, the
+    host steps in numpy and cv2. ``answer`` returns the items a request
+    with the given thresholds must get."""
+
+    def __init__(self, det, rec, cls, vocab, dev, det_buckets=(320, 640, 960), rec_buckets=(80, 160, 320, 640)):
+        self.det, self.rec, self.cls, self.vocab, self.dev = det, rec, cls, vocab, dev
+        self.det_buckets, self.rec_buckets = det_buckets, rec_buckets
+
+    def _norm(self, pixels, mean, std):
+        import numpy as np
+        import torch
+
+        x = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.dev).float() / 255.0
+        return ((x - torch.tensor(mean, device=self.dev)) / torch.tensor(std, device=self.dev)).permute(0, 3, 1, 2)
+
+    def prob_map(self, pixels):
+        """(map of the letterboxed page, scale, pad top, pad left)."""
+        import torch
+
+        from lumen_tpu_torch.ops.image import letterbox_numpy
+
+        bucket = next((b for b in self.det_buckets if max(pixels.shape[:2]) <= b), self.det_buckets[-1])
+        boxed, scale, top, left = letterbox_numpy(pixels, bucket)
+        with convolutions_tf32(False), torch.no_grad():
+            prob = self.det(self._norm(boxed[None], (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)))[0, 0]
+        return prob.cpu().numpy(), scale, top, left
+
+    @staticmethod
+    def candidates(prob, det_thr, unclip=1.5, min_size=3.0):
+        """(rect, quad, score) of each contour of the thresholded map: the
+        min-area rectangle, its mean probability, the rectangle grown by
+        ``area * unclip / perimeter`` on each side."""
+        import cv2
+        import numpy as np
+
+        binary = (prob > det_thr).astype(np.uint8)
+        contours, _ = cv2.findContours(binary, cv2.RETR_LIST, cv2.CHAIN_APPROX_SIMPLE)
+        h, w = prob.shape
+        out = []
+        for c in contours[:1000]:
+            rect = cv2.minAreaRect(c)
+            if min(rect[1]) < min_size:
+                continue
+            pts = cv2.boxPoints(rect)
+            x0, x1 = int(np.clip(np.floor(pts[:, 0].min()), 0, w - 1)), int(np.clip(np.ceil(pts[:, 0].max()), 0, w - 1))
+            y0, y1 = int(np.clip(np.floor(pts[:, 1].min()), 0, h - 1)), int(np.clip(np.ceil(pts[:, 1].max()), 0, h - 1))
+            mask = np.zeros((y1 - y0 + 1, x1 - x0 + 1), np.uint8)
+            cv2.fillPoly(mask, [np.round(pts - [x0, y0]).astype(np.int32)], 1)
+            score = float(cv2.mean(prob[y0:y1 + 1, x0:x1 + 1], mask)[0]) if mask.any() else 0.0
+            (cx, cy), (rw, rh), ang = rect
+            d = rw * rh * unclip / max(2.0 * (rw + rh), 1e-9)
+            grown = ((cx, cy), (rw + 2 * d, rh + 2 * d), ang)
+            if min(grown[1]) < min_size + 2:
+                continue
+            out.append((grown, score))
+        return out
+
+    @staticmethod
+    def quad(rect, scale, top, left, hw):
+        """The grown rectangle's corners clockwise from the top-left, in
+        the page's coordinates."""
+        import cv2
+        import numpy as np
+
+        pts = cv2.boxPoints(rect)
+        pts = pts[np.argsort(pts[:, 0], kind="stable")]
+        lft, rgt = pts[:2][np.argsort(pts[:2, 1], kind="stable")], pts[2:][np.argsort(pts[2:, 1], kind="stable")]
+        q = np.array([lft[0], rgt[0], rgt[1], lft[1]], np.float32)
+        q[:, 0] = np.clip((q[:, 0] - left) / scale, 0, hw[1] - 1)
+        q[:, 1] = np.clip((q[:, 1] - top) / scale, 0, hw[0] - 1)
+        return q
+
+    @staticmethod
+    def reading_order(quads):
+        order = sorted(range(len(quads)), key=lambda i: (quads[i][0][1], quads[i][0][0]))
+        for j in range(len(order) - 1):
+            for k in range(j, -1, -1):
+                a, b = quads[order[k]], quads[order[k + 1]]
+                if abs(b[0][1] - a[0][1]) < 10 and b[0][0] < a[0][0]:
+                    order[k], order[k + 1] = order[k + 1], order[k]
+                else:
+                    break
+        return order
+
+    @staticmethod
+    def crop(pixels, q):
+        import cv2
+        import numpy as np
+
+        w = max(int(max(np.linalg.norm(q[0] - q[1]), np.linalg.norm(q[2] - q[3]))), 1)
+        h = max(int(max(np.linalg.norm(q[0] - q[3]), np.linalg.norm(q[1] - q[2]))), 1)
+        m = cv2.getPerspectiveTransform(q, np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float32))
+        c = cv2.warpPerspective(pixels, m, (w, h), borderMode=cv2.BORDER_REPLICATE, flags=cv2.INTER_CUBIC)
+        return np.rot90(c) if h / w >= 1.5 else c
+
+    def flips(self, crops, thresh=0.9):
+        import cv2
+        import numpy as np
+        import torch
+
+        batch = np.zeros((len(crops), 48, 192, 3), np.uint8)
+        for i, c in enumerate(crops):
+            nw = min(max(int(round(c.shape[1] * 48 / max(c.shape[0], 1))), 1), 192)
+            batch[i, :, :nw] = cv2.resize(c, (nw, 48), interpolation=cv2.INTER_LINEAR)
+        with convolutions_tf32(False), torch.no_grad():
+            p = self.cls(self._norm(batch, (0.5,) * 3, (0.5,) * 3)).cpu().numpy()
+        return [bool(r.argmax() == 1 and r[1] > thresh) for r in p], p[:, 1]
+
+    def read(self, crops):
+        """(text, confidence) of each crop: height 48, the width bucket,
+        one batch a bucket, CTC greedy over the valid steps."""
+        import cv2
+        import numpy as np
+        import torch
+
+        out = [None] * len(crops)
+        groups: dict = {}
+        for i, c in enumerate(crops):
+            nw = max(int(round(c.shape[1] * 48 / max(c.shape[0], 1))), 1)
+            b = next((x for x in self.rec_buckets if nw <= x), self.rec_buckets[-1])
+            groups.setdefault(b, []).append((i, cv2.resize(c, (min(nw, b), 48), interpolation=cv2.INTER_LINEAR)))
+        for b, items in groups.items():
+            batch = np.zeros((len(items), 48, b, 3), np.uint8)
+            for row, (_, r) in enumerate(items):
+                batch[row, :, :r.shape[1]] = r
+            with convolutions_tf32(False), torch.no_grad():
+                probs = self.rec(self._norm(batch, (0.5,) * 3, (0.5,) * 3)).float().cpu().numpy()
+            t = probs.shape[1]
+            for row, (i, r) in enumerate(items):
+                ids, conf = probs[row].argmax(-1), probs[row].max(-1)
+                valid = np.arange(t) * max(b // t, 1) < r.shape[1]
+                prev, chars, confs = -1, [], []
+                for k in range(t):
+                    idx = int(ids[k]) if valid[k] else 0
+                    if idx != 0 and idx != prev and idx < len(self.vocab):
+                        chars.append(self.vocab[idx])
+                        confs.append(float(conf[k]))
+                    prev = idx
+                out[i] = ("".join(chars), float(np.mean(confs)) if confs else 1.0)
+        return out
+
+    def answer(self, pixels, det_thr, box_thr, rec_thr, angle: bool, cand=None):
+        """The items (quad, text, confidence) a request must get, with every
+        box's confidence and classifier probability: (items, confidences,
+        probabilities)."""
+        import numpy as np
+
+        prob, scale, top, left = cand or self.prob_map(pixels)
+        quads = [self.quad(r, scale, top, left, pixels.shape[:2])
+                 for r, s in self.candidates(prob, det_thr) if s >= box_thr]
+        order = self.reading_order(quads)
+        quads = [quads[i] for i in order]
+        crops = [self.crop(pixels, q) for q in quads]
+        p_cls = []
+        if angle and crops:
+            flips, p_cls = self.flips(crops)
+            crops = [np.ascontiguousarray(c[::-1, ::-1]) if f else c for c, f in zip(crops, flips)]
+        texts = self.read(crops) if crops else []
+        items = [(q, t, c) for q, (t, c) in zip(quads, texts) if t and c >= rec_thr]
+        return items, [c for _, c in texts], list(p_cls)
+
+
+def match_ocr(served: list, ref: list, what: str, iou: float = OCR_IOU) -> tuple[float, float]:
+    """Served items (``{"box", "text", "confidence"}``) against reference
+    items ((quad, text, confidence)): equal counts, one to one at IoU >=
+    ``iou`` with equal texts; returns (min IoU, max |confidence diff|)."""
+    import numpy as np
+
+    if len(served) != len(ref):
+        raise AssertionError(f"{what}: {len(served)} items served, {len(ref)} in the reference")
+    left, worst, dconf = list(range(len(ref))), 1.0, 0.0
+    for item in served:
+        ious = [ref_quad_iou(item["box"], ref[j][0]) for j in left]
+        j = left.pop(int(np.argmax(ious)))
+        if max(ious) < iou or item["text"] != ref[j][1]:
+            raise AssertionError(f"{what}: a served item matches the reference at IoU {max(ious):.5f} (tol {iou}), "
+                                 f"text {item['text']!r} vs {ref[j][1]!r}, box {np.asarray(item['box']).tolist()} vs "
+                                 f"{np.asarray(ref[j][0]).tolist()}")
+        worst = min(worst, max(ious))
+        dconf = max(dconf, abs(item["confidence"] - ref[j][2]))
+    return worst, dconf
+
+
+def ocr_yaml(path: Path, cache_dir: Path, services: dict) -> Path:
+    """A deployment in the shape ``generate_config`` writes (hub mode, each
+    service's ``backend_settings`` with the preset's ``mesh`` and
+    ``max_batch_latency_ms``), services named in their JAX form; ``services``
+    maps a family to (model, settings)."""
+    import yaml
+
+    classes = {"ocr": "OcrService", "clip": "ClipService", "face": "FaceService", "vlm": "VlmService"}
+    spec = {}
+    for family, (model, settings) in services.items():
+        models = {family: {"model": model, "runtime": "jax"}}
+        if family == "clip":
+            models["clip"]["dataset"] = "Smoke1k"
+        spec[family] = {
+            "enabled": True, "package": f"lumen_tpu.serving.services.{family}_service",
+            "import_info": {"registry_class": f"lumen_tpu.serving.services.{family}_service.{classes[family]}"},
+            "backend_settings": {"mesh": {"axes": {"data": -1}}, "max_batch_latency_ms": 5.0, **settings},
+            "models": models,
+        }
+    path.write_text(yaml.safe_dump({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(cache_dir)},
+        "deployment": {"mode": "hub", "services": list(spec)},
+        "server": {"port": 50051, "host": "127.0.0.1", "mdns": {"enabled": False, "service_name": "lumen-tpu"}},
+        "services": spec,
+    }, sort_keys=False))
+    return path
+
+
+def drive_ocr(seed: int, card: str, root: Path, phase6: dict, phase8: dict, phase9: dict, device: str = "cuda:0",
+              n_pages: int = 64, in_flight: int = 8, page_hw=(960, 1280), pack_kw: dict | None = None,
+              native=None, n_native: int = 3) -> dict:
+    """Phase 10: OCR as users reach it, and the full tier. (a) the
+    ``PP-OCRv5_mobile`` stand-in pack served from the YAML block
+    ``config_gen`` writes for ``ocr``, timed with TF32 convolutions and held
+    to ``OcrReference`` up to ``OCR_TF32_*``, then held strictly in IEEE
+    float32, with ``tensor/raw`` pages and ``use_angle_cls``; (b) native
+    ``DBNetConfig()`` + ``SVTRConfig()`` + ``ClsConfig()`` (``native``:
+    their configs) served in bf16 on the head_dim-16 flash kernel against
+    the port's plain path, and in float32 against the port's CPU run; (c)
+    a full-tier hub (ocr, clip, face, vlm) from one YAML. The sizes let the
+    CPU tests rehearse it small."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.ocr import ClsConfig, DBNetConfig, OcrManager, SVTRConfig
+    from lumen_tpu_torch.models.ocr import modeling as ocr_modeling
+    from lumen_tpu_torch.ops.ctc import load_ctc_vocab
+    from lumen_tpu_torch.ops.image import letterbox_numpy
+    from lumen_tpu_torch.runtime.decode_pool import get_decode_pool, shutdown_decode_pool
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.testing.ocr_standins import write_native_ocr_dir, write_ppocr_pack
+    from lumen_tpu_torch.utils.tensorwire import TENSOR_MIME, tensor_payload
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    det_bucket = next((b for b in (320, 640, 960) if max(page_hw) <= b), 960)
+    out: dict = {}
+    kernels = {k.name: k for k in all_kernels()}
+
+    def drive(stub, jobs):
+        """``jobs`` (payload, meta, mime) over gRPC at ``in_flight``:
+        (answers, wall s)."""
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(in_flight) as ex:
+            res = list(ex.map(lambda j: grpc_call(stub, "ocr", j[0], j[1], mime=j[2]), jobs))
+        wall = time.perf_counter() - t0
+        if any(r["code"] for r in res):
+            raise AssertionError(f"phase 10: ocr answered codes {sorted({r['code'] for r in res})}")
+        return res, wall
+
+    # -- (a) the stand-in pack over gRPC --------------------------------------------
+    t0 = time.perf_counter()
+    pack_dir = root / "cache" / "models" / "PP-OCRv5_mobile"
+    mods = write_ppocr_pack(pack_dir, seed * 100 + 10, page_hw=page_hw, det_bucket=det_bucket, **(pack_kw or {}))
+    export_s = time.perf_counter() - t0
+    n_par = {k: sum(p.numel() for p in m.parameters()) for k, m in mods.items()}
+    pages = ocr_pages(seed * 100 + 100, n_pages, width=page_hw[1], height=page_hw[0])
+    vocab = load_ctc_vocab(str(pack_dir / "ppocr_keys_v1.txt"))
+    log(f"phase 10: PP-OCRv5_mobile stand-in pack exported on the CPU in {export_s:.1f} s: det.onnx ({n_par['det']:,} "
+        f"params), rec.onnx ({n_par['rec']:,} params, {len(vocab)} classes), cls.onnx ({n_par['cls']:,} params); "
+        f"{n_pages} distinct {page_hw[1]}x{page_hw[0]} JPEG pages of text lines")
+    ref = OcrReference(*(mods[k].to(dev).eval() for k in ("det", "rec", "cls")), vocab, dev)
+    # Each page is asked at thresholds in the widest gaps of its reference's
+    # values: the map's near 0.3, the box scores near 0.6, the confidences
+    # near 0.5, so no rounding can tip an answer (as phase 9's gap_threshold).
+    n_cls = min(8, n_pages)  # pages asked with use_angle_cls
+    asks, gaps = [], []
+    for i, (_, px) in enumerate(pages):
+        cand = ref.prob_map(px)
+        det_thr, g1 = gap_between(cand[0], 0.3, 0.1)
+        box_thr, g2 = gap_between([sc for _, sc in ref.candidates(cand[0], det_thr)], 0.6, 0.1)
+        items, confs, p_cls = ref.answer(px, det_thr, box_thr, 0.0, i < n_cls, cand=cand)
+        rec_thr, g3 = gap_between(confs, 0.5, 0.1)
+        items = [it for it in items if it[2] >= rec_thr]
+        if p_cls and min(abs(np.asarray(p_cls) - 0.9)) < 1e-4:
+            log(f"phase 10 (a): page {i}: a classifier probability within 1e-4 of cls_thresh 0.9")
+        asks.append(dict(meta={"det_thresh": det_thr, "box_thresh": box_thr, "rec_thresh": rec_thr,
+                               "use_angle_cls": "true" if i < n_cls else "false"}, items=items))
+        gaps.append(min(g1, g2, g3))
+    n_items = sum(len(a["items"]) for a in asks)
+    if n_items == 0:
+        raise AssertionError("phase 10 (a): the reference reads no text on any page")
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    settings = {"dtype": "bfloat16", "batch_size": 8, "batch_buckets": [320, 640, 960]}
+    with env(LUMEN_GRPC_WORKERS=str(in_flight + 8)):
+        handle, channel, stub, load_s = boot_server(
+            ocr_yaml(root / "ocr.yaml", root / "cache", {"ocr": ("PP-OCRv5_mobile", settings)}), device)
+    try:
+        mgr = handle.services["ocr"].manager
+        placed = {t.device for v in (mgr.det_vars, mgr.rec_vars, mgr.cls_vars) for t in v.values()}
+        if placed != {dev} or not mgr.has_angle_cls:
+            raise AssertionError(f"phase 10 (a): bridge params on {placed}, cls {mgr.has_angle_cls}")
+        jobs = [(jpeg, a["meta"], "image/jpeg") for (jpeg, _), a in zip(pages, asks)]
+        with convolutions_tf32(True):
+            drive(stub, jobs[:in_flight])  # cold round: decode workers start, cuDNN picks its algorithms
+            reset_result_cache()
+            served, wall = drive(stub, jobs)
+        lat = sorted(r["s"] * 1e3 for r in served)
+        pct = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]  # noqa: E731
+        tf32 = {"ref": n_items, "served": 0, "matched": 0, "exact": 0, "moved": 0, "texts": 0}
+        for r, a in zip(served, asks):
+            items, left = r["body"]["items"], list(range(len(a["items"])))
+            tf32["served"] += len(items)
+            for it in items:
+                ious = [ref_quad_iou(it["box"], a["items"][j][0]) for j in left]
+                if not ious or max(ious) < OCR_TF32_IOU:
+                    continue
+                j = left.pop(int(np.argmax(ious)))
+                tf32["matched"] += 1
+                same = it["text"] == a["items"][j][1]
+                tf32["exact"] += int(max(ious) >= OCR_IOU and same)
+                tf32["moved"] += int(max(ious) < OCR_IOU)
+                tf32["texts"] += int(not same)
+        if tf32["matched"] < OCR_TF32_SHARE * n_items or tf32["served"] - tf32["matched"] > (1 - OCR_TF32_SHARE) * n_items:
+            raise AssertionError(f"phase 10 (a): TF32 answers vs the IEEE reference {tf32} (tol {OCR_TF32_SHARE} "
+                                 f"of the boxes at IoU >= {OCR_TF32_IOU})")
+        log(f"phase 10 (a), TF32 convolutions as users run them: {n_pages} ocr over gRPC ({in_flight} in flight, "
+            f"{n_cls} with use_angle_cls) in {wall:.3f} s = {n_pages / wall:.2f} pages/s; client p50 {pct(0.5):.1f} ms "
+            f"p95 {pct(0.95):.1f} ms; {tf32['served']} items against the IEEE reference's {n_items}: {tf32['matched']} "
+            f"at IoU >= {OCR_TF32_IOU} (tol {OCR_TF32_SHARE} of them), {tf32['exact']} equal (IoU >= {OCR_IOU}, same "
+            f"text), {tf32['moved']} moved, {tf32['texts']} texts differ [{card}]")
+
+        # IEEE float32: the same pages and more, held strictly.
+        reset_result_cache()
+        with convolutions_tf32(False):
+            strict, wall_ieee = drive(stub, jobs)
+            n_raw = min(4, n_pages)
+            raw = [tensor_payload(px) for _, px in pages[:n_raw]]
+            tensors, _ = drive(stub, [(p, {**m, **a["meta"]}, TENSOR_MIME) for (p, m), a in zip(raw, asks)])
+            plain_jobs = [(jpeg, {**a["meta"], "use_angle_cls": "false"}, "image/jpeg")
+                          for (jpeg, _), a in zip(pages[:n_cls], asks)]
+            as_is, _ = drive(stub, plain_jobs)
+        worst, dconf = 1.0, 0.0
+        for i, r in enumerate(strict + tensors):
+            w, d = match_ocr(r["body"]["items"], asks[i % n_pages]["items"], f"phase 10 (a) page {i % n_pages}")
+            worst, dconf = min(worst, w), max(dconf, d)
+        flipped = 0
+        for i, r in enumerate(as_is):
+            px = pages[i][1]
+            meta = asks[i]["meta"]
+            want = ref.answer(px, meta["det_thresh"], meta["box_thresh"], meta["rec_thresh"], False)[0]
+            match_ocr(r["body"]["items"], want, f"phase 10 (a) page {i} without the classifier")
+            flipped += sum(a[1] != b[1] for a, b in zip(want, asks[i]["items"]))
+        log(f"phase 10 (a), IEEE float32: the {n_pages} pages in {wall_ieee:.3f} s = {n_pages / wall_ieee:.2f} pages/s, "
+            f"{n_raw} as tensor/raw, {n_cls} again without use_angle_cls: {n_items} items each matched one to one to the "
+            f"stand-ins run directly (IoU min {worst:.5f}, tol {OCR_IOU}; texts equal; |confidence| diff max "
+            f"{dconf:.2e}; thresholds in gaps >= {min(gaps):.2e}); the classifier changed {flipped} texts [{card}]")
+
+        # device-side costs, on the card
+        if on_card:
+            boxed = np.stack([letterbox_numpy(px, det_bucket)[0] for _, px in pages[:1]])
+            x_det = torch.from_numpy(boxed).to(dev)
+            chunk = torch.from_numpy(np.zeros((16, 48, 320, 3), np.uint8)).to(dev)
+            widths = torch.full((16,), 320, dtype=torch.int32, device=dev)
+            with convolutions_tf32(True):
+                det_ms = cuda_ms(lambda: mgr._run_detector(mgr.det_vars, x_det), 10)
+                rec_ms = cuda_ms(lambda: mgr._run_recognizer(mgr.rec_vars, chunk, widths), 10)
+            with convolutions_tf32(False):
+                det_ieee_ms = cuda_ms(lambda: mgr._run_detector(mgr.det_vars, x_det), 10)
+                rec_ieee_ms = cuda_ms(lambda: mgr._run_recognizer(mgr.rec_vars, chunk, widths), 10)
+                syncs = {"detector": count_syncs(lambda: mgr._run_detector(mgr.det_vars, x_det)),
+                         "recognizer": count_syncs(lambda: mgr._run_recognizer(mgr.rec_vars, chunk, widths))}
+                prob = mgr._run_detector(mgr.det_vars, x_det)[0].cpu().numpy()
+            from lumen_tpu_torch.models.ocr import rotate_crop
+
+            # the host's share of a page: contours, boxes and crops of the
+            # first 8 pages' maps, after the one copy
+            probs = []
+            for _, px in pages[:8]:
+                boxed1, sc, top, left = letterbox_numpy(px, det_bucket)
+                with convolutions_tf32(False):
+                    probs.append((mgr._run_detector(mgr.det_vars, torch.from_numpy(boxed1[None]).to(dev))[0].cpu()
+                                  .numpy(), sc, top, left, px))
+            t0 = time.perf_counter()
+            n_crops = 0
+            for (prob, sc, top, left, px), a in zip(probs, asks):
+                found = mgr.boxes_from_det_output(prob, image_hw=px.shape[:2], scale=sc, pad_top=top, pad_left=left,
+                                                  det_threshold=a["meta"]["det_thresh"],
+                                                  box_threshold=a["meta"]["box_thresh"])
+                n_crops += len([rotate_crop(px, q) for q, _ in found])
+            post_ms = (time.perf_counter() - t0) * 1e3 / len(probs)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"phase 10 (a): one detector call at {det_bucket}x{det_bucket} {det_ms:.3f} ms with TF32 convolutions ({det_ieee_ms:.3f} ms "
+                f"IEEE), one recognizer chunk of 16 crops at 48x320 {rec_ms:.3f} ms ({rec_ieee_ms:.3f} ms IEEE; CUDA "
+                f"events, launch path included); host postprocess {post_ms:.2f} ms a page (contours, boxes, "
+                f"{n_crops / len(probs):.1f} crops; the first {len(probs)} pages); device-to-host syncs per forward {json.dumps(syncs)}; peak {peak:.3f} GiB [{card}]")
+            out.update(det_ms=det_ms, det_ieee_ms=det_ieee_ms, rec_ms=rec_ms, rec_ieee_ms=rec_ieee_ms, post_ms=post_ms,
+                       syncs=syncs, peak_gib=peak)
+        out.update(load_s=load_s, export_s=export_s, pages_s=n_pages / wall, pages_s_ieee=n_pages / wall_ieee,
+                   p50_ms=pct(0.5), p95_ms=pct(0.95), items=n_items, iou_min=worst, tf32=tf32,
+                   ocr_answers={i: (pages[i][0], asks[i]["meta"], strict[i]["body"]["items"]) for i in range(n_cls)})
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    ref.det, ref.rec, ref.cls = (m.cpu() for m in (ref.det, ref.rec, ref.cls))
+    out["a_s"] = time.perf_counter() - t_phase
+
+    # -- (b) native checkpoints: bf16 on the head_dim-16 kernel, float32 vs the CPU --------
+    det_cfg, rec_cfg, cls_cfg = native or (DBNetConfig(), SVTRConfig(), ClsConfig())
+    t0 = time.perf_counter()
+    native_dir = root / "cache" / "models" / "SmokeOCR"
+    write_native_ocr_dir(native_dir, seed * 100 + 20, det_cfg, rec_cfg, cls_cfg, page_hw=page_hw,
+                         det_bucket=det_bucket)
+    write_s = time.perf_counter() - t0
+    npages = pages[:n_native]
+    flash = kernels["flash_attention"]
+    reset_result_cache()
+    settings = {"dtype": "bfloat16", "batch_size": 8, "batch_buckets": [320, 640, 960]}
+    with env(LUMEN_GRPC_WORKERS=str(in_flight + 8)):
+        handle, channel, stub, bf16_load_s = boot_server(
+            ocr_yaml(root / "native.yaml", root / "cache", {"ocr": ("SmokeOCR", settings)}), device)
+    try:
+        mgr = handle.services["ocr"].manager
+        chunks, captured = [], []
+        run_rec = mgr._run_recognizer
+
+        def counted(variables, crops, widths):
+            chunks.append(tuple(crops.shape))
+            captured.append((crops.clone(), widths.clone()))
+            return run_rec(variables, crops, widths)
+
+        mgr._run_recognizer = counted
+        meta = {"det_thresh": 0.3, "box_thresh": 0.3, "rec_thresh": 0.0, "use_angle_cls": "true"}
+        flash.launches = 0
+        served_b, _ = drive(stub, [(jpeg, meta, "image/jpeg") for jpeg, _ in npages])
+        launches = flash.launches
+        mgr._run_recognizer = run_rec
+        for name in PHASE10_KERNELS:  # once a mixing block, in every recognizer chunk
+            if kernels[name].launches != rec_cfg.layers * len(chunks) or not chunks:
+                raise AssertionError(f"phase 10 (b): {name} launched {kernels[name].launches} times for "
+                                     f"{len(chunks)} recognizer chunks of {rec_cfg.layers} layers")
+        # Each recognizer chunk the server ran, again through the kernel and
+        # through the port's plain path (attention_reference in the mixing
+        # blocks) on the same batch: the logits within OCR_BF16_LOGIT_SHARE
+        # of the plain path's largest |logit|, and the same argmax at every
+        # valid step whose plain top-two margin exceeds twice the row's
+        # difference (where no rounding of that size can swap them).
+        worst_d, n_rows, n_held = 0.0, 0, 0
+        for crops, widths in captured:
+            x = ((crops.float() / 255.0 - 0.5) / 0.5).to(mgr.policy.compute_dtype).permute(0, 3, 1, 2)
+            with torch.no_grad():
+                k_logits = mgr.rec_vars(x).float()
+                with plain_attention(ocr_modeling):
+                    p_logits = mgr.rec_vars(x).float()
+            scale = float(p_logits.abs().max())
+            diff = (k_logits - p_logits).abs().amax(dim=(1, 2))  # per row
+            worst_d = max(worst_d, float(diff.max()) / scale)
+            if float(diff.max()) > OCR_BF16_LOGIT_SHARE * scale:
+                raise AssertionError(f"phase 10 (b): bf16 logits kernel vs plain {float(diff.max()):.3e} > "
+                                     f"{OCR_BF16_LOGIT_SHARE} x {scale:.3e}")
+            t = p_logits.shape[1]
+            valid = torch.arange(t, device=dev)[None] * max(crops.shape[2] // t, 1) < widths[:, None]
+            top2 = p_logits.topk(2, dim=-1).values
+            held = (top2[..., 0] - top2[..., 1] > 2 * diff[:, None]) & valid
+            if not bool((k_logits.argmax(-1) == p_logits.argmax(-1))[held].all()):
+                raise AssertionError("phase 10 (b): a bf16 step's argmax differs from the plain path's where the "
+                                     "margin exceeds twice the logit difference")
+            live = widths > 0
+            n_rows += int(live.sum())
+            n_held += int((held | ~valid).all(1)[live].sum())
+        # The same pages through the plain path end to end: equal boxes,
+        # texts counted.
+        reset_result_cache()  # (the served answers are in it, under the same options)
+        with plain_attention(ocr_modeling):
+            plain_b = [mgr.predict(jpeg, det_threshold=0.3, box_threshold=0.3, rec_threshold=0.0, use_angle_cls=True)
+                       for jpeg, _ in npages]
+        n_equal, n_b = 0, 0
+        for r, want in zip(served_b, plain_b):
+            items = r["body"]["items"]
+            if len(items) != len(want) or any(ref_quad_iou(it["box"], w.box) < OCR_IOU for it, w in zip(items, want)):
+                raise AssertionError("phase 10 (b): the bf16 boxes differ from the plain path's")
+            n_b += len(items)
+            n_equal += sum(it["text"] == w.text for it, w in zip(items, want))
+        log(f"phase 10 (b): native DBNetConfig {det_cfg.width}/{det_cfg.fpn_width}/{det_cfg.head_width} + SVTRConfig "
+            f"{rec_cfg.width}x{rec_cfg.layers} ({rec_cfg.heads} heads of {rec_cfg.width // rec_cfg.heads}, vocab "
+            f"{rec_cfg.vocab_size}) + ClsConfig {list(cls_cfg.channels)} (seeded, calibrated) written in {write_s:.1f} "
+            f"s, served in bf16 in {bf16_load_s:.2f} s: {len(npages)} pages, {n_b} items with boxes equal to the plain "
+            f"path's; each recognizer chunk rerun on both paths: CTC logits within {worst_d:.2e} of the plain path's "
+            f"largest |logit| (tol {OCR_BF16_LOGIT_SHARE}), every step's argmax equal where the margin allows ("
+            f"{n_held} of {n_rows} crops held whole); texts equal to the plain path's in {n_equal} of {n_b}; "
+            f"flash_attention (head_dim 16) launches {launches} = {rec_cfg.layers} x {len(chunks)} recognizer chunks "
+            f"{sorted(set(chunks))} [{card}]")
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+
+    # float32: the card (IEEE) against the port's own CPU run of the same manager
+    t0 = time.perf_counter()
+    cpu = OcrManager(str(native_dir), dtype="float32", device="cpu", det_buckets=(320, 640, 960))
+    cpu.initialize()
+    try:
+        metas, refs = [], []
+        for jpeg, px in npages:
+            boxed, _, _, _ = letterbox_numpy(px, det_bucket)
+            prob = cpu._run_detector(cpu.det_vars, torch.from_numpy(boxed[None]))[0].numpy()
+            det_thr, _ = gap_between(prob, 0.3, 0.1)
+            # (box scores of the seeded net's fragmented contours run lower than
+            # a trained one's: the box threshold comes from 0.2-0.6)
+            scores = [s for _, s in cpu.detect(px, det_threshold=det_thr, box_threshold=0.0)]
+            box_thr, _ = gap_between(scores, 0.4, 0.2)
+            confs = [r.confidence for r in cpu.predict_tensor(px, det_threshold=det_thr, box_threshold=box_thr,
+                                                              rec_threshold=0.0, use_angle_cls=True)]
+            rec_thr, _ = gap_between(confs, 0.5, 0.1)
+            m = {"det_thresh": det_thr, "box_thresh": box_thr, "rec_thresh": rec_thr, "use_angle_cls": "true"}
+            metas.append(m)
+            refs.append([(r.box, r.text, r.confidence) for r in cpu.predict(
+                jpeg, det_threshold=det_thr, box_threshold=box_thr, rec_threshold=rec_thr, use_angle_cls=True)])
+    finally:
+        cpu.close()
+    cpu_s = time.perf_counter() - t0
+    reset_result_cache()
+    settings = {"dtype": "float32", "batch_size": 8, "batch_buckets": [320, 640, 960]}
+    handle, channel, stub, f32_load_s = boot_server(
+        ocr_yaml(root / "native32.yaml", root / "cache", {"ocr": ("SmokeOCR", settings)}), device)
+    try:
+        with convolutions_tf32(False):
+            served_f, _ = drive(stub, [(jpeg, m, "image/jpeg") for (jpeg, _), m in zip(npages, metas)])
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    worst_f, n_f = 1.0, 0
+    for i, (r, want) in enumerate(zip(served_f, refs)):
+        worst_f = min(worst_f, match_ocr(r["body"]["items"], want, f"phase 10 (b) float32 page {i}")[0])
+        n_f += len(want)
+    if n_f == 0:
+        raise AssertionError("phase 10 (b): the CPU run reads no text on any page")
+    log(f"phase 10 (b): float32 served in {f32_load_s:.2f} s; {len(npages)} pages ({n_f} items) equal to the port's "
+        f"own CPU run ({cpu_s:.1f} s): IoU min {worst_f:.5f}, texts equal [{card}]")
+    out.update(native_launches=launches, native_chunks=len(chunks), bf16_logit_share=worst_d, native_items=n_f,
+               b_s=time.perf_counter() - t_phase - out["a_s"])
+
+    # -- (c) the full tier: ocr + clip + face + vlm from one YAML ------------------------
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    tier = {
+        "ocr": ("PP-OCRv5_mobile", {"dtype": "bfloat16", "batch_size": 8, "batch_buckets": [320, 640, 960]}),
+        "clip": ("SmokeCLIP", {"dtype": "bfloat16", "batch_size": 64}),
+        "face": ("buffalo_l", {"dtype": "bfloat16", "batch_size": 16}),
+        "vlm": ("SmokeVLM", {"dtype": "bfloat16", "batch_size": 8, "batch_buckets": [64, 128, 256, 512, 1024]}),
+    }
+    with env(LUMEN_VLM_SPEC_K="0", LUMEN_GRPC_WORKERS=str(4 * in_flight + 8)):
+        handle, channel, stub, hub_s = boot_server(ocr_yaml(root / "full.yaml", root / "cache", tier), device)
+    try:
+        from google.protobuf import empty_pb2
+
+        _, call_ = stub.Health.with_call(empty_pb2.Empty(), timeout=30)
+        status = json.loads(dict(call_.trailing_metadata())["lumen-service-status"])
+        if status != {name: "healthy" for name in tier} or any(getattr(s, "error", None) for s in handle.services.values()):
+            raise AssertionError(f"phase 10 (c): service status {status}")
+        for k in kernels.values():
+            k.launches = 0
+        n_vlm, n_img = 4, min(8, len(phase8["photos"]))
+        n_face, n_ocr = min(4, len(phase9["face_photos"])), len(out["ocr_answers"])
+        jobs = ([("vlm_generate_stream", phase6["photos"][i], {"messages": phase6["prompt"],
+                                                              "max_new_tokens": phase6["budgets"][i]}, "image/jpeg")
+                 for i in range(n_vlm)]
+                + [("clip_image_embed", phase8["photos"][i], {}, "image/jpeg") for i in range(n_img)]
+                + [("face_detect", phase9["face_photos"][i], {"conf_threshold": phase9["face_thr"][i]}, "image/jpeg")
+                   for i in range(n_face)]
+                + [("ocr", jpeg, meta, "image/jpeg") for jpeg, meta, _ in out["ocr_answers"].values()])
+        t0 = time.perf_counter()
+        with convolutions_tf32(False), ThreadPoolExecutor(len(jobs)) as ex:
+            res = list(ex.map(lambda j: grpc_call(stub, j[0], j[1], j[2], mime=j[3]), jobs))
+        hub_wall = time.perf_counter() - t0
+        hub_launches = {name: kernels[name].launches for name in PHASE10_HUB_KERNELS}
+        if any(r["code"] for r in res):
+            raise AssertionError(f"phase 10 (c): codes {[r['code'] for r in res]}")
+        for i in range(n_vlm):
+            want = phase6["streams"][i]
+            if (res[i]["body"]["text"], res[i]["body"]["generated_tokens"]) != (want["text"], want["generated_tokens"]):
+                raise AssertionError(f"phase 10 (c): caption stream {i} differs from phase 6's")
+        cos = cosines(np.stack([r["body"]["vector"] for r in res[n_vlm:n_vlm + n_img]]), phase8["vecs"][:n_img])
+        if cos.min() < CLIP_COSINE:
+            raise AssertionError(f"phase 10 (c): embeddings vs phase 8's, cosine {cos.min():.6f}")
+        for i in range(n_face):
+            match_faces(res[n_vlm + n_img + i]["body"]["faces"], phase9["face_answers"][i], f"phase 10 (c) face {i}")
+        for i, (_, _, want) in enumerate(out["ocr_answers"].values()):
+            got = res[n_vlm + n_img + n_face + i]["body"]["items"]
+            match_ocr(got, [(w["box"], w["text"], w["confidence"]) for w in want], f"phase 10 (c) page {i}")
+        missing = [k for k, n in hub_launches.items() if n == 0 and k in PHASE10_HUB_KERNELS]
+        if missing:
+            raise AssertionError(f"phase 10 (c): never launched: {missing} ({hub_launches})")
+        threads = [t.name for t in threading.enumerate()]
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    prefixes = ("face-", "clip-", "vlm-continuous")
+    live = [t.name for t in threading.enumerate() if t.name.startswith(prefixes)]
+    pool = get_decode_pool()
+    procs = [w.proc for w in pool._workers_all]
+    shutdown_decode_pool()
+    alive = [p.pid for p in procs if p.poll() is None]
+    if live or alive:
+        raise AssertionError(f"phase 10 (c): after stop, threads {live} and decode workers {alive} still alive")
+    log(f"phase 10 (c): the full tier (ocr, clip, face, vlm; one YAML in generate_config's shape) up in {hub_s:.2f} s, "
+        f"every service healthy; {n_vlm} caption streams, {n_img} clip_image_embed, {n_face} face_detect and {n_ocr} "
+        f"ocr at once in {hub_wall:.3f} s: captions equal to phase 6's, embeddings cosine min {cos.min():.6f} to "
+        f"phase 8's, faces as phase 9's, OCR items as (a)'s; launches {json.dumps(hub_launches)}; stop retired "
+        f"{len([t for t in threads if t.startswith(prefixes)])} batcher/engine threads and the decode pool's "
+        f"{len(procs)} worker processes [{card}]")
+    out.update(hub_s=hub_s, hub_launches=hub_launches, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def count_syncs(fn) -> int:
     """Device-to-host synchronizations one call of ``fn`` makes (warm), as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
@@ -3024,8 +3806,8 @@ def main() -> int:
     hmma = hmma_counts(flash)
     log("sass (cuobjdump -sass), HMMA instructions: "
         + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
-    bf16_funcs = [f for f in hmma if "bf16" in f]
-    if len(bf16_funcs) != 2 or any(hmma[f] == 0 for f in bf16_funcs):
+    bf16_funcs = [f for f in hmma if "bf16" in f]  # flash at head_dim 64 and 16, the cache kernel at 64
+    if len(bf16_funcs) != 3 or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
 
     rows = check_kernels(args.seed)
@@ -3052,6 +3834,7 @@ def main() -> int:
             f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
         clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
         face = drive_face(args.seed, card, Path(tmp), clip)
+        ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
     log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
         f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
         f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
@@ -3069,6 +3852,22 @@ def main() -> int:
         f"TF32: matched at IoU >= {face['tf32']['iou_min']:.5f}, {json.dumps(face['tf32'])}; graph CLIP exported in "
         f"{face['clip_export_s']:.1f} s, served in {face['clip_load_s']:.2f} s, cosine to phase 8 >= "
         f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
+    log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
+        f"server up in {ocr['load_s']:.2f} s; {ocr['pages_s']:.2f} pages/s over gRPC with TF32 convolutions "
+        f"({ocr['pages_s_ieee']:.2f} in IEEE float32), client p50 {ocr['p50_ms']:.1f} ms p95 {ocr['p95_ms']:.1f} ms; one "
+        f"detector call {ocr['det_ms']:.3f} ms (IEEE {ocr['det_ieee_ms']:.3f}), one recognizer chunk of 16 "
+        f"{ocr['rec_ms']:.3f} ms (IEEE {ocr['rec_ieee_ms']:.3f}); host postprocess {ocr['post_ms']:.2f} ms a page; "
+        f"syncs per forward {json.dumps(ocr['syncs'])}; peak GiB {ocr['peak_gib']:.3f}; IEEE: {ocr['items']} items "
+        f"matched at IoU >= {ocr['iou_min']:.5f}; TF32: {json.dumps(ocr['tf32'])}; native bf16: flash_attention "
+        f"(head_dim 16) {ocr['native_launches']} launches over {ocr['native_chunks']} recognizer chunks, logits within "
+        f"{ocr['bf16_logit_share']:.2e} of the plain path's scale; full tier up in {ocr['hub_s']:.2f} s, launches "
+        f"{json.dumps(ocr['hub_launches'])}")
+    for label in OCR_FLASH_SHAPES:
+        row = rows[f"flash_attention ({label})"]
+        log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}: terms {json.dumps({k: round(v, 5) for k, v in row['bound_terms'].items()})}), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| {row['max_abs_err']:.3e}, phase-10 (b) "
+            f"launches {ocr['native_launches']} [{card}]")
     for label, key in (("CLIP vision", "vision (a)"), ("CLIP text, causal", "text (b)")):
         row = rows[f"flash_attention ({label})"]
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
@@ -3088,6 +3887,15 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))
+    # The head_dim-16 instance of flash_attention (the native OCR recognizer,
+    # phase 10 (b): its launches there) at its widest call.
+    row = rows[f"flash_attention ({list(OCR_FLASH_SHAPES)[-1]})"]
+    source, replaces = SOURCES["flash_attention"]
+    table.append(dict(
+        name="flash_attention [head_dim 16]", route="cuda", source=source, replaces=replaces,
+        launches=ocr["native_launches"], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+    ))
     log(f"{card}")
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@
 // VMEM scratch from one grid step to the next, is the loop over key tiles
 // inside this block (Hopper blocks run in no order).
 //
-// Design (head_dim D = 64 on the serving path):
+// Design (head_dim D = 64 on the VLM and CLIP paths, 16 on the native
+// OCR recognizer's):
 // - A block holds kFlashWarps row groups of 16 query rows. Each row group
 //   has kFlashSplit warps; warp s of a group takes key tiles s, s +
 //   kFlashSplit, ... with its own online softmax, and the group's warps
@@ -26,6 +27,10 @@
 //   are zero-filled without a read.
 // - S = Q K^T: mma.sync m16n8k16 bf16 -> fp32, K's B fragments by ldmatrix
 //   (a [key][D] row is already the .col layout). 8 n8 tiles x D/16 k-steps.
+//   One ldmatrix.x4 fills two k-steps of a score tile; at D = 16 (one
+//   k-step) it fills one k-step of two neighbouring score tiles instead.
+//   Rows of 16 + 8 bf16 (48 B) put the 8 rows of an ldmatrix phase on 8
+//   distinct 4-bank groups, so that width is conflict-free too.
 // - Scores are scaled in fp32 by scale * log2(e) and exponentiated with
 //   exp2f, so Q, K and the scores are never rounded; the only rounding
 //   beyond the fp32 sums is P's to bf16 (next point). Only tiles that cross
@@ -92,7 +97,8 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
                                                 __nv_bfloat16* __restrict__ o, int sq, int sk,
                                                 int q0, int q_off, int kv_valid, bool causal,
                                                 float scale) {
-  static_assert(D % 32 == 0 && D <= 128, "head_dim: a multiple of 32, at most 128");
+  static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, at most 128");
+  static_assert(D % 32 == 0 || D == 16, "an odd count of k16 steps is taken at D = 16 only");
   constexpr int BK = kFlashMmaKeys, ST = kFlashStages, SPLIT = kFlashSplit;
   constexpr int STEPS = ST / SPLIT;  // steps of SPLIT tiles the ring holds
   static_assert(ST % SPLIT == 0 && STEPS >= 2, "the ring holds a step in flight beside this one");
@@ -176,15 +182,26 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
     if (kb < kend_w) {
       float s[NT][4];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      if constexpr (KS % 2 == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KS; kk += 2) {
-          uint32_t b[4];  // b[0..1]: k-step kk, b[2..3]: kk + 1
-          ldmatrix_x4(b, &sK[st][n * 8 + (lane & 7)][kk * 16 + (lane >> 3) * 8]);
-          mma_bf16_16816(s[n], qf[kk], b);
-          mma_bf16_16816(s[n], qf[kk + 1], b + 2);
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int kk = 0; kk < KS; kk += 2) {
+            uint32_t b[4];  // b[0..1]: k-step kk, b[2..3]: kk + 1
+            ldmatrix_x4(b, &sK[st][n * 8 + (lane & 7)][kk * 16 + (lane >> 3) * 8]);
+            mma_bf16_16816(s[n], qf[kk], b);
+            mma_bf16_16816(s[n], qf[kk + 1], b + 2);
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t b[4];  // b[0..1]: score tile n, b[2..3]: n + 1 (the one k-step)
+          ldmatrix_x4(b, &sK[st][(n + (lane >> 4)) * 8 + (lane & 7)][((lane >> 3) & 1) * 8]);
+          mma_bf16_16816(s[n], qf[0], b);
+          mma_bf16_16816(s[n + 1], qf[0], b + 2);
         }
       }
       // Scale; mask only a tile that crosses a bound for some row of the warp.

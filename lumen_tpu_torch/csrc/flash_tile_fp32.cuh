@@ -5,11 +5,12 @@
 // one the serving path runs, is the tensor-core tile of
 // flash_tile_bf16.cuh.
 //
-// Why fp32 stays on FMA: fp32 runs only the small reference VLM (phase 3
-// of chip_smoke.py), whose greedy tokens on the card must equal the
-// CPU's. That needs fp32 scores and probabilities; the tensor cores take
-// at best TF32 (10-bit mantissa) for fp32 operands, which would round Q,
-// K, P and V. Speed does not matter there.
+// Why fp32 stays on FMA: fp32 runs the small reference VLM (phase 3 of
+// chip_smoke.py), whose greedy tokens on the card must equal the CPU's,
+// and a native OCR recognizer served in float32 (head_dim 16), whose
+// texts must equal the CPU's. That needs fp32 scores and probabilities;
+// the tensor cores take at best TF32 (10-bit mantissa) for fp32
+// operands, which would round Q, K, P and V. Speed does not matter there.
 //
 // Replaces, like the bf16 tile, the body of the Pallas kernels
 // _flash_kernel and _flash_cache_kernel (lumen_tpu/ops/attention.py:97,
@@ -45,6 +46,7 @@ __device__ __forceinline__ void flash_tile_fp32(const float* __restrict__ q,
   constexpr int BQ = kFlashBQ, BK = kFlashBK, TPR = kFlashTPR;
   constexpr int KPT = BK / TPR;  // keys scored per thread per tile
   constexpr int DPT = D / TPR;   // output dims owned per thread
+  static_assert(D % TPR == 0, "head_dim: a multiple of the threads a row");
   __shared__ float sK[BK][D + 1];
   __shared__ float sV[BK][D + 1];
   __shared__ float sP[BQ][BK + 1];

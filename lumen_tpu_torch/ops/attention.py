@@ -186,6 +186,11 @@ def paged_attention_varq_reference(q, k_pages, v_pages, block_tables, kv_lens, s
 # -- kernel wrappers ---------------------------------------------------------
 
 
+#: head dims the flash kernel is built for: the VLM and CLIP towers' 64,
+#: the native OCR recognizer's 16 (the JAX kernel takes any up to 256).
+FLASH_HEAD_DIMS = (16, 64)
+
+
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     """Online-softmax attention (JAX ``flash_attention``): the CUDA kernel
     on CUDA tensors, :func:`attention_reference` on CPU tensors."""
@@ -195,8 +200,8 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d != 64 or sq < 1 or sk < 1:
-        raise ValueError(f"flash_attention: head_dim {d} (kernel takes 64), sq {sq}, sk {sk}")
+    if d not in FLASH_HEAD_DIMS or sq < 1 or sk < 1:
+        raise ValueError(f"flash_attention: head_dim {d} (kernel takes {FLASH_HEAD_DIMS}), sq {sq}, sk {sk}")
     _check_cuda("flash_attention", {"q": q, "k": k, "v": v}, q.dtype)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -7,9 +7,8 @@ Two implementations with one semantics:
   post-processing stays inside the batched device call;
 - :func:`nms_numpy` — host variant for per-request threshold overrides,
   same greedy IoU-suppression semantics as the reference's pure-numpy NMS
-  (``lumen_face/backends/onnxrt_backend.py:391-423``). The JAX package
-  hands it to its native C library when that is built; the port keeps the
-  numpy body only (the native library comes with OCR).
+  (``lumen_face/backends/onnxrt_backend.py:391-423``), handed to the
+  native C library (``lumen_tpu_torch/native``) when that is built.
 
 Boxes are ``[..., N, 4]`` as ``(x1, y1, x2, y2)``.
 """
@@ -60,13 +59,21 @@ def nms_torch(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 
 
 
 def nms_numpy(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float = 0.4) -> np.ndarray:
-    """Host greedy NMS; returns kept indices sorted by descending score."""
+    """Host greedy NMS; returns kept indices sorted by descending score.
+
+    Delegates to the native C core when available (GIL-free, no O(N) python
+    loop); the numpy path below is the reference implementation and fallback.
+    """
     if len(boxes) == 0:
         return np.empty((0,), np.int64)
+    from .. import native
+
+    if native.available():
+        return native.nms_f32(boxes, scores, iou_threshold)
     x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
     areas = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
     # Stable sort so score ties break deterministically (higher index first
-    # after the reverse), as the JAX package's native C path breaks them.
+    # after the reverse) and agree with the native C path's tie-break.
     order = scores.argsort(kind="stable")[::-1]
     keep = []
     while order.size:

@@ -30,9 +30,10 @@ slice:
   A background revive swaps ONLY the dead replica's batcher for a fresh
   one after ``LUMEN_REPLICA_REVIVE_S`` — siblings never notice.
 
-Not ported: ``EngineFleet`` (the VLM engine replicas; JAX
-``fleet.py:820-1009``) and tensor-parallel slices (a ``model`` axis
-raises, :mod:`~lumen_tpu_torch.runtime.mesh`).
+:class:`EngineFleet` is the scale-actuator adapter of the families that
+dispatch without a MicroBatcher (OCR's direct lane today; the VLM engine
+replicas are not ported yet). Not ported: tensor-parallel slices (a
+``model`` axis raises, :mod:`~lumen_tpu_torch.runtime.mesh`).
 """
 
 from __future__ import annotations
@@ -818,6 +819,193 @@ class ReplicaSet:
 
 
 # -- engine fleets (park/unpark for non-batcher families) --------------------
+
+
+class EngineFleet:
+    """Scale-actuator adapter for model families that dispatch WITHOUT a
+    MicroBatcher — the continuous-batching VLM decode engines and the
+    OCR direct dispatcher. Speaks exactly the duck type the autopilot's
+    scale loop reads (``replicas`` with ``.rid``/``.state``/``.batcher``,
+    ``park``/``unpark``, ``devices_per_replica``, ``_closed``) and joins
+    the same fleet registry, so chip-ledger reallocation covers all four
+    families instead of only the batcher-backed ones.
+
+    The "batcher" slot of each :class:`Replica` holds the engine itself
+    (anything with ``.name``/``.load()``/``.close()``). ``build(rid)``
+    is the unpark hook rebuilding one engine on its original mesh slice;
+    a fleet without one (OCR's single direct dispatcher) can still hold
+    its chip claim in the ledger and report duty, but never grows.
+    Health surfaces (``replica_states_of``, ``lumen-replica-status``)
+    filter on :class:`ReplicaSet`, so an EngineFleet changes none of the
+    existing Health payloads."""
+
+    def __init__(
+        self,
+        name: str,
+        engines: list,
+        build: Callable[[int], Any] | None = None,
+        devices_per_replica: int = 1,
+    ):
+        if not engines:
+            raise ValueError("EngineFleet needs at least one engine")
+        self.name = name
+        self.build = build
+        self.devices_per_replica = max(1, devices_per_replica)
+        self._lock = threading.Lock()
+        self._closed = False
+        self.replicas = [Replica(i, None, eng) for i, eng in enumerate(engines)]
+        ref = weakref.ref(self)
+
+        def _gauges() -> dict:
+            s = ref()
+            if s is None:
+                return {}
+            with s._lock:
+                snap = list(s.replicas)
+                out: dict = {
+                    "replicas": len(snap),
+                    "parked": sum(1 for r in snap if r.state == PARKED),
+                }
+            for r in snap:
+                out[f"{r.tag}_state"] = _STATE_CODES[r.state]
+                load = r.load()
+                out[f"{r.tag}_load"] = -1 if load == float("inf") else int(load)
+            return out
+
+        self._gauge_fn = _gauges
+        metrics.register_gauges(f"replica:{name}", _gauges)
+        with _fleet_reg_lock:
+            _fleet_registry[name] = ref
+
+    def serving_engines(self) -> list:
+        """The engines dispatch may use right now (the manager's pick
+        loop consults this instead of its boot-time engine list, so a
+        parked engine stops receiving work the moment it parks)."""
+        with self._lock:
+            return [
+                r.batcher
+                for r in self.replicas
+                if r.state == SERVING and r.batcher is not None
+            ]
+
+    def active_count(self) -> int:
+        with self._lock:
+            return sum(1 for r in self.replicas if r.state == SERVING)
+
+    def parked_count(self) -> int:
+        with self._lock:
+            return sum(1 for r in self.replicas if r.state == PARKED)
+
+    def states(self) -> dict[str, str]:
+        with self._lock:
+            return {r.tag: r.state for r in self.replicas}
+
+    def park(self, rid: int | None = None) -> int | None:
+        """Close one SERVING engine and release its slice — the same
+        contract (and event/counter vocabulary) as
+        :meth:`ReplicaSet.park`, including the floor of 1: the last
+        serving engine is never parked, so a 1-unit family (OCR today)
+        holds its ledger claim but can never be scaled to zero."""
+        with self._lock:
+            if self._closed:
+                return None
+            serving = [r for r in self.replicas if r.state == SERVING]
+            if len(serving) <= 1:
+                return None
+            if rid is None:
+                r = serving[-1]
+            else:
+                r = self.replicas[rid]
+                if r.state != SERVING:
+                    return None
+            old, r.batcher = r.batcher, None
+            r.state = PARKED
+            r.error = None
+        metrics.count("replica_parked")
+        metrics.count(f"replica_parked:{self.name}")
+        telemetry.record_event(
+            "replica_park", f"{self.name}/{r.tag}",
+            f"engine parked: {self.devices_per_replica} chip slice(s) "
+            "released; sibling engines keep serving",
+        )
+        logger.info("%s: engine %s PARKED (scale-down)", self.name, r.tag)
+        if old is not None:
+            try:
+                old.close()
+            except Exception:  # noqa: BLE001 - best-effort teardown
+                logger.exception("%s: closing parked engine %s failed", self.name, r.tag)
+        return r.rid
+
+    def unpark(self, rid: int | None = None) -> int | None:
+        """Rebuild one PARKED engine through the build hook and return it
+        to dispatch. No hook = no growth (the fleet only ever shrinks to
+        its floor and back by operator restart)."""
+        if self.build is None:
+            return None
+        with self._lock:
+            if self._closed:
+                return None
+            parked = [r for r in self.replicas if r.state == PARKED]
+            if not parked:
+                return None
+            if rid is None:
+                r = parked[0]
+            else:
+                r = self.replicas[rid]
+                if r.state != PARKED:
+                    return None
+            r.state = REVIVING
+        try:
+            fresh = self.build(r.rid)
+        except Exception as e:  # noqa: BLE001 - rebuild failure keeps it parked
+            with self._lock:
+                r.state = PARKED
+                r.error = f"unpark failed: {type(e).__name__}: {e}"
+            metrics.count("replica_revive_failures")
+            metrics.count(f"replica_revive_failures:{self.name}")
+            logger.exception("%s: unpark of %s failed", self.name, r.tag)
+            return None
+        closed_late = False
+        with self._lock:
+            if self._closed:
+                closed_late = True
+            else:
+                r.batcher = fresh
+                r.state = SERVING
+                r.error = None
+        if closed_late:
+            try:
+                fresh.close()
+            except Exception:  # noqa: BLE001 - best-effort teardown
+                pass
+            return None
+        metrics.count("replica_unparked")
+        metrics.count(f"replica_unparked:{self.name}")
+        telemetry.record_event(
+            "replica_unpark", f"{self.name}/{r.tag}",
+            f"parked engine rebuilt: {self.devices_per_replica} chip "
+            "slice(s) claimed",
+        )
+        logger.info("%s: engine %s unparked (scale-up)", self.name, r.tag)
+        return r.rid
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            snap = list(self.replicas)
+        for r in snap:
+            if r.batcher is not None:
+                try:
+                    r.batcher.close()
+                except Exception:  # noqa: BLE001 - best-effort teardown
+                    logger.exception("%s: closing engine %s failed", self.name, r.tag)
+        metrics.unregister_gauges(f"replica:{self.name}", self._gauge_fn)
+        with _fleet_reg_lock:
+            ref = _fleet_registry.get(self.name)
+            if ref is not None and ref() is self:
+                del _fleet_registry[self.name]
 
 
 def replica_states_of(*dispatchers) -> dict:

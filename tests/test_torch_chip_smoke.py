@@ -9,8 +9,9 @@ production defaults, phase 6 serves the model directory and
 phase 7 drives the default serving path over gRPC: preemptions under the
 pinned pool that all spill and resume, greedy answers equal alone and to
 phase 6's, prefix hits with fewer chunks than cold, a result-cache
-answer, the sidecar's metrics and the spill round trip. Phases 8 and 9
-run the same way at tiny widths (CLIP, then face and graph CLIP).
+answer, the sidecar's metrics and the spill round trip. Phases 8, 9 and
+10 run the same way at tiny widths (CLIP, then face and graph CLIP, then
+OCR and the full tier).
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def clip_drive(tmp_path_factory):
     )
     clip_cfg = dataclasses.replace(CLIPConfig.tiny(), vocab_size=2048, eot_token_id=2047)
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("PHASE4_KERNELS", "PHASE6_INT8_KERNELS", "PHASE8_KERNELS", "PHASE9_KERNELS"):
+        for name in ("PHASE4_KERNELS", "PHASE6_INT8_KERNELS", "PHASE8_KERNELS", "PHASE9_KERNELS",
+                     "PHASE10_KERNELS", "PHASE10_HUB_KERNELS"):
             mp.setattr(chip_smoke, name, ())
         mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
         mp.setenv("LUMEN_BREAKER_FAILURES", "6")
@@ -83,32 +85,68 @@ def clip_drive(tmp_path_factory):
             phase6 = chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu", root=root)
             out = chip_smoke.drive_clip(0, "cpu", root, phase6, cfg=clip_cfg, device="cpu", n_photos=16,
                                         in_flight=8, batch_size=8, n_labels=100)
-            yield root, out
+            yield root, out, phase6
         finally:
             reset_result_cache()
 
 
+@pytest.fixture(scope="module")
+def face_drive(clip_drive):
+    """Phase 9 at small widths on the CPU, after phase 8 (what phase 10's
+    hub holds its faces to)."""
+    from lumen_tpu_torch.models.face import DetectorConfig, IResNetConfig
+
+    root, phase8, _ = clip_drive
+    return chip_smoke.drive_face(0, "cpu", root, phase8, device="cpu", n_photos=8, in_flight=8, batch_size=8,
+                                 det_width=8, rec_layers=(1, 1, 1, 1), rec_width=8,
+                                 native_det=DetectorConfig(width=8, fpn_width=8),
+                                 native_rec=IResNetConfig(layers=(1, 1, 1, 1), width=8))
+
+
 def test_chip_smoke_clip_drive_runs_on_cpu(clip_drive):
-    _, out = clip_drive
+    _, out, _ = clip_drive
     assert out["cos_min"] > 0.99999  # fp32 plain paths on both sides
     assert not any(out["launches"].values())  # plain paths on the CPU
     assert 0 < out["fill"] <= 1
 
 
-def test_chip_smoke_face_drive_runs_on_cpu(clip_drive):
+def test_chip_smoke_face_drive_runs_on_cpu(face_drive):
     """Phase 9 at small widths on the CPU, after phase 8: the stand-in
     pack (a 640x640 detector of width 8, an IResNet of one block a stage)
     held against the stand-ins run directly, native checkpoints against
     the port's own CPU run, phase 8's tiny CLIP exported and served from
     an export-only directory against phase 8's answers, and the hub."""
-    from lumen_tpu_torch.models.face import DetectorConfig, IResNetConfig
-
-    root, phase8 = clip_drive
-    out = chip_smoke.drive_face(0, "cpu", root, phase8, device="cpu", n_photos=8, in_flight=8, batch_size=8,
-                                det_width=8, rec_layers=(1, 1, 1, 1), rec_width=8,
-                                native_det=DetectorConfig(width=8, fpn_width=8),
-                                native_rec=IResNetConfig(layers=(1, 1, 1, 1), width=8))
+    out = face_drive
     assert out["faces"] > 0 and out["iou_min"] > 0.9999 and out["cos_min"] > 0.99999  # fp32 on both sides
     assert out["clip_cos"] > 0.999  # phase 8's bf16 towers vs the fp32 export
     assert out["hub_launches"] == 0  # plain paths on the CPU
     assert 0 < out["fill"] <= 1
+
+
+def test_chip_smoke_ocr_drive_runs_on_cpu(clip_drive, face_drive):
+    """Phase 10 at small widths on the CPU, after phases 6, 8 and 9: the
+    PP-OCR stand-in pack (narrow widths, a 100-line dictionary, 320x240
+    pages) held against ``OcrReference`` with TF32's gate and strictly,
+    with tensor/raw pages and the orientation classifier; tiny native
+    checkpoints on the plain path and against the port's CPU run; and the
+    full-tier hub (ocr, clip, face, vlm) from one YAML, none degraded."""
+    from lumen_tpu_torch.models.ocr import ClsConfig, DBNetConfig, SVTRConfig
+
+    root, phase8, phase6 = clip_drive
+    pack = dict(dict_size=100, det_channels=(8, 8, 16, 16, 32, 32), det_out=(8, 8, 8, 16), det_neck=16,
+                rec_channels=(8, 8, 16, 16, 32, 32), rec_dims=16, rec_depth=1, rec_heads=2, cls_channels=(8, 16))
+    native = (DBNetConfig(width=8, fpn_width=16, head_width=8), SVTRConfig(vocab_size=60, width=16, heads=2, layers=1),
+              ClsConfig(channels=(8, 16)))
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("PHASE10_KERNELS", "PHASE10_HUB_KERNELS"):
+            mp.setattr(chip_smoke, name, ())
+        mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+        try:
+            out = chip_smoke.drive_ocr(0, "cpu", root, phase6, phase8, face_drive, device="cpu", n_pages=6,
+                                       in_flight=4, page_hw=(240, 320), pack_kw=pack, native=native, n_native=3)
+        finally:
+            reset_result_cache()
+    assert out["items"] > 0 and out["iou_min"] >= chip_smoke.OCR_IOU
+    assert out["tf32"]["matched"] == out["tf32"]["ref"]  # no TF32 on the CPU: the same answers
+    assert out["native_items"] > 0 and out["native_chunks"] > 0
+    assert out["native_launches"] == 0 and not any(out["hub_launches"].values())  # plain paths on the CPU

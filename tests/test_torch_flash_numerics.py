@@ -15,8 +15,9 @@ fp32 on the same bf16 values, within ``chip_smoke.py``'s tolerance
 ``1e-2 + 1e-2 * |ref|`` -- at the serving path's shapes (the vision
 tower's [1,12,256,64]; a caption prompt's two chunks against the 832-slot
 scratch) and the edge cases of the 64-key tile that ``chip_smoke.py``
-checks on the card. This shows on the CPU that the design fits the
-tolerance before the card is asked.
+checks on the card, at head_dim 64 and at the OCR recognizer's 16. This
+shows on the CPU that the design fits the tolerance before the card is
+asked.
 """
 
 from __future__ import annotations
@@ -93,22 +94,28 @@ def _hold(got, want):
     assert worst <= 0, f"max |diff| {diff.max():.3e} is outside 1e-2 + 1e-2|ref| by {worst:.3e}"
 
 
-# flash_attention: (b, h, sq, sk, causal) -- the vision tower, a
+# flash_attention: (b, h, sq, sk, causal, head_dim) -- the vision tower, a
 # non-causal length off the 64-key tile, and the causal cases of
-# chip_smoke.py (square, and sk > sq with the sk - sq diagonal offset).
+# chip_smoke.py (square, and sk > sq with the sk - sq diagonal offset);
+# at head_dim 16 (one k16 step of Q K^T, two n8 output tiles) the native
+# OCR recognizer's 240-token bucket, a length off the tile, and a causal
+# case.
 FLASH_CASES = {
-    "vision [1,12,256,64]": (1, 12, 256, 256, False),
-    "non-causal sk=100": (1, 12, 100, 100, False),
-    "causal 77": (2, 14, 77, 77, True),
-    "causal 50 vs 130": (1, 14, 50, 130, True),
+    "vision [1,12,256,64]": (1, 12, 256, 256, False, 64),
+    "non-causal sk=100": (1, 12, 100, 100, False, 64),
+    "causal 77": (2, 14, 77, 77, True, 64),
+    "causal 50 vs 130": (1, 14, 50, 130, True, 64),
+    "svtr [2,4,240,16]": (2, 4, 240, 240, False, 16),
+    "d16 sk=100": (1, 4, 100, 100, False, 16),
+    "d16 causal 77": (1, 4, 77, 77, True, 16),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_tile_numerics(case):
-    b, h, sq, sk, causal = FLASH_CASES[case]
+    b, h, sq, sk, causal, d = FLASH_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    q, k, v = _bf16_values(rng, b, h, sq, 64), _bf16_values(rng, b, h, sk, 64), _bf16_values(rng, b, h, sk, 64)
+    q, k, v = _bf16_values(rng, b, h, sq, d), _bf16_values(rng, b, h, sk, d), _bf16_values(rng, b, h, sk, d)
     got = tile_emulation(q, k, v, [sk - sq] * b, [sk] * b, causal)
     want = jatt.attention_reference(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), causal=causal)
     _hold(got, want)

@@ -9,7 +9,10 @@
   ``ReplicaSet`` otherwise;
 - a replica wedged past its watchdog goes down, its siblings serve, and
   the background revive brings it back (both packages);
-- ``topology_extra`` has the JAX keys, with and without a fleet.
+- ``topology_extra`` has the JAX keys, with and without a fleet;
+- ``EngineFleet`` (the OCR family's one-unit fleet, and one with a build
+  hook): gauges, park to the floor of one, unpark and close (both
+  packages).
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ import lumen_tpu.runtime.batcher as jax_batcher
 import lumen_tpu.runtime.fleet as jax_fleet
 import lumen_tpu.testing as jax_testing
 import lumen_tpu.utils.deadline as jax_deadline
+import lumen_tpu.utils.metrics as jax_metrics
 import lumen_tpu_torch.runtime.batcher as port_batcher
 import lumen_tpu_torch.runtime.fleet as port_fleet
 import lumen_tpu_torch.testing as port_testing
 import lumen_tpu_torch.utils.deadline as port_deadline
+import lumen_tpu_torch.utils.metrics as port_metrics
 from lumen_tpu_torch.runtime.mesh import DeviceMesh, build_mesh
 
 CPU = torch.device("cpu")
@@ -162,3 +167,47 @@ def test_topology_extra_keys_match(monkeypatch):
     finally:
         for rs in sets:
             rs.close()
+
+
+class _Engine:
+    """A dispatch unit of an ``EngineFleet``: a name, a load, a close."""
+
+    def __init__(self, name: str, load: int = 0):
+        self.name, self._load, self.closed = name, load, False
+
+    def load(self) -> int:
+        return self._load
+
+    def close(self) -> None:
+        self.closed = True
+
+
+@pytest.mark.parametrize("grows", [False, True], ids=["one-unit", "rebuildable"])
+def test_engine_fleet_gauges_park_unpark_close(pkg, grows):
+    """The fleet the OCR family registers (one unit, no build hook: never
+    parked, never grown) and a rebuildable one: gauges, park to the floor
+    of one, unpark through the hook, close, as in the JAX package."""
+    metrics = (jax_metrics if pkg.fleet is jax_fleet else port_metrics).metrics
+    name = f"engines-{'grow' if grows else 'one'}"
+    units = [_Engine("e0", 3)] + ([_Engine("e1", 1)] if grows else [])
+    fleet = pkg.fleet.EngineFleet(name, units, build=(lambda rid: _Engine(f"e{rid}-new")) if grows else None)
+    try:
+        gauges = metrics.snapshot()["gauges"][f"replica:{name}"]
+        assert gauges["replicas"] == len(units) and gauges["parked"] == 0 and gauges["r0_load"] == 3
+        assert fleet in pkg.fleet.live_fleets()
+        if not grows:
+            assert fleet.park() is None and fleet.unpark() is None  # the floor of one; no hook
+            assert fleet.states() == {"r0": pkg.fleet.SERVING} and fleet.serving_engines() == units
+            return
+        assert fleet.park() == 1 and units[1].closed
+        assert fleet.park() is None  # the floor of one
+        assert fleet.states() == {"r0": pkg.fleet.SERVING, "r1": pkg.fleet.PARKED}
+        assert metrics.snapshot()["gauges"][f"replica:{name}"]["parked"] == 1
+        assert fleet.serving_engines() == [units[0]]
+        assert fleet.unpark() == 1 and fleet.serving_engines()[1].name == "e1-new"
+        assert fleet.active_count() == 2 and fleet.parked_count() == 0
+    finally:
+        fleet.close()
+    assert all(u.closed for u in units[:1])
+    assert f"replica:{name}" not in metrics.snapshot().get("gauges", {})
+    assert fleet.park() is None and fleet.unpark() is None  # closed

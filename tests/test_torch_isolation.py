@@ -249,3 +249,20 @@ def test_chip_smoke_grpc_drive_rehearses_on_cpu():
     )
     with pytest.raises(AssertionError, match="bf16 server never launched"):
         chip_smoke.drive_grpc(0, "cpu", cfg=cfg, device="cpu")
+
+
+def test_ocr_slice_modules_are_checked():
+    """The OCR slice's modules (the copied ``native/`` host library among
+    them) are among those the import check loads, and the port's native
+    library builds under ``build/lumen_tpu_torch/native``, never into the
+    JAX package's ``native/build``."""
+    mods = _port_modules()
+    for mod in ("lumen_tpu_torch.native", "lumen_tpu_torch.ops.ctc", "lumen_tpu_torch.models.ocr.manager",
+                "lumen_tpu_torch.models.ocr.graph", "lumen_tpu_torch.serving.services.ocr_service",
+                "lumen_tpu_torch.testing.ocr_standins"):
+        assert mod in mods
+    from lumen_tpu_torch import native
+
+    lib = Path(native._LIB_PATH)
+    assert lib.parent == ROOT / "build" / "lumen_tpu_torch" / "native"
+    assert (PORT / "native" / "_src" / "host_ops.cpp").read_bytes() != b""

@@ -194,29 +194,31 @@ def test_from_model_dir_serves_image_bytes_as_their_canvas(model_dir):
 def test_loader_maps_the_jax_service_class_onto_the_port():
     from lumen_tpu_torch.serving.services.clip_service import ClipService
     from lumen_tpu_torch.serving.services.face_service import FaceService
+    from lumen_tpu_torch.serving.services.ocr_service import OcrService
     from lumen_tpu_torch.serving.services.vlm_service import VlmService
 
     assert resolve("lumen_tpu.serving.services.vlm_service.VlmService") is VlmService
     assert resolve("lumen_tpu_torch.serving.services.vlm_service.VlmService") is VlmService
     assert resolve("lumen_tpu.serving.services.clip_service.ClipService") is ClipService
     assert resolve("lumen_tpu.serving.services.face_service.FaceService") is FaceService
+    assert resolve("lumen_tpu.serving.services.ocr_service.OcrService") is OcrService
     with pytest.raises(ServiceLoadError, match="not ported to lumen_tpu_torch yet"):
-        resolve("lumen_tpu.serving.services.ocr_service.OcrService")
+        resolve("lumen_tpu.serving.services.search_service.SearchService")
 
 
 def test_a_service_not_ported_boots_degraded(tmp_path):
     config = validate_config_dict({
         "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(tmp_path)},
-        "deployment": {"mode": "single", "service": "ocr"},
+        "deployment": {"mode": "single", "service": "search"},
         "server": {"port": 50998, "host": "127.0.0.1"},
-        "services": {"ocr": {
-            "enabled": True, "package": "lumen_tpu.models.ocr",
-            "import_info": {"registry_class": "lumen_tpu.serving.services.ocr_service.OcrService"},
-            "models": {"ocr": {"model": "PP-OCRv5", "runtime": "jax"}},
+        "services": {"search": {
+            "enabled": True, "package": "lumen_tpu.serving.services.search_service",
+            "import_info": {"registry_class": "lumen_tpu.serving.services.search_service.SearchService"},
+            "models": {"search": {"model": "TinyCLIP", "runtime": "jax"}},
         }},
     })
     services = build_services(config, torch.device("cpu"))
-    svc = services["ocr"]
+    svc = services["search"]
     assert isinstance(svc, DegradedService) and "not ported to lumen_tpu_torch yet" in svc.error
 
 
@@ -227,8 +229,9 @@ def test_loader_never_imports_the_jax_package():
         "resolve('lumen_tpu.serving.services.vlm_service.VlmService')\n"
         "resolve('lumen_tpu.serving.services.clip_service.ClipService')\n"
         "resolve('lumen_tpu.serving.services.face_service.FaceService')\n"
+        "resolve('lumen_tpu.serving.services.ocr_service.OcrService')\n"
         "try:\n"
-        "    resolve('lumen_tpu.serving.services.ocr_service.OcrService')\n"
+        "    resolve('lumen_tpu.serving.services.search_service.SearchService')\n"
         "except ServiceLoadError:\n"
         "    pass\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lumen_tpu'))))\n"
