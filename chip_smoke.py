@@ -127,7 +127,7 @@ Phases (any failure exits non-zero):
    rec and cls graphs at the published contracts, seeded, BN statistics
    fit to synthetic pages and heads calibrated) exported to ONNX on the
    CPU and served by ``serve()`` from the YAML block ``config_gen`` writes
-   for ``ocr`` (``batch_size: 8``, ``batch_buckets: [320, 640, 960]``): 64
+   for ``ocr`` (``batch_size: 8``, ``batch_buckets: [320, 640, 960]``): 32
    distinct 1280x960 JPEG pages of text lines at 8 in flight, 8 of them
    with ``use_angle_cls`` (a share of each page's lines turned 180
    degrees), timed with TF32 convolutions and held to ``OcrReference``
@@ -149,9 +149,35 @@ Phases (any failure exits non-zero):
    own phase, the three bf16 path kernels launched, the threads and
    decode workers gone after stop.
 
-Every run drives all ten phases. The kernel table's launch counts are
+11. bulk ingest and search as users reach them, on (c)'s tier plus
+   ``search`` from one YAML: (a) 128 distinct seeded 1600x1200 JPEGs
+   (text pages, photos with bright discs, plain photos) through ``python
+   -m lumen_tpu_torch.pipeline.cli`` (called in process) with
+   ``--families clip,face,ocr`` at ``--batch-size 64``, then 16 of them
+   again with ``vlm`` at ``--caption-max-tokens 32``, both with IEEE float32
+   convolutions: every row's CLIP embedding within ``INGEST_COSINE`` of
+   the served ``clip_image_embed`` of the same pixels, faces and OCR items
+   matched to the served answers of the same pixels (phase 9's
+   ``FACE_IOU``/``FACE_COSINE`` and score tolerance, phase 10's
+   ``OCR_TF32_IOU`` with equal texts), every caption equal to the served
+   ``vlm_generate``'s, the caption images decoded by the decode pool's
+   ``vlm_canvas`` spec, the three bf16 path kernels launched; a warm
+   re-run on the server's managers answers every photo from the result
+   cache with no launch while ``index=`` upserts each embedding into the
+   search service over gRPC; images/s, the stage stats, device ms of each
+   stage on one 64-image batch (CUDA events), syncs, peak memory. (b)
+   200,000 seeded unit vectors at dim 512 upserted through
+   ``search_upsert`` in 1,024-row chunks over the default 3 shards, then
+   512 ``search_query`` at k = 10 with 16 in flight held to the numpy
+   oracle (recall@10 = 1.0 but for counted near-ties, scores within
+   ``SEARCH_SCORE_TOL``, each photo at rank 1 of its own embedding), and
+   queries during a flood of bulk upserts into one shard (appends and
+   in-place updates) that see only committed states; upserted rows/s,
+   query p50/p95, one scoring pass over a full shard (CUDA events).
+
+Every run drives all eleven phases. The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
-for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-10
+for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
 phase 10 beside its two OCR rows (timed in phase 2). The last two lines are the
 kernel table (JSON) and the device line the harness reads; the card's
@@ -3330,7 +3356,8 @@ def ocr_yaml(path: Path, cache_dir: Path, services: dict) -> Path:
     maps a family to (model, settings)."""
     import yaml
 
-    classes = {"ocr": "OcrService", "clip": "ClipService", "face": "FaceService", "vlm": "VlmService"}
+    classes = {"ocr": "OcrService", "clip": "ClipService", "face": "FaceService", "vlm": "VlmService",
+               "search": "SearchService"}
     spec = {}
     for family, (model, settings) in services.items():
         models = {family: {"model": model, "runtime": "jax"}}
@@ -3352,7 +3379,7 @@ def ocr_yaml(path: Path, cache_dir: Path, services: dict) -> Path:
 
 
 def drive_ocr(seed: int, card: str, root: Path, phase6: dict, phase8: dict, phase9: dict, device: str = "cuda:0",
-              n_pages: int = 64, in_flight: int = 8, page_hw=(960, 1280), pack_kw: dict | None = None,
+              n_pages: int = 32, in_flight: int = 8, page_hw=(960, 1280), pack_kw: dict | None = None,
               native=None, n_native: int = 3) -> dict:
     """Phase 10: OCR as users reach it, and the full tier. (a) the
     ``PP-OCRv5_mobile`` stand-in pack served from the YAML block
@@ -3750,7 +3777,623 @@ def drive_ocr(seed: int, card: str, root: Path, phase6: dict, phase8: dict, phas
         f"phase 8's, faces as phase 9's, OCR items as (a)'s; launches {json.dumps(hub_launches)}; stop retired "
         f"{len([t for t in threads if t.startswith(prefixes)])} batcher/engine threads and the decode pool's "
         f"{len(procs)} worker processes [{card}]")
-    out.update(hub_s=hub_s, hub_launches=hub_launches, phase_s=time.perf_counter() - t_phase)
+    out.update(hub_s=hub_s, hub_launches=hub_launches, tier=tier, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+# -- phase 11: bulk ingest through the CLI, and search over gRPC ------------------
+
+#: the kernels phase 11 (a)'s ingest must launch: the CLIP vision tower in
+#: the dense sweep, the VLM's prefill and decode in the captions
+PHASE11_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention")
+#: (a): an ingested CLIP embedding against the served one of the same
+#: pixels (both IEEE float32 convolutions; bf16 towers batched differently)
+INGEST_COSINE = 0.9999
+#: (b): served scores against the numpy oracle's (float32 products summed
+#: in other orders), and the gap between the oracle's 10th and 11th
+#: scores below which a query counts as a near-tie
+SEARCH_SCORE_TOL = 1e-5
+#: the H100 SXM's float32 rate outside the tensor cores (the ANN products
+#: run IEEE float32; NVIDIA data sheet, dense)
+FP32_FLOPS = 67e12
+#: the CLI's default caption prompt
+CAPTION_PROMPT = "Describe this photo in one sentence."
+
+
+def ingest_photos(seed: int, n: int, width: int = 1600, height: int = 1200) -> list[bytes]:
+    """``n`` distinct seeded photo-sized JPEGs: every fourth a page of dark
+    text lines on a light ground (the OCR stand-ins' input), the rest
+    tinted gradients with a little noise and three to five discs, bright
+    ones on every fourth (offset 1: the face stand-ins' input). (Noise of
+    std 10 makes the OCR stand-in read about a hundred boxes of noise a
+    photo; at std 4 it reads two or three.)"""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    from lumen_tpu_torch.testing.ocr_standins import synthetic_page
+
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    base = np.stack([x / width, y / height, (x + y) / (width + height)], -1)
+
+    def one(i: int) -> bytes:
+        rng = np.random.default_rng(seed * 1000 + i)
+        if i % 4 == 0:
+            img = synthetic_page(seed * 1000 + i, width, height, lines=12)[0][:, :, ::-1]
+        else:
+            img = base * rng.uniform(40, 200, 3) + rng.normal(0, 4, (height, width, 3))
+            lo = 200 if i % 4 == 1 else 0
+            for _ in range(int(rng.integers(3, 6))):
+                cx, cy, r = int(rng.integers(0, width)), int(rng.integers(0, height)), int(rng.integers(40, 150))
+                cv2.circle(img, (cx, cy), r, tuple(float(v) for v in rng.uniform(lo, 255, 3)), -1)
+        ok, buf = cv2.imencode(".jpg", np.clip(img, 0, 255).astype(np.uint8), [cv2.IMWRITE_JPEG_QUALITY, 90])
+        if not ok:
+            raise AssertionError("JPEG encode failed")
+        return buf.tobytes()
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def oracle_topk(scores, ids: list, k: int) -> tuple[list, list, float]:
+    """``exact_oracle``'s answer from one column of precomputed scores
+    (every row scoring at least the k-th score, ordered by score
+    descending, then id ascending), and the gap between the k-th and the
+    (k+1)-th scores."""
+    import numpy as np
+
+    top = np.sort(np.partition(scores, -(k + 1))[-(k + 1):])[::-1]
+    cand = np.nonzero(scores >= top[k - 1])[0]
+    order = sorted(cand, key=lambda i: (-float(scores[i]), ids[i]))[:k]
+    return [ids[i] for i in order], [float(scores[i]) for i in order], float(top[k - 1] - top[k])
+
+
+def match_near(got: list, want: list, thr: float, tol: float, what: str, iou_min: float, iou, same) -> dict:
+    """One-to-one match of two answers computed from the same pixels in
+    different batches: every item of either side scoring at least ``thr +
+    tol`` matches an item of the other at ``iou >= iou_min`` with its
+    confidence within ``tol`` and ``same(got, want)``; items within ``tol``
+    above the threshold may be missing from the other side (counted as
+    ``near``). Returns the min IoU, the matched and near counts."""
+    left, out = list(range(len(want))), {"iou_min": 1.0, "matched": 0, "near": 0}
+    for g in got:
+        ious = [iou(g, want[j]) for j in left]
+        j = left[max(range(len(ious)), key=ious.__getitem__)] if ious else None
+        if j is not None and max(ious) >= iou_min and abs(g["confidence"] - want[j]["confidence"]) <= tol:
+            if not same(g, want[j]):
+                raise AssertionError(f"{what}: a matched item differs: {g} vs {want[j]}")
+            left.remove(j)
+            out["matched"] += 1
+            out["iou_min"] = min(out["iou_min"], float(max(ious)))
+        elif g["confidence"] < thr + tol:
+            out["near"] += 1
+        else:
+            raise AssertionError(f"{what}: an ingested item (confidence {g['confidence']:.5f}, threshold {thr}) "
+                                 f"matches no served item (best IoU {max(ious, default=0.0):.4f})")
+    for j in left:
+        if want[j]["confidence"] >= thr + tol:
+            raise AssertionError(f"{what}: a served item (confidence {want[j]['confidence']:.5f}) was not ingested")
+        out["near"] += 1
+    return out
+
+
+class ServerProcess:
+    """``python -m lumen_tpu_torch.serving.server`` in a process of its own
+    on a free loopback port, started at construction; :meth:`wait` gives a
+    stub once its ``Health`` answers, :meth:`stop` ends it (and kills it if
+    it does not end)."""
+
+    def __init__(self, yaml_path: Path, device: str, log_path: Path, extra_env: dict):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.log = open(log_path, "w")
+        cmd = [sys.executable, "-m", "lumen_tpu_torch.serving.server", "--config", str(yaml_path),
+               "--skip-download", "--port", str(self.port), "--device", device]
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
+                                     env={**os.environ, "PYTHONPATH": str(ROOT), "LUMEN_DRAIN_S": "0", **extra_env})
+        self.channel = None
+
+    def wait(self, timeout: float = 300.0):
+        import grpc
+        from google.protobuf import empty_pb2
+
+        from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{self.port}")
+        stub = InferenceStub(self.channel)
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the server process exited with {self.proc.returncode}: {self.log.name}")
+            try:
+                stub.Health(empty_pb2.Empty(), timeout=10)
+                return stub
+            except grpc.RpcError:
+                if time.perf_counter() - t0 > timeout:
+                    raise
+                time.sleep(0.2)
+
+    def stop(self) -> None:
+        if self.channel is not None:
+            self.channel.close()
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def drive_ingest(seed: int, card: str, root: Path, phase8: dict, phase9: dict, phase10: dict, device: str = "cuda:0",
+                 n_photos: int = 128, n_captions: int = 16, n_square: int = 32, batch_size: int = 64,
+                 photo_hw=(1200, 1600),
+                 caption_tokens: int = 32, n_vectors: int = 200_000, chunk: int = 1024, n_queries: int = 512,
+                 in_flight: int = 16) -> dict:
+    """Phase 11: bulk ingest and search as users reach them, on phase 10
+    (c)'s full tier plus ``search`` from one YAML. (a) ``n_photos`` distinct
+    seeded JPEGs through ``python -m lumen_tpu_torch.pipeline.cli`` (called
+    in process) with ``--families clip,face,ocr``, then ``n_captions`` of
+    them again with ``vlm``; every row held to the served per-request
+    answers of the same pixels, IEEE float32 convolutions on both sides;
+    then a warm re-run on the server's managers: all cache hits, no kernel
+    launch, ``index=`` fired on every hit into the search service. (b)
+    ``n_vectors`` seeded unit vectors upserted over gRPC, ``n_queries``
+    ``search_query`` calls held to the numpy oracle, and queries during an
+    upsert flood. The sizes let the CPU tests rehearse it small."""
+    import base64
+    import warnings
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+    import torch
+
+    import lumen_tpu_torch.pipeline.photo as photo_mod
+    from lumen_tpu_torch.pipeline import cli
+    from lumen_tpu_torch.runtime.ann import _score_topk, ann_tile, exact_oracle, normalize
+    from lumen_tpu_torch.runtime.decode_pool import get_decode_pool, shutdown_decode_pool
+    from lumen_tpu_torch.runtime.fleet import fleet_devices
+    from lumen_tpu_torch.runtime.mesh import build_mesh
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.utils.host_decode import decode_image_bytes_scaled
+    from lumen_tpu_torch.utils.tensorwire import BUNDLE_MIME, TENSOR_MIME, pack_bundle, tensor_payload
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    kernels = {k.name: k for k in all_kernels()}
+    dim = len(phase8["vecs"][0])
+    out: dict = {}
+    work = root / "ingest"
+    photos_dir, caps_dir = work / "photos", work / "captions"
+    photos_dir.mkdir(parents=True)
+    caps_dir.mkdir()
+    photos = ingest_photos(seed * 100 + 11, n_photos, width=photo_hw[1], height=photo_hw[0])
+    for i, jpeg in enumerate(photos):
+        (photos_dir / f"p{i:03d}.jpg").write_bytes(jpeg)
+        if i < n_captions:
+            (caps_dir / f"p{i:03d}.jpg").write_bytes(jpeg)
+    tier = {**phase10["tier"], "search": ("ann-exact", {"batch_size": in_flight, "max_batch_latency_ms": 2.0})}
+    yaml_path = ocr_yaml(work / "tier.yaml", root / "cache", tier)
+    platform = [] if on_card else ["--platform", "cpu"]
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def ask(job) -> dict:
+        r = grpc_call(stub, job[0], job[1], job[2], mime=job[3])
+        if r["code"]:
+            raise AssertionError(f"phase 11: {job[0]} answered code {r['code']}")
+        return r
+
+    def raw(arr) -> tuple[bytes, dict]:
+        payload, meta = tensor_payload(np.ascontiguousarray(arr))
+        return bytes(payload), meta
+
+    # (a run on the CPU keeps the second server to one intra-op thread)
+    vlm_server = ServerProcess(ocr_yaml(work / "vlm.yaml", root / "cache", {"vlm": tier["vlm"]}), device,
+                               work / "vlm_server.log", {"LUMEN_VLM_SPEC_K": "0", "LUMEN_GRPC_WORKERS": str(in_flight + 8),
+                                                         **({} if on_card else {"OMP_NUM_THREADS": "1"})})
+    with env(LUMEN_VLM_SPEC_K="0", LUMEN_ANN_DIM=str(dim), LUMEN_GRPC_WORKERS=str(4 * in_flight + 8)):
+        try:
+            handle, channel, stub, boot_s = boot_server(yaml_path, device)
+        except BaseException:
+            vlm_server.stop()
+            raise
+        try:
+            from google.protobuf import empty_pb2
+
+            _, call_ = stub.Health.with_call(empty_pb2.Empty(), timeout=30)
+            status = json.loads(dict(call_.trailing_metadata())["lumen-service-status"])
+            if status != {name: "healthy" for name in tier}:
+                raise AssertionError(f"phase 11: service status {status}")
+            clip_mgr = handle.services["clip"].managers["clip"]
+            face_mgr, ocr_mgr = handle.services["face"].manager, handle.services["ocr"].manager
+            size = clip_mgr.cfg.image_size
+            max_edge = max(size, face_mgr.det_cfg.input_size, max(ocr_mgr.spec.det_buckets))
+
+            # -- (a) served answers (tenant "served": their cache entries never
+            # answer the ingest's default-tenant lookups, nor the reverse) ------
+            with ThreadPoolExecutor(8) as ex:
+                decoded = list(ex.map(lambda j: decode_image_bytes_scaled(j, color="rgb", max_edge=max_edge), photos))
+            served_meta = {"tenant": "served"}
+            jobs = [("clip_image_embed", *raw(cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)),
+                     TENSOR_MIME) for img, _, _ in decoded]
+            disc_idx = [i for i in range(n_photos) if i % 4 == 1]
+            page_idx = [i for i in range(n_photos) if i % 4 == 0]
+            jobs += [("face_detect_and_embed", *raw(decoded[i][0]), TENSOR_MIME) for i in disc_idx]
+            jobs += [("ocr", *raw(decoded[i][0]), TENSOR_MIME) for i in page_idx]
+            square = phase9["face_photos"][:n_square]
+            jobs += [("face_detect_and_embed", jpeg, {}, "image/jpeg") for jpeg in square]
+            for job in jobs:
+                job[2].update(served_meta)
+            t0 = time.perf_counter()
+            with convolutions_tf32(False), ThreadPoolExecutor(in_flight) as ex:
+                served = list(ex.map(ask, jobs))
+            served_s = time.perf_counter() - t0
+            clip_raw = np.stack([r["body"]["vector"] for r in served[:n_photos]])
+            faces_served = dict(zip(disc_idx, (r["body"]["faces"] for r in served[n_photos:])))
+            ocr_served = dict(zip(page_idx, (r["body"]["items"] for r in served[n_photos + len(disc_idx):])))
+            square_served = [r["body"]["faces"] for r in served[n_photos + len(disc_idx) + len(page_idx):]]
+            log(f"phase 11 (a): tier + search up in {boot_s:.2f} s, every service healthy; served answers (tenant "
+                f"'served') of the ingest's own pixels as tensor/raw ({n_photos} clip_image_embed, "
+                f"{len(disc_idx)} face_detect_and_embed of the disc photos, {len(page_idx)} ocr of the text pages) "
+                f"and {len(square)} face_detect_and_embed of phase 9's square photos in {served_s:.2f} s [{card}]")
+
+            # -- (a) the CLI: a cold dense sweep, then captions ---------------------------
+            pipes: list = []
+            caught: list = []
+
+            class Counted(photo_mod.PhotoIngestPipeline):
+                """The CLI's pipeline, zeroing the launch counts once the
+                services are built (so the counts are the ingest's own)."""
+
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    for k in kernels.values():
+                        k.launches = 0
+                    pipes.append(self)
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode("warn")
+
+            real = photo_mod.PhotoIngestPipeline
+            photo_mod.PhotoIngestPipeline = Counted
+            launches = {}
+            pool_before = get_decode_pool().gauges().get("decodes_vlm_canvas", 0)
+            try:
+                with convolutions_tf32(False), warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    rows_path = work / "index.jsonl"
+                    t0 = time.perf_counter()
+                    if cli.main(["--config", str(yaml_path), "--input", str(photos_dir), "--output", str(rows_path),
+                                 "--families", "clip,face,ocr", "--batch-size", str(batch_size), *platform]):
+                        raise AssertionError("phase 11 (a): the CLI's dense sweep exited non-zero")
+                    cli_s = time.perf_counter() - t0
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode("default")
+                    syncs_flagged = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+                    launches["sweep"] = {name: kernels[name].launches for name in PHASE11_KERNELS}
+                    # The served captions come from a second server process
+                    # (VLM only, booted at the start of the phase), beside the
+                    # caption run: its launches are not this process's counts.
+                    caps_path = work / "captions.jsonl"
+                    vlm_stub = vlm_server.wait()
+                    msgs = json.dumps([{"role": "user", "content": CAPTION_PROMPT}])
+                    t0 = time.perf_counter()
+                    with ThreadPoolExecutor(in_flight) as vex:
+                        vlm_futs = [vex.submit(grpc_call, vlm_stub, "vlm_generate", photos[i],
+                                               {"messages": msgs, "max_new_tokens": caption_tokens})
+                                    for i in range(n_captions)]
+                        if cli.main(["--config", str(yaml_path), "--input", str(caps_dir), "--output", str(caps_path),
+                                     "--families", "clip,face,ocr,vlm", "--batch-size", str(batch_size),
+                                     "--caption-max-tokens", str(caption_tokens), *platform]):
+                            raise AssertionError("phase 11 (a): the CLI's caption run exited non-zero")
+                        caption_s = time.perf_counter() - t0
+                        answers = [f.result() for f in vlm_futs]
+                    served_caption_s = time.perf_counter() - t0
+                    if any(a["code"] for a in answers):
+                        raise AssertionError(f"phase 11 (a): vlm_generate codes {[a['code'] for a in answers]}")
+                    captions_served = [a["body"]["text"] for a in answers]
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode("default")
+                    launches["captions"] = {name: kernels[name].launches for name in PHASE11_KERNELS}
+            finally:
+                photo_mod.PhotoIngestPipeline = real
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+            vlm_canvas = get_decode_pool().gauges().get("decodes_vlm_canvas", 0) - pool_before
+            sweep = pipes[0]
+            stats = sweep.stats.as_dict()
+            if sweep.decode_max_edge != max_edge:
+                raise AssertionError(f"phase 11 (a): the ingest decoded at {sweep.decode_max_edge}, not {max_edge}")
+            rows = [json.loads(line) for line in open(rows_path)]
+            caps = [json.loads(line) for line in open(caps_path)]
+            if len(rows) != n_photos or len(caps) != n_captions or any("error" in r for r in rows + caps):
+                raise AssertionError(f"phase 11 (a): {len(rows)} rows, {len(caps)} caption rows, errors "
+                                     f"{[r['error'] for r in rows + caps if 'error' in r]}")
+            emb = np.stack([np.frombuffer(base64.b64decode(r["clip_embedding"]), "<f4") for r in rows])
+            cos_raw = cosines(emb, clip_raw)
+            if cos_raw.min() < INGEST_COSINE:
+                raise AssertionError(f"phase 11 (a): ingested embeddings vs served, cosine {cos_raw.min():.6f}")
+            face_thr = face_mgr.spec.score_threshold
+            face_tally = {"matched": 0, "near": 0, "iou_min": 1.0}
+
+            def hold_faces(got: list, want: list, what: str) -> None:
+                t = match_near(got, want, face_thr, TF32_SCORE_TOL, what, FACE_IOU,
+                               lambda g, w: box_iou(g["bbox"], w["bbox"]),
+                               lambda g, w: float(np.dot(g["embedding"], w["embedding"])) >= FACE_COSINE)
+                face_tally["matched"] += t["matched"]
+                face_tally["near"] += t["near"]
+                face_tally["iou_min"] = min(face_tally["iou_min"], t["iou_min"])
+
+            ocr_tally = {"served": 0, "ingested": 0, "matched": 0, "texts_equal": 0}
+            counted = {"faces": 0, "ocr_items": 0}  # off the disc photos and the text pages: not held
+            for i, (row, (_, dscale, _)) in enumerate(zip(rows, decoded)):
+                if i in faces_served:
+                    hold_faces([dict(f, bbox=[v * dscale for v in f["bbox"]],
+                                     embedding=np.frombuffer(base64.b64decode(f["embedding"]), "<f4"))
+                                for f in row.get("faces", [])], faces_served[i], f"phase 11 (a) photo {i} faces")
+                else:
+                    counted["faces"] += len(row.get("faces", []))
+                if i not in ocr_served:
+                    counted["ocr_items"] += len(row.get("ocr", []))
+                    continue
+                # OCR as phase 10 holds its TF32 pass (a contour moves where a
+                # pixel near the threshold rounds the other way): one to one at
+                # IoU >= OCR_TF32_IOU, counted over the text pages.
+                left = list(range(len(ocr_served[i])))
+                ocr_tally["served"] += len(left)
+                for it in row.get("ocr", []):
+                    box = [[x * dscale, y * dscale] for x, y in it["box"]]
+                    ious = [ref_quad_iou(box, ocr_served[i][j]["box"]) for j in left]
+                    ocr_tally["ingested"] += 1
+                    if ious and max(ious) >= OCR_TF32_IOU:
+                        j = left.pop(int(np.argmax(ious)))
+                        ocr_tally["matched"] += 1
+                        ocr_tally["texts_equal"] += int(it["text"] == ocr_served[i][j]["text"])
+            sweep_faces = face_tally["matched"]
+            # Faces through the pipeline on the server's face manager, on
+            # phase 9's square photos (the stand-in's calibration is square:
+            # on a 4:3 photo its anchors in the letterbox's flat fill outscore
+            # the photo's, and those boxes fall outside the image): the same
+            # JPEG bytes the served answers decoded, at the same decode scale.
+            t0 = time.perf_counter()
+            with convolutions_tf32(False):
+                face_pipe = photo_mod.PhotoIngestPipeline(build_mesh(devices=fleet_devices(dev)), face=face_mgr,
+                                                          batch_size=min(batch_size, 32))
+                for i, rec in enumerate(face_pipe.run(square)):
+                    hold_faces([{"bbox": list(f.bbox), "confidence": f.confidence, "embedding": f.embedding}
+                                for f in rec.faces], square_served[i], f"phase 11 (a) square photo {i} faces")
+            square_s = time.perf_counter() - t0
+            share = OCR_TF32_SHARE * ocr_tally["served"]
+            if (not face_tally["matched"] or not ocr_tally["served"] or ocr_tally["matched"] < share
+                    or ocr_tally["ingested"] - ocr_tally["matched"] > ocr_tally["served"] - share):
+                raise AssertionError(f"phase 11 (a): faces {face_tally}, OCR items of the text pages {ocr_tally} "
+                                     f"(tol {OCR_TF32_SHARE} of the served items at IoU >= {OCR_TF32_IOU})")
+            for i, (row, cap) in enumerate(zip(rows, caps)):
+                if cap["caption"] != captions_served[i]:
+                    raise AssertionError(f"phase 11 (a): caption {i} {cap['caption']!r} != served "
+                                         f"{captions_served[i]!r}")
+                if {k: v for k, v in cap.items() if k not in ("caption", "path")} != {
+                        k: v for k, v in row.items() if k != "path"}:
+                    raise AssertionError(f"phase 11 (a): caption row {i}'s dense part differs from the sweep's")
+            if vlm_canvas < n_captions:
+                raise AssertionError(f"phase 11 (a): the decode pool counted {vlm_canvas} vlm_canvas decodes")
+            missing = [k for k in PHASE11_KERNELS
+                       if launches["sweep"][k] + launches["captions"][k] == 0]
+            if missing:
+                raise AssertionError(f"phase 11 (a): the ingest never launched {missing} ({launches})")
+            log(f"phase 11 (a): CLI sweep of {n_photos} {photo_hw[1]}x{photo_hw[0]} JPEGs (clip, face, ocr; "
+                f"batch {batch_size}; IEEE convolutions) {stats['items_per_sec']:.2f} images/s ({cli_s:.2f} s with "
+                f"the CLI's own boot); stage stats {json.dumps(stats)}; embeddings cosine >= {cos_raw.min():.6f} to "
+                f"the served ones; OCR items of the {len(page_idx)} text pages {json.dumps(ocr_tally)} held to the "
+                f"served answers; faces: {sweep_faces} matched on the {len(disc_idx)} disc photos, "
+                f"{face_tally['matched'] - sweep_faces} on {len(square)} square photos through the pipeline on the "
+                f"server's face manager ({square_s:.2f} s), {json.dumps(face_tally)}; counted, not held (the other "
+                f"photos): {json.dumps(counted)}; caption run {caption_s:.2f} s (beside {n_captions} vlm_generate of "
+                f"a VLM server process, all answered in {served_caption_s:.2f} s): captions equal to the served ones, "
+                f"{vlm_canvas} vlm_canvas decodes in the pool; launches {json.dumps(launches)}; syncs "
+                f"flagged by the sync debug mode during the sweep {syncs_flagged} "
+                f"({syncs_flagged / max(stats['batches'], 1):.1f} a batch), the pipeline's own fetches "
+                f"{stats['syncs']} ({stats['syncs'] / max(stats['batches'], 1):.1f} a batch) [{card}]")
+
+            # -- (b) 200k vectors upserted over gRPC ------------------------------------
+            rng = np.random.default_rng(seed * 100 + 12)
+            vecs = np.empty((n_vectors, dim), np.float32)
+            for lo in range(0, n_vectors, chunk):
+                vecs[lo:lo + chunk] = normalize(rng.standard_normal((min(chunk, n_vectors - lo), dim), dtype=np.float32))
+            ids = [f"vec{i:06d}" for i in range(n_vectors)]
+            bundles = [pack_bundle([vecs[lo:lo + chunk], np.frombuffer(json.dumps(ids[lo:lo + chunk]).encode(), np.uint8)])
+                       for lo in range(0, n_vectors, chunk)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as ex:
+                ups = list(ex.map(ask, [("search_upsert", b, {"priority": "bulk"}, BUNDLE_MIME) for b in bundles]))
+            upsert_s = time.perf_counter() - t0
+            if sum(r["body"]["added"] for r in ups) != n_vectors:
+                raise AssertionError(f"phase 11 (b): {sum(r['body']['added'] for r in ups)} rows added")
+            svc = handle.services["search"]
+            shards = svc.index.shards_for("default")
+
+            # -- (a) warm re-run on the server's managers, index= into search ------------
+            indexed: list = []
+
+            def to_index(sha: str, clip_out: dict) -> str:
+                vec = np.asarray(clip_out["embedding"], np.float32)
+                ask(("search_upsert", pack_bundle([vec[None], np.frombuffer(json.dumps([sha]).encode(), np.uint8)]),
+                     {"priority": "bulk"}, BUNDLE_MIME))
+                indexed.append((sha, vec))
+                return "indexed"
+
+            warm = photo_mod.PhotoIngestPipeline(
+                build_mesh(devices=fleet_devices(dev)), clip=clip_mgr, face=face_mgr, ocr=ocr_mgr,
+                batch_size=batch_size, on_decode_error="record", index=to_index)
+            for k in kernels.values():
+                k.launches = 0
+            warm_records = list(warm.run(photos))
+            warm_launches = {name: k.launches for name, k in kernels.items()}
+            if warm.stats.cache_hit_rate != 1.0 or any(warm_launches.values()) or len(indexed) != n_photos:
+                raise AssertionError(f"phase 11 (a): warm re-run hit rate {warm.stats.cache_hit_rate}, launches "
+                                     f"{warm_launches}, {len(indexed)} indexed")
+            if any(not np.array_equal(r.clip_embedding, e) for r, e in zip(warm_records, emb)):
+                raise AssertionError("phase 11 (a): a warm record's embedding differs from the cold row's")
+            # Device time of each stage on one full batch (CUDA events), the
+            # batch the sweep ran first.
+            stage_ms = {}
+            if on_card:
+                from lumen_tpu_torch.runtime.batcher import stack_and_pad, tree_map
+
+                items = [warm._decode(p) for p in photos[:batch_size]]
+                with convolutions_tf32(False):
+                    for stage in warm.engine._device_stages:
+                        staged = stack_and_pad([stage.preprocess(d) for d in items], batch_size)
+                        batch = tree_map(lambda a: torch.from_numpy(a).to(dev), staged)
+                        stage_ms[stage.name] = cuda_ms(lambda s=stage, b=batch: s.device_fn(b), iters=5, warmup=2)
+            log(f"phase 11 (a): warm re-run on the server's managers: {warm.stats.as_dict()['items']} items, hit rate "
+                f"{warm.stats.cache_hit_rate:.4f}, launches {json.dumps(warm_launches)}, index= fired {len(indexed)} "
+                f"times (search_upsert over gRPC); device ms a {batch_size}-image batch "
+                f"{json.dumps({k: round(v, 3) for k, v in stage_ms.items()})} [{card}]")
+
+            # -- (b) 512 queries against the numpy oracle ---------------------------------
+            photo_ids = [sha for sha, _ in indexed]
+            photo_vecs = normalize(np.stack([v for _, v in indexed]))
+            corpus = np.concatenate([vecs, photo_vecs])
+            corpus_ids = ids + photo_ids
+            queries = np.concatenate([
+                normalize(rng.standard_normal((n_queries - n_photos, dim), dtype=np.float32)),
+                np.stack([v for _, v in indexed]),
+            ])
+            t0 = time.perf_counter()
+            scores = normalize(queries) @ corpus.T  # a row a query
+            for j in range(2):  # the column oracle is exact_oracle's answer
+                sub = slice(0, min(20_000, len(corpus)))
+                want = exact_oracle(corpus_ids[sub], corpus[sub], queries[j], 10)
+                got = oracle_topk(corpus[sub] @ normalize(queries[j])[0], corpus_ids[sub], 10)
+                if got[0] != want[0]:
+                    raise AssertionError("phase 11 (b): the column oracle differs from exact_oracle")
+            oracle_s = time.perf_counter() - t0
+            qjobs = [("search_query", *raw(q), TENSOR_MIME) for q in queries]
+            for job in qjobs:
+                job[2]["k"] = "10"
+            before = {key: dict(b.stats) for key, b in svc._batchers.items()}
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(in_flight) as ex:
+                answers = list(ex.map(ask, qjobs))
+            query_s = time.perf_counter() - t0
+            passes = {stat: sum(b.stats[stat] - before.get(key, {}).get(stat, 0) for key, b in svc._batchers.items())
+                      for stat in ("items", "batches")}
+            solo = np.sort([ask(job)["s"] * 1e3 for job in qjobs[:32]])  # one in flight
+            near, worst = 0, 0.0
+            for j, r in enumerate(answers):
+                want_ids, want_scores, gap = oracle_topk(scores[j], corpus_ids, 10)
+                got_ids, got_scores = r["body"]["ids"], r["body"]["scores"]
+                worst = max(worst, float(np.abs(np.asarray(got_scores) - want_scores).max()))
+                if gap < SEARCH_SCORE_TOL:
+                    near += 1
+                elif set(got_ids) != set(want_ids):
+                    raise AssertionError(f"phase 11 (b): query {j} recall@10 {len(set(got_ids) & set(want_ids)) / 10}")
+                if worst > SEARCH_SCORE_TOL:
+                    raise AssertionError(f"phase 11 (b): query {j}'s scores differ from the oracle's by {worst:.2e}")
+            self_rank1 = [answers[n_queries - n_photos + i]["body"]["ids"][0] == photo_ids[i] for i in range(n_photos)]
+            if not all(self_rank1):
+                raise AssertionError(f"phase 11 (b): {self_rank1.count(False)} ingested photos not at rank 1 of their "
+                                     "own embedding")
+            margin = min(answers[n_queries - n_photos + i]["body"]["scores"][0]
+                         - answers[n_queries - n_photos + i]["body"]["scores"][1] for i in range(n_photos))
+            lat = np.sort([r["s"] * 1e3 for r in answers])
+            pct = lambda p: float(lat[min(len(lat) - 1, int(p * len(lat)))])  # noqa: E731
+
+            # -- (b) queries during a bulk-upsert flood (one pinned shard) -----------------
+            frng = np.random.default_rng(seed * 100 + 13)
+            base = normalize(frng.standard_normal((40, dim), dtype=np.float32))
+            fids = [f"f{i:03d}" for i in range(40)]
+            versions = {vid: [v] for vid, v in zip(fids, base)}
+            flood = {"tenant": "flood", "shard": "0", "priority": "bulk"}
+            ask(("search_upsert", pack_bundle([base, np.frombuffer(json.dumps(fids).encode(), np.uint8)]), flood,
+                 BUNDLE_MIME))
+            fq = normalize(frng.standard_normal(dim, dtype=np.float32))[0]
+            lock, done = threading.Lock(), threading.Event()
+            steps = 10
+
+            def writer():
+                try:
+                    for step in range(steps):
+                        new = [f"n{step:02d}-{j}" for j in range(8)]
+                        upd = [fids[(step * 8 + j) % 40] for j in range(8)]
+                        vs = normalize(frng.standard_normal((16, dim), dtype=np.float32))
+                        with lock:  # recorded before the upsert is sent
+                            for vid, v in zip(new + upd, vs):
+                                versions.setdefault(vid, []).append(v)
+                        ask(("search_upsert", pack_bundle([vs, np.frombuffer(json.dumps(new + upd).encode(), np.uint8)]),
+                             flood, BUNDLE_MIME))
+                        time.sleep(0.01)
+                finally:
+                    done.set()
+
+            def reader(_):
+                seen = []
+                payload, meta = raw(fq)
+                while not done.is_set():
+                    seen.append(ask(("search_query", payload, {**meta, "tenant": "flood", "shard": "0", "k": "128"},
+                                     TENSOR_MIME))["body"])
+                return seen
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(in_flight + 1) as ex:
+                wfut = ex.submit(writer)
+                seen = [b for part in ex.map(reader, range(in_flight)) for b in part]
+                wfut.result()
+            flood_s = time.perf_counter() - t0
+            counts = sorted({len(b["ids"]) for b in seen})
+            if not set(counts) <= {40 + 8 * j for j in range(steps + 1)} or len(counts) < 2:
+                raise AssertionError(f"phase 11 (b): answer counts during the flood {counts}")
+            for b in seen:
+                for vid, s in zip(b["ids"], b["scores"]):
+                    if not any(abs(float(v @ fq) - s) <= SEARCH_SCORE_TOL for v in versions.get(vid, [])):
+                        raise AssertionError(f"phase 11 (b): {vid} at {s:.6f} matches no committed version")
+
+            # -- (b) one scoring pass over the fullest shard ------------------------------
+            full = max(shards.values(), key=lambda s: s.count)
+            with full._lock:
+                buf, n = full._buf, full._n
+            pass_ms = bound_ms = None
+            if on_card:
+                qd = torch.from_numpy(normalize(queries[:in_flight])).to(dev)
+                pass_ms = cuda_ms(lambda: _score_topk(buf, qd, n, 128, ann_tile()), iters=20)
+                bound_ms = max(n * dim * 4 / HBM_BYTES_PER_S, 2 * in_flight * n * dim / FP32_FLOPS) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+            log(f"phase 11 (b): {n_vectors:,} unit vectors at dim {dim} upserted over gRPC in {len(bundles)} "
+                f"{chunk}-row search_upsert calls (4 at once) in {upsert_s:.2f} s = {n_vectors / upsert_s:,.0f} rows/s, "
+                f"{len(shards)} shards of {sorted(s.count for s in shards.values())} rows (capacity "
+                f"{sorted(s.capacity for s in shards.values())}); {n_queries} search_query at k = 10, {in_flight} in "
+                f"flight, in {query_s:.2f} s: p50 {pct(0.5):.2f} ms, p95 {pct(0.95):.2f} ms ({passes['items']} shard "
+                f"queries in {passes['batches']} scoring passes; alone, p50 {float(solo[len(solo) // 2]):.2f} ms); "
+                f"recall@10 = 1.0 against "
+                f"the oracle ({oracle_s:.1f} s on the host) on every query but {near} near-ties (10th and 11th "
+                f"within {SEARCH_SCORE_TOL}), scores within {worst:.2e}; {n_photos} photos at rank 1 of their own "
+                f"embedding (margin >= {margin:.6f}); during a flood of {steps} bulk upserts (8 appends + 8 updates "
+                f"in place each) {len(seen)} queries saw counts {counts}, every id committed, every score one of its "
+                f"row's versions ({flood_s:.2f} s); one scoring pass over a {n}-row shard at {in_flight} queries "
+                f"{'not measured' if pass_ms is None else f'{pass_ms:.4f} ms'}"
+                f"{'' if bound_ms is None else f' (bound {bound_ms:.4f} ms, bytes vs fp32 FLOPs)'}; peak memory "
+                f"{peak:.3f} GiB [{card}]")
+            out.update(boot_s=boot_s, images_s=stats["items_per_sec"], stats=stats, launches=launches,
+                       warm_launches=warm_launches, cos_min=float(cos_raw.min()), faces=face_tally, ocr=ocr_tally,
+                       stage_ms=stage_ms, syncs_flagged=syncs_flagged, upsert_rows_s=n_vectors / upsert_s,
+                       p50_ms=pct(0.5), p95_ms=pct(0.95), solo_p50_ms=float(solo[len(solo) // 2]),
+                       mean_pass=passes["items"] / max(passes["batches"], 1), near_ties=near, score_err=worst, pass_ms=pass_ms,
+                       pass_bound_ms=bound_ms, flood_queries=len(seen), flood_counts=counts, peak_gib=peak)
+        finally:
+            channel.close()
+            handle.stop(grace=1.0)
+            vlm_server.stop()
+    shutdown_decode_pool()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3835,6 +4478,7 @@ def main() -> int:
         clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
         face = drive_face(args.seed, card, Path(tmp), clip)
         ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
+        ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
     log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
         f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
         f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
@@ -3862,6 +4506,14 @@ def main() -> int:
         f"(head_dim 16) {ocr['native_launches']} launches over {ocr['native_chunks']} recognizer chunks, logits within "
         f"{ocr['bf16_logit_share']:.2e} of the plain path's scale; full tier up in {ocr['hub_s']:.2f} s, launches "
         f"{json.dumps(ocr['hub_launches'])}")
+    log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
+        f"{ingest['images_s']:.2f} images/s (CLI, clip + face + ocr, batch 64), stage device ms a batch "
+        f"{json.dumps({k: round(v, 3) for k, v in ingest['stage_ms'].items()})}, syncs flagged "
+        f"{ingest['syncs_flagged']} in the sweep; launches {json.dumps(ingest['launches'])}, warm re-run none; "
+        f"search: {ingest['upsert_rows_s']:,.0f} rows/s upserted, query p50 {ingest['p50_ms']:.2f} ms p95 "
+        f"{ingest['p95_ms']:.2f} ms at 16 in flight ({ingest['mean_pass']:.1f} queries a shard pass; alone p50 "
+        f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
+        f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
     for label in OCR_FLASH_SHAPES:
         row = rows[f"flash_attention ({label})"]
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "

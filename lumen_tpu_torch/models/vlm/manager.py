@@ -45,12 +45,13 @@ import numpy as np
 import torch
 
 from ...core.model_info import ModelInfo, load_model_info
+from ...runtime.decode_pool import get_decode_pool
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import load_state_dict
 from ...utils.env import env_int
-from ...utils.host_decode import DECODE_POLICY, vlm_canvas
+from ...utils.host_decode import DECODE_POLICY
 from ...utils.metrics import metrics
 from .chat import ChatMessage, VlmTokenizer
 from .continuous import ContinuousScheduler, _Request
@@ -214,6 +215,10 @@ class VLMManager:
         self.engine.close()
         self._initialized = False
 
+    def _ensure_ready(self) -> None:
+        if not self._initialized:
+            raise RuntimeError("VLMManager is closed")
+
     def kv_layout(self) -> str:
         kv = self.engine.kv
         return f"paged(page={kv.page_size},pages={kv.pages_total},slots={self.engine.n_slots})"
@@ -295,11 +300,26 @@ class VLMManager:
     ) -> tuple[_Request, int]:
         if image_bytes and pixels is not None:
             raise ValueError("pass an image as pixels or as image_bytes, not both")
-        if image_bytes:  # ValueError when the bytes do not decode
-            pixels = vlm_canvas(image_bytes, self.cfg.vision.image_size)
-        embeds, positions, lengths, prompt_ids, n_input, n_live = self._prepare_inputs(
-            messages, pixels, add_generation_prompt
-        )
+        if image_bytes:
+            # The decode pool's ``vlm_canvas`` spec (a worker process's
+            # shared-memory slot in process mode; ValueError when the bytes
+            # do not decode). ``_prepare_inputs`` has copied the pixels to
+            # the device (a blocking copy from pageable memory) or, on the
+            # CPU, consumed them before it returns, so the slot recycles
+            # right after.
+            decoded = get_decode_pool().run_decode(
+                "vlm_canvas", image_bytes, {"size": self.cfg.vision.image_size}
+            )
+            try:
+                embeds, positions, lengths, prompt_ids, n_input, n_live = self._prepare_inputs(
+                    messages, decoded.array, add_generation_prompt
+                )
+            finally:
+                decoded.release()
+        else:
+            embeds, positions, lengths, prompt_ids, n_input, n_live = self._prepare_inputs(
+                messages, pixels, add_generation_prompt
+            )
         req = _Request(
             embeds=embeds, positions=positions, length=lengths, prompt_ids=prompt_ids,
             n_prompt=n_live, max_new=min(int(max_new_tokens), self.max_new_cap),

@@ -148,6 +148,9 @@ class DecodePool:
         self._arena: ShmArena | None = None
         self._spills = 0
         self._crashes = 0
+        #: spec decodes by spec name (both lanes): the ``decodes_<spec>``
+        #: gauges, which show which decode recipes a path runs
+        self._spec_decodes: dict[str, int] = {}
         self._crash_streak = 0
         # Gauges close over a weakref: the global metrics registry must not
         # be what keeps a dropped pool's threads reachable.
@@ -285,6 +288,7 @@ class DecodePool:
         result once the pixels are consumed. Thread mode runs the exact
         same spec function on the thread lane (``release()`` is a no-op),
         so the two modes are bitwise-identical by construction."""
+        self._count_spec(spec, 1)
         if not self.process_mode:
             out = self.run(_call_spec, spec, payload, params)
             if isinstance(out, tuple):
@@ -299,6 +303,8 @@ class DecodePool:
         per-item failure, already-materialized results are released and
         the error propagates — the caller never has to track half a
         batch's leases."""
+        payloads = list(payloads)
+        self._count_spec(spec, len(payloads))
         if not self.process_mode:
             outs = self.map(lambda p: _call_spec(spec, p, params), payloads)
             return [
@@ -315,6 +321,10 @@ class DecodePool:
                 r.release()
             raise
         return results
+
+    def _count_spec(self, spec: str, n: int) -> None:
+        with self._lock:
+            self._spec_decodes[spec] = self._spec_decodes.get(spec, 0) + n
 
     def _proc_lane(self) -> ThreadPoolExecutor:
         """The process lane's parent-side plumbing, built lazily: a small
@@ -536,6 +546,7 @@ class DecodePool:
         with self._lock:
             pending, tasks = self._pending, self._tasks
             spills, crashes = self._spills, self._crashes
+            spec_decodes = dict(self._spec_decodes)
         # Numeric-only: the metrics registry drops non-numeric gauge
         # values at snapshot (Prometheus exposition contract), so the
         # mode flag is an int and the arena block is flattened with an
@@ -549,6 +560,7 @@ class DecodePool:
             "process_mode": int(self.process_mode),
             "procs": self.procs,
         }
+        out.update({f"decodes_{spec}": n for spec, n in sorted(spec_decodes.items())})
         if spills:
             out["shm_spills"] = spills
         if crashes:

@@ -11,7 +11,7 @@ pinned pool that all spill and resume, greedy answers equal alone and to
 phase 6's, prefix hits with fewer chunks than cold, a result-cache
 answer, the sidecar's metrics and the spill round trip. Phases 8, 9 and
 10 run the same way at tiny widths (CLIP, then face and graph CLIP, then
-OCR and the full tier).
+OCR and the full tier), and phase 11 at small sizes (ingest and search).
 """
 
 from __future__ import annotations
@@ -123,13 +123,10 @@ def test_chip_smoke_face_drive_runs_on_cpu(face_drive):
     assert 0 < out["fill"] <= 1
 
 
-def test_chip_smoke_ocr_drive_runs_on_cpu(clip_drive, face_drive):
-    """Phase 10 at small widths on the CPU, after phases 6, 8 and 9: the
-    PP-OCR stand-in pack (narrow widths, a 100-line dictionary, 320x240
-    pages) held against ``OcrReference`` with TF32's gate and strictly,
-    with tensor/raw pages and the orientation classifier; tiny native
-    checkpoints on the plain path and against the port's CPU run; and the
-    full-tier hub (ocr, clip, face, vlm) from one YAML, none degraded."""
+@pytest.fixture(scope="module")
+def ocr_drive(clip_drive, face_drive):
+    """Phase 10 at small widths on the CPU, after phases 6, 8 and 9 (its
+    tier is what phase 11 reads)."""
     from lumen_tpu_torch.models.ocr import ClsConfig, DBNetConfig, SVTRConfig
 
     root, phase8, phase6 = clip_drive
@@ -142,11 +139,46 @@ def test_chip_smoke_ocr_drive_runs_on_cpu(clip_drive, face_drive):
             mp.setattr(chip_smoke, name, ())
         mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
         try:
-            out = chip_smoke.drive_ocr(0, "cpu", root, phase6, phase8, face_drive, device="cpu", n_pages=6,
-                                       in_flight=4, page_hw=(240, 320), pack_kw=pack, native=native, n_native=3)
+            return chip_smoke.drive_ocr(0, "cpu", root, phase6, phase8, face_drive, device="cpu", n_pages=6,
+                                        in_flight=4, page_hw=(240, 320), pack_kw=pack, native=native, n_native=3)
         finally:
             reset_result_cache()
+
+
+def test_chip_smoke_ocr_drive_runs_on_cpu(ocr_drive):
+    """Phase 10 at small widths on the CPU, after phases 6, 8 and 9: the
+    PP-OCR stand-in pack (narrow widths, a 100-line dictionary, 320x240
+    pages) held against ``OcrReference`` with TF32's gate and strictly,
+    with tensor/raw pages and the orientation classifier; tiny native
+    checkpoints on the plain path and against the port's CPU run; and the
+    full-tier hub (ocr, clip, face, vlm) from one YAML, none degraded."""
+    out = ocr_drive
     assert out["items"] > 0 and out["iou_min"] >= chip_smoke.OCR_IOU
     assert out["tf32"]["matched"] == out["tf32"]["ref"]  # no TF32 on the CPU: the same answers
     assert out["native_items"] > 0 and out["native_chunks"] > 0
     assert out["native_launches"] == 0 and not any(out["hub_launches"].values())  # plain paths on the CPU
+
+
+def test_chip_smoke_ingest_drive_runs_on_cpu(clip_drive, face_drive, ocr_drive):
+    """Phase 11 at small sizes on the CPU, after phases 6 and 8-10: phase
+    10's tier plus ``search`` from one YAML; the CLI's sweep of 8 seeded
+    960x720 JPEGs (the OCR bucket the served path picks is the ingest's
+    960) and its caption run held to the served answers of the
+    same pixels, the warm re-run answered from the result cache while
+    ``index=`` feeds the search service, then 3,000 vectors upserted,
+    queries held to the oracle and queries during an upsert flood."""
+    root, phase8, _ = clip_drive
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE11_KERNELS", ())
+        mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+        try:
+            out = chip_smoke.drive_ingest(0, "cpu", root, phase8, face_drive, ocr_drive, device="cpu", n_photos=8,
+                                          n_captions=2, n_square=4, batch_size=4, photo_hw=(720, 960), caption_tokens=4, n_vectors=3000,
+                                          chunk=512, n_queries=12, in_flight=4)
+        finally:
+            reset_result_cache()
+    assert out["cos_min"] > 0.99999  # fp32 on both sides
+    assert out["faces"]["matched"] > 0 and out["ocr"]["texts_equal"] > 0
+    assert out["stats"]["items"] == 8 and out["stats"]["batches"] == 2
+    assert not any(out["warm_launches"].values())
+    assert len(out["flood_counts"]) >= 2

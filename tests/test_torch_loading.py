@@ -195,6 +195,7 @@ def test_loader_maps_the_jax_service_class_onto_the_port():
     from lumen_tpu_torch.serving.services.clip_service import ClipService
     from lumen_tpu_torch.serving.services.face_service import FaceService
     from lumen_tpu_torch.serving.services.ocr_service import OcrService
+    from lumen_tpu_torch.serving.services.search_service import SearchService
     from lumen_tpu_torch.serving.services.vlm_service import VlmService
 
     assert resolve("lumen_tpu.serving.services.vlm_service.VlmService") is VlmService
@@ -202,8 +203,9 @@ def test_loader_maps_the_jax_service_class_onto_the_port():
     assert resolve("lumen_tpu.serving.services.clip_service.ClipService") is ClipService
     assert resolve("lumen_tpu.serving.services.face_service.FaceService") is FaceService
     assert resolve("lumen_tpu.serving.services.ocr_service.OcrService") is OcrService
+    assert resolve("lumen_tpu.serving.services.search_service.SearchService") is SearchService
     with pytest.raises(ServiceLoadError, match="not ported to lumen_tpu_torch yet"):
-        resolve("lumen_tpu.serving.services.search_service.SearchService")
+        resolve("lumen_tpu.testing.services.SearchBenchService")
 
 
 def test_a_service_not_ported_boots_degraded(tmp_path):
@@ -212,8 +214,8 @@ def test_a_service_not_ported_boots_degraded(tmp_path):
         "deployment": {"mode": "single", "service": "search"},
         "server": {"port": 50998, "host": "127.0.0.1"},
         "services": {"search": {
-            "enabled": True, "package": "lumen_tpu.serving.services.search_service",
-            "import_info": {"registry_class": "lumen_tpu.serving.services.search_service.SearchService"},
+            "enabled": True, "package": "lumen_tpu",
+            "import_info": {"registry_class": "lumen_tpu.testing.services.SearchBenchService"},
             "models": {"search": {"model": "TinyCLIP", "runtime": "jax"}},
         }},
     })
@@ -230,8 +232,9 @@ def test_loader_never_imports_the_jax_package():
         "resolve('lumen_tpu.serving.services.clip_service.ClipService')\n"
         "resolve('lumen_tpu.serving.services.face_service.FaceService')\n"
         "resolve('lumen_tpu.serving.services.ocr_service.OcrService')\n"
+        "resolve('lumen_tpu.serving.services.search_service.SearchService')\n"
         "try:\n"
-        "    resolve('lumen_tpu.serving.services.search_service.SearchService')\n"
+        "    resolve('lumen_tpu.testing.services.SearchBenchService')\n"
         "except ServiceLoadError:\n"
         "    pass\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lumen_tpu'))))\n"
