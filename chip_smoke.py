@@ -175,7 +175,33 @@ Phases (any failure exits non-zero):
    in-place updates) that see only committed states; upserted rows/s,
    query p50/p95, one scoring pass over a full shard (CUDA events).
 
-Every run drives all eleven phases. The kernel table's launch counts are
+12. every VLM and CLIP serving option of the JAX managers: (a) a
+   FastVLM-style directory (phase 6's decoder; the FastViTHD stand-in of
+   ``lumen_tpu_torch/testing/fastvlm_standins.py`` with its projector
+   exported as ``onnx/vision_encoder.onnx`` at 1024 px, 256 tokens; no
+   native vision weights) served by ``serve()`` from a YAML in
+   ``generate_config``'s shape: 8 greedy ``vlm_generate`` and 2 streams of
+   1600x1200 JPEGs at once, each equal to the manager's rerun alone, the
+   graph tower on the card (IEEE float32) within ``GRAPH_TOWER_TOL`` of the
+   stand-in module, no device-to-host sync in ``_prepare``, the tower's
+   time (CUDA events), TTFT and load time; (b) ``quantize: int8`` with
+   ``LUMEN_VLM_Q8_ROUTE=auto`` and warm-up on phase 6's directory: the
+   A/B's two decode rates, its verdict and the peak memory across it, then
+   a second boot that reads the verdict file and times nothing, routes and
+   ``vlm-quant`` gauges matching the verdict; (c) ``scheduler: coalesce``
+   on phase 6's directory in bf16 and int8: 8 greedy requests over the 64
+   and 128 prompt buckets and 2 streams at once, each equal to its rerun
+   alone through the coalescer, device-to-host syncs a decode step (at
+   most 1; also counted with the per-layer ladder read the repair
+   removed); (d) phase 8's ViT-B/32 with ``quantize: int8`` (W8A8) at
+   batch 64: the A/B under ``LUMEN_CLIP_Q8_ROUTE=auto``, then a pinned
+   int8 boot whose embeddings are within ``Q8_CLIP_COSINE`` of phase 8's
+   bf16 ones. (a) must launch ``flash_attention_cache`` and
+   ``paged_attention``, (c) ``flash_attention_cache`` (and ``w8a16_matmul``
+   in int8), (d) ``flash_attention``; their launch counts are printed
+   beside each kernel's row.
+
+Every run drives all twelve phases. The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
 for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
@@ -188,6 +214,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -499,22 +526,36 @@ def check_kernels(seed: int) -> dict:
     # two chunks of a caption prompt (265 live tokens, bucket span 319), a
     # ragged two-row batch, kv_valid on either side of the 64-key tile, a
     # causal diagonal crossing a tile mid-warp, two rows with different
-    # offsets, and the fp32 instance (FMA tile) on chunk 2.
+    # offsets, and the fp32 instance (FMA tile) on chunk 2. Then the
+    # coalescer's whole-prompt prefills (phase 12 (c)): up to 8 rows of the
+    # 128 bucket's 383-token span against its 896-slot buffer and of the 64
+    # bucket's 319 against 832, offsets 0, live lengths uneven, in bf16 and
+    # fp32; a stream's prefill into a max_seq (2048) buffer; the int8
+    # route A/B's 16-token prefills (the fused decode's 88-slot buffer,
+    # the engine probe's 16-slot scratch).
     errs = []
     cases = (
-        (1, 256, [0], [256], bf16),
-        (1, 63, [256], [265], bf16),
-        (2, 256, [0, 256], [256, 300], bf16),
-        (1, 48, [15], [63], bf16),
-        (1, 48, [16], [64], bf16),
-        (1, 48, [17], [65], bf16),
-        (1, 48, [79], [127], bf16),
-        (1, 64, [100], [164], bf16),
-        (2, 63, [256, 37], [265, 100], bf16),
-        (1, 63, [256], [265], torch.float32),
+        (1, 256, 832, [0], [256], bf16),
+        (1, 63, 832, [256], [265], bf16),
+        (2, 256, 832, [0, 256], [256, 300], bf16),
+        (1, 48, 832, [15], [63], bf16),
+        (1, 48, 832, [16], [64], bf16),
+        (1, 48, 832, [17], [65], bf16),
+        (1, 48, 832, [79], [127], bf16),
+        (1, 64, 832, [100], [164], bf16),
+        (2, 63, 832, [256, 37], [265, 100], bf16),
+        (1, 63, 832, [256], [265], torch.float32),
+        (8, 383, 896, [0] * 8, [383, 265, 300, 320, 266, 383, 290, 271], bf16),
+        (8, 383, 896, [0] * 8, [383, 265, 300, 320, 266, 383, 290, 271], torch.float32),
+        (4, 319, 832, [0] * 4, [319, 265, 270, 300], bf16),
+        (4, 319, 832, [0] * 4, [319, 265, 270, 300], torch.float32),
+        (1, 319, 2048, [0], [265], bf16),
+        (1, 383, 2048, [0], [330], bf16),
+        (4, 16, 88, [0] * 4, [16] * 4, bf16),
+        (4, 16, 16, [0] * 4, [16] * 4, bf16),
     )
-    for b, sq, offs, valid, dt in cases:
-        q, k, v = rnd(b, 14, sq, 64, dtype=dt), rnd(b, 14, 832, 64, dtype=dt), rnd(b, 14, 832, 64, dtype=dt)
+    for b, sq, sk, offs, valid, dt in cases:
+        q, k, v = rnd(b, 14, sq, 64, dtype=dt), rnd(b, 14, sk, 64, dtype=dt), rnd(b, 14, sk, 64, dtype=dt)
         qo = torch.tensor(offs, device=dev, dtype=torch.int32)
         kv = torch.tensor(valid, device=dev, dtype=torch.int32)
         out = A.flash_attention_cache(q, k, v, qo, kv)
@@ -1174,10 +1215,11 @@ def write_model_dir(root: Path, name: str, cfg, state) -> Path:
     return model_dir
 
 
-def deployment_yaml(path: Path, cache_dir: Path, model: str, quantize: str | None) -> Path:
+def deployment_yaml(path: Path, cache_dir: Path, model: str, quantize: str | None, extra: dict | None = None) -> Path:
     """A single-service deployment naming the service in its JAX form, which
-    the port's loader maps onto its own class."""
-    settings = {"dtype": "bfloat16", "batch_size": 8}
+    the port's loader maps onto its own class; ``extra`` adds backend
+    settings (``warmup``, ``scheduler``)."""
+    settings = {"dtype": "bfloat16", "batch_size": 8, **(extra or {})}
     if quantize:
         settings["quantize"] = quantize
     import yaml
@@ -4397,6 +4439,462 @@ def drive_ingest(seed: int, card: str, root: Path, phase8: dict, phase9: dict, p
     return out
 
 
+# -- phase 12: every VLM and CLIP serving option ------------------------------------
+
+#: the kernels phase 12 requires: (a) the graph-tower captions on the
+#: continuous engine, (c) the coalescer's prefill, and its int8 decode
+PHASE12_GRAPH_KERNELS = ("flash_attention_cache", "paged_attention")
+PHASE12_COALESCE_KERNELS = ("flash_attention_cache",)
+PHASE12_COALESCE_INT8_KERNELS = ("flash_attention_cache", "w8a16_matmul")
+#: (d): the W8A8 CLIP towers launch the flash kernel in every block
+PHASE12_CLIP_KERNELS = ("flash_attention",)
+#: (a): the graph tower on the card (IEEE float32) against the stand-in
+#: module's float32 forward on the same pixels: |diff| <= this x max |want|
+GRAPH_TOWER_TOL = 1e-4
+#: (d): W8A8 CLIP embeddings against the bf16 ones (the JAX suite's int8
+#: bound, ``tests/test_clip_quant.py``)
+Q8_CLIP_COSINE = 0.98
+#: (b): the A/B's device memory above its start may pass the bf16
+#: decoder's bytes by this much (KV pool, activations, logits), which is
+#: short of the int8 decoder's bytes: two decoder sets at once fail
+AB_MEMORY_MARGIN = 256 * 2**20
+#: (c): a prompt of the 128 bucket (the short one takes the 64 bucket)
+LONG_PROMPT = ("describe this photo in one detailed sentence : " + "a red car on a wet road , " * 12).strip()
+
+
+def write_fastvlm_dir(root: Path, src: Path, name: str, tower_cfg, seed: int) -> tuple[Path, float]:
+    """A FastVLM-style model directory from phase 6's: the checkpoint
+    without its vision tower (decoder only, HF names), phase 6's
+    ``config.json``, tokenizer and chat template, and the FastViTHD
+    stand-in exported as ``onnx/vision_encoder.onnx`` at the canvas size;
+    returns it and the export's seconds."""
+    import torch
+    from safetensors.torch import load_file, save_file
+
+    from lumen_tpu_torch.testing.fastvlm_standins import fastvithd_standin
+    from lumen_tpu_torch.testing.onnx_export import export_onnx
+
+    model_dir = root / "models" / name
+    (model_dir / "onnx").mkdir(parents=True)
+    state = load_file(str(src / "model.safetensors"))
+    save_file({k: v for k, v in state.items() if not k.startswith(("vision_tower.", "multi_modal_projector."))},
+              str(model_dir / "model.safetensors"))
+    del state
+    for f in ("config.json", "tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(src / f, model_dir / f)
+    (model_dir / "model_info.json").write_text(json.dumps({
+        "name": name, "version": "1.0.0", "description": "FastVLM-shaped: decoder weights + an exported vision tower",
+        "model_type": "vlm", "source": {"format": "custom", "repo_id": f"LumilioPhotos/{name}"},
+        "runtimes": {"jax": {"available": True, "files": ["model.safetensors", "onnx/vision_encoder.onnx"]}},
+    }))
+    t0 = time.perf_counter()
+    tower = fastvithd_standin(seed, tower_cfg)
+    size = tower_cfg.image_size
+    with torch.no_grad():
+        export_onnx(tower, (torch.zeros(1, 3, size, size),), str(model_dir / "onnx" / "vision_encoder.onnx"),
+                    input_names=["pixel_values"], dynamic_axes={"pixel_values": {0: "b"}})
+    return model_dir, time.perf_counter() - t0
+
+
+def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: dict, device: str = "cuda:0",
+                      tower_cfg=None, n_captions: int = 8, n_streams: int = 2, tokens: int = 24,
+                      clip_batch: int = 64) -> dict:
+    """Phase 12: the VLM and CLIP options of the JAX managers. (a) a
+    FastVLM-style directory (phase 6's decoder, the FastViTHD stand-in as
+    ``onnx/vision_encoder.onnx``, no native tower) served by ``serve()``
+    from a YAML in ``generate_config``'s shape; (b) the VLM int8 route's
+    warm-up A/B and its verdict file; (c) ``scheduler: coalesce`` in bf16
+    and int8 on phase 6's directory; (d) CLIP ``quantize: int8`` (W8A8) on
+    phase 8's directory. ``tower_cfg``/``device`` and the counts let the
+    CPU tests rehearse it small; its launch-count gates then fail unless
+    emptied."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.clip import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.models.vlm import modeling as vlm_modeling
+    from lumen_tpu_torch.runtime.decode_pool import shutdown_decode_pool
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.testing.fastvlm_standins import FastViTHDConfig, fastvithd_standin
+    from lumen_tpu_torch.utils.host_decode import vlm_canvas
+    from lumen_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    kernels = {k.name: k for k in all_kernels()}
+    cfg = vlm_config_of(phase6["model_dir"])
+    tower_cfg = tower_cfg or FastViTHDConfig(hidden_size=cfg.decoder.hidden_size, image_size=cfg.vision.image_size)
+    photos, prompt = phase6["photos"], phase6["prompt"]
+    question = json.loads(prompt)[0]["content"]
+    n = n_captions + n_streams
+    out: dict = {"launches": {}}
+
+    def reset_launches():
+        for k in kernels.values():
+            k.launches = 0
+
+    def launched(names) -> dict:
+        return {name: kernels[name].launches for name in names}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # -- (a) FastVLM-0.5B's shape: the exported vision tower on the bridge ----------
+    fast_dir, export_s = write_fastvlm_dir(root / "cache", Path(phase6["model_dir"]), "SmokeFastVLM", tower_cfg, seed + 12)
+    onnx_mb = (fast_dir / "onnx" / "vision_encoder.onnx").stat().st_size / 2**20
+    log(f"phase 12 (a): FastViTHD stand-in (layers {list(tower_cfg.layers)}, widths {list(tower_cfg.embed_dims)}, "
+        f"expansion {tower_cfg.out_width}, projector -> {tower_cfg.hidden_size}) exported at {tower_cfg.image_size} px in "
+        f"{export_s:.1f} s ({onnx_mb:.0f} MiB); the directory holds no native vision weights")
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    vlm_settings = {"dtype": "bfloat16", "batch_size": 8, "batch_buckets": [64, 128, 256, 512, 1024]}
+    with env(LUMEN_VLM_SPEC_K="0", LUMEN_GRPC_WORKERS=str(n + 8)):
+        handle, channel, stub, load_s = boot_server(
+            ocr_yaml(root / "fastvlm.yaml", root / "cache", {"vlm": ("SmokeFastVLM", vlm_settings)}), device)
+    try:
+        mgr = handle.services["vlm"].manager
+        if mgr._vision_graph is None or mgr.vision_tokens != tower_cfg.num_tokens:
+            raise AssertionError(f"phase 12 (a): the vlm service serves no graph tower ({mgr.vision_tokens} tokens)")
+        reset_launches()
+        metas = [{"messages": prompt, "max_new_tokens": tokens}] * n
+        tasks = ["vlm_generate"] * n_captions + ["vlm_generate_stream"] * n_streams
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n) as ex:
+            res = list(ex.map(lambda i: grpc_call(stub, tasks[i], photos[i], metas[i]), range(n)))
+        wall = time.perf_counter() - t0
+        drive_peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2**20 if on_card else 0.0
+        graph_launches = launched(kernels)
+        if any(r["code"] for r in res):
+            raise AssertionError(f"phase 12 (a): codes {[r['code'] for r in res]}")
+        missing = [k for k in PHASE12_GRAPH_KERNELS if graph_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 12 (a): never launched {missing} ({graph_launches})")
+        msgs = [ChatMessage("user", question)]
+        for i, r in enumerate(res):
+            if i < n_captions:
+                alone = mgr._generate_uncached(msgs, None, tokens, 0.0, 1.0, False, 1.0, None, True, photos[i])
+                same = (alone.text, len(alone.tokens)) == (r["body"]["text"], r["body"]["generated_tokens"])
+            else:
+                text = "".join(c.text for c in mgr.generate_stream(msgs, image_bytes=photos[i], max_new_tokens=tokens))
+                same = text == b"".join(r["deltas"]).decode() == r["body"]["text"]
+            if not same:
+                raise AssertionError(f"phase 12 (a): request {i} ({tasks[i]}) differs from the manager's rerun alone")
+        ttfts = sorted(r["ttft_ms"] for r in res[n_captions:])
+        lat = sorted(r["s"] * 1e3 for r in res[:n_captions])
+        # the graph tower against the stand-in module, IEEE float32 on both sides
+        canvas = torch.from_numpy(vlm_canvas(photos[0], cfg.vision.image_size)).to(mgr.device)
+        x = ((canvas[None].float() / 255.0 - mgr._mean) / mgr._std).permute(0, 3, 1, 2).contiguous()
+        tower = fastvithd_standin(seed + 12, tower_cfg).to(mgr.device)
+        with convolutions_tf32(False), torch.no_grad():
+            got = mgr._vision_graph(mgr._vision_params, x).float()
+            want = tower(x).float()
+        del tower
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not torch.isfinite(got).all() or err > GRAPH_TOWER_TOL * scale:
+            raise AssertionError(f"phase 12 (a): graph tower vs the stand-in module: max|diff| {err:.3e} "
+                                 f"(scale {scale:.3e})")
+        ids = torch.full((1, 64), cfg.pad_token_id, device=mgr.device)
+        ids[0, 0] = cfg.image_token_id
+        length = torch.tensor([20], device=mgr.device)
+        prepare_syncs = count_syncs(lambda: mgr._prepare(canvas[None], ids, length)) if on_card else 0
+        if prepare_syncs:
+            raise AssertionError(f"phase 12 (a): _prepare made {prepare_syncs} device-to-host syncs")
+        tower_ms = cuda_ms(lambda: mgr._vision_graph(mgr._vision_params, x), 5, warmup=1) if on_card else 0.0
+        walls = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            mgr._vision_graph(mgr._vision_params, x)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        tower_wall_ms = min(walls)
+        n_nodes = len(mgr._vision_graph.module.graph.nodes)
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    vision_tokens = mgr.vision_tokens
+    del mgr, handle  # (b) measures device memory: (a)'s weights go first
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out["launches"]["(a)"] = graph_launches
+    log(f"phase 12 (a): vlm service up in {load_s:.2f} s with the graph tower ({n_nodes} nodes, "
+        f"{vision_tokens} tokens); {n_captions} vlm_generate + {n_streams} streams of 1600x1200 JPEGs at once in "
+        f"{wall:.3f} s, each equal to the manager's rerun alone; stream ttft_ms {[round(t, 1) for t in ttfts]} "
+        f"(p50 {ttfts[len(ttfts) // 2]:.1f}), caption latency p50 {lat[len(lat) // 2]:.0f} ms; graph tower "
+        f"{tower_ms:.2f} ms a 1-image forward (CUDA events, TF32 convolutions; {tower_wall_ms:.2f} ms of host wall, "
+        f"synchronized, on an idle server) and IEEE max|diff| {err:.3e} vs the "
+        f"stand-in module (scale {scale:.3e}); _prepare syncs {prepare_syncs}; device memory {mem0 / 2**30:.3f} GiB at the "
+        f"drive's start, peak {drive_peak_mib:.1f} MiB above it; launches {json.dumps(graph_launches)} [{card}]")
+    out.update(export_s=export_s, fast_load_s=load_s, tower_ms=tower_ms, tower_wall_ms=tower_wall_ms,
+               ttft_p50_ms=ttfts[len(ttfts) // 2], drive_peak_mib=drive_peak_mib,
+               prepare_syncs=prepare_syncs, tower_err=err, tower_nodes=n_nodes)
+
+    # -- (b) the VLM int8 route: warm-up A/Bs, verdict file, a boot that reads it ------
+    # Boots 1 and 2 each time the A/B (the verdict file is removed between
+    # them: the spread of its ratio between boots); boot 3 reads the file.
+    src_dir = Path(phase6["model_dir"])
+    verdict_path = src_dir / ".lumen_q8_verdict.json"
+    rates: list = []
+    ab_mem: list = []
+    real_time, real_ab = VLMManager._time_decode_route, VLMManager._q8_decode_ab
+
+    def timed(self, route_cfg, state):
+        rate = real_time(self, route_cfg, state)
+        rates.append((route_cfg.decoder.weight_quant or "bf16", rate))
+        return rate
+
+    def measured_ab(self, base_cfg, q_cfg, cast, qstate):
+        decoder_bytes = [sum(t.numel() * t.element_size() for k, t in st.items() if not k.startswith("vision."))
+                         for st in (cast, qstate)]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        try:
+            return real_ab(self, base_cfg, q_cfg, cast, qstate)
+        finally:
+            peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+            ab_mem.append(dict(peak=peak, bf16=decoder_bytes[0], int8=decoder_bytes[1]))
+
+    VLMManager._time_decode_route, VLMManager._q8_decode_ab = timed, measured_ab
+    boots = []
+    try:
+        for attempt in range(3):
+            if attempt == 1:
+                verdict_path.unlink()
+            reset_result_cache()
+            if on_card:
+                torch.cuda.empty_cache()
+            with env(LUMEN_VLM_SPEC_K="0", LUMEN_VLM_Q8_ROUTE="auto"):
+                handle, channel, stub, boot_s = boot_server(deployment_yaml(
+                    root / "q8auto.yaml", root / "cache", "SmokeVLM", "int8", extra={"warmup": True}), device)
+            try:
+                mgr = handle.services["vlm"].manager
+                verdict = json.loads(verdict_path.read_text())
+                gauges = metrics.snapshot()["gauges"].get(f"vlm-quant:{mgr.model_id}")
+                cap_route = handle.services["vlm"].capability().extra["quant_route"]
+                reset_launches()
+                r = grpc_call(stub, "vlm_generate", photos[0], {"messages": prompt, "max_new_tokens": 8})
+                boots.append(dict(boot_s=boot_s, route=mgr.quant_route, speedup=mgr.quant_speedup, verdict=verdict,
+                                  gauges=gauges, cap_route=cap_route, code=r["code"],
+                                  w8a16=kernels["w8a16_matmul"].launches))
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            del mgr, handle
+    finally:
+        VLMManager._time_decode_route, VLMManager._q8_decode_ab = real_time, real_ab
+    first, again, reader = boots
+    if [q for q, _ in rates] != ["bf16", "int8"] * 2:
+        raise AssertionError(f"phase 12 (b): boots 1 and 2 timed {rates}; boot 3 must not")
+    for b in boots:
+        want_gauges = {"int8_active": int(b["verdict"]["route"] == "int8"),
+                       "q8_speedup_pct": round(b["verdict"]["q8_speedup"] * 100, 1)}
+        if b["route"] != b["verdict"]["route"] or b["cap_route"] != b["route"] or b["gauges"] != want_gauges \
+                or b["code"] or (on_card and (b["route"] == "int8") != (b["w8a16"] > 0)):
+            raise AssertionError(f"phase 12 (b): a boot's route, verdict and gauges disagree: {b}")
+    if reader["verdict"] != again["verdict"]:
+        raise AssertionError("phase 12 (b): boot 3 rewrote the verdict file")
+    # The A/B holds one decoder set at a time: its peak above what the
+    # device held before it stays under the bf16 decoder plus a working
+    # margin, well short of both sets together.
+    for m in ab_mem:
+        if on_card and not m["peak"] <= m["bf16"] + AB_MEMORY_MARGIN < m["bf16"] + m["int8"]:
+            raise AssertionError(f"phase 12 (b): the A/B's peak {m['peak']} B above its start exceeds the bf16 "
+                                 f"decoder ({m['bf16']} B) + {AB_MEMORY_MARGIN} B (int8 decoder {m['int8']} B)")
+    ratios = [rates[1][1] / rates[0][1], rates[3][1] / rates[2][1]]
+    log(f"phase 12 (b): LUMEN_VLM_Q8_ROUTE=auto, warmup, scheduler continuous: A/B decode (the engine's step_block, "
+        f"batch 4, 64 tokens a row; best of 2) {rates[0][1]:.1f} tok/s bf16 vs {rates[1][1]:.1f} int8 -> "
+        f"{first['route']} ({ratios[0]:.3f}x); a second boot's A/B {rates[2][1]:.1f} vs {rates[3][1]:.1f} -> "
+        f"{again['route']} ({ratios[1]:.3f}x); device memory above the A/B's start, peak "
+        f"{[round(m['peak'] / 2**20, 1) for m in ab_mem]} MiB (bf16 decoder {ab_mem[0]['bf16'] / 2**20:.1f} MiB, "
+        f"int8 {ab_mem[0]['int8'] / 2**20:.1f} MiB); verdict {json.dumps(again['verdict'])}; boots "
+        f"{first['boot_s']:.2f} / {again['boot_s']:.2f} s (A/B) then {reader['boot_s']:.2f} s (verdict read, no "
+        f"probe); served route {reader['route']}, gauges {json.dumps(reader['gauges'])}, w8a16 launches "
+        f"{reader['w8a16']} [{card}]")
+    out.update(ab_bf16_tps=[rates[0][1], rates[2][1]], ab_q8_tps=[rates[1][1], rates[3][1]], ab_ratios=ratios,
+               ab_route=first["route"], ab_peak_mib=[m["peak"] / 2**20 for m in ab_mem],
+               boot_ab_s=[first["boot_s"], again["boot_s"]], boot_verdict_s=reader["boot_s"])
+
+    # -- (c) scheduler: coalesce, bf16 then int8 ------------------------------------
+    questions = [question if i % 2 == 0 else LONG_PROMPT for i in range(n)]
+    for quantize in (None, "int8"):
+        tag = quantize or "bf16"
+        reset_result_cache()
+        if on_card:
+            torch.cuda.empty_cache()
+        with env(LUMEN_VLM_SPEC_K="0", LUMEN_VLM_Q8_ROUTE="int8", LUMEN_GRPC_WORKERS=str(n + 8)):
+            handle, channel, stub, boot_s = boot_server(deployment_yaml(
+                root / f"coalesce-{tag}.yaml", root / "cache", "SmokeVLM", quantize,
+                extra={"scheduler": "coalesce"}), device)
+        try:
+            mgr = handle.services["vlm"].manager
+            if mgr.scheduler != "coalesce" or mgr.quant_route != tag:
+                raise AssertionError(f"phase 12 (c): serving {mgr.scheduler} / {mgr.quant_route}")
+            reset_launches()
+            batches0 = mgr._batcher.batches_run
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(n) as ex:
+                res = list(ex.map(lambda i: grpc_call(
+                    stub, tasks[i], photos[i], {"messages": json.dumps([{"role": "user", "content": questions[i]}]),
+                                                "max_new_tokens": tokens}), range(n)))
+            wall = time.perf_counter() - t0
+            co_launches = launched(kernels)
+            batches = mgr._batcher.batches_run - batches0
+            if any(r["code"] for r in res):
+                raise AssertionError(f"phase 12 (c) {tag}: codes {[r['code'] for r in res]}")
+            need = PHASE12_COALESCE_INT8_KERNELS if quantize else PHASE12_COALESCE_KERNELS
+            missing = [k for k in need if co_launches[k] == 0]
+            if missing:
+                raise AssertionError(f"phase 12 (c) {tag}: never launched {missing} ({co_launches})")
+            differ = []
+            for i, r in enumerate(res):
+                msgs = [ChatMessage("user", questions[i])]
+                if i < n_captions:
+                    alone = mgr._generate_uncached(msgs, None, tokens, 0.0, 1.0, False, 1.0, None, True, photos[i])
+                    if (alone.text, len(alone.tokens)) != (r["body"]["text"], r["body"]["generated_tokens"]):
+                        differ.append(i)
+                else:
+                    text = "".join(c.text for c in mgr.generate_stream(msgs, image_bytes=photos[i],
+                                                                       max_new_tokens=tokens))
+                    if text != b"".join(r["deltas"]).decode():
+                        differ.append(i)
+            if differ:
+                raise AssertionError(f"phase 12 (c) {tag}: requests {differ} differ from their rerun alone")
+            # device-to-host syncs a decode step: two fused decodes of 8 and
+            # 24 tokens over the same prompts, and the old per-layer ladder
+            # read (the decode step without the host's bound) for comparison
+            prepared = [mgr._make_gen_request([ChatMessage("user", question)], None, tokens, 0.0, 1.0, False,
+                                              1.0, True, photos[i])[0] for i in range(min(4, n))]
+            rows = dict(embeds=torch.cat([p.embeds for p in prepared]),
+                        positions=torch.cat([p.positions for p in prepared]),
+                        lengths=np.asarray([p.n_prompt for p in prepared]),
+                        prompt_ids=torch.cat([p.prompt_ids for p in prepared]))
+            gen = mgr.generator
+
+            def decode(steps):
+                o = gen.generate(rows["embeds"], rows["positions"], rows["lengths"], rows["prompt_ids"],
+                                 torch.Generator(device=mgr.device), max_new_tokens=steps)
+                return int(o.n_generated.max())
+
+            def per_step() -> float:
+                if not on_card:
+                    decode(2)  # the path runs; the CPU counts no device syncs
+                    return 0.0
+                s8, s24 = count_syncs(lambda: decode(8)), count_syncs(lambda: decode(24))
+                return (s24 - s8) / max(decode(24) - decode(8), 1)
+
+            syncs = per_step()
+            real_cached = vlm_modeling.attention_cached
+
+            def ladder_read(*args, kv_bound=None, **kw):
+                return real_cached(*args, **kw)
+
+            vlm_modeling.attention_cached = ladder_read
+            try:
+                syncs_old = per_step()
+            finally:
+                vlm_modeling.attention_cached = real_cached
+            if syncs > 1:
+                raise AssertionError(f"phase 12 (c) {tag}: {syncs} device-to-host syncs a decode step")
+            tok = sum(r["body"]["generated_tokens"] for r in res)
+        finally:
+            channel.close()
+            handle.stop(grace=1.0)
+        out["launches"][f"(c) {tag}"] = co_launches
+        log(f"phase 12 (c) scheduler: coalesce, {tag}: up in {boot_s:.2f} s; {n_captions} vlm_generate + {n_streams} "
+            f"streams over the 64 and 128 prompt buckets at once, {tok} tokens in {wall:.3f} s ({tok / wall:.1f} tok/s) in "
+            f"{batches} batches, each answer equal to its rerun alone; device-to-host syncs a decode step {syncs:.2f} "
+            f"(the per-layer ladder read: {syncs_old:.2f}); launches {json.dumps(co_launches)} [{card}]")
+        out[f"coalesce_{tag}"] = dict(tok_s=tok / wall, syncs=syncs, syncs_old=syncs_old, batches=batches)
+
+    # -- (d) CLIP ViT-B/32 quantize: int8 (W8A8) at batch 64 --------------------------
+    clip_dir = str(root / "cache" / "models" / "SmokeCLIP")
+    times: list = []
+    real_clip_time = CLIPManager._time_image_encode
+
+    def clip_timed(self, model):
+        t = real_clip_time(self, model)
+        times.append(t)
+        return t
+
+    CLIPManager._time_image_encode = clip_timed
+    try:
+        reset_result_cache()
+        with env(LUMEN_CLIP_Q8_ROUTE="auto"):
+            t0 = time.perf_counter()
+            auto = CLIPManager(clip_dir, dataset="Smoke1k", dtype="bfloat16", batch_size=clip_batch, warmup=True,
+                               quantize="int8", device=device)
+            auto.initialize()
+            auto_s = time.perf_counter() - t0
+        try:
+            auto_route, auto_speedup = auto.quant_route, auto.quant_speedup
+            auto_gauges = metrics.snapshot()["gauges"][f"clip-quant:{auto.model_id}"]
+        finally:
+            auto.close()
+    finally:
+        CLIPManager._time_image_encode = real_clip_time
+    if len(times) != 2 or auto_gauges != {"int8_active": int(auto_route == "int8"),
+                                          "q8_speedup_pct": round(auto_speedup * 100, 1)}:
+        raise AssertionError(f"phase 12 (d): the A/B timed {times}, gauges {auto_gauges}")
+    n_ref = min(len(phase8["photos"]), clip_batch)
+    ref_vecs = np.asarray(phase8["vecs"][:n_ref])
+    clip_photos = list(phase8["photos"][:n_ref])
+    if clip_batch > n_ref:
+        clip_photos += photo_batch(seed * 100 + 12, clip_batch - n_ref)
+    reset_result_cache()
+    with env(LUMEN_CLIP_Q8_ROUTE="int8"):
+        t0 = time.perf_counter()
+        q8 = CLIPManager(clip_dir, dataset="Smoke1k", dtype="bfloat16", batch_size=clip_batch, quantize="int8",
+                         device=device)
+        q8.initialize()
+        q8_s = time.perf_counter() - t0
+    try:
+        if q8.quant_route != "int8" or metrics.snapshot()["gauges"][f"clip-quant:{q8.model_id}"]["int8_active"] != 1:
+            raise AssertionError("phase 12 (d): the pinned int8 boot does not serve int8")
+        reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(clip_photos)) as ex:
+            vecs = np.stack(list(ex.map(q8.encode_image, clip_photos)))
+        clip_wall = time.perf_counter() - t0
+        clip_launches = launched(PHASE12_CLIP_KERNELS)
+    finally:
+        q8.close()
+    missing = [k for k, v in clip_launches.items() if v == 0]
+    cos = cosines(vecs[: len(ref_vecs)], ref_vecs)
+    if missing or not np.isfinite(vecs).all() or cos.min() < Q8_CLIP_COSINE:
+        raise AssertionError(f"phase 12 (d): launches {clip_launches}, W8A8 vs bf16 cosine min {cos.min():.6f}")
+    out["launches"]["(d)"] = clip_launches
+    log(f"phase 12 (d): CLIP quantize: int8 (W8A8, torch._int_mm), LUMEN_CLIP_Q8_ROUTE=auto with warmup: a batch of "
+        f"{clip_batch} in {times[0] * 1e3:.3f} ms bf16 vs {times[1] * 1e3:.3f} ms int8 ({clip_batch / times[0]:.0f} vs "
+        f"{clip_batch / times[1]:.0f} images/s, best of 3) -> {auto_route} ({auto_speedup:.3f}x), boot {auto_s:.2f} s; "
+        f"a pinned int8 boot ({q8_s:.2f} s) embeds {len(clip_photos)} photos in {clip_wall:.3f} s, W8A8 vs phase 8's "
+        f"bf16 cosine min {cos.min():.6f} (bound {Q8_CLIP_COSINE}) over {len(ref_vecs)}; launches "
+        f"{json.dumps(clip_launches)} [{card}]")
+    shutdown_decode_pool()
+    out.update(clip_bf16_ms=times[0] * 1e3, clip_q8_ms=times[1] * 1e3, clip_route=auto_route, clip_cos=float(cos.min()),
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def vlm_config_of(model_dir):
+    """The ``VLMConfig`` a model directory's ``config.json`` describes."""
+    from lumen_tpu_torch.models.vlm import VLMConfig
+
+    return VLMConfig.from_hf(json.loads((Path(model_dir) / "config.json").read_text()))
+
+
 def count_syncs(fn) -> int:
     """Device-to-host synchronizations one call of ``fn`` makes (warm), as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
@@ -4465,7 +4963,12 @@ def main() -> int:
         f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-") as tmp:
+    from lumen_tpu_torch.runtime.decode_pool import shutdown_decode_pool
+
+    # a phase that fails leaves no decode worker process behind
+    with contextlib.ExitStack() as stack:
+        stack.callback(shutdown_decode_pool)
+        tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-"))
         grpc_drive = drive_grpc(args.seed, card, root=Path(tmp))
         log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
             f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
@@ -4479,6 +4982,7 @@ def main() -> int:
         face = drive_face(args.seed, card, Path(tmp), clip)
         ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
         ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
+        options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip)
     log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
         f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
         f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
@@ -4514,6 +5018,21 @@ def main() -> int:
         f"{ingest['p95_ms']:.2f} ms at 16 in flight ({ingest['mean_pass']:.1f} queries a shard pass; alone p50 "
         f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
         f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
+    co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
+    log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
+        f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
+        f"nodes), stream ttft p50 {options['ttft_p50_ms']:.1f} ms, _prepare syncs {options['prepare_syncs']}; (b) A/Bs "
+        f"{' and '.join(f'{b:.1f} vs {q:.1f}' for b, q in zip(options['ab_bf16_tps'], options['ab_q8_tps']))} tok/s "
+        f"(ratios {', '.join(f'{r:.3f}' for r in options['ab_ratios'])}) -> {options['ab_route']}, peak above the "
+        f"start {', '.join(f'{m:.1f}' for m in options['ab_peak_mib'])} MiB, boots "
+        f"{', '.join(f'{t:.2f}' for t in options['boot_ab_s'])} / {options['boot_verdict_s']:.2f} s; (c) "
+        f"coalesce {co_bf16['tok_s']:.1f} (bf16) / {co_int8['tok_s']:.1f} (int8) tok/s, syncs a decode step "
+        f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
+        f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
+        f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
+    for k in kernels:
+        counts = {part: c[k.name] for part, c in options["launches"].items() if k.name in c}
+        log(f"kernel row {k.name}: phase-12 launches {json.dumps(counts)} [{card}]")
     for label in OCR_FLASH_SHAPES:
         row = rows[f"flash_attention ({label})"]
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "

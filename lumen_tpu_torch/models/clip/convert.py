@@ -9,18 +9,21 @@ the port (Dense kernels transposed to ``nn.Linear``'s ``[out, in]``, the
 patch embedding's HWIO conv kernel flattened to ``[W, P*P*C]``, norm
 ``scale`` / embedding ``embedding`` leaves renamed ``weight``). The port's
 gate is ``CLIPModel.load_state_dict(strict=True)``: names AND shapes must
-match before any weight is served. Not ported: ``quantize_clip_int8``
-(int8 tower blocks, ROADMAP queue A: int8 routes).
+match before any weight is served. ``quantize_clip_int8`` turns the
+block projections of a cast ``state_dict`` into ``QDense``'s ``q`` +
+``scale`` (JAX ``quantize_clip_int8``).
 """
 
 from __future__ import annotations
 
 import logging
+import re
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from ...ops.quant import quantize_state_int8
 from ...runtime.weights import apply_rules, conv_kernel, linear_kernel, unflatten
 from ..vlm.convert import state_from_tree
 
@@ -205,11 +208,31 @@ def convert_clip_checkpoint(state: Mapping[str, torch.Tensor]) -> dict[str, torc
 def clip_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``params`` tree of the JAX ``CLIPModel`` (leaves as numpy or
     anything ``np.asarray`` takes) -> ``state_dict`` of the port's
-    ``CLIPModel``, in float32."""
+    ``CLIPModel``: float leaves in float32, ``QDense``'s ``q`` in int8."""
 
     def walk(node):
         if isinstance(node, Mapping):
             return {k: walk(v) for k, v in node.items()}
-        return torch.tensor(np.asarray(node, dtype=np.float32))
+        a = np.asarray(node)
+        return torch.tensor(a if a.dtype == np.int8 else np.asarray(a, dtype=np.float32))
 
     return state_from_tree(walk(flax_params))
+
+
+def _clip_quant_pattern(towers: str) -> re.Pattern:
+    """The block projections ``QDense`` replaces when ``weight_quant="int8"``
+    (JAX ``_clip_quant_pattern``), in the port's ``state_dict`` names."""
+    return re.compile(rf"^({towers})\.blocks\.\d+\.(attn\.(q|k|v|out)_proj|mlp\.fc[12])\.weight$")
+
+
+_CLIP_QUANT_WEIGHT = _clip_quant_pattern("vision|text")
+_CLIP_QUANT_WEIGHT_VISION_ONLY = _clip_quant_pattern("vision")
+
+
+def quantize_clip_int8(state: Mapping[str, torch.Tensor], include_text: bool = True) -> dict[str, torch.Tensor]:
+    """The CLIP towers' block projections as per-output-channel int8
+    (``ops.quant.quantize_linear_int8``; JAX ``quantize_clip_int8``). Apply
+    AFTER the dtype-policy cast. ``include_text=False`` keeps the text
+    tower in full precision: BERT-text models (ChineseCLIP), whose blocks
+    have no ``QDense``."""
+    return quantize_state_int8(state, _CLIP_QUANT_WEIGHT if include_text else _CLIP_QUANT_WEIGHT_VISION_ONLY)

@@ -20,11 +20,13 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   MobileCLIP2) and ``clip_backend: graph`` serve the exported towers on
   the ONNX bridge (``graph.py``), in their exported precision.
 
-Not ported: the int8 route (``quantize="int8"`` on a native checkpoint,
-the warm-up A/B of ``_pick_quant_route``); it raises
-``NotImplementedError`` naming its ROADMAP item, and the service then
-boots degraded. On graph towers ``quantize`` is ignored with the JAX
-package's warning.
+- ``quantize="int8"`` on a native checkpoint serves the tower blocks'
+  projections as ``QDense`` (W8A8 ``dynamic`` unless ``LUMEN_Q8_KERNEL``
+  says ``dequant``) on the route ``_pick_quant_route`` resolves
+  (``LUMEN_CLIP_Q8_ROUTE``: ``auto``, ``int8`` or ``bf16``; under
+  ``auto`` with ``warmup`` a timed A/B at the top serving bucket keeps
+  int8 only if it is at least as fast). On graph towers ``quantize`` is
+  ignored with the JAX package's warning.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 
 from ...core.model_info import ModelInfo, load_model_info
 from ...ops.image import IMAGENET_MEAN, IMAGENET_STD, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+from ...ops.quant import register_route_gauges, resolve_q8_kernel, resolve_q8_route
 from ...runtime.batcher import MicroBatcher, mesh_buckets, mesh_sharded, warmup_batcher
 from ...runtime.decode_pool import get_decode_pool
 from ...runtime.fleet import (
@@ -58,7 +61,8 @@ from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import WeightLoadError, load_state_dict
-from .convert import convert_clip_checkpoint
+from ...utils.metrics import metrics
+from .convert import convert_clip_checkpoint, quantize_clip_int8
 from .modeling import CLIPConfig, CLIPModel, TowerConfig
 from .tokenizer import ClipTokenizer
 
@@ -139,9 +143,18 @@ class CLIPManager:
         tsl = self.info.extra("text_serving_length")
         if tsl:
             self.cfg = dataclasses.replace(self.cfg, text_serving_length=int(tsl))
+        if self.quantize:
+            # Batch embedding is bound by the products: W8A8 ("dynamic")
+            # by default, unlike the VLM decoder's "dequant".
+            self.cfg = dataclasses.replace(
+                self.cfg, weight_quant=self.quantize, weight_quant_kernel=resolve_q8_kernel("dynamic")
+            )
         self.model_id = self.info.name
-        #: serving route ("bf16"; the int8 route is not ported)
+        #: serving route actually in use ("bf16" | "int8"): int8 is opt-in
+        #: (``quantize``) and may fall back at the warm-up A/B
         self.quant_route = "bf16"
+        #: measured q8 / bf16 image-encode speed, when the A/B ran
+        self.quant_speedup: float | None = None
         self._initialized = False
         self._image_batcher: MicroBatcher | None = None  # or ReplicaSet (fleet)
         self._text_batcher: MicroBatcher | None = None
@@ -254,25 +267,93 @@ class CLIPManager:
                 "quantize=%s ignored: the ONNX graph path runs the exported "
                 "precision as-is", self.quantize,
             )
-        if state is not None and self.quantize == "int8":
-            raise NotImplementedError(
-                "CLIP quantize=int8 (the W8A8 tower blocks and the warm-up route A/B) is not "
-                "ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
-            )
         return state
 
     def _place_native(self, state: dict[str, torch.Tensor]) -> None:
-        model = CLIPModel(self.cfg)
+        base_cfg = dataclasses.replace(self.cfg, weight_quant=None)
+        model = CLIPModel(base_cfg)
         model.load_state_dict(convert_clip_checkpoint(state), strict=True)
         model = model.to(dtype=self.policy.param_dtype).eval().requires_grad_(False)
         # The exported temperature, read once (as the JAX package reads it:
         # exp in fp32 of the policy-cast logit scale).
         self._temperature = float(np.exp(np.float32(model.logit_scale.float().item())))
+        if self.quantize == "int8":
+            route = resolve_q8_route("LUMEN_CLIP_Q8_ROUTE")
+            if route == "bf16":
+                # A bf16 pin skips the quantization pass entirely.
+                logger.info("CLIP quantize=int8 overridden to bf16 (LUMEN_CLIP_Q8_ROUTE); skipping quantization")
+            else:
+                qstate = quantize_clip_int8(model.state_dict(), include_text=self.cfg.text_arch != "bert")
+                q_model = CLIPModel(self.cfg)
+                q_model.load_state_dict(qstate, strict=True)
+                model = self._pick_quant_route(model, q_model.to(dtype=self.policy.param_dtype).eval(), route)
+            self._route_gauge_fn = register_route_gauges(self, f"clip-quant:{self.model_id}")
+        if model.cfg.weight_quant is None:
+            self.cfg = model.cfg
         # Every replica gets its own copy of the weights on its device.
         self._fleet_models = replicate_all(
             lambda mesh: copy.deepcopy(model).to(mesh.device), self.fleet_plan,
             primary=model.to(self.mesh.device),
         )
+
+    def _pick_quant_route(self, base_model: CLIPModel, q_model: CLIPModel, route: str) -> CLIPModel:
+        """Whether the int8 opt-in serves int8 (JAX ``_pick_quant_route``):
+        ``route`` (``LUMEN_CLIP_Q8_ROUTE``) ``int8`` pins it; ``auto`` (the
+        default; a malformed value warns and means it) serves int8 without ``warmup``
+        and otherwise times both routes at the top serving bucket, one
+        placement at a time (bf16 placed, timed and moved off the device,
+        then int8), keeping int8 only if it is at least as fast. Returns
+        the model to serve and sets ``quant_route`` / ``quant_speedup``."""
+        if route == "int8" or not self.warmup:
+            self.quant_route = "int8"
+            return q_model
+        device = self.mesh.device
+        t_bf16 = self._time_image_encode(base_model.to(device))
+        base_model.to("cpu")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t_q8 = self._time_image_encode(q_model.to(device))
+        self.quant_speedup = t_bf16 / max(t_q8, 1e-9)
+        if self.quant_speedup >= 1.0:
+            logger.info("CLIP int8 route confirmed: %.3fx bf16 at the top batch bucket", self.quant_speedup)
+            self.quant_route = "int8"
+            return q_model
+        logger.warning(
+            "CLIP int8 route DISABLED: the warm-up A/B measured q8 at %.3fx bf16; serving bf16 instead. "
+            "Pin LUMEN_CLIP_Q8_ROUTE=int8 to force.", self.quant_speedup,
+        )
+        metrics.count("clip_q8_fallbacks")
+        q_model.to("cpu")
+        del q_model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return base_model
+
+    @torch.inference_mode()
+    def _time_image_encode(self, model: CLIPModel) -> float:
+        """Best-of-3 wall time of one image encode at the top serving bucket
+        (normalization included, ended by a device synchronization), after
+        a settling call."""
+        device = self.mesh.device
+        bucket = mesh_buckets(self.batch_size, self.mesh.shape.get("data", 1))[-1]
+        size = self.cfg.image_size
+        mean, std = self.norm_stats
+        pixels = torch.zeros((bucket, size, size, 3), dtype=torch.uint8, device=device)
+        mu, sigma = torch.tensor(mean, device=device), torch.tensor(std, device=device)
+
+        def run() -> None:
+            x = (pixels.float() / 255.0 - mu) / sigma
+            model.encode_image(x.to(self.policy.compute_dtype))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        run()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        return min(times)
 
     def _place_graphs(self) -> None:
         """Graph towers: the exporter's own float32 weights on every
@@ -436,6 +517,8 @@ class CLIPManager:
             self._image_batcher.close()
         if self._text_batcher:
             self._text_batcher.close()
+        if fn := getattr(self, "_route_gauge_fn", None):
+            metrics.unregister_gauges(f"clip-quant:{self.model_id}", fn)
         self._initialized = False
 
     def topology(self) -> dict[str, str]:

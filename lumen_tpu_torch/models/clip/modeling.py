@@ -10,9 +10,11 @@ tower borrows ``Block`` and ``PatchEmbed``. Images are channels-last
 Every unmasked attention call (both CLIP towers) runs the port's
 ``flash_attention`` kernel on CUDA tensors; the BERT tower's padded call
 passes a mask and runs the plain version, as the JAX ``attention`` sends
-masked calls to its XLA reference. Not ported: int8 tower blocks
-(``weight_quant="int8"``, the JAX ``QDense`` ``dynamic`` W8A8 mode) --
-a config asking for them raises.
+masked calls to its XLA reference. With ``weight_quant="int8"`` the
+ViT and causal text blocks' q/k/v/out and fc1/fc2 projections are
+``QDense`` (``weight_quant_kernel``: ``dynamic`` W8A8 by default, or
+``dequant``), as the JAX ``_block_dense``; the BERT tower stays in the
+policy dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.attention import attention
+from ...ops.quant import QDense
 
 
 @dataclass(frozen=True)
@@ -60,7 +63,8 @@ class CLIPConfig:
     #: position table but queries are short; the tower slices positions
     #: to the input's length, so the tokenizer/batcher pad to this).
     text_serving_length: int | None = None
-    #: int8 tower blocks: not ported (see the module docstring).
+    #: int8 tower blocks (None | "int8"), set by the serving layer
+    #: (``CLIPManager(quantize="int8")``), not by checkpoints.
     weight_quant: str | None = None
     weight_quant_kernel: str = "dynamic"
 
@@ -132,14 +136,24 @@ def _act(name: str):
     return getattr(F, name)
 
 
+def _block_dense(in_features: int, out_features: int, quant: str | None, quant_kernel: str) -> nn.Module:
+    """Projection factory for the transformer blocks (JAX
+    ``_block_dense``): ``QDense`` when int8."""
+    if quant == "int8":
+        return QDense(in_features, out_features, kernel_mode=quant_kernel)
+    if quant is not None:
+        raise ValueError(f"weight_quant must be None or 'int8', got {quant!r}")
+    return nn.Linear(in_features, out_features)
+
+
 class Attention(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, quant: str | None = None, quant_kernel: str = "dynamic"):
         super().__init__()
         self.width, self.heads = width, heads
-        self.q_proj = nn.Linear(width, width)
-        self.k_proj = nn.Linear(width, width)
-        self.v_proj = nn.Linear(width, width)
-        self.out_proj = nn.Linear(width, width)
+        self.q_proj = _block_dense(width, width, quant, quant_kernel)
+        self.k_proj = _block_dense(width, width, quant, quant_kernel)
+        self.v_proj = _block_dense(width, width, quant, quant_kernel)
+        self.out_proj = _block_dense(width, width, quant, quant_kernel)
 
     def forward(self, x: torch.Tensor, causal: bool = False, mask: torch.Tensor | None = None) -> torch.Tensor:
         b, s, _ = x.shape
@@ -154,10 +168,10 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, width: int, hidden_act: str):
+    def __init__(self, width: int, hidden_act: str, quant: str | None = None, quant_kernel: str = "dynamic"):
         super().__init__()
-        self.fc1 = nn.Linear(width, width * 4)
-        self.fc2 = nn.Linear(width * 4, width)
+        self.fc1 = _block_dense(width, width * 4, quant, quant_kernel)
+        self.fc2 = _block_dense(width * 4, width, quant, quant_kernel)
         self.act = _act(hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -167,12 +181,15 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN residual block (CLIP layout)."""
 
-    def __init__(self, width: int, heads: int, hidden_act: str, eps: float):
+    def __init__(
+        self, width: int, heads: int, hidden_act: str, eps: float,
+        quant: str | None = None, quant_kernel: str = "dynamic",
+    ):
         super().__init__()
         self.ln1 = nn.LayerNorm(width, eps=eps)
-        self.attn = Attention(width, heads)
+        self.attn = Attention(width, heads, quant, quant_kernel)
         self.ln2 = nn.LayerNorm(width, eps=eps)
-        self.mlp = Mlp(width, hidden_act)
+        self.mlp = Mlp(width, hidden_act, quant, quant_kernel)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), causal=causal)
@@ -226,7 +243,8 @@ class VisionTower(nn.Module):
         self.position_embedding = nn.Parameter(torch.zeros(n_pos, v.width))
         self.pre_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
         self.blocks = nn.ModuleList(
-            Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps) for _ in range(v.layers)
+            Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel)
+            for _ in range(v.layers)
         )
         self.post_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(v.width, cfg.embed_dim, bias=False)
@@ -250,7 +268,8 @@ class TextTower(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, t.width)
         self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
         self.blocks = nn.ModuleList(
-            Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps) for _ in range(t.layers)
+            Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel)
+            for _ in range(t.layers)
         )
         self.final_ln = nn.LayerNorm(t.width, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(t.width, cfg.embed_dim, bias=False)
@@ -310,11 +329,6 @@ class CLIPModel(nn.Module):
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if cfg.weight_quant is not None:
-            raise NotImplementedError(
-                f"CLIP weight_quant={cfg.weight_quant!r}: int8 tower blocks (QDense 'dynamic' W8A8) "
-                "are not ported to lumen_tpu_torch yet (ROADMAP queue A: int8 routes)"
-            )
         self.cfg = cfg
         self.vision = VisionTower(cfg)
         self.text = BertTextTower(cfg) if cfg.text_arch == "bert" else TextTower(cfg)

@@ -1,5 +1,6 @@
-"""VLM family of the port: ViT vision encoder + Qwen2-style decoder on the
-paged continuous engine."""
+"""VLM family of the port: a native ViT or an exported (ONNX) vision tower
++ Qwen2-style decoder, on the paged continuous engine or the coalescing
+scheduler."""
 
 from .chat import ChatMessage, VlmTokenizer, render_chat
 from .continuous import ContinuousScheduler, PreemptionShed

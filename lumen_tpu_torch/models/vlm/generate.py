@@ -1,5 +1,7 @@
-"""Generation programs for the continuous engine (twin of the pool
-programs of ``lumen_tpu/models/vlm/generate.py``).
+"""Generation programs (twin of ``lumen_tpu/models/vlm/generate.py``):
+the continuous engine's pool programs, and the coalescing scheduler's
+fused decode (:meth:`Generator.generate`) and one-request stream
+(:meth:`Generator.stream`).
 
 PyTorch runs eagerly, so the JAX package's jitted programs are plain
 methods here: prefill (whole prompt, or one chunk of it into a
@@ -23,11 +25,15 @@ The spill tier's export and resume (:meth:`Generator.export_row`,
 A row crosses between card and host in ONE copy each way: its leaves are
 viewed as bytes and concatenated on the side they start from.
 
-Not ported yet: the fused ``while_loop`` generate and the one-request
-stream path (the continuous engine replaces both in serving).
+The JAX ``while_loop`` of the fused generate is a host loop over one
+decode step against a contiguous KV buffer here. The host tracks every
+row's length, so a step reads no device value but the one copy that
+tells the loop which rows are done (``stream``: the emitted token).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -55,12 +61,21 @@ def torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros((), dtype)).dtype
 
 
+@dataclass
+class GenerateOutput:
+    tokens: np.ndarray  # [B, max_new_cap] generated ids, pad-filled after EOS
+    n_generated: np.ndarray  # [B] count of live tokens (EOS included)
+    stopped_eos: np.ndarray  # [B] bool: hit EOS (vs the length cap)
+
+
 class Generator:
     """Decode programs for one ``VLMModel`` on one device.
 
     ``max_seq`` bounds prompt + vision + new tokens (a row's block-table
-    reach); ``seq_buckets`` are the prefill scratch lengths (a prompt's
-    scratch is the smallest bucket covering it).
+    reach, the fused decode's largest KV buffer); ``seq_buckets`` are the
+    prefill scratch lengths and the fused decode's KV buffer sizes (the
+    smallest covering the request); ``max_new_cap`` is the fused decode's
+    output width.
     """
 
     def __init__(
@@ -70,12 +85,14 @@ class Generator:
         max_seq: int = 2048,
         cache_dtype=torch.bfloat16,
         seq_buckets: tuple[int, ...] | None = None,
+        max_new_cap: int = 512,
     ):
         self.model = model
         self.cfg = cfg
         self.max_seq = max_seq
+        self.max_new_cap = max_new_cap
         self.cache_dtype = cache_dtype
-        self.device = next(model.parameters()).device
+        self.device = next(model.decoder.parameters()).device
         buckets = sorted(set(b for b in (seq_buckets or ()) if b <= max_seq))
         if not buckets or buckets[-1] != max_seq:
             buckets.append(max_seq)
@@ -85,13 +102,14 @@ class Generator:
 
     def _seen_from_prompt(self, prompt_ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """[B, V] bool mask of tokens in the (unpadded) prompt, for the
-        repetition penalty."""
+        repetition penalty. Padding scatters into a spare column, so no
+        device value is read back."""
         b, s = prompt_ids.shape
+        v = self.cfg.decoder.vocab_size
         valid = torch.arange(s, device=prompt_ids.device)[None, :] < lengths[:, None]
-        seen = torch.zeros((b, self.cfg.decoder.vocab_size), dtype=torch.bool, device=prompt_ids.device)
-        rows = torch.arange(b, device=prompt_ids.device)[:, None].expand(b, s)
-        seen[rows[valid], prompt_ids.long()[valid]] = True
-        return seen
+        idx = torch.where(valid, prompt_ids.long(), v)
+        seen = torch.zeros((b, v + 1), dtype=torch.bool, device=prompt_ids.device)
+        return seen.scatter_(1, idx, True)[:, :v].contiguous()
 
     def _sample_next(self, logits, seen, temperature, top_p, do_sample, rep, generator, any_sample=None):
         logits = apply_repetition_penalty(logits.float(), seen, rep)
@@ -147,6 +165,107 @@ class Generator:
             last, seen, temperature, top_p, do_sample, repetition_penalty, generator
         ).int()
         return tok0, seen
+
+    # -- fused decode and one-request stream (the coalescing scheduler) -------
+
+    def _row_params(self, b: int, temperature, top_p, do_sample, repetition_penalty):
+        """Per-row sampling params on the device (each a scalar or a length-B
+        sequence) and the host's knowledge of whether any row samples."""
+        dev = self.device
+
+        def rows(value, dtype):
+            return np.array(np.broadcast_to(np.asarray(value, dtype), (b,)))
+
+        temp, smp = rows(temperature, np.float32), rows(do_sample, bool)
+        params = [torch.as_tensor(a, device=dev) for a in (
+            temp, rows(top_p, np.float32), smp, rows(repetition_penalty, np.float32))]
+        return params, bool(np.any(smp & (temp > 1e-6)))
+
+    def _decode_step(self, caches, cur_tok, cur_len, kv_bound: int, seen, generator, params, any_sample):
+        """One token per row against the contiguous ``caches`` at per-row
+        slot ``cur_len``: returns the next token [B] (int32)."""
+        tok_embed = self.model.embed_tokens(cur_tok.long()[:, None]).to(self.cache_dtype)
+        logits, _ = self.model.decode(tok_embed, cur_len[:, None], caches, cur_len, cur_len + 1, kv_bound=kv_bound)
+        return self._sample_next(logits[:, 0], seen, *params, generator, any_sample).int()
+
+    @torch.no_grad()
+    def generate(
+        self, embeds, positions, lengths, prompt_ids, generator,
+        max_new_tokens=256, temperature=0.0, top_p=1.0, do_sample=False, repetition_penalty=1.0,
+    ) -> GenerateOutput:
+        """Prefill plus decode to EOS or each row's budget (JAX
+        ``generate``): ``embeds`` [B, L, H] right-padded merged prompts,
+        ``positions`` [B, L], ``lengths`` [B] live counts, ``prompt_ids``
+        [B, S] (repetition penalty). Each generation param is a scalar or a
+        length-B sequence; ``max_new_tokens`` is capped at ``max_new_cap``,
+        and a row with a zero budget emits nothing. The KV buffer is the
+        smallest ``seq_buckets`` entry covering the PADDED prompt plus the
+        largest budget. Emission semantics are the JAX loop body's; the
+        loop stops when every row is done. A step reads back one [B] bool
+        copy (which rows are done); the host tracks the lengths, so the
+        cache decode's key ladder costs no read. Returns host arrays."""
+        b = embeds.shape[0]
+        dev = self.device
+        cfg = self.cfg
+        cap = np.minimum(np.broadcast_to(np.asarray(max_new_tokens, np.int64), (b,)), self.max_new_cap)
+        need = int(embeds.shape[1]) + int(cap.max())
+        kv_len = next((s for s in self.seq_buckets if s >= need), self.max_seq)
+        len_h = (lengths.cpu().numpy() if isinstance(lengths, torch.Tensor) else np.asarray(lengths)).astype(np.int64)
+        lengths = torch.as_tensor(len_h, device=dev)
+        params, any_sample = self._row_params(b, temperature, top_p, do_sample, repetition_penalty)
+        caches, last = self._prefill_core(embeds, positions, lengths, kv_len)
+        seen = self._seen_from_prompt(prompt_ids, lengths)
+        cur_tok = self._sample_next(last, seen, *params, generator, any_sample).int()
+        max_new = torch.as_tensor(cap, dtype=torch.int32, device=dev)
+        done_h = cap <= 0
+        done = torch.as_tensor(done_h, device=dev)
+        eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+        n_gen = torch.zeros((b,), dtype=torch.int32, device=dev)
+        buf = torch.full((b, self.max_new_cap), cfg.pad_token_id, dtype=torch.int32, device=dev)
+        cur_len, cur_len_h = lengths.int(), len_h.copy()
+        rows = torch.arange(b, device=dev)
+        t = 0
+        while t < cap.max() and not done_h.all():
+            active, active_h = ~done, ~done_h
+            buf[:, t] = torch.where(active, cur_tok, cfg.pad_token_id)
+            n_gen += active.int()
+            seen[rows, cur_tok.long()] |= active
+            eos |= active & (cur_tok == cfg.eos_token_id)
+            done = done | eos | (n_gen >= max_new)
+            cur_tok = self._decode_step(
+                caches, cur_tok, cur_len, int(cur_len_h.max()) + 1, seen, generator, params, any_sample
+            )
+            cur_len = cur_len + active.int()
+            cur_len_h += active_h
+            t += 1
+            done_h = done.cpu().numpy()
+        return GenerateOutput(tokens=buf.cpu().numpy(), n_generated=n_gen.cpu().numpy(), stopped_eos=eos.cpu().numpy())
+
+    @torch.no_grad()
+    def stream(
+        self, embeds, positions, lengths, prompt_ids, generator,
+        max_new_tokens: int = 256, temperature: float = 0.0, top_p: float = 1.0,
+        do_sample: bool = False, repetition_penalty: float = 1.0,
+    ):
+        """Yield one request's generated token ids one at a time (JAX
+        ``stream``; batch 1): prefill into a ``max_seq`` buffer, then one
+        decode step per token, whose id is the step's one read back. Stops
+        after EOS or ``max_new_tokens``."""
+        len_h = int(lengths[0]) if not isinstance(lengths, torch.Tensor) else int(lengths.cpu()[0])
+        lengths = torch.tensor([len_h], device=self.device)
+        params, any_sample = self._row_params(1, temperature, top_p, do_sample, repetition_penalty)
+        caches, last = self._prefill_core(embeds, positions, lengths)
+        seen = self._seen_from_prompt(prompt_ids, lengths)
+        tok = self._sample_next(last, seen, *params, generator, any_sample).int()
+        cur_len = lengths.int()
+        for t in range(min(int(max_new_tokens), self.max_new_cap)):
+            tok_host = int(tok[0])
+            yield tok_host
+            if tok_host == self.cfg.eos_token_id:
+                return
+            seen[0, tok_host] = True
+            tok = self._decode_step(caches, tok, cur_len, len_h + t + 1, seen, generator, params, any_sample)
+            cur_len = cur_len + 1
 
     # -- continuous-batching pool (paged KV) ---------------------------------
 

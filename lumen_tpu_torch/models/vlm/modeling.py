@@ -50,7 +50,8 @@ class DecoderConfig:
     # stay in the policy dtype. Set by the serving layer
     # (``VLMManager(quantize="int8")``), not by checkpoints.
     weight_quant: str | None = None  # None | "int8"
-    #: int8 execution mode; only "dequant" is ported ("dynamic" raises).
+    #: int8 execution mode: "dequant" (weight-only) or "dynamic" (W8A8),
+    #: from ``LUMEN_Q8_KERNEL`` (``ops.quant.resolve_q8_kernel``).
     weight_quant_kernel: str = "dequant"
 
     @property
@@ -216,7 +217,7 @@ class DecoderAttention(nn.Module):
         self.v_proj = _dense(cfg, cfg.hidden_size, cfg.kv_heads * dh, True)
         self.o_proj = _dense(cfg, cfg.heads * dh, cfg.hidden_size, False)
 
-    def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None):
+    def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         """``x`` [B, S, hidden]. With a contiguous cache, new K/V are
         written at ``cache_offset`` (an int for a prefill segment shared
         by the batch, a [B] tensor for one decode token per row) and
@@ -227,7 +228,8 @@ class DecoderAttention(nn.Module):
         kernel over the row's pages only -- one decode token (s == 1), or
         the speculative verify window (s > 1), where ``kv_valid_len``
         stays the t = 0 visibility and slot t sees ``kv_valid_len + t``
-        keys."""
+        keys. ``kv_bound`` is ``kv_valid_len.max()`` as the caller's host
+        loop knows it (see ``attention_cached``)."""
         c = self.cfg
         b, s, _ = x.shape
         dh = c.dim_per_head
@@ -275,6 +277,7 @@ class DecoderAttention(nn.Module):
                 repeat_kv(cache["v"].to(x.dtype), n_rep),
                 q_offsets=positions[:, 0],
                 kv_valid=kv_valid_len,
+                kv_bound=kv_bound,
             )
         else:
             # Cacheless forward: positions are arange rows, so the mask is
@@ -305,9 +308,9 @@ class DecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = SwiGLU(cfg)
 
-    def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None):
+    def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         h, cache = self.attn(
-            self.input_norm(x), positions, cache, cache_offset, kv_valid_len, block_tables
+            self.input_norm(x), positions, cache, cache_offset, kv_valid_len, block_tables, kv_bound
         )
         x = x + h
         return x + self.mlp(self.post_attn_norm(x)), cache
@@ -330,12 +333,12 @@ class Decoder(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
 
-    def forward(self, embeds, positions, caches, cache_offset, kv_valid_len, block_tables=None):
+    def forward(self, embeds, positions, caches, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         x = embeds
         for i, layer in enumerate(self.layers):
             x, _ = layer(
                 x, positions, caches[i] if caches is not None else None,
-                cache_offset, kv_valid_len, block_tables,
+                cache_offset, kv_valid_len, block_tables, kv_bound,
             )
         x = self.final_norm(x)
         if self.lm_head is None:
@@ -381,8 +384,10 @@ class VLMModel(nn.Module):
     def embed_tokens(self, input_ids):
         return self.decoder.embed(input_ids)
 
-    def decode(self, embeds, positions, caches, cache_offset, kv_valid_len):
-        return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len)
+    def decode(self, embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=None):
+        """Decode against a contiguous KV cache; ``kv_bound`` is the host's
+        ``kv_valid_len.max()`` for a single-token step (no sync)."""
+        return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=kv_bound)
 
     def decode_paged(self, embeds, positions, caches, block_tables, cache_offset, kv_valid_len):
         """Decode against the paged KV pool: one token per row, or a

@@ -68,6 +68,28 @@ class OnnxModule:
         self.input_names = [vi.name for vi in graph.inputs]
         self.output_names = [vi.name for vi in graph.outputs]
         self._validate_ops()
+        self._release_after = self._release_plan(graph, set(self.output_names))
+
+    @staticmethod
+    def _release_plan(graph: OnnxGraph, outputs: set[str]) -> list[tuple[str, ...]]:
+        """For each node, the values that no later node reads and that are
+        no graph output: a forward drops them once the node ran, so it
+        holds only its live intermediates (not every value of the graph
+        until the end). The graph has no subgraph ops, so every read is a
+        node input."""
+        last: dict[str, int] = {}
+        for i, node in enumerate(graph.nodes):
+            for name in node.inputs:
+                if name:
+                    last[name] = i
+            for name in node.outputs:
+                if name:
+                    last.setdefault(name, i)  # an output nothing reads goes at once
+        plan: list[list[str]] = [[] for _ in graph.nodes]
+        for name, i in last.items():
+            if name not in outputs:
+                plan[i].append(name)
+        return [tuple(p) for p in plan]
 
     @staticmethod
     def _static_only_initializers(graph: OnnxGraph) -> set[str]:
@@ -161,7 +183,7 @@ class OnnxModule:
                 value = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=_TORCH_DTYPES[a.dtype])
             env[name] = value
         ctx = _Ctx(self.opset, device, self)
-        for node in self.graph.nodes:
+        for node, dead in zip(self.graph.nodes, self._release_after):
             vals = [env[i] if i else None for i in node.inputs]
             fn = OP_REGISTRY[node.op_type]
             try:
@@ -175,6 +197,9 @@ class OnnxModule:
             for name, val in zip(node.outputs, outs):
                 if name:
                     env[name] = val
+            del vals, outs
+            for name in dead:
+                env.pop(name, None)
         return [env[name] for name in self.output_names]
 
     def bind(self, dtype: torch.dtype | None = None, device=None):

@@ -379,21 +379,34 @@ def attention(q, k, v, mask=None, causal: bool = False, scale: float | None = No
 _RAGGED_DECODE_MIN = 256
 
 
-def attention_cached(q, k, v, q_offsets, kv_valid, scale: float | None = None):
+def ragged_decode_length(bound: int, sk: int) -> int:
+    """Keys a single-token cache decode reads of an ``sk``-slot buffer:
+    the live prefix ``bound`` (the largest ``kv_valid`` of the batch)
+    rounded up a doubling ladder from :data:`_RAGGED_DECODE_MIN`, at most
+    ``sk`` (JAX ``attention_cached``)."""
+    if sk <= _RAGGED_DECODE_MIN:
+        return sk
+    length = _RAGGED_DECODE_MIN
+    while length < min(bound, sk):
+        length *= 2
+    return min(length, sk)
+
+
+def attention_cached(q, k, v, q_offsets, kv_valid, scale: float | None = None, kv_bound: int | None = None):
     """Cache-path dispatch (JAX ``attention_cached``): multi-token queries
     (prefill chunks) go to :func:`flash_attention_cache`. A single-token
     query takes the plain ragged ladder -- the live prefix rounded up a
-    doubling ladder of lengths -- as it is plain XLA in JAX; the
-    continuous engine never takes it (its decode is paged)."""
+    doubling ladder of lengths (:func:`ragged_decode_length`) -- as it is
+    plain XLA in JAX; the continuous engine never takes it (its decode is
+    paged). ``kv_bound`` is ``kv_valid.max()`` as the caller's host loop
+    knows it: the decode loops pass it, so a step reads no device value
+    back; without it the ladder reads ``kv_valid`` (a device-to-host sync
+    on the card)."""
     sq, sk = q.shape[2], k.shape[2]
     if sq > 1:
         return flash_attention_cache(q, k, v, q_offsets, kv_valid, scale)
     if sk > _RAGGED_DECODE_MIN:
-        bound = int(kv_valid.max())
-        length = _RAGGED_DECODE_MIN
-        while length < min(bound, sk):
-            length *= 2
-        length = min(length, sk)
+        length = ragged_decode_length(int(kv_valid.max()) if kv_bound is None else kv_bound, sk)
         k, v = k[:, :, :length], v[:, :, :length]
     return _decode_masked(q, k, v, q_offsets, kv_valid, scale)
 

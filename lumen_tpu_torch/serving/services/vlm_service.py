@@ -6,8 +6,9 @@ the reference ``GeneralFastVLMService``,
 chat messages ride as JSON in request ``meta``, the image is the payload,
 generation knobs are meta fields, and ``vlm_generate_stream`` emits true
 incremental ``InferResponse`` chunks through ``BaseService``'s streaming
-path. The manager is the port's ``VLMManager`` on the paged continuous
-engine, on the device the server hands ``from_config``. Not ported yet:
+path. The manager is the port's ``VLMManager`` (the paged continuous
+engine, or the coalescing scheduler with ``scheduler: coalesce``), on the
+device the server hands ``from_config``. Not ported yet:
 the disaggregated-decode sink (``handle_kv_put`` and its ``_kv_*``
 helpers).
 """
@@ -71,20 +72,22 @@ class VlmService(BaseService):
         if bs.batch_buckets:
             kw["prefill_buckets"] = tuple(bs.batch_buckets)
         # batch_size is the decode batch: the continuous engine's slot
-        # count. Configs sized for a CLIP-style image batch (e.g. 256) are
-        # clamped to a sane decode width instead of allocating hundreds of
-        # slots.
+        # count, the coalescer's batch and stream bound. Configs sized for a
+        # CLIP-style image batch (e.g. 256) are clamped to a sane decode
+        # width instead of allocating hundreds of slots.
         gen_batch = max(1, min(bs.batch_size, 16))
         if gen_batch != bs.batch_size:
             logger.warning(
                 "vlm batch_size %d clamped to %d (decode batch)", bs.batch_size, gen_batch
             )
-        if bs.scheduler != "continuous":
-            logger.warning("vlm scheduler %r is not ported; serving the continuous engine", bs.scheduler)
         manager = VLMManager.from_model_dir(
             model_dir,
             device=device,
             dtype=bs.dtype,
+            warmup=bs.warmup,
+            gen_batch_size=gen_batch,
+            gen_batch_latency_ms=bs.max_batch_latency_ms,
+            scheduler=bs.scheduler,
             gen_slots=gen_batch,  # pool width = configured decode batch
             gen_block=bs.decode_block,
             quantize=bs.quantize,
@@ -93,13 +96,11 @@ class VlmService(BaseService):
         return cls(manager)
 
     def capability(self):
-        # Suggested client concurrency = the decode width the engine
-        # coalesces (the slot pool), as in the JAX service.
         runtime = "torch-cuda" if self.manager.device.type == "cuda" else "torch-cpu"
         return self.registry.build_capability(
             model_ids=[self.manager.model_id],
             runtime=runtime,
-            max_concurrency=max(1, self.manager.gen_slots),
+            max_concurrency=self.manager.max_concurrency,
             precisions=["bf16", "fp32"]
             + (["int8"] if self.manager.quant_route == "int8" else []),
             extra={
@@ -110,7 +111,7 @@ class VlmService(BaseService):
                 "bulk_stream": "1",  # many-items-per-stream Infer lane
                 "qos": qos_service_extra("vlm"),
                 "quant_route": self.manager.quant_route,
-                "scheduler": "continuous",
+                "scheduler": self.manager.scheduler,
                 "kv_layout": self.manager.kv_layout(),
                 **self.manager.topology(),
                 # Disaggregation lane only when configured.

@@ -1,8 +1,8 @@
 """Shared env-knob parsing: numeric ``LUMEN_*`` reads with loud typos.
 
-The port's own copy of ``lumen_tpu/utils/env.py`` (``env_int`` and
-``env_float`` only, which the port reads); the port imports nothing of
-the JAX package.
+The port's own copy of ``lumen_tpu/utils/env.py`` (``env_int``,
+``env_float`` and ``env_choice``, which the port reads); the port imports
+nothing of the JAX package.
 
 Every layer of the stack reads tuning knobs from the environment, and the
 house policy is *degrade, don't crash*: a malformed value falls back to
@@ -91,3 +91,30 @@ def env_float(
     except ValueError:
         _warn_once(name, raw, default)
         return default
+
+
+def env_choice(
+    name: str,
+    default: str | None,
+    choices: tuple[str, ...],
+) -> str | None:
+    """Enum twin of :func:`env_int`: the value must be one of ``choices``
+    (matched case-insensitively, returned in the canonical spelling);
+    unset -> ``default`` silently, anything else -> ``default`` with a
+    one-shot warning naming the knob, the bad value and the legal set."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    lowered = raw.strip().lower()
+    for choice in choices:
+        if lowered == choice.lower():
+            return choice
+    with _warned_lock:
+        first = name not in _warned
+        _warned.add(name)
+    if first:
+        logger.warning(
+            "malformed env knob %s=%r (expected one of %s); using default %r",
+            name, raw, "|".join(choices), default,
+        )
+    return default

@@ -11,7 +11,8 @@ pinned pool that all spill and resume, greedy answers equal alone and to
 phase 6's, prefix hits with fewer chunks than cold, a result-cache
 answer, the sidecar's metrics and the spill round trip. Phases 8, 9 and
 10 run the same way at tiny widths (CLIP, then face and graph CLIP, then
-OCR and the full tier), and phase 11 at small sizes (ingest and search).
+OCR and the full tier), phase 11 at small sizes (ingest and search), and
+phase 12 (the VLM and CLIP options) with a tiny FastViTHD stand-in.
 """
 
 from __future__ import annotations
@@ -182,3 +183,31 @@ def test_chip_smoke_ingest_drive_runs_on_cpu(clip_drive, face_drive, ocr_drive):
     assert out["stats"]["items"] == 8 and out["stats"]["batches"] == 2
     assert not any(out["warm_launches"].values())
     assert len(out["flood_counts"]) >= 2
+
+
+def test_chip_smoke_vlm_options_drive_runs_on_cpu(clip_drive):
+    """Phase 12 at small sizes on the CPU, after phases 6 and 8: a
+    FastVLM-style directory with the FastViTHD stand-in at tiny widths
+    (still 1024 px, 256 tokens) served over gRPC with every answer equal
+    to its rerun alone and the tower equal to the stand-in module; the
+    int8 route's A/B twice, its verdict file and a boot that reads it; the coalescer in bf16
+    and int8; and CLIP W8A8 at a batch of 8 against phase 8's answers."""
+    from lumen_tpu_torch.testing.fastvlm_standins import FastViTHDConfig
+
+    root, phase8, phase6 = clip_drive
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("PHASE12_GRAPH_KERNELS", "PHASE12_COALESCE_KERNELS", "PHASE12_COALESCE_INT8_KERNELS",
+                     "PHASE12_CLIP_KERNELS"):
+            mp.setattr(chip_smoke, name, ())
+        mp.setenv("LUMEN_CACHE_BYTES", str(256 << 20))
+        try:
+            out = chip_smoke.drive_vlm_options(0, "cpu", root, phase6, phase8, device="cpu",
+                                               tower_cfg=FastViTHDConfig.tiny(hidden_size=128, image_size=1024),
+                                               n_captions=3, n_streams=1, tokens=4, clip_batch=8)
+        finally:
+            reset_result_cache()
+    assert out["tower_err"] <= chip_smoke.GRAPH_TOWER_TOL and out["tower_nodes"] > 100
+    assert out["ab_route"] in ("int8", "bf16") and len(out["ab_ratios"]) == 2
+    assert min(out["ab_bf16_tps"]) > 0 and min(out["ab_q8_tps"]) > 0
+    assert out["clip_cos"] >= chip_smoke.Q8_CLIP_COSINE
+    assert not any(n for launches in out["launches"].values() for n in launches.values())  # plain paths

@@ -266,3 +266,27 @@ def test_ocr_slice_modules_are_checked():
     lib = Path(native._LIB_PATH)
     assert lib.parent == ROOT / "build" / "lumen_tpu_torch" / "native"
     assert (PORT / "native" / "_src" / "host_ops.cpp").read_bytes() != b""
+
+
+def test_vlm_and_clip_option_modules_are_checked(tmp_path):
+    """The VLM graph tower, the FastViTHD stand-in and the int8 routes are
+    among the modules the import check loads, and their entry points
+    default to the card: without one they raise before serving."""
+    mods = _port_modules()
+    for mod in ("lumen_tpu_torch.models.vlm.graph", "lumen_tpu_torch.testing.fastvlm_standins",
+                "lumen_tpu_torch.ops.quant", "lumen_tpu_torch.models.clip.convert"):
+        assert mod in mods
+    if torch.cuda.is_available():
+        return
+    from lumen_tpu_torch.models.vlm import VLMConfig, VLMManager, VLMModel
+    from lumen_tpu_torch.models.vlm.graph import VisionGraph
+    from lumen_tpu_torch.onnx_bridge import OnnxModule
+    from lumen_tpu_torch.testing.onnx_export import export_onnx
+
+    path = export_onnx(torch.nn.Conv2d(3, 4, 1), (torch.zeros(1, 3, 4, 4),), str(tmp_path / "vision.onnx"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VisionGraph(OnnxModule.from_path(path)).bind()
+    state = VLMModel(VLMConfig.tiny()).state_dict()
+    for kw in ({"scheduler": "coalesce"}, {"quantize": "int8"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            VLMManager(VLMConfig.tiny(), state, tokenizer=object(), **kw)

@@ -9,12 +9,15 @@ every output must agree within the JAX suite's own bound
 absolute where that suite allows it, the transformer graphs).
 
 Then the port's own mechanics: a shape subgraph stays numpy (a
-``Shape``-fed ``Reshape`` never reads a device value), ``place``/``bind``
+``Shape``-fed ``Reshape`` never reads a device value), a forward drops
+each value after its last reader, ``place``/``bind``
 place (and cast) the weights, an unsupported op raises at load, and
 declared dynamic axes run at another batch size.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import pytest
@@ -153,6 +156,56 @@ def test_scrfd_style_multioutput(tmp_path):
     assert len(PortModule.from_path(path).output_names) == 9
 
 
+class _UnfoldedBN(nn.Module):
+    """A BatchNorm after a residual add (no conv to fold it into)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(8, 8, 3, 1, 1)
+        self.bn = nn.BatchNorm2d(8)
+        with torch.no_grad():
+            self.bn.running_mean.uniform_(-0.5, 0.5)
+            self.bn.running_var.uniform_(0.5, 2.0)
+
+    def forward(self, x):
+        return self.bn(x + self.conv(x))
+
+
+def _fastvit_case(name: str):
+    """(module, input, op types the export must contain) for one piece of
+    a FastViT-style tower (``lumen_tpu_torch/testing/fastvlm_standins.py``)."""
+    from lumen_tpu_torch.testing import fastvlm_standins as fv
+
+    torch.manual_seed(7)
+    if name == "depthwise 7x7 and grouped stride-2 7x7":
+        return nn.Sequential(nn.Conv2d(8, 8, 7, 1, 3, groups=8), nn.Conv2d(8, 16, 7, 2, 3, groups=8)), \
+            torch.randn(2, 8, 16, 16), {"Conv"}
+    if name == "unfolded BatchNormalization":
+        return _UnfoldedBN(), torch.randn(2, 8, 8, 8), {"BatchNormalization"}
+    if name == "Erf GELU":
+        return nn.Sequential(nn.Conv2d(8, 8, 1), nn.GELU()), torch.randn(2, 8, 8, 8), {"Erf"}
+    if name == "channel LayerNorm":
+        return fv.LayerNormChannel(8), torch.randn(2, 8, 6, 6), {"ReduceMean", "Pow", "Sqrt"}
+    if name == "GlobalAveragePool squeeze-excite":
+        return fv.SqueezeExcite(16, 0.25), torch.randn(2, 16, 5, 5), {"GlobalAveragePool", "Sigmoid"}
+    if name == "attention over 5-D reshapes":
+        return fv.Attention(16, 4), torch.randn(2, 16, 4, 4), {"MatMul", "Softmax", "Reshape", "Transpose"}
+    return fv.fastvithd_standin(3, fv.FastViTHDConfig.tiny()), torch.randn(2, 3, 128, 128), {"Conv", "Erf"}
+
+
+@pytest.mark.parametrize("name", [
+    "depthwise 7x7 and grouped stride-2 7x7", "unfolded BatchNormalization", "Erf GELU", "channel LayerNorm",
+    "GlobalAveragePool squeeze-excite", "attention over 5-D reshapes", "FastViTHD stand-in (tiny)",
+])
+def test_fastvit_op_mix(tmp_path, name):
+    """Each op pattern a FastViT export brings (the VLM's graph tower)
+    loads on both bridges (an unsupported op raises at load) and agrees;
+    the export really holds the pattern's op types."""
+    model, x, ops = _fastvit_case(name)
+    path = assert_bridges_match(model.eval(), (x,), tmp_path)
+    assert ops <= {n.op_type for n in PortModule.from_path(path).graph.nodes}
+
+
 def test_reduce_arg_and_topk(tmp_path):
     class Heads(nn.Module):
         def forward(self, x):
@@ -270,6 +323,47 @@ def test_static_constants_are_copied_once(tmp_path):
     np.testing.assert_allclose(second.numpy(), Pick()(2 * x).numpy(), atol=1e-6)
     jout, tout = run_both(path, [x.numpy()])
     np.testing.assert_allclose(tout[0], jout[0], atol=ATOL, rtol=RTOL)
+
+
+def test_a_forward_holds_only_live_intermediates(tmp_path, monkeypatch):
+    """A forward drops each value once no later node reads it: along a
+    chain of 12 Tanh nodes, at most the node's own input and the value it
+    is about to replace are alive (was: every value until the end, which
+    ran the card out of memory with ten FastViTHD forwards at once). The
+    graph's second output, read midway, stays alive to the end."""
+
+    class Chain(nn.Module):
+        def forward(self, x):
+            h = x
+            mid = None
+            for i in range(12):
+                h = torch.tanh(h) * 1.5
+                if i == 3:
+                    mid = h
+            return h, mid
+
+    x = torch.randn(2, 16)
+    path = str(tmp_path / "m.onnx")
+    export_onnx(Chain(), (x,), path, input_names=["x"])
+    mod = PortModule.from_path(path)
+    made, alive = [], []
+    real_tanh = port_ops.OP_REGISTRY["Tanh"]
+
+    def spy(node, vals, ctx):
+        alive.append(sum(r() is not None for r in made))
+        outs = real_tanh(node, vals, ctx)
+        made.append(weakref.ref(outs[0]))
+        return outs
+
+    monkeypatch.setitem(port_ops.OP_REGISTRY, "Tanh", spy)
+    out, mid = mod(mod.params, {"x": x})
+    assert len(alive) == 12 and max(alive) <= 1, alive
+    want_out, want_mid = Chain()(x)
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), atol=1e-6)
+    np.testing.assert_allclose(mid.numpy(), want_mid.numpy(), atol=1e-6)
+    jout, tout = run_both(path, [x.numpy()])
+    for j, t in zip(jout, tout):
+        np.testing.assert_allclose(t, j, atol=ATOL, rtol=RTOL)
 
 
 def test_place_and_bind_place_the_weights(tmp_path):

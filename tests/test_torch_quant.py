@@ -221,8 +221,11 @@ class TestQDense:
         assert set(layer.state_dict()) == {"q", "scale", "bias"}
 
     def test_dynamic_mode_waits_for_the_clip_slice(self):
-        with pytest.raises(NotImplementedError, match="CLIP"):
-            QDense(8, 8, kernel_mode="dynamic")
+        # The W8A8 mode came with the CLIP int8 slice: it builds and keeps
+        # the int8 layout (held to JAX by tests/test_torch_clip_quant.py);
+        # an unknown mode still raises.
+        layer = QDense(8, 8, kernel_mode="dynamic").to(torch.bfloat16)
+        assert layer.kernel_mode == "dynamic" and layer.q.dtype == torch.int8
         with pytest.raises(ValueError):
             QDense(8, 8, kernel_mode="int4")
 
