@@ -201,11 +201,39 @@ Phases (any failure exits non-zero):
    in int8), (d) ``flash_attention``; their launch counts are printed
    beside each kernel's row.
 
-Every run drives all twelve phases. The kernel table's launch counts are
+13. a disaggregated fleet on the one card: a prefill host
+   (``LUMEN_FED_ROLE=prefill``) and a front tier (no service,
+   ``LUMEN_FED_PEERS`` naming both backends) in processes of their own
+   (the server CLI under ``--serve-host``, which reports what each launched),
+   the decode host (``LUMEN_FED_ROLE=decode``) ``serve()``
+   in this process, all on phase 6's directory at full width. (a) 8 greedy
+   ``vlm_generate`` and 2 streams of phase 6's JPEGs through the front, 8 in
+   flight (the streams first), 32 new tokens: every row's KV pages migrate
+   after prefill
+   (``migrated_out`` = ``migrated_in`` = 10, no fallback, no rejection), each
+   answer equals the same request on one colocated host, the decode host
+   launches ``flash_attention_cache`` 0 times and ``paged_attention`` more
+   than 0, both hosts end with no live page; the bytes a row ships, the
+   decode host's time from a commit's frame to its row admitted and from
+   there to the first token, one commit frame's loopback rate, TTFT and
+   tok/s migrated and colocated. (b) the decode host stops while 2 streams
+   decode on it: both finish on the prefill host's ladder, equal to their
+   control, no token repeated. (c) SIGTERM to the prefill host with
+   ``LUMEN_DRAIN_ANNOUNCE_S``: the front records one drain handoff and no
+   ``fed_peer_down`` for it. (d) two ``search`` backends behind a front hold
+   50,000 seeded unit vectors at dim 512 in 8 shards (each backend the rows
+   of the shards the front's ring gives it); 128 queries at k = 10 equal
+   the exact oracle outside near-ties. The front tier must launch nothing and
+   never initialize CUDA, and every host must exit 0 with its report.
+
+A run with no arguments drives all thirteen phases (``--phases 13``, a
+developer's shortcut, drives the listed ones and those they read, and
+prints neither of the last two lines). The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
 for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
-phase 10 beside its two OCR rows (timed in phase 2). The last two lines are the
+phase 10 beside its two OCR rows (timed in phase 2), phase 13 beside every
+kernel's row (decode and prefill hosts). The last two lines are the
 kernel table (JSON) and the device line the harness reads; the card's
 name and power limit precede them.
 """
@@ -3920,57 +3948,6 @@ def match_near(got: list, want: list, thr: float, tol: float, what: str, iou_min
     return out
 
 
-class ServerProcess:
-    """``python -m lumen_tpu_torch.serving.server`` in a process of its own
-    on a free loopback port, started at construction; :meth:`wait` gives a
-    stub once its ``Health`` answers, :meth:`stop` ends it (and kills it if
-    it does not end)."""
-
-    def __init__(self, yaml_path: Path, device: str, log_path: Path, extra_env: dict):
-        import socket
-
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            self.port = sock.getsockname()[1]
-        self.log = open(log_path, "w")
-        cmd = [sys.executable, "-m", "lumen_tpu_torch.serving.server", "--config", str(yaml_path),
-               "--skip-download", "--port", str(self.port), "--device", device]
-        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
-                                     env={**os.environ, "PYTHONPATH": str(ROOT), "LUMEN_DRAIN_S": "0", **extra_env})
-        self.channel = None
-
-    def wait(self, timeout: float = 300.0):
-        import grpc
-        from google.protobuf import empty_pb2
-
-        from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
-
-        self.channel = grpc.insecure_channel(f"127.0.0.1:{self.port}")
-        stub = InferenceStub(self.channel)
-        t0 = time.perf_counter()
-        while True:
-            if self.proc.poll() is not None:
-                raise AssertionError(f"the server process exited with {self.proc.returncode}: {self.log.name}")
-            try:
-                stub.Health(empty_pb2.Empty(), timeout=10)
-                return stub
-            except grpc.RpcError:
-                if time.perf_counter() - t0 > timeout:
-                    raise
-                time.sleep(0.2)
-
-    def stop(self) -> None:
-        if self.channel is not None:
-            self.channel.close()
-        self.proc.terminate()
-        try:
-            self.proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            self.proc.wait(timeout=30)
-        self.log.close()
-
-
 def drive_ingest(seed: int, card: str, root: Path, phase8: dict, phase9: dict, phase10: dict, device: str = "cuda:0",
                  n_photos: int = 128, n_captions: int = 16, n_square: int = 32, batch_size: int = 64,
                  photo_hw=(1200, 1600),
@@ -4039,9 +4016,10 @@ def drive_ingest(seed: int, card: str, root: Path, phase8: dict, phase9: dict, p
         return bytes(payload), meta
 
     # (a run on the CPU keeps the second server to one intra-op thread)
-    vlm_server = ServerProcess(ocr_yaml(work / "vlm.yaml", root / "cache", {"vlm": tier["vlm"]}), device,
-                               work / "vlm_server.log", {"LUMEN_VLM_SPEC_K": "0", "LUMEN_GRPC_WORKERS": str(in_flight + 8),
-                                                         **({} if on_card else {"OMP_NUM_THREADS": "1"})})
+    vlm_server = ServerProcess("the VLM server", ocr_yaml(work / "vlm.yaml", root / "cache", {"vlm": tier["vlm"]}),
+                               free_port(), device, work / "vlm_server.log",
+                               {"LUMEN_VLM_SPEC_K": "0", "LUMEN_GRPC_WORKERS": str(in_flight + 8), "LUMEN_DRAIN_S": "0",
+                                **({} if on_card else {"OMP_NUM_THREADS": "1"})})
     with env(LUMEN_VLM_SPEC_K="0", LUMEN_ANN_DIM=str(dim), LUMEN_GRPC_WORKERS=str(4 * in_flight + 8)):
         try:
             handle, channel, stub, boot_s = boot_server(yaml_path, device)
@@ -4888,6 +4866,604 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
     return out
 
 
+# -- phase 13: a disaggregated fleet on one card ----------------------------------
+
+#: the kernels the decode host must launch for migrated rows, and the one it
+#: must never launch for them (it prefills nothing)
+PHASE13_DECODE_KERNELS = ("paged_attention",)
+PHASE13_NO_PREFILL = ("flash_attention_cache",)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def fleet_yaml(path: Path, cache_dir: Path, model: str, port: int, enabled: bool = True) -> Path:
+    """Phase 6's bf16 deployment (8 slots, page size 16) on ``port``; with
+    ``enabled`` false the same file boots a front tier (no service)."""
+    import yaml
+
+    deployment_yaml(path, cache_dir, model, None)
+    spec = yaml.safe_load(path.read_text())
+    spec["server"]["port"] = port
+    spec["services"]["vlm"]["enabled"] = enabled
+    path.write_text(yaml.safe_dump(spec))
+    return path
+
+
+def serve_host(argv: list[str]) -> int:
+    """The port's server CLI with a readout (``chip_smoke.py --serve-host``
+    and the CLI's own arguments): ``lumen_tpu_torch.serving.server.main``,
+    whose hook zeroes every kernel's launch count and the peak-memory mark
+    once the server answers and prints ``{"serving": port, "metrics_port":
+    ...}``; after SIGTERM and the drain, the last line is ``{"launches":
+    ..., "peak_gib": ..., "cuda_initialized": ...}``: what the host did
+    while it served."""
+    import torch
+
+    from lumen_tpu_torch.serving import server
+
+    kernels = all_kernels()
+
+    def serving(handle) -> None:
+        for k in kernels:
+            k.launches = 0
+        if torch.cuda.is_initialized():
+            torch.cuda.reset_peak_memory_stats()
+        sidecar = handle.metrics_server
+        print(json.dumps({"serving": handle.port, "metrics_port": sidecar.port if sidecar else None}), flush=True)
+
+    rc = server.main(argv, on_serving=serving)
+    cuda = torch.cuda.is_initialized()
+    print(json.dumps({"launches": {k.name: k.launches for k in kernels}, "cuda_initialized": cuda,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}), flush=True)
+    return rc
+
+
+#: the keys of a ``--serve-host`` process's last line
+READOUT_KEYS = frozenset({"launches", "cuda_initialized", "peak_gib"})
+
+
+class ServerProcess:
+    """The port's server CLI in a process of its own on ``port``, started at
+    construction: ``python -m lumen_tpu_torch.serving.server``, or with
+    ``readout`` the same CLI under ``chip_smoke.py --serve-host`` (with its
+    metrics sidecar), which reports the launches and peak memory it had
+    while it served. :meth:`wait` gives a stub once the server answers;
+    :meth:`stop` sends SIGTERM (a graceful drain) and raises unless the
+    process exits 0 within its time (and, with ``readout``, printed its
+    readout); a process that does not end is killed first."""
+
+    def __init__(self, name: str, yaml_path: Path, port: int, device: str, log_path: Path, extra_env: dict,
+                 readout: bool = False):
+        import queue
+
+        self.name, self.port, self.log_path, self.readout = name, port, log_path, readout
+        self.log = open(log_path, "w")
+        cli = ["--config", str(yaml_path), "--skip-download", "--port", str(port), "--device", device]
+        if readout:
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-host", *cli, "--metrics-port", "0"]
+        else:
+            cmd = [sys.executable, "-m", "lumen_tpu_torch.serving.server", *cli]
+        self.proc = subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE if readout else self.log,
+            stderr=self.log if readout else subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT), **extra_env},
+        )
+        self.lines: queue.Queue = queue.Queue()
+        self.reader = None
+        if readout:
+            self.reader = threading.Thread(target=lambda: [self.lines.put(line) for line in self.proc.stdout],
+                                           daemon=True)
+            self.reader.start()
+        self.channel = self.metrics_port = None
+
+    def _serving_line(self, timeout: float) -> dict:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                if self.proc.poll() is not None and self.lines.empty():
+                    raise AssertionError(f"{self.name} exited with {self.proc.returncode}: {self.log_path}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{self.name} was not serving within {timeout:.0f} s: {self.log_path}")
+                continue
+            if line.startswith("{"):
+                return json.loads(line)
+
+    def wait(self, timeout: float = 300.0):
+        import grpc
+        from google.protobuf import empty_pb2
+
+        from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{self.port}")
+        stub = InferenceStub(self.channel)
+        if self.readout:
+            self.metrics_port = self._serving_line(timeout)["metrics_port"]
+            grpc.channel_ready_future(self.channel).result(timeout=60)
+            return stub
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.name} exited with {self.proc.returncode}: {self.log_path}")
+            try:
+                stub.Health(empty_pb2.Empty(), timeout=10)
+                return stub
+            except grpc.RpcError:
+                if time.perf_counter() - t0 > timeout:
+                    raise
+                time.sleep(0.2)
+
+    def stop(self, timeout: float = 60.0) -> dict:
+        import queue
+
+        if self.channel is not None:
+            self.channel.close()
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+            raise AssertionError(f"{self.name} did not exit within {timeout:.0f} s of SIGTERM: {self.log_path}")
+        finally:
+            self.log.close()
+        if rc != 0:
+            raise AssertionError(f"{self.name} exited with {rc}: {self.log_path}")
+        if not self.readout:
+            return {}
+        self.reader.join(timeout=30)
+        last = {}
+        with contextlib.suppress(queue.Empty):
+            while True:
+                line = self.lines.get_nowait()
+                if line.startswith("{"):
+                    last = json.loads(line)
+        if not READOUT_KEYS <= set(last):
+            raise AssertionError(f"{self.name} exited without its readout (last line {last}): {self.log_path}")
+        return last
+
+
+def engine_gauges(port: int) -> dict:
+    """The ``vlm-continuous:*`` gauges of the one engine behind a sidecar."""
+    gauges = http_json(port, "/metrics.json").get("gauges", {})
+    (name,) = [k for k in gauges if k.startswith("vlm-continuous:")]
+    return gauges[name]
+
+
+def drive_fleet(seed: int, card: str, root: Path, phase6: dict, device: str = "cuda:0", n_captions: int = 8,
+                n_streams: int = 2, max_new: int = 32, fallback_new: int = 96, drain: bool = True,
+                search: bool = True, n_vectors: int = 50_000, n_queries: int = 128, dim: int = 512,
+                timeout: float = 600.0) -> dict:
+    """Phase 13: a disaggregated fleet of three hosts on one card, over
+    loopback gRPC. A prefill host (``LUMEN_FED_ROLE=prefill``) and a front
+    tier (no service, ``LUMEN_FED_PEERS`` naming both backends) run as
+    processes of their own (:class:`ServerProcess`); the decode host
+    (``LUMEN_FED_ROLE=decode``) is ``serve()`` in this process, so its
+    launch counts are read here. All serve phase 6's directory on
+    ``device``, with capacity gossip on, ``LUMEN_FED_KV_LANES`` at the
+    concurrency and the result cache off (a control must compute, not find
+    a peer's answer). (a) ``n_captions`` greedy ``vlm_generate`` and
+    ``n_streams`` streams of phase 6's JPEGs through the front, all at once,
+    ``max_new`` tokens each: every row migrates (``migrated_out`` and
+    ``migrated_in`` equal the request count, no fallback, no rejection), the
+    decode host launches no prefill kernel and the paged kernel, every
+    answer equals the same request on one colocated host (the decode host,
+    asked directly), both hosts end with no live page. (b) ``n_streams``
+    streams whose decode host is stopped while they decode: they finish on
+    the prefill host's ladder (``resubmit_spilled``), equal to their
+    control, with no token repeated. (c) SIGTERM to the prefill host with
+    ``LUMEN_DRAIN_ANNOUNCE_S``: the front records one drain handoff and no
+    ``fed_peer_down`` for it. (d) two ``search`` backends behind a front
+    tier hold ``n_vectors`` seeded unit vectors at ``dim``; ``n_queries``
+    queries at k = 10 equal the exact oracle outside near-ties. ``drain``,
+    ``search`` and the sizes let the CPU tests rehearse (a) and (b)
+    small."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.core.config import load_config
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
+    from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+    from lumen_tpu_torch.serving.server import serve
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    all_k = all_kernels()
+    photos, prompt = phase6["photos"], phase6["prompt"]
+    n_req = n_captions + n_streams
+    ports = {h: free_port() for h in ("prefill", "decode", "front")}
+    addr = {h: f"127.0.0.1:{p}" for h, p in ports.items()}
+    peers = f"{addr['prefill']},{addr['decode']}"
+    fleet = dict(LUMEN_FED_PEERS=peers, LUMEN_FED_CAPACITY="1", LUMEN_FED_KV_LANES=str(n_req),
+                 LUMEN_FED_POLL_S="0.5", LUMEN_CACHE_BYTES="0", LUMEN_VLM_SPEC_K="0")
+    out: dict = {}
+    hosts: dict = {}
+    stopped: list = []  # hosts that failed to stop cleanly
+    decode = dchan = None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with env(**fleet, LUMEN_FED_ROLE="decode", LUMEN_FED_SELF=addr["decode"]):
+            reset_result_cache()  # this process's cache, off as the other hosts' are
+            hosts["prefill"] = ServerProcess(
+                "prefill host", fleet_yaml(root / "fleet-prefill.yaml", root / "cache", "SmokeVLM", ports["prefill"]),
+                ports["prefill"], device, root / "fleet-prefill.log",
+                {**fleet, "LUMEN_FED_ROLE": "prefill", "LUMEN_FED_SELF": addr["prefill"],
+                 "LUMEN_DRAIN_S": "30", "LUMEN_DRAIN_ANNOUNCE_S": "10"}, readout=True)
+            t0 = time.perf_counter()
+            decode = serve(load_config(str(fleet_yaml(root / "fleet-decode.yaml", root / "cache", "SmokeVLM",
+                                                      ports["decode"]))),
+                           port_override=ports["decode"], skip_download=True, device=device)
+            decode_s = time.perf_counter() - t0
+            dchan = grpc.insecure_channel(addr["decode"])
+            dstub = InferenceStub(dchan)
+            hosts["prefill"].wait()
+            # The front starts once both backends answer, so its record of
+            # peers going down begins with a healthy fleet.
+            hosts["front"] = ServerProcess(
+                "front tier", fleet_yaml(root / "fleet-front.yaml", root / "cache", "SmokeVLM", ports["front"],
+                                         enabled=False),
+                ports["front"], device, root / "fleet-front.log", {**fleet, "LUMEN_DRAIN_S": "0"}, readout=True)
+            fstub = hosts["front"].wait()
+            boot_s = time.perf_counter() - t0
+            if decode.router.kv_migration is None or decode.federation is None:
+                raise AssertionError("phase 13: the decode host has no KV migration sink")
+            eng = decode.services["vlm"].manager.engine
+            front_port = hosts["front"].metrics_port
+            deadline = time.monotonic() + 60
+            while True:  # both lanes learned and live at the front, the decode host live at the prefill host
+                view = http_json(front_port, "/peers")["peers"]
+                roles = {n: p["fed_role"] for n, p in view.items()}
+                states = {n: p["state"] for n, p in view.items()}
+                at_prefill = http_json(hosts["prefill"].metrics_port, "/peers")["peers"][addr["decode"]]["state"]
+                if roles == {addr["prefill"]: "prefill", addr["decode"]: "decode"} and set(
+                        states.values()) == {"serving"} and at_prefill == "serving":
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 13: the fleet never settled: lanes {roles}, states {states}, "
+                                         f"decode host at the prefill host {at_prefill}")
+                time.sleep(0.1)
+            log(f"phase 13: fleet up in {boot_s:.2f} s (decode host serve() {decode_s:.2f} s): prefill "
+                f"{addr['prefill']} (process), decode {addr['decode']} (this process), front {addr['front']} "
+                f"(process, no service); lanes {json.dumps(roles)}; kv {decode.services['vlm'].manager.kv_layout()}")
+
+            # -- (a) migrated leg, then the same requests colocated ------------------
+            class TimedSink:
+                """The decode host's sink, timing each commit from the handler's
+                start (its one frame received and parsed) to ``submit_migrated``
+                returning (CRC, unpack, record build, admission), and from there
+                to the first relayed token frame; it keeps the first commit's
+                frame for the loopback rate."""
+
+                def __init__(self, svc, eng):
+                    self.svc, self.eng, self.unpack_ms, self.first_ms, self.frame = svc, eng, [], [], None
+                    self.local = threading.local()
+                    real = eng.submit_migrated
+
+                    def submit(*a, **kw):
+                        real(*a, **kw)
+                        self.local.t = time.perf_counter()
+
+                    eng.submit_migrated = submit
+
+                def handle_kv_put(self, first, it, ctx):
+                    if first.meta.get("op") != "commit":
+                        yield from self.svc.handle_kv_put(first, it, ctx)
+                        return
+                    self.frame = self.frame or first
+                    t, self.local.t = time.perf_counter(), None
+                    for resp in self.svc.handle_kv_put(first, it, ctx):
+                        if self.local.t is not None and resp.meta.get("fed_kv") == "tok":
+                            self.unpack_ms.append((self.local.t - t) * 1e3)
+                            self.first_ms.append((time.perf_counter() - self.local.t) * 1e3)
+                            self.local.t = None
+                        yield resp
+
+                def close(self):
+                    del self.eng.submit_migrated  # the class's own again
+
+            sink = TimedSink(decode.router.kv_migration, eng)
+            decode.router.kv_migration = sink
+            # Streams first: in both legs they start at once, with 6 captions.
+            kinds = ["vlm_generate_stream"] * n_streams + ["vlm_generate"] * n_captions
+            jobs = [(kind, photos[i], {"messages": prompt, "max_new_tokens": max_new}) for i, kind in enumerate(kinds)]
+
+            def run(stub, js):
+                with ThreadPoolExecutor(max_workers=8) as pool:
+                    t = time.perf_counter()
+                    res = list(pool.map(lambda j: grpc_call(stub, *j, timeout=timeout), js))
+                    return res, time.perf_counter() - t
+
+            gauges0 = engine_gauges(hosts["prefill"].metrics_port)
+            d0 = dict(eng.gauges())
+            for k in all_k:
+                k.launches = 0
+            migrated, mig_wall = run(fstub, jobs)
+            launches = {k.name: k.launches for k in all_k}
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            pg = engine_gauges(hosts["prefill"].metrics_port)
+            dg = eng.gauges()
+            kv = http_json(hosts["prefill"].metrics_port, "/peers")["kv_migration"]
+            decode.router.kv_migration = sink.svc
+            sink.close()
+            control, col_wall = run(dstub, jobs)
+            for i, (m, c) in enumerate(zip(migrated, control)):
+                if m["code"] or c["code"]:
+                    raise AssertionError(f"phase 13 (a): request {i} codes {m['code']} (fleet) / {c['code']} (control)")
+                if (m["body"]["generated_tokens"], m["body"]["text"]) != (c["body"]["generated_tokens"],
+                                                                          c["body"]["text"]):
+                    raise AssertionError(f"phase 13 (a): request {i} migrated differs from colocated: "
+                                         f"{m['body']['text'][:60]!r} vs {c['body']['text'][:60]!r}")
+                if m["deltas"] and b"".join(m["deltas"]).decode() != m["body"]["text"]:
+                    raise AssertionError(f"phase 13 (a): stream {i}'s deltas do not join to its text")
+            moved = {k: pg[k] - gauges0[k] for k in ("migrated_out", "migrate_out_failed")}
+            moved_in = {k: dg[k] - d0[k] for k in ("migrated_in", "migrate_in_rejected")}
+            if moved != {"migrated_out": n_req, "migrate_out_failed": 0} or moved_in != {
+                    "migrated_in": n_req, "migrate_in_rejected": 0}:
+                raise AssertionError(f"phase 13 (a): prefill {moved}, decode {moved_in} for {n_req} requests")
+            if any(launches[n] for n in PHASE13_NO_PREFILL) or any(launches[n] == 0 for n in PHASE13_DECODE_KERNELS):
+                raise AssertionError(f"phase 13 (a): decode-host launches {launches}")
+            deadline = time.monotonic() + 30
+            while (pg["pages_live"] or eng.gauges()["pages_live"]) and time.monotonic() < deadline:
+                time.sleep(0.05)
+                pg = engine_gauges(hosts["prefill"].metrics_port)
+            if pg["pages_live"] or eng.gauges()["pages_live"]:
+                raise AssertionError(f"phase 13 (a): pages live at the end: prefill {pg['pages_live']}, "
+                                     f"decode {eng.gauges()['pages_live']}")
+            row_bytes = kv["put_bytes"] / max(kv["puts"], 1)
+            # The loopback rate: a real commit (one frame: 48 MB chunks) sent
+            # again with op=offer, which the sink answers without unpacking.
+            frame = pb.InferRequest.FromString(sink.frame.SerializeToString())
+            frame.meta["op"] = "offer"
+            frame_bytes = frame.ByteSize()
+            offer = lambda: list(dstub.Infer(iter([frame]), timeout=60))  # noqa: E731
+            offer()
+            rate_s = []
+            for _ in range(10):
+                t = time.perf_counter()
+                offer()
+                rate_s.append(time.perf_counter() - t)
+            tok = lambda rs: sum(r["body"]["generated_tokens"] for r in rs)  # noqa: E731
+            ttft = lambda rs: sorted(r["ttft_ms"] for r in rs if r["ttft_ms"] is not None)  # noqa: E731
+            answer = lambda rs: sorted(r["s"] * 1e3 for r in rs[n_streams:])  # noqa: E731
+            pct = lambda xs, p: float(xs[min(len(xs) - 1, int(p * len(xs)))])  # noqa: E731
+            out.update(
+                requests=n_req, puts=kv["puts"], row_bytes=row_bytes, commit_unpack_ms=sorted(sink.unpack_ms),
+                commit_first_ms=sorted(sink.first_ms), frame_bytes=frame_bytes,
+                loopback_bytes_s=frame_bytes / float(np.median(rate_s)), launches=launches, peak_gib=peak / 2**30,
+                ttft_migrated=ttft(migrated), ttft_colocated=ttft(control), answer_migrated=answer(migrated),
+                answer_colocated=answer(control), tok_s_migrated=tok(migrated) / mig_wall,
+                tok_s_colocated=tok(control) / col_wall)
+            log(f"phase 13 (a): {n_req} requests through the front ({n_captions} vlm_generate + {n_streams} streams, "
+                f"8 in flight, {max_new} new tokens, 1600x1200 JPEGs): every one migrated (prefill {json.dumps(moved)}, "
+                f"decode {json.dumps(moved_in)}), all {n_req} equal to the colocated control; decode-host launches "
+                f"{json.dumps(launches)}; pages live at the end 0 / 0 [{card}]")
+            log(f"phase 13 (a): KV shipped {row_bytes / 1e6:.3f} MB a row ({kv['puts']} commits, "
+                f"{kv['put_bytes']} B in all, {kv['ref_pages']} pages by reference); on the decode host, from a "
+                f"commit's frame received to its row admitted (CRC, unpack, record, submit_migrated) p50 / max "
+                f"{pct(out['commit_unpack_ms'], 0.5):.2f} / {out['commit_unpack_ms'][-1]:.2f} ms, admitted to the "
+                f"first relayed token p50 / max {pct(out['commit_first_ms'], 0.5):.2f} / "
+                f"{out['commit_first_ms'][-1]:.2f} ms (of {len(sink.first_ms)}); one commit frame "
+                f"({frame_bytes} B, sent as an offer) round trip on loopback gRPC "
+                f"{out['loopback_bytes_s'] / 1e9:.3f} GB/s (median of 10) [{card}]")
+            log(f"phase 13 (a): stream TTFT p50 / p95 migrated {pct(out['ttft_migrated'], 0.5):.1f} / "
+                f"{pct(out['ttft_migrated'], 0.95):.1f} ms, colocated {pct(out['ttft_colocated'], 0.5):.1f} / "
+                f"{pct(out['ttft_colocated'], 0.95):.1f} ms; vlm_generate answer p50 / p95 migrated "
+                f"{pct(out['answer_migrated'], 0.5):.1f} / {pct(out['answer_migrated'], 0.95):.1f} ms, colocated "
+                f"{pct(out['answer_colocated'], 0.5):.1f} / {pct(out['answer_colocated'], 0.95):.1f} ms; aggregate "
+                f"{out['tok_s_migrated']:.1f} tok/s migrated, {out['tok_s_colocated']:.1f} colocated; decode-host "
+                f"peak {out['peak_gib']:.3f} GiB since the phase began [{card}]")
+
+            # -- (b) the decode host stops while two streams decode on it ----------
+            fb_jobs = [("vlm_generate_stream", photos[n_req + i], {"messages": prompt, "max_new_tokens": fallback_new})
+                       for i in range(n_streams)]
+            fb_control, _ = run(dstub, fb_jobs)
+            in0 = eng.migrated_in
+            box: dict = {}
+            runner = threading.Thread(target=lambda: box.update(res=run(fstub, fb_jobs)[0]), daemon=True)
+            runner.start()
+            deadline = time.monotonic() + timeout
+            while True:  # freeze the decode loop once both rows streamed a block
+                eng._cond.acquire()
+                rows = [s for s in eng._slots.values() if s.request.embeds is None]  # migrated in: no prompt here
+                if eng.migrated_in - in0 == n_streams and len(rows) == n_streams and all(
+                        len(s.tokens) >= eng.block for s in rows):
+                    break
+                eng._cond.release()
+                if time.monotonic() > deadline or not runner.is_alive():
+                    raise AssertionError("phase 13 (b): the streams never decoded on the decode host")
+                time.sleep(0.0005)
+            try:
+                streamed = [len(s.tokens) for s in rows]
+                decode.server.stop(0).wait(10)  # the wire dies mid-stream
+            finally:
+                eng._cond.release()
+            decode.stop(grace=0.1)
+            decode = None
+            runner.join(timeout=timeout)
+            if runner.is_alive():
+                raise AssertionError("phase 13 (b): the streams never finished")
+            fb = box["res"]
+            for i, (m, c) in enumerate(zip(fb, fb_control)):
+                if m["code"] or (m["body"]["generated_tokens"], m["body"]["text"]) != (
+                        c["body"]["generated_tokens"], c["body"]["text"]):
+                    raise AssertionError(f"phase 13 (b): stream {i} differs from its control (code {m['code']})")
+                if b"".join(m["deltas"]).decode() != m["body"]["text"]:
+                    raise AssertionError(f"phase 13 (b): stream {i} repeated or lost a token")
+            pg2 = engine_gauges(hosts["prefill"].metrics_port)
+            fallbacks = pg2["migrate_out_failed"] - pg["migrate_out_failed"]
+            if fallbacks != n_streams:
+                raise AssertionError(f"phase 13 (b): {fallbacks} fallbacks for {n_streams} streams")
+            out.update(fallbacks=fallbacks)
+            log(f"phase 13 (b): decode host stopped with {n_streams} streams on it ({streamed} tokens each already "
+                f"out): {fallbacks} fallbacks through resubmit_spilled, both streams finished on the prefill host "
+                f"equal to their control, no token repeated [{card}]")
+
+            # -- (c) the prefill host drains --------------------------------------
+            if drain:
+                before = http_json(front_port, "/metrics.json").get("counters", {}).get("fed_drain_handoffs", 0)
+                hosts["prefill"].proc.terminate()
+                t0 = time.monotonic()
+                while True:
+                    peer = http_json(front_port, "/peers")["peers"][addr["prefill"]]
+                    if peer.get("draining") and peer.get("weight") == 0.0:
+                        break
+                    if time.monotonic() - t0 > 30:
+                        raise AssertionError(f"phase 13 (c): the front never saw the drain: {peer}")
+                    time.sleep(0.05)
+                seen_s = time.monotonic() - t0
+                handoffs = http_json(front_port, "/metrics.json").get("counters", {}).get(
+                    "fed_drain_handoffs", 0) - before
+                events = http_json(front_port, "/events")["events"]
+                down = [e for e in events if e["kind"] == "fed_peer_down" and e["component"] == addr["prefill"]]
+                hand = [e for e in events if e["kind"] == "fed_drain_handoff" and e["component"] == addr["prefill"]]
+                if handoffs != 1 or len(hand) != 1 or down:
+                    raise AssertionError(f"phase 13 (c): {handoffs} handoffs, events {hand}, peer-down {down}")
+                out["prefill_host"] = hosts.pop("prefill").stop()
+                log(f"phase 13 (c): SIGTERM to the prefill host: the front saw draining and weight 0 after "
+                    f"{seen_s:.2f} s, 1 drain handoff, no fed_peer_down for it; prefill host launches "
+                    f"{json.dumps(out['prefill_host']['launches'])}, peak {out['prefill_host']['peak_gib']:.3f} GiB "
+                    f"[{card}]")
+    finally:
+        if dchan is not None:
+            dchan.close()
+        if decode is not None:
+            decode.stop(grace=0.1)
+        for name in list(hosts):  # stop every host before raising for one
+            try:
+                out[f"{name}_host"] = hosts.pop(name).stop()
+            except AssertionError as e:
+                log(f"phase 13: {e}")
+                stopped.append(e)
+    if stopped:
+        raise stopped[0]
+    front = out["front_host"]
+    if front["cuda_initialized"] or any(front["launches"].values()):
+        raise AssertionError(f"phase 13: the front tier touched the device: {front}")
+    log(f"phase 13: front tier launches {json.dumps(front['launches'])}, CUDA initialized "
+        f"{front['cuda_initialized']} [{card}]")
+
+    # -- (d) search fan-out over two backends ---------------------------------
+    if search:
+        out.update(drive_fleet_search(seed, card, root, device, n_vectors, n_queries, dim))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+#: phase 13 (d)'s shards: with 3 (the default) a ring of two peers puts
+#: every shard on one peer a quarter of the time; with 8, 2 in 256
+FLEET_SEARCH_SHARDS = 8
+
+
+def drive_fleet_search(seed: int, card: str, root: Path, device: str, n_vectors: int, n_queries: int,
+                       dim: int) -> dict:
+    """Phase 13 (d): two ``search`` backends (``serve()`` in this process)
+    behind a front tier, ``FLEET_SEARCH_SHARDS`` shards a tenant:
+    ``n_vectors`` seeded unit vectors upserted through the front in
+    1,024-row chunks (partitioned by shard: each backend holds exactly the
+    rows of the shards the front's ring gives it), then ``n_queries``
+    queries at k = 10 over every shard, each held to the numpy oracle
+    outside near-ties (phase 11's rule)."""
+    with env(LUMEN_ANN_SHARDS=str(FLEET_SEARCH_SHARDS)):
+        return _drive_fleet_search(seed, card, root, device, n_vectors, n_queries, dim)
+
+
+def _drive_fleet_search(seed: int, card: str, root: Path, device: str, n_vectors: int, n_queries: int,
+                        dim: int) -> dict:
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from lumen_tpu_torch.runtime.ann import normalize, shard_of
+    from lumen_tpu_torch.utils.tensorwire import BUNDLE_MIME, pack_bundle
+
+    yaml_path = ocr_yaml(root / "fleet-search.yaml", root / "cache",
+                         {"search": ("ann-exact", {"batch_size": 16, "max_batch_latency_ms": 2.0})})
+    backends = []
+    front = channel = None
+    try:
+        for _ in range(2):
+            with env(LUMEN_ANN_DIM=str(dim)):
+                handle, ch, _, _ = boot_server(yaml_path, device)
+            ch.close()
+            backends.append(handle)
+        peers = ",".join(f"127.0.0.1:{h.port}" for h in backends)
+        import yaml
+
+        spec = yaml.safe_load(yaml_path.read_text())
+        spec["services"]["search"]["enabled"] = False
+        (root / "fleet-search-front.yaml").write_text(yaml.safe_dump(spec))
+        with env(LUMEN_FED_PEERS=peers, LUMEN_FED_SELF=""):
+            front, channel, stub, _ = boot_server(root / "fleet-search-front.yaml", device)
+        rng = np.random.default_rng(seed * 100 + 13)
+        vecs = normalize(rng.standard_normal((n_vectors, dim), dtype=np.float32))
+        ids = [f"fv{i:06d}" for i in range(n_vectors)]
+        chunk = 1024
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            ups = list(ex.map(lambda lo: grpc_call(stub, "search_upsert", pack_bundle([
+                vecs[lo:lo + chunk], np.frombuffer(json.dumps(ids[lo:lo + chunk]).encode(), np.uint8)]),
+                {}, mime=BUNDLE_MIME), range(0, n_vectors, chunk)))
+        upsert_s = time.perf_counter() - t0
+        if any(r["code"] for r in ups) or sum(r["body"]["added"] for r in ups) != n_vectors:
+            raise AssertionError(f"phase 13 (d): upserts answered {[r['code'] for r in ups]}, "
+                                 f"{sum(r.get('body', {}).get('added', 0) for r in ups)} rows added")
+        held = [sum(s._n for s in h.services["search"].index.shards_for("default").values()) for h in backends]
+        ring = front.federation.ring
+        owner = {sh: ring.owner(hashlib.sha256(f"ann/default/{sh}".encode()).hexdigest())
+                 for sh in range(FLEET_SEARCH_SHARDS)}
+        placed = [sum(owner[shard_of(i, FLEET_SEARCH_SHARDS)] == f"127.0.0.1:{h.port}" for i in ids) for h in backends]
+        if held != placed:
+            raise AssertionError(f"phase 13 (d): the backends hold {held} rows, the ring places {placed}")
+        queries = normalize(rng.standard_normal((n_queries, dim), dtype=np.float32))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as ex:
+            answers = list(ex.map(lambda q: grpc_call(stub, "search_query", json.dumps(
+                {"vector": q.tolist()}).encode(), {"k": "10"}, mime="application/json"), queries))
+        query_s = time.perf_counter() - t0
+        scores = queries @ vecs.T
+        near, worst = 0, 0.0
+        for j, r in enumerate(answers):
+            if r["code"] or r["body"]["shards"] != FLEET_SEARCH_SHARDS:
+                raise AssertionError(f"phase 13 (d): query {j}: {r['code']} {r.get('body')}")
+            want_ids, want_scores, gap = oracle_topk(scores[j], ids, 10)
+            worst = max(worst, float(np.abs(np.asarray(r["body"]["scores"]) - want_scores).max()))
+            if gap < SEARCH_SCORE_TOL:
+                near += 1
+            elif r["body"]["ids"] != want_ids:
+                raise AssertionError(f"phase 13 (d): query {j} differs from the oracle")
+        if worst > SEARCH_SCORE_TOL:
+            raise AssertionError(f"phase 13 (d): scores differ from the oracle's by {worst:.2e}")
+        log(f"phase 13 (d): two search backends behind a front: {n_vectors:,} unit vectors at dim {dim} upserted "
+            f"through the front in {upsert_s:.2f} s (held {held}, {FLEET_SEARCH_SHARDS} shards placed by the front's ring), {n_queries} queries at k = 10 in {query_s:.2f} s "
+            f"(16 in flight), every answer the oracle's but {near} near-ties, scores within {worst:.2e} [{card}]")
+        return {"search_held": held, "search_near_ties": near, "search_upsert_s": upsert_s,
+                "search_query_s": query_s}
+    finally:
+        if channel is not None:
+            channel.close()
+        if front is not None:
+            front.stop(grace=0.5)
+        for h in backends:
+            h.stop(grace=0.5)
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -4916,13 +5492,40 @@ def count_syncs(fn) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+#: the phases whose results each phase reads (``--phases`` runs them too)
+PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,)}
+ALL_PHASES = frozenset(range(1, 14))
+
+
+def phase_set(spec: "str | None") -> frozenset:
+    """The phases a run drives: all, or those ``spec`` lists (``6,13``)
+    with the phases they read, and phase 1 (the build) always."""
+    want = set(ALL_PHASES) if spec is None else {int(p) for p in spec.split(",")}
+    if not want <= ALL_PHASES:
+        raise SystemExit(f"--phases: no phase {sorted(want - ALL_PHASES)}")
+    todo = list(want)
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in want:
+                want.add(need)
+                todo.append(need)
+    return frozenset(want | {1})
+
+
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
     if not (ROOT / "lumen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--serve-host"]:  # phase 13's hosts: the server CLI's own arguments follow
+        sys.path.insert(0, str(ROOT))
+        return serve_host(sys.argv[2:])
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    # a developer's shortcut, e.g. ``--phases 13``: those phases and what they
+    # read, without the kernel table and the device line
+    parser.add_argument("--phases", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    run = phase_set(args.phases)
     import torch
 
     if not torch.cuda.is_available():
@@ -4951,16 +5554,22 @@ def main() -> int:
     if len(bf16_funcs) != 3 or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
 
-    rows = check_kernels(args.seed)
-    rows["paged_attention_varq"] = check_varq(args.seed)
-    rows["w8a16_matmul"] = check_w8a16(args.seed)
-    check_reference(args.seed)
-    drives = {4: drive_serving(args.seed, card)}
-    drives[5] = drive_serving(args.seed, card, quantize="int8", spec_k=4, kernels=PHASE5_KERNELS)
-    a, b = drives[4], drives[5]
-    log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
-        f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
-        f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
+    if 2 in run:
+        rows = check_kernels(args.seed)
+        rows["paged_attention_varq"] = check_varq(args.seed)
+        rows["w8a16_matmul"] = check_w8a16(args.seed)
+    if 3 in run:
+        check_reference(args.seed)
+    drives = {}
+    if 4 in run:
+        drives[4] = drive_serving(args.seed, card)
+    if 5 in run:
+        drives[5] = drive_serving(args.seed, card, quantize="int8", spec_k=4, kernels=PHASE5_KERNELS)
+    if {4, 5} <= run:
+        a, b = drives[4], drives[5]
+        log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
+            f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
+            f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
     import tempfile
 
     from lumen_tpu_torch.runtime.decode_pool import shutdown_decode_pool
@@ -4969,70 +5578,87 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         stack.callback(shutdown_decode_pool)
         tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-"))
-        grpc_drive = drive_grpc(args.seed, card, root=Path(tmp))
-        log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
-            f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
-            f"peak GiB {grpc_drive['peak_gib']:.3f}")
-        defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
-        log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
-            f"{defaults['preempted']} preemptions, "
-            f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
-            f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
-        clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
-        face = drive_face(args.seed, card, Path(tmp), clip)
-        ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
-        ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
-        options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip)
-    log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
-        f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
-        f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
-        f"client p50 {clip['p50_ms']:.1f} ms p95 {clip['p95_ms']:.1f} ms, mean batch fill {100 * clip['fill']:.1f}%, "
-        f"decode {clip['decode_ms']:.2f} ms a photo, peak GiB {clip['peak_gib']:.3f}; cosine to the plain path min "
-        f"{clip['cos_min']:.6f}")
-    log(f"phase 9 [{card}]: {face['phase_s']:.1f} s in all; stand-in pack exported in {face['export_s']:.1f} s, "
-        f"face server up in {face['load_s']:.2f} s; {face['photos_s']:.1f} photos/s face_detect over gRPC with TF32 "
-        f"convolutions ({face['photos_s_ieee']:.1f} in IEEE float32), client p50 {face['p50_ms']:.1f} ms p95 "
-        f"{face['p95_ms']:.1f} ms, mean batch fill {100 * face['fill']:.1f}%; one detector batch of 16 "
-        f"{face['det_ms']:.3f} ms (TF32 {face['det_tf32_ms']:.3f} ms), one embedder batch of 16 {face['rec_ms']:.3f} "
-        f"ms (TF32 {face['rec_tf32_ms']:.3f} ms); NMS {face['nms_launches']} launches, {face['nms_host_ms']:.2f} host "
-        f"ms a batch; syncs per forward {json.dumps(face['syncs'])}; peak GiB {face['peak_gib']:.3f}; IEEE: "
-        f"{face['faces']} faces matched at IoU >= {face['iou_min']:.5f}, embeddings cosine >= {face['cos_min']:.6f}; "
-        f"TF32: matched at IoU >= {face['tf32']['iou_min']:.5f}, {json.dumps(face['tf32'])}; graph CLIP exported in "
-        f"{face['clip_export_s']:.1f} s, served in {face['clip_load_s']:.2f} s, cosine to phase 8 >= "
-        f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
-    log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
-        f"server up in {ocr['load_s']:.2f} s; {ocr['pages_s']:.2f} pages/s over gRPC with TF32 convolutions "
-        f"({ocr['pages_s_ieee']:.2f} in IEEE float32), client p50 {ocr['p50_ms']:.1f} ms p95 {ocr['p95_ms']:.1f} ms; one "
-        f"detector call {ocr['det_ms']:.3f} ms (IEEE {ocr['det_ieee_ms']:.3f}), one recognizer chunk of 16 "
-        f"{ocr['rec_ms']:.3f} ms (IEEE {ocr['rec_ieee_ms']:.3f}); host postprocess {ocr['post_ms']:.2f} ms a page; "
-        f"syncs per forward {json.dumps(ocr['syncs'])}; peak GiB {ocr['peak_gib']:.3f}; IEEE: {ocr['items']} items "
-        f"matched at IoU >= {ocr['iou_min']:.5f}; TF32: {json.dumps(ocr['tf32'])}; native bf16: flash_attention "
-        f"(head_dim 16) {ocr['native_launches']} launches over {ocr['native_chunks']} recognizer chunks, logits within "
-        f"{ocr['bf16_logit_share']:.2e} of the plain path's scale; full tier up in {ocr['hub_s']:.2f} s, launches "
-        f"{json.dumps(ocr['hub_launches'])}")
-    log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
-        f"{ingest['images_s']:.2f} images/s (CLI, clip + face + ocr, batch 64), stage device ms a batch "
-        f"{json.dumps({k: round(v, 3) for k, v in ingest['stage_ms'].items()})}, syncs flagged "
-        f"{ingest['syncs_flagged']} in the sweep; launches {json.dumps(ingest['launches'])}, warm re-run none; "
-        f"search: {ingest['upsert_rows_s']:,.0f} rows/s upserted, query p50 {ingest['p50_ms']:.2f} ms p95 "
-        f"{ingest['p95_ms']:.2f} ms at 16 in flight ({ingest['mean_pass']:.1f} queries a shard pass; alone p50 "
-        f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
-        f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
-    co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
-    log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
-        f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
-        f"nodes), stream ttft p50 {options['ttft_p50_ms']:.1f} ms, _prepare syncs {options['prepare_syncs']}; (b) A/Bs "
-        f"{' and '.join(f'{b:.1f} vs {q:.1f}' for b, q in zip(options['ab_bf16_tps'], options['ab_q8_tps']))} tok/s "
-        f"(ratios {', '.join(f'{r:.3f}' for r in options['ab_ratios'])}) -> {options['ab_route']}, peak above the "
-        f"start {', '.join(f'{m:.1f}' for m in options['ab_peak_mib'])} MiB, boots "
-        f"{', '.join(f'{t:.2f}' for t in options['boot_ab_s'])} / {options['boot_verdict_s']:.2f} s; (c) "
-        f"coalesce {co_bf16['tok_s']:.1f} (bf16) / {co_int8['tok_s']:.1f} (int8) tok/s, syncs a decode step "
-        f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
-        f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
-        f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
+        if 6 in run:
+            grpc_drive = drive_grpc(args.seed, card, root=Path(tmp))
+            log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
+                f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
+                f"peak GiB {grpc_drive['peak_gib']:.3f}")
+        if 7 in run:
+            defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
+            log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
+                f"{defaults['preempted']} preemptions, "
+                f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
+                f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
+        if 8 in run:
+            clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
+            log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
+                f"{clip['label_s']:.3f} s of it), hub {clip['hub_s']:.2f} s; cold round {clip['cold_s']:.2f} s; "
+                f"{clip['images_s']:.1f} images/s over gRPC (one batch of 64 {clip['batch_ms']:.3f} ms on the device), "
+                f"client p50 {clip['p50_ms']:.1f} ms p95 {clip['p95_ms']:.1f} ms, mean batch fill {100 * clip['fill']:.1f}%, "
+                f"decode {clip['decode_ms']:.2f} ms a photo, peak GiB {clip['peak_gib']:.3f}; cosine to the plain path min "
+                f"{clip['cos_min']:.6f}")
+        if 9 in run:
+            face = drive_face(args.seed, card, Path(tmp), clip)
+            log(f"phase 9 [{card}]: {face['phase_s']:.1f} s in all; stand-in pack exported in {face['export_s']:.1f} s, "
+                f"face server up in {face['load_s']:.2f} s; {face['photos_s']:.1f} photos/s face_detect over gRPC with TF32 "
+                f"convolutions ({face['photos_s_ieee']:.1f} in IEEE float32), client p50 {face['p50_ms']:.1f} ms p95 "
+                f"{face['p95_ms']:.1f} ms, mean batch fill {100 * face['fill']:.1f}%; one detector batch of 16 "
+                f"{face['det_ms']:.3f} ms (TF32 {face['det_tf32_ms']:.3f} ms), one embedder batch of 16 {face['rec_ms']:.3f} "
+                f"ms (TF32 {face['rec_tf32_ms']:.3f} ms); NMS {face['nms_launches']} launches, {face['nms_host_ms']:.2f} host "
+                f"ms a batch; syncs per forward {json.dumps(face['syncs'])}; peak GiB {face['peak_gib']:.3f}; IEEE: "
+                f"{face['faces']} faces matched at IoU >= {face['iou_min']:.5f}, embeddings cosine >= {face['cos_min']:.6f}; "
+                f"TF32: matched at IoU >= {face['tf32']['iou_min']:.5f}, {json.dumps(face['tf32'])}; graph CLIP exported in "
+                f"{face['clip_export_s']:.1f} s, served in {face['clip_load_s']:.2f} s, cosine to phase 8 >= "
+                f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
+        if 10 in run:
+            ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
+            log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
+                f"server up in {ocr['load_s']:.2f} s; {ocr['pages_s']:.2f} pages/s over gRPC with TF32 convolutions "
+                f"({ocr['pages_s_ieee']:.2f} in IEEE float32), client p50 {ocr['p50_ms']:.1f} ms p95 {ocr['p95_ms']:.1f} ms; one "
+                f"detector call {ocr['det_ms']:.3f} ms (IEEE {ocr['det_ieee_ms']:.3f}), one recognizer chunk of 16 "
+                f"{ocr['rec_ms']:.3f} ms (IEEE {ocr['rec_ieee_ms']:.3f}); host postprocess {ocr['post_ms']:.2f} ms a page; "
+                f"syncs per forward {json.dumps(ocr['syncs'])}; peak GiB {ocr['peak_gib']:.3f}; IEEE: {ocr['items']} items "
+                f"matched at IoU >= {ocr['iou_min']:.5f}; TF32: {json.dumps(ocr['tf32'])}; native bf16: flash_attention "
+                f"(head_dim 16) {ocr['native_launches']} launches over {ocr['native_chunks']} recognizer chunks, logits within "
+                f"{ocr['bf16_logit_share']:.2e} of the plain path's scale; full tier up in {ocr['hub_s']:.2f} s, launches "
+                f"{json.dumps(ocr['hub_launches'])}")
+        if 11 in run:
+            ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
+            log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
+                f"{ingest['images_s']:.2f} images/s (CLI, clip + face + ocr, batch 64), stage device ms a batch "
+                f"{json.dumps({k: round(v, 3) for k, v in ingest['stage_ms'].items()})}, syncs flagged "
+                f"{ingest['syncs_flagged']} in the sweep; launches {json.dumps(ingest['launches'])}, warm re-run none; "
+                f"search: {ingest['upsert_rows_s']:,.0f} rows/s upserted, query p50 {ingest['p50_ms']:.2f} ms p95 "
+                f"{ingest['p95_ms']:.2f} ms at 16 in flight ({ingest['mean_pass']:.1f} queries a shard pass; alone p50 "
+                f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
+                f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
+        if 12 in run:
+            options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip)
+            co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
+            log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
+                f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
+                f"nodes), stream ttft p50 {options['ttft_p50_ms']:.1f} ms, _prepare syncs {options['prepare_syncs']}; (b) A/Bs "
+                f"{' and '.join(f'{b:.1f} vs {q:.1f}' for b, q in zip(options['ab_bf16_tps'], options['ab_q8_tps']))} tok/s "
+                f"(ratios {', '.join(f'{r:.3f}' for r in options['ab_ratios'])}) -> {options['ab_route']}, peak above the "
+                f"start {', '.join(f'{m:.1f}' for m in options['ab_peak_mib'])} MiB, boots "
+                f"{', '.join(f'{t:.2f}' for t in options['boot_ab_s'])} / {options['boot_verdict_s']:.2f} s; (c) "
+                f"coalesce {co_bf16['tok_s']:.1f} (bf16) / {co_int8['tok_s']:.1f} (int8) tok/s, syncs a decode step "
+                f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
+                f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
+                f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
+        if 13 in run:
+            fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive)
+            log(f"phase 13 [{card}]: {fleet['phase_s']:.1f} s in all; {fleet['requests']} migrated rows equal to the "
+                f"colocated control, {fleet['row_bytes'] / 1e6:.3f} MB a row, {fleet['fallbacks']} fallbacks in (b), "
+                f"aggregate {fleet['tok_s_migrated']:.1f} tok/s migrated vs {fleet['tok_s_colocated']:.1f} colocated; "
+                f"search {fleet['search_near_ties']} near-ties")
+    if run != ALL_PHASES:
+        log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
+        return 0
     for k in kernels:
         counts = {part: c[k.name] for part, c in options["launches"].items() if k.name in c}
-        log(f"kernel row {k.name}: phase-12 launches {json.dumps(counts)} [{card}]")
+        log(f"kernel row {k.name}: phase-12 launches {json.dumps(counts)}; phase-13 launches decode host "
+            f"{fleet['launches'][k.name]}, prefill host {fleet['prefill_host']['launches'][k.name]} [{card}]")
     for label in OCR_FLASH_SHAPES:
         row = rows[f"flash_attention ({label})"]
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "

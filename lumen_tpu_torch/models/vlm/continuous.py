@@ -44,9 +44,16 @@ Telemetry is the JAX engine's: the ``vlm-continuous:{name}`` gauge
 provider, the ``vlm_*`` counters, the ``device:{name}`` duty meter and
 ``batch_items:{name}`` arrivals, ``vlm_spill`` / ``vlm_resume``
 flight-recorder events, and a ``batch.device`` span per decode block on
-every active request's trace. Not ported yet: disaggregated-serving
-migration (``submit_migrated``, the ``migrator`` hook); its gauges read
-0 so the keys match the JAX engine's.
+every active request's trace.
+
+Disaggregated serving (the JAX engine's too): with a ``migrator`` hook
+installed (a federation's ``kv_migrate``), a row tagged ``migrate_to``
+is exported right after prefill through the spill tier's export path
+and its decode runs on a decode-lane peer; any failure resumes it
+locally from the snapshot (``resubmit_spilled``). On the decode host,
+``submit_migrated`` parks a wire record as a spill and the resume path
+installs it with zero re-prefill. The ``migrated_*`` gauges count both
+sides.
 """
 
 from __future__ import annotations
@@ -123,6 +130,13 @@ class _Request:
     #: speculative decoding tally of this request (response metadata).
     spec_proposed: int = 0
     spec_accepted: int = 0
+    #: decode-lane peer address for disaggregated serving: the row is
+    #: exported right after prefill and its decode migrates there.
+    #: Cleared after one attempt -- any failure decodes locally.
+    migrate_to: "str | None" = None
+    #: decode-host side of a migration: ``(manifest_keys, n_shared)``
+    #: pending prefix-cache resolution at resume. None otherwise.
+    migrate_in: "tuple | None" = None
 
     @property
     def key(self) -> tuple:
@@ -189,9 +203,11 @@ class _SpillRecord:
     shm-arena lease when the arena had room (``crc`` over the blob catches
     a torn lease at resume), else the host arrays themselves. The decode
     scalars are exact state: ``cur_tok`` is the sampled but not yet
-    emitted next token. Unlike the JAX record it holds no random state:
-    a row's decode draws come from the engine's stream, and its own
-    generator served only its first token."""
+    emitted next token. Unlike the JAX record it holds no random state
+    that this engine reads: a row's decode draws come from the engine's
+    stream, and its own generator served only its first token. ``rng`` is
+    set only on a row that migrates out: a ``uint32[2]`` drawn from the
+    engine's stream, the JAX PRNG key a JAX decode host samples with."""
 
     n_pages: int            # live pages exported -- the resume grant size
     n_pad: int              # power-of-2 padded page count in the payload
@@ -208,6 +224,7 @@ class _SpillRecord:
     #: stay resident in the pool under one reference held by the RECORD,
     #: and resume re-attaches them ahead of the fresh grant.
     shared_pages: list = field(default_factory=list)
+    rng: "np.ndarray | None" = None
 
 
 class ContinuousScheduler:
@@ -268,6 +285,16 @@ class ContinuousScheduler:
         self.spill_denied = 0     # ledger full/disabled -> no spill attempt
         self.preempt_redone = 0   # victim restarted from the prompt
         self.preempt_failed = 0   # victim shed with the typed retryable error
+        # -- disaggregated serving: the migration dispatcher hook,
+        # ``migrator(scheduler, req, rec, manifest, target)``, installed by
+        # the server on peer-aware boots. Requests tagged ``migrate_to`` are
+        # then exported right after prefill (the spill tier's record format)
+        # and decode on the target peer. None (the default) never exports.
+        self.migrator = None
+        self.migrated_out = 0        # rows handed to the dispatcher
+        self.migrate_out_failed = 0  # wire failed -> resumed/shed locally
+        self.migrated_in = 0         # peer rows admitted with zero re-prefill
+        self.migrate_in_rejected = 0 # bad commit (manifest/pool) refused
         # -- copy-on-write prefix KV reuse: off (None) unless
         # LUMEN_VLM_PREFIX_BYTES grants a budget.
         self.prefix: PrefixCache | None = None
@@ -335,12 +362,10 @@ class ContinuousScheduler:
             "spill_denied": self.spill_denied,
             "preempt_redone": self.preempt_redone,
             "preempt_failed": self.preempt_failed,
-            # Disaggregated-serving migration is not ported: its counters
-            # keep the JAX engine's gauge keys, at 0.
-            "migrated_out": 0,
-            "migrate_out_failed": 0,
-            "migrated_in": 0,
-            "migrate_in_rejected": 0,
+            "migrated_out": self.migrated_out,
+            "migrate_out_failed": self.migrate_out_failed,
+            "migrated_in": self.migrated_in,
+            "migrate_in_rejected": self.migrate_in_rejected,
         }
         if self._spill_arena is not None:
             arena = self._spill_arena.stats()
@@ -526,6 +551,8 @@ class ContinuousScheduler:
                         for req in members:
                             _fail(req, e)
                 self._advance_prefill_lane()
+                if self.migrator is not None:
+                    self._migrate_sweep()
                 if self._slots:
                     self._run_block()
         except BaseException as e:  # noqa: BLE001 - never strand callers
@@ -1031,6 +1058,8 @@ class ContinuousScheduler:
         slot = granted = None
         try:
             faults.check(KV_RESUME, f"{self.name}:resume")
+            if req.migrate_in is not None:
+                self._attach_migrate_shared(req, rec)
             leaves = self._unpack_spill(rec)
             n_layers = (len(leaves) - 1) // 2
             pages = [{"k": leaves[2 * i], "v": leaves[2 * i + 1]} for i in range(n_layers)]
@@ -1057,7 +1086,15 @@ class ContinuousScheduler:
                 self.kv.release(granted)
             logger.warning("KV resume failed (%s); degrading", e)
             self._drop_spill(req)
-            if not (req.do_sample and req.delivered > 0):
+            if req.migrate_in is not None:
+                # A migrated-in row has no local prompt to redo from: refuse
+                # it; the PREFILL host owns the fallback ladder and resumes
+                # the row from its own snapshot.
+                req.migrate_in = None
+                self.migrate_in_rejected += 1
+                metrics.count("vlm_migrate_in_rejected")
+                _fail(req, e)
+            elif not (req.do_sample and req.delivered > 0):
                 self.preempt_redone += 1
                 metrics.count("vlm_preempt_redone")
                 self._requeue_front([req])
@@ -1077,6 +1114,17 @@ class ContinuousScheduler:
         self.spill_resumes += 1
         metrics.count("vlm_spill_resumes")
         self._drop_spill(req)
+        if req.migrate_in is not None:
+            keys, _ = req.migrate_in
+            req.migrate_in = None
+            self.migrated_in += 1
+            metrics.count("vlm_migrated_in")
+            if self.prefix is not None and keys:
+                # The migrated prompt's pages are cacheable history here
+                # too: later same-prefix migrations (and local requests)
+                # resolve them by reference instead of riding the wire.
+                pages = self.kv.owned_pages(slot)[: len(keys)]
+                self.prefix.insert(keys[: len(pages)], pages)
         record_event(
             "vlm_resume", self.name,
             f"row resumed into slot {slot}: {rec.n_pages} pages re-installed, "
@@ -1084,6 +1132,135 @@ class ContinuousScheduler:
             min_interval_s=1.0,
             pages=rec.n_pages, tokens=len(rec.tokens),
         )
+
+    # -- KV page migration (disaggregated prefill/decode) --------------------
+
+    def _wire_manifest(self, req: _Request, n: int) -> list:
+        """Content-hash chain keys over the prompt's page-aligned prefix
+        (capped one page short like the prefix cache's attach cap): the
+        offer leg's reference list. Empty when the request carries no
+        content identity; the whole prompt then rides the wire."""
+        if req.prefix_content is None:
+            return []
+        content = np.asarray(req.prefix_content)[:n]
+        return chunk_keys(content, self.page_size)[: (n - 1) // self.page_size]
+
+    def _migrate_sweep(self) -> None:
+        """Hand freshly prefilled rows tagged for a decode-lane peer to the
+        migration dispatcher: export through the spill tier's path (shared
+        prefix CONTENTS included -- the peer may not hold them), mark the
+        row done on the device (an in-place write, no host sync), release
+        the slot, and let the dispatcher run the wire legs off-thread.
+        Every failure re-enters via :meth:`resubmit_spilled` -- the
+        preemption ladder with the peer as one more flaky sink, so a dead
+        decode host never loses or duplicates tokens."""
+        for idx in list(self._slots):
+            slot = self._slots.get(idx)
+            if slot is None:
+                continue
+            req = slot.request
+            if not req.migrate_to or slot.tokens or req.cancelled:
+                continue
+            target, req.migrate_to = req.migrate_to, None  # one attempt
+            try:
+                # All owned pages export by content (n_shared=0): the record
+                # is self-contained; reference-vs-contents is the
+                # dispatcher's call after the peer answers the offer.
+                rec, _ = self._export_state(idx, 0)
+            except Exception as e:  # noqa: BLE001 - decode locally instead
+                logger.warning("KV migrate-out export of slot %d failed (%s); decoding locally", idx, e)
+                continue
+            rec.prompt_len = slot.prompt_len
+            rec.rng = self._wire_key()
+            manifest = self._wire_manifest(req, slot.prompt_len)
+            self.pool["done"][idx] = True
+            with self._cond:
+                self._slots.pop(idx, None)
+            self.kv.release(idx)
+            self.migrated_out += 1
+            metrics.count("vlm_migrated_out")
+            try:
+                self.migrator(self, req, rec, manifest, target)
+            except Exception as e:  # noqa: BLE001 - ladder, not a loss
+                logger.warning("KV migration dispatch to %s failed (%s); resuming locally", target, e)
+                self.resubmit_spilled(req, rec)
+
+    def _wire_key(self) -> np.ndarray:
+        """A migrating row's PRNG-key leaf: two ``uint32`` from the engine's
+        generator, drawn on the loop thread (the generator's only user), so
+        rows sampled on a JAX decode host draw from distinct keys."""
+        key = torch.randint(0, 2**32, (2,), generator=self._rng, device=self._rng.device, dtype=torch.int64)
+        return key.cpu().numpy().astype(np.uint32)
+
+    def resubmit_spilled(self, req: _Request, rec: _SpillRecord) -> None:
+        """Thread-safe re-entry for a migration that failed before or
+        mid-stream: park the record as a spill and resume locally with zero
+        re-prefill (greedy replays are token-identical and the
+        ``delivered`` counter suppresses any already-streamed prefix). A
+        sampled row whose peer already streamed past the snapshot cannot
+        resume without splicing draws -- it sheds with the typed retryable
+        error, exactly the preemption ladder."""
+        self.migrate_out_failed += 1
+        metrics.count("vlm_migrate_fallbacks")
+        with self._cond:
+            closed = self._closed
+        if closed:
+            _fail(req, RuntimeError("continuous scheduler is closed"))
+            return
+        if req.do_sample and req.delivered > rec.n_gen:
+            self._fail_preempted(req, None)
+            return
+        req.spill = rec
+        self._spill_ledger[id(req)] = rec
+        self._spill_bytes_live += rec.nbytes
+        self._requeue_front([req])
+        with self._cond:
+            self._cond.notify()
+
+    def submit_migrated(self, req: _Request, rec: _SpillRecord, manifest: list, n_shared: int) -> None:
+        """Decode-host entry for a ``fed_kv_put`` commit: park the wire
+        record as a spill and queue the request -- the ordinary resume path
+        then re-installs the row with ZERO re-prefill device work.
+        ``manifest``/``n_shared`` defer shared-prefix resolution to the loop
+        thread (the prefix cache is loop-owned); a lost race fails the
+        request with :class:`migration.ChunksMissing`, which the wire
+        handler maps to a retryable refusal."""
+        need = rec.cur_len + max(int(req.max_new) - rec.n_gen, 0) + 1
+        if not self.kv.fits(need):
+            raise ValueError(
+                f"migrated row needs {need} KV tokens but this pool holds at most "
+                f"{min(self.kv.row_capacity(), (self.kv.pages_total - 1) * self.kv.page_size)} per row"
+            )
+        req.spill = rec
+        req.migrate_in = (list(manifest), int(n_shared))
+        if req.trace is None:
+            req.trace = current_trace()
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("continuous scheduler is closed")
+            self._spill_ledger[id(req)] = rec
+            self._spill_bytes_live += rec.nbytes
+            self._pending.append(req)
+            self._cond.notify()
+
+    def _attach_migrate_shared(self, req: _Request, rec: _SpillRecord) -> None:
+        """Resolve a migrated-in row's shared-prefix references against the
+        LOCAL prefix cache (loop thread -- authoritative, unlike the offer
+        leg's advisory peek) and take the record's hold on them. Idempotent
+        across page-race requeues: once ``shared_pages`` is set the
+        references are held and re-resolution would double-count."""
+        keys, n_shared = req.migrate_in
+        if n_shared <= 0 or rec.shared_pages:
+            return
+        got = self.prefix.lookup(keys[:n_shared]) if self.prefix is not None else []
+        if len(got) < n_shared:
+            raise migration.ChunksMissing(
+                f"offer promised {n_shared} cached prefix pages but only {len(got)} "
+                "survive (evicted since the offer)"
+            )
+        got = got[:n_shared]
+        self.kv.incref(got)
+        rec.shared_pages = list(got)
 
     def _row_need(self, slot: _Slot, horizon: int | None = None) -> int:
         """KV tokens a row needs covered before the next block (or a

@@ -67,6 +67,7 @@ from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import load_state_dict
+from ...utils import disagg
 from ...utils.env import env_choice, env_int
 from ...utils.host_decode import DECODE_POLICY
 from ...utils.metrics import metrics
@@ -836,6 +837,12 @@ class VLMManager:
             length=lengths, **common,
             prefix_content=self._prefix_content(host_ids, n_input, _image_identity(image_bytes, pixels)),
         )
+        owner = disagg.current()
+        if owner:
+            # Disaggregated serving: the front tier pinned this request's
+            # decode to a decode-lane peer; the engine migrates the row
+            # there right after prefill.
+            req.migrate_to = owner
         return req, n_input
 
     def _submit(self, req: _Request, stream: bool = False):

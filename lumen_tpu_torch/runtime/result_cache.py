@@ -895,7 +895,7 @@ def peer_export(key: str, wait_s: float = 0.0) -> bytes | None:
     cache-lookup RPC — ``None`` is a miss. Reads the shared cache WITHOUT
     instantiating one (a process that never cached owns nothing to
     export), honors the bounded flight wait (:meth:`ResultCache.peek_or_wait`),
-    and answers miss for unpicklable values. Jax-free and cheap: this is
+    and answers miss for unpicklable values. Host-only and cheap: this is
     answered by the hub router before any admission accounting."""
     with _shared_lock:
         cache = _shared
@@ -922,6 +922,32 @@ def hot_keys(n: int = 8) -> list[str]:
     return cache.hot_keys(n)
 
 
+#: the JAX package's top-level name: a peer blob naming one of its classes
+#: is refused, never imported (split so no string names one of its modules)
+_JAX_PACKAGE = "lumen" + "_tpu"
+
+
+class _PeerUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] == _JAX_PACKAGE:
+            raise pickle.UnpicklingError(
+                f"a peer blob names {module}.{name}, a class of the JAX package; "
+                "the port never imports it"
+            )
+        return super().find_class(module, name)
+
+
+def peer_loads(blob: bytes) -> Any:
+    """Unpickle a blob a federation peer sent (a cache-lookup answer or a
+    drain-handoff push). A fleet may mix this package's hosts with the
+    JAX package's, whose results pickle as that package's classes: such a
+    blob raises :class:`pickle.UnpicklingError`, which both callers treat
+    as a miss."""
+    import io
+
+    return _PeerUnpickler(io.BytesIO(blob)).load()
+
+
 def peer_import(key: str, blob: bytes) -> bool:
     """Store a pickle blob pushed by the federation drain handoff (the
     write half of the peer-cache protocol; :func:`peer_export` is the
@@ -935,7 +961,7 @@ def peer_import(key: str, blob: bytes) -> bool:
     if not cache.enabled:
         return False
     try:
-        value = pickle.loads(blob)
+        value = peer_loads(blob)
     except Exception as e:  # noqa: BLE001 - a bad peer blob is a no-op, not a crash
         logger.warning("federation cache import failed for %r: %s", key, e)
         return False

@@ -1,6 +1,6 @@
-"""Serving layer of the port: wire protocol, task registry, routing and the
-gRPC server (the port's copy of ``lumen_tpu/serving``; the circuit
-breaker and the federation front tier are not ported yet)."""
+"""Serving layer of the port: wire protocol, task registry, routing (the
+hub and the federation front tier), circuit breakers and the gRPC server
+(the port's copy of ``lumen_tpu/serving``)."""
 
 from .base_service import (
     BaseService,
@@ -11,9 +11,10 @@ from .base_service import (
     Unavailable,
     reassemble_result,
 )
+from .breaker import CircuitBreaker
 from .registry import TaskDefinition, TaskRegistry
 from .resilience import DegradedService, RecoveryManager
-from .router import HubRouter
+from .router import FederationRouter, HubRouter
 
 __all__ = [
     "BaseService",
@@ -22,10 +23,12 @@ __all__ = [
     "Unavailable",
     "ResourceExhausted",
     "DeadlineExceeded",
+    "CircuitBreaker",
     "DegradedService",
     "RecoveryManager",
     "TaskDefinition",
     "TaskRegistry",
     "HubRouter",
+    "FederationRouter",
     "reassemble_result",
 ]

@@ -12,10 +12,10 @@ A stdlib ``http.server`` thread exposing:
   task latencies/rates, device duty cycles, and the SLO summary (see
   ``utils/telemetry.py``),
 - ``GET  /slo``            — SLO objectives + multi-window burn state,
-- ``GET  /autopilot``      — the capacity controller's state (not ported:
-  answers "not loaded"),
-- ``GET  /peers``          — federation peers (not ported: answers "not
-  loaded"),
+- ``GET  /autopilot``      — the capacity controller's state ("not
+  loaded" until ``runtime/autopilot.py`` is imported),
+- ``GET  /peers``          — federation peers ("not loaded" until
+  ``runtime/federation.py`` is imported),
 - ``GET  /events?n=K``     — the incident flight recorder's event ring,
 - ``GET  /incidents``      — captured incident bundles,
 - ``GET  /traces``         — retained request traces (see

@@ -18,9 +18,21 @@ ported yet" error. Every live service gets its circuit breaker
 (``LUMEN_BREAKER_FAILURES``, default 6; ``LUMEN_BREAKER_RELOAD=1`` hands
 an opening breaker to recovery for a reload), the process's result cache
 and quarantine registry are built at boot, and ``--metrics-port`` starts
-the HTTP sidecar (``observability.py``) on loopback. Not ported yet: the
-federation front tier and peer wiring, the autopilot and mDNS
-advertising.
+the HTTP sidecar (``observability.py``) on loopback.
+
+Fleets, as in the JAX server: with ``LUMEN_FED_PEERS`` set and no enabled
+service, the server boots as a federation FRONT TIER
+(``FederationRouter``): it owns no model, touches no device and resolves
+none, and consistent-hash-routes every request over its peers. With
+services and peers it is a peer-aware backend: the result cache consults
+the ring owner's cache on a miss (when ``LUMEN_FED_SELF`` names this host
+in the peer list), and every continuous VLM engine can migrate a
+prefilled row's KV pages to a decode-lane peer and accept rows migrated
+to it (``LUMEN_FED_ROLE``). ``LUMEN_AUTOPILOT=1`` starts the capacity
+controller, ``server.mdns`` in the config advertises the server on the
+LAN, and a drain holds the server open until a watching front has read
+the draining flag (``LUMEN_DRAIN_ANNOUNCE_S``). Without
+``LUMEN_FED_PEERS`` none of this starts: no thread, no gauge.
 """
 
 from __future__ import annotations
@@ -44,8 +56,9 @@ from ..utils.logger import setup_logging
 from .base_service import BaseService
 from .breaker import CircuitBreaker, breaker_failures
 from .loader import resolve
+from .mdns import MdnsAdvertiser
 from .resilience import DegradedService, RecoveryManager, expected_tasks_for
-from .router import HubRouter
+from .router import FederationRouter, HubRouter
 
 logger = logging.getLogger(__name__)
 
@@ -55,6 +68,12 @@ GRPC_OPTIONS = [
 ]
 
 DRAIN_ENV = "LUMEN_DRAIN_S"
+DRAIN_ANNOUNCE_ENV = "LUMEN_DRAIN_ANNOUNCE_S"
+
+#: a capacity probe older than this means nobody is watching anymore (a
+#: front polls every LUMEN_FED_POLL_S, default 2s) -- don't hold shutdown
+#: for a departed observer.
+_DRAIN_WATCHER_STALE_S = 15.0
 
 
 def grpc_workers() -> int:
@@ -69,6 +88,18 @@ def drain_budget_s() -> float:
     hint while queued and in-flight work completes; stragglers past the
     budget are aborted, then the process exits. ``0`` stops at once."""
     return env_float(DRAIN_ENV, 10.0, minimum=0.0)
+
+
+def drain_announce_s() -> float:
+    """``LUMEN_DRAIN_ANNOUNCE_S``: max extra seconds an idle drain holds
+    the server open so capacity gossip can announce the draining flag to a
+    watching front (default 5; ``0`` disables the hold). Only applies when
+    a Health probe carried this host's capacity report recently -- a
+    standalone or ungossiped server shuts down exactly as before. The hold
+    ends early the moment a probe is served with the flag set, plus a
+    short margin for the front's hot-key handoff fetches to arrive; always
+    capped by the remaining ``LUMEN_DRAIN_S`` budget."""
+    return env_float(DRAIN_ANNOUNCE_ENV, 5.0, minimum=0.0)
 
 
 def build_one_service(config: LumenConfig, name: str, device) -> BaseService:
@@ -162,12 +193,15 @@ class ServerHandle:
 
     def __init__(
         self, server: grpc.Server, port: int, router: HubRouter, recovery: RecoveryManager | None,
-        metrics_server=None,
+        metrics_server=None, mdns: MdnsAdvertiser | None = None, autopilot=None, federation=None,
     ):
         self.server = server
         self.port = port
         self.router = router
         self.metrics_server = metrics_server
+        self.mdns = mdns
+        self.autopilot = autopilot
+        self.federation = federation
         # Live view: recovery hot-swaps promoted services into this dict
         # (it is the router's), so teardown closes what is actually running.
         self.services = router.services
@@ -176,8 +210,10 @@ class ServerHandle:
     def drain_and_stop(self, drain_s: float | None = None) -> None:
         """Graceful shutdown: refuse new RPCs (the router answers in-band
         UNAVAILABLE with a ``lumen-retry-after-ms`` hint while the gRPC
-        server keeps accepting), let in-flight streams complete for up to
-        ``drain_s`` (``LUMEN_DRAIN_S``), then tear down."""
+        server keeps accepting), hold until a watching front has read the
+        draining flag (``LUMEN_DRAIN_ANNOUNCE_S``), let in-flight streams
+        complete for up to ``drain_s`` (``LUMEN_DRAIN_S``), then tear
+        down."""
         import time
 
         from ..utils import telemetry
@@ -194,6 +230,28 @@ class ServerHandle:
             "server_drain", "server",
             f"drain started: refusing new RPCs, draining in-flight work (budget {drain_s:.0f}s)",
         )
+        # Announce hold: a PLANNED shutdown must be gossiped, not
+        # discovered. If a front was recently reading our capacity report
+        # off Health probes, an idle drain would otherwise tear the
+        # listener down before the next poll, and the front would eject us
+        # through failover (a fed_peer_down incident) instead of
+        # re-weighting to zero and prefetching hot keys. Hold (bounded)
+        # until a probe is served WITH the draining flag, then a short
+        # margin so the front's handoff fetches land while we still answer.
+        announce_s = drain_announce_s()
+        probe_age = self.router.capacity_probe_age()
+        if announce_s > 0 and probe_age is not None and probe_age <= _DRAIN_WATCHER_STALE_S:
+            announce_deadline = min(deadline, started + announce_s)
+            while not self.router.drain_announced() and time.monotonic() < announce_deadline:
+                time.sleep(0.05)
+            if self.router.drain_announced():
+                logger.info(
+                    "drain: draining flag gossiped to a watching front (%.2fs after SIGTERM)",
+                    time.monotonic() - started,
+                )
+                time.sleep(min(1.0, max(deadline - time.monotonic(), 0.0)))
+            else:
+                logger.info("drain: no probe observed the draining flag within %.1fs; proceeding", announce_s)
         while self.router.active_streams() > 0 and time.monotonic() < deadline:
             time.sleep(0.05)
         stragglers = self.router.active_streams()
@@ -205,10 +263,34 @@ class ServerHandle:
         )
 
     def stop(self, grace: float = 5.0) -> None:
+        if self.autopilot is not None:
+            # First of all: the controller must not actuate (park, force a
+            # rung, retune a window) against services mid-teardown, and the
+            # process-wide slot must not keep advertising a dead controller.
+            from ..runtime.autopilot import get_autopilot, install_autopilot
+
+            self.autopilot.stop()
+            if get_autopilot() is self.autopilot:
+                install_autopilot(None)
+            self.autopilot = None
+        if self.federation is not None:
+            # Fleet teardown next: the poller must stop probing (and the
+            # process-wide slot stop advertising on /peers) before the
+            # services it might mark healthy are closed underneath it.
+            from ..runtime.federation import get_federation, install_federation
+            from ..runtime.result_cache import detach_peer_lookup
+
+            detach_peer_lookup(self.federation.peer_cache_lookup)
+            self.federation.close()
+            if get_federation() is self.federation:
+                install_federation(None)
+            self.federation = None
         if self.recovery:
-            # First: a recovery attempt finishing mid-shutdown would swap a
+            # Next: a recovery attempt finishing mid-shutdown would swap a
             # fresh service in after the close pass below already ran.
             self.recovery.stop()
+        if self.mdns:
+            self.mdns.stop()
         if self.metrics_server:
             self.metrics_server.stop()
         # Let in-flight RPCs drain first, then close the services so their
@@ -235,48 +317,74 @@ def serve(
     device=None,
 ) -> ServerHandle:
     """Boot the server; ``device`` (default ``cuda:0``, raising without a
-    card) reaches every service's ``from_config``. ``port_override=0``
-    binds an OS-assigned port (``handle.port``); ``metrics_port`` starts
-    the HTTP sidecar on loopback (0: an OS-assigned port,
-    ``handle.metrics_server.port``)."""
-    from ..runtime.quarantine import get_quarantine
-    from ..runtime.result_cache import get_result_cache
+    card) reaches every service's ``from_config``. A front tier (peers and
+    no enabled service) owns no model and resolves no device.
+    ``port_override=0`` binds an OS-assigned port (``handle.port``);
+    ``metrics_port`` starts the HTTP sidecar on loopback (0: an
+    OS-assigned port, ``handle.metrics_server.port``)."""
+    from ..runtime.federation import maybe_federation
 
-    device = resolve_device(device)
-    # The process-wide result cache (LUMEN_CACHE_BYTES, LUMEN_CACHE_DIR) and
-    # quarantine registry, built from the environment before any request.
-    get_result_cache()
-    get_quarantine()
-    failed: dict[str, str] = {}
-    if not skip_download:
-        failed = ensure_models(config)
-    services = build_services(config, device, failed=failed)
-    if not services:
-        logger.error("no enabled services selected by deployment config")
-        raise SystemExit(1)
-    router = HubRouter(services)
-
-    def rebuild(n: str) -> BaseService:
-        # A recovered or reloaded service gets a fresh breaker: the swap
-        # replaces the instance whose breaker tripped.
-        svc = rebuild_service(config, n, device, skip_download=skip_download)
-        return attach_breaker(recovery, n, svc)
-
-    # Built on every boot: a breaker can hand a service over for reload at
-    # any point in the process's life.
-    recovery = RecoveryManager(router, rebuild=rebuild)
-    for name, svc in services.items():
-        attach_breaker(recovery, name, svc)
-    degraded = sorted(n for n, s in services.items() if isinstance(s, DegradedService))
-    if degraded:
-        logger.warning(
-            "booting with %d degraded service(s): %s — healthy siblings keep "
-            "serving; background recovery is retrying the failed loads",
-            len(degraded), degraded,
+    # Fleet federation (LUMEN_FED_PEERS / LUMEN_FED_DISCOVER): resolved
+    # once at boot, logged once. Unset -> None having done nothing: no
+    # thread, no gauge.
+    federation = maybe_federation()
+    recovery: RecoveryManager | None = None
+    if not config.enabled_services():
+        if federation is None:
+            logger.error("no enabled services selected by deployment config")
+            raise SystemExit(1)
+        # Front-tier mode: this server owns no models; every Infer stream
+        # consistent-hash-routes over the peer set (a front tier speaks the
+        # same protocol, so tiers compose).
+        services: dict[str, BaseService] = {}
+        router: HubRouter = FederationRouter(federation)
+        where = "front tier, no device"
+        logger.info(
+            "front-tier mode: no local services; routing %d peer(s) with hop budget %d",
+            len(federation.peers), federation.hops,
         )
-        for name in degraded:
-            recovery.register(name)
-    recovery.start()
+    else:
+        from ..runtime.quarantine import get_quarantine
+        from ..runtime.result_cache import get_result_cache
+
+        device = resolve_device(device)
+        where = str(device)
+        # The process-wide result cache (LUMEN_CACHE_BYTES, LUMEN_CACHE_DIR)
+        # and quarantine registry, built from the environment before any
+        # request.
+        get_result_cache()
+        get_quarantine()
+        failed: dict[str, str] = {}
+        if not skip_download:
+            failed = ensure_models(config)
+        services = build_services(config, device, failed=failed)
+        router = HubRouter(services)
+
+        def rebuild(n: str) -> BaseService:
+            # A recovered or reloaded service gets a fresh breaker: the swap
+            # replaces the instance whose breaker tripped.
+            svc = rebuild_service(config, n, device, skip_download=skip_download)
+            return attach_breaker(recovery, n, svc)
+
+        # Built on every boot: a breaker can hand a service over for reload
+        # at any point in the process's life.
+        recovery = RecoveryManager(router, rebuild=rebuild)
+        for name, svc in services.items():
+            attach_breaker(recovery, name, svc)
+        degraded = sorted(n for n, s in services.items() if isinstance(s, DegradedService))
+        if degraded:
+            logger.warning(
+                "booting with %d degraded service(s): %s — healthy siblings keep "
+                "serving; background recovery is retrying the failed loads",
+                len(degraded), degraded,
+            )
+            for name in degraded:
+                recovery.register(name)
+        recovery.start()
+        if federation is not None:
+            attach_federation(router, services, federation)
+    if federation is not None:
+        federation.start()  # the one background health-poll thread
 
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=grpc_workers(), thread_name_prefix="grpc"),
@@ -304,13 +412,66 @@ def serve(
 
         metrics_server = MetricsServer(port=metrics_port, host="127.0.0.1")
         metrics_server.start()
-    logger.info("serving %d service(s) on %s:%d (%s): %s", len(services), host, bound, device, sorted(services))
+    # LUMEN_AUTOPILOT=1 starts the capacity controller (scale, brownout and
+    # window loops over the telemetry spine); unset starts nothing.
+    from ..runtime.autopilot import maybe_start_autopilot
+
+    autopilot = maybe_start_autopilot()
+    logger.info("serving %d service(s) on %s:%d (%s): %s", len(services), host, bound, where, sorted(services))
     for name, svc in services.items():
         logger.info("  %s [%s] tasks: %s", name, svc.status(), svc.registry.task_names())
-    return ServerHandle(server, bound, router, recovery, metrics_server)
+    mdns = None
+    mdns_cfg = config.server.mdns
+    if mdns_cfg and mdns_cfg.enabled:
+        mdns = MdnsAdvertiser(
+            mdns_cfg.service_name or "lumen-tpu",
+            bound,
+            properties={"tasks": ",".join(t for s in services.values() for t in s.registry.task_names())},
+        )
+        mdns.start()
+    return ServerHandle(
+        server, bound, router, recovery, metrics_server, mdns=mdns, autopilot=autopilot, federation=federation,
+    )
 
 
-def main(argv: list[str] | None = None) -> int:
+def attach_federation(router: HubRouter, services: dict[str, BaseService], federation) -> None:
+    """Peer-aware backend wiring (the JAX ``serve``'s): fleet state rides
+    this hub's Health (``lumen-fed-status``); when this server knows which
+    ring member it is, local result-cache misses consult the ring owner's
+    cache first; and every continuous VLM engine gets both halves of the
+    KV migration wire: it can answer ``fed_kv_put`` (decode sink) and
+    dispatch migrations (prefill side). Which lane a host plays is the
+    front tier's routing call, from each host's ``LUMEN_FED_ROLE``."""
+    from ..runtime.federation import fed_role
+    from ..runtime.result_cache import get_result_cache
+    from ..utils import disagg
+
+    router.federation = federation
+    if federation.self_listed:
+        get_result_cache().peer_lookup = federation.peer_cache_lookup
+        logger.info("federation: peer-cache lookups enabled (self=%s)", federation.self_name)
+    else:
+        # Unset or mislisted: either way the `owner == self` guard cannot
+        # work, so no hook (the manager already warned on a mislisted self).
+        logger.info(
+            "federation: LUMEN_FED_SELF %s — peer-cache lookups disabled on this backend "
+            "(health gossip + Health surfacing only)",
+            "unset" if not federation.self_name else "not in peer list",
+        )
+    vlm = next((s for s in services.values() if hasattr(s, "handle_kv_put")), None)
+    engines = list(getattr(getattr(vlm, "manager", None), "_engines", None) or []) if vlm is not None else []
+    if engines:
+        disagg.enable()
+        router.kv_migration = vlm
+        for eng in engines:
+            eng.migrator = federation.kv_migrate
+        logger.info("federation: KV migration wire enabled on %d engine(s) (role=%s)", len(engines), fed_role())
+
+
+def main(argv: list[str] | None = None, on_serving=None) -> int:
+    """The server CLI: serve the config until SIGINT or SIGTERM, then drain
+    and stop. ``on_serving(handle)``, when given, runs once the server
+    answers (a caller that embeds the CLI reads its handle there)."""
     parser = argparse.ArgumentParser(
         prog="lumen-tpu-torch",
         description="lumen-tpu inference server on PyTorch/CUDA",
@@ -339,6 +500,8 @@ def main(argv: list[str] | None = None) -> int:
         config, port_override=args.port, skip_download=args.skip_download,
         metrics_port=args.metrics_port, device=args.device,
     )
+    if on_serving is not None:
+        on_serving(handle)
 
     stop_event = threading.Event()
 

@@ -1,7 +1,7 @@
 """Shared env-knob parsing: numeric ``LUMEN_*`` reads with loud typos.
 
 The port's own copy of ``lumen_tpu/utils/env.py`` (``env_int``,
-``env_float`` and ``env_choice``, which the port reads); the port imports
+``env_float``, ``env_list`` and ``env_choice``, which the port reads); the port imports
 nothing of the JAX package.
 
 Every layer of the stack reads tuning knobs from the environment, and the
@@ -92,6 +92,18 @@ def env_float(
         _warn_once(name, raw, default)
         return default
 
+
+
+def env_list(name: str, default: tuple[str, ...] = ()) -> tuple[str, ...]:
+    """Comma-list twin of :func:`env_int`: split on commas, strip
+    whitespace, drop empty entries. Unset -> ``default``. There is no
+    malformed shape for a string list, so no warning path — entry-level
+    validation (e.g. ``host:port`` syntax) belongs to the caller, which
+    knows what an entry means."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return tuple(part for part in (p.strip() for p in raw.split(",")) if part)
 
 def env_choice(
     name: str,

@@ -11,8 +11,10 @@ pinned pool that all spill and resume, greedy answers equal alone and to
 phase 6's, prefix hits with fewer chunks than cold, a result-cache
 answer, the sidecar's metrics and the spill round trip. Phases 8, 9 and
 10 run the same way at tiny widths (CLIP, then face and graph CLIP, then
-OCR and the full tier), phase 11 at small sizes (ingest and search), and
-phase 12 (the VLM and CLIP options) with a tiny FastViTHD stand-in.
+OCR and the full tier), phase 11 at small sizes (ingest and search),
+phase 12 (the VLM and CLIP options) with a tiny FastViTHD stand-in, and
+phase 13's (a) and (b) (the disaggregated fleet, two of its hosts in
+processes of their own) under a time limit of their own.
 """
 
 from __future__ import annotations
@@ -211,3 +213,62 @@ def test_chip_smoke_vlm_options_drive_runs_on_cpu(clip_drive):
     assert min(out["ab_bf16_tps"]) > 0 and min(out["ab_q8_tps"]) > 0
     assert out["clip_cos"] >= chip_smoke.Q8_CLIP_COSINE
     assert not any(n for launches in out["launches"].values() for n in launches.values())  # plain paths
+
+
+#: the rehearsal's own limit: phase 13 runs in a thread joined with it, and
+#: every gRPC call and host wait inside is bounded by ``timeout``
+FLEET_REHEARSAL_S = 300
+
+
+def test_chip_smoke_fleet_drive_runs_on_cpu(clip_drive):
+    """Phase 13 (a) and (b) at phase 6's small configuration on the CPU: a
+    prefill host and a front tier in processes of their own, the decode
+    host in this one; every row migrates and equals the colocated control
+    (no fallback, no rejection, no live page at the end), the decode host
+    prefills nothing, the front never initializes a device, and two streams
+    whose decode host stops mid-stream finish on the prefill host's ladder
+    equal to their control."""
+    import threading
+
+    root, _, phase6 = clip_drive
+    box: dict = {}
+
+    def drive():
+        try:
+            box["out"] = chip_smoke.drive_fleet(0, "cpu", root, phase6, device="cpu", drain=False, search=False,
+                                                max_new=8, fallback_new=64, timeout=120)
+        except BaseException as e:  # noqa: BLE001 - re-raised in the test's thread
+            box["err"] = e
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE13_DECODE_KERNELS", ())
+        runner = threading.Thread(target=drive, daemon=True)
+        runner.start()
+        runner.join(timeout=FLEET_REHEARSAL_S)
+    assert not runner.is_alive(), f"phase 13's rehearsal ran past {FLEET_REHEARSAL_S} s"
+    if "err" in box:
+        raise box["err"]
+    out = box["out"]
+    assert out["puts"] == out["requests"] == 10 and out["fallbacks"] == 2
+    assert len(out["commit_unpack_ms"]) == len(out["commit_first_ms"]) == 10 and out["row_bytes"] > 0
+    assert out["frame_bytes"] > 0 and out["loopback_bytes_s"] > 0
+    assert set(out["prefill_host"]) >= chip_smoke.READOUT_KEYS
+    assert not any(out["launches"].values())  # plain paths on the CPU
+    assert out["front_host"]["cuda_initialized"] is False
+
+
+def test_a_host_that_fails_fails_its_stop(tmp_path):
+    """A ``--serve-host`` process that exits non-zero (here: a config that
+    does not exist) is an error at ``stop``, never an empty report."""
+    host = chip_smoke.ServerProcess("bad host", tmp_path / "missing.yaml", chip_smoke.free_port(), "cpu",
+                                    tmp_path / "host.log", {}, readout=True)
+    with pytest.raises(AssertionError, match="exited with"):
+        host.wait(timeout=120)
+    with pytest.raises(AssertionError, match="exited with"):
+        host.stop()
+
+
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 14))), ("13", {1, 6, 13}),
+                                        ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4})])
+def test_phase_selector_adds_the_phases_read(spec, want):
+    assert chip_smoke.phase_set(spec) == want

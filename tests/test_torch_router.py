@@ -1,5 +1,6 @@
-"""The port's ``HubRouter`` (the JAX router without its federation half)
-and the port's server lifecycle, over real gRPC on the CPU, with echo
+"""The port's ``HubRouter`` (its federation half, ``FederationRouter``
+and the reserved tasks' answers, is held in ``test_torch_federation.py``
+and ``test_torch_disagg.py``) and the port's server lifecycle, over real gRPC on the CPU, with echo
 services standing in for model services (the pattern of
 ``tests/test_serving_grpc.py``)."""
 
@@ -70,17 +71,24 @@ def test_routes_unary_and_streaming_tasks(hub):
 @pytest.mark.parametrize("task,code", [
     ("nope", pb.ERROR_CODE_UNAVAILABLE),  # a degraded sibling may own it
     ("broken_run", pb.ERROR_CODE_UNAVAILABLE),  # the degraded service's own route
-    ("fed_cache_lookup", pb.ERROR_CODE_UNAVAILABLE),  # reserved tasks are not ported: routed like any
+    ("fed_cache_lookup", pb.ERROR_CODE_UNAVAILABLE),  # the reserved tasks, answered before the route table
 ])
 def test_unroutable_tasks_answer_in_band(hub, task, code):
     stub, _, _ = hub
     (r,) = call(stub, task)
+    if task == "fed_cache_lookup":
+        # A cache lookup no cache can answer is a miss, not an error; the
+        # other reserved task, a KV migration, is refused UNAVAILABLE by a
+        # hub with no sink attached.
+        assert r.meta["fed_cache"] == "miss" and not r.HasField("error")
+        (r,) = call(stub, "fed_kv_put")
+        assert r.meta["fed_kv"] == "refused"
     assert r.error.code == code
 
 
 def test_unknown_task_without_degraded_services_is_a_client_error():
     router = HubRouter({"echo": EchoService("echo")})
-    first = pb.InferRequest(correlation_id="c", task="fed_kv_put")
+    first = pb.InferRequest(correlation_id="c", task="nope")
     (r,) = router.Infer(iter([first]), None)
     assert r.error.code == pb.ERROR_CODE_INVALID_ARGUMENT and "echo_echo" in r.error.detail
 
@@ -97,7 +105,7 @@ def test_capabilities_aggregate_the_live_services_runtime(hub):
 def test_health_reports_degraded_services_in_trailing_metadata(hub):
     """Service states ride Health; so does the quarantine size once the
     quarantine registry is loaded in the process (as in the JAX router);
-    federation is not ported, so no fleet key."""
+    no federation is attached, so no fleet key."""
     from lumen_tpu_torch.runtime.quarantine import get_quarantine
 
     stub, _, _ = hub
