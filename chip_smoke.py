@@ -226,14 +226,43 @@ Phases (any failure exits non-zero):
    the exact oracle outside near-ties. The front tier must launch nothing and
    never initialize CUDA, and every host must exit 0 with its report.
 
-A run with no arguments drives all thirteen phases (``--phases 13``, a
+14. the control plane as users reach it: (a) ``hardware_report()`` in a
+   fresh process reports the card (``cuda``, the ``nvidia-smi`` name, one
+   card) and recommends the H100 preset without a CUDA context in that
+   process, and ``environment_report`` passes its torch, nvcc, driver and
+   device checks; (b) the app (``lumen_tpu_torch.app``, aiohttp in process
+   on a loopback port, real HTTP): ``hardware/detect``, ``config/generate``
+   with that preset and ``tier: full`` into a temporary cache holding
+   phases 12 (a), 9 (c), 9 (a) and 10 (a)'s stand-ins under the catalog
+   names the YAML asks for (``FastVLM-0.5B``, ``MobileCLIP2-S2``,
+   ``buffalo_l``, ``PP-OCRv5_mobile``), ``config/save``; ``python -m
+   lumen_tpu_torch.core.cli`` ``validate``, ``list`` and ``download`` on it
+   (nothing to fetch); ``install/setup`` with a venv and the model check;
+   (c) ``server/start`` of the full tier under the app's ``ServerManager``
+   (this script's ``--serve-host``) with ``LUMEN_COMPILE_CACHE_DIR``
+   empty: healthy, then a greedy caption over gRPC, whose kernels build at
+   first use, and ``/stats``' ``compile`` block counting the libraries the
+   child built; (d) ``python -m lumen_tpu_torch.client``'s ``caps``,
+   ``health``, ``topology``, ``embed-text``, ``embed-image``, ``faces``,
+   ``ocr``, ``caption``, ``caption --stream`` and ``stats`` exit 0 with
+   answers valid against their result schemas, the client's caption equal
+   to that gRPC one (the result cache off), ``/api/v1/metrics`` counting
+   the tasks; then ``server/restart`` from the warm directory and the same
+   caption again with 0 builds, both times from start to ready and both
+   first captions printed; (e) ``server/stop``: both children exit 0 and
+   their readouts, read back from ``/api/v1/server/logs``, show
+   ``paged_attention`` and ``flash_attention_cache`` launched.
+
+A run with no arguments drives all fourteen phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
-prints neither of the last two lines). The kernel table's launch counts are
+prints neither of the last two lines), and prints each phase's seconds.
+The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
 for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
-phase 10 beside its two OCR rows (timed in phase 2), phase 13 beside every
-kernel's row (decode and prefill hosts). The last two lines are the
+phase 10 beside its two OCR rows (timed in phase 2), phases 13 and 14
+beside every kernel's row (decode and prefill hosts; the supervised full
+tier). The last two lines are the
 kernel table (JSON) and the device line the harness reads; the card's
 name and power limit precede them.
 """
@@ -5464,6 +5493,327 @@ def _drive_fleet_search(seed: int, card: str, root: Path, device: str, n_vectors
             h.stop(grace=0.5)
 
 
+# -- phase 14: the control plane as users reach it --------------------------------
+
+#: the kernels the supervised full tier must launch (its vision tower, CLIP,
+#: face and OCR all run on the ONNX bridge; phases 2-13 hold the others)
+PHASE14_KERNELS = ("flash_attention_cache", "paged_attention")
+#: the catalog names ``config_gen`` writes for the full tier, each served by
+#: an earlier phase's stand-in: phase 12 (a)'s FastVLM-shaped directory,
+#: phase 9 (c)'s export-only CLIP, phase 9 (a)'s pack, phase 10 (a)'s pack
+CATALOG_SOURCES = {"FastVLM-0.5B": "SmokeFastVLM", "MobileCLIP2-S2": "SmokeMobileCLIP", "buffalo_l": "buffalo_l",
+                   "PP-OCRv5_mobile": "PP-OCRv5_mobile"}
+#: what each client subcommand's answer is held to
+CLIENT_SCHEMAS = {"embed-text": "embedding_v1", "embed-image": "embedding_v1", "faces": "face_v1",
+                  "ocr": "ocr_v1", "caption": "text_generation_v1", "caption --stream": "text_generation_v1"}
+#: the tasks ``GET /api/v1/metrics`` must count after (d)
+PHASE14_TASKS = ("clip_text_embed", "clip_image_embed", "face_detect", "ocr", "vlm_generate", "vlm_generate_stream")
+
+
+def link_model_dir(src: Path, dst: Path, runtime: str) -> None:
+    """``dst`` (a catalog name under the cache) holding links to each entry
+    of ``src`` and its own ``model_info.json``: the catalog name, and the
+    source's declared files under the ``runtime`` the YAML names too."""
+    dst.mkdir(parents=True)
+    for entry in src.iterdir():
+        if entry.name != "model_info.json":
+            (dst / entry.name).symlink_to(entry.resolve())
+    info = json.loads((src / "model_info.json").read_text())
+    files = next(r["files"] for r in info["runtimes"].values() if r.get("available"))
+    info["name"] = dst.name
+    info["runtimes"][runtime] = {"available": True, "files": files}
+    (dst / "model_info.json").write_text(json.dumps(info))
+
+
+def run_cli(args: list, timeout: float = 600, **kw) -> subprocess.CompletedProcess:
+    """A ``python -m`` command of the port from the checkout's root; raises
+    unless it exits 0."""
+    out = subprocess.run([sys.executable, "-m", *map(str, args)], capture_output=True, text=True, cwd=ROOT,
+                         timeout=timeout, env={**os.environ, "PYTHONPATH": str(ROOT)}, **kw)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(map(str, args[:3]))} exited with {out.returncode}:\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    return out
+
+
+def split_stream(stdout: str) -> tuple[str, dict]:
+    """``client caption --stream``'s output: the streamed text, then a
+    newline and the final answer's JSON."""
+    at = stdout.rindex("\n{\n")
+    return stdout[:at], json.loads(stdout[at + 1:])
+
+
+def drive_control_plane(card: str, root: Path, photos: list, sources: dict, device: str = "cuda:0",
+                        preset: str | None = None, timeout: float = 900.0) -> dict:
+    """Phase 14: the control plane as users reach it. (a) ``hardware_report()``
+    in a fresh process: the card's name and count, the recommended preset,
+    and no CUDA context in that process; ``environment_report`` there. (b)
+    the app (``lumen_tpu_torch.app``, in process, aiohttp on a loopback port,
+    real HTTP): ``hardware/detect``, ``config/generate`` (the recommended
+    preset, or ``preset``; ``tier: full``) into a temporary cache holding the
+    stand-ins under the catalog names (``sources``: catalog name -> model
+    directory, linked), ``config/save``; the resources CLI's ``validate``,
+    ``list`` and ``download`` on the saved YAML (nothing to fetch); and
+    ``install/setup`` with a venv and the model check. (c) ``server/start``
+    of the full tier under the app's ``ServerManager`` (``chip_smoke.py
+    --serve-host``) with ``LUMEN_COMPILE_CACHE_DIR`` empty: healthy; a
+    greedy caption over gRPC builds its kernels at first use, counted in
+    ``/stats``' ``compile`` block. (d) ``python -m lumen_tpu_torch.client``:
+    every subcommand exits 0 with a schema-valid answer on ``photos[0]``, the
+    client's caption equal to that gRPC one, and ``/api/v1/metrics``
+    counting the tasks; then ``server/restart`` from the warm directory, the
+    same caption again with no build. (e) ``server/stop``: both children
+    exit 0, and their readouts (``/api/v1/server/logs``) show the path's
+    kernels launched. Off the card ``preset`` names the preset and the saved
+    YAML is edited to ``device: cpu`` (the wizard's YAML editor)."""
+    import asyncio
+
+    import yaml
+
+    from lumen_tpu_torch.core.config import load_config
+    from lumen_tpu_torch.core.downloader import Downloader
+    from lumen_tpu_torch.core.result_schemas import validate_result
+
+    on_card = device != "cpu"
+    t_phase = time.perf_counter()
+    work = root / "control"
+    cache = work / "cache"
+    work.mkdir()
+    out: dict = {}
+
+    # -- (a) hardware detection in a fresh process -----------------------------------
+    code = ("import json, sys\n"
+            "from lumen_tpu_torch.app.env_check import environment_report\n"
+            "from lumen_tpu_torch.app.hardware import hardware_report\n"
+            "report = hardware_report()\n"
+            "env = environment_report(sys.argv[1], 1.0)\n"
+            "import torch\n"
+            "print(json.dumps({'report': report, 'env': env, 'cuda_initialized': torch.cuda.is_initialized()}))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, str(work)], capture_output=True, text=True, cwd=ROOT,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    if res.returncode != 0:
+        raise AssertionError(f"phase 14 (a): the probing process exited with {res.returncode}:\n{res.stderr[-3000:]}")
+    seen = json.loads(res.stdout.strip().splitlines()[-1])
+    report, hw = seen["report"], seen["report"]["hardware"]
+    checks = {c["name"]: c for c in seen["env"]["checks"]}
+    if seen["cuda_initialized"]:
+        raise AssertionError("phase 14 (a): the process that called hardware_report() holds a CUDA context")
+    if on_card:
+        import torch
+
+        name = card.split(",")[0].strip()
+        if (hw["platform"], hw["device_kind"], hw["device_count"]) != ("cuda", name, torch.cuda.device_count()):
+            raise AssertionError(f"phase 14 (a): detected {hw}, nvidia-smi says {card!r}")
+        if report["recommended_preset"] != "cuda_h100_1":
+            raise AssertionError(f"phase 14 (a): recommended {report['recommended_preset']}")
+        bad = [n for n in ("torch", "torch_cuda", "nvcc", "nvidia_driver", "gpu_devices") if not checks[n]["ok"]]
+        if bad:
+            raise AssertionError(f"phase 14 (a): environment checks failed: {[checks[n] for n in bad]}")
+    preset = preset or report["recommended_preset"]
+    verdicts = ", ".join(f"{n} {c['ok']}" for n, c in checks.items())
+    log(f"phase 14 (a): hardware_report() in a fresh process ({time.perf_counter() - t0:.1f} s): "
+        f"{hw['platform']} '{hw['device_kind']}' x{hw['device_count']}, {hw['device_memory_gb']} GB, recommends "
+        f"{report['recommended_preset']} (supported {report['supported_presets']}); CUDA initialized in that process: "
+        f"{seen['cuda_initialized']}; env checks {verdicts}; nvcc: {checks['nvcc']['detail']} [{card}]")
+
+    async def drive() -> None:
+        import aiohttp
+        from aiohttp import web
+
+        from lumen_tpu_torch.app.api import MANAGER_KEY, build_app
+        from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+
+        app = build_app()
+        manager = app[MANAGER_KEY]
+        # The supervised server is the port's CLI under --serve-host, which
+        # prints its launches and peak memory when it stops.
+        manager.server_argv = (sys.executable, str(ROOT / "chip_smoke.py"), "--serve-host")
+        runner = web.AppRunner(app)
+        await runner.setup()
+        app_port = free_port()
+        await web.TCPSite(runner, "127.0.0.1", app_port).start()
+        base = f"http://127.0.0.1:{app_port}/api/v1"
+        http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=timeout))
+
+        async def call(method: str, path: str, body: dict | None = None, status: int = 200):
+            async with http.request(method, base + path, json=body) as r:
+                data = await r.json(content_type=None)
+                if r.status != status:
+                    raise AssertionError(f"phase 14: {method} {path} answered {r.status}: {data}")
+                return data
+
+        async def cli(*args, **kw):
+            return await asyncio.to_thread(run_cli, list(args), **kw)
+
+        try:
+            # -- (b) config, install and the resources CLI ---------------------------
+            t0 = time.perf_counter()
+            detect = await call("GET", "/hardware/detect")
+            if detect["recommended_preset"] != report["recommended_preset"]:
+                raise AssertionError(f"phase 14 (b): hardware/detect recommends {detect['recommended_preset']}")
+            grpc_port = free_port()
+            cfg = await call("POST", "/config/generate", {"preset": preset, "tier": "full", "cache_dir": str(cache),
+                                                          "port": grpc_port, "mdns": False})
+            models = {svc: next(iter(spec["models"].values())) for svc, spec in cfg["services"].items()}
+            if sorted(m["model"] for m in models.values()) != sorted(sources):
+                raise AssertionError(f"phase 14 (b): the full tier names {models}")
+            for m in models.values():
+                link_model_dir(Path(sources[m["model"]]), cache / "models" / m["model"], m["runtime"])
+            yaml_path = work / "lumen.yaml"
+            if on_card:
+                await call("POST", "/config/save", {"path": str(yaml_path)})
+            else:  # the wizard's YAML editor: serve the same tier on the CPU
+                text = await (await http.get(base + "/config/yaml")).text()
+                spec = yaml.safe_load(text)
+                for svc in spec["services"].values():
+                    svc["backend_settings"].update(device="cpu", dtype="float32")
+                await call("POST", "/config/save", {"path": str(yaml_path), "yaml": yaml.safe_dump(spec)})
+            devices = {s.backend_settings.device for s in load_config(str(yaml_path)).services.values()}
+            check = Downloader(load_config(str(yaml_path))).check_all()  # offline: download must fetch nothing
+            if not check.ok:
+                raise AssertionError(f"phase 14 (b): models missing from the cache: {check.results}")
+            await cli("lumen_tpu_torch.core.cli", "validate", "--config", yaml_path)
+            listed = (await cli("lumen_tpu_torch.core.cli", "list", "--config", yaml_path)).stdout
+            if sorted(line.split(": ")[1].split()[0] for line in listed.splitlines()) != sorted(sources):
+                raise AssertionError(f"phase 14 (b): list printed {listed!r}")
+            downloaded = (await cli("lumen_tpu_torch.core.cli", "download", "--config", yaml_path)).stdout
+            task = await call("POST", "/install/setup", {"venv_path": str(work / "venv"), "config_path": str(yaml_path),
+                                                         "download": True}, status=202)
+            while task["status"] in ("pending", "running"):
+                await asyncio.sleep(0.5)
+                task = await call("GET", f"/install/status/{task['task_id']}")
+            steps = [(s["name"], s["status"]) for s in task["steps"]]
+            want = [(n, "completed") for n in ("check_python", "create_venv", "verify_imports", "download_models")]
+            if task["status"] != "completed" or steps != want:
+                logs = await call("GET", f"/install/logs/{task['task_id']}?limit=40")
+                raise AssertionError(f"phase 14 (b): install {task['status']} {steps} {task['error']}: {logs['lines']}")
+            out["setup_s"] = time.perf_counter() - t0
+            log(f"phase 14 (b): config/generate {preset} tier full (devices {sorted(devices)}) over the catalog "
+                f"names, saved; resources CLI validate, list ({len(listed.splitlines())} models) and download "
+                f"({len(downloaded.splitlines())} ok, nothing fetched); install/setup with a venv: "
+                f"{', '.join(f'{n} {s}' for n, s in steps)}; {out['setup_s']:.1f} s [{card}]")
+
+            # -- (c) serve the full tier under the ServerManager ------------------------
+            # Kernels build at first use, so the builds fall in the first
+            # caption: timed on a cold directory, then on the warm one after
+            # server/restart (the same greedy request both times).
+            import grpc
+
+            meta = {"messages": json.dumps([{"role": "user", "content": "Describe this photo in one sentence."}]),
+                    "max_new_tokens": "64", "do_sample": "false"}
+
+            async def first_caption(metrics_port: int) -> tuple[dict, float, dict]:
+                t0 = time.perf_counter()
+                with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+                    res = await asyncio.to_thread(grpc_call, InferenceStub(channel), "vlm_generate", photos[0], meta)
+                took = time.perf_counter() - t0
+                if res["code"]:
+                    raise AssertionError(f"phase 14 (c): the first caption answered {res}")
+                return res["body"], took, http_json(metrics_port, "/stats?window=3600")["compile"]
+
+            extra = ["--skip-download", "--metrics-port", "0"]
+            t0 = time.perf_counter()
+            info = await call("POST", "/server/start", {"config_path": str(yaml_path), "extra_args": extra})
+            cold_s = time.perf_counter() - t0
+            status = await call("GET", "/server/status")
+            if not status["healthy"] or info["port"] != grpc_port:
+                raise AssertionError(f"phase 14 (c): status {status}")
+            boot = http_json(info["metrics_port"], "/stats?window=3600")["compile"]
+            direct, cold_first_s, cold = await first_caption(info["metrics_port"])
+            if on_card and cold["compiles"] == 0:
+                raise AssertionError(f"phase 14 (c): the cold server's first caption built nothing: {cold}")
+            built = sorted(p.name for p in (work / "kernels").rglob("*.so"))
+            out.update(cold_s=cold_s, cold_first_s=cold_first_s, boot_builds=boot["compiles"],
+                       cold_builds=cold["compiles"], built=built, build_ms=(cold["ms"] or {}).get("mean_ms"))
+            log(f"phase 14 (c): the full tier under the ServerManager, start to ready {cold_s:.2f} s on an empty "
+                f"kernel directory ({boot['compiles']} builds at boot); the first caption {cold_first_s:.2f} s with "
+                f"{cold['compiles']} builds ({out['build_ms']} ms a build on average: {', '.join(built)}) [{card}]")
+
+            # -- (d) the client CLI -----------------------------------------------------
+            t0 = time.perf_counter()
+            photo = work / "photo.jpg"
+            photo.write_bytes(photos[0])
+            addr = ["lumen_tpu_torch.client", "--addr", f"127.0.0.1:{grpc_port}", "--timeout", "600", "--full"]
+            jobs = {"caps": ["caps"], "health": ["health"], "topology": ["topology"],
+                    "embed-text": ["embed-text", "a photo of a red car"], "embed-image": ["embed-image", photo],
+                    "faces": ["faces", photo], "ocr": ["ocr", photo]}
+            answers = dict(zip(jobs, await asyncio.gather(*(cli(*addr, *a) for a in jobs.values()))))
+            answers["caption"] = await cli(*addr, "caption", photo)
+            answers["caption --stream"] = await cli(*addr, "caption", photo, "--stream")
+            for cmd, schema in CLIENT_SCHEMAS.items():
+                text = answers[cmd].stdout
+                if cmd == "caption --stream":
+                    streamed, final = split_stream(text)
+                    if streamed != final["text"]:
+                        raise AssertionError(f"phase 14 (d): streamed {streamed!r}, final {final['text']!r}")
+                    text = json.dumps(final)
+                validate_result(schema, text.encode())
+            caps = json.loads(answers["caps"].stdout)
+            topo = json.loads(answers["topology"].stdout)
+            if answers["health"].stdout != "ok\n" or not set(PHASE14_TASKS) <= set(caps["tasks"]) or len(topo) != 4:
+                raise AssertionError(f"phase 14 (d): health {answers['health'].stdout!r}, caps {caps}, topology {topo}")
+            caption = json.loads(answers["caption"].stdout)
+            stream = split_stream(answers["caption --stream"].stdout)[1]
+            if (direct["text"], direct["generated_tokens"]) != (caption["text"], caption["generated_tokens"]) or \
+                    stream["text"] != caption["text"]:
+                raise AssertionError(f"phase 14 (d): client caption {caption['text']!r}, stream {stream['text']!r}, "
+                                     f"direct {direct['text']!r}")
+            stats = json.loads((await cli("lumen_tpu_torch.client", "stats", "--metrics-addr",
+                                          f"127.0.0.1:{info['metrics_port']}", "--window", "3600", "--json")).stdout)
+            metrics = (await call("GET", "/metrics"))["inference"]
+            counts = {t: metrics["tasks"].get(t, {}).get("count", 0) for t in PHASE14_TASKS}
+            if not all(counts.values()) or not all(stats["tasks"].get(t, {}).get("count") for t in PHASE14_TASKS):
+                raise AssertionError(f"phase 14 (d): /api/v1/metrics counts {counts}, stats {sorted(stats['tasks'])}")
+            out.update(client_s=time.perf_counter() - t0, caption=caption["text"], counts=counts)
+            log(f"phase 14 (d): the client's caps, health, topology, embed-text, embed-image, faces, ocr, caption, "
+                f"caption --stream and stats exit 0, each answer valid against its schema; greedy caption "
+                f"({caption['generated_tokens']} tokens) equal to the direct gRPC request and to the stream; "
+                f"/api/v1/metrics counts {json.dumps(counts)}; {out['client_s']:.1f} s [{card}]")
+
+            # -- (c, again) server/restart from the warm kernel directory ----------------
+            t0 = time.perf_counter()
+            info = await call("POST", "/server/restart")
+            warm_s = time.perf_counter() - t0
+            status = await call("GET", "/server/status")
+            again, warm_first_s, warm = await first_caption(info["metrics_port"])
+            if not status["healthy"] or warm["compiles"] != 0 or again["text"] != direct["text"]:
+                raise AssertionError(f"phase 14 (c): warm builds {warm}, status {status}, caption {again['text']!r} "
+                                     f"vs {direct['text']!r}")
+            out.update(warm_s=warm_s, warm_first_s=warm_first_s)
+            log(f"phase 14 (c): server/restart from the warm kernel directory, start to ready {warm_s:.2f} s; the "
+                f"first caption {warm_first_s:.2f} s with {warm['compiles']} builds, equal to the cold one [{card}]")
+
+            # -- (e) stop: each child's readout ------------------------------------------
+            await call("POST", "/server/stop")
+            info = await call("GET", "/server/status")
+            messages = [line["message"] for line in (await call("GET", "/server/logs?limit=0"))["lines"]]
+            readouts = [json.loads(m) for m in messages if m.startswith('{"launches"')]
+            exits = [m for m in messages if m.startswith("server exited with code")]
+            if info["exit_code"] != 0 or exits != ["server exited with code 0"] * 2 or len(readouts) != 2 or \
+                    not all(READOUT_KEYS <= set(r) for r in readouts):
+                raise AssertionError(f"phase 14 (e): exit code {info['exit_code']}, exits {exits}, readouts {readouts}")
+            out.update(children=readouts, log_lines=len(messages))
+        finally:
+            await http.close()
+            await runner.cleanup()  # stops a child still running
+
+    with env(LUMEN_COMPILE_CACHE_DIR=str(work / "kernels"), LUMEN_CACHE_BYTES="0", HF_HUB_OFFLINE="1"):
+        asyncio.run(drive())
+    missing = [(child, k) for child, r in zip(("cold", "warm"), out["children"])
+               for k in PHASE14_KERNELS if r["launches"][k] == 0]
+    if on_card and missing:
+        raise AssertionError(f"phase 14 (e): a supervised server never launched {missing}: {out['children']}")
+    cold, warm = out["children"]
+    out.update(launches={k: cold["launches"][k] + warm["launches"][k] for k in cold["launches"]},
+               peak_gib=max(cold["peak_gib"], warm["peak_gib"]), phase_s=time.perf_counter() - t_phase)
+    log(f"phase 14 (e): server/restart and server/stop, both children exited 0 ({out['log_lines']} lines read back "
+        f"from the app's log buffer); launches while they served: cold "
+        f"{json.dumps(cold['launches'])}, warm {json.dumps(warm['launches'])}; peaks {cold['peak_gib']:.3f} / "
+        f"{warm['peak_gib']:.3f} GiB; phase 14 {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -5493,8 +5843,8 @@ def count_syncs(fn) -> int:
 
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
-PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,)}
-ALL_PHASES = frozenset(range(1, 14))
+PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12)}
+ALL_PHASES = frozenset(range(1, 15))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -5538,6 +5888,12 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    laps, mark = {}, [time.perf_counter()]
+
+    def lap(phase: int) -> None:  # each phase's seconds, printed at the end
+        now = time.perf_counter()
+        laps[phase], mark[0] = round(now - mark[0], 1), now
+
     t0 = time.perf_counter()
     logs = build_all(kernels)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -5553,18 +5909,23 @@ def main() -> int:
     bf16_funcs = [f for f in hmma if "bf16" in f]  # flash at head_dim 64 and 16, the cache kernel at 64
     if len(bf16_funcs) != 3 or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
+    lap(1)
 
     if 2 in run:
         rows = check_kernels(args.seed)
         rows["paged_attention_varq"] = check_varq(args.seed)
         rows["w8a16_matmul"] = check_w8a16(args.seed)
+        lap(2)
     if 3 in run:
         check_reference(args.seed)
+        lap(3)
     drives = {}
     if 4 in run:
         drives[4] = drive_serving(args.seed, card)
+        lap(4)
     if 5 in run:
         drives[5] = drive_serving(args.seed, card, quantize="int8", spec_k=4, kernels=PHASE5_KERNELS)
+        lap(5)
     if {4, 5} <= run:
         a, b = drives[4], drives[5]
         log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
@@ -5583,12 +5944,14 @@ def main() -> int:
             log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
                 f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
                 f"peak GiB {grpc_drive['peak_gib']:.3f}")
+            lap(6)
         if 7 in run:
             defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
             log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
                 f"{defaults['preempted']} preemptions, "
                 f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
                 f"{defaults['cached_ms']:.2f} ms; launches {json.dumps(defaults['launches'])}")
+            lap(7)
         if 8 in run:
             clip = drive_clip(args.seed, card, Path(tmp), grpc_drive)
             log(f"phase 8 [{card}]: {clip['phase_s']:.1f} s in all; load {clip['load_s']:.2f} s (labels "
@@ -5597,6 +5960,7 @@ def main() -> int:
                 f"client p50 {clip['p50_ms']:.1f} ms p95 {clip['p95_ms']:.1f} ms, mean batch fill {100 * clip['fill']:.1f}%, "
                 f"decode {clip['decode_ms']:.2f} ms a photo, peak GiB {clip['peak_gib']:.3f}; cosine to the plain path min "
                 f"{clip['cos_min']:.6f}")
+            lap(8)
         if 9 in run:
             face = drive_face(args.seed, card, Path(tmp), clip)
             log(f"phase 9 [{card}]: {face['phase_s']:.1f} s in all; stand-in pack exported in {face['export_s']:.1f} s, "
@@ -5610,6 +5974,7 @@ def main() -> int:
                 f"TF32: matched at IoU >= {face['tf32']['iou_min']:.5f}, {json.dumps(face['tf32'])}; graph CLIP exported in "
                 f"{face['clip_export_s']:.1f} s, served in {face['clip_load_s']:.2f} s, cosine to phase 8 >= "
                 f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
+            lap(9)
         if 10 in run:
             ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
             log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
@@ -5622,6 +5987,7 @@ def main() -> int:
                 f"(head_dim 16) {ocr['native_launches']} launches over {ocr['native_chunks']} recognizer chunks, logits within "
                 f"{ocr['bf16_logit_share']:.2e} of the plain path's scale; full tier up in {ocr['hub_s']:.2f} s, launches "
                 f"{json.dumps(ocr['hub_launches'])}")
+            lap(10)
         if 11 in run:
             ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
             log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
@@ -5632,6 +5998,7 @@ def main() -> int:
                 f"{ingest['p95_ms']:.2f} ms at 16 in flight ({ingest['mean_pass']:.1f} queries a shard pass; alone p50 "
                 f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
                 f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
+            lap(11)
         if 12 in run:
             options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip)
             co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
@@ -5646,19 +6013,34 @@ def main() -> int:
                 f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
                 f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
                 f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
+            lap(12)
         if 13 in run:
             fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive)
             log(f"phase 13 [{card}]: {fleet['phase_s']:.1f} s in all; {fleet['requests']} migrated rows equal to the "
                 f"colocated control, {fleet['row_bytes'] / 1e6:.3f} MB a row, {fleet['fallbacks']} fallbacks in (b), "
                 f"aggregate {fleet['tok_s_migrated']:.1f} tok/s migrated vs {fleet['tok_s_colocated']:.1f} colocated; "
                 f"search {fleet['search_near_ties']} near-ties")
+            lap(13)
+        if 14 in run:
+            models = Path(tmp) / "cache" / "models"
+            torch.cuda.empty_cache()  # the supervised server shares the card with this process
+            control = drive_control_plane(card, Path(tmp), grpc_drive["photos"],
+                                          {name: models / src for name, src in CATALOG_SOURCES.items()})
+            log(f"phase 14 [{card}]: {control['phase_s']:.1f} s in all; the full tier under the app's ServerManager "
+                f"ready in {control['cold_s']:.2f} s cold and {control['warm_s']:.2f} s warm; the first caption "
+                f"{control['cold_first_s']:.2f} s cold ({control['cold_builds']} kernel builds) and "
+                f"{control['warm_first_s']:.2f} s warm (0 builds); launches {json.dumps(control['launches'])}, child "
+                f"peak {control['peak_gib']:.3f} GiB")
+            lap(14)
+    log(f"seconds a phase: {json.dumps(laps)} [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
         return 0
     for k in kernels:
         counts = {part: c[k.name] for part, c in options["launches"].items() if k.name in c}
         log(f"kernel row {k.name}: phase-12 launches {json.dumps(counts)}; phase-13 launches decode host "
-            f"{fleet['launches'][k.name]}, prefill host {fleet['prefill_host']['launches'][k.name]} [{card}]")
+            f"{fleet['launches'][k.name]}, prefill host {fleet['prefill_host']['launches'][k.name]}; phase-14 "
+            f"launches (the supervised full tier) {control['launches'][k.name]} [{card}]")
     for label in OCR_FLASH_SHAPES:
         row = rows[f"flash_attention ({label})"]
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "

@@ -5,10 +5,13 @@ The C core covers the host half of the serving hot loops — letterbox/resize,
 NMS, CTC collapse — GIL-free so the ingest pipeline's preprocess workers
 scale across cores. Loading policy:
 
-1. use ``build/lumen_tpu_torch/native/liblumen_host_ops-<abi>-<digest>.so``
-   at the checkout's root if present and ABI-compatible (the JAX package
-   builds into ``native/build/``; the two never share a library);
-2. else, if a C++ toolchain is available, build it once (quiet, ~1s);
+1. use ``native/liblumen_host_ops-<abi>-<digest>.so`` in the kernel build
+   cache (``runtime/compile_cache.build_dir()``: by default
+   ``build/lumen_tpu_torch/`` at the checkout's root) if present and
+   ABI-compatible (the JAX package builds into ``native/build/``; the two
+   never share a library);
+2. else, if a C++ toolchain is available, build it once (quiet, ~1s;
+   reported to ``compile_cache.note_build``);
 3. else mark the library unavailable — every caller has a numpy fallback,
    so the port stays runnable without a compiler.
 
@@ -24,29 +27,18 @@ import logging
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
+
+from ..runtime import compile_cache
 
 logger = logging.getLogger(__name__)
 
 ABI_VERSION = 1
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-_REPO_ROOT = os.path.dirname(os.path.dirname(_PKG_DIR))
 _SRC_PATH = os.path.join(_PKG_DIR, "_src", "host_ops.cpp")
-
-
-def _build_dir() -> str:
-    """The checkout's ``build/lumen_tpu_torch/native`` (``build/`` is
-    git-ignored); an installed package, whose site-packages may not be
-    writable, builds into a per-user cache."""
-    if os.access(_REPO_ROOT, os.W_OK):
-        return os.path.join(_REPO_ROOT, "build", "lumen_tpu_torch", "native")
-    return os.path.join(
-        os.path.expanduser(os.environ.get("XDG_CACHE_HOME", "~/.cache")),
-        "lumen-tpu-torch",
-        "native",
-    )
 
 
 def _src_digest() -> str:
@@ -62,9 +54,13 @@ def _src_digest() -> str:
         return "nosrc"
 
 
-_LIB_PATH = os.path.join(
-    _build_dir(), f"liblumen_host_ops-{ABI_VERSION}-{_src_digest()}.so"
-)
+def lib_path() -> str:
+    """Where the library builds and loads: ``native/`` in the kernel build
+    cache, the file named by the ABI and the source's digest."""
+    return os.path.join(
+        compile_cache.build_dir(), "native", f"liblumen_host_ops-{ABI_VERSION}-{_src_digest()}.so"
+    )
+
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -80,18 +76,21 @@ def _build() -> bool:
     src = _SRC_PATH
     if not os.path.exists(src):
         return False
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    path = lib_path()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     # Compile to a per-process temp path and os.replace (atomic on POSIX):
     # concurrent processes racing the first build must never dlopen a
     # half-written .so, and a killed compiler must not leave a corrupt final.
-    tmp = f"{_LIB_PATH}.tmp{os.getpid()}"
+    tmp = f"{path}.tmp{os.getpid()}"
     cmd = ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", "-o", tmp, src]
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
             logger.warning("native host-ops build failed:\n%s", proc.stderr[-2000:])
             return False
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, path)
+        compile_cache.note_build(os.path.basename(path), time.perf_counter() - t0)
         return True
     except (OSError, subprocess.TimeoutExpired) as e:
         logger.info("native host-ops build skipped: %s", e)
@@ -132,22 +131,23 @@ def load() -> ctypes.CDLL | None:
         _tried = True
         if os.environ.get("LUMEN_TPU_NO_NATIVE") == "1":
             return None
+        path = lib_path()
         for attempt in range(2):
-            if os.path.exists(_LIB_PATH):
+            if os.path.exists(path):
                 try:
-                    lib = _bind(ctypes.CDLL(_LIB_PATH))
+                    lib = _bind(ctypes.CDLL(path))
                     if lib.lumen_host_ops_abi_version() == ABI_VERSION:
                         _lib = lib
-                        logger.info("native host-ops loaded: %s", _LIB_PATH)
+                        logger.info("native host-ops loaded: %s", path)
                         return _lib
                     logger.info("native host-ops ABI mismatch; rebuilding")
-                    _unlink_quiet(_LIB_PATH)
+                    _unlink_quiet(path)
                 except (OSError, AttributeError) as e:
                     # Stale/corrupt artifact (OSError: unloadable;
                     # AttributeError: loadable but missing a symbol):
                     # remove it so the rebuild below gets a clean slate.
                     logger.warning("native host-ops load failed: %s", e)
-                    _unlink_quiet(_LIB_PATH)
+                    _unlink_quiet(path)
             if attempt == 0 and not _build():
                 break
         return None

@@ -2,10 +2,13 @@
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C entry point. It is
 compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/lumen_tpu_torch/`` at the repository root and loaded with
-``ctypes`` (no PyTorch headers in the build: a source compiles in
-seconds). The library's file name carries a hash of the sources and flags,
-so an edited kernel is never served from a stale build.
+in the kernel build cache (``runtime/compile_cache.build_dir()``: by
+default ``build/lumen_tpu_torch/`` at the repository root,
+``LUMEN_COMPILE_CACHE_DIR`` moves it) and loaded with ``ctypes`` (no
+PyTorch headers in the build: a source compiles in seconds). The
+library's file name carries a hash of the sources and flags, so an edited
+kernel is never served from a stale build; a build that runs is reported
+to ``compile_cache.note_build``.
 
 A :class:`CudaKernel` also counts its launches: ``chip_smoke.py`` zeroes
 the counts before it drives the serving path and reads them afterwards,
@@ -20,10 +23,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
+from ..runtime import compile_cache
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lumen_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,7 +63,7 @@ class CudaKernel:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for path in sorted(CSRC.glob("*.cuh")) + [self.source_path]:
             h.update(path.read_bytes())
-        return BUILD_DIR / f"{self.source}-{h.hexdigest()[:12]}.so"
+        return compile_cache.build_dir() / f"{self.source}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> "tuple | None":
         """Start ``nvcc`` for this library unless it is already built;
@@ -66,11 +71,12 @@ class CudaKernel:
         lib = self.library_path()
         if lib.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(self.source_path)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(self.source_path)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        return proc, tmp, lib
+        return proc, tmp, lib, time.perf_counter()
 
     def load(self):
         """The bound C function, building the library first if needed."""
@@ -107,13 +113,14 @@ class CudaKernel:
 
 
 def _finish_build(kernel: CudaKernel, build: tuple) -> str:
-    proc, tmp, lib = build
+    proc, tmp, lib, t0 = build
     out, _ = proc.communicate()
     log = lib.with_suffix(".log")
     log.write_text(out)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {kernel.source_path}:\n{out}")
     os.replace(tmp, lib)
+    compile_cache.note_build(lib.name, time.perf_counter() - t0)
     return out
 
 

@@ -71,12 +71,14 @@ def main(argv: list[str] | None = None) -> int:
     import numpy as np
 
     from ..core.config import load_config
+    from ..runtime.compile_cache import enable_persistent_cache
     from ..runtime.fleet import fleet_devices
     from ..runtime.mesh import build_mesh
     from ..runtime.policy import resolve_device
     from ..serving.server import build_services
     from .photo import PhotoIngestPipeline
 
+    enable_persistent_cache()  # repeat ingest runs load built kernel libraries
     device = resolve_device("cpu" if args.platform == "cpu" else None)
     config = load_config(args.config)
     services = build_services(config, device)

@@ -322,8 +322,10 @@ def serve(
     ``port_override=0`` binds an OS-assigned port (``handle.port``);
     ``metrics_port`` starts the HTTP sidecar on loopback (0: an
     OS-assigned port, ``handle.metrics_server.port``)."""
+    from ..runtime.compile_cache import enable_persistent_cache
     from ..runtime.federation import maybe_federation
 
+    enable_persistent_cache()  # warm restarts load built kernel libraries
     # Fleet federation (LUMEN_FED_PEERS / LUMEN_FED_DISCOVER): resolved
     # once at boot, logged once. Unset -> None having done nothing: no
     # thread, no gauge.

@@ -428,8 +428,8 @@ class SLOEngine:
 
     #: observe() names that are internal instrumentation, not served
     #: tasks — the availability SLO must not grow bogus "task" rows for
-    #: them (per-stage trace histograms, XLA compile durations).
-    _INTERNAL_PREFIXES = ("stage:", "xla_")
+    #: them (per-stage trace histograms, kernel build durations).
+    _INTERNAL_PREFIXES = ("stage:", "kernel_build")
 
     def _tracked(self, task: str) -> bool:
         return task in self.objectives or (
@@ -1092,7 +1092,7 @@ def _device_memory_view() -> dict:
 def capacity_stats(window_s: float = 60.0) -> dict:
     """The ``GET /stats?window=N`` body: windowed task latencies and
     event rates, duty cycles, per-batcher batch/padding/transfer
-    accounting, XLA compile activity, HBM occupancy/headroom and the SLO
+    accounting, kernel build activity, HBM occupancy/headroom and the SLO
     summary — one probe answering "where is capacity going right now"."""
     window_s = max(1.0, min(float(window_s), 24 * 3600.0))
     hub = get_hub()
@@ -1128,9 +1128,11 @@ def capacity_stats(window_s: float = 60.0) -> dict:
                 t[f"{direction}_bytes"] = int(val)
     out["transfer"] = transfer
 
-    compile_hist = out["tasks"].pop("xla_compile_ms", None)
+    # The port's compile step: nvcc / g++ builds of the kernel libraries
+    # that actually ran (runtime/compile_cache.note_build).
+    compile_hist = out["tasks"].pop("kernel_build_ms", None)
     out["compile"] = {
-        "compiles": int(counters.get("xla_compiles", 0)),
+        "compiles": int(counters.get("kernel_builds", 0)),
         "ms": compile_hist or None,
     }
     out["device_memory"] = _device_memory_view()

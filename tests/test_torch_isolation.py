@@ -263,7 +263,7 @@ def test_ocr_slice_modules_are_checked():
         assert mod in mods
     from lumen_tpu_torch import native
 
-    lib = Path(native._LIB_PATH)
+    lib = Path(native.lib_path())
     assert lib.parent == ROOT / "build" / "lumen_tpu_torch" / "native"
     assert (PORT / "native" / "_src" / "host_ops.cpp").read_bytes() != b""
 

@@ -205,7 +205,7 @@ def test_loader_maps_the_jax_service_class_onto_the_port():
     assert resolve("lumen_tpu.serving.services.ocr_service.OcrService") is OcrService
     assert resolve("lumen_tpu.serving.services.search_service.SearchService") is SearchService
     with pytest.raises(ServiceLoadError, match="not ported to lumen_tpu_torch yet"):
-        resolve("lumen_tpu.testing.services.SearchBenchService")
+        resolve("lumen_tpu.training.clip_trainer.ClipTrainer")
 
 
 def test_a_service_not_ported_boots_degraded(tmp_path):
@@ -215,7 +215,7 @@ def test_a_service_not_ported_boots_degraded(tmp_path):
         "server": {"port": 50998, "host": "127.0.0.1"},
         "services": {"search": {
             "enabled": True, "package": "lumen_tpu",
-            "import_info": {"registry_class": "lumen_tpu.testing.services.SearchBenchService"},
+            "import_info": {"registry_class": "lumen_tpu.training.clip_trainer.ClipTrainer"},
             "models": {"search": {"model": "TinyCLIP", "runtime": "jax"}},
         }},
     })
@@ -234,7 +234,7 @@ def test_loader_never_imports_the_jax_package():
         "resolve('lumen_tpu.serving.services.ocr_service.OcrService')\n"
         "resolve('lumen_tpu.serving.services.search_service.SearchService')\n"
         "try:\n"
-        "    resolve('lumen_tpu.testing.services.SearchBenchService')\n"
+        "    resolve('lumen_tpu.training.clip_trainer.ClipTrainer')\n"
         "except ServiceLoadError:\n"
         "    pass\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lumen_tpu'))))\n"

@@ -218,10 +218,11 @@ class TestKernelPlumbing:
 
     def test_build_without_nvcc_raises(self, tmp_path, monkeypatch):
         from lumen_tpu_torch.ops import cuda_build
+        from lumen_tpu_torch.runtime import compile_cache
 
         monkeypatch.setattr(cuda_build.shutil, "which", lambda _: None)
         monkeypatch.setattr(cuda_build.os.path, "exists", lambda _: False)
-        monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(compile_cache, "_dir", tmp_path / "build")
         k = CudaKernel("x", "flash_attention", "lumen_flash_attention", [])
         with pytest.raises(RuntimeError, match="nvcc not found"):
             k.load()
