@@ -12,8 +12,8 @@ Phases (any failure exits non-zero):
    started together), with each kernel function's registers, shared
    memory and spills from ptxas (the bf16 flash tile must not spill) and
    its count of tensor-core instructions (HMMA) from ``cuobjdump -sass``
-   (the three bf16 flash kernels -- head_dim 64 and 16, and the cache
-   kernel -- must have some).
+   (the five bf16 flash kernels -- head_dim 64, 16 and 128, and the cache
+   kernel at 64 and 128 -- must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
@@ -22,7 +22,13 @@ Phases (any failure exits non-zero):
    vision tower's [64, 12, 50, 64] and the causal text tower's
    [64, 8, 77, 64], and phase 10's native OCR recognizer at head_dim 16:
    [8, 4, 960, 16] and [32, 4, 1920, 16] in bf16, [2, 4, 240, 16] in fp32,
-   causal cases, and head_dims 32/80/128 refused), with times for the
+   causal cases, and head_dims 32/80 refused; the head_dim-128 instances
+   of the Qwen2-MoE decoder at phase 15's shapes: flash causal
+   [1, 16, 265, 128], the cache kernel's q [1, 16, 256, 128] against 832
+   slots, paged q [8, 16, 128] at lengths 1..500, the verify window
+   [8, 5, 16, 128], each with ragged and fp32 cases; and w8a16 at the
+   MoE decoder's int8 shapes, K x N = 2048 x 2048, 2048 x 5632,
+   5632 x 2048 and the lm_head's 2048 x 151936), with times for the
    kernel, the plain version, the
    card's bound and one PyTorch library call computing the same function
    (a yardstick only; the port never calls it). Times are device time per
@@ -253,12 +259,33 @@ Phases (any failure exits non-zero):
    their readouts, read back from ``/api/v1/server/logs``, show
    ``paged_attention`` and ``flash_attention_cache`` launched.
 
-A run with no arguments drives all fourteen phases (``--phases 13``, a
+15. a Qwen2-MoE VLM at Qwen1.5-MoE-A2.7B's widths (hidden 2048, 24
+   layers, 16 heads of head_dim 128, 60 experts top-4 of width 1408, a
+   shared expert of 5632, vocab 151,936; seeded bf16 weights made on the
+   card, 14.3B parameters) behind the ViT tower: (a) ``VLMManager`` on the
+   paged engine, phase 4's ten requests, then ``quantize="int8"`` with
+   ``LUMEN_VLM_SPEC_K=4`` on phase 5's templated prompts (the int8
+   projections are attention, the shared expert and the untied lm_head;
+   router and expert banks stay bf16), greedy determinism on a repeat,
+   peak memory; all five kernels launch, the cache and paged kernels at
+   their head_dim-128 instances; then the decoder's cacheless forward on
+   the kernels (the <128> flash instance) against the plain attention
+   (``MOE_FORWARD_COSINE``); (b) a model directory of the same widths cut
+   to 2 layers (HF Qwen2-MoE names, ~3.5 GiB) served by ``serve()`` over
+   gRPC: 8 streams in flight and one ``vlm_generate``, request 0 equal to
+   a direct ``VLMManager``; (c) one ``MoEFFN`` layer at full width on 8
+   tokens against its plain per-expert loop, its time, the grouped
+   product's (``torch._grouped_mm``, a library call: the JAX
+   ``lax.ragged_dot`` is no Pallas kernel) and the byte bound of the
+   experts chosen.
+
+A run with no arguments drives all fifteen phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
-for the other two), and its head_dim-16 row's phase 10 (b)'s; phases 7-11
+for the other two), its head_dim-16 row's phase 10 (b)'s, and its
+head_dim-128 and Qwen1.5-MoE w8a16 rows phase 15 (a)'s; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
 phase 10 beside its two OCR rows (timed in phase 2), phases 13 and 14
 beside every kernel's row (decode and prefill hosts; the supervised full
@@ -318,6 +345,14 @@ Q8_SHAPES = {
     "k_proj/v_proj": (896, 128),
     "gate_proj/up_proj": (896, 4864),
     "down_proj": (4864, 896),
+}
+#: (K, N) of the Qwen2-MoE decoder's int8 projections (Qwen1.5-MoE-A2.7B
+#: widths): attention, the shared expert and the untied lm_head.
+MOE_Q8_SHAPES = {
+    "q/k/v/o_proj": (2048, 2048),
+    "shared gate/up_proj": (2048, 5632),
+    "shared down_proj": (5632, 2048),
+    "lm_head": (2048, 151936),
 }
 
 
@@ -552,12 +587,12 @@ def check_kernels(seed: int) -> dict:
                         floor_ms=bms)
         log(f"kernel flash_attention [{b},{h},{s},16] {dtn}{' causal' if causal else ''}: max|diff| {errs[-1]:.3e}, "
             f"kernel {kms:.4f} ms on the device, bound {bms:.5f} ms ({by}), library (SDPA) {lms:.4f} ms")
-    for d in (32, 80, 128):
+    for d in (32, 80):
         try:
             A.flash_attention(*(rnd(1, 2, 8, d) for _ in range(3)))
         except ValueError:
             continue
-        raise AssertionError(f"flash_attention took head_dim {d} on the card; its kernel is built for 16 and 64")
+        raise AssertionError(f"flash_attention took head_dim {d} on the card; its kernel is built for 16, 64 and 128")
     for label, (b, h, s) in OCR_FLASH_SHAPES.items():
         q, k, v = rnd(b, h, s, 16), rnd(b, h, s, 16), rnd(b, h, s, 16)
         err = max(max(errs), max_err(A.flash_attention(q, k, v), A.attention_reference(*f32(q, k, v))))
@@ -577,7 +612,7 @@ def check_kernels(seed: int) -> dict:
         )
         log(f"kernel flash_attention {label} [{b},{h},{s},16]: bound terms (ms) "
             f"{json.dumps({k: round(v, 5) for k, v in rows[f'flash_attention ({label})']['bound_terms'].items()})}; "
-            f"head_dims 32/80/128 raise")
+            f"head_dims 32/80 raise")
 
     # flash_attention_cache against the 832-slot scratch: the chunk lane's
     # two chunks of a caption prompt (265 live tokens, bucket span 319), a
@@ -722,6 +757,163 @@ def check_kernels(seed: int) -> dict:
     return rows
 
 
+def check_hd128(seed: int) -> dict:
+    """The head_dim-128 instances (the Qwen2-MoE decoder's: 16 heads, 16
+    KV heads) against their plain versions at phase 15's shapes, with
+    ragged cases and the fp32 instances: flash causal [1,16,265,128] (the
+    decoder's cacheless forward of a caption prompt), the cache kernel's
+    chunk q [1,16,256,128] against the 832-slot scratch, paged decode q
+    [8,16,128] at lengths 1..500 (and at the span's edges and a 2048-token
+    row in both dtypes; rows bitwise equal with tables of 32 and 128
+    pages), the verify window [8,5,16,128] (W = 1 bitwise the single-token
+    kernel). Returns the four rows for the kernel table."""
+    import torch
+    import torch.nn.functional as F
+
+    from lumen_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 128)
+    bf16, f32t, d, h = torch.bfloat16, torch.float32, 128, 16
+    tile = flash_tile_shape(d)
+
+    def rnd(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    rows = {}
+    errs = []
+    for b, hh, sq, sk, causal, dt in ((1, h, 265, 265, True, bf16), (2, h, 77, 77, False, bf16),
+                                      (1, h, 50, 130, True, bf16), (1, 4, 100, 100, True, f32t)):
+        q, k, v = rnd(b, hh, sq, d, dtype=dt), rnd(b, hh, sk, d, dtype=dt), rnd(b, hh, sk, d, dtype=dt)
+        errs.append(max_err(A.flash_attention(q, k, v, causal=causal), A.attention_reference(*f32(q, k, v), causal=causal)))
+    for bad in (32, 80):
+        try:
+            A.flash_attention(*(rnd(1, 2, 8, bad) for _ in range(3)))
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention took head_dim {bad} on the card; its kernel is built for 16, 64 and 128")
+    q, k, v = rnd(1, h, 265, d), rnd(1, h, 265, d), rnd(1, h, 265, d)
+    pairs = 265 * 266 // 2
+    bms, by = bound(4 * q.numel() * 2, 4 * h * pairs * d, "bfloat16")
+    rows["flash_attention [head_dim 128]"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: A.flash_attention(q, k, v, causal=True), 50, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.attention_reference(q, k, v, causal=True), 20, floor_ms=bms),
+        bound_ms=bms, bound_by=by,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50, floor_ms=bms),
+        blocks=-(-265 // tile["rows"]) * h, smem=tile["smem"], shape="[1,16,265,128] causal",
+    )
+
+    errs = []
+    for b, sq, sk, offs, valid, dt in ((1, 256, 832, [0], [256], bf16), (1, 9, 832, [256], [265], bf16),
+                                       (2, 63, 832, [256, 37], [265, 100], bf16), (1, 48, 832, [79], [127], bf16),
+                                       (1, 63, 832, [256], [265], f32t)):
+        q, k, v = rnd(b, h, sq, d, dtype=dt), rnd(b, h, sk, d, dtype=dt), rnd(b, h, sk, d, dtype=dt)
+        qo = torch.tensor(offs, device=dev, dtype=torch.int32)
+        kv = torch.tensor(valid, device=dev, dtype=torch.int32)
+        errs.append(max_err(A.flash_attention_cache(q, k, v, qo, kv), A._decode_masked(*f32(q, k, v), qo, kv)))
+    q, k, v = rnd(1, h, 256, d), rnd(1, h, 832, d), rnd(1, h, 832, d)
+    qo = torch.tensor([0], device=dev, dtype=torch.int32)
+    kv = torch.tensor([256], device=dev, dtype=torch.int32)
+    pairs = 256 * 257 // 2
+    bms, by = bound(2 * q.numel() * 2 + 2 * h * 256 * d * 2, 4 * h * d * pairs, "bfloat16")
+    slots = torch.arange(832, device=dev)
+    mask = ((slots[None, :] < 256) & (slots[None, :] <= torch.arange(256, device=dev)[:, None]))[None, None]
+    rows["flash_attention_cache [head_dim 128]"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20, floor_ms=bms),
+        bound_ms=bms, bound_by=by,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50, floor_ms=bms),
+        blocks=-(-256 // tile["rows"]) * h, smem=tile["smem"], shape="q [1,16,256,128] vs 832 slots, 256 live",
+    )
+
+    pages, page = 1025, 16
+    span = A.paged_walk_constants()["span"]
+    kp, vp = rnd(pages, h, page, d), rnd(pages, h, page, d)
+
+    def table(row_lens, maxp):
+        perm = torch.randperm(pages - 1, generator=gen, device=dev)[: len(row_lens) * maxp]
+        bt = (perm.reshape(len(row_lens), maxp) + 1).to(torch.int32)
+        for r, n in enumerate(row_lens):
+            if r % 2:
+                bt[r, -(-n // page):] = 0  # dump page
+        return bt
+
+    lens = [1, 16, 17, 300, 333, 129, 64, 500]
+    bt = table(lens, 32)
+    kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+    q = rnd(8, h, d)
+    out = A.paged_attention_kernel(q, kp, vp, bt, kl)
+    errs = [max_err(out, A.paged_attention_reference(*f32(q, kp, vp), bt, kl))]
+    edge = [span - 1, span, span + 1, 2048]
+    bt_edge = table(edge, 128)
+    kl_edge = torch.tensor(edge, device=dev, dtype=torch.int32)
+    for dt in (bf16, f32t):  # fp32 at head_dim 128 opts into 66 KB of shared memory
+        qe = rnd(4, h, d, dtype=dt)
+        kpe, vpe = kp.to(dt), vp.to(dt)
+        errs.append(max_err(A.paged_attention_kernel(qe, kpe, vpe, bt_edge, kl_edge),
+                            A.paged_attention_reference(*f32(qe, kpe, vpe), bt_edge, kl_edge)))
+        del kpe, vpe
+    bt_wide = torch.zeros((8, 128), device=dev, dtype=torch.int32)
+    bt_wide[:, :32] = bt
+    if not torch.equal(A.paged_attention_kernel(q, kp, vp, bt_wide, kl), out):
+        raise AssertionError("paged_attention <128>: a row's output changed with the table padded to 128 pages")
+    total = sum(lens)
+    nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * total * h * d * 2
+    bms, by = bound(nb, 4 * h * d * total, "bfloat16")
+    rows["paged_attention [head_dim 128]"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+        bound_ms=bms, bound_by=by, library_ms=None, shape="q [8,16,128], lens 1..500, maxp 32",
+        workspace=A.paged_workspace_bytes(8 * h, 32, page, d),
+    )
+
+    errs = []
+    maxp = 34
+    lens = [1, 16, 15, 300, 333, 129, 62, 500]
+    kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+    for w in (1, 5):
+        bt = (torch.randperm(pages - 1, generator=gen, device=dev)[: 8 * maxp].reshape(8, maxp) + 1).to(torch.int32)
+        for r, n in enumerate(lens):
+            if r % 2:
+                bt[r, -(-(n + w - 1) // page):] = 0
+        q = rnd(8, w, h, d)
+        out = A.paged_attention_varq_kernel(q, kp, vp, bt, kl)
+        errs.append(max_err(out, A.paged_attention_varq_reference(*f32(q, kp, vp), bt, kl)))
+        if w == 1 and not torch.equal(out[:, 0], A.paged_attention_kernel(q[:, 0].contiguous(), kp, vp, bt, kl)):
+            raise AssertionError("paged_attention_varq <128> at W = 1 differs from paged_attention")
+    qf = rnd(2, 3, 4, d, dtype=f32t)  # the fp32 instance, GQA group 2
+    kpf, vpf = kp[:, :2].float().contiguous(), vp[:, :2].float().contiguous()
+    btf, klf = bt[:2].contiguous(), kl[:2].contiguous()
+    errs.append(max_err(A.paged_attention_varq_kernel(qf, kpf, vpf, btf, klf),
+                        A.paged_attention_varq_reference(qf, kpf, vpf, btf, klf)))
+    live = sum(n + w - 1 for n in lens)
+    seen = sum(n + t for n in lens for t in range(w))
+    nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * h * d * 2
+    bms, by = bound(nb, 4 * h * d * seen, "bfloat16")
+    rows["paged_attention_varq [head_dim 128]"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+        bound_ms=bms, bound_by=by, library_ms=None, shape="q [8,5,16,128], lens 1..500, maxp 34",
+    )
+    torch.cuda.synchronize()
+    log("kernels at head_dim 128: within tolerance in bf16 and fp32; paged rows bitwise equal with tables of 32 "
+        "and 128 pages; varq at W = 1 equals paged_attention bit for bit; head_dims 32/80 raise")
+    for name, row in rows.items():
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA)"
+        log(f"kernel {name} {row['shape']}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), kernel "
+            f"{row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), library {lib}")
+    return rows
+
+
 def kernel_name(mangled: str) -> str:
     """The unqualified name in an Itanium-mangled symbol, with its integer
     template argument: ``_ZN5lumen27flash_attention_bf16_kernelILi64EE...``
@@ -732,8 +924,15 @@ def kernel_name(mangled: str) -> str:
         n = int(m[0])
         name = mangled[i + len(m[0]):i + len(m[0]) + n]
         i += len(m[0]) + n
-    targ = re.match(r"ILi(\d+)E", mangled[i:])
-    return f"{name}<{targ[1]}>" if targ else name
+    rest = mangled[i:]
+    if targ := re.match(r"ILi(\d+)E", rest):
+        return f"{name}<{targ[1]}>"
+    # a type then an int (``paged_walk_kernel<__nv_bfloat16, 128>``, ``<float, 64>``)
+    if targ := re.match(r"I(?:(\d+)|f)", rest):
+        tname = rest[targ.end():targ.end() + int(targ[1])] if targ[1] else "float"
+        if d := re.match(r"Li(\d+)E", rest[targ.end() + len(tname) * bool(targ[1]):]):
+            return f"{name}<{tname}, {d[1]}>"
+    return name
 
 
 def ptxas_report(logs: dict) -> list[dict]:
@@ -847,14 +1046,15 @@ def check_varq(seed: int) -> dict:
     return row
 
 
-def check_w8a16(seed: int) -> dict:
-    """w8a16_matmul at every projection shape of the int8 decoder: rows 1,
-    3, 8 (decode), 40 (a W = 5 verify window over 8 slots) and 64 (the
+def check_w8a16(seed: int, q8_shapes: dict = Q8_SHAPES, main: str = "gate_proj/up_proj") -> dict:
+    """w8a16_matmul at every projection shape of the int8 decoder
+    (``q8_shapes``: Qwen2-0.5B's, or the Qwen2-MoE decoder's): rows 1, 3,
+    8 (decode), 40 (a W = 5 verify window over 8 slots) and 64 (the
     routing limit) against the plain version; the first 8 rows of a
     40-row call must equal an 8-row call bit for bit. Times at 8 and 40
     rows, with weights cycled past the L2 as a decode step finds them.
-    Returns the gate_proj row at 8 rows (the largest weight) for the
-    kernel table, the other shapes under ``shapes``."""
+    Returns the ``main`` row at 8 rows for the kernel table, the other
+    shapes under ``shapes``."""
     import torch
 
     from lumen_tpu_torch.ops import quant_matmul as QM
@@ -874,7 +1074,7 @@ def check_w8a16(seed: int) -> dict:
         int8pack = False
     shapes = {}
     errs = []
-    for name, (k, n) in Q8_SHAPES.items():
+    for name, (k, n) in q8_shapes.items():
         parts = QM.w8a16_parts(k, n)
         lib_parts = QM.W8A16.query("lumen_w8a16_parts", k, n)
         if lib_parts != parts:
@@ -913,7 +1113,7 @@ def check_w8a16(seed: int) -> dict:
                 library_ms=device_ms(torch._weight_int8pack_mm, 100, packs, floor_ms=bms) if packs else None,
                 bf16_matmul_ms=device_ms(torch.matmul, 100, wbf, floor_ms=bf16_bound, strict=False),
             )
-            if (name, rows) == ("gate_proj/up_proj", 8):
+            if (name, rows) == (main, 8):
                 # Once: a call's cost with the host's launch path (CUDA
                 # events), which sets the price at decode sizes.
                 call_ms = cuda_ms(lambda: QM.w8a16_matmul(*args[0]), 100)
@@ -936,9 +1136,10 @@ def check_w8a16(seed: int) -> dict:
             f"plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_formula']}), "
             f"library (_weight_int8pack_mm) {lib}, yardstick bf16 torch.matmul {yard}")
-    main = dict(shapes["gate_proj/up_proj 8x896x4864"], max_abs_err=max(errs), shape="gate_proj 8x896x4864")
-    main["shapes"] = shapes
-    return main
+    k, n = q8_shapes[main]
+    row = dict(shapes[f"{main} 8x{k}x{n}"], max_abs_err=max(errs), shape=f"{main} 8x{k}x{n}")
+    row["shapes"] = shapes
+    return row
 
 
 # -- shared: a word-level tokenizer with the HF tokenizers interface --------
@@ -1039,28 +1240,31 @@ def check_reference(seed: int) -> None:
 
 def drive_serving(
     seed: int, card: str, cfg=None, device: str = "cuda:0", quantize: str | None = None,
-    spec_k: int = 0, kernels: tuple = PHASE4_KERNELS,
+    spec_k: int = 0, kernels: tuple = PHASE4_KERNELS, state: dict | None = None, label: str | None = None,
 ) -> dict:
     """Phase 4 (defaults) or phase 5 (``quantize="int8"``, ``spec_k=4``):
     10 caption requests, 8 at once and 2 after decoding started, three of
     them streaming. Returns the drive's numbers, with every kernel's launch
-    count during the drive under ``launches``. ``cfg``/``device`` let the
-    CPU tests rehearse the drive at a small configuration (it then stops
-    at the launch-count check: plain paths launch nothing)."""
+    count during the drive under ``launches`` (by head_dim under
+    ``instances``). ``cfg``/``device`` let the CPU tests rehearse the drive
+    at a small configuration (it then stops at the launch-count check:
+    plain paths launch nothing). ``state`` serves given bf16 weights (phase
+    15's MoE model, made once on the card) instead of seeding a model."""
     import numpy as np
     import torch
 
     from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager, VLMModel, init_random_
     from lumen_tpu_torch.ops.quant import QDense
 
-    label = f"phase {5 if quantize or spec_k else 4}"
+    label = label or f"phase {5 if quantize or spec_k else 4}"
     cfg = cfg or VLMConfig()
     t0 = time.perf_counter()
-    with torch.device(device):
-        model = VLMModel(cfg)
-    init_random_(model, seed)
-    state = model.to(torch.bfloat16).state_dict()
-    del model
+    if state is None:
+        with torch.device(device):
+            model = VLMModel(cfg)
+        init_random_(model, seed)
+        state = model.to(torch.bfloat16).state_dict()
+        del model
     tok = WordTokenizer(cfg.decoder.vocab_size, {})
     with env(LUMEN_VLM_SPEC_K=str(spec_k), LUMEN_VLM_SPEC_MIN_RATE="0"):
         mgr = VLMManager(
@@ -1069,14 +1273,20 @@ def drive_serving(
             quantize=quantize,
         )
     del state  # the int8 model must not sit beside a bf16 copy of its projections
-    log(f"{label}: VLMConfig() (quantize={quantize}, spec K={spec_k}) built in "
-        f"{time.perf_counter() - t0:.1f} s, kv {mgr.kv_layout()}")
+    log(f"{label}: {'Qwen2-MoE' if cfg.decoder.moe_experts else 'VLMConfig()'} (quantize={quantize}, "
+        f"spec K={spec_k}) built in {time.perf_counter() - t0:.1f} s, kv {mgr.kv_layout()}")
     if quantize:
         dec = mgr.model.decoder
+        d = cfg.decoder
         qd = [m for m in dec.modules() if isinstance(m, QDense)]
-        linear = [n for n, m in dec.named_modules() if isinstance(m, torch.nn.Linear)]
-        if len(qd) != 7 * cfg.decoder.layers or linear or any(m.q.dtype != torch.int8 for m in qd):
-            raise AssertionError(f"int8 decoder: {len(qd)} QDense, float projections {linear[:3]}")
+        # Attention's four projections a layer, a SwiGLU's three (a MoE
+        # layer's shared expert), an untied lm_head; a MoE router,
+        # shared_gate and expert banks stay float (the JAX lockstep list).
+        want = sum(4 + (3 if not d.is_moe_layer(i) or d.moe_shared_intermediate else 0) for i in range(d.layers))
+        want += 0 if d.tie_word_embeddings else 1
+        linear = [n for n, m in dec.named_modules() if isinstance(m, torch.nn.Linear) and not n.endswith("shared_gate")]
+        if len(qd) != want or linear or any(m.q.dtype != torch.int8 for m in qd):
+            raise AssertionError(f"int8 decoder: {len(qd)} QDense (want {want}), float projections {linear[:3]}")
         if any(m.scale.dtype != torch.float32 for m in qd):
             raise AssertionError("int8 decoder: a scale lost its fp32")
         log(f"{label}: all {len(qd)} decoder projections hold int8 q and fp32 scale")
@@ -1128,7 +1338,7 @@ def drive_serving(
         turns0, prop0, acc0 = eng.spec_turns, eng.spec_proposed, eng.spec_accepted
         blocks0 = eng.blocks_run
         for k in all_k:
-            k.launches = 0
+            k.zero_counts()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         t_start = time.perf_counter()
@@ -1149,6 +1359,7 @@ def drive_serving(
             t.join(timeout=600)
         wall = time.perf_counter() - t_start
         launches = {k.name: k.launches for k in all_k}
+        instances = {k.name: dict(k.instance_launches) for k in all_k}
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         turns, prop, acc = eng.spec_turns - turns0, eng.spec_proposed - prop0, eng.spec_accepted - acc0
         if errors:
@@ -1186,7 +1397,7 @@ def drive_serving(
         if stats.pages_live != 0:
             raise AssertionError(f"pages still live after drain: {stats}")
         return dict(
-            launches=launches, tokens=total, wall_s=wall, tok_s=total / wall, ttft_ms=ttfts,
+            launches=launches, instances=instances, tokens=total, wall_s=wall, tok_s=total / wall, ttft_ms=ttfts,
             peak_gib=peak / 2**30, spec_turns=turns, spec_proposed=prop, spec_accepted=acc,
         )
     finally:
@@ -1194,82 +1405,6 @@ def drive_serving(
 
 
 # -- phase 6: the gRPC server from a model directory ---------------------------
-
-#: words the phase-6 tokenizer knows besides its ``w<id>`` filler tokens
-WORDS = ("user", "assistant", "describe", "this", "photo", "in", "one", "detailed", "sentence", "caption",
-         "image", "a", "red", "car", "on", "wet", "road")
-
-CHAT_TEMPLATE = (
-    "{% for m in messages %}<|im_start|>{{ m.role }}\n{{ m.content }}<|im_end|>\n{% endfor %}"
-    "{% if add_generation_prompt %}<|im_start|>assistant\n{% endif %}"
-)
-
-
-def hf_config(cfg) -> dict:
-    """``config.json`` (LLaVA-style ``text_config`` + ``vision_config``) that
-    ``VLMConfig.from_hf`` reads back as ``cfg``."""
-    d, v = cfg.decoder, cfg.vision
-    return {
-        "text_config": {
-            "hidden_size": d.hidden_size, "num_hidden_layers": d.layers, "num_attention_heads": d.heads,
-            "num_key_value_heads": d.kv_heads, "intermediate_size": d.intermediate_size,
-            "vocab_size": d.vocab_size, "head_dim": d.head_dim, "rope_theta": d.rope_theta,
-            "rms_norm_eps": d.rms_norm_eps, "max_position_embeddings": d.max_position_embeddings,
-            "tie_word_embeddings": d.tie_word_embeddings, "bos_token_id": cfg.bos_token_id,
-            "eos_token_id": cfg.eos_token_id, "pad_token_id": cfg.pad_token_id,
-        },
-        "vision_config": {
-            "image_size": v.image_size, "patch_size": v.patch_size, "hidden_size": v.width,
-            "num_hidden_layers": v.layers, "num_attention_heads": v.heads,
-            "image_mean": list(v.mean), "image_std": list(v.std),
-        },
-        "image_token_index": cfg.image_token_id,
-    }
-
-
-def write_tokenizer(path: Path, cfg) -> None:
-    """A ``tokenizers`` WordLevel vocabulary of all ``vocab_size`` ids: the
-    config's special ids as special tokens, ``WORDS`` at ids 1000 on,
-    ``w<id>`` for the rest, so every id the model can emit decodes and
-    distinct non-special ids decode to distinct words."""
-    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers
-
-    vocab_size = cfg.decoder.vocab_size
-    names = {cfg.bos_token_id: "<|endoftext|>", cfg.eos_token_id: "<|im_end|>", cfg.image_token_id: "<image>"}
-    names.setdefault(cfg.pad_token_id, "<pad>")
-    names[next(i for i in range(vocab_size - 1, 0, -1) if i not in names)] = "<|im_start|>"
-    special = list(names.values())
-    names[next(i for i in range(3, vocab_size) if i not in names)] = "<unk>"
-    for k, word in enumerate(WORDS):
-        names[1000 + k] = word
-    vocab = {names.get(i, f"w{i}"): i for i in range(vocab_size)}
-    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
-    tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    tok.add_special_tokens([AddedToken(s, special=True) for s in special])
-    tok.save(str(path))
-
-
-def write_model_dir(root: Path, name: str, cfg, state) -> Path:
-    """A model directory as the loader reads one: ``model.safetensors``
-    under the HF/FastVLM names ``convert_vlm_checkpoint`` reads,
-    ``config.json``, ``tokenizer.json``, ``tokenizer_config.json`` with a
-    chat template, and ``model_info.json``."""
-    from safetensors.torch import save_file
-
-    from lumen_tpu_torch.models.vlm.convert import export_hf_checkpoint
-
-    model_dir = root / "models" / name
-    model_dir.mkdir(parents=True)
-    save_file({k: v.cpu() for k, v in export_hf_checkpoint(state).items()}, str(model_dir / "model.safetensors"))
-    (model_dir / "config.json").write_text(json.dumps(hf_config(cfg)))
-    write_tokenizer(model_dir / "tokenizer.json", cfg)
-    (model_dir / "tokenizer_config.json").write_text(json.dumps({"chat_template": CHAT_TEMPLATE}))
-    (model_dir / "model_info.json").write_text(json.dumps({
-        "name": name, "version": "1.0.0", "description": "seeded random weights for chip_smoke.py",
-        "model_type": "vlm", "source": {"format": "custom", "repo_id": f"LumilioPhotos/{name}"},
-        "runtimes": {"jax": {"available": True, "files": ["model.safetensors"]}},
-    }))
-    return model_dir
 
 
 def deployment_yaml(path: Path, cache_dir: Path, model: str, quantize: str | None, extra: dict | None = None) -> Path:
@@ -1378,6 +1513,7 @@ def drive_grpc(seed: int, card: str, cfg=None, device: str = "cuda:0", root: Pat
     from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager, VLMModel, init_random_
     from lumen_tpu_torch.models.vlm.chat import VlmTokenizer
     from lumen_tpu_torch.serving.proto import ml_service_pb2 as pb
+    from lumen_tpu_torch.testing.vlm_standins import hf_config, write_model_dir
     from lumen_tpu_torch.utils.host_decode import vlm_canvas
     from lumen_tpu_torch.utils.metrics import metrics
 
@@ -5814,6 +5950,242 @@ def drive_control_plane(card: str, root: Path, photos: list, sources: dict, devi
     return out
 
 
+# -- phase 15: a Qwen2-MoE decoder at Qwen1.5-MoE-A2.7B's widths -------------
+
+#: the kernels phase 15 (a) must launch: the bf16 drive the three of the
+#: bf16 path, the int8 + speculation drive the verify window and w8a16;
+#: the <128> instances it must reach (by name, in the bf16 drive or the
+#: int8 one), and those (b)'s server must launch
+PHASE15_KERNELS = PHASE4_KERNELS
+PHASE15_INT8_KERNELS = PHASE5_KERNELS
+PHASE15_HD128 = {"bf16": ("flash_attention_cache", "paged_attention"), "int8": ("paged_attention_varq",),
+                 "forward": ("flash_attention",)}
+PHASE15_GRPC_KERNELS = PHASE4_KERNELS
+#: the decoder's cacheless forward on the kernels against the plain
+#: attention, both in bf16 through 24 MoE layers: cosine of the logits
+MOE_FORWARD_COSINE = 0.995
+
+
+def drive_moe(seed: int, card: str, root: Path, cfg=None, dir_cfg=None, device: str = "cuda:0") -> dict:
+    """Phase 15: a Qwen2-MoE VLM (``testing/vlm_standins.qwen15_moe_a27b``:
+    Qwen1.5-MoE-A2.7B's decoder, full width, 24 layers, behind the ViT
+    tower) on the card. (a) seeded bf16 weights made on the card (no fp32
+    copy) behind ``VLMManager`` on the paged engine: phase 4's drive, then
+    the int8 + ``LUMEN_VLM_SPEC_K=4`` route on phase 5's templated prompts,
+    then the decoder's cacheless forward on the kernels against the plain
+    attention (``MOE_FORWARD_COSINE``); (b) a model directory of the same
+    widths cut to 2 layers, served by ``serve()`` over gRPC: 8 streams in
+    flight and one ``vlm_generate``, request 0 equal to a ``VLMManager``
+    built from the same weights; (c) one ``MoEFFN`` layer at full width, 8
+    tokens, against its plain per-expert loop, with its time, the grouped
+    product's, and the byte bound of the experts the tokens chose.
+    ``cfg``/``dir_cfg``/``device`` let the CPU tests rehearse it small
+    (with the launch gates emptied)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMConfig, VLMManager
+    from lumen_tpu_torch.models.vlm import modeling as vlm_modeling
+    from lumen_tpu_torch.models.vlm.chat import VlmTokenizer
+    from lumen_tpu_torch.ops.attention import FLASH
+    from lumen_tpu_torch.parallel import moe as M
+    from lumen_tpu_torch.testing.vlm_standins import hf_config, qwen15_moe_a27b, seeded_state, write_model_dir
+    from lumen_tpu_torch.utils.host_decode import vlm_canvas
+
+    t_phase = time.perf_counter()
+    cfg = cfg or qwen15_moe_a27b()
+    dir_cfg = dir_cfg or qwen15_moe_a27b(layers=2)
+    on_card = torch.device(device).type == "cuda"
+    dec = cfg.decoder
+    hd = dec.dim_per_head
+    bf16 = torch.bfloat16
+    out: dict = {}
+
+    # -- (a) full width, full depth, on the paged engine -----------------
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = seeded_state(cfg, seed + 15, device, bf16)
+    n_params = sum(v.numel() for v in state.values())
+    log(f"phase 15 (a): Qwen1.5-MoE-A2.7B-width decoder ({dec.layers} layers, {dec.moe_experts} experts top-"
+        f"{dec.moe_top_k}, head_dim {hd}) + ViT tower: {n_params / 1e9:.3f}B parameters seeded in bf16 on "
+        f"{device} in {time.perf_counter() - t0:.1f} s, {sum(v.numel() * v.element_size() for v in state.values()) / 2**30:.2f} GiB")
+    bf = drive_serving(seed, card, cfg=cfg, device=device, state=state, kernels=PHASE15_KERNELS,
+                       label="phase 15 (a) bf16")
+    q8 = drive_serving(seed, card, cfg=cfg, device=device, state=state, quantize="int8", spec_k=4,
+                       kernels=PHASE15_INT8_KERNELS, label="phase 15 (a) int8 + spec K=4")
+    for drive, names in ((bf, PHASE15_HD128["bf16"]), (q8, PHASE15_HD128["int8"])):
+        missing = [n for n in names if not drive["instances"][n].get(hd)]
+        if missing:
+            raise AssertionError(f"phase 15 (a): the head_dim-{hd} instances of {missing} never launched "
+                                 f"({json.dumps(drive['instances'])})")
+    # The decoder's cacheless forward (the models' own entry point, which
+    # the CPU parity tests run) on the same weights: its causal attention
+    # is the head_dim-128 flash kernel; held to the plain attention.
+    model = VLMManager._build_model(cfg, state).eval()
+    rng = torch.Generator(device=device).manual_seed(seed + 151)
+    ids = torch.randint(3, 1000, (1, 12), generator=rng, device=device)
+    ids[0, 1] = cfg.image_token_id
+    pixels = torch.randn((1, cfg.vision.image_size, cfg.vision.image_size, 3), generator=rng, device=device).to(bf16)
+    for k in all_kernels():
+        k.zero_counts()
+    with torch.no_grad():
+        got = model(ids, pixels).float()
+        fwd_launches = {k.name: dict(k.instance_launches) for k in all_kernels()}
+        with plain_attention(vlm_modeling):
+            ref = model(ids, pixels).float()
+    cos = float(cosines(got.flatten().cpu(), ref.flatten().cpu()))
+    if not bool(torch.isfinite(got).all()) or got.shape != (1, 12 - 1 + cfg.vision.num_tokens, dec.vocab_size):
+        raise AssertionError(f"phase 15 (a): the cacheless forward gave {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    if cos < MOE_FORWARD_COSINE:
+        raise AssertionError(f"phase 15 (a): cacheless forward on the kernels vs plain attention: cosine {cos:.6f}")
+    missing = [n for n in PHASE15_HD128["forward"] if not fwd_launches[n].get(hd)]
+    if missing:
+        raise AssertionError(f"phase 15 (a): the forward never reached the head_dim-{hd} {missing}: {fwd_launches}")
+    del model, got, ref
+    log(f"phase 15 (a): cacheless forward [1,{12 - 1 + cfg.vision.num_tokens}] on the kernels vs plain attention: "
+        f"logit cosine {cos:.6f} (>= {MOE_FORWARD_COSINE}); launches by head_dim {json.dumps(fwd_launches)}")
+    log(f"phase 15 (a) [{card}]: bf16 {bf['tok_s']:.1f} tok/s, int8 + spec {q8['tok_s']:.1f} tok/s (accept "
+        f"{q8['spec_accepted']}/{q8['spec_proposed']}); peak GiB {bf['peak_gib']:.3f} / {q8['peak_gib']:.3f}; "
+        f"head_dim-{hd} launches bf16 {json.dumps({n: v.get(hd, 0) for n, v in bf['instances'].items()})}, "
+        f"int8 {json.dumps({n: v.get(hd, 0) for n, v in q8['instances'].items()})}")
+    out.update(bf16=bf, int8=q8, forward_cos=cos, forward_launches=fwd_launches, params=n_params)
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (b) a 2-layer model directory of the same widths over gRPC ------
+    t0 = time.perf_counter()
+    dstate = seeded_state(dir_cfg, seed + 152, device, bf16)
+    if VLMConfig.from_hf(hf_config(dir_cfg)) != dir_cfg:
+        raise AssertionError("phase 15 (b): config.json does not read back as the served configuration")
+    model_dir = write_model_dir(root / "cache", "SmokeMoE", dir_cfg, dstate)
+    gib = sum(f.stat().st_size for f in model_dir.iterdir()) / 2**30
+    log(f"phase 15 (b): model directory ({dir_cfg.decoder.layers} of 24 layers, full width, HF Qwen2-MoE names) "
+        f"written in {time.perf_counter() - t0:.1f} s, {gib:.2f} GiB")
+    prompt = json.dumps([{"role": "user", "content": "describe this photo in one detailed sentence"}])
+    photos = [photo_jpeg(seed * 100 + 50 + i) for i in range(9)]
+    budgets = [24 + 4 * i for i in range(8)]
+    all_k = all_kernels()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with env(LUMEN_VLM_SPEC_K="0"):
+        handle, channel, stub, load_s = boot_server(
+            deployment_yaml(root / "moe.yaml", root / "cache", "SmokeMoE", None), device)
+    try:
+        for k in all_k:
+            k.zero_counts()
+        t_start = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            streams = list(pool.map(lambda i: grpc_call(
+                stub, "vlm_generate_stream", photos[i], {"messages": prompt, "max_new_tokens": budgets[i]}), range(8)))
+        wall = time.perf_counter() - t_start
+        unary = grpc_call(stub, "vlm_generate", photos[8], {"messages": prompt, "max_new_tokens": 16})
+        launches = {k.name: k.launches for k in all_k}
+        instances = {k.name: dict(k.instance_launches) for k in all_k}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        for i, r in enumerate(streams + [unary]):
+            if r["code"] or "text_generation" not in r["mime"]:
+                raise AssertionError(f"phase 15 (b): request {i} has no TextGenerationV1 final (code {r['code']})")
+            if not 1 <= r["body"]["generated_tokens"] <= (budgets + [16])[i]:
+                raise AssertionError(f"phase 15 (b): request {i}: {r['body']['generated_tokens']} tokens")
+            if i < 8 and b"".join(r["deltas"]).decode() != r["body"]["text"]:
+                raise AssertionError(f"phase 15 (b): stream {i}: deltas do not join to the final text")
+        missing = [n for n in PHASE15_GRPC_KERNELS if not instances[n].get(hd if n != "flash_attention" else 64)]
+        if missing:
+            raise AssertionError(f"phase 15 (b): the server never launched {missing} (by head_dim {instances})")
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    tokens = sum(r["body"]["generated_tokens"] for r in streams)
+    log(f"phase 15 (b) [{card}]: served in {load_s:.2f} s (serve() to the first Health ok); 8 streams in flight, "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; vlm_generate {unary['body']['generated_tokens']} "
+        f"tokens; peak GiB {peak / 2**30:.3f}; launches {json.dumps(launches)}")
+    direct = VLMManager(dir_cfg, dstate, VlmTokenizer.from_model_dir(str(model_dir)), device=device, dtype="bfloat16",
+                        gen_slots=8, gen_block=8)
+    try:
+        r = direct.generate([ChatMessage("user", "describe this photo in one detailed sentence")],
+                            vlm_canvas(photos[0], dir_cfg.vision.image_size), max_new_tokens=budgets[0])
+        want = direct.tokenizer.decode(r.tokens)
+    finally:
+        direct.close()
+    got0 = streams[0]["body"]
+    if (got0["generated_tokens"], got0["text"]) != (len(r.tokens), want):
+        raise AssertionError(f"phase 15 (b): request 0 over gRPC differs from the direct manager: "
+                             f"{got0['generated_tokens']} tokens {got0['text'][:80]!r} vs {len(r.tokens)} {want[:80]!r}")
+    log(f"phase 15 (b): request 0 == a direct VLMManager on the same weights and canvas ({len(r.tokens)} tokens)")
+    out.update(grpc_load_s=load_s, grpc_tok_s=tokens / wall, grpc_launches=launches, dir_gib=gib)
+    del dstate, direct
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (c) one MoEFFN layer at full width vs its plain per-expert loop -
+    with torch.device("meta"):
+        layer = vlm_modeling.MoEFFN(dec)
+    layer = vlm_modeling.init_random_(layer.to(bf16).to_empty(device=device), seed + 153)
+    x = torch.randn((1, 8, dec.hidden_size), generator=rng, device=device).to(bf16)
+    f = dec.moe_intermediate_size
+    params = M.MoEParams(layer.router, layer.w_gate, layer.w_up, layer.w_down)
+
+    def plain(x):
+        routed = M._moe_exact_local(params, x.reshape(-1, x.shape[-1]), n_experts=dec.moe_experts, k=dec.moe_top_k,
+                                    norm_topk=dec.moe_norm_topk, mm=M.grouped_mm_reference).reshape(x.shape)
+        return routed + torch.sigmoid(layer.shared_gate(x)) * layer.shared(x)
+
+    with torch.no_grad():
+        y = layer(x)
+        err = max_err(y, plain(x))
+        _, idx = M._topk_gates(x.reshape(-1, dec.hidden_size), layer.router, dec.moe_top_k, dec.moe_norm_topk)
+        distinct = int(idx.unique().numel())
+        bank = 3 * dec.hidden_size * f * 2  # one expert's three matrices, bf16
+        shared = 3 * dec.hidden_size * dec.moe_shared_intermediate * 2
+        nb = distinct * bank + shared + dec.hidden_size * (dec.moe_experts + 1) * 2 + 2 * x.numel() * 2
+        fl = 2 * 8 * dec.moe_top_k * 3 * dec.hidden_size * f + 2 * 8 * 3 * dec.hidden_size * dec.moe_shared_intermediate
+        bms, by = bound(nb, fl, "bfloat16")
+        # the grouped product alone: the gate bank over the 32 sorted rows
+        xs = x.reshape(-1, dec.hidden_size).repeat_interleave(dec.moe_top_k, 0)
+        e_flat = idx.reshape(-1)
+        order = torch.sort(e_flat, stable=True).indices
+        xs = xs[order].contiguous()
+        ends = torch.bincount(e_flat, minlength=dec.moe_experts).cumsum(0).to(torch.int32)
+        gms, gby = bound(distinct * dec.hidden_size * f * 2 + xs.numel() * 2 + xs.shape[0] * f * 2,
+                         2 * xs.shape[0] * dec.hidden_size * f, "bfloat16")
+        if on_card:
+            def timed(fn, floor: float) -> tuple[float, str]:
+                # device time, or -- when the profiler keeps too few of a
+                # library call's events (seen for torch._grouped_mm) -- CUDA
+                # events with the launch path, named as such
+                ms = device_ms(fn, 50, floor_ms=floor, strict=False)
+                return (ms, "on the device") if ms is not None else (cuda_ms(fn, 50), "a call (CUDA events)")
+
+            (ms, ms_how), (gmm, gmm_how) = timed(lambda: layer(x), bms), timed(
+                lambda: M.grouped_mm(xs, layer.w_gate, ends), gms)
+            row = dict(
+                max_abs_err=err, distinct_experts=distinct, ms=ms, ms_how=ms_how,
+                # the plain versions read the group bounds on the host (a sync a
+                # call): timed with CUDA events, the launch path included
+                plain_ms=cuda_ms(lambda: plain(x), 10), bound_ms=bms, bound_by=by,
+                grouped_mm_ms=gmm, grouped_mm_how=gmm_how,
+                grouped_mm_plain_ms=cuda_ms(lambda: M.grouped_mm_reference(xs, layer.w_gate, ends), 10),
+                grouped_mm_bound_ms=gms, grouped_mm_bound_by=gby, syncs=count_syncs(lambda: layer(x)),
+            )
+            log(f"phase 15 (c) [{card}]: MoEFFN x [1,8,{dec.hidden_size}] bf16 ({distinct} distinct experts of "
+                f"{dec.moe_experts}, top-{dec.moe_top_k}, + the shared expert): max|diff| {err:.3e} vs the plain "
+                f"per-expert loop (tol {ATOL}+{RTOL}|ref|); layer {row['ms']:.4f} ms {ms_how}, plain "
+                f"{row['plain_ms']:.4f} ms a call (CUDA events), bound {bms:.5f} ms ({by}: {nb} B = {distinct} x "
+                f"{bank} + shared {shared} + router, x, y at 3.35 TB/s); one grouped product (torch._grouped_mm, "
+                f"gate bank, {xs.shape[0]} rows) {row['grouped_mm_ms']:.4f} ms {gmm_how}, its plain loop "
+                f"{row['grouped_mm_plain_ms']:.4f} ms a call (CUDA events), bound {gms:.5f} ms ({gby}); "
+                f"device-to-host syncs a layer call {row['syncs']}")
+            out["layer"] = row
+    del layer
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -5844,7 +6216,7 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12)}
-ALL_PHASES = frozenset(range(1, 15))
+ALL_PHASES = frozenset(range(1, 16))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -5906,8 +6278,11 @@ def main() -> int:
     hmma = hmma_counts(flash)
     log("sass (cuobjdump -sass), HMMA instructions: "
         + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
-    bf16_funcs = [f for f in hmma if "bf16" in f]  # flash at head_dim 64 and 16, the cache kernel at 64
-    if len(bf16_funcs) != 3 or any(hmma[f] == 0 for f in bf16_funcs):
+    # flash at head_dim 64, 16 and 128, the cache kernel at 64 and 128
+    bf16_funcs = {f for f in hmma if "bf16" in f}
+    want = {f"flash_attention_bf16_kernel<{d}>" for d in (16, 64, 128)}
+    want |= {f"flash_attention_cache_bf16_kernel<{d}>" for d in (64, 128)}
+    if bf16_funcs != want or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
     lap(1)
 
@@ -5915,6 +6290,8 @@ def main() -> int:
         rows = check_kernels(args.seed)
         rows["paged_attention_varq"] = check_varq(args.seed)
         rows["w8a16_matmul"] = check_w8a16(args.seed)
+        rows.update(check_hd128(args.seed))
+        rows["w8a16_matmul [Qwen1.5-MoE]"] = check_w8a16(args.seed + 15, MOE_Q8_SHAPES, "shared gate/up_proj")
         lap(2)
     if 3 in run:
         check_reference(args.seed)
@@ -6032,6 +6409,16 @@ def main() -> int:
                 f"{control['warm_first_s']:.2f} s warm (0 builds); launches {json.dumps(control['launches'])}, child "
                 f"peak {control['peak_gib']:.3f} GiB")
             lap(14)
+        if 15 in run:
+            moe = drive_moe(args.seed, card, Path(tmp))
+            log(f"phase 15 [{card}]: {moe['phase_s']:.1f} s in all; (a) {moe['params'] / 1e9:.3f}B parameters, bf16 "
+                f"{moe['bf16']['tok_s']:.1f} tok/s (peak {moe['bf16']['peak_gib']:.3f} GiB), int8 + spec "
+                f"{moe['int8']['tok_s']:.1f} tok/s (peak {moe['int8']['peak_gib']:.3f} GiB), forward cosine "
+                f"{moe['forward_cos']:.6f}; (b) {moe['dir_gib']:.2f} GiB directory served in {moe['grpc_load_s']:.2f} s, "
+                f"{moe['grpc_tok_s']:.1f} tok/s over gRPC; (c) MoEFFN {moe['layer']['ms']:.4f} ms (bound "
+                f"{moe['layer']['bound_ms']:.5f} ms, {moe['layer']['distinct_experts']} experts), grouped product "
+                f"{moe['layer']['grouped_mm_ms']:.4f} ms")
+            lap(15)
     log(f"seconds a phase: {json.dumps(laps)} [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
@@ -6075,6 +6462,40 @@ def main() -> int:
         launches=ocr["native_launches"], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
     ))
+    # The head_dim-128 instances (the Qwen2-MoE decoder) and w8a16 at its
+    # shapes: launches from phase 15 (a) -- the bf16 drive for the cache and
+    # paged instances, the int8 + speculation drive for the verify window
+    # and w8a16, the cacheless forward for flash_attention.
+    hd128_launches = {
+        "flash_attention": moe["forward_launches"]["flash_attention"].get(128, 0),
+        "flash_attention_cache": moe["bf16"]["instances"]["flash_attention_cache"].get(128, 0),
+        "paged_attention": moe["bf16"]["instances"]["paged_attention"].get(128, 0),
+        "paged_attention_varq": moe["int8"]["instances"]["paged_attention_varq"].get(128, 0),
+    }
+    for name, launches in hd128_launches.items():
+        row = rows[f"{name} [head_dim 128]"]
+        source, replaces = SOURCES[name]
+        table.append(dict(
+            name=f"{name} [head_dim 128]", route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    row = rows["w8a16_matmul [Qwen1.5-MoE]"]
+    source, replaces = SOURCES["w8a16_matmul"]
+    table.append(dict(
+        name="w8a16_matmul [Qwen1.5-MoE shapes]", route="cuda", source=source, replaces=replaces,
+        launches=moe["int8"]["launches"]["w8a16_matmul"], max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+    ))
+    for name, row in rows.items():
+        if "128" in name or "Qwen1.5-MoE" in name:
+            log(f"kernel row {name} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
+                + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms") + f" [{card}]")
+    for shape, r in rows["w8a16_matmul [Qwen1.5-MoE]"]["shapes"].items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"kernel row w8a16_matmul {shape}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.4f} ms, library (_weight_int8pack_mm) {lib} [{card}]")
     log(f"{card}")
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // flash_attention for the H100 (sm_90a): online-softmax attention over
 // [B, H, S, D] tensors, bidirectional or causal, for the VLM vision
 // tower (256 tokens, 12 heads, head_dim 64), the decoder's cacheless
-// causal forward, the CLIP towers (head_dim 64) and the native OCR
-// recognizer's token mixing (4 heads of head_dim 16, 240-1920 tokens).
+// causal forward (head_dim 64, or 128 for the Qwen2-MoE decoder), the
+// CLIP towers (head_dim 64) and the native OCR recognizer's token mixing
+// (4 heads of head_dim 16, 240-1920 tokens).
 //
 // Replaces the TPU kernel lumen_tpu/ops/attention.py:173 flash_attention
 // (body _flash_kernel, :97). Semantics kept: for causal with sq != sk,
@@ -26,6 +27,12 @@
 // that is 472 M exponentials, ~0.113 ms, against 0.0094 ms of bytes and
 // 0.031 ms of FLOPs. The tile is the D = 64 design with one k16 step of
 // Q K^T and two n8 output tiles; it does nothing yet about the SFU.
+//
+// At head_dim 128 (the Qwen2-MoE decoder's cacheless forward, [1, 16,
+// 265, 128] causal) the tile is the D = 64 design with eight k16 steps of
+// Q K^T and sixteen n8 output tiles: twice the registers for Q and O a
+// thread, and 148 KB of shared memory for the K/V ring, under the 227 KB
+// a block may opt into.
 #include "flash_tile_bf16.cuh"
 #include "flash_tile_fp32.cuh"
 
@@ -88,13 +95,15 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int batch
 
 // Plain C entry point (loaded through ctypes). Returns the launch's
 // cudaGetLastError() code, 0 on success. head_dim 64 (the VLM and CLIP
-// towers) or 16 (the native OCR recognizer); any other is refused.
+// towers), 128 (the Qwen2-MoE decoder) or 16 (the native OCR
+// recognizer); any other is refused.
 extern "C" int lumen_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int batch_heads, int sq, int sk, int head_dim, int dtype,
                                      int causal, float scale, void* stream) {
   using namespace lumen;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch_flash<64>(q, k, v, o, batch_heads, sq, sk, dtype, causal, scale, s);
+  if (head_dim == 128) return launch_flash<128>(q, k, v, o, batch_heads, sq, sk, dtype, causal, scale, s);
   if (head_dim == 16) return launch_flash<16>(q, k, v, o, batch_heads, sq, sk, dtype, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

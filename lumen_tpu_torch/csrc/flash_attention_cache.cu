@@ -20,7 +20,10 @@
 // 832-slot scratch; the bound of the first is 0.00055 ms of bytes (q, o
 // and the live K/V slots once each at 3.35 TB/s). What limits the tile is
 // latency: up to four dependent 64-key tiles a block (five for the
-// second chunk) and the launch.
+// second chunk) and the launch. The Qwen2-MoE decoder (Qwen1.5-MoE-A2.7B
+// widths: 16 heads of head_dim 128) runs the <128> instance on its
+// chunks, q [1, 16, 256, 128] and the prompt's rest, against the
+// 832-slot scratch.
 #include "flash_tile_bf16.cuh"
 #include "flash_tile_fp32.cuh"
 
@@ -60,33 +63,47 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 }  // namespace lumen
 
-// Plain C entry point (loaded through ctypes). Returns the launch's
-// cudaGetLastError() code, 0 on success. head_dim 64 only: the one the
-// repository's models use.
-extern "C" int lumen_flash_attention_cache(const void* q, const void* k, const void* v,
-                                           const int* q_offsets, const int* kv_valid, void* o,
-                                           int batch, int heads, int sq, int sk, int head_dim,
-                                           int dtype, float scale, void* stream) {
-  using namespace lumen;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+namespace lumen {
+
+template <int D>
+int launch_flash_cache(const void* q, const void* k, const void* v, const int* q_offsets,
+                       const int* kv_valid, void* o, int batch, int heads, int sq, int sk, int dtype,
+                       float scale, cudaStream_t s) {
   if (dtype == kBFloat16) {
-    constexpr int smem = flash_bf16_smem_bytes<64>();  // past the 48 KB default: opt in
-    const cudaError_t rc = cudaFuncSetAttribute(flash_attention_cache_bf16_kernel<64>,
+    constexpr int smem = flash_bf16_smem_bytes<D>();  // past the 48 KB default: opt in
+    const cudaError_t rc = cudaFuncSetAttribute(flash_attention_cache_bf16_kernel<D>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     const dim3 grid((sq + kFlashMmaRows - 1) / kFlashMmaRows, batch * heads);
-    flash_attention_cache_bf16_kernel<64><<<grid, kFlashMmaThreads, smem, s>>>(
+    flash_attention_cache_bf16_kernel<D><<<grid, kFlashMmaThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), q_offsets, kv_valid,
         static_cast<__nv_bfloat16*>(o), heads, sq, sk, scale);
   } else if (dtype == kFloat32) {
     const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch * heads);
-    flash_attention_cache_fp32_kernel<64><<<grid, kFlashThreads, 0, s>>>(
+    flash_attention_cache_fp32_kernel<D><<<grid, kFlashThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         q_offsets, kv_valid, static_cast<float*>(o), heads, sq, sk, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lumen
+
+// Plain C entry point (loaded through ctypes). Returns the launch's
+// cudaGetLastError() code, 0 on success. head_dim 64 (the dense Qwen2
+// decoder) or 128 (the Qwen2-MoE decoder); any other is refused.
+extern "C" int lumen_flash_attention_cache(const void* q, const void* k, const void* v,
+                                           const int* q_offsets, const int* kv_valid, void* o,
+                                           int batch, int heads, int sq, int sk, int head_dim,
+                                           int dtype, float scale, void* stream) {
+  using namespace lumen;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return launch_flash_cache<64>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk, dtype, scale, s);
+  if (head_dim == 128)
+    return launch_flash_cache<128>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk, dtype, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,8 @@
 // VMEM scratch from one grid step to the next, is the loop over key tiles
 // inside this block (Hopper blocks run in no order).
 //
-// Design (head_dim D = 64 on the VLM and CLIP paths, 16 on the native
-// OCR recognizer's):
+// Design (head_dim D = 64 on the VLM and CLIP paths, 128 on the Qwen2-MoE
+// decoder's, 16 on the native OCR recognizer's):
 // - A block holds kFlashWarps row groups of 16 query rows. Each row group
 //   has kFlashSplit warps; warp s of a group takes key tiles s, s +
 //   kFlashSplit, ... with its own online softmax, and the group's warps

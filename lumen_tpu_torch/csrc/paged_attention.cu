@@ -29,7 +29,7 @@
 // store, counter and merge.
 #include "paged_walk.cuh"
 
-// ws: the span partials (lumen::paged_partial_floats<64>() floats per
+// ws: the span partials (lumen::paged_partial_floats<head_dim>() floats per
 // (row, KV head, span of the table)); counters: one int per (row, KV
 // head), zero before the launch and left zero after it.
 extern "C" int lumen_paged_attention(const void* q, const void* k_pages, const void* v_pages,

@@ -34,6 +34,12 @@
 // row length: the TPU kernels' maxp * page <= 8192 VMEM cap
 // (lumen_tpu/ops/attention.py:967) has no counterpart.
 //
+// head_dim 128 (the Qwen2-MoE decoder: 16 heads, 16 KV heads, a group of
+// one) is the same walk: each thread scores one key for four head slots
+// and accumulates one output dimension for all eight. With a group of one,
+// seven of the eight head slots are idle padding -- the simple instance;
+// the FMA work it wastes is small beside the bytes at decode sizes.
+//
 // Determinism. A span's partial depends only on q, the span's live keys
 // and the slot's length; the number of live spans and the merge order
 // depend only on the length. So one query's output bits depend on its q,
@@ -61,6 +67,14 @@ __host__ __device__ constexpr int paged_partial_floats() {
   return kPagedGroupMax * (D + 2);
 }
 
+// Dynamic shared memory of a block: the span's K and V rows, each padded
+// by 16 B. At D = 128 in fp32 that is 66 KB, past the 48 KB a block gets
+// without opting in (the launch opts in); the other instances stay under.
+template <typename T, int D>
+__host__ __device__ constexpr int paged_kv_smem_bytes() {
+  return 2 * kPagedSpan * (D + 16 / static_cast<int>(sizeof(T))) * static_cast<int>(sizeof(T));
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kPagedThreads)
     paged_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -78,8 +92,9 @@ __global__ void __launch_bounds__(kPagedThreads)
   constexpr int QV = G * D / kPagedThreads;   // query elements a thread stages
   static_assert(S % 32 == 0 && kPagedThreads % S == 0 && kPagedThreads % D == 0, "layout");
   static_assert(G % (kPagedThreads / 32) == 0, "max/sum: whole heads a warp");
-  __shared__ __align__(16) T sK[S][ROW];
-  __shared__ __align__(16) T sV[S][ROW];
+  extern __shared__ __align__(16) unsigned char paged_smem[];
+  auto sK = reinterpret_cast<T(*)[ROW]>(paged_smem);  // [S][ROW]
+  auto sV = sK + S;                                    // [S][ROW]
   __shared__ __align__(16) float sQ[G][D];
   __shared__ float sP[G][S];
   __shared__ float sM[G], sL[G];
@@ -262,6 +277,24 @@ __global__ void __launch_bounds__(kPagedThreads)
   }
 }
 
+template <typename T, int D>
+static int paged_walk_launch_d(const void* q, const void* kp, const void* vp, const int* bt,
+                               const int* lens, void* o, float* ws, int* counters, int batch,
+                               int window, int heads, int kv_heads, int page, int maxp,
+                               float scale, cudaStream_t stream) {
+  constexpr int smem = paged_kv_smem_bytes<T, D>();
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(paged_walk_kernel<T, D>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const dim3 grid((maxp * page + kPagedSpan - 1) / kPagedSpan, batch * kv_heads * window);
+  paged_walk_kernel<T, D><<<grid, kPagedThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, lens,
+      static_cast<T*>(o), ws, counters, heads, kv_heads, page, maxp, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 static int paged_walk_launch(const void* q, const void* kp, const void* vp, const int* bt,
                              const int* lens, void* o, float* ws, int* counters, int batch,
@@ -270,19 +303,21 @@ static int paged_walk_launch(const void* q, const void* kp, const void* vp, cons
   if (heads % kv_heads != 0 || heads / kv_heads > kPagedGroupMax || window < 1 || page < 1 ||
       maxp < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // head_dim 64: the only one the repository's models use.
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
   if (batch * kv_heads * window > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((maxp * page + kPagedSpan - 1) / kPagedSpan, batch * kv_heads * window);
-  paged_walk_kernel<T, 64><<<grid, kPagedThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, lens,
-      static_cast<T*>(o), ws, counters, heads, kv_heads, page, maxp, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  // head_dim 64 (the dense Qwen2 decoder) or 128 (the Qwen2-MoE decoder).
+  if (d == 64)
+    return paged_walk_launch_d<T, 64>(q, kp, vp, bt, lens, o, ws, counters, batch, window, heads,
+                                      kv_heads, page, maxp, scale, stream);
+  if (d == 128)
+    return paged_walk_launch_d<T, 128>(q, kp, vp, bt, lens, o, ws, counters, batch, window, heads,
+                                       kv_heads, page, maxp, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Entry-point body shared by both libraries: dtype dispatch. ws holds
-// paged_partial_floats<64>() floats per (row, KV head, slot, span) of the
-// grid; counters one int per (row, KV head, slot), zero between launches.
+// paged_partial_floats<head_dim>() floats per (row, KV head, slot, span)
+// of the grid; counters one int per (row, KV head, slot), zero between
+// launches.
 static inline int paged_walk_dispatch(const void* q, const void* k_pages, const void* v_pages,
                                       const int* block_tables, const int* kv_lens, void* o,
                                       void* ws, void* counters, int batch, int window, int heads,

@@ -12,11 +12,11 @@ layout, then ``state_from_tree`` lays that tree out for the port:
 become ``layers.<i>`` / ``blocks.<i>``. A ``QDense`` (int8) module keeps
 its leaves as they are: ``q`` int8 ``[in, out]``, ``scale`` fp32
 ``[out]`` -- the port's ``QDense`` has the JAX layout. Tensors keep the
-dtype they were stored in. ``export_hf_checkpoint`` is the inverse for
-the dense model: a port ``state_dict`` under the HF/FastVLM names.
-
-Not ported: the Qwen2-MoE rules (``MoEFFN`` is not ported); a checkpoint
-with MoE layers raises ``NotImplementedError``.
+dtype they were stored in. A Qwen2-MoE checkpoint's per-expert
+projections are stacked into ``[E, ...]`` banks (``_stack_experts``), the
+router and banks keep the JAX layout (``router`` [D, E], ``w_gate`` [E,
+D, F]). ``export_hf_checkpoint`` is the inverse: a port ``state_dict``
+under the HF/FastVLM (and Qwen2-MoE) names.
 """
 
 from __future__ import annotations
@@ -42,15 +42,16 @@ _INDEXED = re.compile(r"^(layers|blocks)_(\d+)$")
 _RENAME = {"scale": "weight", "embedding": "weight", "kernel": "weight"}
 
 #: decoder projections ``QDense`` replaces when ``weight_quant="int8"``
-#: (JAX ``_QUANT_KERNEL``): attention q/k/v/o, SwiGLU gate/up/down and an
-#: untied lm_head. Embeddings and norms stay in the policy dtype.
+#: (JAX ``_QUANT_KERNEL``): attention q/k/v/o, SwiGLU gate/up/down (the
+#: MoE shared expert's included) and an untied lm_head. Embeddings, norms,
+#: a MoE router, ``shared_gate`` and expert banks stay in the policy dtype.
 _QUANT_WEIGHT = re.compile(
     r"^decoder\..*(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj|lm_head)\.weight$"
 )
 
 _QKV = r"(q_proj|k_proj|v_proj)"
 
-#: the JAX package's ``DECODER_RULES`` without the Qwen2-MoE entries
+#: the JAX package's ``DECODER_RULES``
 DECODER_RULES = [
     (r"model\.embed_tokens\.weight", r"decoder/embed_tokens/embedding", None),
     (rf"model\.layers\.(\d+)\.self_attn\.{_QKV}\.weight", r"decoder/layers_\1/attn/\2/kernel", linear_kernel),
@@ -59,14 +60,21 @@ DECODER_RULES = [
     (r"model\.layers\.(\d+)\.mlp\.gate_proj\.weight", r"decoder/layers_\1/mlp/gate_proj/kernel", linear_kernel),
     (r"model\.layers\.(\d+)\.mlp\.up_proj\.weight", r"decoder/layers_\1/mlp/up_proj/kernel", linear_kernel),
     (r"model\.layers\.(\d+)\.mlp\.down_proj\.weight", r"decoder/layers_\1/mlp/down_proj/kernel", linear_kernel),
+    # Qwen2-MoE sparse layers: router + per-expert SwiGLU (stacked into
+    # [E, ...] banks by _stack_experts below) + sigmoid-gated shared expert.
+    (r"model\.layers\.(\d+)\.mlp\.gate\.weight", r"decoder/layers_\1/mlp/router", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.gate_proj\.weight", r"decoder/layers_\1/mlp/__expert_gate__/\2", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.up_proj\.weight", r"decoder/layers_\1/mlp/__expert_up__/\2", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.down_proj\.weight", r"decoder/layers_\1/mlp/__expert_down__/\2", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert\.gate_proj\.weight", r"decoder/layers_\1/mlp/shared/gate_proj/kernel", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert\.up_proj\.weight", r"decoder/layers_\1/mlp/shared/up_proj/kernel", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert\.down_proj\.weight", r"decoder/layers_\1/mlp/shared/down_proj/kernel", linear_kernel),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert_gate\.weight", r"decoder/layers_\1/mlp/shared_gate/kernel", linear_kernel),
     (r"model\.layers\.(\d+)\.input_layernorm\.weight", r"decoder/layers_\1/input_norm/scale", None),
     (r"model\.layers\.(\d+)\.post_attention_layernorm\.weight", r"decoder/layers_\1/post_attn_norm/scale", None),
     (r"model\.norm\.weight", r"decoder/final_norm/scale", None),
     (r"lm_head\.weight", r"decoder/lm_head/kernel", linear_kernel),
 ]
-
-#: checkpoint keys of Qwen2-MoE layers (router, experts, shared expert)
-_MOE_KEY = re.compile(r"model\.layers\.\d+\.mlp\.(gate|experts\.\d+|shared_expert|shared_expert_gate)\.")
 
 VISION_RULES = [
     (r"vision_tower\.patch_embed\.weight", r"vision/patch_embed/kernel", conv_kernel),
@@ -118,11 +126,42 @@ DROP = [
     r"vision_tower\.vision_model\.pre_layrnorm\.",
 ]
 
+_EXPERT_BANKS = {
+    "__expert_gate__": "w_gate",
+    "__expert_up__": "w_up",
+    "__expert_down__": "w_down",
+}
+
+
+def _stack_experts(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Collapse ``.../mlp/__expert_gate__/<i>`` leaves into one stacked
+    ``.../mlp/w_gate`` bank per layer (``[E, ...]``, expert index 0..E-1
+    on the leading dim; JAX ``_stack_experts``, the same error on
+    non-contiguous indices)."""
+    groups: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
+    out: dict[str, torch.Tensor] = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        if len(parts) >= 2 and parts[-2] in _EXPERT_BANKS:
+            groups.setdefault(("/".join(parts[:-2]), parts[-2]), {})[int(parts[-1])] = val
+        else:
+            out[key] = val
+    for (prefix, marker), members in groups.items():
+        n = len(members)
+        if sorted(members) != list(range(n)):
+            raise ValueError(f"{prefix}/{marker}: non-contiguous expert indices {sorted(members)}")
+        out[f"{prefix}/{_EXPERT_BANKS[marker]}"] = torch.stack([members[i] for i in range(n)], dim=0)
+    return out
+
+
 #: port ``state_dict`` name -> HF/FastVLM name, the inverse of the first
-#: matching rule above for every dense-model parameter
+#: matching rule above for every parameter but the MoE router and banks
+#: (``export_hf_checkpoint`` unstacks those)
 _HF_NAMES = [
     (r"decoder\.embed_tokens\.weight", r"model.embed_tokens.weight"),
     (r"decoder\.layers\.(\d+)\.attn\.(\w+)\.(weight|bias)", r"model.layers.\1.self_attn.\2.\3"),
+    (r"decoder\.layers\.(\d+)\.mlp\.shared\.(\w+)\.weight", r"model.layers.\1.mlp.shared_expert.\2.weight"),
+    (r"decoder\.layers\.(\d+)\.mlp\.shared_gate\.weight", r"model.layers.\1.mlp.shared_expert_gate.weight"),
     (r"decoder\.layers\.(\d+)\.mlp\.(\w+)\.weight", r"model.layers.\1.mlp.\2.weight"),
     (r"decoder\.layers\.(\d+)\.input_norm\.weight", r"model.layers.\1.input_layernorm.weight"),
     (r"decoder\.layers\.(\d+)\.post_attn_norm\.weight", r"model.layers.\1.post_attention_layernorm.weight"),
@@ -194,25 +233,36 @@ def convert_vlm_checkpoint(
         key = key.removeprefix("language_model.")
         if key.startswith("model.vision_tower."):
             key = key.removeprefix("model.")
-        if _MOE_KEY.match(key):
-            raise NotImplementedError(
-                f"checkpoint has Qwen2-MoE layers ({key}); MoEFFN is not ported to lumen_tpu_torch yet"
-            )
         normalized[key] = val
     drop = list(DROP)
     if tie_word_embeddings:
         drop.append(r"^lm_head\.weight$")
-    return state_from_tree(unflatten(apply_rules(normalized, DECODER_RULES + VISION_RULES, drop=drop)))
+    flat = apply_rules(normalized, DECODER_RULES + VISION_RULES, drop=drop)
+    return state_from_tree(unflatten(_stack_experts(flat)))
+
+
+#: a MoE layer's router and banks in the port's ``state_dict``
+_MOE_LEAF = re.compile(r"decoder\.layers\.(\d+)\.mlp\.(router|w_gate|w_up|w_down)")
+_BANK_HF = {"w_gate": "gate_proj", "w_up": "up_proj", "w_down": "down_proj"}
 
 
 def export_hf_checkpoint(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """A dense port ``state_dict`` under the HF/FastVLM names
+    """A port ``state_dict`` under the HF/FastVLM names
     ``convert_vlm_checkpoint`` reads (its inverse): linear weights are
     ``[out, in]`` in both, the patch embedding goes back to an OIHW conv
-    weight."""
+    weight, a MoE router [D, E] to ``mlp.gate.weight`` [E, D] and each
+    bank to one ``mlp.experts.<i>.<proj>.weight`` an expert."""
     rules = [(re.compile(p), t) for p, t in _HF_NAMES]
     out: dict[str, torch.Tensor] = {}
     for key, t in state.items():
+        if m := _MOE_LEAF.fullmatch(key):
+            layer, leaf = m.groups()
+            if leaf == "router":
+                out[f"model.layers.{layer}.mlp.gate.weight"] = t.t().contiguous()
+            else:
+                for i in range(t.shape[0]):
+                    out[f"model.layers.{layer}.mlp.experts.{i}.{_BANK_HF[leaf]}.weight"] = t[i].t().contiguous()
+            continue
         for pat, template in rules:
             if m := pat.fullmatch(key):
                 break

@@ -1,5 +1,5 @@
 """VLM in PyTorch: ViT vision encoder + Qwen2-style causal decoder (twin
-of ``lumen_tpu/models/vlm/modeling.py``, dense decoder only).
+of ``lumen_tpu/models/vlm/modeling.py``), dense or Qwen2-MoE.
 
 The decoder runs three ways, as in the JAX package: cacheless (tests,
 causal flash attention), against a contiguous per-request KV buffer
@@ -13,8 +13,12 @@ Submodule and parameter names follow the Flax tree (``layers.0.attn.
 q_proj``, ``input_norm``, ``embed_tokens``, ...) so ``convert.py`` maps
 one onto the other by name. With ``DecoderConfig.weight_quant="int8"``
 the seven projections of every layer (and an untied lm_head) are
-``QDense`` modules holding ``q``/``scale`` in the JAX layout. Not ported
-yet: the MoE FFN.
+``QDense`` modules holding ``q``/``scale`` in the JAX layout. A
+Qwen2-MoE decoder (``DecoderConfig.moe_experts > 0``) replaces the MLP of
+its sparse layers by ``MoEFFN``: a router, stacked ``[E, ...]`` expert
+banks run through :func:`~lumen_tpu_torch.parallel.moe.moe_ffn` with
+exact routing, and a sigmoid-gated shared expert; under int8 only the
+shared expert's projections turn ``QDense``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch.nn import functional as F
 
 from ...ops.attention import attention, attention_cached, paged_attention, repeat_kv
 from ...ops.quant import QDense
+from ...parallel.moe import MoEParams, moe_ffn
 from ..clip.modeling import Block, PatchEmbed
 
 
@@ -44,6 +49,17 @@ class DecoderConfig:
     rms_norm_eps: float = 1e-6
     max_position_embeddings: int = 32768
     tie_word_embeddings: bool = True
+    # Mixture-of-experts decoder (Qwen2-MoE layout; 0 experts = dense):
+    # layer i is sparse iff (i + 1) % moe_every == 0 and i is not in
+    # moe_dense_layers (HF decoder_sparse_step / mlp_only_layers). Routing
+    # is exact (no token drops), as HF's dense-gather reference.
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_intermediate_size: int | None = None  # None -> intermediate_size
+    moe_shared_intermediate: int = 0  # > 0 adds Qwen2-MoE's shared expert
+    moe_every: int = 1
+    moe_norm_topk: bool = True
+    moe_dense_layers: tuple[int, ...] = ()
     # Weight-only int8 for the attention + MLP projections (per output
     # channel scales): decode at small batch streams the weights, so int8
     # halves the dominant traffic. Embeddings, norms and a tied lm_head
@@ -57,6 +73,9 @@ class DecoderConfig:
     @property
     def dim_per_head(self) -> int:
         return self.head_dim or self.hidden_size // self.heads
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe_experts > 0 and i not in self.moe_dense_layers and (i + 1) % self.moe_every == 0
 
 
 @dataclass(frozen=True)
@@ -107,12 +126,11 @@ class VLMConfig:
     @classmethod
     def from_hf(cls, cfg: dict[str, Any]) -> "VLMConfig":
         """Build from an HF LLaVA-style ``config.json`` (``text_config`` +
-        ``vision_config``) or a flat Qwen2-style decoder config. Dense
-        decoders only: an MoE config is refused until MoE is ported."""
+        ``vision_config``) or a flat Qwen2-style decoder config; the
+        Qwen2-MoE keys with the JAX defaults."""
         text = cfg.get("text_config", cfg)
         vis = cfg.get("vision_config", {})
-        if text.get("num_experts", 0):
-            raise NotImplementedError("MoE decoders are not ported to lumen_tpu_torch yet")
+        experts = text.get("num_experts", 0)
         decoder = DecoderConfig(
             hidden_size=text.get("hidden_size", 896),
             layers=text.get("num_hidden_layers", 24),
@@ -125,6 +143,15 @@ class VLMConfig:
             rms_norm_eps=text.get("rms_norm_eps", 1e-6),
             max_position_embeddings=text.get("max_position_embeddings", 32768),
             tie_word_embeddings=text.get("tie_word_embeddings", cfg.get("tie_word_embeddings", True)),
+            moe_experts=experts,
+            # HF Qwen2MoeConfig defaults num_experts_per_tok to 4 and
+            # norm_topk_prob to False.
+            moe_top_k=text.get("num_experts_per_tok", 4 if experts else 2),
+            moe_intermediate_size=text.get("moe_intermediate_size"),
+            moe_shared_intermediate=text.get("shared_expert_intermediate_size", 0),
+            moe_every=text.get("decoder_sparse_step", 1),
+            moe_norm_topk=text.get("norm_topk_prob", not experts),
+            moe_dense_layers=tuple(text.get("mlp_only_layers", ())),
         )
         vision = VisionTowerConfig(
             image_size=vis.get("image_size", 1024),
@@ -290,23 +317,64 @@ class DecoderAttention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, intermediate: int | None = None):
         super().__init__()
-        self.gate_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, False)
-        self.up_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, False)
-        self.down_proj = _dense(cfg, cfg.intermediate_size, cfg.hidden_size, False)
+        inter = intermediate or cfg.intermediate_size
+        self.gate_proj = _dense(cfg, cfg.hidden_size, inter, False)
+        self.up_proj = _dense(cfg, cfg.hidden_size, inter, False)
+        self.down_proj = _dense(cfg, inter, cfg.hidden_size, False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class DecoderLayer(nn.Module):
+class MoEFFN(nn.Module):
+    """Qwen2-MoE sparse MLP (JAX ``MoEFFN``): a softmax router, a top-k
+    routed SwiGLU expert bank, and an optional sigmoid-gated shared expert.
+    The routed compute is :func:`~lumen_tpu_torch.parallel.moe.moe_ffn`
+    with exact routing, so outputs match HF's ``Qwen2MoeSparseMoeBlock``.
+    ``router`` is [D, E] (the softmax runs in fp32); the banks ``w_gate``
+    / ``w_up`` [E, D, F] and ``w_down`` [E, F, D] are cast to the
+    activations' dtype at the call, as in JAX; ``shared_gate`` is a
+    bias-free [D -> 1] projection that int8 leaves in the policy dtype."""
+
     def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        e, d = cfg.moe_experts, cfg.hidden_size
+        f = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.router = nn.Parameter(torch.zeros(d, e))
+        self.w_gate = nn.Parameter(torch.zeros(e, d, f))
+        self.w_up = nn.Parameter(torch.zeros(e, d, f))
+        self.w_down = nn.Parameter(torch.zeros(e, f, d))
+        if cfg.moe_shared_intermediate:
+            self.shared = SwiGLU(cfg, intermediate=cfg.moe_shared_intermediate)
+            self.shared_gate = nn.Linear(d, 1, bias=False)
+        else:
+            self.shared = self.shared_gate = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        b, s, d = x.shape
+        params = MoEParams(
+            router=self.router, w_gate=self.w_gate.to(x.dtype), w_up=self.w_up.to(x.dtype),
+            w_down=self.w_down.to(x.dtype),
+        )
+        y = moe_ffn(
+            params, x.reshape(b * s, d), k=c.moe_top_k, capacity_factor=None, norm_topk=c.moe_norm_topk
+        ).reshape(b, s, d)
+        if self.shared is not None:
+            y = y + torch.sigmoid(self.shared_gate(x)) * self.shared(x)
+        return y
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.attn = DecoderAttention(cfg)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = SwiGLU(cfg)
+        self.mlp = MoEFFN(cfg) if cfg.is_moe_layer(layer_idx) else SwiGLU(cfg)
 
     def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         h, cache = self.attn(
@@ -324,7 +392,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = (
             None if cfg.tie_word_embeddings else _dense(cfg, cfg.hidden_size, cfg.vocab_size, False)
@@ -444,10 +512,10 @@ def merge_image_embeddings(text_embeds, vision_embeds, input_ids, image_token_id
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     """Seeded random weights in place (no checkpoint ships with the repo):
-    normal(0, ``std``) for projections, embeddings and position tables,
-    ones for norm scales, zeros for biases. One generator on the model's
-    device walks the parameters in name order, so a seed names one model
-    on a given device."""
+    normal(0, ``std``) for projections, embeddings, position tables, MoE
+    routers and expert banks, ones for norm scales, zeros for biases. One
+    generator on the model's device walks the parameters in name order, so
+    a seed names one model on a given device."""
     gen = None
     for name, p in sorted(model.named_parameters()):
         if gen is None:

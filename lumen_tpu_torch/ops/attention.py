@@ -187,8 +187,12 @@ def paged_attention_varq_reference(q, k_pages, v_pages, block_tables, kv_lens, s
 
 
 #: head dims the flash kernel is built for: the VLM and CLIP towers' 64,
-#: the native OCR recognizer's 16 (the JAX kernel takes any up to 256).
-FLASH_HEAD_DIMS = (16, 64)
+#: the Qwen2-MoE decoder's 128, the native OCR recognizer's 16 (the JAX
+#: kernel takes any up to 256).
+FLASH_HEAD_DIMS = (16, 64, 128)
+#: head dims the cache and paged kernels are built for: the dense Qwen2
+#: decoder's 64 and the Qwen2-MoE decoder's 128.
+DECODER_HEAD_DIMS = (64, 128)
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
@@ -207,7 +211,7 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     with torch.cuda.device(q.device):
         FLASH.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq, sk, d,
-            _DTYPE_CODES[q.dtype], int(causal), _scale(scale, d), _stream(q),
+            _DTYPE_CODES[q.dtype], int(causal), _scale(scale, d), _stream(q), instance=d,
         )
     return out
 
@@ -225,8 +229,10 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
         raise ValueError(
             f"flash_attention_cache: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
         )
-    if d != 64 or sq < 1 or sk < 1:
-        raise ValueError(f"flash_attention_cache: head_dim {d} (kernel takes 64), sq {sq}, sk {sk}")
+    if d not in DECODER_HEAD_DIMS or sq < 1 or sk < 1:
+        raise ValueError(
+            f"flash_attention_cache: head_dim {d} (kernel takes {DECODER_HEAD_DIMS}), sq {sq}, sk {sk}"
+        )
     q_offsets = q_offsets.to(torch.int32).contiguous()
     kv_valid = kv_valid.to(torch.int32).contiguous()
     if q_offsets.shape != (b,) or kv_valid.shape != (b,):
@@ -241,7 +247,7 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
         FLASH_CACHE.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
             kv_valid.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
-            _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
         )
     return out
 
@@ -308,7 +314,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=Non
         PAGED.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h,
-            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
         )
     return out
 
@@ -331,7 +337,7 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scal
         PAGED_VARQ.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, w, h,
-            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
         )
     return out
 
@@ -343,8 +349,10 @@ def _paged_operands(name: str, q, k_pages, v_pages, block_tables, kv_lens):
     kv_heads = k_pages.shape[1]
     if v_pages.shape != k_pages.shape or k_pages.dim() != 4 or k_pages.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
-    if h % kv_heads or h // kv_heads > 8 or d != 64:
-        raise ValueError(f"{name}: heads {h}/{kv_heads} (group <= 8), head_dim {d} (kernel takes 64)")
+    if h % kv_heads or h // kv_heads > 8 or d not in DECODER_HEAD_DIMS:
+        raise ValueError(
+            f"{name}: heads {h}/{kv_heads} (group <= 8), head_dim {d} (kernel takes {DECODER_HEAD_DIMS})"
+        )
     block_tables = block_tables.to(torch.int32).contiguous()
     kv_lens = kv_lens.to(torch.int32).contiguous()
     if block_tables.dim() != 2 or block_tables.shape[0] != b or kv_lens.shape != (b,):

@@ -10,9 +10,10 @@ library's file name carries a hash of the sources and flags, so an edited
 kernel is never served from a stale build; a build that runs is reported
 to ``compile_cache.note_build``.
 
-A :class:`CudaKernel` also counts its launches: ``chip_smoke.py`` zeroes
-the counts before it drives the serving path and reads them afterwards,
-to show the path really went through the kernels.
+A :class:`CudaKernel` also counts its launches, in all and by instance
+(the attention kernels' head_dim): ``chip_smoke.py`` zeroes the counts
+before it drives the serving path and reads them afterwards, to show the
+path really went through the kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        #: launches by template instance (``launch(..., instance=)``)
+        self.instance_launches: dict[int, int] = {}
         self._fn = None
         self._lib = None
         self._lock = threading.Lock()
@@ -101,15 +104,24 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn(*args)
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, instance: int | None = None) -> None:
         """Call the C entry point; raise on a non-zero CUDA error code
         (a refused launch never runs, and a later synchronize would not
-        report it)."""
+        report it). ``instance`` names the template instance the call
+        reaches (a head_dim), counted apart as well."""
         rc = self.load()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error code {rc}")
         with self._lock:  # callers launch from several threads
             self.launches += 1
+            if instance is not None:
+                self.instance_launches[instance] = self.instance_launches.get(instance, 0) + 1
+
+    def zero_counts(self) -> None:
+        """Set the launch counts, in all and by instance, to 0."""
+        with self._lock:
+            self.launches = 0
+            self.instance_launches = {}
 
 
 def _finish_build(kernel: CudaKernel, build: tuple) -> str:

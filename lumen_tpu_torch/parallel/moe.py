@@ -1,0 +1,214 @@
+"""A top-k routed mixture-of-experts FFN (twin of
+``lumen_tpu/parallel/moe.py``), on one device.
+
+The JAX module runs the same math single-device or with GShard
+all-to-all dispatch over an ``expert`` mesh axis. The port runs one
+replica on one card (``runtime/mesh.py``), so it keeps the single-device
+paths:
+
+- the EXACT path (``capacity_factor=None``, what ``MoEFFN`` serves):
+  the ``T * k`` (token, choice) assignments are sorted by expert and the
+  expert bank runs as three grouped products over the sorted rows -- the
+  JAX ``lax.ragged_dot`` calls. :func:`grouped_mm` is
+  ``torch._grouped_mm``: ``ragged_dot`` is an XLA op, not a Pallas
+  kernel, so it stays a library call here, as it was one there. The
+  group ends stay on the device: no ``.tolist()``, no host sync, so a
+  decode step enqueues without waiting for the router;
+- the CAPACITY path (a finite ``capacity_factor``): GShard routing into
+  ``C`` slots an expert, overflow dropped, dispatch and combine as
+  einsums against one-hot masks, the bank as a batched einsum.
+
+``moe_ffn`` with a mesh whose ``expert`` axis is above 1 raises, as
+``runtime.mesh.build_mesh`` does: expert parallelism waits for the port's
+``torch.distributed`` layer (ROADMAP queue A, item 2).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch.nn import functional as F
+
+from ..runtime.mesh import EXPERT_AXIS
+
+
+class MoEParams(NamedTuple):
+    """Weights for a routed SwiGLU expert bank (the JAX layout).
+
+    ``router``: [D, E] -- token -> expert logits, computed in fp32.
+    ``w_gate``/``w_up``: [E, D, F]; ``w_down``: [E, F, D].
+    """
+
+    router: torch.Tensor
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+
+
+def init_moe_params(
+    generator: torch.Generator, d_model: int, d_ff: int, n_experts: int, dtype=torch.float32
+) -> MoEParams:
+    """Seeded normal weights scaled by fan-in (JAX ``init_moe_params``), on
+    the generator's device; the router in fp32."""
+    dev = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    scale_in, scale_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return MoEParams(
+        router=normal(d_model, n_experts) * scale_in,
+        w_gate=(normal(n_experts, d_model, d_ff) * scale_in).to(dtype),
+        w_up=(normal(n_experts, d_model, d_ff) * scale_in).to(dtype),
+        w_down=(normal(n_experts, d_ff, d_model) * scale_out).to(dtype),
+    )
+
+
+def _topk_gates(x: torch.Tensor, router: torch.Tensor, k: int, norm_topk: bool):
+    """Softmax-then-top-k routing: ``[T, k]`` gate values + expert ids, the
+    softmax in fp32 over ``x @ router``."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)  # [T, E]
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # descending, as lax.top_k
+    if norm_topk:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate_vals, gate_idx
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """``x`` [N, K] rows sorted by group, ``w`` [G, K, M], ``ends`` [G]
+    int32 cumulative row ends (group g is rows ``ends[g-1]:ends[g]``) ->
+    [N, M]: each group's rows times its matrix (JAX ``lax.ragged_dot``;
+    an empty group costs nothing). ``torch._grouped_mm`` on both devices:
+    K and M must be 16-byte multiples of the element size, and on the card
+    it takes bfloat16 only -- another dtype raises rather than running a
+    different product."""
+    if x.is_cuda and (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16):
+        raise NotImplementedError(
+            f"MoE grouped product on the card: {x.dtype} x {w.dtype}; torch._grouped_mm takes "
+            "bfloat16 there (serve the MoE decoder with dtype bfloat16)"
+        )
+    align = 16 // x.element_size()
+    if x.shape[1] % align or w.shape[2] % align:
+        raise ValueError(f"grouped_mm: widths {x.shape[1]} and {w.shape[2]} must be multiples of {align}")
+    return torch._grouped_mm(x.contiguous(), w, offs=ends)
+
+
+def grouped_mm_reference(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`grouped_mm`: one matrix product a group, the
+    group bounds read on the host."""
+    out = x.new_zeros((x.shape[0], w.shape[2]))
+    start = 0
+    for g, end in enumerate(ends.tolist()):
+        if end > start:
+            out[start:end] = x[start:end] @ w[g]
+        start = end
+    return out
+
+
+def _moe_exact_local(
+    params: MoEParams, x: torch.Tensor, *, n_experts: int, k: int, norm_topk: bool, mm=grouped_mm
+) -> torch.Tensor:
+    """Exact (zero-drop) single-device MoE (JAX ``_moe_exact_local``): the
+    ``T * k`` assignments sorted stably by expert, three grouped products
+    over the sorted rows, the rows put back and weighted by their gates
+    in fp32. ``mm`` is the grouped product (the tests pass the plain one)."""
+    t, d = x.shape
+    gate_vals, gate_idx = _topk_gates(x, params.router, k, norm_topk)
+    e_flat = gate_idx.reshape(-1)  # [N], N = T*k; index t*k+j = (token t, choice j)
+    order = torch.sort(e_flat, stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=x.device)
+    xs = x.repeat_interleave(k, dim=0)[order].to(params.w_gate.dtype)  # [N, D]
+    # Group sizes by scatter-add (torch.bincount sizes its output from the
+    # data on the card: a host sync), then their running ends.
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
+    sizes.scatter_add_(0, e_flat, torch.ones_like(e_flat, dtype=torch.int32))
+    ends = sizes.cumsum(0, dtype=torch.int32)
+    hg = mm(xs, params.w_gate, ends)
+    hu = mm(xs, params.w_up, ends)
+    ys = mm(F.silu(hg) * hu, params.w_down, ends)  # [N, D]
+    ys = ys[inv].reshape(t, k, d).float()
+    return (ys * gate_vals[..., None]).sum(dim=1).to(x.dtype)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, n_experts: int, k: int, capacity: int, norm_topk: bool = True):
+    """Top-k capacity-limited routing for ``x: [T, D]`` (JAX ``_route``):
+    ``dispatch: [T, E, C]`` one-hot (token t occupies slot c of expert e)
+    and ``combine: [T, E, C]`` (the same support, scaled by the gate).
+    All rank-0 choices claim slots before any rank-1 choice."""
+    t = x.shape[0]
+    gate_vals, gate_idx = _topk_gates(x, router, k, norm_topk)
+    sel = F.one_hot(gate_idx, n_experts).float()  # [T, k, E]
+    flat = sel.transpose(0, 1).reshape(k * t, n_experts)
+    pos = flat.cumsum(dim=0) - 1.0  # slot index per (choice, expert)
+    pos = pos.reshape(k, t, n_experts).transpose(0, 1)  # [T, k, E]
+    slot = (pos * sel).sum(-1)  # [T, k] slot within the chosen expert
+    fits = (slot < capacity) & (sel.sum(-1) > 0)
+    # jax.nn.one_hot: an index outside [0, C) is an all-zero row
+    slot_oh = (slot.long()[..., None] == torch.arange(capacity, device=x.device)).float()  # [T, k, C]
+    choice = sel * fits[..., None]  # [T, k, E]
+    dispatch = torch.einsum("tke,tkc->tec", choice, slot_oh)
+    combine = torch.einsum("tke,tkc,tk->tec", choice, slot_oh, gate_vals)
+    return dispatch, combine
+
+
+def _expert_ffn(params: MoEParams, xs: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over the expert bank: ``xs: [E, N, D]``."""
+    gate = torch.einsum("end,edf->enf", xs, params.w_gate)
+    up = torch.einsum("end,edf->enf", xs, params.w_up)
+    return torch.einsum("enf,efd->end", F.silu(gate) * up, params.w_down)
+
+
+def _moe_local(
+    params: MoEParams,
+    x: torch.Tensor,
+    *,
+    n_experts: int,
+    k: int,
+    capacity: int,
+    n_shards: int = 1,
+    axis_name: str | None = None,
+    norm_topk: bool = True,
+) -> torch.Tensor:
+    """The capacity path on one device (JAX ``_moe_local`` with
+    ``axis_name=None``): dispatch into ``[E, C, D]``, the bank, combine."""
+    if axis_name is not None or n_shards != 1:
+        raise NotImplementedError("expert-parallel dispatch (all-to-all) is not ported to lumen_tpu_torch")
+    t = x.shape[0]
+    dispatch, combine = _route(x, params.router, n_experts, k, capacity, norm_topk)
+    buf = torch.einsum("td,tec->ecd", x.float(), dispatch).to(params.w_gate.dtype)  # [E, C, D]
+    out = _expert_ffn(params, buf)
+    y = torch.einsum("ecd,tec->td", out.float(), combine)
+    return y.to(x.dtype).reshape(t, -1)
+
+
+def moe_ffn(
+    params: MoEParams,
+    x: torch.Tensor,
+    mesh=None,
+    *,
+    k: int = 2,
+    capacity_factor: float | None = 1.25,
+    axis_name: str = EXPERT_AXIS,
+    norm_topk: bool = True,
+) -> torch.Tensor:
+    """Apply the routed expert FFN to ``x: [T, D]`` (flatten [B, S, D]
+    upstream), on ``x``'s device (JAX ``moe_ffn``).
+
+    ``capacity_factor=None`` is EXACT routing (nothing drops), the grouped
+    products over expert-sorted assignments; a factor sets ``C = max(1,
+    int(factor * k * T / E))`` slots an expert. ``mesh`` is a
+    ``runtime.mesh.DeviceMesh`` (or None): an ``axis_name`` axis above 1
+    raises ``NotImplementedError``."""
+    n_experts = params.w_gate.shape[0]
+    if mesh is not None and mesh.shape.get(axis_name, 1) > 1:
+        raise NotImplementedError(
+            f"mesh axis {axis_name!r} = {mesh.shape[axis_name]}: expert parallelism is not ported to "
+            "lumen_tpu_torch yet (ROADMAP queue A, item 2)"
+        )
+    if capacity_factor is None:
+        return _moe_exact_local(params, x, n_experts=n_experts, k=k, norm_topk=norm_topk)
+    capacity = max(1, int(capacity_factor * k * x.shape[0] / n_experts))
+    return _moe_local(params, x, n_experts=n_experts, k=k, capacity=capacity, norm_topk=norm_topk)

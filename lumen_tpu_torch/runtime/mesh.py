@@ -12,7 +12,7 @@ resolver, unchanged. What the port does not run raises or says so:
 
 - a ``model``, ``seq``, ``stage`` or ``expert`` axis above 1 (tensor,
   sequence, pipeline or expert parallelism) raises ``NotImplementedError``;
-  those wait for the port's parallel layer (ROADMAP queue A, item 10);
+  those wait for the port's parallel layer (ROADMAP queue A, item 2);
 - a ``data`` axis above 1 (one micro-batch spread over several devices)
   degrades to 1 with a one-shot warning: the replica serves on its first
   device. Several cards serve as several replicas, one a card
@@ -30,6 +30,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
 
 
 _degrade_warned: set[str] = set()
@@ -147,7 +148,7 @@ def build_mesh(
     if parallel:
         raise NotImplementedError(
             f"mesh axes {parallel}: tensor/sequence/pipeline/expert parallelism is not "
-            "ported to lumen_tpu_torch yet (ROADMAP queue A, item 10)"
+            "ported to lumen_tpu_torch yet (ROADMAP queue A, item 2)"
         )
     used = math.prod(resolved.values())
     devices = devices[:used]

@@ -87,7 +87,7 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
 
 
 def test_parallel_axes_raise():
-    with pytest.raises(NotImplementedError, match="queue A, item 10"):
+    with pytest.raises(NotImplementedError, match="queue A, item 2"):
         build_mesh({"model": 2}, devices=[CPU] * 2)
     with pytest.raises(NotImplementedError):
         port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)

@@ -199,6 +199,18 @@ def test_int8_and_speculation_modules_are_checked():
         assert replaces.split(":")[0] in (ROOT / source).read_text(), name
 
 
+def test_parallel_package_is_checked():
+    """The MoE slice's ``parallel`` package and stand-in writer are among
+    the modules the import check loads, and the package exports the JAX
+    ``parallel.moe`` names it ports."""
+    mods = _port_modules()
+    for mod in ("lumen_tpu_torch.parallel", "lumen_tpu_torch.parallel.moe", "lumen_tpu_torch.testing.vlm_standins"):
+        assert mod in mods
+    from lumen_tpu_torch import parallel
+
+    assert set(parallel.__all__) == {"MoEParams", "init_moe_params", "moe_ffn"}
+
+
 def test_chip_smoke_int8_speculative_drive_rehearses_on_cpu():
     """Phase 5 of chip_smoke.py (int8 projections, LUMEN_VLM_SPEC_K=4,
     templated prompts) runs on the CPU at a small configuration: every

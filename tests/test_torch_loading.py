@@ -112,8 +112,28 @@ def test_bf16_checkpoint_stays_bf16(tmp_path, jax_params):
 
 
 def test_moe_checkpoint_is_refused():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        convert_vlm_checkpoint({"model.layers.0.mlp.experts.0.up_proj.weight": torch.zeros(2, 2)})
+    """(Named for the refusal MoE conversion once was.) An HF Qwen2-MoE
+    checkpoint converts: its per-expert projections stack into ``[E, ...]``
+    banks equal to the JAX ``_stack_experts`` of the same leaves, the
+    router and shared expert under the JAX converter's paths."""
+    from lumen_tpu.models.vlm.convert import _stack_experts
+
+    rng = np.random.default_rng(0)
+    hf = {f"model.layers.0.mlp.experts.{i}.{p}.weight": torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for i in range(3) for p, s in (("gate_proj", (6, 4)), ("up_proj", (6, 4)), ("down_proj", (4, 6)))}
+    hf["model.layers.0.mlp.gate.weight"] = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+    hf["model.layers.0.mlp.shared_expert_gate.weight"] = torch.ones(1, 4)
+    state = convert_vlm_checkpoint(hf)
+    want = jax_convert({k: v.numpy() for k, v in hf.items()})["decoder"]["layers_0"]["mlp"]
+    for bank in ("w_gate", "w_up", "w_down"):
+        np.testing.assert_array_equal(state[f"decoder.layers.0.mlp.{bank}"].numpy(), want[bank])
+    flat = {f"decoder/layers_0/mlp/__expert_down__/{i}": hf[f"model.layers.0.mlp.experts.{i}.down_proj.weight"].numpy().T
+            for i in range(3)}
+    np.testing.assert_array_equal(state["decoder.layers.0.mlp.w_down"].numpy(),
+                                  _stack_experts(flat)["decoder/layers_0/mlp/w_down"])
+    assert state["decoder.layers.0.mlp.w_gate"].shape == (3, 4, 6)
+    np.testing.assert_array_equal(state["decoder.layers.0.mlp.router"].numpy(), want["router"])
+    assert state["decoder.layers.0.mlp.shared_gate.weight"].shape == (1, 4)
 
 
 def _jpeg(h: int, w: int, seed: int) -> bytes:

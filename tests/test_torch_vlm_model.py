@@ -52,14 +52,25 @@ def test_tiny_config_matches_jax():
 
 
 def test_from_hf_dense_and_moe_refused():
+    """(Named for the refusal MoE configs once met.) ``from_hf`` of a dense
+    config, and of a Qwen1.5-MoE-A2.7B-shaped one, gives the JAX
+    ``DecoderConfig``: dense fields, and every MoE field."""
     hf = {"text_config": {"hidden_size": 64, "num_hidden_layers": 3, "num_attention_heads": 4,
                           "num_key_value_heads": 2, "vocab_size": 500},
           "vision_config": {"image_size": 64, "patch_size": 16}, "image_token_index": 7}
     t, j = tm.VLMConfig.from_hf(hf), jm.VLMConfig.from_hf(hf)
     assert (t.decoder.hidden_size, t.decoder.layers, t.decoder.kv_heads, t.image_token_id) == (
         j.decoder.hidden_size, j.decoder.layers, j.decoder.kv_heads, j.image_token_id)
-    with pytest.raises(NotImplementedError):
-        tm.VLMConfig.from_hf({"text_config": {"num_experts": 4}})
+    assert t.decoder.moe_experts == j.decoder.moe_experts == 0
+    moe = {"hidden_size": 2048, "num_hidden_layers": 24, "num_attention_heads": 16, "num_key_value_heads": 16,
+           "intermediate_size": 5632, "vocab_size": 151936, "rope_theta": 1_000_000.0, "tie_word_embeddings": False,
+           "num_experts": 60, "num_experts_per_tok": 4, "moe_intermediate_size": 1408,
+           "shared_expert_intermediate_size": 5632, "decoder_sparse_step": 1, "norm_topk_prob": False,
+           "mlp_only_layers": []}
+    t, j = tm.VLMConfig.from_hf(moe).decoder, jm.VLMConfig.from_hf(moe).decoder
+    keys = [f.name for f in dataclasses.fields(t) if f.name.startswith("moe_")]
+    assert len(keys) == 7 and {k: getattr(t, k) for k in keys} == {k: getattr(j, k) for k in keys}
+    assert t.dim_per_head == 128 and all(t.is_moe_layer(i) for i in range(24))
 
 
 def test_rope_rotate():
