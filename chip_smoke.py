@@ -279,7 +279,31 @@ Phases (any failure exits non-zero):
    ``lax.ragged_dot`` is no Pallas kernel) and the byte bound of the
    experts chosen.
 
-A run with no arguments drives all fifteen phases (``--phases 13``, a
+16. CLIP training on the port's SPMD layer (``lumen_tpu_torch.training``,
+   ``lumen_tpu_torch.parallel``) in an NCCL process group of world size 1,
+   axes ``{"data": 1, "model": 1}``: (a) ``ClipTrainer(CLIPConfig())``
+   (ViT-B/32 and the 512-wide text tower, ~151M parameters, seeded) in
+   fp32 with TF32 off, 30 steps on one seeded batch of 256 image-text
+   pairs (``warmup_steps=2``): every loss finite, the last below the
+   first, 0 flash launches (the towers train on the plain attention, as
+   the JAX trainer runs XLA attention below 256 tokens); steps/s and
+   pairs/s after warm-up, peak memory, syncs a step; (b) two steps at
+   batch 16 from the same weights on the card and in the port on the CPU
+   (``TRAIN_LOSS_RTOL``; parameters within two Adam steps), and one step
+   with ``remat=True`` against the plain one's loss, with its peak; (c)
+   ``TrainCheckpointer`` (``torch.distributed.checkpoint``): an async save
+   at step 10 that returns while it writes, the restored state byte-equal
+   to the saved one, a resumed run's steps 11-15 within
+   ``TRAIN_RESUME_RTOL`` of the uninterrupted run's, retention; (d) ring
+   and Ulysses attention at the VLM vision shape [1, 12, 256, 64], causal
+   and not, against ``attention_reference`` (Ulysses launches the flash
+   kernel, twice), ``pipeline_apply`` over one stage against the plain
+   stage, and expert-parallel ``moe_ffn`` against the exact path, every
+   collective on CUDA tensors (``SPMD_TOL``). No TPU kernel lies on the
+   training path (the JAX trainer never reaches Pallas), so the kernel
+   table gains no row.
+
+A run with no arguments drives all sixteen phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -6186,6 +6210,285 @@ def drive_moe(seed: int, card: str, root: Path, cfg=None, dir_cfg=None, device: 
     return out
 
 
+#: phase 16's tolerances. Losses of one step from the same state, the card
+#: (fp32, TF32 off) against the port on the CPU, or remat against plain:
+#: float32 sums in another order, 1e-5 relative. A resumed run's losses
+#: against the uninterrupted one's over five steps: 1e-4 relative (the
+#: embedding backward's atomics reorder sums, Adam carries the difference).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_RESUME_RTOL = 1e-4
+#: the SPMD functions at world size 1 against their plain versions (fp32)
+SPMD_TOL = 2e-5
+#: phase 16 (d)'s attention shape: the VLM vision tower's [B, H, S, D]
+SPMD_SHAPE = (1, 12, 256, 64)
+
+
+def _train_batch(cfg, n: int, gen, device):
+    """``n`` seeded image-text pairs: pixels in [0, 1), ids right-padded
+    with 0 after an EOT (the vocabulary's last id, the argmax convention)
+    at a seeded length."""
+    import torch
+
+    pixels = torch.rand(n, cfg.image_size, cfg.image_size, 3, generator=gen, device=device)
+    s = cfg.context_length
+    ids = torch.randint(1, cfg.vocab_size - 1, (n, s), generator=gen, device=device)
+    lengths = torch.randint(4, s, (n,), generator=gen, device=device)
+    pos = torch.arange(s, device=device)[None, :]
+    ids = torch.where(pos < lengths[:, None], ids, torch.zeros_like(ids))
+    ids = torch.where(pos == lengths[:, None], torch.full_like(ids, cfg.vocab_size - 1), ids)
+    return {"pixel_values": pixels, "input_ids": ids}
+
+
+def _state_equal(a, b) -> bool:
+    """Byte equality of two (params, opt_state)-shaped trees of tensors or
+    DTensors (read back to the host)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_state_equal(a[k], b[k]) for k in a)
+    a, b = (t.to_local() if isinstance(t, DTensor) else t for t in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a.cpu().view(-1).view(torch.uint8)
+                                                               == b.cpu().view(-1).view(torch.uint8)).all())
+
+
+def _cpu_copy(tree):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    return (tree.full_tensor() if isinstance(tree, DTensor) else tree).detach().cpu().clone()
+
+
+def drive_train(seed: int, card: str, root: Path, cfg=None, device: str = "cuda:0", steps: int = 30,
+                batch_size: int = 256, parity_batch: int = 16, spmd_shape=SPMD_SHAPE) -> dict:
+    """Phase 16: CLIP training on the port's SPMD layer, in a process group
+    of world size 1 (NCCL on the card, gloo on the CPU) with axes
+    ``{"data": 1, "model": 1}``. (a) ``ClipTrainer(CLIPConfig())`` in fp32
+    with TF32 off: ``steps`` steps on one seeded batch of ``batch_size``
+    pairs (``warmup_steps=2``): every loss finite, the last below the
+    first, no flash launch (the towers train on the plain attention); the
+    rate after warm-up, peak memory, syncs a step. (b) two steps at
+    ``parity_batch`` from the same weights on the card and in the port on
+    the CPU; one step with ``remat=True`` against (a)'s first. (c) an async
+    save at step 10 that returns while it writes, the restored state
+    byte-equal to the saved one, a resumed run's steps 11-15 against the
+    uninterrupted run's, retention (``max_to_keep=1``). (d) ring and
+    Ulysses attention at ``spmd_shape``, causal and not, against
+    ``attention_reference``; ``pipeline_apply`` over one stage against
+    the plain stage; expert-parallel ``moe_ffn`` against the exact path.
+    ``cfg``/``device``/the sizes let the CPU tests rehearse it small."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from lumen_tpu_torch.models.clip.modeling import CLIPConfig
+    from lumen_tpu_torch.ops.attention import FLASH, attention_reference
+    from lumen_tpu_torch.parallel import (
+        MoEParams, init_moe_params, moe_ffn, moe_sharding, pipeline_apply, ring_attention, stage_sharding,
+        ulysses_attention,
+    )
+    from lumen_tpu_torch.parallel.moe import _moe_exact_local, grouped_mm_reference
+    from lumen_tpu_torch.runtime.mesh import build_process_mesh
+    from lumen_tpu_torch.training import ClipTrainer, TrainCheckpointer, TrainConfig
+    from lumen_tpu_torch.training.clip_trainer import learning_rate
+
+    t_phase = time.perf_counter()
+    cfg = cfg or CLIPConfig()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(dev)  # the rank's card, before the group and its mesh
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                                device_id=dev)
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_process_mesh({"data": 1, "model": 1}, device_type=dev.type)
+        tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2)
+        trainer = ClipTrainer(cfg, tcfg, mesh)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params0, opt0 = trainer.init_state(gen)
+        n_params = sum(t.numel() for t in params0.values())
+        batch = _train_batch(cfg, batch_size, gen, dev)
+        step = trainer.make_train_step()
+
+        def peak_of(fn):
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            res = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            return res, torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+
+        # (b) remat: one step from the initial state, its loss and peak
+        remat = ClipTrainer(cfg, TrainConfig(learning_rate=1e-4, warmup_steps=2, remat=True), mesh)
+        (_, _, m_remat), peak_remat = peak_of(lambda: remat.make_train_step()(params0, opt0, batch))
+        loss_remat = float(m_remat["loss"])
+        del remat
+
+        # (a) + (c): the run, an async save at step 10
+        ckpt = TrainCheckpointer(str(root / "train-ckpt"), max_to_keep=1, async_save=True)
+        FLASH.launches = 0
+        losses, norms = [], []
+        params, opt = params0, opt0
+        saved10 = save_return_s = write_s = None
+        in_flight = False
+        peak_plain = 0.0
+        t_rate = None
+        for i in range(1, steps + 1):
+            if i == 16:
+                ckpt.wait()
+                if on_card:
+                    torch.cuda.synchronize()
+                t_rate = time.perf_counter()
+            if i == 1:
+                (params, opt, m), peak_plain = peak_of(lambda: step(params0, opt0, batch))
+            else:
+                params, opt, m = step(params, opt, batch)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+            if i == 10:
+                saved10 = (params, opt)
+                t0 = time.perf_counter()
+                ckpt.save(10, params, opt)
+                save_return_s = time.perf_counter() - t0
+                in_flight = ckpt.in_flight
+                if on_card and not in_flight:
+                    raise AssertionError("phase 16 (c): the async save at step 10 had finished when it returned")
+                t0 = time.perf_counter()
+            if i == 15 and saved10 is not None:
+                ckpt.wait()
+                write_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+        rate_steps = steps - 15
+        steps_s = rate_steps / (time.perf_counter() - t_rate)
+        flash_launches = FLASH.launches
+        losses = [float(x) for x in losses]
+        norms = [float(x) for x in norms]
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"phase 16 (a): a loss or norm is not finite: {losses} {norms}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 16 (a): the loss did not fall: {losses[0]:.6f} -> {losses[-1]:.6f}")
+        if flash_launches:
+            raise AssertionError(f"phase 16 (a): {flash_launches} flash launches in training steps (must be 0)")
+        if abs(loss_remat - losses[0]) > TRAIN_LOSS_RTOL * abs(losses[0]):
+            raise AssertionError(f"phase 16 (b): remat loss {loss_remat} vs plain {losses[0]}")
+        syncs = count_syncs(lambda: step(params, opt, batch)) if on_card else 0
+
+        # (c) restore step 10: byte-equal, then resume 11-15
+        _, p10, o10 = ckpt.restore(10, params_like=params0, opt_state_like=opt0)
+        if not (_state_equal(p10, saved10[0]) and _state_equal(o10, saved10[1])):
+            raise AssertionError("phase 16 (c): the restored step-10 state differs from the saved one")
+        resumed = []
+        for _ in range(11, 16):
+            p10, o10, m = step(p10, o10, batch)
+            resumed.append(float(m["loss"]))
+        resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[10:15]))
+        if resume_err > TRAIN_RESUME_RTOL:
+            raise AssertionError(f"phase 16 (c): resumed losses {resumed} vs {losses[10:15]}")
+        del p10, o10, saved10
+        ckpt.save(steps, params, opt, wait=True)
+        kept = ckpt.all_steps()
+        if kept != [steps]:
+            raise AssertionError(f"phase 16 (c): retention (max_to_keep=1) left {kept}")
+        ckpt.close()
+        out.update(losses=losses, norms=norms, steps_s=steps_s, pairs_s=steps_s * batch_size,
+                   peak_gib=peak_plain, peak_remat_gib=peak_remat, loss_remat=loss_remat, syncs=syncs,
+                   flash_launches=flash_launches, params=n_params, save_return_s=save_return_s,
+                   write_s=write_s, in_flight=in_flight, resume_err=resume_err, kept=kept)
+        del params, opt
+
+        # (b) parity: two steps at parity_batch, the card against the CPU
+        small = {k: v[:parity_batch] for k, v in batch.items()}
+        p_dev, o_dev = params0, opt0
+        cpu = ClipTrainer(cfg, tcfg, device="cpu")
+        p_cpu = cpu.place(_cpu_copy(params0))
+        o_cpu = cpu.init_opt_state(p_cpu)
+        cpu_step = cpu.make_train_step()
+        dev_l, cpu_l = [], []
+        for _ in range(2):
+            p_dev, o_dev, m = step(p_dev, o_dev, small)
+            dev_l.append(float(m["loss"]))
+            p_cpu, o_cpu, m = cpu_step(p_cpu, o_cpu, {k: v.cpu() for k, v in small.items()})
+            cpu_l.append(float(m["loss"]))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_l, cpu_l))
+        got = _cpu_copy(p_dev)
+        lr = learning_rate(tcfg, 1)  # the one step of the two that moves
+        diffs = torch.cat([(got[n] - p_cpu[n]).abs().flatten() for n in got])
+        # A first Adam step moves an element by ~lr * sign(g): an element
+        # whose gradient is ~0 on one side may flip sign on the other, so
+        # the bound is two steps; all but a few elements stay within 1%.
+        param_err, share_off = float(diffs.max()), float((diffs > 0.01 * lr).float().mean())
+        if loss_err > TRAIN_LOSS_RTOL or param_err > 2 * lr or share_off > 1e-3:
+            raise AssertionError(f"phase 16 (b): card vs CPU losses {dev_l} / {cpu_l}, params max|diff| "
+                                 f"{param_err:.3e} (bound {2 * lr:.1e}), share over 1% of a step {share_off:.2e}")
+        out.update(parity_losses=(dev_l, cpu_l), parity_loss_err=loss_err, parity_param_err=param_err,
+                   parity_share_off=share_off, lr=lr)
+        del p_dev, o_dev, p_cpu, o_cpu, cpu
+
+        # (d) the SPMD functions at world size 1
+        g2 = torch.Generator(device=dev).manual_seed(seed + 16)
+        seq_mesh = build_process_mesh({"seq": 1}, device_type=dev.type)
+        q, k, v = (torch.randn(*spmd_shape, generator=g2, device=dev) for _ in range(3))
+        dq, dk, dv = (distribute_tensor(t, seq_mesh, [Shard(2)]) for t in (q, k, v))
+        spmd = {}
+        FLASH.launches = 0
+        with torch.inference_mode():
+            for causal in (False, True):
+                ref = attention_reference(q, k, v, causal=causal)
+                for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+                    o = fn(dq, dk, dv, seq_mesh, causal=causal).to_local()
+                    spmd[f"{name}{' causal' if causal else ''}"] = float((o - ref).abs().max())
+        out["ulysses_flash_launches"] = FLASH.launches
+        stage_mesh = build_process_mesh({"stage": 1}, device_type=dev.type)
+        d = 64
+        w = torch.randn(1, d, d, generator=g2, device=dev) * 0.1
+        b = torch.randn(1, d, generator=g2, device=dev) * 0.1
+        x = torch.randn(32, d, generator=g2, device=dev)
+        stacked = {n: distribute_tensor(t, stage_mesh, stage_sharding(stage_mesh)) for n, t in (("w", w), ("b", b))}
+        pipe = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), stacked, x, stage_mesh, n_microbatches=4)
+        spmd["pipeline"] = float((pipe - torch.tanh(x @ w[0] + b[0])).abs().max())
+        ex_mesh = build_process_mesh({"expert": 1}, device_type=dev.type)
+        mp = init_moe_params(torch.Generator(device=dev).manual_seed(seed + 17), d, 128, 8)
+        xt = torch.randn(64, d, generator=g2, device=dev)
+        placed = MoEParams(*(distribute_tensor(t, ex_mesh, pl) for t, pl in zip(mp, moe_sharding(ex_mesh))))
+        ep = moe_ffn(placed, distribute_tensor(xt, ex_mesh, [Shard(0)]), ex_mesh, k=2, capacity_factor=None)
+        exact = _moe_exact_local(mp, xt, n_experts=8, k=2, norm_topk=True, mm=grouped_mm_reference)
+        spmd["moe expert-parallel"] = float((ep.to_local() - exact).abs().max())
+        bad = {n: e for n, e in spmd.items() if not e <= SPMD_TOL}
+        if bad:
+            raise AssertionError(f"phase 16 (d): beyond {SPMD_TOL}: {bad}")
+        if on_card and out["ulysses_flash_launches"] != 2:
+            raise AssertionError(f"phase 16 (d): Ulysses launched flash {out['ulysses_flash_launches']} times, not 2")
+        out["spmd"] = spmd
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        dist.destroy_process_group()
+    a = out
+    log(f"phase 16 (a): ClipTrainer(CLIPConfig()) {a['params'] / 1e6:.2f}M parameters, fp32 (TF32 off), world 1 "
+        f"{{data: 1, model: 1}}: {steps} steps on {batch_size} pairs, loss {a['losses'][0]:.4f} -> "
+        f"{a['losses'][-1]:.4f} (grad norm {a['norms'][0]:.3f} -> {a['norms'][-1]:.3f}); steps 16-{steps}: "
+        f"{a['steps_s']:.3f} steps/s = {a['pairs_s']:.1f} pairs/s; peak {a['peak_gib']:.3f} GiB (step 1); "
+        f"flash launches in the steps {a['flash_launches']}; device-to-host syncs a step {a['syncs']} [{card}]")
+    log(f"phase 16 (b): two steps at batch {parity_batch}, card vs CPU: losses {a['parity_losses'][0]} vs "
+        f"{a['parity_losses'][1]} (max rel {a['parity_loss_err']:.2e}), params max|diff| {a['parity_param_err']:.3e} "
+        f"(a step is ~{a['lr']:.1e}; {a['parity_share_off']:.2e} of elements over 1% of it); remat=True step 1 loss "
+        f"{a['loss_remat']:.6f} vs {a['losses'][0]:.6f}, peak {a['peak_remat_gib']:.3f} GiB vs {a['peak_gib']:.3f} [{card}]")
+    log(f"phase 16 (c): async save at step 10 returned in {a['save_return_s']:.3f} s (still writing: "
+        f"{a['in_flight']}), done {a['write_s']:.3f} s later (after steps 11-15); restored state byte-equal; "
+        f"resumed steps 11-15 within {a['resume_err']:.2e} relative; retention kept {a['kept']} [{card}]")
+    log(f"phase 16 (d): world 1 max|diff| {json.dumps({n: float(f'{e:.3e}') for n, e in a['spmd'].items()})}; "
+        f"Ulysses flash launches {a['ulysses_flash_launches']} [{card}]")
+    a["phase_s"] = time.perf_counter() - t_phase
+    return a
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -6216,7 +6519,7 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12)}
-ALL_PHASES = frozenset(range(1, 16))
+ALL_PHASES = frozenset(range(1, 17))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -6419,6 +6722,14 @@ def main() -> int:
                 f"{moe['layer']['bound_ms']:.5f} ms, {moe['layer']['distinct_experts']} experts), grouped product "
                 f"{moe['layer']['grouped_mm_ms']:.4f} ms")
             lap(15)
+        if 16 in run:
+            torch.cuda.empty_cache()
+            train = drive_train(args.seed, card, Path(tmp))
+            log(f"phase 16 [{card}]: {train['phase_s']:.1f} s in all; {train['pairs_s']:.1f} image-text pairs/s "
+                f"({train['steps_s']:.3f} steps/s at batch 256, fp32), peak {train['peak_gib']:.3f} GiB "
+                f"(remat {train['peak_remat_gib']:.3f}), 0 flash launches in training, card vs CPU loss within "
+                f"{train['parity_loss_err']:.2e}, resume within {train['resume_err']:.2e}")
+            lap(16)
     log(f"seconds a phase: {json.dumps(laps)} [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")

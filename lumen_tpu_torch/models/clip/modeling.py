@@ -27,6 +27,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ...ops.attention import attention
 from ...ops.quant import QDense
 
@@ -147,9 +149,17 @@ def _block_dense(in_features: int, out_features: int, quant: str | None, quant_k
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, heads: int, quant: str | None = None, quant_kernel: str = "dynamic"):
+    """Multi-head self-attention; ``attention`` is the function it calls
+    on ``[B, H, S, D]`` heads, or None for this module's ``attention``
+    (the ``ops.attention`` dispatch: the flash kernel on CUDA tensors),
+    looked up at each call."""
+
+    def __init__(
+        self, width: int, heads: int, quant: str | None = None, quant_kernel: str = "dynamic", attention=None
+    ):
         super().__init__()
         self.width, self.heads = width, heads
+        self.attention = attention
         self.q_proj = _block_dense(width, width, quant, quant_kernel)
         self.k_proj = _block_dense(width, width, quant, quant_kernel)
         self.v_proj = _block_dense(width, width, quant, quant_kernel)
@@ -163,7 +173,7 @@ class Attention(nn.Module):
             return t.reshape(b, s, self.heads, hd).transpose(1, 2).contiguous()
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
-        out = attention(q, k, v, mask=mask, causal=causal)
+        out = (self.attention or attention)(q, k, v, mask=mask, causal=causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, self.width))
 
 
@@ -183,11 +193,11 @@ class Block(nn.Module):
 
     def __init__(
         self, width: int, heads: int, hidden_act: str, eps: float,
-        quant: str | None = None, quant_kernel: str = "dynamic",
+        quant: str | None = None, quant_kernel: str = "dynamic", attention=None,
     ):
         super().__init__()
         self.ln1 = nn.LayerNorm(width, eps=eps)
-        self.attn = Attention(width, heads, quant, quant_kernel)
+        self.attn = Attention(width, heads, quant, quant_kernel, attention)
         self.ln2 = nn.LayerNorm(width, eps=eps)
         self.mlp = Mlp(width, hidden_act, quant, quant_kernel)
 
@@ -201,9 +211,9 @@ class BertBlock(nn.Module):
     LayerNorm AFTER each residual add, bidirectional attention with a
     padding mask."""
 
-    def __init__(self, width: int, heads: int, hidden_act: str, eps: float):
+    def __init__(self, width: int, heads: int, hidden_act: str, eps: float, attention=None):
         super().__init__()
-        self.attn = Attention(width, heads)
+        self.attn = Attention(width, heads, attention=attention)
         self.ln1 = nn.LayerNorm(width, eps=eps)
         self.mlp = Mlp(width, hidden_act)
         self.ln2 = nn.LayerNorm(width, eps=eps)
@@ -233,17 +243,27 @@ class PatchEmbed(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def _run_blocks(blocks: nn.ModuleList, x: torch.Tensor, remat: bool, *args) -> torch.Tensor:
+    """Apply the blocks in turn; with ``remat`` each block is checkpointed
+    (its input saved, its activations recomputed in the backward)."""
+    for blk in blocks:
+        x = checkpoint(blk, x, *args, use_reentrant=False) if remat else blk(x, *args)
+    return x
+
+
 class VisionTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
         super().__init__()
         v = cfg.vision
+        self.remat = remat
         self.patch_embed = PatchEmbed(v.width, cfg.patch_size)
         self.class_embedding = nn.Parameter(torch.zeros(v.width))
         n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
         self.position_embedding = nn.Parameter(torch.zeros(n_pos, v.width))
         self.pre_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
         self.blocks = nn.ModuleList(
-            Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel)
+            Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel,
+                  attention)
             for _ in range(v.layers)
         )
         self.post_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
@@ -254,21 +274,21 @@ class VisionTower(nn.Module):
         x = self.patch_embed(pixel_values)
         cls_tok = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls_tok, x], dim=1) + self.position_embedding.to(x.dtype)
-        x = self.pre_ln(x)
-        for blk in self.blocks:
-            x = blk(x)
+        x = _run_blocks(self.blocks, self.pre_ln(x), self.remat)
         return self.projection(self.post_ln(x[:, 0]))
 
 
 class TextTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
         super().__init__()
         t = cfg.text
         self.cfg = cfg
+        self.remat = remat
         self.token_embedding = nn.Embedding(cfg.vocab_size, t.width)
         self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
         self.blocks = nn.ModuleList(
-            Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel)
+            Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel,
+                  attention)
             for _ in range(t.layers)
         )
         self.final_ln = nn.LayerNorm(t.width, eps=cfg.layer_norm_eps)
@@ -281,9 +301,7 @@ class TextTower(nn.Module):
         s = input_ids.shape[1]
         x = self.token_embedding(input_ids)
         x = x + self.position_embedding[:s].to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x, causal=True)
-        x = self.final_ln(x)
+        x = self.final_ln(_run_blocks(self.blocks, x, self.remat, True))
         eot_id = self.cfg.eot_token_id
         if eot_id is not None:
             eot = torch.argmax((input_ids == eot_id).int(), dim=-1)
@@ -296,10 +314,11 @@ class TextTower(nn.Module):
 class BertTextTower(nn.Module):
     """ChineseCLIP text tower: BERT encoder + CLS pooling + projection."""
 
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
         super().__init__()
         t = cfg.text
         self.cfg = cfg
+        self.remat = remat
         eps = cfg.text_layer_norm_eps or cfg.layer_norm_eps
         act = cfg.text_hidden_act or "gelu"
         self.word_embeddings = nn.Embedding(cfg.vocab_size, t.width)
@@ -308,7 +327,7 @@ class BertTextTower(nn.Module):
         # 2-row for checkpoint parity).
         self.token_type_embedding = nn.Parameter(torch.zeros(2, t.width))
         self.embed_ln = nn.LayerNorm(t.width, eps=eps)
-        self.blocks = nn.ModuleList(BertBlock(t.width, t.heads, act, eps) for _ in range(t.layers))
+        self.blocks = nn.ModuleList(BertBlock(t.width, t.heads, act, eps, attention) for _ in range(t.layers))
         self.projection = nn.Linear(t.width, cfg.embed_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -318,20 +337,26 @@ class BertTextTower(nn.Module):
         x = self.embed_ln(x)
         # Bidirectional with right-padding masked out: [B, 1, 1, S].
         mask = (input_ids != self.cfg.pad_token_id)[:, None, None, :]
-        for blk in self.blocks:
-            x = blk(x, mask)
+        x = _run_blocks(self.blocks, x, self.remat, mask)
         return self.projection(x[:, 0])  # [CLS]
 
 
 class CLIPModel(nn.Module):
     """Dual-tower CLIP; ``logit_scale`` is the exported temperature (its
-    log)."""
+    log).
 
-    def __init__(self, cfg: CLIPConfig):
+    ``attention`` is what every block's attention calls: by default
+    (None) the ``ops.attention`` dispatch (the flash kernel on CUDA
+    tensors, which has no backward); the trainer passes
+    ``attention_reference``. ``remat`` checkpoints each transformer block
+    (training only)."""
+
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.vision = VisionTower(cfg)
-        self.text = BertTextTower(cfg) if cfg.text_arch == "bert" else TextTower(cfg)
+        self.vision = VisionTower(cfg, attention, remat)
+        text = BertTextTower if cfg.text_arch == "bert" else TextTower
+        self.text = text(cfg, attention, remat)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, pixel_values: torch.Tensor, normalize: bool = True) -> torch.Tensor:

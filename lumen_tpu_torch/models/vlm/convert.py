@@ -200,6 +200,38 @@ def state_from_tree(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def tree_paths(module: torch.nn.Module) -> dict[str, str]:
+    """The inverse of :func:`state_from_tree`'s names: each parameter and
+    buffer name of a port module -> its Flax tree path (``blocks.0`` ->
+    ``blocks_0``; a ``weight`` is an ``nn.Embedding``'s ``embedding``, a
+    norm's ``scale`` and any other module's (``nn.Linear``, the patch
+    embedding) ``kernel``; ``QDense`` leaves and bare parameters keep
+    their names)."""
+    owners = dict(module.named_modules())
+    out = {}
+    for name, _ in [*module.named_parameters(), *module.named_buffers()]:
+        parent, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            owner = owners[parent]
+            if isinstance(owner, torch.nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(owner, torch.nn.LayerNorm) or type(owner).__name__.endswith("Norm"):
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+        parts = parent.split(".") if parent else []
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] in ("layers", "blocks") and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{parts[i]}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        out[name] = "/".join(path + [leaf])
+    return out
+
+
 def params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``params`` tree of the JAX ``VLMModel`` (leaves as numpy or
     anything ``np.asarray`` takes) -> ``state_dict`` of the port's

@@ -197,9 +197,20 @@ DECODER_HEAD_DIMS = (64, 128)
 
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     """Online-softmax attention (JAX ``flash_attention``): the CUDA kernel
-    on CUDA tensors, :func:`attention_reference` on CPU tensors."""
+    on CUDA tensors, :func:`attention_reference` on CPU tensors.
+
+    The kernel has no backward (the JAX package has none either: its
+    trainer differentiates the XLA reference). So with grad mode on, a
+    CUDA operand that requires grad raises rather than returning an
+    output the autograd graph would skip; training passes
+    ``attention_reference`` to its model (``training.clip_trainer``)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: an operand requires grad with grad mode on; "
+            "run inference under torch.inference_mode() and train on attention_reference"
+        )
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:

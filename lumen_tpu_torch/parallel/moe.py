@@ -1,10 +1,8 @@
 """A top-k routed mixture-of-experts FFN (twin of
-``lumen_tpu/parallel/moe.py``), on one device.
+``lumen_tpu/parallel/moe.py``): single-device, or with GShard all-to-all
+dispatch over an ``expert`` axis of a process mesh.
 
-The JAX module runs the same math single-device or with GShard
-all-to-all dispatch over an ``expert`` mesh axis. The port runs one
-replica on one card (``runtime/mesh.py``), so it keeps the single-device
-paths:
+On one device (what a serving replica runs, ``runtime/mesh.py``):
 
 - the EXACT path (``capacity_factor=None``, what ``MoEFFN`` serves):
   the ``T * k`` (token, choice) assignments are sorted by expert and the
@@ -18,9 +16,16 @@ paths:
   ``C`` slots an expert, overflow dropped, dispatch and combine as
   einsums against one-hot masks, the bank as a batched einsum.
 
-``moe_ffn`` with a mesh whose ``expert`` axis is above 1 raises, as
-``runtime.mesh.build_mesh`` does: expert parallelism waits for the port's
-``torch.distributed`` layer (ROADMAP queue A, item 2).
+Over a process mesh (``runtime.mesh.build_process_mesh``; the tokens
+and the banks DTensors split over the ``expert`` axis, the router
+replicated), each rank routes its tokens into ``C`` slots an expert and
+ONE all-to-all each way (``torch.distributed.nn.functional.
+all_to_all_single``, differentiable) carries the slots to the rank that
+holds the expert and back: the JAX ``shard_map`` body.
+``capacity_factor=None`` there sets ``C`` to the local token count (no
+drop). A serving ``runtime.mesh.DeviceMesh`` with an ``expert`` axis
+above 1 raises: expert parallelism in a serving replica waits for a
+coordinator/worker design (ROADMAP queue A, item 2).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from ..runtime.mesh import EXPERT_AXIS
+from ..runtime.mesh import EXPERT_AXIS, DeviceMesh
+from .spmd import all_to_all, axis_group, local_of, replicated_input
 
 
 class MoEParams(NamedTuple):
@@ -64,6 +70,16 @@ def init_moe_params(
         w_up=(normal(n_experts, d_model, d_ff) * scale_in).to(dtype),
         w_down=(normal(n_experts, d_ff, d_model) * scale_out).to(dtype),
     )
+
+
+def moe_sharding(mesh, axis_name: str = EXPERT_AXIS) -> MoEParams:
+    """DTensor placements matching :func:`moe_ffn` on a process mesh: the
+    banks split their leading (expert) dim over the axis; the router is
+    replicated (``distribute_tensor(t, mesh, placements)``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    bank = [Shard(0) if name == axis_name else Replicate() for name in mesh.mesh_dim_names]
+    return MoEParams(router=[Replicate()] * mesh.ndim, w_gate=bank, w_up=bank, w_down=bank)
 
 
 def _topk_gates(x: torch.Tensor, router: torch.Tensor, k: int, norm_topk: bool):
@@ -169,17 +185,27 @@ def _moe_local(
     k: int,
     capacity: int,
     n_shards: int = 1,
-    axis_name: str | None = None,
+    group=None,
     norm_topk: bool = True,
 ) -> torch.Tensor:
-    """The capacity path on one device (JAX ``_moe_local`` with
-    ``axis_name=None``): dispatch into ``[E, C, D]``, the bank, combine."""
-    if axis_name is not None or n_shards != 1:
-        raise NotImplementedError("expert-parallel dispatch (all-to-all) is not ported to lumen_tpu_torch")
+    """The capacity path (JAX ``_moe_local``): dispatch into ``[E, C, D]``,
+    the bank, combine. With ``group`` (``n_shards`` ranks, each holding
+    ``E / n`` experts of the bank) the slots go to their expert's rank and
+    back by one all-to-all each way."""
     t = x.shape[0]
     dispatch, combine = _route(x, params.router, n_experts, k, capacity, norm_topk)
     buf = torch.einsum("td,tec->ecd", x.float(), dispatch).to(params.w_gate.dtype)  # [E, C, D]
-    out = _expert_ffn(params, buf)
+    if group is not None:
+        # [E, C, D] -> every rank holds its E/n local experts with the
+        # slots from ALL n shards: [E/n, n*C, D].
+        e_local = n_experts // n_shards
+        buf = all_to_all(buf, group)
+        buf = buf.reshape(n_shards, e_local, capacity, -1).transpose(0, 1).reshape(e_local, n_shards * capacity, -1)
+        out = _expert_ffn(params, buf)
+        out = out.reshape(e_local, n_shards, capacity, -1).transpose(0, 1).reshape(n_experts, capacity, -1)
+        out = all_to_all(out, group)
+    else:
+        out = _expert_ffn(params, buf)
     y = torch.einsum("ecd,tec->td", out.float(), combine)
     return y.to(x.dtype).reshape(t, -1)
 
@@ -199,16 +225,49 @@ def moe_ffn(
 
     ``capacity_factor=None`` is EXACT routing (nothing drops), the grouped
     products over expert-sorted assignments; a factor sets ``C = max(1,
-    int(factor * k * T / E))`` slots an expert. ``mesh`` is a
-    ``runtime.mesh.DeviceMesh`` (or None): an ``axis_name`` axis above 1
-    raises ``NotImplementedError``."""
+    int(factor * k * T / E))`` slots an expert.
+
+    ``mesh``: None, a serving ``runtime.mesh.DeviceMesh`` (an
+    ``axis_name`` axis above 1 raises ``NotImplementedError``), or a
+    process mesh. On a process mesh with ``axis_name`` (any size), ``x``
+    [T, D] and the banks are DTensors split over that axis on dim 0 (``T``
+    and ``E`` must divide by its size, ``C`` counts the local tokens),
+    the router replicated, and the result is a DTensor placed as ``x``."""
     n_experts = params.w_gate.shape[0]
-    if mesh is not None and mesh.shape.get(axis_name, 1) > 1:
-        raise NotImplementedError(
-            f"mesh axis {axis_name!r} = {mesh.shape[axis_name]}: expert parallelism is not ported to "
-            "lumen_tpu_torch yet (ROADMAP queue A, item 2)"
-        )
+    if isinstance(mesh, DeviceMesh):
+        if mesh.shape.get(axis_name, 1) > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis_name!r} = {mesh.shape[axis_name]}: expert parallelism within a serving "
+                "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2); SPMD callers pass "
+                "a process mesh (runtime.mesh.build_process_mesh)"
+            )
+    elif mesh is not None and axis_name in mesh.mesh_dim_names:
+        return _moe_ffn_sharded(params, x, mesh, k=k, capacity_factor=capacity_factor, axis_name=axis_name,
+                                norm_topk=norm_topk)
     if capacity_factor is None:
         return _moe_exact_local(params, x, n_experts=n_experts, k=k, norm_topk=norm_topk)
     capacity = max(1, int(capacity_factor * k * x.shape[0] / n_experts))
     return _moe_local(params, x, n_experts=n_experts, k=k, capacity=capacity, norm_topk=norm_topk)
+
+
+def _moe_ffn_sharded(params: MoEParams, x, mesh, *, k: int, capacity_factor: float | None, axis_name: str,
+                     norm_topk: bool):
+    """Expert-parallel :func:`moe_ffn` (the JAX ``shard_map`` over
+    ``axis_name``): each rank's tokens, its slice of the banks, the full
+    router."""
+    from torch.distributed.tensor import DTensor
+
+    group, n, _ = axis_group(mesh, axis_name)
+    n_experts = params.w_gate.shape[0]
+    if x.shape[0] % n or n_experts % n:
+        raise ValueError(
+            f"tokens ({x.shape[0]}) and experts ({n_experts}) must divide by mesh axis {axis_name!r} size {n}"
+        )
+    t_local = x.shape[0] // n
+    capacity = t_local if capacity_factor is None else max(1, int(capacity_factor * k * t_local / n_experts))
+    router = params.router.full_tensor() if isinstance(params.router, DTensor) else params.router
+    router = replicated_input(router, group)  # each rank routes its own tokens
+    local = MoEParams(router, local_of(params.w_gate), local_of(params.w_up), local_of(params.w_down))
+    y = _moe_local(local, x.to_local(), n_experts=n_experts, k=k, capacity=capacity, n_shards=n, group=group,
+                   norm_topk=norm_topk)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False)

@@ -1,0 +1,160 @@
+"""Sharding rules: map parameter names to partition specs, and place
+parameters on a process mesh as DTensors (twin of
+``lumen_tpu/parallel/sharding.py``).
+
+The JAX rules match Flax tree paths (``vision/blocks_0/attn/q_proj/kernel``)
+and a Flax ``kernel`` is ``[in, out]``. The rules here match the port's
+``state_dict`` names (``vision.blocks.0.attn.q_proj.weight``) in the port's
+layouts: ``nn.Linear.weight`` is ``[out, in]``, so the JAX column-parallel
+``P(None, "model")`` on a kernel is ``P("model", None)`` on the weight
+(``Shard(0)``), and the row-parallel ``P("model", None)`` is ``P(None,
+"model")`` (``Shard(1)``). Biases follow their output dimension, as in
+JAX. ``nn.Embedding.weight`` is ``[vocab, width]`` as the Flax table, so
+the embedding rule keeps its spec. ``QDense``'s ``q`` keeps the JAX
+``[in, out]`` layout, and so does its rule. ``tests/test_torch_sharding``
+holds every rule against the JAX rule on the parameter's JAX path
+(``models.vlm.convert.tree_paths``), transposed where the layout is.
+
+A :class:`PartitionSpec` names, per tensor dimension, the mesh axis (or
+tuple of axes) it is split over, or None; :func:`shard_params` turns it
+into DTensor placements on a ``torch.distributed`` ``DeviceMesh``
+(``runtime.mesh.build_process_mesh``), the counterpart of a
+``NamedSharding``.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import re
+from typing import Iterable, Mapping
+
+import torch
+
+from ..runtime.mesh import axis_sizes
+
+logger = logging.getLogger(__name__)
+
+
+class PartitionSpec(tuple):
+    """``P("model", None)``: one entry per leading tensor dimension (JAX
+    ``PartitionSpec``); trailing dimensions not named are unsharded."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+#: (name regex, PartitionSpec); first match wins, default = replicated
+ShardingRule = tuple[str, PartitionSpec]
+
+# Megatron layout for transformer blocks: attention QKV and MLP-up weights
+# shard their output dim (rows of ``[out, in]``), attention-out and
+# MLP-down their input dim -> one all-reduce per block. Embedding tables
+# (``nn.Embedding.weight``, ``[vocab, width]``) and the bare position /
+# class / token-type embeddings shard their width, as the JAX
+# ``.*embedding$`` rule does.
+TRANSFORMER_TP_RULES: list[ShardingRule] = [
+    (r".*(q_proj|k_proj|v_proj|qkv|fc1|gate_proj|up_proj)\.weight$", P("model", None)),
+    (r".*(q_proj|k_proj|v_proj|qkv|fc1|gate_proj|up_proj)\.bias$", P("model")),
+    (r".*(o_proj|out_proj|fc2|down_proj)\.weight$", P(None, "model")),
+    (r".*(_embedding|_embeddings|embed_tokens)\.weight$", P(None, "model")),
+    (r".*_embedding$", P(None, "model")),
+]
+
+# Tensor-parallel rules for int8 projections (``ops/quant.QDense``: ``q``
+# ``[in, out]`` int8 and ``scale [out]``, the JAX layout): the same
+# Megatron split, the scale (and bias) of a column-parallel projection
+# along its output dim; a row-parallel projection's scale and bias
+# replicate. Prepend to TRANSFORMER_TP_RULES.
+INT8_TP_RULES: list[ShardingRule] = [
+    (r".*(q_proj|k_proj|v_proj|qkv|fc1|gate_proj|up_proj)\.q$", P(None, "model")),
+    (r".*(q_proj|k_proj|v_proj|qkv|fc1|gate_proj|up_proj)\.(scale|bias)$", P("model")),
+    (r".*(o_proj|out_proj|fc2|down_proj)\.q$", P("model", None)),
+]
+
+# Expert parallelism for MoE decoder layers (``models/vlm/modeling.MoEFFN``,
+# banks ``[E, ...]`` in the JAX layout): the banks split their expert dim
+# over ``expert``; the router replicates. Prepend to the TP rules when the
+# mesh carries both axes.
+MOE_EP_RULES: list[ShardingRule] = [
+    (r".*mlp\.(w_gate|w_up|w_down)$", P("expert")),
+    (r".*mlp\.router$", P()),
+]
+
+
+def spec_for(name: str, rules: Iterable[ShardingRule]) -> PartitionSpec:
+    for pattern, spec in rules:
+        if re.search(pattern, name):
+            return spec
+    return P()
+
+
+def sanitize_spec(spec: PartitionSpec, shape: tuple[int, ...], mesh, path: str = "") -> PartitionSpec:
+    """Degrade a spec so it is valid for a concrete tensor (JAX
+    ``sanitize_spec``): axes not in the mesh replicate, specs longer than
+    the tensor's rank replicate, and a sharded dim must divide evenly
+    (else that dim replicates). Tuple entries (one dim over several axes)
+    are supported. Degradations are logged so a typo'd axis or odd dim
+    doesn't silently disable TP."""
+    sizes = axis_sizes(mesh)
+    if len(spec) > len(shape):
+        if len(spec) > 0:
+            logger.debug("spec %s has higher rank than leaf %s%s; replicating", spec, shape, f" at {path}" if path else "")
+        return P()
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if entry is None:
+            out.append(None)
+            continue
+        known = [a for a in axes if a in sizes]
+        size = math.prod(sizes[a] for a in known)
+        if len(known) != len(axes) or dim % size != 0:
+            logger.warning(
+                "degrading sharding %s for dim %d%s (unknown axis or indivisible); replicating that dim",
+                entry, dim, f" at {path!r}" if path else "",
+            )
+            out.append(None)
+        else:
+            out.append(entry)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def placements_for(spec: PartitionSpec, mesh) -> list:
+    """DTensor placements, one a mesh dim, for a sanitized spec: ``Shard(d)``
+    on each mesh axis that tensor dim ``d`` names, ``Replicate()`` on the
+    rest. A dim over several axes splits in mesh-axis order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, e in enumerate(spec) if e == name or (isinstance(e, tuple) and name in e)]
+        placements.append(Shard(dims[0]) if dims else Replicate())
+    return placements
+
+
+def shard_params(params: Mapping[str, torch.Tensor], mesh, rules: Iterable[ShardingRule] | None = None) -> dict:
+    """Place ``{name: tensor}`` (a ``state_dict``'s shape) onto the process
+    mesh by the rules, as DTensors (specs that don't fit a tensor's
+    rank/shape or the mesh degrade to replication). Every rank passes the
+    same full tensors, on the mesh's device type."""
+    from torch.distributed.tensor import distribute_tensor
+
+    rules = list(rules or [])
+    out = {}
+    for name, t in params.items():
+        spec = sanitize_spec(spec_for(name, rules), tuple(t.shape), mesh, path=name)
+        out[name] = distribute_tensor(t.detach(), mesh, placements_for(spec, mesh))
+    return out
+
+
+def replicate(params: Mapping[str, torch.Tensor], mesh) -> dict:
+    """Every tensor replicated on every rank of the mesh."""
+    return shard_params(params, mesh, [])

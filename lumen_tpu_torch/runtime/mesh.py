@@ -8,15 +8,22 @@ have had over it, so the fleet and the capability surface read the same
 ``shape`` mapping.
 
 Axis names are the JAX package's. :func:`resolve_axes` is its pure-Python
-resolver, unchanged. What the port does not run raises or says so:
+resolver, unchanged. What a serving replica does not run raises or says so:
 
 - a ``model``, ``seq``, ``stage`` or ``expert`` axis above 1 (tensor,
-  sequence, pipeline or expert parallelism) raises ``NotImplementedError``;
-  those wait for the port's parallel layer (ROADMAP queue A, item 2);
+  sequence, pipeline or expert parallelism within a replica) raises
+  ``NotImplementedError``; serving over those axes waits for a
+  coordinator/worker design (ROADMAP queue A, item 2);
 - a ``data`` axis above 1 (one micro-batch spread over several devices)
   degrades to 1 with a one-shot warning: the replica serves on its first
   device. Several cards serve as several replicas, one a card
   (``LUMEN_REPLICAS=max``, :mod:`lumen_tpu_torch.runtime.fleet`).
+
+SPMD programs -- the trainer and the functions of
+:mod:`lumen_tpu_torch.parallel` -- run one process a device in a
+``torch.distributed`` process group: :func:`build_process_mesh` lays the
+group's ranks out as a ``torch.distributed.device_mesh.DeviceMesh`` with
+the JAX axis names, every axis the request names (size 1 included).
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ import torch
 logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
 
 
@@ -147,8 +157,9 @@ def build_mesh(
     parallel = {a: s for a, s in resolved.items() if a != DATA_AXIS and s > 1}
     if parallel:
         raise NotImplementedError(
-            f"mesh axes {parallel}: tensor/sequence/pipeline/expert parallelism is not "
-            "ported to lumen_tpu_torch yet (ROADMAP queue A, item 2)"
+            f"mesh axes {parallel}: tensor/sequence/pipeline/expert parallelism within a serving "
+            "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2: serving over "
+            "model/expert axes); SPMD programs lay a process group out with build_process_mesh"
         )
     used = math.prod(resolved.values())
     devices = devices[:used]
@@ -165,3 +176,41 @@ def build_mesh(
         devices = devices[:1]
     logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
     return DeviceMesh(devices, resolved)
+
+
+def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda"):
+    """The process group's ranks as a ``torch.distributed`` ``DeviceMesh``
+    named by the JAX axes, for SPMD callers (the trainer, ring and
+    all-to-all attention, the pipeline, expert-parallel MoE): the
+    counterpart of the JAX ``build_mesh`` over ``jax.devices()``.
+
+    ``axes`` is a JAX mesh request (default ``{"data": -1}``) resolved by
+    :func:`resolve_axes` against the world size, in the request's order:
+    rank ``r`` sits where JAX device ``r`` sits in the JAX mesh of the same
+    request. The mesh must cover every rank. ``device_type`` is ``cuda``
+    (one card a rank: each rank sets its device first, see
+    ``parallel.distributed.initialize``) unless the caller asks for
+    ``cpu`` (``gloo``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("build_process_mesh needs a process group (parallel.distributed.initialize)")
+    world = dist.get_world_size()
+    resolved = resolve_axes(axes or {DATA_AXIS: -1}, world)
+    if math.prod(resolved.values()) != world:
+        raise ValueError(f"mesh {resolved} must cover all {world} ranks of the process group")
+    names = tuple(resolved)
+    mesh = init_device_mesh(device_type, tuple(resolved[n] for n in names), mesh_dim_names=names)
+    logger.info("process mesh: %s over %d rank(s) (%s)", resolved, world, device_type)
+    return mesh
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a process mesh (JAX ``Mesh.shape``), or of a
+    serving :class:`DeviceMesh`; ``{}`` for None."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, DeviceMesh):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))

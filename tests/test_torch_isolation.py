@@ -199,16 +199,32 @@ def test_int8_and_speculation_modules_are_checked():
         assert replaces.split(":")[0] in (ROOT / source).read_text(), name
 
 
-def test_parallel_package_is_checked():
-    """The MoE slice's ``parallel`` package and stand-in writer are among
-    the modules the import check loads, and the package exports the JAX
-    ``parallel.moe`` names it ports."""
-    mods = _port_modules()
-    for mod in ("lumen_tpu_torch.parallel", "lumen_tpu_torch.parallel.moe", "lumen_tpu_torch.testing.vlm_standins"):
-        assert mod in mods
-    from lumen_tpu_torch import parallel
+def _jax_all(package: str) -> set:
+    """``__all__`` of a JAX-package ``__init__``, read from its source (this
+    file imports nothing of the JAX package)."""
+    tree = ast.parse((ROOT / "lumen_tpu" / package / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", "") == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"lumen_tpu/{package}/__init__.py has no __all__")
 
-    assert set(parallel.__all__) == {"MoEParams", "init_moe_params", "moe_ffn"}
+
+def test_parallel_package_is_checked():
+    """The ``parallel`` and ``training`` packages (the SPMD slice), the
+    MoE module and the stand-in writer are among the modules the import
+    check loads, and each package exports every name of its JAX twin."""
+    mods = _port_modules()
+    for mod in ("lumen_tpu_torch.parallel", "lumen_tpu_torch.parallel.moe", "lumen_tpu_torch.testing.vlm_standins",
+                "lumen_tpu_torch.parallel.distributed", "lumen_tpu_torch.parallel.sharding",
+                "lumen_tpu_torch.parallel.ring_attention", "lumen_tpu_torch.parallel.ulysses",
+                "lumen_tpu_torch.parallel.pipeline", "lumen_tpu_torch.parallel.spmd",
+                "lumen_tpu_torch.training", "lumen_tpu_torch.training.clip_trainer",
+                "lumen_tpu_torch.training.checkpoint"):
+        assert mod in mods
+    from lumen_tpu_torch import parallel, training
+
+    assert set(parallel.__all__) >= _jax_all("parallel")
+    assert set(training.__all__) == _jax_all("training")
 
 
 def test_chip_smoke_int8_speculative_drive_rehearses_on_cpu():
