@@ -10,10 +10,11 @@ Phases (any failure exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of all five CUDA kernels (one ``nvcc`` per source, all
    started together), with each kernel function's registers, shared
-   memory and spills from ptxas (the bf16 flash tile must not spill) and
+   memory and spills from ptxas (no bf16 flash kernel may spill) and
    its count of tensor-core instructions (HMMA) from ``cuobjdump -sass``
-   (the five bf16 flash kernels -- head_dim 64, 16 and 128, and the cache
-   kernel at 64 and 128 -- must have some).
+   (the eight bf16 flash kernels -- flash_attention's short and long
+   paths at head_dim 64, 16 and 128, and the cache kernel at 64 and 128
+   -- must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
@@ -31,7 +32,11 @@ Phases (any failure exits non-zero):
    5632 x 2048 and the lm_head's 2048 x 151936), with times for the
    kernel, the plain version, the
    card's bound and one PyTorch library call computing the same function
-   (a yardstick only; the port never calls it). Times are device time per
+   (a yardstick only; the port never calls it). Each flash_attention shape
+   of the kernel table prints the launch plan the library picked (read
+   with ``lumen_flash_plan`` and held equal to ``ops.attention.flash_plan``)
+   and its blocks resident an SM; a CLIP row's bits do not depend on the
+   batch (1 of 64, bitwise). Times are device time per
    call from ``torch.profiler``, checked against lost events
    (``device_ms``); one w8a16 call is also timed with the host's launch
    path (CUDA events). The paged kernels are also checked at the edges of
@@ -511,17 +516,80 @@ def max_err(out, ref) -> float:
 # -- phase 2: kernels vs plain ------------------------------------------------
 
 
-def flash_tile_shape(head_dim: int = 64) -> dict:
-    """Block shape of the bf16 flash tile, from the constants of
-    ``csrc/flash_tile_bf16.cuh``: query rows (16 per row group), threads
-    (a warp per row group and key part) and dynamic shared memory (the
-    K/V ring and the Q/O rows, rows of head_dim + 8 bf16)."""
+def cache_tile_shape(head_dim: int = 64) -> dict:
+    """Block shape of flash_attention_cache's bf16 tile, from the constants
+    of ``csrc/flash_tile_bf16.cuh``: query rows (16 per row group),
+    threads (a warp per row group and key part) and dynamic shared memory
+    (the K/V ring and the Q/O rows, rows of head_dim + 8 bf16)."""
     text = (ROOT / "lumen_tpu_torch" / "csrc" / "flash_tile_bf16.cuh").read_text()
     c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
          for n in ("kFlashWarps", "kFlashSplit", "kFlashStages")}
     rows = 16 * c["kFlashWarps"]
     return dict(rows=rows, threads=32 * c["kFlashWarps"] * c["kFlashSplit"],
                 smem=(2 * c["kFlashStages"] * 64 + rows) * (head_dim + 8) * 2)
+
+
+def flash_plan_on_card(sq: int, sk: int, head_dim: int, causal: bool) -> dict:
+    """The plan the flash library launches for a bf16 call of this shape
+    (``lumen_flash_plan``), which must equal its Python twin
+    ``ops.attention.flash_plan``; ``resident`` is the occupancy
+    calculator's blocks an SM on this card."""
+    from lumen_tpu_torch.ops import attention as A
+
+    got = {f: A.FLASH.query("lumen_flash_plan", sq, sk, head_dim, int(causal), i)
+           for i, f in enumerate(A.FLASH_PLAN_FIELDS)}
+    got["path"] = ("short", "long")[got["path"]]
+    want = A.flash_plan(sq, sk, head_dim, causal)
+    if {f: got[f] for f in want} != want or got["resident"] < 1:
+        raise AssertionError(f"flash plan of [{sq}, {sk}, {head_dim}, causal={causal}]: library {got}, "
+                             f"ops.attention.flash_plan {want}")
+    return got
+
+
+def plan_text(plan: dict) -> str:
+    return (f"{plan['path']} path, {plan['rows']} query rows x {plan['split']} key part(s) a block, "
+            f"{plan['keys']}-key softmax steps, {plan['stages']} ring slots, {plan['threads']} threads, "
+            f"{plan['smem']} B dynamic smem, "
+            f"{plan['row_blocks']} row block(s) a (b, h)" + (", heaviest first" if plan["heaviest_first"] else "")
+            + f"; {plan['resident']} blocks resident an SM")
+
+
+def flash_row(rnd, label: str, b: int, h: int, s: int, d: int, causal: bool, plain_iters: int = 20) -> dict:
+    """One flash_attention shape of the kernel table, [b, h, s, d] bf16:
+    the kernel against the plain version (tolerance), then in one run the
+    kernel's device time, the plain version's, SDPA's on the same tensors
+    and the bound -- the largest of q, k, v, o once at 3.35 TB/s, the
+    FLOPs at 989 TFLOP/s and the exp2 of every visible (query, key) pair
+    on the SFU at ``EXP_PER_S`` -- with the plan the
+    library launches and its blocks resident an SM."""
+    import torch.nn.functional as F
+
+    from lumen_tpu_torch.ops import attention as A
+
+    q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    err = max_err(A.flash_attention(q, k, v, causal=causal),
+                  A.attention_reference(q.float(), k.float(), v.float(), causal=causal))
+    plan = flash_plan_on_card(s, s, d, causal)
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    terms = dict(bytes_ms=4 * q.numel() * 2 / HBM_BYTES_PER_S * 1e3,
+                 flops_ms=4 * pairs * d / PEAK_FLOPS["bfloat16"] * 1e3,
+                 exp_ms=pairs / EXP_PER_S * 1e3)
+    bms, by = bound(4 * q.numel() * 2, 4 * pairs * d, "bfloat16")
+    if terms["exp_ms"] > bms:
+        bms, by = terms["exp_ms"], "operations"
+    row = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: A.flash_attention(q, k, v, causal=causal), 50, floor_ms=bms, launches=1),
+        plain_ms=device_ms(lambda: A.attention_reference(q, k, v, causal=causal), plain_iters, floor_ms=bms),
+        bound_ms=bms, bound_by=by, bound_terms=terms,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 50, floor_ms=bms),
+        shape=f"[{b},{h},{s},{d}]" + (" causal" if causal else ""), plan=plan,
+    )
+    log(f"kernel flash_attention {label} {row['shape']}: plan {plan_text(plan)}; kernel {row['ms']:.4f} ms on the "
+        f"device, SDPA {row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}x), bound {bms:.5f} ms ({by}: "
+        f"terms {json.dumps({t: round(x, 5) for t, x in terms.items()})}), plain {row['plain_ms']:.4f} ms, max|diff| "
+        f"{err:.3e}")
+    return row
 
 
 def check_kernels(seed: int) -> dict:
@@ -534,7 +602,7 @@ def check_kernels(seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     bf16 = torch.bfloat16
-    tile = flash_tile_shape()
+    tile = cache_tile_shape()
 
     def rnd(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -544,73 +612,42 @@ def check_kernels(seed: int) -> dict:
 
     rows = {}
 
-    # flash_attention: the vision tower's [1, 12, 256, 64] bidirectional
-    # call, a non-causal length off the 64-key tile, causal cases with
-    # lengths off the tiles, and the fp32 instance (FMA tile) on one.
+    # flash_attention: a non-causal length off the 64-key tile, causal
+    # cases with lengths off the tiles (sk > sq: the long path with a
+    # diagonal offset), and the fp32 instance (FMA tile) on one; then the
+    # kernel table's shapes: the vision tower's [1, 12, 256, 64]
+    # bidirectional call (the long path), and the CLIP towers' calls
+    # (phase 8) at the bulk batch, the ViT-B/32 vision tower's 50 tokens,
+    # bidirectional, and the text tower's 77, causal (the short path).
     errs = []
     for b, h, sq, sk, causal, dt in (
-        (1, 12, 256, 256, False, bf16), (1, 12, 100, 100, False, bf16), (2, 14, 77, 77, True, bf16),
-        (1, 14, 50, 130, True, bf16), (1, 14, 50, 130, True, torch.float32),
+        (1, 12, 100, 100, False, bf16), (2, 14, 77, 77, True, bf16), (1, 14, 50, 130, True, bf16),
+        (1, 14, 50, 130, True, torch.float32), (3, 2, 200, 64, False, bf16), (2, 2, 129, 129, True, bf16),
     ):
         q, k, v = rnd(b, h, sq, 64, dtype=dt), rnd(b, h, sk, 64, dtype=dt), rnd(b, h, sk, 64, dtype=dt)
         out = A.flash_attention(q, k, v, causal=causal)
         ref = A.attention_reference(*f32(q, k, v), causal=causal)
         errs.append(max_err(out, ref))
-    q, k, v = rnd(1, 12, 256, 64), rnd(1, 12, 256, 64), rnd(1, 12, 256, 64)
-    nb = 4 * q.numel() * 2
-    fl = 4 * 12 * 256 * 256 * 64
-    bms, by = bound(nb, fl, "bfloat16")
-    rows["flash_attention"] = dict(
-        max_abs_err=max(errs),
-        ms=device_ms(lambda: A.flash_attention(q, k, v), 50, floor_ms=bms, launches=1),
-        plain_ms=device_ms(lambda: A.attention_reference(q, k, v), 20, floor_ms=bms),
-        bound_ms=bms, bound_by=by,
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
-        blocks=-(-256 // tile["rows"]) * 12,
-    )
-    # The CLIP towers' calls (phase 8) at the bulk batch: the ViT-B/32
-    # vision tower's 50 tokens, bidirectional, and the text tower's 77,
-    # causal. Bound: q, k, v and o once; SDPA on the same call.
+    row = flash_row(rnd, "VLM vision", 1, 12, 256, 64, False)
+    rows["flash_attention"] = dict(row, max_abs_err=max(errs + [row["max_abs_err"]]))
     for label, (b, h, s, causal) in CLIP_FLASH_SHAPES.items():
-        q, k, v = rnd(b, h, s, 64), rnd(b, h, s, 64), rnd(b, h, s, 64)
-        err = max_err(A.flash_attention(q, k, v, causal=causal), A.attention_reference(*f32(q, k, v), causal=causal))
-        pairs = s * (s + 1) // 2 if causal else s * s
-        bms, by = bound(4 * q.numel() * 2, 4 * b * h * pairs * 64, "bfloat16")
-        rows[f"flash_attention ({label})"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda q=q, k=k, v=v, c=causal: A.flash_attention(q, k, v, causal=c), 50, floor_ms=bms,
-                         launches=1),
-            plain_ms=device_ms(lambda q=q, k=k, v=v, c=causal: A.attention_reference(q, k, v, causal=c), 20,
-                               floor_ms=bms),
-            bound_ms=bms, bound_by=by,
-            library_ms=device_ms(lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(q, k, v, is_causal=c),
-                                 50, floor_ms=bms),
-            blocks=-(-s // tile["rows"]) * b * h, shape=[b, h, s, 64],
-        )
+        rows[f"flash_attention ({label})"] = flash_row(rnd, label, b, h, s, 64, causal)
+    # A row's bits do not depend on how many sequences share the call (the
+    # plan is a function of the shape alone): image 0 alone vs in the 64.
+    q, k, v = (rnd(64, 12, 50, 64) for _ in range(3))
+    if not torch.equal(A.flash_attention(q[:1], k[:1], v[:1]), A.flash_attention(q, k, v)[:1]):
+        raise AssertionError("flash_attention: a sequence's output changed with the batch it was launched in")
 
     # The native OCR recognizer's calls at head_dim 16 (phase 10 (b)): the
-    # 320 and 640 width buckets' chunks in bf16, the 80 bucket's 240 tokens
-    # in fp32 (the FMA tile: a float32 recognizer), and causal cases (SVTR
-    # is bidirectional; the kernel takes both). Bound: the largest of q, k,
-    # v and o once at 3.35 TB/s, the FLOPs at 989 TFLOP/s, and one exp2 a
-    # (query, key) pair at EXP_PER_S, which sets it at head_dim 16.
+    # 320 and 640 width buckets' chunks in bf16 (the table's rows), the 80
+    # bucket's 240 tokens in fp32 (the FMA tile: a float32 recognizer),
+    # and causal cases (SVTR is bidirectional; the kernel takes both).
     errs = []
     for b, h, s, causal, dt in ((2, 4, 240, False, torch.float32), (2, 4, 240, True, bf16),
                                 (1, 4, 100, True, torch.float32), (3, 4, 77, False, bf16)):
         q, k, v = rnd(b, h, s, 16, dtype=dt), rnd(b, h, s, 16, dtype=dt), rnd(b, h, s, 16, dtype=dt)
         errs.append(max_err(A.flash_attention(q, k, v, causal=causal),
                             A.attention_reference(*f32(q, k, v), causal=causal)))
-        pairs = s * (s + 1) // 2 if causal else s * s
-        dtn = str(dt).removeprefix("torch.")
-        bms, by = bound(4 * q.numel() * q.element_size(), 4 * b * h * pairs * 16, dtn)
-        if b * h * pairs / EXP_PER_S * 1e3 > bms:
-            bms, by = b * h * pairs / EXP_PER_S * 1e3, "operations"
-        kms = device_ms(lambda q=q, k=k, v=v, c=causal: A.flash_attention(q, k, v, causal=c), 50, floor_ms=bms,
-                        launches=1)
-        lms = device_ms(lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(q, k, v, is_causal=c), 50,
-                        floor_ms=bms)
-        log(f"kernel flash_attention [{b},{h},{s},16] {dtn}{' causal' if causal else ''}: max|diff| {errs[-1]:.3e}, "
-            f"kernel {kms:.4f} ms on the device, bound {bms:.5f} ms ({by}), library (SDPA) {lms:.4f} ms")
     for d in (32, 80):
         try:
             A.flash_attention(*(rnd(1, 2, 8, d) for _ in range(3)))
@@ -618,25 +655,10 @@ def check_kernels(seed: int) -> dict:
             continue
         raise AssertionError(f"flash_attention took head_dim {d} on the card; its kernel is built for 16, 64 and 128")
     for label, (b, h, s) in OCR_FLASH_SHAPES.items():
-        q, k, v = rnd(b, h, s, 16), rnd(b, h, s, 16), rnd(b, h, s, 16)
-        err = max(max(errs), max_err(A.flash_attention(q, k, v), A.attention_reference(*f32(q, k, v))))
-        bms, by = bound(4 * q.numel() * 2, 4 * b * h * s * s * 16, "bfloat16")
-        exp_ms = b * h * s * s / EXP_PER_S * 1e3
-        if exp_ms > bms:
-            bms, by = exp_ms, "operations"
-        rows[f"flash_attention ({label})"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda q=q, k=k, v=v: A.flash_attention(q, k, v), 50, floor_ms=bms, launches=1),
-            plain_ms=device_ms(lambda q=q, k=k, v=v: A.attention_reference(q, k, v), 10, floor_ms=bms),
-            bound_ms=bms, bound_by=by, bound_terms=dict(
-                bytes_ms=4 * q.numel() * 2 / HBM_BYTES_PER_S * 1e3,
-                flops_ms=4 * b * h * s * s * 16 / PEAK_FLOPS["bfloat16"] * 1e3, exp_ms=exp_ms),
-            library_ms=device_ms(lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v), 50, floor_ms=bms),
-            blocks=-(-s // tile["rows"]) * b * h, shape=[b, h, s, 16], smem=flash_tile_shape(16)["smem"],
-        )
-        log(f"kernel flash_attention {label} [{b},{h},{s},16]: bound terms (ms) "
-            f"{json.dumps({k: round(v, 5) for k, v in rows[f'flash_attention ({label})']['bound_terms'].items()})}; "
-            f"head_dims 32/80 raise")
+        row = flash_row(rnd, label, b, h, s, 16, False, plain_iters=10)
+        rows[f"flash_attention ({label})"] = dict(row, max_abs_err=max(errs + [row["max_abs_err"]]))
+    log("kernel flash_attention at head_dim 16: bf16 and fp32, causal and not, within tolerance; head_dims 32/80 "
+        "raise")
 
     # flash_attention_cache against the 832-slot scratch: the chunk lane's
     # two chunks of a caption prompt (265 live tokens, bucket span 319), a
@@ -771,7 +793,7 @@ def check_kernels(seed: int) -> dict:
     )
     for name, row in rows.items():
         blocks = (f" ({row['blocks']} blocks of {tile['rows']} query rows, {tile['threads']} threads, "
-                  f"{row.get('smem', tile['smem'])} B dynamic shared memory)") if "blocks" in row else ""
+                  f"{tile['smem']} B dynamic shared memory)") if "blocks" in row else ""
         log(
             f"kernel {name}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
             f"kernel {row['ms']:.4f} ms on the device{blocks}, plain {row['plain_ms']:.4f} ms, "
@@ -800,7 +822,7 @@ def check_hd128(seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 128)
     bf16, f32t, d, h = torch.bfloat16, torch.float32, 128, 16
-    tile = flash_tile_shape(d)
+    tile = cache_tile_shape(d)
 
     def rnd(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -820,17 +842,8 @@ def check_hd128(seed: int) -> dict:
         except ValueError:
             continue
         raise AssertionError(f"flash_attention took head_dim {bad} on the card; its kernel is built for 16, 64 and 128")
-    q, k, v = rnd(1, h, 265, d), rnd(1, h, 265, d), rnd(1, h, 265, d)
-    pairs = 265 * 266 // 2
-    bms, by = bound(4 * q.numel() * 2, 4 * h * pairs * d, "bfloat16")
-    rows["flash_attention [head_dim 128]"] = dict(
-        max_abs_err=max(errs),
-        ms=device_ms(lambda: A.flash_attention(q, k, v, causal=True), 50, floor_ms=bms, launches=1),
-        plain_ms=device_ms(lambda: A.attention_reference(q, k, v, causal=True), 20, floor_ms=bms),
-        bound_ms=bms, bound_by=by,
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50, floor_ms=bms),
-        blocks=-(-265 // tile["rows"]) * h, smem=tile["smem"], shape="[1,16,265,128] causal",
-    )
+    row = flash_row(rnd, "head_dim 128 (Qwen2-MoE cacheless forward)", 1, h, 265, d, True)
+    rows["flash_attention [head_dim 128]"] = dict(row, max_abs_err=max(errs + [row["max_abs_err"]]))
 
     errs = []
     for b, sq, sk, offs, valid, dt in ((1, 256, 832, [0], [256], bf16), (1, 9, 832, [256], [265], bf16),
@@ -6576,14 +6589,15 @@ def main() -> int:
         log(f"  ptxas {r['lib']}: {r['func']}: {r['registers']} registers, {r['smem']} B smem, "
             f"{r['spill_stores']} / {r['spill_loads']} B spill stores / loads")
         if "bf16" in r["func"] and r["spill_stores"] + r["spill_loads"]:
-            raise AssertionError(f"{r['func']} spills: the bf16 flash tile must stay in registers")
+            raise AssertionError(f"{r['func']} spills: the bf16 flash kernels must stay in registers")
     flash = [k for k in kernels if k.name in ("flash_attention", "flash_attention_cache")]
     hmma = hmma_counts(flash)
     log("sass (cuobjdump -sass), HMMA instructions: "
         + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
-    # flash at head_dim 64, 16 and 128, the cache kernel at 64 and 128
+    # flash's short and long paths at head_dim 64, 16 and 128, the cache
+    # kernel at 64 and 128
     bf16_funcs = {f for f in hmma if "bf16" in f}
-    want = {f"flash_attention_bf16_kernel<{d}>" for d in (16, 64, 128)}
+    want = {f"flash_{path}_bf16_kernel<{d}>" for path in ("short", "long") for d in (16, 64, 128)}
     want |= {f"flash_attention_cache_bf16_kernel<{d}>" for d in (64, 128)}
     if bf16_funcs != want or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")

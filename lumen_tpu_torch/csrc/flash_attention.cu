@@ -13,44 +13,33 @@
 // one-step TPU grid off short sequences; it has no counterpart here --
 // every call on a CUDA tensor launches this kernel.
 //
-// bf16 runs the tensor-core tile (flash_tile_bf16.cuh: design, and what
-// bounds it), fp32 the FMA tile (flash_tile_fp32.cuh). At the vision
-// tower's [1, 12, 256, 64] the bound is 0.00047 ms of bytes (q, k, v, o
-// once each at 3.35 TB/s; the 0.2 GFLOP take 0.0002 ms at 989 TFLOP/s):
-// what limits the tile is latency, four dependent 64-key tiles a block
-// and the launch. Grid: (query tiles of kFlashMmaRows, batch * heads).
+// bf16 runs flash_plan_bf16.cuh (the design, and what bounds each
+// regime), fp32 the FMA tile (flash_tile_fp32.cuh), used only by small
+// fp32 models. launch_flash picks a bf16 call's plan from (sq, sk,
+// head_dim, causal) alone -- the short path (sk <= 128: whole sequences a
+// block, K/V once in shared memory) or the long path (a cp.async ring of
+// key tiles, a block shape by head_dim) -- and lumen_flash_plan reports
+// it. One call is one launch.
 //
-// At head_dim 16 the exponentials bound the tile, not the bytes or the
-// products: every (query, key) pair costs one exp2f on the SFU (16 a
-// clock an SM, ~4.2e12 a second over 132 SMs at 1.98 GHz) against 64
-// tensor-core FLOPs. At the recognizer's widest call, [32, 4, 1920, 16],
-// that is 472 M exponentials, ~0.113 ms, against 0.0094 ms of bytes and
-// 0.031 ms of FLOPs. The tile is the D = 64 design with one k16 step of
-// Q K^T and two n8 output tiles; it does nothing yet about the SFU.
-//
-// At head_dim 128 (the Qwen2-MoE decoder's cacheless forward, [1, 16,
-// 265, 128] causal) the tile is the D = 64 design with eight k16 steps of
-// Q K^T and sixteen n8 output tiles: twice the registers for Q and O a
-// thread, and 148 KB of shared memory for the K/V ring, under the 227 KB
-// a block may opt into.
-#include "flash_tile_bf16.cuh"
+// What bounds each regime on the H100 (q, k, v, o once each at 3.35 TB/s;
+// FLOPs at 989 TFLOP/s; at head_dim 16 one exp2 a (query, key) pair on
+// the SFU, 16 a clock an SM, ~4.2e12 a second):
+// - the CLIP towers' bulk batches, [64, 12, 50, 64] and [64, 8, 77, 64]
+//   causal: bytes, ~0.006 ms; the short path keeps 4-5 blocks on every
+//   SM, so the 768 / 512 (b, h) run in about one wave;
+// - the VLM vision tower's [1, 12, 256, 64]: bytes, 0.00047 ms; the floor
+//   is latency (two 64-key tiles a warp, and the launch: a one-head call
+//   takes as long on this card, ours and SDPA's alike);
+// - the Qwen2-MoE decoder's [1, 16, 265, 128] causal: bytes, 0.0013 ms;
+//   latency again, with the heaviest row group's 265 keys split over
+//   three warps and the heaviest row blocks first;
+// - SVTR's [32, 4, 1920, 16]: the exponentials, 472 M of them, ~0.113 ms
+//   on the SFU alone, though what holds the kernel at about twice that is
+//   latency, not the SFU.
+#include "flash_plan_bf16.cuh"
 #include "flash_tile_fp32.cuh"
 
 namespace lumen {
-
-// One block a launch is all the tile needs of an SM (minimum 1): ptxas
-// then has no reason to squeeze registers for a second block.
-template <int D>
-__global__ void __launch_bounds__(kFlashMmaThreads, 1)
-    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                                int sq, int sk, int causal, float scale) {
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kFlashMmaRows;
-  flash_tile_bf16<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
-                     q0, sk - sq, sk, causal != 0, scale);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
@@ -71,15 +60,15 @@ template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int batch_heads, int sq, int sk,
                  int dtype, int causal, float scale, cudaStream_t s) {
   if (dtype == kBFloat16) {
-    constexpr int smem = flash_bf16_smem_bytes<D>();  // past the 48 KB default at D = 64: opt in
-    const cudaError_t rc = cudaFuncSetAttribute(flash_attention_bf16_kernel<D>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const FlashPlan p = flash_plan<D>(sq, sk, causal != 0);
+    const dim3 grid(batch_heads, p.row_blocks);
+    auto kernel = p.path == kFlashShort ? flash_short_bf16_kernel<D> : flash_long_bf16_kernel<D>;
+    // past the 48 KB default on the long path at D = 64 and 128: opt in
+    const cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    const dim3 grid((sq + kFlashMmaRows - 1) / kFlashMmaRows, batch_heads);
-    flash_attention_bf16_kernel<D><<<grid, kFlashMmaThreads, smem, s>>>(
+    kernel<<<grid, p.threads, p.smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, causal,
-        scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, causal, scale);
   } else if (dtype == kFloat32) {
     const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch_heads);
     flash_attention_fp32_kernel<D><<<grid, kFlashThreads, 0, s>>>(
@@ -89,6 +78,38 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int batch
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One field of a bf16 call's plan (FLASH_PLAN_FIELDS in ops/attention.py):
+// 0 path (0 short, 1 long), 1 rows a block, 2 key split, 3 ring slots, 4
+// threads, 5 dynamic shared memory, 6 row blocks a (b, h), 7 heaviest
+// first, 8 keys a warp's online-softmax step takes (a ring slot on the
+// long path), 9 blocks resident on an SM of the current device (the
+// occupancy calculator: registers, shared memory and threads together).
+template <int D>
+int flash_plan_field(int sq, int sk, int causal, int field) {
+  const FlashPlan p = flash_plan<D>(sq, sk, causal != 0);
+  switch (field) {
+    case 0: return p.path;
+    case 1: return p.rows;
+    case 2: return p.split;
+    case 3: return p.stages;
+    case 4: return p.threads;
+    case 5: return p.smem;
+    case 6: return p.row_blocks;
+    case 7: return p.reverse;
+    case 8: return p.path == kFlashShort ? kFlashShortChunk : FlashLong<D>::kKeys;
+    case 9: {
+      auto kernel = p.path == kFlashShort ? flash_short_bf16_kernel<D> : flash_long_bf16_kernel<D>;
+      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem) != cudaSuccess)
+        return -1;
+      int blocks = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, p.threads, p.smem) != cudaSuccess)
+        return -1;
+      return blocks;
+    }
+    default: return -1;
+  }
 }
 
 }  // namespace lumen
@@ -106,4 +127,15 @@ extern "C" int lumen_flash_attention(const void* q, const void* k, const void* v
   if (head_dim == 128) return launch_flash<128>(q, k, v, o, batch_heads, sq, sk, dtype, causal, scale, s);
   if (head_dim == 16) return launch_flash<16>(q, k, v, o, batch_heads, sq, sk, dtype, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan lumen_flash_attention launches for a bf16 call of this shape:
+// one field (flash_plan_field), or -1 for a head_dim or field it has none
+// of.
+extern "C" int lumen_flash_plan(int sq, int sk, int head_dim, int causal, int field) {
+  using namespace lumen;
+  if (head_dim == 64) return flash_plan_field<64>(sq, sk, causal, field);
+  if (head_dim == 128) return flash_plan_field<128>(sq, sk, causal, field);
+  if (head_dim == 16) return flash_plan_field<16>(sq, sk, causal, field);
+  return -1;
 }

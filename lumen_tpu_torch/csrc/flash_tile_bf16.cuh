@@ -1,12 +1,12 @@
 // The bf16 instance of the flash tile, on the tensor cores: one thread
-// block of online-softmax attention over one (batch, head), FA2-style.
-// Shared by flash_attention.cu (vision tower, cacheless causal forward)
-// and flash_attention_cache.cu (prefill chunks against the contiguous KV
-// scratch); they differ only in where the mask's two numbers come from.
-// The fp32 instance stays on the FMA units (flash_tile_fp32.cuh says why).
+// block of online-softmax attention over one (batch, head), FA2-style,
+// with one fixed block shape. flash_attention_cache.cu (prefill chunks
+// against the contiguous KV scratch) runs it; flash_attention runs its
+// fork, flash_plan_bf16.cuh, which picks a plan for each call. The fp32
+// instance stays on the FMA units (flash_tile_fp32.cuh says why).
 //
-// Replaces the body of the Pallas kernels _flash_kernel and
-// _flash_cache_kernel (lumen_tpu/ops/attention.py:97,249). The Pallas
+// Replaces the body of the Pallas kernel _flash_cache_kernel
+// (lumen_tpu/ops/attention.py:249). The Pallas
 // grid's sequential key axis, which carried the running max/sum/output in
 // VMEM scratch from one grid step to the next, is the loop over key tiles
 // inside this block (Hopper blocks run in no order).
@@ -53,15 +53,18 @@
 // the two ints, in a fixed order of operations: no atomics, no reduction
 // across blocks.
 //
-// What bounds it on the H100, at the serving path's shapes ([1,12,256,64]
-// vision, [1,14,256|63,64] chunks against 256-265 live keys): the bound
-// is ~0.0005 ms of bytes, and the tensor cores would take ~0.0001 ms for
-// the FLOPs. The floor is latency: a warp walks its share of the 4-5 key
-// tiles one after another (copy, 64 MMAs, softmax), plus the launch; the
-// key split halves that chain and lets two warps share each SM
-// sub-partition. So wgmma, TMA and warp specialisation would not pay here;
-// they become worth it when prompts grow and the chunk x scratch product
-// with them (ROADMAP.md, queue D).
+// What bounds it on the H100, at the serving path's shapes ([1,14,256|63,
+// 64] chunks against 256-265 live keys): the bound is ~0.0005 ms of bytes,
+// and the tensor cores would take ~0.0001 ms for the FLOPs. The floor is
+// latency: a warp walks its share of the 4-5 key tiles one after another
+// (copy, 64 MMAs, softmax), plus the launch; the key split halves that
+// chain and lets two warps share each SM sub-partition. The tile already
+// runs at a quarter of masked SDPA's time there. What flash_attention's
+// redesign measured for this card applies to it too (PERF.md): a 1-D
+// cp.async.bulk of the K/V rows was 3-5x slower than 16-byte cp.async,
+// and exp2 on the FMA pipe did not pay; a tile with all its score tiles
+// computed wants a branch-free instance. Its own redesign is queued in
+// ROADMAP.md's order of work.
 #pragma once
 
 #include "common.cuh"
@@ -70,7 +73,7 @@ namespace lumen {
 
 // Row groups per block (16 query rows each), warps per row group (key
 // split), and tile slots of the K/V ring. Chosen by measurement at the
-// serving path's shapes (PERF.md, PR 3: scripts/flash_rows_per_block.py).
+// serving path's shapes (PERF.md).
 constexpr int kFlashWarps = 2;
 constexpr int kFlashSplit = 2;
 constexpr int kFlashStages = 4;

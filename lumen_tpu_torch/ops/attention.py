@@ -195,6 +195,58 @@ FLASH_HEAD_DIMS = (16, 64, 128)
 DECODER_HEAD_DIMS = (64, 128)
 
 
+#: the fields of ``lumen_flash_plan`` (``csrc/flash_attention.cu``), in
+#: its order; :func:`flash_plan` gives all but the last, which needs the
+#: card (the occupancy calculator's blocks an SM).
+FLASH_PLAN_FIELDS = (
+    "path", "rows", "split", "stages", "threads", "smem", "row_blocks", "heaviest_first", "keys", "resident",
+)
+
+
+@functools.cache
+def flash_plan_constants() -> dict:
+    """The bf16 flash kernels' compile-time constants, read from
+    ``csrc/flash_plan_bf16.cuh``: the short path's key limit, row groups
+    and keys a softmax step, the long path's (row groups, key split, ring
+    steps, keys a tile) by head_dim."""
+    text = (CSRC / "flash_plan_bf16.cuh").read_text()
+    c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
+         for n in ("kFlashShortKeys", "kFlashShortGroups", "kFlashShortChunk")}
+    long = {
+        int(d): tuple(int(x) for x in rest)
+        for d, *rest in re.findall(
+            r"struct FlashLong<(\d+)> \{\s*static constexpr int kGroups = (\d+), kSplit = (\d+), "
+            r"kSteps = (\d+), kKeys = (\d+),", text)
+    }
+    return {"short_keys": c["kFlashShortKeys"], "short_groups": c["kFlashShortGroups"],
+            "short_chunk": c["kFlashShortChunk"], "long": long}
+
+
+def flash_plan(sq: int, sk: int, head_dim: int, causal: bool) -> dict:
+    """The launch plan of a bf16 :func:`flash_attention` call, twin of
+    ``flash_plan`` in ``csrc/flash_plan_bf16.cuh`` (``chip_smoke.py``
+    holds the two equal on the card): a function of the shape alone, never
+    of batch * heads. ``path`` "short" (sk <= 128: whole sequences a
+    block, K/V once in shared memory) or "long" (a ring of key tiles);
+    ``keys``: keys a warp's online-softmax step takes (a tile of the long
+    path's ring); the grid is ``(batch * heads, row_blocks)``."""
+    c = flash_plan_constants()
+    row_bytes = (head_dim + 8) * 2  # a padded bf16 row
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    if sk <= c["short_keys"]:
+        rows = min(r16(sq), 16 * c["short_groups"])
+        plan = dict(path="short", rows=rows, split=1, stages=0, keys=c["short_chunk"],
+                    smem=(2 * r16(sk) + rows) * row_bytes)
+    else:
+        groups, split, steps, keys = c["long"][head_dim]
+        plan = dict(path="long", rows=16 * groups, split=split, stages=split * steps, keys=keys,
+                    smem=(2 * split * steps * keys + 16 * groups) * row_bytes)
+    plan["threads"] = 2 * plan["rows"] * plan["split"]
+    plan["row_blocks"] = -(-sq // plan["rows"])
+    plan["heaviest_first"] = int(bool(causal) and plan["row_blocks"] > 1)
+    return plan
+
+
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     """Online-softmax attention (JAX ``flash_attention``): the CUDA kernel
     on CUDA tensors, :func:`attention_reference` on CPU tensors.

@@ -3,9 +3,10 @@ port's part of ``lumen_tpu/ops/image.py``).
 
 Normalization runs on the device inside each model's batched call (the
 CLIP manager's image encoder divides the uint8 pixels by 255 and
-normalizes there). Not ported yet: the device-side ``resize_bilinear``,
-``normalize`` and ``clip_preprocess``, which only photo ingest calls
-(ROADMAP queue A, photo ingest).
+normalizes there). Not ported: the device-side ``resize_bilinear``,
+``normalize`` and ``clip_preprocess`` of the JAX module. Nothing in either
+package calls them (photo ingest landed without them); they are public
+names only, queued with the package-level names (ROADMAP A3).
 """
 
 from __future__ import annotations

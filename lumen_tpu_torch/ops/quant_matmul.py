@@ -9,8 +9,11 @@ kernel (``csrc/w8a16_matmul.cu``) on CUDA tensors and runs the plain
 :func:`w8a16_reference` on CPU tensors; a CUDA call the kernel cannot take
 raises. Which calls come here is ``QDense``'s routing (``ops/quant.py``):
 rows <= :data:`MAX_KERNEL_ROWS` and bf16 activations, the JAX package's
-own rules. Its ``LUMEN_Q8_PALLAS`` knob and tensor-parallel mesh gate are
-not ported (the port has no mesh yet).
+own rules. Its ``LUMEN_Q8_PALLAS`` knob is not ported (the port has no
+dispatch knobs). Its tensor-parallel rule (keep the kernel off when the
+serving mesh has ``model`` > 1) waits for serving over a ``model`` axis:
+the process mesh exists (``runtime/mesh.build_process_mesh``), no serving
+path uses it yet (ROADMAP A2b).
 """
 
 from __future__ import annotations

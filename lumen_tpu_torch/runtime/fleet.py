@@ -31,9 +31,10 @@ slice:
   one after ``LUMEN_REPLICA_REVIVE_S`` — siblings never notice.
 
 :class:`EngineFleet` is the scale-actuator adapter of the families that
-dispatch without a MicroBatcher (OCR's direct lane today; the VLM engine
-replicas are not ported yet). Not ported: tensor-parallel slices (a
-``model`` axis raises, :mod:`~lumen_tpu_torch.runtime.mesh`).
+dispatch without a MicroBatcher: OCR's direct lane and the VLM continuous
+engine replicas (``models/vlm/manager.py`` builds one when
+``LUMEN_REPLICAS_VLM`` asks for more than one). Not ported: tensor-parallel
+slices (a ``model`` axis raises, :mod:`~lumen_tpu_torch.runtime.mesh`).
 """
 
 from __future__ import annotations

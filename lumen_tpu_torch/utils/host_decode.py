@@ -25,9 +25,9 @@ Two layers live here:
 Thread mode runs the exact same spec functions, so thread- and
 process-decoded tensors are bitwise identical by construction.
 
-Not ported: the JAX package's native C letterbox (``lumen_tpu/native``),
-the fallback of :func:`letterbox_numpy` on a host without OpenCV; the
-port's letterbox needs cv2.
+On a host without OpenCV, :func:`letterbox_numpy` falls back to the
+native C letterbox (:mod:`lumen_tpu_torch.native`), imported inside that
+branch so that a decode worker which never takes it loads no more.
 """
 
 from __future__ import annotations
@@ -59,12 +59,20 @@ def letterbox_params(h: int, w: int, target: int) -> tuple[float, int, int, int,
 def letterbox_numpy(img: np.ndarray, target: int, fill: int = 0) -> tuple[np.ndarray, float, int, int]:
     """Host letterbox for a single decoded image [H, W, C] -> [target, target, C].
 
-    cv2 (SIMD resize); the JAX package's native C fallback is not ported.
+    cv2 (SIMD resize) when present; otherwise the fused native C letterbox,
+    so the serving path also works in a no-OpenCV environment.
     """
     try:
         import cv2
-    except ImportError as e:
-        raise RuntimeError("letterbox requires cv2 (the native host-ops library is not ported)") from e
+    except ImportError:
+        cv2 = None
+    if cv2 is None and img.dtype == np.uint8:
+        from .. import native
+
+        if native.available():
+            return native.letterbox_u8(img, target, fill)
+    if cv2 is None:
+        raise RuntimeError("letterbox requires cv2 or the native host-ops library")
 
     h, w = img.shape[:2]
     scale, new_h, new_w, pad_top, pad_left = letterbox_params(h, w, target)

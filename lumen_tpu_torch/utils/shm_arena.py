@@ -1,7 +1,8 @@
 """Parent-owned shared-memory slot arena for the process decode pool.
 
-The port's copy of ``lumen_tpu/utils/shm_arena.py``. Here it holds the
-continuous engine's KV spill leases (the decode pool is not ported yet).
+The port's copy of ``lumen_tpu/utils/shm_arena.py``. It holds the
+process decode pool's pixel slots (``runtime/decode_pool.py``) and the
+continuous engine's KV spill leases.
 Segment names carry a process-wide arena serial: two arenas of one name
 in one process never collide.
 
