@@ -10,11 +10,12 @@ Phases (any failure exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of all five CUDA kernels (one ``nvcc`` per source, all
    started together), with each kernel function's registers, shared
-   memory and spills from ptxas (no bf16 flash kernel may spill) and
-   its count of tensor-core instructions (HMMA) from ``cuobjdump -sass``
-   (the eight bf16 flash kernels -- flash_attention's short and long
-   paths at head_dim 64, 16 and 128, and the cache kernel at 64 and 128
-   -- must have some).
+   memory and spills from ptxas (no bf16 flash kernel and no paged
+   kernel may spill) and its count of tensor-core instructions (HMMA)
+   from ``cuobjdump -sass`` (the eight bf16 flash kernels --
+   flash_attention's short and long paths at head_dim 64, 16 and 128,
+   and the cache kernel at 64 and 128 -- and the paged walk's bf16 GQA
+   path at 64 and 128 must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
@@ -40,13 +41,21 @@ Phases (any failure exits non-zero):
    call from ``torch.profiler``, checked against lost events
    (``device_ms``); one w8a16 call is also timed with the host's launch
    path (CUDA events). The paged kernels are also checked at the edges of
-   their 64-key span and on a 2048-token row, in both dtypes. Bitwise,
-   the greedy identity of speculation leans on: the verify-window kernel
-   at W = 1 equals the single-token kernel, a paged row's output does not
-   depend on its table's width (32 vs 128 pages), and w8a16 rows do not
-   depend on the row count (8 of 40, 1 of 64). The kernel lines print
-   the span and its blocks and workspace, and each w8a16 shape's K split,
-   blocks and ring.
+   their 64-key span and on a 2048-token row, in both dtypes, and each
+   paged row is timed twice: warm (one set of pages, K/V in the 50 MB L2)
+   and from device memory (``paged_sets``: disjoint pages whose live K/V
+   pass the L2, as a decode step's layers find them). Bitwise, the
+   greedy identity of speculation leans on, at head_dim 64 and 128 in
+   bf16 and fp32: verify slot t at W = 1, 5 and 16 equals the
+   single-token kernel at kv_lens + t, a row alone equals the same row
+   in the batch of 8, a paged row's output does not depend on its
+   table's width (32 vs 128 pages), and w8a16 rows do not depend on the
+   row count (8 of 40, 1 of 64). Each paged line prints the plan the
+   library launches (``lumen_paged_plan``, held equal to
+   ``ops.attention.paged_plan``: tensor cores or FMA units, query rows,
+   KV heads and window slots a block, span, blocks, threads, shared
+   memory, blocks resident an SM) and its workspace; no paged kernel may
+   spill; each w8a16 shape prints its K split, blocks and ring.
 3. reference: a small fp32 VLM served on the card (kernels) and on the
    CPU (plain versions) gives the same greedy tokens, and so does the
    card with speculative decoding (``LUMEN_VLM_SPEC_K=4``).
@@ -516,6 +525,96 @@ def max_err(out, ref) -> float:
 # -- phase 2: kernels vs plain ------------------------------------------------
 
 
+def paged_sets(gen, lens: list, q_shape: tuple, maxp: int, kv_heads: int, dtype, page: int = 16,
+               min_bytes: float = 120e6) -> tuple:
+    """Disjoint copies of one paged call, to time it from device memory as
+    a decode step's layers find their pools (each layer its own, the MLP
+    weights streamed in between): a pool of ``n`` times the pages the
+    rows' live keys (and a window's W - 1 more positions) occupy, and
+    ``n`` (q, block table) pairs over disjoint pages, the dump page 0
+    past each row's pages; ``n`` makes the live K/V of the copies pass
+    ``min_bytes``, beyond the 50 MB L2. ``q_shape`` is [B, H, D] (decode)
+    or [B, W, H, D] (verify). Returns (k_pages, v_pages, [(q, table),
+    ...])."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    window, d = (q_shape[1] if len(q_shape) == 4 else 1), q_shape[-1]
+    per_row = [-(-(n + window - 1) // page) for n in lens]
+    need = sum(per_row)
+    live = 2 * need * page * kv_heads * d * torch.finfo(dtype).bits // 8
+    n = max(2, math.ceil(min_bytes / live))
+    pool = n * need + 1
+    kp = torch.randn((pool, kv_heads, page, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((pool, kv_heads, page, d), generator=gen, device=dev).to(dtype)
+    perm = (torch.randperm(pool - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    sets, i = [], 0
+    for _ in range(n):
+        bt = torch.zeros((len(lens), maxp), dtype=torch.int32, device=dev)
+        for r, k in enumerate(per_row):
+            bt[r, :k] = perm[i:i + k]
+            i += k
+        sets.append((torch.randn(q_shape, generator=gen, device=dev).to(dtype), bt))
+    return kp, vp, sets
+
+
+def paged_plan_on_card(group: int, head_dim: int, window: int, dtype) -> dict:
+    """The plan both paged libraries launch for a call of this shape
+    (``lumen_paged_plan``), which must equal its Python twin
+    ``ops.attention.paged_plan``; ``resident`` is the occupancy
+    calculator's blocks an SM on this card."""
+    from lumen_tpu_torch.ops import attention as A
+
+    code = A._DTYPE_CODES[dtype]
+    got = {f: A.PAGED.query("lumen_paged_plan", group, head_dim, window, code, i)
+           for i, f in enumerate(A.PAGED_PLAN_FIELDS)}
+    got_varq = {f: A.PAGED_VARQ.query("lumen_paged_plan", group, head_dim, window, code, i)
+                for i, f in enumerate(A.PAGED_PLAN_FIELDS)}
+    want = A.paged_plan(group, head_dim, window, dtype)
+    if {f: got[f] for f in want} != want or got != got_varq or got["resident"] < 1:
+        raise AssertionError(f"paged plan of (group {group}, head_dim {head_dim}, W {window}, {dtype}): "
+                             f"library {got}, varq library {got_varq}, ops.attention.paged_plan {want}")
+    return got
+
+
+def paged_plan_text(q, k_pages, maxp: int) -> str:
+    """The plan of a paged call on ``q`` ([B, (W,) H, D]) against pages
+    [P, KVH, page, D] with ``maxp``-page tables, as the library reports it,
+    with its grid and workspace."""
+    from lumen_tpu_torch.ops import attention as A
+
+    b, w, h, d = q.shape[0], (q.shape[1] if q.dim() == 4 else 1), q.shape[-2], q.shape[-1]
+    kvh, page = k_pages.shape[1], k_pages.shape[2]
+    plan = paged_plan_on_card(h // kvh, d, w, q.dtype)
+    size = A.paged_launch(plan, b, w, h, kvh, maxp, page, d)
+    return (f"{'tensor cores' if plan['mma'] else 'FMA units'}, {plan['rows']} query rows a block ({plan['kv_heads']} "
+            f"KV head(s) x {plan['slots']} slot(s) x group {h // kvh}), {plan['slot_groups']} slot group(s), span "
+            f"{plan['span']}, {size['grid'][0]}x{size['grid'][1]} blocks, {plan['threads']} threads, {plan['smem']} B "
+            f"dynamic smem, {plan['resident']} resident an SM, workspace {size['workspace']} B")
+
+
+def check_paged_bits(q, k_pages, v_pages, bt, kl, label: str) -> None:
+    """The bitwise properties the greedy identity of speculation leans on:
+    for a verify call (``q`` [B, W, H, D]) slot t equals the single-token
+    kernel at ``kv_lens + t``; for either kernel each row launched alone
+    equals the same row in the batch."""
+    import torch
+
+    from lumen_tpu_torch.ops import attention as A
+
+    fn = A.paged_attention_varq_kernel if q.dim() == 4 else A.paged_attention_kernel
+    out = fn(q, k_pages, v_pages, bt, kl)
+    if q.dim() == 4:
+        for t in range(q.shape[1]):
+            one = A.paged_attention_kernel(q[:, t].contiguous(), k_pages, v_pages, bt, kl + t)
+            if not torch.equal(out[:, t], one):
+                raise AssertionError(f"{label}: verify slot {t} differs from paged_attention at kv_lens + {t}")
+    for i in range(q.shape[0]):
+        alone = fn(q[i:i + 1].clone(), k_pages, v_pages, bt[i:i + 1].clone(), kl[i:i + 1].clone())
+        if not torch.equal(alone, out[i:i + 1]):
+            raise AssertionError(f"{label}: row {i} alone differs from the same row in the batch of {q.shape[0]}")
+
+
 def cache_tile_shape(head_dim: int = 64) -> dict:
     """Block shape of flash_attention_cache's bf16 tile, from the constants
     of ``csrc/flash_tile_bf16.cuh``: query rows (16 per row group),
@@ -742,7 +841,7 @@ def check_kernels(seed: int) -> dict:
     # lengths (one token, exactly one page, partial last pages, a long
     # row), tables padded with the dump page and stale page ids.
     pages = 1025
-    span = A.paged_walk_constants()["span"]
+    span = A.paged_plan(7, 64, 1, bf16)["span"]
     kp, vp = rnd(pages, 2, 16, 64), rnd(pages, 2, 16, 64)
     lens = [1, 16, 17, 300, 333, 129, 64, 500]
 
@@ -774,26 +873,32 @@ def check_kernels(seed: int) -> dict:
     bt_wide[:, :32] = bt
     if not torch.equal(A.paged_attention_kernel(q, kp, vp, bt_wide, kl), out):
         raise AssertionError("paged_attention: a row's output changed with the table padded from 32 to 128 pages")
+    check_paged_bits(q, kp, vp, bt, kl, "paged_attention")
+    check_paged_bits(q.float(), kp.float(), vp.float(), bt, kl, "paged_attention fp32")
     torch.cuda.synchronize()
-    grid = A.paged_grid(8 * 2, 32, 16)
     working = 2 * sum(-(-n // span) for n in lens)
-    ws_bytes = A.paged_workspace_bytes(8 * 2, 32, 16, 64)
     log(f"kernel paged_attention: lengths {span - 1}/{span}/{span + 1}/2048 (maxp 128) in bf16 and fp32 within "
-        f"tolerance; rows bitwise equal with tables of 32 and 128 pages; span {span} key positions, "
-        f"{working} working blocks of a {grid[0]}x{grid[1]} grid (128 threads), workspace {ws_bytes} B "
-        f"at q [8,14,64], maxp 32")
+        f"tolerance; rows bitwise equal with tables of 32 and 128 pages and alone vs in the batch of 8 (bf16, "
+        f"fp32); {working} working blocks at q [8,14,64], maxp 32; plan {paged_plan_text(q, kp, 32)}; fp32 plan "
+        f"{paged_plan_text(q.float(), kp, 32)}")
     total = sum(lens)
     nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * total * 2 * 64 * 2
     bms, by = bound(nb, 4 * 14 * 64 * total, "bfloat16")
+    hkp, hvp, sets = paged_sets(gen, lens, (8, 14, 64), 32, 2, bf16)
     rows["paged_attention"] = dict(
         max_abs_err=max(errs),
         ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        hbm_ms=device_ms(lambda q, bt: A.paged_attention_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                         floor_ms=bms, launches=1),
         plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None,
     )
+    del hkp, hvp, sets
     for name, row in rows.items():
         blocks = (f" ({row['blocks']} blocks of {tile['rows']} query rows, {tile['threads']} threads, "
                   f"{tile['smem']} B dynamic shared memory)") if "blocks" in row else ""
+        if "hbm_ms" in row:
+            blocks += f" warm, {row['hbm_ms']:.4f} ms from device memory"
         log(
             f"kernel {name}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
             f"kernel {row['ms']:.4f} ms on the device{blocks}, plain {row['plain_ms']:.4f} ms, "
@@ -870,7 +975,7 @@ def check_hd128(seed: int) -> dict:
     )
 
     pages, page = 1025, 16
-    span = A.paged_walk_constants()["span"]
+    span = A.paged_plan(1, d, 1, bf16)["span"]
     kp, vp = rnd(pages, h, page, d), rnd(pages, h, page, d)
 
     def table(row_lens, maxp):
@@ -900,22 +1005,31 @@ def check_hd128(seed: int) -> dict:
     bt_wide[:, :32] = bt
     if not torch.equal(A.paged_attention_kernel(q, kp, vp, bt_wide, kl), out):
         raise AssertionError("paged_attention <128>: a row's output changed with the table padded to 128 pages")
+    check_paged_bits(q, kp, vp, bt, kl, "paged_attention <128>")
+    kpf, vpf = kp.float(), vp.float()
+    check_paged_bits(q.float(), kpf, vpf, bt, kl, "paged_attention <128> fp32")
+    del kpf, vpf
+    log(f"kernel paged_attention <128>: plan {paged_plan_text(q, kp, 32)}; fp32 plan {paged_plan_text(q.float(), kp, 32)}")
     total = sum(lens)
     nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * total * h * d * 2
     bms, by = bound(nb, 4 * h * d * total, "bfloat16")
+    hkp, hvp, sets = paged_sets(gen, lens, (8, h, d), 32, h, bf16)
     rows["paged_attention [head_dim 128]"] = dict(
         max_abs_err=max(errs),
         ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        hbm_ms=device_ms(lambda q, bt: A.paged_attention_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                         floor_ms=bms, launches=1),
         plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None, shape="q [8,16,128], lens 1..500, maxp 32",
-        workspace=A.paged_workspace_bytes(8 * h, 32, page, d),
     )
+    del hkp, hvp, sets
 
     errs = []
     maxp = 34
     lens = [1, 16, 15, 300, 333, 129, 62, 500]
     kl = torch.tensor(lens, device=dev, dtype=torch.int32)
-    for w in (1, 5):
+    cases = {}
+    for w in (1, 5, 16):
         bt = (torch.randperm(pages - 1, generator=gen, device=dev)[: 8 * maxp].reshape(8, maxp) + 1).to(torch.int32)
         for r, n in enumerate(lens):
             if r % 2:
@@ -923,30 +1037,45 @@ def check_hd128(seed: int) -> dict:
         q = rnd(8, w, h, d)
         out = A.paged_attention_varq_kernel(q, kp, vp, bt, kl)
         errs.append(max_err(out, A.paged_attention_varq_reference(*f32(q, kp, vp), bt, kl)))
-        if w == 1 and not torch.equal(out[:, 0], A.paged_attention_kernel(q[:, 0].contiguous(), kp, vp, bt, kl)):
-            raise AssertionError("paged_attention_varq <128> at W = 1 differs from paged_attention")
-    qf = rnd(2, 3, 4, d, dtype=f32t)  # the fp32 instance, GQA group 2
+        check_paged_bits(q, kp, vp, bt, kl, f"paged_attention_varq <128> W={w}")
+        cases[w] = (q, bt)
+    # The fp32 instance, GQA group 2, at W = 3, 5 and 16 (bitwise to the
+    # single-token kernel too).
     kpf, vpf = kp[:, :2].float().contiguous(), vp[:, :2].float().contiguous()
     btf, klf = bt[:2].contiguous(), kl[:2].contiguous()
-    errs.append(max_err(A.paged_attention_varq_kernel(qf, kpf, vpf, btf, klf),
-                        A.paged_attention_varq_reference(qf, kpf, vpf, btf, klf)))
+    for w in (3, 5, 16):
+        qf = rnd(2, w, 4, d, dtype=f32t)
+        errs.append(max_err(A.paged_attention_varq_kernel(qf, kpf, vpf, btf, klf),
+                            A.paged_attention_varq_reference(qf, kpf, vpf, btf, klf)))
+        check_paged_bits(qf, kpf, vpf, btf, klf, f"paged_attention_varq <128> fp32 W={w}")
+    del kpf, vpf
+    w = 5
+    q, bt = cases[w]
+    log(f"kernel paged_attention_varq <128> W=5: plan {paged_plan_text(q, kp, maxp)}; W=16: plan "
+        f"{paged_plan_text(cases[16][0], kp, maxp)}; fp32 (group 2) W=5: plan {paged_plan_text(qf[:, :5], kp[:, :2], maxp)}")
     live = sum(n + w - 1 for n in lens)
     seen = sum(n + t for n in lens for t in range(w))
     nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * h * d * 2
     bms, by = bound(nb, 4 * h * d * seen, "bfloat16")
+    hkp, hvp, sets = paged_sets(gen, lens, (8, w, h, d), maxp, h, bf16)
     rows["paged_attention_varq [head_dim 128]"] = dict(
         max_abs_err=max(errs),
         ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+        hbm_ms=device_ms(lambda q, bt: A.paged_attention_varq_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                         floor_ms=bms, launches=1),
         plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
         bound_ms=bms, bound_by=by, library_ms=None, shape="q [8,5,16,128], lens 1..500, maxp 34",
     )
+    del hkp, hvp, sets
     torch.cuda.synchronize()
     log("kernels at head_dim 128: within tolerance in bf16 and fp32; paged rows bitwise equal with tables of 32 "
-        "and 128 pages; varq at W = 1 equals paged_attention bit for bit; head_dims 32/80 raise")
+        "and 128 pages and alone vs in the batch; verify slot t at W = 1, 5, 16 (bf16) and 3, 5, 16 (fp32) equals "
+        "paged_attention at kv_lens + t bit for bit; head_dims 32/80 raise")
     for name, row in rows.items():
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA)"
+        hbm = f" warm, {row['hbm_ms']:.4f} ms from device memory" if "hbm_ms" in row else ""
         log(f"kernel {name} {row['shape']}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), kernel "
-            f"{row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"{row['ms']:.4f} ms on the device{hbm}, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), library {lib}")
     return rows
 
@@ -1023,9 +1152,11 @@ def hmma_counts(kernels) -> dict:
 def check_varq(seed: int) -> dict:
     """paged_attention_varq: 8 rows over the 1025-page pool at W = 1, 5
     (the smoke drive's K = 4) and 16 (K = 15, the most the engine takes);
-    ragged lengths, windows crossing page boundaries, tables padded with
-    the dump page and stale ids. W = 1 must equal the single-token kernel
-    bit for bit."""
+    ragged lengths, windows crossing page and span boundaries, tables
+    padded with the dump page and stale ids, in bf16 and fp32. Verify slot
+    t must equal the single-token kernel at kv_lens + t bit for bit, and a
+    row alone the same row in the batch. Times W = 5 (the table's row) and
+    W = 16, warm and from device memory."""
     import torch
 
     from lumen_tpu_torch.ops import attention as A
@@ -1037,7 +1168,8 @@ def check_varq(seed: int) -> dict:
     pages, page, maxp = 1025, 16, 34
     kp = torch.randn((pages, 2, page, 64), generator=gen, device=dev).to(bf16)
     vp = torch.randn((pages, 2, page, 64), generator=gen, device=dev).to(bf16)
-    lens = [1, 16, 15, 300, 333, 129, 62, 500]  # 15 + W and 62 + W cross a page edge
+    kpf, vpf = kp.float(), vp.float()
+    lens = [1, 16, 15, 300, 333, 129, 62, 500]  # 15 + W and 62 + W cross a page edge, 62 + W the span's
     kl = torch.tensor(lens, device=dev, dtype=torch.int32)
     errs = []
     cases = {}
@@ -1049,38 +1181,41 @@ def check_varq(seed: int) -> dict:
                 bt[r, -(-(n + w - 1) // page):] = 0  # dump page past the window's last page
         q = torch.randn((8, w, 14, 64), generator=gen, device=dev).to(bf16)
         out = A.paged_attention_varq_kernel(q, kp, vp, bt, kl)
-        ref = A.paged_attention_varq_reference(q.float(), kp.float(), vp.float(), bt, kl)
+        ref = A.paged_attention_varq_reference(q.float(), kpf, vpf, bt, kl)
         errs.append(max_err(out, ref))
-        if w == 1:
-            single = A.paged_attention_kernel(q[:, 0].contiguous(), kp, vp, bt, kl)
-            if not torch.equal(out[:, 0], single):
-                raise AssertionError("paged_attention_varq at W = 1 differs from paged_attention")
+        check_paged_bits(q, kp, vp, bt, kl, f"paged_attention_varq W={w}")
+        if w > 1:  # the fp32 instance
+            qf = q.float()
+            errs.append(max_err(A.paged_attention_varq_kernel(qf, kpf, vpf, bt, kl), ref))
+            check_paged_bits(qf, kpf, vpf, bt, kl, f"paged_attention_varq fp32 W={w}")
         cases[w] = (q, bt)
     torch.cuda.synchronize()
-    log("kernel paged_attention_varq: W = 1 equals paged_attention bit for bit")
-    w = 5
-    q, bt = cases[w]
-    live = sum(n + w - 1 for n in lens)  # K/V slots some window slot reads
-    seen = sum(n + t for n in lens for t in range(w))  # (slot, key) pairs
-    nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * 2 * 64 * 2
-    bms, by = bound(nb, 4 * 14 * 64 * seen, "bfloat16")
-    row = dict(
-        max_abs_err=max(errs),
-        ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
-        plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
-        bound_ms=bms, bound_by=by, library_ms=None, shape="8 rows, W=5, 14/2 heads",
-    )
-    span = A.paged_walk_constants()["span"]
-    grid = A.paged_grid(8 * 2 * w, maxp, page)
-    working = 2 * sum(-(-(n + t) // span) for n in lens for t in range(w))
-    log(
-        f"kernel paged_attention_varq (W=5): max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), "
-        f"kernel {row['ms']:.4f} ms on the device ({working} working blocks of a {grid[0]}x{grid[1]} grid, "
-        f"span {span}, workspace {A.paged_workspace_bytes(8 * 2 * w, maxp, page, 64)} B), "
-        f"plain {row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
-        f"{nb} B / 3.35 TB/s vs {4 * 14 * 64 * seen} flop / 989 TFLOP/s), library none"
-    )
-    return row
+    log("kernel paged_attention_varq: verify slot t at W = 1, 5, 16 equals paged_attention at kv_lens + t bit for "
+        "bit, and a row alone the same row in the batch, in bf16 and fp32 (W = 5, 16)")
+    timed = {}
+    for w in (5, 16):
+        q, bt = cases[w]
+        live = sum(n + w - 1 for n in lens)  # K/V slots some window slot reads
+        seen = sum(n + t for n in lens for t in range(w))  # (slot, key) pairs
+        nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * 2 * 64 * 2
+        bms, by = bound(nb, 4 * 14 * 64 * seen, "bfloat16")
+        hkp, hvp, sets = paged_sets(gen, lens, (8, w, 14, 64), maxp, 2, bf16)
+        timed[w] = dict(
+            ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+            hbm_ms=device_ms(lambda q, bt: A.paged_attention_varq_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                             floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+            bound_ms=bms, bound_by=by, nb=nb, flops=4 * 14 * 64 * seen,
+        )
+        del hkp, hvp, sets
+        r = timed[w]
+        log(f"kernel paged_attention_varq (W={w}): kernel {r['ms']:.4f} ms on the device warm, {r['hbm_ms']:.4f} ms "
+            f"from device memory, plain {r['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by}: {nb} B / 3.35 TB/s vs "
+            f"{r['flops']} flop / 989 TFLOP/s), library none; plan {paged_plan_text(q, kp, maxp)}; fp32 plan "
+            f"{paged_plan_text(q.float(), kp, maxp)}")
+    r = timed[5]
+    return dict(max_abs_err=max(errs), ms=r["ms"], hbm_ms=r["hbm_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, shape="8 rows, W=5, 14/2 heads")
 
 
 def check_w8a16(seed: int, q8_shapes: dict = Q8_SHAPES, main: str = "gate_proj/up_proj") -> dict:
@@ -6588,10 +6723,9 @@ def main() -> int:
     for r in ptxas_report(logs):
         log(f"  ptxas {r['lib']}: {r['func']}: {r['registers']} registers, {r['smem']} B smem, "
             f"{r['spill_stores']} / {r['spill_loads']} B spill stores / loads")
-        if "bf16" in r["func"] and r["spill_stores"] + r["spill_loads"]:
-            raise AssertionError(f"{r['func']} spills: the bf16 flash kernels must stay in registers")
-    flash = [k for k in kernels if k.name in ("flash_attention", "flash_attention_cache")]
-    hmma = hmma_counts(flash)
+        if ("bf16" in r["func"] or r["func"].startswith("paged_walk")) and r["spill_stores"] + r["spill_loads"]:
+            raise AssertionError(f"{r['func']} spills: the bf16 flash kernels and the paged walk must stay in registers")
+    hmma = hmma_counts([k for k in kernels if k.name != "w8a16_matmul"])
     log("sass (cuobjdump -sass), HMMA instructions: "
         + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
     # flash's short and long paths at head_dim 64, 16 and 128, the cache
@@ -6601,6 +6735,9 @@ def main() -> int:
     want |= {f"flash_attention_cache_bf16_kernel<{d}>" for d in (64, 128)}
     if bf16_funcs != want or any(hmma[f] == 0 for f in bf16_funcs):
         raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
+    paged_mma = {f for f in hmma if f.startswith("paged_walk_mma_kernel")}
+    if paged_mma != {f"paged_walk_mma_kernel<{d}>" for d in (64, 128)} or any(hmma[f] == 0 for f in paged_mma):
+        raise AssertionError(f"the paged walk's bf16 GQA path must run on the tensor cores: HMMA {hmma}")
     lap(1)
 
     if 2 in run:
@@ -6817,6 +6954,10 @@ def main() -> int:
             log(f"kernel row {name} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
                 f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
                 + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms") + f" [{card}]")
+    for name, row in rows.items():
+        if "hbm_ms" in row:
+            log(f"kernel row {name}: {row['ms']:.4f} ms warm, {row['hbm_ms']:.4f} ms from device memory (bound "
+                f"{row['bound_ms']:.5f} ms) [{card}]")
     for shape, r in rows["w8a16_matmul [Qwen1.5-MoE]"]["shapes"].items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"kernel row w8a16_matmul {shape}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "

@@ -9,10 +9,16 @@
 // keep its layout: q [B, W, H, D], k/v pages [P, KVH, page, D],
 // block_tables [B, MAXP] int32, kv_lens [B] int32; out [B, W, H, D].
 //
-// Design: the page walk of paged_walk.cuh with blocks per (row, KV head,
-// window slot, 64-key span) -- the TPU kernel folded the window into its query
-// rows ([W * Gp, D] per (row, KV head)) and assembled the whole row in
-// VMEM; here each slot is the single-token kernel at its own length, so
+// Design: the page walk of paged_walk.cuh with the window folded into
+// the block's query rows, as the TPU kernel folded it into its [W * Gp,
+// D] rows: one block per (row, KV-head set, slot group, span) holds every
+// window slot's query rows (KV heads x slots x group; a window whose rows
+// pass PagedShape::kRows, such as W = 16 at a group of 7, is split into
+// equal slot groups), copies the span's K/V into shared memory once for
+// all of them, masks each slot's keys at its own length kv_lens + t, and
+// keeps a partial and a live-span count per slot; the last block of the
+// (row, set, slot group) merges each slot's spans in span order. Each
+// query row runs the same operations as in the single-token kernel, so
 // W = 1 is paged_attention.cu bit for bit and a verify slot computes the
 // same bits as the sequential decode step it stands in for. Slots past a
 // row's q_len are computed too, as on the TPU: the accept scan ignores
@@ -20,16 +26,16 @@
 // hides them.
 //
 // What bounds it on the H100: bytes -- each live K/V slot of a row read
-// once (8 rows x ~300 tokens x 2 KV heads x 64 x 2 B x 2 = ~1.2 MB a
-// layer, ~0.4 us at 3.35 TB/s) -- and the latency of reaching them. It
-// takes the split walk of paged_walk.cuh (64-key spans, a block each,
-// merged in span order in the same launch), so its blocks fill the card;
-// it still reads a row's K/V W times (mostly from the 50 MB L2, since
-// the W slots of a row run together). Folding the window into one block
-// that reads K/V once is the next redesign step.
+// once (the window's W - 1 extra keys included: ~0.7 MB a layer at 8
+// rows, 14/2 heads of 64, ~11 MB at 16/16 heads of 128) -- and the
+// latency of reaching them. Before the fold, each window slot's block
+// copied the span again (W times the bytes, mostly from L2); now a span
+// is copied once a slot group, and the extra work of W is arithmetic on
+// rows already in shared memory.
 #include "paged_walk.cuh"
 
-// ws / counters: as for lumen_paged_attention, per (row, KV head, slot).
+// ws / counters: as for lumen_paged_attention; counters one int per
+// (row, KV-head set, slot group).
 extern "C" int lumen_paged_attention_varq(const void* q, const void* k_pages,
                                           const void* v_pages, const int* block_tables,
                                           const int* kv_lens, void* o, void* ws, void* counters,
@@ -39,4 +45,10 @@ extern "C" int lumen_paged_attention_varq(const void* q, const void* k_pages,
   return lumen::paged_walk_dispatch(q, k_pages, v_pages, block_tables, kv_lens, o, ws, counters,
                                     batch, window, heads, kv_heads, page, maxp, head_dim, dtype,
                                     scale, stream);
+}
+
+// The same plan query as lumen_paged_plan in paged_attention.cu, from
+// this library's build of paged_walk.cuh.
+extern "C" int lumen_paged_plan(int group, int head_dim, int window, int dtype, int field) {
+  return lumen::paged_plan_query(group, head_dim, window, dtype, field);
 }

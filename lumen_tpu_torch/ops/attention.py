@@ -119,8 +119,9 @@ def _decode_masked(q, k, v, q_offsets, kv_valid, scale: float | None = None):
 
 
 def _q_group_pad(g: int) -> int:
-    """Query-head group padded to a multiple of 8 (JAX ``_q_group_pad``).
-    The CUDA kernel holds at most one such group of 8 per KV head."""
+    """Query-head group padded to a multiple of 8 (JAX ``_q_group_pad``),
+    as the plain versions pad it; the CUDA kernel packs real query rows
+    only, and takes groups of at most 8."""
     return max(8, -(-g // 8) * 8)
 
 
@@ -315,49 +316,100 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
     return out
 
 
+#: the fields of ``lumen_paged_plan`` (``csrc/paged_attention.cu``), in
+#: its order; :func:`paged_plan` gives all but the last, which needs the
+#: card (the occupancy calculator's blocks an SM).
+PAGED_PLAN_FIELDS = ("span", "kv_heads", "slots", "slot_groups", "rows", "threads", "smem", "mma", "resident")
+
+#: the storage types of ``PagedShape`` in ``csrc/paged_walk.cuh``
+_PAGED_TYPES = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32}
+
+
 @functools.cache
-def paged_walk_constants() -> dict[str, int]:
-    """The split walk's compile-time constants, read from
-    ``csrc/paged_walk.cuh``: ``span`` key positions a block (aligned to
-    absolute positions), ``group_max`` query heads a KV head."""
+def paged_walk_shapes() -> dict:
+    """The paged walk's compile-time block shapes, read from
+    ``csrc/paged_walk.cuh``: ``PagedShape<T, D>``'s span, KV-head rows a
+    slot, query rows a block and warps a block by (dtype, head_dim), and
+    the query rows a thread of the FMA path scores at once."""
     text = (CSRC / "paged_walk.cuh").read_text()
-    c = {n: int(re.search(rf"constexpr int {n} = (\d+);", text)[1]) for n in ("kPagedSpan", "kPagedGroupMax")}
-    return {"span": c["kPagedSpan"], "group_max": c["kPagedGroupMax"]}
+    shapes = {
+        (_PAGED_TYPES[t], int(d)): dict(zip(("span", "head_rows", "rows", "warps"), map(int, rest)))
+        for t, d, *rest in re.findall(
+            r"struct PagedShape<(__nv_bfloat16|float), (\d+)> \{\s*static constexpr int kSpan = (\d+), "
+            r"kHeadRows = (\d+), kRows = (\d+), kWarps = (\d+);", text)
+    }
+    row_group = int(re.search(r"constexpr int kPagedRowGroup = (\d+);", text)[1])
+    return {"shapes": shapes, "row_group": row_group}
 
 
-def paged_grid(slots: int, maxp: int, page: int) -> tuple[int, int]:
-    """Blocks of a split-walk launch: (spans of the table, row x KV head x
-    window slot) -- the span count covers ``maxp * page`` key positions."""
-    span = paged_walk_constants()["span"]
-    return -(-maxp * page // span), slots
+@functools.cache
+def paged_plan(group: int, head_dim: int, window: int, dtype: torch.dtype) -> dict:
+    """The launch plan of a paged call, twin of ``paged_plan`` in
+    ``csrc/paged_walk.cuh`` (``chip_smoke.py`` holds the two equal on the
+    card): a function of (group = heads / kv_heads, head_dim, window,
+    dtype) alone, never of the batch, ``maxp`` or the lengths. ``mma``: 1
+    for the tensor-core path (bf16 at a group of two or more, one KV head
+    a block, 16-row tiles a warp), 0 for the FMA path (fp32, and bf16 at a
+    group of one: several KV heads a block, so no query row is padding);
+    ``span`` key positions a block; ``kv_heads`` a block; ``slots`` of the
+    window a block, in ``slot_groups`` groups; ``rows`` = kv_heads x slots
+    x group query rows a block; ``threads``; ``smem`` bytes of dynamic
+    shared memory. Cached: every paged launch sizes its scratch by it."""
+    c = paged_walk_shapes()
+    sh = c["shapes"][(dtype, head_dim)]
+    mma = int(dtype == torch.bfloat16 and group >= 2)
+    kv_heads = 1 if mma else max(1, sh["head_rows"] // group)
+    per_slot = kv_heads * group
+    slots_max = max(1, sh["rows"] // per_slot)
+    slot_groups = -(-window // slots_max)
+    slots = -(-window // slot_groups)
+    rows = per_slot * slots
+    items = kv_heads * -(-slots * group // c["row_group"]) * max(sh["span"], head_dim // 2)  # FMA path
+    work = -(-rows // 16) if mma else -(-items // 32)
+    warps = min(sh["warps"], max(4, work, -(-rows * (head_dim // 4) // 32)))
+    size = 4 if dtype == torch.float32 else 2
+    row_bytes = (head_dim + 16 // size) * size  # a K/V row padded by 16 B
+    if mma:
+        smem = (2 * sh["span"] + -(-rows // 16) * 16) * row_bytes
+    else:
+        smem = 2 * kv_heads * sh["span"] * row_bytes + rows * (head_dim + sh["span"] + 2) * 4
+    return dict(span=sh["span"], kv_heads=kv_heads, slots=slots, slot_groups=slot_groups, rows=rows,
+                threads=32 * warps, smem=smem, mma=mma)
 
 
-def paged_workspace_bytes(slots: int, maxp: int, page: int, head_dim: int) -> int:
-    """fp32 workspace of a launch: one partial (m and l of each head slot
-    of the group, then its [head_dim] accumulator) per block of the grid."""
-    spans, _ = paged_grid(slots, maxp, page)
-    return slots * spans * paged_walk_constants()["group_max"] * (head_dim + 2) * 4
+def paged_launch(plan: dict, batch: int, window: int, heads: int, kv_heads: int, maxp: int, page: int,
+                 head_dim: int) -> dict:
+    """The grid, counters and workspace of a paged call under ``plan``:
+    blocks (row x KV-head set x slot group, spans of the ``maxp * page``
+    key positions); one counter per (row, KV-head set, slot group); one
+    fp32 partial (``head_dim`` + 2: acc, m, l) per query row ([B, W, H])
+    and span."""
+    units = batch * -(-kv_heads // plan["kv_heads"]) * plan["slot_groups"]
+    spans = -(-maxp * page // plan["span"])
+    return dict(grid=(units, spans), counters=units,
+                workspace=batch * window * heads * spans * (head_dim + 2) * 4)
 
 
 #: per (device, stream): the int32 counters of the spans' merge, one per
-#: (row, KV head, window slot). Zeroed once when made; every launch leaves
+#: (row, KV-head set, slot group). Zeroed once when made; every launch leaves
 #: them at zero, so a call costs one kernel and no memset. Launches on one
 #: stream run in order, so they never share a counter at the same time.
 _PAGED_COUNTERS: dict[tuple, torch.Tensor] = {}
 _PAGED_COUNTERS_LOCK = threading.Lock()
 
 
-def _paged_scratch(q, slots: int, maxp: int, page: int):
+def _paged_scratch(q, window: int, kv_heads: int, maxp: int, page: int):
     """The workspace (``torch.empty``) and the stream's counters for a
-    split-walk launch with ``slots`` (row, KV head, window slot) triples."""
-    ws = torch.empty(
-        paged_workspace_bytes(slots, maxp, page, q.shape[-1]) // 4, dtype=torch.float32, device=q.device
-    )
+    paged launch of ``q`` ([B, (W,) H, D]), sized by its plan."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    plan = paged_plan(h // kv_heads, d, window, q.dtype)
+    sizes = paged_launch(plan, b, window, h, kv_heads, maxp, page, d)
+    ws = torch.empty(sizes["workspace"] // 4, dtype=torch.float32, device=q.device)
     key = (q.device.index, _stream(q))
     with _PAGED_COUNTERS_LOCK:
         counters = _PAGED_COUNTERS.get(key)
-        if counters is None or counters.numel() < slots:
-            counters = torch.zeros(max(slots, 4096), dtype=torch.int32, device=q.device)
+        if counters is None or counters.numel() < sizes["counters"]:
+            counters = torch.zeros(max(sizes["counters"], 4096), dtype=torch.int32, device=q.device)
             _PAGED_COUNTERS[key] = counters
     return ws, counters
 
@@ -373,7 +425,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=Non
     kv_heads, page, maxp = k_pages.shape[1], k_pages.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        ws, counters = _paged_scratch(q, b * kv_heads, maxp, page)
+        ws, counters = _paged_scratch(q, 1, kv_heads, maxp, page)
         PAGED.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h,
@@ -396,7 +448,7 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scal
     kv_heads, page, maxp = k_pages.shape[1], k_pages.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        ws, counters = _paged_scratch(q, b * kv_heads * w, maxp, page)
+        ws, counters = _paged_scratch(q, w, kv_heads, maxp, page)
         PAGED_VARQ.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, w, h,
