@@ -316,8 +316,37 @@ Phases (any failure exits non-zero):
    collective on CUDA tensors (``SPMD_TOL``). No TPU kernel lies on the
    training path (the JAX trainer never reaches Pallas), so the kernel
    table gains no row.
+17. serving over a ``model`` axis: phase 6's ``VLMConfig()`` directory and
+    phase 8's CLIP ViT-B/32 directory served by ``serve()`` from configs
+    carrying ``mesh: {model: 2}``, as two ranks sharing the one card over
+    gloo (not NCCL, which refuses two ranks on one device): rank 0
+    process and the worker rank ``serve()`` starts. Against TP = 1
+    managers of the same weights on the same card, built first (the w8a16
+    routing rule is sticky for the process): (a) fp32, 8 text prompts'
+    greedy tokens at TP = 1 equal to the same 8 as gRPC streams at TP = 2
+    (text and counts);
+    (e) a row spilled from the TP pool resumes on the TP = 1 generator to
+    the same fp32 tokens; (b) bf16, 8 photo requests: the first decode
+    step's logits within ``TP_LOGIT_COSINE`` / ``TP_LOGIT_REL``, the greedy
+    agreement as equal prefixes, and where a request parts from TP = 1 the
+    TP = 1 top-2 logit gap at that token (it fails unless within twice the
+    TP = 2 logit difference: a near tie), every rank launching
+    ``PHASE17_KERNELS`` and synchronizing clean; (d) CLIP image and text embeddings within ``TP_CLIP_COSINE`` in
+    bf16 and in W8A8 ``dynamic``; (c) int8 with speculation K=4, the
+    varq kernel on both ranks and w8a16 on neither (the routing rule), the
+    equal prefixes and both accept rates; (f) the worker rank killed: the
+    next request fails and ``Health`` turns UNAVAILABLE within
+    ``TP_DEATH_TIMEOUT_S`` + ``TP_DEATH_MARGIN_S``. Each part's seconds and
+    each rank's peak memory are printed, and every kernel row gains phase
+    17's launches a rank.
 
-A run with no arguments drives all sixteen phases (``--phases 13``, a
+The counts above are each drive's defaults; ``main`` runs phases 9-13
+and 16 cut in depth to keep all seventeen within the time limit (phase 9
+16 photos a pass, 10 8 pages, 11 32 photos, 8 captions, 100,000 vectors
+and 256 queries, 12 2 captions and 1 stream, 13 2 captions and 64
+queries, 16 20 steps).
+
+A run with no arguments drives all seventeen phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -1908,7 +1937,8 @@ def check_spill_roundtrip(gen, n_pages: int, seed: int) -> dict:
     return dict(nbytes=len(blob_a), export_ms=(t1 - t0) * 1e3, resume_ms=(t2 - t1) * 1e3, n_pad=n_pad)
 
 
-def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str = "cuda:0") -> dict:
+def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str = "cuda:0",
+                   alone_reruns: int = 6) -> dict:
     """Phase 7: phase 6's model directory behind one bf16 ``serve()`` with
     the JAX server's defaults (spill tier, result cache, breaker,
     quarantine) plus the metrics sidecar and a 64 MiB prefix cache, on a
@@ -1918,7 +1948,8 @@ def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str =
     waves; (c) the result cache: one ``vlm_generate`` twice; (d) the
     sidecar's ``/metrics.json`` and ``/stats`` and ``Health``. Every check
     raises. Launch counts are zeroed before (a) and read after (b); (c)'s
-    second answer must launch nothing."""
+    second answer must launch nothing. ``alone_reruns`` of the greedy
+    streams are also rerun alone on the idle server."""
     from concurrent.futures import ThreadPoolExecutor
 
     import grpc
@@ -2001,11 +2032,12 @@ def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str =
         # this server (cold, no pressure), and, over phase 6's shorter
         # budget, to phase 6's answer (each id decodes to one word).
         for i in greedy:
-            drop_prefixes()
-            alone = stream(*jobs[i])
             got = (streams[i]["body"]["text"], streams[i]["body"]["generated_tokens"])
-            if alone["code"] or (alone["body"]["text"], alone["body"]["generated_tokens"]) != got:
-                raise AssertionError(f"phase 7 (a): greedy stream {i} under pressure differs from it alone")
+            if i in greedy[:alone_reruns]:
+                drop_prefixes()
+                alone = stream(*jobs[i])
+                if alone["code"] or (alone["body"]["text"], alone["body"]["generated_tokens"]) != got:
+                    raise AssertionError(f"phase 7 (a): greedy stream {i} under pressure differs from it alone")
             ref = phase6["streams"][i]
             words, ref_words = got[0].split(), ref["text"].split()
             eos6 = ref["generated_tokens"] < phase6["budgets"][i]
@@ -2020,7 +2052,8 @@ def drive_defaults(seed: int, card: str, root: Path, phase6: dict, device: str =
         log(f"phase 7 (a): 8 streams (6 greedy, 2 sampled at 0.7), {tokens} tokens in {wall:.3f} s = "
             f"{tokens / wall:.1f} tok/s; {preempted} preemptions, {g['spilled']} spills, {resumed} resumes, "
             f"{g['preempt_redone']} redone, {g['preempt_failed']} shed; spill path: {path}; the 6 greedy "
-            f"streams equal themselves alone and phase 6's unpressured answers over its budgets [{card}]")
+            f"streams equal phase 6's unpressured answers over its budgets, {min(alone_reruns, len(greedy))} of them "
+            f"themselves alone [{card}]")
 
         # -- (b) prefix reuse: one photo, three questions --------------------
         def ask(q: str) -> dict:
@@ -4813,7 +4846,7 @@ def write_fastvlm_dir(root: Path, src: Path, name: str, tower_cfg, seed: int) ->
 
 def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: dict, device: str = "cuda:0",
                       tower_cfg=None, n_captions: int = 8, n_streams: int = 2, tokens: int = 24,
-                      clip_batch: int = 64) -> dict:
+                      clip_batch: int = 64, ab_boots: int = 2) -> dict:
     """Phase 12: the VLM and CLIP options of the JAX managers. (a) a
     FastVLM-style directory (phase 6's decoder, the FastViTHD stand-in as
     ``onnx/vision_encoder.onnx``, no native tower) served by ``serve()``
@@ -4956,8 +4989,9 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
                prepare_syncs=prepare_syncs, tower_err=err, tower_nodes=n_nodes)
 
     # -- (b) the VLM int8 route: warm-up A/Bs, verdict file, a boot that reads it ------
-    # Boots 1 and 2 each time the A/B (the verdict file is removed between
-    # them: the spread of its ratio between boots); boot 3 reads the file.
+    # The first ``ab_boots`` boots each time the A/B (the verdict file is
+    # removed between them: the spread of its ratio between boots); the
+    # last one reads the file.
     src_dir = Path(phase6["model_dir"])
     verdict_path = src_dir / ".lumen_q8_verdict.json"
     rates: list = []
@@ -4985,8 +5019,8 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
     VLMManager._time_decode_route, VLMManager._q8_decode_ab = timed, measured_ab
     boots = []
     try:
-        for attempt in range(3):
-            if attempt == 1:
+        for attempt in range(ab_boots + 1):
+            if 0 < attempt < ab_boots:
                 verdict_path.unlink()
             reset_result_cache()
             if on_card:
@@ -5010,9 +5044,9 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
             del mgr, handle
     finally:
         VLMManager._time_decode_route, VLMManager._q8_decode_ab = real_time, real_ab
-    first, again, reader = boots
-    if [q for q, _ in rates] != ["bf16", "int8"] * 2:
-        raise AssertionError(f"phase 12 (b): boots 1 and 2 timed {rates}; boot 3 must not")
+    first, again, reader = boots[0], boots[ab_boots - 1], boots[-1]
+    if [q for q, _ in rates] != ["bf16", "int8"] * ab_boots:
+        raise AssertionError(f"phase 12 (b): the A/B boots timed {rates}; the verdict boot must not")
     for b in boots:
         want_gauges = {"int8_active": int(b["verdict"]["route"] == "int8"),
                        "q8_speedup_pct": round(b["verdict"]["q8_speedup"] * 100, 1)}
@@ -5020,7 +5054,7 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
                 or b["code"] or (on_card and (b["route"] == "int8") != (b["w8a16"] > 0)):
             raise AssertionError(f"phase 12 (b): a boot's route, verdict and gauges disagree: {b}")
     if reader["verdict"] != again["verdict"]:
-        raise AssertionError("phase 12 (b): boot 3 rewrote the verdict file")
+        raise AssertionError("phase 12 (b): the verdict boot rewrote the verdict file")
     # The A/B holds one decoder set at a time: its peak above what the
     # device held before it stays under the bf16 decoder plus a working
     # margin, well short of both sets together.
@@ -5028,19 +5062,21 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
         if on_card and not m["peak"] <= m["bf16"] + AB_MEMORY_MARGIN < m["bf16"] + m["int8"]:
             raise AssertionError(f"phase 12 (b): the A/B's peak {m['peak']} B above its start exceeds the bf16 "
                                  f"decoder ({m['bf16']} B) + {AB_MEMORY_MARGIN} B (int8 decoder {m['int8']} B)")
-    ratios = [rates[1][1] / rates[0][1], rates[3][1] / rates[2][1]]
+    bf16_tps, q8_tps = [r for _, r in rates[0::2]], [r for _, r in rates[1::2]]
+    ratios = [q / b for b, q in zip(bf16_tps, q8_tps)]
     log(f"phase 12 (b): LUMEN_VLM_Q8_ROUTE=auto, warmup, scheduler continuous: A/B decode (the engine's step_block, "
-        f"batch 4, 64 tokens a row; best of 2) {rates[0][1]:.1f} tok/s bf16 vs {rates[1][1]:.1f} int8 -> "
-        f"{first['route']} ({ratios[0]:.3f}x); a second boot's A/B {rates[2][1]:.1f} vs {rates[3][1]:.1f} -> "
-        f"{again['route']} ({ratios[1]:.3f}x); device memory above the A/B's start, peak "
+        f"batch 4, 64 tokens a row; best of 2), a boot each: "
+        + "; ".join(f"{b:.1f} tok/s bf16 vs {q:.1f} int8 -> {boot['route']} ({q / b:.3f}x)"
+                    for b, q, boot in zip(bf16_tps, q8_tps, boots))
+        + f"; device memory above the A/B's start, peak "
         f"{[round(m['peak'] / 2**20, 1) for m in ab_mem]} MiB (bf16 decoder {ab_mem[0]['bf16'] / 2**20:.1f} MiB, "
         f"int8 {ab_mem[0]['int8'] / 2**20:.1f} MiB); verdict {json.dumps(again['verdict'])}; boots "
-        f"{first['boot_s']:.2f} / {again['boot_s']:.2f} s (A/B) then {reader['boot_s']:.2f} s (verdict read, no "
-        f"probe); served route {reader['route']}, gauges {json.dumps(reader['gauges'])}, w8a16 launches "
+        f"{' / '.join(format(b['boot_s'], '.2f') for b in boots[:-1])} s (A/B) then {reader['boot_s']:.2f} s (verdict read, "
+        f"no probe); served route {reader['route']}, gauges {json.dumps(reader['gauges'])}, w8a16 launches "
         f"{reader['w8a16']} [{card}]")
-    out.update(ab_bf16_tps=[rates[0][1], rates[2][1]], ab_q8_tps=[rates[1][1], rates[3][1]], ab_ratios=ratios,
+    out.update(ab_bf16_tps=bf16_tps, ab_q8_tps=q8_tps, ab_ratios=ratios,
                ab_route=first["route"], ab_peak_mib=[m["peak"] / 2**20 for m in ab_mem],
-               boot_ab_s=[first["boot_s"], again["boot_s"]], boot_verdict_s=reader["boot_s"])
+               boot_ab_s=[b["boot_s"] for b in boots[:-1]], boot_verdict_s=reader["boot_s"])
 
     # -- (c) scheduler: coalesce, bf16 then int8 ------------------------------------
     questions = [question if i % 2 == 0 else LONG_PROMPT for i in range(n)]
@@ -6637,6 +6673,413 @@ def drive_train(seed: int, card: str, root: Path, cfg=None, device: str = "cuda:
     return a
 
 
+# -- phase 17: serving over a model axis ------------------------------------------
+
+#: the kernels every rank of phase 17 (b) must launch (the bf16 path), and
+#: those of (c) (int8 + speculation under the routing rule)
+PHASE17_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention")
+PHASE17_INT8_KERNELS = ("paged_attention_varq",)
+#: phase 17 (b): the first decode step's bf16 logits at TP = 2 against TP = 1
+TP_LOGIT_COSINE = 0.999
+TP_LOGIT_REL = 0.05  # max|diff| / max|TP = 1 logit|
+#: phase 17 (d): CLIP embeddings (unit vectors) at TP = 2 against TP = 1
+TP_CLIP_COSINE = 0.999
+#: phase 17 (f): the group timeout, and the margin a failed call and the
+#: Health turn may take past it
+TP_DEATH_TIMEOUT_S, TP_DEATH_MARGIN_S = 30.0, 30.0
+
+
+def tp_yaml(path: Path, cache_dir: Path, vlm_model: str, dtype: str, quantize: str | None = None,
+            clip_model: str | None = None, batch_size: int = 8) -> Path:
+    """A deployment whose services carry ``mesh: {model: 2}``: ``vlm``,
+    and ``clip`` beside it when ``clip_model`` names one (int8 CLIP is
+    W8A8 ``dynamic``)."""
+    import yaml
+
+    mesh = {"axes": {"model": 2}}
+    services = {"vlm": {
+        "enabled": True, "package": "lumen_tpu.models.vlm",
+        "import_info": {"registry_class": "lumen_tpu.serving.services.vlm_service.VlmService"},
+        "backend_settings": {"dtype": dtype, "batch_size": 8, "mesh": mesh, **({"quantize": quantize} if quantize else {})},
+        "models": {"vlm": {"model": vlm_model, "runtime": "jax"}},
+    }}
+    if clip_model:
+        services["clip"] = {
+            "enabled": True, "package": "lumen_tpu.models.clip",
+            "import_info": {"registry_class": "lumen_tpu.serving.services.clip_service.ClipService"},
+            "backend_settings": {"dtype": dtype, "batch_size": batch_size, "mesh": mesh,
+                                 **({"quantize": quantize} if quantize else {})},
+            # no label set: its 1,000 embeddings at boot would run the text
+            # tower 16 times through the gloo sums (phase 8 holds the labels)
+            "models": {"clip": {"model": clip_model, "runtime": "jax"}},
+        }
+    path.write_text(yaml.safe_dump({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(cache_dir)},
+        "deployment": {"mode": "hub", "services": sorted(services)},
+        "server": {"port": 50051, "host": "127.0.0.1"},
+        "services": services,
+    }))
+    return path
+
+
+def boot_tp(yaml_path: Path, device: str, devices: list, backend: str):
+    """``serve()`` of a model-axis deployment in process: it starts the
+    worker rank itself. Returns the handle, a channel, a stub and the
+    seconds to the first ``Health`` ok."""
+    import grpc
+    from google.protobuf import empty_pb2
+
+    from lumen_tpu_torch.core.config import load_config
+    from lumen_tpu_torch.serving.proto.ml_service_pb2_grpc import InferenceStub
+    from lumen_tpu_torch.serving.server import serve
+
+    t0 = time.perf_counter()
+    handle = serve(load_config(str(yaml_path)), port_override=0, skip_download=True, device=device,
+                   tp_devices=devices, tp_backend=backend)
+    channel = grpc.insecure_channel(f"127.0.0.1:{handle.port}")
+    stub = InferenceStub(channel)
+    stub.Health(empty_pb2.Empty(), timeout=60)
+    return handle, channel, stub, time.perf_counter() - t0
+
+
+def equal_prefix(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def tp_generate(mgr, jobs: list, max_new: int) -> list:
+    """Greedy generations of every ``(messages, canvas or None)`` job on
+    ``mgr`` at once: token lists."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(lambda job: list(mgr._generate_uncached(
+            job[0], job[1], max_new, 0.0, 1.0, False, 1.0, None, True, None).tokens), jobs))
+
+
+def tp_step_logits(mgr, msgs, canvas, tokens: list):
+    """The logits that pick each of a greedy run's ``tokens`` after the
+    prompt, on the host in float32, ``[len(tokens), V]``: the prompt as one
+    prefill chunk (its last position's logits pick ``tokens[0]``), then
+    ``tokens[:-1]`` as a second chunk at its end."""
+    import torch
+
+    embeds, positions, _, _, _, _, n_live = mgr._prepare_inputs(msgs, canvas)
+    gen = mgr.generator
+    dev = gen.device
+    span = n_live + len(tokens) - 1
+    caches = gen.new_prefill_cache(mgr.engine._admit_kv_len(max(int(embeds.shape[1]), span)))
+    rows = [gen.prefill_chunk(caches, embeds, positions, 0, torch.tensor([n_live], dtype=torch.int32, device=dev),
+                              last_only=True)[0]]
+    if len(tokens) > 1:
+        prev, _, _ = mgr._prepare_text(torch.tensor([tokens[:-1]], device=dev),
+                                       torch.tensor([len(tokens) - 1], device=dev))
+        rows.append(gen.prefill_chunk(caches, prev, torch.arange(n_live, span, device=dev)[None], n_live,
+                                      torch.tensor([span], dtype=torch.int32, device=dev))[0])
+    return torch.cat(rows).float().cpu()
+
+
+def top2_gap(logits) -> float:
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def tp_spill_blocks(mgr, msgs, canvas, blocks: int, resume=None, block: int = 8) -> tuple:
+    """One greedy row on ``mgr``'s generator with every page granted up
+    front: ``blocks`` decode blocks from the prefill, or from the exported
+    row ``resume``; returns the tokens and the row as ``export_row`` gives
+    it then."""
+    import numpy as np
+    import torch
+
+    gen, page = mgr.generator, 16
+    pages = -(-gen.max_seq // page)
+    pool = gen.init_pool(2, pages=pages + 1, page_size=page)
+    tables = np.zeros((2, pages), np.int32)
+    tables[0] = np.arange(1, pages + 1)
+    dev = gen.device
+    rng = torch.Generator(device=dev).manual_seed(0)
+    if resume is None:
+        embeds, positions, lengths, prompt_ids, _, _, n_live = mgr._prepare_inputs(msgs, canvas)
+        params = (torch.zeros(1, device=dev), torch.ones(1, device=dev), torch.zeros(1, dtype=torch.bool, device=dev),
+                  torch.ones(1, device=dev))
+        caches, tok0, seen = gen.prefill(embeds, positions, lengths, prompt_ids, rng, *params,
+                                         kv_len=mgr.engine._admit_kv_len(int(embeds.shape[1])))
+        gen.admit(pool, 0, caches, tok0, seen, n_live, tables[0], 256, 0.0, 1.0, False, 1.0)
+    else:
+        n = len(resume["pages"][0]["k"])
+        gen.resume(pool, 0, resume["pages"], tables[0][:n], resume["seen"], resume["cur_tok"], resume["cur_len"],
+                   resume["n_gen"], 256, 0.0, 1.0, False, 1.0)
+    dev_tables = torch.from_numpy(tables).to(dev)
+    toks = [gen.step_block(pool, dev_tables, rng, block)[0].cpu().numpy() for _ in range(blocks)]
+    used = -(-int(pool["cur_len"][0]) // page)
+    n_pad = 1
+    while n_pad < used:
+        n_pad *= 2
+    ids = np.zeros((n_pad,), np.int32)
+    ids[:used] = tables[0][:used]
+    return np.concatenate(toks).tolist(), gen.export_row(pool, 0, ids)
+
+
+def drive_tp(seed: int, card: str, root: Path, vlm_dir: Path, clip_dir: Path, photos: list, device: str = "cuda:0",
+             devices: list | None = None, backend: str = "gloo", n_streams: int = 8, n_photos: int = 8,
+             max_new: int = 8, spec_new: int = 16, kernels: tuple = PHASE17_KERNELS,
+             int8_kernels: tuple = PHASE17_INT8_KERNELS) -> dict:
+    """Phase 17: the VLM (``vlm_dir``, phase 6's full-width directory) and
+    CLIP (``clip_dir``, phase 8's) served over ``mesh: {model: 2}`` through
+    ``serve()``, two ranks on ``devices`` (default: both on ``device``,
+    over gloo -- NCCL refuses two ranks on one card), against TP = 1
+    managers of the same weights on the same card: (a) fp32 greedy tokens
+    of 8 text streams equal, (e) a spilled TP row resumed at TP = 1, (b)
+    ``n_photos`` bf16 photo requests: the first step's logits within the
+    stated tolerance, the greedy agreement, and where a request parts from
+    TP = 1 the TP = 1 top-2 logit gap there against the TP = 2 vs TP = 1
+    logit difference at that point (a flip needs one of the two logits to
+    move by half the gap: a wider gap is a fault), every rank's launches
+    and a clean synchronize, (d) CLIP bf16 and W8A8, (c) int8 with
+    speculation (the w8a16 kernel off by the routing rule), (f) a killed
+    worker. The TP = 1 references run first: the routing rule is sticky
+    for the process. One group (the worker rank started once) serves the
+    three ``serve()`` boots, each of which finds it running; ``max_new``
+    and ``spec_new`` are the tokens a request (two ranks on one card over
+    gloo decode ~5x slower than one rank: PERF.md §6). The CPU tests
+    rehearse it small with the launch gates emptied."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+    import numpy as np
+    import torch
+    from google.protobuf import empty_pb2
+
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.ops import quant_matmul
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.runtime.tp_group import TPGroup, rank_report
+    from lumen_tpu_torch.utils.host_decode import vlm_canvas
+
+    t_phase = time.perf_counter()
+    devices = devices or [device, device]
+    on_card = torch.device(device).type == "cuda"
+    question = "describe this photo in one detailed sentence"
+    msgs = [ChatMessage("user", question)]
+    prompt = json.dumps([{"role": "user", "content": question}])
+    templated = [ChatMessage("user", "caption this image : a red car on a wet road , a red car on a wet road .")]
+    size = json.loads((vlm_dir / "config.json").read_text())["vision_config"]["image_size"]
+    canvases = [vlm_canvas(photos[i], size) for i in range(n_photos)]
+    texts = [clip_label(i) for i in range(4)]
+    # (a)'s streams are text prompts (the vision tower runs in (b)-(e)):
+    # two ranks on one card prefill slowly (PERF.md §6)
+    questions = [f"{question} number {i}" for i in range(n_streams)]
+    text_jobs = [([ChatMessage("user", q)], None) for q in questions]
+    out: dict = {"parts_s": {}}
+    laps = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["parts_s"][part], laps[0] = round(now - laps[0], 1), now
+
+    def free() -> None:
+        if on_card:
+            torch.cuda.empty_cache()
+
+    if not quant_matmul.kernel_routable():
+        raise AssertionError("a model axis was noted before phase 17's TP = 1 references")
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_VLM_SPEC_K="0"):
+        reset_result_cache()
+        # -- TP = 1 references on the same card, before any model axis ----------
+        ref32 = VLMManager.from_model_dir(str(vlm_dir), device=device, dtype="float32")
+        # the worker rank starts while the references run
+        pending = ThreadPoolExecutor(max_workers=1)
+        starting = pending.submit(TPGroup.spawn, devices, backend, TP_DEATH_TIMEOUT_S)
+        want32 = tp_generate(ref32, text_jobs, max_new)
+        spill_whole, _ = tp_spill_blocks(ref32, msgs, canvases[0], blocks=3)
+        ref16 = VLMManager.from_model_dir(str(vlm_dir), device=device, dtype="bfloat16")
+        want16 = tp_generate(ref16, [(msgs, c) for c in canvases], max_new)
+        # the logits of every step of the TP = 1 greedy runs: (b) reads
+        # the first step's, and each step where a TP = 2 request parts
+        logits16 = [tp_step_logits(ref16, msgs, c, w) for c, w in zip(canvases, want16)]
+        ref16.close()
+        del ref16
+        free()
+        clip_ref = {}
+        for tag, quant in (("bf16", None), ("w8a8", "int8")):
+            with env(LUMEN_CLIP_Q8_ROUTE="int8"):
+                m = CLIPManager(str(clip_dir), dtype="bfloat16", quantize=quant, device=device)
+                m.initialize()
+            clip_ref[tag] = (np.stack([m.encode_image(p) for p in photos[:4]]), np.stack([m.encode_text(t) for t in texts]))
+            m.close()
+            del m
+        free()
+        with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0", LUMEN_VLM_Q8_ROUTE="int8"):
+            ref8 = VLMManager.from_model_dir(str(vlm_dir), device=device, dtype="bfloat16", quantize="int8")
+            if on_card:
+                quant_matmul.W8A16.zero_counts()
+            want8 = tp_generate(ref8, [(templated, c) for c in canvases[:2]], spec_new)
+            ref8_launches = quant_matmul.W8A16.launches
+            ref8_rate = ref8.engine.spec_accepted / max(ref8.engine.spec_proposed, 1)
+            ref8.close()
+            del ref8
+        free()
+        lap("TP = 1 references")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()  # rank 0's peaks below are the TP parts'
+        group = starting.result()
+        pending.shutdown()
+        lap("worker rank started")
+        try:
+            # -- (a) fp32 and (e) spill: serve() on mesh {model: 2} -------------------
+            handle, channel, stub, load_s = boot_tp(tp_yaml(root / "tp32.yaml", root / "cache", vlm_dir.name, "float32"),
+                                                    device, devices, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                if mgr.mesh.shape != {"model": 2} or mgr.tp_group is not group:
+                    raise AssertionError(f"(a): the VLM service serves on {mgr.mesh.shape}, not on the running group")
+                with ThreadPoolExecutor(max_workers=n_streams) as pool:
+                    streams = list(pool.map(lambda q: grpc_call(
+                        stub, "vlm_generate_stream", b"", {"messages": json.dumps([{"role": "user", "content": q}]),
+                                                           "max_new_tokens": max_new}), questions))
+                # The stand-in's WordLevel ids decode to distinct words: equal
+                # text and count is equal tokens.
+                for i, r in enumerate(streams):
+                    want_text = ref32.tokenizer.decode(want32[i])
+                    if r["code"] or (r["body"]["generated_tokens"], r["body"]["text"]) != (len(want32[i]), want_text):
+                        raise AssertionError(f"(a) stream {i} over gRPC at TP = 2 differs from TP = 1: code {r['code']}, "
+                                             f"{r.get('body', {}).get('text', '')[:80]!r} vs {want_text[:80]!r}")
+                lap("(a) fp32")
+                first, row = tp_spill_blocks(mgr, msgs, canvases[0], blocks=2)
+                rest, _ = tp_spill_blocks(ref32, msgs, canvases[0], blocks=1, resume=row)
+                if first + rest != spill_whole:
+                    raise AssertionError(f"(e) a TP row resumed at TP = 1 went on to other tokens: {first + rest} vs "
+                                         f"{spill_whole}")
+                out["spill_row_mb"] = sum(a["k"].nbytes + a["v"].nbytes for a in row["pages"]) / 1e6
+                reports = group.each_rank(rank_report)
+                out["a_peak_gib"] = [r.get("peak_gib", 0.0) for r in reports]
+                lap("(e) spill")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            out.update(a_load_s=load_s, a_tokens=sum(map(len, want32)), a_streams=len(want32))
+            ref32.close()
+            free()
+
+            # -- (b) bf16 and (d) CLIP bf16: the serving default ----------------------
+            handle, channel, stub, load_s = boot_tp(
+                tp_yaml(root / "tp16.yaml", root / "cache", vlm_dir.name, "bfloat16", clip_model=clip_dir.name),
+                device, devices, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                got = tp_step_logits(mgr, msgs, canvases[0], want16[0][:1])[0]
+                cos = float(torch.nn.functional.cosine_similarity(got, logits16[0][0], dim=0))
+                diff0 = float((got - logits16[0][0]).abs().max())
+                rel = diff0 / float(logits16[0][0].abs().max())
+                if cos < TP_LOGIT_COSINE or rel > TP_LOGIT_REL:
+                    raise AssertionError(f"(b) first-step bf16 logits at TP = 2: cosine {cos:.6f} (>= {TP_LOGIT_COSINE}), "
+                                         f"max|diff| {rel:.4f} of max|logit| (<= {TP_LOGIT_REL})")
+                group.each_rank(rank_report, True)
+                t0 = time.perf_counter()
+                got16 = tp_generate(mgr, [(msgs, c) for c in canvases], max_new)
+                wall = time.perf_counter() - t0
+                reports = group.each_rank(rank_report, True)
+                for r, rep in enumerate(reports):
+                    missing = [k for k in kernels if rep["launches"][k] == 0]
+                    if missing or rep.get("sync", "ok") != "ok":
+                        raise AssertionError(f"(b) rank {r}: never launched {missing}, synchronize {rep.get('sync')}")
+                prefixes = [equal_prefix(g, w) for g, w in zip(got16, want16)]
+                # Where a request parts from TP = 1: the TP = 1 top-2 gap at
+                # that step, and how far the TP = 2 logits there lie from it.
+                parted = []
+                for i, p in enumerate(prefixes):
+                    if p == len(want16[i]):
+                        continue
+                    here = logits16[i][p]
+                    diff = float((tp_step_logits(mgr, msgs, canvases[i], want16[i][: p + 1])[p] - here).abs().max())
+                    parted.append({"request": i, "token": p, "tp1_gap": top2_gap(here), "max_diff": diff})
+                    if parted[-1]["tp1_gap"] > 2 * max(diff, diff0):
+                        raise AssertionError(f"(b) request {i} parts from TP = 1 at token {p} where the TP = 1 top-2 gap "
+                                             f"{parted[-1]['tp1_gap']:.4f} exceeds twice the TP = 2 logit difference "
+                                             f"({diff:.4f} there, {diff0:.4f} at the first step): not a near tie")
+                out.update(b_load_s=load_s, b_cos=cos, b_rel=rel, b_prefix=prefixes, b_parted=parted,
+                           b_lengths=[len(t) for t in want16], b_tok_s=sum(map(len, got16)) / wall,
+                           b_launches=[rep["launches"] for rep in reports],
+                           b_peak_gib=[rep.get("peak_gib", 0.0) for rep in reports])
+                lap("(b) bf16")
+                clip = handle.services["clip"].managers["clip"]
+                img = np.stack([clip.encode_image(p) for p in photos[:4]])
+                txt = np.stack([clip.encode_text(t) for t in texts])
+                served = grpc_call(stub, "clip_image_embed", photos[0], {})
+                if served["code"]:
+                    raise AssertionError(f"(d) clip_image_embed over gRPC at TP = 2: code {served['code']}")
+                out["d_bf16_cos"] = [float(cosines(img, clip_ref["bf16"][0]).min()), float(cosines(txt, clip_ref["bf16"][1]).min())]
+                if min(out["d_bf16_cos"]) < TP_CLIP_COSINE:
+                    raise AssertionError(f"(d) CLIP bf16 at TP = 2: cosine to TP = 1 {out['d_bf16_cos']} (>= {TP_CLIP_COSINE})")
+                lap("(d) CLIP bf16")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            free()
+
+            # -- (c) int8 + speculation, (d) CLIP W8A8, (f) a killed worker -----------
+            with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0", LUMEN_VLM_Q8_ROUTE="int8",
+                     LUMEN_CLIP_Q8_ROUTE="int8"):
+                handle, channel, stub, load_s = boot_tp(
+                    tp_yaml(root / "tp8.yaml", root / "cache", vlm_dir.name, "bfloat16", "int8", clip_model=clip_dir.name),
+                    device, devices, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                eng = mgr.engine
+                group.each_rank(rank_report, True)
+                got8 = tp_generate(mgr, [(templated, c) for c in canvases[:2]], spec_new)
+                reports = group.each_rank(rank_report, True)
+                for r, rep in enumerate(reports):
+                    missing = [k for k in int8_kernels if rep["launches"][k] == 0]
+                    if missing or rep["launches"]["w8a16_matmul"] or rep.get("sync", "ok") != "ok":
+                        raise AssertionError(f"(c) rank {r}: never launched {missing}; w8a16 launches "
+                                             f"{rep['launches']['w8a16_matmul']} (the routing rule wants 0); synchronize "
+                                             f"{rep.get('sync')}")
+                if on_card and not ref8_launches:
+                    raise AssertionError("(c) the TP = 1 int8 reference never launched the w8a16 kernel")
+                out.update(c_load_s=load_s, c_prefix=[equal_prefix(got8[i], want8[i]) for i in range(len(got8))],
+                           c_lengths=[len(t) for t in want8], c_rate=eng.spec_accepted / max(eng.spec_proposed, 1),
+                           c_ref_rate=ref8_rate, c_ref_w8a16=ref8_launches, c_launches=[rep["launches"] for rep in reports],
+                           c_peak_gib=[rep.get("peak_gib", 0.0) for rep in reports])
+                lap("(c) int8 + spec")
+                clip = handle.services["clip"].managers["clip"]
+                img = np.stack([clip.encode_image(p) for p in photos[:4]])
+                txt = np.stack([clip.encode_text(t) for t in texts])
+                out["d_w8a8_cos"] = [float(cosines(img, clip_ref["w8a8"][0]).min()), float(cosines(txt, clip_ref["w8a8"][1]).min())]
+                if clip.quant_route != "int8" or min(out["d_w8a8_cos"]) < TP_CLIP_COSINE:
+                    raise AssertionError(f"(d) CLIP W8A8 at TP = 2 ({clip.quant_route}): cosine to TP = 1 "
+                                         f"{out['d_w8a8_cos']} (>= {TP_CLIP_COSINE})")
+                lap("(d) CLIP W8A8")
+                # (f): kill the worker rank; the next request fails and Health turns
+                os.kill(group.pids[1], signal.SIGKILL)
+                t0 = time.perf_counter()
+                r = grpc_call(stub, "vlm_generate_stream", photos[0], {"messages": prompt, "max_new_tokens": max_new},
+                              timeout=TP_DEATH_TIMEOUT_S + TP_DEATH_MARGIN_S)
+                fail_s = time.perf_counter() - t0
+                try:
+                    stub.Health(empty_pb2.Empty(), timeout=TP_DEATH_TIMEOUT_S)
+                    health = "ok"
+                except grpc.RpcError as e:
+                    health = e.code().name
+                health_s = time.perf_counter() - t0
+                if not r["code"] or health == "ok" or health_s > TP_DEATH_TIMEOUT_S + TP_DEATH_MARGIN_S:
+                    raise AssertionError(f"(f) after the worker was killed: request code {r['code']}, Health {health} "
+                                         f"after {health_s:.1f} s")
+                out.update(f_code=r["code"], f_fail_s=fail_s, f_health=health, f_health_s=health_s)
+                lap("(f) killed worker")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+        finally:
+            group.stop()
+        reset_result_cache()
+    free()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -6666,8 +7109,9 @@ def count_syncs(fn) -> int:
 
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
-PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12)}
-ALL_PHASES = frozenset(range(1, 17))
+PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
+               17: (6, 8)}
+ALL_PHASES = frozenset(range(1, 18))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -6777,7 +7221,9 @@ def main() -> int:
                 f"peak GiB {grpc_drive['peak_gib']:.3f}")
             lap(6)
         if 7 in run:
-            defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive)
+            # depth cut for phase 17's room: 2 of the 6 greedy streams rerun alone (every one still equals
+            # phase 6's unpressured answer)
+            defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive, alone_reruns=2)
             log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
                 f"{defaults['preempted']} preemptions, "
                 f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
@@ -6793,7 +7239,8 @@ def main() -> int:
                 f"{clip['cos_min']:.6f}")
             lap(8)
         if 9 in run:
-            face = drive_face(args.seed, card, Path(tmp), clip)
+            # depth cut for phase 17's room: 16 photos a pass (was 128)
+            face = drive_face(args.seed, card, Path(tmp), clip, n_photos=16)
             log(f"phase 9 [{card}]: {face['phase_s']:.1f} s in all; stand-in pack exported in {face['export_s']:.1f} s, "
                 f"face server up in {face['load_s']:.2f} s; {face['photos_s']:.1f} photos/s face_detect over gRPC with TF32 "
                 f"convolutions ({face['photos_s_ieee']:.1f} in IEEE float32), client p50 {face['p50_ms']:.1f} ms p95 "
@@ -6807,7 +7254,8 @@ def main() -> int:
                 f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
             lap(9)
         if 10 in run:
-            ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face)
+            # depth cut for phase 17's room: 8 pages (was 32)
+            ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face, n_pages=8)
             log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
                 f"server up in {ocr['load_s']:.2f} s; {ocr['pages_s']:.2f} pages/s over gRPC with TF32 convolutions "
                 f"({ocr['pages_s_ieee']:.2f} in IEEE float32), client p50 {ocr['p50_ms']:.1f} ms p95 {ocr['p95_ms']:.1f} ms; one "
@@ -6820,7 +7268,10 @@ def main() -> int:
                 f"{json.dumps(ocr['hub_launches'])}")
             lap(10)
         if 11 in run:
-            ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr)
+            # depth cut for phase 17's room: 32 photos through the CLI, 8 with captions, 100,000 vectors and
+            # 256 queries (were 128, 16, 200,000, 512)
+            ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr, n_photos=32, n_captions=8,
+                                  n_vectors=100_000, n_queries=256)
             log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
                 f"{ingest['images_s']:.2f} images/s (CLI, clip + face + ocr, batch 64), stage device ms a batch "
                 f"{json.dumps({k: round(v, 3) for k, v in ingest['stage_ms'].items()})}, syncs flagged "
@@ -6831,7 +7282,9 @@ def main() -> int:
                 f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
             lap(11)
         if 12 in run:
-            options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip)
+            # depth cut for phase 17's room: 2 captions beside 1 stream, one A/B boot (were 8, 2, 2)
+            options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip, n_captions=2, n_streams=1,
+                                        ab_boots=1)
             co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
             log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
                 f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
@@ -6846,7 +7299,8 @@ def main() -> int:
                 f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
             lap(12)
         if 13 in run:
-            fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive)
+            # depth cut for phase 17's room: 2 captions beside the 2 streams, 64 search queries in (d) (were 8, 128)
+            fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive, n_captions=2, n_queries=64)
             log(f"phase 13 [{card}]: {fleet['phase_s']:.1f} s in all; {fleet['requests']} migrated rows equal to the "
                 f"colocated control, {fleet['row_bytes'] / 1e6:.3f} MB a row, {fleet['fallbacks']} fallbacks in (b), "
                 f"aggregate {fleet['tok_s_migrated']:.1f} tok/s migrated vs {fleet['tok_s_colocated']:.1f} colocated; "
@@ -6875,16 +7329,39 @@ def main() -> int:
             lap(15)
         if 16 in run:
             torch.cuda.empty_cache()
-            train = drive_train(args.seed, card, Path(tmp))
+            # depth cut for phase 17's room: 20 steps (was 30; the rate over steps 16-20)
+            train = drive_train(args.seed, card, Path(tmp), steps=20)
             log(f"phase 16 [{card}]: {train['phase_s']:.1f} s in all; {train['pairs_s']:.1f} image-text pairs/s "
                 f"({train['steps_s']:.3f} steps/s at batch 256, fp32), peak {train['peak_gib']:.3f} GiB "
                 f"(remat {train['peak_remat_gib']:.3f}), 0 flash launches in training, card vs CPU loss within "
                 f"{train['parity_loss_err']:.2e}, resume within {train['resume_err']:.2e}")
             lap(16)
+        if 17 in run:
+            torch.cuda.empty_cache()
+            tp = drive_tp(args.seed, card, Path(tmp), grpc_drive["model_dir"], Path(tmp) / "cache" / "models" / "SmokeCLIP",
+                          grpc_drive["photos"])
+            log(f"phase 17 [{card}]: {tp['phase_s']:.1f} s in all, parts {json.dumps(tp['parts_s'])}; TP = 2 as two "
+                f"ranks sharing the card over gloo, not NCCL; (a) fp32: {tp['a_streams']} streams' greedy tokens "
+                f"({tp['a_tokens']} tokens) equal to TP = 1, served up in {tp['a_load_s']:.2f} s; (e) a spilled TP row "
+                f"({tp['spill_row_mb']:.3f} MB) resumed at TP = 1 to the same fp32 tokens; (b) bf16 first-step logits "
+                f"cosine {tp['b_cos']:.6f}, max|diff| {tp['b_rel']:.4f} of max|logit|, greedy equal prefixes "
+                f"{tp['b_prefix']} of {tp['b_lengths']} tokens (where one parts, the TP = 1 top-2 gap and the TP = 2 "
+                f"max|diff| there: {json.dumps(tp['b_parted'])}), {tp['b_tok_s']:.1f} tok/s; (c) int8 + spec K=4 equal "
+                f"prefixes {tp['c_prefix']} of {tp['c_lengths']}, accept rate {tp['c_rate']:.3f} at TP = 2 vs "
+                f"{tp['c_ref_rate']:.3f} at TP = 1 (w8a16 launches at TP = 1 {tp['c_ref_w8a16']}, at TP = 2 0); (d) CLIP "
+                f"cosine to TP = 1 bf16 {tp['d_bf16_cos']}, W8A8 {tp['d_w8a8_cos']}; (f) killed worker: request code "
+                f"{tp['f_code']} in {tp['f_fail_s']:.2f} s, Health {tp['f_health']} after {tp['f_health_s']:.2f} s")
+            for part in ("a", "b", "c"):
+                log(f"phase 17 ({part}) [{card}]: peak GiB a rank {[round(g, 3) for g in tp[f'{part}_peak_gib']]}"
+                    + (f"; launches a rank {json.dumps(tp[f'{part}_launches'])}" if part != "a" else ""))
+            lap(17)
     log(f"seconds a phase: {json.dumps(laps)} [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
         return 0
+    for k in kernels:
+        log(f"kernel row {k.name}: phase-17 launches a rank, (b) bf16 {[c[k.name] for c in tp['b_launches']]}, (c) int8 + "
+            f"spec {[c[k.name] for c in tp['c_launches']]} [{card}]")
     for k in kernels:
         counts = {part: c[k.name] for part, c in options["launches"].items() if k.name in c}
         log(f"kernel row {k.name}: phase-12 launches {json.dumps(counts)}; phase-13 launches decode host "

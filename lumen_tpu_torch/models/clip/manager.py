@@ -27,6 +27,13 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   ``auto`` with ``warmup`` a timed A/B at the top serving bucket keeps
   int8 only if it is at least as fast). On graph towers ``quantize`` is
   ignored with the JAX package's warning.
+- ``mesh_axes`` with a ``model`` axis above 1 serves a native checkpoint
+  tensor-parallel on the process's rank-0/worker group
+  (``runtime.tp_group``): every rank places its shards by the JAX
+  placement (``INT8_TP_RULES`` first when int8, then
+  ``TRANSFORMER_TP_RULES``; :func:`place_tp_clip`) and every tower
+  forward runs on every rank; the label matrix and the host softmax stay
+  on rank 0.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ import torch
 from ...core.model_info import ModelInfo, load_model_info
 from ...ops.image import IMAGENET_MEAN, IMAGENET_STD, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from ...ops.quant import register_route_gauges, resolve_q8_kernel, resolve_q8_route
+from ...ops.quant_matmul import note_mesh_model_axis
+from ...parallel.sharding import INT8_TP_RULES, TRANSFORMER_TP_RULES, local_state_dict
 from ...runtime.batcher import MicroBatcher, mesh_buckets, mesh_sharded, warmup_batcher
 from ...runtime.decode_pool import get_decode_pool
 from ...runtime.fleet import (
@@ -60,6 +69,7 @@ from ...runtime.fleet import (
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
+from ...runtime.tp_group import run_on
 from ...runtime.weights import WeightLoadError, load_state_dict
 from ...utils.metrics import metrics
 from .convert import convert_clip_checkpoint, quantize_clip_int8
@@ -131,6 +141,11 @@ class CLIPManager:
         # stays the primary (replica-0) slice, where label embedding runs.
         self.fleet_plan = plan_replicas("clip", mesh_axes, devices=fleet_devices(self.device))
         self.mesh = self.fleet_plan.meshes[0]
+        #: the tensor-parallel group of a ``model`` axis above 1, else None
+        self.tp_group = self.mesh.group
+        if self.tp_group is not None and self.mesh.device != self.device:
+            raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
+        note_mesh_model_axis(self.mesh.shape.get("model", 1))
         self.warmup = warmup
         self.info: ModelInfo = load_model_info(model_dir)
         # (vision, text) ClipTowerGraph when graph-served; the probed flag
@@ -269,6 +284,13 @@ class CLIPManager:
             )
         return state
 
+    def _place(self, model: CLIPModel):
+        """The serving placement of a host ``model``: on the primary device,
+        or each rank's shards on a tensor-parallel group."""
+        if self.tp_group is None:
+            return model.to(self.mesh.device)
+        return self.tp_group.run(place_tp_clip, model.cfg, model.state_dict(), self.policy.param_dtype, self.tp_group)
+
     def _place_native(self, state: dict[str, torch.Tensor]) -> None:
         base_cfg = dataclasses.replace(self.cfg, weight_quant=None)
         model = CLIPModel(base_cfg)
@@ -290,6 +312,9 @@ class CLIPManager:
             self._route_gauge_fn = register_route_gauges(self, f"clip-quant:{self.model_id}")
         if model.cfg.weight_quant is None:
             self.cfg = model.cfg
+        if self.tp_group is not None:
+            self._fleet_models = [model if getattr(model, "tp", None) else self._place(model)]
+            return
         # Every replica gets its own copy of the weights on its device.
         self._fleet_models = replicate_all(
             lambda mesh: copy.deepcopy(model).to(mesh.device), self.fleet_plan,
@@ -308,16 +333,21 @@ class CLIPManager:
             self.quant_route = "int8"
             return q_model
         device = self.mesh.device
-        t_bf16 = self._time_image_encode(base_model.to(device))
-        base_model.to("cpu")
+        placed = self._place(base_model)
+        t_bf16 = self._time_image_encode(placed)
+        if self.tp_group is None:
+            base_model.to("cpu")
+        del placed
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        t_q8 = self._time_image_encode(q_model.to(device))
+        placed = self._place(q_model)
+        t_q8 = self._time_image_encode(placed)
         self.quant_speedup = t_bf16 / max(t_q8, 1e-9)
         if self.quant_speedup >= 1.0:
             logger.info("CLIP int8 route confirmed: %.3fx bf16 at the top batch bucket", self.quant_speedup)
             self.quant_route = "int8"
-            return q_model
+            return placed if self.tp_group is not None else q_model
+        del placed
         logger.warning(
             "CLIP int8 route DISABLED: the warm-up A/B measured q8 at %.3fx bf16; serving bf16 instead. "
             "Pin LUMEN_CLIP_Q8_ROUTE=int8 to force.", self.quant_speedup,
@@ -342,8 +372,7 @@ class CLIPManager:
         mu, sigma = torch.tensor(mean, device=device), torch.tensor(std, device=device)
 
         def run() -> None:
-            x = (pixels.float() / 255.0 - mu) / sigma
-            model.encode_image(x.to(self.policy.compute_dtype))
+            run_on(self.tp_group, encode_images_native, model, pixels, mu, sigma, self.policy.compute_dtype)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
 
@@ -400,6 +429,8 @@ class CLIPManager:
         state = self._load_state()
         if state is not None:
             self._place_native(state)
+        elif self.tp_group is not None:
+            raise NotImplementedError("CLIP graph towers do not run on a model axis")
         else:
             self._place_graphs()
         self.model = self._fleet_models[0]
@@ -414,17 +445,14 @@ class CLIPManager:
 
         if state is not None:
 
-            @torch.inference_mode()
             def encode_images(model, pixels_u8):
                 # pixels_u8: [B, S, S, 3] uint8 on the model's device;
-                # normalize + cast on the device.
-                mu, sigma = stats[pixels_u8.device]
-                x = (pixels_u8.float() / 255.0 - mu) / sigma
-                return model.encode_image(x.to(compute_dtype))  # fp32 unit-norm
+                # normalize + cast on the device. fp32 unit-norm out.
+                return run_on(self.tp_group, encode_images_native, model, pixels_u8, *stats[pixels_u8.device],
+                              compute_dtype)
 
-            @torch.inference_mode()
             def encode_texts(model, ids):
-                return model.encode_text(ids.long())
+                return run_on(self.tp_group, encode_texts_native, model, ids)
 
         else:
             vision_graph, text_graph = self._graphs
@@ -742,6 +770,11 @@ class CLIPManager:
 
     # -- utils ------------------------------------------------------------
 
+    def alive(self) -> bool:
+        """False until initialized, and once a tensor-parallel group's
+        worker rank died: the service's ``Health``."""
+        return self._initialized and (self.tp_group is None or self.tp_group.alive())
+
     def _ensure_ready(self) -> None:
         if not self._initialized:
             raise RuntimeError("CLIPManager.initialize() not called")
@@ -761,3 +794,45 @@ class CLIPManager:
         towers carry no logit_scale param: model_info ``extra.logit_scale``,
         then the CLIP-standard 100."""
         return self._temperature
+
+
+@torch.inference_mode()
+def encode_images_native(model: CLIPModel, pixels_u8, mu, sigma, dtype):
+    """The image tower on uint8 pixels (a program of every rank on a
+    tensor-parallel group): normalize, cast, encode; fp32 unit-norm."""
+    x = (pixels_u8.float() / 255.0 - mu) / sigma
+    return model.encode_image(x.to(dtype))
+
+
+@torch.inference_mode()
+def encode_texts_native(model: CLIPModel, ids):
+    """The text tower on token ids; fp32 unit-norm."""
+    return model.encode_text(ids.long())
+
+
+def clip_heads(cfg: CLIPConfig):
+    """``(heads, kv_heads, head_dim)`` of the tower block a CLIP parameter
+    belongs to (``parallel.sharding.HeadLayout``)."""
+
+    def heads(name: str):
+        for prefix, t in (("vision.blocks.", cfg.vision), ("text.blocks.", cfg.text)):
+            if name.startswith(prefix) and ".attn." in name:
+                return t.heads, t.heads, t.width // t.heads
+        return None
+
+    return heads
+
+
+def place_tp_clip(cfg: CLIPConfig, state: dict, dtype, group) -> CLIPModel:
+    """One rank's shards of a tensor-parallel CLIP (a program of
+    ``group``): the rank's slice of ``state`` (``INT8_TP_RULES`` first for
+    int8 towers, then ``TRANSFORMER_TP_RULES``; whole heads), built, cast
+    to ``dtype`` and placed on the rank's device. Notes the model axis for
+    the int8 routing rule on this rank."""
+    note_mesh_model_axis(group.size)
+    rules = (INT8_TP_RULES if cfg.weight_quant == "int8" else []) + TRANSFORMER_TP_RULES
+    local = local_state_dict(state, rules, group.tp, heads=clip_heads(cfg))
+    with torch.device("meta"):
+        model = CLIPModel(cfg, tp=group.tp)
+    model.load_state_dict(local, strict=True, assign=True)
+    return model.to(device=group.device, dtype=dtype).eval().requires_grad_(False)

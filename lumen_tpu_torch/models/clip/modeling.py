@@ -15,6 +15,13 @@ ViT and causal text blocks' q/k/v/out and fc1/fc2 projections are
 ``QDense`` (``weight_quant_kernel``: ``dynamic`` W8A8 by default, or
 ``dequant``), as the JAX ``_block_dense``; the BERT tower stays in the
 policy dtype.
+
+With ``tp`` (a :class:`~lumen_tpu_torch.parallel.tp.TensorParallel`) a
+module holds one rank's shards of a ``model`` axis, the slice
+``parallel.sharding.local_state_dict`` takes by the TP rules: ``heads /
+size`` heads a block, ``4 * width / size`` MLP columns, and the width of
+the embedding tables. It sums after ``out_proj`` and after ``fc2``, and
+gathers the width after each embedding lookup.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from ...ops.quant import QDense
+from ...parallel.tp import TensorParallel, row_parallel
 
 
 @dataclass(frozen=True)
@@ -148,44 +156,64 @@ def _block_dense(in_features: int, out_features: int, quant: str | None, quant_k
     return nn.Linear(in_features, out_features)
 
 
+def _local_width(n: int, tp: TensorParallel | None) -> int:
+    """This rank's share of a width-split dimension of ``n`` (all of it
+    when the split does not divide)."""
+    return n // tp.size if tp is not None and tp.split(n) is not None else n
+
+
 class Attention(nn.Module):
     """Multi-head self-attention; ``attention`` is the function it calls
     on ``[B, H, S, D]`` heads, or None for this module's ``attention``
     (the ``ops.attention`` dispatch: the flash kernel on CUDA tensors),
-    looked up at each call."""
+    looked up at each call. With ``tp`` it holds this rank's heads and sums
+    the ``out_proj`` partials."""
 
     def __init__(
-        self, width: int, heads: int, quant: str | None = None, quant_kernel: str = "dynamic", attention=None
+        self, width: int, heads: int, quant: str | None = None, quant_kernel: str = "dynamic", attention=None,
+        tp: TensorParallel | None = None,
     ):
         super().__init__()
         self.width, self.heads = width, heads
         self.attention = attention
-        self.q_proj = _block_dense(width, width, quant, quant_kernel)
-        self.k_proj = _block_dense(width, width, quant, quant_kernel)
-        self.v_proj = _block_dense(width, width, quant, quant_kernel)
-        self.out_proj = _block_dense(width, width, quant, quant_kernel)
+        self.tp = tp
+        plan = tp.attn_plan(heads, heads) if tp is not None else None
+        self.split = plan is not None and plan.split
+        self.local_heads = plan.q_heads if self.split else heads
+        inner = self.local_heads * (width // heads)
+        self.q_proj = _block_dense(width, inner, quant, quant_kernel)
+        self.k_proj = _block_dense(width, inner, quant, quant_kernel)
+        self.v_proj = _block_dense(width, inner, quant, quant_kernel)
+        self.out_proj = _block_dense(inner, width, quant, quant_kernel)
 
     def forward(self, x: torch.Tensor, causal: bool = False, mask: torch.Tensor | None = None) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.width // self.heads
 
         def heads(t):
-            return t.reshape(b, s, self.heads, hd).transpose(1, 2).contiguous()
+            return t.reshape(b, s, self.local_heads, hd).transpose(1, 2).contiguous()
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
         out = (self.attention or attention)(q, k, v, mask=mask, causal=causal)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, self.width))
+        return row_parallel(self.out_proj, out.transpose(1, 2).reshape(b, s, self.local_heads * hd), self.tp,
+                            self.split)
 
 
 class Mlp(nn.Module):
-    def __init__(self, width: int, hidden_act: str, quant: str | None = None, quant_kernel: str = "dynamic"):
+    def __init__(
+        self, width: int, hidden_act: str, quant: str | None = None, quant_kernel: str = "dynamic",
+        tp: TensorParallel | None = None,
+    ):
         super().__init__()
-        self.fc1 = _block_dense(width, width * 4, quant, quant_kernel)
-        self.fc2 = _block_dense(width * 4, width, quant, quant_kernel)
+        self.tp = tp
+        inner = _local_width(width * 4, tp)
+        self.split = inner != width * 4
+        self.fc1 = _block_dense(width, inner, quant, quant_kernel)
+        self.fc2 = _block_dense(inner, width, quant, quant_kernel)
         self.act = _act(hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        return row_parallel(self.fc2, self.act(self.fc1(x)), self.tp, self.split)
 
 
 class Block(nn.Module):
@@ -194,12 +222,13 @@ class Block(nn.Module):
     def __init__(
         self, width: int, heads: int, hidden_act: str, eps: float,
         quant: str | None = None, quant_kernel: str = "dynamic", attention=None,
+        tp: TensorParallel | None = None,
     ):
         super().__init__()
         self.ln1 = nn.LayerNorm(width, eps=eps)
-        self.attn = Attention(width, heads, quant, quant_kernel, attention)
+        self.attn = Attention(width, heads, quant, quant_kernel, attention, tp)
         self.ln2 = nn.LayerNorm(width, eps=eps)
-        self.mlp = Mlp(width, hidden_act, quant, quant_kernel)
+        self.mlp = Mlp(width, hidden_act, quant, quant_kernel, tp)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), causal=causal)
@@ -211,11 +240,12 @@ class BertBlock(nn.Module):
     LayerNorm AFTER each residual add, bidirectional attention with a
     padding mask."""
 
-    def __init__(self, width: int, heads: int, hidden_act: str, eps: float, attention=None):
+    def __init__(self, width: int, heads: int, hidden_act: str, eps: float, attention=None,
+                 tp: TensorParallel | None = None):
         super().__init__()
-        self.attn = Attention(width, heads, attention=attention)
+        self.attn = Attention(width, heads, attention=attention, tp=tp)
         self.ln1 = nn.LayerNorm(width, eps=eps)
-        self.mlp = Mlp(width, hidden_act)
+        self.mlp = Mlp(width, hidden_act, tp=tp)
         self.ln2 = nn.LayerNorm(width, eps=eps)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -252,18 +282,19 @@ def _run_blocks(blocks: nn.ModuleList, x: torch.Tensor, remat: bool, *args) -> t
 
 
 class VisionTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False, tp: TensorParallel | None = None):
         super().__init__()
         v = cfg.vision
         self.remat = remat
+        self.tp = tp
         self.patch_embed = PatchEmbed(v.width, cfg.patch_size)
         self.class_embedding = nn.Parameter(torch.zeros(v.width))
         n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
-        self.position_embedding = nn.Parameter(torch.zeros(n_pos, v.width))
+        self.position_embedding = nn.Parameter(torch.zeros(n_pos, _local_width(v.width, tp)))
         self.pre_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
         self.blocks = nn.ModuleList(
             Block(v.width, v.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel,
-                  attention)
+                  attention, tp)
             for _ in range(v.layers)
         )
         self.post_ln = nn.LayerNorm(v.width, eps=cfg.layer_norm_eps)
@@ -273,22 +304,27 @@ class VisionTower(nn.Module):
         """[B, H, W, 3] preprocessed floats -> [B, embed_dim] (unnormalized)."""
         x = self.patch_embed(pixel_values)
         cls_tok = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls_tok, x], dim=1) + self.position_embedding.to(x.dtype)
+        pos = self.position_embedding
+        if self.tp is not None:
+            pos = self.tp.gather(pos, x.shape[-1])
+        x = torch.cat([cls_tok, x], dim=1) + pos.to(x.dtype)
         x = _run_blocks(self.blocks, self.pre_ln(x), self.remat)
         return self.projection(self.post_ln(x[:, 0]))
 
 
 class TextTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False, tp: TensorParallel | None = None):
         super().__init__()
         t = cfg.text
         self.cfg = cfg
         self.remat = remat
-        self.token_embedding = nn.Embedding(cfg.vocab_size, t.width)
-        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
+        self.tp = tp
+        local = _local_width(t.width, tp)
+        self.token_embedding = nn.Embedding(cfg.vocab_size, local)
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, local))
         self.blocks = nn.ModuleList(
             Block(t.width, t.heads, cfg.hidden_act, cfg.layer_norm_eps, cfg.weight_quant, cfg.weight_quant_kernel,
-                  attention)
+                  attention, tp)
             for _ in range(t.layers)
         )
         self.final_ln = nn.LayerNorm(t.width, eps=cfg.layer_norm_eps)
@@ -301,6 +337,8 @@ class TextTower(nn.Module):
         s = input_ids.shape[1]
         x = self.token_embedding(input_ids)
         x = x + self.position_embedding[:s].to(x.dtype)
+        if self.tp is not None:
+            x = self.tp.gather(x, self.cfg.text.width)
         x = self.final_ln(_run_blocks(self.blocks, x, self.remat, True))
         eot_id = self.cfg.eot_token_id
         if eot_id is not None:
@@ -314,26 +352,30 @@ class TextTower(nn.Module):
 class BertTextTower(nn.Module):
     """ChineseCLIP text tower: BERT encoder + CLS pooling + projection."""
 
-    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False, tp: TensorParallel | None = None):
         super().__init__()
         t = cfg.text
         self.cfg = cfg
         self.remat = remat
+        self.tp = tp
         eps = cfg.text_layer_norm_eps or cfg.layer_norm_eps
         act = cfg.text_hidden_act or "gelu"
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, t.width)
-        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, t.width))
+        local = _local_width(t.width, tp)
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, local)
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.context_length, local))
         # Single-segment inputs: token type 0 everywhere (the table is kept
         # 2-row for checkpoint parity).
-        self.token_type_embedding = nn.Parameter(torch.zeros(2, t.width))
+        self.token_type_embedding = nn.Parameter(torch.zeros(2, local))
         self.embed_ln = nn.LayerNorm(t.width, eps=eps)
-        self.blocks = nn.ModuleList(BertBlock(t.width, t.heads, act, eps, attention) for _ in range(t.layers))
+        self.blocks = nn.ModuleList(BertBlock(t.width, t.heads, act, eps, attention, tp) for _ in range(t.layers))
         self.projection = nn.Linear(t.width, cfg.embed_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         s = input_ids.shape[1]
         x = self.word_embeddings(input_ids)
         x = x + self.position_embedding[:s].to(x.dtype) + self.token_type_embedding[0].to(x.dtype)
+        if self.tp is not None:
+            x = self.tp.gather(x, self.cfg.text.width)
         x = self.embed_ln(x)
         # Bidirectional with right-padding masked out: [B, 1, 1, S].
         mask = (input_ids != self.cfg.pad_token_id)[:, None, None, :]
@@ -351,12 +393,13 @@ class CLIPModel(nn.Module):
     ``attention_reference``. ``remat`` checkpoints each transformer block
     (training only)."""
 
-    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False):
+    def __init__(self, cfg: CLIPConfig, attention=None, remat: bool = False, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        self.vision = VisionTower(cfg, attention, remat)
+        self.tp = tp
+        self.vision = VisionTower(cfg, attention, remat, tp)
         text = BertTextTower if cfg.text_arch == "bert" else TextTower
-        self.text = text(cfg, attention, remat)
+        self.text = text(cfg, attention, remat, tp)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, pixel_values: torch.Tensor, normalize: bool = True) -> torch.Tensor:

@@ -5,7 +5,7 @@ scheduler."""
 from .chat import ChatMessage, VlmTokenizer, render_chat
 from .continuous import ContinuousScheduler, PreemptionShed
 from .convert import params_from_jax
-from .generate import Generator
+from .generate import GenerateOutput, Generator
 from .manager import GenerationChunk, GenerationResult, VLMManager
 from .modeling import (
     DecoderConfig,
@@ -25,6 +25,7 @@ __all__ = [
     "ContinuousScheduler",
     "PreemptionShed",
     "params_from_jax",
+    "GenerateOutput",
     "Generator",
     "GenerationChunk",
     "GenerationResult",

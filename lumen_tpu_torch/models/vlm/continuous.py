@@ -181,8 +181,7 @@ class _PrefillJob:
     scratch_len: int = 0
     offset: int = 0  # prompt tokens already processed
     length: int = 0  # live prompt tokens
-    last_logits: object = None  # logits of the most recent chunk
-    last_off: int = 0
+    last_logits: object = None  # the most recent chunk's logits at its last valid position
     #: shared prefix pages seeded into the scratch; the JOB holds one
     #: reference on each until admission or cancellation.
     shared: list = field(default_factory=list)
@@ -635,8 +634,8 @@ class ContinuousScheduler:
         pages = self.kv.owned_pages(slot)[: len(keys)]
         self.prefix.insert(keys[: len(pages)], pages)
 
-    def _install_row(self, req: _Request, caches1, tok0, seen1, shared_pages=None) -> int:
-        """Grant pages and write one prefilled row into a free slot.
+    def _install_row(self, req: _Request, caches1, tok0, seen1, shared_pages=None, row: int = 0) -> int:
+        """Grant pages and write row ``row`` of a prefill into a free slot.
         ``shared_pages`` attaches a cached prefix ahead of the fresh grant:
         the scatter then targets a table whose shared entries point at the
         dump page, so the scratch's prefix segments (already resident in
@@ -654,7 +653,7 @@ class ContinuousScheduler:
         try:
             self.gen.admit(
                 self.pool, slot, caches1, tok0, seen1, n, bt_dev, req.max_new,
-                req.temperature, req.top_p, req.do_sample, req.repetition_penalty,
+                req.temperature, req.top_p, req.do_sample, req.repetition_penalty, row=row,
             )
         except Exception:
             self.kv.release(slot)
@@ -663,7 +662,7 @@ class ContinuousScheduler:
         slot_state = _Slot(request=req, prompt_len=n, seq=self._admit_seq)
         if self._spec_active():
             slot_state.text_toks = self._text_toks(req)
-            slot_state.pending_tok = int(tok0[0])
+            slot_state.pending_tok = int(tok0[row])
         with self._cond:
             self._slots[slot] = slot_state
         self.admitted += 1
@@ -693,7 +692,7 @@ class ContinuousScheduler:
         the cached prefix KV (no decoder forward)."""
         ids = np.zeros((scratch_len // self.page_size,), np.int32)
         ids[: len(pages)] = pages
-        return self.gen.seed_prefix(self.gen.new_prefill_cache(scratch_len), self.pool["caches"], ids)
+        return self.gen.seed_prefix(self.gen.new_prefill_cache(scratch_len), self.pool, ids)
 
     def _admit_prefix_hit(self, req: _Request) -> None:
         """Admit one request whose prompt prefix is cached: attach the
@@ -713,11 +712,11 @@ class ContinuousScheduler:
         dev = self.gen.device
         positions = torch.arange(covered, span, device=dev)[None, :]
         logits = self.gen.prefill_chunk(
-            caches, req.embeds[:, covered:span], positions, covered,
-            torch.tensor([n], dtype=torch.int32, device=dev),
+            caches, self.gen.seq_slice(req.embeds, covered, span), positions, covered,
+            torch.tensor([n], dtype=torch.int32, device=dev), last_only=True,
         )
         tok0, seen = self.gen.chunk_finish(
-            logits, torch.tensor([n - 1 - covered], device=dev), req.prompt_ids, req.length,
+            logits, torch.zeros(1, dtype=torch.long, device=dev), req.prompt_ids, req.length,
             req.generator, *self._params([req]),
         )
         try:
@@ -742,12 +741,12 @@ class ContinuousScheduler:
         group_slots: list[int] = []
         try:
             for i, req in enumerate(reqs):
-                caches1 = [{n: c[n][i : i + 1] for n in ("k", "v")} for c in caches]
-                group_slots.append(self._install_row(req, caches1, tok0[i : i + 1], seen[i : i + 1]))
+                group_slots.append(self._install_row(req, caches, tok0, seen, row=i))
         except Exception:
             # The caller fails the whole group: evict rows already in.
+            if group_slots:
+                self.gen.retire(self.pool, group_slots)
             for slot in group_slots:
-                self.pool["done"][slot] = True
                 with self._cond:
                     self._slots.pop(slot, None)
                 self.kv.release(slot)
@@ -807,9 +806,9 @@ class ContinuousScheduler:
                 positions = torch.arange(off, off + c, device=dev)[None, :]
                 valid = torch.tensor([min(job.length, off + c)], dtype=torch.int32, device=dev)
                 job.last_logits = self.gen.prefill_chunk(
-                    job.caches, req.embeds[:, off : off + c], positions, off, valid
+                    job.caches, self.gen.seq_slice(req.embeds, off, off + c), positions, off, valid,
+                    last_only=True,
                 )
-                job.last_off = off
                 job.offset = off + c
                 self.chunks_run += 1
                 return  # one chunk per turn
@@ -824,9 +823,8 @@ class ContinuousScheduler:
                     return
                 if not self.kv.can_admit(job.length, shared_pages=len(job.shared)):
                     return
-            idx = torch.tensor([job.length - 1 - job.last_off], device=dev)
             tok0, seen = self.gen.chunk_finish(
-                job.last_logits, idx, req.prompt_ids, req.length, req.generator,
+                job.last_logits, torch.zeros(1, dtype=torch.long, device=dev), req.prompt_ids, req.length, req.generator,
                 *self._params([req]),
             )
             self._prefill_jobs.popleft()
@@ -872,7 +870,7 @@ class ContinuousScheduler:
         except Exception as e:  # noqa: BLE001 - spill is best-effort
             spill_err = e
             logger.warning("KV spill of slot %d failed (%s); degrading", idx, e)
-        self.pool["done"][idx] = True
+        self.gen.retire(self.pool, [idx])
         with self._cond:
             slot = self._slots.pop(idx)
         self.kv.release(idx)
@@ -1173,7 +1171,7 @@ class ContinuousScheduler:
             rec.prompt_len = slot.prompt_len
             rec.rng = self._wire_key()
             manifest = self._wire_manifest(req, slot.prompt_len)
-            self.pool["done"][idx] = True
+            self.gen.retire(self.pool, [idx])
             with self._cond:
                 self._slots.pop(idx, None)
             self.kv.release(idx)
@@ -1349,8 +1347,9 @@ class ContinuousScheduler:
 
     def _run_block(self) -> None:
         cancelled = [i for i, s in self._slots.items() if s.request.cancelled]
+        if cancelled:
+            self.gen.retire(self.pool, cancelled)
         for i in cancelled:
-            self.pool["done"][i] = True
             with self._cond:
                 slot = self._slots.pop(i)
             self.kv.release(i)

@@ -29,6 +29,17 @@ The JAX ``while_loop`` of the fused generate is a host loop over one
 decode step against a contiguous KV buffer here. The host tracks every
 row's length, so a step reads no device value but the one copy that
 tells the loop which rows are done (``stream``: the emitted token).
+
+On a tensor-parallel model (``model.tp``) every method marked
+``@program`` is a device program of the group's runtime
+(``runtime.tp_group``): rank 0 sends it to the worker ranks, which run
+it on their own shards, pools and scratches. Sampling draws the same token
+on every rank: the logits are bitwise identical after the sums, and each
+program carries rank 0's ``torch.Generator`` state, so every rank
+draws the same numbers without a broadcast of the tokens (one collective a
+step saved). ``export_row`` gathers each rank's KV heads to rank 0, so
+a spilled or migrated row keeps the format of a TP = 1 host; ``resume``
+takes that format and each rank keeps its own heads.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import numpy as np
 import torch
 
 from ...ops.sampling import apply_repetition_penalty, sample
+from ...runtime.tp_group import program
 from .modeling import VLMConfig, VLMModel, init_kv_cache, init_paged_kv_cache
 
 
@@ -68,8 +80,16 @@ class GenerateOutput:
     stopped_eos: np.ndarray  # [B] bool: hit EOS (vs the length cap)
 
 
+class PoolState(dict):
+    """The continuous engine's paged pool (:meth:`Generator.init_pool`): a
+    dict a tensor-parallel group registers as one rank-local object."""
+
+    _tp_local = True
+
+
 class Generator:
-    """Decode programs for one ``VLMModel`` on one device.
+    """Decode programs for one ``VLMModel`` on one device (one rank's
+    shards of a tensor-parallel model).
 
     ``max_seq`` bounds prompt + vision + new tokens (a row's block-table
     reach, the fused decode's largest KV buffer); ``seq_buckets`` are the
@@ -77,6 +97,8 @@ class Generator:
     smallest covering the request); ``max_new_cap`` is the fused decode's
     output width.
     """
+
+    _tp_local = True
 
     def __init__(
         self,
@@ -93,6 +115,12 @@ class Generator:
         self.max_new_cap = max_new_cap
         self.cache_dtype = cache_dtype
         self.device = next(model.decoder.parameters()).device
+        #: the model's tensor-parallel place and runtime (None at TP = 1)
+        self.tp = getattr(model, "tp", None)
+        self.runtime = self.tp.runtime if self.tp is not None else None
+        attn = model.decoder.layers[0].attn
+        #: this rank's KV heads (all of them at TP = 1) and their plan
+        self.kv_heads, self.attn_plan = attn.kv_heads, attn.plan
         buckets = sorted(set(b for b in (seq_buckets or ()) if b <= max_seq))
         if not buckets or buckets[-1] != max_seq:
             buckets.append(max_seq)
@@ -117,13 +145,13 @@ class Generator:
 
     def _prefill_core(self, embeds, positions, lengths, kv_len: int | None = None):
         b = embeds.shape[0]
-        caches = init_kv_cache(self.cfg, b, kv_len or self.max_seq, self.cache_dtype, self.device)
-        logits, caches = self.model.decode(embeds, positions, caches, 0, lengths)
-        last = logits[torch.arange(b, device=logits.device), lengths.long() - 1]  # [B, V]
-        return caches, last
+        caches = init_kv_cache(self.cfg, b, kv_len or self.max_seq, self.cache_dtype, self.device, self.kv_heads)
+        logits, caches = self.model.decode(embeds, positions, caches, 0, lengths, last=lengths - 1)
+        return caches, logits[:, 0]  # [B, V]
 
     # -- prefill ---------------------------------------------------------------
 
+    @program
     @torch.no_grad()
     def prefill(
         self, embeds, positions, lengths, prompt_ids, generator,
@@ -139,18 +167,33 @@ class Generator:
         ).int()
         return caches, tok0, seen
 
+    @program
     def new_prefill_cache(self, kv_len: int):
         """Contiguous batch-1 scratch cache for one chunked prefill."""
-        return init_kv_cache(self.cfg, 1, kv_len, self.cache_dtype, self.device)
+        return init_kv_cache(self.cfg, 1, kv_len, self.cache_dtype, self.device, self.kv_heads)
 
+    @program
     @torch.no_grad()
-    def prefill_chunk(self, caches, embeds, positions, offset: int, valid_len):
+    def prefill_chunk(self, caches, embeds, positions, offset: int, valid_len, last_only: bool = False):
         """One prompt chunk through the decoder (JAX ``_prefill_chunk_impl``):
         writes its K/V at ``offset`` into ``caches`` in place, returns the
-        chunk's logits."""
-        logits, _ = self.model.decode(embeds, positions, caches, int(offset), valid_len)
+        chunk's logits [B, chunk, V]; with ``last_only`` only each row's
+        last valid position in the chunk, [B, 1, V] (``chunk_finish`` then
+        reads index 0)."""
+        last = None
+        if last_only:
+            last = torch.clamp(valid_len.to(embeds.device) - 1 - int(offset), 0, embeds.shape[1] - 1)
+        logits, _ = self.model.decode(embeds, positions, caches, int(offset), valid_len, last=last)
         return logits
 
+    @program
+    def seq_slice(self, x, lo: int, hi: int):
+        """``x[:, lo:hi]`` on every rank: a program's output (a prompt's
+        embeddings) is sliced where it lives, as a view passed by value
+        would carry rank 0's values to the workers."""
+        return x[:, lo:hi]
+
+    @program
     @torch.no_grad()
     def chunk_finish(
         self, chunk_logits, idx, prompt_ids, lengths, generator,
@@ -188,6 +231,7 @@ class Generator:
         logits, _ = self.model.decode(tok_embed, cur_len[:, None], caches, cur_len, cur_len + 1, kv_bound=kv_bound)
         return self._sample_next(logits[:, 0], seen, *params, generator, any_sample).int()
 
+    @program
     @torch.no_grad()
     def generate(
         self, embeds, positions, lengths, prompt_ids, generator,
@@ -250,26 +294,41 @@ class Generator:
         """Yield one request's generated token ids one at a time (JAX
         ``stream``; batch 1): prefill into a ``max_seq`` buffer, then one
         decode step per token, whose id is the step's one read back. Stops
-        after EOS or ``max_new_tokens``."""
+        after EOS or ``max_new_tokens``. The prefill and each step are
+        programs, so a consumer that stops early leaves no rank inside a
+        step."""
         len_h = int(lengths[0]) if not isinstance(lengths, torch.Tensor) else int(lengths.cpu()[0])
-        lengths = torch.tensor([len_h], device=self.device)
         params, any_sample = self._row_params(1, temperature, top_p, do_sample, repetition_penalty)
-        caches, last = self._prefill_core(embeds, positions, lengths)
-        seen = self._seen_from_prompt(prompt_ids, lengths)
-        tok = self._sample_next(last, seen, *params, generator, any_sample).int()
-        cur_len = lengths.int()
+        caches, seen, tok, cur_len = self._stream_open(embeds, positions, len_h, prompt_ids, generator, params,
+                                                       any_sample)
         for t in range(min(int(max_new_tokens), self.max_new_cap)):
             tok_host = int(tok[0])
             yield tok_host
             if tok_host == self.cfg.eos_token_id:
                 return
-            seen[0, tok_host] = True
-            tok = self._decode_step(caches, tok, cur_len, len_h + t + 1, seen, generator, params, any_sample)
-            cur_len = cur_len + 1
+            tok, cur_len = self._stream_step(caches, seen, tok, tok_host, cur_len, len_h + t + 1, generator, params,
+                                             any_sample)
+
+    @program
+    @torch.no_grad()
+    def _stream_open(self, embeds, positions, len_h: int, prompt_ids, generator, params, any_sample):
+        lengths = torch.tensor([len_h], device=self.device)
+        caches, last = self._prefill_core(embeds, positions, lengths)
+        seen = self._seen_from_prompt(prompt_ids, lengths)
+        tok = self._sample_next(last, seen, *params, generator, any_sample).int()
+        return caches, seen, tok, lengths.int()
+
+    @program
+    @torch.no_grad()
+    def _stream_step(self, caches, seen, tok, tok_host: int, cur_len, kv_bound: int, generator, params, any_sample):
+        seen[0, tok_host] = True
+        tok = self._decode_step(caches, tok, cur_len, kv_bound, seen, generator, params, any_sample)
+        return tok, cur_len + 1
 
     # -- continuous-batching pool (paged KV) ---------------------------------
 
-    def init_pool(self, slots: int, pages: int | None = None, page_size: int = 16) -> dict:
+    @program
+    def init_pool(self, slots: int, pages: int | None = None, page_size: int = 16) -> PoolState:
         """All-slots-free paged pool state (JAX ``init_pool``). ``pages``
         defaults to every slot holding ``max_seq``. ``sampling`` is a host
         mirror of which slots were admitted sampled (it spares the decode
@@ -281,8 +340,8 @@ class Generator:
         def z(dtype, fill=0):
             return torch.full((slots,), fill, dtype=dtype, device=dev)
 
-        return dict(
-            caches=init_paged_kv_cache(self.cfg, pages, page_size, self.cache_dtype, dev),
+        return PoolState(
+            caches=init_paged_kv_cache(self.cfg, pages, page_size, self.cache_dtype, dev, self.kv_heads),
             cur_tok=z(torch.int32),
             cur_len=z(torch.int32),
             seen=torch.zeros((slots, self.cfg.decoder.vocab_size), dtype=torch.bool, device=dev),
@@ -297,16 +356,18 @@ class Generator:
             sampling=np.zeros((slots,), bool),
         )
 
+    @program
     @torch.no_grad()
     def admit(
         self, pool, slot: int, caches1, tok0, seen1, length: int, bt_row,
-        max_new: int, temperature: float, top_p: float, do_sample: bool, rep: float,
+        max_new: int, temperature: float, top_p: float, do_sample: bool, rep: float, row: int = 0,
     ) -> None:
         """Write one prefilled request into ``slot`` (JAX ``_admit_impl``):
-        scatter its contiguous prompt KV ([1, kvh, Lb, dh], ``Lb`` a page
-        multiple) into the pages ``bt_row`` grants, page by page. Entries
-        past the prompt's pages point at the dump page 0, so the scatter
-        needs no mask. In place."""
+        scatter row ``row`` of its contiguous prompt KV ([B, kvh, Lb, dh],
+        ``Lb`` a page multiple; ``tok0`` and ``seen1`` hold the same rows)
+        into the pages ``bt_row`` grants, page by page. Entries past the
+        prompt's pages point at the dump page 0, so the scatter needs no
+        mask. In place."""
         page = pool["caches"][0]["k"].shape[2]
         lb = caches1[0]["k"].shape[2]
         nseg = lb // page
@@ -314,11 +375,11 @@ class Generator:
         for layer, pre in zip(pool["caches"], caches1):
             for name in ("k", "v"):
                 kvh, dh = pre[name].shape[1], pre[name].shape[3]
-                seg = pre[name][0].reshape(kvh, nseg, page, dh).transpose(0, 1)
+                seg = pre[name][row].reshape(kvh, nseg, page, dh).transpose(0, 1)
                 layer[name][dst] = seg.to(layer[name].dtype)
-        pool["cur_tok"][slot] = tok0[0]
+        pool["cur_tok"][slot] = tok0[row]
         pool["cur_len"][slot] = int(length)
-        pool["seen"][slot] = seen1[0]
+        pool["seen"][slot] = seen1[row]
         pool["n_gen"][slot] = 0
         pool["eos"][slot] = False
         pool["done"][slot] = max_new <= 0
@@ -329,6 +390,14 @@ class Generator:
         pool["rep"][slot] = float(rep)
         pool["sampling"][slot] = bool(do_sample) and float(temperature) > 1e-6
 
+    @program
+    def retire(self, pool, slots) -> None:
+        """Mark ``slots`` done (finished, cancelled, preempted or exported
+        rows): a free slot is a done one. In place."""
+        for slot in slots:
+            pool["done"][slot] = True
+
+    @program
     @torch.no_grad()
     def step_block(self, pool, block_tables, generator, block: int) -> torch.Tensor:
         """Advance every live slot ``block`` tokens (JAX
@@ -366,6 +435,7 @@ class Generator:
             pool["cur_len"] += active.int()
         return torch.stack(out, dim=1)
 
+    @program
     @torch.no_grad()
     def verify(self, pool, block_tables, generator, draft, q_lens, width: int) -> torch.Tensor:
         """Speculative verify (JAX ``_verify_impl``): ONE decode forward
@@ -426,6 +496,7 @@ class Generator:
 
     # -- KV spill tier and prefix cache ----------------------------------------
 
+    @program
     @torch.no_grad()
     def export_row(self, pool, slot: int, page_ids) -> dict:
         """One decode row's spillable state on the host (JAX
@@ -437,9 +508,15 @@ class Generator:
         ``cur_len``, ``n_gen``. Every leaf is viewed as bytes and
         concatenated on the card, so the row reaches the host in one
         device-to-host copy; ``.cpu()`` returns after the copy, so the
-        caller may hand the pages to another row at once."""
+        caller may hand the pages to another row at once. On a
+        tensor-parallel model every rank's KV heads are gathered to the
+        rank 0, which alone returns the row (the workers return None)."""
         ids = torch.as_tensor(np.asarray(page_ids), dtype=torch.long, device=self.device)
         pages = [layer[name].index_select(0, ids) for layer in pool["caches"] for name in ("k", "v")]
+        if self.tp is not None:
+            pages = [self.tp.gather_heads(p, self.attn_plan, self.cfg.decoder.kv_heads) for p in pages]
+            if self.tp.rank != 0:
+                return None
         scalars = torch.stack([pool["cur_tok"][slot], pool["cur_len"][slot], pool["n_gen"][slot]]).int()
         leaves = pages + [scalars, pool["seen"][slot]]
         host = torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves]).cpu().numpy()
@@ -453,6 +530,7 @@ class Generator:
         cur_tok, cur_len, n_gen = (int(x) for x in scalars_np)
         return dict(pages=layers, seen=seen_np, cur_tok=cur_tok, cur_len=cur_len, n_gen=n_gen)
 
+    @program
     @torch.no_grad()
     def resume(
         self, pool, slot: int, pages, page_ids, seen1, cur_tok: int, cur_len: int, n_gen: int,
@@ -467,7 +545,9 @@ class Generator:
         The host leaves reach the card in one copy. Pad entries of
         ``page_ids`` all write the dump page 0, which is harmless only
         because page 0 holds garbage: a live page id that repeats would
-        lose a page, so it raises. In place."""
+        lose a page, so it raises. A tensor-parallel rank keeps its own KV
+        heads of ``pages`` (every head, :meth:`export_row`'s format). In
+        place."""
         ids = np.asarray(page_ids)
         live = ids[ids != 0]
         if np.unique(live).size != live.size:
@@ -481,7 +561,10 @@ class Generator:
             off += a.nbytes
         dst = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         targets = [layer[name] for layer in pool["caches"] for name in ("k", "v")]
+        plan = self.attn_plan
         for t, s in zip(targets, src[:-1]):
+            if plan is not None and t.shape[1] != s.shape[1]:
+                s = s[:, plan.kv_lo : plan.kv_lo + plan.kv_heads]
             t[dst] = s.to(t.dtype)
         pool["cur_tok"][slot] = int(cur_tok)
         pool["cur_len"][slot] = int(cur_len)
@@ -499,17 +582,18 @@ class Generator:
         # row samples.
         pool["sampling"][slot] = bool(do_sample) and float(temperature) > 1e-6
 
+    @program
     @torch.no_grad()
-    def seed_prefix(self, caches, pool_caches, page_ids):
+    def seed_prefix(self, caches, pool, page_ids):
         """Prefix-cache hit (JAX ``_seed_prefix_impl``): fill a chunked-
         prefill scratch ``[1, kvh, Lb, dh]`` with the prefix KV gathered
-        from the pool pages ``page_ids`` (the row's shared pages padded to
+        from the pages ``page_ids`` of the pool ``pool`` (the row's shared pages padded to
         ``Lb / page`` entries with the dump page 0), so only the uncovered
         suffix runs through the decoder. Pad segments land where the suffix
         chunk writes before it attends, or past the valid length. In
         place; returns ``caches``."""
         ids = torch.as_tensor(np.asarray(page_ids), dtype=torch.long, device=self.device)
-        for dst, src in zip(caches, pool_caches):
+        for dst, src in zip(caches, pool["caches"]):
             for name in ("k", "v"):
                 seg = src[name].index_select(0, ids)  # [nseg, kvh, page, dh]
                 nseg, kvh, page, dh = seg.shape

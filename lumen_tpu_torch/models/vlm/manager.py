@@ -39,6 +39,16 @@ request is answered without the vision tower, prefill or decode, marked
 to key the cache on and computes every request; ``from_model_dir`` gives
 it one. With ``LUMEN_VLM_PREFIX_BYTES`` set, each request carries its
 prompt's content identity for the engine's prefix KV cache.
+
+``mesh_axes`` with a ``model`` axis above 1 serves the model tensor-
+parallel on the process's rank-0/worker group (``runtime.tp_group``,
+started by ``serve()``): :meth:`VLMManager._place_params` takes each
+rank's shards by the JAX placement (the int8 TP rules first when
+quantized, then the TP rules), and every device program -- the prepare
+step, the ``Generator``'s programs, the int8 route's A/B -- runs on every
+rank. The host state (scheduler, page allocator, prefix cache, spill tier)
+stays on rank 0. Replicas times a ``model`` axis, and the MoE decoder
+on one, raise (ROADMAP queue A, items 2d and 2c).
 """
 
 from __future__ import annotations
@@ -61,10 +71,14 @@ import torch
 
 from ...core.model_info import ModelInfo, load_model_info
 from ...ops.quant import register_route_gauges, resolve_q8_kernel, resolve_q8_route
+from ...ops.quant_matmul import note_mesh_model_axis
+from ...parallel.sharding import INT8_TP_RULES, TRANSFORMER_TP_RULES, local_state_dict
 from ...runtime.decode_pool import get_decode_pool
 from ...runtime.fleet import EngineFleet, batcher_name, fleet_devices, plan_replicas, replicas_for
+from ...runtime.mesh import MODEL_AXIS, build_mesh
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
+from ...runtime.tp_group import run_on
 from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import load_state_dict
 from ...utils import disagg
@@ -248,6 +262,9 @@ class VLMManager:
     ``LUMEN_VLM_SPEC_K``. ``name`` is the model id the service reports;
     ``info`` / ``model_dir`` are the model directory's manifest and path
     (the result cache's revision, the route verdict's file).
+    ``mesh_axes`` is the service's mesh request (JAX axis names): a
+    ``model`` axis above 1 serves tensor-parallel on the running group
+    (module docstring); a ``data`` axis serves on one device.
     """
 
     def __init__(
@@ -274,6 +291,7 @@ class VLMManager:
         vision_graph: VisionGraph | None = None,
         info: ModelInfo | None = None,
         model_dir: str | None = None,
+        mesh_axes: dict[str, int] | None = None,
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
@@ -285,6 +303,26 @@ class VLMManager:
             raise ValueError(f"scheduler must be 'coalesce' or 'continuous', got {scheduler!r}")
         self.scheduler = scheduler
         self.device = resolve_device(device)
+        self.mesh = None
+        #: the tensor-parallel group of a ``model`` axis above 1, else None
+        self.tp_group = None
+        if mesh_axes and mesh_axes.get(MODEL_AXIS, 1) != 1:
+            if replicas_for("vlm") != 1:
+                raise NotImplementedError(
+                    "LUMEN_REPLICAS(_VLM) > 1 with a model axis: replicas x tensor parallelism is not "
+                    "served yet (ROADMAP queue A, item 2d)"
+                )
+            self.mesh = build_mesh(mesh_axes)
+            self.tp_group = self.mesh.group
+            if self.mesh.device != self.device:
+                raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
+            if vision_graph is not None:
+                raise NotImplementedError("an exported vision tower does not run on a model axis")
+            # TP x int8 (JAX manager.py:268-272): a model axis anywhere in
+            # the process routes int8 decode to the dequant dot.
+            note_mesh_model_axis(self.tp_group.size)
+        elif mesh_axes:
+            self.mesh = build_mesh(mesh_axes, devices=fleet_devices(self.device))
         self.policy = get_policy(dtype)
         self.quantize = quantize
         #: decode route in use ("bf16" | "int8"), resolved at construction
@@ -309,7 +347,8 @@ class VLMManager:
         if scheduler == "continuous":
             # One continuous engine (page pool + block tables) per replica
             # slice; the coalescer stays one batcher on the manager's device.
-            self.fleet_plan = plan_replicas("vlm", devices=fleet_devices(self.device))
+            self.fleet_plan = plan_replicas("vlm", mesh_axes if self.tp_group else None,
+                                            devices=fleet_devices(self.device))
         else:
             self.fleet_plan = None
             if replicas_for("vlm") != 1:
@@ -327,9 +366,8 @@ class VLMManager:
                 cfg.decoder, weight_quant="int8", weight_quant_kernel=resolve_q8_kernel("dequant")))
             cfg, state = self._resolve_q8_route(cfg, state)
         self.cfg = cfg
-        model = self._build_model(cfg, state, native_vision=vision_graph is None)
+        self.model = self._place_params(cfg, state, native_vision=vision_graph is None)
         del state
-        self.model = model.to(device=self.device, dtype=self.policy.param_dtype).eval()
         self._vision_graph = vision_graph
         if vision_graph is not None:
             # The tower runs in its exported float32 on the serving device;
@@ -391,21 +429,49 @@ class VLMManager:
             logger.info("vlm warmup (text path) in %.1fs", time.perf_counter() - t0)
 
     @staticmethod
-    def _build_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool = True) -> VLMModel:
+    def _build_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool = True,
+                     tp=None) -> VLMModel:
         """A ``VLMModel`` holding ``state`` (strict: names and shapes must
-        match); without ``native_vision`` the vision subtree is dropped."""
+        match; with ``tp``, one rank's shards); without ``native_vision``
+        the vision subtree is dropped."""
         with torch.device("meta"):
-            model = VLMModel(cfg)
+            model = VLMModel(cfg, tp=tp)
         if not native_vision:
             model.vision = None
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
+    def _place_params(self, cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool = True):
+        """The model on this manager's mesh (JAX ``_place_params``): on a
+        ``model`` axis every rank builds its shards
+        (:func:`place_tp_model`: ``INT8_TP_RULES`` first when the decoder
+        is int8, then ``TRANSFORMER_TP_RULES``); otherwise the whole model
+        on the device. Cast to the policy's parameter dtype."""
+        if self.tp_group is not None:
+            if cfg.decoder.moe_experts:
+                raise NotImplementedError(
+                    "a Qwen2-MoE decoder on a model axis is not served yet (ROADMAP queue A, item 2c)"
+                )
+            return run_on(self.tp_group, place_tp_model, cfg, dict(state), native_vision, self.policy.param_dtype,
+                          self.tp_group)
+        model = self._build_model(cfg, state, native_vision)
+        return model.to(device=self.device, dtype=self.policy.param_dtype).eval()
+
+    def _new_generator(self, model: VLMModel, cfg: VLMConfig, max_seq: int, **kw) -> Generator:
+        """A ``Generator`` over ``model``: on a tensor-parallel group, one
+        on every rank over the rank's shards."""
+        return run_on(self.tp_group, Generator, model, cfg, max_seq, **kw)
+
     def _make_generator(self, model: VLMModel) -> Generator:
-        return Generator(
+        return self._new_generator(
             model, self.cfg, self.max_seq, cache_dtype=self.compute_dtype,
             seq_buckets=self._seq_buckets, max_new_cap=self.max_new_cap,
         )
+
+    def alive(self) -> bool:
+        """False once the manager closed or its tensor-parallel group went
+        down (a worker rank died): the service's ``Health``."""
+        return self._initialized and (self.tp_group is None or self.tp_group.alive())
 
     def _build_engine(self, rid: int | None) -> ContinuousScheduler:
         """One replica's continuous engine on its slice's device (also the
@@ -418,8 +484,11 @@ class VLMManager:
         kw = self._engine_kw
         pages = kw["pool_pages"]
         if pages is None:
+            # Sized once, on rank 0, for this rank's KV heads; every
+            # rank of a tensor-parallel group allocates as many pages.
+            cfg = dataclasses.replace(self.cfg, decoder=dataclasses.replace(self.cfg.decoder, kv_heads=gen.kv_heads))
             pages = resolve_pool_pages(
-                self.cfg, kw["page_size"], self.gen_slots, self.max_seq,
+                cfg, kw["page_size"], self.gen_slots, self.max_seq,
                 dtype_bytes=torch.finfo(self.compute_dtype).bits // 8, device=device,
             )
         return ContinuousScheduler(
@@ -551,8 +620,7 @@ class VLMManager:
         continuous = self.scheduler == "continuous"
         batch = max(1, min(4, self.gen_slots if continuous else self.gen_batch_size))
         dev = self.device
-        model = self._build_model(cfg, decoder_state, native_vision=False)
-        model = model.to(device=dev, dtype=self.policy.param_dtype).eval()
+        model = self._place_params(cfg, decoder_state, native_vision=False)
         probe = self._engine_decode_probe if continuous else self._fused_decode_probe
         prepare, decode = probe(model, cfg, batch, prompt_len, new_tokens)
         best = 0.0
@@ -576,8 +644,8 @@ class VLMManager:
         ``Generator.generate`` call (prefill included) of ``new_tokens`` a
         row and returns the tokens it generated; nothing to prepare."""
         dev = self.device
-        gen = Generator(model, cfg, prompt_len + new_tokens + 8, cache_dtype=self.compute_dtype,
-                        max_new_cap=new_tokens)
+        gen = self._new_generator(model, cfg, prompt_len + new_tokens + 8, cache_dtype=self.compute_dtype,
+                                  max_new_cap=new_tokens)
         embeds = torch.zeros((batch, prompt_len, cfg.decoder.hidden_size), dtype=self.compute_dtype, device=dev)
         positions = torch.arange(prompt_len, device=dev).expand(batch, prompt_len)
         prompt_ids = torch.ones((batch, prompt_len), dtype=torch.long, device=dev)
@@ -603,7 +671,7 @@ class VLMManager:
         steps = -(-new_tokens // block) * block
         span = -(-prompt_len // page) * page
         maxp = -(-(span + steps) // page)
-        gen = Generator(model, cfg, maxp * page, cache_dtype=self.compute_dtype, max_new_cap=steps)
+        gen = self._new_generator(model, cfg, maxp * page, cache_dtype=self.compute_dtype, max_new_cap=steps)
         pool = gen.init_pool(batch, pages=batch * maxp + 1, page_size=page)
         tables_h = np.arange(1, batch * maxp + 1, dtype=np.int32).reshape(batch, maxp)
         tables = torch.from_numpy(tables_h).to(dev)
@@ -618,9 +686,7 @@ class VLMManager:
         def prepare() -> None:
             caches, tok0, seen = gen.prefill(embeds, positions, lengths, prompt_ids, rng, *params, kv_len=span)
             for i in range(batch):
-                row = [{n: c[n][i : i + 1] for n in ("k", "v")} for c in caches]
-                gen.admit(pool, i, row, tok0[i : i + 1], seen[i : i + 1], prompt_len, tables_h[i], steps,
-                          0.0, 1.0, False, 1.0)
+                gen.admit(pool, i, caches, tok0, seen, prompt_len, tables_h[i], steps, 0.0, 1.0, False, 1.0, row=i)
 
         def decode() -> int:
             for _ in range(steps // block):
@@ -758,21 +824,20 @@ class VLMManager:
     @torch.no_grad()
     def _prepare(self, pixels_u8, ids, length):
         """Normalize -> vision tower -> token embed -> splice, all launched
-        on the device: the graph tower runs on float32 NCHW pixels, the
-        native one on the compute dtype."""
-        x = (pixels_u8.float() / 255.0 - self._mean) / self._std
+        on the device (a program of every rank on a tensor-parallel group):
+        the graph tower runs on float32 NCHW pixels, the native one on the
+        compute dtype."""
         if self._vision_graph is not None:
+            x = (pixels_u8.float() / 255.0 - self._mean) / self._std
             vis = self._vision_graph(self._vision_params, x.permute(0, 3, 1, 2)).to(self.compute_dtype)
-        else:
-            vis = self.model.encode_vision(x.to(self.compute_dtype))
-        text = self.model.embed_tokens(ids).to(self.compute_dtype)
-        return merge_image_embeddings(text, vis, ids, self.cfg.image_token_id, length)
+            text = self.model.embed_tokens(ids).to(self.compute_dtype)
+            return merge_image_embeddings(text, vis, ids, self.cfg.image_token_id, length)
+        return run_on(self.tp_group, prepare_image, self.model, pixels_u8, ids, length, self._mean, self._std,
+                      self.compute_dtype, self.cfg.image_token_id)
 
     @torch.no_grad()
     def _prepare_text(self, ids, length):
-        text = self.model.embed_tokens(ids).to(self.compute_dtype)
-        b, s = ids.shape
-        return text, torch.arange(s, device=ids.device).expand(b, s), length
+        return run_on(self.tp_group, prepare_text, self.model, ids, length, self.compute_dtype)
 
     def _prepare_inputs(self, messages, pixels, add_generation_prompt: bool = True):
         """The prepared prompt: ``(embeds, positions, lengths, prompt_ids,
@@ -1119,6 +1184,53 @@ class VLMManager:
             meta["ttft_ms"] = round((first_emit_s - t0) * 1e3, 2)
         meta.update(_reuse_meta(req))
         yield GenerationChunk(text="", tokens=[], is_final=True, metadata=meta)
+
+
+@torch.no_grad()
+def prepare_image(model: VLMModel, pixels_u8, ids, length, mean, std, dtype, image_token_id: int):
+    """The native tower's prepare step (a program on a tensor-parallel
+    group): normalize -> vision tower -> token embed -> splice."""
+    x = (pixels_u8.float() / 255.0 - mean) / std
+    vis = model.encode_vision(x.to(dtype))
+    text = model.embed_tokens(ids).to(dtype)
+    return merge_image_embeddings(text, vis, ids, image_token_id, length)
+
+
+@torch.no_grad()
+def prepare_text(model: VLMModel, ids, length, dtype):
+    """A text prompt's prepare step: token embeds and positions."""
+    text = model.embed_tokens(ids).to(dtype)
+    b, s = ids.shape
+    return text, torch.arange(s, device=ids.device).expand(b, s), length
+
+
+def vlm_heads(cfg: VLMConfig):
+    """``(heads, kv_heads, head_dim)`` of the attention block a VLM
+    parameter belongs to (``parallel.sharding.HeadLayout``)."""
+    d, v = cfg.decoder, cfg.vision
+
+    def heads(name: str):
+        if name.startswith("decoder.layers.") and ".attn." in name:
+            return d.heads, d.kv_heads, d.dim_per_head
+        if name.startswith("vision.blocks.") and ".attn." in name:
+            return v.heads, v.heads, v.width // v.heads
+        return None
+
+    return heads
+
+
+def place_tp_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool, dtype, group) -> VLMModel:
+    """One rank's shards of a tensor-parallel VLM (a program of ``group``):
+    the rank's slice of ``state`` by the JAX placement (``INT8_TP_RULES``
+    first for an int8 decoder, then ``TRANSFORMER_TP_RULES``; whole
+    heads, ``parallel.sharding.tp_split``), built, cast to ``dtype`` and
+    placed on the rank's device. Notes the model axis for the int8
+    routing rule on this rank."""
+    note_mesh_model_axis(group.size)
+    rules = (INT8_TP_RULES if cfg.decoder.weight_quant == "int8" else []) + TRANSFORMER_TP_RULES
+    local = local_state_dict(state, rules, group.tp, heads=vlm_heads(cfg))
+    model = VLMManager._build_model(cfg, local, native_vision, tp=group.tp)
+    return model.to(device=group.device, dtype=dtype).eval()
 
 
 def _has_native_vision(cfg: VLMConfig, state: Mapping[str, torch.Tensor]) -> bool:

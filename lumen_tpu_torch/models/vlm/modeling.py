@@ -19,6 +19,19 @@ its sparse layers by ``MoEFFN``: a router, stacked ``[E, ...]`` expert
 banks run through :func:`~lumen_tpu_torch.parallel.moe.moe_ffn` with
 exact routing, and a sigmoid-gated shared expert; under int8 only the
 shared expert's projections turn ``QDense``.
+
+With ``tp`` (a :class:`~lumen_tpu_torch.parallel.tp.TensorParallel`) the
+model holds one rank's shards of a ``model`` axis (``parallel.sharding.
+local_state_dict``): each attention block ``heads / size`` query heads and
+the KV heads they read, so the KV caches and the paged pool hold only this
+rank's KV heads ``[pages, kv_heads_local, page, dh]``; the MLPs their share
+of the intermediate width; the token table and the vision position table
+their share of the width. A block sums after ``o_proj`` and ``down_proj``
+(and the vision tower after ``out_proj``, ``fc2`` and the projector's
+``proj_fc2``, which the JAX ``fc2`` rule also splits); the token lookup is
+gathered to the full width, and the tied ``lm_head``'s partial logits are
+summed. The MoE decoder does not run on a ``model`` axis (ROADMAP queue A,
+item 2c).
 """
 
 from __future__ import annotations
@@ -33,7 +46,8 @@ from torch.nn import functional as F
 from ...ops.attention import attention, attention_cached, paged_attention, repeat_kv
 from ...ops.quant import QDense
 from ...parallel.moe import MoEParams, moe_ffn
-from ..clip.modeling import Block, PatchEmbed
+from ...parallel.tp import TensorParallel, row_parallel
+from ..clip.modeling import Block, PatchEmbed, _local_width
 
 
 @dataclass(frozen=True)
@@ -175,27 +189,38 @@ class VLMConfig:
 # -- KV cache ---------------------------------------------------------------
 
 
-def init_kv_cache(cfg: VLMConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None):
-    """Contiguous per-layer cache ``[batch, kv_heads, max_seq, dh]``."""
+class KVCache(list):
+    """A decoder's per-layer ``{"k", "v"}`` buffers: a list that a
+    tensor-parallel group registers as one rank-local object (each rank's
+    holds its own KV heads)."""
+
+    _tp_local = True
+
+
+def init_kv_cache(cfg: VLMConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
+                  kv_heads: int | None = None):
+    """Contiguous per-layer cache ``[batch, kv_heads, max_seq, dh]``
+    (``kv_heads``: a tensor-parallel rank's own count)."""
     d = cfg.decoder
-    shape = (batch, d.kv_heads, max_seq, d.dim_per_head)
-    return [
+    shape = (batch, kv_heads or d.kv_heads, max_seq, d.dim_per_head)
+    return KVCache(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
         for _ in range(d.layers)
-    ]
+    )
 
 
-def init_paged_kv_cache(cfg: VLMConfig, pages: int, page_size: int, dtype=torch.bfloat16, device=None):
+def init_paged_kv_cache(cfg: VLMConfig, pages: int, page_size: int, dtype=torch.bfloat16, device=None,
+                        kv_heads: int | None = None):
     """Per-layer paged pool ``[pages, kv_heads, page_size, dh]``, shared by
     every decode row through block tables. Page 0 is the dump page."""
     d = cfg.decoder
-    shape = (pages, d.kv_heads, page_size, d.dim_per_head)
-    return [
+    shape = (pages, kv_heads or d.kv_heads, page_size, d.dim_per_head)
+    return KVCache(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
         for _ in range(d.layers)
-    ]
+    )
 
 
 # -- modules ----------------------------------------------------------------
@@ -235,14 +260,20 @@ def rope_rotate(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch
 
 
 class DecoderAttention(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         dh = cfg.dim_per_head
-        self.q_proj = _dense(cfg, cfg.hidden_size, cfg.heads * dh, True)
-        self.k_proj = _dense(cfg, cfg.hidden_size, cfg.kv_heads * dh, True)
-        self.v_proj = _dense(cfg, cfg.hidden_size, cfg.kv_heads * dh, True)
-        self.o_proj = _dense(cfg, cfg.heads * dh, cfg.hidden_size, False)
+        #: this rank's heads (``parallel.tp.AttnPlan``), None without tp
+        self.plan = tp.attn_plan(cfg.heads, cfg.kv_heads) if tp is not None else None
+        self.split = self.plan is not None and self.plan.split
+        self.heads = self.plan.q_heads if self.split else cfg.heads
+        self.kv_heads = self.plan.kv_heads if self.split else cfg.kv_heads
+        self.q_proj = _dense(cfg, cfg.hidden_size, self.heads * dh, True)
+        self.k_proj = _dense(cfg, cfg.hidden_size, self.kv_heads * dh, True)
+        self.v_proj = _dense(cfg, cfg.hidden_size, self.kv_heads * dh, True)
+        self.o_proj = _dense(cfg, self.heads * dh, cfg.hidden_size, False)
 
     def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         """``x`` [B, S, hidden]. With a contiguous cache, new K/V are
@@ -260,12 +291,12 @@ class DecoderAttention(nn.Module):
         c = self.cfg
         b, s, _ = x.shape
         dh = c.dim_per_head
-        q = self.q_proj(x).reshape(b, s, c.heads, dh).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, s, c.kv_heads, dh).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, s, c.kv_heads, dh).transpose(1, 2)
+        q = self.q_proj(x).reshape(b, s, self.heads, dh).transpose(1, 2)
+        k = self.k_proj(x).reshape(b, s, self.kv_heads, dh).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, s, self.kv_heads, dh).transpose(1, 2)
         q = rope_rotate(q, positions, c.rope_theta).contiguous()
         k = rope_rotate(k, positions, c.rope_theta)
-        n_rep = c.heads // c.kv_heads
+        n_rep = self.heads // self.kv_heads
 
         if block_tables is not None:
             page = cache["k"].shape[2]
@@ -312,20 +343,22 @@ class DecoderAttention(nn.Module):
             out = attention(
                 q, repeat_kv(k.contiguous(), n_rep), repeat_kv(v.contiguous(), n_rep), causal=True
             )
-        out = out.transpose(1, 2).reshape(b, s, c.heads * dh)
-        return self.o_proj(out), cache
+        out = out.transpose(1, 2).reshape(b, s, self.heads * dh)
+        return row_parallel(self.o_proj, out, self.tp, self.split), cache
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, cfg: DecoderConfig, intermediate: int | None = None):
+    def __init__(self, cfg: DecoderConfig, intermediate: int | None = None, tp: TensorParallel | None = None):
         super().__init__()
-        inter = intermediate or cfg.intermediate_size
+        full = intermediate or cfg.intermediate_size
+        inter = _local_width(full, tp)
+        self.tp, self.split = tp, inter != full
         self.gate_proj = _dense(cfg, cfg.hidden_size, inter, False)
         self.up_proj = _dense(cfg, cfg.hidden_size, inter, False)
         self.down_proj = _dense(cfg, inter, cfg.hidden_size, False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return row_parallel(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), self.tp, self.split)
 
 
 class MoEFFN(nn.Module):
@@ -369,12 +402,12 @@ class MoEFFN(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0):
+    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, tp: TensorParallel | None = None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.attn = DecoderAttention(cfg)
+        self.attn = DecoderAttention(cfg, tp)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = MoEFFN(cfg) if cfg.is_moe_layer(layer_idx) else SwiGLU(cfg)
+        self.mlp = MoEFFN(cfg) if cfg.is_moe_layer(layer_idx) else SwiGLU(cfg, tp=tp)
 
     def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         h, cache = self.attn(
@@ -388,29 +421,50 @@ class Decoder(nn.Module):
     """Causal LM over input embeddings, so vision embeddings can be
     spliced upstream."""
 
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, tp: TensorParallel | None = None):
         super().__init__()
+        if tp is not None and cfg.moe_experts:
+            raise NotImplementedError(
+                "a Qwen2-MoE decoder on a model axis is not served yet (ROADMAP queue A, item 2c: expert "
+                "parallelism and tensor parallelism of the MoE decoder)"
+            )
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.layers))
+        self.tp = tp
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, _local_width(cfg.hidden_size, tp))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, tp) for i in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = (
             None if cfg.tie_word_embeddings else _dense(cfg, cfg.hidden_size, cfg.vocab_size, False)
         )
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        x = self.embed_tokens(input_ids)
+        return x if self.tp is None else self.tp.gather(x, self.cfg.hidden_size)
 
-    def forward(self, embeds, positions, caches, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
+    def forward(self, embeds, positions, caches, cache_offset, kv_valid_len, block_tables=None, kv_bound=None,
+                last=None):
+        """Logits ``[B, S, V]``; with ``last`` ([B] positions) only each
+        row's logits at its ``last`` position, ``[B, 1, V]``: a prefill
+        reads no other, and on a model axis the partial logits summed
+        shrink by the sequence length."""
         x = embeds
         for i, layer in enumerate(self.layers):
             x, _ = layer(
                 x, positions, caches[i] if caches is not None else None,
                 cache_offset, kv_valid_len, block_tables, kv_bound,
             )
+        if last is not None:
+            x = x[torch.arange(x.shape[0], device=x.device), last.long()][:, None]
         x = self.final_norm(x)
         if self.lm_head is None:
-            logits = x @ self.embed_tokens.weight.to(x.dtype).T
+            w = self.embed_tokens.weight
+            if w.shape[1] != x.shape[-1]:
+                # A width-split tied table: this rank's columns of x give
+                # partial logits, summed over the axis.
+                lo = self.tp.rank * w.shape[1]
+                logits = self.tp.sum(x[..., lo : lo + w.shape[1]] @ w.to(x.dtype).T)
+            else:
+                logits = x @ w.to(x.dtype).T
         else:
             logits = self.lm_head(x)
         return logits, caches
@@ -420,31 +474,39 @@ class VisionEncoder(nn.Module):
     """ViT over large patches -> [B, num_tokens, width], then a 2-layer
     GELU MLP projector into the decoder's hidden space (LLaVA layout)."""
 
-    def __init__(self, cfg: VLMConfig):
+    def __init__(self, cfg: VLMConfig, tp: TensorParallel | None = None):
         super().__init__()
         v = cfg.vision
+        hidden = cfg.decoder.hidden_size
+        self.tp = tp
         self.patch_embed = PatchEmbed(v.width, v.patch_size, use_bias=True)
-        self.position_embedding = nn.Parameter(torch.zeros(v.num_tokens, v.width))
-        self.blocks = nn.ModuleList(Block(v.width, v.heads, "gelu", 1e-6) for _ in range(v.layers))
+        self.position_embedding = nn.Parameter(torch.zeros(v.num_tokens, _local_width(v.width, tp)))
+        self.blocks = nn.ModuleList(Block(v.width, v.heads, "gelu", 1e-6, tp=tp) for _ in range(v.layers))
         self.post_ln = nn.LayerNorm(v.width, eps=1e-6)
-        self.proj_fc1 = nn.Linear(v.width, cfg.decoder.hidden_size)
-        self.proj_fc2 = nn.Linear(cfg.decoder.hidden_size, cfg.decoder.hidden_size)
+        inner = _local_width(hidden, tp)
+        self.proj_split = inner != hidden
+        self.proj_fc1 = nn.Linear(v.width, inner)
+        self.proj_fc2 = nn.Linear(inner, hidden)
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(pixel_values)
-        x = x + self.position_embedding.to(x.dtype)
+        pos = self.position_embedding
+        if self.tp is not None:
+            pos = self.tp.gather(pos, x.shape[-1])
+        x = x + pos.to(x.dtype)
         for block in self.blocks:
             x = block(x)
         x = self.post_ln(x)
-        return self.proj_fc2(F.gelu(self.proj_fc1(x), approximate="tanh"))
+        return row_parallel(self.proj_fc2, F.gelu(self.proj_fc1(x), approximate="tanh"), self.tp, self.proj_split)
 
 
 class VLMModel(nn.Module):
-    def __init__(self, cfg: VLMConfig):
+    def __init__(self, cfg: VLMConfig, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        self.vision = VisionEncoder(cfg)
-        self.decoder = Decoder(cfg.decoder)
+        self.tp = tp
+        self.vision = VisionEncoder(cfg, tp)
+        self.decoder = Decoder(cfg.decoder, tp)
 
     def encode_vision(self, pixel_values):
         return self.vision(pixel_values)
@@ -452,10 +514,11 @@ class VLMModel(nn.Module):
     def embed_tokens(self, input_ids):
         return self.decoder.embed(input_ids)
 
-    def decode(self, embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=None):
+    def decode(self, embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=None, last=None):
         """Decode against a contiguous KV cache; ``kv_bound`` is the host's
-        ``kv_valid_len.max()`` for a single-token step (no sync)."""
-        return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=kv_bound)
+        ``kv_valid_len.max()`` for a single-token step (no sync); ``last``
+        keeps one position's logits a row (``Decoder.forward``)."""
+        return self.decoder(embeds, positions, caches, cache_offset, kv_valid_len, kv_bound=kv_bound, last=last)
 
     def decode_paged(self, embeds, positions, caches, block_tables, cache_offset, kv_valid_len):
         """Decode against the paged KV pool: one token per row, or a

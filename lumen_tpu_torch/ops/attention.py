@@ -535,11 +535,13 @@ def attention_cached(q, k, v, q_offsets, kv_valid, scale: float | None = None, k
 
 
 def repeat_kv(x, n_rep: int):
-    """[B, kv_heads, S, D] -> [B, kv_heads * n_rep, S, D] for GQA."""
+    """[B, kv_heads, S, D] -> [B, kv_heads * n_rep, S, D] for GQA, contiguous
+    (from one KV head the reshape would be a stride-0 view, which the
+    kernels refuse: a tensor-parallel rank may hold a single KV head)."""
     if n_rep == 1:
         return x
     b, h, s, d = x.shape
-    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d).contiguous()
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, kv_lens, scale=None):

@@ -22,7 +22,7 @@ from torch import nn
 
 from ..utils.env import env_choice
 from ..utils.metrics import metrics
-from .quant_matmul import MAX_KERNEL_ROWS, w8a16_matmul
+from .quant_matmul import MAX_KERNEL_ROWS, kernel_routable, w8a16_matmul
 
 
 class QDense(nn.Module):
@@ -31,8 +31,10 @@ class QDense(nn.Module):
 
     - ``dequant``: decode-sized calls (at most :data:`MAX_KERNEL_ROWS`
       rows) with bf16 activations run the w8a16 kernel, which computes the
-      dot on bf16 operands with fp32 accumulation and scale. Every other
-      call -- prefill chunks, fp32 activations -- is the JAX XLA branch,
+      dot on bf16 operands with fp32 accumulation and scale, unless a
+      serving mesh of the process has had a ``model`` axis above 1
+      (``quant_matmul.kernel_routable``, the JAX ``pallas_usable`` rule).
+      Every other call -- prefill chunks, fp32 activations -- is the JAX XLA branch,
       ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``, a plain matrix product:
       the kernel's bf16 contract would cost an fp32 caller mantissa.
     - ``dynamic`` (W8A8): each token's activations are quantized
@@ -66,17 +68,28 @@ class QDense(nn.Module):
             self._buffers["scale"] = scale.to(self.q.device)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def project(self, x: torch.Tensor, amax: torch.Tensor | None = None) -> torch.Tensor:
+        """``(x @ q) * scale`` without the bias: the whole product, or on a
+        tensor-parallel shard the partial a row-parallel projection sums
+        (``parallel.tp.row_parallel``). ``q`` may be any rank's slice: the
+        product takes its widths from it. ``amax`` is each token's
+        ``|x|.max()`` over the WHOLE row when ``x`` holds a rank's columns
+        of it (``dynamic`` quantizes every column with the row's scale)."""
         rows = x.numel() // x.shape[-1]
+        out = self.q.shape[1]
         if self.kernel_mode == "dynamic":
-            sx = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True).float() / 127.0, 1e-8)
+            if amax is None:
+                amax = x.abs().amax(dim=-1, keepdim=True).float()
+            sx = torch.clamp_min(amax / 127.0, 1e-8)
             qx = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
-            acc = int8_matmul(qx.reshape(rows, x.shape[-1]), self.q).reshape(*x.shape[:-1], self.out_features)
-            y = (acc.float() * sx * self.scale).to(x.dtype)
-        elif rows <= MAX_KERNEL_ROWS and x.dtype == torch.bfloat16:
-            y = w8a16_matmul(x, self.q, self.scale)
-        else:
-            y = torch.matmul(x, self.q.to(x.dtype)) * self.scale.to(x.dtype)
+            acc = int8_matmul(qx.reshape(rows, x.shape[-1]), self.q).reshape(*x.shape[:-1], out)
+            return (acc.float() * sx * self.scale).to(x.dtype)
+        if rows <= MAX_KERNEL_ROWS and x.dtype == torch.bfloat16 and kernel_routable():
+            return w8a16_matmul(x, self.q, self.scale)
+        return torch.matmul(x, self.q.to(x.dtype)) * self.scale.to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(x)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y

@@ -9,11 +9,13 @@ kernel (``csrc/w8a16_matmul.cu``) on CUDA tensors and runs the plain
 :func:`w8a16_reference` on CPU tensors; a CUDA call the kernel cannot take
 raises. Which calls come here is ``QDense``'s routing (``ops/quant.py``):
 rows <= :data:`MAX_KERNEL_ROWS` and bf16 activations, the JAX package's
-own rules. Its ``LUMEN_Q8_PALLAS`` knob is not ported (the port has no
-dispatch knobs). Its tensor-parallel rule (keep the kernel off when the
-serving mesh has ``model`` > 1) waits for serving over a ``model`` axis:
-the process mesh exists (``runtime/mesh.build_process_mesh``), no serving
-path uses it yet (ROADMAP A2b).
+own rules, and its tensor-parallel rule: once any serving mesh in the
+process has had a ``model`` axis above 1 (:func:`note_mesh_model_axis`,
+called by the managers on every rank), decode-sized calls take the dequant
+dot (:func:`kernel_routable`). It is a routing rule, as the JAX package's,
+not a fallback: under ``model`` > 1 the JAX package serves that dot too.
+Its ``LUMEN_Q8_PALLAS`` knob is not ported (the port has no dispatch
+knobs).
 """
 
 from __future__ import annotations
@@ -30,6 +32,27 @@ from .cuda_build import CSRC, CudaKernel
 #: ``MAX_PALLAS_ROWS``). Larger row counts (prefill chunks) are a plain
 #: matrix product.
 MAX_KERNEL_ROWS = 64
+
+#: Largest ``model``-axis size any serving mesh in this process has
+#: reported (JAX ``_MESH_MODEL_AXIS``).
+_MESH_MODEL_AXIS = 1
+
+
+def note_mesh_model_axis(size: int) -> None:
+    """Serving managers report their mesh's ``model``-axis size here at
+    construction (JAX ``note_mesh_model_axis``). Sticky maximum: one
+    tensor-parallel manager anywhere in the process routes every
+    decode-sized bf16 int8 call to the dequant dot."""
+    global _MESH_MODEL_AXIS
+    _MESH_MODEL_AXIS = max(_MESH_MODEL_AXIS, int(size))
+
+
+def kernel_routable() -> bool:
+    """The tensor-parallel half of ``QDense``'s routing (JAX
+    ``pallas_usable``'s ``_MESH_MODEL_AXIS > 1`` gate): False once a
+    ``model`` axis above 1 was noted."""
+    return _MESH_MODEL_AXIS == 1
+
 
 #: the kernel's tiles: N in 64-column tiles, K in 16-byte (8-element) vectors.
 _COL_TILE, _K_VEC = 64, 8

@@ -238,7 +238,7 @@ def moe_ffn(
         if mesh.shape.get(axis_name, 1) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis_name!r} = {mesh.shape[axis_name]}: expert parallelism within a serving "
-                "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2); SPMD callers pass "
+                "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2c); SPMD callers pass "
                 "a process mesh (runtime.mesh.build_process_mesh)"
             )
     elif mesh is not None and axis_name in mesh.mesh_dim_names:

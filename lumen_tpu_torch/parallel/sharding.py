@@ -19,7 +19,8 @@ A :class:`PartitionSpec` names, per tensor dimension, the mesh axis (or
 tuple of axes) it is split over, or None; :func:`shard_params` turns it
 into DTensor placements on a ``torch.distributed`` ``DeviceMesh``
 (``runtime.mesh.build_process_mesh``), the counterpart of a
-``NamedSharding``.
+``NamedSharding``. A serving rank of a ``model`` axis takes its plain
+local slices instead (:func:`local_state_dict`, by whole heads).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from __future__ import annotations
 import logging
 import math
 import re
-from typing import Iterable, Mapping
+from typing import Callable, Iterable, Mapping
 
 import torch
 
@@ -158,3 +159,75 @@ def shard_params(params: Mapping[str, torch.Tensor], mesh, rules: Iterable[Shard
 def replicate(params: Mapping[str, torch.Tensor], mesh) -> dict:
     """Every tensor replicated on every rank of the mesh."""
     return shard_params(params, mesh, [])
+
+
+#: projections whose split dimension counts query heads, and KV heads
+_QUERY_PROJ = re.compile(r"(^|\.)(q_proj|o_proj|out_proj)\.(weight|bias|q|scale)$")
+_KV_PROJ = re.compile(r"(^|\.)(k_proj|v_proj)\.(weight|bias|q|scale)$")
+
+#: ``heads(name)``: the ``(heads, kv_heads, head_dim)`` of the attention
+#: block a parameter belongs to, or None outside attention
+HeadLayout = Callable[[str], "tuple[int, int, int] | None"]
+
+
+def tp_split(name: str, shape: tuple[int, ...], rules: Iterable[ShardingRule], tp,
+             heads: HeadLayout | None = None) -> "tuple[PartitionSpec, int | None, slice | None]":
+    """How a serving rank ``tp`` (``parallel.tp.TensorParallel``) holds the
+    parameter ``name``: ``(spec, dim, rows)``, the spec its slice carries
+    on a ``model`` axis of ``tp.size``, the split dimension and this rank's
+    ``[lo, hi)`` of it (``None, None`` when it replicates).
+
+    The rule is the JAX one -- first match of ``rules``, then
+    :func:`sanitize_spec` against the axis -- with one difference: a
+    projection of an attention block (``heads`` names its layout) splits by
+    WHOLE heads, ``tp.attn_plan``. JAX's ``sanitize_spec`` checks only that
+    the column count divides, so at ``model`` 4 it would cut Qwen2-0.5B's 2
+    KV heads of 64 columns into half-heads (128 / 4 = 32 columns a device),
+    which GSPMD computes through collectives inside attention; a rank here
+    runs attention on local heads only. So where ``kv_heads`` is smaller
+    than the axis each rank keeps the KV head its query heads read
+    (Megatron's rule), and where the query heads do not divide the whole
+    block replicates (and its module skips the sum)."""
+    layout = heads(name) if heads is not None else None
+    if layout is not None and (_QUERY_PROJ.search(name) or _KV_PROJ.search(name)):
+        # Whole heads decide, not the column count.
+        spec = spec_for(name, rules)
+        spec = spec if len(spec) <= len(shape) else P()
+    else:
+        spec = sanitize_spec(spec_for(name, rules), shape, {"model": tp.size}, path=name)
+        layout = None
+    dims = [d for d, e in enumerate(spec) if e == "model"]
+    if not dims:
+        return P(), None, None
+    dim = dims[0]
+    if layout is not None:
+        h, kvh, dh = layout
+        plan = tp.attn_plan(h, kvh)
+        if not plan.split:
+            return P(), None, None
+        if _QUERY_PROJ.search(name):
+            return spec, dim, slice(plan.q_lo * dh, (plan.q_lo + plan.q_heads) * dh)
+        rows = slice(plan.kv_lo * dh, (plan.kv_lo + plan.kv_heads) * dh)
+        if plan.kv_heads * tp.size != kvh:
+            # Fewer KV heads than ranks: the slice is a head every rank
+            # group shares, not a 1/size block (no JAX spec describes it).
+            spec = P(*(None if e == "model" else e for e in spec))
+            while spec and spec[-1] is None:
+                spec = P(*spec[:-1])
+        return spec, dim, rows
+    rows = tp.split(shape[dim])
+    return (spec, dim, rows) if rows is not None else (P(), None, None)
+
+
+def local_state_dict(state: Mapping[str, torch.Tensor], rules: Iterable[ShardingRule], tp,
+                     heads: HeadLayout | None = None) -> dict[str, torch.Tensor]:
+    """This serving rank's local slice of every tensor of ``state`` (plain
+    tensors, no DTensor): the rules and whole-head splits of
+    :func:`tp_split`. Slices are contiguous copies, so the full tensors can
+    be freed."""
+    rules = list(rules)
+    out = {}
+    for name, t in state.items():
+        _, dim, rows = tp_split(name, tuple(t.shape), rules, tp, heads)
+        out[name] = t if dim is None else t.narrow(dim, rows.start, rows.stop - rows.start).contiguous()
+    return out

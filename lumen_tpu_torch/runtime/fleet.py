@@ -217,7 +217,7 @@ def plan_replicas(
     replica's mesh keeps the configured non-``data`` axes and absorbs the
     rest of its slice on ``data``. Counts that don't fit degrade to the
     largest that does (one-shot warning per family)."""
-    from .mesh import DATA_AXIS, build_mesh, local_devices
+    from .mesh import DATA_AXIS, MODEL_AXIS, build_mesh, local_devices
 
     devices = list(devices if devices is not None else local_devices())
     n = len(devices)
@@ -226,6 +226,19 @@ def plan_replicas(
     policy = dispatch_policy_name()
     # Non-data axes (TP/SP/...) live INSIDE each replica: a slice must hold
     # at least one full copy of them.
+    if axes.get(MODEL_AXIS, 1) != 1 and requested != 1:
+        raise NotImplementedError(
+            f"{family}: {'max' if requested == -1 else requested} replicas of a model axis of "
+            f"{axes[MODEL_AXIS]}: replicas x tensor parallelism is not served yet (ROADMAP queue A, item 2d)"
+        )
+    if axes.get(MODEL_AXIS, 1) != 1:
+        # One tensor-parallel replica on the process's group: its ranks'
+        # devices, not this process's card list.
+        from . import tp_group
+
+        group = tp_group.current()
+        mesh = build_mesh(mesh_axes, devices=None if group is not None else devices)
+        return FleetPlan(family, 1, [mesh], policy, len(mesh.devices), len(mesh.devices), requested=1)
     fixed = math.prod(s for a, s in axes.items() if a != DATA_AXIS and s != -1)
     slots = max(1, n // max(1, fixed))
     want = slots if requested == -1 else requested

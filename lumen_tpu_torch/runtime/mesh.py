@@ -8,16 +8,21 @@ have had over it, so the fleet and the capability surface read the same
 ``shape`` mapping.
 
 Axis names are the JAX package's. :func:`resolve_axes` is its pure-Python
-resolver, unchanged. What a serving replica does not run raises or says so:
+resolver, unchanged. What a serving replica runs:
 
-- a ``model``, ``seq``, ``stage`` or ``expert`` axis above 1 (tensor,
-  sequence, pipeline or expert parallelism within a replica) raises
-  ``NotImplementedError``; serving over those axes waits for a
-  coordinator/worker design (ROADMAP queue A, item 2);
+- a ``model`` axis above 1 is tensor parallelism over a rank-0/worker
+  group (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a device,
+  ``serve()`` starts the group. The mesh carries the group, its ranks'
+  devices and its :class:`~lumen_tpu_torch.parallel.tp.TensorParallel`;
+  an axis larger than the devices or the group raises (never a replicated
+  fallback);
+- a ``seq``, ``stage`` or ``expert`` axis above 1 raises
+  ``NotImplementedError`` naming the ROADMAP item that would lift it;
 - a ``data`` axis above 1 (one micro-batch spread over several devices)
   degrades to 1 with a one-shot warning: the replica serves on its first
-  device. Several cards serve as several replicas, one a card
-  (``LUMEN_REPLICAS=max``, :mod:`lumen_tpu_torch.runtime.fleet`).
+  device, or its first ``model``-sized group of devices. Several cards
+  serve as several replicas, one a card (``LUMEN_REPLICAS=max``,
+  :mod:`lumen_tpu_torch.runtime.fleet`).
 
 SPMD programs -- the trainer and the functions of
 :mod:`lumen_tpu_torch.parallel` -- run one process a device in a
@@ -120,13 +125,21 @@ class DeviceMesh:
     (``shape``, as ``jax.sharding.Mesh.shape``). The port places a
     replica's weights and batches on :attr:`device`."""
 
-    __slots__ = ("devices", "shape")
+    __slots__ = ("devices", "shape", "group")
 
-    def __init__(self, devices: Sequence[torch.device], shape: dict[str, int]):
+    def __init__(self, devices: Sequence[torch.device], shape: dict[str, int], group=None):
         if not devices:
             raise ValueError("a DeviceMesh needs at least one device")
         self.devices = [torch.device(d) for d in devices]
         self.shape = dict(shape)
+        #: the tensor-parallel group (``runtime.tp_group.TPGroup``) of a
+        #: ``model`` axis above 1, else None
+        self.group = group
+
+    @property
+    def tp(self):
+        """This rank's ``TensorParallel`` on the ``model`` axis, or None."""
+        return None if self.group is None else self.group.tp
 
     @property
     def device(self) -> torch.device:
@@ -146,23 +159,41 @@ def build_mesh(
     devices: Sequence[torch.device] | None = None,
 ) -> DeviceMesh:
     """A replica's device slice: by default every local CUDA device on one
-    ``data`` axis, as the JAX ``build_mesh``. Parallel axes the port does
-    not run raise; a ``data`` axis above 1 serves on the slice's first
-    device (module docstring)."""
-    devices = list(devices if devices is not None else local_devices())
+    ``data`` axis, as the JAX ``build_mesh``. A ``model`` axis above 1
+    runs on the process's tensor-parallel group (``runtime.tp_group``),
+    whose devices it takes when ``devices`` is not given; ``seq``,
+    ``stage`` and ``expert`` raise; a ``data`` axis above 1 serves on the
+    slice's first device or first ``model`` group (module docstring)."""
+    from . import tp_group
+
+    axes = axes or {DATA_AXIS: -1}
+    model = axes.get(MODEL_AXIS, 1)
+    group = tp_group.current() if model != 1 else None
+    if devices is None:
+        devices = group.devices if group is not None else local_devices()
+    devices = list(devices)
     if not devices:
         raise RuntimeError("no device to build a mesh on (CUDA is not available)")
-    axes = axes or {DATA_AXIS: -1}
+    if model > len(devices):
+        raise ValueError(
+            f"mesh axes {axes}: a model axis of {model} needs {model} devices, this host has {len(devices)}"
+        )
     resolved = resolve_axes(axes, len(devices))
-    parallel = {a: s for a, s in resolved.items() if a != DATA_AXIS and s > 1}
+    pending = {
+        SEQ_AXIS: "ROADMAP queue A, item 2e: sequence parallelism in serving",
+        STAGE_AXIS: "ROADMAP queue A, item 2e: pipeline parallelism in serving",
+        EXPERT_AXIS: "ROADMAP queue A, item 2c: expert parallelism in serving",
+    }
+    parallel = {a: s for a, s in resolved.items() if a in pending and s > 1}
     if parallel:
         raise NotImplementedError(
-            f"mesh axes {parallel}: tensor/sequence/pipeline/expert parallelism within a serving "
-            "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2: serving over "
-            "model/expert axes); SPMD programs lay a process group out with build_process_mesh"
+            f"mesh axes {parallel}: not served by lumen_tpu_torch yet ("
+            + "; ".join(pending[a] for a in parallel)
+            + "); SPMD programs lay a process group out with build_process_mesh"
         )
     used = math.prod(resolved.values())
     devices = devices[:used]
+    model = resolved.get(MODEL_AXIS, 1)
     if resolved.get(DATA_AXIS, 1) > 1:
         key = f"data={resolved[DATA_AXIS]}"
         if key not in _degrade_warned:
@@ -170,12 +201,25 @@ def build_mesh(
             logger.warning(
                 "mesh %s: a data axis over %d devices within one replica is not ported; "
                 "serving on %s (LUMEN_REPLICAS=max serves one replica per device)",
-                resolved, len(devices), devices[0],
+                resolved, len(devices), [str(d) for d in devices[:model]],
             )
         resolved[DATA_AXIS] = 1
-        devices = devices[:1]
+        devices = devices[:model]
+    if model > 1:
+        if group is None:
+            raise RuntimeError(
+                f"mesh {resolved}: a model axis of {model} runs on a tensor-parallel group of {model} "
+                "ranks, and none is running (serve() starts one for a config whose mesh names a model "
+                "axis; runtime.tp_group.TPGroup.spawn starts one directly)"
+            )
+        if group.size != model:
+            raise ValueError(
+                f"mesh {resolved}: a model axis of {model} does not match the running tensor-parallel "
+                f"group of {group.size} ranks"
+            )
+        devices = list(group.devices)
     logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
-    return DeviceMesh(devices, resolved)
+    return DeviceMesh(devices, resolved, group=group if model > 1 else None)
 
 
 def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda"):
@@ -206,11 +250,21 @@ def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "c
     return mesh
 
 
+def local_batch_multiple(mesh) -> int:
+    """A batch fed to a data-parallel program must be a multiple of this:
+    the ``data`` axis size of a serving or process mesh (JAX
+    ``local_batch_multiple``; 1 for a serving replica, whose data axis
+    serves on one device)."""
+    return axis_sizes(mesh).get(DATA_AXIS, 1)
+
+
 def axis_sizes(mesh) -> dict[str, int]:
     """``{axis: size}`` of a process mesh (JAX ``Mesh.shape``), or of a
     serving :class:`DeviceMesh`; ``{}`` for None."""
     if mesh is None:
         return {}
+    if isinstance(mesh, dict):
+        return dict(mesh)
     if isinstance(mesh, DeviceMesh):
         return dict(mesh.shape)
     return dict(zip(mesh.mesh_dim_names, mesh.shape))

@@ -152,6 +152,37 @@ def unflatten(flat: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+def flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Nested param dict -> '/'-separated flat keys (the inverse of
+    :func:`unflatten`)."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def assert_tree_shapes(loaded: dict, initialized: dict) -> None:
+    """A converted checkpoint must match the module's tree exactly, names
+    and shapes (JAX ``assert_tree_shapes``); raises :class:`WeightLoadError`
+    naming the first differences."""
+    lf, rf = flatten(loaded), flatten(initialized)
+    missing = sorted(set(rf) - set(lf))
+    extra = sorted(set(lf) - set(rf))
+    if missing or extra:
+        raise WeightLoadError(
+            f"param tree mismatch: missing={missing[:8]} extra={extra[:8]} "
+            f"(missing {len(missing)}, extra {len(extra)})"
+        )
+    bad = [f"{k}: ckpt{tuple(lf[k].shape)} vs init{tuple(rf[k].shape)}" for k in rf
+           if tuple(lf[k].shape) != tuple(rf[k].shape)]
+    if bad:
+        raise WeightLoadError(f"param shape mismatches: {bad[:8]}")
+
+
 # -- native checkpoint format ------------------------------------------------
 #
 # The JAX package's "jax" runtime format: safetensors whose keys are

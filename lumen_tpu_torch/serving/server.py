@@ -187,6 +187,47 @@ def attach_breaker(recovery: RecoveryManager, name: str, svc: BaseService) -> Ba
     return svc
 
 
+def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backend: str | None = None):
+    """The rank-0/worker group this server starts for every enabled service
+    whose mesh names a ``model`` axis above 1 (all of them share it, so
+    their axes must agree), or None: none is needed, or the process
+    already runs a group of that size, which the services then use (and
+    this server leaves running). ``tp_devices`` are the ranks' devices
+    (default: the host's cards from ``device`` on) and ``tp_backend`` the
+    data plane's backend (default ``nccl``; ``gloo`` for CPU ranks or
+    ranks sharing a card). A model axis the devices cannot fill raises."""
+    from ..runtime import tp_group
+    from ..runtime.fleet import fleet_devices
+
+    sizes = {}
+    for name, svc_cfg in config.enabled_services().items():
+        mesh = svc_cfg.backend_settings.mesh
+        model = (mesh.axes or {}).get("model", 1) if mesh else 1
+        if model != 1:
+            sizes[name] = model
+    if not sizes:
+        return None
+    devices = list(tp_devices) if tp_devices is not None else (fleet_devices(device) if device.type == "cuda" else [])
+    if any(s == -1 for s in sizes.values()):
+        sizes = {n: len(devices) if s == -1 else s for n, s in sizes.items()}
+    if len(set(sizes.values())) != 1:
+        raise ValueError(f"services share one tensor-parallel group, but their model axes differ: {sizes}")
+    size = next(iter(sizes.values()))
+    running = tp_group.current()
+    if running is not None and running.size == size:
+        logger.info("serving %s on the running tensor-parallel group of %d ranks", sorted(sizes), size)
+        return None
+    if size > len(devices):
+        raise ValueError(
+            f"a model axis of {size} ({sorted(sizes)}) needs {size} devices; have {len(devices)} "
+            f"({[str(d) for d in devices]}); pass tp_devices to serve on others"
+        )
+    backend = tp_backend or "nccl"
+    logger.info("starting a tensor-parallel group of %d ranks on %s (%s) for %s",
+                size, [str(d) for d in devices[:size]], backend, sorted(sizes))
+    return tp_group.TPGroup.spawn(devices[:size], backend)
+
+
 class ServerHandle:
     """A running gRPC server and its lifecycle (returned by ``serve``; the
     CLI blocks on ``wait``)."""
@@ -194,6 +235,7 @@ class ServerHandle:
     def __init__(
         self, server: grpc.Server, port: int, router: HubRouter, recovery: RecoveryManager | None,
         metrics_server=None, mdns: MdnsAdvertiser | None = None, autopilot=None, federation=None,
+        tp_group=None,
     ):
         self.server = server
         self.port = port
@@ -206,6 +248,8 @@ class ServerHandle:
         # (it is the router's), so teardown closes what is actually running.
         self.services = router.services
         self.recovery = recovery
+        #: the tensor-parallel group of the services on a model axis
+        self.tp_group = tp_group
 
     def drain_and_stop(self, drain_s: float | None = None) -> None:
         """Graceful shutdown: refuse new RPCs (the router answers in-band
@@ -304,6 +348,10 @@ class ServerHandle:
                     close()
                 except Exception:  # noqa: BLE001 - best-effort teardown
                     logger.exception("closing service %r failed", name)
+        if self.tp_group is not None:
+            # Last: the services' programs ran on the workers until here.
+            self.tp_group.stop()
+            self.tp_group = None
 
     def wait(self) -> None:
         self.server.wait_for_termination()
@@ -315,10 +363,15 @@ def serve(
     skip_download: bool = False,
     metrics_port: int | None = None,
     device=None,
+    tp_devices=None,
+    tp_backend: str | None = None,
 ) -> ServerHandle:
     """Boot the server; ``device`` (default ``cuda:0``, raising without a
     card) reaches every service's ``from_config``. A front tier (peers and
-    no enabled service) owns no model and resolves no device.
+    no enabled service) owns no model and resolves no device. Services
+    whose mesh names a ``model`` axis serve on one tensor-parallel group
+    this call starts (:func:`start_tensor_parallel`: ``tp_devices``,
+    ``tp_backend``) and the handle's ``stop`` ends.
     ``port_override=0`` binds an OS-assigned port (``handle.port``);
     ``metrics_port`` starts the HTTP sidecar on loopback (0: an
     OS-assigned port, ``handle.metrics_server.port``)."""
@@ -331,6 +384,7 @@ def serve(
     # thread, no gauge.
     federation = maybe_federation()
     recovery: RecoveryManager | None = None
+    tp_group = None
     if not config.enabled_services():
         if federation is None:
             logger.error("no enabled services selected by deployment config")
@@ -359,7 +413,13 @@ def serve(
         failed: dict[str, str] = {}
         if not skip_download:
             failed = ensure_models(config)
-        services = build_services(config, device, failed=failed)
+        tp_group = start_tensor_parallel(config, device, tp_devices, tp_backend)
+        try:
+            services = build_services(config, device, failed=failed)
+        except BaseException:
+            if tp_group is not None:
+                tp_group.stop()
+            raise
         router = HubRouter(services)
 
         def rebuild(n: str) -> BaseService:
@@ -433,6 +493,7 @@ def serve(
         mdns.start()
     return ServerHandle(
         server, bound, router, recovery, metrics_server, mdns=mdns, autopilot=autopilot, federation=federation,
+        tp_group=tp_group,
     )
 
 
@@ -494,6 +555,15 @@ def main(argv: list[str] | None = None, on_serving=None) -> int:
         "--metrics-port", type=int, default=None,
         help="serve /metrics, /metrics.json, /traces and the profiler on this loopback port",
     )
+    parser.add_argument(
+        "--tp-devices", default=None,
+        help="comma-separated devices of the tensor-parallel ranks of a mesh with a model axis "
+        "(default: the host's cards from --device on)",
+    )
+    parser.add_argument(
+        "--tp-backend", default=None, choices=("nccl", "gloo"),
+        help="the tensor-parallel data plane (default nccl; gloo for CPU ranks or ranks sharing a card)",
+    )
     args = parser.parse_args(argv)
 
     setup_logging(args.log_level)
@@ -501,6 +571,7 @@ def main(argv: list[str] | None = None, on_serving=None) -> int:
     handle = serve(
         config, port_override=args.port, skip_download=args.skip_download,
         metrics_port=args.metrics_port, device=args.device,
+        tp_devices=args.tp_devices.split(",") if args.tp_devices else None, tp_backend=args.tp_backend,
     )
     if on_serving is not None:
         on_serving(handle)

@@ -193,7 +193,7 @@ class ClipService(BaseService):
         )
 
     def healthy(self) -> bool:
-        return all(m._initialized for m in self.managers.values())
+        return all(m.alive() for m in self.managers.values())
 
     def replica_states(self) -> dict:
         from ...runtime.fleet import replica_states_of

@@ -93,6 +93,7 @@ class VlmService(BaseService):
             gen_slots=gen_batch,  # pool width = configured decode batch
             gen_block=bs.decode_block,
             quantize=bs.quantize,
+            mesh_axes=bs.mesh.axes if bs.mesh else None,
             **kw,
         )
         return cls(manager)
@@ -122,7 +123,7 @@ class VlmService(BaseService):
         )
 
     def healthy(self) -> bool:
-        return self.manager._initialized
+        return self.manager.alive()
 
     def close(self) -> None:
         self.manager.close()

@@ -86,10 +86,19 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
     assert all(m.shape == {"data": 1} and m.devices == [CPU] for m in got.meshes)
 
 
-def test_parallel_axes_raise():
-    with pytest.raises(NotImplementedError, match="queue A, item 2"):
+def test_parallel_axes_raise(monkeypatch):
+    # A model axis runs on a tensor-parallel group; without one it raises
+    # (never a replicated fallback), and so does one larger than the host.
+    with pytest.raises(RuntimeError, match="tensor-parallel group"):
         build_mesh({"model": 2}, devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        build_mesh({"model": 4}, devices=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="queue A, item 2c"):
+        build_mesh({"expert": 2}, devices=[CPU] * 2)
+    with pytest.raises(RuntimeError, match="tensor-parallel group"):
+        port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
+    monkeypatch.setenv("LUMEN_REPLICAS", "2")
+    with pytest.raises(NotImplementedError, match="queue A, item 2d"):
         port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
     assert build_mesh(devices=[CPU]).shape == {"data": 1}
 

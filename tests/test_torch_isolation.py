@@ -221,10 +221,46 @@ def test_parallel_package_is_checked():
                 "lumen_tpu_torch.training", "lumen_tpu_torch.training.clip_trainer",
                 "lumen_tpu_torch.training.checkpoint"):
         assert mod in mods
-    from lumen_tpu_torch import parallel, training
+    from lumen_tpu_torch import ops, parallel, runtime, training, utils
 
     assert set(parallel.__all__) >= _jax_all("parallel")
     assert set(training.__all__) == _jax_all("training")
+    # The package-level names of ops, runtime and utils: the JAX names,
+    # renamed or left out on purpose as listed.
+    assert set(ops.__all__) == {OPS_RENAMED.get(n, n) for n in _jax_all("ops") - OPS_ABSENT}
+    assert set(runtime.__all__) == _jax_all("runtime") - RUNTIME_ABSENT
+    assert set(utils.__all__) == _jax_all("utils")
+    for package in (ops, runtime, utils):
+        for name in package.__all__:
+            assert getattr(package, name) is not None, (package.__name__, name)
+
+
+#: JAX ``ops`` names the port exports under its own name
+OPS_RENAMED = {"nms_jax": "nms_torch"}
+#: JAX names with no package-level twin on purpose: the flash dispatch
+#: gates (a CUDA tensor launches its kernel or raises); ``attention``, whose
+#: JAX export shadows its module while the port's ``ops.attention`` stays
+#: the module of the kernels' wrappers (the function is
+#: ``ops.attention.attention``); and the NamedSharding helpers (a serving
+#: rank holds plain local tensors; SPMD programs place DTensors)
+OPS_ABSENT = {"flash_enabled", "flash_for_seq", "record_flash_ab", "attention"}
+RUNTIME_ABSENT = {"data_sharding", "replicated"}
+
+
+def test_decode_worker_loads_no_torch():
+    """What a decode-pool worker imports -- the host decode module, the
+    native library's package (which imports ``runtime.compile_cache``) --
+    and the lazy ``runtime`` package itself load no torch."""
+    code = (
+        "import sys\n"
+        "from lumen_tpu_torch.utils.host_decode import worker_main\n"
+        "import lumen_tpu_torch.native, lumen_tpu_torch.runtime as r\n"
+        "assert 'build_mesh' in r.__all__\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'lumen_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_chip_smoke_int8_speculative_drive_rehearses_on_cpu():

@@ -69,13 +69,21 @@ def reset_process_state() -> None:
     the same worker (``tests/test_clip.py``, ``tests/test_host_lane.py``)
     sits in a reference cycle until the collector runs, and its
     ``clip-image``/``clip-text`` queues showed up on the JAX server's
-    Health only. Also dropped: both quarantine registries (Health's
-    ``lumen-quarantine-size``) and both tenant quotas. The breakers are
-    per service, built by each ``serve()``."""
+    Health only. The collector cannot drop a queue whose batcher is still
+    live: earlier files on the same worker leave running batchers behind
+    (``tests/test_torch_search.py``'s ``search:t*`` shards,
+    ``tests/test_torch_ingest.py``'s ``clip-*``/``face-*``,
+    ``tests/test_torch_batcher.py``'s ``multi``/``dead-fetch``), in one
+    package's registry and not the other's, and the port server's Health
+    then carried ``lumen-qos-status`` alone. So both registries start
+    empty, as in a fresh process. Also dropped: both quarantine registries
+    (Health's ``lumen-quarantine-size``) and both tenant quotas. The
+    breakers are per service, built by each ``serve()``."""
     gc.collect()
     for quarantine, qos in ((jquarantine, jqos), (tquarantine, tqos)):
         quarantine.reset_quarantine()
         qos.reset_quota()
+        qos._wfq_registry.clear()
 
 
 def boot_both(tmp_path_factory, label: str, **env):
@@ -145,14 +153,19 @@ def test_repeated_greedy_request_is_cached_on_both(servers):
 
 def test_health_trailing_keys_match(servers):
     jstub, tstub, _, _ = servers
-    keys = []
+    keys, trailers = [], []
     for stub in (jstub, tstub):
         _, call = stub.Health.with_call(empty_pb2.Empty(), timeout=30)
         trailing = dict(call.trailing_metadata())
         keys.append(sorted(trailing))
+        trailers.append(trailing)
         assert json.loads(trailing["lumen-breaker-status"]) == {"vlm": "closed"}
         assert trailing["lumen-quarantine-size"] == "0"
-    assert keys[1] == keys[0]
+    jax_only, port_only = sorted(set(keys[0]) - set(keys[1])), sorted(set(keys[1]) - set(keys[0]))
+    assert keys[1] == keys[0], (
+        f"Health trailing keys differ: JAX only {jax_only} {[trailers[0][k] for k in jax_only]}, "
+        f"port only {port_only} {[trailers[1][k] for k in port_only]}"
+    )
 
 
 def metrics_json(handle) -> dict:

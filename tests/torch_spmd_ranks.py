@@ -5,6 +5,10 @@ case and writes its results as numpy.
 The ranks import torch and the port only: the JAX side of each test is
 computed in the pytest process and reaches the ranks as an ``.npz``.
 
+The serving cases (``tp_*``) join a tensor-parallel serving group
+(``runtime.tp_group``) instead of a plain process group: rank 0 drives
+the managers, the other ranks run the worker loop until rank 0 stops it.
+
     python tests/torch_spmd_ranks.py <case> <rank> <world> <port> <dir>
 """
 
@@ -30,10 +34,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(case: str, world: int, inputs: dict, workdir: Path, timeout: float = RANK_TIMEOUT_S) -> list[dict]:
+def run_ranks(case: str, world: int, inputs: dict, workdir: Path, timeout: float = RANK_TIMEOUT_S,
+              killed: tuple[int, ...] = ()) -> list[dict]:
     """Run ``case`` on ``world`` gloo ranks (a free port each time) with
     ``inputs`` (numpy arrays, plus JSON-able settings under ``"meta"``);
-    returns each rank's outputs. A rank that fails or outlives
+    returns each rank's outputs (an empty dict for a rank in ``killed``,
+    which the case kills on purpose). A rank that fails or outlives
     ``timeout`` fails the call, and every rank is stopped."""
     workdir.mkdir(parents=True, exist_ok=True)
     meta = inputs.pop("meta", {})
@@ -60,11 +66,11 @@ def run_ranks(case: str, world: int, inputs: dict, workdir: Path, timeout: float
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0 and r not in killed]
     if failed:
         raise AssertionError(f"{case}: ranks {failed} failed (a negative code: killed at the {timeout} s limit):\n"
                              + "\n".join(log.read_text()[-3000:] for log in logs))
-    return [dict(np.load(workdir / f"out_{r}.npz")) for r in range(world)]
+    return [{} if r in killed else dict(np.load(workdir / f"out_{r}.npz")) for r in range(world)]
 
 
 # -- the ranks ----------------------------------------------------------------
@@ -215,7 +221,251 @@ def _case_init(inp, meta, out):
                                                       device="cpu")))
 
 
-CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init}
+def _tp_group(meta):
+    from lumen_tpu_torch.runtime.tp_group import TPGroup
+
+    return TPGroup.join(meta["rank"], meta["world"], f"localhost:{meta['port']}", ["cpu"] * meta["world"], "gloo",
+                        timeout_s=meta.get("tp_timeout", 60.0))
+
+
+def _serving(case):
+    """A serving case on a tensor-parallel group: rank 0 runs ``case``
+    and stops the group, the others serve until then."""
+
+    def run(inp, meta, out):
+        group = _tp_group(meta)
+        if group.rank:
+            group.serve_forever()
+            out["programs"] = np.asarray(group.programs)
+            return
+        try:
+            case(group, inp, meta, out)
+        finally:
+            group.stop()
+
+    return run
+
+
+def _vlm_kw(meta, **extra):
+    return dict(device="cpu", dtype="float32", max_seq=128, max_new_cap=16, prefill_buckets=(16, 32),
+                gen_batch_size=2, gen_batch_latency_ms=1.0, **extra)
+
+
+def _tp_vlm(group, inp, meta, out):
+    """The VLM at ``{data: 4, model: 2}`` through the managers (continuous,
+    coalescer, int8 ``dequant`` and ``dynamic``), the spill of a TP row
+    resumed at TP = 1, and the hard limits."""
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+    from lumen_tpu_torch.runtime.mesh import build_mesh
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    mesh = {"data": 4, "model": 2}
+    for tag, extra in (("continuous", {"gen_slots": 2, "gen_block": 4}), ("coalesce", {"scheduler": "coalesce"}),
+                       ("int8_dequant", {"quantize": "int8"}), ("int8_dynamic", {"quantize": "int8"})):
+        if tag.startswith("int8"):
+            os.environ["LUMEN_Q8_KERNEL"] = tag.split("_")[1]
+        mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta, **extra))
+        try:
+            r = mgr.generate(prompt, max_new_tokens=meta["max_new"])
+            out[f"{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            chunks = list(mgr.generate_stream(prompt, max_new_tokens=meta["max_new"]))
+            out[f"{tag}_stream"] = np.asarray("".join(c.text for c in chunks).strip())
+        finally:
+            mgr.close()
+        out[f"{tag}_tokens"], out[f"{tag}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+    os.environ.pop("LUMEN_Q8_KERNEL", None)
+
+    # The int8 route's warm-up A/B runs its decode probes through the group.
+    os.environ["LUMEN_VLM_Q8_ROUTE"] = "auto"
+    mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, quantize="int8", warmup=True, **_vlm_kw(meta))
+    try:
+        out["ab_route"] = np.asarray(mgr.quant_route)
+        out["ab_speedup"] = np.asarray(float(mgr.quant_speedup))
+        out["ab_tokens"] = np.asarray(mgr.generate(prompt, max_new_tokens=meta["max_new"]).tokens)
+        out["ab_programs"] = np.asarray(group.programs)
+    finally:
+        mgr.close()
+        os.environ.pop("LUMEN_VLM_Q8_ROUTE", None)
+        verdict = os.path.join(meta["vlm_dir"], ".lumen_q8_verdict.json")
+        if os.path.exists(verdict):
+            os.remove(verdict)
+
+    # A row spilled from the TP pool resumes on a TP = 1 generator.
+    tp = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta))
+    one = VLMManager.from_model_dir(meta["vlm_dir"], **_vlm_kw(meta))
+    try:
+        first, row = _spill_blocks(tp, prompt, blocks=2)
+        rest, _ = _spill_blocks(one, prompt, blocks=1, resume=row)
+        whole, _ = _spill_blocks(one, prompt, blocks=3)
+        ref_row = _spill_blocks(one, prompt, blocks=2)[1]
+        _refusals(group, tp, out)
+    finally:
+        tp.close()
+        one.close()
+    out["spill_tokens"], out["spill_whole"] = np.concatenate([first, rest]), whole
+    out["spill_pages_err"] = np.asarray(max(float(np.abs(a["k"] - b["k"]).max())
+                                            for a, b in zip(row["pages"], ref_row["pages"])))
+    out["spill_pages_shape"] = np.asarray(row["pages"][0]["k"].shape)
+
+    # Hard limits: a model axis the group cannot fill, replicas x model,
+    # and the MoE decoder on a model axis raise.
+    limits = {}
+    for tag, fn in (
+        ("axis", lambda: build_mesh({"model": 4})),
+        ("replicas", lambda: VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta))),
+        ("moe", lambda: VLMManager.from_model_dir(meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta))),
+    ):
+        if tag == "replicas":
+            os.environ["LUMEN_REPLICAS"] = "2"
+        try:
+            fn()
+            limits[tag] = "no error"
+        except Exception as e:  # noqa: BLE001 - reported to the test
+            limits[tag] = f"{type(e).__name__}: {e}"
+        os.environ.pop("LUMEN_REPLICAS", None)
+    out["limits"] = np.asarray(json.dumps(limits))
+
+
+def _two_tensors():
+    """A program output that nests rank-local tensors in a plain list."""
+    import torch
+
+    return [torch.zeros(2), torch.ones(2)]
+
+
+def _head(x):
+    """A program output that views its by-value argument (on rank 0, the
+    host tensor it was given)."""
+    return x[:2]
+
+
+def _refusals(group, mgr, out) -> None:
+    """Views of rank-local tensors passed to a program are refused before
+    the header goes out (a cache slice, a cache's tensor, a parameter's
+    row, a tensor nested in a returned list); a host tensor goes by value,
+    also after a program returned a view of it; and the group serves on."""
+    import torch
+
+    scratch = mgr.generator.new_prefill_cache(16)
+    nested = group.run(_two_tensors)
+    refused = {}
+    for tag, arg in (("cache_slice", scratch[0]["k"][0:1]), ("cache_tensor", scratch[0]["v"]),
+                     ("parameter_row", next(mgr.model.parameters())[0]), ("nested", nested[1][0:1])):
+        before = group.programs
+        try:
+            group.run(torch.clone, arg)
+            refused[tag] = "no error"
+        except ValueError as e:
+            refused[tag] = str(e)
+        refused[tag + "_sent"] = group.programs - before
+    out["refused"] = np.asarray(json.dumps(refused))
+    host = torch.arange(3.0)
+    head = group.run(_head, host)
+    out["by_value"] = group.run(torch.clone, host).numpy()
+    out["head"] = head.numpy()
+    out["after_refusals"] = np.asarray(group.each_rank(os.getpid) == group.pids)
+
+
+def _spill_blocks(mgr, prompt, blocks: int, resume=None, block: int = 4):
+    """Greedy decode of one row on ``mgr``'s generator with every page
+    granted up front: ``blocks`` blocks from the prefill, or from the
+    exported row ``resume``. Returns the emitted tokens and the row as
+    ``export_row`` gives it after the blocks."""
+    import torch
+
+    gen, page, pages = mgr.generator, 8, 16
+    pool = gen.init_pool(2, pages=pages + 1, page_size=page)
+    tables = np.zeros((2, pages), np.int32)
+    tables[0] = np.arange(1, pages + 1)
+    rng = torch.Generator().manual_seed(0)
+    if resume is None:
+        embeds, positions, lengths, prompt_ids, _, _, n_live = mgr._prepare_inputs(prompt, None)
+        params = (torch.zeros(1), torch.ones(1), torch.zeros(1, dtype=torch.bool), torch.ones(1))
+        caches, tok0, seen = gen.prefill(embeds, positions, lengths, prompt_ids, rng, *params,
+                                         kv_len=embeds.shape[1])
+        gen.admit(pool, 0, caches, tok0, seen, n_live, tables[0], 16, 0.0, 1.0, False, 1.0)
+    else:
+        n = len(resume["pages"][0]["k"])
+        gen.resume(pool, 0, resume["pages"], tables[0][:n], resume["seen"], resume["cur_tok"], resume["cur_len"],
+                   resume["n_gen"], 16, 0.0, 1.0, False, 1.0)
+    toks = [gen.step_block(pool, torch.from_numpy(tables), rng, block)[0].numpy() for _ in range(blocks)]
+    used = -(-int(pool["cur_len"][0]) // page)
+    n_pad = 1
+    while n_pad < used:
+        n_pad *= 2
+    ids = np.zeros((n_pad,), np.int32)
+    ids[:used] = tables[0][:used]
+    return np.concatenate(toks), gen.export_row(pool, 0, ids)
+
+
+def _tp_clip(group, inp, meta, out):
+    """CLIP at ``{data: 4, model: 2}`` in f32 and int8 (both kernels), then a
+    killed worker: the next encode fails within the group's timeout and
+    the manager turns not-alive."""
+    import signal
+
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+
+    mesh = {"data": 4, "model": 2}
+    image, image2 = bytes(inp["image"]), bytes(inp["image2"])
+    for tag, quant, kernel in (("f32", None, None), ("int8_dynamic", "int8", "dynamic"),
+                               ("int8_dequant", "int8", "dequant")):
+        if kernel:
+            os.environ["LUMEN_Q8_KERNEL"] = kernel
+        mgr = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=2, mesh_axes=mesh, quantize=quant,
+                          device="cpu")
+        mgr.initialize()
+        try:
+            out[f"{tag}_image"] = mgr.encode_image(image)
+            out[f"{tag}_text"] = mgr.encode_text(meta["text"])
+            out[f"{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+        finally:
+            mgr.close()
+    os.environ.pop("LUMEN_Q8_KERNEL", None)
+
+    mgr = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=2, mesh_axes=mesh, device="cpu")
+    mgr.initialize()
+    out["alive_before"] = np.asarray(mgr.alive())
+    os.kill(group.pids[1], signal.SIGKILL)
+    t0 = time.monotonic()
+    try:
+        mgr.encode_image(image2)
+        out["death_error"] = np.asarray("")
+    except Exception as e:  # noqa: BLE001 - the expected failure
+        out["death_error"] = np.asarray(f"{type(e).__name__}: {e}")
+    out["death_s"] = np.asarray(time.monotonic() - t0)
+    out["alive_after"] = np.asarray(mgr.alive())
+    mgr.close()
+
+
+def _case_tp_serve(inp, meta, out):
+    """``serve()`` on a config whose VLM and CLIP services carry ``mesh:
+    {model: 2}``: it starts the worker rank itself (a child process),
+    the services answer, ``stop`` ends the worker."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.serving import server
+
+    handle = server.serve(validate_config_dict(meta["config"]), port_override=0, skip_download=True, device="cpu",
+                          tp_devices=["cpu", "cpu"], tp_backend="gloo")
+    try:
+        vlm, clip = handle.services["vlm"], handle.services["clip"]
+        out["vlm_shape"] = np.asarray(json.dumps(vlm.manager.mesh.shape))
+        r = vlm.manager.generate([ChatMessage(role="user", content=meta["prompt"])], max_new_tokens=meta["max_new"])
+        out["vlm_tokens"] = np.asarray(r.tokens)
+        out["clip_image"] = clip.managers["clip"].encode_image(bytes(inp["image"]))
+        out["healthy"] = np.asarray([vlm.healthy(), clip.healthy()])
+        children = list(handle.tp_group.children)
+    finally:
+        handle.stop(grace=1.0)
+    out["worker_codes"] = np.asarray([p.returncode for p in children])
+
+
+CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init,
+         "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve}
+#: cases that open their own group (the others run in a plain gloo group)
+OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve")
 
 
 def main() -> int:
@@ -227,13 +477,14 @@ def main() -> int:
     meta = json.loads((workdir / "meta.json").read_text())
     inp = dict(np.load(workdir / "inputs.npz"))
     out: dict = {}
-    if case == "init":
+    if case in OWN_GROUP:
         CASES[case](inp, {**meta, "rank": rank, "world": world, "port": port}, out)
     else:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
         CASES[case](inp, meta, out)
-    dist.barrier()
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
     np.savez(workdir / f"out_{rank}.npz", **out)
     return 0
 
