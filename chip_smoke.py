@@ -5888,7 +5888,7 @@ def split_stream(stdout: str) -> tuple[str, dict]:
 
 
 def drive_control_plane(card: str, root: Path, photos: list, sources: dict, device: str = "cuda:0",
-                        preset: str | None = None, timeout: float = 900.0) -> dict:
+                        preset: str | None = None, timeout: float = 900.0, caption_tokens: int = 64) -> dict:
     """Phase 14: the control plane as users reach it. (a) ``hardware_report()``
     in a fresh process: the card's name and count, the recommended preset,
     and no CUDA context in that process; ``environment_report`` there. (b)
@@ -5909,7 +5909,8 @@ def drive_control_plane(card: str, root: Path, photos: list, sources: dict, devi
     same caption again with no build. (e) ``server/stop``: both children
     exit 0, and their readouts (``/api/v1/server/logs``) show the path's
     kernels launched. Off the card ``preset`` names the preset and the saved
-    YAML is edited to ``device: cpu`` (the wizard's YAML editor)."""
+    YAML is edited to ``device: cpu`` (the wizard's YAML editor). Every
+    caption asks ``caption_tokens`` new tokens."""
     import asyncio
 
     import yaml
@@ -6045,7 +6046,7 @@ def drive_control_plane(card: str, root: Path, photos: list, sources: dict, devi
             import grpc
 
             meta = {"messages": json.dumps([{"role": "user", "content": "Describe this photo in one sentence."}]),
-                    "max_new_tokens": "64", "do_sample": "false"}
+                    "max_new_tokens": str(caption_tokens), "do_sample": "false"}
 
             async def first_caption(metrics_port: int) -> tuple[dict, float, dict]:
                 t0 = time.perf_counter()
@@ -6083,8 +6084,9 @@ def drive_control_plane(card: str, root: Path, photos: list, sources: dict, devi
                     "embed-text": ["embed-text", "a photo of a red car"], "embed-image": ["embed-image", photo],
                     "faces": ["faces", photo], "ocr": ["ocr", photo]}
             answers = dict(zip(jobs, await asyncio.gather(*(cli(*addr, *a) for a in jobs.values()))))
-            answers["caption"] = await cli(*addr, "caption", photo)
-            answers["caption --stream"] = await cli(*addr, "caption", photo, "--stream")
+            tokens = ("--max-new-tokens", str(caption_tokens))
+            answers["caption"] = await cli(*addr, "caption", photo, *tokens)
+            answers["caption --stream"] = await cli(*addr, "caption", photo, "--stream", *tokens)
             for cmd, schema in CLIENT_SCHEMAS.items():
                 text = answers[cmd].stdout
                 if cmd == "caption --stream":
@@ -6690,13 +6692,13 @@ TP_DEATH_TIMEOUT_S, TP_DEATH_MARGIN_S = 30.0, 30.0
 
 
 def tp_yaml(path: Path, cache_dir: Path, vlm_model: str, dtype: str, quantize: str | None = None,
-            clip_model: str | None = None, batch_size: int = 8) -> Path:
-    """A deployment whose services carry ``mesh: {model: 2}``: ``vlm``,
-    and ``clip`` beside it when ``clip_model`` names one (int8 CLIP is
-    W8A8 ``dynamic``)."""
+            clip_model: str | None = None, batch_size: int = 8, axes: dict | None = None) -> Path:
+    """A deployment whose services carry ``mesh: {axes}`` (default ``{model:
+    2}``): ``vlm``, and ``clip`` beside it when ``clip_model`` names one
+    (int8 CLIP is W8A8 ``dynamic``)."""
     import yaml
 
-    mesh = {"axes": {"model": 2}}
+    mesh = {"axes": axes or {"model": 2}}
     services = {"vlm": {
         "enabled": True, "package": "lumen_tpu.models.vlm",
         "import_info": {"registry_class": "lumen_tpu.serving.services.vlm_service.VlmService"},
@@ -7080,6 +7082,220 @@ def drive_tp(seed: int, card: str, root: Path, vlm_dir: Path, clip_dir: Path, ph
     return out
 
 
+PHASE18_KERNELS = PHASE17_KERNELS
+PHASE18_INT8_KERNELS = PHASE5_KERNELS
+
+
+def rank_readouts(reports: list) -> dict:
+    """Each rank's launches by kernel, by kernel and head_dim, and peak
+    device memory, from ``rank_report``s."""
+    return {"launches": [r["launches"] for r in reports], "instances": [r["instances"] for r in reports],
+            "peak_gib": [r.get("peak_gib", 0.0) for r in reports]}
+
+
+def drive_ep(seed: int, card: str, root: Path, moe_dir: Path | None = None, dir_cfg=None, device: str = "cuda:0",
+             backend: str = "gloo", n_photos: int = 8, n_both: int = 2, max_new: int = 8, spec_new: int = 16,
+             kernels: tuple = PHASE18_KERNELS, int8_kernels: tuple = PHASE18_INT8_KERNELS) -> dict:
+    """Phase 18: the Qwen2-MoE VLM of phase 15 (b) (``moe_dir``:
+    Qwen1.5-MoE-A2.7B's widths cut to 2 layers; written here when phase 15
+    did not run) served over an ``expert`` axis and a ``model`` axis by
+    ``serve()``, the ranks sharing the card over gloo (NCCL refuses two
+    ranks on one card), against mesh-less managers of the same directory on
+    the same card. (a) ``mesh: {expert: 2}`` in bf16, two ranks of 30
+    experts each: the first step's logits within the stated tolerance,
+    ``n_photos`` greedy photo requests, where one parts from the mesh-less
+    run the mesh-less top-2 logit gap there against the two runs' logit
+    difference (phase 17 (b)'s rule: a gap wider than twice it is a
+    fault), one request over gRPC; (b) ``{expert: 2}`` with int8 and
+    speculation K = 4 on 2 templated requests: every rank launches the
+    w8a16 kernel and the verify window (the routing rule keys on the
+    model axis alone); (c) ``{expert: 2, model: 2}`` in bf16 on four
+    ranks, ``n_both`` requests held to (a)'s rule, w8a16 0 (a bf16
+    decoder). Each part reads every rank's launches, peak memory and a
+    clean synchronize. The mesh-less references run first. ``dir_cfg``
+    and ``device`` let the CPU tests rehearse it small (with the launch
+    gates emptied)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.ops import quant_matmul
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.runtime.tp_group import TPGroup, rank_report
+    from lumen_tpu_torch.testing.vlm_standins import qwen15_moe_a27b, seeded_state, write_model_dir
+    from lumen_tpu_torch.utils.host_decode import vlm_canvas
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    out: dict = {"parts_s": {}}
+    laps = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["parts_s"][part], laps[0] = round(now - laps[0], 1), now
+
+    def free() -> None:
+        if on_card:
+            torch.cuda.empty_cache()
+
+    if moe_dir is None or not (moe_dir / "model.safetensors").exists():
+        dir_cfg = dir_cfg or qwen15_moe_a27b(layers=2)
+        dstate = seeded_state(dir_cfg, seed + 152, device, torch.bfloat16)
+        moe_dir = write_model_dir(root / "cache", "SmokeMoE", dir_cfg, dstate)
+        del dstate
+        free()
+        lap("model directory written")
+    cfg = vlm_config_of(moe_dir)
+    experts = cfg.decoder.moe_experts
+    question = "describe this photo in one detailed sentence"
+    msgs = [ChatMessage("user", question)]
+    templated = [ChatMessage("user", "caption this image : a red car on a wet road , a red car on a wet road .")]
+    photos = [photo_jpeg(seed * 100 + 180 + i) for i in range(n_photos)]
+    canvases = [vlm_canvas(p, cfg.vision.image_size) for p in photos]
+
+    def ranks_ran(reports: list, names: tuple, part: str, zero: tuple = ()) -> None:
+        for r, rep in enumerate(reports):
+            missing = [k for k in names if rep["launches"][k] == 0]
+            extra = {k: rep["launches"][k] for k in zero if rep["launches"][k]}
+            if missing or extra or rep.get("sync", "ok") != "ok":
+                raise AssertionError(f"phase 18 {part} rank {r}: never launched {missing}, launched {extra} (0 wanted), "
+                                     f"synchronize {rep.get('sync')}")
+
+    def held(group, mgr, want: list, logits: list, n: int, part: str) -> dict:
+        """The first step's logits, then ``n`` greedy requests on ``group``
+        against the mesh-less ones (phase 17 (b)'s gap rule where one
+        parts)."""
+        got0 = tp_step_logits(mgr, msgs, canvases[0], want[0][:1])[0]
+        cos = float(torch.nn.functional.cosine_similarity(got0, logits[0][0], dim=0))
+        diff0 = float((got0 - logits[0][0]).abs().max())
+        rel = diff0 / float(logits[0][0].abs().max())
+        if cos < TP_LOGIT_COSINE or rel > TP_LOGIT_REL:
+            raise AssertionError(f"phase 18 {part} first-step bf16 logits: cosine {cos:.6f} (>= {TP_LOGIT_COSINE}), "
+                                 f"max|diff| {rel:.4f} of max|logit| (<= {TP_LOGIT_REL})")
+        group.each_rank(rank_report, True)
+        t0 = time.perf_counter()
+        got = tp_generate(mgr, [(msgs, c) for c in canvases[:n]], max_new)
+        wall = time.perf_counter() - t0
+        reports = group.each_rank(rank_report, True)
+        prefixes = [equal_prefix(g, w) for g, w in zip(got, want)]
+        parted = []
+        for i, p in enumerate(prefixes):
+            if p == len(want[i]):
+                continue
+            here = logits[i][p]
+            diff = float((tp_step_logits(mgr, msgs, canvases[i], want[i][: p + 1])[p] - here).abs().max())
+            parted.append({"request": i, "token": p, "gap": top2_gap(here), "max_diff": diff})
+            if parted[-1]["gap"] > 2 * max(diff, diff0):
+                raise AssertionError(f"phase 18 {part} request {i} parts from the mesh-less run at token {p} where its "
+                                     f"top-2 gap {parted[-1]['gap']:.4f} exceeds twice the logit difference ({diff:.4f} "
+                                     f"there, {diff0:.4f} at the first step): not a near tie")
+        return dict(cos=cos, rel=rel, diff=diff0, prefix=prefixes, parted=parted, lengths=[len(t) for t in want[:n]],
+                    tok_s=sum(map(len, got)) / wall, reports=reports, got=got)
+
+    if not quant_matmul.kernel_routable():
+        raise AssertionError("a model axis was noted before phase 18's mesh-less references")
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_VLM_SPEC_K="0"):
+        reset_result_cache()
+        # -- mesh-less references on the same card ----------------------------
+        pending = ThreadPoolExecutor(max_workers=1)
+        starting = pending.submit(TPGroup.spawn, [device] * 2, backend, TP_DEATH_TIMEOUT_S, 2)
+        ref16 = VLMManager.from_model_dir(str(moe_dir), device=device, dtype="bfloat16")
+        want16 = tp_generate(ref16, [(msgs, c) for c in canvases], max_new)
+        logits16 = [tp_step_logits(ref16, msgs, c, w) for c, w in zip(canvases, want16)]
+        ref16.close()
+        del ref16
+        free()
+        with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0", LUMEN_VLM_Q8_ROUTE="int8"):
+            ref8 = VLMManager.from_model_dir(str(moe_dir), device=device, dtype="bfloat16", quantize="int8")
+            want8 = tp_generate(ref8, [(templated, c) for c in canvases[:2]], spec_new)
+            ref8_rate = ref8.engine.spec_accepted / max(ref8.engine.spec_proposed, 1)
+            ref8.close()
+            del ref8
+        free()
+        lap("mesh-less references")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()  # rank 0's peaks below are the parts'
+        group = starting.result()
+        pending.shutdown()
+        lap("expert-axis worker started")
+        try:
+            # -- (a) {expert: 2} in bf16 -------------------------------------------
+            handle, channel, stub, load_s = boot_tp(
+                tp_yaml(root / "ep16.yaml", root / "cache", moe_dir.name, "bfloat16", axes={"expert": 2}),
+                device, [device] * 2, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                banks = mgr.model.decoder.layers[0].mlp.w_gate.shape[0]
+                if mgr.mesh.shape != {"expert": 2} or mgr.tp_group is not group or banks * 2 != experts:
+                    raise AssertionError(f"phase 18 (a): the VLM serves on {mgr.mesh.shape} with {banks} experts a rank, "
+                                         "not on the running group's expert axis")
+                a = held(group, mgr, want16, logits16, n_photos, "(a)")
+                ranks_ran(a["reports"], kernels, "(a)")
+                served = grpc_call(stub, "vlm_generate_stream", photos[0], {
+                    "messages": json.dumps([{"role": "user", "content": question}]), "max_new_tokens": max_new})
+                text = mgr.tokenizer.decode(a["got"][0])
+                if served["code"] or served["body"]["text"] != text:
+                    raise AssertionError(f"phase 18 (a): request 0 over gRPC ({served['code']}) "
+                                         f"{served.get('body', {}).get('text', '')[:80]!r} vs the manager's {text[:80]!r}")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            out["a"] = {k: v for k, v in a.items() if k not in ("reports", "got")}
+            out["a"].update(load_s=load_s, experts_a_rank=banks, **rank_readouts(a["reports"]))
+            free()
+            lap("(a) expert 2, bf16")
+
+            # -- (b) {expert: 2}, int8 + speculation ---------------------------------
+            with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0", LUMEN_VLM_Q8_ROUTE="int8"):
+                handle, channel, stub, load_s = boot_tp(
+                    tp_yaml(root / "ep8.yaml", root / "cache", moe_dir.name, "bfloat16", "int8", axes={"expert": 2}),
+                    device, [device] * 2, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                group.each_rank(rank_report, True)
+                got8 = tp_generate(mgr, [(templated, c) for c in canvases[:2]], spec_new)
+                reports = group.each_rank(rank_report, True)
+                ranks_ran(reports, int8_kernels, "(b)")
+                eng = mgr.engine
+                out["b"] = dict(load_s=load_s, prefix=[equal_prefix(g, w) for g, w in zip(got8, want8)],
+                                lengths=[len(t) for t in want8], rate=eng.spec_accepted / max(eng.spec_proposed, 1),
+                                ref_rate=ref8_rate, **rank_readouts(reports))
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            free()
+            lap("(b) expert 2, int8 + spec")
+        finally:
+            group.stop()
+
+        # -- (c) {expert: 2, model: 2} in bf16 on four ranks ----------------------
+        group = TPGroup.spawn([device] * 4, backend, TP_DEATH_TIMEOUT_S, 2)
+        lap("four ranks started")
+        try:
+            handle, channel, stub, load_s = boot_tp(
+                tp_yaml(root / "eptp16.yaml", root / "cache", moe_dir.name, "bfloat16", axes={"expert": 2, "model": 2}),
+                device, [device] * 4, backend)
+            try:
+                mgr = handle.services["vlm"].manager
+                if mgr.mesh.shape != {"expert": 2, "model": 2} or mgr.tp_group is not group:
+                    raise AssertionError(f"phase 18 (c): the VLM serves on {mgr.mesh.shape}, not on the running group")
+                c = held(group, mgr, want16, logits16, n_both, "(c)")
+                ranks_ran(c["reports"], kernels, "(c)", zero=("w8a16_matmul",))
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+            out["c"] = {k: v for k, v in c.items() if k not in ("reports", "got")}
+            out["c"].update(load_s=load_s, **rank_readouts(c["reports"]))
+            lap("(c) expert 2 x model 2, bf16")
+        finally:
+            group.stop()
+        reset_result_cache()
+    free()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -7111,7 +7327,7 @@ def count_syncs(fn) -> int:
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
                17: (6, 8)}
-ALL_PHASES = frozenset(range(1, 18))
+ALL_PHASES = frozenset(range(1, 19))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -7221,9 +7437,9 @@ def main() -> int:
                 f"peak GiB {grpc_drive['peak_gib']:.3f}")
             lap(6)
         if 7 in run:
-            # depth cut for phase 17's room: 2 of the 6 greedy streams rerun alone (every one still equals
-            # phase 6's unpressured answer)
-            defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive, alone_reruns=2)
+            # depth cut for phases 17-18's room: 1 of the 6 greedy streams rerun alone (every one still
+            # equals phase 6's unpressured answer)
+            defaults = drive_defaults(args.seed, card, Path(tmp), grpc_drive, alone_reruns=1)
             log(f"phase 7 [{card}]: {defaults['phase_s']:.1f} s in all; load {defaults['load_s']:.2f} s; "
                 f"{defaults['preempted']} preemptions, "
                 f"{defaults['resumed']} spill resumes, {defaults['prefix_hits']} prefix hits, a result-cache answer in "
@@ -7254,8 +7470,8 @@ def main() -> int:
                 f"{face['clip_cos']:.6f}; hub flash_attention launches {face['hub_launches']}")
             lap(9)
         if 10 in run:
-            # depth cut for phase 17's room: 8 pages (was 32)
-            ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face, n_pages=8)
+            # depth cut for phases 17-18's room: 4 pages (was 32, then 8)
+            ocr = drive_ocr(args.seed, card, Path(tmp), grpc_drive, clip, face, n_pages=4)
             log(f"phase 10 [{card}]: {ocr['phase_s']:.1f} s in all ((a) {ocr['a_s']:.1f} s, (b) {ocr['b_s']:.1f} s); stand-in pack exported in {ocr['export_s']:.1f} s, OCR "
                 f"server up in {ocr['load_s']:.2f} s; {ocr['pages_s']:.2f} pages/s over gRPC with TF32 convolutions "
                 f"({ocr['pages_s_ieee']:.2f} in IEEE float32), client p50 {ocr['p50_ms']:.1f} ms p95 {ocr['p95_ms']:.1f} ms; one "
@@ -7268,10 +7484,10 @@ def main() -> int:
                 f"{json.dumps(ocr['hub_launches'])}")
             lap(10)
         if 11 in run:
-            # depth cut for phase 17's room: 32 photos through the CLI, 8 with captions, 100,000 vectors and
-            # 256 queries (were 128, 16, 200,000, 512)
-            ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr, n_photos=32, n_captions=8,
-                                  n_vectors=100_000, n_queries=256)
+            # depth cut for phases 17-18's room: 16 photos through the CLI, 4 with captions of 16 tokens,
+            # 50,000 vectors and 128 queries (were 128, 16 of 32, 200,000, 512, then 32, 8, 100,000, 256)
+            ingest = drive_ingest(args.seed, card, Path(tmp), clip, face, ocr, n_photos=16, n_captions=4,
+                                  caption_tokens=16, n_vectors=50_000, n_queries=128)
             log(f"phase 11 [{card}]: {ingest['phase_s']:.1f} s in all; tier + search up in {ingest['boot_s']:.2f} s; ingest "
                 f"{ingest['images_s']:.2f} images/s (CLI, clip + face + ocr, batch 64), stage device ms a batch "
                 f"{json.dumps({k: round(v, 3) for k, v in ingest['stage_ms'].items()})}, syncs flagged "
@@ -7282,9 +7498,10 @@ def main() -> int:
                 f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
             lap(11)
         if 12 in run:
-            # depth cut for phase 17's room: 2 captions beside 1 stream, one A/B boot (were 8, 2, 2)
+            # depth cut for phases 17-18's room: 2 captions beside 1 stream of 12 tokens, one A/B boot (were
+            # 8, 2 of 24 tokens, 2)
             options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip, n_captions=2, n_streams=1,
-                                        ab_boots=1)
+                                        tokens=12, ab_boots=1)
             co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
             log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
                 f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
@@ -7299,8 +7516,11 @@ def main() -> int:
                 f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
             lap(12)
         if 13 in run:
-            # depth cut for phase 17's room: 2 captions beside the 2 streams, 64 search queries in (d) (were 8, 128)
-            fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive, n_captions=2, n_queries=64)
+            # depth cut for phases 17-18's room: 2 captions beside the 2 streams of 16 tokens, (b)'s streams
+            # of 48, 20,000 vectors and 32 search queries in (d) (were 8, 32 tokens, 96, 50,000, 128, then 2,
+            # 32, 96, 50,000, 64)
+            fleet = drive_fleet(args.seed, card, Path(tmp), grpc_drive, n_captions=2, max_new=16, fallback_new=48,
+                                n_vectors=20_000, n_queries=32)
             log(f"phase 13 [{card}]: {fleet['phase_s']:.1f} s in all; {fleet['requests']} migrated rows equal to the "
                 f"colocated control, {fleet['row_bytes'] / 1e6:.3f} MB a row, {fleet['fallbacks']} fallbacks in (b), "
                 f"aggregate {fleet['tok_s_migrated']:.1f} tok/s migrated vs {fleet['tok_s_colocated']:.1f} colocated; "
@@ -7309,8 +7529,10 @@ def main() -> int:
         if 14 in run:
             models = Path(tmp) / "cache" / "models"
             torch.cuda.empty_cache()  # the supervised server shares the card with this process
+            # depth cut for phase 18's room: captions of 16 new tokens (were 64)
             control = drive_control_plane(card, Path(tmp), grpc_drive["photos"],
-                                          {name: models / src for name, src in CATALOG_SOURCES.items()})
+                                          {name: models / src for name, src in CATALOG_SOURCES.items()},
+                                          caption_tokens=16)
             log(f"phase 14 [{card}]: {control['phase_s']:.1f} s in all; the full tier under the app's ServerManager "
                 f"ready in {control['cold_s']:.2f} s cold and {control['warm_s']:.2f} s warm; the first caption "
                 f"{control['cold_first_s']:.2f} s cold ({control['cold_builds']} kernel builds) and "
@@ -7338,8 +7560,9 @@ def main() -> int:
             lap(16)
         if 17 in run:
             torch.cuda.empty_cache()
+            # depth cut for phase 18's room: 4 fp32 text streams in (a) (were 8)
             tp = drive_tp(args.seed, card, Path(tmp), grpc_drive["model_dir"], Path(tmp) / "cache" / "models" / "SmokeCLIP",
-                          grpc_drive["photos"])
+                          grpc_drive["photos"], n_streams=4)
             log(f"phase 17 [{card}]: {tp['phase_s']:.1f} s in all, parts {json.dumps(tp['parts_s'])}; TP = 2 as two "
                 f"ranks sharing the card over gloo, not NCCL; (a) fp32: {tp['a_streams']} streams' greedy tokens "
                 f"({tp['a_tokens']} tokens) equal to TP = 1, served up in {tp['a_load_s']:.2f} s; (e) a spilled TP row "
@@ -7355,10 +7578,36 @@ def main() -> int:
                 log(f"phase 17 ({part}) [{card}]: peak GiB a rank {[round(g, 3) for g in tp[f'{part}_peak_gib']]}"
                     + (f"; launches a rank {json.dumps(tp[f'{part}_launches'])}" if part != "a" else ""))
             lap(17)
+        if 18 in run:
+            torch.cuda.empty_cache()
+            # The int8 routing rule's note of a model axis is process-wide and sticky (as in JAX): phase 17
+            # closed every manager and stopped its group, so no model axis serves any more; phase 18's
+            # mesh-less and expert-axis int8 runs start from none, as a fresh server process would.
+            from lumen_tpu_torch.ops import quant_matmul
+
+            quant_matmul._MESH_MODEL_AXIS = 1
+            ep = drive_ep(args.seed, card, Path(tmp), Path(tmp) / "cache" / "models" / "SmokeMoE")
+            a, b, c = ep["a"], ep["b"], ep["c"]
+            log(f"phase 18 [{card}]: {ep['phase_s']:.1f} s in all, parts {json.dumps(ep['parts_s'])}; the ranks share the "
+                f"card over gloo, not NCCL; (a) expert 2 ({a['experts_a_rank']} experts a rank), bf16: served up in "
+                f"{a['load_s']:.2f} s, first-step logits cosine {a['cos']:.6f}, max|diff| {a['diff']:.4f} ({a['rel']:.4f} of "
+                f"max|logit|), greedy equal prefixes {a['prefix']} of {a['lengths']} tokens (where one parts, the mesh-less "
+                f"top-2 gap and the max|diff| there: {json.dumps(a['parted'])}), {a['tok_s']:.1f} tok/s; (b) expert 2, int8 "
+                f"+ spec K=4: equal prefixes {b['prefix']} of {b['lengths']}, accept rate {b['rate']:.3f} vs {b['ref_rate']:.3f} "
+                f"mesh-less; (c) expert 2 x model 2, bf16: served up in {c['load_s']:.2f} s, cosine {c['cos']:.6f}, max|diff| "
+                f"{c['diff']:.4f}, equal prefixes {c['prefix']} of {c['lengths']} (partings {json.dumps(c['parted'])})")
+            for part in ("a", "b", "c"):
+                log(f"phase 18 ({part}) [{card}]: peak GiB a rank {[round(g, 3) for g in ep[part]['peak_gib']]}; launches "
+                    f"a rank {json.dumps(ep[part]['launches'])}, by head_dim {json.dumps(ep[part]['instances'])}")
+            lap(18)
     log(f"seconds a phase: {json.dumps(laps)} [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
         return 0
+    for k in kernels:
+        log(f"kernel row {k.name}: phase-18 launches a rank, (a) expert 2 "
+            f"{[c[k.name] for c in ep['a']['launches']]}, (b) int8 + spec {[c[k.name] for c in ep['b']['launches']]}, "
+            f"(c) expert 2 x model 2 {[c[k.name] for c in ep['c']['launches']]} [{card}]")
     for k in kernels:
         log(f"kernel row {k.name}: phase-17 launches a rank, (b) bf16 {[c[k.name] for c in tp['b_launches']]}, (c) int8 + "
             f"spec {[c[k.name] for c in tp['c_launches']]} [{card}]")

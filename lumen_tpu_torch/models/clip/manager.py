@@ -141,7 +141,7 @@ class CLIPManager:
         # stays the primary (replica-0) slice, where label embedding runs.
         self.fleet_plan = plan_replicas("clip", mesh_axes, devices=fleet_devices(self.device))
         self.mesh = self.fleet_plan.meshes[0]
-        #: the tensor-parallel group of a ``model`` axis above 1, else None
+        #: the serving group of an ``expert`` or ``model`` axis above 1, else None
         self.tp_group = self.mesh.group
         if self.tp_group is not None and self.mesh.device != self.device:
             raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
@@ -826,11 +826,13 @@ def clip_heads(cfg: CLIPConfig):
 def place_tp_clip(cfg: CLIPConfig, state: dict, dtype, group) -> CLIPModel:
     """One rank's shards of a tensor-parallel CLIP (a program of
     ``group``): the rank's slice of ``state`` (``INT8_TP_RULES`` first for
-    int8 towers, then ``TRANSFORMER_TP_RULES``; whole heads), built, cast
-    to ``dtype`` and placed on the rank's device. Notes the model axis for
-    the int8 routing rule on this rank."""
-    note_mesh_model_axis(group.size)
+    int8 towers, then ``TRANSFORMER_TP_RULES``, on a model axis; whole
+    heads; an expert axis, which CLIP has nothing to split over, leaves
+    the towers whole), built, cast to ``dtype`` and placed on the rank's
+    device. Notes the model axis for the int8 routing rule on this rank."""
+    note_mesh_model_axis(group.tp.size)
     rules = (INT8_TP_RULES if cfg.weight_quant == "int8" else []) + TRANSFORMER_TP_RULES
+    rules = rules if group.tp.size > 1 else []
     local = local_state_dict(state, rules, group.tp, heads=clip_heads(cfg))
     with torch.device("meta"):
         model = CLIPModel(cfg, tp=group.tp)

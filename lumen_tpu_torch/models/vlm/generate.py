@@ -39,7 +39,9 @@ program carries rank 0's ``torch.Generator`` state, so every rank
 draws the same numbers without a broadcast of the tokens (one collective a
 step saved). ``export_row`` gathers each rank's KV heads to rank 0, so
 a spilled or migrated row keeps the format of a TP = 1 host; ``resume``
-takes that format and each rank keeps its own heads.
+takes that format and each rank keeps its own heads. On an ``expert``
+axis the ranks of one ``model`` place hold the same heads, and the MoE
+layers sum their routed rows over the axis inside the programs.
 """
 
 from __future__ import annotations
@@ -509,13 +511,15 @@ class Generator:
         concatenated on the card, so the row reaches the host in one
         device-to-host copy; ``.cpu()`` returns after the copy, so the
         caller may hand the pages to another row at once. On a
-        tensor-parallel model every rank's KV heads are gathered to the
-        rank 0, which alone returns the row (the workers return None)."""
+        tensor-parallel model every rank's KV heads are gathered over its
+        ``model`` axis (each head once: an expert place's ranks hold every
+        head between them), and the group's rank 0 alone returns the row
+        (the workers return None)."""
         ids = torch.as_tensor(np.asarray(page_ids), dtype=torch.long, device=self.device)
         pages = [layer[name].index_select(0, ids) for layer in pool["caches"] for name in ("k", "v")]
         if self.tp is not None:
             pages = [self.tp.gather_heads(p, self.attn_plan, self.cfg.decoder.kv_heads) for p in pages]
-            if self.tp.rank != 0:
+            if (self.runtime.rank if self.runtime is not None else self.tp.rank) != 0:
                 return None
         scalars = torch.stack([pool["cur_tok"][slot], pool["cur_len"][slot], pool["n_gen"][slot]]).int()
         leaves = pages + [scalars, pool["seen"][slot]]

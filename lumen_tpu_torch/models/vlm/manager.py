@@ -40,15 +40,16 @@ to key the cache on and computes every request; ``from_model_dir`` gives
 it one. With ``LUMEN_VLM_PREFIX_BYTES`` set, each request carries its
 prompt's content identity for the engine's prefix KV cache.
 
-``mesh_axes`` with a ``model`` axis above 1 serves the model tensor-
-parallel on the process's rank-0/worker group (``runtime.tp_group``,
-started by ``serve()``): :meth:`VLMManager._place_params` takes each
-rank's shards by the JAX placement (the int8 TP rules first when
-quantized, then the TP rules), and every device program -- the prepare
-step, the ``Generator``'s programs, the int8 route's A/B -- runs on every
-rank. The host state (scheduler, page allocator, prefix cache, spill tier)
-stays on rank 0. Replicas times a ``model`` axis, and the MoE decoder
-on one, raise (ROADMAP queue A, items 2d and 2c).
+``mesh_axes`` with an ``expert`` or ``model`` axis above 1 serves the
+model expert- and tensor-parallel on the process's rank-0/worker group of
+``expert x model`` ranks (``runtime.tp_group``, started by ``serve()``):
+:meth:`VLMManager._place_params` takes each rank's shards by the JAX
+placement (``MOE_EP_RULES`` first on an expert axis, then the int8 TP
+rules when quantized, then the TP rules), and every device program -- the
+prepare step, the ``Generator``'s programs, the int8 route's A/B -- runs
+on every rank. The host state (scheduler, page allocator, prefix cache,
+spill tier) stays on rank 0. Replicas times such a group raise (ROADMAP
+queue A, item 2d).
 """
 
 from __future__ import annotations
@@ -72,10 +73,10 @@ import torch
 from ...core.model_info import ModelInfo, load_model_info
 from ...ops.quant import register_route_gauges, resolve_q8_kernel, resolve_q8_route
 from ...ops.quant_matmul import note_mesh_model_axis
-from ...parallel.sharding import INT8_TP_RULES, TRANSFORMER_TP_RULES, local_state_dict
+from ...parallel.sharding import INT8_TP_RULES, MOE_EP_RULES, TRANSFORMER_TP_RULES, local_state_dict
 from ...runtime.decode_pool import get_decode_pool
 from ...runtime.fleet import EngineFleet, batcher_name, fleet_devices, plan_replicas, replicas_for
-from ...runtime.mesh import MODEL_AXIS, build_mesh
+from ...runtime.mesh import GROUP_AXES, build_mesh
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.tp_group import run_on
@@ -262,8 +263,8 @@ class VLMManager:
     ``LUMEN_VLM_SPEC_K``. ``name`` is the model id the service reports;
     ``info`` / ``model_dir`` are the model directory's manifest and path
     (the result cache's revision, the route verdict's file).
-    ``mesh_axes`` is the service's mesh request (JAX axis names): a
-    ``model`` axis above 1 serves tensor-parallel on the running group
+    ``mesh_axes`` is the service's mesh request (JAX axis names): an
+    ``expert`` or ``model`` axis above 1 serves on the running group
     (module docstring); a ``data`` axis serves on one device.
     """
 
@@ -304,23 +305,24 @@ class VLMManager:
         self.scheduler = scheduler
         self.device = resolve_device(device)
         self.mesh = None
-        #: the tensor-parallel group of a ``model`` axis above 1, else None
+        #: the serving group of an ``expert`` or ``model`` axis above 1, else None
         self.tp_group = None
-        if mesh_axes and mesh_axes.get(MODEL_AXIS, 1) != 1:
+        if mesh_axes and any(mesh_axes.get(a, 1) != 1 for a in GROUP_AXES):
             if replicas_for("vlm") != 1:
                 raise NotImplementedError(
-                    "LUMEN_REPLICAS(_VLM) > 1 with a model axis: replicas x tensor parallelism is not "
-                    "served yet (ROADMAP queue A, item 2d)"
+                    "LUMEN_REPLICAS(_VLM) > 1 with an expert or model axis: replicas x expert or tensor "
+                    "parallelism is not served yet (ROADMAP queue A, item 2d)"
                 )
             self.mesh = build_mesh(mesh_axes)
             self.tp_group = self.mesh.group
             if self.mesh.device != self.device:
                 raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
             if vision_graph is not None:
-                raise NotImplementedError("an exported vision tower does not run on a model axis")
+                raise NotImplementedError("an exported vision tower does not run on an expert or model axis")
             # TP x int8 (JAX manager.py:268-272): a model axis anywhere in
-            # the process routes int8 decode to the dequant dot.
-            note_mesh_model_axis(self.tp_group.size)
+            # the process routes int8 decode to the dequant dot (the expert
+            # axis does not).
+            note_mesh_model_axis(self.tp_group.tp.size)
         elif mesh_axes:
             self.mesh = build_mesh(mesh_axes, devices=fleet_devices(self.device))
         self.policy = get_policy(dtype)
@@ -430,28 +432,25 @@ class VLMManager:
 
     @staticmethod
     def _build_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool = True,
-                     tp=None) -> VLMModel:
+                     tp=None, ep=None) -> VLMModel:
         """A ``VLMModel`` holding ``state`` (strict: names and shapes must
-        match; with ``tp``, one rank's shards); without ``native_vision``
-        the vision subtree is dropped."""
+        match; with ``tp`` and ``ep``, one rank's shards); without
+        ``native_vision`` the vision subtree is dropped."""
         with torch.device("meta"):
-            model = VLMModel(cfg, tp=tp)
+            model = VLMModel(cfg, tp=tp, ep=ep)
         if not native_vision:
             model.vision = None
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
     def _place_params(self, cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool = True):
-        """The model on this manager's mesh (JAX ``_place_params``): on a
-        ``model`` axis every rank builds its shards
-        (:func:`place_tp_model`: ``INT8_TP_RULES`` first when the decoder
-        is int8, then ``TRANSFORMER_TP_RULES``); otherwise the whole model
-        on the device. Cast to the policy's parameter dtype."""
+        """The model on this manager's mesh (JAX ``_place_params``): on an
+        ``expert`` or ``model`` axis every rank builds its shards
+        (:func:`place_tp_model`: ``MOE_EP_RULES`` first on an expert axis,
+        then on a model axis ``INT8_TP_RULES`` when the decoder is int8 and
+        ``TRANSFORMER_TP_RULES``); otherwise the whole model on the device.
+        Cast to the policy's parameter dtype."""
         if self.tp_group is not None:
-            if cfg.decoder.moe_experts:
-                raise NotImplementedError(
-                    "a Qwen2-MoE decoder on a model axis is not served yet (ROADMAP queue A, item 2c)"
-                )
             return run_on(self.tp_group, place_tp_model, cfg, dict(state), native_vision, self.policy.param_dtype,
                           self.tp_group)
         model = self._build_model(cfg, state, native_vision)
@@ -1219,17 +1218,27 @@ def vlm_heads(cfg: VLMConfig):
     return heads
 
 
+def placement_rules(group, int8: bool) -> list:
+    """The sharding rules of a serving group, in the JAX manager's order
+    (``lumen_tpu/models/vlm/manager.py:361-397``, first match wins):
+    ``MOE_EP_RULES`` on an expert axis, then on a model axis
+    ``INT8_TP_RULES`` for int8 projections and ``TRANSFORMER_TP_RULES``."""
+    rules = list(MOE_EP_RULES) if group.ep is not None else []
+    if group.tp.size > 1:
+        rules += (INT8_TP_RULES if int8 else []) + TRANSFORMER_TP_RULES
+    return rules
+
+
 def place_tp_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vision: bool, dtype, group) -> VLMModel:
-    """One rank's shards of a tensor-parallel VLM (a program of ``group``):
-    the rank's slice of ``state`` by the JAX placement (``INT8_TP_RULES``
-    first for an int8 decoder, then ``TRANSFORMER_TP_RULES``; whole
-    heads, ``parallel.sharding.tp_split``), built, cast to ``dtype`` and
-    placed on the rank's device. Notes the model axis for the int8
-    routing rule on this rank."""
-    note_mesh_model_axis(group.size)
-    rules = (INT8_TP_RULES if cfg.decoder.weight_quant == "int8" else []) + TRANSFORMER_TP_RULES
-    local = local_state_dict(state, rules, group.tp, heads=vlm_heads(cfg))
-    model = VLMManager._build_model(cfg, local, native_vision, tp=group.tp)
+    """One rank's shards of a VLM on an ``expert x model`` group (a program
+    of ``group``): the rank's slice of ``state`` by the JAX placement
+    (:func:`placement_rules`; whole heads, ``parallel.sharding.tp_split``),
+    built, cast to ``dtype`` and placed on the rank's device. Notes the
+    model axis for the int8 routing rule on this rank."""
+    note_mesh_model_axis(group.tp.size)
+    rules = placement_rules(group, cfg.decoder.weight_quant == "int8")
+    local = local_state_dict(state, rules, group.tp, heads=vlm_heads(cfg), ep=group.ep)
+    model = VLMManager._build_model(cfg, local, native_vision, tp=group.tp, ep=group.ep)
     return model.to(device=group.device, dtype=dtype).eval()
 
 

@@ -30,8 +30,12 @@ their share of the width. A block sums after ``o_proj`` and ``down_proj``
 (and the vision tower after ``out_proj``, ``fc2`` and the projector's
 ``proj_fc2``, which the JAX ``fc2`` rule also splits); the token lookup is
 gathered to the full width, and the tied ``lm_head``'s partial logits are
-summed. The MoE decoder does not run on a ``model`` axis (ROADMAP queue A,
-item 2c).
+summed. In a MoE layer the shared expert splits and sums as an MLP; the
+router and the expert banks stay whole on a ``model`` axis (the JAX rules
+leave them), so the routed output is complete on every rank and added
+once. With ``ep`` (a :class:`~lumen_tpu_torch.parallel.tp.ExpertParallel`)
+a rank holds ``E / size`` experts of each bank and the routed rows are
+summed over the ``expert`` axis (``parallel.moe``).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from torch.nn import functional as F
 from ...ops.attention import attention, attention_cached, paged_attention, repeat_kv
 from ...ops.quant import QDense
 from ...parallel.moe import MoEParams, moe_ffn
-from ...parallel.tp import TensorParallel, row_parallel
+from ...parallel.tp import ExpertParallel, TensorParallel, row_parallel
 from ..clip.modeling import Block, PatchEmbed, _local_width
 
 
@@ -369,19 +373,26 @@ class MoEFFN(nn.Module):
     ``router`` is [D, E] (the softmax runs in fp32); the banks ``w_gate``
     / ``w_up`` [E, D, F] and ``w_down`` [E, F, D] are cast to the
     activations' dtype at the call, as in JAX; ``shared_gate`` is a
-    bias-free [D -> 1] projection that int8 leaves in the policy dtype."""
+    bias-free [D -> 1] projection that int8 leaves in the policy dtype.
 
-    def __init__(self, cfg: DecoderConfig):
+    With ``ep`` the banks hold this rank's ``E / size`` experts (whole when
+    the experts do not divide, as the JAX ``sanitize_spec`` leaves them)
+    and ``moe_ffn`` sums the routed rows over the ``expert`` axis; with
+    ``tp`` the shared expert is a tensor-parallel ``SwiGLU``."""
+
+    def __init__(self, cfg: DecoderConfig, tp: TensorParallel | None = None, ep: ExpertParallel | None = None):
         super().__init__()
         self.cfg = cfg
         e, d = cfg.moe_experts, cfg.hidden_size
         f = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.ep = ep if ep is not None and ep.size > 1 and e % ep.size == 0 else None
+        local = e if self.ep is None else e // self.ep.size
         self.router = nn.Parameter(torch.zeros(d, e))
-        self.w_gate = nn.Parameter(torch.zeros(e, d, f))
-        self.w_up = nn.Parameter(torch.zeros(e, d, f))
-        self.w_down = nn.Parameter(torch.zeros(e, f, d))
+        self.w_gate = nn.Parameter(torch.zeros(local, d, f))
+        self.w_up = nn.Parameter(torch.zeros(local, d, f))
+        self.w_down = nn.Parameter(torch.zeros(local, f, d))
         if cfg.moe_shared_intermediate:
-            self.shared = SwiGLU(cfg, intermediate=cfg.moe_shared_intermediate)
+            self.shared = SwiGLU(cfg, intermediate=cfg.moe_shared_intermediate, tp=tp)
             self.shared_gate = nn.Linear(d, 1, bias=False)
         else:
             self.shared = self.shared_gate = None
@@ -394,7 +405,7 @@ class MoEFFN(nn.Module):
             w_down=self.w_down.to(x.dtype),
         )
         y = moe_ffn(
-            params, x.reshape(b * s, d), k=c.moe_top_k, capacity_factor=None, norm_topk=c.moe_norm_topk
+            params, x.reshape(b * s, d), self.ep, k=c.moe_top_k, capacity_factor=None, norm_topk=c.moe_norm_topk
         ).reshape(b, s, d)
         if self.shared is not None:
             y = y + torch.sigmoid(self.shared_gate(x)) * self.shared(x)
@@ -402,12 +413,13 @@ class MoEFFN(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, tp: TensorParallel | None = None):
+    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, tp: TensorParallel | None = None,
+                 ep: ExpertParallel | None = None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.attn = DecoderAttention(cfg, tp)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = MoEFFN(cfg) if cfg.is_moe_layer(layer_idx) else SwiGLU(cfg, tp=tp)
+        self.mlp = MoEFFN(cfg, tp, ep) if cfg.is_moe_layer(layer_idx) else SwiGLU(cfg, tp=tp)
 
     def forward(self, x, positions, cache, cache_offset, kv_valid_len, block_tables=None, kv_bound=None):
         h, cache = self.attn(
@@ -421,17 +433,12 @@ class Decoder(nn.Module):
     """Causal LM over input embeddings, so vision embeddings can be
     spliced upstream."""
 
-    def __init__(self, cfg: DecoderConfig, tp: TensorParallel | None = None):
+    def __init__(self, cfg: DecoderConfig, tp: TensorParallel | None = None, ep: ExpertParallel | None = None):
         super().__init__()
-        if tp is not None and cfg.moe_experts:
-            raise NotImplementedError(
-                "a Qwen2-MoE decoder on a model axis is not served yet (ROADMAP queue A, item 2c: expert "
-                "parallelism and tensor parallelism of the MoE decoder)"
-            )
         self.cfg = cfg
         self.tp = tp
         self.embed_tokens = nn.Embedding(cfg.vocab_size, _local_width(cfg.hidden_size, tp))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, i, tp) for i in range(cfg.layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, tp, ep) for i in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = (
             None if cfg.tie_word_embeddings else _dense(cfg, cfg.hidden_size, cfg.vocab_size, False)
@@ -501,12 +508,12 @@ class VisionEncoder(nn.Module):
 
 
 class VLMModel(nn.Module):
-    def __init__(self, cfg: VLMConfig, tp: TensorParallel | None = None):
+    def __init__(self, cfg: VLMConfig, tp: TensorParallel | None = None, ep: ExpertParallel | None = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
         self.vision = VisionEncoder(cfg, tp)
-        self.decoder = Decoder(cfg.decoder, tp)
+        self.decoder = Decoder(cfg.decoder, tp, ep)
 
     def encode_vision(self, pixel_values):
         return self.vision(pixel_values)

@@ -1,6 +1,7 @@
 """A top-k routed mixture-of-experts FFN (twin of
-``lumen_tpu/parallel/moe.py``): single-device, or with GShard all-to-all
-dispatch over an ``expert`` axis of a process mesh.
+``lumen_tpu/parallel/moe.py``): single-device, over the ``expert`` axis
+of a serving group, or with GShard all-to-all dispatch over an ``expert``
+axis of a process mesh.
 
 On one device (what a serving replica runs, ``runtime/mesh.py``):
 
@@ -23,9 +24,20 @@ ONE all-to-all each way (``torch.distributed.nn.functional.
 all_to_all_single``, differentiable) carries the slots to the rank that
 holds the expert and back: the JAX ``shard_map`` body.
 ``capacity_factor=None`` there sets ``C`` to the local token count (no
-drop). A serving ``runtime.mesh.DeviceMesh`` with an ``expert`` axis
-above 1 raises: expert parallelism in a serving replica waits for a
-coordinator/worker design (ROADMAP queue A, item 2).
+drop).
+
+Over a serving group's ``expert`` axis (a ``runtime.mesh.DeviceMesh``
+built on a running ``expert x model`` group, or the rank's
+``parallel.tp.ExpertParallel``; what ``MoEFFN`` passes), every rank holds
+the same tokens, the whole router and ``E / n`` experts of each bank. Each
+rank routes every token, runs the grouped products over the assignments
+of its own experts only and writes their rows into a zeroed fp32 ``[T,
+k, D]`` buffer; ONE ``all_reduce`` over the axis adds the buffers. Each
+slot has one writer, so the sum adds zeros to it and is exact, and the
+weighting over ``k`` then runs as on one device: the output is the
+mesh-less one up to what the grouped product does per row. The data
+plane is ``all_reduce`` only (no all-to-all): gloo has it for CUDA
+tensors, and a serving group's tokens are already on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from torch.nn import functional as F
 
 from ..runtime.mesh import EXPERT_AXIS, DeviceMesh
 from .spmd import all_to_all, axis_group, local_of, replicated_input
+from .tp import ExpertParallel
 
 
 class MoEParams(NamedTuple):
@@ -149,6 +162,54 @@ def _moe_exact_local(
     return (ys * gate_vals[..., None]).sum(dim=1).to(x.dtype)
 
 
+def _moe_exact_ep(
+    params: MoEParams, x: torch.Tensor, ep: ExpertParallel, *, n_experts: int, k: int, norm_topk: bool,
+    mm=grouped_mm,
+) -> torch.Tensor:
+    """The exact path on one rank of a serving ``expert`` axis (module
+    docstring): ``params`` holds this rank's ``E / n`` experts of each bank
+    and the whole router. The assignments are sorted stably with this
+    rank's experts first (expert ``e`` sorts as ``(e - lo) mod E``), so its
+    groups are the mesh-less path's groups, rows and order; rows past the
+    last local group end, which ``torch._grouped_mm`` leaves undefined,
+    are dropped by a select, never by a product with zero (``NaN * 0`` is
+    ``NaN``). No host sync."""
+    t, d = x.shape
+    local = ep.experts(n_experts)
+    n_local = local.stop - local.start
+    gate_vals, gate_idx = _topk_gates(x, params.router, k, norm_topk)
+    key = (gate_idx.reshape(-1) - local.start) % n_experts  # this rank's experts are 0..n_local-1
+    order = torch.sort(key, stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=x.device)
+    xs = x.repeat_interleave(k, dim=0)[order].to(params.w_gate.dtype)
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
+    sizes.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    ends = sizes[:n_local].cumsum(0, dtype=torch.int32)
+    hg = mm(xs, params.w_gate, ends)
+    hu = mm(xs, params.w_up, ends)
+    ys = mm(F.silu(hg) * hu, params.w_down, ends)[inv].reshape(t, k, d).float()
+    mine = (key < n_local).reshape(t, k, 1)
+    ys = ep.sum(torch.where(mine, ys, ys.new_zeros(())))
+    return (ys * gate_vals[..., None]).sum(dim=1).to(x.dtype)
+
+
+def _moe_local_ep(params: MoEParams, x: torch.Tensor, ep: ExpertParallel, *, n_experts: int, k: int,
+                  capacity: int, norm_topk: bool) -> torch.Tensor:
+    """The capacity path on one rank of a serving ``expert`` axis: the
+    routing of :func:`_moe_local` over every token, this rank's experts'
+    slots through its banks into a zeroed fp32 ``[E, C, D]`` buffer,
+    summed over the axis (one writer a slot), then the combine."""
+    t = x.shape[0]
+    local = ep.experts(n_experts)
+    dispatch, combine = _route(x, params.router, n_experts, k, capacity, norm_topk)
+    buf = torch.einsum("td,tec->ecd", x.float(), dispatch[:, local]).to(params.w_gate.dtype)
+    out = torch.zeros((n_experts, capacity, x.shape[1]), dtype=torch.float32, device=x.device)
+    out[local] = _expert_ffn(params, buf).float()
+    y = torch.einsum("ecd,tec->td", ep.sum(out), combine)
+    return y.to(x.dtype).reshape(t, -1)
+
+
 def _route(x: torch.Tensor, router: torch.Tensor, n_experts: int, k: int, capacity: int, norm_topk: bool = True):
     """Top-k capacity-limited routing for ``x: [T, D]`` (JAX ``_route``):
     ``dispatch: [T, E, C]`` one-hot (token t occupies slot c of expert e)
@@ -227,26 +288,44 @@ def moe_ffn(
     products over expert-sorted assignments; a factor sets ``C = max(1,
     int(factor * k * T / E))`` slots an expert.
 
-    ``mesh``: None, a serving ``runtime.mesh.DeviceMesh`` (an
-    ``axis_name`` axis above 1 raises ``NotImplementedError``), or a
-    process mesh. On a process mesh with ``axis_name`` (any size), ``x``
-    [T, D] and the banks are DTensors split over that axis on dim 0 (``T``
-    and ``E`` must divide by its size, ``C`` counts the local tokens),
-    the router replicated, and the result is a DTensor placed as ``x``."""
-    n_experts = params.w_gate.shape[0]
+    ``mesh``: None; a serving ``runtime.mesh.DeviceMesh`` or the rank's
+    ``parallel.tp.ExpertParallel`` (an ``expert`` axis above 1 runs the
+    serving path of the module docstring: the banks hold this rank's
+    ``E / n`` experts, the router and ``x`` are whole and the same on every
+    rank, and so is the result); or a process mesh. On a process mesh with
+    ``axis_name`` (any size), ``x`` [T, D] and the banks are DTensors split
+    over that axis on dim 0 (``T`` and ``E`` must divide by its size, ``C``
+    counts the local tokens), the router replicated, and the result is a
+    DTensor placed as ``x``."""
+    ep = None
     if isinstance(mesh, DeviceMesh):
-        if mesh.shape.get(axis_name, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis_name!r} = {mesh.shape[axis_name]}: expert parallelism within a serving "
-                "replica is not ported to lumen_tpu_torch yet (ROADMAP queue A, item 2c); SPMD callers pass "
-                "a process mesh (runtime.mesh.build_process_mesh)"
-            )
+        n = mesh.shape.get(axis_name, 1)
+        if n > 1:
+            ep = mesh.ep
+            if ep is None or ep.size != n:
+                raise RuntimeError(
+                    f"mesh {mesh.shape}: an {axis_name!r} axis of {n} serves on a running expert x model group "
+                    f"of {n} expert places, and this mesh has none; build the mesh with runtime.mesh.build_mesh "
+                    f"while a group runs (serve() starts one for a config whose mesh names the axis; "
+                    f"runtime.tp_group.TPGroup.spawn(devices, backend, expert={n}) starts one directly), or pass "
+                    "the rank's parallel.tp.ExpertParallel; SPMD callers pass a process mesh "
+                    "(runtime.mesh.build_process_mesh)"
+                )
+    elif isinstance(mesh, ExpertParallel):
+        ep = mesh if mesh.size > 1 else None
     elif mesh is not None and axis_name in mesh.mesh_dim_names:
         return _moe_ffn_sharded(params, x, mesh, k=k, capacity_factor=capacity_factor, axis_name=axis_name,
                                 norm_topk=norm_topk)
+    n_experts = params.router.shape[1]
+    if params.w_gate.shape[0] != (n_experts if ep is None else n_experts // ep.size):
+        raise ValueError(f"the banks hold {params.w_gate.shape[0]} of {n_experts} experts on {ep or 'one device'}")
     if capacity_factor is None:
+        if ep is not None:
+            return _moe_exact_ep(params, x, ep, n_experts=n_experts, k=k, norm_topk=norm_topk)
         return _moe_exact_local(params, x, n_experts=n_experts, k=k, norm_topk=norm_topk)
     capacity = max(1, int(capacity_factor * k * x.shape[0] / n_experts))
+    if ep is not None:
+        return _moe_local_ep(params, x, ep, n_experts=n_experts, k=k, capacity=capacity, norm_topk=norm_topk)
     return _moe_local(params, x, n_experts=n_experts, k=k, capacity=capacity, norm_topk=norm_topk)
 
 

@@ -19,8 +19,9 @@ A :class:`PartitionSpec` names, per tensor dimension, the mesh axis (or
 tuple of axes) it is split over, or None; :func:`shard_params` turns it
 into DTensor placements on a ``torch.distributed`` ``DeviceMesh``
 (``runtime.mesh.build_process_mesh``), the counterpart of a
-``NamedSharding``. A serving rank of a ``model`` axis takes its plain
-local slices instead (:func:`local_state_dict`, by whole heads).
+``NamedSharding``. A serving rank of a ``model`` or ``expert`` axis takes
+its plain local slices instead (:func:`local_state_dict`, by whole
+heads).
 """
 
 from __future__ import annotations
@@ -171,35 +172,42 @@ HeadLayout = Callable[[str], "tuple[int, int, int] | None"]
 
 
 def tp_split(name: str, shape: tuple[int, ...], rules: Iterable[ShardingRule], tp,
-             heads: HeadLayout | None = None) -> "tuple[PartitionSpec, int | None, slice | None]":
-    """How a serving rank ``tp`` (``parallel.tp.TensorParallel``) holds the
-    parameter ``name``: ``(spec, dim, rows)``, the spec its slice carries
-    on a ``model`` axis of ``tp.size``, the split dimension and this rank's
-    ``[lo, hi)`` of it (``None, None`` when it replicates).
+             heads: HeadLayout | None = None, ep=None) -> "tuple[PartitionSpec, int | None, slice | None]":
+    """How a serving rank holds the parameter ``name``: ``tp`` is its place
+    on the ``model`` axis (``parallel.tp.TensorParallel``), ``ep`` on the
+    ``expert`` axis (``parallel.tp.ExpertParallel``, or None without one).
+    Returns ``(spec, dim, rows)``: the spec its slice carries, the split
+    dimension and this rank's ``[lo, hi)`` of it (``None, None`` when it
+    replicates). No rule splits one tensor over both axes.
 
-    The rule is the JAX one -- first match of ``rules``, then
-    :func:`sanitize_spec` against the axis -- with one difference: a
-    projection of an attention block (``heads`` names its layout) splits by
-    WHOLE heads, ``tp.attn_plan``. JAX's ``sanitize_spec`` checks only that
-    the column count divides, so at ``model`` 4 it would cut Qwen2-0.5B's 2
-    KV heads of 64 columns into half-heads (128 / 4 = 32 columns a device),
-    which GSPMD computes through collectives inside attention; a rank here
-    runs attention on local heads only. So where ``kv_heads`` is smaller
-    than the axis each rank keeps the KV head its query heads read
-    (Megatron's rule), and where the query heads do not divide the whole
-    block replicates (and its module skips the sum)."""
+    The rule is the JAX one -- first match of ``rules`` (``MOE_EP_RULES``
+    first, so the expert banks split over ``expert`` and the router stays
+    whole), then :func:`sanitize_spec` against the axes -- with one
+    difference: a projection of an attention block (``heads`` names its
+    layout) splits by WHOLE heads, ``tp.attn_plan``. JAX's
+    ``sanitize_spec`` checks only that the column count divides, so at
+    ``model`` 4 it would cut Qwen2-0.5B's 2 KV heads of 64 columns into
+    half-heads (128 / 4 = 32 columns a device), which GSPMD computes
+    through collectives inside attention; a rank here runs attention on
+    local heads only. So where ``kv_heads`` is smaller than the axis each
+    rank keeps the KV head its query heads read (Megatron's rule), and
+    where the query heads do not divide the whole block replicates (and
+    its module skips the sum)."""
+    sizes = {"model": tp.size} if ep is None else {"model": tp.size, "expert": ep.size}
     layout = heads(name) if heads is not None else None
     if layout is not None and (_QUERY_PROJ.search(name) or _KV_PROJ.search(name)):
         # Whole heads decide, not the column count.
         spec = spec_for(name, rules)
         spec = spec if len(spec) <= len(shape) else P()
     else:
-        spec = sanitize_spec(spec_for(name, rules), shape, {"model": tp.size}, path=name)
+        spec = sanitize_spec(spec_for(name, rules), shape, sizes, path=name)
         layout = None
-    dims = [d for d, e in enumerate(spec) if e == "model"]
+    dims = [(d, e) for d, e in enumerate(spec) if e in sizes]
     if not dims:
         return P(), None, None
-    dim = dims[0]
+    dim, axis = dims[0]
+    if axis == "expert":
+        return spec, dim, ep.experts(shape[dim])
     if layout is not None:
         h, kvh, dh = layout
         plan = tp.attn_plan(h, kvh)
@@ -220,14 +228,15 @@ def tp_split(name: str, shape: tuple[int, ...], rules: Iterable[ShardingRule], t
 
 
 def local_state_dict(state: Mapping[str, torch.Tensor], rules: Iterable[ShardingRule], tp,
-                     heads: HeadLayout | None = None) -> dict[str, torch.Tensor]:
+                     heads: HeadLayout | None = None, ep=None) -> dict[str, torch.Tensor]:
     """This serving rank's local slice of every tensor of ``state`` (plain
     tensors, no DTensor): the rules and whole-head splits of
-    :func:`tp_split`. Slices are contiguous copies, so the full tensors can
-    be freed."""
+    :func:`tp_split` on the rank's ``model`` place ``tp`` and ``expert``
+    place ``ep``. Slices are contiguous copies, so the full tensors can be
+    freed."""
     rules = list(rules)
     out = {}
     for name, t in state.items():
-        _, dim, rows = tp_split(name, tuple(t.shape), rules, tp, heads)
+        _, dim, rows = tp_split(name, tuple(t.shape), rules, tp, heads, ep)
         out[name] = t if dim is None else t.narrow(dim, rows.start, rows.stop - rows.start).contiguous()
     return out

@@ -1,5 +1,6 @@
-"""Tensor parallelism for serving: a rank's place on a ``model`` axis and
-the collectives a Megatron-split forward inserts itself (no autograd).
+"""Tensor and expert parallelism for serving: a rank's place on a
+``model`` and an ``expert`` axis, and the collectives a Megatron-split
+forward and an expert-split MoE layer insert themselves (no autograd).
 
 One process drives one device, and each rank holds plain local tensors:
 the slice that :func:`~lumen_tpu_torch.parallel.sharding.local_state_dict`
@@ -17,6 +18,14 @@ holds ``heads / size`` query heads and the KV heads they read. Where
 ``kv_heads`` is smaller than the axis, each rank keeps the one KV head its
 query heads use (Megatron's rule); where the heads do not divide, the whole
 attention block replicates and no sum follows it.
+
+On an ``expert`` axis (:class:`ExpertParallel`) a rank holds ``E / size``
+experts of every MoE bank and the whole router; the tokens are the same on
+every rank, so each routes them all, runs its own experts and adds the
+routed rows over the axis (``parallel.moe``). A group of ``expert x
+model`` ranks sums each ``model`` split over the ranks that share an
+expert place and each expert split over the ranks that share a model
+place. A collective of an axis of size 1 is the identity.
 """
 
 from __future__ import annotations
@@ -42,19 +51,44 @@ class AttnPlan:
     split: bool
 
 
-class TensorParallel:
+class _Axis:
+    """A rank's place on one axis of a serving group: ``size`` ranks, this
+    one ``rank``, the data-plane ``group`` of the ranks along the axis
+    (None: the default group)."""
+
+    axis = ""
+
+    def __init__(self, size: int, rank: int, group=None):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} outside a {self.axis} axis of {size}")
+        self.size, self.rank, self.group = size, rank, group
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(rank {self.rank} of {self.size})"
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' partials, taken in fp32 and rounded to
+        ``x.dtype`` once; every rank gets the same bits. A contiguous fp32
+        ``x`` is summed in place."""
+        if self.size == 1:
+            return x
+        y = x.float().contiguous()
+        dist.all_reduce(y, group=self.group)
+        return y.to(x.dtype)
+
+
+class TensorParallel(_Axis):
     """This rank's place on a serving mesh's ``model`` axis: ``size``
     ranks, this one ``rank``, the data-plane ``group`` (None: the default
     group). ``runtime`` is the rank-0/worker runtime that dispatches the
-    rank's programs (``runtime.tp_group.TPGroup``), or None."""
+    rank's programs (``runtime.tp_group.TPGroup``), or None. At ``size``
+    1 nothing splits and no collective runs."""
+
+    axis = "model"
 
     def __init__(self, size: int, rank: int, group=None, runtime=None):
-        if not 0 <= rank < size:
-            raise ValueError(f"rank {rank} outside a model axis of {size}")
-        self.size, self.rank, self.group, self.runtime = size, rank, group, runtime
-
-    def __repr__(self) -> str:
-        return f"TensorParallel(rank {self.rank} of {self.size})"
+        super().__init__(size, rank, group)
+        self.runtime = runtime
 
     # -- the split plan (shared by the module shapes and local_state_dict) ---
 
@@ -70,7 +104,7 @@ class TensorParallel:
     def attn_plan(self, heads: int, kv_heads: int) -> AttnPlan:
         """The heads of an attention block with ``heads`` query and
         ``kv_heads`` KV heads (module docstring)."""
-        if heads % self.size or not (kv_heads % self.size == 0 or self.size % kv_heads == 0):
+        if self.size == 1 or heads % self.size or not (kv_heads % self.size == 0 or self.size % kv_heads == 0):
             return AttnPlan(0, heads, 0, kv_heads, self.rank == 0, False)
         hl = heads // self.size
         if kv_heads % self.size == 0:
@@ -80,13 +114,6 @@ class TensorParallel:
         return AttnPlan(self.rank * hl, hl, self.rank // per_kv, 1, self.rank % per_kv == 0, True)
 
     # -- the collectives -------------------------------------------------------
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of the ranks' row-parallel partials, taken in fp32 and
-        rounded to ``x.dtype`` once; every rank gets the same bits."""
-        y = x.float().contiguous()
-        dist.all_reduce(y, group=self.group)
-        return y.to(x.dtype)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over the ranks (a row's ``|x|.max()``
@@ -118,7 +145,12 @@ class TensorParallel:
         """Every KV head of a paged or contiguous KV tensor whose dimension
         ``dim`` holds this rank's ``plan`` heads: each head comes from its
         owner rank (ranks that share a KV head, or a replicated block, add
-        it once)."""
+        it once). The sum runs over this axis's group: in an ``expert x
+        model`` group the ranks of one expert place hold every head once
+        between them, and each expert place gathers its own. A tensor that
+        already holds every head is returned as it is."""
+        if x.shape[dim] == kv_heads:
+            return x
         shape = list(x.shape)
         shape[dim] = kv_heads
         out = x.new_zeros(shape, dtype=torch.float32)
@@ -126,6 +158,23 @@ class TensorParallel:
             out.narrow(dim, plan.kv_lo, plan.kv_heads).copy_(x)
         dist.all_reduce(out, group=self.group)
         return out.to(x.dtype)
+
+
+class ExpertParallel(_Axis):
+    """This rank's place on a serving mesh's ``expert`` axis: ``size``
+    ranks, this one ``rank``, the data-plane ``group`` of the ranks that
+    share its ``model`` place (None: the default group). The rank holds
+    the experts :meth:`experts` names of every MoE bank; :meth:`sum` adds
+    the routed rows over the axis."""
+
+    axis = "expert"
+
+    def experts(self, n: int) -> slice:
+        """This rank's ``[lo, lo + n / size)`` of ``n`` experts."""
+        if n % self.size:
+            raise ValueError(f"{n} experts do not split over an expert axis of {self.size}")
+        per = n // self.size
+        return slice(self.rank * per, (self.rank + 1) * per)
 
 
 def row_parallel(linear, x: torch.Tensor, tp: "TensorParallel | None", split: bool) -> torch.Tensor:

@@ -217,22 +217,23 @@ def plan_replicas(
     replica's mesh keeps the configured non-``data`` axes and absorbs the
     rest of its slice on ``data``. Counts that don't fit degrade to the
     largest that does (one-shot warning per family)."""
-    from .mesh import DATA_AXIS, MODEL_AXIS, build_mesh, local_devices
+    from .mesh import DATA_AXIS, build_mesh, group_shape, local_devices
 
     devices = list(devices if devices is not None else local_devices())
     n = len(devices)
     axes = dict(mesh_axes or {})
     requested = replicas_for(family)
     policy = dispatch_policy_name()
-    # Non-data axes (TP/SP/...) live INSIDE each replica: a slice must hold
-    # at least one full copy of them.
-    if axes.get(MODEL_AXIS, 1) != 1 and requested != 1:
+    # Non-data axes (TP/EP/SP/...) live INSIDE each replica: a slice must
+    # hold at least one full copy of them.
+    grouped = {a: s for a, s in group_shape(axes).items() if s != 1}
+    if grouped and requested != 1:
         raise NotImplementedError(
-            f"{family}: {'max' if requested == -1 else requested} replicas of a model axis of "
-            f"{axes[MODEL_AXIS]}: replicas x tensor parallelism is not served yet (ROADMAP queue A, item 2d)"
+            f"{family}: {'max' if requested == -1 else requested} replicas of {grouped} axes: replicas x expert "
+            "or tensor parallelism is not served yet (ROADMAP queue A, item 2d)"
         )
-    if axes.get(MODEL_AXIS, 1) != 1:
-        # One tensor-parallel replica on the process's group: its ranks'
+    if grouped:
+        # One replica on the process's expert x model group: its ranks'
         # devices, not this process's card list.
         from . import tp_group
 

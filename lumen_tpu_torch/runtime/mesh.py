@@ -10,17 +10,20 @@ have had over it, so the fleet and the capability surface read the same
 Axis names are the JAX package's. :func:`resolve_axes` is its pure-Python
 resolver, unchanged. What a serving replica runs:
 
-- a ``model`` axis above 1 is tensor parallelism over a rank-0/worker
-  group (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a device,
+- an ``expert`` or ``model`` axis above 1 is expert or tensor parallelism
+  over a rank-0/worker group of ``expert x model`` ranks
+  (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a device,
   ``serve()`` starts the group. The mesh carries the group, its ranks'
-  devices and its :class:`~lumen_tpu_torch.parallel.tp.TensorParallel`;
-  an axis larger than the devices or the group raises (never a replicated
-  fallback);
-- a ``seq``, ``stage`` or ``expert`` axis above 1 raises
-  ``NotImplementedError`` naming the ROADMAP item that would lift it;
+  devices, the rank's
+  :class:`~lumen_tpu_torch.parallel.tp.TensorParallel` (``tp``) and its
+  :class:`~lumen_tpu_torch.parallel.tp.ExpertParallel` (``ep``, None
+  without an expert axis); axes larger than the devices, or other than
+  the group's, raise (never a replicated fallback);
+- a ``seq`` or ``stage`` axis above 1 raises ``NotImplementedError``
+  naming the ROADMAP item that would lift it;
 - a ``data`` axis above 1 (one micro-batch spread over several devices)
   degrades to 1 with a one-shot warning: the replica serves on its first
-  device, or its first ``model``-sized group of devices. Several cards
+  device, or its first ``expert x model`` group of devices. Several cards
   serve as several replicas, one a card (``LUMEN_REPLICAS=max``,
   :mod:`lumen_tpu_torch.runtime.fleet`).
 
@@ -46,6 +49,9 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
+#: the axes a serving replica runs on a rank-0/worker group, in rank order
+#: (``runtime.tp_group``: rank ``e * model + m``)
+GROUP_AXES = (EXPERT_AXIS, MODEL_AXIS)
 
 
 _degrade_warned: set[str] = set()
@@ -132,14 +138,19 @@ class DeviceMesh:
             raise ValueError("a DeviceMesh needs at least one device")
         self.devices = [torch.device(d) for d in devices]
         self.shape = dict(shape)
-        #: the tensor-parallel group (``runtime.tp_group.TPGroup``) of a
-        #: ``model`` axis above 1, else None
+        #: the serving group (``runtime.tp_group.TPGroup``) of an
+        #: ``expert`` or ``model`` axis above 1, else None
         self.group = group
 
     @property
     def tp(self):
         """This rank's ``TensorParallel`` on the ``model`` axis, or None."""
         return None if self.group is None else self.group.tp
+
+    @property
+    def ep(self):
+        """This rank's ``ExpertParallel`` on the ``expert`` axis, or None."""
+        return None if self.group is None else self.group.ep
 
     @property
     def device(self) -> torch.device:
@@ -154,35 +165,42 @@ def local_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def group_shape(axes: dict[str, int]) -> dict[str, int]:
+    """The ``{expert, model}`` sizes a mesh request asks of a serving group
+    (1 where it names neither; -1 where it leaves one to the devices)."""
+    return {a: axes.get(a, 1) for a in GROUP_AXES}
+
+
 def build_mesh(
     axes: dict[str, int] | None = None,
     devices: Sequence[torch.device] | None = None,
 ) -> DeviceMesh:
     """A replica's device slice: by default every local CUDA device on one
-    ``data`` axis, as the JAX ``build_mesh``. A ``model`` axis above 1
-    runs on the process's tensor-parallel group (``runtime.tp_group``),
-    whose devices it takes when ``devices`` is not given; ``seq``,
-    ``stage`` and ``expert`` raise; a ``data`` axis above 1 serves on the
-    slice's first device or first ``model`` group (module docstring)."""
+    ``data`` axis, as the JAX ``build_mesh``. An ``expert`` or ``model``
+    axis above 1 runs on the process's serving group
+    (``runtime.tp_group``), whose devices it takes when ``devices`` is not
+    given; ``seq`` and ``stage`` raise; a ``data`` axis above 1 serves on
+    the slice's first device or first group (module docstring)."""
     from . import tp_group
 
     axes = axes or {DATA_AXIS: -1}
-    model = axes.get(MODEL_AXIS, 1)
-    group = tp_group.current() if model != 1 else None
+    asked = group_shape(axes)
+    group = tp_group.current() if any(s != 1 for s in asked.values()) else None
     if devices is None:
         devices = group.devices if group is not None else local_devices()
     devices = list(devices)
     if not devices:
         raise RuntimeError("no device to build a mesh on (CUDA is not available)")
-    if model > len(devices):
+    ranks = math.prod(s for s in asked.values() if s != -1)
+    if ranks > len(devices):
         raise ValueError(
-            f"mesh axes {axes}: a model axis of {model} needs {model} devices, this host has {len(devices)}"
+            f"mesh axes {axes}: an expert x model group of {ranks} needs {ranks} devices, this host has "
+            f"{len(devices)}"
         )
     resolved = resolve_axes(axes, len(devices))
     pending = {
         SEQ_AXIS: "ROADMAP queue A, item 2e: sequence parallelism in serving",
         STAGE_AXIS: "ROADMAP queue A, item 2e: pipeline parallelism in serving",
-        EXPERT_AXIS: "ROADMAP queue A, item 2c: expert parallelism in serving",
     }
     parallel = {a: s for a, s in resolved.items() if a in pending and s > 1}
     if parallel:
@@ -193,7 +211,8 @@ def build_mesh(
         )
     used = math.prod(resolved.values())
     devices = devices[:used]
-    model = resolved.get(MODEL_AXIS, 1)
+    shape = group_shape(resolved)
+    ranks = math.prod(shape.values())
     if resolved.get(DATA_AXIS, 1) > 1:
         key = f"data={resolved[DATA_AXIS]}"
         if key not in _degrade_warned:
@@ -201,25 +220,25 @@ def build_mesh(
             logger.warning(
                 "mesh %s: a data axis over %d devices within one replica is not ported; "
                 "serving on %s (LUMEN_REPLICAS=max serves one replica per device)",
-                resolved, len(devices), [str(d) for d in devices[:model]],
+                resolved, len(devices), [str(d) for d in devices[:ranks]],
             )
         resolved[DATA_AXIS] = 1
-        devices = devices[:model]
-    if model > 1:
+        devices = devices[:ranks]
+    if ranks > 1:
         if group is None:
             raise RuntimeError(
-                f"mesh {resolved}: a model axis of {model} runs on a tensor-parallel group of {model} "
-                "ranks, and none is running (serve() starts one for a config whose mesh names a model "
+                f"mesh {resolved}: an expert x model group of {ranks} ranks ({shape}) serves on a rank-0/worker "
+                "group, and none is running (serve() starts one for a config whose mesh names an expert or model "
                 "axis; runtime.tp_group.TPGroup.spawn starts one directly)"
             )
-        if group.size != model:
+        if group.shape != shape:
             raise ValueError(
-                f"mesh {resolved}: a model axis of {model} does not match the running tensor-parallel "
-                f"group of {group.size} ranks"
+                f"mesh {resolved}: axes {shape} do not match the running group's {group.shape} "
+                f"({group.size} ranks)"
             )
         devices = list(group.devices)
     logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
-    return DeviceMesh(devices, resolved, group=group if model > 1 else None)
+    return DeviceMesh(devices, resolved, group=group if ranks > 1 else None)
 
 
 def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda"):

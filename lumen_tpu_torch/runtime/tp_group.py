@@ -1,4 +1,5 @@
-"""The rank-0/worker runtime of a tensor-parallel serving group.
+"""The rank-0/worker runtime of a serving group over an ``expert`` and a
+``model`` axis.
 
 One process drives one device. Rank 0 serves gRPC, runs the
 batchers and the continuous scheduler, and owns every piece of host state
@@ -6,8 +7,16 @@ batchers and the continuous scheduler, and owns every piece of host state
 workers) hold only their shards and run :meth:`TPGroup.serve_forever`.
 Before rank 0 runs a device program it sends it to the workers as
 ``(target, program, inputs)``; every rank then runs the same code on its own
-shards, and the model inserts the Megatron collectives itself
+shards, and the model inserts the Megatron and expert sums itself
 (``parallel.tp``).
+
+- **Layout.** A group of ``expert x model`` ranks gives rank ``r`` the
+  place ``(e, m) = divmod(r, model)`` (:func:`rank_place`). The ``model``
+  sums run over the ranks that share ``e`` (``group.tp``, a
+  ``TensorParallel``), the expert sums over the ranks that share ``m``
+  (``group.ep``, an ``ExpertParallel``; None without an expert axis). Every
+  rank makes the subgroups with ``dist.new_group`` in one order; an axis
+  that spans the whole group uses the default group.
 
 - **Programs.** :func:`program` marks a method of a rank-local object (a
   ``Generator``, a model) as one; :meth:`TPGroup.run` sends a module-level
@@ -36,13 +45,13 @@ shards, and the model inserts the Megatron collectives itself
   group dead, and :meth:`TPGroup.alive` (the services' ``Health``) turns
   false at once for workers this process started.
 
-The data plane is the default process group: NCCL, one card a rank, in a
-real deployment; gloo where the caller asks for it (the CPU tests, and two
+The data plane is the default process group and its axis subgroups:
+NCCL, one card a rank, in a real deployment; gloo where the caller asks for it (the CPU tests, and two
 ranks sharing one card, which NCCL refuses). The caller names the devices
 and the backend.
 
     python -m lumen_tpu_torch.runtime.tp_group --rank R --world N --addr HOST:PORT \\
-        --devices cuda:0,cuda:1 --backend nccl
+        --devices cuda:0,cuda:1 --backend nccl [--expert E]
 """
 
 from __future__ import annotations
@@ -65,7 +74,7 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from ..parallel.tp import TensorParallel
+from ..parallel.tp import ExpertParallel, TensorParallel
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +88,12 @@ _MISSING = object()
 #: dtypes a broadcast carries as bytes (gloo refuses them; the bytes are
 #: copied, not computed on)
 _AS_BYTES = (torch.bool, torch.bfloat16, torch.int16)
+
+
+def rank_place(rank: int, model: int) -> tuple[int, int]:
+    """Rank ``rank``'s ``(expert, model)`` place in a group whose model
+    axis has ``model`` ranks: ``rank = e * model + m``."""
+    return divmod(rank, model)
 
 
 def current() -> "TPGroup | None":
@@ -137,17 +152,23 @@ def _root(t: torch.Tensor) -> torch.Tensor:
 
 
 class TPGroup:
-    """One rank of a tensor-parallel serving group (module docstring).
-    ``devices[r]`` is rank ``r``'s device; ``backend`` is the data plane's
-    (``nccl`` or ``gloo``)."""
+    """One rank of a serving group of ``world = expert x model`` ranks
+    (module docstring). ``devices[r]`` is rank ``r``'s device; ``backend``
+    is the data plane's (``nccl`` or ``gloo``); ``expert`` the size of the
+    expert axis (the model axis has the other ``world / expert`` ranks)."""
 
     def __init__(self, rank: int, world: int, addr: str, devices: Sequence, backend: str,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1):
         if len(devices) != world:
             raise ValueError(f"a group of {world} ranks needs {world} devices, got {len(devices)}")
         if backend not in ("nccl", "gloo"):
             raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+        if expert < 1 or world % expert:
+            raise ValueError(f"an expert axis of {expert} does not divide a group of {world} ranks")
         self.rank, self.size, self.backend = rank, world, backend
+        model = world // expert
+        #: the group's axis sizes, as a mesh names them
+        self.shape = {"expert": expert, "model": model}
         self.devices = [torch.device(d) for d in devices]
         self.device = self.devices[rank]
         if backend == "nccl" and self.device.type != "cuda":
@@ -161,7 +182,15 @@ class TPGroup:
                                 timeout=timeout, **kw)
         self._control = dist.new_group(backend="gloo", timeout=_IDLE_WAIT)
         self._status = dist.new_group(backend="gloo", timeout=timeout)
-        self.tp = TensorParallel(world, rank, group=None, runtime=self)
+        e, m = rank_place(rank, model)
+        model_groups = [None] * expert
+        expert_groups = [None] * model
+        if expert > 1 and model > 1:
+            # every rank makes every subgroup, in one order
+            model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(expert)]
+            expert_groups = [dist.new_group([i * model + j for i in range(expert)]) for j in range(model)]
+        self.tp = TensorParallel(model, m, group=model_groups[e], runtime=self)
+        self.ep = ExpertParallel(expert, e, group=expert_groups[m]) if expert > 1 else None
         pids: list = [None] * world
         dist.all_gather_object(pids, os.getpid(), group=self._status)
         self.pids = pids
@@ -175,15 +204,18 @@ class TPGroup:
         self._released: collections.deque[int] = collections.deque()
         self._next = 1
         self.programs = 0
-        logger.info("tensor-parallel group: rank %d of %d on %s (%s)", rank, world, self.device, backend)
+        logger.info("serving group %s: rank %d of %d (expert %d, model %d) on %s (%s)", self.shape, rank, world, e, m,
+                    self.device, backend)
 
     # -- start and stop ---------------------------------------------------------
 
     @classmethod
-    def spawn(cls, devices: Sequence, backend: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> "TPGroup":
-        """Start a group of ``len(devices)`` ranks: this process is rank 0,
-        and ranks 1..n-1 are child processes running the worker loop.
-        Installs the group as :func:`current`."""
+    def spawn(cls, devices: Sequence, backend: str, timeout_s: float = DEFAULT_TIMEOUT_S,
+              expert: int = 1) -> "TPGroup":
+        """Start a group of ``len(devices)`` ranks, ``expert`` places on the
+        expert axis: this process is rank 0, and ranks 1..n-1 are child
+        processes running the worker loop. Installs the group as
+        :func:`current`."""
         global _current
         if _current is not None:
             raise RuntimeError("a tensor-parallel group is already running in this process")
@@ -200,10 +232,10 @@ class TPGroup:
         for r in range(1, world):
             argv = [sys.executable, "-m", "lumen_tpu_torch.runtime.tp_group", "--rank", str(r),
                     "--world", str(world), "--addr", addr, "--devices", names, "--backend", backend,
-                    "--timeout", str(timeout_s)]
+                    "--timeout", str(timeout_s), "--expert", str(expert)]
             children.append(subprocess.Popen(argv, env=env))
         try:
-            group = cls(0, world, addr, devices, backend, timeout_s)
+            group = cls(0, world, addr, devices, backend, timeout_s, expert)
         except BaseException:
             for p in children:
                 p.kill()
@@ -215,12 +247,12 @@ class TPGroup:
 
     @classmethod
     def join(cls, rank: int, world: int, addr: str, devices: Sequence, backend: str,
-             timeout_s: float = DEFAULT_TIMEOUT_S) -> "TPGroup":
+             timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1) -> "TPGroup":
         """Join a group whose ranks were started elsewhere (one process a
         rank, each calling this); rank 0 becomes :func:`current`, the
         others go on to :meth:`serve_forever`."""
         global _current
-        group = cls(rank, world, addr, devices, backend, timeout_s)
+        group = cls(rank, world, addr, devices, backend, timeout_s, expert)
         if rank == 0:
             _current = group
         return group
@@ -524,10 +556,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--devices", required=True)
     parser.add_argument("--backend", required=True)
     parser.add_argument("--timeout", type=float, default=DEFAULT_TIMEOUT_S)
+    parser.add_argument("--expert", type=int, default=1)
     args = parser.parse_args(argv)
     logging.basicConfig(level=os.environ.get("LUMEN_LOG_LEVEL", "INFO"),
                         format=f"%(asctime)s tp{args.rank} %(levelname)s %(name)s: %(message)s")
-    group = TPGroup.join(args.rank, args.world, args.addr, args.devices.split(","), args.backend, args.timeout)
+    group = TPGroup.join(args.rank, args.world, args.addr, args.devices.split(","), args.backend, args.timeout,
+                         args.expert)
     group.serve_forever()
     return 0
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import signal
 import sys
@@ -189,43 +190,45 @@ def attach_breaker(recovery: RecoveryManager, name: str, svc: BaseService) -> Ba
 
 def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backend: str | None = None):
     """The rank-0/worker group this server starts for every enabled service
-    whose mesh names a ``model`` axis above 1 (all of them share it, so
-    their axes must agree), or None: none is needed, or the process
-    already runs a group of that size, which the services then use (and
-    this server leaves running). ``tp_devices`` are the ranks' devices
-    (default: the host's cards from ``device`` on) and ``tp_backend`` the
-    data plane's backend (default ``nccl``; ``gloo`` for CPU ranks or
-    ranks sharing a card). A model axis the devices cannot fill raises."""
+    whose mesh names an ``expert`` or ``model`` axis above 1: a group of
+    ``expert x model`` ranks that all of them share, so their two axes must
+    agree; or None: none is needed, or the process already runs a group of
+    that shape, which the services then use (and this server leaves
+    running). ``tp_devices`` are the ranks' devices (default: the host's
+    cards from ``device`` on) and ``tp_backend`` the data plane's backend
+    (default ``nccl``; ``gloo`` for CPU ranks or ranks sharing a card).
+    Axes the devices cannot fill raise."""
     from ..runtime import tp_group
     from ..runtime.fleet import fleet_devices
+    from ..runtime.mesh import group_shape
 
-    sizes = {}
+    devices = list(tp_devices) if tp_devices is not None else (fleet_devices(device) if device.type == "cuda" else [])
+    shapes = {}
     for name, svc_cfg in config.enabled_services().items():
         mesh = svc_cfg.backend_settings.mesh
-        model = (mesh.axes or {}).get("model", 1) if mesh else 1
-        if model != 1:
-            sizes[name] = model
-    if not sizes:
+        shape = group_shape((mesh.axes or {}) if mesh else {})
+        if any(s != 1 for s in shape.values()):
+            fixed = math.prod(s for s in shape.values() if s != -1)
+            shapes[name] = {a: len(devices) // fixed if s == -1 else s for a, s in shape.items()}
+    if not shapes:
         return None
-    devices = list(tp_devices) if tp_devices is not None else (fleet_devices(device) if device.type == "cuda" else [])
-    if any(s == -1 for s in sizes.values()):
-        sizes = {n: len(devices) if s == -1 else s for n, s in sizes.items()}
-    if len(set(sizes.values())) != 1:
-        raise ValueError(f"services share one tensor-parallel group, but their model axes differ: {sizes}")
-    size = next(iter(sizes.values()))
+    if len({tuple(s.values()) for s in shapes.values()}) != 1:
+        raise ValueError(f"services share one expert x model group, but their axes differ: {shapes}")
+    shape = next(iter(shapes.values()))
+    size = math.prod(shape.values())
     running = tp_group.current()
-    if running is not None and running.size == size:
-        logger.info("serving %s on the running tensor-parallel group of %d ranks", sorted(sizes), size)
+    if running is not None and running.shape == shape:
+        logger.info("serving %s on the running group %s of %d ranks", sorted(shapes), shape, size)
         return None
     if size > len(devices):
         raise ValueError(
-            f"a model axis of {size} ({sorted(sizes)}) needs {size} devices; have {len(devices)} "
-            f"({[str(d) for d in devices]}); pass tp_devices to serve on others"
+            f"an expert x model group of {size} {shape} ({sorted(shapes)}) needs {size} devices; have "
+            f"{len(devices)} ({[str(d) for d in devices]}); pass tp_devices to serve on others"
         )
     backend = tp_backend or "nccl"
-    logger.info("starting a tensor-parallel group of %d ranks on %s (%s) for %s",
-                size, [str(d) for d in devices[:size]], backend, sorted(sizes))
-    return tp_group.TPGroup.spawn(devices[:size], backend)
+    logger.info("starting a serving group %s of %d ranks on %s (%s) for %s",
+                shape, size, [str(d) for d in devices[:size]], backend, sorted(shapes))
+    return tp_group.TPGroup.spawn(devices[:size], backend, expert=shape["expert"])
 
 
 class ServerHandle:
@@ -248,7 +251,7 @@ class ServerHandle:
         # (it is the router's), so teardown closes what is actually running.
         self.services = router.services
         self.recovery = recovery
-        #: the tensor-parallel group of the services on a model axis
+        #: the expert x model group of the services on an expert or model axis
         self.tp_group = tp_group
 
     def drain_and_stop(self, drain_s: float | None = None) -> None:
@@ -369,8 +372,8 @@ def serve(
     """Boot the server; ``device`` (default ``cuda:0``, raising without a
     card) reaches every service's ``from_config``. A front tier (peers and
     no enabled service) owns no model and resolves no device. Services
-    whose mesh names a ``model`` axis serve on one tensor-parallel group
-    this call starts (:func:`start_tensor_parallel`: ``tp_devices``,
+    whose mesh names an ``expert`` or ``model`` axis serve on one group of
+    ``expert x model`` ranks this call starts (:func:`start_tensor_parallel`: ``tp_devices``,
     ``tp_backend``) and the handle's ``stop`` ends.
     ``port_override=0`` binds an OS-assigned port (``handle.port``);
     ``metrics_port`` starts the HTTP sidecar on loopback (0: an

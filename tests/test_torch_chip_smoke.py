@@ -268,8 +268,9 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 18))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 19))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
-                                        ("16", {1, 16}), ("17", {1, 6, 8, 17})])
+                                        ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
+                                        ("15,18", {1, 15, 18})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want

@@ -87,19 +87,25 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
 
 
 def test_parallel_axes_raise(monkeypatch):
-    # A model axis runs on a tensor-parallel group; without one it raises
-    # (never a replicated fallback), and so does one larger than the host.
-    with pytest.raises(RuntimeError, match="tensor-parallel group"):
-        build_mesh({"model": 2}, devices=[CPU] * 2)
+    # An expert or model axis runs on an expert x model serving group;
+    # without one it raises (never a replicated fallback), and so does one
+    # larger than the host; seq and stage are not served, and replicas of
+    # such a group wait for item 2d.
+    for axes in ({"model": 2}, {"expert": 2}, {"expert": 2, "model": 2}):
+        with pytest.raises(RuntimeError, match="none is running"):
+            build_mesh(axes, devices=[CPU] * 4)
     with pytest.raises(ValueError, match="needs 4 devices"):
         build_mesh({"model": 4}, devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="queue A, item 2c"):
-        build_mesh({"expert": 2}, devices=[CPU] * 2)
-    with pytest.raises(RuntimeError, match="tensor-parallel group"):
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        build_mesh({"expert": 2, "model": 2}, devices=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="queue A, item 2e"):
+        build_mesh({"seq": 2}, devices=[CPU] * 2)
+    with pytest.raises(RuntimeError, match="none is running"):
         port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
     monkeypatch.setenv("LUMEN_REPLICAS", "2")
-    with pytest.raises(NotImplementedError, match="queue A, item 2d"):
-        port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
+    for axes in ({"model": 2}, {"expert": 2}):
+        with pytest.raises(NotImplementedError, match="queue A, item 2d"):
+            port_fleet.plan_replicas("clip", axes, devices=[CPU] * 4)
     assert build_mesh(devices=[CPU]).shape == {"data": 1}
 
 

@@ -20,8 +20,8 @@ chat template removed, so both render the plain transcript;
 - a row spilled from the TP pool resumes at TP = 1 to the same tokens;
 - a view of a rank-local tensor passed to a program is refused;
 - a killed worker fails rank 0's next call within the group timeout;
-- a model axis the group cannot fill, replicas x model and the MoE
-  decoder on a model axis raise.
+- a model axis the group cannot fill and replicas x model raise, and the
+  MoE decoder serves on a model axis.
 """
 
 from __future__ import annotations
@@ -254,10 +254,14 @@ def test_views_of_rank_local_tensors_are_refused(vlm_runs):
 
 
 def test_hard_limits_raise(vlm_runs):
+    """A model axis the group cannot fill and replicas x model raise; the
+    MoE decoder, which raised here until its expert and tensor parallelism
+    was ported, serves on the model axis (its tokens against the JAX
+    manager's: ``tests/test_torch_serving_ep.py``)."""
     limits = json.loads(str(vlm_runs[1][0]["limits"]))
     assert limits["axis"].startswith("ValueError") and "needs 4 devices" in limits["axis"]
     assert limits["replicas"].startswith("NotImplementedError") and "item 2d" in limits["replicas"]
-    assert limits["moe"].startswith("NotImplementedError") and "item 2c" in limits["moe"]
+    assert limits["moe"] == 'served 4 tokens on {"data": 1, "model": 2}', limits["moe"]
 
 
 @pytest.fixture(scope="module")

@@ -5,8 +5,9 @@ case and writes its results as numpy.
 The ranks import torch and the port only: the JAX side of each test is
 computed in the pytest process and reaches the ranks as an ``.npz``.
 
-The serving cases (``tp_*``) join a tensor-parallel serving group
-(``runtime.tp_group``) instead of a plain process group: rank 0 drives
+The serving cases (``tp_*``, ``ep_*``) join a serving group
+(``runtime.tp_group``; ``meta["expert"]`` places on the expert axis, the
+rest on the model axis) instead of a plain process group: rank 0 drives
 the managers, the other ranks run the worker loop until rank 0 stops it.
 
     python tests/torch_spmd_ranks.py <case> <rank> <world> <port> <dir>
@@ -225,7 +226,7 @@ def _tp_group(meta):
     from lumen_tpu_torch.runtime.tp_group import TPGroup
 
     return TPGroup.join(meta["rank"], meta["world"], f"localhost:{meta['port']}", ["cpu"] * meta["world"], "gloo",
-                        timeout_s=meta.get("tp_timeout", 60.0))
+                        timeout_s=meta.get("tp_timeout", 60.0), expert=meta.get("expert", 1))
 
 
 def _serving(case):
@@ -254,7 +255,8 @@ def _vlm_kw(meta, **extra):
 def _tp_vlm(group, inp, meta, out):
     """The VLM at ``{data: 4, model: 2}`` through the managers (continuous,
     coalescer, int8 ``dequant`` and ``dynamic``), the spill of a TP row
-    resumed at TP = 1, and the hard limits."""
+    resumed at TP = 1, the hard limits, and the MoE decoder served on the
+    model axis."""
     from lumen_tpu_torch.models.vlm import ChatMessage
     from lumen_tpu_torch.models.vlm.manager import VLMManager
     from lumen_tpu_torch.runtime.mesh import build_mesh
@@ -308,19 +310,27 @@ def _tp_vlm(group, inp, meta, out):
                                             for a, b in zip(row["pages"], ref_row["pages"])))
     out["spill_pages_shape"] = np.asarray(row["pages"][0]["k"].shape)
 
-    # Hard limits: a model axis the group cannot fill, replicas x model,
-    # and the MoE decoder on a model axis raise.
+    # Hard limits: a model axis the group cannot fill and replicas x model
+    # raise; the MoE decoder serves on the model axis.
+    def moe():
+        mgr = VLMManager.from_model_dir(meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta))
+        try:
+            r = mgr.generate(prompt, max_new_tokens=4)
+            return f"served {len(r.tokens)} tokens on {json.dumps(mgr.mesh.shape)}"
+        finally:
+            mgr.close()
+
     limits = {}
     for tag, fn in (
         ("axis", lambda: build_mesh({"model": 4})),
         ("replicas", lambda: VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta))),
-        ("moe", lambda: VLMManager.from_model_dir(meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta))),
+        ("moe", moe),
     ):
         if tag == "replicas":
             os.environ["LUMEN_REPLICAS"] = "2"
         try:
-            fn()
-            limits[tag] = "no error"
+            result = fn()
+            limits[tag] = result if isinstance(result, str) else "no error"
         except Exception as e:  # noqa: BLE001 - reported to the test
             limits[tag] = f"{type(e).__name__}: {e}"
         os.environ.pop("LUMEN_REPLICAS", None)
@@ -439,6 +449,125 @@ def _tp_clip(group, inp, meta, out):
     mgr.close()
 
 
+def _ep_generate(meta, mesh, tags, out, model_dir=None):
+    """Greedy tokens (and the streamed text) of the VLM managers ``tags``
+    (``continuous``, ``coalesce``, ``int8``) at ``mesh``."""
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    extra = {"continuous": {"gen_slots": 2, "gen_block": 4}, "coalesce": {"scheduler": "coalesce"},
+             "int8": {"quantize": "int8"}}
+    for tag in tags:
+        mgr = VLMManager.from_model_dir(model_dir or meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta, **extra[tag]))
+        try:
+            r = mgr.generate(prompt, max_new_tokens=meta["max_new"])
+            out[f"{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            chunks = list(mgr.generate_stream(prompt, max_new_tokens=meta["max_new"]))
+            out[f"{tag}_stream"] = np.asarray("".join(c.text for c in chunks).strip())
+            out[f"{tag}_banks"] = np.asarray(json.dumps({n: list(p.shape) for n, p in mgr.model.named_parameters()
+                                                         if ".mlp." in n and "layers.0." in n}))
+        finally:
+            mgr.close()
+        out[f"{tag}_tokens"], out[f"{tag}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+
+
+def _place(group, probe):
+    """This rank's place in ``group`` and the two sums of its entry of
+    ``probe`` (a program: every rank answers)."""
+    import torch
+
+    x = torch.tensor([float(probe[group.rank])])
+    return {"rank": group.rank, "tp": [group.tp.rank, group.tp.size], "ep": [group.ep.rank, group.ep.size],
+            "tp_sum": float(group.tp.sum(x.clone())), "ep_sum": float(group.ep.sum(x.clone()))}
+
+
+def _moe_probe(inp, ep):
+    """``moe_ffn`` on one rank of the expert axis ``ep``: the exact and the
+    capacity path on this rank's experts, and the mesh-less exact path."""
+    import torch
+
+    from lumen_tpu_torch.parallel import moe
+
+    full = moe.MoEParams(*(_t(inp[f"moe_{n}"]) for n in ("router", "w_gate", "w_up", "w_down")))
+    mine = ep.experts(full.w_gate.shape[0])
+    local = moe.MoEParams(full.router, full.w_gate[mine], full.w_up[mine], full.w_down[mine])
+    x = _t(inp["moe_x"])
+    k = int(inp["moe_k"])
+    return {"exact": moe.moe_ffn(local, x, ep, k=k, capacity_factor=None).numpy(),
+            "drop": moe.moe_ffn(local, x, ep, k=k, capacity_factor=float(inp["moe_factor"])).numpy(),
+            "plain": moe.moe_ffn(full, x, k=k, capacity_factor=None).numpy(),
+            "plain_ep": moe._moe_exact_ep(local, x, ep, n_experts=full.w_gate.shape[0], k=k, norm_topk=True,
+                                          mm=moe.grouped_mm_reference).numpy()}
+
+
+def _moe_on_rank(group, inp):
+    return _moe_probe(inp, group.ep)
+
+
+def _ep_vlm(group, inp, meta, out):
+    """The MoE VLM at ``{data: 4, expert: 2}`` through the managers
+    (continuous, coalescer, int8), ``moe_ffn`` on each rank of the axis,
+    and a row spilled from the expert-parallel pool resumed with no mesh."""
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+
+    mesh = {"data": 4, "expert": 2}
+    _ep_generate(meta, mesh, ("continuous", "coalesce", "int8"), out)
+    for r, got in enumerate(group.each_rank(_moe_on_rank, group, inp)):
+        for tag, a in got.items():
+            out[f"moe_{tag}_{r}"] = a
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    ep = VLMManager.from_model_dir(meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta))
+    one = VLMManager.from_model_dir(meta["moe_dir"], **_vlm_kw(meta))
+    try:
+        first, row = _spill_blocks(ep, prompt, blocks=2)
+        rest, _ = _spill_blocks(one, prompt, blocks=1, resume=row)
+        whole, _ = _spill_blocks(one, prompt, blocks=3)
+    finally:
+        ep.close()
+        one.close()
+    out["spill_tokens"], out["spill_whole"] = np.concatenate([first, rest]), whole
+    out["spill_pages_shape"] = np.asarray(row["pages"][0]["k"].shape)
+
+
+def _ep_tp_vlm(group, inp, meta, out):
+    """The MoE VLM at ``{data: 2, expert: 2, model: 2}`` on four ranks, and
+    every rank's place and sums."""
+    probe = [10.0 ** r for r in range(group.size)]
+    out["places"] = np.asarray(json.dumps(group.each_rank(_place, group, probe)))
+    _ep_generate(meta, {"data": 2, "expert": 2, "model": 2}, ("continuous",), out)
+
+
+def _tp_moe(group, inp, meta, out):
+    """The shared-expert MoE VLM at ``{data: 4, model: 2}``."""
+    _ep_generate(meta, {"data": 4, "model": 2}, ("continuous",), out, model_dir=meta["shared_dir"])
+
+
+def _case_ep_serve(inp, meta, out):
+    """``serve()`` on a config whose VLM service carries ``mesh: {expert:
+    2}``: it starts the worker rank itself, the service answers, ``stop``
+    ends the worker."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.serving import server
+
+    handle = server.serve(validate_config_dict(meta["config"]), port_override=0, skip_download=True, device="cpu",
+                          tp_devices=["cpu", "cpu"], tp_backend="gloo")
+    try:
+        vlm = handle.services["vlm"]
+        out["vlm_shape"] = np.asarray(json.dumps(vlm.manager.mesh.shape))
+        r = vlm.manager.generate([ChatMessage(role="user", content=meta["prompt"])], max_new_tokens=meta["max_new"])
+        out["vlm_tokens"] = np.asarray(r.tokens)
+        out["healthy"] = np.asarray(vlm.healthy())
+        out["group_shape"] = np.asarray(json.dumps(handle.tp_group.shape))
+        children = list(handle.tp_group.children)
+    finally:
+        handle.stop(grace=1.0)
+    out["worker_codes"] = np.asarray([p.returncode for p in children])
+
+
 def _case_tp_serve(inp, meta, out):
     """``serve()`` on a config whose VLM and CLIP services carry ``mesh:
     {model: 2}``: it starts the worker rank itself (a child process),
@@ -463,9 +592,11 @@ def _case_tp_serve(inp, meta, out):
 
 
 CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init,
-         "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve}
+         "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve,
+         "ep_vlm": _serving(_ep_vlm), "ep_tp_vlm": _serving(_ep_tp_vlm), "tp_moe": _serving(_tp_moe),
+         "ep_serve": _case_ep_serve}
 #: cases that open their own group (the others run in a plain gloo group)
-OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve")
+OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve", "ep_vlm", "ep_tp_vlm", "tp_moe", "ep_serve")
 
 
 def main() -> int:
