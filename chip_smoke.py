@@ -339,14 +339,40 @@ Phases (any failure exits non-zero):
     ``TP_DEATH_TIMEOUT_S`` + ``TP_DEATH_MARGIN_S``. Each part's seconds and
     each rank's peak memory are printed, and every kernel row gains phase
     17's launches a rank.
+18. serving over an ``expert`` axis: a 2-layer directory at
+    Qwen1.5-MoE-A2.7B's widths served at ``{expert: 2}`` (bf16, then int8
+    with speculation) and ``{expert: 2, model: 2}`` by ranks sharing the
+    card over gloo, against the mesh-less manager (``drive_ep``).
+19. serving and ingest over a ``data`` axis in one process: phase 8's
+    ViT-B/32 directory behind ``CLIPManager`` over ``{"data": 2}`` on the
+    one card named twice (``devices=[cuda:0, cuda:0]``: no copy between
+    cards, and the two places share one host's cores) and mesh-less on
+    the same card, 128 JPEGs at batch 64: (a) embeddings within
+    ``DATA_COSINE`` of the mesh-less run, top-1 labels equal but at near
+    ties, ``flash_attention`` launched exactly twice as often a batch (a
+    call a place a layer), images/s of both, the memory of one copy and
+    of two; (b) the photo ingest (CLIP and phase 9's face pack, IEEE
+    float32 convolutions) of 64 photos over the axis and mesh-less:
+    records alike, one device-to-host sync a place a batch, images/s;
+    (c) ``flash_attention`` at one place's shapes ``[32, 12, 50, 64]`` and
+    causal ``[32, 8, 77, 64]`` against its plain version (phase 2's
+    tolerance), timed beside its bound and SDPA in phase 2, before any
+    serving phase; the kernel table gains the place's vision row with
+    (a)'s launches.
 
-The counts above are each drive's defaults; ``main`` runs phases 9-13
-and 16 cut in depth to keep all seventeen within the time limit (phase 9
-16 photos a pass, 10 8 pages, 11 32 photos, 8 captions, 100,000 vectors
-and 256 queries, 12 2 captions and 1 stream, 13 2 captions and 64
-queries, 16 20 steps).
+The counts above are each drive's defaults; ``main`` runs phases 7 and
+9-17 cut in depth to keep all nineteen within the time limit (the
+comments beside each call in ``main`` list the cuts).
 
-A run with no arguments drives all seventeen phases (``--phases 13``, a
+Phases 12 then 14, and 16, run beside the main lane, each lane a process
+of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``): 12 and 14 once
+phase 8 has ended (14 waits for 9 and 10 too), 16 once 15 has ended, so
+its ~31 GiB never meets phase 15's ~39 GiB. A lane's launch counts are
+its own process's, as its servers' and ranks' are theirs, so no phase
+reads another's launches. Every lane ends before phase 19, which times
+kernels with the card to itself. A lane's lines are echoed as they come.
+
+A run with no arguments drives all nineteen phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -445,7 +471,9 @@ def env(**values: str):
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a line: the lanes' lines are echoed from other threads
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -472,6 +500,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: the idle time at each edge of a ``device_ms`` session
+PROFILE_MARGIN_S = 0.02
 
 
 def device_ms(
@@ -505,10 +537,17 @@ def device_ms(
         fn(*args[i % len(args)])
     torch.cuda.synchronize()
     for attempt in range(5):
+        # The profiler keeps a kernel's record only if its time, taken on
+        # the card's clock, falls inside the session on the host's; calls
+        # that start or end at the session's edges lost their records (a
+        # session kept 1 of 50 calls of a 6 us kernel), so the calls run
+        # between idle margins.
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for i in range(iters):
                 fn(*args[i % len(args)])
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         per_call = {e.key: max(1, round(e.count / iters)) for e in events}
         kept = sum(e.count for e in events)
@@ -759,6 +798,11 @@ def check_kernels(seed: int) -> dict:
     row = flash_row(rnd, "VLM vision", 1, 12, 256, 64, False)
     rows["flash_attention"] = dict(row, max_abs_err=max(errs + [row["max_abs_err"]]))
     for label, (b, h, s, causal) in CLIP_FLASH_SHAPES.items():
+        rows[f"flash_attention ({label})"] = flash_row(rnd, label, b, h, s, 64, causal)
+    # a place's part of the bulk batch over {"data": 2} (phase 19), timed
+    # here: after phase 19's serving, sessions kept as few as 38 of 50 of
+    # a call's records, in all five tries
+    for label, (b, h, s, causal) in DATA_FLASH_SHAPES.items():
         rows[f"flash_attention ({label})"] = flash_row(rnd, label, b, h, s, 64, causal)
     # A row's bits do not depend on how many sequences share the call (the
     # plan is a function of the shape alone): image 0 alone vs in the 64.
@@ -4643,7 +4687,9 @@ def drive_ingest(seed: int, card: str, root: Path, phase8: dict, phase9: dict, p
                     for stage in warm.engine._device_stages:
                         staged = stack_and_pad([stage.preprocess(d) for d in items], batch_size)
                         batch = tree_map(lambda a: torch.from_numpy(a).to(dev), staged)
-                        stage_ms[stage.name] = cuda_ms(lambda s=stage, b=batch: s.device_fn(b), iters=5, warmup=2)
+                        # the stage's callable on the pipeline's one data place
+                        fn = warm.engine._place_fns[stage.name][0]
+                        stage_ms[stage.name] = cuda_ms(lambda f=fn, b=batch: f(b), iters=5, warmup=2)
             log(f"phase 11 (a): warm re-run on the server's managers: {warm.stats.as_dict()['items']} items, hit rate "
                 f"{warm.stats.cache_hit_rate:.4f}, launches {json.dumps(warm_launches)}, index= fired {len(indexed)} "
                 f"times (search_upsert over gRPC); device ms a {batch_size}-image batch "
@@ -5175,8 +5221,8 @@ def drive_vlm_options(seed: int, card: str, root: Path, phase6: dict, phase8: di
     times: list = []
     real_clip_time = CLIPManager._time_image_encode
 
-    def clip_timed(self, model):
-        t = real_clip_time(self, model)
+    def clip_timed(self, models):  # one copy a data place
+        t = real_clip_time(self, models)
         times.append(t)
         return t
 
@@ -7296,6 +7342,215 @@ def drive_ep(seed: int, card: str, root: Path, moe_dir: Path | None = None, dir_
     return out
 
 
+# -- phase 19: a data axis over one card named twice -------------------------------------
+
+#: phase 19's bound, stated before its first run: an embedding served over
+#: {"data": 2} against the mesh-less manager's of the same photo (bf16
+#: towers; the split gives the GEMMs and the flash plan 32 rows, not 64)
+DATA_COSINE = 0.9999
+#: the kernels phase 19 must launch: both CLIP towers' attention on every place
+PHASE19_KERNELS = ("flash_attention",)
+#: the flash calls of one place's part of the bulk batch of 64 at {"data": 2}
+DATA_FLASH_SHAPES = {"CLIP vision, a place's part": (32, 12, 50, False),
+                     "CLIP text, causal, a place's part": (32, 8, 77, True)}
+
+
+def drive_data(seed: int, card: str, root: Path, device: str = "cuda:0", n_photos: int = 128, in_flight: int = 64,
+               batch_size: int = 64, n_ingest: int = 64, face_batch: int = 16) -> dict:
+    """Phase 19: a ``data`` axis of two places on the one card, named twice
+    (``build_mesh({"data": 2}, devices=[card, card])``; no copy between
+    cards, and the places share one host's cores). (a) Phase 8's ViT-B/32
+    directory behind ``CLIPManager`` over the axis and mesh-less on the
+    same card: 16 JPEGs through the decode pool, then ``n_photos`` JPEGs
+    decoded on the host first and sent as pixels (``encode_image_tensor``,
+    the ``tensor/raw`` path: the batches fill, so a place's part is the
+    bulk batch's half) at ``batch_size`` with ``in_flight`` at once through
+    each: embeddings within ``DATA_COSINE``, top-1 labels equal but at near
+    ties, the flash kernel launched exactly twice as often a batch (a call
+    a place a layer), images/s and the memory of one copy and of two. (b)
+    The photo ingest (CLIP and phase 9's ``buffalo_l`` face stages, IEEE
+    float32 convolutions) of ``n_ingest`` of phase 9's square photos with
+    bright discs over the axis and mesh-less: records alike (embeddings
+    within ``DATA_COSINE``, faces one to one as phase 11 holds them),
+    device-to-host syncs a batch (one a place), images/s. (c)
+    ``flash_attention`` at one place's shapes (``DATA_FLASH_SHAPES``)
+    against its plain version, timed, is phase 2's. The sizes let the CPU
+    tests rehearse it small."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.clip import CLIPManager
+    from lumen_tpu_torch.models.face import FaceManager
+    from lumen_tpu_torch.pipeline.photo import PhotoIngestPipeline
+    from lumen_tpu_torch.runtime.mesh import build_mesh
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    places = [dev, dev]
+    flash = next(k for k in all_kernels() if k.name == "flash_attention")
+    models = root / "cache" / "models"
+    log(f"phase 19: a data axis of 2 places on one card named twice ({[str(d) for d in places]}): no copy between "
+        f"cards, and the places share one host's cores; phase 8's CLIP and phase 9's face pack [{card}]")
+    photos = photo_batch(seed * 100 + 19, n_photos + 16)
+    cold, photos = photos[n_photos:], photos[:n_photos]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        size = json.loads((models / "SmokeCLIP" / "config.json").read_text())["vision_config"]["image_size"]
+        pixels = list(ex.map(lambda p: _spec_clip_resize(p, {"size": size}), photos))
+    log(f"phase 19: {n_photos} JPEGs decoded to {size}x{size} on the host in {time.perf_counter() - t0:.2f} s "
+        f"(8 threads)")
+    runs: dict = {}
+    managers: list = []
+    out: dict = {}
+
+    def memory() -> int:
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    # The result cache off: the two managers share a namespace, and every
+    # answer must be computed. CLIP's batching window fixed at 50 ms: the
+    # round's 64 requests in flight fill the bulk batch before it closes
+    # (at 5 ms, half of them did), so a place's part is the shape (c) times.
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_BATCH_ADAPTIVE="0"):
+        reset_result_cache()
+        try:
+            # -- (a) CLIP over the axis and mesh-less -----------------------------
+            for tag, kw in (("mesh-less", {"devices": [dev]}), ("data 2", {"mesh_axes": {"data": 2}, "devices": places})):
+                if on_card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                held0, t0 = memory(), time.perf_counter()
+                mgr = CLIPManager(str(models / "SmokeCLIP"), dataset="Smoke1k", dtype="bfloat16",
+                                  batch_size=batch_size, max_batch_latency_ms=50.0, warmup=True, device=device, **kw)
+                managers.append(mgr)
+                mgr.initialize()
+                run = {"mgr": mgr, "load_s": time.perf_counter() - t0, "held_gib": (memory() - held0) / 2**30}
+                ib = mgr._image_batcher
+                with ThreadPoolExecutor(16) as ex:  # through the decode pool, whose workers start
+                    run["cold"] = np.stack(list(ex.map(mgr.encode_image, cold)))
+                before = dict(ib.stats)
+                flash.launches = 0
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(in_flight) as ex:
+                    run["vecs"] = np.stack(list(ex.map(mgr.encode_image_tensor, pixels)))
+                wall = time.perf_counter() - t0
+                run.update(launches=flash.launches, batches=ib.stats["batches"] - before["batches"],
+                           items=ib.stats["items"] - before["items"], images_s=n_photos / wall,
+                           peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0)
+                run["fill"] = run["items"] / max(run["batches"] * ib.buckets[-1], 1)
+                runs[tag] = run
+                log(f"phase 19 (a) {tag}: {mgr.mesh}, buckets {ib.buckets}, up in {run['load_s']:.2f} s holding "
+                    f"{run['held_gib']:.3f} GiB; {n_photos} photos at {in_flight} in flight in {wall:.3f} s = "
+                    f"{run['images_s']:.1f} images/s, {run['batches']} batches (mean fill {100 * run['fill']:.1f}%), "
+                    f"flash_attention launches {run['launches']}, peak {run['peak_gib']:.3f} GiB [{card}]")
+            plain, split = runs["mesh-less"], runs["data 2"]
+            if len({id(m) for m in split["mgr"].place_models}) != 2:
+                raise AssertionError("phase 19 (a): the two places do not hold a copy each")
+            if on_card:
+                # Each part is copied from a view of the pinned staging
+                # buffer: pinned too, so its copy is asynchronous.
+                ib = split["mgr"]._image_batcher
+                staged = [b for ring in ib._arenas.values() for bufs in ring for b in bufs]
+                if not staged or not all(b.is_pinned() and b[len(b) // 2:].is_pinned() for b in staged) \
+                        or len(ib._d2h_streams) != 2:
+                    raise AssertionError("phase 19 (a): the image batcher staged without pinned memory, or fetched "
+                                         "without a side stream a place")
+            cos = cosines(np.concatenate([split["vecs"], split["cold"]]), np.concatenate([plain["vecs"], plain["cold"]]))
+            diff = float(np.abs(split["vecs"] - plain["vecs"]).max())
+            if cos.min() < DATA_COSINE:
+                raise AssertionError(f"phase 19 (a): cosine to the mesh-less run {cos.min():.6f} < {DATA_COSINE}")
+            layers = plain["mgr"].cfg.vision.layers
+            per_batch = {tag: r["launches"] / max(r["batches"], 1) for tag, r in runs.items()}
+            for name in PHASE19_KERNELS:
+                if plain["launches"] != layers * plain["batches"] or split["launches"] != 2 * layers * split["batches"]:
+                    raise AssertionError(f"phase 19 (a): {name} launches {plain['launches']} / {split['launches']} over "
+                                         f"{plain['batches']} / {split['batches']} batches, not {layers} and "
+                                         f"{2 * layers} a batch")
+            # Top-1 labels (the mesh-less label matrix): equal, unless the
+            # mesh-less top two lie within 2|split - plain| (phase 8's rule).
+            matrix, names = plain["mgr"]._label_matrix, plain["mgr"].label_names
+            label_cos = float(cosines(split["mgr"]._label_matrix, matrix).min())
+            exact, ties = 0, 0
+            for a, b in zip(split["vecs"], plain["vecs"]):
+                sims_a, sims_b = matrix @ a, matrix @ b
+                top_a, top_b = int(np.argmax(sims_a)), int(np.argmax(sims_b))
+                if top_a == top_b:
+                    exact += 1
+                elif sims_b[top_b] - sims_b[top_a] <= 2 * float(np.linalg.norm(a - b)):
+                    ties += 1
+                else:
+                    raise AssertionError(f"phase 19 (a): top-1 {names[top_a]} vs the mesh-less {names[top_b]}, margin "
+                                         f"{sims_b[top_b] - sims_b[top_a]:.5f}")
+            if label_cos < DATA_COSINE:
+                raise AssertionError(f"phase 19 (a): label embeddings over the axis, cosine {label_cos:.6f}")
+            log(f"phase 19 (a): embeddings over {{data: 2}} vs mesh-less (the tensor round and the decode pool's 16): "
+                f"cosine min {cos.min():.6f} (bound "
+                f"{DATA_COSINE}), max|diff| {diff:.3e}; top-1 labels equal in {exact} of {n_photos}, {ties} near ties; "
+                f"label matrix cosine min {label_cos:.6f}; flash launches a batch {json.dumps(per_batch)} ({layers} "
+                f"layers); {split['images_s']:.1f} vs {plain['images_s']:.1f} images/s; one copy {plain['held_gib']:.3f} "
+                f"GiB, two {split['held_gib']:.3f} GiB [{card}]")
+            out.update(images_s=split["images_s"], images_s_plain=plain["images_s"], cos_min=float(cos.min()),
+                       max_diff=diff, per_batch=per_batch, launches=split["launches"], labels_exact=exact,
+                       label_ties=ties, held_gib=split["held_gib"], held_gib_plain=plain["held_gib"],
+                       peak_gib=split["peak_gib"], peak_gib_plain=plain["peak_gib"])
+
+            # -- (b) the photo ingest over the axis and mesh-less -------------------
+            items = face_photos(seed * 100 + 19, n_ingest)
+            records, stats = {}, {}
+            with convolutions_tf32(False):
+                for tag, kw in (("mesh-less", {"devices": [dev]}), ("data 2", {"mesh_axes": {"data": 2},
+                                                                              "devices": places})):
+                    face = FaceManager(str(models / "buffalo_l"), dtype="bfloat16", batch_size=face_batch,
+                                       max_batch_latency_ms=2.0, device=device, **kw)
+                    managers.append(face)
+                    face.initialize()
+                    mesh = runs[tag]["mgr"].mesh
+                    pipe = PhotoIngestPipeline(mesh, clip=runs[tag]["mgr"], face=face, batch_size=batch_size)
+                    list(pipe.run(items[:batch_size]))  # the decode at the ingest's edge and the face batchers warm
+                    records[tag] = list(pipe.run(items))
+                    stats[tag] = pipe.stats.as_dict()
+                    runs[tag]["face"] = face
+            face_thr = runs["mesh-less"]["face"].spec.score_threshold
+            tally = {"matched": 0, "near": 0, "iou_min": 1.0}
+            emb_a = np.stack([r.clip_embedding for r in records["data 2"]])
+            emb_b = np.stack([r.clip_embedding for r in records["mesh-less"]])
+            cos_b = cosines(emb_a, emb_b)
+            if cos_b.min() < DATA_COSINE:
+                raise AssertionError(f"phase 19 (b): ingested embeddings vs mesh-less, cosine {cos_b.min():.6f}")
+            for i, (a, b) in enumerate(zip(records["data 2"], records["mesh-less"])):
+                if a.error or b.error or a.index != b.index:
+                    raise AssertionError(f"phase 19 (b): record {i}: {a.error} / {b.error}, index {a.index} / {b.index}")
+                t = match_near([{"bbox": f.bbox, "confidence": f.confidence, "embedding": f.embedding} for f in a.faces],
+                               [{"bbox": f.bbox, "confidence": f.confidence, "embedding": f.embedding} for f in b.faces],
+                               face_thr, TF32_SCORE_TOL, f"phase 19 (b) photo {i} faces", FACE_IOU,
+                               lambda g, w: box_iou(g["bbox"], w["bbox"]),
+                               lambda g, w: float(np.dot(g["embedding"], w["embedding"])) >= FACE_COSINE)
+                tally["matched"] += t["matched"]
+                tally["near"] += t["near"]
+                tally["iou_min"] = min(tally["iou_min"], t["iou_min"])
+            syncs = {tag: st["syncs"] / max(st["batches"], 1) for tag, st in stats.items()}
+            if on_card and syncs != {"mesh-less": 1.0, "data 2": 2.0}:
+                raise AssertionError(f"phase 19 (b): device-to-host syncs a batch {syncs}, not one a place")
+            ingest_s = {tag: n_ingest / st["wall_s"] for tag, st in stats.items()}
+            log(f"phase 19 (b): photo ingest (clip + face, IEEE float32 convolutions) of {n_ingest} 1280x1280 photos at batch "
+                f"{batch_size}: embeddings cosine min {cos_b.min():.6f}, faces {json.dumps(tally)}; syncs a batch "
+                f"{json.dumps(syncs)}; {ingest_s['data 2']:.1f} vs {ingest_s['mesh-less']:.1f} images/s; stats over the "
+                f"axis {json.dumps(stats['data 2'])} [{card}]")
+            out.update(ingest_s=ingest_s["data 2"], ingest_s_plain=ingest_s["mesh-less"], ingest_cos=float(cos_b.min()),
+                       faces=tally, syncs=syncs)
+        finally:
+            for mgr in managers:
+                mgr.close()
+            reset_result_cache()
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -7326,8 +7581,8 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
-               17: (6, 8)}
-ALL_PHASES = frozenset(range(1, 19))
+               17: (6, 8), 19: (2, 8, 9)}
+ALL_PHASES = frozenset(range(1, 20))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -7345,6 +7600,164 @@ def phase_set(spec: "str | None") -> frozenset:
     return frozenset(want | {1})
 
 
+#: the lanes beside the main one: the main-lane phase after which each
+#: starts, and its phases in order (see the module's docstring)
+BESIDE_LANES = ((8, (12, 14)), (15, (16,)))
+BESIDE_PHASES = frozenset(p for _, phases in BESIDE_LANES for p in phases)
+
+
+def beside_plan(run: frozenset) -> list[tuple[int, tuple, dict]]:
+    """The lanes a run of ``run`` starts: (the main-lane phase after which
+    it starts, its phases, the main-lane phases each must wait for)."""
+    plan = []
+    for after, phases in BESIDE_LANES:
+        mine = tuple(p for p in phases if p in run)
+        if mine:
+            waits = {p: sorted(n for n in PHASE_NEEDS.get(p, ()) if n in run and n not in phases) for p in mine}
+            plan.append((after, mine, waits))
+    return plan
+
+
+class Beside:
+    """A lane of phases in a process of its own (``chip_smoke.py --beside
+    <spec>``), started at construction: its lines are echoed as they come,
+    but for the last, what each phase returned. :meth:`result` waits for
+    it and raises unless it exited 0 with that line; :meth:`stop` ends it
+    (SIGTERM: its ``finally`` blocks stop what it started)."""
+
+    MARK = "beside-result "
+
+    def __init__(self, phases: tuple, spec: dict):
+        self.phases = phases
+        spec = {**spec, "phases": list(phases), "parent": os.getpid()}
+        self.proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--beside", json.dumps(spec)],
+                                     cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                                     env={**os.environ, "PYTHONPATH": str(ROOT)})
+        self.results = None
+        self.reader = threading.Thread(target=self._echo, daemon=True)
+        self.reader.start()
+
+    def _echo(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith(self.MARK):
+                self.results = {int(p): r for p, r in json.loads(line[len(self.MARK):]).items()}
+            else:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    def result(self) -> dict:
+        rc = self.proc.wait()
+        self.reader.join(timeout=60)
+        if rc or self.results is None:
+            raise AssertionError(f"phases {list(self.phases)}, run beside the main lane, failed: exit code {rc}")
+        return self.results
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def ended_path(root: Path, phase: int) -> Path:
+    """The file the main lane writes once ``phase`` has ended."""
+    return root / "ended" / str(phase)
+
+
+def run_phase12(seed: int, card: str, root: Path, given: dict) -> dict:
+    # depth cut: 2 captions beside 1 stream of 12 tokens, one A/B boot (were 8, 2 of 24 tokens, 2)
+    options = drive_vlm_options(seed, card, root, given[6], given[8], n_captions=2, n_streams=1, tokens=12,
+                                ab_boots=1)
+    co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
+    log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
+        f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
+        f"nodes), stream ttft p50 {options['ttft_p50_ms']:.1f} ms, _prepare syncs {options['prepare_syncs']}; (b) A/Bs "
+        f"{' and '.join(f'{b:.1f} vs {q:.1f}' for b, q in zip(options['ab_bf16_tps'], options['ab_q8_tps']))} tok/s "
+        f"(ratios {', '.join(f'{r:.3f}' for r in options['ab_ratios'])}) -> {options['ab_route']}, peak above the "
+        f"start {', '.join(f'{m:.1f}' for m in options['ab_peak_mib'])} MiB, boots "
+        f"{', '.join(f'{t:.2f}' for t in options['boot_ab_s'])} / {options['boot_verdict_s']:.2f} s; (c) "
+        f"coalesce {co_bf16['tok_s']:.1f} (bf16) / {co_int8['tok_s']:.1f} (int8) tok/s, syncs a decode step "
+        f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
+        f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
+        f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
+    return options
+
+
+def run_phase14(seed: int, card: str, root: Path, given: dict) -> dict:
+    models = root / "cache" / "models"
+    # depth cut: captions of 16 new tokens (were 64)
+    control = drive_control_plane(card, root, given[6]["photos"],
+                                  {name: models / src for name, src in CATALOG_SOURCES.items()}, caption_tokens=16)
+    log(f"phase 14 [{card}]: {control['phase_s']:.1f} s in all; the full tier under the app's ServerManager "
+        f"ready in {control['cold_s']:.2f} s cold and {control['warm_s']:.2f} s warm; the first caption "
+        f"{control['cold_first_s']:.2f} s cold ({control['cold_builds']} kernel builds) and "
+        f"{control['warm_first_s']:.2f} s warm (0 builds); launches {json.dumps(control['launches'])}, child "
+        f"peak {control['peak_gib']:.3f} GiB")
+    return control
+
+
+def run_phase16(seed: int, card: str, root: Path, given: dict) -> dict:
+    # depth cut: 20 steps (was 30; the rate over steps 16-20)
+    train = drive_train(seed, card, root, steps=20)
+    log(f"phase 16 [{card}]: {train['phase_s']:.1f} s in all; {train['pairs_s']:.1f} image-text pairs/s "
+        f"({train['steps_s']:.3f} steps/s at batch 256, fp32), peak {train['peak_gib']:.3f} GiB "
+        f"(remat {train['peak_remat_gib']:.3f}), 0 flash launches in training, card vs CPU loss within "
+        f"{train['parity_loss_err']:.2e}, resume within {train['resume_err']:.2e}")
+    return train
+
+
+BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16}
+
+
+def die_with_parent(parent: int) -> None:
+    """In a lane's process: SIGTERM becomes ``SystemExit`` (every
+    ``finally`` then stops what it started), and the process takes SIGTERM
+    when the one that started it ends."""
+    import ctypes
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    with contextlib.suppress(Exception):  # prctl(PR_SET_PDEATHSIG, SIGTERM): Linux
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
+    if os.getppid() != parent:
+        sys.exit(143)
+
+
+def beside_main(spec: dict) -> int:
+    """A lane's process: its phases in order, each once the main-lane
+    phases it waits for have ended; the last line is what each returned."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    die_with_parent(spec["parent"])
+    from lumen_tpu_torch.runtime.decode_pool import shutdown_decode_pool
+
+    card = card_line()
+    root = Path(spec["root"])
+    given = pickle.loads(Path(spec["inputs"]).read_bytes())
+    out = {}
+    try:
+        for phase in spec["phases"]:
+            for need in spec["waits"][str(phase)]:
+                deadline = time.monotonic() + 1200
+                while not ended_path(root, need).exists():
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"phase {phase}: phase {need} of the main lane never ended")
+                    time.sleep(0.5)
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+            out[phase] = BESIDE_RUNNERS[phase](spec["seed"], card, root, given)
+    finally:
+        shutdown_decode_pool()
+    print(Beside.MARK + json.dumps(out, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)), flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "lumen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -7352,6 +7765,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--serve-host"]:  # phase 13's hosts: the server CLI's own arguments follow
         sys.path.insert(0, str(ROOT))
         return serve_host(sys.argv[2:])
+    if sys.argv[1:2] == ["--beside"]:  # a lane beside the main one: its spec follows
+        return beside_main(json.loads(sys.argv[2]))
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     # a developer's shortcut, e.g. ``--phases 13``: those phases and what they
@@ -7372,10 +7787,53 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     laps, mark = {}, [time.perf_counter()]
+    t_run = mark[0]
+    # the lanes beside the main one, and what their phases read of the
+    # main lane's (pickled for each lane when it starts)
+    lanes = [dict(after=after, phases=phases, waits=waits, proc=None) for after, phases, waits in beside_plan(run)]
+    here: dict = {}
+    given: dict = {}
+
+    def start_lanes(ended: int) -> None:
+        for i, lane in enumerate(lanes):
+            if lane["proc"] is None and lane["after"] <= ended:
+                inputs = here["tmp"] / f"lane-{i}-inputs.pkl"
+                inputs.write_bytes(pickle.dumps(given))
+                torch.cuda.empty_cache()  # what this process holds and no longer uses goes back to the card
+                lane["proc"] = Beside(lane["phases"], dict(seed=args.seed, root=str(here["tmp"]), inputs=str(inputs),
+                                                          waits=lane["waits"]))
+                log(f"phase{'s' * (len(lane['phases']) > 1)} {', '.join(map(str, lane['phases']))} started beside "
+                    f"the main lane after phase {ended}")
 
     def lap(phase: int) -> None:  # each phase's seconds, printed at the end
         now = time.perf_counter()
         laps[phase], mark[0] = round(now - mark[0], 1), now
+        if "tmp" in here:
+            failed = [lane["phases"] for lane in lanes if lane["proc"] is not None and lane["proc"].proc.poll()]
+            if failed:
+                raise AssertionError(f"phases {failed}, run beside the main lane, failed")
+            ended_path(here["tmp"], phase).touch()
+            start_lanes(phase)
+
+    def join_lanes() -> dict:
+        if not lanes:
+            return {}
+        start_lanes(max(ALL_PHASES))
+        t0 = time.perf_counter()
+        results = {}
+        for lane in lanes:
+            results.update(lane["proc"].result())
+        for phase, res in results.items():
+            laps[phase] = round(res["phase_s"], 1)
+        mark[0] = time.perf_counter()
+        log(f"lanes joined: phases {', '.join(map(str, sorted(results)))}, the main lane waited "
+            f"{mark[0] - t0:.1f} s for them [{card}]")
+        return results
+
+    def stop_lanes() -> None:
+        for lane in lanes:
+            if lane["proc"] is not None:
+                lane["proc"].stop()
 
     t0 = time.perf_counter()
     logs = build_all(kernels)
@@ -7422,6 +7880,7 @@ def main() -> int:
         log(f"phase 4 vs 5 [{card}]: tok/s {a['tok_s']:.1f} (bf16) vs {b['tok_s']:.1f} (int8 + spec K=4); "
             f"peak GiB {a['peak_gib']:.3f} vs {b['peak_gib']:.3f}; stream ttft_ms {a['ttft_ms']} vs "
             f"{b['ttft_ms']}; accept rate {b['spec_accepted'] / max(b['spec_proposed'], 1):.3f}")
+    import pickle
     import tempfile
 
     from lumen_tpu_torch.runtime.decode_pool import shutdown_decode_pool
@@ -7430,11 +7889,15 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         stack.callback(shutdown_decode_pool)
         tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="lumen-chip-smoke-"))
+        here["tmp"] = Path(tmp)
+        (Path(tmp) / "ended").mkdir()
+        stack.callback(stop_lanes)  # (before the directory goes)
         if 6 in run:
             grpc_drive = drive_grpc(args.seed, card, root=Path(tmp))
             log(f"phase 6 [{card}]: load {grpc_drive['load_s']:.2f} s (bf16), {grpc_drive['load8_s']:.2f} s (int8); "
                 f"{grpc_drive['tok_s']:.1f} tok/s aggregate over gRPC; client ttft_ms {grpc_drive['ttft_ms']}; "
                 f"peak GiB {grpc_drive['peak_gib']:.3f}")
+            given[6] = {k: grpc_drive[k] for k in ("model_dir", "photos", "prompt")}
             lap(6)
         if 7 in run:
             # depth cut for phases 17-18's room: 1 of the 6 greedy streams rerun alone (every one still
@@ -7453,6 +7916,7 @@ def main() -> int:
                 f"client p50 {clip['p50_ms']:.1f} ms p95 {clip['p95_ms']:.1f} ms, mean batch fill {100 * clip['fill']:.1f}%, "
                 f"decode {clip['decode_ms']:.2f} ms a photo, peak GiB {clip['peak_gib']:.3f}; cosine to the plain path min "
                 f"{clip['cos_min']:.6f}")
+            given[8] = {k: clip[k] for k in ("photos", "vecs")}
             lap(8)
         if 9 in run:
             # depth cut for phase 17's room: 16 photos a pass (was 128)
@@ -7497,24 +7961,6 @@ def main() -> int:
                 f"{ingest['solo_p50_ms']:.2f} ms), {ingest['near_ties']} near-ties, a full-shard scoring pass "
                 f"{ingest['pass_ms']:.4f} ms (bound {ingest['pass_bound_ms']:.4f}); peak GiB {ingest['peak_gib']:.3f}")
             lap(11)
-        if 12 in run:
-            # depth cut for phases 17-18's room: 2 captions beside 1 stream of 12 tokens, one A/B boot (were
-            # 8, 2 of 24 tokens, 2)
-            options = drive_vlm_options(args.seed, card, Path(tmp), grpc_drive, clip, n_captions=2, n_streams=1,
-                                        tokens=12, ab_boots=1)
-            co_bf16, co_int8 = options["coalesce_bf16"], options["coalesce_int8"]
-            log(f"phase 12 [{card}]: {options['phase_s']:.1f} s in all; (a) graph tower exported in {options['export_s']:.1f} s, "
-                f"served in {options['fast_load_s']:.2f} s, {options['tower_ms']:.2f} ms a forward ({options['tower_nodes']} "
-                f"nodes), stream ttft p50 {options['ttft_p50_ms']:.1f} ms, _prepare syncs {options['prepare_syncs']}; (b) A/Bs "
-                f"{' and '.join(f'{b:.1f} vs {q:.1f}' for b, q in zip(options['ab_bf16_tps'], options['ab_q8_tps']))} tok/s "
-                f"(ratios {', '.join(f'{r:.3f}' for r in options['ab_ratios'])}) -> {options['ab_route']}, peak above the "
-                f"start {', '.join(f'{m:.1f}' for m in options['ab_peak_mib'])} MiB, boots "
-                f"{', '.join(f'{t:.2f}' for t in options['boot_ab_s'])} / {options['boot_verdict_s']:.2f} s; (c) "
-                f"coalesce {co_bf16['tok_s']:.1f} (bf16) / {co_int8['tok_s']:.1f} (int8) tok/s, syncs a decode step "
-                f"{co_bf16['syncs']:.2f} / {co_int8['syncs']:.2f} (before the repair {co_bf16['syncs_old']:.2f} / "
-                f"{co_int8['syncs_old']:.2f}); (d) CLIP batch of 64 {options['clip_bf16_ms']:.3f} ms bf16 vs "
-                f"{options['clip_q8_ms']:.3f} ms W8A8 -> {options['clip_route']}, cosine {options['clip_cos']:.6f}")
-            lap(12)
         if 13 in run:
             # depth cut for phases 17-18's room: 2 captions beside the 2 streams of 16 tokens, (b)'s streams
             # of 48, 20,000 vectors and 32 search queries in (d) (were 8, 32 tokens, 96, 50,000, 128, then 2,
@@ -7526,19 +7972,6 @@ def main() -> int:
                 f"aggregate {fleet['tok_s_migrated']:.1f} tok/s migrated vs {fleet['tok_s_colocated']:.1f} colocated; "
                 f"search {fleet['search_near_ties']} near-ties")
             lap(13)
-        if 14 in run:
-            models = Path(tmp) / "cache" / "models"
-            torch.cuda.empty_cache()  # the supervised server shares the card with this process
-            # depth cut for phase 18's room: captions of 16 new tokens (were 64)
-            control = drive_control_plane(card, Path(tmp), grpc_drive["photos"],
-                                          {name: models / src for name, src in CATALOG_SOURCES.items()},
-                                          caption_tokens=16)
-            log(f"phase 14 [{card}]: {control['phase_s']:.1f} s in all; the full tier under the app's ServerManager "
-                f"ready in {control['cold_s']:.2f} s cold and {control['warm_s']:.2f} s warm; the first caption "
-                f"{control['cold_first_s']:.2f} s cold ({control['cold_builds']} kernel builds) and "
-                f"{control['warm_first_s']:.2f} s warm (0 builds); launches {json.dumps(control['launches'])}, child "
-                f"peak {control['peak_gib']:.3f} GiB")
-            lap(14)
         if 15 in run:
             moe = drive_moe(args.seed, card, Path(tmp))
             log(f"phase 15 [{card}]: {moe['phase_s']:.1f} s in all; (a) {moe['params'] / 1e9:.3f}B parameters, bf16 "
@@ -7549,15 +7982,6 @@ def main() -> int:
                 f"{moe['layer']['bound_ms']:.5f} ms, {moe['layer']['distinct_experts']} experts), grouped product "
                 f"{moe['layer']['grouped_mm_ms']:.4f} ms")
             lap(15)
-        if 16 in run:
-            torch.cuda.empty_cache()
-            # depth cut for phase 17's room: 20 steps (was 30; the rate over steps 16-20)
-            train = drive_train(args.seed, card, Path(tmp), steps=20)
-            log(f"phase 16 [{card}]: {train['phase_s']:.1f} s in all; {train['pairs_s']:.1f} image-text pairs/s "
-                f"({train['steps_s']:.3f} steps/s at batch 256, fp32), peak {train['peak_gib']:.3f} GiB "
-                f"(remat {train['peak_remat_gib']:.3f}), 0 flash launches in training, card vs CPU loss within "
-                f"{train['parity_loss_err']:.2e}, resume within {train['resume_err']:.2e}")
-            lap(16)
         if 17 in run:
             torch.cuda.empty_cache()
             # depth cut for phase 18's room: 4 fp32 text streams in (a) (were 8)
@@ -7600,10 +8024,37 @@ def main() -> int:
                 log(f"phase 18 ({part}) [{card}]: peak GiB a rank {[round(g, 3) for g in ep[part]['peak_gib']]}; launches "
                     f"a rank {json.dumps(ep[part]['launches'])}, by head_dim {json.dumps(ep[part]['instances'])}")
             lap(18)
-    log(f"seconds a phase: {json.dumps(laps)} [{card}]")
+        beside = join_lanes()
+        options, control = beside.get(12), beside.get(14)
+        if 19 in run:
+            torch.cuda.empty_cache()
+            data = drive_data(args.seed, card, Path(tmp))
+            log(f"phase 19 [{card}]: {data['phase_s']:.1f} s in all; one card named twice as {{data: 2}} (no copy between "
+                f"cards, one host's cores): (a) CLIP {data['images_s']:.1f} images/s vs {data['images_s_plain']:.1f} "
+                f"mesh-less, cosine min {data['cos_min']:.6f}, max|diff| {data['max_diff']:.3e}, flash launches a batch "
+                f"{json.dumps(data['per_batch'])}, weights {data['held_gib']:.3f} GiB for two copies vs "
+                f"{data['held_gib_plain']:.3f} for one, peak {data['peak_gib']:.3f} vs {data['peak_gib_plain']:.3f} GiB; "
+                f"(b) ingest {data['ingest_s']:.1f} vs {data['ingest_s_plain']:.1f} images/s, cosine min "
+                f"{data['ingest_cos']:.6f}, syncs a batch {json.dumps(data['syncs'])}"
+                + ("; (c), timed in phase 2: " + "; ".join(
+                    f"{label} {r['shape']} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.4f}, SDPA "
+                    f"{r['library_ms']:.4f})" for label, r in ((label, rows[f"flash_attention ({label})"])
+                                                              for label in DATA_FLASH_SHAPES)) if 2 in run else ""))
+            lap(19)
+    beside_note = f" (phases {', '.join(map(str, sorted(BESIDE_PHASES & run)))} beside the main lane)" \
+        if BESIDE_PHASES & run else ""
+    log(f"seconds a phase: {json.dumps(dict(sorted(laps.items())))}{beside_note}; the run "
+        f"{time.perf_counter() - t_run:.1f} s [{card}]")
     if run != ALL_PHASES:
         log(f"phases {', '.join(map(str, sorted(run)))} passed [{card}]")
         return 0
+    for label in DATA_FLASH_SHAPES:
+        row = rows[f"flash_attention ({label})"]
+        used = (f"phase-19 (a) launches {data['launches']} over two places" if label == next(iter(DATA_FLASH_SHAPES))
+                else "phase 19 (a) sends no text")
+        log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| "
+            f"{row['max_abs_err']:.3e}, {used} [{card}]")
     for k in kernels:
         log(f"kernel row {k.name}: phase-18 launches a rank, (a) expert 2 "
             f"{[c[k.name] for c in ep['a']['launches']]}, (b) int8 + spec {[c[k.name] for c in ep['b']['launches']]}, "
@@ -7668,6 +8119,15 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
+    # flash_attention at a place's part of the bulk CLIP batch over {"data": 2}
+    # (phase 19 (c)), with the launches of phase 19 (a)'s run over the axis.
+    row = rows[f"flash_attention ({next(iter(DATA_FLASH_SHAPES))})"]
+    source, replaces = SOURCES["flash_attention"]
+    table.append(dict(
+        name="flash_attention [CLIP over data 2, a place's part]", route="cuda", source=source, replaces=replaces,
+        launches=data["launches"], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+    ))
     row = rows["w8a16_matmul [Qwen1.5-MoE]"]
     source, replaces = SOURCES["w8a16_matmul"]
     table.append(dict(

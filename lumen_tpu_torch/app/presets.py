@@ -1,17 +1,22 @@
 """Hardware presets of the port: CUDA cards instead of TPU topologies.
 
 The JAX package's ``app/presets.py`` carries TPU generations and slices.
-The port serves on one NVIDIA card (``runtime/mesh.py`` serves a ``data``
-axis on the first device only), so it has two presets: ``cpu`` and one
-single-card H100 preset whose per-service batch sizes are the ones the
-port's on-card checks run (``chip_smoke.py`` phases 8-11: CLIP 64, face
-16, OCR 8 with detection buckets 320/640/960, VLM 8 slots with prefill
-buckets up to 1024, a 5 ms batching window). There is no multi-card
-preset: it would claim cards the server leaves idle.
+The port's presets are ``cpu`` and H100 hosts of 1, 4 and 8 cards, each
+serving one replica on a ``{"data": -1}`` mesh over every card
+(``runtime/mesh.py``: each micro-batch splits over the cards). The
+one-card preset's per-service batch sizes are the ones the port's
+on-card checks run (``chip_smoke.py`` phases 8-11: CLIP 64, face 16, OCR
+8 with detection buckets 320/640/960, VLM 8 slots with prefill buckets up
+to 1024, a 5 ms batching window); the multi-card presets scale the CLIP
+and face batches by the card count, as the JAX ``_tpu_preset`` scales
+them by the data size (the batch is global: each card runs the one-card
+batch). The VLM's continuous engine serves on the first card
+(``models/vlm/manager.py``), so its slots do not scale.
 
 ``supported_presets`` and ``detect_preset`` keep the JAX semantics: the
-presets runnable on the detected hardware, most capable first, and ``cpu``
-always among them.
+presets runnable on the detected hardware, larger card counts strictly
+first (a 4-card host must never auto-pick the one-card preset and idle 3
+cards), and ``cpu`` always among them.
 """
 
 from __future__ import annotations
@@ -77,6 +82,25 @@ class DevicePreset:
     max_tier: str = "full"
 
 
+def _h100_preset(chips: int, description: str) -> DevicePreset:
+    """An H100 host of ``chips`` cards on one ``data`` axis: the one-card
+    batches times the data size for CLIP and face (global batches)."""
+    return DevicePreset(
+        name=f"cuda_h100_{chips}",
+        description=description,
+        platform="cuda",
+        generation="h100_sxm",
+        chips=chips,
+        batch_size=64 * chips,
+        face_batch=16 * chips,
+        ocr_batch=8,
+        ocr_det_buckets=(320, 640, 960),
+        vlm_gen_batch=8,
+        vlm_prefill_buckets=(64, 128, 256, 512, 1024),
+        max_batch_latency_ms=5.0,
+    )
+
+
 PRESETS: dict[str, DevicePreset] = {
     p.name: p
     for p in [
@@ -95,25 +119,15 @@ PRESETS: dict[str, DevicePreset] = {
             vlm_prefill_buckets=(64, 128),
             max_tier="light_weight",
         ),
-        DevicePreset(
-            name="cuda_h100_1",
-            description="One NVIDIA H100 SXM 80GB",
-            platform="cuda",
-            generation="h100_sxm",
-            chips=1,
-            batch_size=64,
-            face_batch=16,
-            ocr_batch=8,
-            ocr_det_buckets=(320, 640, 960),
-            vlm_gen_batch=8,
-            vlm_prefill_buckets=(64, 128, 256, 512, 1024),
-            max_batch_latency_ms=5.0,
-        ),
+        _h100_preset(1, "One NVIDIA H100 SXM 80GB"),
+        _h100_preset(4, "4x NVIDIA H100 SXM 80GB, data-parallel mesh"),
+        _h100_preset(8, "8x NVIDIA H100 SXM 80GB, data-parallel mesh"),
     ]
 }
 
-# Order presets are tried during auto-detection: cards before the CPU.
-DETECTION_ORDER = ["cuda_h100_1", "cpu"]
+# Order presets are tried during auto-detection: larger card counts
+# strictly before smaller ones, cards before the CPU.
+DETECTION_ORDER = ["cuda_h100_8", "cuda_h100_4", "cuda_h100_1", "cpu"]
 
 
 def supported_presets(

@@ -7,7 +7,12 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
 
 - image/text encode are batched device calls (bucketed static shapes)
   behind the port's micro-batchers, one per tower, built through the
-  replica fleet (one replica on one card: the plain batcher);
+  replica fleet (one replica: the plain batcher). A replica's mesh is a
+  ``data`` axis over its cards (every card by default; ``devices=``
+  names them, one card more than once if need be): the towers are
+  copied onto each data place, and a batch (a multiple of the data size)
+  splits into one part a place, each run on its place's copy, the rows
+  gathered back in batch order (``runtime.batcher.mesh_sharded``);
 - image bytes decode and resize on the shared decode pool
   (``clip_resize``); normalisation runs on the device from uint8 pixels;
 - classification scores an embedding against a label-embedding matrix
@@ -33,19 +38,19 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   placement (``INT8_TP_RULES`` first when int8, then
   ``TRANSFORMER_TP_RULES``; :func:`place_tp_clip`) and every tower
   forward runs on every rank; the label matrix and the host softmax stay
-  on rank 0.
+  on rank 0 (over a ``data`` axis, on place 0's copy: the softmax reads
+  the gathered rows).
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Literal
+from typing import Literal, Sequence
 
 import numpy as np
 import torch
@@ -54,7 +59,7 @@ from ...core.model_info import ModelInfo, load_model_info
 from ...ops.image import IMAGENET_MEAN, IMAGENET_STD, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from ...ops.quant import register_route_gauges, resolve_q8_kernel, resolve_q8_route
 from ...ops.quant_matmul import note_mesh_model_axis
-from ...parallel.sharding import INT8_TP_RULES, TRANSFORMER_TP_RULES, local_state_dict
+from ...parallel.sharding import INT8_TP_RULES, TRANSFORMER_TP_RULES, local_state_dict, replicate
 from ...runtime.batcher import MicroBatcher, mesh_buckets, mesh_sharded, warmup_batcher
 from ...runtime.decode_pool import get_decode_pool
 from ...runtime.fleet import (
@@ -120,6 +125,7 @@ class CLIPManager:
         quantize: str | None = None,
         name_prefix: str = "clip",
         device: "str | torch.device | None" = None,
+        devices: "Sequence[torch.device] | None" = None,
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
@@ -137,9 +143,10 @@ class CLIPManager:
         self.batch_size = batch_size
         self.max_batch_latency_ms = max_batch_latency_ms
         # Replica fleet (LUMEN_REPLICAS / LUMEN_REPLICAS_CLIP): the host's
-        # devices partition into N slices, one per replica; ``self.mesh``
-        # stays the primary (replica-0) slice, where label embedding runs.
-        self.fleet_plan = plan_replicas("clip", mesh_axes, devices=fleet_devices(self.device))
+        # devices (or ``devices``) partition into N slices, one per replica,
+        # each a data axis over its slice; ``self.mesh`` stays the primary
+        # (replica-0) slice, whose place 0 embeds the labels.
+        self.fleet_plan = plan_replicas("clip", mesh_axes, devices=list(devices or fleet_devices(self.device)))
         self.mesh = self.fleet_plan.meshes[0]
         #: the serving group of an ``expert`` or ``model`` axis above 1, else None
         self.tp_group = self.mesh.group
@@ -173,9 +180,12 @@ class CLIPManager:
         self._initialized = False
         self._image_batcher: MicroBatcher | None = None  # or ReplicaSet (fleet)
         self._text_batcher: MicroBatcher | None = None
-        # One placement per replica: a CLIPModel, or the graph towers'
-        # {"vision": params, "text": params} on the replica's device.
-        self._fleet_models: list | None = None
+        # One placement per replica and data place: a CLIPModel, or the
+        # graph towers' {"vision": params, "text": params} on the place's
+        # device.
+        self._fleet_models: list[list] | None = None
+        #: replica 0's copy on each data place, and the one on place 0
+        self.place_models: list = []
         self.model = None
         self.label_names: list[str] = []
         self._label_matrix: np.ndarray | None = None  # [L, D] unit-norm fp32
@@ -284,12 +294,13 @@ class CLIPManager:
             )
         return state
 
-    def _place(self, model: CLIPModel):
-        """The serving placement of a host ``model``: on the primary device,
-        or each rank's shards on a tensor-parallel group."""
+    def _place(self, model: CLIPModel) -> list:
+        """The serving placement of a host ``model`` on the primary mesh:
+        one copy a data place, or each rank's shards on a tensor-parallel
+        group."""
         if self.tp_group is None:
-            return model.to(self.mesh.device)
-        return self.tp_group.run(place_tp_clip, model.cfg, model.state_dict(), self.policy.param_dtype, self.tp_group)
+            return replicate(model, self.mesh)
+        return [self.tp_group.run(place_tp_clip, model.cfg, model.state_dict(), self.policy.param_dtype, self.tp_group)]
 
     def _place_native(self, state: dict[str, torch.Tensor]) -> None:
         base_cfg = dataclasses.replace(self.cfg, weight_quant=None)
@@ -313,13 +324,10 @@ class CLIPManager:
         if model.cfg.weight_quant is None:
             self.cfg = model.cfg
         if self.tp_group is not None:
-            self._fleet_models = [model if getattr(model, "tp", None) else self._place(model)]
+            self._fleet_models = [[model] if getattr(model, "tp", None) else self._place(model)]
             return
-        # Every replica gets its own copy of the weights on its device.
-        self._fleet_models = replicate_all(
-            lambda mesh: copy.deepcopy(model).to(mesh.device), self.fleet_plan,
-            primary=model.to(self.mesh.device),
-        )
+        # Every replica gets its own copy of the weights on each data place.
+        self._fleet_models = replicate_all(model, self.fleet_plan)
 
     def _pick_quant_route(self, base_model: CLIPModel, q_model: CLIPModel, route: str) -> CLIPModel:
         """Whether the int8 opt-in serves int8 (JAX ``_pick_quant_route``):
@@ -346,7 +354,7 @@ class CLIPManager:
         if self.quant_speedup >= 1.0:
             logger.info("CLIP int8 route confirmed: %.3fx bf16 at the top batch bucket", self.quant_speedup)
             self.quant_route = "int8"
-            return placed if self.tp_group is not None else q_model
+            return placed[0] if self.tp_group is not None else q_model
         del placed
         logger.warning(
             "CLIP int8 route DISABLED: the warm-up A/B measured q8 at %.3fx bf16; serving bf16 instead. "
@@ -360,21 +368,26 @@ class CLIPManager:
         return base_model
 
     @torch.inference_mode()
-    def _time_image_encode(self, model: CLIPModel) -> float:
-        """Best-of-3 wall time of one image encode at the top serving bucket
-        (normalization included, ended by a device synchronization), after
-        a settling call."""
-        device = self.mesh.device
-        bucket = mesh_buckets(self.batch_size, self.mesh.shape.get("data", 1))[-1]
+    def _time_image_encode(self, models: list) -> float:
+        """Best-of-3 wall time of one image encode at the top serving bucket,
+        split over the data places as serving splits it (``models``: one
+        copy a place; normalization included, ended by a synchronization
+        of every place's device), after a settling call."""
+        bucket = mesh_buckets(self.batch_size, len(models))[-1]
         size = self.cfg.image_size
         mean, std = self.norm_stats
-        pixels = torch.zeros((bucket, size, size, 3), dtype=torch.uint8, device=device)
-        mu, sigma = torch.tensor(mean, device=device), torch.tensor(std, device=device)
+        devices = self.mesh.data_devices
+        inputs = [
+            (torch.zeros((bucket // len(models), size, size, 3), dtype=torch.uint8, device=d),
+             torch.tensor(mean, device=d), torch.tensor(std, device=d))
+            for d in devices
+        ]
 
         def run() -> None:
-            run_on(self.tp_group, encode_images_native, model, pixels, mu, sigma, self.policy.compute_dtype)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            for model, (pixels, mu, sigma) in zip(models, inputs):
+                run_on(self.tp_group, encode_images_native, model, pixels, mu, sigma, self.policy.compute_dtype)
+            for d in {d for d in devices if d.type == "cuda"}:
+                torch.cuda.synchronize(d)
 
         run()
         times = []
@@ -400,15 +413,14 @@ class CLIPManager:
         # (config- OR model_info-supplied) shorter than that would feed
         # shapes the graph's fixed ops can't take.
         updates["text_serving_length"] = None
-        # Every replica gets its copy BEFORE the host weights are released
-        # (there is nothing to re-place from afterwards).
+        # Every replica and data place gets its copy BEFORE the host weights
+        # are released (there is nothing to re-place from afterwards).
         self._fleet_models = replicate_all(
-            lambda mesh: {"vision": vision_graph.module.place(mesh.device),
-                          "text": text_graph.module.place(mesh.device)},
+            lambda device: {"vision": vision_graph.module.place(device), "text": text_graph.module.place(device)},
             self.fleet_plan,
         )
         size = updates.get("image_size", self.cfg.image_size)
-        dim = vision_graph.probe_dim(np.zeros((1, 3, size, size), np.float32), self._fleet_models[0]["vision"])
+        dim = vision_graph.probe_dim(np.zeros((1, 3, size, size), np.float32), self._fleet_models[0][0]["vision"])
         if dim != self.cfg.embed_dim:
             logger.info("graph towers emit %d-d embeddings (config said %d)", dim, self.cfg.embed_dim)
             updates["embed_dim"] = dim
@@ -433,14 +445,16 @@ class CLIPManager:
             raise NotImplementedError("CLIP graph towers do not run on a model axis")
         else:
             self._place_graphs()
-        self.model = self._fleet_models[0]
+        self.place_models = self._fleet_models[0]
+        self.model = self.place_models[0]
         mean, std = self.norm_stats
         compute_dtype = self.policy.compute_dtype
-        # Per-device normalisation constants, made once: a host->device
-        # copy inside the batched call would be a synchronous one.
+        # Per-device normalisation constants, made once (read-only, so two
+        # places on one device share them): a host->device copy inside the
+        # batched call would be a synchronous one.
         stats = {
-            m.device: (torch.tensor(mean, device=m.device), torch.tensor(std, device=m.device))
-            for m in self.fleet_plan.meshes
+            d: (torch.tensor(mean, device=d), torch.tensor(std, device=d))
+            for m in self.fleet_plan.meshes for d in m.data_devices
         }
 
         if state is not None:
@@ -480,17 +494,17 @@ class CLIPManager:
         buckets = mesh_buckets(self.batch_size, dp)
         pin = self.device.type == "cuda"
 
-        # Batcher fns DISPATCH and return the un-fetched device tensor: the
-        # MicroBatcher's fetch worker does the one device->host copy per
+        # Batcher fns DISPATCH and return the un-fetched device tensors: the
+        # MicroBatcher's fetch worker does the device->host copies of a
         # batch, so the next batch stacks/copies/launches while this one
-        # computes. Each replica closes over ITS copy of the weights;
-        # build_fleet hands back the plain single batcher when the plan is
-        # one replica, a routed ReplicaSet otherwise. The closures double
-        # as the fleet's revive hook.
+        # computes. Each data place of each replica closes over ITS copy of
+        # the weights; build_fleet hands back the plain single batcher when
+        # the plan is one replica, a routed ReplicaSet otherwise. The
+        # closures double as the fleet's revive hook.
         def build_image(rid, mesh):
-            model = self._fleet_models[rid or 0]
+            models = self._fleet_models[rid or 0]
             return MicroBatcher(
-                mesh_sharded(lambda pixels, n, _m=model: self._encode_images(_m, pixels), mesh),
+                mesh_sharded([lambda pixels, n, _m=m: self._encode_images(_m, pixels) for m in models], mesh),
                 max_batch=buckets[-1],
                 max_latency_ms=self.max_batch_latency_ms,
                 buckets=buckets,
@@ -500,9 +514,9 @@ class CLIPManager:
             ).start()
 
         def build_text(rid, mesh):
-            model = self._fleet_models[rid or 0]
+            models = self._fleet_models[rid or 0]
             return MicroBatcher(
-                mesh_sharded(lambda ids, n, _m=model: self._encode_texts(_m, ids), mesh),
+                mesh_sharded([lambda ids, n, _m=m: self._encode_texts(_m, ids) for m in models], mesh),
                 max_batch=buckets[-1],
                 max_latency_ms=self.max_batch_latency_ms,
                 buckets=buckets,
@@ -523,7 +537,7 @@ class CLIPManager:
             self.model_id,
             self.cfg.embed_dim,
             len(self.label_names),
-            self.device,
+            self.mesh,
         )
 
     def _warmup(self, buckets: list[int]) -> None:

@@ -12,6 +12,10 @@ with the hot math on the device:
   on the ONNX bridge, or the native ``FaceDetector``;
 - recognition embeds N aligned crops as ONE batched call (the reference
   loops faces sequentially, SURVEY.md §3.4 note);
+- over a ``data`` axis (the replica's cards; ``devices=`` names them) the
+  detector and embedder are copied onto each data place and each batch
+  splits into one part a place, run there, its decode and NMS included,
+  the rows gathered back in batch order (``runtime.batcher.mesh_sharded``);
 - host side keeps the CV parts: JPEG decode (on the decode pool),
   letterbox, coordinate unmap, similarity-transform alignment
   (``_align_face_5points``, ``onnxrt_backend.py:1382-1416``).
@@ -27,6 +31,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -119,6 +124,7 @@ class FaceManager:
         warmup: bool = False,
         allow_random_init: bool = False,
         device: "str | torch.device | None" = None,
+        devices: "Sequence[torch.device] | None" = None,
     ):
         self.model_dir = model_dir
         self.info = load_model_info(model_dir)
@@ -136,8 +142,9 @@ class FaceManager:
         self.batch_size = batch_size
         self.max_batch_latency_ms = max_batch_latency_ms
         # Replica fleet (LUMEN_REPLICAS / LUMEN_REPLICAS_FACE): one device
-        # slice per replica; the single slice when N=1.
-        self.fleet_plan = plan_replicas("face", mesh_axes, devices=fleet_devices(self.device))
+        # slice per replica (every card from ``device`` on, or ``devices``),
+        # each a data axis over its slice; the single slice when N=1.
+        self.fleet_plan = plan_replicas("face", mesh_axes, devices=list(devices or fleet_devices(self.device)))
         self.mesh = self.fleet_plan.meshes[0]
         self.warmup = warmup
         # Architecture comes from the model dir's manifest
@@ -165,8 +172,9 @@ class FaceManager:
 
     # -- init -------------------------------------------------------------
 
-    def _load_module(self, filename: str, module: torch.nn.Module, kind: str) -> list[torch.nn.Module]:
-        """The native module with its checkpoint, one copy per replica."""
+    def _load_module(self, filename: str, module: torch.nn.Module, kind: str) -> list[list[torch.nn.Module]]:
+        """The native module with its checkpoint, one copy per replica and
+        data place."""
         path = os.path.join(self.model_dir, filename)
         if os.path.exists(path):
             state = load_safetensors(path)
@@ -185,15 +193,12 @@ class FaceManager:
                 f"or a {kind} .onnx graph; pass allow_random_init=True only in tests"
             )
         module = module.to(dtype=self.policy.param_dtype).eval().requires_grad_(False)
-        return replicate_all(
-            lambda mesh: copy.deepcopy(module).to(mesh.device), self.fleet_plan,
-            primary=module.to(self.mesh.device),
-        )
+        return replicate_all(module, self.fleet_plan)
 
-    def _place_graph(self, module) -> list[dict[str, torch.Tensor]]:
-        """The graph's float32 weights, one copy per replica (the bridge
-        then drops its host copy)."""
-        fleet = replicate_all(lambda mesh: module.place(mesh.device), self.fleet_plan)
+    def _place_graph(self, module) -> list[list[dict[str, torch.Tensor]]]:
+        """The graph's float32 weights, one copy per replica and data place
+        (the bridge then drops its host copy)."""
+        fleet = replicate_all(module.place, self.fleet_plan)
         module.release_weights()  # the devices hold the weights now
         return fleet
 
@@ -267,8 +272,9 @@ class FaceManager:
                 emb = embedder(x.to(compute)).float()
                 return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-12)
 
-        self.det_vars = self._det_vars_fleet[0]
-        self.rec_vars = self._rec_vars_fleet[0]
+        #: replica 0's detector and embedder on each data place, and place 0's
+        self.det_places, self.rec_places = self._det_vars_fleet[0], self._rec_vars_fleet[0]
+        self.det_vars, self.rec_vars = self.det_places[0], self.rec_places[0]
         self._run_detector = run_detector
         self._run_embedder = run_embedder
         dp = self.mesh.shape.get("data", 1)
@@ -276,14 +282,15 @@ class FaceManager:
         rec_buckets = mesh_buckets(max(self.batch_size, 16), dp)
         pin = self.device.type == "cuda"
 
-        # Batcher fns receive the stacked batch already on the replica's
-        # device, DISPATCH, and return the un-fetched device tensors: the
-        # MicroBatcher's fetch worker makes the one device->host copy per
-        # batch (batch k+1 stacks while k runs).
+        # Batcher fns receive their part of the stacked batch already on
+        # their data place's device, DISPATCH, and return the un-fetched
+        # device tensors: decode, top-k and NMS run there, on the card that
+        # produced the part, and the MicroBatcher's fetch worker copies each
+        # part to the host (batch k+1 stacks while k runs).
         def build_det(rid, mesh):
-            variables = self._det_vars_fleet[rid or 0]
+            places = self._det_vars_fleet[rid or 0]
             return MicroBatcher(
-                mesh_sharded(lambda imgs, n, _v=variables: self._run_detector(_v, imgs), mesh),
+                mesh_sharded([lambda imgs, n, _v=v: self._run_detector(_v, imgs) for v in places], mesh),
                 max_batch=det_buckets[-1],
                 max_latency_ms=self.max_batch_latency_ms,
                 buckets=det_buckets,
@@ -293,9 +300,9 @@ class FaceManager:
             ).start()
 
         def build_rec(rid, mesh):
-            variables = self._rec_vars_fleet[rid or 0]
+            places = self._rec_vars_fleet[rid or 0]
             return MicroBatcher(
-                mesh_sharded(lambda crops, n, _v=variables: self._run_embedder(_v, crops), mesh),
+                mesh_sharded([lambda crops, n, _v=v: self._run_embedder(_v, crops) for v in places], mesh),
                 max_batch=rec_buckets[-1],
                 max_latency_ms=self.max_batch_latency_ms,
                 buckets=rec_buckets,
@@ -320,7 +327,7 @@ class FaceManager:
         self._initialized = True
         logger.info(
             "face manager ready: %s (det %d, rec %d) on %s",
-            self.model_id, self.det_cfg.input_size, self.rec_cfg.input_size, self.device,
+            self.model_id, self.det_cfg.input_size, self.rec_cfg.input_size, self.mesh,
         )
 
     def close(self) -> None:

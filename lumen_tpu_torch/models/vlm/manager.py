@@ -49,7 +49,14 @@ rules when quantized, then the TP rules), and every device program -- the
 prepare step, the ``Generator``'s programs, the int8 route's A/B -- runs
 on every rank. The host state (scheduler, page allocator, prefix cache,
 spill tier) stays on rank 0. Replicas times such a group raise (ROADMAP
-queue A, item 2d).
+queue A, item 2d-ii).
+
+A ``data`` axis (the default mesh over every card, or ``mesh_axes``) has
+no batch axis to split here: the continuous engine's slots live in one
+page pool. The JAX manager serves it with one replicated copy and gets
+the same tokens; the port serves the one engine on place 0's card and
+places no copy on the cards of the other places, which would compute
+nothing. ``LUMEN_REPLICAS_VLM=max`` serves one engine a card.
 """
 
 from __future__ import annotations
@@ -265,7 +272,9 @@ class VLMManager:
     (the result cache's revision, the route verdict's file).
     ``mesh_axes`` is the service's mesh request (JAX axis names): an
     ``expert`` or ``model`` axis above 1 serves on the running group
-    (module docstring); a ``data`` axis serves on one device.
+    (module docstring); a ``data`` axis serves on its place 0. ``devices``
+    are the cards the mesh and the replica plan span (default every card
+    from ``device`` on).
     """
 
     def __init__(
@@ -293,6 +302,7 @@ class VLMManager:
         info: ModelInfo | None = None,
         model_dir: str | None = None,
         mesh_axes: dict[str, int] | None = None,
+        devices: Sequence[torch.device] | None = None,
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
@@ -304,6 +314,7 @@ class VLMManager:
             raise ValueError(f"scheduler must be 'coalesce' or 'continuous', got {scheduler!r}")
         self.scheduler = scheduler
         self.device = resolve_device(device)
+        cards = list(devices or fleet_devices(self.device))
         self.mesh = None
         #: the serving group of an ``expert`` or ``model`` axis above 1, else None
         self.tp_group = None
@@ -311,7 +322,7 @@ class VLMManager:
             if replicas_for("vlm") != 1:
                 raise NotImplementedError(
                     "LUMEN_REPLICAS(_VLM) > 1 with an expert or model axis: replicas x expert or tensor "
-                    "parallelism is not served yet (ROADMAP queue A, item 2d)"
+                    "parallelism is not served yet (ROADMAP queue A, item 2d-ii)"
                 )
             self.mesh = build_mesh(mesh_axes)
             self.tp_group = self.mesh.group
@@ -324,7 +335,7 @@ class VLMManager:
             # axis does not).
             note_mesh_model_axis(self.tp_group.tp.size)
         elif mesh_axes:
-            self.mesh = build_mesh(mesh_axes, devices=fleet_devices(self.device))
+            self.mesh = build_mesh(mesh_axes, devices=cards)
         self.policy = get_policy(dtype)
         self.quantize = quantize
         #: decode route in use ("bf16" | "int8"), resolved at construction
@@ -349,8 +360,7 @@ class VLMManager:
         if scheduler == "continuous":
             # One continuous engine (page pool + block tables) per replica
             # slice; the coalescer stays one batcher on the manager's device.
-            self.fleet_plan = plan_replicas("vlm", mesh_axes if self.tp_group else None,
-                                            devices=fleet_devices(self.device))
+            self.fleet_plan = plan_replicas("vlm", mesh_axes if self.tp_group else None, devices=cards)
         else:
             self.fleet_plan = None
             if replicas_for("vlm") != 1:
@@ -418,6 +428,12 @@ class VLMManager:
                     devices_per_replica=plan.devices_per_replica,
                 )
                 logger.info("VLM continuous engine fleet: %d replicas x %d slots", plan.replicas, gen_slots)
+            elif (self.mesh or plan.meshes[0]).shape.get("data", 1) > 1:
+                logger.info(
+                    "VLM continuous engine on %s, place 0 of the data axis %s: its slots share one page pool, which "
+                    "has no batch axis to split, so the other places hold no copy (LUMEN_REPLICAS_VLM=max serves "
+                    "one engine a card)", plan.meshes[0].device, self.mesh or plan.meshes[0],
+                )
         else:
             self._batcher = _GenBatcher(
                 self._run_gen_batch, max_batch=gen_batch_size, max_latency_ms=gen_batch_latency_ms, name=name

@@ -26,6 +26,7 @@ heads).
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import re
@@ -33,7 +34,7 @@ from typing import Callable, Iterable, Mapping
 
 import torch
 
-from ..runtime.mesh import axis_sizes
+from ..runtime.mesh import DeviceMesh, axis_sizes
 
 logger = logging.getLogger(__name__)
 
@@ -157,9 +158,22 @@ def shard_params(params: Mapping[str, torch.Tensor], mesh, rules: Iterable[Shard
     return out
 
 
-def replicate(params: Mapping[str, torch.Tensor], mesh) -> dict:
-    """Every tensor replicated on every rank of the mesh."""
-    return shard_params(params, mesh, [])
+def replicate(params, mesh):
+    """Every tensor replicated on every rank of a process mesh (DTensors,
+    ``shard_params`` with no rules, as the JAX ``shard_params``). On a
+    serving :class:`~lumen_tpu_torch.runtime.mesh.DeviceMesh`: one copy a
+    data place, in place order -- the one place a model is copied onto a
+    mesh's cards. ``params`` is a module (place 0 gets the module itself,
+    moved; each other place a deep copy, made before the move), or a
+    callable ``place(device)`` that makes one copy on a device (a graph's
+    ``OnnxModule.place``)."""
+    if not isinstance(mesh, DeviceMesh):
+        return shard_params(params, mesh, [])
+    first, *rest = mesh.data_devices
+    if isinstance(params, torch.nn.Module):
+        copies = [copy.deepcopy(params).to(d) for d in rest]
+        return [params.to(first), *copies]
+    return [params(d) for d in (first, *rest)]
 
 
 #: projections whose split dimension counts query heads, and KV heads

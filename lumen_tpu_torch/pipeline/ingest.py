@@ -2,24 +2,30 @@
 
 The port of ``lumen_tpu/pipeline/ingest.py``. ``Stage`` and the task-graph
 validation (``_build_graph``) are copied; the scheduler is rewritten for
-torch on the mesh's device. Execution model (three overlapped lanes):
+torch on the mesh's data places (one, or several over a ``data`` axis: a
+place is an index into ``mesh.data_devices``, which may name one card
+twice). Execution model (three overlapped lanes):
 
 1. **host decode/preprocess** — a producer thread drains the item
    iterator, fans per-item work over the decode pool (the ``photo`` spec
    in worker processes when the pool runs them), stacks each stage's
    rows into one fixed-shape batch in pinned host memory (the tail batch
-   padded), and copies it to the device with ``non_blocking=True`` on a
-   copy stream of its own, recording an event after the copy;
-2. **device** — the consumer makes its stream wait on that event and
-   launches every stage's ``device_fn``, keeping up to ``inflight``
-   batches launched and un-fetched: torch returns before the device
-   finishes, so batch *k+1* is copied and launched while batch *k* runs;
+   padded), splits it into equal contiguous parts, one a data place
+   (``runtime.mesh.data_sharding``), and copies each part to its place's
+   device with ``non_blocking=True`` on that place's copy stream,
+   recording one event a place after the copies;
+2. **device** — for each place, the consumer makes the place's stream
+   wait on its event and launches every stage's ``device_fn`` on the
+   place's part, keeping up to ``inflight`` batches launched and
+   un-fetched: torch returns before the device finishes, so batch *k+1*
+   is copied and launched while batch *k* runs;
 3. **host postprocess** — a batch's results (every stage's tree) come
-   back in ONE device-to-host copy on a side stream that waits on an
-   event recorded after the batch's launches (``runtime.batcher
-   .device_get``); that wait is the batch's one device-to-host
-   synchronization (``IngestStats.syncs``). Per-item ``postprocess``
-   runs and a merged record per item is yielded in order.
+   back in ONE device-to-host copy a place, each on the place's side
+   stream after an event recorded after the place's launches
+   (``runtime.batcher.device_get``); each is one device-to-host
+   synchronization (``IngestStats.syncs``), and the places' rows are put
+   back in input order. Per-item ``postprocess`` runs and a merged record
+   per item is yielded in order.
 
 Pinned staging buffers come from PyTorch's caching host allocator, which
 hands a block out again only after the events of the copies that read it
@@ -38,6 +44,7 @@ a healthy sibling).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import logging
@@ -50,9 +57,19 @@ from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
 import torch
 
-from ..runtime.batcher import device_get, record_ready, stack_and_pad, tree_flatten, tree_map, unstack
+from ..runtime.batcher import (
+    Parts,
+    SideStreams,
+    device_get,
+    on_device,
+    record_ready,
+    stack_and_pad,
+    tree_flatten,
+    tree_map,
+    unstack,
+)
 from ..runtime.decode_pool import DecodePool, get_decode_pool
-from ..runtime.mesh import DATA_AXIS, DeviceMesh
+from ..runtime.mesh import DATA_AXIS, DataSharding, DeviceMesh, data_sharding
 from ..runtime.quarantine import QuarantineRegistry, get_quarantine
 from ..runtime.result_cache import ResultCache, get_result_cache, make_key
 from ..runtime.trace import begin_request, finish_request
@@ -80,8 +97,10 @@ class Stage:
     - ``preprocess(decoded)`` -> fixed-shape numpy pytree for one item (host,
       runs in the decode worker pool);
     - ``device_fn(batched_tree)`` -> batched device result tree (inputs
-      arrive on the mesh's device; it should launch and return without
-      waiting for the device);
+      arrive on a data place's device, the place's part of the batch; it
+      should launch and return without waiting for the device). One
+      callable runs on every place (it follows its input's device), or a
+      sequence gives one a place, in place order;
     - ``postprocess(decoded, row)`` -> the per-item record value (host).
 
     **Derived node** (``inputs`` non-empty) — a host-side step fed by other
@@ -226,13 +245,13 @@ class _Batch:
         shas: list[str | None] | None = None,
     ):
         self.decoded = decoded
-        self.inputs = inputs  # stage name -> device tree
+        self.inputs = inputs  # stage name -> one device tree a data place
         # Pinned host trees the inputs were copied from, held until the
-        # batch settles, and the event recorded after their copies.
+        # batch settles, and the event a place recorded after its copies.
         self.staged: dict[str, Any] = {}
-        self.copied: torch.cuda.Event | None = None
-        self.outputs: dict[str, Any] = {}
-        self.ready: torch.cuda.Event | None = None  # recorded after the launches
+        self.copied: list | None = None
+        self.outputs: list[dict[str, Any]] = []  # a data place's {stage name: device tree}
+        self.ready: list | None = None  # an event a place, recorded after its launches
         self.n = n
         # Global item indices (cache hits skip batches, so batch rows are
         # no longer contiguous) and per-row result-cache keys (None when
@@ -265,9 +284,9 @@ class IngestPipeline:
     """Stream items through data-parallel device stages on a mesh.
 
     ``batch_size`` must be a multiple of the mesh's ``data`` axis size (it
-    is the GLOBAL batch, as in the JAX package; the port's
-    :class:`~lumen_tpu_torch.runtime.mesh.DeviceMesh` serves it on the
-    mesh's device).
+    is the GLOBAL batch, as in the JAX package): each data place of the
+    :class:`~lumen_tpu_torch.runtime.mesh.DeviceMesh` runs
+    ``batch_size / data`` rows of every batch.
     """
 
     def __init__(
@@ -292,11 +311,14 @@ class IngestPipeline:
             raise ValueError(f"batch_size {batch_size} not a multiple of '{DATA_AXIS}' axis size {dp}")
         self.mesh = mesh
         self.device = mesh.device
+        self._sharding = data_sharding(mesh)
         self.stages = list(stages)
         # Task-graph validation: device (source) stages in GIVEN order —
         # the dispatch order and the record key order — and host-side
         # derived nodes, topologically sorted by their declared inputs.
         self._device_stages, self._derived_stages = _build_graph(self.stages)
+        #: stage name -> its callable on each data place
+        self._place_fns = {s.name: self._fns(s) for s in self._device_stages}
         # Record keys excluded from cache.put values: positional meta plus
         # every ``cache_output=False`` node's value.
         self._strip_keys = {"_index", "_sha256"} | {s.name for s in self.stages if not s.cache_output}
@@ -327,8 +349,10 @@ class IngestPipeline:
         self.decode_spec = decode_spec
         self.decode_adapter = decode_adapter
         self._on_card = self.device.type == "cuda"
-        self._copy_stream = torch.cuda.Stream(device=self.device) if self._on_card else None
-        self._fetch_stream = torch.cuda.Stream(device=self.device) if self._on_card else None
+        # A copy stream and fetch streams of each data place (keyed by the
+        # place's index, never its device: two places may share a card).
+        self._copy_streams = [torch.cuda.Stream(device=d) for d in self._sharding.devices] if self._on_card else []
+        self._fetch_streams = SideStreams()
         self.stats = IngestStats()  # stats of the most recent run()
         self._run_pool_tasks = 0
 
@@ -353,40 +377,72 @@ class IngestPipeline:
 
     # -- host <-> device --------------------------------------------------
 
-    def _stage_to_device(self, trees: list) -> tuple[Any, Any]:
+    def _fns(self, stage: Stage) -> list:
+        fn = stage.device_fn
+        places = len(self._sharding.devices)
+        fns = list(fn) if isinstance(fn, (list, tuple)) else [fn] * places
+        if len(fns) != places:
+            raise ValueError(f"stage {stage.name!r}: {len(fns)} device_fns for {places} data places")
+        return fns
+
+    def _stage_to_device(self, trees: list, places: int | None = None) -> tuple[list, Any]:
         """Stack one stage's per-item trees into a pinned batch (tail
-        padded) and launch its copy to the device: ``(device tree, pinned
-        tree)``. On the card the copy runs on the pipeline's copy stream;
-        the caller records the event the consumer waits on."""
-        staged = stack_and_pad(trees, self.batch_size, pin=self._on_card)
+        padded) and launch the copy of each data place's part to its
+        device: ``(device tree a place, pinned tree)``. ``places``: stack
+        ``batch_size / data`` rows for that many leading places only (the
+        salvage path's one item on place 0). On the card each copy runs on
+        its place's copy stream; the caller records the events the
+        consumer waits on."""
+        devices = self._sharding.devices[:places] if places else self._sharding.devices
+        rows = self._sharding.rows(self.batch_size) * len(devices)
+        staged = stack_and_pad(trees, rows, pin=self._on_card)
+        parts = DataSharding(devices).split(staged)
         if not self._on_card:
-            return tree_map(lambda leaf: torch.from_numpy(leaf).to(self.device), staged), staged
-        with torch.cuda.stream(self._copy_stream):
-            placed = tree_map(lambda leaf: leaf.to(self.device, non_blocking=True), staged)
+            return [tree_map(lambda leaf: torch.as_tensor(leaf).to(d), part) for d, part in zip(devices, parts)], staged
+        placed = []
+        for stream, d, part in zip(self._copy_streams, devices, parts):
+            with torch.cuda.stream(stream):
+                placed.append(tree_map(lambda leaf: leaf.to(d, non_blocking=True), part))
         return placed, staged
 
-    def _await_inputs(self, tree: Any, copied: "torch.cuda.Event | None" = None) -> None:
-        """The consumer's stream waits on the copies of ``tree`` (``copied``,
-        else everything launched on the copy stream so far), and the
-        caching allocator learns that the inputs are read there."""
+    def _await_inputs(self, trees: list, copied: list | None = None) -> None:
+        """Each data place's stream waits on the copies of its tree
+        (``copied``, else everything launched on its copy stream so far),
+        and the caching allocator learns that the inputs are read there."""
         if not self._on_card:
             return
-        stream = torch.cuda.current_stream(self.device)
-        if copied is None:
-            stream.wait_stream(self._copy_stream)
-        else:
-            stream.wait_event(copied)
-        for leaf in tree_flatten(tree)[0]:
-            leaf.record_stream(stream)
+        for i, tree in enumerate(trees):
+            stream = torch.cuda.current_stream(self._sharding.devices[i])
+            if copied is None:
+                stream.wait_stream(self._copy_streams[i])
+            else:
+                stream.wait_event(copied[i])
+            for leaf in tree_flatten(tree)[0]:
+                leaf.record_stream(stream)
 
     def _fetch(self, batch: _Batch) -> dict[str, list]:
-        """Every stage's result rows on the host: one device-to-host copy
-        for the whole batch, waited on once."""
-        tree = {s.name: batch.outputs[s.name] for s in self._device_stages}
+        """Every stage's result rows on the host: one device-to-host copy a
+        data place, each waited on once, the rows in input order."""
+        tree = Parts([{s.name: out[s.name] for s in self._device_stages} for out in batch.outputs])
         if self._on_card:
-            self.stats.syncs += 1
-        host = device_get(tree, batch.ready, lambda _dev: self._fetch_stream)
+            self.stats.syncs += len(tree.trees)
+        host = device_get(tree, batch.ready, self._fetch_streams)
         return {name: unstack(out, batch.n) for name, out in host.items()}
+
+    def _run_stages(self, inputs: dict[str, list], places: int, trace=None) -> list[dict[str, Any]]:
+        """Launch every device stage on each of the first ``places`` data
+        places' inputs, each place's with its device current; with a
+        ``trace``, a child span a stage launch (which node of the task graph
+        took the launch budget)."""
+        outputs = []
+        for i, device in enumerate(self._sharding.devices[:places]):
+            out = {}
+            with on_device(device):
+                for s in self._device_stages:
+                    with trace.span(f"stage.{s.name}") if trace is not None else contextlib.nullcontext():
+                        out[s.name] = self._place_fns[s.name][i](inputs[s.name][i])
+            outputs.append(out)
+        return outputs
 
     # -- producer lane ----------------------------------------------------
 
@@ -404,7 +460,7 @@ class IngestPipeline:
             for stage in self._device_stages:
                 trees = pool.map(stage.preprocess, decoded)
                 inputs[stage.name], staged[stage.name] = self._stage_to_device(trees)
-            copied = self._copy_stream.record_event() if self._on_card else None
+            copied = [stream.record_event() for stream in self._copy_streams] if self._on_card else None
         except BaseException:
             for lease in leases:
                 lease.release()
@@ -580,20 +636,16 @@ class IngestPipeline:
     # -- consumer ---------------------------------------------------------
 
     def _launch(self, batch: _Batch) -> None:
-        """Launch every device stage on the batch and record the event its
-        fetch waits on."""
-        self._await_inputs(batch.inputs, batch.copied)
+        """Launch every device stage on each data place's part of the batch
+        and record the events its fetch waits on."""
+        places = len(self._sharding.devices)
+        self._await_inputs([{n: t[i] for n, t in batch.inputs.items()} for i in range(places)], batch.copied)
         if batch.trace is not None:
-            # Per-stage child spans: which node of the task graph took the
-            # launch budget.
             with batch.trace.span("device.dispatch"):
-                for stage in self._device_stages:
-                    with batch.trace.span(f"stage.{stage.name}"):
-                        batch.outputs[stage.name] = stage.device_fn(batch.inputs[stage.name])
+                batch.outputs = self._run_stages(batch.inputs, places, batch.trace)
         else:
-            for stage in self._device_stages:
-                batch.outputs[stage.name] = stage.device_fn(batch.inputs[stage.name])
-        batch.ready = record_ready(batch.outputs)
+            batch.outputs = self._run_stages(batch.inputs, places)
+        batch.ready = record_ready(Parts(batch.outputs))
 
     def run(self, items: Iterable[Any]) -> Iterator[dict]:
         """Yield one record dict per input item, in input order. Record keys
@@ -829,12 +881,15 @@ class IngestPipeline:
                 if batch.shas[i] is not None:
                     record["_sha256"] = batch.shas[i]
                 try:
+                    # Each item alone on place 0, padded to a place's part.
+                    inputs = {}
                     for s in self._device_stages:
-                        placed, _ = self._stage_to_device([s.preprocess(batch.decoded[i])])
-                        self._await_inputs(placed)
-                        out = s.device_fn(placed)
-                        row = unstack(device_get(out, record_ready(out), lambda _dev: self._fetch_stream), 1)[0]
-                        record[s.name] = s.postprocess(batch.decoded[i], row)
+                        inputs[s.name], _ = self._stage_to_device([s.preprocess(batch.decoded[i])], places=1)
+                    self._await_inputs([{n: t[0] for n, t in inputs.items()}])
+                    out = self._run_stages(inputs, 1)[0]
+                    rows = unstack(device_get(out, record_ready(out), self._fetch_streams), 1)[0]
+                    for s in self._device_stages:
+                        record[s.name] = s.postprocess(batch.decoded[i], rows[s.name])
                 except QueueFull as e:
                     # Shed mid-salvage: transient, never a poison verdict.
                     record = {"_index": idx, "_error": f"shed: {type(e).__name__}: {e}"}

@@ -3,11 +3,13 @@
 The port of ``lumen_tpu/pipeline/photo.py``: the per-family managers of
 the port composed into :class:`~.ingest.IngestPipeline` stages. Each
 stage's dense forward (CLIP vision tower, face detector, OCR detector)
-runs as ONE device call per batch on the mesh's device, through the
-managers' own hooks (``_encode_images``, ``_run_detector``); the
-irregular tails (face-crop embedding, OCR crop recognition, VLM
-captions) run through the managers' own batchers and engine
-(``embed_detections``, ``recognize_boxes``, ``generate``).
+runs as ONE device call per batch on each data place of the mesh, through
+the managers' own hooks (``_encode_images``, ``_run_detector``) and each
+place's copy of the weights; the irregular tails (face-crop embedding,
+OCR crop recognition, VLM captions) run through the managers' own
+batchers and engine (``embed_detections``, ``recognize_boxes``,
+``generate``). A manager without a mesh (OCR; a VLM without one) runs on
+its own device, which must be place 0's: the OCR stage's parts go there.
 """
 
 from __future__ import annotations
@@ -38,16 +40,6 @@ class PhotoRecord:
     # items): stable across decode policy and model versions — the dedupe
     # primitive, and the natural vector id for the search index.
     sha256: str | None = None
-
-
-def _mesh_devices(mgr) -> list | None:
-    """The devices a manager serves on: its mesh's, else its device
-    (the VLM manager has no mesh), else None (a stand-in)."""
-    mesh = getattr(mgr, "mesh", None)
-    if mesh is not None:
-        return [str(d) for d in mesh.devices]
-    device = getattr(mgr, "device", None)
-    return None if device is None else [str(device)]
 
 
 class PhotoIngestPipeline:
@@ -95,16 +87,22 @@ class PhotoIngestPipeline:
         self.clip, self.face, self.ocr, self.vlm = clip, face, ocr, vlm
         self.ocr_det_size = ocr_det_size
         self.ocr_use_angle_cls = ocr_use_angle_cls
-        # The per-request and ingest paths share ONE device copy of each
-        # family's weights, and the managers' batchers keep placing inputs
-        # on their OWN mesh, so the pipeline mesh must cover the identical
-        # device set and order.
-        pipeline_devs = [str(d) for d in mesh.devices]
+        # The per-request and ingest paths share ONE copy of each family's
+        # weights a data place, and the managers' batchers keep placing
+        # inputs on their OWN mesh, so the pipeline mesh must have the
+        # identical data places, in order. A manager without a mesh (OCR; a
+        # VLM without one) runs its stage on its own device, which must be
+        # place 0's; a stand-in with neither is not checked.
+        places = [str(d) for d in mesh.data_devices]
         for name, mgr in (("clip", clip), ("face", face), ("ocr", ocr), ("vlm", vlm)):
-            if mgr is None:
+            own = getattr(mgr, "mesh", None)
+            if own is not None:
+                mgr_devs, pipeline_devs = [str(d) for d in own.data_devices], places
+            elif getattr(mgr, "device", None) is not None:
+                mgr_devs, pipeline_devs = [str(mgr.device)], places[:1]
+            else:
                 continue
-            mgr_devs = _mesh_devices(mgr)
-            if mgr_devs is not None and mgr_devs != pipeline_devs:
+            if mgr_devs != pipeline_devs:
                 raise ValueError(
                     f"{name} manager mesh devices {tuple(mgr_devs)} "
                     f"differ from pipeline mesh devices {tuple(pipeline_devs)}; "
@@ -249,8 +247,7 @@ class PhotoIngestPipeline:
 
             return cv2.resize(decoded["img"], (size, size), interpolation=cv2.INTER_LINEAR)
 
-        def device_fn(pixels):
-            return mgr._encode_images(mgr.model, pixels)
+        device_fns = [lambda pixels, _m=m: mgr._encode_images(_m, pixels) for m in mgr.place_models]
 
         def postprocess(decoded: dict, vec: np.ndarray):
             if "error" in decoded:
@@ -262,7 +259,7 @@ class PhotoIngestPipeline:
                 out["labels"] = res.labels
             return out
 
-        return Stage("clip", preprocess, device_fn, postprocess)
+        return Stage("clip", preprocess, device_fns, postprocess)
 
     def _face_stage(self) -> Stage:
         mgr = self.face
@@ -277,8 +274,7 @@ class PhotoIngestPipeline:
             decoded["meta"]["face"] = (scale * dscale, pad_top, pad_left, h, w)
             return boxed
 
-        def device_fn(images):
-            return mgr._run_detector(mgr.det_vars, images)
+        device_fns = [lambda images, _v=v: mgr._run_detector(_v, images) for v in mgr.det_places]
 
         def postprocess(decoded: dict, row):
             if "error" in decoded:
@@ -292,7 +288,7 @@ class PhotoIngestPipeline:
                 mgr.embed_detections(decoded["img"], faces, coord_scale=decoded.get("decode_scale", 1.0))
             return faces
 
-        return Stage("face", preprocess, device_fn, postprocess)
+        return Stage("face", preprocess, device_fns, postprocess)
 
     def _ocr_stage(self) -> Stage:
         mgr = self.ocr
@@ -309,7 +305,8 @@ class PhotoIngestPipeline:
             return boxed
 
         def device_fn(images):
-            return mgr._run_detector(mgr.det_vars, images)
+            # every place's part, on the OCR manager's device (place 0's)
+            return mgr._run_detector(mgr.det_vars, images.to(mgr.device, non_blocking=True))
 
         def postprocess(decoded: dict, prob):
             if "error" in decoded:

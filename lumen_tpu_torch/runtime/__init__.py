@@ -4,10 +4,11 @@ policy, weight loading, batching, fleets, caches (the names of
 
 Loaded lazily (a module ``__getattr__``): ``native/__init__.py`` imports
 ``runtime.compile_cache``, and the decode-pool workers that load it must
-not import torch. The JAX ``NamedSharding`` helpers ``data_sharding`` and
-``replicated`` have no twin: a serving rank holds plain local tensors
-(``parallel.sharding.local_state_dict``), and SPMD programs place DTensors
-(``parallel.sharding.shard_params``, ``replicate``)."""
+not import torch. ``data_sharding`` is the twin of the JAX helper: the
+mesh's data places, into which a batch's leading dimension splits. The
+JAX ``replicated`` has no twin: ``parallel.sharding.replicate`` copies a
+model onto each data place of a serving mesh (and places DTensors on a
+process mesh)."""
 
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ _NAMES = {
                      "register_policy", "replicas_for"), "fleet"),
     **dict.fromkeys(("QuarantineRegistry", "get_quarantine", "reset_quarantine"), "quarantine"),
     **dict.fromkeys(("ResultCache", "get_result_cache", "reset_result_cache"), "result_cache"),
-    **dict.fromkeys(("DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "build_mesh", "local_batch_multiple", "resolve_axes"),
-                    "mesh"),
+    **dict.fromkeys(("DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "build_mesh", "data_sharding", "local_batch_multiple",
+                     "resolve_axes"), "mesh"),
     **dict.fromkeys(("Policy", "get_policy"), "policy"),
     **dict.fromkeys(("WeightLoadError", "apply_rules", "assert_tree_shapes", "conv_kernel", "flatten",
                      "linear_kernel", "load_state_dict", "unflatten"), "weights"),
@@ -53,6 +54,7 @@ __all__ = [
     "get_result_cache",
     "reset_result_cache",
     "build_mesh",
+    "data_sharding",
     "resolve_axes",
     "local_batch_multiple",
     "DATA_AXIS",

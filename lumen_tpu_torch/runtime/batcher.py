@@ -29,6 +29,12 @@ function on a torch device:
   back to the callers. A plain ``.cpu()`` here would run on the default
   stream, behind the NEXT batch's compute, and undo the overlap.
 
+Over a ``data`` axis above 1 (:func:`mesh_sharded`) a batch's rows split
+into one part a data place: each part is copied to and run on its place's
+device, comes back as :class:`Parts`, and the fetch copies each part on
+that place's side stream, after that place's event, before joining the
+rows in batch order.
+
 The two lanes overlap: batch *k+1* is being collected, stacked, and
 dispatched while batch *k* computes on device and its transfer completes.
 ``LUMEN_BATCH_INFLIGHT`` (default 2) bounds how many dispatched-but-
@@ -72,6 +78,7 @@ layer's ``lumen-retry-after-ms`` hint) back off proportionally.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -144,19 +151,63 @@ def mesh_buckets(max_batch: int, dp: int) -> list[int]:
     return [dp * b for b in default_buckets(max_batch // dp)]
 
 
+class Parts:
+    """A batch's un-fetched results over a ``data`` axis: one tree a data
+    place, in place order (place ``i`` holds the rows after place
+    ``i - 1``'s). :func:`record_ready` records one event a place,
+    :func:`device_get` fetches each part on its place's side stream and
+    joins the rows in batch order, :func:`synchronize` waits for every
+    place."""
+
+    __slots__ = ("trees",)
+
+    def __init__(self, trees: list):
+        self.trees = list(trees)
+
+
+def on_device(device: torch.device):
+    """``device`` as the current CUDA device while inside (nothing on the
+    CPU): a launch that reads the current device or stream finds the
+    place's own."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def mesh_sharded(fn, mesh):
-    """Wrap a ``fn(batched_tree, n)`` so the stacked batch is placed on the
-    replica's device (``mesh.device``, :class:`~.mesh.DeviceMesh`) before
-    the device call: pinned staging buffers copy with ``non_blocking``,
-    and the wrapped call launches asynchronously — the wrapper returns
-    un-fetched results, which is exactly what the pipelined collector
-    wants."""
-    device = mesh.device
+    """Wrap a ``fn(batched_tree, n)`` for the mesh's ``data`` places (JAX
+    ``mesh_sharded``, one micro-batch spread over the data axis): ``fn``
+    is one callable a place, in place order, or one callable for every
+    place (one that follows its input's device). The stacked tree is split
+    into equal contiguous parts (:func:`~.mesh.data_sharding`; a batch
+    that does not split evenly raises ``ValueError``), part ``i`` is copied
+    to place ``i``'s device with ``non_blocking`` from the pinned staging
+    buffer, and place ``i``'s callable is launched on it with the count of
+    real rows the part holds. Returns the un-fetched result of a
+    one-place mesh, else :class:`Parts` -- exactly what the pipelined
+    collector wants."""
+    from .mesh import data_sharding
 
-    def wrapped(tree, n):
-        return fn(tree_map(lambda x: to_device(x, device), tree), n)
+    sharding = data_sharding(mesh)
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn] * len(sharding.devices)
+    if len(fns) != len(sharding.devices):
+        raise ValueError(f"{len(fns)} callables for the {len(sharding.devices)} data places of {mesh}")
+    if len(fns) == 1:
+        device, place_fn = sharding.devices[0], fns[0]
 
-    return wrapped
+        def wrapped(tree, n):
+            return place_fn(tree_map(lambda x: to_device(x, device), tree), n)
+
+        return wrapped
+
+    def wrapped_parts(tree, n):
+        parts = sharding.split(tree)
+        per = len(tree_flatten(parts[0])[0][0])
+        out = []
+        for i, (device, part) in enumerate(zip(sharding.devices, parts)):
+            with on_device(device):
+                out.append(fns[i](tree_map(lambda x: to_device(x, device), part), max(0, min(per, n - i * per))))
+        return Parts(out)
+
+    return wrapped_parts
 
 
 def to_device(x: Any, device: torch.device) -> torch.Tensor:
@@ -175,8 +226,8 @@ def warmup_batcher(batcher: "MicroBatcher", make_dummy: Callable[[int], Any]) ->
     """Run every bucket once through the batcher's OWN callable — the same
     code path real traffic takes (a hand-rolled warmup twin could silently
     drift from the serving fn). Batcher fns launch asynchronously (the
-    fetch worker owns the transfer), so synchronize here: warmup must not
-    return with work queued."""
+    fetch worker owns the transfer), so synchronize here, every data
+    place's device: warmup must not return with work queued."""
     for b in batcher.buckets:
         synchronize(batcher.fn(make_dummy(b), b))
 
@@ -526,7 +577,7 @@ class _Inflight:
         entries: list[tuple] | None = None,
         arena: list | None = None,
         t_dispatch: float = 0.0,
-        ready: "torch.cuda.Event | None" = None,
+        ready: "torch.cuda.Event | list | None" = None,
     ):
         self.futures = futures
         self.result = result  # un-fetched device result tree
@@ -606,9 +657,10 @@ class MicroBatcher:
             raise ValueError("max_batch must be >= 1")
         self.fn = fn
         self.pin_memory = pin_memory
-        # Side streams of the fetch worker's device->host copies, by device
-        # (created by the fetch worker on first use).
-        self._d2h_streams: dict[torch.device, torch.cuda.Stream] = {}
+        # Side streams of the fetch worker's device->host copies, its own
+        # (one batcher's fetch never queues behind another's compute), one
+        # a data place and device, made on first use.
+        self._d2h_streams = SideStreams()
         # Replica tag when this batcher is one slice of a ReplicaSet
         # (runtime/fleet.py): rides the ``batch.device`` trace span so a
         # slow trace names the chip slice that served it.
@@ -1378,18 +1430,9 @@ class MicroBatcher:
             result = self._execute(entries, n, bucket_for(n, self.buckets))
             ready = record_ready(result)
             with self._watched([e[1] for e in entries]):
-                return unstack(result, n, ready, self._d2h_stream)
+                return unstack(result, n, ready, self._d2h_streams)
         finally:
             telemetry.busy(f"device:{self.name}", t0, time.monotonic())
-
-    def _d2h_stream(self, device: torch.device) -> "torch.cuda.Stream":
-        """This batcher's side stream for device->host copies on
-        ``device`` (its own, so one batcher's fetch never queues behind
-        another's compute)."""
-        stream = self._d2h_streams.get(device)
-        if stream is None:
-            stream = self._d2h_streams.setdefault(device, torch.cuda.Stream(device=device))
-        return stream
 
     # -- watchdog ----------------------------------------------------------
 
@@ -1524,7 +1567,7 @@ class MicroBatcher:
             try:
                 with self._watched(entry.futures):
                     rows = _unstack_guarded(
-                        entry.result, entry.n, entry.arena, entry.ready, self._d2h_stream
+                        entry.result, entry.n, entry.arena, entry.ready, self._d2h_streams
                     )
             except Exception as e:  # noqa: BLE001 - contain, or fan out to THIS batch only
                 # A device error often surfaces at the FETCH, not the
@@ -1682,11 +1725,14 @@ def stack_and_pad(items: list[Any], size: int, pin: bool = False) -> Any:
     return tree_map(stack, *items)
 
 
-def record_ready(tree: Any) -> "torch.cuda.Event | None":
+def record_ready(tree: Any) -> "torch.cuda.Event | list | None":
     """An event on the current stream of the result's CUDA device,
     recorded right after the batch's work was launched (None for a host
     result): the fetch's side stream waits on exactly that work, never on
-    work launched after it."""
+    work launched after it. :class:`Parts` get one a place, in place
+    order."""
+    if isinstance(tree, Parts):
+        return [record_ready(t) for t in tree.trees]
     leaves, _ = tree_flatten(tree)
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
@@ -1695,8 +1741,9 @@ def record_ready(tree: Any) -> "torch.cuda.Event | None":
 
 
 def synchronize(tree: Any) -> None:
-    """Wait for the device work behind a result tree (``block_until_ready``)."""
-    leaves, _ = tree_flatten(tree)
+    """Wait for the device work behind a result tree (``block_until_ready``),
+    on every device it spans (every data place of :class:`Parts`)."""
+    leaves, _ = tree_flatten(tree.trees if isinstance(tree, Parts) else tree)
     for dev in {leaf.device for leaf in leaves if isinstance(leaf, torch.Tensor) and leaf.is_cuda}:
         torch.cuda.synchronize(dev)
 
@@ -1708,21 +1755,69 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+#: ``stream_for(device, place)``: the side stream of a data place's copies
+#: on a device
+StreamFor = Callable[[torch.device, int], "torch.cuda.Stream"]
+
+
+class SideStreams:
+    """Side streams for device->host copies, one a data place and device
+    (a :data:`StreamFor`), made on first use: keyed by the place's index
+    as well as its device, so two places on one card never share one."""
+
+    def __init__(self) -> None:
+        self._streams: dict[tuple[int, torch.device], torch.cuda.Stream] = {}
+
+    def __call__(self, device: torch.device, place: int = 0) -> "torch.cuda.Stream":
+        key = (place, device)
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams.setdefault(key, torch.cuda.Stream(device=device))
+        return stream
+
+    def __len__(self) -> int:
+        return len(self._streams)
+
+
+class _Fetch:
+    """One launched device->host copy of a tree's CUDA leaves (see
+    :func:`_fetch_cuda`); :meth:`wait` returns their host arrays."""
+
+    __slots__ = ("tensors", "host", "done")
+
+    def __init__(self, tensors: list[torch.Tensor], host: torch.Tensor, done: "torch.cuda.Event"):
+        self.tensors, self.host, self.done = tensors, host, done
+
+    def wait(self) -> list[np.ndarray]:
+        self.done.synchronize()
+        tensors, host = self.tensors, self.host
+        if len(tensors) == 1:
+            return [np.array(_host_numpy(host).reshape(tensors[0].shape))]
+        out, off = [], 0
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            out.append(np.array(_host_numpy(host[off:off + n].clone().view(t.dtype).reshape(t.shape))))
+            off += n
+        return out
+
+
 def _fetch_cuda(
     tensors: list[torch.Tensor],
     ready: "torch.cuda.Event | None",
-    stream_for: Callable[[torch.device], "torch.cuda.Stream"] | None,
-) -> list[np.ndarray]:
-    """ONE device->host copy for all of a batch's CUDA leaves: on a side
-    stream that first waits on ``ready``, the leaves (as bytes, concatenated
-    when there are several) go to one pinned host buffer; the host waits
-    on that stream's event alone. ``record_stream`` tells the caching
+    stream_for: StreamFor | None,
+    place: int = 0,
+) -> _Fetch:
+    """Launch ONE device->host copy for all of a tree's CUDA leaves: on
+    the side stream of ``place`` on their device, which first waits on
+    ``ready``, the leaves (as bytes, concatenated when there are several)
+    go to one pinned host buffer; the host then waits on that stream's
+    event alone (:meth:`_Fetch.wait`). ``record_stream`` tells the caching
     allocator the leaves are read on the side stream, so their memory is
     not handed to a later batch before the copy has read it."""
     device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise ValueError(f"batch result spans devices {sorted({str(t.device) for t in tensors})}")
-    stream = stream_for(device) if stream_for is not None else torch.cuda.Stream(device=device)
+    stream = stream_for(device, place) if stream_for is not None else torch.cuda.Stream(device=device)
     if ready is None:
         ready = torch.cuda.current_stream(device).record_event()
     stream.wait_event(ready)
@@ -1737,44 +1832,54 @@ def _fetch_cuda(
         done = stream.record_event()
     for t in tensors:
         t.record_stream(stream)
-    done.synchronize()
-    if len(flat) == 1:
-        return [np.array(_host_numpy(host).reshape(tensors[0].shape))]
-    out, off = [], 0
-    for t in tensors:
-        n = t.numel() * t.element_size()
-        out.append(np.array(_host_numpy(host[off:off + n].clone().view(t.dtype).reshape(t.shape))))
-        off += n
-    return out
+    return _Fetch(tensors, host, done)
+
+
+def _device_get_start(tree: Any, ready, stream_for: StreamFor | None, place: int):
+    """Launch the fetch of one tree's CUDA leaves; ``finish()`` of the
+    returned callable gives the host tree."""
+    leaves, treedef = tree_flatten(tree)
+    cuda = [i for i, leaf in enumerate(leaves) if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
+    fetch = _fetch_cuda([leaves[i] for i in cuda], ready, stream_for, place) if cuda else None
+
+    def finish() -> Any:
+        fetched = dict(zip(cuda, fetch.wait())) if fetch is not None else {}
+        host = [
+            fetched[i] if i in fetched
+            else _host_numpy(leaf) if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf)
+            for i, leaf in enumerate(leaves)
+        ]
+        return tree_unflatten(treedef, host)
+
+    return finish
 
 
 def device_get(
     tree: Any,
-    ready: "torch.cuda.Event | None" = None,
-    stream_for: Callable[[torch.device], "torch.cuda.Stream"] | None = None,
+    ready: "torch.cuda.Event | list | None" = None,
+    stream_for: StreamFor | None = None,
 ) -> Any:
     """A result tree on the host, as numpy (``jax.device_get``): CUDA
     leaves through :func:`_fetch_cuda` (``ready``: the event recorded
-    after the batch's work; ``stream_for``: the side stream of a device),
-    CPU tensors as numpy, anything else through ``np.asarray``."""
-    leaves, treedef = tree_flatten(tree)
-    cuda = [i for i, leaf in enumerate(leaves) if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
-    fetched = dict(zip(cuda, _fetch_cuda([leaves[i] for i in cuda], ready, stream_for))) if cuda else {}
-    host = [
-        fetched[i] if i in fetched
-        else _host_numpy(leaf) if isinstance(leaf, torch.Tensor)
-        else np.asarray(leaf)
-        for i, leaf in enumerate(leaves)
-    ]
-    return tree_unflatten(treedef, host)
+    after the batch's work; ``stream_for``: the side stream of a data place
+    on a device), CPU tensors as numpy, anything else through
+    ``np.asarray``. :class:`Parts` (``ready`` one event a place): every
+    place's copy is launched on its own side stream before any is waited
+    on, and the rows are joined in place order."""
+    if not isinstance(tree, Parts):
+        return _device_get_start(tree, ready, stream_for, 0)()
+    readies = ready if ready is not None else [None] * len(tree.trees)
+    finish = [_device_get_start(t, r, stream_for, i) for i, (t, r) in enumerate(zip(tree.trees, readies))]
+    return tree_map(lambda *rows: np.concatenate(rows), *(f() for f in finish))
 
 
 def _unstack_guarded(
     tree: Any,
     n: int,
     arena: list | None,
-    ready: "torch.cuda.Event | None" = None,
-    stream_for: Callable[[torch.device], "torch.cuda.Stream"] | None = None,
+    ready: "torch.cuda.Event | list | None" = None,
+    stream_for: StreamFor | None = None,
 ) -> list[Any]:
     """``unstack`` with an arena-alias guard: a passthrough/zero-copy
     backend can hand back host arrays that ALIAS the reusable staging
@@ -1801,8 +1906,8 @@ def _unstack_guarded(
 def unstack(
     tree: Any,
     n: int,
-    ready: "torch.cuda.Event | None" = None,
-    stream_for: Callable[[torch.device], "torch.cuda.Stream"] | None = None,
+    ready: "torch.cuda.Event | list | None" = None,
+    stream_for: StreamFor | None = None,
 ) -> list[Any]:
     """Split a batched result tree back into ``n`` single-item trees (host
     numpy). :func:`device_get` on the WHOLE tree makes one device->host

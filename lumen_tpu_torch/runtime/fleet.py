@@ -8,11 +8,13 @@ slice:
   device list; the CPU tests pass one) into N slices
   (``LUMEN_REPLICAS`` / per-family ``LUMEN_REPLICAS_<FAMILY>`` override,
   ``max`` = one replica per slice) and builds one
-  :class:`~lumen_tpu_torch.runtime.mesh.DeviceMesh` per slice. A replica
-  count that does not divide the device count degrades to the largest one
-  that does, with a one-shot warning — ``LUMEN_REPLICAS=8`` on a 4-card
-  host serves 4 replicas instead of failing boot. On one H100 the plan is
-  one replica, and :func:`build_fleet` hands back the plain batcher.
+  :class:`~lumen_tpu_torch.runtime.mesh.DeviceMesh` per slice, the JAX
+  shapes: one replica over ``n`` cards is ``{"data": n}``, ``N`` replicas
+  ``{"data": n / N}`` each. A replica count that does not divide the
+  device count degrades to the largest one that does, with a one-shot
+  warning — ``LUMEN_REPLICAS=8`` on a 4-card host serves 4 replicas
+  instead of failing boot. On one H100 the plan is one replica, and
+  :func:`build_fleet` hands back the plain batcher.
 - :class:`ReplicaSet` is a drop-in for the single
   :class:`~lumen_tpu_torch.runtime.batcher.MicroBatcher` a manager owns:
   ``submit``/``__call__`` route each request to one replica through a
@@ -33,12 +35,15 @@ slice:
 :class:`EngineFleet` is the scale-actuator adapter of the families that
 dispatch without a MicroBatcher: OCR's direct lane and the VLM continuous
 engine replicas (``models/vlm/manager.py`` builds one when
-``LUMEN_REPLICAS_VLM`` asks for more than one). Not ported: tensor-parallel
-slices (a ``model`` axis raises, :mod:`~lumen_tpu_torch.runtime.mesh`).
+``LUMEN_REPLICAS_VLM`` asks for more than one). Each replica's mesh keeps
+the rest of its slice on ``data``: its batches split over the slice's
+cards (``runtime.batcher.mesh_sharded``). Not served yet: replicas of an
+``expert x model`` group (ROADMAP queue A, item 2d-ii).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
@@ -230,7 +235,7 @@ def plan_replicas(
     if grouped and requested != 1:
         raise NotImplementedError(
             f"{family}: {'max' if requested == -1 else requested} replicas of {grouped} axes: replicas x expert "
-            "or tensor parallelism is not served yet (ROADMAP queue A, item 2d)"
+            "or tensor parallelism is not served yet (ROADMAP queue A, item 2d-ii)"
         )
     if grouped:
         # One replica on the process's expert x model group: its ranks'
@@ -283,14 +288,17 @@ def fleet_devices(device: torch.device) -> list[torch.device]:
     return devs[device.index:] + devs[: device.index]
 
 
-def replicate_all(place: Callable[[Any], Any], plan: FleetPlan, primary: Any | None = None) -> list[Any]:
-    """One placement per replica: ``place(mesh)`` puts a copy of the
-    weights on that replica's device (a module moved there, in the port).
-    ``primary`` reuses an already-placed copy for replica 0 so the common
-    path never double-places."""
-    out = [primary if primary is not None else place(plan.meshes[0])]
-    out.extend(place(m) for m in plan.meshes[1:])
-    return out
+def replicate_all(params: Any, plan: FleetPlan) -> list[list[Any]]:
+    """The weights on every replica: for each replica mesh, one copy a
+    data place in place order (``parallel.sharding.replicate``). ``params``
+    is what ``replicate`` takes; a module goes to replica 0's first place
+    itself, and every other replica starts from a deep copy of it, made
+    before it moves."""
+    from ..parallel.sharding import replicate
+
+    rest = [replicate(copy.deepcopy(params) if isinstance(params, torch.nn.Module) else params, m)
+            for m in plan.meshes[1:]]
+    return [replicate(params, plan.meshes[0]), *rest]
 
 
 def batcher_name(base: str, rid: int | None) -> str:

@@ -2,14 +2,22 @@
 ``lumen_tpu/runtime/mesh.py``).
 
 The JAX package runs every model call under a ``jax.sharding.Mesh``. The
-port serves one replica on one torch device: a :class:`DeviceMesh` is the
-device list a replica owns and the resolved axis sizes the JAX mesh would
-have had over it, so the fleet and the capability surface read the same
-``shape`` mapping.
+port serves one replica on the torch devices of a :class:`DeviceMesh`:
+the device list a replica owns and the resolved axis sizes the JAX mesh
+would have had over it, so the fleet and the capability surface read the
+same ``shape`` mapping.
 
 Axis names are the JAX package's. :func:`resolve_axes` is its pure-Python
 resolver, unchanged. What a serving replica runs:
 
+- a ``data`` axis above 1 is data parallelism in one process, as the JAX
+  package serves it: every model the replica runs is copied onto each
+  data place (``parallel.sharding.replicate``), and each micro-batch is
+  split into equal contiguous parts in batch order, one a place
+  (:func:`data_sharding`), run there, and its results come back to the
+  host in batch order (``runtime.batcher.mesh_sharded``). No collective:
+  one process drives every card of the axis. A place is an index, not a
+  device: a mesh may name one card twice;
 - an ``expert`` or ``model`` axis above 1 is expert or tensor parallelism
   over a rank-0/worker group of ``expert x model`` ranks
   (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a device,
@@ -18,14 +26,10 @@ resolver, unchanged. What a serving replica runs:
   :class:`~lumen_tpu_torch.parallel.tp.TensorParallel` (``tp``) and its
   :class:`~lumen_tpu_torch.parallel.tp.ExpertParallel` (``ep``, None
   without an expert axis); axes larger than the devices, or other than
-  the group's, raise (never a replicated fallback);
+  the group's, raise (never a replicated fallback). A ``data`` axis above
+  1 beside them raises too (ROADMAP queue A, item 2d-ii);
 - a ``seq`` or ``stage`` axis above 1 raises ``NotImplementedError``
-  naming the ROADMAP item that would lift it;
-- a ``data`` axis above 1 (one micro-batch spread over several devices)
-  degrades to 1 with a one-shot warning: the replica serves on its first
-  device, or its first ``expert x model`` group of devices. Several cards
-  serve as several replicas, one a card (``LUMEN_REPLICAS=max``,
-  :mod:`lumen_tpu_torch.runtime.fleet`).
+  naming the ROADMAP item that would lift it.
 
 SPMD programs -- the trainer and the functions of
 :mod:`lumen_tpu_torch.parallel` -- run one process a device in a
@@ -128,8 +132,9 @@ def resolve_axes(axes: dict[str, int], n_devices: int) -> dict[str, int]:
 
 class DeviceMesh:
     """The devices one replica serves on, with the resolved axis sizes
-    (``shape``, as ``jax.sharding.Mesh.shape``). The port places a
-    replica's weights and batches on :attr:`device`."""
+    (``shape``, as ``jax.sharding.Mesh.shape``): ``data x expert x model``
+    devices, data-major. Data place ``i`` serves on
+    ``data_devices[i]``; :attr:`device` is place 0's."""
 
     __slots__ = ("devices", "shape", "group")
 
@@ -156,8 +161,49 @@ class DeviceMesh:
     def device(self) -> torch.device:
         return self.devices[0]
 
+    @property
+    def data_devices(self) -> list[torch.device]:
+        """The device of each data place, in place order (the first device
+        of each ``expert x model`` block)."""
+        ranks = math.prod(group_shape(self.shape).values())
+        return self.devices[::ranks][: self.shape.get(DATA_AXIS, 1)]
+
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape}, {[str(d) for d in self.devices]})"
+
+
+class DataSharding:
+    """The port's twin of a ``NamedSharding(mesh, P("data"))``: a batch's
+    leading dimension split into the mesh's data places, equal contiguous
+    parts in batch order (:func:`data_sharding`)."""
+
+    __slots__ = ("devices",)
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+
+    def rows(self, batch: int) -> int:
+        """Rows a place holds of a ``batch``-row leading dimension; a batch
+        the places cannot split evenly raises, as ``jax.device_put`` does."""
+        if batch % len(self.devices):
+            raise ValueError(
+                f"a batch of {batch} rows does not split over the {len(self.devices)} places of the "
+                f"'{DATA_AXIS}' axis: its global size should be divisible by {len(self.devices)}"
+            )
+        return batch // len(self.devices)
+
+    def split(self, tree) -> list:
+        """``tree``'s leaves cut into one tree a place (views, not copies,
+        on the leaves' own device)."""
+        from .batcher import tree_flatten, tree_unflatten
+
+        leaves, treedef = tree_flatten(tree)
+        sizes = {len(leaf) for leaf in leaves}
+        if len(sizes) != 1:
+            raise ValueError(f"the leaves of a batch have different leading sizes {sorted(sizes)}")
+        per = self.rows(sizes.pop())
+        return [tree_unflatten(treedef, [leaf[i * per:(i + 1) * per] for leaf in leaves])
+                for i in range(len(self.devices))]
 
 
 def local_devices() -> list[torch.device]:
@@ -176,11 +222,13 @@ def build_mesh(
     devices: Sequence[torch.device] | None = None,
 ) -> DeviceMesh:
     """A replica's device slice: by default every local CUDA device on one
-    ``data`` axis, as the JAX ``build_mesh``. An ``expert`` or ``model``
-    axis above 1 runs on the process's serving group
-    (``runtime.tp_group``), whose devices it takes when ``devices`` is not
-    given; ``seq`` and ``stage`` raise; a ``data`` axis above 1 serves on
-    the slice's first device or first group (module docstring)."""
+    ``data`` axis, as the JAX ``build_mesh`` (a resolved size below the
+    device count serves on the prefix). An ``expert`` or ``model`` axis
+    above 1 runs on the process's serving group (``runtime.tp_group``),
+    whose devices it takes when ``devices`` is not given; ``seq`` and
+    ``stage`` raise, and so does a ``data`` axis above 1 beside an
+    ``expert`` or ``model`` one (module docstring). ``devices`` may name
+    one device more than once: each entry is a place of its own."""
     from . import tp_group
 
     axes = axes or {DATA_AXIS: -1}
@@ -213,17 +261,11 @@ def build_mesh(
     devices = devices[:used]
     shape = group_shape(resolved)
     ranks = math.prod(shape.values())
-    if resolved.get(DATA_AXIS, 1) > 1:
-        key = f"data={resolved[DATA_AXIS]}"
-        if key not in _degrade_warned:
-            _degrade_warned.add(key)
-            logger.warning(
-                "mesh %s: a data axis over %d devices within one replica is not ported; "
-                "serving on %s (LUMEN_REPLICAS=max serves one replica per device)",
-                resolved, len(devices), [str(d) for d in devices[:ranks]],
-            )
-        resolved[DATA_AXIS] = 1
-        devices = devices[:ranks]
+    if ranks > 1 and resolved.get(DATA_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"mesh {resolved}: a data axis over an expert x model group is not served by lumen_tpu_torch yet "
+            "(ROADMAP queue A, item 2d-ii); serve the group alone, or the data axis alone"
+        )
     if ranks > 1:
         if group is None:
             raise RuntimeError(
@@ -269,11 +311,16 @@ def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "c
     return mesh
 
 
+def data_sharding(mesh: DeviceMesh) -> DataSharding:
+    """Shard the leading (batch) dimension over ``data``: the mesh's data
+    places (JAX ``data_sharding``)."""
+    return DataSharding(mesh.data_devices)
+
+
 def local_batch_multiple(mesh) -> int:
     """A batch fed to a data-parallel program must be a multiple of this:
     the ``data`` axis size of a serving or process mesh (JAX
-    ``local_batch_multiple``; 1 for a serving replica, whose data axis
-    serves on one device)."""
+    ``local_batch_multiple``)."""
     return axis_sizes(mesh).get(DATA_AXIS, 1)
 
 

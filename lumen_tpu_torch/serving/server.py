@@ -374,7 +374,9 @@ def serve(
     no enabled service) owns no model and resolves no device. Services
     whose mesh names an ``expert`` or ``model`` axis serve on one group of
     ``expert x model`` ranks this call starts (:func:`start_tensor_parallel`: ``tp_devices``,
-    ``tp_backend``) and the handle's ``stop`` ends.
+    ``tp_backend``) and the handle's ``stop`` ends. A mesh that names only
+    ``data`` starts no group: each manager spreads its batches over the
+    cards from ``device`` on in this process (``runtime.mesh``).
     ``port_override=0`` binds an OS-assigned port (``handle.port``);
     ``metrics_port`` starts the HTTP sidecar on loopback (0: an
     OS-assigned port, ``handle.metrics_server.port``)."""

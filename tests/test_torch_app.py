@@ -75,10 +75,12 @@ class TestPresets:
         assert detect_preset("cpu", 0).name == "cpu"
 
     def test_more_cards_still_one_card_preset(self):
-        """No multi-card preset: the server serves a data axis on the first
-        card only, so 4 cards get the one-card preset, not an idle claim."""
-        assert detect_preset("cuda", 4, H100_NAME).name == "cuda_h100_1"
-        assert all(p.chips <= 1 for p in PRESETS.values())
+        """A host with more cards than the one-card preset gets the largest
+        preset its cards cover (a data axis over all of them), never the
+        one-card preset with cards idle that a larger preset could use."""
+        assert detect_preset("cuda", 4, H100_NAME).name == "cuda_h100_4"
+        assert detect_preset("cuda", 2, H100_NAME).name == "cuda_h100_1"
+        assert {p.chips for p in PRESETS.values()} == {0, 1, 4, 8}
 
     def test_unknown_card_gets_cpu_only(self):
         """The kernels are built for sm_90a: a card that is not the H100
@@ -180,7 +182,7 @@ class TestConfigApi:
         async def fn(client):
             r = await client.get("/api/v1/config/presets")
             data = await r.json()
-            assert set(data["presets"]) == {"cpu", "cuda_h100_1"}
+            assert set(data["presets"]) == {"cpu", "cuda_h100_1", "cuda_h100_4", "cuda_h100_8"}
             assert data["tiers"] == ["minimal", "light_weight", "full"]
             return True
 

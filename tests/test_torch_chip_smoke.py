@@ -187,6 +187,23 @@ def test_chip_smoke_ingest_drive_runs_on_cpu(clip_drive, face_drive, ocr_drive):
     assert len(out["flood_counts"]) >= 2
 
 
+def test_chip_smoke_data_drive_runs_on_cpu(clip_drive, face_drive):
+    """Phase 19 at small sizes on the CPU, after phases 8 and 9: phase 8's
+    tiny CLIP directory and phase 9's small face pack over ``{"data": 2}``
+    on the CPU named twice, against the mesh-less managers: 16 photos at
+    batch 8, then the photo ingest of 8 (the launch gate emptied: the
+    plain paths launch nothing; no kernel rows on the CPU)."""
+    root, _, _ = clip_drive
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE19_KERNELS", ())
+        out = chip_smoke.drive_data(0, "cpu", root, device="cpu", n_photos=16, in_flight=8, batch_size=8, n_ingest=8,
+                                    face_batch=8)
+    assert out["cos_min"] >= chip_smoke.DATA_COSINE and out["ingest_cos"] >= chip_smoke.DATA_COSINE
+    assert out["labels_exact"] + out["label_ties"] == 16
+    assert out["launches"] == 0
+    assert out["faces"]["matched"] > 0
+
+
 def test_chip_smoke_vlm_options_drive_runs_on_cpu(clip_drive):
     """Phase 12 at small sizes on the CPU, after phases 6 and 8: a
     FastVLM-style directory with the FastViTHD stand-in at tiny widths
@@ -268,9 +285,46 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 19))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 20))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
                                         ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
-                                        ("15,18", {1, 15, 18})])
+                                        ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want
+
+
+@pytest.mark.parametrize("spec, want", [
+    (None, [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]}), (15, (16,), {16: []})]),
+    ("14", [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]})]),
+    ("12", [(8, (12,), {12: [6, 8]})]),
+    ("16", [(15, (16,), {16: []})]),
+    ("19", []),
+])
+def test_lanes_beside_the_main_one(spec, want):
+    """Which phases run beside the main lane, after which main-lane phase
+    each lane starts, and which main-lane phases each of its phases waits
+    for (its own earlier phases have ended before it)."""
+    assert chip_smoke.beside_plan(chip_smoke.phase_set(spec)) == want
+    # no main-lane phase reads a lane's results, and a lane starts only
+    # once every main-lane phase its first phase reads has ended
+    for phase in chip_smoke.ALL_PHASES - chip_smoke.BESIDE_PHASES:
+        assert not set(chip_smoke.PHASE_NEEDS.get(phase, ())) & chip_smoke.BESIDE_PHASES
+    for after, phases in chip_smoke.BESIDE_LANES:
+        assert all(n <= after for n in chip_smoke.PHASE_NEEDS.get(phases[0], ()))
+
+
+def test_a_lane_reports_through_its_last_line(tmp_path):
+    """A lane's process (``chip_smoke.py --beside``) hands back what its
+    phases returned on its last line; one that fails is an error at
+    :meth:`Beside.result`, never an empty report."""
+    import pickle
+
+    (tmp_path / "inputs.pkl").write_bytes(pickle.dumps({}))
+    lane = chip_smoke.Beside((), {"seed": 0, "root": str(tmp_path), "inputs": str(tmp_path / "inputs.pkl"),
+                                  "waits": {}})
+    assert lane.result() == {}
+    lane = chip_smoke.Beside((), {"seed": 0, "root": str(tmp_path), "inputs": str(tmp_path / "missing.pkl"),
+                                  "waits": {}})
+    with pytest.raises(AssertionError, match="failed: exit code 1"):
+        lane.result()
+    lane.stop()

@@ -3,8 +3,8 @@
 - ``plan_replicas`` over an explicit CPU device list plans the replica
   counts and slice sizes the JAX planner plans over the suite's 8 forced
   host devices (``LUMEN_REPLICAS_CLIP`` unset, 4, 3, ``max``, 8 on 4
-  devices); each port replica serves on one device, and a tensor-parallel
-  axis raises;
+  devices), each replica's mesh the JAX mesh's ``data`` shape over as
+  many devices; a tensor-parallel axis without its group raises;
 - ``build_fleet`` hands back the plain batcher for one replica and a
   ``ReplicaSet`` otherwise;
 - a replica wedged past its watchdog goes down, its siblings serve, and
@@ -80,17 +80,19 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
     got = port_fleet.plan_replicas("clip", devices=[CPU] * n_devices)
     for field in ("family", "replicas", "policy", "device_count", "devices_per_replica", "requested"):
         assert getattr(got, field) == getattr(want, field), field
-    # The port serves each replica on one device (a data axis within a
-    # replica is not ported): every mesh is data=1 over one device.
-    assert len(got.meshes) == got.replicas
-    assert all(m.shape == {"data": 1} and m.devices == [CPU] for m in got.meshes)
+    # Each replica's mesh is a data axis over its slice, the JAX mesh's
+    # shape ({"data": 8}, {"data": 2} x 4, ...) over as many devices.
+    assert len(got.meshes) == got.replicas == len(want.meshes)
+    for g, w in zip(got.meshes, want.meshes):
+        assert g.shape == dict(w.shape) and g.devices == [CPU] * w.devices.size
+        assert g.data_devices == [CPU] * w.shape["data"]
 
 
 def test_parallel_axes_raise(monkeypatch):
     # An expert or model axis runs on an expert x model serving group;
     # without one it raises (never a replicated fallback), and so does one
-    # larger than the host; seq and stage are not served, and replicas of
-    # such a group wait for item 2d.
+    # larger than the host; seq and stage are not served, and a data axis
+    # beside such a group and replicas of one wait for item 2d-ii.
     for axes in ({"model": 2}, {"expert": 2}, {"expert": 2, "model": 2}):
         with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * 4)
@@ -100,11 +102,14 @@ def test_parallel_axes_raise(monkeypatch):
         build_mesh({"expert": 2, "model": 2}, devices=[CPU] * 2)
     with pytest.raises(NotImplementedError, match="queue A, item 2e"):
         build_mesh({"seq": 2}, devices=[CPU] * 2)
+    for axes in ({"data": 2, "model": 2}, {"data": -1, "expert": 2}):
+        with pytest.raises(NotImplementedError, match="queue A, item 2d-ii"):
+            build_mesh(axes, devices=[CPU] * 4)
     with pytest.raises(RuntimeError, match="none is running"):
         port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
     monkeypatch.setenv("LUMEN_REPLICAS", "2")
     for axes in ({"model": 2}, {"expert": 2}):
-        with pytest.raises(NotImplementedError, match="queue A, item 2d"):
+        with pytest.raises(NotImplementedError, match="queue A, item 2d-ii"):
             port_fleet.plan_replicas("clip", axes, devices=[CPU] * 4)
     assert build_mesh(devices=[CPU]).shape == {"data": 1}
 

@@ -235,16 +235,34 @@ def test_parallel_package_is_checked():
             assert getattr(package, name) is not None, (package.__name__, name)
 
 
+def test_runtime_all_from_source():
+    """``runtime/__init__``'s ``__all__`` and its lazy name table, read
+    from the port's source (the package loads no torch on import): the
+    JAX names but the deliberate absences, ``data_sharding`` among them,
+    each mapped to the module of ``runtime`` that defines it."""
+    tree = ast.parse((ROOT / "lumen_tpu_torch" / "runtime" / "__init__.py").read_text())
+    port_all = next(set(ast.literal_eval(n.value)) for n in tree.body if isinstance(n, ast.Assign)
+                    and any(getattr(t, "id", "") == "__all__" for t in n.targets))
+    assert port_all == _jax_all("runtime") - RUNTIME_ABSENT
+    assert "data_sharding" in port_all and "data_sharding" not in RUNTIME_ABSENT
+    from lumen_tpu_torch import runtime
+
+    for name in port_all:
+        source = (ROOT / "lumen_tpu_torch" / "runtime" / f"{runtime._NAMES[name]}.py").read_text()
+        assert re.search(rf"^(def |class )?{name}\b", source, re.M), name
+
+
 #: JAX ``ops`` names the port exports under its own name
 OPS_RENAMED = {"nms_jax": "nms_torch"}
 #: JAX names with no package-level twin on purpose: the flash dispatch
 #: gates (a CUDA tensor launches its kernel or raises); ``attention``, whose
 #: JAX export shadows its module while the port's ``ops.attention`` stays
 #: the module of the kernels' wrappers (the function is
-#: ``ops.attention.attention``); and the NamedSharding helpers (a serving
-#: rank holds plain local tensors; SPMD programs place DTensors)
+#: ``ops.attention.attention``); and the ``replicated`` NamedSharding
+#: (``parallel.sharding.replicate`` copies a model onto a serving mesh's
+#: data places; SPMD programs place DTensors)
 OPS_ABSENT = {"flash_enabled", "flash_for_seq", "record_flash_ab", "attention"}
-RUNTIME_ABSENT = {"data_sharding", "replicated"}
+RUNTIME_ABSENT = {"replicated"}
 
 
 def test_decode_worker_loads_no_torch():
