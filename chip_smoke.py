@@ -359,9 +359,24 @@ Phases (any failure exits non-zero):
     tolerance), timed beside its bound and SDPA in phase 2, before any
     serving phase; the kernel table gains the place's vision row with
     (a)'s launches.
+20. serving and ingest over a ``data`` axis above a ``model`` axis
+    (``drive_dp_tp``): ``{data: 2, model: 2}`` as two gloo ranks sharing
+    the one card, each driving it named twice (the group's two data
+    places), from ``serve()`` on the running group, against mesh-less
+    managers on the card: (a) phase 8's ViT-B/32 in bf16, 128 pixels at
+    batch 64, embeddings within ``TP_CLIP_COSINE``, top-1 labels equal but
+    at near ties, ``flash_attention`` a vision layer a part on every place
+    of both ranks; (b) the photo ingest of phase 19 (b)'s photos over that
+    CLIP and phase 9's face pack on the same mesh, a sync a place a batch;
+    (c) phase 6's ``VLMConfig()`` on ``{model: 2}`` with
+    ``LUMEN_REPLICAS_VLM=2``: an engine a place, 2 requests of 12 greedy
+    tokens on each, the cache and paged kernels at each engine's place on
+    both ranks, tokens to phase 17 (b)'s rule; (d) NCCL at world size 1
+    with its place named twice. Each rank and place prints its launches,
+    peak memory and synchronize.
 
-The counts above are each drive's defaults; ``main`` runs phases 7 and
-9-17 cut in depth to keep all nineteen within the time limit (the
+The counts above are each drive's defaults; ``main`` runs phases 7, 9-17
+and 20 cut in depth to keep all twenty within the time limit (the
 comments beside each call in ``main`` list the cuts).
 
 Phases 12 then 14, and 16, run beside the main lane, each lane a process
@@ -372,7 +387,7 @@ its own process's, as its servers' and ranks' are theirs, so no phase
 reads another's launches. Every lane ends before phase 19, which times
 kernels with the card to itself. A lane's lines are echoed as they come.
 
-A run with no arguments drives all nineteen phases (``--phases 13``, a
+A run with no arguments drives all twenty phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -6804,23 +6819,31 @@ def tp_generate(mgr, jobs: list, max_new: int) -> list:
             job[0], job[1], max_new, 0.0, 1.0, False, 1.0, None, True, None).tokens), jobs))
 
 
-def tp_step_logits(mgr, msgs, canvas, tokens: list):
+def tp_step_logits(mgr, msgs, canvas, tokens: list, gen=None):
     """The logits that pick each of a greedy run's ``tokens`` after the
     prompt, on the host in float32, ``[len(tokens), V]``: the prompt as one
     prefill chunk (its last position's logits pick ``tokens[0]``), then
-    ``tokens[:-1]`` as a second chunk at its end."""
+    ``tokens[:-1]`` as a second chunk at its end. ``gen`` is the generator
+    that runs the chunks (default the manager's); one at another data
+    place of a group receives the prepared prompt by value there."""
     import torch
 
+    from lumen_tpu_torch.runtime.tp_group import place_of
+
     embeds, positions, _, _, _, _, n_live = mgr._prepare_inputs(msgs, canvas)
-    gen = mgr.generator
+    gen = gen or mgr.generator
     dev = gen.device
+    elsewhere = place_of(gen) is not place_of(mgr.model)
+    if elsewhere:
+        embeds, positions = embeds.to(dev, copy=True), positions.to(dev, copy=True)
     span = n_live + len(tokens) - 1
     caches = gen.new_prefill_cache(mgr.engine._admit_kv_len(max(int(embeds.shape[1]), span)))
     rows = [gen.prefill_chunk(caches, embeds, positions, 0, torch.tensor([n_live], dtype=torch.int32, device=dev),
                               last_only=True)[0]]
     if len(tokens) > 1:
-        prev, _, _ = mgr._prepare_text(torch.tensor([tokens[:-1]], device=dev),
-                                       torch.tensor([len(tokens) - 1], device=dev))
+        prev, _, _ = mgr._prepare_text(torch.tensor([tokens[:-1]], device=mgr.device),
+                                       torch.tensor([len(tokens) - 1], device=mgr.device))
+        prev = prev.to(dev, copy=True) if elsewhere else prev
         rows.append(gen.prefill_chunk(caches, prev, torch.arange(n_live, span, device=dev)[None], n_live,
                                       torch.tensor([span], dtype=torch.int32, device=dev))[0])
     return torch.cat(rows).float().cpu()
@@ -7551,6 +7574,344 @@ def drive_data(seed: int, card: str, root: Path, device: str = "cuda:0", n_photo
     return out
 
 
+#: phase 20: the kernels every data place of both ranks must launch in (a)
+#: and (b), and those each VLM engine's place must launch in (c)
+PHASE20_CLIP_KERNELS = ("flash_attention",)
+PHASE20_VLM_KERNELS = ("flash_attention_cache", "paged_attention")
+#: phase 20's mesh: two data places over a model axis of two ranks
+DP_TP_AXES = {"data": 2, "model": 2}
+
+
+def dp_tp_yaml(path: Path, cache_dir: Path, clip_model: str, vlm_model: str, batch_size: int) -> Path:
+    """Phase 20's deployment: ``clip`` on ``mesh: DP_TP_AXES`` (bf16, the
+    bulk batch, a 50 ms window so the round's requests fill it, no label
+    set: phase 8 holds the labels) and ``vlm`` on ``mesh: {model: 2}``
+    (bf16; its replicas come from ``LUMEN_REPLICAS_VLM``)."""
+    import yaml
+
+    def service(kind: str, model: str, axes: dict, **bs) -> dict:
+        return {"enabled": True, "package": f"lumen_tpu.models.{kind}",
+                "import_info": {"registry_class": f"lumen_tpu.serving.services.{kind}_service."
+                                                  f"{'ClipService' if kind == 'clip' else 'VlmService'}"},
+                "backend_settings": {"dtype": "bfloat16", "mesh": {"axes": axes}, **bs},
+                "models": {kind: {"model": model, "runtime": "jax"}}}
+
+    path.write_text(yaml.safe_dump({
+        "metadata": {"version": "1.0.0", "region": "other", "cache_dir": str(cache_dir)},
+        "deployment": {"mode": "hub", "services": ["clip", "vlm"]},
+        "server": {"port": 50051, "host": "127.0.0.1"},
+        "services": {"clip": service("clip", clip_model, DP_TP_AXES, batch_size=batch_size, max_batch_latency_ms=50.0),
+                     "vlm": service("vlm", vlm_model, {"model": 2}, batch_size=8)},
+    }))
+    return path
+
+
+def place_readouts(reports: list, kernel: str, places: int = 2) -> dict:
+    """Each rank's launches of ``kernel`` a data place, and each place's
+    peak memory and synchronize, from ``rank_report``s (each of which must
+    report ``places`` places)."""
+    if any(len(r["places"]) != places for r in reports):
+        raise AssertionError(f"a rank reports {[len(r['places']) for r in reports]} data places, not {places} each")
+    return {"launches": [[p["launches"][kernel] for p in r["places"]] for r in reports],
+            "peak_gib": [[round(p.get("peak_gib", 0.0), 3) for p in r["places"]] for r in reports],
+            "sync": [[p.get("sync", "ok") for p in r["places"]] for r in reports]}
+
+
+def nccl_place_probe(place, x):
+    """Phase 20 (d), a program at ``place`` of a group of one rank: ``x``
+    goes by value to each rank's device of the place (rank 0 keeps its
+    own, moved there); returns its sum over the place's plane (times the
+    place's number) on the host and the device it was computed on."""
+    import torch.distributed as dist
+
+    y = x.to(place.device).float() * (place.index + 1)
+    dist.all_reduce(y, group=place.plane)
+    return y.cpu(), str(y.device)
+
+
+def drive_dp_tp(seed: int, card: str, root: Path, vlm_dir: Path, photos: list, device: str = "cuda:0",
+                backend: str = "gloo", n_photos: int = 128, in_flight: int = 64, batch_size: int = 64,
+                n_ingest: int = 64, face_batch: int = 16, n_requests: int = 2, max_new: int = 12) -> dict:
+    """Phase 20: a ``data`` axis over a ``model`` axis, as two gloo ranks
+    sharing the one card, each driving it named twice (two data places of
+    the group: four places in all, no NCCL between cards, one host's
+    cores), from ``serve()`` of :func:`dp_tp_yaml` on the running group,
+    against mesh-less managers on the same card. (a) Phase 8's ViT-B/32
+    directory on ``{data: 2, model: 2}``: ``n_photos`` host-decoded pixels
+    at ``batch_size`` with ``in_flight`` at once, one gRPC answer,
+    embeddings within ``TP_CLIP_COSINE``, top-1 labels (the mesh-less
+    label matrix) equal but at near ties, ``flash_attention`` launched a
+    vision layer a part on every place of both ranks. (b) The photo ingest
+    of ``n_ingest`` of phase 19 (b)'s photos over that CLIP and phase 9's
+    face pack on the same mesh (face on rank 0's devices of the places),
+    IEEE float32 convolutions: records alike, a device-to-host sync a
+    place a batch. (c) Phase 6's directory on ``{model: 2}`` with
+    ``LUMEN_REPLICAS_VLM=2``: an engine a place, ``n_requests`` photo
+    requests of ``max_new`` greedy tokens on each, the cache and paged
+    kernels launched at each engine's place on both ranks, the tokens held
+    to the mesh-less run by phase 17 (b)'s rule. (d) NCCL at world size 1
+    with its place named twice: a by-value tensor and a sum on each
+    place's plane. Every rank and place reports its launches, peak memory
+    and a clean synchronize. The sizes let the CPU tests rehearse it small
+    (where (d) is skipped)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.clip import CLIPManager
+    from lumen_tpu_torch.models.face import FaceManager
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.pipeline.photo import PhotoIngestPipeline
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.runtime.tp_group import TPGroup, place_of, rank_report
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize, vlm_canvas
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    ranks = [[dev, dev], [dev, dev]]
+    models = root / "cache" / "models"
+    log(f"phase 20: {json.dumps(DP_TP_AXES)} as 2 gloo ranks sharing the card, each driving it named twice (4 places, "
+        f"no NCCL between cards, one host's cores); phase 8's CLIP, phase 9's face pack, phase 6's VLM [{card}]")
+    out: dict = {"parts_s": {}}
+    laps = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["parts_s"][part], laps[0] = round(now - laps[0], 1), now
+
+    clip_photos = photo_batch(seed * 100 + 20, n_photos)
+    size = json.loads((models / "SmokeCLIP" / "config.json").read_text())["vision_config"]["image_size"]
+    with ThreadPoolExecutor(8) as ex:
+        pixels = list(ex.map(lambda p: _spec_clip_resize(p, {"size": size}), clip_photos))
+    items = face_photos(seed * 100 + 19, n_ingest)  # phase 19 (b)'s photos
+    question = "describe this photo in one detailed sentence"
+    msgs = [ChatMessage("user", question)]
+    vsize = json.loads((vlm_dir / "config.json").read_text())["vision_config"]["image_size"]
+    canvases = [vlm_canvas(photos[i % len(photos)], vsize) for i in range(2 * n_requests)]
+    jobs = [(msgs, c) for c in canvases]
+
+    def ingest(clip, face) -> tuple:
+        pipe = PhotoIngestPipeline(clip.mesh, clip=clip, face=face, batch_size=batch_size)
+        list(pipe.run(items[:batch_size]))  # the face batchers warm
+        t0 = time.perf_counter()
+        records = list(pipe.run(items))
+        return records, pipe.stats.as_dict(), n_ingest / (time.perf_counter() - t0)
+
+    # The result cache off (every answer computed), CLIP's window fixed at
+    # 50 ms (the round fills the bulk batch), no speculation.
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_BATCH_ADAPTIVE="0", LUMEN_VLM_SPEC_K="0"):
+        reset_result_cache()
+        pending = ThreadPoolExecutor(max_workers=1)
+        starting = pending.submit(TPGroup.spawn, ranks, backend, TP_DEATH_TIMEOUT_S)  # beside the references
+        pending.shutdown(wait=False)
+        group = None
+        try:
+            # -- mesh-less references on the same card ---------------------------
+            ref = CLIPManager(str(models / "SmokeCLIP"), dataset="Smoke1k", dtype="bfloat16", batch_size=batch_size,
+                              max_batch_latency_ms=50.0, device=device, devices=[dev])
+            ref.initialize()
+            face = FaceManager(str(models / "buffalo_l"), dtype="bfloat16", batch_size=face_batch,
+                               max_batch_latency_ms=2.0, device=device, devices=[dev])
+            face.initialize()
+            try:
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(in_flight) as ex:
+                    ref_vecs = np.stack(list(ex.map(ref.encode_image_tensor, pixels)))
+                ref_images_s = n_photos / (time.perf_counter() - t0)
+                ref_photo0 = ref.encode_image(clip_photos[0])
+                matrix, names = ref._label_matrix, ref.label_names
+                with convolutions_tf32(False):
+                    ref_records, _, ref_ingest_s = ingest(ref, face)
+                face_thr = face.spec.score_threshold
+            finally:
+                face.close()
+                ref.close()
+            vlm_ref = VLMManager.from_model_dir(str(vlm_dir), device=device, dtype="bfloat16")
+            try:
+                want = tp_generate(vlm_ref, jobs, max_new)
+                logits = [tp_step_logits(vlm_ref, msgs, c, w) for c, w in zip(canvases, want)]
+            finally:
+                vlm_ref.close()
+            del vlm_ref
+            if on_card:
+                torch.cuda.empty_cache()
+            lap("mesh-less references")
+            group = starting.result()
+            lap("ranks started")
+            with env(LUMEN_REPLICAS_VLM="2"):
+                handle, channel, stub, load_s = boot_tp(
+                    dp_tp_yaml(root / "dp_tp.yaml", root / "cache", "SmokeCLIP", vlm_dir.name, batch_size), device,
+                    [dev] * 4, backend)
+            out["load_s"] = load_s
+            try:
+                clip = handle.services["clip"].managers["clip"]
+                vlm = handle.services["vlm"].manager
+                if clip.mesh.shape != DP_TP_AXES or clip.tp_group is not group or \
+                        [place_of(m).index for m in clip.place_models] != [0, 1]:
+                    raise AssertionError(f"(a): CLIP serves on {clip.mesh} with copies at places "
+                                         f"{[place_of(m).index for m in clip.place_models]}, not a copy a place of "
+                                         f"{DP_TP_AXES} on the running group")
+                lap("serve()")
+
+                # -- (a) CLIP over {data: 2, model: 2} -----------------------------
+                ib = clip._image_batcher
+                before = dict(ib.stats)
+                group.each_rank(rank_report, True)
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(in_flight) as ex:
+                    vecs = np.stack(list(ex.map(clip.encode_image_tensor, pixels)))
+                wall = time.perf_counter() - t0
+                a = place_readouts(group.each_rank(rank_report, True), "flash_attention")
+                batches = ib.stats["batches"] - before["batches"]
+                layers = clip.cfg.vision.layers
+                for r, row in enumerate(a["launches"]):
+                    for d, n in enumerate(row):
+                        if PHASE20_CLIP_KERNELS and n != layers * batches:
+                            raise AssertionError(f"(a) rank {r} place {d}: flash_attention launched {n} times over "
+                                                 f"{batches} batches, not a vision layer a part ({layers * batches})")
+                if any(s != "ok" for row in a["sync"] for s in row):
+                    raise AssertionError(f"(a): a place did not synchronize clean: {a['sync']}")
+                served = grpc_call(stub, "clip_image_embed", clip_photos[0], {})
+                if served["code"]:
+                    raise AssertionError(f"(a) clip_image_embed over gRPC: code {served['code']}")
+                served_vec = np.asarray(served["body"]["vector"], np.float32)
+                cos = np.concatenate([cosines(vecs, ref_vecs), cosines(served_vec[None], ref_photo0[None])])
+                if cos.min() < TP_CLIP_COSINE:
+                    raise AssertionError(f"(a): cosine to the mesh-less run {cos.min():.6f} < {TP_CLIP_COSINE}")
+                exact = ties = 0
+                for got, ref_vec in zip(vecs, ref_vecs):
+                    sims_a, sims_b = matrix @ got, matrix @ ref_vec
+                    top_a, top_b = int(np.argmax(sims_a)), int(np.argmax(sims_b))
+                    if top_a == top_b:
+                        exact += 1
+                    elif sims_b[top_b] - sims_b[top_a] <= 2 * float(np.linalg.norm(got - ref_vec)):
+                        ties += 1
+                    else:
+                        raise AssertionError(f"(a): top-1 {names[top_a]} vs the mesh-less {names[top_b]}, margin "
+                                             f"{sims_b[top_b] - sims_b[top_a]:.5f}")
+                out.update(a_images_s=n_photos / wall, a_images_s_plain=ref_images_s, a_cos=float(cos.min()),
+                           a_labels_exact=exact, a_label_ties=ties, a_batches=batches, a_readouts=a,
+                           a_per_batch=[[n / max(batches, 1) for n in row] for row in a["launches"]])
+                lap("(a) CLIP")
+
+                # -- (b) the photo ingest over that CLIP, and face -------------------
+                face = FaceManager(str(models / "buffalo_l"), dtype="bfloat16", batch_size=face_batch,
+                                   max_batch_latency_ms=2.0, mesh_axes=DP_TP_AXES, device=device)
+                face.initialize()
+                try:
+                    if [p.index for p in face.mesh.places] != [0, 1] or len(face.det_places) != 2:
+                        raise AssertionError(f"(b): face on {face.mesh}, not a copy a place of the group's two")
+                    with convolutions_tf32(False):
+                        group.each_rank(rank_report, True)
+                        records, stats, ingest_s = ingest(clip, face)
+                        b = place_readouts(group.each_rank(rank_report, True), "flash_attention")
+                finally:
+                    face.close()
+                emb = np.stack([rec.clip_embedding for rec in records])
+                cos_b = cosines(emb, np.stack([rec.clip_embedding for rec in ref_records]))
+                if cos_b.min() < TP_CLIP_COSINE:
+                    raise AssertionError(f"(b): ingested embeddings vs mesh-less, cosine {cos_b.min():.6f}")
+                tally = {"matched": 0, "near": 0, "iou_min": 1.0}
+                for i, (x, y) in enumerate(zip(records, ref_records)):
+                    if x.error or y.error or x.index != y.index:
+                        raise AssertionError(f"(b) record {i}: {x.error} / {y.error}, index {x.index} / {y.index}")
+                    t = match_near([{"bbox": f.bbox, "confidence": f.confidence, "embedding": f.embedding} for f in x.faces],
+                                   [{"bbox": f.bbox, "confidence": f.confidence, "embedding": f.embedding} for f in y.faces],
+                                   face_thr, TF32_SCORE_TOL, f"(b) photo {i} faces", FACE_IOU,
+                                   lambda g, w: box_iou(g["bbox"], w["bbox"]),
+                                   lambda g, w: float(np.dot(g["embedding"], w["embedding"])) >= FACE_COSINE)
+                    for k in ("matched", "near"):
+                        tally[k] += t[k]
+                    tally["iou_min"] = min(tally["iou_min"], t["iou_min"])
+                syncs = stats["syncs"] / max(stats["batches"], 1)
+                if on_card and syncs != 2.0:
+                    raise AssertionError(f"(b): device-to-host syncs a batch {syncs}, not one a place (2)")
+                if PHASE20_CLIP_KERNELS and any(n == 0 for row in b["launches"] for n in row):
+                    raise AssertionError(f"(b): a place of a rank launched no flash_attention: {b['launches']}")
+                out.update(b_images_s=ingest_s, b_images_s_plain=ref_ingest_s, b_cos=float(cos_b.min()), b_faces=tally,
+                           b_syncs=syncs, b_readouts=b)
+                lap("(b) ingest")
+
+                # -- (c) the VLM: two replicas of {model: 2}, an engine a place ------
+                shapes = [m.shape for m in vlm.fleet_plan.meshes]
+                engine_places = [place_of(e.gen).index for e in vlm._engines]
+                if shapes != [{"model": 2, "data": 1}] * 2 or engine_places != [0, 1]:
+                    raise AssertionError(f"(c): VLM replicas on {shapes} at places {engine_places}, not two "
+                                         f"{{model: 2}} replicas a place each")
+                group.each_rank(rank_report, True)
+                got, t0 = [], time.perf_counter()
+                for i, engine in enumerate(vlm._engines):
+                    vlm._pick_engine = lambda e=engine: e  # this engine serves its requests
+                    try:
+                        got += tp_generate(vlm, jobs[i * n_requests:(i + 1) * n_requests], max_new)
+                    finally:
+                        del vlm._pick_engine
+                wall = time.perf_counter() - t0
+                reports = group.each_rank(rank_report, True)
+                c = {k: place_readouts(reports, k) for k in PHASE20_VLM_KERNELS}
+                for k in PHASE20_VLM_KERNELS:
+                    if any(n == 0 for row in c[k]["launches"] for n in row):
+                        raise AssertionError(f"(c): {k} launched 0 times at an engine's place: {c[k]['launches']}")
+                first = []
+                for i, engine in enumerate(vlm._engines):  # each engine's first request, its first step
+                    j = i * n_requests
+                    step = tp_step_logits(vlm, msgs, canvases[j], want[j][:1], gen=engine.gen)[0]
+                    cos_c = float(torch.nn.functional.cosine_similarity(step, logits[j][0], dim=0))
+                    diff0 = float((step - logits[j][0]).abs().max())
+                    first.append({"engine": i, "cos": cos_c, "rel": diff0 / float(logits[j][0].abs().max())})
+                    if cos_c < TP_LOGIT_COSINE or first[-1]["rel"] > TP_LOGIT_REL:
+                        raise AssertionError(f"(c) engine {i}: first-step logits cosine {cos_c:.6f}, max|diff| "
+                                             f"{first[-1]['rel']:.4f} of max|logit|")
+                prefixes = [equal_prefix(g, w) for g, w in zip(got, want)]
+                parted = []
+                for j, p in enumerate(prefixes):
+                    if p == len(want[j]):
+                        continue
+                    engine = vlm._engines[j // n_requests]
+                    here = logits[j][p]
+                    diff = float((tp_step_logits(vlm, msgs, canvases[j], want[j][: p + 1], gen=engine.gen)[p]
+                                  - here).abs().max())
+                    parted.append({"request": j, "token": p, "ref_gap": top2_gap(here), "max_diff": diff})
+                    if parted[-1]["ref_gap"] > 2 * diff:
+                        raise AssertionError(f"(c) request {j} parts from the mesh-less run at token {p} where its "
+                                             f"top-2 gap {parted[-1]['ref_gap']:.4f} exceeds twice the logit "
+                                             f"difference {diff:.4f}: not a near tie")
+                out.update(c_first=first, c_prefix=prefixes, c_lengths=[len(w) for w in want], c_parted=parted,
+                           c_tok_s=sum(map(len, got)) / wall, c_readouts=c,
+                           c_peak_gib=[r.get("peak_gib", 0.0) for r in reports])
+                lap("(c) VLM replicas")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+        finally:
+            if group is None:
+                with contextlib.suppress(Exception):
+                    group = starting.result()
+            if group is not None:
+                group.stop()
+        reset_result_cache()
+
+    # -- (d) NCCL at world size 1, its place named twice -------------------------
+    if on_card:
+        one = TPGroup.spawn([[dev, dev]], "nccl", TP_DEATH_TIMEOUT_S)
+        try:
+            probes = []
+            for d in range(2):
+                for x in (torch.arange(4.0), torch.arange(4.0, device=dev)):
+                    y, where = one.place(d).run(nccl_place_probe, one.place(d), x)
+                    probes.append({"place": d, "from": str(x.device), "on": where, "sum": y.tolist()})
+                    if y.tolist() != [v * (d + 1) for v in range(4)] or where != str(dev):
+                        raise AssertionError(f"(d) NCCL at world size 1, place {d}: {y.tolist()} on {where}")
+        finally:
+            one.stop()
+        out["d_probes"] = probes
+        lap("(d) NCCL")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -7581,8 +7942,8 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
-               17: (6, 8), 19: (2, 8, 9)}
-ALL_PHASES = frozenset(range(1, 20))
+               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9)}
+ALL_PHASES = frozenset(range(1, 21))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -7984,9 +8345,10 @@ def main() -> int:
             lap(15)
         if 17 in run:
             torch.cuda.empty_cache()
-            # depth cut for phase 18's room: 4 fp32 text streams in (a) (were 8)
+            # depth cut for phases 18 and 20's room: 2 fp32 text streams in (a), 4 photo requests in (b)
+            # (were 8 and 8, then 4 and 8)
             tp = drive_tp(args.seed, card, Path(tmp), grpc_drive["model_dir"], Path(tmp) / "cache" / "models" / "SmokeCLIP",
-                          grpc_drive["photos"], n_streams=4)
+                          grpc_drive["photos"], n_streams=2, n_photos=4)
             log(f"phase 17 [{card}]: {tp['phase_s']:.1f} s in all, parts {json.dumps(tp['parts_s'])}; TP = 2 as two "
                 f"ranks sharing the card over gloo, not NCCL; (a) fp32: {tp['a_streams']} streams' greedy tokens "
                 f"({tp['a_tokens']} tokens) equal to TP = 1, served up in {tp['a_load_s']:.2f} s; (e) a spilled TP row "
@@ -8041,6 +8403,24 @@ def main() -> int:
                     f"{r['library_ms']:.4f})" for label, r in ((label, rows[f"flash_attention ({label})"])
                                                               for label in DATA_FLASH_SHAPES)) if 2 in run else ""))
             lap(19)
+        if 20 in run:
+            torch.cuda.empty_cache()
+            # depth cut for the run's room: 32 photos through (b)'s ingest, requests of 8 tokens in (c) (were 64, 12)
+            dp = drive_dp_tp(args.seed, card, Path(tmp), grpc_drive["model_dir"], grpc_drive["photos"], n_ingest=32,
+                             max_new=8)
+            log(f"phase 20 [{card}]: {dp['phase_s']:.1f} s in all, parts {json.dumps(dp['parts_s'])}; {{data: 2, model: "
+                f"2}} as 2 gloo ranks on the card named twice, served up in {dp['load_s']:.2f} s: (a) CLIP "
+                f"{dp['a_images_s']:.1f} vs {dp['a_images_s_plain']:.1f} images/s mesh-less, cosine min {dp['a_cos']:.6f}, "
+                f"top-1 labels equal {dp['a_labels_exact']}, near ties {dp['a_label_ties']}, flash launches a batch a rank "
+                f"and place {json.dumps(dp['a_per_batch'])} over {dp['a_batches']} batches, peak GiB a rank and place "
+                f"{json.dumps(dp['a_readouts']['peak_gib'])}, synchronize {json.dumps(dp['a_readouts']['sync'])}; (b) "
+                f"ingest {dp['b_images_s']:.1f} vs {dp['b_images_s_plain']:.1f} images/s, cosine min {dp['b_cos']:.6f}, "
+                f"faces {json.dumps(dp['b_faces'])}, syncs a batch {dp['b_syncs']:.1f}; (c) VLM 2 replicas of {{model: 2}}: "
+                f"first-step logits {json.dumps(dp['c_first'])}, equal prefixes {dp['c_prefix']} of {dp['c_lengths']} "
+                f"(partings {json.dumps(dp['c_parted'])}), {dp['c_tok_s']:.1f} tok/s, peak GiB a rank "
+                f"{[round(g, 3) for g in dp['c_peak_gib']]}; (d) NCCL at world size 1, the place named twice: "
+                f"{json.dumps(dp.get('d_probes'))}")
+            lap(20)
     beside_note = f" (phases {', '.join(map(str, sorted(BESIDE_PHASES & run)))} beside the main lane)" \
         if BESIDE_PHASES & run else ""
     log(f"seconds a phase: {json.dumps(dict(sorted(laps.items())))}{beside_note}; the run "
@@ -8055,6 +8435,12 @@ def main() -> int:
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| "
             f"{row['max_abs_err']:.3e}, {used} [{card}]")
+    for k in kernels:
+        a, b, c = dp["a_readouts"], dp["b_readouts"], dp["c_readouts"]
+        counts = ({"(a) CLIP": a["launches"], "(b) ingest": b["launches"]} if k.name == "flash_attention" else
+                  {"(c) VLM replicas": c[k.name]["launches"]} if k.name in c else {"(a)-(c)": "not on the path"})
+        log(f"kernel row {k.name}: phase-20 launches a rank (rows) and data place (columns) {json.dumps(counts)} "
+            f"[{card}]")
     for k in kernels:
         log(f"kernel row {k.name}: phase-18 launches a rank, (a) expert 2 "
             f"{[c[k.name] for c in ep['a']['launches']]}, (b) int8 + spec {[c[k.name] for c in ep['b']['launches']]}, "

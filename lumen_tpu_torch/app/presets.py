@@ -13,6 +13,15 @@ them by the data size (the batch is global: each card runs the one-card
 batch). The VLM's continuous engine serves on the first card
 (``models/vlm/manager.py``), so its slots do not scale.
 
+``cuda_h100_8_dp_tp`` is the JAX ``tpu_v*_16_dp_tp`` shape on an 8-card
+host: ``{"data": -1, "model": 2}``, four data places over a serving group
+of two tensor-parallel ranks (``runtime/tp_group.py``; CLIP and face
+batches scaled by the four places). It comes after ``cuda_h100_8`` in
+detection order, which stays the default for 8 cards: every model the
+port serves fits one H100, so a model axis only adds its sums; an
+operator picks the ``dp_tp`` preset by name for a decoder too wide for
+one card's share.
+
 ``supported_presets`` and ``detect_preset`` keep the JAX semantics: the
 presets runnable on the detected hardware, larger card counts strictly
 first (a 4-card host must never auto-pick the one-card preset and idle 3
@@ -82,17 +91,21 @@ class DevicePreset:
     max_tier: str = "full"
 
 
-def _h100_preset(chips: int, description: str) -> DevicePreset:
-    """An H100 host of ``chips`` cards on one ``data`` axis: the one-card
-    batches times the data size for CLIP and face (global batches)."""
+def _h100_preset(chips: int, description: str, model: int = 1) -> DevicePreset:
+    """An H100 host of ``chips`` cards on one ``data`` axis, or with
+    ``model`` above 1 on ``{"data": -1, "model": model}`` (name suffix
+    ``_dp_tp``): the one-card batches times the data size for CLIP and face
+    (global batches)."""
+    dp = chips // model
     return DevicePreset(
-        name=f"cuda_h100_{chips}",
+        name=f"cuda_h100_{chips}" + ("_dp_tp" if model > 1 else ""),
         description=description,
         platform="cuda",
         generation="h100_sxm",
         chips=chips,
-        batch_size=64 * chips,
-        face_batch=16 * chips,
+        mesh_axes={"data": -1, "model": model} if model > 1 else {"data": -1},
+        batch_size=64 * dp,
+        face_batch=16 * dp,
         ocr_batch=8,
         ocr_det_buckets=(320, 640, 960),
         vlm_gen_batch=8,
@@ -122,12 +135,14 @@ PRESETS: dict[str, DevicePreset] = {
         _h100_preset(1, "One NVIDIA H100 SXM 80GB"),
         _h100_preset(4, "4x NVIDIA H100 SXM 80GB, data-parallel mesh"),
         _h100_preset(8, "8x NVIDIA H100 SXM 80GB, data-parallel mesh"),
+        _h100_preset(8, "8x NVIDIA H100 SXM 80GB, 4-way data x 2-way tensor mesh", model=2),
     ]
 }
 
 # Order presets are tried during auto-detection: larger card counts
-# strictly before smaller ones, cards before the CPU.
-DETECTION_ORDER = ["cuda_h100_8", "cuda_h100_4", "cuda_h100_1", "cpu"]
+# before smaller ones, cards before the CPU; at one card count the plain
+# data-parallel preset first (module docstring).
+DETECTION_ORDER = ["cuda_h100_8", "cuda_h100_8_dp_tp", "cuda_h100_4", "cuda_h100_1", "cpu"]
 
 
 def supported_presets(

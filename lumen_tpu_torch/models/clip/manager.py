@@ -36,10 +36,13 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   tensor-parallel on the process's rank-0/worker group
   (``runtime.tp_group``): every rank places its shards by the JAX
   placement (``INT8_TP_RULES`` first when int8, then
-  ``TRANSFORMER_TP_RULES``; :func:`place_tp_clip`) and every tower
-  forward runs on every rank; the label matrix and the host softmax stay
-  on rank 0 (over a ``data`` axis, on place 0's copy: the softmax reads
-  the gathered rows).
+  ``TRANSFORMER_TP_RULES``; :func:`place_tp_clip`) on every data place of
+  every replica's slice of the group's places (the state sent once a
+  place, on the place's plane), and every tower forward runs on every
+  rank at its part's place; each place's rows come back on rank 0's
+  device of the place. The label matrix and the host softmax stay on
+  rank 0 (over a ``data`` axis, on place 0's copy: the softmax reads the
+  gathered rows).
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ from ...runtime.fleet import (
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
 from ...runtime.result_cache import get_result_cache, make_namespace
-from ...runtime.tp_group import run_on
+from ...runtime.tp_group import place_of, run_on
 from ...runtime.weights import WeightLoadError, load_state_dict
 from ...utils.metrics import metrics
 from .convert import convert_clip_checkpoint, quantize_clip_int8
@@ -294,13 +297,17 @@ class CLIPManager:
             )
         return state
 
-    def _place(self, model: CLIPModel) -> list:
-        """The serving placement of a host ``model`` on the primary mesh:
-        one copy a data place, or each rank's shards on a tensor-parallel
-        group."""
+    def _place(self, model: CLIPModel, mesh=None) -> list:
+        """The serving placement of a host ``model`` on ``mesh`` (default
+        the primary one): one copy a data place, or on a tensor-parallel
+        group each rank's shards at each of the mesh's places (the whole
+        state sent to a place on its own plane, where the place's shards
+        are cut)."""
+        mesh = mesh or self.mesh
         if self.tp_group is None:
-            return replicate(model, self.mesh)
-        return [self.tp_group.run(place_tp_clip, model.cfg, model.state_dict(), self.policy.param_dtype, self.tp_group)]
+            return replicate(model, mesh)
+        state, dtype = model.state_dict(), self.policy.param_dtype
+        return [place.run(place_tp_clip, model.cfg, state, dtype, place) for place in mesh.places]
 
     def _place_native(self, state: dict[str, torch.Tensor]) -> None:
         base_cfg = dataclasses.replace(self.cfg, weight_quant=None)
@@ -324,7 +331,7 @@ class CLIPManager:
         if model.cfg.weight_quant is None:
             self.cfg = model.cfg
         if self.tp_group is not None:
-            self._fleet_models = [[model] if getattr(model, "tp", None) else self._place(model)]
+            self._fleet_models = [self._place(model, mesh) for mesh in self.fleet_plan.meshes]
             return
         # Every replica gets its own copy of the weights on each data place.
         self._fleet_models = replicate_all(model, self.fleet_plan)
@@ -354,7 +361,7 @@ class CLIPManager:
         if self.quant_speedup >= 1.0:
             logger.info("CLIP int8 route confirmed: %.3fx bf16 at the top batch bucket", self.quant_speedup)
             self.quant_route = "int8"
-            return placed[0] if self.tp_group is not None else q_model
+            return q_model
         del placed
         logger.warning(
             "CLIP int8 route DISABLED: the warm-up A/B measured q8 at %.3fx bf16; serving bf16 instead. "
@@ -385,7 +392,7 @@ class CLIPManager:
 
         def run() -> None:
             for model, (pixels, mu, sigma) in zip(models, inputs):
-                run_on(self.tp_group, encode_images_native, model, pixels, mu, sigma, self.policy.compute_dtype)
+                run_on(place_of(model), encode_images_native, model, pixels, mu, sigma, self.policy.compute_dtype)
             for d in {d for d in devices if d.type == "cuda"}:
                 torch.cuda.synchronize(d)
 
@@ -462,11 +469,11 @@ class CLIPManager:
             def encode_images(model, pixels_u8):
                 # pixels_u8: [B, S, S, 3] uint8 on the model's device;
                 # normalize + cast on the device. fp32 unit-norm out.
-                return run_on(self.tp_group, encode_images_native, model, pixels_u8, *stats[pixels_u8.device],
+                return run_on(place_of(model), encode_images_native, model, pixels_u8, *stats[pixels_u8.device],
                               compute_dtype)
 
             def encode_texts(model, ids):
-                return run_on(self.tp_group, encode_texts_native, model, ids)
+                return run_on(place_of(model), encode_texts_native, model, ids)
 
         else:
             vision_graph, text_graph = self._graphs

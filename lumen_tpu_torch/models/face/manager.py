@@ -16,6 +16,9 @@ with the hot math on the device:
   detector and embedder are copied onto each data place and each batch
   splits into one part a place, run there, its decode and NMS included,
   the rows gathered back in batch order (``runtime.batcher.mesh_sharded``);
+  on a mesh with a ``model`` axis (a serving group's places) the weights
+  stay whole, as the JAX manager replicates them over the mesh: a copy on
+  rank 0's device of each data place, no program of the group;
 - host side keeps the CV parts: JPEG decode (on the decode pool),
   letterbox, coordinate unmap, similarity-transform alignment
   (``_align_face_5points``, ``onnxrt_backend.py:1382-1416``).

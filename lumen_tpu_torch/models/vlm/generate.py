@@ -41,7 +41,11 @@ step saved). ``export_row`` gathers each rank's KV heads to rank 0, so
 a spilled or migrated row keeps the format of a TP = 1 host; ``resume``
 takes that format and each rank keeps its own heads. On an ``expert``
 axis the ranks of one ``model`` place hold the same heads, and the MoE
-layers sum their routed rows over the axis inside the programs.
+layers sum their routed rows over the axis inside the programs. Over a
+group's ``data`` places a ``Generator`` belongs to the place of its
+model (its ``tp``'s runtime): its programs, its pools and scratches, its
+spills and resumes run there, and an engine replica's generator at
+another place than the manager's is another object.
 """
 
 from __future__ import annotations

@@ -48,15 +48,18 @@ placement (``MOE_EP_RULES`` first on an expert axis, then the int8 TP
 rules when quantized, then the TP rules), and every device program -- the
 prepare step, the ``Generator``'s programs, the int8 route's A/B -- runs
 on every rank. The host state (scheduler, page allocator, prefix cache,
-spill tier) stays on rank 0. Replicas times such a group raise (ROADMAP
-queue A, item 2d-ii).
+spill tier) stays on rank 0. ``LUMEN_REPLICAS_VLM`` serves replicas of
+such a group, one continuous engine a replica, each with its own copy of
+the rank's shards on the first data place of its slice of the group's
+places (``plan_replicas``); the least-loaded engine takes a request, and a
+request prepared on place 0 crosses to its engine's place by value.
 
-A ``data`` axis (the default mesh over every card, or ``mesh_axes``) has
-no batch axis to split here: the continuous engine's slots live in one
-page pool. The JAX manager serves it with one replicated copy and gets
-the same tokens; the port serves the one engine on place 0's card and
-places no copy on the cards of the other places, which would compute
-nothing. ``LUMEN_REPLICAS_VLM=max`` serves one engine a card.
+A ``data`` axis (the default mesh over every card, or ``mesh_axes``; or
+a group's data places) has no batch axis to split here: the continuous
+engine's slots live in one page pool. The JAX manager serves it with one
+replicated copy and gets the same tokens; the port serves the one engine
+on place 0 and places no copy on the other places, which would compute
+nothing. ``LUMEN_REPLICAS_VLM=max`` serves one engine a place.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ from ...runtime.fleet import EngineFleet, batcher_name, fleet_devices, plan_repl
 from ...runtime.mesh import GROUP_AXES, build_mesh
 from ...runtime.policy import get_policy, resolve_device
 from ...runtime.quarantine import guarded_key
-from ...runtime.tp_group import run_on
+from ...runtime.tp_group import place_of, run_on
 from ...runtime.result_cache import get_result_cache, make_namespace
 from ...runtime.weights import load_state_dict
 from ...utils import disagg
@@ -318,13 +321,16 @@ class VLMManager:
         self.mesh = None
         #: the serving group of an ``expert`` or ``model`` axis above 1, else None
         self.tp_group = None
+        group_plan = None
         if mesh_axes and any(mesh_axes.get(a, 1) != 1 for a in GROUP_AXES):
-            if replicas_for("vlm") != 1:
-                raise NotImplementedError(
-                    "LUMEN_REPLICAS(_VLM) > 1 with an expert or model axis: replicas x expert or tensor "
-                    "parallelism is not served yet (ROADMAP queue A, item 2d-ii)"
-                )
-            self.mesh = build_mesh(mesh_axes)
+            # The continuous engines plan their replicas over the group's
+            # places (JAX: the mesh is replica 0's); the coalescer is one
+            # batcher over the whole mesh.
+            if scheduler == "continuous":
+                group_plan = plan_replicas("vlm", mesh_axes)
+                self.mesh = group_plan.meshes[0]
+            else:
+                self.mesh = build_mesh(mesh_axes)
             self.tp_group = self.mesh.group
             if self.mesh.device != self.device:
                 raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
@@ -360,7 +366,7 @@ class VLMManager:
         if scheduler == "continuous":
             # One continuous engine (page pool + block tables) per replica
             # slice; the coalescer stays one batcher on the manager's device.
-            self.fleet_plan = plan_replicas("vlm", mesh_axes if self.tp_group else None, devices=cards)
+            self.fleet_plan = group_plan or plan_replicas("vlm", None, devices=cards)
         else:
             self.fleet_plan = None
             if replicas_for("vlm") != 1:
@@ -467,15 +473,15 @@ class VLMManager:
         ``TRANSFORMER_TP_RULES``); otherwise the whole model on the device.
         Cast to the policy's parameter dtype."""
         if self.tp_group is not None:
-            return run_on(self.tp_group, place_tp_model, cfg, dict(state), native_vision, self.policy.param_dtype,
-                          self.tp_group)
+            place = self.mesh.places[0]
+            return place.run(place_tp_model, cfg, dict(state), native_vision, self.policy.param_dtype, place)
         model = self._build_model(cfg, state, native_vision)
         return model.to(device=self.device, dtype=self.policy.param_dtype).eval()
 
     def _new_generator(self, model: VLMModel, cfg: VLMConfig, max_seq: int, **kw) -> Generator:
         """A ``Generator`` over ``model``: on a tensor-parallel group, one
-        on every rank over the rank's shards."""
-        return run_on(self.tp_group, Generator, model, cfg, max_seq, **kw)
+        on every rank over the rank's shards, at the model's place."""
+        return run_on(place_of(model), Generator, model, cfg, max_seq, **kw)
 
     def _make_generator(self, model: VLMModel) -> Generator:
         return self._new_generator(
@@ -491,10 +497,18 @@ class VLMManager:
     def _build_engine(self, rid: int | None) -> ContinuousScheduler:
         """One replica's continuous engine on its slice's device (also the
         fleet's unpark hook): the weights are shared on the manager's own
-        device, copied onto another; gauge names ``vlm-continuous:<model>``
+        device, copied onto another; on a group, each rank's shards copied
+        onto the first place of the replica's slice (:func:`copy_tp_model`)
+        unless it is the manager's; gauge names ``vlm-continuous:<model>``
         or ``...-r<rid>``."""
-        device = self.fleet_plan.meshes[rid or 0].device
-        model = self.model if device == self.device else copy.deepcopy(self.model).to(device)
+        mesh = self.fleet_plan.meshes[rid or 0]
+        device = mesh.device
+        if self.tp_group is not None:
+            place = mesh.places[0]
+            model = self.model if place is place_of(self.model) else place.run(
+                copy_tp_model, self.model, self.cfg, self._vision_graph is None, place)
+        else:
+            model = self.model if device == self.device else copy.deepcopy(self.model).to(device)
         gen = self.generator if model is self.model else self._make_generator(model)
         kw = self._engine_kw
         pages = kw["pool_pages"]
@@ -847,12 +861,12 @@ class VLMManager:
             vis = self._vision_graph(self._vision_params, x.permute(0, 3, 1, 2)).to(self.compute_dtype)
             text = self.model.embed_tokens(ids).to(self.compute_dtype)
             return merge_image_embeddings(text, vis, ids, self.cfg.image_token_id, length)
-        return run_on(self.tp_group, prepare_image, self.model, pixels_u8, ids, length, self._mean, self._std,
+        return run_on(place_of(self.model), prepare_image, self.model, pixels_u8, ids, length, self._mean, self._std,
                       self.compute_dtype, self.cfg.image_token_id)
 
     @torch.no_grad()
     def _prepare_text(self, ids, length):
-        return run_on(self.tp_group, prepare_text, self.model, ids, length, self.compute_dtype)
+        return run_on(place_of(self.model), prepare_text, self.model, ids, length, self.compute_dtype)
 
     def _prepare_inputs(self, messages, pixels, add_generation_prompt: bool = True):
         """The prepared prompt: ``(embeds, positions, lengths, prompt_ids,
@@ -927,12 +941,13 @@ class VLMManager:
 
     def _submit(self, req: _Request, stream: bool = False):
         """Hand ``req`` to the least-loaded continuous engine, on that
-        engine's device: its future, or its token iterator (``stream``)."""
+        engine's device (on a group, its place: a copy there goes to every
+        rank by value): its future, or its token iterator (``stream``)."""
         engine = self._pick_engine()
         device = engine.gen.device
-        if req.embeds.device != device:
-            req.embeds, req.positions = req.embeds.to(device), req.positions.to(device)
-            req.length, req.prompt_ids = req.length.to(device), req.prompt_ids.to(device)
+        if req.embeds.device != device or place_of(engine.gen) is not place_of(self.model):
+            req.embeds, req.positions = req.embeds.to(device, copy=True), req.positions.to(device, copy=True)
+            req.length, req.prompt_ids = req.length.to(device, copy=True), req.prompt_ids.to(device, copy=True)
         req.generator = self._next_generator(device)
         return engine.submit_stream(req) if stream else engine.submit(req)
 
@@ -1256,6 +1271,15 @@ def place_tp_model(cfg: VLMConfig, state: Mapping[str, torch.Tensor], native_vis
     local = local_state_dict(state, rules, group.tp, heads=vlm_heads(cfg), ep=group.ep)
     model = VLMManager._build_model(cfg, local, native_vision, tp=group.tp, ep=group.ep)
     return model.to(device=group.device, dtype=dtype).eval()
+
+
+def copy_tp_model(model: VLMModel, cfg: VLMConfig, native_vision: bool, group) -> VLMModel:
+    """A copy of this rank's shards of ``model`` on another place of its
+    group (a program of ``group``, the place): a rank holds the same
+    slices at every place, so the copy is the rank's own tensors on the
+    place's device, over the place's ``tp`` and ``ep``."""
+    local = {k: v.to(group.device, copy=True) for k, v in model.state_dict().items()}
+    return VLMManager._build_model(cfg, local, native_vision, tp=group.tp, ep=group.ep).eval()
 
 
 def _has_native_vision(cfg: VLMConfig, state: Mapping[str, torch.Tensor]) -> bool:

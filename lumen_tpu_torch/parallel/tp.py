@@ -25,7 +25,11 @@ every rank, so each routes them all, runs its own experts and adds the
 routed rows over the axis (``parallel.moe``). A group of ``expert x
 model`` ranks sums each ``model`` split over the ranks that share an
 expert place and each expert split over the ranks that share a model
-place. A collective of an axis of size 1 is the identity.
+place. A collective of an axis of size 1 is the identity. Over a ``data``
+axis of a group each data place has its own ``TensorParallel`` and
+``ExpertParallel`` (``runtime.tp_group.GroupPlace``): the same rank and
+sizes, and the place's own subgroups, bound to the place's device under
+NCCL; a rank's shards are the same at every place.
 """
 
 from __future__ import annotations

@@ -42,6 +42,15 @@ class PhotoRecord:
     sha256: str | None = None
 
 
+def _data_places(mesh) -> list[str]:
+    """A mesh's data places as the pipeline's check compares them: each
+    place's device, and on a serving group the place's index in it."""
+    places = getattr(mesh, "places", None)
+    if not places:
+        return [str(d) for d in mesh.data_devices]
+    return [f"{d} (group place {p.index})" for d, p in zip(mesh.data_devices, places)]
+
+
 class PhotoIngestPipeline:
     """Bulk photo indexing on a device mesh.
 
@@ -90,16 +99,17 @@ class PhotoIngestPipeline:
         # The per-request and ingest paths share ONE copy of each family's
         # weights a data place, and the managers' batchers keep placing
         # inputs on their OWN mesh, so the pipeline mesh must have the
-        # identical data places, in order. A manager without a mesh (OCR; a
-        # VLM without one) runs its stage on its own device, which must be
-        # place 0's; a stand-in with neither is not checked.
-        places = [str(d) for d in mesh.data_devices]
+        # identical data places, in order: the same devices, and on a
+        # serving group the same places of the group. A manager without a
+        # mesh (OCR; a VLM without one) runs its stage on its own device,
+        # which must be place 0's; a stand-in with neither is not checked.
+        places = _data_places(mesh)
         for name, mgr in (("clip", clip), ("face", face), ("ocr", ocr), ("vlm", vlm)):
             own = getattr(mgr, "mesh", None)
             if own is not None:
-                mgr_devs, pipeline_devs = [str(d) for d in own.data_devices], places
+                mgr_devs, pipeline_devs = _data_places(own), places
             elif getattr(mgr, "device", None) is not None:
-                mgr_devs, pipeline_devs = [str(mgr.device)], places[:1]
+                mgr_devs, pipeline_devs = [str(mgr.device)], [str(d) for d in mesh.data_devices[:1]]
             else:
                 continue
             if mgr_devs != pipeline_devs:

@@ -181,7 +181,9 @@ def mesh_sharded(fn, mesh):
     that does not split evenly raises ``ValueError``), part ``i`` is copied
     to place ``i``'s device with ``non_blocking`` from the pinned staging
     buffer, and place ``i``'s callable is launched on it with the count of
-    real rows the part holds. Returns the un-fetched result of a
+    real rows the part holds. On a serving group's mesh each place's
+    callable runs a program of the group at that place, whose rows land
+    on rank 0's device of the place. Returns the un-fetched result of a
     one-place mesh, else :class:`Parts` -- exactly what the pipelined
     collector wants."""
     from .mesh import data_sharding

@@ -37,8 +37,11 @@ dispatch without a MicroBatcher: OCR's direct lane and the VLM continuous
 engine replicas (``models/vlm/manager.py`` builds one when
 ``LUMEN_REPLICAS_VLM`` asks for more than one). Each replica's mesh keeps
 the rest of its slice on ``data``: its batches split over the slice's
-cards (``runtime.batcher.mesh_sharded``). Not served yet: replicas of an
-``expert x model`` group (ROADMAP queue A, item 2d-ii).
+cards (``runtime.batcher.mesh_sharded``). On an ``expert x model`` group
+(``runtime.tp_group``) the slices are the group's data places: each
+replica keeps the group's axes and a contiguous slice of its places, the
+rest of which it absorbs on ``data``, as the JAX plan slices the host's
+devices.
 """
 
 from __future__ import annotations
@@ -221,7 +224,9 @@ def plan_replicas(
     axes. With N > 1, devices split into N contiguous slices; each
     replica's mesh keeps the configured non-``data`` axes and absorbs the
     rest of its slice on ``data``. Counts that don't fit degrade to the
-    largest that does (one-shot warning per family)."""
+    largest that does (one-shot warning per family). Axes that name an
+    ``expert`` or ``model`` axis plan over the running group's data places
+    (a slice a place at most) in place of ``devices``."""
     from .mesh import DATA_AXIS, build_mesh, group_shape, local_devices
 
     devices = list(devices if devices is not None else local_devices())
@@ -229,23 +234,21 @@ def plan_replicas(
     axes = dict(mesh_axes or {})
     requested = replicas_for(family)
     policy = dispatch_policy_name()
-    # Non-data axes (TP/EP/SP/...) live INSIDE each replica: a slice must
-    # hold at least one full copy of them.
-    grouped = {a: s for a, s in group_shape(axes).items() if s != 1}
-    if grouped and requested != 1:
-        raise NotImplementedError(
-            f"{family}: {'max' if requested == -1 else requested} replicas of {grouped} axes: replicas x expert "
-            "or tensor parallelism is not served yet (ROADMAP queue A, item 2d-ii)"
-        )
+    grouped = any(s != 1 for s in group_shape(axes).values())
+    group = None
     if grouped:
-        # One replica on the process's expert x model group: its ranks'
-        # devices, not this process's card list.
         from . import tp_group
 
         group = tp_group.current()
-        mesh = build_mesh(mesh_axes, devices=None if group is not None else devices)
-        return FleetPlan(family, 1, [mesh], policy, len(mesh.devices), len(mesh.devices), requested=1)
-    fixed = math.prod(s for a, s in axes.items() if a != DATA_AXIS and s != -1)
+        if group is None:
+            build_mesh(mesh_axes, devices=devices)  # raises: no group is running
+        # The group's ranks' devices, a whole expert x model copy a data
+        # place, not this process's card list.
+        n = group.data * group.size
+    # Non-data axes (TP/EP/SP/...) live INSIDE each replica: a slice must
+    # hold at least one full copy of them.
+    fixed = group.size if group is not None else math.prod(
+        s for a, s in axes.items() if a != DATA_AXIS and s != -1)
     slots = max(1, n // max(1, fixed))
     want = slots if requested == -1 else requested
     replicas = largest_dividing(want, slots)
@@ -266,10 +269,15 @@ def plan_replicas(
         # is available) already absorbs the whole slice — adding a second
         # -1 axis would make the mesh unresolvable.
         rep_axes[DATA_AXIS] = -1
-    meshes = [
-        build_mesh(rep_axes, devices=devices[i * per : (i + 1) * per])
-        for i in range(replicas)
-    ]
+    if group is not None:
+        # A contiguous slice of the group's data places a replica.
+        step = slots // replicas
+        meshes = [build_mesh(rep_axes, places=range(i * step, (i + 1) * step)) for i in range(replicas)]
+    else:
+        meshes = [
+            build_mesh(rep_axes, devices=devices[i * per : (i + 1) * per])
+            for i in range(replicas)
+        ]
     logger.info(
         "%s: replica fleet of %d x %d-device slice(s) (policy=%s)",
         family, replicas, per, policy,

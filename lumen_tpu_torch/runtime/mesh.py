@@ -20,14 +20,19 @@ resolver, unchanged. What a serving replica runs:
   device: a mesh may name one card twice;
 - an ``expert`` or ``model`` axis above 1 is expert or tensor parallelism
   over a rank-0/worker group of ``expert x model`` ranks
-  (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a device,
-  ``serve()`` starts the group. The mesh carries the group, its ranks'
-  devices, the rank's
-  :class:`~lumen_tpu_torch.parallel.tp.TensorParallel` (``tp``) and its
-  :class:`~lumen_tpu_torch.parallel.tp.ExpertParallel` (``ep``, None
-  without an expert axis); axes larger than the devices, or other than
-  the group's, raise (never a replicated fallback). A ``data`` axis above
-  1 beside them raises too (ROADMAP queue A, item 2d-ii);
+  (:mod:`lumen_tpu_torch.runtime.tp_group`): one process a rank,
+  ``serve()`` starts the group. Each rank drives one device of each of
+  the group's data places, and a mesh over the group resolves its
+  ``data`` axis against those places, as the JAX mesh resolves it against
+  the host's devices: its data place ``i`` is a place of the group
+  (``places[i]``, a ``tp_group.GroupPlace``: the place's
+  :class:`~lumen_tpu_torch.parallel.tp.TensorParallel` ``tp`` and
+  :class:`~lumen_tpu_torch.parallel.tp.ExpertParallel` ``ep``, None
+  without an expert axis), and a batch splits over the places as it does
+  over cards, each place's part a program of the group. Axes larger than
+  the places hold, or other than the group's, raise (never a replicated
+  fallback); a replica plan (``runtime.fleet.plan_replicas``) gives each
+  replica a contiguous slice of the places;
 - a ``seq`` or ``stage`` axis above 1 raises ``NotImplementedError``
   naming the ROADMAP item that would lift it.
 
@@ -136,9 +141,9 @@ class DeviceMesh:
     devices, data-major. Data place ``i`` serves on
     ``data_devices[i]``; :attr:`device` is place 0's."""
 
-    __slots__ = ("devices", "shape", "group")
+    __slots__ = ("devices", "shape", "group", "places")
 
-    def __init__(self, devices: Sequence[torch.device], shape: dict[str, int], group=None):
+    def __init__(self, devices: Sequence[torch.device], shape: dict[str, int], group=None, places=None):
         if not devices:
             raise ValueError("a DeviceMesh needs at least one device")
         self.devices = [torch.device(d) for d in devices]
@@ -146,16 +151,20 @@ class DeviceMesh:
         #: the serving group (``runtime.tp_group.TPGroup``) of an
         #: ``expert`` or ``model`` axis above 1, else None
         self.group = group
+        #: the group's place (``tp_group.GroupPlace``) of each data place,
+        #: in place order; empty without a group
+        self.places = list(places or [])
 
     @property
     def tp(self):
-        """This rank's ``TensorParallel`` on the ``model`` axis, or None."""
-        return None if self.group is None else self.group.tp
+        """Place 0's ``TensorParallel`` on the ``model`` axis, or None
+        (each place's: ``places[i].tp``)."""
+        return self.places[0].tp if self.places else None
 
     @property
     def ep(self):
-        """This rank's ``ExpertParallel`` on the ``expert`` axis, or None."""
-        return None if self.group is None else self.group.ep
+        """Place 0's ``ExpertParallel`` on the ``expert`` axis, or None."""
+        return self.places[0].ep if self.places else None
 
     @property
     def device(self) -> torch.device:
@@ -220,22 +229,26 @@ def group_shape(axes: dict[str, int]) -> dict[str, int]:
 def build_mesh(
     axes: dict[str, int] | None = None,
     devices: Sequence[torch.device] | None = None,
+    places: Sequence[int] | None = None,
 ) -> DeviceMesh:
     """A replica's device slice: by default every local CUDA device on one
     ``data`` axis, as the JAX ``build_mesh`` (a resolved size below the
     device count serves on the prefix). An ``expert`` or ``model`` axis
     above 1 runs on the process's serving group (``runtime.tp_group``),
-    whose devices it takes when ``devices`` is not given; ``seq`` and
-    ``stage`` raise, and so does a ``data`` axis above 1 beside an
-    ``expert`` or ``model`` one (module docstring). ``devices`` may name
-    one device more than once: each entry is a place of its own."""
+    over the group's data places ``places`` (indices; default all of them)
+    in place of ``devices``; ``seq`` and ``stage`` raise (module
+    docstring). ``devices`` may name one device more than once: each entry
+    is a place of its own."""
     from . import tp_group
 
     axes = axes or {DATA_AXIS: -1}
     asked = group_shape(axes)
     group = tp_group.current() if any(s != 1 for s in asked.values()) else None
-    if devices is None:
-        devices = group.devices if group is not None else local_devices()
+    if group is not None:
+        places = list(range(group.data) if places is None else places)
+        devices = [group.places[r][p] for p in places for r in range(group.size)]
+    elif devices is None:
+        devices = local_devices()
     devices = list(devices)
     if not devices:
         raise RuntimeError("no device to build a mesh on (CUDA is not available)")
@@ -261,26 +274,23 @@ def build_mesh(
     devices = devices[:used]
     shape = group_shape(resolved)
     ranks = math.prod(shape.values())
-    if ranks > 1 and resolved.get(DATA_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"mesh {resolved}: a data axis over an expert x model group is not served by lumen_tpu_torch yet "
-            "(ROADMAP queue A, item 2d-ii); serve the group alone, or the data axis alone"
+    if ranks == 1:
+        logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
+        return DeviceMesh(devices, resolved)
+    if group is None:
+        raise RuntimeError(
+            f"mesh {resolved}: an expert x model group of {ranks} ranks ({shape}) serves on a rank-0/worker "
+            "group, and none is running (serve() starts one for a config whose mesh names an expert or model "
+            "axis; runtime.tp_group.TPGroup.spawn starts one directly)"
         )
-    if ranks > 1:
-        if group is None:
-            raise RuntimeError(
-                f"mesh {resolved}: an expert x model group of {ranks} ranks ({shape}) serves on a rank-0/worker "
-                "group, and none is running (serve() starts one for a config whose mesh names an expert or model "
-                "axis; runtime.tp_group.TPGroup.spawn starts one directly)"
-            )
-        if group.shape != shape:
-            raise ValueError(
-                f"mesh {resolved}: axes {shape} do not match the running group's {group.shape} "
-                f"({group.size} ranks)"
-            )
-        devices = list(group.devices)
-    logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
-    return DeviceMesh(devices, resolved, group=group if ranks > 1 else None)
+    if group_shape(group.shape) != shape:
+        raise ValueError(
+            f"mesh {resolved}: axes {shape} do not match the running group's {group.shape} "
+            f"({group.size} ranks)"
+        )
+    mine = places[: used // ranks]
+    logger.info("mesh: %s over the group's places %s (%s)", resolved, mine, [str(d) for d in devices])
+    return DeviceMesh(devices, resolved, group=group, places=[group.place(p) for p in mine])
 
 
 def build_process_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda"):

@@ -1,22 +1,36 @@
 """The rank-0/worker runtime of a serving group over an ``expert`` and a
-``model`` axis.
+``model`` axis, and a ``data`` axis of places above them.
 
-One process drives one device. Rank 0 serves gRPC, runs the
-batchers and the continuous scheduler, and owns every piece of host state
-(the page allocator, the prefix cache, the spill tier). Ranks 1..n-1 (the
-workers) hold only their shards and run :meth:`TPGroup.serve_forever`.
-Before rank 0 runs a device program it sends it to the workers as
-``(target, program, inputs)``; every rank then runs the same code on its own
-shards, and the model inserts the Megatron and expert sums itself
-(``parallel.tp``).
+One process drives one device of each data place. Rank 0 serves gRPC,
+runs the batchers and the continuous scheduler, and owns every piece of
+host state (the page allocator, the prefix cache, the spill tier). Ranks
+1..n-1 (the workers) hold only their shards and run
+:meth:`TPGroup.serve_forever`. Before rank 0 runs a device program it
+sends it to the workers as ``(target, program, inputs, place)``; every rank
+then runs the same code on its own shards of that place, and the model
+inserts the Megatron and expert sums itself (``parallel.tp``).
 
 - **Layout.** A group of ``expert x model`` ranks gives rank ``r`` the
   place ``(e, m) = divmod(r, model)`` (:func:`rank_place`). The ``model``
-  sums run over the ranks that share ``e`` (``group.tp``, a
+  sums run over the ranks that share ``e`` (``tp``, a
   ``TensorParallel``), the expert sums over the ranks that share ``m``
-  (``group.ep``, an ``ExpertParallel``; None without an expert axis). Every
+  (``ep``, an ``ExpertParallel``; None without an expert axis). Every
   rank makes the subgroups with ``dist.new_group`` in one order; an axis
-  that spans the whole group uses the default group.
+  that spans the whole group uses the place's whole-group plane.
+- **Data places.** Each rank drives ``D`` devices, one a data place
+  (``TPGroup.places[r]``): with the host's devices in the data-major order
+  of a mesh, rank ``r`` of place ``d`` is device ``d * ranks + r``
+  (:func:`rank_devices`). A place (:class:`GroupPlace`, ``group.place(d)``)
+  has its own ``tp``, ``ep`` and by-value plane, made place-major on every
+  rank and bound to the place's device under NCCL; place 0's plane is the
+  default group. A program sent through a place runs with the place's
+  device current on every rank, and its by-value tensors travel on the
+  place's plane to each rank's device of the place. A model, a
+  ``Generator`` or a pool placed on a place carries it (its ``tp``'s
+  runtime is the place). Rank 0 holds every place's shard 0, so every
+  place's results land on rank 0's device of that place: no gather across
+  ranks. One host thread a rank issues every place's launches, and
+  rank 0's one dispatch lock runs the programs of all places in turn.
 
 - **Programs.** :func:`program` marks a method of a rank-local object (a
   ``Generator``, a model) as one; :meth:`TPGroup.run` sends a module-level
@@ -51,14 +65,19 @@ ranks sharing one card, which NCCL refuses). The caller names the devices
 and the backend.
 
     python -m lumen_tpu_torch.runtime.tp_group --rank R --world N --addr HOST:PORT \\
-        --devices cuda:0,cuda:1 --backend nccl [--expert E]
+        --devices cuda:0+cuda:2,cuda:1+cuda:3 --backend nccl [--expert E]
+
+(``--devices``: each rank's devices, one a data place, ``+`` between
+places and ``,`` between ranks.)
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import datetime
+import inspect
 import functools
 import logging
 import math
@@ -84,6 +103,8 @@ DEFAULT_TIMEOUT_S = 60.0
 _IDLE_WAIT = datetime.timedelta(days=3650)
 
 _current: "TPGroup | None" = None
+#: the group this process is a rank of (every rank; ``_current`` is rank 0's)
+_member: "TPGroup | None" = None
 _MISSING = object()
 #: dtypes a broadcast carries as bytes (gloo refuses them; the bytes are
 #: copied, not computed on)
@@ -94,6 +115,17 @@ def rank_place(rank: int, model: int) -> tuple[int, int]:
     """Rank ``rank``'s ``(expert, model)`` place in a group whose model
     axis has ``model`` ranks: ``rank = e * model + m``."""
     return divmod(rank, model)
+
+
+def rank_devices(devices: Sequence, ranks: int) -> list[list[torch.device]]:
+    """Each rank's devices, one a data place, from a device list in a
+    mesh's data-major order (``ranks`` devices a place): rank ``r`` of place
+    ``d`` is ``devices[d * ranks + r]``. A list that is not whole places
+    raises."""
+    devices = [torch.device(d) for d in devices]
+    if not devices or len(devices) % ranks:
+        raise ValueError(f"{len(devices)} devices are not whole data places of {ranks} ranks")
+    return [devices[r::ranks] for r in range(ranks)]
 
 
 def current() -> "TPGroup | None":
@@ -127,6 +159,12 @@ def run_on(group: "TPGroup | None", fn: Callable, *args, **kwargs):
     return fn(*args, **kwargs) if group is None else group.run(fn, *args, **kwargs)
 
 
+def place_of(obj) -> "GroupPlace | None":
+    """The group place an object built on a place's ``tp`` (a model, a
+    ``Generator``) runs its programs at, or None off a group."""
+    return getattr(getattr(obj, "tp", None), "runtime", None)
+
+
 def _rank_local(x) -> bool:
     return isinstance(x, (torch.Tensor, torch.nn.Module)) or getattr(type(x), "_tp_local", False)
 
@@ -151,28 +189,85 @@ def _root(t: torch.Tensor) -> torch.Tensor:
     return t if t._base is None else t._base
 
 
+class GroupPlace:
+    """Data place ``index`` of a serving group, as this rank holds it: the
+    rank's ``device`` there and the place's ``tp`` / ``ep`` over its own
+    subgroups (module docstring). :meth:`run` sends a program through the
+    place, and so does a ``@program`` of an object built on the place's
+    ``tp`` (its runtime). As a program's argument it stands for the same
+    place on every rank, as the group stands for itself."""
+
+    def __init__(self, group: "TPGroup", index: int, device: torch.device):
+        self.group, self.index, self.device = group, index, device
+        self.tp: TensorParallel | None = None
+        self.ep: ExpertParallel | None = None
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    @property
+    def plane(self):
+        """The place's by-value group of every rank (None: the default
+        group)."""
+        return self.group._plane[self.index]
+
+    def driving(self) -> bool:
+        return self.group.driving()
+
+    def alive(self) -> bool:
+        return self.group.alive()
+
+    def run(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)`` as a program of every rank at this place
+        (directly where the group is not :meth:`~TPGroup.driving`)."""
+        if not self.driving():
+            return fn(*args, **kwargs)
+        return self.group._dispatch(("f", fn), fn, args, kwargs, self.index)
+
+    def _dispatch(self, target, local: Callable, args, kwargs):
+        return self.group._dispatch(target, local, args, kwargs, self.index)
+
+    def __repr__(self) -> str:
+        return f"GroupPlace({self.index} of {self.group.data}, rank {self.rank} on {self.device})"
+
+
+#: whether ``dist.new_group`` binds a group to a device (``device_id``)
+_BIND_GROUPS = "device_id" in inspect.signature(dist.new_group).parameters
+
+
 class TPGroup:
     """One rank of a serving group of ``world = expert x model`` ranks
-    (module docstring). ``devices[r]`` is rank ``r``'s device; ``backend``
+    over ``D`` data places (module docstring). ``devices[r]`` is rank
+    ``r``'s device, or its list of ``D`` devices, one a place; ``backend``
     is the data plane's (``nccl`` or ``gloo``); ``expert`` the size of the
     expert axis (the model axis has the other ``world / expert`` ranks)."""
 
     def __init__(self, rank: int, world: int, addr: str, devices: Sequence, backend: str,
                  timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1):
+        global _member
         if len(devices) != world:
             raise ValueError(f"a group of {world} ranks needs {world} devices, got {len(devices)}")
         if backend not in ("nccl", "gloo"):
             raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
         if expert < 1 or world % expert:
             raise ValueError(f"an expert axis of {expert} does not divide a group of {world} ranks")
-        self.rank, self.size, self.backend = rank, world, backend
+        #: each rank's devices, one a data place
+        self.places = [[torch.device(d) for d in (p if isinstance(p, (list, tuple)) else [p])] for p in devices]
+        data = len(self.places[0])
+        if not data or any(len(p) != data for p in self.places):
+            raise ValueError(f"every rank needs the same number of data places, got {[len(p) for p in self.places]}")
+        self.rank, self.size, self.backend, self.data = rank, world, backend, data
         model = world // expert
         #: the group's axis sizes, as a mesh names them
-        self.shape = {"expert": expert, "model": model}
-        self.devices = [torch.device(d) for d in devices]
-        self.device = self.devices[rank]
-        if backend == "nccl" and self.device.type != "cuda":
-            raise ValueError(f"nccl needs CUDA devices, got {self.device}")
+        self.shape = {"data": data, "expert": expert, "model": model}
+        self.device = self.places[rank][0]
+        if backend == "nccl" and any(d.type != "cuda" for d in self.places[rank]):
+            raise ValueError(f"nccl needs CUDA devices, got {self.places[rank]}")
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         self.timeout_s = timeout_s
@@ -183,14 +278,29 @@ class TPGroup:
         self._control = dist.new_group(backend="gloo", timeout=_IDLE_WAIT)
         self._status = dist.new_group(backend="gloo", timeout=timeout)
         e, m = rank_place(rank, model)
-        model_groups = [None] * expert
-        expert_groups = [None] * model
-        if expert > 1 and model > 1:
-            # every rank makes every subgroup, in one order
-            model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(expert)]
-            expert_groups = [dist.new_group([i * model + j for i in range(expert)]) for j in range(model)]
-        self.tp = TensorParallel(model, m, group=model_groups[e], runtime=self)
-        self.ep = ExpertParallel(expert, e, group=expert_groups[m]) if expert > 1 else None
+        #: each place's by-value plane (None: the default group)
+        self._plane: list = []
+        self._views: list[GroupPlace] = []
+        for d in range(data):
+            # every rank makes every subgroup, place-major, in one order
+            dev = self.places[rank][d]
+            plane = None if d == 0 else self._new_group(list(range(world)), dev)
+            model_groups = [plane] * expert
+            expert_groups = [plane] * model
+            if expert > 1 and model > 1:
+                model_groups = [self._new_group([i * model + j for j in range(model)], dev) for i in range(expert)]
+                expert_groups = [self._new_group([i * model + j for i in range(expert)], dev) for j in range(model)]
+            view = GroupPlace(self, d, dev)
+            view.tp = TensorParallel(model, m, group=model_groups[e], runtime=view)
+            view.ep = ExpertParallel(expert, e, group=expert_groups[m]) if expert > 1 else None
+            self._plane.append(plane)
+            self._views.append(view)
+        #: place 0's axes
+        self.tp, self.ep = self._views[0].tp, self._views[0].ep
+        #: each place's programs run, and the kernel launches made while
+        #: they ran, by kernel
+        self.place_programs = [0] * data
+        self.place_launches = [collections.Counter() for _ in range(data)]
         pids: list = [None] * world
         dist.all_gather_object(pids, os.getpid(), group=self._status)
         self.pids = pids
@@ -204,17 +314,44 @@ class TPGroup:
         self._released: collections.deque[int] = collections.deque()
         self._next = 1
         self.programs = 0
+        _member = self
         logger.info("serving group %s: rank %d of %d (expert %d, model %d) on %s (%s)", self.shape, rank, world, e, m,
-                    self.device, backend)
+                    [str(d) for d in self.places[rank]], backend)
+
+    def _new_group(self, ranks: list[int], device: torch.device):
+        """A data-plane subgroup of ``ranks``, bound to ``device`` under
+        NCCL (where this torch can bind one)."""
+        kw = {"device_id": device} if self.backend == "nccl" and _BIND_GROUPS else {}
+        return dist.new_group(ranks, **kw)
+
+    def place(self, index: int) -> GroupPlace:
+        """Data place ``index`` of the group (module docstring)."""
+        return self._views[index]
+
+    @contextlib.contextmanager
+    def _running_at(self, place: int):
+        """A program at ``place``: the place's device current, and the
+        kernel launches made meanwhile counted to the place."""
+        before = _launch_counts()
+        self.place_programs[place] += 1
+        dev = self.places[self.rank][place]
+        try:
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                yield
+        finally:
+            tally = self.place_launches[place]
+            for name, n in _launch_counts().items():
+                tally[name] += max(0, n - before.get(name, 0))
 
     # -- start and stop ---------------------------------------------------------
 
     @classmethod
     def spawn(cls, devices: Sequence, backend: str, timeout_s: float = DEFAULT_TIMEOUT_S,
               expert: int = 1) -> "TPGroup":
-        """Start a group of ``len(devices)`` ranks, ``expert`` places on the
-        expert axis: this process is rank 0, and ranks 1..n-1 are child
-        processes running the worker loop. Installs the group as
+        """Start a group of ``len(devices)`` ranks (each entry a rank's
+        device, or its list of devices, one a data place), ``expert``
+        places on the expert axis: this process is rank 0, and ranks 1..n-1
+        are child processes running the worker loop. Installs the group as
         :func:`current`."""
         global _current
         if _current is not None:
@@ -224,7 +361,8 @@ class TPGroup:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
         addr = f"localhost:{port}"
-        names = ",".join(str(torch.device(d)) for d in devices)
+        names = ",".join("+".join(str(torch.device(x)) for x in (d if isinstance(d, (list, tuple)) else [d]))
+                         for d in devices)
         env = dict(os.environ)
         root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
@@ -282,6 +420,9 @@ class TPGroup:
             _current = None
 
     def _destroy(self) -> None:
+        global _member
+        if _member is self:
+            _member = None
         if dist.is_initialized():
             try:
                 dist.destroy_process_group()
@@ -299,7 +440,8 @@ class TPGroup:
 
     def each_rank(self, fn: Callable, *args) -> list:
         """``fn(*args)`` run on every rank (a module-level function, as a
-        program), and every rank's picklable result, in rank order."""
+        program at place 0), and every rank's picklable result, in rank
+        order."""
         return self.run(_gathered, fn, args, self)
 
     def driving(self) -> bool:
@@ -310,12 +452,12 @@ class TPGroup:
 
     def run(self, fn: Callable, *args, **kwargs):
         """Run the module-level function ``fn`` as a program on every
-        rank (directly where :meth:`driving` is false)."""
+        rank at place 0 (directly where :meth:`driving` is false)."""
         if not self.driving():
             return fn(*args, **kwargs)
         return self._dispatch(("f", fn), fn, args, kwargs)
 
-    def _dispatch(self, target, local: Callable, args, kwargs):
+    def _dispatch(self, target, local: Callable, args, kwargs, place: int = 0):
         with self._lock:
             if not self.alive():
                 raise RuntimeError(f"tensor-parallel group is down: {self.dead}")
@@ -328,11 +470,11 @@ class TPGroup:
             else:
                 wire_target = target
             header = ("call", wire_target, self._encode(args, tensors), self._encode(kwargs, tensors),
-                      self._take_released())
+                      self._take_released(), place)
             try:
                 dist.broadcast_object_list([header], src=0, group=self._control)
                 for t in tensors:
-                    dist.broadcast(self._wire(t), src=0)
+                    dist.broadcast(self._wire(t, place), src=0, group=self._plane[place])
             except Exception as e:
                 self.dead = f"program header failed: {e}"
                 raise RuntimeError(f"tensor-parallel group is down: {self.dead}") from e
@@ -341,7 +483,8 @@ class TPGroup:
             error: BaseException | None = None
             out = None
             try:
-                out = local(*args, **kwargs)
+                with self._running_at(place):
+                    out = local(*args, **kwargs)
             except BaseException as e:  # noqa: BLE001 - reported to every rank, then raised
                 error = e
             finally:
@@ -354,16 +497,19 @@ class TPGroup:
             self._register(out, {id(_root(t)) for t in tensors})
             return out
 
-    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+    def _wire(self, t: torch.Tensor, place: int) -> torch.Tensor:
         t = t.detach()
-        if self.backend == "nccl" and t.device.type != "cuda":
-            t = t.to(self.device)
+        dev = self.places[self.rank][place]
+        if self.backend == "nccl" and t.device != dev:
+            t = t.to(dev)
         t = t.contiguous()
         return t.reshape(-1).view(torch.uint8) if t.dtype in _AS_BYTES else t
 
     def _encode(self, x, tensors: list):
         if x is self:
             return ("g",)
+        if isinstance(x, GroupPlace) and x.group is self:
+            return ("p", x.index)
         if _rank_local(x) and id(x) in self._ids:
             return ("h", self._ids[id(x)])
         if isinstance(x, torch.Generator):
@@ -439,32 +585,36 @@ class TPGroup:
 
     # -- the workers' side ------------------------------------------------------------
 
-    def _decode(self, x, tensors: list):
+    def _decode(self, x, place: int):
         kind = x[0]
         if kind == "g":
             return self
+        if kind == "p":
+            return self._views[x[1]]
         if kind == "h":
             return self._objects.get(x[1], _MISSING)
+        dev = self.places[self.rank][place]
         if kind == "rng":
-            g = torch.Generator(device=self.device if x[1] != "cpu" else "cpu")
+            g = torch.Generator(device=dev if x[1] != "cpu" else "cpu")
             g.set_state(x[2])
             return g
         if kind == "t":
             shape, dtype, on_cpu = x[1], x[2], x[3]
-            dev = "cpu" if on_cpu and self.backend == "gloo" else self.device
+            if on_cpu and self.backend == "gloo":
+                dev = torch.device("cpu")
             if dtype in _AS_BYTES:
                 n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
                 wire = torch.empty(n, dtype=torch.uint8, device=dev)
             else:
                 wire = torch.empty(shape, dtype=dtype, device=dev)
-            dist.broadcast(wire, src=0)
+            dist.broadcast(wire, src=0, group=self._plane[place])
             t = wire.view(dtype).reshape(shape) if dtype in _AS_BYTES else wire
             return t.cpu() if on_cpu else t
         if kind == "seq":
-            items = [self._decode(v, tensors) for v in x[2]]
+            items = [self._decode(v, place) for v in x[2]]
             return tuple(items) if x[1] else items
         if kind == "map":
-            return {k: self._decode(v, tensors) for k, v in x[1]}
+            return {k: self._decode(v, place) for k, v in x[1]}
         return x[1]
 
     def serve_forever(self) -> None:
@@ -483,7 +633,7 @@ class TPGroup:
             header = box[0]
             if header[0] == "stop":
                 break
-            _, target, args, kwargs, released = header
+            _, target, args, kwargs, released, place = header
             for h in released:
                 self._objects.pop(h, None)
             error: BaseException | None = None
@@ -491,15 +641,16 @@ class TPGroup:
             try:
                 # Every tensor of the header is received before anything
                 # can fail, so the data plane stays in step.
-                a = self._decode(args, [])
-                k = self._decode(kwargs, [])
+                a = self._decode(args, place)
+                k = self._decode(kwargs, place)
                 if any(v is _MISSING for v in (*a, *k.values())) or (
                         target[0] == "m" and target[1] not in self._objects):
                     raise KeyError("a program names an object this rank does not hold")
                 fn = getattr(self._objects[target[1]], target[2]) if target[0] == "m" else target[1]
                 self._local.depth = 1
                 try:
-                    out = fn(*a, **k)
+                    with self._running_at(place):
+                        out = fn(*a, **k)
                 finally:
                     self._local.depth = 0
             except Exception as e:  # noqa: BLE001 - reported to rank 0
@@ -522,16 +673,32 @@ def _gathered(fn: Callable, args: tuple, group: TPGroup) -> list:
     return out
 
 
+def _kernels() -> tuple:
+    from ..ops import attention, quant_matmul
+
+    return attention.KERNELS + quant_matmul.KERNELS
+
+
+def _launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in _kernels()}
+
+
 def rank_report(zero: bool = False) -> dict:
     """This rank's device report (for :meth:`TPGroup.each_rank`): every
     kernel's launches, by head_dim instance too, the peak device memory in
-    GiB, and whether the device synchronizes clean; ``zero`` then resets
-    the counts and the peak."""
-    from ..ops import attention, quant_matmul
-
-    kernels = attention.KERNELS + quant_matmul.KERNELS
+    GiB, and whether the device synchronizes clean; and under ``places``
+    the same a data place of the rank's group (the programs it ran and the
+    launches they made; the peak and the synchronize of its device, which
+    a place named twice shares). ``zero`` then resets the counts and the
+    peaks."""
+    kernels = _kernels()
+    group = _member
+    devices = group.places[group.rank] if group is not None else []
     out = {"launches": {k.name: k.launches for k in kernels},
-           "instances": {k.name: dict(k.instance_launches) for k in kernels}}
+           "instances": {k.name: dict(k.instance_launches) for k in kernels},
+           "places": [{"programs": group.place_programs[d],
+                       "launches": {k.name: group.place_launches[d][k.name] for k in kernels}}
+                      for d in range(len(devices))]}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         try:
             torch.cuda.synchronize()
@@ -539,11 +706,25 @@ def rank_report(zero: bool = False) -> dict:
         except RuntimeError as e:
             out["sync"] = str(e)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for place, dev in zip(out["places"], devices):
+            if dev.type == "cuda":
+                try:
+                    torch.cuda.synchronize(dev)
+                    place["sync"] = "ok"
+                except RuntimeError as e:
+                    place["sync"] = str(e)
+                place["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         if zero:
             torch.cuda.reset_peak_memory_stats()
+            for dev in {d for d in devices if d.type == "cuda"}:
+                torch.cuda.reset_peak_memory_stats(dev)
     if zero:
         for k in kernels:
             k.zero_counts()
+        if group is not None:
+            group.place_programs = [0] * group.data
+            for tally in group.place_launches:
+                tally.clear()
     return out
 
 
@@ -560,8 +741,12 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=os.environ.get("LUMEN_LOG_LEVEL", "INFO"),
                         format=f"%(asctime)s tp{args.rank} %(levelname)s %(name)s: %(message)s")
-    group = TPGroup.join(args.rank, args.world, args.addr, args.devices.split(","), args.backend, args.timeout,
-                         args.expert)
+    devices = [rank.split("+") for rank in args.devices.split(",")]
+    # The group of the module the programs name (``python -m`` runs this
+    # file as ``__main__``, a second copy whose globals no program reads).
+    from lumen_tpu_torch.runtime import tp_group
+
+    group = tp_group.TPGroup.join(args.rank, args.world, args.addr, devices, args.backend, args.timeout, args.expert)
     group.serve_forever()
     return 0
 

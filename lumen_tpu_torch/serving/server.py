@@ -192,15 +192,21 @@ def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backe
     """The rank-0/worker group this server starts for every enabled service
     whose mesh names an ``expert`` or ``model`` axis above 1: a group of
     ``expert x model`` ranks that all of them share, so their two axes must
-    agree; or None: none is needed, or the process already runs a group of
-    that shape, which the services then use (and this server leaves
-    running). ``tp_devices`` are the ranks' devices (default: the host's
-    cards from ``device`` on) and ``tp_backend`` the data plane's backend
-    (default ``nccl``; ``gloo`` for CPU ranks or ranks sharing a card).
-    Axes the devices cannot fill raise."""
+    agree, over every data place its devices hold; or None: none is
+    needed, or the process already runs a group of that shape (of those
+    axes, when no ``tp_devices`` are named), which the services then use
+    (and this server leaves running). ``tp_devices`` are
+    the devices the group spans, in a mesh's data-major order (default:
+    the host's cards from ``device`` on): rank ``r`` of data place ``d``
+    is ``tp_devices[d * ranks + r]``, so each rank drives one device a
+    place (``tp_group.rank_devices``), and each service's ``data`` axis and
+    replica plan resolve against those places, as the JAX mesh resolves
+    them against the host's devices. ``tp_backend`` is the data plane's
+    backend (default ``nccl``; ``gloo`` for CPU ranks or ranks sharing a
+    card). Axes the devices cannot fill raise before a rank starts."""
     from ..runtime import tp_group
     from ..runtime.fleet import fleet_devices
-    from ..runtime.mesh import group_shape
+    from ..runtime.mesh import DATA_AXIS, group_shape, resolve_axes
 
     devices = list(tp_devices) if tp_devices is not None else (fleet_devices(device) if device.type == "cuda" else [])
     shapes = {}
@@ -209,26 +215,38 @@ def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backe
         shape = group_shape((mesh.axes or {}) if mesh else {})
         if any(s != 1 for s in shape.values()):
             fixed = math.prod(s for s in shape.values() if s != -1)
-            shapes[name] = {a: len(devices) // fixed if s == -1 else s for a, s in shape.items()}
+            shapes[name] = ({a: len(devices) // fixed if s == -1 else s for a, s in shape.items()}, mesh.axes)
     if not shapes:
         return None
-    if len({tuple(s.values()) for s in shapes.values()}) != 1:
-        raise ValueError(f"services share one expert x model group, but their axes differ: {shapes}")
-    shape = next(iter(shapes.values()))
+    if len({tuple(s.values()) for s, _ in shapes.values()}) != 1:
+        raise ValueError(f"services share one expert x model group, but their axes differ: "
+                         f"{ {n: s for n, (s, _) in shapes.items()} }")
+    shape = next(iter(shapes.values()))[0]
     size = math.prod(shape.values())
     running = tp_group.current()
-    if running is not None and running.shape == shape:
-        logger.info("serving %s on the running group %s of %d ranks", sorted(shapes), shape, size)
+    if running is not None and tp_devices is None and group_shape(running.shape) == shape:
+        # No devices named: the running group's places are the host's.
+        logger.info("serving %s on the running group %s of %d ranks", sorted(shapes), running.shape, size)
         return None
     if size > len(devices):
         raise ValueError(
             f"an expert x model group of {size} {shape} ({sorted(shapes)}) needs {size} devices; have "
             f"{len(devices)} ({[str(d) for d in devices]}); pass tp_devices to serve on others"
         )
+    data = len(devices) // size
+    for _, axes in shapes.values():
+        # Each service's mesh against the group's places, before any rank
+        # starts (a data axis larger than them degrades, as in JAX).
+        resolve_axes({a: shape.get(a, s) for a, s in axes.items()}, data * size)
+    shape = {DATA_AXIS: data, **shape}
+    if running is not None and running.shape == shape:
+        logger.info("serving %s on the running group %s of %d ranks", sorted(shapes), shape, size)
+        return None
     backend = tp_backend or "nccl"
+    ranks = tp_group.rank_devices(devices[: data * size], size)
     logger.info("starting a serving group %s of %d ranks on %s (%s) for %s",
-                shape, size, [str(d) for d in devices[:size]], backend, sorted(shapes))
-    return tp_group.TPGroup.spawn(devices[:size], backend, expert=shape["expert"])
+                shape, size, [[str(d) for d in r] for r in ranks], backend, sorted(shapes))
+    return tp_group.TPGroup.spawn(ranks, backend, expert=shape["expert"])
 
 
 class ServerHandle:
@@ -373,8 +391,10 @@ def serve(
     card) reaches every service's ``from_config``. A front tier (peers and
     no enabled service) owns no model and resolves no device. Services
     whose mesh names an ``expert`` or ``model`` axis serve on one group of
-    ``expert x model`` ranks this call starts (:func:`start_tensor_parallel`: ``tp_devices``,
-    ``tp_backend``) and the handle's ``stop`` ends. A mesh that names only
+    ``expert x model`` ranks, each rank driving a device of every data
+    place ``tp_devices`` hold, that this call starts
+    (:func:`start_tensor_parallel`: ``tp_devices``, ``tp_backend``) and
+    the handle's ``stop`` ends. A mesh that names only
     ``data`` starts no group: each manager spreads its batches over the
     cards from ``device`` on in this process (``runtime.mesh``).
     ``port_override=0`` binds an OS-assigned port (``handle.port``);
@@ -562,8 +582,8 @@ def main(argv: list[str] | None = None, on_serving=None) -> int:
     )
     parser.add_argument(
         "--tp-devices", default=None,
-        help="comma-separated devices of the tensor-parallel ranks of a mesh with a model axis "
-        "(default: the host's cards from --device on)",
+        help="comma-separated devices the serving group of a mesh with an expert or model axis spans, "
+        "data-major: rank r of data place d is device d * ranks + r (default: the host's cards from --device on)",
     )
     parser.add_argument(
         "--tp-backend", default=None, choices=("nccl", "gloo"),

@@ -182,7 +182,7 @@ class TestConfigApi:
         async def fn(client):
             r = await client.get("/api/v1/config/presets")
             data = await r.json()
-            assert set(data["presets"]) == {"cpu", "cuda_h100_1", "cuda_h100_4", "cuda_h100_8"}
+            assert set(data["presets"]) == {"cpu", "cuda_h100_1", "cuda_h100_4", "cuda_h100_8", "cuda_h100_8_dp_tp"}
             assert data["tiers"] == ["minimal", "light_weight", "full"]
             return True
 

@@ -204,6 +204,41 @@ def test_chip_smoke_data_drive_runs_on_cpu(clip_drive, face_drive):
     assert out["faces"]["matched"] > 0
 
 
+def test_chip_smoke_dp_tp_drive_runs_on_cpu(clip_drive, face_drive):
+    """Phase 20 at small sizes on the CPU, after phases 6, 8 and 9: phase
+    8's tiny CLIP and phase 9's small face pack on ``{data: 2, model: 2}``
+    and phase 6's small VLM as two ``{model: 2}`` replicas, served by two
+    gloo ranks on the CPU whose two data places are the CPU named again,
+    against the mesh-less managers (the launch gates emptied: the plain
+    paths launch nothing; (d), NCCL, needs the card)."""
+    from lumen_tpu_torch.runtime import tp_group
+
+    root, _, phase6 = clip_drive
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE20_CLIP_KERNELS", ())
+        mp.setattr(chip_smoke, "PHASE20_VLM_KERNELS", ())
+        out = chip_smoke.drive_dp_tp(0, "cpu", root, phase6["model_dir"], phase6["photos"], device="cpu", n_photos=16,
+                                     in_flight=8, batch_size=8, n_ingest=8, face_batch=8, n_requests=1, max_new=4)
+    assert tp_group.current() is None  # the group is stopped
+    assert min(out["a_cos"], out["b_cos"]) >= chip_smoke.TP_CLIP_COSINE
+    assert out["a_labels_exact"] + out["a_label_ties"] == 16 and out["a_batches"] > 0
+    assert out["b_faces"]["matched"] > 0
+    assert out["c_prefix"] == out["c_lengths"] and len(out["c_first"]) == 2
+    assert "d_probes" not in out
+
+
+def test_phase_20_reads_each_rank_and_place():
+    """Phase 20's readouts: each rank's launches, peaks and synchronize a
+    data place (its selector and lane are in the tests above)."""
+    assert chip_smoke.DP_TP_AXES == {"data": 2, "model": 2}
+    reports = [{"places": [{"launches": {"flash_attention": 3}, "peak_gib": 0.5, "sync": "ok"},
+                           {"launches": {"flash_attention": 4}}]}] * 2
+    got = chip_smoke.place_readouts(reports, "flash_attention")
+    assert got == {"launches": [[3, 4]] * 2, "peak_gib": [[0.5, 0.0]] * 2, "sync": [["ok", "ok"]] * 2}
+    with pytest.raises(AssertionError, match="reports"):  # a rank that reports no place is no pass
+        chip_smoke.place_readouts([reports[0], {"places": []}], "flash_attention")
+
+
 def test_chip_smoke_vlm_options_drive_runs_on_cpu(clip_drive):
     """Phase 12 at small sizes on the CPU, after phases 6 and 8: a
     FastVLM-style directory with the FastViTHD stand-in at tiny widths
@@ -285,10 +320,11 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 20))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 21))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
                                         ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
-                                        ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19})])
+                                        ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19}),
+                                        ("20", {1, 6, 8, 9, 20})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want
 
@@ -299,6 +335,7 @@ def test_phase_selector_adds_the_phases_read(spec, want):
     ("12", [(8, (12,), {12: [6, 8]})]),
     ("16", [(15, (16,), {16: []})]),
     ("19", []),
+    ("20", []),
 ])
 def test_lanes_beside_the_main_one(spec, want):
     """Which phases run beside the main lane, after which main-lane phase

@@ -44,7 +44,7 @@ MESH_TABLE = [
 
 
 @pytest.mark.parametrize("axes, n", MESH_TABLE)
-def test_mesh_resolves_as_jax(axes, n):
+def test_mesh_resolves_as_jax(axes, n, monkeypatch):
     try:
         want = jax_resolve_axes(axes, n)
     except ValueError:
@@ -55,10 +55,15 @@ def test_mesh_resolves_as_jax(axes, n):
         return
     assert resolve_axes(axes, n) == want
     jmesh = jax_build_mesh(axes, devices=jax.devices()[:n])
-    if any(s > 1 for a, s in want.items() if a != "data") and want.get("data", 1) > 1:
-        with pytest.raises(NotImplementedError, match="item 2d-ii"):
+    if any(s > 1 for a, s in want.items() if a != "data"):
+        # A model axis serves on a running group, whose data places the
+        # data axis resolves against (n devices: n / model places).
+        with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * n)
-        return
+        from lumen_tpu_torch.runtime import tp_group
+        from tests.torch_spmd_ranks import StandInGroup
+
+        monkeypatch.setattr(tp_group, "_current", StandInGroup(n // want["model"], model=want["model"]))
     mesh = build_mesh(axes, devices=[CPU] * n)
     assert mesh.shape == dict(jmesh.shape)
     assert mesh.devices == [CPU] * jmesh.devices.size
@@ -181,5 +186,5 @@ def test_a_data_only_mesh_starts_no_serving_group():
 
 def test_detection_order_is_larger_first():
     cards = [PRESETS[name].chips for name in DETECTION_ORDER if PRESETS[name].platform == "cuda"]
-    assert cards == sorted(set(cards), reverse=True) == [8, 4, 1]
+    assert cards == sorted(cards, reverse=True) and sorted(set(cards), reverse=True) == [8, 4, 1]
     assert DETECTION_ORDER[-1] == "cpu"

@@ -91,8 +91,8 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
 def test_parallel_axes_raise(monkeypatch):
     # An expert or model axis runs on an expert x model serving group;
     # without one it raises (never a replicated fallback), and so does one
-    # larger than the host; seq and stage are not served, and a data axis
-    # beside such a group and replicas of one wait for item 2d-ii.
+    # larger than the host; seq and stage are not served. A data axis
+    # beside such a group, and replicas of one, need the group too.
     for axes in ({"model": 2}, {"expert": 2}, {"expert": 2, "model": 2}):
         with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * 4)
@@ -103,13 +103,13 @@ def test_parallel_axes_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="queue A, item 2e"):
         build_mesh({"seq": 2}, devices=[CPU] * 2)
     for axes in ({"data": 2, "model": 2}, {"data": -1, "expert": 2}):
-        with pytest.raises(NotImplementedError, match="queue A, item 2d-ii"):
+        with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * 4)
     with pytest.raises(RuntimeError, match="none is running"):
         port_fleet.plan_replicas("clip", {"model": 2}, devices=[CPU] * 4)
     monkeypatch.setenv("LUMEN_REPLICAS", "2")
     for axes in ({"model": 2}, {"expert": 2}):
-        with pytest.raises(NotImplementedError, match="queue A, item 2d-ii"):
+        with pytest.raises(RuntimeError, match="none is running"):
             port_fleet.plan_replicas("clip", axes, devices=[CPU] * 4)
     assert build_mesh(devices=[CPU]).shape == {"data": 1}
 

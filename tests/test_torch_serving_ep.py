@@ -320,7 +320,7 @@ def test_serve_with_an_expert_axis(dirs, runs, tmp_path_factory):
     out = run_ranks("ep_serve", 1, {"meta": {"config": config, "prompt": PROMPT, "max_new": 8}},
                     tmp_path_factory.mktemp("ep_serve"), timeout=150)[0]
     assert json.loads(str(out["vlm_shape"])) == {"expert": 2}
-    assert json.loads(str(out["group_shape"])) == {"expert": 2, "model": 1}
+    assert json.loads(str(out["group_shape"])) == {"data": 1, "expert": 2, "model": 1}
     assert out["vlm_tokens"].tolist() == want
     assert bool(out["healthy"])
     assert out["worker_codes"].tolist() == [0]

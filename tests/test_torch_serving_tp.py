@@ -20,8 +20,9 @@ chat template removed, so both render the plain transcript;
 - a row spilled from the TP pool resumes at TP = 1 to the same tokens;
 - a view of a rank-local tensor passed to a program is refused;
 - a killed worker fails rank 0's next call within the group timeout;
-- a model axis the group cannot fill and replicas x model raise, and the
-  MoE decoder serves on a model axis.
+- a model axis the group cannot fill raises, replicas beyond the group's
+  one data place degrade to one, and the MoE decoder serves on a model
+  axis.
 """
 
 from __future__ import annotations
@@ -254,14 +255,17 @@ def test_views_of_rank_local_tensors_are_refused(vlm_runs):
 
 
 def test_hard_limits_raise(vlm_runs):
-    """A model axis the group cannot fill and replicas x model raise; the
+    """A model axis the group cannot fill raises; ``LUMEN_REPLICAS=2`` on
+    a group of one data place degrades to one replica, as the JAX plan
+    degrades a count its devices cannot hold (replicas of a group, which
+    raised here until they were ported: ``tests/test_torch_dp_tp.py``); the
     MoE decoder, which raised here until its expert and tensor parallelism
     was ported, serves on the model axis (its tokens against the JAX
     manager's: ``tests/test_torch_serving_ep.py``)."""
     limits = json.loads(str(vlm_runs[1][0]["limits"]))
     assert limits["axis"].startswith("ValueError") and "needs 4 devices" in limits["axis"]
-    assert limits["replicas"].startswith("NotImplementedError") and "item 2d" in limits["replicas"]
-    assert limits["moe"] == 'served 4 tokens on {"data": 1, "model": 2}', limits["moe"]
+    assert limits["replicas"] == '1 replica(s) served 4 tokens on {"data": 1, "model": 2}', limits["replicas"]
+    assert limits["moe"] == '1 replica(s) served 4 tokens on {"data": 1, "model": 2}', limits["moe"]
 
 
 @pytest.fixture(scope="module")

@@ -5,10 +5,11 @@ case and writes its results as numpy.
 The ranks import torch and the port only: the JAX side of each test is
 computed in the pytest process and reaches the ranks as an ``.npz``.
 
-The serving cases (``tp_*``, ``ep_*``) join a serving group
+The serving cases (``tp_*``, ``ep_*``, ``dp_tp_*``) join a serving group
 (``runtime.tp_group``; ``meta["expert"]`` places on the expert axis, the
-rest on the model axis) instead of a plain process group: rank 0 drives
-the managers, the other ranks run the worker loop until rank 0 stops it.
+rest on the model axis, ``meta["places"]`` data places a rank, each the
+CPU) instead of a plain process group: rank 0 drives the managers, the
+other ranks run the worker loop until rank 0 stops it.
 
     python tests/torch_spmd_ranks.py <case> <rank> <world> <port> <dir>
 """
@@ -72,6 +73,29 @@ def run_ranks(case: str, world: int, inputs: dict, workdir: Path, timeout: float
         raise AssertionError(f"{case}: ranks {failed} failed (a negative code: killed at the {timeout} s limit):\n"
                              + "\n".join(log.read_text()[-3000:] for log in logs))
     return [{} if r in killed else dict(np.load(workdir / f"out_{r}.npz")) for r in range(world)]
+
+
+class StandInGroup:
+    """A stand-in for a running serving group (``runtime.tp_group``) with
+    ``data`` places of ``expert x model`` CPU ranks: its shape, places and
+    per-place axes, what a mesh and a replica plan read of one. Install it
+    with ``monkeypatch.setattr(tp_group, "_current", group)``."""
+
+    def __init__(self, data: int, expert: int = 1, model: int = 2):
+        from types import SimpleNamespace
+
+        import torch
+
+        from lumen_tpu_torch.parallel.tp import TensorParallel
+        from lumen_tpu_torch.runtime.tp_group import rank_devices
+
+        self.size, self.data = expert * model, data
+        self.shape = {"data": data, "expert": expert, "model": model}
+        self.places = rank_devices([torch.device("cpu")] * (data * self.size), self.size)
+        self._views = [SimpleNamespace(index=d, tp=TensorParallel(model, 0), ep=None) for d in range(data)]
+
+    def place(self, index: int):
+        return self._views[index]
 
 
 # -- the ranks ----------------------------------------------------------------
@@ -225,7 +249,8 @@ def _case_init(inp, meta, out):
 def _tp_group(meta):
     from lumen_tpu_torch.runtime.tp_group import TPGroup
 
-    return TPGroup.join(meta["rank"], meta["world"], f"localhost:{meta['port']}", ["cpu"] * meta["world"], "gloo",
+    devices = [["cpu"] * meta.get("places", 1) for _ in range(meta["world"])]
+    return TPGroup.join(meta["rank"], meta["world"], f"localhost:{meta['port']}", devices, "gloo",
                         timeout_s=meta.get("tp_timeout", 60.0), expert=meta.get("expert", 1))
 
 
@@ -310,21 +335,27 @@ def _tp_vlm(group, inp, meta, out):
                                             for a, b in zip(row["pages"], ref_row["pages"])))
     out["spill_pages_shape"] = np.asarray(row["pages"][0]["k"].shape)
 
-    # Hard limits: a model axis the group cannot fill and replicas x model
-    # raise; the MoE decoder serves on the model axis.
-    def moe():
-        mgr = VLMManager.from_model_dir(meta["moe_dir"], mesh_axes=mesh, **_vlm_kw(meta))
-        try:
-            r = mgr.generate(prompt, max_new_tokens=4)
-            return f"served {len(r.tokens)} tokens on {json.dumps(mgr.mesh.shape)}"
-        finally:
-            mgr.close()
+    # Hard limits: a model axis the group cannot fill raises; replicas
+    # beyond the group's one data place degrade to one (as JAX degrades a
+    # count its devices cannot hold); the MoE decoder serves on the model
+    # axis.
+    def served(model_dir):
+        def run():
+            mgr = VLMManager.from_model_dir(model_dir, mesh_axes=mesh, **_vlm_kw(meta))
+            try:
+                r = mgr.generate(prompt, max_new_tokens=4)
+                return (f"{mgr.fleet_plan.replicas} replica(s) served {len(r.tokens)} tokens on "
+                        f"{json.dumps(mgr.mesh.shape)}")
+            finally:
+                mgr.close()
+
+        return run
 
     limits = {}
     for tag, fn in (
         ("axis", lambda: build_mesh({"model": 4})),
-        ("replicas", lambda: VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta))),
-        ("moe", moe),
+        ("replicas", served(meta["vlm_dir"])),
+        ("moe", served(meta["moe_dir"])),
     ):
         if tag == "replicas":
             os.environ["LUMEN_REPLICAS"] = "2"
@@ -591,12 +622,154 @@ def _case_tp_serve(inp, meta, out):
     out["worker_codes"] = np.asarray([p.returncode for p in children])
 
 
+def _place_programs(group) -> list:
+    """Each rank's programs a data place since the last call."""
+    from lumen_tpu_torch.runtime.tp_group import rank_report
+
+    return [[p["programs"] for p in r["places"]] for r in group.each_rank(rank_report, True)]
+
+
+def _dp_tp(group, inp, meta, out):
+    """Two ranks of two data places each, at ``{data: 2, model: 2}``: CLIP
+    (f32, int8 ``dynamic`` and ``dequant``), the VLM's continuous engine
+    and coalescer, and the VLM at ``{model: 2}`` with
+    ``LUMEN_REPLICAS_VLM=2`` (one engine a place, each made to serve);
+    every place's programs on every rank."""
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+    from lumen_tpu_torch.runtime.tp_group import place_of
+
+    mesh = {"data": 2, "model": 2}
+    image = bytes(inp["image"])
+    _place_programs(group)
+    for tag, quant, kernel in (("f32", None, None), ("int8_dynamic", "int8", "dynamic"),
+                               ("int8_dequant", "int8", "dequant")):
+        if kernel:
+            os.environ["LUMEN_Q8_KERNEL"] = kernel
+        mgr = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=2, mesh_axes=mesh, quantize=quant,
+                          device="cpu")
+        mgr.initialize()
+        try:
+            out[f"clip_{tag}_image"] = mgr.encode_image(image)
+            out[f"clip_{tag}_text"] = mgr.encode_text(meta["text"])
+            out[f"clip_{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            out[f"clip_{tag}_places"] = np.asarray([place_of(m).index for m in mgr.place_models])
+        finally:
+            mgr.close()
+        out[f"clip_{tag}_programs"] = np.asarray(_place_programs(group))
+    os.environ.pop("LUMEN_Q8_KERNEL", None)
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    for tag, extra in (("continuous", {"gen_slots": 2, "gen_block": 4}), ("coalesce", {"scheduler": "coalesce"})):
+        mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta, **extra))
+        try:
+            r = mgr.generate(prompt, max_new_tokens=meta["max_new"])
+            out[f"vlm_{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            chunks = list(mgr.generate_stream(prompt, max_new_tokens=meta["max_new"]))
+            out[f"vlm_{tag}_stream"] = np.asarray("".join(c.text for c in chunks).strip())
+            out[f"vlm_{tag}_engines"] = np.asarray([place_of(e.gen).index for e in mgr._engines])
+        finally:
+            mgr.close()
+        out[f"vlm_{tag}_tokens"], out[f"vlm_{tag}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+        out[f"vlm_{tag}_programs"] = np.asarray(_place_programs(group))
+
+    os.environ["LUMEN_REPLICAS_VLM"] = "2"
+    try:
+        mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes={"model": 2},
+                                        **_vlm_kw(meta, gen_slots=2, gen_block=4))
+    finally:
+        os.environ.pop("LUMEN_REPLICAS_VLM", None)
+    try:
+        out["replica_shapes"] = np.asarray(json.dumps([m.shape for m in mgr.fleet_plan.meshes]))
+        out["replica_places"] = np.asarray([place_of(e.gen).index for e in mgr._engines])
+        _place_programs(group)
+        for i, engine in enumerate(mgr._engines):
+            mgr._pick_engine = lambda e=engine: e  # this engine serves the request
+            r = mgr.generate(prompt, max_new_tokens=meta["max_new"])
+            chunks = list(mgr.generate_stream(prompt, max_new_tokens=meta["max_new"]))
+            out[f"replica_{i}_tokens"], out[f"replica_{i}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+            out[f"replica_{i}_stream"] = np.asarray("".join(c.text for c in chunks).strip())
+            out[f"replica_{i}_programs"] = np.asarray(_place_programs(group))
+    finally:
+        mgr.close()
+
+
+def _dp_tp_moe(group, inp, meta, out):
+    """The MoE VLM at ``{data: 2, expert: 2, model: 2}`` on four ranks of
+    two data places each."""
+    _ep_generate(meta, {"data": 2, "expert": 2, "model": 2}, ("continuous",), out)
+
+
+def _dp_tp_ingest(group, inp, meta, out):
+    """The twin of ``TestIngestWithTpManager``: CLIP at ``{data: 4, model:
+    2}`` (two ranks of four places) and face on the same mesh, the photo
+    ingest over the manager's mesh, and ``encode_image`` of the repeated
+    photo."""
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+    from lumen_tpu_torch.models.face import FaceManager
+    from lumen_tpu_torch.pipeline.photo import PhotoIngestPipeline
+    from lumen_tpu_torch.runtime.tp_group import place_of
+
+    mesh = {"data": 4, "model": 2}
+    clip = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=4, mesh_axes=mesh, device="cpu")
+    face = FaceManager(meta["face_dir"], dtype="float32", batch_size=4, mesh_axes=mesh, device="cpu")
+    clip.initialize()
+    face.initialize()
+    try:
+        items = [bytes(inp[f"item_{i}"]) for i in range(int(inp["n_items"]))]
+        pipe = PhotoIngestPipeline(clip.mesh, clip=clip, face=face, batch_size=8, on_decode_error="record")
+        records = list(pipe.run(items))
+        out["clip_embedding"] = np.stack([r.clip_embedding if r.clip_embedding is not None else
+                                          np.zeros(clip.cfg.embed_dim, np.float32) for r in records])
+        out["errors"] = np.asarray([bool(r.error) for r in records])
+        out["faces"] = np.asarray(json.dumps([[{"bbox": [float(v) for v in f.bbox],
+                                                 "embedding": [float(v) for v in f.embedding]} for f in r.faces]
+                                               for r in records]))
+        out["direct"] = clip.encode_image(items[0])
+        out["shapes"] = np.asarray(json.dumps([clip.mesh.shape, face.mesh.shape]))
+        out["clip_places"] = np.asarray([place_of(m).index for m in clip.place_models])
+        out["face_devices"] = np.asarray(json.dumps([str(next(v.parameters()).device) for v in face.det_places]))
+        out["syncs"] = np.asarray([pipe.stats.syncs, pipe.stats.batches])
+        out["programs"] = np.asarray(_place_programs(group))
+    finally:
+        face.close()
+        clip.close()
+
+
+def _case_dp_tp_serve(inp, meta, out):
+    """``serve()`` on a config whose CLIP service carries ``mesh: {data: 4,
+    model: 2}`` with eight devices: the group it starts and the mesh the
+    service serves on, an embedding, and ``stop``."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.serving import server
+
+    handle = server.serve(validate_config_dict(meta["config"]), port_override=0, skip_download=True, device="cpu",
+                          tp_devices=["cpu"] * 8, tp_backend="gloo")
+    try:
+        clip = handle.services["clip"].managers["clip"]
+        out["clip_shape"] = np.asarray(json.dumps(clip.mesh.shape))
+        out["group_shape"] = np.asarray(json.dumps(handle.tp_group.shape))
+        out["clip_image"] = clip.encode_image(bytes(inp["image"]))
+        from lumen_tpu_torch.runtime.tp_group import rank_report
+
+        # each rank's programs a place: the spawned worker reports its four
+        out["place_programs"] = np.asarray([[p["programs"] for p in r["places"]]
+                                            for r in handle.tp_group.each_rank(rank_report)])
+        children = list(handle.tp_group.children)
+    finally:
+        handle.stop(grace=1.0)
+    out["worker_codes"] = np.asarray([p.returncode for p in children])
+
+
 CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init,
          "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve,
          "ep_vlm": _serving(_ep_vlm), "ep_tp_vlm": _serving(_ep_tp_vlm), "tp_moe": _serving(_tp_moe),
-         "ep_serve": _case_ep_serve}
+         "ep_serve": _case_ep_serve, "dp_tp": _serving(_dp_tp), "dp_tp_moe": _serving(_dp_tp_moe),
+         "dp_tp_ingest": _serving(_dp_tp_ingest), "dp_tp_serve": _case_dp_tp_serve}
 #: cases that open their own group (the others run in a plain gloo group)
-OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve", "ep_vlm", "ep_tp_vlm", "tp_moe", "ep_serve")
+OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve", "ep_vlm", "ep_tp_vlm", "tp_moe", "ep_serve", "dp_tp",
+             "dp_tp_moe", "dp_tp_ingest", "dp_tp_serve")
 
 
 def main() -> int:
