@@ -374,20 +374,39 @@ Phases (any failure exits non-zero):
     both ranks, tokens to phase 17 (b)'s rule; (d) NCCL at world size 1
     with its place named twice. Each rank and place prints its launches,
     peak memory and synchronize.
+21. exported (ONNX) vision towers beside a ``model`` axis, as the
+    ``cuda_h100_8_dp_tp`` preset serves FastVLM-0.5B and MobileCLIP2
+    (``drive_graph_group``): one ``serve()`` of the preset's ``clip`` and
+    ``vlm`` blocks with the mesh set to ``{data: 2, model: 2}``, on two
+    gloo ranks sharing the card, each driving it named twice, with
+    ``LUMEN_REPLICAS_VLM=2``; ``vlm`` phase 12 (a)'s FastVLM-style
+    directory (phase 6's decoder, the FastViTHD stand-in at 1024 px and
+    256 tokens as ``onnx/vision_encoder.onnx``), ``clip`` phase 9 (c)'s
+    export-only ViT-B/32 towers; against mesh-less managers on the card
+    from the same directories. (a) 2 greedy requests of 8 tokens on each
+    engine with photos: tokens to phase 17 (b)'s rule, the cache and paged
+    kernels at each engine's place on both ranks, the tower (and the
+    graph CLIP) held by rank 0 alone, each rank's peak memory, the
+    device-to-host syncs of one prepare step on rank 0; (b) 64 pixels
+    through ``clip_image_embed``, a JPEG and 8 ``clip_text_embed`` over
+    gRPC: embeddings within ``CLIP_COSINE``, no program of the group (rank
+    1 runs no CLIP), one device-to-host copy a place a batch. It times
+    nothing.
 
 The counts above are each drive's defaults; ``main`` runs phases 7, 9-17
-and 20 cut in depth to keep all twenty within the time limit (the
+and 20 cut in depth to keep all twenty-one within the time limit (the
 comments beside each call in ``main`` list the cuts).
 
-Phases 12 then 14, and 16, run beside the main lane, each lane a process
-of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``): 12 and 14 once
-phase 8 has ended (14 waits for 9 and 10 too), 16 once 15 has ended, so
-its ~31 GiB never meets phase 15's ~39 GiB. A lane's launch counts are
-its own process's, as its servers' and ranks' are theirs, so no phase
-reads another's launches. Every lane ends before phase 19, which times
-kernels with the card to itself. A lane's lines are echoed as they come.
+Phases 12, 14 then 21, and 16, run beside the main lane, each lane a
+process of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``): 12, 14
+and 21 once phase 8 has ended (14 waits for 9 and 10 too, 21 for 9; 21
+serves 12's directory), 16 once 15 has ended, so its ~31 GiB never meets
+phase 15's ~39 GiB. A lane's launch counts are its own process's, as its
+servers' and ranks' are theirs, so no phase reads another's launches.
+Every lane ends before phase 19, which times kernels with the card to
+itself. A lane's lines are echoed as they come.
 
-A run with no arguments drives all twenty phases (``--phases 13``, a
+A run with no arguments drives all twenty-one phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -7912,6 +7931,267 @@ def drive_dp_tp(seed: int, card: str, root: Path, vlm_dir: Path, photos: list, d
     return out
 
 
+#: phase 21 (a): the kernels the VLM's engines launch at each engine's
+#: place on both ranks (the exported tower and the graph CLIP launch none)
+PHASE21_VLM_KERNELS = ("flash_attention_cache", "paged_attention")
+#: phase 21's mesh: the ``cuda_h100_8_dp_tp`` preset's ``{data: -1, model:
+#: 2}`` cut to the two data places of the one card named twice
+GRAPH_GROUP_AXES = {"data": 2, "model": 2}
+
+
+def graph_group_config(cache_dir: Path, clip_model: str, vlm_model: str, device: str = "cuda") -> dict:
+    """Phase 21's deployment: the ``clip`` and ``vlm`` blocks of
+    ``generate_config("cuda_h100_8_dp_tp", tier="full")`` as the app
+    writes them (bf16, the preset's batches and windows), their mesh set
+    to ``GRAPH_GROUP_AXES``, their models named, on ``device``, bound to
+    the loopback address with no mDNS."""
+    from lumen_tpu_torch.app.config_gen import generate_config
+
+    raw = generate_config("cuda_h100_8_dp_tp", tier="full", cache_dir=str(cache_dir)).model_dump(exclude_none=True)
+    raw["deployment"]["services"] = ["clip", "vlm"]
+    raw["services"] = {name: raw["services"][name] for name in ("clip", "vlm")}
+    for name, model in (("clip", clip_model), ("vlm", vlm_model)):
+        svc = raw["services"][name]
+        svc["backend_settings"]["mesh"]["axes"] = dict(GRAPH_GROUP_AXES)
+        svc["backend_settings"]["device"] = device
+        svc["models"][name]["model"] = model
+    raw["server"].update(host="127.0.0.1", mdns={"enabled": False})
+    return raw
+
+
+def tensor_gib(tree) -> float:
+    """GiB of the tensors of a ``{name: tensor}`` dict, or a list of them."""
+    items = tree if isinstance(tree, list) else [tree]
+    return sum(t.numel() * t.element_size() for d in items for t in d.values()) / 2**30
+
+
+def drive_graph_group(seed: int, card: str, root: Path, fast_dir: Path, clip_dir: Path, photos: list,
+                      device: str = "cuda:0", backend: str = "gloo", n_pixels: int = 64, n_texts: int = 8,
+                      n_requests: int = 2, max_new: int = 8) -> dict:
+    """Phase 21: exported vision towers beside a ``model`` axis, as the
+    ``cuda_h100_8_dp_tp`` preset serves FastVLM-0.5B and MobileCLIP2: one
+    ``serve()`` of :func:`graph_group_config` on two gloo ranks sharing the
+    card, each driving it named twice (the group's two data places), with
+    ``LUMEN_REPLICAS_VLM=2``, against mesh-less managers on the card built
+    from the same directories. ``vlm`` serves phase 12 (a)'s FastVLM-style
+    directory (``fast_dir``: phase 6's decoder, the FastViTHD stand-in as
+    ``onnx/vision_encoder.onnx``), ``clip`` phase 9 (c)'s export-only
+    ViT-B/32 towers (``clip_dir``), both linked into a cache of its own. (a) ``n_requests`` greedy requests of
+    ``max_new`` tokens on each engine (an engine a place) with photos:
+    tokens to phase 17 (b)'s rule, the cache and paged kernels launched at
+    each engine's place on both ranks, the tower's weights on rank 0 alone
+    (each rank's held and peak memory), and the device-to-host syncs of one
+    prepare step on rank 0. (b) ``n_pixels`` pixels through
+    ``clip_image_embed`` (one more as a JPEG over gRPC) and ``n_texts``
+    ``clip_text_embed`` requests over gRPC: embeddings within
+    ``CLIP_COSINE`` of the mesh-less graph CLIP, no program of the group
+    run (rank 1 runs no CLIP), one device-to-host copy a place a batch.
+    It times nothing. The sizes let the CPU tests rehearse it small."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from lumen_tpu_torch.models.clip import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.runtime import batcher
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.runtime.tp_group import TPGroup, place_of, rank_report
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize, vlm_canvas
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    ranks = [[dev, dev], [dev, dev]]
+    cache = root / "graph_group"
+    cfg = vlm_config_of(fast_dir)
+    log(f"phase 21: exported towers beside {json.dumps(GRAPH_GROUP_AXES)}, as 2 gloo ranks sharing the card, each "
+        f"driving it named twice (no NCCL between cards, one host's cores); the dp_tp preset's clip and vlm blocks [{card}]")
+    out: dict = {"parts_s": {}}
+    laps = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["parts_s"][part], laps[0] = round(now - laps[0], 1), now
+
+    (cache / "models").mkdir(parents=True)
+    for src in (fast_dir, clip_dir):
+        os.symlink(src, cache / "models" / src.name)
+    msgs = [ChatMessage("user", "describe this photo in one detailed sentence")]
+    canvases = [vlm_canvas(photos[i % len(photos)], cfg.vision.image_size) for i in range(2 * n_requests)]
+    jobs = [(msgs, c) for c in canvases]
+    clip_photos = photo_batch(seed * 100 + 21, n_pixels + 1)
+    texts = [f"a photo of a {clip_label(i)}" for i in range(n_texts)]
+
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_VLM_SPEC_K="0"):
+        reset_result_cache()
+        pending = ThreadPoolExecutor(max_workers=1)
+        starting = pending.submit(TPGroup.spawn, ranks, backend, TP_DEATH_TIMEOUT_S)  # beside the references
+        pending.shutdown(wait=False)
+        group = None
+        try:
+            # -- mesh-less references on the same card, from the same directories ----
+            vlm_ref = VLMManager.from_model_dir(str(fast_dir), device=device, dtype="bfloat16")
+            try:
+                if vlm_ref._vision_graph is None:
+                    raise AssertionError("phase 21: the mesh-less VLM serves no graph tower")
+                want = tp_generate(vlm_ref, jobs, max_new)
+                logits = [tp_step_logits(vlm_ref, msgs, c, w) for c, w in zip(canvases, want)]
+            finally:
+                vlm_ref.close()
+            del vlm_ref
+            ref = CLIPManager(str(clip_dir), dtype="bfloat16", batch_size=64, device=device, devices=[dev])
+            ref.initialize()
+            try:
+                size = ref.cfg.image_size
+                pixels = [_spec_clip_resize(p, {"size": size}) for p in clip_photos[:n_pixels]]
+                with ThreadPoolExecutor(n_pixels) as ex:
+                    ref_vecs = np.stack(list(ex.map(ref.encode_image_tensor, pixels)))
+                ref_photo = ref.encode_image(clip_photos[-1])
+                ref_texts = np.stack([ref.encode_text(t) for t in texts])
+            finally:
+                ref.close()
+            del ref  # its towers leave rank 0's device before the held memory is read
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            lap("mesh-less references")
+            group = starting.result()
+            lap("ranks started")
+            config = root / "graph_group.yaml"
+            config.write_text(yaml.safe_dump(graph_group_config(cache, clip_dir.name, fast_dir.name, dev.type)))
+            with env(LUMEN_REPLICAS_VLM="2"):
+                handle, channel, stub, out["load_s"] = boot_tp(config, device, [dev] * 4, backend)
+            try:
+                vlm = handle.services["vlm"].manager
+                clip = handle.services["clip"].managers["clip"]
+                shapes = [m.shape for m in vlm.fleet_plan.meshes]
+                engine_places = [place_of(e.gen).index for e in vlm._engines]
+                if vlm.tp_group is not group or vlm._vision_graph is None or engine_places != [0, 1]:
+                    raise AssertionError(f"(a): the VLM serves {'no' if vlm._vision_graph is None else 'a'} graph "
+                                         f"tower with engines at places {engine_places} of {shapes}")
+                clip_devices = [str(next(iter(m["vision"].values())).device) for m in clip.place_models]
+                if clip.mesh.shape != GRAPH_GROUP_AXES or clip.tp_group is not group or \
+                        clip_devices != [str(d) for d in clip.mesh.data_devices]:
+                    raise AssertionError(f"(b): graph CLIP on {clip.mesh} with copies on {clip_devices}, not on rank "
+                                         f"0's device of each place of {GRAPH_GROUP_AXES}")
+                # each rank's device memory held by tensors (a program of
+                # torch's own function: a worker cannot load this script's)
+                held = [b / 2**30 for b in group.each_rank(torch.cuda.memory_allocated)] if on_card else [0.0, 0.0]
+                tower_gib, clip_gib = tensor_gib(vlm._vision_params), tensor_gib(
+                    [m[t] for m in clip.place_models for t in ("vision", "text")])
+                out.update(a_shapes=shapes, held_gib=held, tower_gib=tower_gib, clip_gib=clip_gib)
+                if on_card and held[0] - held[1] < 0.95 * (tower_gib + clip_gib):
+                    raise AssertionError(f"(a): rank 0 holds {held[0]:.3f} GiB and rank 1 {held[1]:.3f}: the tower "
+                                         f"({tower_gib:.3f} GiB) and the graph CLIP ({clip_gib:.3f}) are not rank 0's alone")
+                lap("serve()")
+
+                # -- (a) the VLM: two replicas, an engine a place, the tower on rank 0 -----
+                group.each_rank(rank_report, True)
+                got = []
+                for i, engine in enumerate(vlm._engines):
+                    vlm._pick_engine = lambda e=engine: e  # this engine serves its requests
+                    try:
+                        got += tp_generate(vlm, jobs[i * n_requests:(i + 1) * n_requests], max_new)
+                    finally:
+                        del vlm._pick_engine
+                reports = group.each_rank(rank_report, True)
+                a = {k: place_readouts(reports, k) for k in PHASE21_VLM_KERNELS}
+                for k in PHASE21_VLM_KERNELS:
+                    if any(a[k]["launches"][r][i] == 0 for r in range(2) for i in range(2)):
+                        raise AssertionError(f"(a): {k} launched 0 times at an engine's place: {a[k]['launches']}")
+                first = []
+                for i, engine in enumerate(vlm._engines):  # each engine's first request, its first step
+                    j = i * n_requests
+                    step = tp_step_logits(vlm, msgs, canvases[j], want[j][:1], gen=engine.gen)[0]
+                    cos_a = float(torch.nn.functional.cosine_similarity(step, logits[j][0], dim=0))
+                    first.append({"engine": i, "cos": cos_a,
+                                  "rel": float((step - logits[j][0]).abs().max()) / float(logits[j][0].abs().max())})
+                    if cos_a < TP_LOGIT_COSINE or first[-1]["rel"] > TP_LOGIT_REL:
+                        raise AssertionError(f"(a) engine {i}: first-step logits cosine {cos_a:.6f}, max|diff| "
+                                             f"{first[-1]['rel']:.4f} of max|logit|")
+                prefixes = [equal_prefix(g, w) for g, w in zip(got, want)]
+                parted = []
+                for j, p in enumerate(prefixes):
+                    if p == len(want[j]):
+                        continue
+                    engine = vlm._engines[j // n_requests]
+                    here = logits[j][p]
+                    diff = float((tp_step_logits(vlm, msgs, canvases[j], want[j][: p + 1], gen=engine.gen)[p]
+                                  - here).abs().max())
+                    parted.append({"request": j, "token": p, "ref_gap": top2_gap(here), "max_diff": diff})
+                    if parted[-1]["ref_gap"] > 2 * diff:
+                        raise AssertionError(f"(a) request {j} parts from the mesh-less run at token {p} where its "
+                                             f"top-2 gap {parted[-1]['ref_gap']:.4f} exceeds twice the logit "
+                                             f"difference {diff:.4f}: not a near tie")
+                canvas = torch.from_numpy(canvases[0]).to(dev)
+                ids = torch.full((1, 64), cfg.pad_token_id, device=dev)
+                ids[0, 0] = cfg.image_token_id
+                length = torch.tensor([20], device=dev)
+                syncs = count_syncs(lambda: vlm._prepare(canvas[None], ids, length)) if on_card else 0
+                out.update(a_first=first, a_prefix=prefixes, a_lengths=[len(w) for w in want], a_parted=parted,
+                           a_readouts=a, a_peak_gib=[r.get("peak_gib", 0.0) for r in reports], a_prepare_syncs=syncs)
+                lap("(a) VLM")
+
+                # -- (b) graph CLIP: local calls on rank 0's device of each place ---------
+                fetches = [0]
+                fetch = batcher._fetch_cuda
+
+                def counted(*args, **kw):
+                    fetches[0] += 1
+                    return fetch(*args, **kw)
+
+                ib, tb = clip._image_batcher, clip._text_batcher
+                group.each_rank(rank_report, True)
+                before = (ib.stats["batches"], tb.stats["batches"], group.programs)
+                batcher._fetch_cuda = counted
+                try:
+                    with ThreadPoolExecutor(n_pixels) as ex:
+                        vecs = np.stack(list(ex.map(clip.encode_image_tensor, pixels)))
+                    served = grpc_call(stub, "clip_image_embed", clip_photos[-1], {})
+                    with ThreadPoolExecutor(n_texts) as ex:
+                        told = list(ex.map(lambda t: grpc_call(stub, "clip_text_embed", t.encode(), {},
+                                                               mime="text/plain"), texts))
+                finally:
+                    batcher._fetch_cuda = fetch
+                programs = group.programs - before[2]
+                batches = ib.stats["batches"] - before[0] + tb.stats["batches"] - before[1]
+                if any(r["code"] for r in [served, *told]):
+                    raise AssertionError(f"(b): codes {[r['code'] for r in [served, *told]]}")
+                served_vecs = np.stack([np.asarray(r["body"]["vector"], np.float32) for r in [served, *told]])
+                cos = np.concatenate([cosines(vecs, ref_vecs),
+                                      cosines(served_vecs, np.concatenate([ref_photo[None], ref_texts]))])
+                if cos.min() < CLIP_COSINE:
+                    raise AssertionError(f"(b): cosine to the mesh-less graph CLIP {cos.min():.6f} < {CLIP_COSINE}")
+                if programs:
+                    raise AssertionError(f"(b): the group ran {programs} programs for graph CLIP: rank 1 ran CLIP")
+                per_batch = fetches[0] / max(batches, 1)
+                if on_card and per_batch != len(clip.mesh.places):
+                    raise AssertionError(f"(b): {fetches[0]} device-to-host copies over {batches} batches, not one a "
+                                         f"place ({len(clip.mesh.places)})")
+                # rank 1's programs a place since the zeroing readout: the
+                # readout's own program at place 0, and nothing else
+                rank1 = [p["programs"] for p in group.each_rank(rank_report)[1]["places"]]
+                if rank1 != [1, 0]:
+                    raise AssertionError(f"(b): rank 1 ran programs {rank1} a place across (b), not the readout alone")
+                out.update(b_cos=float(cos.min()), b_batches=batches, b_fetches_per_batch=per_batch,
+                           b_programs=programs, b_rank1_programs=rank1)
+                lap("(b) CLIP")
+            finally:
+                channel.close()
+                handle.stop(grace=1.0)
+        finally:
+            if group is None:
+                with contextlib.suppress(Exception):
+                    group = starting.result()
+            if group is not None:
+                group.stop()
+        reset_result_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -7942,8 +8222,8 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
-               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9)}
-ALL_PHASES = frozenset(range(1, 21))
+               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9), 21: (6, 8, 9, 12)}
+ALL_PHASES = frozenset(range(1, 22))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -7963,7 +8243,7 @@ def phase_set(spec: "str | None") -> frozenset:
 
 #: the lanes beside the main one: the main-lane phase after which each
 #: starts, and its phases in order (see the module's docstring)
-BESIDE_LANES = ((8, (12, 14)), (15, (16,)))
+BESIDE_LANES = ((8, (12, 14, 21)), (15, (16,)))
 BESIDE_PHASES = frozenset(p for _, phases in BESIDE_LANES for p in phases)
 
 
@@ -8070,7 +8350,25 @@ def run_phase16(seed: int, card: str, root: Path, given: dict) -> dict:
     return train
 
 
-BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16}
+def run_phase21(seed: int, card: str, root: Path, given: dict) -> dict:
+    models = root / "cache" / "models"
+    graph = drive_graph_group(seed, card, root, models / "SmokeFastVLM", models / "SmokeMobileCLIP", given[6]["photos"])
+    a = graph["a_readouts"]
+    log(f"phase 21 [{card}]: {graph['phase_s']:.1f} s in all, parts {json.dumps(graph['parts_s'])}; "
+        f"{json.dumps(GRAPH_GROUP_AXES)} as 2 gloo ranks on the card named twice, the dp_tp preset's clip and vlm "
+        f"blocks served up in {graph['load_s']:.2f} s: (a) VLM 2 replicas of {{model: 2}} with the FastViTHD graph "
+        f"tower on rank 0 ({graph['tower_gib']:.3f} GiB; graph CLIP {graph['clip_gib']:.3f} GiB there too), held GiB a "
+        f"rank {[round(g, 3) for g in graph['held_gib']]}, peak GiB a rank {[round(g, 3) for g in graph['a_peak_gib']]}; "
+        f"first-step logits {json.dumps(graph['a_first'])}, equal prefixes {graph['a_prefix']} of "
+        f"{graph['a_lengths']} (partings {json.dumps(graph['a_parted'])}), launches a rank (rows) and place (columns) "
+        f"{json.dumps({k: a[k]['launches'] for k in a})}, device-to-host syncs of one prepare step on rank 0 "
+        f"{graph['a_prepare_syncs']}; (b) graph CLIP cosine min {graph['b_cos']:.6f} over {graph['b_batches']} "
+        f"batches, {graph['b_fetches_per_batch']:.2f} device-to-host copies a batch, group programs "
+        f"{graph['b_programs']}, rank 1's programs a place {graph['b_rank1_programs']} (the readout's own)")
+    return graph
+
+
+BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16, 21: run_phase21}
 
 
 def die_with_parent(parent: int) -> None:
@@ -8387,7 +8685,7 @@ def main() -> int:
                     f"a rank {json.dumps(ep[part]['launches'])}, by head_dim {json.dumps(ep[part]['instances'])}")
             lap(18)
         beside = join_lanes()
-        options, control = beside.get(12), beside.get(14)
+        options, control, graph = beside.get(12), beside.get(14), beside.get(21)
         if 19 in run:
             torch.cuda.empty_cache()
             data = drive_data(args.seed, card, Path(tmp))
@@ -8435,6 +8733,10 @@ def main() -> int:
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| "
             f"{row['max_abs_err']:.3e}, {used} [{card}]")
+    for k in kernels:
+        counts = graph["a_readouts"][k.name]["launches"] if k.name in graph["a_readouts"] else "not on the path"
+        log(f"kernel row {k.name}: phase-21 (a) launches a rank (rows) and data place (columns) {json.dumps(counts)} "
+            f"[{card}]")
     for k in kernels:
         a, b, c = dp["a_readouts"], dp["b_readouts"], dp["c_readouts"]
         counts = ({"(a) CLIP": a["launches"], "(b) ingest": b["launches"]} if k.name == "flash_attention" else

@@ -42,7 +42,12 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   rank at its part's place; each place's rows come back on rank 0's
   device of the place. The label matrix and the host softmax stay on
   rank 0 (over a ``data`` axis, on place 0's copy: the softmax reads the
-  gathered rows).
+  gathered rows). Graph towers have no sharding rules: on a group they
+  stay whole, a copy on rank 0's device of each data place of each
+  replica (as the face manager's weights), and their forwards are local
+  calls there, no program of the group; the workers hold and run no CLIP.
+  The JAX manager replicates them over every device of the mesh instead;
+  the embeddings are the same.
 """
 
 from __future__ import annotations
@@ -405,11 +410,12 @@ class CLIPManager:
         return min(times)
 
     def _place_graphs(self) -> None:
-        """Graph towers: the exporter's own float32 weights on every
-        replica's device; serving shapes reconciled with the exports'
-        STATIC shapes even when a config.json supplied the cfg (a text
-        export built at 52 tokens cannot run 77-padded ids; the vision
-        export's input side fixes the resize target)."""
+        """Graph towers: the exporter's own float32 weights on every data
+        place of every replica (on a group, rank 0's device of each);
+        serving shapes reconciled with the exports' STATIC shapes even
+        when a config.json supplied the cfg (a text export built at 52
+        tokens cannot run 77-padded ids; the vision export's input side
+        fixes the resize target)."""
         vision_graph, text_graph = self._graphs
         vshape = next(iter(vision_graph.module.input_shapes().values()), ())
         updates: dict = {}
@@ -448,8 +454,6 @@ class CLIPManager:
         state = self._load_state()
         if state is not None:
             self._place_native(state)
-        elif self.tp_group is not None:
-            raise NotImplementedError("CLIP graph towers do not run on a model axis")
         else:
             self._place_graphs()
         self.place_models = self._fleet_models[0]

@@ -53,6 +53,13 @@ such a group, one continuous engine a replica, each with its own copy of
 the rank's shards on the first data place of its slice of the group's
 places (``plan_replicas``); the least-loaded engine takes a request, and a
 request prepared on place 0 crosses to its engine's place by value.
+An exported vision tower (``graph.py``) runs on rank 0 alone, on the
+device where requests are prepared (``device``, replica 0's place 0): its
+float32 weights live there once and the workers hold none. Its output
+goes by value into the splice program of every rank
+(:func:`prepare_graph`: the token embed, with its width gather, and the
+image-token splice). The JAX manager replicates the tower's weights over
+every device of the mesh instead; the tokens are the same.
 
 A ``data`` axis (the default mesh over every card, or ``mesh_axes``; or
 a group's data places) has no batch axis to split here: the continuous
@@ -334,8 +341,6 @@ class VLMManager:
             self.tp_group = self.mesh.group
             if self.mesh.device != self.device:
                 raise ValueError(f"the tensor-parallel group's rank 0 is on {self.mesh.device}, not {self.device}")
-            if vision_graph is not None:
-                raise NotImplementedError("an exported vision tower does not run on an expert or model axis")
             # TP x int8 (JAX manager.py:268-272): a model axis anywhere in
             # the process routes int8 decode to the dequant dot (the expert
             # axis does not).
@@ -388,8 +393,9 @@ class VLMManager:
         del state
         self._vision_graph = vision_graph
         if vision_graph is not None:
-            # The tower runs in its exported float32 on the serving device;
-            # the host copy goes once the device holds one.
+            # The tower runs in its exported float32 on the serving device
+            # (on a group, rank 0's alone); the host copy goes once the
+            # device holds one.
             self._vision_params = vision_graph.place(self.device)
             v = vision_graph.probe(cfg.vision.image_size, cfg.decoder.hidden_size, self._vision_params)
             vision_graph.release_weights()
@@ -857,10 +863,12 @@ class VLMManager:
         the graph tower runs on float32 NCHW pixels, the native one on the
         compute dtype."""
         if self._vision_graph is not None:
+            # The tower runs here alone (rank 0's device on a group); its
+            # output goes by value into the splice program of every rank.
             x = (pixels_u8.float() / 255.0 - self._mean) / self._std
             vis = self._vision_graph(self._vision_params, x.permute(0, 3, 1, 2)).to(self.compute_dtype)
-            text = self.model.embed_tokens(ids).to(self.compute_dtype)
-            return merge_image_embeddings(text, vis, ids, self.cfg.image_token_id, length)
+            return run_on(place_of(self.model), prepare_graph, self.model, vis, ids, length, self.compute_dtype,
+                          self.cfg.image_token_id)
         return run_on(place_of(self.model), prepare_image, self.model, pixels_u8, ids, length, self._mean, self._std,
                       self.compute_dtype, self.cfg.image_token_id)
 
@@ -1222,6 +1230,15 @@ def prepare_image(model: VLMModel, pixels_u8, ids, length, mean, std, dtype, ima
     group): normalize -> vision tower -> token embed -> splice."""
     x = (pixels_u8.float() / 255.0 - mean) / std
     vis = model.encode_vision(x.to(dtype))
+    text = model.embed_tokens(ids).to(dtype)
+    return merge_image_embeddings(text, vis, ids, image_token_id, length)
+
+
+@torch.no_grad()
+def prepare_graph(model: VLMModel, vis, ids, length, dtype, image_token_id: int):
+    """An exported tower's prepare step (a program on a tensor-parallel
+    group): token embed -> splice of ``vis``, the tower's ``[1, N, H]``
+    output computed on rank 0 and sent by value."""
     text = model.embed_tokens(ids).to(dtype)
     return merge_image_embeddings(text, vis, ids, image_token_id, length)
 

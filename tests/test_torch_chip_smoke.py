@@ -20,6 +20,7 @@ processes of their own) under a time limit of their own.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -239,6 +240,59 @@ def test_phase_20_reads_each_rank_and_place():
         chip_smoke.place_readouts([reports[0], {"places": []}], "flash_attention")
 
 
+def test_chip_smoke_graph_group_drive_runs_on_cpu(clip_drive, face_drive, tmp_path):
+    """Phase 21 at small sizes on the CPU, after phases 6, 8 and 9: a
+    FastVLM-style directory (phase 12 (a)'s writer) of phase 6's small
+    decoder with the FastViTHD stand-in at tiny widths (still 1024 px, 256
+    tokens) and phase 9's export-only CLIP towers, served from the dp_tp
+    preset's blocks on ``{data: 2, model: 2}`` by two gloo ranks whose data
+    places are the CPU named again, against the mesh-less managers (the
+    launch gates emptied: the plain paths launch nothing; the memory and
+    copy gates need the card)."""
+    from lumen_tpu_torch.runtime import tp_group
+    from lumen_tpu_torch.testing.fastvlm_standins import FastViTHDConfig
+
+    root, _, phase6 = clip_drive
+    fast_dir, _ = chip_smoke.write_fastvlm_dir(tmp_path, Path(phase6["model_dir"]), "SmokeFastVLM",
+                                               FastViTHDConfig.tiny(hidden_size=128, image_size=1024), 12)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE21_VLM_KERNELS", ())
+        out = chip_smoke.drive_graph_group(0, "cpu", tmp_path, fast_dir, root / "cache" / "models" / "SmokeMobileCLIP",
+                                           phase6["photos"], device="cpu", n_pixels=8, n_texts=2, n_requests=1,
+                                           max_new=4)
+    assert tp_group.current() is None  # the group is stopped
+    assert out["a_shapes"] == [{"model": 2, "data": 1}] * 2
+    assert out["a_prefix"] == out["a_lengths"] and len(out["a_first"]) == 2
+    assert out["b_cos"] >= chip_smoke.CLIP_COSINE and out["b_batches"] > 0
+    assert out["b_programs"] == 0 and out["b_rank1_programs"] == [1, 0]
+    assert out["tower_gib"] > 0 and out["clip_gib"] > 0
+
+
+def test_phase_21_serves_the_preset_blocks(tmp_path):
+    """Phase 21's deployment is the dp_tp preset's ``clip`` and ``vlm``
+    blocks as the app writes them, but for the mesh, the models and the
+    device; a tensor dict's GiB."""
+    import torch
+
+    from lumen_tpu_torch.app.config_gen import generate_config
+    from lumen_tpu_torch.core.config import validate_config_dict
+
+    got = chip_smoke.graph_group_config(tmp_path, "SmokeMobileCLIP", "SmokeFastVLM")
+    preset = generate_config("cuda_h100_8_dp_tp", tier="full", cache_dir=str(tmp_path)).model_dump(exclude_none=True)
+    assert got["deployment"]["services"] == ["clip", "vlm"] and sorted(got["services"]) == ["clip", "vlm"]
+    for name, model in (("clip", "SmokeMobileCLIP"), ("vlm", "SmokeFastVLM")):
+        bs, want = got["services"][name]["backend_settings"], preset["services"][name]["backend_settings"]
+        assert bs["mesh"]["axes"] == chip_smoke.GRAPH_GROUP_AXES == {"data": 2, "model": 2}
+        assert {k: v for k, v in bs.items() if k != "mesh"} == {k: v for k, v in want.items() if k != "mesh"}
+        assert got["services"][name]["models"][name]["model"] == model
+    assert got["server"]["host"] == "127.0.0.1" and not got["server"]["mdns"]["enabled"]
+    validate_config_dict(got)
+    cpu = chip_smoke.graph_group_config(tmp_path, "a", "b", device="cpu")
+    assert {s["backend_settings"]["device"] for s in cpu["services"].values()} == {"cpu"}
+    tree = {"w": torch.zeros(256, 1024), "b": torch.zeros(1024, dtype=torch.bfloat16)}
+    assert chip_smoke.tensor_gib(tree) == chip_smoke.tensor_gib([tree, {}]) == (256 * 1024 * 4 + 2048) / 2**30
+
+
 def test_chip_smoke_vlm_options_drive_runs_on_cpu(clip_drive):
     """Phase 12 at small sizes on the CPU, after phases 6 and 8: a
     FastVLM-style directory with the FastViTHD stand-in at tiny widths
@@ -320,22 +374,23 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 21))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 22))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
                                         ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
                                         ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19}),
-                                        ("20", {1, 6, 8, 9, 20})])
+                                        ("20", {1, 6, 8, 9, 20}), ("21", {1, 6, 8, 9, 12, 21})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want
 
 
 @pytest.mark.parametrize("spec, want", [
-    (None, [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]}), (15, (16,), {16: []})]),
+    (None, [(8, (12, 14, 21), {12: [6, 8], 14: [6, 9, 10], 21: [6, 8, 9]}), (15, (16,), {16: []})]),
     ("14", [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]})]),
     ("12", [(8, (12,), {12: [6, 8]})]),
     ("16", [(15, (16,), {16: []})]),
     ("19", []),
     ("20", []),
+    ("21", [(8, (12, 21), {12: [6, 8], 21: [6, 8, 9]})]),
 ])
 def test_lanes_beside_the_main_one(spec, want):
     """Which phases run beside the main lane, after which main-lane phase

@@ -5,7 +5,7 @@ case and writes its results as numpy.
 The ranks import torch and the port only: the JAX side of each test is
 computed in the pytest process and reaches the ranks as an ``.npz``.
 
-The serving cases (``tp_*``, ``ep_*``, ``dp_tp_*``) join a serving group
+The serving cases (``tp_*``, ``ep_*``, ``dp_tp_*``, ``graph_*``) join a serving group
 (``runtime.tp_group``; ``meta["expert"]`` places on the expert axis, the
 rest on the model axis, ``meta["places"]`` data places a rank, each the
 CPU) instead of a plain process group: rank 0 drives the managers, the
@@ -762,14 +762,170 @@ def _case_dp_tp_serve(inp, meta, out):
     out["worker_codes"] = np.asarray([p.returncode for p in children])
 
 
+def _rank_value(x):
+    """A program's argument as this rank holds it, on the host."""
+    return x.detach().float().cpu().numpy()
+
+
+def _holds_no_vision(model) -> bool:
+    """Whether this rank's model holds no vision tower."""
+    return model.vision is None
+
+
+def _graph_answers(mgr, prompt, images, max_new: int, tag: str, out) -> None:
+    """Greedy tokens, text and streamed text of ``mgr`` for each image."""
+    for i, image in enumerate(images):
+        r = mgr.generate(prompt, image_bytes=image, max_new_tokens=max_new)
+        chunks = list(mgr.generate_stream(prompt, image_bytes=image, max_new_tokens=max_new))
+        out[f"{tag}_{i}_tokens"], out[f"{tag}_{i}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+        out[f"{tag}_{i}_stream"] = np.asarray("".join(c.text for c in chunks).strip())
+
+
+def _graph_group(group, inp, meta, out):
+    """Exported vision towers beside a ``model`` axis, on two ranks of two
+    data places each: the FastVLM-style VLM at ``{model: 2}`` (continuous,
+    coalescer, int8), at ``{data: 2, model: 2}`` and with
+    ``LUMEN_REPLICAS_VLM=2`` (each engine made to serve), the JAX suite's
+    graph-tower VLM at ``{model: 2}``, the spliced embeddings of every rank
+    beside the mesh-less port's, and graph CLIP at ``{data: 2, model: 2}``
+    and with ``LUMEN_REPLICAS_CLIP=2`` at ``{model: 2}`` (each replica's
+    embeddings, and the programs the group ran meanwhile)."""
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+    from lumen_tpu_torch.runtime.tp_group import place_of
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    images = [bytes(inp[f"image_{i}"]) for i in range(int(inp["n_images"]))]
+    runs = (("model2", meta["vlm_dir"], {"model": 2}, {"gen_slots": 2, "gen_block": 4}),
+            ("coalesce", meta["vlm_dir"], {"model": 2}, {"scheduler": "coalesce"}),
+            ("int8", meta["vlm_dir"], {"model": 2}, {"quantize": "int8"}),
+            ("data2", meta["vlm_dir"], {"data": 2, "model": 2}, {"gen_slots": 2, "gen_block": 4}),
+            ("style", meta["style_dir"], {"model": 2}, {"gen_slots": 2, "gen_block": 4}))
+    for tag, model_dir, mesh, extra in runs:
+        mgr = VLMManager.from_model_dir(model_dir, mesh_axes=mesh, **_vlm_kw(meta, **extra))
+        try:
+            _graph_answers(mgr, prompt, images if tag != "style" else images[:1], meta["max_new"], tag, out)
+            out[f"{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            out[f"{tag}_no_vision"] = np.asarray(group.each_rank(_holds_no_vision, mgr.model))
+            out[f"{tag}_tower_device"] = np.asarray(str(next(iter(mgr._vision_params.values())).device))
+            if tag == "model2":
+                # The splice program's output on every rank, beside the
+                # mesh-less port's prepare step on the same pixels.
+                canvas = inp["canvas"]
+                msgs = [ChatMessage(role="user", content="hi <image>")]
+                embeds = mgr._prepare_inputs(msgs, canvas)[0]
+                for r, value in enumerate(group.each_rank(_rank_value, embeds)):
+                    out[f"splice_{r}"] = value
+                one = VLMManager.from_model_dir(model_dir, **_vlm_kw(meta))
+                try:
+                    out["splice_meshless"] = _rank_value(one._prepare_inputs(msgs, canvas)[0])
+                finally:
+                    one.close()
+        finally:
+            mgr.close()
+
+    os.environ["LUMEN_REPLICAS_VLM"] = "2"
+    try:
+        mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes={"model": 2},
+                                        **_vlm_kw(meta, gen_slots=2, gen_block=4))
+    finally:
+        os.environ.pop("LUMEN_REPLICAS_VLM", None)
+    try:
+        out["replica_places"] = np.asarray([place_of(e.gen).index for e in mgr._engines])
+        _place_programs(group)
+        for i, engine in enumerate(mgr._engines):
+            mgr._pick_engine = lambda e=engine: e  # this engine serves the request
+            _graph_answers(mgr, prompt, images[:1], meta["max_new"], f"replica{i}", out)
+            out[f"replica{i}_programs"] = np.asarray(_place_programs(group))
+    finally:
+        mgr.close()
+
+    image, text = bytes(inp["clip_image"]), meta["text"]
+    for tag, mesh, replicas in (("clip_data2", {"data": 2, "model": 2}, "1"), ("clip_r2", {"model": 2}, "2")):
+        os.environ["LUMEN_REPLICAS_CLIP"] = replicas
+        programs = group.programs
+        try:
+            mgr = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=2, mesh_axes=mesh, device="cpu")
+            mgr.initialize()
+        finally:
+            os.environ.pop("LUMEN_REPLICAS_CLIP", None)
+        try:
+            out[f"{tag}_image"] = mgr.encode_image(image)
+            out[f"{tag}_text"] = mgr.encode_text(text)
+            if replicas == "2":
+                pixels = _spec_clip_resize(image, {"size": mgr.cfg.image_size})
+                ids = mgr.tokenizer.encode_batch([text])[0]
+                for r, (ib, tb) in enumerate(zip(mgr._image_batcher.replicas, mgr._text_batcher.replicas)):
+                    out[f"{tag}_{r}_image"], out[f"{tag}_{r}_text"] = ib.batcher(pixels), tb.batcher(ids)
+            out[f"{tag}_shapes"] = np.asarray(json.dumps([m.shape for m in mgr.fleet_plan.meshes]))
+            out[f"{tag}_places"] = np.asarray(json.dumps([[p.index for p in m.places] for m in mgr.fleet_plan.meshes]))
+            out[f"{tag}_copies"] = np.asarray([len(models) for models in mgr._fleet_models])
+            out[f"{tag}_programs"] = np.asarray(group.programs - programs)  # the group ran no CLIP program
+        finally:
+            mgr.close()
+
+
+def _case_graph_serve(inp, meta, out):
+    """``serve()`` of the ``cuda_h100_8_dp_tp`` preset's full tier on
+    eight CPU devices, its directories graph-tower stand-ins: the group it
+    starts, every service's health and type, a caption and an embedding,
+    each rank's programs a place, and ``stop``; then a group whose only
+    service is graph CLIP on four devices: an embedding, Health and
+    ``stop``."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.serving import server
+    from lumen_tpu_torch.runtime.tp_group import rank_report
+
+    handle = server.serve(validate_config_dict(meta["config"]), port_override=0, skip_download=True, device="cpu",
+                          tp_devices=["cpu"] * 8, tp_backend="gloo")
+    try:
+        services = handle.services
+        out["services"] = np.asarray(json.dumps({n: [type(s).__name__, bool(s.healthy()), str(getattr(s, "error", ""))]
+                                                 for n, s in services.items()}))
+        out["group_shape"] = np.asarray(json.dumps(handle.tp_group.shape))
+        vlm, clip = services["vlm"].manager, services["clip"].managers["clip"]
+        out["meshes"] = np.asarray(json.dumps({"vlm": vlm.mesh.shape, "clip": clip.mesh.shape}))
+        r = vlm.generate([ChatMessage(role="user", content=meta["prompt"])], image_bytes=bytes(inp["image"]),
+                         max_new_tokens=meta["max_new"])
+        out["vlm_tokens"] = np.asarray(r.tokens)
+        out["clip_image"] = clip.encode_image(bytes(inp["clip_image"]))
+        out["place_programs"] = np.asarray([[p["programs"] for p in rep["places"]]
+                                            for rep in handle.tp_group.each_rank(rank_report)])
+        children = list(handle.tp_group.children)
+    finally:
+        handle.stop(grace=1.0)
+    out["worker_codes"] = np.asarray([p.returncode for p in children])
+
+    # A group whose only service is graph CLIP: it starts, its workers run
+    # no CLIP program, and its Health and stop do not hang on them.
+    handle = server.serve(validate_config_dict(meta["clip_config"]), port_override=0, skip_download=True,
+                          device="cpu", tp_devices=["cpu"] * 4, tp_backend="gloo")
+    try:
+        group, svc = handle.tp_group, handle.services["clip"]
+        programs = group.programs
+        out["clip_only_image"] = svc.managers["clip"].encode_image(bytes(inp["clip_image"]))
+        out["clip_only_healthy"] = np.asarray([svc.healthy(), group.alive()])
+        out["clip_only_programs"] = np.asarray(group.programs - programs)
+        children = list(group.children)
+    finally:
+        t0 = time.monotonic()
+        handle.stop(grace=1.0)
+        out["clip_only_stop_s"] = np.asarray(time.monotonic() - t0)
+    out["clip_only_codes"] = np.asarray([p.returncode for p in children])
+
+
 CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init,
          "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve,
          "ep_vlm": _serving(_ep_vlm), "ep_tp_vlm": _serving(_ep_tp_vlm), "tp_moe": _serving(_tp_moe),
          "ep_serve": _case_ep_serve, "dp_tp": _serving(_dp_tp), "dp_tp_moe": _serving(_dp_tp_moe),
-         "dp_tp_ingest": _serving(_dp_tp_ingest), "dp_tp_serve": _case_dp_tp_serve}
+         "dp_tp_ingest": _serving(_dp_tp_ingest), "dp_tp_serve": _case_dp_tp_serve,
+         "graph_group": _serving(_graph_group), "graph_serve": _case_graph_serve}
 #: cases that open their own group (the others run in a plain gloo group)
 OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve", "ep_vlm", "ep_tp_vlm", "tp_moe", "ep_serve", "dp_tp",
-             "dp_tp_moe", "dp_tp_ingest", "dp_tp_serve")
+             "dp_tp_moe", "dp_tp_ingest", "dp_tp_serve", "graph_group", "graph_serve")
 
 
 def main() -> int:
