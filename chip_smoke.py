@@ -392,21 +392,33 @@ Phases (any failure exits non-zero):
     gRPC: embeddings within ``CLIP_COSINE``, no program of the group (rank
     1 runs no CLIP), one device-to-host copy a place a batch. It times
     nothing.
+22. ``seq`` axes served as the JAX package serves them, one copy a data
+    place (``drive_seq``): (a) phase 8's ViT-B/32 on ``{data: 2, seq: 2}``
+    with the card named four times, against the mesh-less manager on the
+    card: 64 pixels at batch 64, embeddings within ``CLIP_COSINE``,
+    ``flash_attention`` a vision layer a part at each of the two serving
+    places, the weights of two copies (the idle ``seq`` positions hold
+    none); (b) phase 6's ``VLMConfig()`` directory by ``serve()`` on
+    ``{model: 2, seq: 2}`` as two gloo ranks sharing the card, the
+    group's one place a block of two ``seq`` positions: 2 photo requests
+    of 8 greedy tokens to phase 17 (b)'s rule against the mesh-less
+    manager, the cache and paged kernels on both ranks, one
+    ``vlm_generate`` over gRPC. It times nothing but images/s and tok/s.
 
 The counts above are each drive's defaults; ``main`` runs phases 7, 9-17
-and 20 cut in depth to keep all twenty-one within the time limit (the
+and 20 cut in depth to keep all twenty-two within the time limit (the
 comments beside each call in ``main`` list the cuts).
 
-Phases 12, 14 then 21, and 16, run beside the main lane, each lane a
-process of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``): 12, 14
-and 21 once phase 8 has ended (14 waits for 9 and 10 too, 21 for 9; 21
-serves 12's directory), 16 once 15 has ended, so its ~31 GiB never meets
-phase 15's ~39 GiB. A lane's launch counts are its own process's, as its
+Phases 12, 14 then 21, and 16 then 22, run beside the main lane, each
+lane a process of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``):
+12, 14 and 21 once phase 8 has ended (14 waits for 9 and 10 too, 21 for
+9; 21 serves 12's directory), 16 and 22 once 15 has ended, so 16's ~31
+GiB never meets phase 15's ~39 GiB. A lane's launch counts are its own process's, as its
 servers' and ranks' are theirs, so no phase reads another's launches.
 Every lane ends before phase 19, which times kernels with the card to
 itself. A lane's lines are echoed as they come.
 
-A run with no arguments drives all twenty-one phases (``--phases 13``, a
+A run with no arguments drives all twenty-two phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
@@ -8192,6 +8204,209 @@ def drive_graph_group(seed: int, card: str, root: Path, fast_dir: Path, clip_dir
     return out
 
 
+#: phase 22 (a): the kernels each of CLIP's two serving places must launch;
+#: (b): those the VLM's one place must launch on both ranks
+PHASE22_CLIP_KERNELS = ("flash_attention",)
+PHASE22_VLM_KERNELS = ("flash_attention_cache", "paged_attention")
+#: phase 22's meshes: two data places, each a block of two seq positions of
+#: one device (the card named four times), and a model axis beside a seq axis
+SEQ_CLIP_AXES = {"data": 2, "seq": 2}
+SEQ_VLM_AXES = {"model": 2, "seq": 2}
+
+
+def drive_seq(seed: int, card: str, root: Path, vlm_dir: Path, photos: list, device: str = "cuda:0",
+              backend: str = "gloo", n_photos: int = 64, in_flight: int = 64, batch_size: int = 64,
+              n_requests: int = 2, max_new: int = 8) -> dict:
+    """Phase 22: ``seq`` axes served as the JAX package serves them, one copy
+    a data place (``runtime.mesh``: the JAX package replicates the weights
+    over ``seq`` and splits a batch over ``data`` alone). (a) Phase 8's
+    ViT-B/32 directory behind ``CLIPManager`` over ``SEQ_CLIP_AXES`` with the
+    card named four times, and mesh-less on the same card: ``n_photos``
+    host-decoded pixels at ``batch_size`` with ``in_flight`` at once,
+    embeddings within ``CLIP_COSINE``, ``flash_attention`` a vision layer a
+    part at each of the two serving places (counted by a hook on each
+    place's tower), and the weights held by two copies, not four (the idle
+    ``seq`` positions hold none: less than 2.5 times the mesh-less copy).
+    (b) Phase 6's directory served by ``serve()`` on ``SEQ_VLM_AXES`` as two
+    gloo ranks sharing the card, the group's one place a block of two
+    ``seq`` positions: ``n_requests`` photo requests of ``max_new`` greedy
+    tokens, the cache and paged kernels launched on both ranks, the tokens
+    held to a mesh-less manager on the card by phase 17 (b)'s rule, and one
+    ``vlm_generate`` over gRPC. The sizes let the CPU tests rehearse it
+    small."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.clip import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage, VLMManager
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.runtime.tp_group import rank_report
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize, vlm_canvas
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    flash = next(k for k in all_kernels() if k.name == "flash_attention")
+    models = root / "cache" / "models"
+    log(f"phase 22: (a) CLIP on {json.dumps(SEQ_CLIP_AXES)} with the card named four times, (b) the VLM on "
+        f"{json.dumps(SEQ_VLM_AXES)} as 2 gloo ranks sharing the card; one copy a data place [{card}]")
+    out: dict = {"parts_s": {}}
+    laps = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["parts_s"][part], laps[0] = round(now - laps[0], 1), now
+
+    def memory() -> int:
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    clip_photos = photo_batch(seed * 100 + 22, n_photos)
+    size = json.loads((models / "SmokeCLIP" / "config.json").read_text())["vision_config"]["image_size"]
+    with ThreadPoolExecutor(8) as ex:
+        pixels = list(ex.map(lambda p: _spec_clip_resize(p, {"size": size}), clip_photos))
+    question = "describe this photo in one detailed sentence"
+    msgs = [ChatMessage("user", question)]
+    vsize = json.loads((vlm_dir / "config.json").read_text())["vision_config"]["image_size"]
+    canvases = [vlm_canvas(photos[i % len(photos)], vsize) for i in range(n_requests)]
+    jobs = [(msgs, c) for c in canvases]
+
+    # The result cache off (every answer computed), CLIP's window fixed at
+    # 50 ms (the round fills the bulk batch), no speculation.
+    with env(LUMEN_CACHE_BYTES="0", LUMEN_BATCH_ADAPTIVE="0", LUMEN_VLM_SPEC_K="0"):
+        reset_result_cache()
+        managers: list = []
+        try:
+            # -- (a) CLIP over {data: 2, seq: 2} and mesh-less ---------------------
+            runs: dict = {}
+            for tag, kw in (("mesh-less", {"devices": [dev]}),
+                            ("data 2 x seq 2", {"mesh_axes": SEQ_CLIP_AXES, "devices": [dev] * 4})):
+                if on_card:
+                    torch.cuda.empty_cache()
+                held0 = memory()
+                mgr = CLIPManager(str(models / "SmokeCLIP"), dataset="Smoke1k", dtype="bfloat16",
+                                  batch_size=batch_size, max_batch_latency_ms=50.0, device=device, **kw)
+                managers.append(mgr)
+                mgr.initialize()
+                run = {"mgr": mgr, "held_gib": (memory() - held0) / 2**30, "per_place": [0] * len(mgr.place_models)}
+                for i, m in enumerate(mgr.place_models):  # each place's flash launches, by a hook on its tower
+                    m.vision.register_forward_pre_hook(lambda mod, args, i=i, r=run: r.__setitem__("mark", flash.launches))
+                    m.vision.register_forward_hook(
+                        lambda mod, args, res, i=i, r=run: r["per_place"].__setitem__(
+                            i, r["per_place"][i] + flash.launches - r["mark"]))
+                ib = mgr._image_batcher
+                before = dict(ib.stats)
+                flash.launches = 0
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(in_flight) as ex:
+                    run["vecs"] = np.stack(list(ex.map(mgr.encode_image_tensor, pixels)))
+                wall = time.perf_counter() - t0
+                run.update(launches=flash.launches, batches=ib.stats["batches"] - before["batches"],
+                           images_s=n_photos / wall)
+                runs[tag] = run
+                log(f"phase 22 (a) {tag}: {mgr.mesh}, idle device positions {mgr.mesh.idle_devices}, "
+                    f"{len(mgr.place_models)} cop{'y' if len(mgr.place_models) == 1 else 'ies'} holding "
+                    f"{run['held_gib']:.3f} GiB; {n_photos} pixels at {in_flight} in flight: {run['images_s']:.1f} "
+                    f"images/s, {run['batches']} batches, flash_attention launches {run['launches']} (a place "
+                    f"{run['per_place']}) [{card}]")
+            plain, seq = runs["mesh-less"], runs["data 2 x seq 2"]
+            mesh = seq["mgr"].mesh
+            if mesh.shape != SEQ_CLIP_AXES or len(seq["mgr"].place_models) != 2 or \
+                    mesh.idle_devices != [1, 3]:
+                raise AssertionError(f"(a): CLIP on {mesh} with {len(seq['mgr'].place_models)} copies, idle "
+                                     f"{mesh.idle_devices}: not a copy at each data place's first seq position")
+            layers = plain["mgr"].cfg.vision.layers
+            for name in PHASE22_CLIP_KERNELS:
+                if seq["per_place"] != [layers * seq["batches"]] * 2 or seq["launches"] != 2 * layers * seq["batches"]:
+                    raise AssertionError(f"(a): {name} launched {seq['per_place']} times at the two places over "
+                                         f"{seq['batches']} batches, not a vision layer a part ({layers * seq['batches']})")
+            if on_card and seq["held_gib"] >= 2.5 * plain["held_gib"]:
+                raise AssertionError(f"(a): {seq['held_gib']:.3f} GiB held against {plain['held_gib']:.3f} GiB for one "
+                                     f"copy: the idle seq positions hold weights")
+            cos = cosines(seq["vecs"], plain["vecs"])
+            if cos.min() < CLIP_COSINE:
+                raise AssertionError(f"(a): cosine to the mesh-less run {cos.min():.6f} < {CLIP_COSINE}")
+            out.update(a_cos=float(cos.min()), a_per_place=seq["per_place"], a_launches=seq["launches"],
+                       a_batches=seq["batches"], a_held_gib=seq["held_gib"], a_held_gib_plain=plain["held_gib"],
+                       a_images_s=seq["images_s"], a_images_s_plain=plain["images_s"], a_idle=mesh.idle_devices)
+        finally:
+            for mgr in managers:
+                mgr.close()
+        lap("(a) CLIP")
+
+        # -- (b) the VLM on {model: 2, seq: 2}: two ranks sharing the card ---------
+        if on_card:
+            torch.cuda.empty_cache()
+        vlm_ref = VLMManager.from_model_dir(str(vlm_dir), device=device, dtype="bfloat16")
+        try:
+            want = tp_generate(vlm_ref, jobs, max_new)
+            logits = [tp_step_logits(vlm_ref, msgs, c, w) for c, w in zip(canvases, want)]
+        finally:
+            vlm_ref.close()
+        del vlm_ref
+        if on_card:
+            torch.cuda.empty_cache()
+        lap("(b) mesh-less reference")
+        handle, channel, stub, load_s = boot_tp(
+            tp_yaml(root / "seq.yaml", root / "cache", vlm_dir.name, "bfloat16", axes=SEQ_VLM_AXES), device,
+            [dev] * 4, backend)
+        try:
+            group, vlm = handle.tp_group, handle.services["vlm"].manager
+            layout = {"group": group.shape, "block": group.block, "mesh": vlm.mesh.shape,
+                      "places": [p.index for p in vlm.mesh.places], "idle": vlm.mesh.idle_devices}
+            if layout != {"group": {"data": 1, "expert": 1, "model": 2}, "block": 2, "mesh": SEQ_VLM_AXES,
+                          "places": [0], "idle": [2, 3]}:
+                raise AssertionError(f"(b): the VLM serves on {layout}, not one {{model: 2}} copy at seq 0")
+            lap("(b) serve()")
+            group.each_rank(rank_report, True)
+            t0 = time.perf_counter()
+            got = tp_generate(vlm, jobs, max_new)
+            wall = time.perf_counter() - t0
+            reports = group.each_rank(rank_report, True)
+            b = {k: place_readouts(reports, k, places=1) for k in PHASE22_VLM_KERNELS}
+            for k in PHASE22_VLM_KERNELS:
+                if any(n == 0 for row in b[k]["launches"] for n in row):
+                    raise AssertionError(f"(b): {k} launched 0 times on a rank: {b[k]['launches']}")
+            if any(s != "ok" for k in b for row in b[k]["sync"] for s in row):
+                raise AssertionError(f"(b): a rank did not synchronize clean: {b}")
+            first = []
+            for j in range(n_requests):
+                step = tp_step_logits(vlm, msgs, canvases[j], want[j][:1])[0]
+                cos_b = float(torch.nn.functional.cosine_similarity(step, logits[j][0], dim=0))
+                rel = float((step - logits[j][0]).abs().max()) / float(logits[j][0].abs().max())
+                first.append({"request": j, "cos": cos_b, "rel": rel})
+                if cos_b < TP_LOGIT_COSINE or rel > TP_LOGIT_REL:
+                    raise AssertionError(f"(b) request {j}: first-step logits cosine {cos_b:.6f}, max|diff| {rel:.4f} "
+                                         f"of max|logit|")
+            prefixes = [equal_prefix(g, w) for g, w in zip(got, want)]
+            parted = []
+            for j, p in enumerate(prefixes):
+                if p == len(want[j]):
+                    continue
+                here = logits[j][p]
+                diff = float((tp_step_logits(vlm, msgs, canvases[j], want[j][: p + 1])[p] - here).abs().max())
+                parted.append({"request": j, "token": p, "ref_gap": top2_gap(here), "max_diff": diff})
+                if parted[-1]["ref_gap"] > 2 * diff:
+                    raise AssertionError(f"(b) request {j} parts from the mesh-less run at token {p} where its top-2 "
+                                         f"gap {parted[-1]['ref_gap']:.4f} exceeds twice the logit difference "
+                                         f"{diff:.4f}: not a near tie")
+            served = grpc_call(stub, "vlm_generate", photos[0], {"messages": json.dumps(
+                [{"role": "user", "content": question}]), "max_new_tokens": max_new})
+            if served["code"] or not served["body"]["text"]:
+                raise AssertionError(f"(b) vlm_generate over gRPC: code {served['code']}")
+            out.update(load_s=load_s, b_first=first, b_prefix=prefixes, b_lengths=[len(w) for w in want],
+                       b_parted=parted, b_tok_s=sum(map(len, got)) / wall, b_readouts=b,
+                       b_peak_gib=[r.get("peak_gib", 0.0) for r in reports], b_layout=layout)
+            lap("(b) VLM")
+        finally:
+            channel.close()
+            handle.stop(grace=1.0)
+        reset_result_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -8222,8 +8437,8 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
-               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9), 21: (6, 8, 9, 12)}
-ALL_PHASES = frozenset(range(1, 22))
+               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9), 21: (6, 8, 9, 12), 22: (6, 8)}
+ALL_PHASES = frozenset(range(1, 23))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -8243,7 +8458,7 @@ def phase_set(spec: "str | None") -> frozenset:
 
 #: the lanes beside the main one: the main-lane phase after which each
 #: starts, and its phases in order (see the module's docstring)
-BESIDE_LANES = ((8, (12, 14, 21)), (15, (16,)))
+BESIDE_LANES = ((8, (12, 14, 21)), (15, (16, 22)))
 BESIDE_PHASES = frozenset(p for _, phases in BESIDE_LANES for p in phases)
 
 
@@ -8368,7 +8583,22 @@ def run_phase21(seed: int, card: str, root: Path, given: dict) -> dict:
     return graph
 
 
-BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16, 21: run_phase21}
+def run_phase22(seed: int, card: str, root: Path, given: dict) -> dict:
+    seq = drive_seq(seed, card, root, given[6]["model_dir"], given[6]["photos"])
+    b = seq["b_readouts"]
+    log(f"phase 22 [{card}]: {seq['phase_s']:.1f} s in all, parts {json.dumps(seq['parts_s'])}; (a) CLIP on "
+        f"{json.dumps(SEQ_CLIP_AXES)} with the card named four times (idle positions {seq['a_idle']}): cosine min "
+        f"{seq['a_cos']:.6f}, flash_attention launches a place {seq['a_per_place']} over {seq['a_batches']} batches, "
+        f"weights {seq['a_held_gib']:.3f} GiB vs {seq['a_held_gib_plain']:.3f} for one copy, {seq['a_images_s']:.1f} vs "
+        f"{seq['a_images_s_plain']:.1f} images/s mesh-less; (b) the VLM on {json.dumps(SEQ_VLM_AXES)} as 2 gloo ranks "
+        f"on the card, served up in {seq['load_s']:.2f} s ({json.dumps(seq['b_layout'])}): first-step logits "
+        f"{json.dumps(seq['b_first'])}, equal prefixes {seq['b_prefix']} of {seq['b_lengths']} (partings "
+        f"{json.dumps(seq['b_parted'])}), {seq['b_tok_s']:.1f} tok/s, launches a rank "
+        f"{json.dumps({k: b[k]['launches'] for k in b})}, peak GiB a rank {[round(g, 3) for g in seq['b_peak_gib']]}")
+    return seq
+
+
+BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16, 21: run_phase21, 22: run_phase22}
 
 
 def die_with_parent(parent: int) -> None:
@@ -8685,7 +8915,7 @@ def main() -> int:
                     f"a rank {json.dumps(ep[part]['launches'])}, by head_dim {json.dumps(ep[part]['instances'])}")
             lap(18)
         beside = join_lanes()
-        options, control, graph = beside.get(12), beside.get(14), beside.get(21)
+        options, control, graph, seq = beside.get(12), beside.get(14), beside.get(21), beside.get(22)
         if 19 in run:
             torch.cuda.empty_cache()
             data = drive_data(args.seed, card, Path(tmp))
@@ -8733,6 +8963,11 @@ def main() -> int:
         log(f"kernel row flash_attention {label} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, max|diff| "
             f"{row['max_abs_err']:.3e}, {used} [{card}]")
+    for k in kernels:
+        counts = ({"(a) a data place": seq["a_per_place"]} if k.name in PHASE22_CLIP_KERNELS else
+                  {"(b) a rank": seq["b_readouts"][k.name]["launches"]} if k.name in seq["b_readouts"] else
+                  "not on the path")
+        log(f"kernel row {k.name}: phase-22 launches {json.dumps(counts)} [{card}]")
     for k in kernels:
         counts = graph["a_readouts"][k.name]["launches"] if k.name in graph["a_readouts"] else "not on the path"
         log(f"kernel row {k.name}: phase-21 (a) launches a rank (rows) and data place (columns) {json.dumps(counts)} "

@@ -48,6 +48,13 @@ and ``BioCLIPModelManager`` (``expert_bioclip/bioclip_model.py:45-375``):
   calls there, no program of the group; the workers hold and run no CLIP.
   The JAX manager replicates them over every device of the mesh instead;
   the embeddings are the same.
+- a ``seq`` or ``stage`` axis above 1 keeps one copy a data place, at
+  the first position of the place's block (``runtime.mesh``): the JAX
+  manager replicates the towers over every device of the block and
+  splits a batch over ``data`` alone, so its copies compute what one
+  does. Placement is not a result: the embeddings are the same. A mesh
+  with no ``data`` axis (``{seq: 2}``) serves as one place; the JAX
+  manager fails there as it builds its batcher (ROADMAP C).
 """
 
 from __future__ import annotations

@@ -18,7 +18,11 @@ with the hot math on the device:
   the rows gathered back in batch order (``runtime.batcher.mesh_sharded``);
   on a mesh with a ``model`` axis (a serving group's places) the weights
   stay whole, as the JAX manager replicates them over the mesh: a copy on
-  rank 0's device of each data place, no program of the group;
+  rank 0's device of each data place, no program of the group; a
+  ``seq`` or ``stage`` axis above 1 keeps that one copy a data place, at
+  the first position of its block (``runtime.mesh``), where the JAX
+  manager replicates over every device of the block: placement is not a
+  result, the detections are the same;
 - host side keeps the CV parts: JPEG decode (on the decode pool),
   letterbox, coordinate unmap, similarity-transform alignment
   (``_align_face_5points``, ``onnxrt_backend.py:1382-1416``).

@@ -38,7 +38,11 @@
   K tokens per greedy row, and one verify forward over a K+1 window
   accepts the ones the model would have emitted itself. Acceptance below
   ``LUMEN_VLM_SPEC_MIN_RATE`` after 64 proposals turns it off for the
-  engine's lifetime. The knobs are the JAX engine's own.
+  engine's lifetime. The knobs are the JAX engine's own;
+- with ``LUMEN_GEN_STEP_FLOOR_MS`` > 0, a DECODE PACING FLOOR: a block
+  that took less than ``block x floor`` sleeps out the rest before its
+  tokens stream, and its EWMA and duty credit include the sleep (the JAX
+  engine's knob, for shared hosts that stand in for several cards).
 
 Telemetry is the JAX engine's: the ``vlm-continuous:{name}`` gauge
 provider, the ``vlm_*`` counters, the ``device:{name}`` duty meter and
@@ -315,6 +319,12 @@ class ContinuousScheduler:
         # Per-token decode pace (EWMA over block wall time): the
         # PreemptionShed retry hint.
         self._block_s_ewma = 0.0
+        # Decode pacing floor: the least wall time a decode step takes (a
+        # block sleeps out ``block * floor - elapsed``). Off by default (0 =
+        # no branch taken); a floor makes a shared host's decode rate
+        # measure topology (slots x hosts) rather than its cores: sleeps
+        # scale across host processes as separate cards do, spins do not.
+        self._step_floor_s = env_float("LUMEN_GEN_STEP_FLOOR_MS", 0.0, minimum=0.0, maximum=1000.0) / 1e3
         self._preempt_log_t = 0.0  # 1/s warning throttle
         # Decode-block occupancy: active rows summed over blocks.
         self._occ_rows = 0
@@ -1411,7 +1421,16 @@ class ContinuousScheduler:
         done, eos = host[:, n + 1], host[:, n + 2]
         t1 = time.perf_counter()
         dt = t1 - t0
+        if self._step_floor_s > 0.0:
+            # Paced before tokens stream, so the first token pays the floor
+            # too: a paced block stands for a slower card, not for late
+            # bookkeeping.
+            lag = self.block * self._step_floor_s - dt
+            if lag > 0.0:
+                time.sleep(lag)
+                dt = time.perf_counter() - t0
         self._block_s_ewma = dt if self._block_s_ewma == 0.0 else 0.8 * self._block_s_ewma + 0.2 * dt
+        # The duty credit covers the paced window: it describes that card.
         telemetry.busy(f"device:{self.name}", tm0, time.monotonic())
         span_meta = {
             "step": self.blocks_run,

@@ -66,7 +66,11 @@ a group's data places) has no batch axis to split here: the continuous
 engine's slots live in one page pool. The JAX manager serves it with one
 replicated copy and gets the same tokens; the port serves the one engine
 on place 0 and places no copy on the other places, which would compute
-nothing. ``LUMEN_REPLICAS_VLM=max`` serves one engine a place.
+nothing. ``LUMEN_REPLICAS_VLM=max`` serves one engine a place. A ``seq``
+or ``stage`` axis above 1 adds positions to each place's block that hold
+nothing (``runtime.mesh``): the JAX manager replicates the model over
+them and computes the same tokens on every copy. Placement is not a
+result.
 """
 
 from __future__ import annotations

@@ -226,8 +226,9 @@ def plan_replicas(
     rest of its slice on ``data``. Counts that don't fit degrade to the
     largest that does (one-shot warning per family). Axes that name an
     ``expert`` or ``model`` axis plan over the running group's data places
-    (a slice a place at most) in place of ``devices``."""
-    from .mesh import DATA_AXIS, build_mesh, group_shape, local_devices
+    (a slice a place at most) in place of ``devices``. ``seq`` and
+    ``stage`` count inside a slice, as every non-``data`` axis does."""
+    from .mesh import BLOCK_AXES, DATA_AXIS, build_mesh, group_shape, local_devices
 
     devices = list(devices if devices is not None else local_devices())
     n = len(devices)
@@ -242,13 +243,14 @@ def plan_replicas(
         group = tp_group.current()
         if group is None:
             build_mesh(mesh_axes, devices=devices)  # raises: no group is running
-        # The group's ranks' devices, a whole expert x model copy a data
-        # place, not this process's card list.
-        n = group.data * group.size
+        # The group's places' blocks (an expert x model copy a seq and
+        # stage position), not this process's card list.
+        n = group.data * group.block * group.size
     # Non-data axes (TP/EP/SP/...) live INSIDE each replica: a slice must
     # hold at least one full copy of them.
-    fixed = group.size if group is not None else math.prod(
-        s for a, s in axes.items() if a != DATA_AXIS and s != -1)
+    fixed = math.prod(s for a, s in axes.items() if a != DATA_AXIS and s != -1)
+    if group is not None:
+        fixed = group.size * math.prod(s for a, s in axes.items() if a in BLOCK_AXES and s != -1)
     slots = max(1, n // max(1, fixed))
     want = slots if requested == -1 else requested
     replicas = largest_dividing(want, slots)
@@ -271,7 +273,7 @@ def plan_replicas(
         rep_axes[DATA_AXIS] = -1
     if group is not None:
         # A contiguous slice of the group's data places a replica.
-        step = slots // replicas
+        step = group.data // replicas
         meshes = [build_mesh(rep_axes, places=range(i * step, (i + 1) * step)) for i in range(replicas)]
     else:
         meshes = [

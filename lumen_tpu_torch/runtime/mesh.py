@@ -33,8 +33,20 @@ resolver, unchanged. What a serving replica runs:
   the places hold, or other than the group's, raise (never a replicated
   fallback); a replica plan (``runtime.fleet.plan_replicas``) gives each
   replica a contiguous slice of the places;
-- a ``seq`` or ``stage`` axis above 1 raises ``NotImplementedError``
-  naming the ROADMAP item that would lift it.
+- a ``seq`` or ``stage`` axis above 1 is served as the JAX package
+  serves it: its placement rules name only ``model`` and ``expert``, so
+  every weight is replicated over ``seq`` and ``stage``, a batch splits
+  over ``data`` alone, and no manager runs ring attention, Ulysses or the
+  pipeline. Each data place is then a block of ``seq x stage x expert x
+  model`` devices (data-major: ``seq`` and ``stage`` inside ``data`` and
+  outside the group axes), served by one ``expert x model`` copy on the
+  block's devices at ``seq = stage = 0``: place ``d``'s first device is
+  ``devices[d * S * T * R]`` (``S``, ``T`` the two sizes, ``R`` the
+  group's ranks), its rank ``r`` ``devices[d * S * T * R + r]``. The other
+  devices of the block hold no weights and run nothing (logged once a
+  request shape). Placement is not a result: the JAX package runs an
+  identical copy on every device of the block, the port runs one, and the
+  answers are the same.
 
 SPMD programs -- the trainer and the functions of
 :mod:`lumen_tpu_torch.parallel` -- run one process a device in a
@@ -61,9 +73,13 @@ EXPERT_AXIS = "expert"
 #: the axes a serving replica runs on a rank-0/worker group, in rank order
 #: (``runtime.tp_group``: rank ``e * model + m``)
 GROUP_AXES = (EXPERT_AXIS, MODEL_AXIS)
+#: the axes whose positions above 0 of a data place's block stay idle in
+#: serving (module docstring)
+BLOCK_AXES = (SEQ_AXIS, STAGE_AXIS)
 
 
 _degrade_warned: set[str] = set()
+_idle_logged: set[str] = set()
 
 
 def resolve_axes(axes: dict[str, int], n_devices: int) -> dict[str, int]:
@@ -137,9 +153,10 @@ def resolve_axes(axes: dict[str, int], n_devices: int) -> dict[str, int]:
 
 class DeviceMesh:
     """The devices one replica serves on, with the resolved axis sizes
-    (``shape``, as ``jax.sharding.Mesh.shape``): ``data x expert x model``
-    devices, data-major. Data place ``i`` serves on
-    ``data_devices[i]``; :attr:`device` is place 0's."""
+    (``shape``, as ``jax.sharding.Mesh.shape``): ``data x seq x stage x
+    expert x model`` devices, data-major. Data place ``i`` serves on
+    ``data_devices[i]``; :attr:`device` is place 0's; :attr:`idle_devices`
+    are the ``seq`` and ``stage`` positions above 0, which hold nothing."""
 
     __slots__ = ("devices", "shape", "group", "places")
 
@@ -171,11 +188,22 @@ class DeviceMesh:
         return self.devices[0]
 
     @property
+    def span(self) -> int:
+        """Devices a data place spans: ``seq x stage x expert x model``."""
+        return block_size(self.shape) * math.prod(group_shape(self.shape).values())
+
+    @property
     def data_devices(self) -> list[torch.device]:
         """The device of each data place, in place order (the first device
-        of each ``expert x model`` block)."""
+        of each place's block)."""
+        return self.devices[:: self.span][: self.shape.get(DATA_AXIS, 1)]
+
+    @property
+    def idle_devices(self) -> list[int]:
+        """Indices into :attr:`devices` of the block positions at ``seq``
+        or ``stage`` above 0: no copy sits there (module docstring)."""
         ranks = math.prod(group_shape(self.shape).values())
-        return self.devices[::ranks][: self.shape.get(DATA_AXIS, 1)]
+        return [i for i in range(len(self.devices)) if i % self.span >= ranks]
 
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape}, {[str(d) for d in self.devices]})"
@@ -226,6 +254,12 @@ def group_shape(axes: dict[str, int]) -> dict[str, int]:
     return {a: axes.get(a, 1) for a in GROUP_AXES}
 
 
+def block_size(resolved: dict[str, int]) -> int:
+    """``seq x stage`` of a resolved mesh: the copies of a data place's
+    ``expert x model`` group its block holds, of which one serves."""
+    return math.prod(resolved.get(a, 1) for a in BLOCK_AXES)
+
+
 def build_mesh(
     axes: dict[str, int] | None = None,
     devices: Sequence[torch.device] | None = None,
@@ -236,9 +270,10 @@ def build_mesh(
     device count serves on the prefix). An ``expert`` or ``model`` axis
     above 1 runs on the process's serving group (``runtime.tp_group``),
     over the group's data places ``places`` (indices; default all of them)
-    in place of ``devices``; ``seq`` and ``stage`` raise (module
-    docstring). ``devices`` may name one device more than once: each entry
-    is a place of its own."""
+    in place of ``devices``: each the block of devices the group holds for
+    it (``TPGroup.blocks``). ``seq`` and ``stage`` keep one copy a data
+    place (module docstring). ``devices`` may name one device more than
+    once: each entry is a place of its own."""
     from . import tp_group
 
     axes = axes or {DATA_AXIS: -1}
@@ -246,7 +281,7 @@ def build_mesh(
     group = tp_group.current() if any(s != 1 for s in asked.values()) else None
     if group is not None:
         places = list(range(group.data) if places is None else places)
-        devices = [group.places[r][p] for p in places for r in range(group.size)]
+        devices = [d for p in places for d in group.blocks[p]]
     elif devices is None:
         devices = local_devices()
     devices = list(devices)
@@ -259,21 +294,20 @@ def build_mesh(
             f"{len(devices)}"
         )
     resolved = resolve_axes(axes, len(devices))
-    pending = {
-        SEQ_AXIS: "ROADMAP queue A, item 2e: sequence parallelism in serving",
-        STAGE_AXIS: "ROADMAP queue A, item 2e: pipeline parallelism in serving",
-    }
-    parallel = {a: s for a, s in resolved.items() if a in pending and s > 1}
-    if parallel:
-        raise NotImplementedError(
-            f"mesh axes {parallel}: not served by lumen_tpu_torch yet ("
-            + "; ".join(pending[a] for a in parallel)
-            + "); SPMD programs lay a process group out with build_process_mesh"
-        )
     used = math.prod(resolved.values())
     devices = devices[:used]
     shape = group_shape(resolved)
     ranks = math.prod(shape.values())
+    copies = block_size(resolved)
+    if copies > 1:
+        key = f"{sorted(resolved.items())}@{len(devices)}"
+        if key not in _idle_logged:
+            _idle_logged.add(key)
+            mesh = DeviceMesh(devices, resolved)
+            logger.info(
+                "mesh %s: each data place's block holds %d copies of its %d-rank group over seq x stage; one "
+                "serves (the answers are the same); device positions %s stay idle", resolved, copies, ranks,
+                mesh.idle_devices)
     if ranks == 1:
         logger.info("mesh: %s over %s", resolved, [str(d) for d in devices])
         return DeviceMesh(devices, resolved)
@@ -288,7 +322,14 @@ def build_mesh(
             f"mesh {resolved}: axes {shape} do not match the running group's {group.shape} "
             f"({group.size} ranks)"
         )
-    mine = places[: used // ranks]
+    if copies % group.block:
+        raise ValueError(
+            f"mesh {resolved}: seq x stage {copies} is not a multiple of the running group's blocks of "
+            f"{group.block} (serve() sizes them by every service's seq x stage)"
+        )
+    # The group's places this mesh covers, then one a data place: the rest
+    # of each data place's block are its idle seq and stage positions.
+    mine = places[: used // (ranks * group.block)][:: copies // group.block]
     logger.info("mesh: %s over the group's places %s (%s)", resolved, mine, [str(d) for d in devices])
     return DeviceMesh(devices, resolved, group=group, places=[group.place(p) for p in mine])
 

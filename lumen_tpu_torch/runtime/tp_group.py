@@ -19,9 +19,13 @@ inserts the Megatron and expert sums itself (``parallel.tp``).
   that spans the whole group uses the place's whole-group plane.
 - **Data places.** Each rank drives ``D`` devices, one a data place
   (``TPGroup.places[r]``): with the host's devices in the data-major order
-  of a mesh, rank ``r`` of place ``d`` is device ``d * ranks + r``
-  (:func:`rank_devices`). A place (:class:`GroupPlace`, ``group.place(d)``)
-  has its own ``tp``, ``ep`` and by-value plane, made place-major on every
+  of a mesh, rank ``r`` of place ``d`` is device ``d * block * ranks + r``
+  (:func:`rank_devices`), where ``block`` is the ``seq x stage`` of the
+  services' meshes: a place's block of ``block * ranks`` devices holds
+  one copy of the group at ``seq = stage = 0`` and nothing at the other
+  positions (``runtime.mesh``; ``TPGroup.blocks`` on rank 0). A place
+  (:class:`GroupPlace`, ``group.place(d)``) has its own ``tp``, ``ep``
+  and by-value plane, made place-major on every
   rank and bound to the place's device under NCCL; place 0's plane is the
   default group. A program sent through a place runs with the place's
   device current on every rank, and its by-value tensors travel on the
@@ -117,15 +121,18 @@ def rank_place(rank: int, model: int) -> tuple[int, int]:
     return divmod(rank, model)
 
 
-def rank_devices(devices: Sequence, ranks: int) -> list[list[torch.device]]:
+def rank_devices(devices: Sequence, ranks: int, block: int = 1) -> list[list[torch.device]]:
     """Each rank's devices, one a data place, from a device list in a
-    mesh's data-major order (``ranks`` devices a place): rank ``r`` of place
-    ``d`` is ``devices[d * ranks + r]``. A list that is not whole places
-    raises."""
+    mesh's data-major order (``block * ranks`` devices a place, ``block``
+    the ``seq x stage`` copies of the group a place spans, of which the
+    first serves): rank ``r`` of place ``d`` is ``devices[d * block * ranks
+    + r]``. A list that is not whole places raises."""
     devices = [torch.device(d) for d in devices]
-    if not devices or len(devices) % ranks:
-        raise ValueError(f"{len(devices)} devices are not whole data places of {ranks} ranks")
-    return [devices[r::ranks] for r in range(ranks)]
+    span = block * ranks
+    if not devices or len(devices) % span:
+        raise ValueError(f"{len(devices)} devices are not whole data places of {ranks} ranks"
+                         + (f" x {block} seq x stage" if block > 1 else ""))
+    return [devices[r::span] for r in range(ranks)]
 
 
 def current() -> "TPGroup | None":
@@ -245,10 +252,13 @@ class TPGroup:
     over ``D`` data places (module docstring). ``devices[r]`` is rank
     ``r``'s device, or its list of ``D`` devices, one a place; ``backend``
     is the data plane's (``nccl`` or ``gloo``); ``expert`` the size of the
-    expert axis (the model axis has the other ``world / expert`` ranks)."""
+    expert axis (the model axis has the other ``world / expert`` ranks);
+    ``blocks`` (rank 0's business) each place's devices in a mesh's order,
+    the ranks' devices of the place first, then its idle ``seq`` and
+    ``stage`` positions (default: the ranks' devices alone)."""
 
     def __init__(self, rank: int, world: int, addr: str, devices: Sequence, backend: str,
-                 timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1, blocks: Sequence | None = None):
         global _member
         if len(devices) != world:
             raise ValueError(f"a group of {world} ranks needs {world} devices, got {len(devices)}")
@@ -262,6 +272,16 @@ class TPGroup:
         if not data or any(len(p) != data for p in self.places):
             raise ValueError(f"every rank needs the same number of data places, got {[len(p) for p in self.places]}")
         self.rank, self.size, self.backend, self.data = rank, world, backend, data
+        #: each data place's devices in a mesh's order: the ranks' devices
+        #: of the place, then those of its idle ``seq`` / ``stage``
+        #: positions (given on rank 0 by ``serve()``; default none idle)
+        own = [[self.places[r][d] for r in range(world)] for d in range(data)]
+        self.blocks = own if blocks is None else [[torch.device(x) for x in b] for b in blocks]
+        if len(self.blocks) != data or any(len(b) != len(self.blocks[0]) or len(b) % world or b[:world] != mine
+                                           for b, mine in zip(self.blocks, own)):
+            raise ValueError(f"blocks {self.blocks} are not the {data} places' blocks, each its ranks' devices first")
+        #: ``seq x stage`` of a place's block: copies of the group it spans
+        self.block = len(self.blocks[0]) // world
         model = world // expert
         #: the group's axis sizes, as a mesh names them
         self.shape = {"data": data, "expert": expert, "model": model}
@@ -347,10 +367,11 @@ class TPGroup:
 
     @classmethod
     def spawn(cls, devices: Sequence, backend: str, timeout_s: float = DEFAULT_TIMEOUT_S,
-              expert: int = 1) -> "TPGroup":
+              expert: int = 1, blocks: Sequence | None = None) -> "TPGroup":
         """Start a group of ``len(devices)`` ranks (each entry a rank's
         device, or its list of devices, one a data place), ``expert``
-        places on the expert axis: this process is rank 0, and ranks 1..n-1
+        places on the expert axis, ``blocks`` each place's block (see
+        :class:`TPGroup`): this process is rank 0, and ranks 1..n-1
         are child processes running the worker loop. Installs the group as
         :func:`current`."""
         global _current
@@ -373,7 +394,7 @@ class TPGroup:
                     "--timeout", str(timeout_s), "--expert", str(expert)]
             children.append(subprocess.Popen(argv, env=env))
         try:
-            group = cls(0, world, addr, devices, backend, timeout_s, expert)
+            group = cls(0, world, addr, devices, backend, timeout_s, expert, blocks)
         except BaseException:
             for p in children:
                 p.kill()
@@ -385,12 +406,12 @@ class TPGroup:
 
     @classmethod
     def join(cls, rank: int, world: int, addr: str, devices: Sequence, backend: str,
-             timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1) -> "TPGroup":
+             timeout_s: float = DEFAULT_TIMEOUT_S, expert: int = 1, blocks: Sequence | None = None) -> "TPGroup":
         """Join a group whose ranks were started elsewhere (one process a
         rank, each calling this); rank 0 becomes :func:`current`, the
         others go on to :meth:`serve_forever`."""
         global _current
-        group = cls(rank, world, addr, devices, backend, timeout_s, expert)
+        group = cls(rank, world, addr, devices, backend, timeout_s, expert, blocks)
         if rank == 0:
             _current = group
         return group

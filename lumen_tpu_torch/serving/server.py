@@ -198,15 +198,18 @@ def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backe
     (and this server leaves running). ``tp_devices`` are
     the devices the group spans, in a mesh's data-major order (default:
     the host's cards from ``device`` on): rank ``r`` of data place ``d``
-    is ``tp_devices[d * ranks + r]``, so each rank drives one device a
-    place (``tp_group.rank_devices``), and each service's ``data`` axis and
-    replica plan resolve against those places, as the JAX mesh resolves
-    them against the host's devices. ``tp_backend`` is the data plane's
-    backend (default ``nccl``; ``gloo`` for CPU ranks or ranks sharing a
-    card). Axes the devices cannot fill raise before a rank starts."""
+    is ``tp_devices[d * block * ranks + r]``, so each rank drives one
+    device a place (``tp_group.rank_devices``), and each service's ``data``
+    axis and replica plan resolve against those places, as the JAX mesh
+    resolves them against the host's devices. ``block`` is the largest
+    number that every service's ``seq x stage`` is a multiple of: a place
+    spans ``block`` copies of the group, and only the first holds weights
+    (``runtime.mesh``). ``tp_backend`` is the data plane's backend
+    (default ``nccl``; ``gloo`` for CPU ranks or ranks sharing a card).
+    Axes the devices cannot fill raise before a rank starts."""
     from ..runtime import tp_group
     from ..runtime.fleet import fleet_devices
-    from ..runtime.mesh import DATA_AXIS, group_shape, resolve_axes
+    from ..runtime.mesh import DATA_AXIS, block_size, group_shape, resolve_axes
 
     devices = list(tp_devices) if tp_devices is not None else (fleet_devices(device) if device.type == "cuda" else [])
     shapes = {}
@@ -214,8 +217,9 @@ def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backe
         mesh = svc_cfg.backend_settings.mesh
         shape = group_shape((mesh.axes or {}) if mesh else {})
         if any(s != 1 for s in shape.values()):
-            fixed = math.prod(s for s in shape.values() if s != -1)
-            shapes[name] = ({a: len(devices) // fixed if s == -1 else s for a, s in shape.items()}, mesh.axes)
+            # a wildcard group axis takes what the request's other axes leave
+            fixed = math.prod(s for s in mesh.axes.values() if s != -1)
+            shapes[name] = ({a: max(len(devices) // fixed, 1) if s == -1 else s for a, s in shape.items()}, mesh.axes)
     if not shapes:
         return None
     if len({tuple(s.values()) for s, _ in shapes.values()}) != 1:
@@ -233,20 +237,29 @@ def start_tensor_parallel(config: LumenConfig, device, tp_devices=None, tp_backe
             f"an expert x model group of {size} {shape} ({sorted(shapes)}) needs {size} devices; have "
             f"{len(devices)} ({[str(d) for d in devices]}); pass tp_devices to serve on others"
         )
-    data = len(devices) // size
+    # The seq x stage copies of the group a data place spans: each
+    # service's, resolved over the host's devices as JAX resolves it.
+    block = math.gcd(*(block_size(resolve_axes({a: shape.get(a, s) for a, s in axes.items()}, len(devices)))
+                       for _, axes in shapes.values()))
+    span = block * size
+    data = len(devices) // span
     for _, axes in shapes.values():
         # Each service's mesh against the group's places, before any rank
         # starts (a data axis larger than them degrades, as in JAX).
-        resolve_axes({a: shape.get(a, s) for a, s in axes.items()}, data * size)
+        resolve_axes({a: shape.get(a, s) for a, s in axes.items()}, data * span)
     shape = {DATA_AXIS: data, **shape}
-    if running is not None and running.shape == shape:
+    if running is not None and running.shape == shape and running.block == block:
         logger.info("serving %s on the running group %s of %d ranks", sorted(shapes), shape, size)
         return None
     backend = tp_backend or "nccl"
-    ranks = tp_group.rank_devices(devices[: data * size], size)
-    logger.info("starting a serving group %s of %d ranks on %s (%s) for %s",
-                shape, size, [[str(d) for d in r] for r in ranks], backend, sorted(shapes))
-    return tp_group.TPGroup.spawn(ranks, backend, expert=shape["expert"])
+    devices = devices[: data * span]
+    ranks = tp_group.rank_devices(devices, size, block)
+    blocks = [devices[d * span:(d + 1) * span] for d in range(data)]
+    logger.info("starting a serving group %s of %d ranks on %s (%s) for %s%s",
+                shape, size, [[str(d) for d in r] for r in ranks], backend, sorted(shapes),
+                f"; each place's other {block - 1} seq x stage position(s) of {size} device(s) stay idle"
+                if block > 1 else "")
+    return tp_group.TPGroup.spawn(ranks, backend, expert=shape["expert"], blocks=blocks)
 
 
 class ServerHandle:

@@ -228,6 +228,27 @@ def test_chip_smoke_dp_tp_drive_runs_on_cpu(clip_drive, face_drive):
     assert "d_probes" not in out
 
 
+def test_chip_smoke_seq_drive_runs_on_cpu(clip_drive):
+    """Phase 22 at small sizes on the CPU, after phases 6 and 8: phase 8's
+    tiny CLIP on ``{data: 2, seq: 2}`` with the CPU named four times and
+    phase 6's small VLM on ``{model: 2, seq: 2}`` served by two gloo ranks,
+    against the mesh-less managers (the launch gates emptied: the plain
+    paths launch nothing)."""
+    from lumen_tpu_torch.runtime import tp_group
+
+    root, _, phase6 = clip_drive
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "PHASE22_CLIP_KERNELS", ())
+        mp.setattr(chip_smoke, "PHASE22_VLM_KERNELS", ())
+        out = chip_smoke.drive_seq(0, "cpu", root, phase6["model_dir"], phase6["photos"], device="cpu", n_photos=16,
+                                   in_flight=8, batch_size=8, n_requests=1, max_new=4)
+    assert tp_group.current() is None  # the group is stopped
+    assert out["a_cos"] >= chip_smoke.CLIP_COSINE and out["a_batches"] > 0 and out["a_idle"] == [1, 3]
+    assert out["b_prefix"] == out["b_lengths"] and len(out["b_first"]) == 1
+    assert out["b_layout"] == {"group": {"data": 1, "expert": 1, "model": 2}, "block": 2,
+                               "mesh": chip_smoke.SEQ_VLM_AXES, "places": [0], "idle": [2, 3]}
+
+
 def test_phase_20_reads_each_rank_and_place():
     """Phase 20's readouts: each rank's launches, peaks and synchronize a
     data place (its selector and lane are in the tests above)."""
@@ -374,23 +395,25 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 22))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 23))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
                                         ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
                                         ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19}),
-                                        ("20", {1, 6, 8, 9, 20}), ("21", {1, 6, 8, 9, 12, 21})])
+                                        ("20", {1, 6, 8, 9, 20}), ("21", {1, 6, 8, 9, 12, 21}),
+                                        ("22", {1, 6, 8, 22})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want
 
 
 @pytest.mark.parametrize("spec, want", [
-    (None, [(8, (12, 14, 21), {12: [6, 8], 14: [6, 9, 10], 21: [6, 8, 9]}), (15, (16,), {16: []})]),
+    (None, [(8, (12, 14, 21), {12: [6, 8], 14: [6, 9, 10], 21: [6, 8, 9]}), (15, (16, 22), {16: [], 22: [6, 8]})]),
     ("14", [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]})]),
     ("12", [(8, (12,), {12: [6, 8]})]),
     ("16", [(15, (16,), {16: []})]),
     ("19", []),
     ("20", []),
     ("21", [(8, (12, 21), {12: [6, 8], 21: [6, 8, 9]})]),
+    ("22", [(15, (22,), {22: [6, 8]})]),
 ])
 def test_lanes_beside_the_main_one(spec, want):
     """Which phases run beside the main lane, after which main-lane phase

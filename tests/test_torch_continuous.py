@@ -262,3 +262,83 @@ def test_pixels_are_checked(managers):
     with pytest.raises(ValueError, match="uint8"):
         tmgr.generate([ChatMessage("user", "a cat")], np.zeros((16, 16, 3), np.uint8), max_new_tokens=2)
     assert torch.equal(tmgr._pixels(np.full((32, 32, 3), 7, np.uint8))[0, 0, 0], torch.full((3,), 7, dtype=torch.uint8))
+
+
+class _PacedClock:
+    """A clock for one engine module's ``time``: it moves only when a
+    decode block runs (``step``) or the engine sleeps, so a block's wall
+    time is exactly ``step`` and the pacing floor's lag can be read off
+    the sleeps."""
+
+    def __init__(self, step: float):
+        self.now, self.step, self.sleeps = 100.0, step, []
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    monotonic = perf_counter
+
+    def sleep(self, s: float) -> None:
+        self.sleeps.append(s)
+        self.now += s
+
+    def advancing(self, fn):
+        def run(*args, **kwargs):
+            self.now += self.step
+            return fn(*args, **kwargs)
+
+        return run
+
+
+def _paced_run(monkeypatch, module, engine, step_attr: str, run, step: float) -> tuple[list, list, float]:
+    """``run()`` on ``engine`` with its module's clock paced: the sleeps it
+    took, the device spans it credited, and its block-time EWMA."""
+    clock = _PacedClock(step)
+    spans = []
+    busy = module.telemetry.busy
+    monkeypatch.setattr(module, "time", clock)
+    monkeypatch.setattr(engine.gen, step_attr, clock.advancing(getattr(engine.gen, step_attr)))
+    monkeypatch.setattr(module.telemetry, "busy", lambda name, t0, t1: spans.append(t1 - t0) or busy(name, t0, t1))
+    try:
+        run()
+    finally:
+        monkeypatch.undo()
+    return clock.sleeps, spans, engine._block_s_ewma
+
+
+@pytest.mark.parametrize("floor_ms", [0.0, 2.0, 5.0, 50.0])
+def test_step_floor_paces_decode_blocks_as_the_jax_engine(managers, monkeypatch, floor_ms):
+    """``LUMEN_GEN_STEP_FLOOR_MS``: a decode block sleeps out ``block *
+    floor - elapsed`` before its tokens stream, and the block EWMA and the
+    device duty credit include the paced window; at 0, or when the block
+    already took longer, it never sleeps. The port's engine and the JAX
+    engine are run on clocks that move by a fixed 15 ms a block: their
+    sleeps, credited spans and EWMA are equal, and equal to that formula."""
+    from lumen_tpu.models.vlm import continuous as jcont
+    from lumen_tpu_torch.models.vlm import continuous as tcont
+
+    jbase, _, state, tok = managers
+    step, block = 0.015, 4
+    monkeypatch.setenv("LUMEN_GEN_STEP_FLOOR_MS", str(floor_ms))
+    jmgr = JVLMManager(jbase.model_dir, dtype="float32", max_seq=128, max_new_cap=16, prefill_buckets=(16, 32),
+                       gen_block=block)
+    jmgr.initialize()
+    tmgr = VLMManager(VLMConfig.tiny(), state, tok, device="cpu", dtype="float32", max_seq=128, max_new_cap=16,
+                      prefill_buckets=(16, 32), gen_block=block, name="paced")
+    monkeypatch.delenv("LUMEN_GEN_STEP_FLOOR_MS")
+    try:
+        assert tmgr.engine._step_floor_s == jmgr._continuous._step_floor_s == floor_ms / 1e3
+        got = _paced_run(monkeypatch, tcont, tmgr.engine, "step_block", lambda: tmgr.generate(
+            [ChatMessage("user", "a cat")], max_new_tokens=12), step)
+        want = _paced_run(monkeypatch, jcont, jmgr._continuous, "_step_block", lambda: jmgr.generate(
+            [JChatMessage(role="user", content="a cat")], max_new_tokens=12), step)
+    finally:
+        tmgr.close()
+        jmgr.close()
+    sleeps, spans, ewma = got
+    assert spans and len(spans) == tmgr.engine.blocks_run
+    paced = max(block * floor_ms / 1e3, step)
+    assert sleeps == pytest.approx([paced - step] * len(spans) if paced > step else [])
+    assert spans == pytest.approx([paced] * len(spans)) and ewma == pytest.approx(paced)
+    assert got[0] == pytest.approx(want[0]) and got[1] == pytest.approx(want[1])
+    assert got[2] == pytest.approx(want[2])

@@ -124,8 +124,8 @@ def test_a_mismatched_running_group_still_raises(group):
         tmesh.build_mesh({"data": 2, "expert": 2, "model": 2})
     with pytest.raises(ValueError, match="needs 16 devices"):
         tmesh.build_mesh({"expert": 2, "model": 8})
-    with pytest.raises(NotImplementedError, match="2e"):
-        tmesh.build_mesh({"seq": 2, "model": 2})
+    seq = tmesh.build_mesh({"seq": 2, "model": 2})  # the prefix: place 0's block (places 0 and 1), place 1 idle
+    assert seq.shape == {"seq": 2, "model": 2} and [p.index for p in seq.places] == [0]
 
 
 @pytest.mark.parametrize("want, replicas, places", [("2", 2, [[0, 1], [2, 3]]), ("max", 4, [[0], [1], [2], [3]]),

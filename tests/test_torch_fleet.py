@@ -91,8 +91,9 @@ def test_plan_matches_jax(monkeypatch, requested, n_devices):
 def test_parallel_axes_raise(monkeypatch):
     # An expert or model axis runs on an expert x model serving group;
     # without one it raises (never a replicated fallback), and so does one
-    # larger than the host; seq and stage are not served. A data axis
-    # beside such a group, and replicas of one, need the group too.
+    # larger than the host; seq and stage serve one copy a data place, as
+    # JAX serves identical copies. A data axis beside such a group, and
+    # replicas of one, need the group too.
     for axes in ({"model": 2}, {"expert": 2}, {"expert": 2, "model": 2}):
         with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * 4)
@@ -100,8 +101,8 @@ def test_parallel_axes_raise(monkeypatch):
         build_mesh({"model": 4}, devices=[CPU] * 2)
     with pytest.raises(ValueError, match="needs 4 devices"):
         build_mesh({"expert": 2, "model": 2}, devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="queue A, item 2e"):
-        build_mesh({"seq": 2}, devices=[CPU] * 2)
+    seq = build_mesh({"seq": 2}, devices=[CPU] * 2)
+    assert seq.shape == {"seq": 2} and seq.data_devices == [CPU] and seq.idle_devices == [1]
     for axes in ({"data": 2, "model": 2}, {"data": -1, "expert": 2}):
         with pytest.raises(RuntimeError, match="none is running"):
             build_mesh(axes, devices=[CPU] * 4)

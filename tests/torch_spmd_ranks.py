@@ -5,10 +5,11 @@ case and writes its results as numpy.
 The ranks import torch and the port only: the JAX side of each test is
 computed in the pytest process and reaches the ranks as an ``.npz``.
 
-The serving cases (``tp_*``, ``ep_*``, ``dp_tp_*``, ``graph_*``) join a serving group
-(``runtime.tp_group``; ``meta["expert"]`` places on the expert axis, the
-rest on the model axis, ``meta["places"]`` data places a rank, each the
-CPU) instead of a plain process group: rank 0 drives the managers, the
+The serving cases (``tp_*``, ``ep_*``, ``dp_tp_*``, ``graph_*``, ``seq_*``)
+join a serving group (``runtime.tp_group``; ``meta["expert"]`` places on
+the expert axis, the rest on the model axis, ``meta["places"]`` data
+places a rank, each the CPU, ``meta["block"]`` seq x stage positions a
+place) instead of a plain process group: rank 0 drives the managers, the
 other ranks run the worker loop until rank 0 stops it.
 
     python tests/torch_spmd_ranks.py <case> <rank> <world> <port> <dir>
@@ -77,11 +78,12 @@ def run_ranks(case: str, world: int, inputs: dict, workdir: Path, timeout: float
 
 class StandInGroup:
     """A stand-in for a running serving group (``runtime.tp_group``) with
-    ``data`` places of ``expert x model`` CPU ranks: its shape, places and
-    per-place axes, what a mesh and a replica plan read of one. Install it
-    with ``monkeypatch.setattr(tp_group, "_current", group)``."""
+    ``data`` places of ``expert x model`` CPU ranks, each place a block of
+    ``block`` (``seq x stage``) copies of them: its shape, places, blocks
+    and per-place axes, what a mesh and a replica plan read of one.
+    Install it with ``monkeypatch.setattr(tp_group, "_current", group)``."""
 
-    def __init__(self, data: int, expert: int = 1, model: int = 2):
+    def __init__(self, data: int, expert: int = 1, model: int = 2, block: int = 1):
         from types import SimpleNamespace
 
         import torch
@@ -89,9 +91,12 @@ class StandInGroup:
         from lumen_tpu_torch.parallel.tp import TensorParallel
         from lumen_tpu_torch.runtime.tp_group import rank_devices
 
-        self.size, self.data = expert * model, data
+        self.size, self.data, self.block = expert * model, data, block
         self.shape = {"data": data, "expert": expert, "model": model}
-        self.places = rank_devices([torch.device("cpu")] * (data * self.size), self.size)
+        devices = [torch.device("cpu")] * (data * block * self.size)
+        self.places = rank_devices(devices, self.size, block)
+        span = block * self.size
+        self.blocks = [devices[d * span:(d + 1) * span] for d in range(data)]
         self._views = [SimpleNamespace(index=d, tp=TensorParallel(model, 0), ep=None) for d in range(data)]
 
     def place(self, index: int):
@@ -249,9 +254,11 @@ def _case_init(inp, meta, out):
 def _tp_group(meta):
     from lumen_tpu_torch.runtime.tp_group import TPGroup
 
-    devices = [["cpu"] * meta.get("places", 1) for _ in range(meta["world"])]
+    places, block = meta.get("places", 1), meta.get("block", 1)
+    devices = [["cpu"] * places for _ in range(meta["world"])]
+    blocks = [["cpu"] * (block * meta["world"])] * places if block > 1 else None
     return TPGroup.join(meta["rank"], meta["world"], f"localhost:{meta['port']}", devices, "gloo",
-                        timeout_s=meta.get("tp_timeout", 60.0), expert=meta.get("expert", 1))
+                        timeout_s=meta.get("tp_timeout", 60.0), expert=meta.get("expert", 1), blocks=blocks)
 
 
 def _serving(case):
@@ -917,15 +924,79 @@ def _case_graph_serve(inp, meta, out):
     out["clip_only_codes"] = np.asarray([p.returncode for p in children])
 
 
+def _seq_group(group, inp, meta, out):
+    """Two ranks of two data places, each place a block of two ``seq``
+    positions (the group ``serve()`` starts for ``{data: 2, seq: 2, model:
+    2}`` on eight devices): the VLM at ``{model: 2, seq: 2}`` and at that
+    mesh, and CLIP at that mesh; the places each serves at, and every
+    place's programs on both ranks."""
+    from lumen_tpu_torch.models.clip.manager import CLIPManager
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.models.vlm.manager import VLMManager
+    from lumen_tpu_torch.runtime.tp_group import place_of
+
+    prompt = [ChatMessage(role="user", content=meta["prompt"])]
+    out["block"] = np.asarray(group.block)
+    _place_programs(group)
+    for tag, mesh in (("model_seq", {"model": 2, "seq": 2}), ("data_seq_model", {"data": 2, "seq": 2, "model": 2})):
+        mgr = VLMManager.from_model_dir(meta["vlm_dir"], mesh_axes=mesh, **_vlm_kw(meta, gen_slots=2, gen_block=4))
+        try:
+            r = mgr.generate(prompt, max_new_tokens=meta["max_new"])
+            out[f"{tag}_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+            out[f"{tag}_places"] = np.asarray([p.index for p in mgr.mesh.places])
+            out[f"{tag}_engines"] = np.asarray([place_of(e.gen).index for e in mgr._engines])
+        finally:
+            mgr.close()
+        out[f"{tag}_tokens"], out[f"{tag}_text"] = np.asarray(r.tokens), np.asarray(r.text)
+        out[f"{tag}_programs"] = np.asarray(_place_programs(group))
+    mgr = CLIPManager(meta["clip_dir"], dtype="float32", batch_size=2, mesh_axes={"data": 2, "seq": 2, "model": 2},
+                      device="cpu")
+    mgr.initialize()
+    try:
+        out["clip_image"] = mgr.encode_image(bytes(inp["image"]))
+        out["clip_text"] = mgr.encode_text(meta["text"])
+        out["clip_shape"] = np.asarray(json.dumps(mgr.mesh.shape))
+        out["clip_places"] = np.asarray([place_of(m).index for m in mgr.place_models])
+    finally:
+        mgr.close()
+    out["clip_programs"] = np.asarray(_place_programs(group))
+
+
+def _case_seq_serve(inp, meta, out):
+    """``serve()`` on a config whose VLM service carries ``mesh: {data: 2,
+    seq: 2, model: 2}`` with eight devices: the group it starts (its
+    shape, blocks and ranks), the mesh the service serves on, its tokens,
+    and ``stop``."""
+    from lumen_tpu_torch.core.config import validate_config_dict
+    from lumen_tpu_torch.models.vlm import ChatMessage
+    from lumen_tpu_torch.serving import server
+
+    handle = server.serve(validate_config_dict(meta["config"]), port_override=0, skip_download=True, device="cpu",
+                          tp_devices=["cpu"] * 8, tp_backend="gloo")
+    try:
+        group, vlm = handle.tp_group, handle.services["vlm"].manager
+        out["group_shape"] = np.asarray(json.dumps(group.shape))
+        out["group_layout"] = np.asarray([group.size, group.block, len(group.blocks), len(group.blocks[0])])
+        out["vlm_shape"] = np.asarray(json.dumps(vlm.mesh.shape))
+        out["vlm_places"] = np.asarray([p.index for p in vlm.mesh.places])
+        r = vlm.generate([ChatMessage(role="user", content=meta["prompt"])], max_new_tokens=meta["max_new"])
+        out["vlm_tokens"] = np.asarray(r.tokens)
+        children = list(group.children)
+    finally:
+        handle.stop(grace=1.0)
+    out["worker_codes"] = np.asarray([p.returncode for p in children])
+
+
 CASES = {"attention": _case_attention, "misc": _case_misc, "train": _case_train, "init": _case_init,
          "tp_vlm": _serving(_tp_vlm), "tp_clip": _serving(_tp_clip), "tp_serve": _case_tp_serve,
          "ep_vlm": _serving(_ep_vlm), "ep_tp_vlm": _serving(_ep_tp_vlm), "tp_moe": _serving(_tp_moe),
          "ep_serve": _case_ep_serve, "dp_tp": _serving(_dp_tp), "dp_tp_moe": _serving(_dp_tp_moe),
          "dp_tp_ingest": _serving(_dp_tp_ingest), "dp_tp_serve": _case_dp_tp_serve,
-         "graph_group": _serving(_graph_group), "graph_serve": _case_graph_serve}
+         "graph_group": _serving(_graph_group), "graph_serve": _case_graph_serve,
+         "seq_group": _serving(_seq_group), "seq_serve": _case_seq_serve}
 #: cases that open their own group (the others run in a plain gloo group)
 OWN_GROUP = ("init", "tp_vlm", "tp_clip", "tp_serve", "ep_vlm", "ep_tp_vlm", "tp_moe", "ep_serve", "dp_tp",
-             "dp_tp_moe", "dp_tp_ingest", "dp_tp_serve", "graph_group", "graph_serve")
+             "dp_tp_moe", "dp_tp_ingest", "dp_tp_serve", "graph_group", "graph_serve", "seq_group", "seq_serve")
 
 
 def main() -> int:
