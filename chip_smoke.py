@@ -8,14 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   the build of all five CUDA kernels (one ``nvcc`` per source, all
-   started together), with each kernel function's registers, shared
-   memory and spills from ptxas (no bf16 flash kernel and no paged
+   the cold build of all six CUDA libraries (the five kernels and the MoE
+   grouped product; one ``nvcc`` per source, all started together, its
+   seconds printed), with each kernel function's registers, shared
+   memory and spills from ptxas (no 2-byte flash kernel and no paged
    kernel may spill) and its count of tensor-core instructions (HMMA)
-   from ``cuobjdump -sass`` (the eight bf16 flash kernels --
+   from ``cuobjdump -sass`` (the sixteen 2-byte flash kernels --
    flash_attention's short and long paths at head_dim 64, 16 and 128,
-   and the cache kernel at 64 and 128 -- and the paged walk's bf16 GQA
-   path at 64 and 128 must have some).
+   and the cache kernel at 64 and 128, each in bf16 and fp16 -- and the
+   paged walk's GQA path at 64 and 128 in both types must have some).
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same seeded inputs, at the serving path's shapes plus ragged cases
    (for the flash kernels: lengths and ``kv_valid`` on either side of the
@@ -55,7 +56,15 @@ Phases (any failure exits non-zero):
    ``ops.attention.paged_plan``: tensor cores or FMA units, query rows,
    KV heads and window slots a block, span, blocks, threads, shared
    memory, blocks resident an SM) and its workspace; no paged kernel may
-   spill; each w8a16 shape prints its K split, blocks and ring.
+   spill; each w8a16 shape prints its K split, blocks and ring. Then
+   every float16 instance (``check_fp16``: flash <16>, <64>, <128>, the
+   cache kernel, paged and verify at <64> and <128>) against its plain
+   version with ragged cases, timed at the bf16 rows' shapes beside its
+   bound and SDPA in float16, its paged plans equal to bf16's, the paged
+   bitwise properties in float16 too; and the MoE grouped product in
+   float16 and float32 (``check_grouped_mm``) against
+   ``grouped_mm_reference`` at phase 15 (c)'s shapes, a 256-token chunk
+   and a ragged case, with no device-to-host sync a call.
 3. reference: a small fp32 VLM served on the card (kernels) and on the
    CPU (plain versions) gives the same greedy tokens, and so does the
    card with speculative decoding (``LUMEN_VLM_SPEC_K=4``).
@@ -404,27 +413,42 @@ Phases (any failure exits non-zero):
     of 8 greedy tokens to phase 17 (b)'s rule against the mesh-less
     manager, the cache and paged kernels on both ranks, one
     ``vlm_generate`` over gRPC. It times nothing but images/s and tok/s.
+23. ``dtype: float16`` on the card, and the MoE decoder in float16 and
+    float32 (``drive_fp16``): (a) one ``serve()`` of phase 6's
+    ``VLMConfig()`` (speculation K=4), phase 8's ViT-B/32 and phase 10
+    (b)'s native OCR, every block at ``dtype: float16``: captions equal
+    to their reruns alone and a sampled one, the VLM's float16 forward
+    to the plain attention (``FP16_FORWARD_COSINE``), CLIP embeddings to
+    the towers on the plain attention (``CLIP_COSINE``), OCR boxes to the
+    plain path's; (b) Qwen1.5-MoE-A2.7B's decoder cut to 2 layers at full
+    width in float16 (speculation K=4, then a sampled request) and
+    float32 on the paged engine, each one's forward to the plain
+    attention, and one ``MoEFFN`` layer's syncs a call equal in bf16,
+    float16 and float32. Every attention kernel must launch in float16
+    and the grouped product in float16 and float32; each kernel's
+    launches are printed by type and head_dim.
 
 The counts above are each drive's defaults; ``main`` runs phases 7, 9-17
-and 20 cut in depth to keep all twenty-two within the time limit (the
+and 20 cut in depth to keep all twenty-three within the time limit (the
 comments beside each call in ``main`` list the cuts).
 
-Phases 12, 14 then 21, and 16 then 22, run beside the main lane, each
+Phases 12, 14, 21 then 23, and 16 then 22, run beside the main lane, each
 lane a process of its own (``chip_smoke.py --beside``; ``BESIDE_LANES``):
-12, 14 and 21 once phase 8 has ended (14 waits for 9 and 10 too, 21 for
-9; 21 serves 12's directory), 16 and 22 once 15 has ended, so 16's ~31
-GiB never meets phase 15's ~39 GiB. A lane's launch counts are its own process's, as its
+12, 14, 21 and 23 once phase 8 has ended (14 waits for 9 and 10 too, 21
+for 9, 23 for 10; 21 serves 12's directory), 16 and 22 once 15 has ended,
+so 16's ~31 GiB never meets phase 15's ~39 GiB. A lane's launch counts are its own process's, as its
 servers' and ranks' are theirs, so no phase reads another's launches.
 Every lane ends before phase 19, which times kernels with the card to
 itself. A lane's lines are echoed as they come.
 
-A run with no arguments drives all twenty-two phases (``--phases 13``, a
+A run with no arguments drives all twenty-three phases (``--phases 13``, a
 developer's shortcut, drives the listed ones and those they read, and
 prints neither of the last two lines), and prints each phase's seconds.
 The kernel table's launch counts are
 phase 6's (the bf16 server for the bf16 path's kernels, the int8 server
 for the other two), its head_dim-16 row's phase 10 (b)'s, and its
-head_dim-128 and Qwen1.5-MoE w8a16 rows phase 15 (a)'s; phases 7-11
+head_dim-128 and Qwen1.5-MoE w8a16 rows phase 15 (a)'s, its float16
+and grouped-product rows phase 23's; phases 7-11
 print their own, phase 8 beside the flash kernel's two CLIP rows and
 phase 10 beside its two OCR rows (timed in phase 2), phases 13 and 14
 beside every kernel's row (decode and prefill hosts; the supervised full
@@ -451,10 +475,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): memory rate and bf16 / fp32
-#: tensor-core rates, at the full 700 W power limit.
+#: H100 SXM peaks (NVIDIA data sheet, dense): memory rate and bf16 / fp16 /
+#: fp32 (TF32) tensor-core rates, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12}
 
 #: kernel vs plain: |kernel - plain| <= ATOL + RTOL * |plain| elementwise,
 #: with the plain version run in fp32 on the same (bf16) inputs. The
@@ -468,6 +492,8 @@ SOURCES = {
     "paged_attention": ("lumen_tpu_torch/csrc/paged_attention.cu", "lumen_tpu/ops/attention.py:676"),
     "paged_attention_varq": ("lumen_tpu_torch/csrc/paged_attention_varq.cu", "lumen_tpu/ops/attention.py:849"),
     "w8a16_matmul": ("lumen_tpu_torch/csrc/w8a16_matmul.cu", "lumen_tpu/ops/quant_matmul.py:76"),
+    # no TPU kernel: the JAX grouped product is lax.ragged_dot, an XLA op
+    "grouped_mm": ("lumen_tpu_torch/csrc/grouped_mm.cu", "lumen_tpu/parallel/moe.py:105"),
 }
 
 #: the kernels each serving phase must launch: phase 4 the bf16 path
@@ -499,6 +525,15 @@ def all_kernels() -> tuple:
     from lumen_tpu_torch.ops import attention, quant_matmul
 
     return attention.KERNELS + quant_matmul.KERNELS
+
+
+def moe_kernels() -> tuple:
+    """The MoE grouped product's kernel (float16 and float32 on the card;
+    bf16 runs ``torch._grouped_mm``), built and counted apart from
+    :func:`all_kernels`, whose launch tables every serving phase reads."""
+    from lumen_tpu_torch.parallel import moe
+
+    return moe.KERNELS
 
 
 @contextlib.contextmanager
@@ -767,8 +802,10 @@ def plan_text(plan: dict) -> str:
             + f"; {plan['resident']} blocks resident an SM")
 
 
-def flash_row(rnd, label: str, b: int, h: int, s: int, d: int, causal: bool, plain_iters: int = 20) -> dict:
-    """One flash_attention shape of the kernel table, [b, h, s, d] bf16:
+def flash_row(rnd, label: str, b: int, h: int, s: int, d: int, causal: bool, plain_iters: int = 20,
+              dtype=None) -> dict:
+    """One flash_attention shape of the kernel table, [b, h, s, d] bf16
+    (or ``dtype``, a 2-byte type: the same plan):
     the kernel against the plain version (tolerance), then in one run the
     kernel's device time, the plain version's, SDPA's on the same tensors
     and the bound -- the largest of q, k, v, o once at 3.35 TB/s, the
@@ -779,7 +816,7 @@ def flash_row(rnd, label: str, b: int, h: int, s: int, d: int, causal: bool, pla
 
     from lumen_tpu_torch.ops import attention as A
 
-    q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    q, k, v = (rnd(b, h, s, d) if dtype is None else rnd(b, h, s, d, dtype=dtype) for _ in range(3))
     err = max_err(A.flash_attention(q, k, v, causal=causal),
                   A.attention_reference(q.float(), k.float(), v.float(), causal=causal))
     plan = flash_plan_on_card(s, s, d, causal)
@@ -1199,6 +1236,270 @@ def check_hd128(seed: int) -> dict:
     return rows
 
 
+#: the float16 rows of the kernel table (phase 23 serves them): flash at
+#: the VLM vision tower's call, SVTR's widest (640 bucket) and the
+#: Qwen2-MoE decoder's cacheless causal forward
+FP16_FLASH_SHAPES = {"VLM vision": (1, 12, 256, 64, False), "OCR SVTR 640 bucket": (32, 4, 1920, 16, False),
+                     "Qwen2-MoE cacheless forward": (1, 16, 265, 128, True)}
+#: the decoders' (heads, KV heads) by head_dim: dense Qwen2-0.5B, Qwen2-MoE
+DECODER_HEADS = {64: (14, 2), 128: (16, 16)}
+
+
+def check_fp16(seed: int) -> dict:
+    """Every float16 instance of the four attention kernels against its
+    plain version (fp32 on the same float16 inputs), with ragged cases, at
+    the shapes of the kernel table's bf16 rows, each timed beside its bound
+    and beside SDPA in float16 (masked SDPA for the cache kernel; none for
+    the paged kernels): flash <16>, <64>, <128>; the cache kernel's chunk
+    q [1, H, 256, D] against 832 slots at <64> and <128>; paged q [8, H,
+    D] at lengths 1..500 and the verify window W = 5 at <64> (14/2 heads:
+    the tensor cores) and <128> (16/16: the FMA units). The paged plans of
+    float16 equal bf16's (``lumen_paged_plan`` and ``ops.attention.
+    paged_plan``), and the paged kernels keep their bitwise properties in
+    float16 (verify slot t = decode at kv_lens + t, a row alone = the row
+    in the batch, the table's width). Returns the rows for the kernel
+    table."""
+    import torch
+    import torch.nn.functional as F
+
+    from lumen_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def rnd(*shape, dtype=f16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    rows = {}
+    # flash_attention: ragged and causal cases at each head_dim (sk > sq
+    # on the long path, lengths off the tiles), the CLIP towers' bulk calls
+    errs = {16: [], 64: [], 128: []}
+    for b, h, sq, sk, causal, d in (
+        (1, 12, 100, 100, False, 64), (2, 14, 77, 77, True, 64), (1, 14, 50, 130, True, 64),
+        (3, 2, 200, 64, False, 64), (2, 2, 129, 129, True, 64), (64, 12, 50, 50, False, 64),
+        (64, 8, 77, 77, True, 64), (2, 4, 240, 240, False, 16), (2, 4, 240, 240, True, 16),
+        (3, 4, 77, 77, False, 16), (8, 4, 960, 960, False, 16), (2, 16, 77, 77, False, 128),
+        (1, 16, 50, 130, True, 128),
+    ):
+        q, k, v = rnd(b, h, sq, d), rnd(b, h, sk, d), rnd(b, h, sk, d)
+        errs[d].append(max_err(A.flash_attention(q, k, v, causal=causal),
+                               A.attention_reference(*f32(q, k, v), causal=causal)))
+    q, k, v = (rnd(64, 12, 50, 64) for _ in range(3))
+    if not torch.equal(A.flash_attention(q[:1], k[:1], v[:1]), A.flash_attention(q, k, v)[:1]):
+        raise AssertionError("flash_attention float16: a sequence's output changed with the batch it was launched in")
+    for label, (b, h, s, d, causal) in FP16_FLASH_SHAPES.items():
+        row = flash_row(rnd, f"float16 {label}", b, h, s, d, causal, plain_iters=10 if d == 16 else 20, dtype=f16)
+        rows[f"flash_attention [float16, head_dim {d}]"] = dict(row, max_abs_err=max(errs[d] + [row["max_abs_err"]]))
+
+    # flash_attention_cache: a caption prompt's two chunks, ragged batches,
+    # kv_valid and offsets across the 64-key tile; the chunk timed
+    slots = torch.arange(832, device=dev)
+    for d, (h, _) in DECODER_HEADS.items():
+        errs_c = []
+        for b, sq, sk, offs, valid in ((1, 256, 832, [0], [256]), (1, 63, 832, [256], [265]),
+                                       (2, 63, 832, [256, 37], [265, 100]), (1, 48, 832, [79], [127]),
+                                       (4, 319, 832, [0] * 4, [319, 265, 270, 300]), (4, 16, 88, [0] * 4, [16] * 4)):
+            q, k, v = rnd(b, h, sq, d), rnd(b, h, sk, d), rnd(b, h, sk, d)
+            qo = torch.tensor(offs, device=dev, dtype=torch.int32)
+            kv = torch.tensor(valid, device=dev, dtype=torch.int32)
+            errs_c.append(max_err(A.flash_attention_cache(q, k, v, qo, kv), A._decode_masked(*f32(q, k, v), qo, kv)))
+        q, k, v = rnd(1, h, 256, d), rnd(1, h, 832, d), rnd(1, h, 832, d)
+        qo = torch.tensor([0], device=dev, dtype=torch.int32)
+        kv = torch.tensor([256], device=dev, dtype=torch.int32)
+        bms, by = bound(2 * q.numel() * 2 + 2 * h * 256 * d * 2, 4 * h * d * (256 * 257 // 2), "float16")
+        mask = ((slots[None, :] < 256) & (slots[None, :] <= torch.arange(256, device=dev)[:, None]))[None, None]
+        rows[f"flash_attention_cache [float16, head_dim {d}]"] = dict(
+            max_abs_err=max(errs_c),
+            ms=device_ms(lambda: A.flash_attention_cache(q, k, v, qo, kv), 50, floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda: A._decode_masked(q, k, v, qo, kv), 20, floor_ms=bms),
+            bound_ms=bms, bound_by=by,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50, floor_ms=bms),
+            shape=f"q [1,{h},256,{d}] vs 832 slots, 256 live",
+        )
+
+    # paged_attention and the verify window, at both decoders' heads
+    pages, page = 1025, 16
+
+    def table(row_lens, maxp, w=1):
+        perm = torch.randperm(pages - 1, generator=gen, device=dev)[: len(row_lens) * maxp]
+        bt = (perm.reshape(len(row_lens), maxp) + 1).to(torch.int32)
+        for r, n in enumerate(row_lens):
+            if r % 2:
+                bt[r, -(-(n + w - 1) // page):] = 0  # dump page
+        return bt
+
+    for d, (h, kvh) in DECODER_HEADS.items():
+        group = h // kvh
+        for w in (1, 5, 16):
+            # (blocks resident an SM follow each instance's registers: not the plan)
+            plan16, plan_bf = (paged_plan_on_card(group, d, w, t) for t in (f16, bf16))
+            if plan16.pop("resident") < 1 or plan_bf.pop("resident") < 1 or plan16 != plan_bf:
+                raise AssertionError(f"paged plan of float16 (group {group}, head_dim {d}, W {w}) {plan16} differs "
+                                     f"from bf16's {plan_bf}")
+        kp, vp = rnd(pages, kvh, page, d), rnd(pages, kvh, page, d)
+        lens = [1, 16, 17, 300, 333, 129, 64, 500]
+        bt, kl = table(lens, 32), torch.tensor(lens, device=dev, dtype=torch.int32)
+        q = rnd(8, h, d)
+        out = A.paged_attention_kernel(q, kp, vp, bt, kl)
+        errs_p = [max_err(out, A.paged_attention_reference(*f32(q, kp, vp), bt, kl))]
+        span = A.paged_plan(group, d, 1, f16)["span"]
+        edge = [span - 1, span, span + 1, 2048]
+        bt_e, kl_e = table(edge, 128), torch.tensor(edge, device=dev, dtype=torch.int32)
+        q_e = rnd(4, h, d)
+        errs_p.append(max_err(A.paged_attention_kernel(q_e, kp, vp, bt_e, kl_e),
+                              A.paged_attention_reference(*f32(q_e, kp, vp), bt_e, kl_e)))
+        bt_wide = torch.zeros((8, 128), device=dev, dtype=torch.int32)
+        bt_wide[:, :32] = bt
+        if not torch.equal(A.paged_attention_kernel(q, kp, vp, bt_wide, kl), out):
+            raise AssertionError(f"paged_attention float16 <{d}>: a row changed with the table padded to 128 pages")
+        check_paged_bits(q, kp, vp, bt, kl, f"paged_attention float16 <{d}>")
+        total = sum(lens)
+        nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * total * kvh * d * 2
+        bms, by = bound(nb, 4 * h * d * total, "float16")
+        hkp, hvp, sets = paged_sets(gen, lens, (8, h, d), 32, kvh, f16)
+        rows[f"paged_attention [float16, head_dim {d}]"] = dict(
+            max_abs_err=max(errs_p),
+            ms=device_ms(lambda: A.paged_attention_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+            hbm_ms=device_ms(lambda q, bt: A.paged_attention_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                             floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+            bound_ms=bms, bound_by=by, library_ms=None, shape=f"q [8,{h},{d}], lens 1..500, maxp 32",
+            plan=paged_plan_text(q, kp, 32),
+        )
+        del hkp, hvp, sets
+
+        errs_v, maxp = [], 34
+        lens = [1, 16, 15, 300, 333, 129, 62, 500]
+        kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+        cases = {}
+        for w in (1, 5, 16):
+            bt = table(lens, maxp, w)
+            q = rnd(8, w, h, d)
+            errs_v.append(max_err(A.paged_attention_varq_kernel(q, kp, vp, bt, kl),
+                                  A.paged_attention_varq_reference(*f32(q, kp, vp), bt, kl)))
+            check_paged_bits(q, kp, vp, bt, kl, f"paged_attention_varq float16 <{d}> W={w}")
+            cases[w] = (q, bt)
+        w = 5
+        q, bt = cases[w]
+        live = sum(n + w - 1 for n in lens)
+        seen = sum(n + t for n in lens for t in range(w))
+        nb = 2 * q.numel() * 2 + bt.numel() * 4 + kl.numel() * 4 + 2 * live * kvh * d * 2
+        bms, by = bound(nb, 4 * h * d * seen, "float16")
+        hkp, hvp, sets = paged_sets(gen, lens, (8, w, h, d), maxp, kvh, f16)
+        rows[f"paged_attention_varq [float16, head_dim {d}]"] = dict(
+            max_abs_err=max(errs_v),
+            ms=device_ms(lambda: A.paged_attention_varq_kernel(q, kp, vp, bt, kl), 100, floor_ms=bms, launches=1),
+            hbm_ms=device_ms(lambda q, bt: A.paged_attention_varq_kernel(q, hkp, hvp, bt, kl), 100, args=sets,
+                             floor_ms=bms, launches=1),
+            plain_ms=device_ms(lambda: A.paged_attention_varq_reference(q, kp, vp, bt, kl), 20, floor_ms=bms),
+            bound_ms=bms, bound_by=by, library_ms=None, shape=f"q [8,5,{h},{d}], lens 1..500, maxp 34",
+            plan=paged_plan_text(q, kp, maxp),
+        )
+        del hkp, hvp, sets, kp, vp
+    torch.cuda.synchronize()
+    log("kernels in float16: every instance within tolerance of its plain version (fp32 on the same inputs); "
+        "a CLIP row alone equals it in the batch of 64; the paged plans equal bf16's at W = 1, 5, 16; paged rows "
+        "bitwise equal with tables of 32 and 128 pages and alone vs in the batch; verify slot t at W = 1, 5, 16 "
+        "equals paged_attention at kv_lens + t bit for bit")
+    for name, row in rows.items():
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA, float16)"
+        hbm = f" warm, {row['hbm_ms']:.4f} ms from device memory" if "hbm_ms" in row else ""
+        plan = f"; plan {row['plan']}" if isinstance(row.get("plan"), str) else ""
+        log(f"kernel {name} {row['shape']}: max|diff| {row['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|), kernel "
+            f"{row['ms']:.4f} ms on the device{hbm}, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), library {lib}{plan}")
+    return rows
+
+
+def moe_routing(seed: int, tokens: int, dec, device) -> tuple:
+    """A seeded router's top-k assignment of ``tokens`` tokens at the MoE
+    decoder's widths, as ``parallel.moe`` sorts it: the order of the
+    ``tokens * k`` rows and the group ends (int32, on the device)."""
+    import torch
+
+    from lumen_tpu_torch.parallel import moe as M
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    router = torch.randn((dec.hidden_size, dec.moe_experts), generator=gen, device=device) / dec.hidden_size ** 0.5
+    x = torch.randn((tokens, dec.hidden_size), generator=gen, device=device)
+    _, idx = M._topk_gates(x, router, dec.moe_top_k, dec.moe_norm_topk)
+    e_flat = idx.reshape(-1)
+    order = torch.sort(e_flat, stable=True).indices
+    ends = torch.bincount(e_flat, minlength=dec.moe_experts).cumsum(0).to(torch.int32)
+    return x.repeat_interleave(dec.moe_top_k, 0)[order].contiguous(), ends, int(e_flat.unique().numel())
+
+
+def check_grouped_mm(seed: int) -> dict:
+    """The MoE grouped product's kernel in float16 and float32 against
+    ``grouped_mm_reference`` (fp32 on the same inputs) at phase 15 (c)'s
+    shapes (Qwen1.5-MoE-A2.7B: the gate bank [60, 2048, 1408] over 8
+    tokens x top-4 = 32 sorted rows, and the down bank [60, 1408, 2048]),
+    a prefill chunk's 256 tokens (1,024 rows), and a ragged case (empty
+    groups, rows past the last end, K and M off the tiles); no
+    device-to-host sync a call; the gate bank's call timed beside its byte
+    bound (the chosen experts' matrices, x and the output once) and the
+    plain per-group loop (CUDA events: it reads the ends on the host). No
+    PyTorch call computes it on the card in these types without a host
+    sync: library none. Returns the two rows for the kernel table."""
+    import torch
+
+    from lumen_tpu_torch.parallel import moe as M
+    from lumen_tpu_torch.testing.vlm_standins import qwen15_moe_a27b
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    dec = qwen15_moe_a27b().decoder
+    e, d, f = dec.moe_experts, dec.hidden_size, dec.moe_intermediate_size
+    xs, ends, distinct = moe_routing(seed + 17, 8, dec, dev)
+    xp, ends_p, _ = moe_routing(seed + 18, 256, dec, dev)
+    rows = {}
+    for dt in (torch.float16, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        w_gate = (torch.randn((e, d, f), generator=gen, device=dev) / d ** 0.5).to(dt)
+        w_down = (torch.randn((e, f, d), generator=gen, device=dev) / f ** 0.5).to(dt)
+        x, h = xs.to(dt), torch.randn((xs.shape[0], f), generator=gen, device=dev).to(dt)
+        errs = [max_err(M.grouped_mm(x, w_gate, ends), M.grouped_mm_reference(x.float(), w_gate.float(), ends)),
+                max_err(M.grouped_mm(h, w_down, ends), M.grouped_mm_reference(h.float(), w_down.float(), ends)),
+                max_err(M.grouped_mm(xp.to(dt), w_gate, ends_p),
+                        M.grouped_mm_reference(xp.to(dt).float(), w_gate.float(), ends_p))]
+        xr = torch.randn((15, 40), generator=gen, device=dev).to(dt)
+        wr = torch.randn((5, 40, 24), generator=gen, device=dev).to(dt)
+        ends_r = torch.tensor([0, 3, 3, 10, 12], device=dev, dtype=torch.int32)  # 3 rows past the last end
+        out_r = M.grouped_mm(xr, wr, ends_r)
+        errs.append(max_err(out_r, M.grouped_mm_reference(xr.float(), wr.float(), ends_r)))
+        if bool(out_r[12:].any()):
+            raise AssertionError(f"grouped_mm {name}: rows past the last group end are not zero")
+        syncs = count_syncs(lambda: M.grouped_mm(x, w_gate, ends))
+        if syncs:
+            raise AssertionError(f"grouped_mm {name}: {syncs} device-to-host syncs a call (the ends stay on the card)")
+        size = x.element_size()
+        nb = distinct * d * f * size + x.numel() * size + x.shape[0] * f * size
+        flops = 2 * x.shape[0] * d * f
+        bms, by = bound(nb, flops, "float16") if dt == torch.float16 else (
+            max(nb / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, "bytes" if nb / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations")
+        rows[f"grouped_mm [{name}]"] = dict(
+            max_abs_err=max(errs),
+            ms=device_ms(lambda: M.grouped_mm(x, w_gate, ends), 50, floor_ms=bms, launches=1),
+            plain_ms=cuda_ms(lambda: M.grouped_mm_reference(x, w_gate, ends), 10),
+            bound_ms=bms, bound_by=by, library_ms=None, syncs=syncs,
+            shape=f"gate bank, {x.shape[0]} sorted rows over {distinct} of {e} experts, [{e},{d},{f}] {name}",
+        )
+        r = rows[f"grouped_mm [{name}]"]
+        log(f"kernel grouped_mm {name} ({r['shape']}): max|diff| {r['max_abs_err']:.3e} (tol {ATOL}+{RTOL}|ref|) over "
+            f"the gate and down banks at 32 rows, 1,024 rows of a 256-token chunk and a ragged case (empty groups, rows "
+            f"past the last end zero); 0 syncs a call; kernel {r['ms']:.4f} ms on the device, plain per-group loop "
+            f"{r['plain_ms']:.4f} ms a call (CUDA events), bound {bms:.5f} ms ({by}: {nb} B at 3.35 TB/s), library none")
+        del w_gate, w_down
+    return rows
+
+
 def kernel_name(mangled: str) -> str:
     """The unqualified name in an Itanium-mangled symbol, with its integer
     template argument: ``_ZN5lumen27flash_attention_bf16_kernelILi64EE...``
@@ -1212,11 +1513,15 @@ def kernel_name(mangled: str) -> str:
     rest = mangled[i:]
     if targ := re.match(r"ILi(\d+)E", rest):
         return f"{name}<{targ[1]}>"
-    # a type then an int (``paged_walk_kernel<__nv_bfloat16, 128>``, ``<float, 64>``)
+    # a type then an int (``paged_walk_kernel<__nv_bfloat16, 128>``, ``<float, 64>``), or a type
+    # alone (``grouped_mm_kernel<__half>``)
     if targ := re.match(r"I(?:(\d+)|f)", rest):
         tname = rest[targ.end():targ.end() + int(targ[1])] if targ[1] else "float"
-        if d := re.match(r"Li(\d+)E", rest[targ.end() + len(tname) * bool(targ[1]):]):
+        after = rest[targ.end() + len(tname) * bool(targ[1]):]
+        if d := re.match(r"Li(\d+)E", after):
             return f"{name}<{tname}, {d[1]}>"
+        if after.startswith("E"):
+            return f"{name}<{tname}>"
     return name
 
 
@@ -1532,6 +1837,7 @@ def check_reference(seed: int) -> None:
 def drive_serving(
     seed: int, card: str, cfg=None, device: str = "cuda:0", quantize: str | None = None,
     spec_k: int = 0, kernels: tuple = PHASE4_KERNELS, state: dict | None = None, label: str | None = None,
+    dtype: str = "bfloat16", sampled: int = 0,
 ) -> dict:
     """Phase 4 (defaults) or phase 5 (``quantize="int8"``, ``spec_k=4``):
     10 caption requests, 8 at once and 2 after decoding started, three of
@@ -1539,8 +1845,11 @@ def drive_serving(
     count during the drive under ``launches`` (by head_dim under
     ``instances``). ``cfg``/``device`` let the CPU tests rehearse the drive
     at a small configuration (it then stops at the launch-count check:
-    plain paths launch nothing). ``state`` serves given bf16 weights (phase
-    15's MoE model, made once on the card) instead of seeding a model."""
+    plain paths launch nothing). ``state`` serves given weights (phase
+    15's MoE model, made once on the card) instead of seeding a model, in
+    ``dtype``; ``sampled`` sampled requests follow the greedy repeat, alone
+    (a sampled row never drafts: with speculation on they decode through
+    the single-token kernel)."""
     import numpy as np
     import torch
 
@@ -1559,12 +1868,12 @@ def drive_serving(
     tok = WordTokenizer(cfg.decoder.vocab_size, {})
     with env(LUMEN_VLM_SPEC_K=str(spec_k), LUMEN_VLM_SPEC_MIN_RATE="0"):
         mgr = VLMManager(
-            cfg, state, tok, device=device, dtype="bfloat16", max_seq=2048,
+            cfg, state, tok, device=device, dtype=dtype, max_seq=2048,
             gen_slots=8, gen_block=8, page_size=16, pool_pages=8 * 2048 // 16 + 1, prefill_chunk=256,
             quantize=quantize,
         )
     del state  # the int8 model must not sit beside a bf16 copy of its projections
-    log(f"{label}: {'Qwen2-MoE' if cfg.decoder.moe_experts else 'VLMConfig()'} (quantize={quantize}, "
+    log(f"{label}: {'Qwen2-MoE' if cfg.decoder.moe_experts else 'VLMConfig()'} ({dtype}, quantize={quantize}, "
         f"spec K={spec_k}) built in {time.perf_counter() - t0:.1f} s, kv {mgr.kv_layout()}")
     if quantize:
         dec = mgr.model.decoder
@@ -1684,6 +1993,11 @@ def drive_serving(
         if again != results[0]["tokens"]:
             raise AssertionError("greedy request repeated gave different tokens")
         log(f"{label}: greedy repeat gives identical tokens")
+        for i in range(sampled):
+            m, p, _ = reqs[i]
+            r = mgr.generate(m, p, max_new_tokens=8, temperature=0.8, do_sample=True)
+            if not 1 <= len(r.tokens) <= 8:
+                raise AssertionError(f"{label}: sampled request {i} gave {len(r.tokens)} tokens")
         stats = eng.kv.stats()
         if stats.pages_live != 0:
             raise AssertionError(f"pages still live after drain: {stats}")
@@ -8407,6 +8721,294 @@ def drive_seq(seed: int, card: str, root: Path, vlm_dir: Path, photos: list, dev
     return out
 
 
+# -- phase 23: dtype float16 on the card, the MoE decoder in float16 and float32
+
+#: the kernels phase 23 must launch in float16 (at some head_dim) and the
+#: dtypes the grouped product must run in
+PHASE23_FP16_KERNELS = ("flash_attention", "flash_attention_cache", "paged_attention", "paged_attention_varq")
+PHASE23_GROUPED_DTYPES = ("float16", "float32")
+#: float16 forwards on the kernels against the same model on the plain
+#: attention: cosine of the logits (as phase 15's MOE_FORWARD_COSINE)
+FP16_FORWARD_COSINE = 0.995
+
+
+def dtype_launches(kernels) -> dict:
+    """Each kernel's launches by element type and head_dim since its counts
+    were zeroed: ``{name: {"float16": {64: n}}}``."""
+    return {k.name: {dt: dict(by) for dt, by in k.dtype_launches.items()} for k in kernels}
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for name, by_dtype in more.items():
+        for dt, by in by_dtype.items():
+            tally = total.setdefault(name, {}).setdefault(dt, {})
+            for inst, n in by.items():
+                tally[inst] = tally.get(inst, 0) + n
+    return total
+
+
+def forward_check(model, cfg, modeling, seed: int, device, dtype, what: str) -> tuple[float, int]:
+    """A VLM's cacheless forward (the models' own entry point) on the
+    kernels against the same model on the plain attention, in ``dtype``:
+    logit cosine over the entries finite on both sides, and the count of
+    entries not finite on either (an overflow of the seeded weights shows
+    there, on both paths alike)."""
+    import torch
+
+    rng = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(3, 1000, (1, 12), generator=rng, device=device)
+    ids[0, 1] = cfg.image_token_id
+    pixels = torch.randn((1, cfg.vision.image_size, cfg.vision.image_size, 3), generator=rng, device=device).to(dtype)
+    with torch.no_grad():
+        got = model(ids, pixels).float()
+        with plain_attention(modeling):
+            ref = model(ids, pixels).float()
+    if got.shape != (1, 12 - 1 + cfg.vision.num_tokens, cfg.decoder.vocab_size):
+        raise AssertionError(f"{what}: the cacheless forward gave {tuple(got.shape)}")
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    if not bool((torch.isfinite(got) == torch.isfinite(ref)).all()):
+        raise AssertionError(f"{what}: the kernels and the plain attention overflow at different logits")
+    cos = float(cosines(got[both].cpu(), ref[both].cpu())) if bool(both.any()) else float("nan")
+    if not cos >= FP16_FORWARD_COSINE:
+        raise AssertionError(f"{what}: cacheless forward on the kernels vs the plain attention: cosine {cos:.6f}")
+    return cos, int((~both).sum())
+
+
+def drive_fp16(seed: int, card: str, root: Path, phase6: dict, device: str = "cuda:0", n_captions: int = 4,
+               n_streams: int = 2, n_photos: int = 16, n_pages: int = 2, tokens: int = 24, moe_cfg=None) -> dict:
+    """Phase 23: ``dtype: float16`` served on the card, and the Qwen2-MoE
+    decoder in float16 and float32. (a) one ``serve()`` of ``vlm`` (phase
+    6's ``VLMConfig()`` directory, 8 slots, the paged engine with
+    ``LUMEN_VLM_SPEC_K=4``), ``clip`` (phase 8's ViT-B/32) and ``ocr``
+    (phase 10 (b)'s native DBNet + SVTR, head_dim 16), every block at
+    ``dtype: float16``: greedy captions on templated prompts and streams
+    with photos, then a sampled caption alone; CLIP pixels as
+    ``tensor/raw``, texts and labels; OCR pages. Captions are held equal to
+    the manager's rerun alone and the VLM's cacheless float16 forward to
+    the plain attention; CLIP embeddings to the manager's towers on the
+    plain attention (``CLIP_COSINE``); OCR boxes to the plain path's. (b)
+    Qwen1.5-MoE-A2.7B's decoder at full width cut to 2 layers (phase 15
+    (b)'s cut) behind the ViT, seeded on the card in float16 and then
+    float32: phase 4's drive on the paged engine (float16 with speculation
+    K=4 and a sampled request after), the cacheless forward on the kernels
+    against the plain attention, and one ``MoEFFN`` layer's device-to-host
+    syncs a call in bf16, float16 and float32 (they must be equal), against
+    its plain per-expert loop. Every attention kernel must launch in
+    float16 and the grouped product in float16 and float32."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lumen_tpu_torch.models.clip import modeling as clip_modeling
+    from lumen_tpu_torch.models.ocr import modeling as ocr_modeling
+    from lumen_tpu_torch.models.vlm import VLMManager
+    from lumen_tpu_torch.models.vlm import modeling as vlm_modeling
+    from lumen_tpu_torch.parallel import moe as M
+    from lumen_tpu_torch.runtime.result_cache import reset_result_cache
+    from lumen_tpu_torch.testing.vlm_standins import qwen15_moe_a27b, seeded_state
+    from lumen_tpu_torch.utils.host_decode import _spec_clip_resize
+    from lumen_tpu_torch.utils.tensorwire import TENSOR_MIME, tensor_payload
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    f16 = torch.float16
+    kernels = all_kernels() + moe_kernels()
+    out: dict = {"launches": {}}
+
+    def zero() -> None:
+        for k in kernels:
+            k.zero_counts()
+
+    # -- (a) the float16 tier -------------------------------------------------
+    reset_result_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    vlm_cfg = vlm_config_of(phase6["model_dir"])
+    settings = {"dtype": "float16", "batch_size": 8}
+    tier = {"vlm": ("SmokeVLM", {**settings, "batch_buckets": [64, 128, 256, 512, 1024]}),
+            "clip": ("SmokeCLIP", {**settings, "batch_size": 64}),
+            "ocr": ("SmokeOCR", {**settings, "batch_buckets": [320, 640, 960]})}
+    photos = phase6["photos"][:n_captions + n_streams + 1]
+    pages = ocr_pages(seed * 100 + 23, n_pages)
+    texts = [f"a photo of {w}" for w in CLIP_WORDS[:4]]
+    templated = json.dumps([{"role": "user", "content": "Caption this photo: a red car on a wet road, a red car on a "
+                                                        "wet road, a red car on a wet road."}])
+    zero()
+    with env(LUMEN_VLM_SPEC_K="4", LUMEN_VLM_SPEC_MIN_RATE="0", LUMEN_GRPC_WORKERS=str(n_photos + 16)):
+        handle, channel, stub, load_s = boot_server(ocr_yaml(root / "fp16.yaml", root / "cache", tier), device)
+    try:
+        vlm = handle.services["vlm"].manager
+        clip = handle.services["clip"].managers["clip"]
+        ocr = handle.services["ocr"].manager
+        got_dtypes = {name: str(m.policy.compute_dtype) for name, m in (("vlm", vlm), ("clip", clip), ("ocr", ocr))}
+        if set(got_dtypes.values()) != {"torch.float16"}:
+            raise AssertionError(f"phase 23 (a): the tier computes in {got_dtypes}, not float16")
+        size = clip.cfg.image_size
+        pixels = [_spec_clip_resize(p, {"size": size}) for p in photo_batch(seed * 100 + 23, n_photos)]
+        ocr_meta = {"det_thresh": 0.3, "box_thresh": 0.3, "rec_thresh": 0.0, "use_angle_cls": "true"}
+
+        def job(i: int) -> dict:
+            if i < n_captions:
+                return grpc_call(stub, "vlm_generate", photos[i], {"messages": templated, "max_new_tokens": tokens})
+            i -= n_captions
+            if i < n_streams:
+                return grpc_call(stub, "vlm_generate_stream", photos[n_captions + i],
+                                 {"messages": templated, "max_new_tokens": tokens})
+            i -= n_streams
+            if i < n_photos:
+                payload, tmeta = tensor_payload(pixels[i])
+                return grpc_call(stub, "clip_image_embed", payload, tmeta, mime=TENSOR_MIME)
+            i -= n_photos
+            if i < len(texts):
+                return grpc_call(stub, "clip_text_embed", texts[i].encode(), {}, mime="text/plain")
+            i -= len(texts)
+            if i < 2:
+                return grpc_call(stub, "clip_classify", phase6["photos"][i], {"top_k": 5})
+            i -= 2
+            return grpc_call(stub, "ocr", pages[i][0], ocr_meta)
+
+        n_jobs = n_captions + n_streams + n_photos + len(texts) + 2 + n_pages
+        eng = vlm.engine
+        turns0 = eng.spec_turns
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=n_jobs) as pool:
+            res = list(pool.map(job, range(n_jobs)))
+        wall = time.perf_counter() - t0
+        sampled = grpc_call(stub, "vlm_generate", photos[-1], {"messages": templated, "max_new_tokens": 8,
+                                                               "temperature": 0.8, "do_sample": "true"})
+        a_launches = dtype_launches(kernels)
+        peak_a = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        bad = [(i, r["code"]) for i, r in enumerate(res + [sampled]) if r["code"]]
+        if bad:
+            raise AssertionError(f"phase 23 (a): requests failed (index, code): {bad}")
+        turns = eng.spec_turns - turns0
+        if not turns:
+            raise AssertionError(f"phase 23 (a): speculation (K = {eng.spec_k}) never verified a window in float16 "
+                                 f"({eng.spec_proposed} proposals, {eng.blocks_run} blocks)")
+        caps, streams = res[:n_captions], res[n_captions:n_captions + n_streams]
+        embeds = res[n_captions + n_streams:n_captions + n_streams + n_photos]
+        pages_out = res[-n_pages:]
+        # captions: each equal to the manager's rerun alone; streams' deltas join to their final
+        from lumen_tpu_torch.models.vlm import ChatMessage
+
+        msgs = [ChatMessage("user", json.loads(templated)[0]["content"])]
+        n_tokens = 0
+        for i, r in enumerate(caps):
+            alone = vlm._generate_uncached(msgs, None, tokens, 0.0, 1.0, False, 1.0, None, True, photos[i])
+            if (alone.text, len(alone.tokens)) != (r["body"]["text"], r["body"]["generated_tokens"]):
+                raise AssertionError(f"phase 23 (a): caption {i} differs from its rerun alone")
+            n_tokens += r["body"]["generated_tokens"]
+        for i, r in enumerate(streams):
+            if b"".join(r["deltas"]).decode() != r["body"]["text"] or not 1 <= r["body"]["generated_tokens"] <= tokens:
+                raise AssertionError(f"phase 23 (a): stream {i}: deltas do not join to its final text")
+            n_tokens += r["body"]["generated_tokens"]
+        vlm_cos, vlm_nonfinite = forward_check(vlm.model, vlm_cfg, vlm_modeling, seed + 231, device, f16,
+                                               "phase 23 (a) VLM float16")
+        # CLIP: the served float16 embeddings against the manager's towers on the plain attention
+        vecs = np.stack([np.asarray(r["body"]["vector"], np.float64) for r in embeds])
+        with plain_attention(clip_modeling):
+            ref = clip._encode_images(clip.model, torch.from_numpy(np.stack(pixels)).to(device)).float().cpu().numpy()
+        norms = np.linalg.norm(vecs, axis=-1)
+        cos_clip = cosines(vecs, ref)
+        if not np.isfinite(vecs).all() or np.abs(norms - 1).max() > 1e-3 or cos_clip.min() < CLIP_COSINE:
+            raise AssertionError(f"phase 23 (a): float16 CLIP embeddings: norms {norms.min():.5f}-{norms.max():.5f}, "
+                                 f"cosine to the plain attention min {cos_clip.min():.6f}")
+        # OCR: boxes equal to the plain path's on the same pages, texts counted
+        reset_result_cache()
+        with plain_attention(ocr_modeling):
+            plain_ocr = [ocr.predict(jpeg, det_threshold=0.3, box_threshold=0.3, rec_threshold=0.0, use_angle_cls=True)
+                         for jpeg, _ in pages]
+        n_items = n_same = 0
+        for r, want in zip(pages_out, plain_ocr):
+            items = r["body"]["items"]
+            if len(items) != len(want) or any(ref_quad_iou(it["box"], w.box) < OCR_IOU for it, w in zip(items, want)):
+                raise AssertionError("phase 23 (a): the float16 OCR boxes differ from the plain path's")
+            n_items += len(items)
+            n_same += sum(it["text"] == w.text for it, w in zip(items, want))
+        if not n_items:
+            raise AssertionError("phase 23 (a): the float16 OCR read no item on any page")
+    finally:
+        channel.close()
+        handle.stop(grace=1.0)
+    reset_result_cache()
+    add_launches(out["launches"], a_launches)
+    log(f"phase 23 (a) [{card}]: float16 tier (vlm + clip + ocr) up in {load_s:.2f} s; {n_captions} captions and "
+        f"{n_streams} streams ({n_tokens} tokens, {turns} verify turns), {n_photos} CLIP pixels, {len(texts)} texts, 2 "
+        f"labels, {n_pages} OCR pages, all at once in {wall:.3f} s, and a sampled caption; captions equal to their "
+        f"reruns alone; VLM cacheless forward cosine {vlm_cos:.6f} to the plain attention ({vlm_nonfinite} logits not "
+        f"finite on both); CLIP cosine min {cos_clip.min():.6f}; OCR {n_items} items, boxes equal to the plain path's, "
+        f"texts equal in {n_same}; peak {peak_a:.3f} GiB; float16 launches {json.dumps(a_launches)}")
+    out.update(a_load_s=load_s, a_tokens=n_tokens, a_turns=turns, a_clip_cos=float(cos_clip.min()), a_vlm_cos=vlm_cos,
+               a_vlm_nonfinite=vlm_nonfinite, a_ocr_items=n_items, a_ocr_same=n_same, a_peak_gib=peak_a)
+
+    # -- (b) the Qwen2-MoE decoder, 2 layers at full width, float16 then float32
+    cfg = moe_cfg or qwen15_moe_a27b(layers=2)
+    dec = cfg.decoder
+    out["moe"] = {}
+    for name in ("float16", "float32"):
+        dt = getattr(torch, name)
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = seeded_state(cfg, seed + 232, device, dt)
+        seed_s = time.perf_counter() - t0
+        zero()
+        gate = ("flash_attention_cache", "paged_attention_varq" if name == "float16" else "paged_attention")
+        drive = drive_serving(seed, card, cfg=cfg, device=device, state=state, dtype=name,
+                              spec_k=4 if name == "float16" else 0, sampled=1 if name == "float16" else 0,
+                              kernels=gate if on_card else (), label=f"phase 23 (b) MoE {name}")
+        model = VLMManager._build_model(cfg, state).eval()
+        del state
+        cos, nonfinite = forward_check(model, cfg, vlm_modeling, seed + 233, device, dt, f"phase 23 (b) MoE {name}")
+        del model
+        b_launches = dtype_launches(kernels)
+        add_launches(out["launches"], b_launches)
+        grouped = b_launches["grouped_mm"].get(name, {}).get(None, 0)
+        if on_card and not grouped:
+            raise AssertionError(f"phase 23 (b): the MoE decoder in {name} never launched the grouped product")
+        out["moe"][name] = dict(tok_s=drive["tok_s"], tokens=drive["tokens"], peak_gib=drive["peak_gib"],
+                                forward_cos=cos, nonfinite=nonfinite, grouped_launches=grouped, seed_s=seed_s)
+        log(f"phase 23 (b) [{card}]: MoE decoder ({dec.layers} layers, full width) in {name}: {drive['tokens']} "
+            f"tokens, {drive['tok_s']:.1f} tok/s, peak {drive['peak_gib']:.3f} GiB; cacheless forward cosine {cos:.6f} "
+            f"to the plain attention ({nonfinite} logits not finite on both); grouped product launches {grouped}; "
+            f"launches {json.dumps(b_launches)}")
+
+    # one MoEFFN layer at full width, 8 tokens: syncs a call in each type
+    syncs, errs = {}, {}
+    for name in ("bfloat16", "float16", "float32"):
+        dt = getattr(torch, name)
+        with torch.device("meta"):
+            layer = vlm_modeling.MoEFFN(dec)
+        layer = vlm_modeling.init_random_(layer.to(dt).to_empty(device=device), seed + 234)
+        x = torch.randn((1, 8, dec.hidden_size), generator=torch.Generator(device=device).manual_seed(seed + 235),
+                        device=device).to(dt)
+        params = M.MoEParams(layer.router, layer.w_gate, layer.w_up, layer.w_down)
+        with torch.no_grad():
+            routed = M._moe_exact_local(params, x.reshape(-1, dec.hidden_size), n_experts=dec.moe_experts,
+                                        k=dec.moe_top_k, norm_topk=dec.moe_norm_topk, mm=M.grouped_mm_reference)
+            plain = routed.reshape(x.shape) + torch.sigmoid(layer.shared_gate(x)) * layer.shared(x)
+            errs[name] = max_err(layer(x), plain)
+            if on_card:
+                syncs[name] = count_syncs(lambda: layer(x))
+        del layer
+    if on_card and len(set(syncs.values())) != 1:
+        raise AssertionError(f"phase 23 (b): MoEFFN device-to-host syncs a call differ by dtype: {syncs}")
+    out.update(moe_syncs=syncs, moe_layer_err=errs)
+    log(f"phase 23 (b) [{card}]: one MoEFFN layer (8 tokens, full width) within tolerance of its plain per-expert loop "
+        f"({json.dumps({k: f'{v:.3e}' for k, v in errs.items()})}); device-to-host syncs a call {json.dumps(syncs)}")
+
+    if on_card:
+        missing = [k for k in PHASE23_FP16_KERNELS if not sum(out["launches"].get(k, {}).get("float16", {}).values())]
+        missing += [f"grouped_mm {dt}" for dt in PHASE23_GROUPED_DTYPES
+                    if not sum(out["launches"].get("grouped_mm", {}).get(dt, {}).values())]
+        if missing:
+            raise AssertionError(f"phase 23: never launched {missing} ({json.dumps(out['launches'])})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def vlm_config_of(model_dir):
     """The ``VLMConfig`` a model directory's ``config.json`` describes."""
     from lumen_tpu_torch.models.vlm import VLMConfig
@@ -8437,8 +9039,8 @@ def count_syncs(fn) -> int:
 
 #: the phases whose results each phase reads (``--phases`` runs them too)
 PHASE_NEEDS = {7: (6,), 8: (6,), 9: (8,), 10: (6, 8, 9), 11: (8, 9, 10), 12: (6, 8), 13: (6,), 14: (6, 9, 10, 12),
-               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9), 21: (6, 8, 9, 12), 22: (6, 8)}
-ALL_PHASES = frozenset(range(1, 23))
+               17: (6, 8), 19: (2, 8, 9), 20: (6, 8, 9), 21: (6, 8, 9, 12), 22: (6, 8), 23: (6, 8, 10)}
+ALL_PHASES = frozenset(range(1, 24))
 
 
 def phase_set(spec: "str | None") -> frozenset:
@@ -8458,7 +9060,7 @@ def phase_set(spec: "str | None") -> frozenset:
 
 #: the lanes beside the main one: the main-lane phase after which each
 #: starts, and its phases in order (see the module's docstring)
-BESIDE_LANES = ((8, (12, 14, 21)), (15, (16, 22)))
+BESIDE_LANES = ((8, (12, 14, 21, 23)), (15, (16, 22)))
 BESIDE_PHASES = frozenset(p for _, phases in BESIDE_LANES for p in phases)
 
 
@@ -8598,7 +9200,20 @@ def run_phase22(seed: int, card: str, root: Path, given: dict) -> dict:
     return seq
 
 
-BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16, 21: run_phase21, 22: run_phase22}
+def run_phase23(seed: int, card: str, root: Path, given: dict) -> dict:
+    fp16 = drive_fp16(seed, card, root, given[6])
+    moe = fp16["moe"]
+    log(f"phase 23 [{card}]: {fp16['phase_s']:.1f} s in all; (a) the float16 tier up in {fp16['a_load_s']:.2f} s, "
+        f"{fp16['a_tokens']} caption tokens ({fp16['a_turns']} verify turns), CLIP cosine min {fp16['a_clip_cos']:.6f}, "
+        f"VLM forward cosine {fp16['a_vlm_cos']:.6f}, OCR {fp16['a_ocr_items']} items, peak {fp16['a_peak_gib']:.3f} GiB; "
+        f"(b) the 2-layer MoE decoder: float16 {moe['float16']['tok_s']:.1f} tok/s (peak {moe['float16']['peak_gib']:.3f} "
+        f"GiB), float32 {moe['float32']['tok_s']:.1f} tok/s (peak {moe['float32']['peak_gib']:.3f} GiB), syncs a MoE "
+        f"layer call {json.dumps(fp16['moe_syncs'])}; launches by type and head_dim {json.dumps(fp16['launches'])}")
+    return fp16
+
+
+BESIDE_RUNNERS = {12: run_phase12, 14: run_phase14, 16: run_phase16, 21: run_phase21, 22: run_phase22,
+                  23: run_phase23}
 
 
 def die_with_parent(parent: int) -> None:
@@ -8725,26 +9340,30 @@ def main() -> int:
                 lane["proc"].stop()
 
     t0 = time.perf_counter()
-    logs = build_all(kernels)
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    logs = build_all(kernels + moe_kernels())
+    build_s = time.perf_counter() - t0
+    log(f"kernels built in {build_s:.1f} s ({len(logs)} libraries, one nvcc a source, all started together)")
     for r in ptxas_report(logs):
         log(f"  ptxas {r['lib']}: {r['func']}: {r['registers']} registers, {r['smem']} B smem, "
             f"{r['spill_stores']} / {r['spill_loads']} B spill stores / loads")
-        if ("bf16" in r["func"] or r["func"].startswith("paged_walk")) and r["spill_stores"] + r["spill_loads"]:
-            raise AssertionError(f"{r['func']} spills: the bf16 flash kernels and the paged walk must stay in registers")
+        if ("_mma_kernel" in r["func"] or r["func"].startswith("paged_walk")) and r["spill_stores"] + r["spill_loads"]:
+            raise AssertionError(f"{r['func']} spills: the 2-byte flash kernels and the paged walk must stay in "
+                                 "registers")
     hmma = hmma_counts([k for k in kernels if k.name != "w8a16_matmul"])
     log("sass (cuobjdump -sass), HMMA instructions: "
         + ", ".join(f"{func} {n}" for func, n in sorted(hmma.items())))
     # flash's short and long paths at head_dim 64, 16 and 128, the cache
-    # kernel at 64 and 128
-    bf16_funcs = {f for f in hmma if "bf16" in f}
-    want = {f"flash_{path}_bf16_kernel<{d}>" for path in ("short", "long") for d in (16, 64, 128)}
-    want |= {f"flash_attention_cache_bf16_kernel<{d}>" for d in (64, 128)}
-    if bf16_funcs != want or any(hmma[f] == 0 for f in bf16_funcs):
-        raise AssertionError(f"the bf16 flash kernels must run on the tensor cores: HMMA {hmma}")
+    # kernel at 64 and 128, each in bf16 and fp16
+    types = ("__nv_bfloat16", "__half")
+    mma_funcs = {f for f in hmma if f.startswith("flash_") and "_mma_kernel" in f}
+    want = {f"flash_{path}_mma_kernel<{t}, {d}>" for path in ("short", "long") for t in types for d in (16, 64, 128)}
+    want |= {f"flash_attention_cache_mma_kernel<{t}, {d}>" for t in types for d in (64, 128)}
+    if mma_funcs != want or any(hmma[f] == 0 for f in mma_funcs):
+        raise AssertionError(f"the bf16 and fp16 flash kernels must run on the tensor cores: HMMA {hmma}")
     paged_mma = {f for f in hmma if f.startswith("paged_walk_mma_kernel")}
-    if paged_mma != {f"paged_walk_mma_kernel<{d}>" for d in (64, 128)} or any(hmma[f] == 0 for f in paged_mma):
-        raise AssertionError(f"the paged walk's bf16 GQA path must run on the tensor cores: HMMA {hmma}")
+    if paged_mma != {f"paged_walk_mma_kernel<{t}, {d}>" for t in types for d in (64, 128)} or any(
+            hmma[f] == 0 for f in paged_mma):
+        raise AssertionError(f"the paged walk's bf16 and fp16 GQA path must run on the tensor cores: HMMA {hmma}")
     lap(1)
 
     if 2 in run:
@@ -8753,6 +9372,8 @@ def main() -> int:
         rows["w8a16_matmul"] = check_w8a16(args.seed)
         rows.update(check_hd128(args.seed))
         rows["w8a16_matmul [Qwen1.5-MoE]"] = check_w8a16(args.seed + 15, MOE_Q8_SHAPES, "shared gate/up_proj")
+        rows.update(check_fp16(args.seed))
+        rows.update(check_grouped_mm(args.seed))
         lap(2)
     if 3 in run:
         check_reference(args.seed)
@@ -8915,7 +9536,8 @@ def main() -> int:
                     f"a rank {json.dumps(ep[part]['launches'])}, by head_dim {json.dumps(ep[part]['instances'])}")
             lap(18)
         beside = join_lanes()
-        options, control, graph, seq = beside.get(12), beside.get(14), beside.get(21), beside.get(22)
+        options, control, graph, seq, fp16 = (beside.get(12), beside.get(14), beside.get(21), beside.get(22),
+                                              beside.get(23))
         if 19 in run:
             torch.cuda.empty_cache()
             data = drive_data(args.seed, card, Path(tmp))
@@ -9058,8 +9680,38 @@ def main() -> int:
         launches=moe["int8"]["launches"]["w8a16_matmul"], max_abs_err=row["max_abs_err"], ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
     ))
+    # The float16 instances, with phase 23's launches by head_dim (the
+    # float16 tier and the MoE decoder), and the grouped product in float16
+    # and float32 (phase 23 (b)'s MoE decoder).
+    def fp16_count(name: str, dt: str, inst) -> int:  # (the lane's result came through JSON: string keys)
+        return fp16["launches"].get(name, {}).get(dt, {}).get(json.dumps(inst), 0)
+
+    first = len(table)
+    for name in PHASE23_FP16_KERNELS:
+        for d in (16, 64, 128) if name == "flash_attention" else (64, 128):
+            label = f"{name} [float16, head_dim {d}]"
+            row = rows[label]
+            source, replaces = SOURCES[name]
+            table.append(dict(
+                name=label, route="cuda", source=source, replaces=replaces, launches=fp16_count(name, "float16", d),
+                max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+            ))
+    for dt in PHASE23_GROUPED_DTYPES:
+        row = rows[f"grouped_mm [{dt}]"]
+        source, replaces = SOURCES["grouped_mm"]
+        table.append(dict(
+            name=f"grouped_mm [{dt}]", route="cuda", source=source, replaces=replaces,
+            launches=fp16_count("grouped_mm", dt, None), max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    for entry in table[first:]:
+        lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
+        log(f"kernel row {entry['name']} {rows[entry['name']]['shape']}: {entry['ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}), plain {entry['plain_ms']:.4f} ms, library {lib}, "
+            f"phase-23 launches {entry['launches']} [{card}]")
     for name, row in rows.items():
-        if "128" in name or "Qwen1.5-MoE" in name:
+        if ("128" in name or "Qwen1.5-MoE" in name) and "float16" not in name:
             log(f"kernel row {name} {row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
                 f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
                 + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms") + f" [{card}]")

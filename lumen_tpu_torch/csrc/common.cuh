@@ -1,12 +1,13 @@
 // Shared pieces of the port's hand-written Hopper kernels: element
-// conversion between the storage type (bf16 or fp32) and the fp32 the
-// kernels accumulate in, the finite "minus infinity" the JAX reference
+// conversion between the storage type (bf16, fp16 or fp32) and the fp32
+// the kernels accumulate in, the finite "minus infinity" the JAX reference
 // masks with, warp reductions, and the tensor-core building blocks
-// (mma.sync m16n8k16 bf16, ldmatrix, cp.async) of the bf16 flash tile and
-// w8a16_matmul.
+// (mma.sync m16n8k16 for either 2-byte type, ldmatrix, cp.async) of the
+// flash tiles, the paged walk and w8a16_matmul.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,6 +21,7 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -28,6 +30,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Eight consecutive elements as fp32 through 16-byte loads (the caller
@@ -39,6 +45,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const __half* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
@@ -64,6 +80,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dtype codes shared with the Python wrappers (ops/attention.py).
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
 
 // -- tensor cores -------------------------------------------------------------
 // Fragment coordinates of mma.sync m16n8k16 for lane l: gid = l / 4 (row
@@ -72,15 +89,45 @@ constexpr int kBFloat16 = 1;
 // (gid+8, 2tig+8..); B: b0 (k 2tig..+1, n gid), b1 (k 2tig+8..+9, n gid);
 // C: c0/c1 (gid, 2tig..+1), c2/c3 (gid+8, 2tig..+1).
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two fp32 values rounded (to nearest even) into a pair of the 2-byte
+// type T, lo in the low half: an mma A/B register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
-// c += a @ b, bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+// A pair of 1.0 in the 2-byte type T (an mma B register of ones).
+template <typename T>
+__host__ __device__ constexpr uint32_t ones2();
+template <>
+__host__ __device__ constexpr uint32_t ones2<__nv_bfloat16>() { return 0x3F803F80u; }
+template <>
+__host__ __device__ constexpr uint32_t ones2<__half>() { return 0x3C003C00u; }
+
+// c += a @ b, operands of the 2-byte type T (bf16 or fp16), fp32
+// accumulator. The two forms share the fragment layout below.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b);
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+template <>
+__device__ __forceinline__ void mma_16816<__half>(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -90,7 +137,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// Four 8x8 matrices of a 2-byte type from shared memory: lanes 8i..8i+7 give the row
 // addresses (16 bytes each) of matrix i, which lands in r[i] with the
 // thread holding (row gid, columns 2tig..+1).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {

@@ -13,10 +13,11 @@
 // one-step TPU grid off short sequences; it has no counterpart here --
 // every call on a CUDA tensor launches this kernel.
 //
-// bf16 runs flash_plan_bf16.cuh (the design, and what bounds each
-// regime), fp32 the FMA tile (flash_tile_fp32.cuh), used only by small
-// fp32 models. launch_flash picks a bf16 call's plan from (sq, sk,
-// head_dim, causal) alone -- the short path (sk <= 128: whole sequences a
+// bf16 and fp16 run flash_plan_bf16.cuh (the design, and what bounds each
+// regime; one template over the 2-byte type, the same plan for both),
+// fp32 the FMA tile (flash_tile_fp32.cuh), used only by small fp32
+// models. launch_flash picks a 2-byte call's plan from (sq, sk, head_dim,
+// causal) alone -- the short path (sk <= 128: whole sequences a
 // block, K/V once in shared memory) or the long path (a cp.async ring of
 // key tiles, a block shape by head_dim) -- and lumen_flash_plan reports
 // it. One call is one launch.
@@ -56,36 +57,45 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 namespace lumen {
 
+// A 2-byte call (T = __nv_bfloat16 or __half) under its plan.
+template <typename T, int D>
+int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int batch_heads, int sq, int sk,
+                     int causal, float scale, cudaStream_t s) {
+  const FlashPlan p = flash_plan<D>(sq, sk, causal != 0);
+  const dim3 grid(batch_heads, p.row_blocks);
+  auto kernel = p.path == kFlashShort ? flash_short_mma_kernel<T, D> : flash_long_mma_kernel<T, D>;
+  // past the 48 KB default on the long path at D = 64 and 128: opt in
+  const cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<grid, p.threads, p.smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), static_cast<T*>(o), sq, sk, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int batch_heads, int sq, int sk,
                  int dtype, int causal, float scale, cudaStream_t s) {
-  if (dtype == kBFloat16) {
-    const FlashPlan p = flash_plan<D>(sq, sk, causal != 0);
-    const dim3 grid(batch_heads, p.row_blocks);
-    auto kernel = p.path == kFlashShort ? flash_short_bf16_kernel<D> : flash_long_bf16_kernel<D>;
-    // past the 48 KB default on the long path at D = 64 and 128: opt in
-    const cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    kernel<<<grid, p.threads, p.smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, causal, scale);
-  } else if (dtype == kFloat32) {
+  if (dtype == kBFloat16)
+    return launch_flash_mma<__nv_bfloat16, D>(q, k, v, o, batch_heads, sq, sk, causal, scale, s);
+  if (dtype == kFloat16)
+    return launch_flash_mma<__half, D>(q, k, v, o, batch_heads, sq, sk, causal, scale, s);
+  if (dtype == kFloat32) {
     const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch_heads);
     flash_attention_fp32_kernel<D><<<grid, kFlashThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), sq, sk, causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One field of a bf16 call's plan (FLASH_PLAN_FIELDS in ops/attention.py):
+// One field of a 2-byte call's plan (FLASH_PLAN_FIELDS in ops/attention.py):
 // 0 path (0 short, 1 long), 1 rows a block, 2 key split, 3 ring slots, 4
 // threads, 5 dynamic shared memory, 6 row blocks a (b, h), 7 heaviest
 // first, 8 keys a warp's online-softmax step takes (a ring slot on the
 // long path), 9 blocks resident on an SM of the current device (the
-// occupancy calculator: registers, shared memory and threads together).
+// occupancy calculator: registers, shared memory and threads together;
+// the bf16 instance's -- the fp16 one runs the same plan).
 template <int D>
 int flash_plan_field(int sq, int sk, int causal, int field) {
   const FlashPlan p = flash_plan<D>(sq, sk, causal != 0);
@@ -100,7 +110,8 @@ int flash_plan_field(int sq, int sk, int causal, int field) {
     case 7: return p.reverse;
     case 8: return p.path == kFlashShort ? kFlashShortChunk : FlashLong<D>::kKeys;
     case 9: {
-      auto kernel = p.path == kFlashShort ? flash_short_bf16_kernel<D> : flash_long_bf16_kernel<D>;
+      auto kernel = p.path == kFlashShort ? flash_short_mma_kernel<__nv_bfloat16, D>
+                                          : flash_long_mma_kernel<__nv_bfloat16, D>;
       if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem) != cudaSuccess)
         return -1;
       int blocks = 0;
@@ -129,7 +140,8 @@ extern "C" int lumen_flash_attention(const void* q, const void* k, const void* v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The plan lumen_flash_attention launches for a bf16 call of this shape:
+// The plan lumen_flash_attention launches for a bf16 or fp16 call of this
+// shape (one plan for both):
 // one field (flash_plan_field), or -1 for a head_dim or field it has none
 // of.
 extern "C" int lumen_flash_plan(int sq, int sk, int head_dim, int causal, int field) {

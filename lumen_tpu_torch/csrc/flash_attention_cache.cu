@@ -13,8 +13,9 @@
 // block_live skip). The JAX dispatch's min_flash_q / min-seq gates have
 // no counterpart: every multi-token call on a CUDA tensor runs this.
 //
-// bf16 runs the tensor-core tile (flash_tile_bf16.cuh: design, and what
-// bounds it), fp32 the FMA tile (flash_tile_fp32.cuh). On the serving
+// bf16 and fp16 run the tensor-core tile (flash_tile_bf16.cuh: design,
+// and what bounds it; one template over the 2-byte type), fp32 the FMA
+// tile (flash_tile_fp32.cuh). On the serving
 // path a caption prompt's two chunks are q [1, 14, 256, 64] (q_off 0,
 // 256 live keys) and q [1, 14, 63, 64] (q_off 256, 265 live) against the
 // 832-slot scratch; the bound of the first is 0.00055 ms of bytes (q, o
@@ -31,20 +32,17 @@ namespace lumen {
 
 // One block a launch is all the tile needs of an SM (minimum 1): ptxas
 // then has no reason to squeeze registers for a second block.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kFlashMmaThreads, 1)
-    flash_attention_cache_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                      const __nv_bfloat16* __restrict__ k,
-                                      const __nv_bfloat16* __restrict__ v,
-                                      const int* __restrict__ q_offsets,
-                                      const int* __restrict__ kv_valid,
-                                      __nv_bfloat16* __restrict__ o, int heads, int sq, int sk,
-                                      float scale) {
+    flash_attention_cache_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                     const T* __restrict__ v, const int* __restrict__ q_offsets,
+                                     const int* __restrict__ kv_valid, T* __restrict__ o, int heads,
+                                     int sq, int sk, float scale) {
   const size_t bh = blockIdx.y;
   const int b = static_cast<int>(bh / heads);
   const int q0 = blockIdx.x * kFlashMmaRows;
-  flash_tile_bf16<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
-                     q0, q_offsets[b], kv_valid[b], true, scale);
+  flash_tile_mma<T, D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, o + bh * sq * D, sq, sk,
+                       q0, q_offsets[b], kv_valid[b], true, scale);
 }
 
 template <int D>
@@ -65,29 +63,39 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 namespace lumen {
 
+// A 2-byte call (T = __nv_bfloat16 or __half): one block shape for both.
+template <typename T, int D>
+int launch_flash_cache_mma(const void* q, const void* k, const void* v, const int* q_offsets,
+                           const int* kv_valid, void* o, int batch, int heads, int sq, int sk, float scale,
+                           cudaStream_t s) {
+  constexpr int smem = flash_mma_smem_bytes<D>();  // past the 48 KB default: opt in
+  const cudaError_t rc = cudaFuncSetAttribute(flash_attention_cache_mma_kernel<T, D>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((sq + kFlashMmaRows - 1) / kFlashMmaRows, batch * heads);
+  flash_attention_cache_mma_kernel<T, D><<<grid, kFlashMmaThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_offsets, kv_valid,
+      static_cast<T*>(o), heads, sq, sk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_flash_cache(const void* q, const void* k, const void* v, const int* q_offsets,
                        const int* kv_valid, void* o, int batch, int heads, int sq, int sk, int dtype,
                        float scale, cudaStream_t s) {
-  if (dtype == kBFloat16) {
-    constexpr int smem = flash_bf16_smem_bytes<D>();  // past the 48 KB default: opt in
-    const cudaError_t rc = cudaFuncSetAttribute(flash_attention_cache_bf16_kernel<D>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    const dim3 grid((sq + kFlashMmaRows - 1) / kFlashMmaRows, batch * heads);
-    flash_attention_cache_bf16_kernel<D><<<grid, kFlashMmaThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), q_offsets, kv_valid,
-        static_cast<__nv_bfloat16*>(o), heads, sq, sk, scale);
-  } else if (dtype == kFloat32) {
+  if (dtype == kBFloat16)
+    return launch_flash_cache_mma<__nv_bfloat16, D>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk,
+                                                    scale, s);
+  if (dtype == kFloat16)
+    return launch_flash_cache_mma<__half, D>(q, k, v, q_offsets, kv_valid, o, batch, heads, sq, sk, scale, s);
+  if (dtype == kFloat32) {
     const dim3 grid((sq + kFlashBQ - 1) / kFlashBQ, batch * heads);
     flash_attention_cache_fp32_kernel<D><<<grid, kFlashThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         q_offsets, kv_valid, static_cast<float*>(o), heads, sq, sk, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace lumen

@@ -1,7 +1,10 @@
-// The bf16 kernels of flash_attention on the tensor cores (mma.sync
-// m16n8k16), with a launch plan chosen for each call from (sq, sk,
-// head_dim, causal). A fork of flash_tile_bf16.cuh, which
-// flash_attention_cache keeps unchanged.
+// The 2-byte kernels of flash_attention (bf16 and fp16) on the tensor
+// cores (mma.sync m16n8k16), with a launch plan chosen for each call from
+// (sq, sk, head_dim, causal). A fork of flash_tile_bf16.cuh, which
+// flash_attention_cache keeps unchanged. The element type T
+// (__nv_bfloat16 or __half) changes only the mma form, the two roundings
+// (P and the output) and the ones the row sums multiply: the plan is a
+// function of the shape and of the 2-byte row alone, the same for both.
 //
 // Replaces the body of the Pallas kernel _flash_kernel
 // (lumen_tpu/ops/attention.py:97). The Pallas grid's sequential key axis,
@@ -11,7 +14,7 @@
 //
 // A warp owns 16 query rows (a row group): their Q rows staged in shared
 // memory (A fragments by ldmatrix, a k-step at a time), S = Q K^T in fp32
-// C fragments, P rounded to bf16 straight into the A fragments of P V, O
+// C fragments, P rounded to T straight into the A fragments of P V, O
 // and the row sums in fp32 registers. The plan (FlashPlan) decides where K
 // and V come from and how many rows and warps a block holds; it never
 // depends on batch * heads, so a row's bits do not either.
@@ -20,7 +23,7 @@
 //   causal, 768 or 512 (b, h) in a bulk batch). A block takes whole
 //   sequences of one (b, h), up to 5 row groups, with K/V loaded once
 //   into shared memory (27,648 B at 50 keys, 34,560 B at 77: rows padded
-//   to D + 8 bf16, zero past the keys in use); no ring, no key split,
+//   to D + 8 elements, zero past the keys in use); no ring, no key split,
 //   32-key softmax steps. Bound: the bytes (q, k, v, o once, ~0.006 ms).
 //   What limits it is blocks in flight, so ptxas must fit 4 blocks of 5
 //   warps an SM (96 registers a thread): 5 resident at 50 keys, 4 at 77.
@@ -110,7 +113,7 @@ __host__ __device__ inline int flash_round16(int x) { return (x + 15) / 16 * 16;
 // heads). Mirrored by lumen_tpu_torch/ops/attention.py:flash_plan.
 template <int D>
 FlashPlan flash_plan(int sq, int sk, bool causal) {
-  constexpr int S = D + 8;  // padded row, bf16
+  constexpr int S = D + 8;  // padded row, 2-byte elements
   FlashPlan p;
   if (sk <= kFlashShortKeys) {
     p.path = kFlashShort;
@@ -143,10 +146,9 @@ __device__ __forceinline__ float flash_exp2_sfu(float x) {
 // and mma chains; the other instance branches around each tile past
 // ncomp. l is the row sums as an mma C fragment (c0 = c1: row gid, c2 =
 // c3: row gid + 8): P V's k16 steps also multiply P by a column of ones,
-// so the tensor cores sum the bf16 P that the output is made of.
-template <int D, int NT, bool FULL>
-__device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
-                                                  const __nv_bfloat16* tK, const __nv_bfloat16* tV,
+// so the tensor cores sum the rounded P that the output is made of.
+template <typename T, int D, int NT, bool FULL>
+__device__ __forceinline__ void flash_chunk_tiles(const T* tQ, const T* tK, const T* tV,
                                                   int kb, int ncomp_rt, int sk, bool causal, int diag0,
                                                   float sl2, float (&m)[2], float (&l)[4],
                                                   float (&acc)[D / 8][4], int lane) {
@@ -165,7 +167,7 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
   // Q's A fragments come from the warp's 16 staged rows a k-step at a
   // time (ldmatrix), so they hold no registers between steps.
-  const __nv_bfloat16* qrow = tQ + (lane & 15) * S + (lane >> 4) * 8;
+  const T* qrow = tQ + (lane & 15) * S + (lane >> 4) * 8;
   if constexpr (KS % 2 == 0) {
     // k-steps outside, at most 4 score tiles inside: independent
     // accumulator chains between two mma steps of one tile.
@@ -183,10 +185,10 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
           if (n < ncomp) ldmatrix_x4(b[n - h], tK + (n * 8 + (lane & 7)) * S + kk * 16 + (lane >> 3) * 8);
 #pragma unroll
         for (int n = h; n < h + G; ++n)
-          if (n < ncomp) mma_bf16_16816(s[n], a[0], b[n - h]);
+          if (n < ncomp) mma_16816<T>(s[n], a[0], b[n - h]);
 #pragma unroll
         for (int n = h; n < h + G; ++n)
-          if (n < ncomp) mma_bf16_16816(s[n], a[1], b[n - h] + 2);
+          if (n < ncomp) mma_16816<T>(s[n], a[1], b[n - h] + 2);
       }
     }
   } else {
@@ -197,8 +199,8 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
       if (n < ncomp) {
         uint32_t b[4];  // b[0..1]: score tile n, b[2..3]: n + 1 (the one k-step)
         ldmatrix_x4(b, tK + ((n + (lane >> 4)) * 8 + (lane & 7)) * S + ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[n], a, b);
-        mma_bf16_16816(s[n + 1], a, b + 2);
+        mma_16816<T>(s[n], a, b);
+        mma_16816<T>(s[n + 1], a, b + 2);
       }
     }
   }
@@ -251,7 +253,7 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
       for (int e = 0; e < 4; ++e) s[n][e] -= m[e >> 1];
   }
 
-  // P = exp2(x), unnormalised, rounded to bf16 straight into the A
+  // P = exp2(x), unnormalised, rounded to T straight into the A
   // fragments of P V: score tiles 2kk and 2kk + 1 make k-step kk (a tile
   // not computed beside a computed one is 0).
   uint32_t pf[NT / 2][4];
@@ -262,8 +264,8 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         p[e] = flash_exp2_sfu(s[n][e]);
-      pf[n / 2][(n % 2) * 2] = pack_bf16(p[0], p[1]);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      pf[n / 2][(n % 2) * 2] = pack2<T>(p[0], p[1]);
+      pf[n / 2][(n % 2) * 2 + 1] = pack2<T>(p[2], p[3]);
     } else {
       pf[n / 2][(n % 2) * 2] = 0u;
       pf[n / 2][(n % 2) * 2 + 1] = 0u;
@@ -280,18 +282,18 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
   l[1] *= alpha[0];
   l[2] *= alpha[1];
   l[3] *= alpha[1];
-  const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};  // bf16 1.0 pairs
+  const uint32_t ones[2] = {ones2<T>(), ones2<T>()};  // 1.0 pairs of T
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     if (2 * kk < ncomp) {
-      mma_bf16_16816(l, pf[kk], ones);
+      mma_16816<T>(l, pf[kk], ones);
 #pragma unroll
       for (int j = 0; j < DT; j += 2) {
         uint32_t b[4];  // b[0..1]: output tile j, b[2..3]: j + 1
         ldmatrix_x4_trans(b, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + j * 8 +
                                  (lane >> 4) * 8);
-        mma_bf16_16816(acc[j], pf[kk], b);
-        mma_bf16_16816(acc[j + 1], pf[kk], b + 2);
+        mma_16816<T>(acc[j], pf[kk], b);
+        mma_16816<T>(acc[j + 1], pf[kk], b + 2);
       }
     }
   }
@@ -302,26 +304,25 @@ __device__ __forceinline__ void flash_chunk_tiles(const __nv_bfloat16* tQ,
 // it are masked for every row of the warp (min of sk and the warp's
 // causal diagonal), so score tiles past it are not computed; diag0 =
 // q_off + the warp's first row. m is in scaled (log2) units.
-template <int D, int NT>
-__device__ __forceinline__ void flash_chunk(const __nv_bfloat16* tQ,
-                                            const __nv_bfloat16* tK, const __nv_bfloat16* tV,
+template <typename T, int D, int NT>
+__device__ __forceinline__ void flash_chunk(const T* tQ, const T* tK, const T* tV,
                                             int kb, int kend_w, int sk, bool causal, int diag0,
                                             float sl2, float (&m)[2], float (&l)[4],
                                             float (&acc)[D / 8][4], int lane) {
   int ncomp = min(NT, (kend_w - kb + 7) / 8);  // score tiles computed
   if ((D / 16) % 2) ncomp = (ncomp + 1) & ~1;   // D = 16: in pairs (one ldmatrix.x4)
   if (ncomp == NT)
-    flash_chunk_tiles<D, NT, true>(tQ, tK, tV, kb, ncomp, sk, causal, diag0, sl2, m, l, acc, lane);
+    flash_chunk_tiles<T, D, NT, true>(tQ, tK, tV, kb, ncomp, sk, causal, diag0, sl2, m, l, acc, lane);
   else
-    flash_chunk_tiles<D, NT, false>(tQ, tK, tV, kb, ncomp, sk, causal, diag0, sl2, m, l, acc, lane);
+    flash_chunk_tiles<T, D, NT, false>(tQ, tK, tV, kb, ncomp, sk, causal, diag0, sl2, m, l, acc, lane);
 }
 
-// Epilogue of a warp: one division by max(l, 1e-20) and one bf16 rounding
+// Epilogue of a warp: one division by max(l, 1e-20) and one rounding to T
 // a value, then 16-byte stores through the warp's own 16 staged rows so
 // (its Q, read by no other warp; every part of a key split has merged by
 // now), rows w0 .. w0 + 15 of o that lie below sq.
-template <int D>
-__device__ __forceinline__ void flash_store(__nv_bfloat16* so, __nv_bfloat16* __restrict__ o, int w0,
+template <typename T, int D>
+__device__ __forceinline__ void flash_store(T* so, T* __restrict__ o, int w0,
                                             int sq, const float (&l)[4], const float (&acc)[D / 8][4],
                                             int lane) {
   constexpr int S = D + 8, CH = D / 8, DT = D / 8;
@@ -331,8 +332,8 @@ __device__ __forceinline__ void flash_store(__nv_bfloat16* so, __nv_bfloat16* __
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * tig;
-    *reinterpret_cast<uint32_t*>(so + gid * S + col) = pack_bf16(acc[j][0] / l0, acc[j][1] / l0);
-    *reinterpret_cast<uint32_t*>(so + (gid + 8) * S + col) = pack_bf16(acc[j][2] / l1, acc[j][3] / l1);
+    *reinterpret_cast<uint32_t*>(so + gid * S + col) = pack2<T>(acc[j][0] / l0, acc[j][1] / l0);
+    *reinterpret_cast<uint32_t*>(so + (gid + 8) * S + col) = pack2<T>(acc[j][2] / l1, acc[j][3] / l1);
   }
   __syncwarp();
   for (int c = lane; c < 16 * CH; c += 32) {
@@ -345,18 +346,18 @@ __device__ __forceinline__ void flash_store(__nv_bfloat16* so, __nv_bfloat16* __
 // Short path: one block = up to kFlashShortGroups row groups of one (b,
 // h), rows q0 .. q0 + rows - 1 (rows = blockDim.x / 2), against all of
 // its keys held in shared memory. Dynamic shared memory: (2 *
-// round16(sk) + rows) * (D + 8) bf16 (FlashPlan::smem).
-template <int D>
+// round16(sk) + rows) * (D + 8) 2-byte elements (FlashPlan::smem).
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * kFlashShortGroups, D == 128 ? 1 : kFlashShortMinBlocks)
-    flash_short_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            int sq, int sk, int causal, float scale) {
+    flash_short_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                           T* __restrict__ o, int sq, int sk, int causal, float scale) {
+  static_assert(sizeof(T) == 2, "a 2-byte element type");
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, at most 128");
   static_assert(D % 32 == 0 || D == 16, "an odd count of k16 steps is taken at D = 16 only");
   constexpr int S = D + 8, CH = D / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char flash_smem[];
   const int kv_rows = flash_round16(sk);
-  auto sK = reinterpret_cast<__nv_bfloat16(*)[S]>(flash_smem);  // [kv_rows][S]
+  auto sK = reinterpret_cast<T(*)[S]>(flash_smem);  // [kv_rows][S]
   auto sV = sK + kv_rows;
   auto sQO = sV + kv_rows;  // [rows][S]: Q, then the output
 
@@ -402,20 +403,20 @@ __global__ void __launch_bounds__(32 * kFlashShortGroups, D == 128 ? 1 : kFlashS
   for (int j = 0; j < DT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  __nv_bfloat16* so = &sQO[warp * 16][0];  // the warp's own rows
+  T* so = &sQO[warp * 16][0];  // the warp's own rows
   for (int kb = 0; kb < kend_w; kb += kFlashShortChunk)
-    flash_chunk<D, kFlashShortChunk / 8>(so, &sK[kb][0], &sV[kb][0], kb, kend_w, sk, causal != 0, q_off + w0,
+    flash_chunk<T, D, kFlashShortChunk / 8>(so, &sK[kb][0], &sV[kb][0], kb, kend_w, sk, causal != 0, q_off + w0,
                                          sl2, m, l, acc, lane);
-  flash_store<D>(so, o, w0, sq, l, acc, lane);
+  flash_store<T, D>(so, o, w0, sq, l, acc, lane);
 }
 
 // Long path: one block = kGroups row groups x kSplit key parts of one (b,
 // h), keys through a ring of kSplit * kSteps slots of kKeys keys.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * FlashLong<D>::kGroups * FlashLong<D>::kSplit, FlashLong<D>::kMinBlocks)
-    flash_long_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           int sq, int sk, int causal, float scale) {
+    flash_long_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                          T* __restrict__ o, int sq, int sk, int causal, float scale) {
+  static_assert(sizeof(T) == 2, "a 2-byte element type");
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, at most 128");
   static_assert(D % 32 == 0 || D == 16, "an odd count of k16 steps is taken at D = 16 only");
   using L = FlashLong<D>;
@@ -426,9 +427,9 @@ __global__ void __launch_bounds__(32 * FlashLong<D>::kGroups * FlashLong<D>::kSp
   static_assert(STEPS >= 2, "the ring holds a step in flight beside this one");
   static_assert((SPLIT - 1) * W * MERGE * 32 * 4 <= ST * BK * S * 2, "the merge reuses the K ring");
   extern __shared__ __align__(16) unsigned char flash_smem[];
-  auto sK = reinterpret_cast<__nv_bfloat16(*)[BK][S]>(flash_smem);  // [ST][BK][S]
+  auto sK = reinterpret_cast<T(*)[BK][S]>(flash_smem);  // [ST][BK][S]
   auto sV = sK + ST;
-  auto sQO = reinterpret_cast<__nv_bfloat16(*)[S]>(sV + ST);  // [ROWS][S]
+  auto sQO = reinterpret_cast<T(*)[S]>(sV + ST);  // [ROWS][S]
 
   const size_t bh = blockIdx.x;
   const int rb = causal && gridDim.y > 1 ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -477,7 +478,7 @@ __global__ void __launch_bounds__(32 * FlashLong<D>::kGroups * FlashLong<D>::kSp
   for (int u = 0; u < STEPS - 1; ++u) load_step(u);
   cp_async_wait<STEPS - 1>();  // Q has landed
   __syncthreads();
-  __nv_bfloat16* so = &sQO[grp * 16][0];  // the group's own rows
+  T* so = &sQO[grp * 16][0];  // the group's own rows
 
   const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
   float m[2] = {kNegInf, kNegInf}, l[4] = {0.f, 0.f, 0.f, 0.f};
@@ -495,7 +496,7 @@ __global__ void __launch_bounds__(32 * FlashLong<D>::kGroups * FlashLong<D>::kSp
     load_step(u + STEPS - 1);
     const int t = u * SPLIT + part;
     if (t * BK < kend_w)
-      flash_chunk<D, BK / 8>(so, &sK[t % ST][0][0], &sV[t % ST][0][0], t * BK, kend_w, sk, causal != 0,
+      flash_chunk<T, D, BK / 8>(so, &sK[t % ST][0][0], &sV[t % ST][0][0], t * BK, kend_w, sk, causal != 0,
                              q_off + w0, sl2, m, l, acc, lane);
   }
 
@@ -538,7 +539,7 @@ __global__ void __launch_bounds__(32 * FlashLong<D>::kGroups * FlashLong<D>::kSp
     }
   }
 
-  flash_store<D>(so, o, w0, sq, l, acc, lane);
+  flash_store<T, D>(so, o, w0, sq, l, acc, lane);
 }
 
 }  // namespace lumen

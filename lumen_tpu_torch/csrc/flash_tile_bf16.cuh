@@ -1,8 +1,11 @@
-// The bf16 instance of the flash tile, on the tensor cores: one thread
-// block of online-softmax attention over one (batch, head), FA2-style,
-// with one fixed block shape. flash_attention_cache.cu (prefill chunks
-// against the contiguous KV scratch) runs it; flash_attention runs its
-// fork, flash_plan_bf16.cuh, which picks a plan for each call. The fp32
+// The 2-byte instances of the flash tile (bf16 and fp16), on the tensor
+// cores: one thread block of online-softmax attention over one (batch,
+// head), FA2-style, with one fixed block shape. flash_attention_cache.cu
+// (prefill chunks against the contiguous KV scratch) runs it;
+// flash_attention runs its fork, flash_plan_bf16.cuh, which picks a plan
+// for each call. The element type T (__nv_bfloat16 or __half) changes
+// only the mma form and the two roundings (P and the output): the fp16
+// instance runs the bf16 one's block shape and operations. The fp32
 // instance stays on the FMA units (flash_tile_fp32.cuh says why).
 //
 // Replaces the body of the Pallas kernel _flash_cache_kernel
@@ -17,35 +20,35 @@
 //   has kFlashSplit warps; warp s of a group takes key tiles s, s +
 //   kFlashSplit, ... with its own online softmax, and the group's warps
 //   are merged in a fixed order at the end (below). A warp loads its Q
-//   fragments (16 x D bf16: 16 registers a thread for D = 64) once,
+//   fragments (16 x D of T: 16 registers a thread for D = 64) once,
 //   through shared memory and ldmatrix, and keeps them.
 // - Keys come in tiles of 64, copied with 16-byte cp.async into a ring of
 //   kFlashStages tile slots in (dynamic) shared memory, a step of
 //   kFlashSplit tiles at a time: the next step is in flight while this one
-//   is computed. Rows are padded to D + 8 bf16 (144 B), which makes every
+//   is computed. Rows are padded to D + 8 elements (144 B), which makes every
 //   ldmatrix phase touch 32 distinct banks. Rows at or past kend (below)
 //   are zero-filled without a read.
-// - S = Q K^T: mma.sync m16n8k16 bf16 -> fp32, K's B fragments by ldmatrix
+// - S = Q K^T: mma.sync m16n8k16 T -> fp32, K's B fragments by ldmatrix
 //   (a [key][D] row is already the .col layout). 8 n8 tiles x D/16 k-steps.
 //   One ldmatrix.x4 fills two k-steps of a score tile; at D = 16 (one
 //   k-step) it fills one k-step of two neighbouring score tiles instead.
-//   Rows of 16 + 8 bf16 (48 B) put the 8 rows of an ldmatrix phase on 8
+//   Rows of 16 + 8 elements (48 B) put the 8 rows of an ldmatrix phase on 8
 //   distinct 4-bank groups, so that width is conflict-free too.
 // - Scores are scaled in fp32 by scale * log2(e) and exponentiated with
 //   exp2f, so Q, K and the scores are never rounded; the only rounding
-//   beyond the fp32 sums is P's to bf16 (next point). Only tiles that cross
+//   beyond the fp32 sums is P's to T (next point). Only tiles that cross
 //   a bound (kv_valid, sk, or the causal diagonal of the warp's rows) are
 //   masked, in registers, with the -1e30 of common.cuh; interior tiles are
 //   not. Row max and sum shuffle within the 4-lane quad that holds a row.
 // - P V with P in registers: the C fragments of two neighbouring n8 score
 //   tiles are the A fragment of one k16 step, so the unnormalised P is
-//   rounded to bf16 in registers and never touches shared memory. V's B
+//   rounded to T in registers and never touches shared memory. V's B
 //   fragments come from ldmatrix.trans.
 // - O accumulates in fp32 registers (D / 2 a thread). Merge: warps 1 ..
 //   kFlashSplit - 1 of a row group leave (max, sum, O) in shared memory and
 //   warp 0 folds them in, in that order, lane by lane (the same lane holds
 //   the same fragment). The epilogue divides by max(l, 1e-20), rounds to
-//   bf16 once, and stores 16-byte vectors through the Q/O staging rows.
+//   T once, and stores 16-byte vectors through the Q/O staging rows.
 // - Tile skipping as in the fp32 tile: no tile at or past kend = min(
 //   kv_valid, sk, the block's causal diagonal) is loaded, and a warp skips
 //   the tiles wholly above its own rows' diagonal (their P is exactly 0).
@@ -82,30 +85,29 @@ constexpr int kFlashMmaThreads = 32 * kFlashWarps * kFlashSplit;
 constexpr int kFlashMmaKeys = 64;  // keys per tile
 
 // Dynamic shared memory of the tile: the K and V rings and the Q/O rows,
-// each row padded to D + 8 bf16.
+// each row padded to D + 8 2-byte elements.
 template <int D>
-constexpr int flash_bf16_smem_bytes() {
+constexpr int flash_mma_smem_bytes() {
   return (2 * kFlashStages * kFlashMmaKeys + kFlashMmaRows) * (D + 8) * 2;
 }
 
 // q/o: this (b, h)'s [sq, D] slice; k/v: its [sk, D] slice; q0: the
 // block's first query row. Key j is visible to query i iff j < kv_valid,
 // j < sk and (not causal or j <= q_off + i) -- the mask of both JAX kernels.
-// Launch with kFlashMmaThreads threads and flash_bf16_smem_bytes<D>() of
-// dynamic shared memory.
-template <int D>
-__device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict__ q,
-                                                const __nv_bfloat16* __restrict__ k,
-                                                const __nv_bfloat16* __restrict__ v,
-                                                __nv_bfloat16* __restrict__ o, int sq, int sk,
-                                                int q0, int q_off, int kv_valid, bool causal,
-                                                float scale) {
+// Launch with kFlashMmaThreads threads and flash_mma_smem_bytes<D>() of
+// dynamic shared memory. T: __nv_bfloat16 or __half.
+template <typename T, int D>
+__device__ __forceinline__ void flash_tile_mma(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, T* __restrict__ o, int sq,
+                                               int sk, int q0, int q_off, int kv_valid, bool causal,
+                                               float scale) {
+  static_assert(sizeof(T) == 2, "a 2-byte element type");
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, at most 128");
   static_assert(D % 32 == 0 || D == 16, "an odd count of k16 steps is taken at D = 16 only");
   constexpr int BK = kFlashMmaKeys, ST = kFlashStages, SPLIT = kFlashSplit;
   constexpr int STEPS = ST / SPLIT;  // steps of SPLIT tiles the ring holds
   static_assert(ST % SPLIT == 0 && STEPS >= 2, "the ring holds a step in flight beside this one");
-  constexpr int S = D + 8;    // padded row, bf16
+  constexpr int S = D + 8;    // padded row, elements
   constexpr int CH = D / 8;   // 16-byte chunks per row
   constexpr int KS = D / 16;  // k16 steps of Q K^T
   constexpr int NT = BK / 8;  // n8 score tiles per key tile
@@ -114,9 +116,9 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
   static_assert((SPLIT - 1) * kFlashWarps * MERGE * 32 * 4 <= ST * BK * S * 2,
                 "the merge reuses the K ring");
   extern __shared__ __align__(16) unsigned char flash_smem[];
-  auto sK = reinterpret_cast<__nv_bfloat16(*)[BK][S]>(flash_smem);  // [ST][BK][S]
+  auto sK = reinterpret_cast<T(*)[BK][S]>(flash_smem);  // [ST][BK][S]
   auto sV = sK + ST;
-  auto sQO = reinterpret_cast<__nv_bfloat16(*)[S]>(sV + ST);  // [kFlashMmaRows][S]
+  auto sQO = reinterpret_cast<T(*)[S]>(sV + ST);  // [kFlashMmaRows][S]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
@@ -195,16 +197,16 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
           for (int kk = 0; kk < KS; kk += 2) {
             uint32_t b[4];  // b[0..1]: k-step kk, b[2..3]: kk + 1
             ldmatrix_x4(b, &sK[st][n * 8 + (lane & 7)][kk * 16 + (lane >> 3) * 8]);
-            mma_bf16_16816(s[n], qf[kk], b);
-            mma_bf16_16816(s[n], qf[kk + 1], b + 2);
+            mma_16816<T>(s[n], qf[kk], b);
+            mma_16816<T>(s[n], qf[kk + 1], b + 2);
           }
       } else {
 #pragma unroll
         for (int n = 0; n < NT; n += 2) {
           uint32_t b[4];  // b[0..1]: score tile n, b[2..3]: n + 1 (the one k-step)
           ldmatrix_x4(b, &sK[st][(n + (lane >> 4)) * 8 + (lane & 7)][((lane >> 3) & 1) * 8]);
-          mma_bf16_16816(s[n], qf[0], b);
-          mma_bf16_16816(s[n + 1], qf[0], b + 2);
+          mma_16816<T>(s[n], qf[0], b);
+          mma_16816<T>(s[n + 1], qf[0], b + 2);
         }
       }
       // Scale; mask only a tile that crosses a bound for some row of the warp.
@@ -238,7 +240,7 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
         m[i] = m_new;
         l[i] *= alpha[i];
       }
-      // P = exp2(s - m), unnormalised, rounded to bf16 straight into the A
+      // P = exp2(s - m), unnormalised, rounded to T straight into the A
       // fragments of P V: score tiles 2kk and 2kk + 1 make k-step kk.
       uint32_t pf[NT / 2][4];
 #pragma unroll
@@ -247,8 +249,8 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
         const float p2 = exp2f(s[n][2] - m[1]), p3 = exp2f(s[n][3] - m[1]);
         l[0] += p0 + p1;
         l[1] += p2 + p3;
-        pf[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
-        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+        pf[n / 2][(n % 2) * 2] = pack2<T>(p0, p1);
+        pf[n / 2][(n % 2) * 2 + 1] = pack2<T>(p2, p3);
       }
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
@@ -264,8 +266,8 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
           uint32_t b[4];  // b[0..1]: output tile j, b[2..3]: j + 1
           ldmatrix_x4_trans(
               b, &sV[st][kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8][j * 8 + (lane >> 4) * 8]);
-          mma_bf16_16816(acc[j], pf[kk], b);
-          mma_bf16_16816(acc[j + 1], pf[kk], b + 2);
+          mma_16816<T>(acc[j], pf[kk], b);
+          mma_16816<T>(acc[j + 1], pf[kk], b + 2);
         }
       }
     }
@@ -310,7 +312,7 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
     }
   }
 
-  // Epilogue: the quad's sums, one division and one bf16 rounding, then
+  // Epilogue: the quad's sums, one division and one rounding to T, then
   // 16-byte stores through the group's own Q/O staging rows (read only by
   // the group's warps, before their first tile).
 #pragma unroll
@@ -319,13 +321,13 @@ __device__ __forceinline__ void flash_tile_bf16(const __nv_bfloat16* __restrict_
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-20f);
   }
-  __nv_bfloat16* so = &sQO[grp * 16][0];
+  T* so = &sQO[grp * 16][0];
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * tig;
-    *reinterpret_cast<uint32_t*>(so + gid * S + col) = pack_bf16(acc[j][0] / l[0], acc[j][1] / l[0]);
+    *reinterpret_cast<uint32_t*>(so + gid * S + col) = pack2<T>(acc[j][0] / l[0], acc[j][1] / l[0]);
     *reinterpret_cast<uint32_t*>(so + (gid + 8) * S + col) =
-        pack_bf16(acc[j][2] / l[1], acc[j][3] / l[1]);
+        pack2<T>(acc[j][2] / l[1], acc[j][3] / l[1]);
   }
   __syncwarp();
   for (int c = lane; c < 16 * CH; c += 32) {

@@ -27,13 +27,14 @@
 //   2. scores, masks each row's keys at or past its own slot length,
 //      takes each row's span max and sum, and accumulates P.V, on one of
 //      two paths:
-//      - tensor cores (bf16 at a GQA group of two or more, the dense
-//        decoder's 14/2 heads): one KV head a block, its group x W query
-//        rows as 16-row bf16 tiles, one tile a warp; S = Q K^T and P V by
-//        mma.sync m16n8k16 with fp32 accumulation, the row's max and sum
-//        over the quad of lanes that holds it, P rounded to bf16 in
-//        registers as the A fragments of P V (as flash_tile_bf16.cuh);
-//      - FMA units (fp32, and bf16 at a group of one, the Qwen2-MoE
+//      - tensor cores (bf16 or fp16 at a GQA group of two or more, the
+//        dense decoder's 14/2 heads): one KV head a block, its group x W
+//        query rows as 16-row tiles of the storage type, one tile a warp;
+//        S = Q K^T and P V by mma.sync m16n8k16 with fp32 accumulation,
+//        the row's max and sum over the quad of lanes that holds it, P
+//        rounded to the storage type in registers as the A fragments of
+//        P V (as flash_tile_bf16.cuh);
+//      - FMA units (fp32, and bf16 or fp16 at a group of one, the Qwen2-MoE
 //        decoder's 16/16 heads, where a 16-row tile would be 15 rows of
 //        padding): several KV heads a block, so no thread works for a
 //        padding row; a thread scores a key against up to kPagedRowGroup
@@ -89,6 +90,15 @@ template <>
 struct PagedShape<__nv_bfloat16, 128> {
   static constexpr int kSpan = 64, kHeadRows = 2, kRows = 40, kWarps = 8;
 };
+// fp16 takes the bf16 shapes: the same bytes a row, the same mma tiles.
+template <>
+struct PagedShape<__half, 64> {
+  static constexpr int kSpan = 64, kHeadRows = 4, kRows = 40, kWarps = 8;
+};
+template <>
+struct PagedShape<__half, 128> {
+  static constexpr int kSpan = 64, kHeadRows = 2, kRows = 40, kWarps = 8;
+};
 template <>
 struct PagedShape<float, 64> {
   static constexpr int kSpan = 64, kHeadRows = 2, kRows = 40, kWarps = 8;
@@ -114,7 +124,7 @@ struct PagedPlan {
 // Dynamic shared memory of a block. FMA path: the K and V rows of its KV
 // heads (each row padded by 16 B), the fp32 query rows, the rows' scores
 // (then probabilities) and their max and sum. Tensor-core path (one KV
-// head): the K and V rows and the bf16 query rows, padded to 16-row tiles.
+// head): the K and V rows and the 2-byte query rows, padded to 16-row tiles.
 template <typename T, int D>
 __host__ __device__ constexpr int paged_smem_bytes(bool mma, int kv_heads, int rows) {
   constexpr int S = PagedShape<T, D>::kSpan;
@@ -125,9 +135,9 @@ __host__ __device__ constexpr int paged_smem_bytes(bool mma, int kv_heads, int r
 }
 
 // The plan of a call: a function of (group, head_dim, window, dtype) alone.
-// bf16 with a GQA group of two or more runs the tensor-core path (one KV
-// head a block: a 16-row tile holds rows of one head); fp32, and bf16 at a
-// group of one, the FMA path (kHeadRows / group KV heads a block). The
+// A 2-byte type (bf16, fp16) with a GQA group of two or more runs the
+// tensor-core path (one KV head a block: a 16-row tile holds rows of one
+// head); fp32, and a 2-byte type at a group of one, the FMA path (kHeadRows / group KV heads a block). The
 // threads: a warp a 16-row tile (tensor cores) or a thread a (key, row
 // group) and a (2 dimensions, row group) item (FMA), and one (row, 4
 // dimensions) item a thread in the merge; four to kWarps warps.
@@ -175,6 +185,11 @@ __device__ __forceinline__ void load2(const float* p, float* out) {
 }
 __device__ __forceinline__ void load2(const __nv_bfloat16* p, float* out) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  out[0] = f.x;
+  out[1] = f.y;
+}
+__device__ __forceinline__ void load2(const __half* p, float* out) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(p));
   out[0] = f.x;
   out[1] = f.y;
 }
@@ -269,16 +284,17 @@ __device__ __forceinline__ void paged_walk_block(
   float* ws_ml = ws + rows_all * nspans * D;  // [rows_all][nspans][2]
 
   if constexpr (MMA) {
-    // 2-3 on the tensor cores (bf16, one KV head): the query rows as bf16
-    // 16-row tiles (rows past the block's zero), one tile a warp. S = Q K^T
+    // 2-3 on the tensor cores (bf16 or fp16, one KV head): the query rows
+    // as 16-row tiles of T (rows past the block's zero), one tile a warp. S = Q K^T
     // by mma.sync m16n8k16 (K's B fragments by ldmatrix), the row's max and
     // sum over the 4-lane quad that holds it, P = exp(s - m) rounded to
-    // bf16 into the A fragments of P V (V's B fragments by ldmatrix.trans),
+    // T into the A fragments of P V (V's B fragments by ldmatrix.trans),
     // fp32 accumulation throughout. A row's result does not depend on the
     // other rows of its tile.
     constexpr int KS = D / 16, NT = S / 8, DT = D / 8;
     static_assert(KS % 2 == 0 && NT % 2 == 0 && DT % 2 == 0, "tiles");
-    __nv_bfloat16* sQ = sV + (size_t)S * ROW;  // [rows padded to 16][ROW]
+    static_assert(sizeof(T) == 2, "the tensor-core path takes a 2-byte type");
+    T* sQ = sV + (size_t)S * ROW;  // [rows padded to 16][ROW]
     const int rows16 = (rows + 15) / 16 * 16;
     for (int idx = tid; idx < rows16 * RV; idx += nthreads) {
       const int r = idx / RV, c = (idx % RV) * VEC;
@@ -314,8 +330,8 @@ __device__ __forceinline__ void paged_walk_block(
         for (int kk = 0; kk < KS; kk += 2) {
           uint32_t bk[4];  // bk[0..1]: k-step kk, bk[2..3]: kk + 1
           ldmatrix_x4(bk, sK + (size_t)(n * 8 + (lane & 7)) * ROW + kk * 16 + (lane >> 3) * 8);
-          mma_bf16_16816(s[n], qf[kk], bk);
-          mma_bf16_16816(s[n], qf[kk + 1], bk + 2);
+          mma_16816<T>(s[n], qf[kk], bk);
+          mma_16816<T>(s[n], qf[kk + 1], bk + 2);
         }
       }
       float m[2], l[2];
@@ -343,8 +359,8 @@ __device__ __forceinline__ void paged_walk_block(
           pe[e] = expf(__fsub_rn(s[n][e], m[e >> 1]));
           l[e >> 1] = __fadd_rn(l[e >> 1], pe[e]);
         }
-        pf[n / 2][(n % 2) * 2] = pack_bf16(pe[0], pe[1]);
-        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);
+        pf[n / 2][(n % 2) * 2] = pack2<T>(pe[0], pe[1]);
+        pf[n / 2][(n % 2) * 2 + 1] = pack2<T>(pe[2], pe[3]);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -368,8 +384,8 @@ __device__ __forceinline__ void paged_walk_block(
             uint32_t bv[4];  // bv[0..1]: output tile h0 + j, bv[2..3]: h0 + j + 1
             ldmatrix_x4_trans(bv, sV + (size_t)(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ROW +
                                       (h0 + j) * 8 + (lane >> 4) * 8);
-            mma_bf16_16816(acc[j], pf[kk], bv);
-            mma_bf16_16816(acc[j + 1], pf[kk], bv + 2);
+            mma_16816<T>(acc[j], pf[kk], bv);
+            mma_16816<T>(acc[j + 1], pf[kk], bv + 2);
           }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -379,7 +395,7 @@ __device__ __forceinline__ void paged_walk_block(
 #pragma unroll
             for (int j = 0; j < DH; ++j)
               *reinterpret_cast<uint32_t*>(o + qr[i] * D + col + j * 8) =
-                  pack_bf16(__fdiv_rn(acc[j][2 * i], l[i]), __fdiv_rn(acc[j][2 * i + 1], l[i]));
+                  pack2<T>(__fdiv_rn(acc[j][2 * i], l[i]), __fdiv_rn(acc[j][2 * i + 1], l[i]));
           } else {
             float* part = ws_acc + (qr[i] * nspans + span) * D + col;
 #pragma unroll
@@ -640,19 +656,17 @@ __global__ void __launch_bounds__(kPagedMaxThreads)
                                 slot_groups, rows_blk);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kPagedMaxThreads)
-    paged_walk_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k_pages,
-                          const __nv_bfloat16* __restrict__ v_pages,
-                          const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
-                          __nv_bfloat16* __restrict__ o, float* __restrict__ ws,
+    paged_walk_mma_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+                          const int* __restrict__ kv_lens, T* __restrict__ o, float* __restrict__ ws,
                           int* __restrict__ counters, int batch, int heads, int kv_heads, int page,
                           int maxp, int window, float scale, int kvh_blk, int slots_blk,
                           int slot_groups, int rows_blk) {
-  paged_walk_block<__nv_bfloat16, D, true>(q, k_pages, v_pages, block_tables, kv_lens, o, ws,
-                                           counters, batch, heads, kv_heads, page, maxp, window,
-                                           scale, kvh_blk, slots_blk, slot_groups, rows_blk);
+  paged_walk_block<T, D, true>(q, k_pages, v_pages, block_tables, kv_lens, o, ws, counters, batch,
+                               heads, kv_heads, page, maxp, window, scale, kvh_blk, slots_blk,
+                               slot_groups, rows_blk);
 }
 
 // The kernel a plan launches, with the instance's dynamic shared memory
@@ -666,7 +680,7 @@ static int paged_kernel(bool mma, void (**kernel)(const T*, const T*, const T*, 
   if constexpr (sizeof(T) == 2) {
     if (mma) {
       smem = paged_smem_max<T, D>(true);
-      *kernel = paged_walk_mma_kernel<D>;
+      *kernel = paged_walk_mma_kernel<T, D>;
     }
   }
   if (smem <= 48 * 1024) return 0;
@@ -701,8 +715,9 @@ static inline bool paged_shape_ok(int heads, int kv_heads, int window, int page,
          page >= 1 && maxp >= 1;
 }
 
-// Entry-point body shared by both libraries: dtype and head_dim dispatch
-// (64: the dense Qwen2 decoder; 128: the Qwen2-MoE decoder). ws holds one
+// Entry-point body shared by both libraries: dtype (bf16, fp16, fp32) and
+// head_dim dispatch (64: the dense Qwen2 decoder; 128: the Qwen2-MoE
+// decoder). ws holds one
 // partial (acc[head_dim], then m and l) per query row ([B, W, H]) and
 // span of the table; counters one int per (row, KV-head set, slot group),
 // zero between launches.
@@ -721,6 +736,8 @@ static inline int paged_walk_dispatch(const void* q, const void* k_pages, const 
                                     window, heads, kv_heads, page, maxp, scale, s)
   if (dtype == kBFloat16 && head_dim == 64) LUMEN_PAGED_CASE(__nv_bfloat16, 64);
   if (dtype == kBFloat16 && head_dim == 128) LUMEN_PAGED_CASE(__nv_bfloat16, 128);
+  if (dtype == kFloat16 && head_dim == 64) LUMEN_PAGED_CASE(__half, 64);
+  if (dtype == kFloat16 && head_dim == 128) LUMEN_PAGED_CASE(__half, 128);
   if (dtype == kFloat32 && head_dim == 64) LUMEN_PAGED_CASE(float, 64);
   if (dtype == kFloat32 && head_dim == 128) LUMEN_PAGED_CASE(float, 128);
 #undef LUMEN_PAGED_CASE
@@ -762,6 +779,8 @@ static inline int paged_plan_query(int group, int head_dim, int window, int dtyp
   if (group < 1 || group > 8 || window < 1) return -1;
   if (dtype == kBFloat16 && head_dim == 64) return paged_plan_field_d<__nv_bfloat16, 64>(group, window, field);
   if (dtype == kBFloat16 && head_dim == 128) return paged_plan_field_d<__nv_bfloat16, 128>(group, window, field);
+  if (dtype == kFloat16 && head_dim == 64) return paged_plan_field_d<__half, 64>(group, window, field);
+  if (dtype == kFloat16 && head_dim == 128) return paged_plan_field_d<__half, 128>(group, window, field);
   if (dtype == kFloat32 && head_dim == 64) return paged_plan_field_d<float, 64>(group, window, field);
   if (dtype == kFloat32 && head_dim == 128) return paged_plan_field_d<float, 128>(group, window, field);
   return -1;

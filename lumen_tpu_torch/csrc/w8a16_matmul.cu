@@ -101,7 +101,7 @@ __host__ __device__ constexpr int qm_smem_bytes(int rt) {
 // Two int8 weights of one column (bytes a and b of `biased`, each with its
 // sign bit flipped: w + 128) as a bf16x2 B-fragment register, a in the low
 // half. Exact for |w| <= 128, the bits of static_cast<float> then
-// pack_bf16: the byte becomes the low mantissa byte of 2^23 (fp32 bits
+// pack2<__nv_bfloat16>: the byte becomes the low mantissa byte of 2^23 (fp32 bits
 // 0x4B0000xx), subtracting 2^23 + 128 in fp32 leaves w, and w's fp32 bits
 // cut to their top half are its bf16 bits (w has at most 8 significant
 // bits). Byte permutes and an fp32 add instead of int-to-float and
@@ -113,8 +113,8 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t biased) {
   return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
 }
 
-// mma_bf16_16816 and ldmatrix_x4 (the fragment layout is noted beside
-// them) live in common.cuh, shared with the bf16 flash tile.
+// mma_16816 and ldmatrix_x4 (the fragment layout is noted beside them)
+// live in common.cuh, shared with the flash tiles and the paged walk.
 //
 // Columns of a warp's 16 are interleaved over its two n8 MMA tiles: tile
 // j's column n is the warp's column 2n + j, so the two bytes a thread
@@ -215,8 +215,8 @@ __global__ void __launch_bounds__(kQmThreads)
       for (int t = 0; t < RT; ++t) {
         uint32_t a[4];
         ldmatrix_x4(a, xs + (t * kQmRows + lane % 16) * kQmXStride + kb + (lane / 16) * 8);
-        mma_bf16_16816(acc[t][0], a, bf[0]);
-        mma_bf16_16816(acc[t][1], a, bf[1]);
+        mma_16816<__nv_bfloat16>(acc[t][0], a, bf[0]);
+        mma_16816<__nv_bfloat16>(acc[t][1], a, bf[1]);
       }
     }
   }

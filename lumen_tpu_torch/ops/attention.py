@@ -33,7 +33,7 @@ NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: dtype codes of csrc/common.cuh
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 FLASH = CudaKernel(
     "flash_attention", "flash_attention", "lumen_flash_attention",
@@ -78,7 +78,7 @@ def _check_cuda(name: str, tensors: dict, dtype: torch.dtype) -> None:
         if t.is_floating_point() and t.dtype != dtype:
             raise ValueError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
     if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {dtype} not supported (bfloat16 or float32)")
+        raise ValueError(f"{name}: dtype {dtype} not supported (bfloat16, float16 or float32)")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -224,15 +224,16 @@ def flash_plan_constants() -> dict:
 
 
 def flash_plan(sq: int, sk: int, head_dim: int, causal: bool) -> dict:
-    """The launch plan of a bf16 :func:`flash_attention` call, twin of
-    ``flash_plan`` in ``csrc/flash_plan_bf16.cuh`` (``chip_smoke.py``
-    holds the two equal on the card): a function of the shape alone, never
-    of batch * heads. ``path`` "short" (sk <= 128: whole sequences a
-    block, K/V once in shared memory) or "long" (a ring of key tiles);
-    ``keys``: keys a warp's online-softmax step takes (a tile of the long
-    path's ring); the grid is ``(batch * heads, row_blocks)``."""
+    """The launch plan of a bf16 or float16 :func:`flash_attention` call
+    (one plan for both 2-byte types), twin of ``flash_plan`` in
+    ``csrc/flash_plan_bf16.cuh`` (``chip_smoke.py`` holds the two equal on
+    the card): a function of the shape alone, never of batch * heads.
+    ``path`` "short" (sk <= 128: whole sequences a block, K/V once in
+    shared memory) or "long" (a ring of key tiles); ``keys``: keys a
+    warp's online-softmax step takes (a tile of the long path's ring); the
+    grid is ``(batch * heads, row_blocks)``."""
     c = flash_plan_constants()
-    row_bytes = (head_dim + 8) * 2  # a padded bf16 row
+    row_bytes = (head_dim + 8) * 2  # a padded row of a 2-byte type
     r16 = lambda x: -(-x // 16) * 16  # noqa: E731
     if sk <= c["short_keys"]:
         rows = min(r16(sq), 16 * c["short_groups"])
@@ -275,7 +276,7 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     with torch.cuda.device(q.device):
         FLASH.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq, sk, d,
-            _DTYPE_CODES[q.dtype], int(causal), _scale(scale, d), _stream(q), instance=d,
+            _DTYPE_CODES[q.dtype], int(causal), _scale(scale, d), _stream(q), instance=d, dtype=q.dtype,
         )
     return out
 
@@ -311,7 +312,7 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
         FLASH_CACHE.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
             kv_valid.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
-            _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
+            _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d, dtype=q.dtype,
         )
     return out
 
@@ -322,7 +323,7 @@ def flash_attention_cache(q, k, v, q_offsets, kv_valid, scale: float | None = No
 PAGED_PLAN_FIELDS = ("span", "kv_heads", "slots", "slot_groups", "rows", "threads", "smem", "mma", "resident")
 
 #: the storage types of ``PagedShape`` in ``csrc/paged_walk.cuh``
-_PAGED_TYPES = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32}
+_PAGED_TYPES = {"__nv_bfloat16": torch.bfloat16, "__half": torch.float16, "float": torch.float32}
 
 
 @functools.cache
@@ -335,7 +336,7 @@ def paged_walk_shapes() -> dict:
     shapes = {
         (_PAGED_TYPES[t], int(d)): dict(zip(("span", "head_rows", "rows", "warps"), map(int, rest)))
         for t, d, *rest in re.findall(
-            r"struct PagedShape<(__nv_bfloat16|float), (\d+)> \{\s*static constexpr int kSpan = (\d+), "
+            r"struct PagedShape<(__nv_bfloat16|__half|float), (\d+)> \{\s*static constexpr int kSpan = (\d+), "
             r"kHeadRows = (\d+), kRows = (\d+), kWarps = (\d+);", text)
     }
     row_group = int(re.search(r"constexpr int kPagedRowGroup = (\d+);", text)[1])
@@ -348,16 +349,17 @@ def paged_plan(group: int, head_dim: int, window: int, dtype: torch.dtype) -> di
     ``csrc/paged_walk.cuh`` (``chip_smoke.py`` holds the two equal on the
     card): a function of (group = heads / kv_heads, head_dim, window,
     dtype) alone, never of the batch, ``maxp`` or the lengths. ``mma``: 1
-    for the tensor-core path (bf16 at a group of two or more, one KV head
-    a block, 16-row tiles a warp), 0 for the FMA path (fp32, and bf16 at a
-    group of one: several KV heads a block, so no query row is padding);
+    for the tensor-core path (bf16 or float16 at a group of two or more,
+    one KV head a block, 16-row tiles a warp), 0 for the FMA path (fp32,
+    and a 2-byte type at a group of one: several KV heads a block, so no
+    query row is padding);
     ``span`` key positions a block; ``kv_heads`` a block; ``slots`` of the
     window a block, in ``slot_groups`` groups; ``rows`` = kv_heads x slots
     x group query rows a block; ``threads``; ``smem`` bytes of dynamic
     shared memory. Cached: every paged launch sizes its scratch by it."""
     c = paged_walk_shapes()
     sh = c["shapes"][(dtype, head_dim)]
-    mma = int(dtype == torch.bfloat16 and group >= 2)
+    mma = int(dtype in (torch.bfloat16, torch.float16) and group >= 2)
     kv_heads = 1 if mma else max(1, sh["head_rows"] // group)
     per_slot = kv_heads * group
     slots_max = max(1, sh["rows"] // per_slot)
@@ -429,7 +431,8 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, kv_lens, scale=Non
         PAGED.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h,
-            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            instance=d, dtype=q.dtype,
         )
     return out
 
@@ -452,7 +455,8 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, block_tables, kv_lens, scal
         PAGED_VARQ.launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, w, h,
-            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q), instance=d,
+            kv_heads, page, maxp, d, _DTYPE_CODES[q.dtype], _scale(scale, d), _stream(q),
+            instance=d, dtype=q.dtype,
         )
     return out
 

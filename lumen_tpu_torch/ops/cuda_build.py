@@ -10,10 +10,10 @@ library's file name carries a hash of the sources and flags, so an edited
 kernel is never served from a stale build; a build that runs is reported
 to ``compile_cache.note_build``.
 
-A :class:`CudaKernel` also counts its launches, in all and by instance
-(the attention kernels' head_dim): ``chip_smoke.py`` zeroes the counts
-before it drives the serving path and reads them afterwards, to show the
-path really went through the kernels.
+A :class:`CudaKernel` also counts its launches, in all, by instance (the
+attention kernels' head_dim) and by (dtype, instance): ``chip_smoke.py``
+zeroes the counts before it drives the serving path and reads them
+afterwards, to show the path really went through the kernels.
 """
 
 from __future__ import annotations
@@ -54,6 +54,9 @@ class CudaKernel:
         self.launches = 0
         #: launches by template instance (``launch(..., instance=)``)
         self.instance_launches: dict[int, int] = {}
+        #: launches by element type and instance (``launch(..., dtype=)``):
+        #: ``{"float16": {64: n}}``
+        self.dtype_launches: dict[str, dict] = {}
         self._fn = None
         self._lib = None
         self._lock = threading.Lock()
@@ -104,11 +107,13 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn(*args)
 
-    def launch(self, *args, instance: int | None = None) -> None:
+    def launch(self, *args, instance: int | None = None, dtype=None) -> None:
         """Call the C entry point; raise on a non-zero CUDA error code
         (a refused launch never runs, and a later synchronize would not
         report it). ``instance`` names the template instance the call
-        reaches (a head_dim), counted apart as well."""
+        reaches (a head_dim), counted apart as well, and ``dtype`` (a
+        ``torch.dtype`` or its name) its element type, counted by type
+        and instance."""
         rc = self.load()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error code {rc}")
@@ -116,12 +121,16 @@ class CudaKernel:
             self.launches += 1
             if instance is not None:
                 self.instance_launches[instance] = self.instance_launches.get(instance, 0) + 1
+            if dtype is not None:
+                by = self.dtype_launches.setdefault(str(dtype).removeprefix("torch."), {})
+                by[instance] = by.get(instance, 0) + 1
 
     def zero_counts(self) -> None:
-        """Set the launch counts, in all and by instance, to 0."""
+        """Set the launch counts, in all, by instance and by type, to 0."""
         with self._lock:
             self.launches = 0
             self.instance_launches = {}
+            self.dtype_launches = {}
 
 
 def _finish_build(kernel: CudaKernel, build: tuple) -> str:

@@ -9,10 +9,13 @@ On one device (what a serving replica runs, ``runtime/mesh.py``):
   the ``T * k`` (token, choice) assignments are sorted by expert and the
   expert bank runs as three grouped products over the sorted rows -- the
   JAX ``lax.ragged_dot`` calls. :func:`grouped_mm` is
-  ``torch._grouped_mm``: ``ragged_dot`` is an XLA op, not a Pallas
-  kernel, so it stays a library call here, as it was one there. The
-  group ends stay on the device: no ``.tolist()``, no host sync, so a
-  decode step enqueues without waiting for the router;
+  ``torch._grouped_mm`` for bfloat16 and on the CPU (``ragged_dot`` is an
+  XLA op, not a Pallas kernel, so it stays a library call there, as it
+  was one in JAX), and the hand-written kernel ``csrc/grouped_mm.cu``
+  (:func:`grouped_mm_kernel`) for float16 and float32 on the card, where
+  ``torch._grouped_mm`` takes bfloat16 only. The group ends stay on the
+  device: no ``.tolist()``, no host sync, so a decode step enqueues
+  without waiting for the router;
 - the CAPACITY path (a finite ``capacity_factor``): GShard routing into
   ``C`` slots an expert, overflow dropped, dispatch and combine as
   einsums against one-hot masks, the bank as a batched einsum.
@@ -42,12 +45,15 @@ tensors, and a serving group's tokens are already on every rank.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 from torch.nn import functional as F
 
+from ..ops.attention import _DTYPE_CODES
+from ..ops.cuda_build import CudaKernel
 from ..runtime.mesh import EXPERT_AXIS, DeviceMesh
 from .spmd import all_to_all, axis_group, local_of, replicated_input
 from .tp import ExpertParallel
@@ -105,28 +111,73 @@ def _topk_gates(x: torch.Tensor, router: torch.Tensor, k: int, norm_topk: bool):
     return gate_vals, gate_idx
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the grouped product in float16 and float32 on the card
+#: (``csrc/grouped_mm.cu``)
+GROUPED_MM = CudaKernel("grouped_mm", "grouped_mm", "lumen_grouped_mm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+#: every kernel of this module, for builds and launch counts.
+KERNELS = (GROUPED_MM,)
+#: the dtypes :func:`grouped_mm_kernel` takes on the card
+GROUPED_MM_DTYPES = (torch.float16, torch.float32)
+
+
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     """``x`` [N, K] rows sorted by group, ``w`` [G, K, M], ``ends`` [G]
     int32 cumulative row ends (group g is rows ``ends[g-1]:ends[g]``) ->
     [N, M]: each group's rows times its matrix (JAX ``lax.ragged_dot``;
-    an empty group costs nothing). ``torch._grouped_mm`` on both devices:
-    K and M must be 16-byte multiples of the element size, and on the card
-    it takes bfloat16 only -- another dtype raises rather than running a
-    different product."""
-    if x.is_cuda and (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16):
-        raise NotImplementedError(
-            f"MoE grouped product on the card: {x.dtype} x {w.dtype}; torch._grouped_mm takes "
-            "bfloat16 there (serve the MoE decoder with dtype bfloat16)"
-        )
+    an empty group costs nothing). K and M must be 16-byte multiples of
+    the element size. The dtype picks the route: on the card bfloat16 runs
+    ``torch._grouped_mm`` and float16 and float32 :func:`grouped_mm_kernel`
+    (another dtype raises); on the CPU every dtype runs
+    ``torch._grouped_mm``. Neither route falls back to the other."""
     align = 16 // x.element_size()
     if x.shape[1] % align or w.shape[2] % align:
         raise ValueError(f"grouped_mm: widths {x.shape[1]} and {w.shape[2]} must be multiples of {align}")
+    if x.is_cuda and x.dtype != torch.bfloat16:
+        return grouped_mm_kernel(x, w, ends)
     return torch._grouped_mm(x.contiguous(), w, offs=ends)
 
 
+def grouped_mm_kernel(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """The grouped product in float16 or float32 (:func:`grouped_mm`'s
+    contract; rows past ``ends[-1]`` are zero): the CUDA kernel
+    ``csrc/grouped_mm.cu`` on CUDA tensors, which reads ``ends`` on the
+    device (no host sync), sums in fp32 and rounds to ``x.dtype`` once;
+    :func:`grouped_mm_reference` on CPU tensors. A CUDA tensor the kernel
+    does not take raises."""
+    if x.device.type == "cpu":
+        return grouped_mm_reference(x, w, ends)
+    n, k = x.shape
+    g, k2, m = w.shape
+    if x.dtype not in GROUPED_MM_DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"grouped_mm: {x.dtype} x {w.dtype}; the kernel takes float16 or float32 for both")
+    if k2 != k or ends.shape != (g,) or g < 1:
+        raise ValueError(f"grouped_mm: x {tuple(x.shape)}, w {tuple(w.shape)}, ends {tuple(ends.shape)}")
+    align = 16 // x.element_size()
+    if k % align or m % align:
+        raise ValueError(f"grouped_mm: widths {k} and {m} must be multiples of {align}")
+    x = x.contiguous()
+    ends = ends.to(torch.int32).contiguous()
+    for name, t in (("x", x), ("w", w), ("ends", ends)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"grouped_mm: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"grouped_mm: {name} must be contiguous and 16-byte aligned")
+    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        GROUPED_MM.launch(
+            x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), n, k, m, g, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream, dtype=x.dtype,
+        )
+    return out
+
+
 def grouped_mm_reference(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`grouped_mm`: one matrix product a group, the
-    group bounds read on the host."""
+    """Plain version of :func:`grouped_mm` and :func:`grouped_mm_kernel`:
+    one matrix product a group, the group bounds read on the host, rows
+    past the last end zero."""
     out = x.new_zeros((x.shape[0], w.shape[2]))
     start = 0
     for g, end in enumerate(ends.tolist()):

@@ -85,8 +85,8 @@ PATCHES = {
     "noload": [("        cp_async_16(&sK[t % ST][j][d], k + off, live);\n"
                 "        cp_async_16(&sV[t % ST][j][d], v + off, live);\n", "")],
     # no tile computed: the copies, waits and barriers alone
-    "nocompute": [("    if (t * BK < kend_w)\n      flash_chunk<D, BK / 8>(",
-                   "    if (false)\n      flash_chunk<D, BK / 8>(")],
+    "nocompute": [("    if (t * BK < kend_w)\n      flash_chunk<T, D, BK / 8>(",
+                   "    if (false)\n      flash_chunk<T, D, BK / 8>(")],
     # K/V rows by 1-D cp.async.bulk into the padded slots (D * 2 bytes a
     # row, issued by warp 0), completing on one mbarrier a ring step; rows
     # past kend zero-filled by plain stores
@@ -130,7 +130,7 @@ PATCHES = {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       for (int r = lane; r < 2 * nrows; r += 32) {
         const int key = k0 + (r >> 1), t = key / BK, j = key % BK;
-        const __nv_bfloat16* src = ((r & 1) ? v : k) + (size_t)key * D;
+        const T* src = ((r & 1) ? v : k) + (size_t)key * D;
         const void* dst = (r & 1) ? (const void*)&sV[t % ST][j][0] : (const void*)&sK[t % ST][j][0];
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(

@@ -17,7 +17,8 @@ variant is ``base`` (this checkout) or settings joined by ``+``:
 
 - ``NAME=VALUE``: a ``constexpr int NAME`` of the header
   (``kPagedRowGroup=2``: two query rows a thread of the FMA path);
-- ``bf16_64=S/H/R/W`` (also ``bf16_128``, ``fp32_64``, ``fp32_128``):
+- ``bf16_64=S/H/R/W`` (also ``bf16_128``, ``fp16_64``, ``fp16_128``, ``fp32_64``,
+  ``fp32_128``):
   ``PagedShape``'s span, KV-head rows, rows a block and warps a block;
 - ``src=DIR``: build from ``DIR`` instead of this checkout's ``csrc/``
   (another checkout's, e.g. the parent commit's, unpacked with ``git
@@ -184,7 +185,7 @@ def _keys2(text: str) -> str:
 
 PATCHES["keys2"] = _keys2
 DIAGNOSTIC = {"noload", "nocompute", "nomerge"}
-_TYPES = {"bf16": "__nv_bfloat16", "fp32": "float"}
+_TYPES = {"bf16": "__nv_bfloat16", "fp16": "__half", "fp32": "float"}
 
 
 def rewrite(text: str, setting: str) -> str:
@@ -200,7 +201,7 @@ def rewrite(text: str, setting: str) -> str:
             if (n := text.count(old)) != 1:
                 break
             text = text.replace(old, new)
-    elif m := re.fullmatch(r"(bf16|fp32)_(\d+)", name):
+    elif m := re.fullmatch(r"(bf16|fp16|fp32)_(\d+)", name):
         s, h, r, w = value.split("/")
         pattern = (rf"(struct PagedShape<{_TYPES[m[1]]}, {m[2]}> \{{\s*static constexpr int )"
                    r"kSpan = \d+, kHeadRows = \d+, kRows = \d+, kWarps = \d+;")

@@ -249,6 +249,26 @@ def test_chip_smoke_seq_drive_runs_on_cpu(clip_drive):
                                "mesh": chip_smoke.SEQ_VLM_AXES, "places": [0], "idle": [2, 3]}
 
 
+def test_chip_smoke_fp16_drive_runs_on_cpu(clip_drive, ocr_drive):
+    """Phase 23 at small sizes on the CPU, after phases 6, 8 and 10: the
+    float16 tier (phase 6's small VLM with speculation, phase 8's tiny
+    CLIP, phase 10's tiny native OCR) from one ``serve()``, then a 2-layer
+    MoE decoder of 4 experts in float16 and float32. The plain paths
+    launch nothing, and the phase holds launches and syncs on the card
+    only."""
+    from test_torch_chip_smoke_moe import _small_moe
+
+    root, _, phase6 = clip_drive
+    out = chip_smoke.drive_fp16(0, "cpu", root, phase6, device="cpu", n_captions=2, n_streams=1, n_photos=4,
+                                n_pages=1, moe_cfg=_small_moe(2))
+    assert out["a_clip_cos"] >= chip_smoke.CLIP_COSINE and out["a_turns"] > 0 and out["a_ocr_items"] > 0
+    assert out["a_vlm_cos"] > 0.9999 and out["a_vlm_nonfinite"] == 0  # plain attention on both sides
+    assert set(out["moe"]) == {"float16", "float32"} and all(r["tokens"] > 0 for r in out["moe"].values())
+    assert all(r["forward_cos"] > 0.9999 for r in out["moe"].values())
+    assert set(out["moe_layer_err"]) == {"bfloat16", "float16", "float32"} and out["moe_syncs"] == {}
+    assert not any(n for per in out["launches"].values() for by in per.values() for n in by.values())
+
+
 def test_phase_20_reads_each_rank_and_place():
     """Phase 20's readouts: each rank's launches, peaks and synchronize a
     data place (its selector and lane are in the tests above)."""
@@ -395,18 +415,19 @@ def test_a_host_that_fails_fails_its_stop(tmp_path):
         host.stop()
 
 
-@pytest.mark.parametrize("spec, want", [(None, set(range(1, 23))), ("13", {1, 6, 13}),
+@pytest.mark.parametrize("spec, want", [(None, set(range(1, 24))), ("13", {1, 6, 13}),
                                         ("11", {1, 6, 8, 9, 10, 11}), ("2,4", {1, 2, 4}), ("15", {1, 15}),
                                         ("16", {1, 16}), ("17", {1, 6, 8, 17}), ("18", {1, 18}),
                                         ("15,18", {1, 15, 18}), ("19", {1, 2, 6, 8, 9, 19}),
                                         ("20", {1, 6, 8, 9, 20}), ("21", {1, 6, 8, 9, 12, 21}),
-                                        ("22", {1, 6, 8, 22})])
+                                        ("22", {1, 6, 8, 22}), ("23", {1, 6, 8, 9, 10, 23})])
 def test_phase_selector_adds_the_phases_read(spec, want):
     assert chip_smoke.phase_set(spec) == want
 
 
 @pytest.mark.parametrize("spec, want", [
-    (None, [(8, (12, 14, 21), {12: [6, 8], 14: [6, 9, 10], 21: [6, 8, 9]}), (15, (16, 22), {16: [], 22: [6, 8]})]),
+    (None, [(8, (12, 14, 21, 23), {12: [6, 8], 14: [6, 9, 10], 21: [6, 8, 9], 23: [6, 8, 10]}),
+            (15, (16, 22), {16: [], 22: [6, 8]})]),
     ("14", [(8, (12, 14), {12: [6, 8], 14: [6, 9, 10]})]),
     ("12", [(8, (12,), {12: [6, 8]})]),
     ("16", [(15, (16,), {16: []})]),
@@ -414,6 +435,7 @@ def test_phase_selector_adds_the_phases_read(spec, want):
     ("20", []),
     ("21", [(8, (12, 21), {12: [6, 8], 21: [6, 8, 9]})]),
     ("22", [(15, (22,), {22: [6, 8]})]),
+    ("23", [(8, (23,), {23: [6, 8, 10]})]),
 ])
 def test_lanes_beside_the_main_one(spec, want):
     """Which phases run beside the main lane, after which main-lane phase

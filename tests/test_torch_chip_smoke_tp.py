@@ -15,12 +15,16 @@ import torch
 import chip_smoke
 from lumen_tpu_torch.models.clip import CLIPConfig, CLIPModel
 from lumen_tpu_torch.models.vlm import VLMConfig, VLMModel, init_random_
+from lumen_tpu_torch.ops import quant_matmul
 from lumen_tpu_torch.runtime import tp_group
 from lumen_tpu_torch.testing.vlm_standins import write_model_dir
 
 
 def test_chip_smoke_tp_drive_runs_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv("LUMEN_DECODE_PROCS", "0")
+    # the int8 routing rule is sticky for the process, and an earlier test
+    # file on this worker may have served a model axis: start from none
+    monkeypatch.setattr(quant_matmul, "_MESH_MODEL_AXIS", 1)
     cfg = VLMConfig.tiny()
     model = init_random_(VLMModel(cfg), 6)
     vlm_dir = write_model_dir(tmp_path / "cache", "SmokeVLM", cfg, model.state_dict())

@@ -189,11 +189,13 @@ def test_int8_and_speculation_modules_are_checked():
     for mod in ("lumen_tpu_torch.ops.quant", "lumen_tpu_torch.ops.quant_matmul"):
         assert mod in mods
     from lumen_tpu_torch.ops import attention, quant_matmul
+    from lumen_tpu_torch.parallel import moe
 
-    names = {k.name for k in attention.KERNELS + quant_matmul.KERNELS}
+    names = {k.name for k in attention.KERNELS + quant_matmul.KERNELS + moe.KERNELS}
     import chip_smoke
 
-    assert names == set(chip_smoke.SOURCES)  # the smoke builds and reports all five kernels
+    # the smoke builds and reports all five kernels and the MoE grouped product
+    assert names == set(chip_smoke.SOURCES)
     for name, (source, replaces) in chip_smoke.SOURCES.items():
         assert (ROOT / source).is_file(), name
         assert replaces.split(":")[0] in (ROOT / source).read_text(), name
